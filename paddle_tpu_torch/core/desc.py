@@ -1,0 +1,199 @@
+"""Serializable program IR: ProgramDesc / BlockDesc / OpDesc / VarDesc.
+
+Counterpart of paddle_tpu/core/desc.py, kept as a copy so this package
+never imports the JAX one.  Same JSON schema: a program serialized by
+either package parses unchanged in the other, and `to_dict()` gives
+back the same dict.  Attrs may hold python scalars, lists, strings and
+block references (serialized as {"__block__": idx}).
+"""
+
+import json
+from collections import OrderedDict
+
+from .types import VarType, canonical_dtype
+
+
+class BlockRef:
+    """An attr value referencing a sub-block by index (reference:
+    framework.proto AttrType BLOCK)."""
+
+    __slots__ = ("idx",)
+
+    def __init__(self, idx):
+        self.idx = int(idx)
+
+    def __repr__(self):
+        return "BlockRef(%d)" % self.idx
+
+    def __eq__(self, other):
+        return isinstance(other, BlockRef) and other.idx == self.idx
+
+    def __hash__(self):
+        return hash(("__block__", self.idx))
+
+
+def _attr_to_jsonable(v):
+    if isinstance(v, BlockRef):
+        return {"__block__": v.idx}
+    if isinstance(v, (list, tuple)):
+        return [_attr_to_jsonable(x) for x in v]
+    return v
+
+
+def _attr_from_jsonable(v):
+    if isinstance(v, dict) and "__block__" in v:
+        return BlockRef(v["__block__"])
+    if isinstance(v, list):
+        return [_attr_from_jsonable(x) for x in v]
+    return v
+
+
+class VarDesc:
+    __slots__ = ("name", "type", "dtype", "shape", "lod_level",
+                 "persistable", "stop_gradient", "is_parameter")
+
+    def __init__(self, name, type=VarType.DENSE_TENSOR, dtype="float32",
+                 shape=(), lod_level=0, persistable=False,
+                 stop_gradient=False, is_parameter=False):
+        self.name = name
+        self.type = type
+        self.dtype = canonical_dtype(dtype) if dtype is not None else None
+        self.shape = tuple(int(s) for s in shape) if shape is not None else None
+        self.lod_level = lod_level
+        self.persistable = persistable
+        self.stop_gradient = stop_gradient
+        self.is_parameter = is_parameter
+
+    def to_dict(self):
+        return {
+            "name": self.name, "type": self.type, "dtype": self.dtype,
+            "shape": list(self.shape) if self.shape is not None else None,
+            "lod_level": self.lod_level, "persistable": self.persistable,
+            "stop_gradient": self.stop_gradient,
+            "is_parameter": self.is_parameter,
+        }
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(d["name"], d["type"], d["dtype"], d["shape"],
+                   d["lod_level"], d["persistable"], d["stop_gradient"],
+                   d.get("is_parameter", False))
+
+    def __repr__(self):
+        return "VarDesc(%s, %s%s, shape=%s%s)" % (
+            self.name, self.dtype, "" if self.lod_level == 0 else
+            "/lod%d" % self.lod_level, self.shape,
+            ", persistable" if self.persistable else "")
+
+
+class OpDesc:
+    __slots__ = ("type", "inputs", "outputs", "attrs")
+
+    def __init__(self, type, inputs=None, outputs=None, attrs=None):
+        self.type = type
+        # slot name -> list of var names (reference: framework.proto OpDesc.Var)
+        self.inputs = OrderedDict(
+            (k, list(v)) for k, v in (inputs or {}).items())
+        self.outputs = OrderedDict(
+            (k, list(v)) for k, v in (outputs or {}).items())
+        self.attrs = dict(attrs or {})
+
+    def input(self, slot):
+        return self.inputs.get(slot, [])
+
+    def output(self, slot):
+        return self.outputs.get(slot, [])
+
+    def input_names(self):
+        return [n for vs in self.inputs.values() for n in vs]
+
+    def output_names(self):
+        return [n for vs in self.outputs.values() for n in vs]
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+    def to_dict(self):
+        return {
+            "type": self.type,
+            "inputs": {k: list(v) for k, v in self.inputs.items()},
+            "outputs": {k: list(v) for k, v in self.outputs.items()},
+            "attrs": {k: _attr_to_jsonable(v) for k, v in self.attrs.items()},
+        }
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(d["type"], d["inputs"], d["outputs"],
+                   {k: _attr_from_jsonable(v) for k, v in d["attrs"].items()})
+
+    def __repr__(self):
+        def fmt(d):
+            return ", ".join("%s=[%s]" % (k, ",".join(v)) for k, v in d.items())
+        return "{%s: (%s) -> (%s)}" % (self.type, fmt(self.inputs),
+                                       fmt(self.outputs))
+
+
+class BlockDesc:
+    __slots__ = ("idx", "parent_idx", "vars", "ops")
+
+    def __init__(self, idx, parent_idx=-1):
+        self.idx = idx
+        self.parent_idx = parent_idx
+        self.vars = OrderedDict()   # name -> VarDesc
+        self.ops = []               # list of OpDesc
+
+    def var(self, name):
+        return self.vars[name]
+
+    def has_var(self, name):
+        return name in self.vars
+
+    def to_dict(self):
+        return {
+            "idx": self.idx, "parent_idx": self.parent_idx,
+            "vars": [v.to_dict() for v in self.vars.values()],
+            "ops": [o.to_dict() for o in self.ops],
+        }
+
+    @classmethod
+    def from_dict(cls, d):
+        b = cls(d["idx"], d["parent_idx"])
+        for vd in d["vars"]:
+            v = VarDesc.from_dict(vd)
+            b.vars[v.name] = v
+        b.ops = [OpDesc.from_dict(od) for od in d["ops"]]
+        return b
+
+
+class ProgramDesc:
+    __slots__ = ("blocks", "version")
+
+    def __init__(self):
+        self.blocks = [BlockDesc(0)]
+        self.version = 1
+
+    def block(self, idx):
+        return self.blocks[idx]
+
+    def append_block(self, parent_idx):
+        b = BlockDesc(len(self.blocks), parent_idx)
+        self.blocks.append(b)
+        return b
+
+    def to_dict(self):
+        return {"version": self.version,
+                "blocks": [b.to_dict() for b in self.blocks]}
+
+    @classmethod
+    def from_dict(cls, d):
+        p = cls()
+        p.version = d.get("version", 1)
+        p.blocks = [BlockDesc.from_dict(bd) for bd in d["blocks"]]
+        return p
+
+    def serialize_to_string(self):
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def parse_from_string(cls, s):
+        return cls.from_dict(json.loads(s))

@@ -1,0 +1,160 @@
+"""Executor: runs block 0 of a ProgramDesc op by op, eagerly.
+
+Counterpart of the inference subset of paddle_tpu/fluid/executor.py.
+Each op's kernel comes from the registry and runs on the tensors of the
+executor's place; PyTorch dispatches the work to the card as it goes.
+Jit segmentation, buffer donation, the compile cache and telemetry are
+the JAX side's alone for now.
+
+Places: `CUDAPlace(device_id)` is the default; `CPUPlace()` must be
+asked for.  A CUDAPlace without a CUDA device raises RuntimeError when
+the executor is made — the port never carries on on the CPU by itself.
+"""
+
+import contextlib
+
+import numpy as np
+import torch
+
+from ..core import scope as scope_mod
+from ..core.desc import ProgramDesc
+from ..core.scope import global_scope
+from ..core.types import (guard_int64_narrowing, np_dtype,
+                          tensor_from_numpy, torch_dtype)
+from ..ops import registry as op_registry
+
+__all__ = ["Executor", "Place", "CPUPlace", "CUDAPlace", "ExecContext",
+           "global_scope", "scope_guard", "apply_op"]
+
+
+class Place:
+    def device(self):
+        raise NotImplementedError
+
+
+class CPUPlace(Place):
+    def device(self):
+        return torch.device("cpu")
+
+    def __repr__(self):
+        return "CPUPlace()"
+
+
+class CUDAPlace(Place):
+    """One CUDA device (reference: platform/place.h CUDAPlace)."""
+
+    def __init__(self, device_id=0):
+        self.device_id = int(device_id)
+
+    def device(self):
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDAPlace(%d): no CUDA device is available; pass "
+                "place=CPUPlace() to run on the CPU" % self.device_id)
+        if self.device_id >= torch.cuda.device_count():
+            raise RuntimeError("CUDAPlace(%d): only %d CUDA devices"
+                               % (self.device_id,
+                                  torch.cuda.device_count()))
+        return torch.device("cuda", self.device_id)
+
+    def __repr__(self):
+        return "CUDAPlace(%d)" % self.device_id
+
+
+@contextlib.contextmanager
+def scope_guard(scope):
+    old = scope_mod._global_scope
+    scope_mod._global_scope = scope
+    try:
+        yield
+    finally:
+        scope_mod._global_scope = old
+
+
+class ExecContext:
+    """Handed to every kernel: the program, block and value env, the
+    scope and the place.  Pure ops ignore it."""
+
+    def __init__(self, program, block_idx, env, scope=None, place=None):
+        self.program = program
+        self.block_idx = block_idx
+        self.env = env
+        self.scope = scope
+        self.place = place
+
+
+def _lookup(ctx, name):
+    if name in ctx.env:
+        return ctx.env[name]
+    val = ctx.scope.get(name) if ctx.scope is not None else None
+    if val is None:
+        raise KeyError("variable %r is not initialized (op inputs must be "
+                       "fed, persistable, or produced earlier in the "
+                       "block)" % name)
+    return val
+
+
+def apply_op(ctx, op_desc):
+    """Run one op's kernel against ctx.env; returns its outputs."""
+    kernel = op_registry.get_op_info(op_desc.type).kernel
+    ins = {slot: [_lookup(ctx, n) for n in names]
+           for slot, names in op_desc.inputs.items()}
+    outs = kernel(ctx, ins, op_desc.attrs)
+    for slot, names in op_desc.outputs.items():
+        ctx.env.update(zip(names, outs.get(slot) or ()))
+    return outs
+
+
+class Executor:
+    """reference: python/paddle/v2/fluid/executor.py Executor."""
+
+    def __init__(self, place=None):
+        self.place = place if place is not None else CUDAPlace(0)
+        self.device = self.place.device()
+
+    def _prepare_feed(self, block_desc, name, val):
+        """Cast to the var desc's execution dtype, then move to the
+        place's device (int64 ids are range-checked before narrowing)."""
+        vd = block_desc.vars.get(name)
+        declared = vd.dtype if vd is not None else None
+        if isinstance(val, torch.Tensor):
+            if declared is not None:
+                val = val.to(torch_dtype(declared))
+            return val.to(self.device)
+        arr = np.asarray(val)
+        target = (np_dtype(declared) if declared is not None
+                  else np.dtype(np.int32) if arr.dtype == np.int64
+                  else arr.dtype)
+        if target == np.int32:
+            guard_int64_narrowing(arr, name)
+        return tensor_from_numpy(arr.astype(target, copy=False),
+                                 self.device)
+
+    @staticmethod
+    def _to_numpy(t):
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.detach().cpu().numpy()
+
+    def run(self, program, feed=None, fetch_list=None, scope=None,
+            return_numpy=True):
+        """Run block 0 of `program` (a ProgramDesc) with `feed` {name:
+        array or tensor}; returns the values of `fetch_list` (var names),
+        as numpy arrays or, with return_numpy=False, as tensors on the
+        place's device."""
+        if not isinstance(program, ProgramDesc):
+            raise TypeError("Executor.run needs a ProgramDesc, got %r"
+                            % type(program).__name__)
+        scope = scope if scope is not None else global_scope()
+        block = program.block(0)
+        with torch.inference_mode():
+            env = {name: self._prepare_feed(block, name, val)
+                   for name, val in (feed or {}).items()}
+            ctx = ExecContext(program, 0, env, scope=scope,
+                              place=self.place)
+            for op_desc in block.ops:
+                apply_op(ctx, op_desc)
+            outs = [_lookup(ctx, n) for n in fetch_list or ()]
+        if return_numpy:
+            return [self._to_numpy(o) for o in outs]
+        return outs

@@ -1,0 +1,10 @@
+"""Op kernels over torch tensors; importing the package registers them
+all."""
+
+from . import registry  # noqa: F401
+from . import math  # noqa: F401
+from . import tensor_ops  # noqa: F401
+from . import activation  # noqa: F401
+from . import sparse  # noqa: F401
+from . import norm  # noqa: F401
+from . import attention  # noqa: F401

@@ -32,7 +32,10 @@ setup(
     version="0.4.0",
     description="TPU-native deep learning framework with the "
                 "PaddlePaddle v2/early-Fluid capability surface",
-    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*"]),
+    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*",
+                                    "paddle_tpu_torch",
+                                    "paddle_tpu_torch.*"]),
+    package_data={"paddle_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     # the native runtime builds from these at first use (installed

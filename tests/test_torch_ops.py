@@ -1,0 +1,173 @@
+"""Each op kernel of the served transformer's program in the port
+(paddle_tpu_torch.ops) against the JAX registry's kernel of the same op
+type, on the same numpy inputs made from a seed.
+
+Tolerance: float32 outputs at atol 1e-5 (the same f32 arithmetic, summed
+in other orders); integer and exact outputs must be equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import paddle_tpu.ops  # noqa: F401 — registers the JAX kernels
+from paddle_tpu.ops import registry as jreg
+from paddle_tpu_torch.ops import registry as treg
+
+# the suite runs several test workers at once: one torch thread each
+torch.set_num_threads(1)
+
+ATOL = 1e-5
+
+
+def _run_both(op_type, ins, attrs):
+    """ins: {slot: [ndarray]}; returns {slot: [(jax_np, torch_np)]}."""
+    jouts = jreg.get_op_info(op_type).kernel(
+        None, {k: [jnp.asarray(a) for a in v] for k, v in ins.items()},
+        attrs)
+    touts = treg.get_op_info(op_type).kernel(
+        None, {k: [torch.from_numpy(np.array(a)) for a in v]
+               for k, v in ins.items()}, attrs)
+    assert set(touts) == set(jouts)
+    pairs = {}
+    for slot in jouts:
+        assert len(touts[slot]) == len(jouts[slot])
+        pairs[slot] = [(np.asarray(j), t.numpy())
+                       for j, t in zip(jouts[slot], touts[slot])]
+    return pairs
+
+
+def _check(op_type, ins, attrs):
+    for slot, pairs in _run_both(op_type, ins, attrs).items():
+        for j, t in pairs:
+            assert t.shape == j.shape, (slot, t.shape, j.shape)
+            np.testing.assert_allclose(t, j, atol=ATOL, rtol=0,
+                                       err_msg=slot)
+
+
+def _rs(seed=0):
+    return np.random.RandomState(seed)
+
+
+def _f32(*shape, seed=0):
+    return _rs(seed).randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("ids_shape,padding_idx", [
+    ((2, 3), -1), ((2, 3), 3), ((2, 3, 1), -1), ((2, 3, 1), 5),
+    ((6,), 0)])
+def test_lookup_table(ids_shape, padding_idx):
+    w = _f32(10, 4)
+    ids = _rs(1).randint(0, 10, size=ids_shape).astype(np.int32)
+    ids.flat[0] = max(padding_idx, 0)
+    _check("lookup_table", {"W": [w], "Ids": [ids]},
+           {"is_sparse": False, "padding_idx": padding_idx})
+
+
+def test_lookup_table_out_of_range_ids_match_take():
+    # negative ids count from the end; ids outside [-vocab, vocab) give
+    # NaN rows, as jnp.take's default fill mode does
+    w = _f32(10, 4)
+    ids = np.array([[0, 9, -1], [10, -11, 3]], np.int32)
+    _check("lookup_table", {"W": [w], "Ids": [ids]}, {"padding_idx": -1})
+
+
+@pytest.mark.parametrize("x_shape,y_shape,axis", [
+    ((2, 3, 5), (2, 3, 5), -1), ((2, 3, 5), (5,), -1),
+    ((2, 3, 5), (5,), 2), ((2, 3, 5), (3,), 1), ((2, 3, 5), (3, 5), 1),
+    ((2, 3, 5), (2,), 0)])
+def test_elementwise_add(x_shape, y_shape, axis):
+    _check("elementwise_add",
+           {"X": [_f32(*x_shape)], "Y": [_f32(*y_shape, seed=1)]},
+           {"axis": axis})
+
+
+@pytest.mark.parametrize("x_shape,y_shape,xn,yn", [
+    ((2, 3, 4), (4, 5), 2, 1), ((2, 3, 4), (12, 5), 1, 1),
+    ((6, 4), (4, 7), 1, 1), ((2, 3, 4), (2, 2, 5), 2, 2)])
+def test_mul(x_shape, y_shape, xn, yn):
+    _check("mul", {"X": [_f32(*x_shape)], "Y": [_f32(*y_shape, seed=1)]},
+           {"x_num_col_dims": xn, "y_num_col_dims": yn})
+
+
+@pytest.mark.parametrize("begin,affine,eps", [
+    (2, True, 1e-5), (1, True, 1e-5), (2, False, 1e-3), (1, False, 1e-5)])
+def test_layer_norm(begin, affine, eps):
+    x = _f32(2, 3, 8) * 3 + 1
+    ins = {"X": [x]}
+    n = int(np.prod(x.shape[begin:]))
+    if affine:
+        ins["Scale"] = [_f32(n, seed=1)]
+        ins["Bias"] = [_f32(n, seed=2)]
+    pairs = _run_both("layer_norm", ins,
+                      {"epsilon": eps, "begin_norm_axis": begin})
+    lead = int(np.prod(x.shape[:begin]))
+    assert pairs["Mean"][0][1].shape == (lead,)
+    assert pairs["Variance"][0][1].shape == (lead,)
+    for slot, ps in pairs.items():
+        for j, t in ps:
+            np.testing.assert_allclose(t, j, atol=ATOL, rtol=0,
+                                       err_msg=slot)
+
+
+@pytest.mark.parametrize("shape,attrs", [
+    ((2, 3, 12), {"axis": 2, "sections": [], "num": 3}),
+    ((2, 3, 12), {"axis": -1, "num": 2}),
+    ((6, 4), {"axis": 0, "sections": [1, 2, 3]}),
+    ((2, 8), {"axis": 1, "sections": [2, 3]}),
+    ((2, 3, 12), {"axis": 2, "sections": [4, 4, 4], "num": 0})])
+def test_split(shape, attrs):
+    pairs = _run_both("split", {"X": [_f32(*shape)]}, attrs)
+    for j, t in pairs["Out"]:
+        np.testing.assert_array_equal(t, j)
+
+
+def test_split_rejects_uneven_num():
+    x = torch.zeros(2, 7)
+    with pytest.raises(ValueError, match="equal parts"):
+        treg.get_op_info("split").kernel(None, {"X": [x]},
+                                         {"axis": 1, "num": 3})
+
+
+@pytest.mark.parametrize("shape", [(7,), (2, 3, 5)])
+def test_relu(shape):
+    pairs = _run_both("relu", {"X": [_f32(*shape)]}, {})
+    for j, t in pairs["Out"]:
+        np.testing.assert_array_equal(t, j)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("num_heads,dim,seq", [(4, 32, 16), (2, 16, 24),
+                                               (1, 8, 20)])
+def test_flash_attention_op(causal, num_heads, dim, seq):
+    ins = {"Q": [_f32(2, seq, dim)], "K": [_f32(2, seq, dim, seed=1)],
+           "V": [_f32(2, seq, dim, seed=2)]}
+    _check("flash_attention", ins,
+           {"num_heads": num_heads, "causal": causal, "sm_scale": 0.0,
+            "sequence_parallel_axis": "", "sequence_parallel_mode": "ring",
+            "block_size": 8})
+
+
+def test_flash_attention_op_explicit_scale():
+    ins = {"Q": [_f32(2, 16, 16)], "K": [_f32(2, 16, 16, seed=1)],
+           "V": [_f32(2, 16, 16, seed=2)]}
+    _check("flash_attention", ins,
+           {"num_heads": 2, "causal": True, "sm_scale": 0.3})
+
+
+def test_flash_attention_op_refuses_sequence_parallel():
+    q = torch.zeros(1, 8, 8)
+    with pytest.raises(NotImplementedError, match="ring"):
+        treg.get_op_info("flash_attention").kernel(
+            None, {"Q": [q], "K": [q], "V": [q]},
+            {"num_heads": 2, "sequence_parallel_axis": "sp"})
+
+
+def test_registry_holds_the_slice_op_set():
+    assert set(treg.registered_ops()) == {
+        "elementwise_add", "mul", "layer_norm", "split", "flash_attention",
+        "relu", "lookup_table"}
+    with pytest.raises(KeyError):
+        treg.get_op_info("conv2d")
