@@ -6,10 +6,19 @@
 Phases, each printing its lines; any failure exits non-zero and prints
 no result line:
   1. device: the card's name and power limit (fails without CUDA);
-  2. build: every CUDA kernel of the package, from csrc/, with nvcc;
+  2. build: every CUDA kernel of the package, from csrc/, with nvcc, and
+     the count of tensor-core instructions (HGMMA, HMMA) in the flash
+     kernel's SASS, which must not be 0;
   3. kernels: each kernel against its plain PyTorch version on the card,
-     at the served shapes and at edge cases, with kernel, plain and
-     library times and the bound of the same work on this card;
+     at the served shapes (also as strided views of the fc output, as
+     the split op hands them over) and at edge cases, with kernel, plain
+     and library (scaled_dot_product_attention) times and the bound of
+     the same work on this card by the kernel's route.  Kernel and
+     library times are device times (CUDA graph replay, so the host's
+     launch cost is out); the plain version's are CUDA events around
+     eager calls.  At the path shape it also times the f32 p.v route
+     not taken (mma.sync against wgmma) and names the library's kernels
+     with their tensor-core instruction counts;
   4. slice: the full-width transformer (batch 16, seq 512, d_model 512,
      6 layers, 8 heads, vocab 8192, random weights from a seed) exported,
      loaded by InferenceEngine on the card and served by InferenceServer:
@@ -39,8 +48,13 @@ BUCKETS = [1, 2, 4, 8, 16]
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12,     # f32 outside the tensor cores
-              "bfloat16": 989e12}   # bf16 tensor cores
+TF32_FLOPS = 495e12      # TF32 tensor cores
+BF16_FLOPS = 989e12      # bf16 tensor cores
+F32_CORE_FLOPS = 67e12   # f32 outside the tensor cores, for comparison
+# the kernel's route by dtype: f32 runs each product as split TF32 (three
+# TF32 products per f32 product), bf16 as one bf16 product
+ROUTE = {"float32": ("split TF32", 3, TF32_FLOPS),
+         "bfloat16": ("bf16", 1, BF16_FLOPS)}
 
 # kernel against plain version: (O atol, m atol, l rtol) by dtype.  Both
 # compute the same f32 sums in other orders (the kernel in 16-key chunks,
@@ -78,11 +92,40 @@ def cuda_ms(fn, iters=20, warm=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, launches=20, replays=5):
+    """Mean milliseconds of fn() on the card with the host taken out:
+    `launches` calls captured into one CUDA graph, replayed `replays`
+    times between CUDA events."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del graph
+    return ms
+
+
 def attention_bound(B, H, Tq, Tk, D, causal, q_offset, dtype):
-    """(ms, "bytes" | "operations"): the least time the card needs for
-    the attention forward on these inputs — q, k, v read once, o, m, l
-    written once, and 4*D operations per (query, key) pair this run's
-    mask keeps."""
+    """(ms, "bytes" | "operations", f32 CUDA-core ms): the least time the
+    card needs for the attention forward on these inputs by the kernel's
+    route — q, k, v read once, o, m, l written once, and 4*D operations
+    per (query, key) pair this run's mask keeps, each f32 one costing
+    three TF32 operations — and, for comparison, the operations on the
+    f32 CUDA cores."""
     itemsize = 2 if dtype == "bfloat16" else 4
     if causal:
         keys = np.clip(q_offset + np.arange(Tq) + 1, 0, Tk).sum()
@@ -90,10 +133,12 @@ def attention_bound(B, H, Tq, Tk, D, causal, q_offset, dtype):
         keys = Tq * Tk
     flops = 4.0 * D * B * H * float(keys)
     nbytes = B * H * ((2 * Tq + 2 * Tk) * D * itemsize + 2 * Tq * 4)
-    t_ops = flops / PEAK_FLOPS[dtype]
+    _, per_product, peak = ROUTE[dtype]
+    t_ops = flops * per_product / peak
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
-        "operations" if t_ops >= t_bytes else "bytes"
+        "operations" if t_ops >= t_bytes else "bytes", \
+        max(flops / F32_CORE_FLOPS, t_bytes) * 1e3
 
 
 def phase_device():
@@ -107,6 +152,30 @@ def phase_device():
     print("nvidia-smi: %s" % nvidia_smi_line(), flush=True)
 
 
+def sass_opcodes(library, function=None):
+    """Counter of the base opcodes (HGMMA, HMMA, FFMA, ...) in the SASS
+    of a shared library, or of one of its kernels by mangled name, by
+    cuobjdump."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    cmd = [tool, "-sass"] + (["-fun", function] if function else []) \
+        + [library]
+    sass = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    # "/*0150*/  @!P0 HMMA.1688.F32.TF32 R4, ..." -> HMMA
+    opcode = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_]*)")
+    ops = collections.Counter()
+    for line in sass.splitlines():
+        m = opcode.match(line)
+        if m:
+            ops[m.group(1)] += 1
+    return ops
+
+
 def phase_build():
     from paddle_tpu_torch.kernels import _build
 
@@ -116,32 +185,137 @@ def phase_build():
     for name in _build.SOURCES:
         log = _build.build_log(name) or "(already built)"
         print("build %s:\n%s" % (name, log.strip()), flush=True)
+    ops = sass_opcodes(_build.library_path("flash_attention_fwd"))
+    hgmma, hmma = ops["HGMMA"], ops["HMMA"]
+    print("build: flash_attention_fwd SASS holds %d HGMMA and %d HMMA "
+          "tensor-core instructions (%d FFMA)" % (hgmma, hmma, ops["FFMA"]),
+          flush=True)
+    if hgmma == 0:
+        raise SystemExit("chip_smoke: the flash kernel's SASS holds no "
+                         "HGMMA: it is not on the tensor cores")
+
+
+def library_instructions(call):
+    """The kernels scaled_dot_product_attention launches for `call`, each
+    with the opcode counts of its SASS in libtorch_cuda.so (found by its
+    mangled name, read off its host stub), or None for a kernel outside
+    the library (cuDNN builds its own): whether the library's path runs
+    on the tensor cores."""
+    import os
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    lib = os.path.join(os.path.dirname(torch.__file__), "lib",
+                       "libtorch_cuda.so")
+    symbols = subprocess.run(["nm", lib], capture_output=True, text=True,
+                             timeout=300).stdout
+    found = []
+    for name in names:
+        base = name.split("(")[0].split("<")[0].split()[-1]
+        stub = re.search(r"_Z(\d+)__device_stub__(Z\d+%s\w*)"
+                         % re.escape(base), symbols)
+        if stub is None:
+            found.append((name, None))
+            continue
+        mangled = "_" + stub.group(2)[:int(stub.group(1))
+                                      - len("__device_stub__")]
+        found.append((name, sass_opcodes(lib, mangled)))
+    return found
+
+
+def _library_call(q, k, v, scale, causal, q_offset):
+    """scaled_dot_product_attention on the same inputs and mask ([B, H,
+    T, D] views), the yardstick; no row here is fully masked, where the
+    two would differ."""
+    import torch
+    import torch.nn.functional as F
+
+    Tq, Tk = q.shape[2], k.shape[2]
+    if not causal:
+        return lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+    if q_offset == 0 and Tq == Tk:
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale)
+    mask = (q_offset + torch.arange(Tq, device=q.device))[:, None] \
+        >= torch.arange(Tk, device=q.device)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=scale)
 
 
 def phase_kernels():
     """The flash-attention kernel against its plain version; returns the
     path-shape f32 numbers for the kernels line."""
     import torch
-    import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     B, H, T, D = BATCH, N_HEAD, SEQ, D_MODEL // N_HEAD
-    cases = [  # name, T, dtype, causal, q_offset
-        ("path f32 causal", T, "float32", True, 0),
-        ("path bf16 causal", T, "bfloat16", True, 0),
-        ("path f32 non-causal", T, "float32", False, 0),
-        ("path f32 causal q_offset=64", T, "float32", True, 64),
-        ("T=200 f32 causal", 200, "float32", True, 0),
+    # bring the card up to its clocks before the first timing
+    a = torch.randn(4096, 4096, device="cuda", generator=gen)
+    t_end = time.perf_counter() + 0.5
+    while time.perf_counter() < t_end:
+        a @ a
+        torch.cuda.synchronize()
+    del a
+    cases = [  # name, Tq, Tk, head dim, dtype, causal, q_offset, split
+        ("path f32 causal", T, T, D, "float32", True, 0, False),
+        ("path bf16 causal", T, T, D, "bfloat16", True, 0, False),
+        ("path f32 causal, split views", T, T, D, "float32", True, 0, True),
+        ("path f32 non-causal", T, T, D, "float32", False, 0, False),
+        ("path f32 causal q_offset=64", T, T, D, "float32", True, 64,
+         False),
+        ("T=200 f32 causal", 200, 200, D, "float32", True, 0, False),
+        ("Tq=64 Tk=512 q_offset=448 f32 causal", 64, T, D, "float32",
+         True, 448, False),
+        ("D=32 f32 causal", T, T, 32, "float32", True, 0, False),
+        ("D=128 f32 causal", T, T, 128, "float32", True, 0, False),
+        ("D=128 bf16 causal", T, T, 128, "bfloat16", True, 0, False),
     ]
     path = None
-    for name, t, dtype, causal, q_offset in cases:
+    for name, tq, tk, d, dtype, causal, q_offset, split in cases:
         tdt = getattr(torch, dtype)
-        q, k, v = [torch.randn(B, H, t, D, device="cuda", generator=gen)
-                   .to(tdt) for _ in range(3)]
-        scale = D ** -0.5
-        o, m, l = fa.flash_attention_fwd(q, k, v, scale, causal,
-                                         q_offset=q_offset)
+        scale = d ** -0.5
+        if split:
+            # q, k, v as the split op leaves the [B, T, 3*H*d] fc output,
+            # O written into a [B, T, H*d] tensor
+            x = torch.randn(B, tq, 3 * H * d, device="cuda",
+                            generator=gen).to(tdt)
+            qs, ks, vs = (t.unflatten(-1, (H, d))
+                          for t in x.split(H * d, dim=-1))
+            out = torch.empty(B, tq, H * d, device="cuda", dtype=tdt)
+            o4 = out.unflatten(-1, (H, d))
+
+            def kernel():
+                return fa.flash_attention_bthd(qs, ks, vs, scale, causal,
+                                               q_offset, out=o4)
+
+            o, m, l = kernel()
+            if o.data_ptr() != out.data_ptr():
+                raise SystemExit("chip_smoke: the kernel did not write O "
+                                 "into the [B, T, H*D] tensor")
+            o = o.transpose(1, 2)
+            q, k, v = qs.transpose(1, 2), ks.transpose(1, 2), \
+                vs.transpose(1, 2)
+        else:
+            q = torch.randn(B, H, tq, d, device="cuda", generator=gen) \
+                .to(tdt)
+            k, v = [torch.randn(B, H, tk, d, device="cuda", generator=gen)
+                    .to(tdt) for _ in range(2)]
+
+            def kernel():
+                return fa.flash_attention_fwd(q, k, v, scale, causal,
+                                              q_offset=q_offset)
+
+            o, m, l = kernel()
         po, pm, pl = fa.flash_attention_plain(q, k, v, scale, causal,
                                               q_offset=q_offset)
         torch.cuda.synchronize()
@@ -151,25 +325,55 @@ def phase_kernels():
         tol_o, tol_m, tol_l = TOL[dtype]
         ok = err_o <= tol_o and err_m <= tol_m and err_l <= tol_l \
             and bool(torch.isfinite(o.float()).all())
-        k_ms = cuda_ms(lambda: fa.flash_attention_fwd(
-            q, k, v, scale, causal, q_offset=q_offset))
+        k_ms = device_ms(kernel)
+        eager_ms = cuda_ms(kernel)
         p_ms = cuda_ms(lambda: fa.flash_attention_plain(
             q, k, v, scale, causal, q_offset=q_offset), iters=5)
-        bound_ms, bound_by = attention_bound(B, H, t, t, D, causal,
-                                             q_offset, dtype)
-        print("kernel flash_attention_fwd [%s] %s: max_abs_err O %.3g "
-              "(atol %g) m %.3g (atol %g) l rel %.3g (rtol %g); kernel "
-              "%.4f ms, plain %.4f ms, bound %.4f ms (%s)"
-              % (name, list(q.shape), err_o, tol_o, err_m, tol_m, err_l,
-                 tol_l, k_ms, p_ms, bound_ms, bound_by), flush=True)
+        lib_ms = device_ms(_library_call(q, k, v, scale, causal, q_offset))
+        bound_ms, bound_by, core_ms = attention_bound(
+            B, H, tq, tk, d, causal, q_offset, dtype)
+        print("kernel flash_attention_fwd [%s] q %s k %s: max_abs_err O "
+              "%.3g (atol %g) m %.3g (atol %g) l rel %.3g (rtol %g); "
+              "kernel %.4f ms (eager calls %.4f ms), plain %.4f ms, library "
+              "scaled_dot_product_attention %.4f ms, bound %.4f ms (%s, "
+              "%s route; on the f32 CUDA cores %.4f ms)"
+              % (name, list(q.shape), list(k.shape), err_o, tol_o, err_m,
+                 tol_m, err_l, tol_l, k_ms, eager_ms, p_ms, lib_ms,
+                 bound_ms, bound_by, ROUTE[dtype][0], core_ms), flush=True)
+        if path is None:
+            # f32 p.v runs on wgmma; time the mma.sync route beside it
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            alt = fa._launch(qt, kt, vt, scale, causal, q_offset,
+                             pv_mma_sync=True)[0].transpose(1, 2)
+            torch.cuda.synchronize()
+            err_alt = (alt - po).abs().max().item()
+            alt_ms = device_ms(lambda: fa._launch(
+                qt, kt, vt, scale, causal, q_offset, pv_mma_sync=True))
+            again_ms = device_ms(kernel)
+            print("kernel flash_attention_fwd [%s] f32 p.v route: wgmma "
+                  "%.4f and %.4f ms, mma.sync %.4f ms (max_abs_err O "
+                  "%.3g)" % (name, k_ms, again_ms, alt_ms, err_alt),
+                  flush=True)
+            if err_alt > tol_o:
+                raise SystemExit("chip_smoke: the mma.sync p.v route "
+                                 "disagrees with the plain version")
+            try:
+                census = library_instructions(
+                    _library_call(q, k, v, scale, causal, q_offset))
+            except (OSError, subprocess.SubprocessError) as exc:
+                print("library scaled_dot_product_attention [%s]: SASS not "
+                      "measured (%s)" % (name, exc), flush=True)
+                census = []
+            for kname, ops in census:
+                print("library scaled_dot_product_attention [%s] runs %s: "
+                      "%s" % (name, kname[:100], "not in libtorch_cuda.so"
+                              if ops is None else "SASS %d HMMA, %d HGMMA, "
+                              "%d FFMA" % (ops["HMMA"], ops["HGMMA"],
+                                           ops["FFMA"])), flush=True)
         if not ok:
             raise SystemExit("chip_smoke: flash_attention_fwd disagrees "
                              "with its plain version on %s" % name)
         if path is None:
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, scale=scale))
-            print("library scaled_dot_product_attention [%s]: %.4f ms"
-                  % (name, lib_ms), flush=True)
             path = {"max_abs_err": err_o, "ms": k_ms, "plain_ms": p_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms}
@@ -223,6 +427,10 @@ def profile_forward(forward, runs=3):
         print("profile: %6.1f %% %9.3f ms per forward  %4d launches  %s"
               % (100.0 * us / busy_us, us / 1e3 / runs, count,
                  name[:110]), flush=True)
+    copies = [k for k in kernels if "copy" in k[0].lower()]
+    print("profile: copy kernels %d launches, %.3f ms per forward"
+          % (sum(k[2] for k in copies) // runs,
+             sum(k[1] for k in copies) / 1e3 / runs), flush=True)
 
 
 def phase_slice():

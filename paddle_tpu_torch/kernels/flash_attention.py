@@ -7,11 +7,15 @@ C++ source is csrc/flash_attention_fwd.cu (its head comment says what
 bounds it on the H100 and what its design does about that); it is built
 at first use and bound with ctypes.
 
-`flash_attention_fwd` is the wrapper: for a tensor on the CPU it runs
-`flash_attention_plain`, a blockwise online-softmax transcription of
-`_fwd_kernel` with `_fwd`'s block halving; for a CUDA tensor it launches
-the kernel, or raises.  It never falls back from the card to the plain
-version.  `flash_attention_fwd.launches` counts kernel launches and
+`flash_attention_fwd` ([B, H, T, D], the JAX side's layout) and
+`flash_attention_bthd` ([B, T, H, D] views, as the split op leaves q, k
+and v, with O written into a given [B, T, H*D] tensor) are the wrappers:
+for a tensor on the CPU they run `flash_attention_plain`, a blockwise
+online-softmax transcription of `_fwd_kernel` with `_fwd`'s block
+halving; for a CUDA tensor they launch the kernel on the views where
+they lie, or raise.  They never fall back from the card to the plain
+version.  `check_kernel_args` is the pure check of what the kernel
+takes.  `flash_attention_fwd.launches` counts kernel launches and
 nothing else.
 
 The backward (`_flash_bwd_rule` on the JAX side) comes with the training
@@ -24,7 +28,8 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "flash_attention", "flash_attention_fwd",
+__all__ = ["NEG_INF", "check_kernel_args", "flash_attention",
+           "flash_attention_bthd", "flash_attention_fwd",
            "flash_attention_plain", "reference_attention"]
 
 NEG_INF = -1e30
@@ -50,13 +55,15 @@ def flash_attention_plain(q, k, v, sm_scale=None, causal=False,
                           block_q=128, block_k=128, q_offset=0):
     """The kernel's function in plain PyTorch: (o, m, l).
 
-    q [B, H, Tq, D], k/v [B, H, Tk, D], f32 or bf16.  K/V stream in
-    `block_k` tiles (halved until they divide Tk, as `_fwd` does) with
-    an online softmax in f32; masked scores are the finite -1e30.  The
-    query blocks are independent, so all of them run at once: `block_q`
-    changes nothing in the result."""
+    q [B, H, Tq, D], k/v [B, H, Tk, D], f32 or bf16, any strides.  K/V
+    stream in `block_k` tiles (halved until they divide Tk, as `_fwd`
+    does) with an online softmax in f32; masked scores are the finite
+    -1e30.  The query blocks are independent, so all of them run at
+    once: `block_q` changes nothing in the result."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    # strided views (the split op's) take the contiguous call's arithmetic
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     bk = _halve(block_k, Tk)
@@ -86,68 +93,174 @@ def flash_attention_plain(q, k, v, sm_scale=None, causal=False,
     return (acc / safe_l[..., None]).to(q.dtype), m, l
 
 
-def _check(q, k, v):
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError("flash_attention: %s is on %s, the kernel "
-                             "needs CUDA tensors" % (name, t.device))
-        if t.device != q.device:
-            raise ValueError("flash_attention: q, k, v lie on different "
-                             "devices")
+class _Unaligned(ValueError):
+    """A view the kernel's TMA loads cannot walk as it lies."""
+
+
+_NAMES = ("q", "k", "v", "o")
+
+
+def check_kernel_args(q, k, v, o):
+    """Raise unless the kernel can read q, k, v and write o as they are;
+    return their 12 element strides, (batch, row, head) of q, k, v, o.
+
+    Each is a [B, T, H, D] view (q and o [B, Tq, H, D], k and v
+    [B, Tk, H, D]) of one dtype, float32 or bfloat16, with D in 1..128.
+    The kernel's TMA loads walk the rows of one head, so each view needs
+    a unit stride in D, a 16-byte-aligned base pointer, and batch, row
+    and head strides that are multiples of 16 bytes.  Looks at shapes,
+    strides and pointers only, never at the device.  It runs on every
+    launch, so the common case takes one pass."""
+    ts = (q, k, v, o)
+    dtype = q.dtype
+    for name, t in zip(_NAMES, ts):
         if t.dtype not in _DTYPE_CODE:
             raise TypeError("flash_attention: %s has dtype %s; the kernel "
                             "takes float32 or bfloat16" % (name, t.dtype))
-        if t.dtype != q.dtype:
-            raise TypeError("flash_attention: q, k, v differ in dtype")
-        if t.dim() != 4:
-            raise ValueError("flash_attention: %s must be [B, H, T, D], "
-                             "got %s" % (name, tuple(t.shape)))
-        if not t.is_contiguous():
-            raise ValueError("flash_attention: %s must be contiguous"
-                             % name)
-    B, H, Tq, D = q.shape
-    if tuple(k.shape[:2]) != (B, H) or k.shape[3] != D \
-            or tuple(v.shape) != tuple(k.shape):
-        raise ValueError("flash_attention: shapes q %s, k %s, v %s do not "
-                         "match" % (tuple(q.shape), tuple(k.shape),
-                                    tuple(v.shape)))
+        if t.dtype != dtype:
+            raise TypeError("flash_attention: q, k, v, o differ in dtype")
+    shapes = [tuple(t.shape) for t in ts]
+    for name, shape in zip(_NAMES, shapes):
+        if len(shape) != 4:
+            raise ValueError("flash_attention: %s must be [B, T, H, D], "
+                             "got %s" % (name, shape))
+    B, Tq, H, D = shapes[0]
+    Tk = shapes[1][1]
+    if shapes[1] != (B, Tk, H, D) or shapes[2] != shapes[1] \
+            or shapes[3] != shapes[0]:
+        raise ValueError("flash_attention: shapes q %s, k %s, v %s, o %s do "
+                         "not match" % tuple(shapes))
     if not 0 < D <= 128:
         raise ValueError("flash_attention: head dim %d; the kernel takes "
                          "1..128" % D)
-    if min(B * H, Tq, k.shape[2]) <= 0:
-        raise ValueError("flash_attention: empty input %s"
-                         % (tuple(q.shape),))
+    if min(B, H, Tq, Tk) <= 0:
+        raise ValueError("flash_attention: empty input %s" % (shapes[0],))
+    strides = [t.stride() for t in ts]
+    ptrs = [t.data_ptr() for t in ts]
+    size = q.element_size()
+    outer = [st[i] for st in strides for i in (0, 1, 2)]
+    if any(st[3] != 1 for st in strides) or any(p % 16 for p in ptrs) \
+            or any((x * size) % 16 for x in outer):
+        for name, st, ptr in zip(_NAMES, strides, ptrs):
+            if st[3] != 1:
+                raise _Unaligned(
+                    "flash_attention: %s has stride %d in its last "
+                    "dimension; the kernel needs unit stride"
+                    % (name, st[3]))
+            if ptr % 16:
+                raise _Unaligned("flash_attention: %s's base pointer is not "
+                                 "16-byte aligned" % name)
+            for x, what in zip(st[:3], ("batch", "row", "head")):
+                if (x * size) % 16:
+                    raise _Unaligned(
+                        "flash_attention: %s's %s stride of %d bytes is "
+                        "not a multiple of 16" % (name, what, x * size))
+    return outer
 
 
-def _launch(q, k, v, sm_scale, causal, q_offset):
-    _check(q, k, v)
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    B, H, Tq, D = q.shape
-    Tk = k.shape[2]
-    o = torch.empty_like(q)
-    m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             m.data_ptr(), l.data_ptr(), B * H, Tq, Tk, D,
-             float(sm_scale), int(bool(causal)), int(q_offset),
-             _DTYPE_CODE[q.dtype], stream)
+def _padded(q, k, v):
+    """Contiguous copies of q, k, v with D padded with zeros to a
+    multiple of 16 bytes: zero columns change no score, and give zero
+    columns of o."""
+    pad = -q.shape[3] % (16 // q.element_size())
+    return tuple(torch.nn.functional.pad(t, (0, pad)).contiguous()
+                 for t in (q, k, v))
+
+
+_fn = None
+
+
+def _kernel():
+    """The C entry point, its argument types set once."""
+    global _fn
+    if _fn is None:
+        fn = _build.load("flash_attention_fwd").flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _launch(q, k, v, sm_scale, causal, q_offset, out=None,
+            pv_mma_sync=False):
+    """Launch the kernel on [B, T, H, D] views; (o, m, l) with o the view
+    `out` (allocated when None) and m, l [B, H, Tq] float32.  Views the
+    TMA loads cannot walk (a misaligned pointer or stride, a strided D)
+    are copied, with D padded, first.  `pv_mma_sync` runs f32 p.v on
+    mma.sync instead of wgmma, to time the two routes."""
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        bad = [(n, t) for n, t in (("q", q), ("k", k), ("v", v))
+               if t.device.type != "cuda"]
+        if bad:
+            raise ValueError("flash_attention: %s is on %s, the kernel "
+                             "needs CUDA tensors" % (bad[0][0],
+                                                     bad[0][1].device))
+        raise ValueError("flash_attention: q, k, v lie on different "
+                         "devices")
+    if out is not None and out.device != dev:
+        raise ValueError("flash_attention: out lies on another device")
+    d_in = q.shape[3]
+    o = torch.empty(q.shape, dtype=q.dtype, device=dev) if out is None \
+        else out
+    try:
+        strides = check_kernel_args(q, k, v, o)
+    except _Unaligned:
+        q, k, v = _padded(q, k, v)
+        o = torch.empty(q.shape, dtype=q.dtype, device=dev)
+        strides = check_kernel_args(q, k, v, o)
+    B, Tq, H, D = q.shape
+    # m and l in one allocation, l right after m
+    ml = torch.empty((2, B, H, Tq), dtype=torch.float32, device=dev)
+    m_ptr = ml.data_ptr()
+    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    m_ptr, m_ptr + 4 * B * H * Tq, B, H, Tq, k.shape[1], D,
+                    (ctypes.c_longlong * 12)(*strides), float(sm_scale),
+                    bool(causal), int(q_offset), _DTYPE_CODE[q.dtype],
+                    int(pv_mma_sync),
+                    # the current stream's raw handle, by the private call
+                    # inductor uses: torch.cuda.current_stream() costs
+                    # several microseconds of host time per launch
+                    torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError("flash_attention_fwd kernel launch failed: "
                            "cudaError %d" % err)
     flash_attention_fwd.launches += 1
-    return o, m, l
+    if out is None:
+        out = o[..., :d_in]
+    elif o is not out:
+        out.copy_(o[..., :d_in])
+    m, l = ml
+    return out, m, l
+
+
+def flash_attention_bthd(q, k, v, sm_scale=None, causal=False, q_offset=0,
+                         out=None, block_q=128, block_k=128):
+    """(o, m, l) of the attention forward on [B, T, H, D] views, as the
+    `split` op leaves q, k and v; o [B, Tq, H, D] is written into `out`
+    when given (a view of a [B, Tq, H*D] tensor), m and l are
+    [B, H, Tq].  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel on the views where they lie."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        o, m, l = flash_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            sm_scale, causal, block_q, block_k, q_offset)
+        o = o.transpose(1, 2)
+        if out is None:
+            return o, m, l
+        return out.copy_(o), m, l
+    return _launch(q, k, v, sm_scale, causal, q_offset, out)
 
 
 def flash_attention_fwd(q, k, v, sm_scale=None, causal=False, block_q=128,
                         block_k=128, q_offset=0):
-    """(o, m, l) of the attention forward, the counterpart of `_fwd`.
+    """(o, m, l) of the attention forward, the counterpart of `_fwd`;
+    q [B, H, Tq, D], k/v [B, H, Tk, D], any strides.
 
     A CPU tensor takes the plain version (with `block_q`/`block_k`); a
     CUDA tensor launches the kernel, which has its own tiles and ignores
@@ -157,7 +270,11 @@ def flash_attention_fwd(q, k, v, sm_scale=None, causal=False, block_q=128,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale, causal, block_q,
                                      block_k, q_offset)
-    return _launch(q, k, v, sm_scale, causal, q_offset)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _, m, l = _launch(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), sm_scale, causal, q_offset,
+                      out.transpose(1, 2))
+    return out, m, l
 
 
 flash_attention_fwd.launches = 0

@@ -1,26 +1,17 @@
 """Attention ops: the flash-attention kernel as a registered op.
 
-Counterpart of paddle_tpu/ops/attention.py.  The op splits heads, runs
-kernels/flash_attention.py (the CUDA kernel on the card, its plain
-version on the CPU) and merges heads.  Ring and Ulysses sequence
-parallelism and `cached_attention` come with later slices.
+Counterpart of paddle_tpu/ops/attention.py.  The op views q, k and v as
+[B, T, H, Dh] where they lie (the `split` op leaves them as strided
+views of the fc output), runs kernels/flash_attention.py on those views
+(the CUDA kernel on the card, its plain version on the CPU) and has it
+write O straight into a [B, T, H*Dh] tensor: no head-split or merge
+copy.  `cached_attention` comes with a later slice.
 """
 
-from ..kernels.flash_attention import flash_attention
+import torch
+
+from ..kernels.flash_attention import flash_attention_bthd
 from .registry import register_op
-
-
-def _split_heads(x, num_heads):
-    """[B, T, H*Dh] -> [B, H, T, Dh], contiguous for the kernel."""
-    b, t, d = x.shape
-    return x.reshape(b, t, num_heads, d // num_heads) \
-        .permute(0, 2, 1, 3).contiguous()
-
-
-def _merge_heads(x):
-    """[B, H, T, Dh] -> [B, T, H*Dh]."""
-    b, h, t, dh = x.shape
-    return x.permute(0, 2, 1, 3).reshape(b, t, h * dh)
 
 
 @register_op("flash_attention")
@@ -32,11 +23,6 @@ def flash_attention_op(ctx, ins, attrs):
     num_heads = int(attrs.get("num_heads", 1))
     causal = bool(attrs.get("causal", False))
     sm_scale = float(attrs.get("sm_scale", 0.0)) or None
-    if attrs.get("sequence_parallel_axis", ""):
-        raise NotImplementedError(
-            "flash_attention: sequence_parallel_axis=%r — ring and Ulysses "
-            "attention are not ported yet"
-            % attrs["sequence_parallel_axis"])
     for name, t in (("Q", q), ("K", k), ("V", v)):
         if t.dim() != 3:
             raise ValueError("flash_attention %s must be 3-D "
@@ -45,9 +31,17 @@ def flash_attention_op(ctx, ins, attrs):
         if t.shape[-1] % num_heads:
             raise ValueError("hidden size %d must divide num_heads %d"
                              % (t.shape[-1], num_heads))
+    # A `sequence_parallel_axis` runs ring or Ulysses attention (by
+    # `sequence_parallel_mode`) only under a device mesh that names the
+    # axis, as on the JAX side; the port has no mesh yet, so such a
+    # program runs the local kernel.  Ring and Ulysses arrive with
+    # ROADMAP A7, together with a DeviceMesh.
     block = int(attrs.get("block_size", 128))
-    out = flash_attention(_split_heads(q, num_heads),
-                          _split_heads(k, num_heads),
-                          _split_heads(v, num_heads), sm_scale, causal,
-                          block_q=block, block_k=block)
-    return {"Out": [_merge_heads(out).to(q.dtype)]}
+    b, tq, d = q.shape
+    out = torch.empty((b, tq, d), dtype=q.dtype, device=q.device)
+    heads = [t.unflatten(-1, (num_heads, t.shape[-1] // num_heads))
+             for t in (q, k, v)]
+    flash_attention_bthd(*heads, sm_scale, causal,
+                         out=out.unflatten(-1, (num_heads, d // num_heads)),
+                         block_q=block, block_k=block)
+    return {"Out": [out]}

@@ -16,6 +16,10 @@ import torch
 
 import jax.numpy as jnp
 
+import paddle_tpu.ops  # noqa: F401 — registers the JAX kernels
+from paddle_tpu.ops import registry as jreg
+from paddle_tpu_torch.ops import registry as treg
+
 # the suite runs several test workers at once: one torch thread each
 torch.set_num_threads(1)
 
@@ -108,3 +112,114 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfa._launch(tq, tk, tv, 0.5, True, 0)
     assert tfa.flash_attention_fwd.launches == 0
+
+
+def _split_views(B, T, H, D, dtype=torch.float32, seed=0):
+    """q, k, v as [B, T, H, D] views of one [B, T, 3*H*D] tensor, as the
+    split op leaves an fc output."""
+    x = torch.from_numpy(np.random.RandomState(seed).randn(
+        B, T, 3 * H * D).astype(np.float32)).to(dtype)
+    return [t.unflatten(-1, (H, D)) for t in x.split(H * D, dim=-1)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_on_strided_views_equals_contiguous(dtype, causal):
+    q, k, v = (t.transpose(1, 2)
+               for t in _split_views(2, 40, 3, 16, getattr(torch, dtype)))
+    assert not q.is_contiguous()
+    got = tfa.flash_attention_plain(q, k, v, 0.25, causal, 16, 16, 3)
+    want = tfa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), 0.25, causal, 16, 16, 3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_bthd_writes_into_out_and_matches_bhtd():
+    q, k, v = _split_views(2, 24, 2, 8)
+    out = torch.empty(2, 24, 16)
+    o, m, l = tfa.flash_attention_bthd(q, k, v, None, True,
+                                       out=out.unflatten(-1, (2, 8)))
+    assert o.data_ptr() == out.data_ptr()
+    wo, wm, wl = tfa.flash_attention_fwd(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), None, True)
+    assert torch.equal(out.unflatten(-1, (2, 8)).transpose(1, 2), wo)
+    assert torch.equal(m, wm) and torch.equal(l, wl)
+
+
+@pytest.mark.parametrize("case", ["split views", "contiguous bthd",
+                                  "transposed bhtd", "bf16 split views"])
+def test_check_kernel_args_accepts_aligned_views(case):
+    if case == "split views":
+        q, k, v = _split_views(2, 24, 4, 32)
+    elif case == "bf16 split views":
+        q, k, v = _split_views(2, 24, 4, 64, torch.bfloat16)
+    elif case == "contiguous bthd":
+        q, k, v = (torch.zeros(2, 24, 4, 8) for _ in range(3))
+    else:
+        q, k, v = (torch.zeros(2, 4, 24, 8).transpose(1, 2)
+                   for _ in range(3))
+    o = torch.empty(q.shape[0], q.shape[1], q.shape[2] * q.shape[3],
+                    dtype=q.dtype).unflatten(-1, q.shape[2:])
+    tfa.check_kernel_args(q, k, v, o)
+
+
+def _bad_args(what):
+    q, k, v = _split_views(2, 24, 2, 32)
+    o = torch.empty(2, 24, 64).unflatten(-1, (2, 32))
+    if what == "last stride":
+        q = torch.zeros(2, 24, 2, 64)[..., ::2]
+    elif what == "base":
+        q = torch.zeros(2, 24, 2 * 32 + 1)[..., 1:].unflatten(-1, (2, 32))
+    elif what == "row stride":
+        q = torch.zeros(2, 24, 2 * 32 + 1)[..., :64].unflatten(-1, (2, 32))
+    elif what == "dtype":
+        q, k, v, o = (t.to(torch.float16) for t in (q, k, v, o))
+    elif what == "head dim":
+        q, k, v, o = (torch.zeros(1, 8, 1, 136) for _ in range(4))
+    return q, k, v, o
+
+
+@pytest.mark.parametrize("what,exc,msg", [
+    ("last stride", ValueError, "unit stride"),
+    ("base", ValueError, "base pointer is not 16-byte aligned"),
+    ("row stride", ValueError, "row stride of 260 bytes"),
+    ("dtype", TypeError, "float32 or bfloat16"),
+    ("head dim", ValueError, "head dim 136"),
+])
+def test_check_kernel_args_rejects(what, exc, msg):
+    with pytest.raises(exc, match=msg):
+        tfa.check_kernel_args(*_bad_args(what))
+
+
+def test_padded_copies_align_the_head_dim():
+    q, k, v = (torch.from_numpy(np.random.RandomState(i).randn(
+        1, 5, 2, 3).astype(np.float32)) for i in range(3))
+    with pytest.raises(ValueError, match="batch stride of 120 bytes"):
+        tfa.check_kernel_args(q, k, v, torch.empty(q.shape))
+    pq, pk, pv = tfa._padded(q, k, v)
+    assert pq.shape == (1, 5, 2, 4) and pq.is_contiguous()
+    assert torch.equal(pq[..., :3], q) and not pq[..., 3:].any()
+    strides = tfa.check_kernel_args(pq, pk, pv, torch.empty(pq.shape))
+    assert strides == [40, 8, 4] * 4
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("num_heads,dim,seq", [(4, 32, 16), (2, 16, 24),
+                                               (1, 8, 20)])
+def test_op_on_split_outputs_matches_jax(causal, num_heads, dim, seq):
+    x = np.random.RandomState(0).randn(2, seq, 3 * dim).astype(np.float32)
+    split = {"axis": 2, "num": 3}
+    jq, jk, jv = jreg.get_op_info("split").kernel(
+        None, {"X": [jnp.asarray(x)]}, split)["Out"]
+    tq, tk, tv = treg.get_op_info("split").kernel(
+        None, {"X": [torch.from_numpy(x)]}, split)["Out"]
+    assert not tq.is_contiguous()
+    attrs = {"num_heads": num_heads, "causal": causal, "sm_scale": 0.0,
+             "block_size": 8}
+    jo = jreg.get_op_info("flash_attention").kernel(
+        None, {"Q": [jq], "K": [jk], "V": [jv]}, attrs)["Out"][0]
+    to = treg.get_op_info("flash_attention").kernel(
+        None, {"Q": [tq], "K": [tk], "V": [tv]}, attrs)["Out"][0]
+    assert to.is_contiguous() and tuple(to.shape) == (2, seq, dim)
+    np.testing.assert_allclose(to.numpy(), _f32(jo), atol=2e-5, rtol=0)

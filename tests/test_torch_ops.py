@@ -157,12 +157,19 @@ def test_flash_attention_op_explicit_scale():
            {"num_heads": 2, "causal": True, "sm_scale": 0.3})
 
 
-def test_flash_attention_op_refuses_sequence_parallel():
-    q = torch.zeros(1, 8, 8)
-    with pytest.raises(NotImplementedError, match="ring"):
-        treg.get_op_info("flash_attention").kernel(
-            None, {"Q": [q], "K": [q], "V": [q]},
-            {"num_heads": 2, "sequence_parallel_axis": "sp"})
+@pytest.mark.parametrize("mode", ["ring", "ulysses"])
+def test_flash_attention_op_sequence_parallel_without_mesh(mode):
+    # with no device mesh naming the axis, both packages run the local
+    # kernel (the mode is read only under a mesh)
+    ins = {"Q": [_f32(1, 16, 8)], "K": [_f32(1, 16, 8, seed=1)],
+           "V": [_f32(1, 16, 8, seed=2)]}
+    pairs = _run_both("flash_attention", ins,
+                      {"num_heads": 2, "causal": True,
+                       "sequence_parallel_axis": "sp",
+                       "sequence_parallel_mode": mode, "block_size": 8})
+    (j, t), = pairs["Out"]
+    assert t.shape == j.shape == (1, 16, 8)
+    np.testing.assert_allclose(t, j, atol=2e-5, rtol=0)
 
 
 def test_registry_holds_the_slice_op_set():

@@ -237,3 +237,32 @@ def test_int64_ids_beyond_int32_raise(port_engine):
         Executor(CPUPlace()).run(port_engine.program, feed=feeds,
                                  fetch_list=[LOGITS],
                                  scope=port_engine.scope)
+
+
+def test_sequence_parallel_export_serves_as_in_jax(tmp_path):
+    # a transformer built with sp_axis="sp" carries that axis on every
+    # flash_attention op; with no device mesh both packages serve it with
+    # the local kernel
+    main, startup, _, logits = build_transformer_program(
+        2, T, V, n_layer=N_LAYER, n_head=N_HEAD, d_model=D, sp_axis="sp")
+    ops = [op for op in main.global_block().ops
+           if op.type == "flash_attention"]
+    assert ops and all(op.attr("sequence_parallel_axis") == "sp"
+                       for op in ops)
+    exe = jfluid.Executor(jfluid.CPUPlace())
+    with jfluid.scope_guard(JScope()):
+        exe.run(startup)
+        jio.save_inference_model(str(tmp_path), ["tokens", "positions"],
+                                 [logits], exe, main_program=main)
+    feeds = transformer_feeds(2, T, V, seed=9)
+    want = JEngine.from_saved_model(str(tmp_path),
+                                    place=jfluid.CPUPlace()).run(feeds)[0]
+    engine = InferenceEngine.from_saved_model(str(tmp_path),
+                                              place=CPUPlace())
+    served = [op for op in engine.program.block(0).ops
+              if op.type == "flash_attention"]
+    assert len(served) == N_LAYER and all(
+        op.attr("sequence_parallel_axis") == "sp" for op in served)
+    got = engine.run(feeds)[0]
+    assert got.shape == want.shape == (2, T, V)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
