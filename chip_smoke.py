@@ -16,9 +16,7 @@ no result line:
      the same work on this card by the kernel's route.  Kernel and
      library times are device times (CUDA graph replay, so the host's
      launch cost is out); the plain version's are CUDA events around
-     eager calls.  At the path shape it also times the f32 p.v route
-     not taken (mma.sync against wgmma) and names the library's kernels
-     with their tensor-core instruction counts;
+     eager calls;
   4. slice: the full-width transformer (batch 16, seq 512, d_model 512,
      6 layers, 8 heads, vocab 8192, random weights from a seed) exported,
      loaded by InferenceEngine on the card and served by InferenceServer:
@@ -152,19 +150,16 @@ def phase_device():
     print("nvidia-smi: %s" % nvidia_smi_line(), flush=True)
 
 
-def sass_opcodes(library, function=None):
+def sass_opcodes(library):
     """Counter of the base opcodes (HGMMA, HMMA, FFMA, ...) in the SASS
-    of a shared library, or of one of its kernels by mangled name, by
-    cuobjdump."""
+    of a shared library, by cuobjdump."""
     import collections
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    cmd = [tool, "-sass"] + (["-fun", function] if function else []) \
-        + [library]
-    sass = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=300, check=True).stdout
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
     # "/*0150*/  @!P0 HMMA.1688.F32.TF32 R4, ..." -> HMMA
     opcode = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
                         r"([A-Z][A-Z0-9_]*)")
@@ -193,43 +188,6 @@ def phase_build():
     if hgmma == 0:
         raise SystemExit("chip_smoke: the flash kernel's SASS holds no "
                          "HGMMA: it is not on the tensor cores")
-
-
-def library_instructions(call):
-    """The kernels scaled_dot_product_attention launches for `call`, each
-    with the opcode counts of its SASS in libtorch_cuda.so (found by its
-    mangled name, read off its host stub), or None for a kernel outside
-    the library (cuDNN builds its own): whether the library's path runs
-    on the tensor cores."""
-    import os
-    import re
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    lib = os.path.join(os.path.dirname(torch.__file__), "lib",
-                       "libtorch_cuda.so")
-    symbols = subprocess.run(["nm", lib], capture_output=True, text=True,
-                             timeout=300).stdout
-    found = []
-    for name in names:
-        base = name.split("(")[0].split("<")[0].split()[-1]
-        stub = re.search(r"_Z(\d+)__device_stub__(Z\d+%s\w*)"
-                         % re.escape(base), symbols)
-        if stub is None:
-            found.append((name, None))
-            continue
-        mangled = "_" + stub.group(2)[:int(stub.group(1))
-                                      - len("__device_stub__")]
-        found.append((name, sass_opcodes(lib, mangled)))
-    return found
 
 
 def _library_call(q, k, v, scale, causal, q_offset):
@@ -340,36 +298,6 @@ def phase_kernels():
               % (name, list(q.shape), list(k.shape), err_o, tol_o, err_m,
                  tol_m, err_l, tol_l, k_ms, eager_ms, p_ms, lib_ms,
                  bound_ms, bound_by, ROUTE[dtype][0], core_ms), flush=True)
-        if path is None:
-            # f32 p.v runs on wgmma; time the mma.sync route beside it
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            alt = fa._launch(qt, kt, vt, scale, causal, q_offset,
-                             pv_mma_sync=True)[0].transpose(1, 2)
-            torch.cuda.synchronize()
-            err_alt = (alt - po).abs().max().item()
-            alt_ms = device_ms(lambda: fa._launch(
-                qt, kt, vt, scale, causal, q_offset, pv_mma_sync=True))
-            again_ms = device_ms(kernel)
-            print("kernel flash_attention_fwd [%s] f32 p.v route: wgmma "
-                  "%.4f and %.4f ms, mma.sync %.4f ms (max_abs_err O "
-                  "%.3g)" % (name, k_ms, again_ms, alt_ms, err_alt),
-                  flush=True)
-            if err_alt > tol_o:
-                raise SystemExit("chip_smoke: the mma.sync p.v route "
-                                 "disagrees with the plain version")
-            try:
-                census = library_instructions(
-                    _library_call(q, k, v, scale, causal, q_offset))
-            except (OSError, subprocess.SubprocessError) as exc:
-                print("library scaled_dot_product_attention [%s]: SASS not "
-                      "measured (%s)" % (name, exc), flush=True)
-                census = []
-            for kname, ops in census:
-                print("library scaled_dot_product_attention [%s] runs %s: "
-                      "%s" % (name, kname[:100], "not in libtorch_cuda.so"
-                              if ops is None else "SASS %d HMMA, %d HGMMA, "
-                              "%d FFMA" % (ops["HMMA"], ops["HGMMA"],
-                                           ops["FFMA"])), flush=True)
         if not ok:
             raise SystemExit("chip_smoke: flash_attention_fwd disagrees "
                              "with its plain version on %s" % name)
@@ -396,33 +324,46 @@ def _post(url, payload):
     return status, body, (time.perf_counter() - t0) * 1e3
 
 
-def profile_forward(forward, runs=3):
+def profile_forward(forward, runs=3, attempts=2):
     """Device time by kernel over `runs` 16-row forwards, from
     torch.profiler's CUDA activity: the busy share of the wall window and
-    the kernels that take the most time."""
+    the kernels that take the most time.  A profile counts only when it
+    is complete: 6 flash launches per forward and every kernel launched
+    the same number of times in each forward; else a fresh session tries
+    again, and the shares are reported as not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            forward()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_us = sum(k[1] for k in kernels)
-    if not kernels:
-        print("profile: the profiler recorded no device time (not "
-              "measured)", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                forward()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [(e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        flash = sum(k[2] for k in kernels if "flash_fwd_kernel" in k[0])
+        uneven = [k for k in kernels if k[2] % runs]
+        if flash == 6 * runs and not uneven:
+            break
+        print("profile: attempt %d incomplete: %d flash launches of %d, "
+              "%d kernels launched unevenly across %d forwards"
+              % (attempt, flash, 6 * runs, len(uneven), runs), flush=True)
+    else:
+        print("profile: no complete profile: device busy share not "
+              "measured", flush=True)
         return
+    busy_us = sum(k[1] for k in kernels)
     print("profile: %d forwards, wall %.3f ms, device busy %.3f ms (%.1f "
-          "%%)" % (runs, wall_us / 1e3, busy_us / 1e3,
-                   100.0 * busy_us / wall_us), flush=True)
+          "%%), %d launches per forward"
+          % (runs, wall_us / 1e3, busy_us / 1e3, 100.0 * busy_us / wall_us,
+             sum(k[2] for k in kernels) // runs), flush=True)
     for name, us, count in sorted(kernels, key=lambda k: -k[1])[:10]:
         print("profile: %6.1f %% %9.3f ms per forward  %4d launches  %s"
               % (100.0 * us / busy_us, us / 1e3 / runs, count,

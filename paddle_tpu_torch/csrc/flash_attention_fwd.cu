@@ -81,9 +81,9 @@ constexpr float kNegInf = -1e30f;                 // the TPU kernel's finite mas
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSmemLimit = 232448;                // dynamic shared memory a block can use
 
-// PVW: f32 p.v on wgmma from a transposed V tile (DP <= 64, where the
-// transposed tiles fit shared memory), else on mma.sync
-template <typename T, int DP, bool PVW = true>
+// f32 p.v runs on wgmma from a transposed V tile at DP <= 64, where the
+// transposed tiles fit shared memory, else on mma.sync
+template <typename T, int DP>
 struct Cfg {
   static constexpr bool kF32 = std::is_same<T, float>::value;
   static constexpr int kBK = (kF32 && DP == 128) ? 32 : 64;    // keys per K/V tile
@@ -91,7 +91,7 @@ struct Cfg {
   static constexpr int kNCB = DP / kSwz;                       // 128-byte column blocks
   static constexpr int kParts = kF32 ? 2 : 1;                  // big (+ small) parts of q and K
   // f32 p.v on wgmma needs V transposed (big and small) beside each stage
-  static constexpr bool kPvWgmma = kF32 && DP <= 64 && PVW;
+  static constexpr bool kPvWgmma = kF32 && DP <= 64;
   static constexpr int kVtParts = kPvWgmma ? 2 : 0;
   static constexpr int kQBytes = kRowsWG * DP * (int)sizeof(T);   // one part of one q tile
   static constexpr int kKVBytes = kBK * DP * (int)sizeof(T);      // one part of a K or V tile
@@ -339,11 +339,11 @@ __device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
 // S = q . K^T over the padded head dim; q and K tiles K-major in shared
 // memory, 128-byte column blocks of kSwz elements.  f32: three TF32
 // products per k-step (big.big + big.small + small.big).
-template <typename T, int DP, bool PVW>
-__device__ __forceinline__ void scores(float (&s)[Cfg<T, DP, PVW>::kBK / 2],
+template <typename T, int DP>
+__device__ __forceinline__ void scores(float (&s)[Cfg<T, DP>::kBK / 2],
                                        uint32_t q_big, uint32_t q_small,
                                        uint32_t k_big, uint32_t k_small) {
-  using C = Cfg<T, DP, PVW>;
+  using C = Cfg<T, DP>;
   constexpr int kStep = C::kF32 ? 8 : 16;         // K of one wgmma
   constexpr int kPerBlock = C::kSwz / kStep;      // k-steps per column block
 #pragma unroll
@@ -378,12 +378,12 @@ __device__ __forceinline__ void scores(float (&s)[Cfg<T, DP, PVW>::kBK / 2],
 
 // O += p . V for the warpgroup's 64 rows; p is the S fragment after the
 // softmax (f32, unrounded), V the tile [kBK keys][DP] as TMA left it.
-template <typename T, int DP, bool PVW>
+template <typename T, int DP>
 __device__ __forceinline__ void accumulate_pv(float (&o)[DP / 2],
-                                              float (&p)[Cfg<T, DP, PVW>::kBK / 2],
+                                              float (&p)[Cfg<T, DP>::kBK / 2],
                                               const unsigned char* v_tile,
                                               uint32_t v_addr, int lane) {
-  using C = Cfg<T, DP, PVW>;
+  using C = Cfg<T, DP>;
   if constexpr (C::kPvWgmma) {
     // A fragments of p (keys permuted as in the transposed V), big and
     // small; B: V^T big and small, K-major, beside the V tile
@@ -473,12 +473,12 @@ __device__ __forceinline__ void accumulate_pv(float (&o)[DP / 2],
 
 // ---- the kernel -------------------------------------------------------------
 
-template <typename T, int DP, bool PVW>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map, const Params p) {
-  using C = Cfg<T, DP, PVW>;
+  using C = Cfg<T, DP>;
   constexpr int BK = C::kBK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -667,7 +667,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       const int k0 = j * BK;
       if (on && k0 < wg_end[wg]) {
         float sc[BK / 2];
-        scores<T, DP, PVW>(sc, q_big, q_small, base + k_off,
+        scores<T, DP>(sc, q_big, q_small, base + k_off,
                       base + k_off + C::kKVBytes);
         // mask, then the online softmax on the fragment: register i holds
         // row (i & 2 ? g + 8 : g), key 8 * (i / 4) + 2t + (i & 1)
@@ -708,7 +708,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + psum[r];
 #pragma unroll
         for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-        accumulate_pv<T, DP, PVW>(o, sc, smem + v_off, base + v_off, lane);
+        accumulate_pv<T, DP>(o, sc, smem + v_off, base + v_off, lane);
       }
       // the warp is done with the stage: one arrive for its 32 threads
       // (256 arrives on one barrier word would serialize)
@@ -881,10 +881,10 @@ MapKey map_key(const void* ptr, const long long* st, int rows, int b, int h,
 
 constexpr int kEncodeError = 10000;  // + the CUresult of a failed encode
 
-template <typename T, int DP, bool PVW = true>
+template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, Params& p,
            const long long* st, int dtype, cudaStream_t stream) {
-  using C = Cfg<T, DP, PVW>;
+  using C = Cfg<T, DP>;
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   int* slots[3] = {p.slot_q, p.slot_k, p.slot_v};
@@ -895,7 +895,7 @@ int launch(const void* q, const void* k, const void* v, Params& p,
     const int err = tensor_map(key, &maps[i], slots[i]);
     if (err != 0) return kEncodeError + err;
   }
-  auto kernel = flash_fwd_kernel<T, DP, PVW>;
+  auto kernel = flash_fwd_kernel<T, DP>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr != cudaSuccess) return (int)attr;
@@ -913,9 +913,7 @@ int launch(const void* q, const void* k, const void* v, Params& p,
 // 1: bfloat16) with unit stride in d, 16-byte-aligned base pointers, and
 // `strides` holding 12 element strides, (batch, row, head) of q, k, v and
 // o in turn, each a multiple of 16 bytes; m and l [b, h, tq] float32,
-// contiguous.  `options` bit 0 runs f32 p.v on mma.sync at head dims up
-// to 64 too, where it otherwise runs on wgmma (to time the two routes
-// against each other).  Launches on `stream` and returns 0 on success, the
+// contiguous.  Launches on `stream` and returns 0 on success, the
 // cudaError_t of the launch, or 10000 + the CUresult of a tensor-map
 // encode that failed; allocates nothing.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -923,7 +921,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int b, int h, int tq, int tk, int d,
                                    const long long* strides, float sm_scale,
                                    int causal, int q_offset, int dtype,
-                                   int options, void* stream) {
+                                   void* stream) {
   if (b <= 0 || h <= 0 || tq <= 0 || tk <= 0 || d <= 0 || d > 128 ||
       (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -956,16 +954,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.n_qt = (tq + kBlockQ - 1) / kBlockQ;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const bool mma = options & 1;
-    if (d <= 32) {
-      return mma ? launch<float, 32, false>(q, k, v, p, strides, dtype, s)
-                 : launch<float, 32>(q, k, v, p, strides, dtype, s);
-    }
-    if (d <= 64) {
-      return mma ? launch<float, 64, false>(q, k, v, p, strides, dtype, s)
-                 : launch<float, 64>(q, k, v, p, strides, dtype, s);
-    }
-    return launch<float, 128, false>(q, k, v, p, strides, dtype, s);
+    if (d <= 32) return launch<float, 32>(q, k, v, p, strides, dtype, s);
+    if (d <= 64) return launch<float, 64>(q, k, v, p, strides, dtype, s);
+    return launch<float, 128>(q, k, v, p, strides, dtype, s);
   }
   if (d <= 64) return launch<__nv_bfloat16, 64>(q, k, v, p, strides, dtype, s);
   return launch<__nv_bfloat16, 128>(q, k, v, p, strides, dtype, s);

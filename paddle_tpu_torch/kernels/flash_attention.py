@@ -177,20 +177,17 @@ def _kernel():
         fn = _build.load("flash_attention_fwd").flash_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _launch(q, k, v, sm_scale, causal, q_offset, out=None,
-            pv_mma_sync=False):
+def _launch(q, k, v, sm_scale, causal, q_offset, out=None):
     """Launch the kernel on [B, T, H, D] views; (o, m, l) with o the view
     `out` (allocated when None) and m, l [B, H, Tq] float32.  Views the
     TMA loads cannot walk (a misaligned pointer or stride, a strided D)
-    are copied, with D padded, first.  `pv_mma_sync` runs f32 p.v on
-    mma.sync instead of wgmma, to time the two routes."""
+    are copied, with D padded, first."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         bad = [(n, t) for n, t in (("q", q), ("k", k), ("v", v))
@@ -220,7 +217,6 @@ def _launch(q, k, v, sm_scale, causal, q_offset, out=None,
                     m_ptr, m_ptr + 4 * B * H * Tq, B, H, Tq, k.shape[1], D,
                     (ctypes.c_longlong * 12)(*strides), float(sm_scale),
                     bool(causal), int(q_offset), _DTYPE_CODE[q.dtype],
-                    int(pv_mma_sync),
                     # the current stream's raw handle, by the private call
                     # inductor uses: torch.cuda.current_stream() costs
                     # several microseconds of host time per launch
