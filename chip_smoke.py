@@ -17,6 +17,12 @@ no result line:
      library times are device times (CUDA graph replay, so the host's
      launch cost is out); the plain version's are CUDA events around
      eager calls;
+     The gradient case: FlashAttentionFunction's dq, dk, dv at the path
+     shape (split views of the fc output) against the same backward
+     (`flash_attention_bwd`) fed by the plain forward on the card, and
+     the backward's device time beside the library's backward
+     (scaled_dot_product_attention forward and backward, less its
+     forward);
   4. slice: the full-width transformer (batch 16, seq 512, d_model 512,
      6 layers, 8 heads, vocab 8192, random weights from a seed) exported,
      loaded by InferenceEngine on the card and served by InferenceServer:
@@ -24,6 +30,18 @@ no result line:
      engine.run.  Launch counters, reset just before, show the path went
      through the kernels; the logits are checked against the port's plain
      path on the CPU.
+  5. train: the same model's training program (momentum 0.9 at lr 0.01,
+     bench.py's transformer training step) built by the port, its startup
+     run on the card, 3 steps on the card, in which the flash kernel must
+     run 12 times per step (the forward op, and again in the generic grad
+     of flash_attention_grad), counted from 0 just before, with their
+     peak memory; the step's time (median of 10 after 2 warm), tokens/s
+     and a profile of one step: device time by kernel and by op type,
+     the generic grads' recompute, host time by op type, the device's
+     idle share.  Then the same 3 steps from the same state again on the
+     card (the floor the atomic adds leave) and through the port's plain
+     CPU path: each step's loss and every parameter and velocity after
+     them must agree with the card's.
 The last line is {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the paddle_tpu package.
@@ -63,6 +81,30 @@ TOL = {"float32": (2e-5, 1e-4, 1e-4), "bfloat16": (2e-2, 1e-4, 1e-4)}
 # sides, sums in other orders (cuBLAS and the CUDA kernel against CPU BLAS
 # and the plain attention) through 6 layers of reductions up to 2048 long
 LOGITS_ATOL = 2e-3
+# the flash gradient at the path shape, fed the kernel's forward against
+# fed the plain forward: the kernel's O (within 2e-5), m and l move p and
+# delta = rowsum(do o), which the backward multiplies into dq, dk, dv
+# (entries up to about 5 for randn inputs); perturbing O, m and l by the
+# kernel's errors moves them by up to 9e-5 on the CPU
+GRAD_ATOL = 5e-4
+# training: bench.py's optimizer, steps checked against the CPU plain path
+LR, MOMENTUM, TRAIN_STEPS = 0.01, 0.9, 3
+# losses (about ln 8192 = 9.0) at atol 1e-4: f32 on both sides, sums in
+# other orders.  Parameters and velocities after the steps: the largest
+# difference, less 2 ulps of the largest entry (stored parameters round:
+# a layer_norm scale near 1.0 moves by about 1e-5 in 3 steps, and an ulp
+# of 1.0 is 1.2e-7), over the largest entry of what the steps made
+# (p - p0, and v), at 2e-2.  At init a grad is a sum over 8192 tokens of
+# terms of both signs, so its relative error is the terms' (about 1e-5,
+# from the flash kernel's split TF32 and other sum orders) times their
+# cancellation, and behind a relu the mask flips wherever a
+# pre-activation lies within that difference of 0: the feed-forward
+# blocks' first fc differs most, by up to 9e-3 on an H100.  The card
+# against itself from the same state differs by 1e-5 to 2e-3 from run to
+# run.  A wrong grad gives order 1.
+LOSS_ATOL = 1e-4
+STATE_RTOL = 2e-2
+STATE_ULPS = 2
 
 
 def nvidia_smi_line():
@@ -93,11 +135,16 @@ def cuda_ms(fn, iters=20, warm=3):
 def device_ms(fn, launches=20, replays=5):
     """Mean milliseconds of fn() on the card with the host taken out:
     `launches` calls captured into one CUDA graph, replayed `replays`
-    times between CUDA events."""
+    times between CUDA events.  The warm-up calls run on a side stream,
+    as PyTorch's graph capture asks of work that runs autograd."""
     import torch
 
-    for _ in range(3):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -306,11 +353,93 @@ def phase_kernels():
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms}
         del q, k, v, o, m, l, po, pm, pl
+    flash_gradient(gen)
     from paddle_tpu_torch.kernels import KERNELS
 
     print("kernels: %s" % json.dumps(
         {n: w.launches for n, w in KERNELS.items()}), flush=True)
     return {"flash_attention_fwd": path}
+
+
+def backward_bound(B, H, T, D):
+    """(ms, "bytes" | "operations", f32 CUDA-core ms) of the causal
+    attention backward at [B, H, T, D]: q, k, v, o, do read once, m and l
+    read, dq, dk, dv written once; 10*D operations per kept (query, key)
+    pair (the products s, dv, dp, dq, dk), each f32 one as three TF32
+    operations, the route a hand-written kernel would take; and the same
+    operations on the f32 CUDA cores, the route of the PyTorch
+    transcription with TF32 off."""
+    keys = float(np.arange(1, T + 1).sum())
+    flops = 10.0 * D * B * H * keys
+    nbytes = B * H * (8 * T * D * 4 + 2 * T * 4)
+    t_ops = flops * 3 / TF32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes", \
+        max(flops / F32_CORE_FLOPS, t_bytes) * 1e3
+
+
+def flash_gradient(gen):
+    """The gradient case: FlashAttentionFunction under torch.func.vjp on
+    the split views of a [16, 512, 1536] fc output (what the generic grad
+    of flash_attention_grad runs: the CUDA forward, then
+    flash_attention_bwd), against flash_attention_bwd fed the plain
+    forward on the card; then the backward's device time beside the
+    library's."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    B, H, T, D = BATCH, N_HEAD, SEQ, D_MODEL // N_HEAD
+    scale = D ** -0.5
+    x = torch.randn(B, T, 3 * H * D, device="cuda", generator=gen)
+    qs, ks, vs = (t.unflatten(-1, (H, D)) for t in x.split(H * D, dim=-1))
+    do = torch.randn(B, T, H, D, device="cuda", generator=gen)
+    launches = fa.flash_attention_fwd.launches
+    o, vjp_fn = torch.func.vjp(
+        lambda q, k, v: fa.FlashAttentionFunction.apply(
+            q, k, v, scale, True, 0, 128, 128)[0], qs, ks, vs)
+    got = vjp_fn(do)
+    if fa.flash_attention_fwd.launches != launches + 1:
+        raise SystemExit("chip_smoke: the Function did not launch the "
+                         "flash kernel")
+    # [B, H, T, D] views, the layout of the backward
+    q, k, v, doh = (t.transpose(1, 2) for t in (qs, ks, vs, do))
+    po, pm, pl = fa.flash_attention_plain(q, k, v, scale, True)
+    want = fa.flash_attention_bwd(q, k, v, po, pm, pl, doh, scale, True)
+    torch.cuda.synchronize()
+    errs = [(g.transpose(1, 2) - w).abs().max().item()
+            for g, w in zip(got, want)]
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    ko, km, kl = fa.flash_attention_fwd(q, k, v, scale, True)
+    bwd_ms = device_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, ko, km, kl, doh, scale, True), launches=5)
+    # the library: scaled_dot_product_attention forward and backward,
+    # less its forward (with inputs that require grad, as the backward's)
+    lq, lk, lv = (t.detach().contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ldo = doh.contiguous()
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                              scale=scale)
+
+    lib_fb_ms = device_ms(lambda: torch.autograd.grad(
+        lib_fwd(), (lq, lk, lv), ldo), launches=5)
+    lib_f_ms = device_ms(lib_fwd, launches=5)
+    bound_ms, bound_by, core_ms = backward_bound(B, H, T, D)
+    print("gradient flash_attention_bwd [path f32 causal, split views of "
+          "[%d, %d, %d]]: max_abs_err dq %.3g dk %.3g dv %.3g (atol %g) "
+          "against the backward fed by the plain forward; backward %.4f "
+          "ms, library scaled_dot_product_attention backward %.4f ms "
+          "(forward and backward %.4f, forward %.4f), bound %.4f ms (%s, "
+          "split TF32 route; on the f32 CUDA cores %.4f ms)"
+          % (B, T, 3 * H * D, errs[0], errs[1], errs[2], GRAD_ATOL, bwd_ms,
+             lib_fb_ms - lib_f_ms, lib_fb_ms, lib_f_ms, bound_ms, bound_by,
+             core_ms), flush=True)
+    if max(errs) > GRAD_ATOL or not finite:
+        raise SystemExit("chip_smoke: the flash gradient disagrees with "
+                         "the backward fed by the plain forward")
 
 
 def _post(url, payload):
@@ -324,7 +453,18 @@ def _post(url, payload):
     return status, body, (time.perf_counter() - t0) * 1e3
 
 
-def profile_forward(forward, runs=3, attempts=2):
+def device_kernels(events, labels):
+    """(name, device us, launches) of each kernel in a profile's
+    key_averages(), leaving out the device side of the profiler ranges
+    named in `labels` (the executor's per-op ranges)."""
+    import torch
+
+    return [(e.key, e.self_device_time_total, e.count) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0 and e.key not in labels]
+
+
+def profile_forward(forward, labels, runs=3, attempts=2):
     """Device time by kernel over `runs` 16-row forwards, from
     torch.profiler's CUDA activity: the busy share of the wall window and
     the kernels that take the most time.  A profile counts only when it
@@ -344,10 +484,7 @@ def profile_forward(forward, runs=3, attempts=2):
                 forward()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [(e.key, e.self_device_time_total, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
+        kernels = device_kernels(prof.key_averages(), labels)
         flash = sum(k[2] for k in kernels if "flash_fwd_kernel" in k[0])
         uneven = [k for k in kernels if k[2] % runs]
         if flash == 6 * runs and not uneven:
@@ -486,7 +623,8 @@ def phase_slice():
                   "with the logits copied to the host %.1f ms (mean of 3)"
                   % (np.mean(times), np.median(times), min(times),
                      max(times), np.mean(run_times)), flush=True)
-            profile_forward(forward)
+            profile_forward(forward, {op.type for op in
+                                      engine.program.block(0).ops})
         finally:
             server.shutdown()
 
@@ -521,6 +659,205 @@ def phase_slice():
     return launches
 
 
+def profile_step(step, op_types, flash_launches, step_ms, attempts=2):
+    """Device time of one training step by kernel, from torch.profiler's
+    CUDA activity, with the busy share of the profiled window and of the
+    unprofiled step (`step_ms`); and by op type, from the executor's
+    per-op profiler ranges ("recompute" is the generic grads' recompute of
+    the forward, inside their grad ops): the device time of the kernels
+    launched from the executor's thread in each range, and the host time
+    of that thread in it.  The backward half of a generic grad runs on
+    the autograd engine's device thread, outside any range: its kernels
+    count in the kernel table and the busy time, in no op's row.  The
+    profile counts only when it is complete: the step's `flash_launches`
+    flash launches in it; else a fresh session tries again, and the
+    shares are reported as not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        kernels = device_kernels(events, op_types | {"recompute"})
+        flash = sum(k[2] for k in kernels if "flash_fwd_kernel" in k[0])
+        if flash == flash_launches:
+            break
+        print("profile: attempt %d incomplete: %d flash launches of %d"
+              % (attempt, flash, flash_launches), flush=True)
+    else:
+        print("profile: no complete profile: device busy share not "
+              "measured", flush=True)
+        return
+    busy_us = sum(k[1] for k in kernels)
+    print("profile: one training step, wall %.3f ms, device busy %.3f ms "
+          "(%.1f %% of the profiled window, idle %.1f %%; %.1f %% of the "
+          "unprofiled median step, idle %.1f %%), %d launches"
+          % (wall_us / 1e3, busy_us / 1e3, 100.0 * busy_us / wall_us,
+             100.0 - 100.0 * busy_us / wall_us,
+             100.0 * busy_us / 1e3 / step_ms,
+             100.0 - 100.0 * busy_us / 1e3 / step_ms,
+             sum(k[2] for k in kernels)), flush=True)
+    for name, us, count in sorted(kernels, key=lambda k: -k[1])[:15]:
+        print("profile: kernel %6.1f %% %9.3f ms %5d launches  %s"
+              % (100.0 * us / busy_us, us / 1e3, count, name[:110]),
+              flush=True)
+    spans = [(e.key, e.device_time_total, e.cpu_time_total, e.count)
+             for e in events
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and (e.key in op_types or e.key == "recompute")]
+    for name, us, host_us, count in sorted(spans, key=lambda k: -k[2]):
+        print("profile: op %-34s device %9.3f ms (%5.1f %% of busy), host "
+              "%9.3f ms (%5.1f %% of the window), %4d ops"
+              % (name, us / 1e3, 100.0 * us / busy_us, host_us / 1e3,
+                 100.0 * host_us / wall_us, count), flush=True)
+
+
+def phase_train():
+    """Train the full-width transformer on the card and check 3 steps
+    against the port's plain CPU path; returns the launch counts of those
+    3 steps."""
+    import torch
+    from paddle_tpu_torch.fluid import (CPUPlace, Executor,
+                                        MomentumOptimizer, Scope, io)
+    from paddle_tpu_torch.kernels import KERNELS
+    from paddle_tpu_torch.models import transformer_program as tp
+
+    t0 = time.perf_counter()
+    main, startup, loss, _ = tp.build_transformer_program(
+        BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL)
+    MomentumOptimizer(LR, MOMENTUM).minimize(loss, main, startup)
+    block = main.block(0)
+    op_types = {op.type for op in block.ops}
+    persist = [n for n, v in block.vars.items() if v.persistable]
+    params = [n for n in persist if n + "_velocity_0" in block.vars]
+    print("train: main %d ops of %d types, startup %d ops, %d parameters "
+          "(%d values), built in %.1f s"
+          % (len(block.ops), len(op_types), len(startup.block(0).ops),
+             len(params), sum(int(np.prod(block.var(n).shape))
+                              for n in params),
+             time.perf_counter() - t0), flush=True)
+
+    exe = Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).cpu().numpy() for n in persist}
+    feeds = [tp.transformer_feeds(BATCH, SEQ, VOCAB, seed=SEED + i,
+                                  targets=True)
+             for i in range(TRAIN_STEPS)]
+
+    for w in KERNELS.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = [float(exe.run(main, feed=f, fetch_list=[loss],
+                          scope=scope)[0][0]) for f in feeds]
+    card_s = time.perf_counter() - t0
+    # the main path ends here: read the counts
+    launches = {n: w.launches for n, w in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print("train: %d steps on the card in %.2f s, losses %s; launches %s; "
+          "peak memory %.3f GB"
+          % (TRAIN_STEPS, card_s, ", ".join("%.6f" % x for x in card),
+             json.dumps(launches), peak / 1e9), flush=True)
+    # per layer, the forward op and the generic grad's recompute
+    per_step = 2 * N_LAYER
+    if launches["flash_attention_fwd"] != per_step * TRAIN_STEPS:
+        raise SystemExit("chip_smoke: %d flash launches in %d training "
+                         "steps, designed %d per step"
+                         % (launches["flash_attention_fwd"], TRAIN_STEPS,
+                            per_step))
+    after = {n: scope.get(n).cpu().numpy() for n in persist}
+
+    # the step's time on the card, feeds already there (training goes on
+    # in `scope`; the state after the 3 steps is kept above)
+    dev_feed = {n: torch.from_numpy(v.astype(np.int32)).to(exe.device)
+                for n, v in feeds[0].items()}
+
+    def step():
+        return exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(times))
+    print("train: step %.3f ms (median of 10 after 2 warm; mean %.3f, min "
+          "%.3f, max %.3f), %.0f tokens/s"
+          % (med, np.mean(times), min(times), max(times),
+             BATCH * SEQ / med * 1e3), flush=True)
+    profile_step(step, op_types, per_step, med)
+
+    def run_from_init(executor, device):
+        s = Scope()
+        io.params_from_numpy(s, init, device)
+        t0 = time.perf_counter()
+        losses = [float(executor.run(main, feed=f, fetch_list=[loss],
+                                     scope=s)[0][0]) for f in feeds]
+        return losses, {n: s.get(n).cpu().numpy() for n in persist}, \
+            time.perf_counter() - t0
+
+    def state_errors(got, ref):
+        """{name: largest difference, less STATE_ULPS ulps of the
+        largest entry (the rounding of stored values), over the largest
+        entry of the steps' change} of each parameter (change p - p0)
+        and velocity (change v)."""
+        out = {}
+        for n in params:
+            for name, base in ((n, init[n]), (n + "_velocity_0", 0.0)):
+                d = float(np.abs(got[name] - ref[name]).max())
+                ulps = STATE_ULPS * float(np.spacing(
+                    np.abs(ref[name]).max().astype(np.float32)))
+                out[name] = max(d - ulps, 0.0) / max(
+                    float(np.abs(ref[name] - base).max()), 1e-30)
+        return out
+
+    def report(what, losses, errs):
+        print("train: %s: loss max_abs_err %.3g; state error (rtol %g, "
+              "%d ulps): median %.3g, worst %s"
+              % (what, max(abs(a - b) for a, b in zip(card, losses)),
+                 STATE_RTOL, STATE_ULPS, float(np.median(list(
+                     errs.values()))),
+                 ", ".join("%s %.3g" % (n, errs[n]) for n in sorted(
+                     errs, key=lambda n: -errs[n])[:5])), flush=True)
+
+    # the card against itself from the same state: the floor that its
+    # nondeterminism (the embedding grads' atomic adds) leaves
+    again, again_state, _ = run_from_init(exe, exe.device)
+    report("card against the card again", again,
+           state_errors(again_state, after))
+    # the same steps from the same state through the plain CPU path
+    cpu, cpu_state, cpu_s = run_from_init(Executor(CPUPlace()), "cpu")
+    print("train: the same %d steps on the CPU plain path in %.1f s, "
+          "losses %s" % (TRAIN_STEPS, cpu_s,
+                         ", ".join("%.6f" % x for x in cpu)), flush=True)
+    errs = state_errors(after, cpu_state)
+    report("card against CPU", cpu, errs)
+    loss_err = max(abs(a - b) for a, b in zip(card, cpu))
+    finite = all(np.isfinite(v).all() for v in after.values()) \
+        and all(np.isfinite(card))
+    if loss_err > LOSS_ATOL or max(errs.values()) > STATE_RTOL \
+            or not finite:
+        raise SystemExit("chip_smoke: training on the card disagrees with "
+                         "the CPU plain path (loss atol %g, state rtol %g)"
+                         % (LOSS_ATOL, STATE_RTOL))
+    return launches
+
+
 def main():
     import torch
 
@@ -532,6 +869,7 @@ def main():
     phase_build()
     measured = phase_kernels()
     launches = phase_slice()
+    train_launches = phase_train()
     from paddle_tpu_torch.kernels import KERNELS
 
     from paddle_tpu_torch.kernels._build import SOURCES
@@ -541,13 +879,14 @@ def main():
     replaces = {"flash_attention_fwd":
                 "paddle_tpu/kernels/flash_attention.py:27"}
     for name in KERNELS:
-        if launches[name] < 1:
-            raise SystemExit("chip_smoke: %s was never launched on the "
-                             "main path" % name)
+        if launches[name] < 1 or train_launches[name] < 1:
+            raise SystemExit("chip_smoke: %s was never launched on a main "
+                             "path" % name)
         source = "paddle_tpu_torch/csrc/" + SOURCES[name]
         kernels.append(dict({"name": name, "route": "cuda",
                              "source": source, "replaces": replaces[name],
-                             "launches": launches[name]}, **measured[name]))
+                             "launches": launches[name]
+                             + train_launches[name]}, **measured[name]))
     print(json.dumps({"kernels": kernels}))
     print("chip_smoke: all phases passed in %.1f s"
           % (time.perf_counter() - t_start))

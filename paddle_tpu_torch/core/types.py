@@ -10,6 +10,14 @@ packages agree on what a feed is.
 import numpy as np
 import torch
 
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    """The gradient variable of `name` (reference:
+    paddle/framework/grad_op_desc_maker.h GradVarName)."""
+    return name + GRAD_SUFFIX
+
 
 class VarType:
     """Variable kinds (same strings as the JAX package's desc JSON)."""

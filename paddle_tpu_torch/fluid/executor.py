@@ -1,10 +1,21 @@
 """Executor: runs block 0 of a ProgramDesc op by op, eagerly.
 
-Counterpart of the inference subset of paddle_tpu/fluid/executor.py.
-Each op's kernel comes from the registry and runs on the tensors of the
+Counterpart of paddle_tpu/fluid/executor.py without its jit
+segmentation, buffer donation, compile cache and telemetry.  Each op's
+kernel comes from the registry and runs on the tensors of the
 executor's place; PyTorch dispatches the work to the card as it goes.
-Jit segmentation, buffer donation, the compile cache and telemetry are
-the JAX side's alone for now.
+A grad op `<type>_grad` runs the explicit grad kernel registered for
+`<type>`, or else the generic vjp kernel (ops/registry.py).  Persistable
+outputs (parameters updated by the optimizer ops, everything a startup
+program makes) are written back to the scope after the run.
+
+While torch.profiler records, each op runs in a range named by its
+type, so a profile attributes device time to op types.
+
+A program without grad ops that writes no persistable runs under
+`torch.inference_mode()` (the served forward); any other runs under
+`torch.no_grad()`, since inference tensors cannot be saved for a
+backward and `torch.func.vjp` computes its grads regardless.
 
 Places: `CUDAPlace(device_id)` is the default; `CPUPlace()` must be
 asked for.  A CUDAPlace without a CUDA device raises RuntimeError when
@@ -22,6 +33,8 @@ from ..core.scope import global_scope
 from ..core.types import (guard_int64_narrowing, np_dtype,
                           tensor_from_numpy, torch_dtype)
 from ..ops import registry as op_registry
+
+EMPTY = "@EMPTY@"
 
 __all__ = ["Executor", "Place", "CPUPlace", "CUDAPlace", "ExecContext",
            "global_scope", "scope_guard", "apply_op"]
@@ -73,14 +86,26 @@ def scope_guard(scope):
 
 class ExecContext:
     """Handed to every kernel: the program, block and value env, the
-    scope and the place.  Pure ops ignore it."""
+    scope, the place and its device, and the executor's random stream.
+    Pure ops ignore it."""
 
-    def __init__(self, program, block_idx, env, scope=None, place=None):
+    def __init__(self, program, block_idx, env, scope=None, place=None,
+                 device=None, rng=None):
         self.program = program
         self.block_idx = block_idx
         self.env = env
         self.scope = scope
         self.place = place
+        self.device = device
+        self._rng = rng
+
+    def next_rng(self):
+        """The torch.Generator on the executor's device that random ops
+        without a seed of their own draw from; each draw advances it."""
+        if self._rng is None:
+            raise RuntimeError("this op needs a random stream; run it "
+                               "through an Executor")
+        return self._rng
 
 
 def _lookup(ctx, name):
@@ -94,23 +119,48 @@ def _lookup(ctx, name):
     return val
 
 
+def _kernel_of(op_type):
+    """The kernel of a registered op, else of the grad op of a
+    registered forward op: its explicit grad kernel or the generic vjp
+    kernel."""
+    if op_registry.has_op(op_type):
+        return op_registry.get_op_info(op_type).kernel
+    if op_registry.is_grad_op_type(op_type):
+        fwd = op_registry.forward_type_of_grad(op_type)
+        if op_registry.has_op(fwd):
+            kernel = op_registry.get_op_info(fwd).grad_kernel
+            if kernel is not None:
+                return kernel
+            return lambda ctx, ins, attrs: op_registry.run_generic_grad(
+                ctx, fwd, ins, attrs)
+    raise KeyError("operator %r is not registered" % op_type)
+
+
 def apply_op(ctx, op_desc):
-    """Run one op's kernel against ctx.env; returns its outputs."""
-    kernel = op_registry.get_op_info(op_desc.type).kernel
-    ins = {slot: [_lookup(ctx, n) for n in names]
+    """Run one op's kernel against ctx.env; returns its outputs.
+    `@EMPTY@` inputs read as None and `@EMPTY@` or None outputs are not
+    written."""
+    kernel = _kernel_of(op_desc.type)
+    ins = {slot: [None if n == EMPTY else _lookup(ctx, n) for n in names]
            for slot, names in op_desc.inputs.items()}
     outs = kernel(ctx, ins, op_desc.attrs)
     for slot, names in op_desc.outputs.items():
-        ctx.env.update(zip(names, outs.get(slot) or ()))
+        for name, val in zip(names, outs.get(slot) or ()):
+            if val is not None and name != EMPTY:
+                ctx.env[name] = val
     return outs
 
 
 class Executor:
-    """reference: python/paddle/v2/fluid/executor.py Executor."""
+    """reference: python/paddle/v2/fluid/executor.py Executor.
 
-    def __init__(self, place=None):
+    `seed` seeds the random stream that random ops without a `seed`
+    attr draw from (the JAX side's `program.random_seed or 0`)."""
+
+    def __init__(self, place=None, seed=0):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
+        self.rng = torch.Generator(device=self.device).manual_seed(seed)
 
     def _prepare_feed(self, block_desc, name, val):
         """Cast to the var desc's execution dtype, then move to the
@@ -147,13 +197,24 @@ class Executor:
                             % type(program).__name__)
         scope = scope if scope is not None else global_scope()
         block = program.block(0)
-        with torch.inference_mode():
+        persist = [n for op in block.ops for n in op.output_names()
+                   if n in block.vars and block.vars[n].persistable]
+        trains = bool(persist) or any(
+            op_registry.is_grad_op_type(op.type) for op in block.ops)
+        with torch.no_grad() if trains else torch.inference_mode():
             env = {name: self._prepare_feed(block, name, val)
                    for name, val in (feed or {}).items()}
             ctx = ExecContext(program, 0, env, scope=scope,
-                              place=self.place)
+                              place=self.place, device=self.device,
+                              rng=self.rng)
             for op_desc in block.ops:
-                apply_op(ctx, op_desc)
+                with op_registry.span(op_desc.type):
+                    apply_op(ctx, op_desc)
+            for name in persist:
+                if name in env:
+                    scope.set(name, env[name])
+            # a fetch the run did not write (a parameter, optimizer
+            # state) resolves from the scope
             outs = [_lookup(ctx, n) for n in fetch_list or ()]
         if return_numpy:
             return [self._to_numpy(o) for o in outs]

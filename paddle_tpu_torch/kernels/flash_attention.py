@@ -1,5 +1,5 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Flash attention: the CUDA forward kernel's wrapper and its plain
+PyTorch version, and the gradient.
 
 Counterpart of paddle_tpu/kernels/flash_attention.py, whose Pallas
 kernel `_fwd_kernel` is the TPU kernel this module replaces.  The CUDA
@@ -18,8 +18,14 @@ version.  `check_kernel_args` is the pure check of what the kernel
 takes.  `flash_attention_fwd.launches` counts kernel launches and
 nothing else.
 
-The backward (`_flash_bwd_rule` on the JAX side) comes with the training
-slice.
+The gradient: `FlashAttentionFunction` is a torch.autograd.Function
+whose forward is `flash_attention_bthd` (on the card, the CUDA kernel on
+the views) and whose backward is `flash_attention_bwd`, a PyTorch
+transcription of the JAX side's `_flash_bwd_rule`, which is plain XLA
+there too.  It is written in the form torch.func transforms (`forward`
+without ctx, `setup_context`), so the executor's generic grad, a
+`torch.func.vjp` of the op, reaches the kernel with plain tensors whose
+`data_ptr()` the ctypes launch can read.
 """
 
 import ctypes
@@ -28,9 +34,10 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "check_kernel_args", "flash_attention",
-           "flash_attention_bthd", "flash_attention_fwd",
-           "flash_attention_plain", "reference_attention"]
+__all__ = ["NEG_INF", "FlashAttentionFunction", "check_kernel_args",
+           "flash_attention", "flash_attention_bthd", "flash_attention_bwd",
+           "flash_attention_fwd", "flash_attention_plain",
+           "reference_attention"]
 
 NEG_INF = -1e30
 
@@ -283,6 +290,84 @@ def flash_attention(q, k, v, sm_scale=None, causal=False, block_q=128,
     positions of the causal mask."""
     return flash_attention_fwd(q, k, v, sm_scale, causal, block_q,
                                block_k, q_offset)[0]
+
+
+def flash_attention_bwd(q, k, v, o, m, l, do, sm_scale=None, causal=False,
+                        block_k=128, q_offset=0):
+    """(dq, dk, dv) of the attention forward, from its residuals: the
+    blockwise recompute backward of `_flash_bwd_rule`, in its order.
+
+    q, o, do [B, H, Tq, D], k/v [B, H, Tk, D] (any strides), m and l
+    [B, H, Tq] from the forward.  Over key blocks of `block_k` (halved
+    until they divide Tk): p = exp(s - m) / safe_l with the finite
+    -1e30 causal mask, dv = p^T do, dp = do v^T, ds = p (dp - delta)
+    with delta = rowsum(do o), dq += ds k * scale, dk = ds^T q*scale.
+    All in f32 (q scaled in f32); the grads come back in the inputs'
+    dtypes.  The same code runs on the card and on the CPU."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    Tq, Tk = q.shape[2], k.shape[2]
+    bk = _halve(block_k, Tk)
+    dev = q.device
+    safe_l = torch.where(l > 0, l, torch.ones((), device=dev))
+    dof = do.float()
+    delta = (dof * o.float()).sum(dim=-1)
+    qs = q.float() * sm_scale
+    q_pos = q_offset + torch.arange(Tq, device=dev)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for i in range(Tk // bk):
+        k_blk = k[:, :, i * bk:(i + 1) * bk].float()
+        v_blk = v[:, :, i * bk:(i + 1) * bk].float()
+        s = torch.matmul(qs, k_blk.transpose(-1, -2))
+        if causal:
+            k_pos = i * bk + torch.arange(bk, device=dev)
+            s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
+                            torch.full((), NEG_INF, device=dev))
+        p = torch.exp(s - m[..., None]) / safe_l[..., None]
+        dvs.append(torch.matmul(p.transpose(-1, -2), dof))
+        dp = torch.matmul(dof, v_blk.transpose(-1, -2))
+        ds = p * (dp - delta[..., None])
+        dq = dq + torch.matmul(ds, k_blk) * sm_scale
+        dks.append(torch.matmul(ds.transpose(-1, -2), qs))
+    dk = torch.cat(dks, dim=2)
+    dv = torch.cat(dvs, dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention on [B, T, H, D] views with its gradient: apply(q, k, v,
+    sm_scale, causal, q_offset, block_q, block_k) -> (o, m, l).
+
+    o [B, Tq, H, D] is a view of a fresh [B, Tq, H*D] tensor, so
+    `o.flatten(2)` is the op's output without a copy; m and l carry no
+    gradient.  The residuals (q, k, v, o, m, l) are what the JAX side's
+    `_flash_fwd_rule` keeps."""
+
+    @staticmethod
+    def forward(q, k, v, sm_scale, causal, q_offset, block_q, block_k):
+        B, Tq, H, D = q.shape
+        out = torch.empty((B, Tq, H * D), dtype=q.dtype, device=q.device)
+        return flash_attention_bthd(q, k, v, sm_scale, causal, q_offset,
+                                    out=out.unflatten(-1, (H, D)),
+                                    block_q=block_q, block_k=block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, sm_scale, causal, q_offset, _, block_k = inputs
+        o, m, l = output
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.mark_non_differentiable(m, l)
+        ctx.args = (sm_scale, causal, block_k, q_offset)
+
+    @staticmethod
+    def backward(ctx, do, _dm, _dl):
+        q, k, v, o, m, l = (t.transpose(1, 2) if t.dim() == 4 else t
+                            for t in ctx.saved_tensors)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, m, l,
+                                         do.transpose(1, 2), *ctx.args)
+        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+                None, None, None, None, None)
 
 
 def reference_attention(q, k, v, sm_scale=None, causal=False, q_offset=0):

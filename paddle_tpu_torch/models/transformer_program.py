@@ -1,35 +1,52 @@
-"""The GPT-style transformer's inference program, built as a ProgramDesc.
+"""The GPT-style transformer's programs, built as ProgramDescs.
 
 Counterpart of paddle_tpu/models/transformer_program.py.  The JAX
-package builds the program through its fluid layers and prunes it to
-the logits (`io.prune_program`); the port has no layer builder yet, so
-`build_transformer_inference_program` writes the same pruned desc
+package builds the program through its fluid layers; the port has no
+layer builder yet (ROADMAP A3), so this module writes the same descs
 directly: the same op order, slot names, var names (the fluid name
 scopes: `embedding_0.w_0`, `layer_norm_0.w_0`/`.w_1`, `fc_N.w_0`/`.w_1`,
-`tmp_N`, ...), shapes and attrs.  A desc built here and one exported by
-the JAX package compare equal through `to_dict()`.
+`tmp_N`, ...), shapes and attrs.
 
-The program: token + position embeddings, `n_layer` pre-norm blocks
+- `build_transformer_program` gives the training program's main desc
+  (the forward, the `targets` feed and the loss: reshape ×2,
+  softmax_with_cross_entropy, mean) and its startup desc (the JAX
+  initializers: Xavier `uniform_random` with seed 0 for embeddings and
+  fc weights, `fill_constant` for biases and the layer_norm scale and
+  bias).  After `fluid.optimizer.MomentumOptimizer(...).minimize`, both
+  equal the JAX package's through `to_dict()`.
+- `build_transformer_inference_program` gives the program the JAX
+  package exports (pruned to the logits), equal to it through
+  `to_dict()`.
+
+The forward: token + position embeddings, `n_layer` pre-norm blocks
 (layer_norm, fc to q/k/v, split, causal flash_attention, fc, residual;
 layer_norm, fc + relu, fc, residual), a last layer_norm and the fc to
 the vocabulary.  Feeds `tokens` and `positions` are int64 [batch,
-seq_len]; the fetch is the `[batch, seq_len, vocab]` logits.
+seq_len], `targets` int64 [batch, seq_len, 1]; the logits are
+`[batch, seq_len, vocab]`.
 """
+
+import math
 
 import numpy as np
 
 from ..core.desc import OpDesc, ProgramDesc, VarDesc
+from ..core.types import exec_dtype
 
-__all__ = ["build_transformer_inference_program", "init_transformer_params",
+__all__ = ["build_transformer_program",
+           "build_transformer_inference_program", "init_transformer_params",
            "transformer_feeds", "logits_name"]
 
 
 class _Builder:
-    """Appends vars and ops to block 0 with fluid's unique names."""
+    """Appends vars and ops to block 0 with fluid's unique names; with
+    `startup`, also declares each parameter in a startup desc and
+    appends its initializer there."""
 
-    def __init__(self):
+    def __init__(self, startup=False):
         self.desc = ProgramDesc()
         self.block = self.desc.block(0)
+        self.startup = ProgramDesc() if startup else None
         self._ids = {}
 
     def uniq(self, prefix):
@@ -44,6 +61,26 @@ class _Builder:
         self.block.vars[name] = v
         return v
 
+    def param(self, name, shape, fill=None):
+        """A parameter, initialised Xavier-uniform (fill None) or to the
+        constant `fill`."""
+        v = self.var(name, shape, param=True)
+        if self.startup is not None:
+            sb = self.startup.block(0)
+            sb.vars[name] = VarDesc(name, shape=shape, persistable=True)
+            if fill is None:
+                limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+                sb.ops.append(OpDesc(
+                    "uniform_random", {}, {"Out": [name]},
+                    {"shape": list(shape), "dtype": "float32",
+                     "min": -limit, "max": limit, "seed": 0}))
+            else:
+                sb.ops.append(OpDesc(
+                    "fill_constant", {}, {"Out": [name]},
+                    {"shape": list(shape), "dtype": "float32",
+                     "value": fill}))
+        return v
+
     def op(self, type, inputs, outputs, attrs):
         self.block.ops.append(OpDesc(
             type, {k: [v.name for v in vs] for k, vs in inputs.items()},
@@ -55,7 +92,7 @@ class _Builder:
 
     def embedding(self, ids, size):
         h = self.uniq("embedding")
-        w = self.var(h + ".w_0", size, param=True)
+        w = self.param(h + ".w_0", size)
         out = self.var(h + ".tmp_0", ids.shape + (size[1],))
         self.op("lookup_table", {"Ids": [ids], "W": [w]}, {"Out": [out]},
                 {"is_sparse": False, "padding_idx": -1})
@@ -70,8 +107,8 @@ class _Builder:
     def layer_norm(self, x):
         h = self.uniq("layer_norm")
         lead = int(np.prod(x.shape[:2]))
-        scale = self.var(h + ".w_0", x.shape[2:], param=True)
-        bias = self.var(h + ".w_1", x.shape[2:], param=True)
+        scale = self.param(h + ".w_0", x.shape[2:], 1.0)
+        bias = self.param(h + ".w_1", x.shape[2:], 0.0)
         y = self.var(h + ".tmp_0", x.shape)
         mean = self.var(h + ".tmp_1", (lead,), stop_gradient=True)
         var = self.var(h + ".tmp_2", (lead,), stop_gradient=True)
@@ -82,11 +119,11 @@ class _Builder:
 
     def fc(self, x, size, act=None):
         h = self.uniq("fc")
-        w = self.var(h + ".w_0", (x.shape[2], size), param=True)
+        w = self.param(h + ".w_0", (x.shape[2], size))
         mul_out = self.var(h + ".tmp_0", x.shape[:2] + (size,))
         self.op("mul", {"X": [x], "Y": [w]}, {"Out": [mul_out]},
                 {"x_num_col_dims": 2, "y_num_col_dims": 1})
-        b = self.var(h + ".w_1", (size,), param=True)
+        b = self.param(h + ".w_1", (size,), 0.0)
         out = self.var(h + ".tmp_1", mul_out.shape)
         self.op("elementwise_add", {"X": [mul_out], "Y": [b]},
                 {"Out": [out]}, {"axis": 2})
@@ -115,16 +152,45 @@ class _Builder:
         return out
 
 
-def build_transformer_inference_program(batch, seq_len, vocab_size,
-                                        n_layer=2, n_head=4, d_model=64,
-                                        d_ff=None, causal=True):
-    """The pruned inference ProgramDesc of the JAX package's
-    `build_transformer_program` of the same arguments."""
+    def reshape(self, x, shape):
+        """reference reshape_op.cc: a 0 copies the input dim, one -1 is
+        inferred; the output has x's execution dtype (int64 targets
+        reshape to int32, as the JAX side's shape inference records)."""
+        h = self.uniq("reshape")
+        dims = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
+        known = int(np.prod([d for d in dims if d != -1]))
+        dims = [int(np.prod(x.shape)) // known if d == -1 else d
+                for d in dims]
+        out = self.var(h + ".tmp_0", tuple(dims), dtype=exec_dtype(x.dtype))
+        self.op("reshape", {"X": [x]}, {"Out": [out]},
+                {"shape": list(shape)})
+        return out
+
+    def softmax_with_cross_entropy(self, logits, label):
+        h = self.uniq("softmax_with_cross_entropy")
+        softmax = self.var(h + ".tmp_0", logits.shape)
+        loss = self.var(h + ".tmp_1", logits.shape[:-1] + (1,))
+        self.op("softmax_with_cross_entropy",
+                {"Logits": [logits], "Label": [label]},
+                {"Softmax": [softmax], "Loss": [loss]},
+                {"soft_label": False})
+        return loss
+
+    def mean(self, x):
+        out = self.var(self.uniq("mean") + ".tmp_0", (1,))
+        self.op("mean", {"X": [x]}, {"Out": [out]}, {})
+        return out
+
+
+def _forward(b, batch, seq_len, vocab_size, n_layer, n_head, d_model, d_ff,
+             causal, train):
+    """The forward into builder `b`; returns the logits var and, for
+    `train`, the targets feed var (else None)."""
     if d_ff is None:
         d_ff = 4 * d_model
-    b = _Builder()
     tokens = b.data("tokens", (batch, seq_len))
     positions = b.data("positions", (batch, seq_len))
+    targets = b.data("targets", (batch, seq_len, 1)) if train else None
     x = b.add(b.embedding(tokens, (vocab_size, d_model)),
               b.embedding(positions, (seq_len, d_model)))
     for _ in range(n_layer):
@@ -134,7 +200,31 @@ def build_transformer_inference_program(batch, seq_len, vocab_size,
         x = b.add(x, b.fc(o, d_model))
         h = b.fc(b.layer_norm(x), d_ff, act="relu")
         x = b.add(x, b.fc(h, d_model))
-    b.fc(b.layer_norm(x), vocab_size)
+    return b.fc(b.layer_norm(x), vocab_size), targets
+
+
+def build_transformer_program(batch, seq_len, vocab_size, n_layer=2,
+                              n_head=4, d_model=64, d_ff=None, causal=True):
+    """(main, startup, loss name, logits name): the training program of
+    the JAX package's `build_transformer_program` of the same
+    arguments, before its optimizer's `minimize`."""
+    b = _Builder(startup=True)
+    logits, targets = _forward(b, batch, seq_len, vocab_size, n_layer,
+                               n_head, d_model, d_ff, causal, True)
+    flat = b.reshape(logits, [-1, vocab_size])
+    flat_tgt = b.reshape(targets, [-1, 1])
+    avg_loss = b.mean(b.softmax_with_cross_entropy(flat, flat_tgt))
+    return b.desc, b.startup, avg_loss.name, logits.name
+
+
+def build_transformer_inference_program(batch, seq_len, vocab_size,
+                                        n_layer=2, n_head=4, d_model=64,
+                                        d_ff=None, causal=True):
+    """The pruned inference ProgramDesc of the JAX package's
+    `build_transformer_program` of the same arguments."""
+    b = _Builder()
+    _forward(b, batch, seq_len, vocab_size, n_layer, n_head, d_model, d_ff,
+             causal, False)
     return b.desc
 
 
@@ -179,11 +269,18 @@ def init_transformer_params(program, seed=0):
     return params
 
 
-def transformer_feeds(batch, seq_len, vocab_size, seed=0):
+def transformer_feeds(batch, seq_len, vocab_size, seed=0, targets=False):
     """Random `tokens` and the `positions` 0..seq_len-1, int64
-    [batch, seq_len]."""
+    [batch, seq_len]; with `targets`, also random int64 `targets`
+    [batch, seq_len, 1] (the JAX side's `transformer_program_feeds` of
+    the same seed, in the same order)."""
     rs = np.random.RandomState(seed)
     tokens = rs.randint(0, vocab_size, size=(batch, seq_len))
     positions = np.broadcast_to(np.arange(seq_len), (batch, seq_len))
-    return {"tokens": tokens.astype(np.int64),
-            "positions": np.ascontiguousarray(positions).astype(np.int64)}
+    feeds = {"tokens": tokens.astype(np.int64),
+             "positions": np.ascontiguousarray(positions).astype(np.int64)}
+    if targets:
+        feeds["targets"] = rs.randint(0, vocab_size,
+                                      size=(batch, seq_len, 1)) \
+            .astype(np.int64)
+    return feeds

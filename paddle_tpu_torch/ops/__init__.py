@@ -8,3 +8,6 @@ from . import activation  # noqa: F401
 from . import sparse  # noqa: F401
 from . import norm  # noqa: F401
 from . import attention  # noqa: F401
+from . import loss  # noqa: F401
+from . import optimizer_ops  # noqa: F401
+from . import random  # noqa: F401

@@ -5,12 +5,13 @@ Counterpart of paddle_tpu/ops/attention.py.  The op views q, k and v as
 views of the fc output), runs kernels/flash_attention.py on those views
 (the CUDA kernel on the card, its plain version on the CPU) and has it
 write O straight into a [B, T, H*Dh] tensor: no head-split or merge
-copy.  `cached_attention` comes with a later slice.
+copy.  It goes through `FlashAttentionFunction`, so the generic grad of
+`flash_attention_grad` runs the forward kernel again and then
+`flash_attention_bwd`, as the JAX side's vjp runs its custom_vjp rules.
+`cached_attention` comes with a later slice.
 """
 
-import torch
-
-from ..kernels.flash_attention import flash_attention_bthd
+from ..kernels.flash_attention import FlashAttentionFunction
 from .registry import register_op
 
 
@@ -37,11 +38,8 @@ def flash_attention_op(ctx, ins, attrs):
     # program runs the local kernel.  Ring and Ulysses arrive with
     # ROADMAP A7, together with a DeviceMesh.
     block = int(attrs.get("block_size", 128))
-    b, tq, d = q.shape
-    out = torch.empty((b, tq, d), dtype=q.dtype, device=q.device)
     heads = [t.unflatten(-1, (num_heads, t.shape[-1] // num_heads))
              for t in (q, k, v)]
-    flash_attention_bthd(*heads, sm_scale, causal,
-                         out=out.unflatten(-1, (num_heads, d // num_heads)),
-                         block_q=block, block_k=block)
-    return {"Out": [out]}
+    o, _, _ = FlashAttentionFunction.apply(*heads, sm_scale, causal, 0,
+                                           block, block)
+    return {"Out": [o.flatten(2)]}

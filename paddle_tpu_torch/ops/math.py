@@ -1,9 +1,9 @@
-"""Math op kernels: `mul` and `elementwise_add`.
+"""Math op kernels: `mul`, `elementwise_add` and `mean`.
 
 Counterparts of paddle_tpu/ops/math.py (reference: mul_op.cc,
-elementwise_op_function.h).  Products go to torch.matmul; with TF32
-off (see the package docstring) a float32 product runs in full float32
-on the card, as on the JAX side.
+elementwise_op_function.h, mean_op.cc).  Products go to torch.matmul;
+with TF32 off (see the package docstring) a float32 product runs in full
+float32 on the card, as on the JAX side.
 """
 
 import torch
@@ -43,3 +43,13 @@ def _bcast_y(x, y, axis):
 def elementwise_add(ctx, ins, attrs):
     x, y = ins["X"][0], ins["Y"][0]
     return {"Out": [x + _bcast_y(x, y, attrs.get("axis", -1))]}
+
+
+@register_op("mean")
+def mean(ctx, ins, attrs):
+    """The mean of all of X as a shape-(1,) tensor (reference
+    mean_op.cc InferShape -> {1}); a bf16 input accumulates in f32."""
+    x = ins["X"][0]
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    return {"Out": [x.mean().reshape(1)]}

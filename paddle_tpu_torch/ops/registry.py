@@ -1,36 +1,78 @@
-"""Operator registry, forward half.
+"""Operator registry: kernels, grad kernels and the generic vjp kernel.
 
 Counterpart of paddle_tpu/ops/registry.py.  A kernel is one function
 per op type, `fn(ctx, ins, attrs) -> {slot: [tensor]}`, over torch
 tensors; PyTorch runs it eagerly on whatever device its inputs live
-on.  Gradients (grad makers, generic vjp kernels) and shape inference
-come with the training slice.
+on.  A grad op `<type>_grad` runs the explicit grad kernel registered
+for `<type>`, or else `run_generic_grad`: `torch.func.vjp` of the
+forward kernel, as the JAX side takes `jax.vjp` of it.  Shape inference
+comes with the layer builder (ROADMAP A3).
 """
 
-__all__ = ["OpInfo", "register_op", "get_op_info", "has_op",
-           "registered_ops"]
+import contextlib
+
+import torch
+
+from ..core.types import GRAD_SUFFIX
+
+__all__ = ["OpInfo", "register_op", "register_grad_kernel", "get_op_info",
+           "has_op", "registered_ops", "is_grad_op_type",
+           "forward_type_of_grad", "run_generic_grad", "span"]
+
+
+def span(name):
+    """A torch.profiler range named `name` while a profiler records,
+    else a no-op: opening a range costs host time even when nothing
+    records, far more than the check."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 class OpInfo:
-    __slots__ = ("type", "kernel")
+    __slots__ = ("type", "kernel", "grad_kernel", "uses_rng",
+                 "nondiff_inputs", "stop_gradient_op", "in_place_outputs",
+                 "sparse_grad_slots")
 
-    def __init__(self, type, kernel):
+    def __init__(self, type, kernel, grad_kernel=None, uses_rng=False,
+                 nondiff_inputs=(), stop_gradient_op=False,
+                 in_place_outputs=(), sparse_grad_slots=None):
         self.type = type
         self.kernel = kernel
+        self.grad_kernel = grad_kernel        # None => generic vjp kernel
+        self.uses_rng = uses_rng
+        self.nondiff_inputs = tuple(nondiff_inputs)  # slots never differentiated
+        self.stop_gradient_op = stop_gradient_op     # no grads flow at all
+        # slots whose output aliases an input (optimizer ops: ParamOut=Param)
+        self.in_place_outputs = tuple(in_place_outputs)
+        # fn(attrs) -> forward-input slots whose grad is a SelectedRows;
+        # the backward builder types those grad VarDescs accordingly
+        self.sparse_grad_slots = sparse_grad_slots
 
 
 _OP_REGISTRY = {}
 
 
-def register_op(type):
+def register_op(type, **kwargs):
     """Decorator registering `fn` as the kernel for op `type`.
 
     Kernel signature: fn(ctx, ins, attrs) -> outs, where ins/outs map a
     slot name to a list of tensors and ctx is the executor's
-    ExecContext (pure ops ignore it)."""
+    ExecContext (pure ops ignore it).  Keyword arguments set the
+    OpInfo fields (nondiff_inputs, stop_gradient_op, ...)."""
 
     def deco(fn):
-        _OP_REGISTRY[type] = OpInfo(type, fn)
+        _OP_REGISTRY[type] = OpInfo(type, fn, **kwargs)
+        return fn
+
+    return deco
+
+
+def register_grad_kernel(fwd_type):
+    """Register an explicit kernel for `<fwd_type>_grad`."""
+
+    def deco(fn):
+        _OP_REGISTRY[fwd_type].grad_kernel = fn
         return fn
 
     return deco
@@ -49,3 +91,89 @@ def has_op(type):
 
 def registered_ops():
     return sorted(_OP_REGISTRY.keys())
+
+
+def is_grad_op_type(type):
+    return type.endswith("_grad")
+
+
+def forward_type_of_grad(type):
+    if not is_grad_op_type(type):
+        raise ValueError("%r is not a grad op type" % type)
+    return type[: -len("_grad")]
+
+
+def _differentiable(v):
+    return isinstance(v, torch.Tensor) and v.is_floating_point()
+
+
+def run_generic_grad(ctx, fwd_type, ins, attrs):
+    """Execute `<fwd_type>_grad` with inputs laid out by the grad maker
+    (fluid/backward.py):
+      ins[slot]       : forward inputs (original slots)
+      ins["O@SLOT"]   : forward outputs (ignored: the vjp recomputes the
+                        forward, as on the JAX side, where XLA then
+                        removes the recomputation; run eagerly here, the
+                        port pays for it, in a profiler range named
+                        "recompute")
+      ins["OG@SLOT"]  : grads of forward outputs (None where absent)
+    An output grad is cast and reshaped to its output's dtype and shape.
+    Returns {"SLOT@GRAD": [...]} for the differentiable forward input
+    slots: None where an input is not a float tensor, else its grad."""
+    info = get_op_info(fwd_type)
+    if info.uses_rng:
+        raise RuntimeError(
+            "op %r consumes RNG; register an explicit grad kernel" % fwd_type)
+
+    fwd_in, out_grads = {}, {}
+    for slot, vals in ins.items():
+        if slot.startswith("OG@"):
+            out_grads[slot[len("OG@"):]] = vals
+        elif not slot.startswith("O@"):
+            fwd_in[slot] = vals
+
+    # the vjp differentiates float tensors of differentiable slots; the
+    # rest (nondiff slots, integer ids, absent inputs) pass through
+    diff = {slot: [v for v in vals if _differentiable(v)]
+            for slot, vals in fwd_in.items()
+            if slot not in info.nondiff_inputs}
+    out_keys = []
+
+    def f(dpart):
+        merged = {}
+        for slot, vals in fwd_in.items():
+            if slot in dpart:
+                it = iter(dpart[slot])
+                vals = [next(it) if _differentiable(v) else v for v in vals]
+            merged[slot] = vals
+        outs = info.kernel(ctx, merged, attrs)
+        out_keys.clear()
+        flat = []
+        for slot, vals in outs.items():
+            for i, v in enumerate(vals):
+                if _differentiable(v):
+                    out_keys.append((slot, i))
+                    flat.append(v)
+        return tuple(flat)
+
+    with span("recompute"):
+        primals_out, vjp_fn = torch.func.vjp(f, diff)
+
+    cots = []
+    for (slot, i), p in zip(out_keys, primals_out):
+        gs = out_grads.get(slot)
+        g = gs[i] if gs is not None and i < len(gs) else None
+        if g is None:
+            cots.append(torch.zeros_like(p))
+        else:
+            g = g.to(p.dtype)
+            cots.append(g.reshape(p.shape) if g.shape != p.shape else g)
+    (grads,) = vjp_fn(tuple(cots))
+
+    result = {}
+    for slot, gs in grads.items():
+        it = iter(gs)
+        result[slot + GRAD_SUFFIX] = [
+            next(it) if _differentiable(p) else None
+            for p in fwd_in[slot]]
+    return result

@@ -1,16 +1,26 @@
-"""Embedding op kernels: the forward of `lookup_table`, dense ids.
+"""Embedding op kernels: `lookup_table` and its dense grad, dense ids.
 
 Counterpart of paddle_tpu/ops/sparse.py (reference:
 lookup_table_op.cc).  Ragged (LoD) ids and the SelectedRows gradient
-come with later slices.
+(`is_sparse`) come with ROADMAP A5.
 """
 
 import torch
 
-from .registry import register_op
+from .registry import register_grad_kernel, register_op
 
 
-@register_op("lookup_table")
+def _flat_ids(ids, vocab):
+    """(raw, wrapped, valid): the ids flattened, negative ones counted
+    from the end as jnp.take does, and the mask of those in range."""
+    raw = ids.reshape(-1)
+    flat = torch.where(raw < 0, raw + vocab, raw)
+    return raw, flat, (flat >= 0) & (flat < vocab)
+
+
+@register_op("lookup_table", nondiff_inputs=("Ids",),
+             sparse_grad_slots=lambda attrs:
+                 ("W",) if attrs.get("is_sparse") else ())
 def lookup_table(ctx, ins, attrs):
     """Rows of W at Ids.  `padding_idx` rows come out zero.  A trailing
     size-1 ids dim is squeezed ([B, T, 1] ids give [B, T, d]), the
@@ -21,9 +31,7 @@ def lookup_table(ctx, ins, attrs):
     w = ins["W"][0]
     ids = ins["Ids"][0]
     vocab = w.shape[0]
-    raw = ids.reshape(-1)
-    flat = torch.where(raw < 0, raw + vocab, raw)
-    valid = (flat >= 0) & (flat < vocab)
+    raw, flat, valid = _flat_ids(ids, vocab)
     out = w.index_select(0, flat.clamp(0, vocab - 1))
     out = torch.where(valid[:, None], out,
                       torch.full((), float("nan"), dtype=w.dtype,
@@ -36,3 +44,26 @@ def lookup_table(ctx, ins, attrs):
     lead = tuple(ids.shape[:-1]) if ids.dim() > 1 and ids.shape[-1] == 1 \
         else tuple(ids.shape)
     return {"Out": [out.reshape(lead + (w.shape[1],))]}
+
+
+@register_grad_kernel("lookup_table")
+def lookup_table_grad(ctx, ins, attrs):
+    """The dense W@GRAD: OG@Out's rows added into zeros at their ids
+    (`index_add_`; on the card the adds are atomic, so rows hit twice
+    sum in a varying order).  Rows of `padding_idx` ids add nothing;
+    ids index as in the forward, and those outside [-vocab, vocab) add
+    nothing, as the JAX side's scatter drops them."""
+    if attrs.get("is_sparse", False):
+        raise NotImplementedError(
+            "lookup_table_grad with is_sparse=True gives a SelectedRows "
+            "gradient, which comes with ROADMAP A5")
+    w = ins["W"][0]
+    vocab = w.shape[0]
+    raw, flat, valid = _flat_ids(ins["Ids"][0], vocab)
+    g = ins["OG@Out"][0].reshape(-1, w.shape[1])
+    padding_idx = int(attrs.get("padding_idx", -1))
+    keep = valid & (raw != padding_idx) if padding_idx >= 0 else valid
+    g = torch.where(keep[:, None], g.to(w.dtype),
+                    torch.zeros((), dtype=w.dtype, device=w.device))
+    dense = torch.zeros_like(w).index_add_(0, flat.clamp(0, vocab - 1), g)
+    return {"W@GRAD": [dense]}

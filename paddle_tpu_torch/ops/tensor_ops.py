@@ -1,12 +1,25 @@
-"""Tensor op kernels: `split`.
+"""Tensor op kernels: `fill_constant`, `split`, `reshape` and `sum`.
 
-Counterpart of paddle_tpu/ops/tensor_ops.py (reference: split_op.cc).
+Counterpart of paddle_tpu/ops/tensor_ops.py (reference:
+fill_constant_op.cc, split_op.cc, reshape_op.cc, sum_op.cc).
 """
 
 import numpy as np
 import torch
 
+from ..core.types import torch_dtype
 from .registry import register_op
+
+
+@register_op("fill_constant", stop_gradient_op=True)
+def fill_constant(ctx, ins, attrs):
+    """`value` in a tensor of `shape` and `dtype` on the executor's
+    device."""
+    shape = tuple(int(s) for s in attrs["shape"])
+    return {"Out": [torch.full(shape, attrs.get("value", 0.0),
+                               dtype=torch_dtype(attrs.get("dtype",
+                                                           "float32")),
+                               device=ctx.device)]}
 
 
 @register_op("split")
@@ -28,3 +41,24 @@ def split(ctx, ins, attrs):
                              % (axis, x.shape[axis], num))
         parts = torch.split(x, x.shape[axis] // num, dim=axis)
     return {"Out": list(parts)}
+
+
+@register_op("reshape")
+def reshape(ctx, ins, attrs):
+    """reference reshape_op.cc: a 0 copies the input dim at its
+    position, one -1 is inferred from the rest."""
+    x = ins["X"][0]
+    shape = [x.shape[i] if int(s) == 0 else int(s)
+             for i, s in enumerate(attrs["shape"])]
+    return {"Out": [x.reshape(shape)]}
+
+
+@register_op("sum")
+def sum_op(ctx, ins, attrs):
+    """The sum of dense X inputs, added in order (the backward's grad
+    accumulation).  SelectedRows inputs come with ROADMAP A5."""
+    xs = ins["X"]
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    return {"Out": [acc]}

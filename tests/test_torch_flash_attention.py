@@ -1,6 +1,9 @@
-"""The port's flash-attention forward (paddle_tpu_torch.kernels.
-flash_attention) against the JAX package's Pallas kernel, which runs in
-interpret mode on the CPU.
+"""The port's flash attention (paddle_tpu_torch.kernels.
+flash_attention) against the JAX package's: the forward against the
+Pallas kernel, which runs in interpret mode on the CPU, and the gradient
+(`FlashAttentionFunction` under torch.func.vjp, and
+`flash_attention_bwd`) against `jax.vjp` of the JAX `flash_attention`
+and its `_flash_bwd_rule`.
 
 The same numpy inputs, made from a seed, go through both.  Tolerances:
 float32 at atol 2e-5 (the same f32 arithmetic, summed in other orders);
@@ -9,6 +12,8 @@ outputs' magnitude, where p and O round at other points).
 """
 
 import importlib
+
+import jax
 
 import numpy as np
 import pytest
@@ -223,3 +228,94 @@ def test_op_on_split_outputs_matches_jax(causal, num_heads, dim, seq):
         None, {"Q": [tq], "K": [tk], "V": [tv]}, attrs)["Out"][0]
     assert to.is_contiguous() and tuple(to.shape) == (2, seq, dim)
     np.testing.assert_allclose(to.numpy(), _f32(jo), atol=2e-5, rtol=0)
+
+
+def _vjp_port(tq, tk, tv, tdo, scale, causal, q_offset):
+    """(o, dq, dk, dv) of FlashAttentionFunction under torch.func.vjp,
+    in [B, H, T, D] layout (the Function takes [B, T, H, D] views)."""
+    def f(q, k, v):
+        return tfa.FlashAttentionFunction.apply(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale,
+            causal, q_offset, 128, 128)[0].transpose(1, 2)
+
+    o, vjp_fn = torch.func.vjp(f, tq, tk, tv)
+    return (o,) + vjp_fn(tdo)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T,D", [(16, 8), (200, 16), (256, 8)])
+@pytest.mark.parametrize("q_offset", [0, 3])
+def test_gradient_matches_jax_vjp(causal, T, D, q_offset):
+    # T = 200: the 128-key block halves to 8 until it divides Tk
+    (jq, jk, jv), (tq, tk, tv) = _inputs(T, D, "float32")
+    do = np.random.RandomState(7).randn(*tq.shape).astype(np.float32)
+    scale = D ** -0.5
+    jo, jvjp = jax.vjp(lambda q, k, v: jfa.flash_attention(
+        q, k, v, scale, causal, 128, 128, q_offset), jq, jk, jv)
+    jgrads = jvjp(jnp.asarray(do))
+    tgot = _vjp_port(tq, tk, tv, torch.from_numpy(do), scale, causal,
+                     q_offset)
+    for name, t, j in zip(("o", "dq", "dk", "dv"), tgot, (jo,) + jgrads):
+        assert tuple(t.shape) == tuple(j.shape), name
+        np.testing.assert_allclose(_f32(t), _f32(j), atol=2e-5, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block_k", [128, 8])
+def test_bwd_matches_flash_bwd_rule(causal, block_k):
+    # the transcription against the rule itself, fed the same residuals
+    (jq, jk, jv), (tq, tk, tv) = _inputs(24, 8, "float32")
+    rs = np.random.RandomState(3)
+    do = rs.randn(*tq.shape).astype(np.float32)
+    scale = 0.3
+    jo, jm, jl = jfa._fwd(jq, jk, jv, scale, causal, 128, block_k, 0)
+    want = jfa._flash_bwd_rule(scale, causal, 128, block_k, 0,
+                               (jq, jk, jv, jo, jm, jl), jnp.asarray(do))
+    got = tfa.flash_attention_bwd(
+        tq, tk, tv, torch.from_numpy(np.array(jo)),
+        torch.from_numpy(np.array(jm)), torch.from_numpy(np.array(jl)),
+        torch.from_numpy(do), scale, causal, block_k)
+    for name, t, j in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(_f32(t), _f32(j), atol=2e-5, rtol=0,
+                                   err_msg=name)
+
+
+def test_function_reaches_the_kernel_with_plain_tensors(monkeypatch):
+    # The CUDA wrapper reads q.data_ptr() for its ctypes launch, which a
+    # torch.func-wrapped tensor refuses.  A stub in the wrapper's place
+    # reads the pointers of q, k, v and O and then computes the plain
+    # version: called directly under vjp it fails; reached through the
+    # op's FlashAttentionFunction under the generic grad it runs, on the
+    # same views the split op makes.
+    real = tfa.flash_attention_bthd
+    pointers = []
+
+    def stub(q, k, v, *args, out=None, **kwargs):
+        pointers.extend(t.data_ptr() for t in (q, k, v, out))
+        return real(q, k, v, *args, out=out, **kwargs)
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 16, 24)
+                         .astype(np.float32))
+    q, k, v = x.split(8, dim=-1)
+    heads = [t.unflatten(-1, (2, 4)) for t in (q, k, v)]
+    with pytest.raises(RuntimeError, match="data pointer"):
+        torch.func.vjp(lambda q: stub(q, heads[1], heads[2], None, True,
+                                      out=torch.empty(2, 16, 2, 4))[0],
+                       heads[0])
+    pointers.clear()
+    monkeypatch.setattr(tfa, "flash_attention_bthd", stub)
+    do = torch.ones(2, 16, 8)
+    grads = treg.run_generic_grad(
+        None, "flash_attention",
+        {"Q": [q], "K": [k], "V": [v], "O@Out": [None], "OG@Out": [do]},
+        {"num_heads": 2, "causal": True})
+    # the pointers are the split views' own
+    assert pointers[:3] == [t.data_ptr() for t in (q, k, v)]
+    monkeypatch.setattr(tfa, "flash_attention_bthd", real)
+    want = treg.run_generic_grad(
+        None, "flash_attention",
+        {"Q": [q], "K": [k], "V": [v], "O@Out": [None], "OG@Out": [do]},
+        {"num_heads": 2, "causal": True})
+    for slot in ("Q@GRAD", "K@GRAD", "V@GRAD"):
+        assert torch.equal(grads[slot][0], want[slot][0])

@@ -175,6 +175,7 @@ def test_flash_attention_op_sequence_parallel_without_mesh(mode):
 def test_registry_holds_the_slice_op_set():
     assert set(treg.registered_ops()) == {
         "elementwise_add", "mul", "layer_norm", "split", "flash_attention",
-        "relu", "lookup_table"}
+        "relu", "lookup_table", "fill_constant", "reshape", "sum", "mean",
+        "softmax_with_cross_entropy", "momentum", "uniform_random"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv2d")
