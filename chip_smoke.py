@@ -42,11 +42,26 @@ no result line:
      card (the floor the atomic adds leave) and through the port's plain
      CPU path: each step's loss and every parameter and velocity after
      them must agree with the card's.
+  6. resnet: ResNet-50 built through the port's fluid layers as bench.py
+     builds it (its default model: `__graft_entry__._build_model`, batch
+     128 at 224x224, 1000 classes, momentum 0.9 at lr 0.01), its op
+     count, op types and parameter count.  At batch 8: 3 steps on the
+     CPU plain path, each step again on the card from the CPU's state
+     before it (loss, the step's change of parameters, velocities and
+     running statistics gated), then the card's own 3 steps.  At batch
+     128, f32 and then bf16 AMP (`fluid.amp.bf16_guard()`), each from
+     the same state: 3 steps with their peak memory, the step's time
+     (median of 10 after 2 warm, feeds on the card), images/s and a
+     profile of one step; the AMP losses against the f32 ones.  The
+     batch-16 inference clone (`clone(for_test=True)`): its forward time
+     and its logits against the CPU plain path.  ResNet-50 runs no
+     hand-written kernel (conv2d is cuDNN, the rest ATen).
 The last line is {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the paddle_tpu package.
 """
 
+import collections
 import json
 import subprocess
 import sys
@@ -106,6 +121,43 @@ LOSS_ATOL = 1e-4
 STATE_RTOL = 2e-2
 STATE_ULPS = 2
 
+# ResNet-50 as bench.py trains it (BENCH_MODEL=resnet50, its default):
+# batch 128 at 224x224, 1000 classes, momentum 0.9 at lr 0.01; BENCH_AMP
+# (on by default there) is bf16 AMP here
+RN_BATCH, RN_HW, RN_CLASSES = 128, 224, 1000
+RN_CHECK_BATCH = 8     # the card-against-CPU check
+RN_INFER_BATCH = 16    # BENCH_MODE=infer's batch
+# card against the CPU plain path at batch 8: each of 3 steps from the
+# same state (the CPU's state before it).  Training from this
+# initialisation at batch 8 is chaotic: on the CPU, 1 thread against 6
+# (sums in other orders) gives the same first loss to 1e-6 and grads
+# within 0.7 % (relative L2 norm), yet after 3 free-running steps losses
+# 0.077 apart and velocities 100 % apart; one step from the same state
+# stays within 1e-6 in the loss, 1.2 % in the step's change of the
+# velocities, 0.9 % of the parameters and 1e-6 of the running statistics.
+# cuDNN with TF32 off picks other algorithms than oneDNN (FFT among them)
+# and accumulates some weight grads with atomic adds: on an H100 the card
+# read 1e-5 in the losses, 1.6 to 3.0 % in the changes and 7e-6 in the
+# running statistics.  The gates: losses at atol 5e-4, the step's change
+# of the parameters and of the velocities at relative L2 0.1, of the
+# batch-norm running statistics at 1e-3 (f32 on both sides; a wrong grad
+# reads order 1).  The free-running trajectories are printed, not gated.
+RN_LOSS_ATOL = 5e-4
+RN_CHANGE_RL2 = 0.1
+RN_STATS_RL2 = 1e-3
+# bf16 AMP against f32 from the same state, each of 3 steps' losses
+# (about 7.5): bf16 rounds every activation to 2^-9 relative through 50
+# layers, and the steps' updates differ by the bf16 grads; the port's CPU
+# path at batch 32 shows 0.036 and 0.045 over 2 steps.  0.15 (2 % of the
+# loss) holds that and catches a policy that diverges or overflows
+RN_AMP_LOSS_ATOL = 0.15
+# the inference clone's logits, card against CPU, at 1e-3 of the largest
+# logit: 3 steps leave the running statistics near their start (mean 0,
+# variance 1), so the test clone barely normalises and the activations
+# grow through the 16 residual additions; f32 through 50 layers, sums in
+# other orders
+RN_LOGITS_RTOL = 1e-3
+
 
 def nvidia_smi_line():
     out = subprocess.run(
@@ -162,6 +214,23 @@ def device_ms(fn, launches=20, replays=5):
     ms = start.elapsed_time(end) / (replays * launches)
     del graph
     return ms
+
+
+def timed_steps(step, runs=10, warm=2):
+    """Host milliseconds of `runs` calls of step() that each end in a
+    synchronize, after `warm` calls."""
+    import torch
+
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 def attention_bound(B, H, Tq, Tk, D, causal, q_offset, dtype):
@@ -604,15 +673,7 @@ def phase_slice():
                                        scope=engine.scope,
                                        return_numpy=False)
 
-            for _ in range(2):
-                forward()
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(10):
-                t0 = time.perf_counter()
-                forward()
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
+            times = timed_steps(forward)
             run_times = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -659,6 +720,25 @@ def phase_slice():
     return launches
 
 
+KERNEL_FAMILIES = (  # (family, name fragments), first match wins
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("copies", ("copy",)),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)),
+    ("flash forward", ("flash_fwd_kernel",)),
+    ("convolutions and products", ("xmma", "cutlass", "cudnn", "gemm",
+                                   "wgrad", "dgrad", "fft", "sm80_",
+                                   "sm90_")),
+)
+
+
+def kernel_family(name):
+    for family, fragments in KERNEL_FAMILIES:
+        if any(f in name for f in fragments):
+            return family
+    return "other"
+
+
 def profile_step(step, op_types, flash_launches, step_ms, attempts=2):
     """Device time of one training step by kernel, from torch.profiler's
     CUDA activity, with the busy share of the profiled window and of the
@@ -687,7 +767,7 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2):
         events = prof.key_averages()
         kernels = device_kernels(events, op_types | {"recompute"})
         flash = sum(k[2] for k in kernels if "flash_fwd_kernel" in k[0])
-        if flash == flash_launches:
+        if flash == flash_launches and kernels:
             break
         print("profile: attempt %d incomplete: %d flash launches of %d"
               % (attempt, flash, flash_launches), flush=True)
@@ -708,6 +788,12 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2):
         print("profile: kernel %6.1f %% %9.3f ms %5d launches  %s"
               % (100.0 * us / busy_us, us / 1e3, count, name[:110]),
               flush=True)
+    families = collections.Counter()
+    for name, us, _ in kernels:
+        families[kernel_family(name)] += us
+    print("profile: by family: %s" % ", ".join(
+        "%s %.3f ms" % (f, us / 1e3) for f, us in families.most_common()),
+        flush=True)
     spans = [(e.key, e.device_time_total, e.cpu_time_total, e.count)
              for e in events
              if e.device_type == torch.autograd.DeviceType.CPU
@@ -719,13 +805,61 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2):
                  100.0 * host_us / wall_us, count), flush=True)
 
 
+def run_from_state(executor, main, loss, state, feeds):
+    """(losses, the state after, seconds): the steps of `feeds` through
+    `main` from `state` ({name: ndarray}) in a fresh scope on the
+    executor's device; the state after has the names of `state`."""
+    from paddle_tpu_torch.fluid import Scope, io
+
+    s = Scope()
+    io.params_from_numpy(s, state, executor.device)
+    t0 = time.perf_counter()
+    losses = [float(executor.run(main, feed=f, fetch_list=[loss],
+                                 scope=s)[0][0]) for f in feeds]
+    return losses, {n: s.get(n).cpu().numpy() for n in state}, \
+        time.perf_counter() - t0
+
+
+def state_errors(got, ref, bases):
+    """{name: largest difference, less STATE_ULPS ulps of the largest
+    entry (the rounding of stored values), over the largest entry of the
+    steps' change from bases[name]} for each name of `bases`."""
+    out = {}
+    for name, base in bases.items():
+        d = float(np.abs(got[name] - ref[name]).max())
+        ulps = STATE_ULPS * float(np.spacing(
+            np.abs(ref[name]).max().astype(np.float32)))
+        out[name] = max(d - ulps, 0.0) / max(
+            float(np.abs(ref[name] - base).max()), 1e-30)
+    return out
+
+
+def change_rl2(got, ref, before, names):
+    """||got - ref|| / ||ref - before|| over the tensors `names`: the
+    error of a step's change in relative L2 norm."""
+    num = sum(float(((got[n] - ref[n]).astype(np.float64) ** 2).sum())
+              for n in names)
+    den = sum(float(((ref[n] - before[n]).astype(np.float64) ** 2).sum())
+              for n in names)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def report(tag, what, ref_losses, losses, errs, rtol):
+    print("%s: %s: loss max_abs_err %.3g; state error (rtol %g, %d ulps): "
+          "median %.3g, worst %s"
+          % (tag, what, max(abs(a - b) for a, b in zip(ref_losses, losses)),
+             rtol, STATE_ULPS, float(np.median(list(errs.values()))),
+             ", ".join("%s %.3g" % (n, errs[n]) for n in sorted(
+                 errs, key=lambda n: -errs[n])[:5])), flush=True)
+
+
 def phase_train():
     """Train the full-width transformer on the card and check 3 steps
     against the port's plain CPU path; returns the launch counts of those
     3 steps."""
     import torch
     from paddle_tpu_torch.fluid import (CPUPlace, Executor,
-                                        MomentumOptimizer, Scope, io)
+                                        MomentumOptimizer, Scope)
     from paddle_tpu_torch.kernels import KERNELS
     from paddle_tpu_torch.models import transformer_program as tp
 
@@ -786,15 +920,7 @@ def phase_train():
         return exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
                        return_numpy=False)
 
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    times = timed_steps(step)
     med = float(np.median(times))
     print("train: step %.3f ms (median of 10 after 2 warm; mean %.3f, min "
           "%.3f, max %.3f), %.0f tokens/s"
@@ -802,51 +928,21 @@ def phase_train():
              BATCH * SEQ / med * 1e3), flush=True)
     profile_step(step, op_types, per_step, med)
 
-    def run_from_init(executor, device):
-        s = Scope()
-        io.params_from_numpy(s, init, device)
-        t0 = time.perf_counter()
-        losses = [float(executor.run(main, feed=f, fetch_list=[loss],
-                                     scope=s)[0][0]) for f in feeds]
-        return losses, {n: s.get(n).cpu().numpy() for n in persist}, \
-            time.perf_counter() - t0
-
-    def state_errors(got, ref):
-        """{name: largest difference, less STATE_ULPS ulps of the
-        largest entry (the rounding of stored values), over the largest
-        entry of the steps' change} of each parameter (change p - p0)
-        and velocity (change v)."""
-        out = {}
-        for n in params:
-            for name, base in ((n, init[n]), (n + "_velocity_0", 0.0)):
-                d = float(np.abs(got[name] - ref[name]).max())
-                ulps = STATE_ULPS * float(np.spacing(
-                    np.abs(ref[name]).max().astype(np.float32)))
-                out[name] = max(d - ulps, 0.0) / max(
-                    float(np.abs(ref[name] - base).max()), 1e-30)
-        return out
-
-    def report(what, losses, errs):
-        print("train: %s: loss max_abs_err %.3g; state error (rtol %g, "
-              "%d ulps): median %.3g, worst %s"
-              % (what, max(abs(a - b) for a, b in zip(card, losses)),
-                 STATE_RTOL, STATE_ULPS, float(np.median(list(
-                     errs.values()))),
-                 ", ".join("%s %.3g" % (n, errs[n]) for n in sorted(
-                     errs, key=lambda n: -errs[n])[:5])), flush=True)
-
+    bases = dict({n: init[n] for n in params},
+                 **{n + "_velocity_0": 0.0 for n in params})
     # the card against itself from the same state: the floor that its
     # nondeterminism (the embedding grads' atomic adds) leaves
-    again, again_state, _ = run_from_init(exe, exe.device)
-    report("card against the card again", again,
-           state_errors(again_state, after))
+    again, again_state, _ = run_from_state(exe, main, loss, init, feeds)
+    report("train", "card against the card again", card, again,
+           state_errors(again_state, after, bases), STATE_RTOL)
     # the same steps from the same state through the plain CPU path
-    cpu, cpu_state, cpu_s = run_from_init(Executor(CPUPlace()), "cpu")
+    cpu, cpu_state, cpu_s = run_from_state(Executor(CPUPlace()), main,
+                                           loss, init, feeds)
     print("train: the same %d steps on the CPU plain path in %.1f s, "
           "losses %s" % (TRAIN_STEPS, cpu_s,
                          ", ".join("%.6f" % x for x in cpu)), flush=True)
-    errs = state_errors(after, cpu_state)
-    report("card against CPU", cpu, errs)
+    errs = state_errors(after, cpu_state, bases)
+    report("train", "card against CPU", card, cpu, errs, STATE_RTOL)
     loss_err = max(abs(a - b) for a, b in zip(card, cpu))
     finite = all(np.isfinite(v).all() for v in after.values()) \
         and all(np.isfinite(card))
@@ -855,6 +951,247 @@ def phase_train():
         raise SystemExit("chip_smoke: training on the card disagrees with "
                          "the CPU plain path (loss atol %g, state rtol %g)"
                          % (LOSS_ATOL, STATE_RTOL))
+    return launches
+
+
+def build_resnet50(batch, train=True):
+    """`__graft_entry__._build_model`'s program through the port's fluid
+    layers: (main, startup, logits, avg_loss or None)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models.image import resnet50
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        image = fluid.layers.data(name="image",
+                                  shape=[batch, 3, RN_HW, RN_HW],
+                                  dtype="float32", append_batch_size=False)
+        logits = resnet50(image, class_dim=RN_CLASSES)
+        if not train:
+            return main, startup, logits, None
+        label = fluid.layers.data(name="label", shape=[batch, 1],
+                                  dtype="int64", append_batch_size=False)
+        avg_loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.MomentumOptimizer(LR, MOMENTUM).minimize(avg_loss)
+    return main, startup, logits, avg_loss
+
+
+def resnet_feeds(batch, steps, seed):
+    rs = np.random.RandomState(seed)
+    return [{"image": rs.randn(batch, 3, RN_HW, RN_HW).astype(np.float32),
+             "label": rs.randint(0, RN_CLASSES, (batch, 1)).astype(np.int64)}
+            for _ in range(steps)]
+
+
+def forward_flops(block):
+    """Operations of one forward of the program's conv2d and mul ops,
+    from its VarDesc shapes (2 per multiply-add)."""
+    total = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            w = block.vars[op.input("Filter")[0]].shape
+            out = block.vars[op.output("Output")[0]].shape
+            total += 2 * int(np.prod(out)) * int(np.prod(w[1:]))
+        elif op.type == "mul":
+            x = block.vars[op.input("X")[0]].shape
+            w = block.vars[op.input("Y")[0]].shape
+            total += 2 * x[0] * int(np.prod(w))
+    return total
+
+
+def phase_resnet():
+    """ResNet-50 built through the port's fluid layers, as bench.py
+    builds it: 3 steps at batch 8 on the card against the CPU plain path;
+    at batch 128, f32 and then bf16 AMP (each from the same state): 3
+    steps with their peak memory, the step time and a profiled step, the
+    AMP losses against the f32 ones; the batch-16 inference clone against
+    the CPU.  Returns the launch counts of the f32 batch-128 steps."""
+    import contextlib
+
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import io
+    from paddle_tpu_torch.kernels import KERNELS
+
+    t0 = time.perf_counter()
+    main, _, _, loss = build_resnet50(RN_BATCH)
+    block = main.desc.block(0)
+    counts = collections.Counter(op.type for op in block.ops)
+    n_values = sum(int(np.prod(v.shape)) for v in block.vars.values()
+                   if v.is_parameter)
+    flops = forward_flops(block)
+    print("resnet: main %d ops of %d types (%s), %d parameter values "
+          "(%.2f M); forward %.2f GFLOP per image; built in %.1f s"
+          % (len(block.ops), len(counts), ", ".join(
+              "%s %d" % kv for kv in sorted(counts.items())), n_values,
+             n_values / 1e6, flops / RN_BATCH / 1e9,
+             time.perf_counter() - t0), flush=True)
+    if abs(n_values - 25.6e6) > 0.1e6:
+        raise SystemExit("chip_smoke: ResNet-50 has %d parameter values"
+                         % n_values)
+
+    # batch 8: the CPU's 3 steps, and each step on the card from the
+    # CPU's state before it; then the card's own 3 steps from the start
+    check, check_startup, _, check_loss = build_resnet50(RN_CHECK_BATCH)
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    scope = fluid.Scope()
+    exe.run(check_startup, scope=scope)
+    cblock = check.desc.block(0)
+    persist = [n for n, v in cblock.vars.items() if v.persistable]
+    init = {n: scope.get(n).cpu().numpy() for n in persist}
+    del scope
+    groups = {
+        "parameters": [n for n, v in cblock.vars.items() if v.is_parameter],
+        "velocities": [n for n in persist if n.endswith("_velocity_0")],
+        "running statistics": [n for op in cblock.ops
+                               if op.type == "batch_norm"
+                               for n in op.input("Mean")
+                               + op.input("Variance")]}
+    feeds = resnet_feeds(RN_CHECK_BATCH, TRAIN_STEPS, SEED)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    t0 = time.perf_counter()
+    states, cpu = [init], []
+    for f in feeds:
+        loss_k, state, _ = run_from_state(cpu_exe, check, check_loss,
+                                          states[-1], [f])
+        cpu += loss_k
+        states.append(state)
+    print("resnet: %d steps at batch %d on the CPU plain path in %.1f s, "
+          "losses %s" % (TRAIN_STEPS, RN_CHECK_BATCH,
+                         time.perf_counter() - t0,
+                         ", ".join("%.6f" % x for x in cpu)), flush=True)
+    ok = True
+    for k, f in enumerate(feeds):
+        (loss_k,), got, _ = run_from_state(exe, check, check_loss,
+                                           states[k], [f])
+        errs = {g: change_rl2(got, states[k + 1], states[k], names)
+                for g, names in groups.items()}
+        print("resnet: step %d on the card from the CPU's state: loss "
+              "%.6f, max_abs_err %.3g (atol %g); the step's change, "
+              "relative L2 error: %s (parameters and velocities %g, "
+              "running statistics %g)"
+              % (k + 1, loss_k, abs(loss_k - cpu[k]), RN_LOSS_ATOL,
+                 ", ".join("%s %.3g" % kv for kv in errs.items()),
+                 RN_CHANGE_RL2, RN_STATS_RL2), flush=True)
+        ok = ok and abs(loss_k - cpu[k]) <= RN_LOSS_ATOL \
+            and errs["parameters"] <= RN_CHANGE_RL2 \
+            and errs["velocities"] <= RN_CHANGE_RL2 \
+            and errs["running statistics"] <= RN_STATS_RL2 \
+            and all(np.isfinite(v).all() for v in got.values())
+    card, after, card_s = run_from_state(exe, check, check_loss, init,
+                                         feeds)
+    print("resnet: the card's own %d steps from the start in %.2f s, losses "
+          "%s; against the CPU's trajectory, relative L2: %s (not gated: "
+          "the trajectories separate)"
+          % (TRAIN_STEPS, card_s, ", ".join("%.6f" % x for x in card),
+             ", ".join("%s %.3g" % (g, change_rl2(after, states[-1], init,
+                                                  names))
+                       for g, names in groups.items())), flush=True)
+    if not ok or not np.isfinite(card).all():
+        raise SystemExit("chip_smoke: ResNet-50 steps on the card disagree "
+                         "with the CPU plain path")
+
+    # batch 128, f32 and then bf16 AMP, each from the same state
+    dev_feeds = [{n: torch.from_numpy(v).to(exe.device) for n, v in f.items()}
+                 for f in resnet_feeds(RN_BATCH, TRAIN_STEPS, SEED + 1)]
+    op_types = set(counts)
+    losses, launches, trained = {}, None, None
+    for amp in (False, True):
+        tag = "bf16 AMP" if amp else "f32"
+        scope = fluid.Scope()
+        io.params_from_numpy(scope, init, exe.device)
+        with fluid.amp.bf16_guard() if amp else contextlib.nullcontext():
+            for w in KERNELS.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses[amp] = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                         scope=scope)[0][0])
+                           for f in dev_feeds]
+            seconds = time.perf_counter() - t0
+            if not amp:
+                # the main path ends here: read the counts
+                launches = {n: w.launches for n, w in KERNELS.items()}
+                trained = {n: scope.get(n).cpu().numpy() for n in persist}
+            peak = torch.cuda.max_memory_allocated()
+            print("resnet %s: %d steps at batch %d in %.2f s, losses %s; "
+                  "peak memory %.3f GB; hand-written kernel launches %s"
+                  % (tag, TRAIN_STEPS, RN_BATCH, seconds,
+                     ", ".join("%.6f" % x for x in losses[amp]),
+                     peak / 1e9,
+                     json.dumps({n: w.launches
+                                 for n, w in KERNELS.items()})),
+                  flush=True)
+
+            def step():
+                return exe.run(main, feed=dev_feeds[0], fetch_list=[loss],
+                               scope=scope, return_numpy=False)
+
+            times = timed_steps(step)
+            med = float(np.median(times))
+            print("resnet %s: step %.3f ms (median of 10 after 2 warm; mean "
+                  "%.3f, min %.3f, max %.3f), %.1f images/s, %.1f TFLOP/s "
+                  "of forward and backward products"
+                  % (tag, med, np.mean(times), min(times), max(times),
+                     RN_BATCH / med * 1e3, 3 * flops / med / 1e9),
+                  flush=True)
+            profile_step(step, op_types, 0, med)
+        del scope
+        torch.cuda.empty_cache()
+    amp_err = max(abs(a - b) for a, b in zip(losses[True], losses[False]))
+    print("resnet: bf16 AMP losses against f32 from the same state: max "
+          "abs difference %.4g (atol %g)" % (amp_err, RN_AMP_LOSS_ATOL),
+          flush=True)
+    if amp_err > RN_AMP_LOSS_ATOL or not np.isfinite(losses[True]).all():
+        raise SystemExit("chip_smoke: the bf16 AMP steps disagree with the "
+                         "f32 steps")
+
+    # the inference clone at batch 16, on the state of the 3 f32 steps
+    fwd, _, logits, _ = build_resnet50(RN_INFER_BATCH, train=False)
+    infer = fwd.clone(for_test=True)
+    if not all(op.attrs["is_test"] for op in infer.desc.block(0).ops
+               if op.type == "batch_norm"):
+        raise SystemExit("chip_smoke: the test clone trains its batch norms")
+    state = {n: v for n, v in trained.items()
+             if n in infer.desc.block(0).vars}
+    image = resnet_feeds(RN_INFER_BATCH, 1, SEED + 2)[0]["image"]
+    scope = fluid.Scope()
+    io.params_from_numpy(scope, state, exe.device)
+    dev_image = torch.from_numpy(image).to(exe.device)
+
+    def forward():
+        return exe.run(infer, feed={"image": dev_image}, fetch_list=[logits],
+                       scope=scope, return_numpy=False)[0]
+
+    times = timed_steps(forward)
+    out = forward().cpu().numpy()
+    cpu_scope = fluid.Scope()
+    io.params_from_numpy(cpu_scope, state, "cpu")
+    t0 = time.perf_counter()
+    ref = fluid.Executor(fluid.CPUPlace()).run(
+        infer, feed={"image": image}, fetch_list=[logits],
+        scope=cpu_scope)[0]
+    err = float(np.abs(out - ref).max())
+    top = float(np.abs(ref).max())
+    print("resnet: inference clone at batch %d: forward %.3f ms (median of "
+          "10 after 2 warm; mean %.3f, min %.3f, max %.3f), %.1f images/s; "
+          "logits %s, max abs %.4g, against the CPU plain path (%.1f s) "
+          "max_abs_err %.3g (%.3g of the largest; rtol %g)"
+          % (RN_INFER_BATCH, np.median(times), np.mean(times), min(times),
+             max(times), RN_INFER_BATCH / np.median(times) * 1e3,
+             list(out.shape), top, time.perf_counter() - t0, err,
+             err / top, RN_LOGITS_RTOL), flush=True)
+    if out.shape != (RN_INFER_BATCH, RN_CLASSES) \
+            or err > RN_LOGITS_RTOL * top or not np.isfinite(out).all():
+        raise SystemExit("chip_smoke: the inference clone's logits disagree "
+                         "with the CPU plain path")
+    unchanged = all(np.array_equal(scope.get(n).cpu().numpy(), v)
+                    for n, v in state.items())
+    if not unchanged:
+        raise SystemExit("chip_smoke: the test clone changed its state")
     return launches
 
 
@@ -870,6 +1207,7 @@ def main():
     measured = phase_kernels()
     launches = phase_slice()
     train_launches = phase_train()
+    resnet_launches = phase_resnet()
     from paddle_tpu_torch.kernels import KERNELS
 
     from paddle_tpu_torch.kernels._build import SOURCES
@@ -878,6 +1216,11 @@ def main():
     # the TPU kernel each one ports: file:line of the Pallas kernel body
     replaces = {"flash_attention_fwd":
                 "paddle_tpu/kernels/flash_attention.py:27"}
+    # ResNet-50 runs no hand-written kernel: conv2d is cuDNN and the rest
+    # ATen, as the JAX package leaves them to XLA
+    if any(resnet_launches.values()):
+        raise SystemExit("chip_smoke: ResNet-50 launched %s"
+                         % json.dumps(resnet_launches))
     for name in KERNELS:
         if launches[name] < 1 or train_launches[name] < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "

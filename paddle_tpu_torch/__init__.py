@@ -4,8 +4,8 @@ A second implementation of the framework for NVIDIA Hopper GPUs
 (H100, sm_90a), beside the JAX package it is held against.  It imports
 torch, numpy and the standard library only — never jax and nothing of
 paddle_tpu — and keeps the JAX package's module layout (core/, ops/,
-kernels/, fluid/, models/, serving/) so each module has an obvious
-counterpart.  The one hand-written TPU kernel on the served path, the
+kernels/, fluid/, models/, serving/, utils/) so each module has an
+obvious counterpart.  Programs are built through its own fluid.layers.  The one hand-written TPU kernel on the served path, the
 flash-attention forward, is CUDA C++ here (csrc/, built at first use).
 
 Entry points (fluid.Executor, serving.InferenceEngine) run on the

@@ -1,16 +1,17 @@
-"""Symbolic backward pass over a ProgramDesc.
+"""Symbolic backward pass over a Program.
 
 Counterpart of paddle_tpu/fluid/backward.py (reference:
-python/paddle/v2/fluid/backward.py:338 append_backward).  The port has
-no framework.Program yet (ROADMAP A3), so `append_backward` works on
-the desc itself: it appends to block 0 the seed `fill_constant`, one
-`<type>_grad` op per forward op that a grad reaches (slots: the forward
-inputs, `O@<slot>` the forward outputs, `OG@<slot>` their grads), and a
-`sum` op wherever a variable gets more than one grad contribution, with
-the same op order, var names (`<var>@GRAD`, `@RENAME@<n>`, the
-`@RENAME@0r` rename before a `sum`) and grad VarDescs as the JAX side.
-A desc built here equals the JAX package's through `to_dict()`.  The
-error-clip callback comes with the layer builder.
+python/paddle/v2/fluid/backward.py:338 append_backward).
+`append_backward(loss)` appends to the loss's block 0 the seed
+`fill_constant`, one `<type>_grad` op per forward op that a grad
+reaches (slots: the forward inputs, `O@<slot>` the forward outputs,
+`OG@<slot>` their grads), and a `sum` op wherever a variable gets more
+than one grad contribution, with the same op order, var names
+(`<var>@GRAD`, `@RENAME@<n>`, the `@RENAME@0r` rename before a `sum`)
+and grad VarDescs as the JAX side: the desc equals the JAX package's
+through `to_dict()`.  The grad ops go straight into the desc, without
+shape inference: each grad VarDesc mirrors its forward var.  The
+error-clip callback waits with clipping (ROADMAP A).
 """
 
 from collections import defaultdict
@@ -116,6 +117,23 @@ def _collect_no_grad(block, no_grad_set):
         name for name, vd in block.vars.items() if vd.stop_gradient}
 
 
+def append_backward(loss, parameter_list=None, no_grad_set=None):
+    """Append the ops computing d(loss)/d(param) for every trainable
+    parameter of the loss's program (or those named in
+    `parameter_list`); returns [(Parameter, grad Variable)] in the
+    block's parameter order (reference: backward.py:338)."""
+    block = loss.block.program.global_block()
+    params = [p for p in block.all_parameters() if p.trainable]
+    if parameter_list is not None:
+        wanted = set(parameter_list)
+        params = [p for p in params if p.name in wanted]
+    pairs = _append_backward_desc(block.desc, loss.name,
+                                  [p.name for p in params], no_grad_set)
+    block.sync_with_desc()
+    by_name = {p.name: p for p in params}
+    return [(by_name[p], block.var(g)) for p, g in pairs]
+
+
 def _append_grad_ops(block, targets, target_grads, no_grad_names):
     """Grad ops for the reverse slice from `targets`, seeded with the
     grads named by `target_grads`; returns the _GradState holding them."""
@@ -135,12 +153,9 @@ def _append_grad_ops(block, targets, target_grads, no_grad_names):
     return state
 
 
-def append_backward(program, loss_name, parameter_list=None,
-                    no_grad_set=None):
-    """Append to block 0 of `program` the ops computing d(loss)/d(param)
-    for every parameter; returns [(param name, grad name)] in the
-    block's parameter order (reference: backward.py:338)."""
-    block = program.block(0)
+def _append_backward_desc(block, loss_name, params, no_grad_set):
+    """append_backward on the BlockDesc `block`, for the parameters named
+    in `params`; returns [(param name, grad name)]."""
     loss = block.var(loss_name)
     no_grad_names = _collect_no_grad(block, no_grad_set)
 
@@ -155,10 +170,6 @@ def append_backward(program, loss_name, parameter_list=None,
     state = _append_grad_ops(block, [loss_name], [loss_grad], no_grad_names)
 
     # finalize leaf grads (params) — emits pending sum ops
-    params = [n for n, vd in block.vars.items() if vd.is_parameter]
-    if parameter_list is not None:
-        wanted = set(parameter_list)
-        params = [p for p in params if p in wanted]
     params_grads = []
     for p in params:
         gname = state.finalize(p)

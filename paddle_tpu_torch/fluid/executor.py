@@ -1,4 +1,4 @@
-"""Executor: runs block 0 of a ProgramDesc op by op, eagerly.
+"""Executor: runs block 0 of a Program op by op, eagerly.
 
 Counterpart of paddle_tpu/fluid/executor.py without its jit
 segmentation, buffer donation, compile cache and telemetry.  Each op's
@@ -29,6 +29,7 @@ import torch
 
 from ..core import scope as scope_mod
 from ..core.desc import ProgramDesc
+from .framework import Program, Variable, default_main_program
 from ..core.scope import global_scope
 from ..core.types import (guard_int64_narrowing, np_dtype,
                           tensor_from_numpy, torch_dtype)
@@ -186,15 +187,22 @@ class Executor:
             t = t.float()
         return t.detach().cpu().numpy()
 
-    def run(self, program, feed=None, fetch_list=None, scope=None,
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
-        """Run block 0 of `program` (a ProgramDesc) with `feed` {name:
-        array or tensor}; returns the values of `fetch_list` (var names),
+        """Run block 0 of `program` (a Program, its ProgramDesc, or None
+        for the default main program) with `feed` {name: array or
+        tensor}; returns the values of `fetch_list` (Variables or names),
         as numpy arrays or, with return_numpy=False, as tensors on the
         place's device."""
+        if program is None:
+            program = default_main_program()
+        if isinstance(program, Program):
+            program = program.desc
         if not isinstance(program, ProgramDesc):
-            raise TypeError("Executor.run needs a ProgramDesc, got %r"
-                            % type(program).__name__)
+            raise TypeError("Executor.run needs a Program or ProgramDesc, "
+                            "got %r" % type(program).__name__)
+        fetch_list = [v.name if isinstance(v, Variable) else v
+                      for v in fetch_list or ()]
         scope = scope if scope is not None else global_scope()
         block = program.block(0)
         persist = [n for op in block.ops for n in op.output_names()
@@ -215,7 +223,7 @@ class Executor:
                     scope.set(name, env[name])
             # a fetch the run did not write (a parameter, optimizer
             # state) resolves from the scope
-            outs = [_lookup(ctx, n) for n in fetch_list or ()]
+            outs = [_lookup(ctx, n) for n in fetch_list]
         if return_numpy:
             return [self._to_numpy(o) for o in outs]
         return outs

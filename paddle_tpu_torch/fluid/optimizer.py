@@ -1,79 +1,138 @@
-"""Optimizers over ProgramDescs: `MomentumOptimizer`.
+"""Optimizers at the Program level: `SGDOptimizer`, `MomentumOptimizer`.
 
 Counterpart of paddle_tpu/fluid/optimizer.py (reference:
-python/paddle/v2/fluid/optimizer.py minimize:204, Momentum).  The port
-has no framework.Program yet (ROADMAP A3), so `minimize` takes the
-loss var's name and the main and startup descs: it appends the
-backward (fluid/backward.py), then per parameter, in name order, a
-velocity accumulator and one `momentum` op, with the learning rate in a
-shared var.  Each new persistable var is declared in both descs and
-initialised by a `fill_constant` in the startup desc.  Names, op order
-and attrs are the JAX side's (`learning_rate_0`, `<param>_velocity_0`),
-so both descs equal the JAX package's through `to_dict()`.  Clipping,
-regularization, fused updates and the other optimizers come with
-ROADMAP A3.
+python/paddle/v2/fluid/optimizer.py minimize:204, SGD, Momentum).  An
+optimizer declares its update: the op type, its per-parameter state
+slots and its hyperparameter attrs; `minimize` appends the backward
+(fluid/backward.py), then per parameter, in name order, the state
+(`<param>_velocity_0`, zeros) and one update op, with the learning rate
+in a shared persistable var (`learning_rate_0`).  Each new persistable
+is declared in the main and startup programs and initialised by a
+`fill_constant` in the startup, so both programs equal the JAX
+package's through `to_dict()`.  The other optimizers, clipping,
+regularization and fused updates wait (ROADMAP A).
 """
 
-from ..core.desc import OpDesc, VarDesc
+from collections import namedtuple
+
 from .backward import append_backward
+from .framework import Program, Variable, unique_name
+from .initializer import Constant
+from .layer_helper import LayerHelper
 
-__all__ = ["MomentumOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer"]
 
-
-def _unique_name(block, prefix):
-    """`prefix_N` for the first N not yet declared in `block` (the JAX
-    side's per-program unique_name counter, for a desc holding no
-    other var of that prefix)."""
-    n = 0
-    while "%s_%d" % (prefix, n) in block.vars:
-        n += 1
-    return "%s_%d" % (prefix, n)
+# a per-parameter accumulator: a variable `{param}_{name}_N`, wired into
+# the update op at in_key and written back at out_key, starting at fill
+StateSlot = namedtuple("StateSlot", ["name", "in_key", "out_key", "fill"])
 
 
-class MomentumOptimizer:
+class Optimizer:
+    """The engine over a declared update rule."""
+
+    op_type = None
+    state_slots = ()
+
+    def __init__(self, learning_rate):
+        if not isinstance(learning_rate, (float, Variable)):
+            raise TypeError("learning_rate should be float or Variable")
+        self._learning_rate = learning_rate
+
+    def _hyper_attrs(self):
+        return {}
+
+    def _lr_var(self, program, helper):
+        if isinstance(self._learning_rate, Variable):
+            return self._learning_rate
+        var = program.global_block().create_var(
+            name=unique_name("learning_rate", program=program), shape=[1],
+            dtype="float32", persistable=True)
+        helper.set_variable_initializer(
+            var, Constant(float(self._learning_rate)))
+        return var
+
+    def _param_lr(self, helper, lr, param):
+        """The learning rate scaled by the parameter's own
+        `learning_rate` (a `scale` op) where that is not 1."""
+        scale = param.optimize_attr.get("learning_rate", 1.0)
+        if scale == 1.0:
+            return lr
+        out = helper.create_tmp_variable("float32", stop_gradient=True)
+        helper.append_op(type="scale", inputs={"X": [lr]},
+                         outputs={"Out": [out]},
+                         attrs={"scale": float(scale)})
+        return out
+
+    def create_optimization_pass(self, parameters_and_grads, loss,
+                                 startup_program=None):
+        """The state and one update op per parameter with a grad
+        (reference: optimizer.py:151); returns the update Operators."""
+        program = loss.block.program
+        block = program.global_block()
+        helper = LayerHelper(type(self).__name__, main_program=program,
+                             startup_program=startup_program)
+        lr = self._lr_var(program, helper)
+        ops = []
+        for param, grad in parameters_and_grads:
+            if grad is None or not param.trainable:
+                continue
+            ins = {"Param": [param], "Grad": [grad],
+                   "LearningRate": [self._param_lr(helper, lr, param)]}
+            outs = {"ParamOut": [param]}
+            for spec in self.state_slots:
+                var = block.create_var(
+                    name=unique_name("%s_%s" % (param.name, spec.name),
+                                     program=program),
+                    shape=list(param.shape), dtype=param.dtype,
+                    persistable=True)
+                helper.set_variable_initializer(var, Constant(spec.fill))
+                ins[spec.in_key] = [var]
+                outs[spec.out_key] = [var]
+            ops.append(block.append_op(type=self.op_type, inputs=ins,
+                                       outputs=outs,
+                                       attrs=self._hyper_attrs()))
+        return ops
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        """Append the backward and the updates; returns (update
+        Operators, [(Parameter, grad Variable)] sorted by name)
+        (reference: optimizer.py:204).
+
+        The desc form `minimize(loss_name, main_desc, startup_desc)`
+        works on ProgramDescs built without the layers (it wraps them
+        with `Program.from_desc`) and returns (update OpDescs, [(param
+        name, grad name)])."""
+        if isinstance(loss, str):
+            main = Program.from_desc(startup_program)
+            ops, pairs = self.minimize(main.global_block().var(loss),
+                                       Program.from_desc(parameter_list))
+            return [op.desc for op in ops], \
+                [(p.name, g.name) for p, g in pairs]
+        params_grads = sorted(
+            append_backward(loss, parameter_list, no_grad_set),
+            key=lambda pg: pg[0].name)
+        return self.create_optimization_pass(params_grads, loss,
+                                             startup_program), params_grads
+
+
+class SGDOptimizer(Optimizer):
+    op_type = "sgd"
+
+
+class MomentumOptimizer(Optimizer):
     op_type = "momentum"
+    state_slots = (StateSlot("velocity", "Velocity", "VelocityOut", 0.0),)
 
     def __init__(self, learning_rate, momentum, use_nesterov=False):
-        if not isinstance(learning_rate, float):
-            raise TypeError("learning_rate should be a float")
-        self._learning_rate = learning_rate
+        super().__init__(learning_rate)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
 
-    @staticmethod
-    def _persistable(main, startup, prefix, shape, dtype, value):
-        """A new persistable var in both descs, filled with `value` by
-        the startup desc; returns its name."""
-        block = main.block(0)
-        name = _unique_name(block, prefix)
-        for b in (block, startup.block(0)):
-            b.vars[name] = VarDesc(name, dtype=dtype, shape=shape,
-                                   persistable=True)
-        startup.block(0).ops.append(OpDesc(
-            "fill_constant", {}, {"Out": [name]},
-            {"shape": list(shape), "dtype": dtype, "value": float(value)}))
-        return name
+    def _hyper_attrs(self):
+        return {"mu": self._momentum, "use_nesterov": self._use_nesterov}
 
-    def minimize(self, loss_name, main, startup):
-        """Append the backward and the update ops to `main` and the
-        state's initialisers to `startup`; returns the appended update
-        ops and [(param name, grad name)] sorted by param name."""
-        params_grads = sorted(append_backward(main, loss_name))
-        block = main.block(0)
-        lr = self._persistable(main, startup, "learning_rate", [1],
-                               "float32", self._learning_rate)
-        ops = []
-        for p, g in params_grads:
-            pv = block.var(p)
-            velocity = self._persistable(main, startup,
-                                         "%s_velocity" % p, pv.shape,
-                                         pv.dtype, 0.0)
-            op = OpDesc(self.op_type,
-                        {"Param": [p], "Grad": [g], "LearningRate": [lr],
-                         "Velocity": [velocity]},
-                        {"ParamOut": [p], "VelocityOut": [velocity]},
-                        {"mu": self._momentum,
-                         "use_nesterov": self._use_nesterov})
-            block.ops.append(op)
-            ops.append(op)
-        return ops, params_grads
+
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer

@@ -1,1 +1,1 @@
-"""Model programs built directly as ProgramDescs."""
+"""Model programs built through the port's fluid layers."""

@@ -7,6 +7,7 @@ from . import tensor_ops  # noqa: F401
 from . import activation  # noqa: F401
 from . import sparse  # noqa: F401
 from . import norm  # noqa: F401
+from . import conv  # noqa: F401
 from . import attention  # noqa: F401
 from . import loss  # noqa: F401
 from . import optimizer_ops  # noqa: F401

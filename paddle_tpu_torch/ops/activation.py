@@ -1,14 +1,44 @@
-"""Activation op kernels: `relu`.
+"""Activation op kernels: the unary activations and `softmax`.
 
 Counterpart of paddle_tpu/ops/activation.py (reference:
-activation_op.cc).
+activation_op.cc, softmax_op.cc).  Each unary activation is one torch
+expression on X; grads come from the generic vjp.
 """
 
 import torch
 
 from .registry import register_op
 
+UNARY = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "exp": torch.exp,
+    "sqrt": torch.sqrt,
+    "abs": torch.abs,
+    "log": torch.log,
+    "square": torch.square,
+}
 
-@register_op("relu")
-def relu(ctx, ins, attrs):
-    return {"Out": [torch.relu(ins["X"][0])]}
+
+def _unary(name, fn):
+    @register_op(name)
+    def kernel(ctx, ins, attrs):
+        return {"Out": [fn(ins["X"][0])]}
+
+    kernel.__name__ = name
+    return kernel
+
+
+for _name, _fn in UNARY.items():
+    _unary(_name, _fn)
+
+
+@register_op("softmax")
+def softmax(ctx, ins, attrs):
+    """Softmax over the last dim; a bf16 input exponentiates in f32 and
+    gives its probabilities back in bf16."""
+    x = ins["X"][0]
+    if x.dtype == torch.bfloat16:
+        return {"Out": [torch.softmax(x.float(), dim=-1).to(x.dtype)]}
+    return {"Out": [torch.softmax(x, dim=-1)]}

@@ -11,11 +11,19 @@ copy.  It goes through `FlashAttentionFunction`, so the generic grad of
 `cached_attention` comes with a later slice.
 """
 
+import torch
+
 from ..kernels.flash_attention import FlashAttentionFunction
 from .registry import register_op
 
 
-@register_op("flash_attention")
+def _infer_flash_attention(ins, attrs):
+    """Out has Q's shape and dtype (the kernel launch needs real
+    pointers, so shape inference does not run it)."""
+    return {"Out": [torch.empty_like(ins["Q"][0])]}
+
+
+@register_op("flash_attention", infer_shape=_infer_flash_attention)
 def flash_attention_op(ctx, ins, attrs):
     """Q, K, V: [batch, seq, dim]; Out: [batch, seq_q, dim] in Q's dtype.
     `sm_scale` 0.0 means Dh^-0.5; `block_size` sets the plain version's

@@ -1,0 +1,117 @@
+"""Convolution and pooling op kernels: `conv2d` and `pool2d`.
+
+Counterpart of paddle_tpu/ops/conv.py (reference: conv_op.cc,
+conv_cudnn_op.cu.cc, pool_op.cc).  `conv2d` is
+torch.nn.functional.conv2d, which is cuDNN on the card; under the bf16
+policy its operands and result are bf16 (ops/amp_util.py).  `pool2d` is
+max pooling, or average pooling with the JAX side's counts: the window
+sum over the zero-padded input divided by the window's size, or, with
+`exclusive` (the default) and padding, by the count of the window's
+elements that lie inside the input (`_np_pool_counts`).  Images are NCHW
+or NHWC (`data_layout`) with OIHW weights in both.  `ceil_mode` is
+recorded and ignored, as on the JAX side.  Both grads are the generic
+vjp, as on the JAX side; a max-pool window's grad goes to its first
+largest element in row-major order on both sides.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .amp_util import amp_result, mxu_operands
+from .registry import register_op
+
+
+def _to_nchw(x, attrs):
+    """(x as an NCHW view, spatial dims of the layout): NHWC images are
+    permuted into NCHW views (channels-last memory, which cuDNN takes as
+    it is) and permuted back by `_from_nchw`."""
+    layout = attrs.get("data_layout", "NCHW")
+    if layout == "NHWC":
+        return x.permute(0, 3, 1, 2), (1, 2)
+    if layout == "NCHW":
+        return x, (2, 3)
+    raise ValueError("unsupported data_layout %r" % (layout,))
+
+
+def _from_nchw(out, attrs):
+    if attrs.get("data_layout", "NCHW") == "NHWC":
+        return out.permute(0, 2, 3, 1)
+    return out
+
+
+def _check_spatial(out, opname, x, sdims):
+    """A kernel/stride larger than the input gives a zero-sized spatial
+    dim: fail here, with the shapes, not far downstream."""
+    if any(out.shape[d] == 0 for d in sdims):
+        raise ValueError(
+            "%s produced an empty output %s from input %s — the input "
+            "spatial size is too small for this kernel/stride/padding"
+            % (opname, tuple(out.shape), tuple(x.shape)))
+    return out
+
+
+@register_op("conv2d")
+def conv2d(ctx, ins, attrs):
+    x, w = ins["Input"][0], ins["Filter"][0]
+    xm, wm = mxu_operands(x, w)
+    xm, _ = _to_nchw(xm, attrs)
+    out = F.conv2d(xm, wm, stride=tuple(attrs.get("strides", [1, 1])),
+                   padding=tuple(attrs.get("paddings", [0, 0])),
+                   dilation=tuple(attrs.get("dilations", [1, 1])),
+                   groups=int(attrs.get("groups", 1) or 1))
+    out = _from_nchw(out, attrs)
+    _check_spatial(out, "conv2d", x, _to_nchw(x, attrs)[1])
+    return {"Output": [amp_result(out, x.dtype)]}
+
+
+def _np_pool_counts(hw, ksize, strides, paddings):
+    """counts[i, j]: the elements of window (i, j) that lie inside the
+    input; the count factorizes per axis, rows[i] * cols[j]."""
+    def axis_counts(n, k, s, p):
+        ones = np.pad(np.ones(n, np.float32), (p, p))
+        return np.array([ones[i * s:i * s + k].sum()
+                         for i in range((n + 2 * p - k) // s + 1)],
+                        np.float32)
+
+    return np.outer(
+        axis_counts(hw[0], ksize[0], strides[0], paddings[0]),
+        axis_counts(hw[1], ksize[1], strides[1], paddings[1]))
+
+
+def _pad(x, paddings, ksize, value):
+    """(x, paddings for torch): torch pads a pooling window by at most
+    half the kernel itself; a larger padding is applied here, with
+    `value`."""
+    if all(2 * p <= k for p, k in zip(paddings, ksize)):
+        return x, paddings
+    ph, pw = paddings
+    return F.pad(x, (pw, pw, ph, ph), value=value), [0, 0]
+
+
+@register_op("pool2d")
+def pool2d(ctx, ins, attrs):
+    x = ins["X"][0]
+    xs, sdims = _to_nchw(x, attrs)
+    ksize = list(attrs.get("ksize", [2, 2]))
+    strides = list(attrs.get("strides", [1, 1]))
+    paddings = list(attrs.get("paddings", [0, 0]))
+    if attrs.get("global_pooling", False):
+        ksize = list(xs.shape[2:])
+        strides = [1, 1]
+        paddings = [0, 0]
+    if attrs.get("pooling_type", "max") == "max":
+        xp, pads = _pad(xs, paddings, ksize, float("-inf"))
+        out = F.max_pool2d(xp, ksize, strides, pads)
+    else:
+        xp, pads = _pad(xs, paddings, ksize, 0.0)
+        summed = F.avg_pool2d(xp, ksize, strides, pads, divisor_override=1)
+        if attrs.get("exclusive", True) and (paddings[0] or paddings[1]):
+            counts = _np_pool_counts(tuple(xs.shape[2:]), ksize, strides,
+                                     paddings)
+            out = summed / torch.as_tensor(counts, dtype=summed.dtype,
+                                           device=summed.device)
+        else:
+            out = summed / (ksize[0] * ksize[1])
+    out = _from_nchw(out, attrs)
+    return {"Out": [_check_spatial(out, "pool2d", x, sdims)]}

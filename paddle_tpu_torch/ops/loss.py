@@ -1,6 +1,6 @@
-"""Loss op kernels: `softmax_with_cross_entropy`.
+"""Loss op kernels: `cross_entropy` and `softmax_with_cross_entropy`.
 
-Counterpart of paddle_tpu/ops/loss.py (reference:
+Counterpart of paddle_tpu/ops/loss.py (reference: cross_entropy_op.cc,
 softmax_with_cross_entropy_op.cc).  Losses compute in f32: a bf16 input
 is upcast first, as on the JAX side.
 """
@@ -12,6 +12,37 @@ from .registry import register_op
 
 def _f32(x):
     return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _hard_ids(label, n):
+    """(ids, valid): Label's class ids as a [N, 1] int64 column, a
+    negative id counted from the end, and the mask of those in [0, n)
+    after that (jnp.take_along_axis's indexing on the JAX side)."""
+    raw = label.reshape(-1, 1).long()
+    ids = torch.where(raw < 0, raw + n, raw)
+    return ids.clamp(0, n - 1), (ids >= 0) & (ids < n)
+
+
+def _nan_where_invalid(valid, vals):
+    return torch.where(valid, vals, torch.full((), float("nan"),
+                                               dtype=vals.dtype,
+                                               device=vals.device))
+
+
+@register_op("cross_entropy", nondiff_inputs=("Label",))
+def cross_entropy(ctx, ins, attrs):
+    """Y [N, 1] = -log(X[label] + 1e-8) of probabilities X [N, C] against
+    hard labels (any shape with N entries), or -sum(label * log(X +
+    1e-8)) against soft labels [N, C]."""
+    x = _f32(ins["X"][0])
+    label = ins["Label"][0]
+    eps = 1e-8
+    if attrs.get("soft_label", False):
+        return {"Y": [-(_f32(label) * torch.log(x + eps))
+                      .sum(dim=-1, keepdim=True)]}
+    ids, valid = _hard_ids(label, x.shape[-1])
+    return {"Y": [_nan_where_invalid(valid,
+                                     -torch.log(x.gather(-1, ids) + eps))]}
 
 
 @register_op("softmax_with_cross_entropy", nondiff_inputs=("Label",))
@@ -27,12 +58,6 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
             "(hard labels only)")
     logits = _f32(ins["Logits"][0])
     logp = torch.log_softmax(logits, dim=-1)
-    n = logp.shape[-1]
-    raw = ins["Label"][0].reshape(-1, 1).long()
-    ids = torch.where(raw < 0, raw + n, raw)
-    valid = (ids >= 0) & (ids < n)
-    picked = logp.gather(-1, ids.clamp(0, n - 1))
-    loss = torch.where(valid, -picked,
-                       torch.full((), float("nan"), dtype=logp.dtype,
-                                  device=logp.device))
+    ids, valid = _hard_ids(ins["Label"][0], logp.shape[-1])
+    loss = _nan_where_invalid(valid, -logp.gather(-1, ids))
     return {"Softmax": [torch.exp(logp)], "Loss": [loss]}

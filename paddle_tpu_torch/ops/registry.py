@@ -5,8 +5,14 @@ per op type, `fn(ctx, ins, attrs) -> {slot: [tensor]}`, over torch
 tensors; PyTorch runs it eagerly on whatever device its inputs live
 on.  A grad op `<type>_grad` runs the explicit grad kernel registered
 for `<type>`, or else `run_generic_grad`: `torch.func.vjp` of the
-forward kernel, as the JAX side takes `jax.vjp` of it.  Shape inference
-comes with the layer builder (ROADMAP A3).
+forward kernel, as the JAX side takes `jax.vjp` of it.
+
+Shape inference (`infer_meta`, the counterpart of the JAX side's
+`generic_infer_shape`) runs the op's kernel on tensors on the "meta"
+device, which carry a shape and a dtype and no values.  An op whose
+kernel cannot run there (one that reads values, or launches a CUDA
+kernel on `data_ptr()`) registers an `infer_shape` stand-in instead: a
+function of the same (ins, attrs) over meta tensors.
 """
 
 import contextlib
@@ -17,7 +23,8 @@ from ..core.types import GRAD_SUFFIX
 
 __all__ = ["OpInfo", "register_op", "register_grad_kernel", "get_op_info",
            "has_op", "registered_ops", "is_grad_op_type",
-           "forward_type_of_grad", "run_generic_grad", "span"]
+           "forward_type_of_grad", "run_generic_grad", "span",
+           "infer_meta"]
 
 
 def span(name):
@@ -30,16 +37,18 @@ def span(name):
 
 
 class OpInfo:
-    __slots__ = ("type", "kernel", "grad_kernel", "uses_rng",
+    __slots__ = ("type", "kernel", "grad_kernel", "infer_shape", "uses_rng",
                  "nondiff_inputs", "stop_gradient_op", "in_place_outputs",
                  "sparse_grad_slots")
 
-    def __init__(self, type, kernel, grad_kernel=None, uses_rng=False,
-                 nondiff_inputs=(), stop_gradient_op=False,
+    def __init__(self, type, kernel, grad_kernel=None, infer_shape=None,
+                 uses_rng=False, nondiff_inputs=(), stop_gradient_op=False,
                  in_place_outputs=(), sparse_grad_slots=None):
         self.type = type
         self.kernel = kernel
         self.grad_kernel = grad_kernel        # None => generic vjp kernel
+        # fn(ins, attrs) -> outs over meta tensors; None => the kernel
+        self.infer_shape = infer_shape
         self.uses_rng = uses_rng
         self.nondiff_inputs = tuple(nondiff_inputs)  # slots never differentiated
         self.stop_gradient_op = stop_gradient_op     # no grads flow at all
@@ -176,4 +185,66 @@ def run_generic_grad(ctx, fwd_type, ins, attrs):
         result[slot + GRAD_SUFFIX] = [
             next(it) if _differentiable(p) else None
             for p in fwd_in[slot]]
+    return result
+
+
+# Every dynamic (-1) dim takes the SAME substitute within one inference
+# run (they are the batch dim and must broadcast together); a second run
+# with another substitute tells static dims from dynamic ones.  The
+# JAX side's values, highly composite (840 = lcm 1..8, 2520 = lcm 1..9)
+# so that kernels folding the dynamic dim see a divisible size; the
+# same values keep the VarDesc shapes equal to the JAX package's.
+_SUB_A = 840
+_SUB_B = 2520
+
+META = torch.device("meta")
+
+
+class _MetaCtx:
+    """The ExecContext of shape inference: the meta device, no random
+    stream (random ops infer from their attrs)."""
+
+    device = META
+
+    def next_rng(self):
+        raise RuntimeError("shape inference has no random stream")
+
+
+def infer_meta(op_type, ins_meta, attrs):
+    """{slot: [(shape, dtype name)]} of the outputs of op `op_type` for
+    inputs `ins_meta` {slot: [(shape, dtype)]}: the kernel (or the op's
+    `infer_shape`) run on meta tensors with every -1 dim substituted,
+    twice where an input has one; a dim that differs between the two
+    runs is -1.  Dtypes are what the inputs execute as (int64 as
+    int32), so the result is what the op gives at run time."""
+    from ..core.types import torch_dtype
+
+    info = get_op_info(op_type)
+    fn = info.infer_shape or (
+        lambda ins, a: info.kernel(_MetaCtx(), ins, a))
+
+    def run(sub):
+        ins = {slot: [torch.empty(tuple(sub if d < 0 else d
+                                        for d in shape),
+                                  dtype=torch_dtype(dtype), device=META)
+                      for shape, dtype in metas]
+               for slot, metas in ins_meta.items()}
+        with torch.no_grad():
+            return fn(ins, attrs)
+
+    dynamic = any(d < 0 for metas in ins_meta.values()
+                  for shape, _ in metas for d in shape)
+    out_a = run(_SUB_A)
+    out_b = run(_SUB_B) if dynamic else out_a
+    result = {}
+    for slot, vals in out_a.items():
+        metas = []
+        for va, vb in zip(vals, out_b[slot]):
+            if va is None:
+                metas.append(None)
+                continue
+            shape = tuple(int(a) if a == b else -1
+                          for a, b in zip(va.shape, vb.shape))
+            metas.append((shape, str(va.dtype).replace("torch.", "")))
+        result[slot] = metas
     return result

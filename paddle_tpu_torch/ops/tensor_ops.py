@@ -1,7 +1,9 @@
-"""Tensor op kernels: `fill_constant`, `split`, `reshape` and `sum`.
+"""Tensor op kernels: `fill_constant`, `cast`, `scale`, `split`,
+`reshape` and `sum`.
 
 Counterpart of paddle_tpu/ops/tensor_ops.py (reference:
-fill_constant_op.cc, split_op.cc, reshape_op.cc, sum_op.cc).
+fill_constant_op.cc, cast_op.cc, scale_op.cc, split_op.cc,
+reshape_op.cc, sum_op.cc).
 """
 
 import numpy as np
@@ -20,6 +22,18 @@ def fill_constant(ctx, ins, attrs):
                                dtype=torch_dtype(attrs.get("dtype",
                                                            "float32")),
                                device=ctx.device)]}
+
+
+@register_op("cast")
+def cast(ctx, ins, attrs):
+    """X in `out_dtype` (or `dtype`), as it executes (int64 as int32)."""
+    dtype = attrs["out_dtype"] if "out_dtype" in attrs else attrs["dtype"]
+    return {"Out": [ins["X"][0].to(torch_dtype(dtype))]}
+
+
+@register_op("scale")
+def scale(ctx, ins, attrs):
+    return {"Out": [ins["X"][0] * attrs.get("scale", 1.0)]}
 
 
 @register_op("split")

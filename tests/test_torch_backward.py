@@ -1,13 +1,14 @@
-"""The port's backward and optimizer over descs (paddle_tpu_torch.fluid.
-backward / optimizer) against the JAX package's fluid.
+"""The port's backward and optimizer (paddle_tpu_torch.fluid.backward /
+optimizer) against the JAX package's fluid.
 
 - The transformer's training program built by the port
-  (`build_transformer_program`, then `MomentumOptimizer.minimize`)
-  equals the JAX package's through `to_dict()`, main and startup, at the
+  (`build_transformer_program`, then `MomentumOptimizer.minimize` in its
+  desc form, `minimize(loss_name, main_desc, startup_desc)`) equals the JAX package's through `to_dict()`, main and startup, at the
   test size (batch 4, seq 32, vocab 64, 2 layers, 4 heads, d_model 32)
   and at `bench.py`'s full width (descs only).
 - For forward programs the JAX layers build, the port's
-  `append_backward` on the parsed forward desc gives the desc the JAX
+  `append_backward` on the loss of the parsed forward desc (wrapped by
+  `Program.from_desc`) gives the desc the JAX
   backward gives: grad accumulation with `sum` and the `@RENAME@0r`
   rename, a parameter used twice, a sparse embedding's SelectedRows
   grad, `no_grad_set` and `parameter_list`.
@@ -23,7 +24,8 @@ from paddle_tpu.fluid.backward import append_backward as j_append_backward
 from paddle_tpu.models.transformer_program import \
     build_transformer_program as j_build
 from paddle_tpu_torch.core.desc import ProgramDesc
-from paddle_tpu_torch.fluid import MomentumOptimizer, append_backward
+from paddle_tpu_torch.fluid import (MomentumOptimizer, Program,
+                                    append_backward)
 from paddle_tpu_torch.models.transformer_program import \
     build_transformer_program
 
@@ -131,9 +133,11 @@ def test_append_backward_equals_jax(forward, kwargs):
     main, startup = jfluid.Program(), jfluid.Program()
     with jfluid.program_guard(main, startup):
         loss = forward()
-    port = ProgramDesc.parse_from_string(main.desc.serialize_to_string())
+    port = Program.from_desc(
+        ProgramDesc.parse_from_string(main.desc.serialize_to_string()))
     with jfluid.program_guard(main, startup):
         jpg = j_append_backward(loss, **kwargs)
-    pg = append_backward(port, loss.name, **kwargs)
-    assert port.to_dict() == main.desc.to_dict()
-    assert pg == [(p.name, g.name) for p, g in jpg]
+    pg = append_backward(port.global_block().var(loss.name), **kwargs)
+    assert port.desc.to_dict() == main.desc.to_dict()
+    assert [(p.name, g.name) for p, g in pg] \
+        == [(p.name, g.name) for p, g in jpg]

@@ -330,5 +330,5 @@ def test_lookup_table_grad_sparse_is_refused():
 
 def test_grad_op_of_unregistered_op_raises():
     ctx = texec.ExecContext(None, 0, {})
-    with pytest.raises(KeyError, match="conv2d_grad"):
-        texec.apply_op(ctx, OpDesc("conv2d_grad", {}, {}, {}))
+    with pytest.raises(KeyError, match="conv3d_grad"):
+        texec.apply_op(ctx, OpDesc("conv3d_grad", {}, {}, {}))

@@ -176,6 +176,12 @@ def test_registry_holds_the_slice_op_set():
     assert set(treg.registered_ops()) == {
         "elementwise_add", "mul", "layer_norm", "split", "flash_attention",
         "relu", "lookup_table", "fill_constant", "reshape", "sum", "mean",
-        "softmax_with_cross_entropy", "momentum", "uniform_random"}
+        "softmax_with_cross_entropy", "momentum", "uniform_random",
+        # the ResNet-50 op set, the golden programs' ops, AMP
+        "conv2d", "pool2d", "batch_norm", "gaussian_random", "softmax",
+        "cross_entropy", "square", "sgd", "cast", "scale",
+        "elementwise_sub", "elementwise_mul", "elementwise_div",
+        "elementwise_max", "elementwise_min", "elementwise_pow",
+        "sigmoid", "tanh", "exp", "sqrt", "abs", "log"}
     with pytest.raises(KeyError):
-        treg.get_op_info("conv2d")
+        treg.get_op_info("conv3d")
