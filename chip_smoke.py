@@ -56,6 +56,31 @@ no result line:
      batch-16 inference clone (`clone(for_test=True)`): its forward time
      and its logits against the CPU plain path.  ResNet-50 runs no
      hand-written kernel (conv2d is cuDNN, the rest ATen).
+  7. decode: generation at the transformer's full width (batch 16, 512
+     positions).  The training program with Adam (lr 1e-3, as
+     examples/transformer_lm.py trains the LM it generates from): its
+     startup and 3 steps on the card, the first against the CPU plain
+     path from the same state (loss, and the step's change of the
+     parameters and both moments in relative L2).  From the scope they
+     leave, fluid.ProgramDecoder over the KV-cached step: greedy with a
+     128-token prefill to the cache's extent (385 tokens, 512
+     positions), each generated token's logit within ARGMAX_ATOL of its
+     position's largest in the full forward teacher-forced on the
+     result, the step logits at 3 positions against it, and one token
+     more raising before any step; the prefill's and the step's latency
+     (median of 64 synchronised steps), the step's bound (its weights and
+     caches over HBM bandwidth) and a profile of one step;
+     cached_attention alone at [16, 8, 512, 64] against
+     scaled_dot_product_attention.  Then the sliding-window step, 32
+     tokens over a 512-token window, in which the flash kernel must run
+     6 times per step, counted from 0 just before: each step's logits
+     against the full forward's last position, the first 2 against the
+     port's plain CPU path, its latency.  Beam: beam(1) equal to greedy;
+     beam 4 at batch 4 (the step's 16 rows) best first, the best score
+     against its log-probability through the full forward.  Sampling:
+     temperature 1e-5 and top_k=1 equal greedy, a seed repeats.  Last,
+     greedy, sampling and beam loops and window steps run with CUDA's
+     synchronizing calls made errors: no step waits for the device.
 The last line is {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the paddle_tpu package.
@@ -157,6 +182,32 @@ RN_AMP_LOSS_ATOL = 0.15
 # grow through the 16 residual additions; f32 through 50 layers, sums in
 # other orders
 RN_LOGITS_RTOL = 1e-3
+
+# phase 7, generation: the transformer trained with Adam, as
+# examples/transformer_lm.py trains the LM it generates from
+ADAM_LR = 1e-3
+PROMPT_LEN = 128        # the cached path: 128 + 385 - 1 = 512 positions
+WINDOW_STEPS = 32       # tokens of the sliding-window path
+BEAM_BATCH, BEAM_SIZE, BEAM_LEN = 4, 4, 32   # 16 rows, the step's batch
+# Adam's first step against the CPU plain path from the same state, in
+# relative L2 of what the step made.  The moments are linear (m1) and
+# quadratic (m2) in the grad, so they differ as the grads do; the
+# parameters move by lr * m1 / (sqrt(m2) + eps), about lr * sign(g), so
+# an entry whose grad lies within the card-CPU difference of 0 (the K
+# projection's bias has an identically zero grad: softmax ignores a shift
+# common to every key) moves by up to 2 lr between them, and the
+# parameters differ more than the grads.  An H100 read 6.7e-4 (m1),
+# 1.2e-3 (m2) and 5.3e-3 (parameters); the gates are about 10 times
+# that, and a wrong grad or update rule reads order 1
+ADAM_MOMENT_RL2 = 1e-2
+ADAM_PARAM_RL2 = 5e-2
+# teacher forcing: each generated token's logit in the full forward lies
+# within this of that position's largest logit (argmax equality that
+# survives near-ties between two logits the card computes in other orders)
+ARGMAX_ATOL = 1e-3
+# the best beam's score against its log-probability recomputed through
+# the full forward: 32 f32 log-softmaxes summed (about -9 each)
+BEAM_SCORE_ATOL = 1e-3
 
 
 def nvidia_smi_line():
@@ -739,8 +790,9 @@ def kernel_family(name):
     return "other"
 
 
-def profile_step(step, op_types, flash_launches, step_ms, attempts=2):
-    """Device time of one training step by kernel, from torch.profiler's
+def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
+                 what="one training step"):
+    """Device time of one step (`what`) by kernel, from torch.profiler's
     CUDA activity, with the busy share of the profiled window and of the
     unprofiled step (`step_ms`); and by op type, from the executor's
     per-op profiler ranges ("recompute" is the generic grads' recompute of
@@ -776,10 +828,10 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2):
               "measured", flush=True)
         return
     busy_us = sum(k[1] for k in kernels)
-    print("profile: one training step, wall %.3f ms, device busy %.3f ms "
+    print("profile: %s, wall %.3f ms, device busy %.3f ms "
           "(%.1f %% of the profiled window, idle %.1f %%; %.1f %% of the "
           "unprofiled median step, idle %.1f %%), %d launches"
-          % (wall_us / 1e3, busy_us / 1e3, 100.0 * busy_us / wall_us,
+          % (what, wall_us / 1e3, busy_us / 1e3, 100.0 * busy_us / wall_us,
              100.0 - 100.0 * busy_us / wall_us,
              100.0 * busy_us / 1e3 / step_ms,
              100.0 - 100.0 * busy_us / 1e3 / step_ms,
@@ -1195,6 +1247,422 @@ def phase_resnet():
     return launches
 
 
+class StepRecorder:
+    """Stands in for a ProgramDecoder's step and keeps a copy, on the
+    card, of the logits of the calls numbered in `keep` (all with None);
+    counts the calls."""
+
+    def __init__(self, decoder, keep=None):
+        self.step = decoder._step
+        self.keep = keep
+        self.calls = 0
+        self.logits = {}
+        decoder._step = self
+
+    def __call__(self, state, tok):
+        logits, state = self.step(state, tok)
+        if self.keep is None or self.calls in self.keep:
+            self.logits[self.calls] = logits.clone()
+        self.calls += 1
+        return logits, state
+
+
+def phase_decode():
+    """Train the full-width transformer with Adam on the card (its first
+    step against the CPU plain path), then generate from the scope it
+    leaves through fluid.ProgramDecoder: cached greedy with a prefill,
+    teacher-forced against the full forward; the sliding-window step,
+    each step against the full forward's last position, the first two
+    against the CPU plain path; beam (1 against greedy, 4 against the
+    full forward's log-probabilities) and sampling.  Returns the launch
+    counts of the sliding-window path, the one of the decode paths that
+    runs the flash kernel."""
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.kernels import KERNELS
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.models.decode import prefill
+    from paddle_tpu_torch.ops.registry import get_op_info
+
+    arch = dict(n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL)
+    d_head = D_MODEL // N_HEAD
+    main, startup, loss, _ = tp.build_transformer_program(BATCH, SEQ, VOCAB,
+                                                          **arch)
+    fluid.Adam(ADAM_LR).minimize(loss, main, startup)
+    block = main.block(0)
+    persist = [n for n, v in block.vars.items() if v.persistable]
+    params = [n for n in persist if n + "_moment1_0" in block.vars]
+    exe = fluid.Executor()
+    dev = exe.device
+    if dev.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).cpu().numpy() for n in persist}
+    feeds = [tp.transformer_feeds(BATCH, SEQ, VOCAB, seed=SEED + 10 + i,
+                                  targets=True)
+             for i in range(TRAIN_STEPS)]
+    card, after1 = [], None
+    t0 = time.perf_counter()
+    for f in feeds:
+        card.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                  scope=scope)[0][0]))
+        if after1 is None:
+            after1 = {n: scope.get(n).cpu().numpy() for n in persist}
+    print("decode: %d Adam steps (lr %g) on the card in %.2f s, losses %s"
+          % (TRAIN_STEPS, ADAM_LR, time.perf_counter() - t0,
+             ", ".join("%.6f" % x for x in card)), flush=True)
+    (cpu_loss,), cpu1, cpu_s = run_from_state(
+        fluid.Executor(fluid.CPUPlace()), main, loss, init, feeds[:1])
+    errs = {"parameters": change_rl2(after1, cpu1, init, params),
+            "moment1": change_rl2(after1, cpu1, init,
+                                  [n + "_moment1_0" for n in params]),
+            "moment2": change_rl2(after1, cpu1, init,
+                                  [n + "_moment2_0" for n in params])}
+    pows = max(abs(float(after1[n][0]) - float(cpu1[n][0]))
+               for n in ("beta1_pow_acc_0", "beta2_pow_acc_0"))
+    print("decode: Adam step 1 on the card against the CPU plain path "
+          "(%.1f s): loss max_abs_err %.3g (atol %g); the step's change, "
+          "relative L2 error: %s (parameters %g, moments %g); beta powers "
+          "%.3g" % (cpu_s, abs(card[0] - cpu_loss), LOSS_ATOL,
+                    ", ".join("%s %.3g" % kv for kv in errs.items()),
+                    ADAM_PARAM_RL2, ADAM_MOMENT_RL2, pows), flush=True)
+    if abs(card[0] - cpu_loss) > LOSS_ATOL \
+            or errs["parameters"] > ADAM_PARAM_RL2 \
+            or max(errs["moment1"], errs["moment2"]) > ADAM_MOMENT_RL2 \
+            or pows > 1e-7 or not np.isfinite(card).all():
+        raise SystemExit("chip_smoke: the Adam step on the card disagrees "
+                         "with the CPU plain path")
+    del init, after1, cpu1
+
+    # the full forward: the training program's test clone, on the card
+    fwd_main, _, _, fwd_logits = tp.build_transformer_program(
+        BATCH, SEQ, VOCAB, **arch)
+    fwd = fluid.Program.from_desc(fwd_main).clone(for_test=True)
+    positions = np.tile(np.arange(SEQ, dtype=np.int64), (BATCH, 1))
+    no_targets = np.zeros((BATCH, SEQ, 1), np.int64)
+
+    def full_logits(tokens):
+        return exe.run(fwd, feed={"tokens": tokens, "positions": positions,
+                                  "targets": no_targets},
+                       fetch_list=[fwd_logits], scope=scope,
+                       return_numpy=False)[0]
+
+    def cache_state(rows):
+        st = {"pos": torch.zeros(rows, dtype=torch.int32, device=dev)}
+        for i in range(N_LAYER):
+            for kv in "kv":
+                st["%s_cache_%d" % (kv, i)] = torch.zeros(
+                    rows, N_HEAD, SEQ, d_head, device=dev)
+        return st
+
+    # cached greedy with a prefill, to the cache's extent
+    cached, _, c_logits, pairs = tp.build_transformer_cached_step_program(
+        BATCH, SEQ, VOCAB, **arch)
+    cached = cached.clone(for_test=True)
+    cdec = fluid.ProgramDecoder(cached, token_name="tok",
+                                logits_name=c_logits.name,
+                                state_pairs=pairs, scope=scope,
+                                max_positions=SEQ)
+    rs = np.random.RandomState(SEED + 20)
+    prompt = rs.randint(0, VOCAB, (BATCH, PROMPT_LEN)).astype(np.int64)
+    gen_len = SEQ - PROMPT_LEN + 1
+    checked = (0, gen_len // 2, gen_len - 1)
+    rec = StepRecorder(cdec, keep={PROMPT_LEN - 1 + t for t in checked})
+    try:
+        cdec.greedy(bos=0, eos=VOCAB + 1, max_len=gen_len + 1,
+                    init_state=cache_state(BATCH), prompt=prompt)
+    except ValueError as err:
+        if "extent" not in str(err) or rec.calls:
+            raise
+        print("decode: max_len %d raised before any step: %s"
+              % (gen_len + 1, err), flush=True)
+    else:
+        raise SystemExit("chip_smoke: decoding past the cache's extent "
+                         "did not raise")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, lengths = cdec.greedy(bos=0, eos=VOCAB + 1, max_len=gen_len,
+                                init_state=cache_state(BATCH),
+                                prompt=prompt)
+    greedy_s = time.perf_counter() - t0
+    print("decode: cached greedy, batch %d, prompt %d, %d tokens in %.3f "
+          "s (%d steps, %.3f ms per step with the result's one copy to the "
+          "host)" % (BATCH, PROMPT_LEN, gen_len, greedy_s, rec.calls,
+                     greedy_s / rec.calls * 1e3), flush=True)
+    if toks.shape != (BATCH, gen_len) or (lengths != gen_len).any() \
+            or rec.calls != SEQ:
+        raise SystemExit("chip_smoke: cached greedy gave %s tokens in %d "
+                         "steps" % (toks.shape, rec.calls))
+    seq = np.concatenate([prompt, toks[:, :-1]], axis=1)
+    logits = full_logits(seq)[:, PROMPT_LEN - 1:]
+    dev_toks = torch.from_numpy(toks.astype(np.int64)).to(dev)
+    gap = (logits.max(-1).values
+           - logits.gather(-1, dev_toks[:, :, None])[..., 0]).max().item()
+    step_errs = [(rec.logits[PROMPT_LEN - 1 + t] - logits[:, t])
+                 .abs().max().item() for t in checked]
+    print("decode: teacher-forced through the full forward: each generated "
+          "token's logit within %.3g of its position's largest (atol %g); "
+          "step logits at generated positions %s against the full "
+          "forward's: max_abs_err %s (atol %g)"
+          % (gap, ARGMAX_ATOL, list(checked),
+             ", ".join("%.3g" % e for e in step_errs), LOGITS_ATOL),
+          flush=True)
+    if gap > ARGMAX_ATOL or max(step_errs) > LOGITS_ATOL:
+        raise SystemExit("chip_smoke: cached greedy disagrees with the "
+                         "full forward")
+    del logits, rec, cdec._step   # the decoder's own step again
+
+    # the cached step's latency: prefill, then steps each ending in a
+    # synchronize, feeds and state on the card
+    step = cdec._step
+    dev_prompt = torch.from_numpy(prompt.astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        state, tok = prefill(step, cache_state(BATCH), dev_prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    with torch.inference_mode():
+        for _ in range(64):
+            t0 = time.perf_counter()
+            logits_t, state = step(state, tok)
+            tok = logits_t.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(times))
+    print("decode: cached prefill %.3f ms for %d prompt tokens (%.3f ms per "
+          "prompt token, batch %d); decode step %.3f ms per token (median "
+          "of 64 at positions %d-%d; min %.3f, max %.3f), %.0f tokens/s at "
+          "batch %d" % (prefill_ms, PROMPT_LEN, prefill_ms / PROMPT_LEN,
+                        BATCH, med, PROMPT_LEN, PROMPT_LEN + 63, min(times),
+                        max(times), BATCH / med * 1e3, BATCH), flush=True)
+    weights = sum(4 * int(np.prod(v.shape))
+                  for v in cached.desc.block(0).vars.values()
+                  if v.is_parameter)
+
+    def cache_bytes(p):   # K and V prefixes read, this token's rows written
+        return 2 * N_LAYER * BATCH * N_HEAD * (p + 2) * d_head * 4
+
+    for p in (PROMPT_LEN + 32, SEQ - 1):
+        print("decode: cached step bound at position %d: weights %.1f MB + "
+              "caches %.1f MB over %.2f TB/s = %.4f ms"
+              % (p, weights / 1e6, cache_bytes(p) / 1e6,
+                 HBM_BYTES_PER_S / 1e12,
+                 (weights + cache_bytes(p)) / HBM_BYTES_PER_S * 1e3),
+              flush=True)
+    with torch.inference_mode():
+        profile_step(lambda: step(state, tok),
+                     {op.type for op in cached.desc.block(0).ops}, 0, med,
+                     what="one cached decode step")
+    del state
+
+    # cached_attention alone at [16, 8, 512, 64], the last position
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, kn, vn = (torch.randn(BATCH, 1, D_MODEL, device=dev, generator=gen)
+                 for _ in range(3))
+    kc, vc = (torch.randn(BATCH, N_HEAD, SEQ, d_head, device=dev,
+                          generator=gen) for _ in range(2))
+    ins = {"Q": [q], "KNew": [kn], "VNew": [vn], "KCache": [kc],
+           "VCache": [vc], "Position": [torch.tensor([SEQ - 1],
+                                                     dtype=torch.int32,
+                                                     device=dev)]}
+    attrs = {"num_heads": N_HEAD}
+    op = get_op_info("cached_attention").kernel
+    with torch.inference_mode():
+        out = op(None, ins, attrs)
+        heads = [t.unflatten(-1, (N_HEAD, d_head)).transpose(1, 2)
+                 for t in (q, kn, vn)]
+        kc2, vc2 = kc.clone(), vc.clone()
+        kc2[:, :, -1:], vc2[:, :, -1:] = heads[1], heads[2]
+        ref = F.scaled_dot_product_attention(heads[0], kc2, vc2)
+        err = max((out["Out"][0] - ref.transpose(1, 2).flatten(2))
+                  .abs().max().item(),
+                  (out["KCacheOut"][0] - kc2).abs().max().item())
+        op_ms = device_ms(lambda: op(None, ins, attrs))
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            heads[0], kc2, vc2))
+    nbytes = 4 * (3 * BATCH * D_MODEL + 4 * kc.numel() + BATCH * D_MODEL)
+    print("decode: cached_attention at %s, position %d: %.4f ms per launch "
+          "(device, CUDA graph replay), bound %.4f ms (bytes: q, k, v and "
+          "both caches read, both caches and the output written), library "
+          "scaled_dot_product_attention over the same cache %.4f ms; "
+          "against it max_abs_err %.3g"
+          % (list(kc.shape), SEQ - 1, op_ms,
+             nbytes / HBM_BYTES_PER_S * 1e3, lib_ms, err), flush=True)
+    if err > 1e-5:
+        raise SystemExit("chip_smoke: cached_attention disagrees with "
+                         "scaled_dot_product_attention")
+    del q, kn, vn, kc, vc, kc2, vc2, ins, out, ref
+
+    # the sliding-window step: one causal forward per token
+    wprog, _, w_logits, new_window = tp.build_transformer_step_program(
+        BATCH, SEQ, VOCAB, **arch)
+    wprog = wprog.clone(for_test=True)
+    wkw = dict(token_name="tok", logits_name=w_logits.name,
+               state_pairs=[("window", new_window.name),
+                            ("positions", "positions")], scope=scope)
+    wdec = fluid.ProgramDecoder(wprog, **wkw)
+    wseq = rs.randint(0, VOCAB, (BATCH, SEQ + 1)).astype(np.int64)
+    wrec = StepRecorder(wdec)
+    for w in KERNELS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wtoks, _ = wdec.greedy(bos=wseq[:, SEQ], eos=VOCAB + 1,
+                           max_len=WINDOW_STEPS,
+                           init_state={"window": wseq[:, :SEQ],
+                                       "positions": positions})
+    window_s = time.perf_counter() - t0
+    # the main path ends here: read the counts
+    launches = {n: w.launches for n, w in KERNELS.items()}
+    print("decode: sliding-window greedy, batch %d, window %d, %d tokens in "
+          "%.3f s (%.3f ms per token); launches %s"
+          % (BATCH, SEQ, WINDOW_STEPS, window_s,
+             window_s / WINDOW_STEPS * 1e3, json.dumps(launches)),
+          flush=True)
+    if launches["flash_attention_fwd"] != N_LAYER * WINDOW_STEPS:
+        raise SystemExit("chip_smoke: %d flash launches in %d window steps, "
+                         "designed %d per step"
+                         % (launches["flash_attention_fwd"], WINDOW_STEPS,
+                            N_LAYER))
+    seq = np.concatenate([wseq, wtoks], axis=1)
+    werrs = [(wrec.logits[s] - full_logits(seq[:, s + 1:s + 1 + SEQ])[:, -1])
+             .abs().max().item() for s in range(WINDOW_STEPS)]
+    cpu_dec = fluid.ProgramDecoder(wprog, place=fluid.CPUPlace(), **wkw)
+    cpu_errs = []
+    t0 = time.perf_counter()
+    for s in range(2):
+        win = torch.from_numpy(seq[:, s:s + SEQ].astype(np.int32))
+        got, _ = cpu_dec._step({"window": win, "positions": torch.from_numpy(
+            positions.astype(np.int32))}, torch.from_numpy(
+                seq[:, s + SEQ].astype(np.int32)))
+        cpu_errs.append((wrec.logits[s].cpu() - got).abs().max().item())
+    print("decode: window step logits against the full forward's last "
+          "position, max_abs_err %.3g over %d steps; steps 0-1 against the "
+          "CPU plain path (%.1f s) %s (atol %g)"
+          % (max(werrs), WINDOW_STEPS, time.perf_counter() - t0,
+             ", ".join("%.3g" % e for e in cpu_errs), LOGITS_ATOL),
+          flush=True)
+    if max(werrs + cpu_errs) > LOGITS_ATOL:
+        raise SystemExit("chip_smoke: the window step disagrees with the "
+                         "full forward or the CPU plain path")
+    del wrec, cpu_dec, wdec._step
+    # the window step's latency, each step ending in a synchronize
+    state = {"window": torch.from_numpy(wseq[:, :SEQ].astype(np.int32))
+             .to(dev), "positions": torch.from_numpy(
+                 positions.astype(np.int32)).to(dev)}
+    tok = torch.from_numpy(wseq[:, SEQ].astype(np.int32)).to(dev)
+    times = []
+    with torch.inference_mode():
+        for _ in range(10):
+            t0 = time.perf_counter()
+            logits_t, state = wdec._step(state, tok)
+            tok = logits_t.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    print("decode: window step %.3f ms per token (median of 10; min %.3f, "
+          "max %.3f), %.0f tokens/s at batch %d"
+          % (np.median(times), min(times), max(times),
+             BATCH / np.median(times) * 1e3, BATCH), flush=True)
+    del state
+
+    # beam: 1 is greedy; 4 at batch 4 fills the step's 16 rows
+    greedy, _ = cdec.greedy(bos=1, eos=VOCAB + 1, max_len=BEAM_LEN,
+                            init_state=cache_state(BATCH))
+    seqs1, _ = cdec.beam(beam_size=1, bos=1, eos=VOCAB + 1,
+                         max_len=BEAM_LEN, init_state=cache_state(BATCH))
+    if not np.array_equal(seqs1[:, 0], greedy):
+        raise SystemExit("chip_smoke: beam(1) differs from greedy")
+    # a bos per row, so the rows search apart
+    bos = np.arange(1, BEAM_BATCH + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seqs, scores = cdec.beam(beam_size=BEAM_SIZE, bos=bos, eos=VOCAB + 1,
+                             max_len=BEAM_LEN,
+                             init_state=cache_state(BEAM_BATCH))
+    beam_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    best = np.concatenate([bos[:, None], seqs[:, 0, :-1]], axis=1)
+    tokens = np.zeros((BATCH, SEQ), np.int64)
+    tokens[:BEAM_BATCH, :BEAM_LEN] = best
+    logp = torch.log_softmax(
+        full_logits(tokens)[:BEAM_BATCH, :BEAM_LEN].double(), dim=-1)
+    want = logp.gather(-1, torch.from_numpy(seqs[:, 0]).to(dev)
+                       .long()[:, :, None])[..., 0].sum(-1).cpu().numpy()
+    score_err = float(np.abs(scores[:, 0] - want).max())
+    print("decode: beam %d at batch %d (%d rows), %d steps in %.3f s (%.3f "
+          "ms per step), peak memory %.3f GB; best scores %s, against their "
+          "log-probabilities through the full forward max_abs_err %.3g "
+          "(atol %g); beam(1) equals greedy"
+          % (BEAM_SIZE, BEAM_BATCH, BEAM_BATCH * BEAM_SIZE, BEAM_LEN,
+             beam_s, beam_s / BEAM_LEN * 1e3, peak / 1e9,
+             ", ".join("%.4f" % x for x in scores[:, 0]), score_err,
+             BEAM_SCORE_ATOL), flush=True)
+    if seqs.shape != (BEAM_BATCH, BEAM_SIZE, BEAM_LEN) \
+            or not np.isfinite(scores).all() \
+            or (np.diff(scores, axis=1) > 0).any() \
+            or score_err > BEAM_SCORE_ATOL:
+        raise SystemExit("chip_smoke: beam search is not best first or its "
+                         "scores disagree with the full forward")
+
+    # sampling: the limits that are greedy, and a seed that repeats
+    kw = dict(bos=1, eos=VOCAB + 1, max_len=BEAM_LEN)
+    cold, _ = cdec.sample(init_state=cache_state(BATCH), temperature=1e-5,
+                          **kw)
+    top1, _ = cdec.sample(init_state=cache_state(BATCH), top_k=1, **kw)
+    a, _ = cdec.sample(init_state=cache_state(BATCH), seed=5, **kw)
+    b, _ = cdec.sample(init_state=cache_state(BATCH), seed=5, **kw)
+    print("decode: sampling: temperature 1e-5 equals greedy %s, top_k=1 "
+          "equals greedy %s, seed 5 twice equal %s (%d of %d tokens differ "
+          "from greedy at temperature 1)"
+          % (np.array_equal(cold, greedy), np.array_equal(top1, greedy),
+             np.array_equal(a, b), int((a != greedy).sum()), a.size),
+          flush=True)
+    if not (np.array_equal(cold, greedy) and np.array_equal(top1, greedy)
+            and np.array_equal(a, b)):
+        raise SystemExit("chip_smoke: sampling broke its limits")
+
+    # no step waits for the device: the decode loops and the window step
+    # run with CUDA's synchronizing calls turned into errors (a decoder's
+    # one sync is the copy of its result to the host, after the loop)
+    from paddle_tpu_torch.models.decode import (beam_search_decode_dense,
+                                                greedy_decode, sample_decode)
+
+    with torch.inference_mode():
+        states = [cache_state(BATCH), cache_state(BATCH),
+                  cache_state(BEAM_BATCH)]
+        bos = torch.ones(BATCH, dtype=torch.int32, device=dev)
+        wstate = {"window": torch.from_numpy(wseq[:, :SEQ].astype(np.int32))
+                  .to(dev), "positions": torch.from_numpy(
+                      positions.astype(np.int32)).to(dev)}
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            greedy_decode(step, states[0], bos=bos, eos=VOCAB + 1,
+                          max_len=8, batch_size=BATCH, device=dev)
+            sample_decode(step, states[1], bos=bos, eos=VOCAB + 1,
+                          max_len=8, batch_size=BATCH, generator=gen,
+                          top_k=5, device=dev)
+            beam_search_decode_dense(
+                step, states[2], bos=bos[:BEAM_BATCH], eos=VOCAB + 1,
+                beam_size=BEAM_SIZE, max_len=8, batch_size=BEAM_BATCH,
+                device=dev)
+            for _ in range(2):
+                _, wstate = wdec._step(wstate, bos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    print("decode: no synchronizing call in 8 steps each of greedy, "
+          "sampling (top_k 5) and beam over the cached step, nor in 2 "
+          "window steps", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -1208,6 +1676,7 @@ def main():
     launches = phase_slice()
     train_launches = phase_train()
     resnet_launches = phase_resnet()
+    decode_launches = phase_decode()
     from paddle_tpu_torch.kernels import KERNELS
 
     from paddle_tpu_torch.kernels._build import SOURCES
@@ -1222,14 +1691,16 @@ def main():
         raise SystemExit("chip_smoke: ResNet-50 launched %s"
                          % json.dumps(resnet_launches))
     for name in KERNELS:
-        if launches[name] < 1 or train_launches[name] < 1:
+        paths = (launches[name], train_launches[name],
+                 decode_launches[name])
+        if min(paths) < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
-                             "path" % name)
+                             "path (served, trained, decoded: %s)"
+                             % (name, paths))
         source = "paddle_tpu_torch/csrc/" + SOURCES[name]
         kernels.append(dict({"name": name, "route": "cuda",
                              "source": source, "replaces": replaces[name],
-                             "launches": launches[name]
-                             + train_launches[name]}, **measured[name]))
+                             "launches": sum(paths)}, **measured[name]))
     print(json.dumps({"kernels": kernels}))
     print("chip_smoke: all phases passed in %.1f s"
           % (time.perf_counter() - t_start))

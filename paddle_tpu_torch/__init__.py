@@ -8,9 +8,10 @@ kernels/, fluid/, models/, serving/, utils/) so each module has an
 obvious counterpart.  Programs are built through its own fluid.layers.  The one hand-written TPU kernel on the served path, the
 flash-attention forward, is CUDA C++ here (csrc/, built at first use).
 
-Entry points (fluid.Executor, serving.InferenceEngine) run on the
-card, CUDAPlace(0), unless the caller passes CPUPlace(); without a
-CUDA device they raise instead of carrying on on the CPU.
+Entry points (fluid.Executor, fluid.ProgramDecoder,
+serving.InferenceEngine) run on the card, CUDAPlace(0), unless the
+caller passes CPUPlace(); without a CUDA device they raise instead of
+carrying on on the CPU.
 
 Importing this package sets torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 to False, so float32 matrix products

@@ -1,7 +1,7 @@
 """The fluid surface of the port: the program builder (framework,
 layers, initializers, parameter attributes), places, the executor, the
 backward and the optimizers, AMP, pruning and inference export and
-load."""
+load, and generation over a step program (`ProgramDecoder`)."""
 
 from . import (amp, backward, framework, initializer, io, layers,
                optimizer, param_attr)
@@ -12,14 +12,17 @@ from .framework import (Operator, Parameter, Program, Variable,
                         default_main_program, default_startup_program,
                         program_guard, unique_name)
 from .layer_helper import LayerHelper
-from .optimizer import (SGD, Momentum, MomentumOptimizer, Optimizer,
-                        SGDOptimizer)
+from .optimizer import (SGD, Adam, AdamOptimizer, Momentum,
+                        MomentumOptimizer, Optimizer, SGDOptimizer)
 from .param_attr import ParamAttr
 from ..core.scope import Scope, global_scope
+# last: it builds on the executor, and jit imports this package
+from .fast_decode import ProgramDecoder
 
-__all__ = ["CPUPlace", "CUDAPlace", "ExecContext", "Executor",
-           "LayerHelper", "Momentum", "MomentumOptimizer", "Operator",
-           "Optimizer", "ParamAttr", "Parameter", "Place", "Program", "SGD",
+__all__ = ["Adam", "AdamOptimizer", "CPUPlace", "CUDAPlace", "ExecContext",
+           "Executor", "LayerHelper", "Momentum", "MomentumOptimizer",
+           "Operator", "Optimizer", "ParamAttr", "Parameter", "Place",
+           "Program", "ProgramDecoder", "SGD",
            "SGDOptimizer", "Scope", "Variable", "amp", "append_backward",
            "backward", "default_main_program", "default_startup_program",
            "framework", "global_scope", "initializer", "io", "layers",

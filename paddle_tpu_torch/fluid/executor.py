@@ -38,7 +38,7 @@ from ..ops import registry as op_registry
 EMPTY = "@EMPTY@"
 
 __all__ = ["Executor", "Place", "CPUPlace", "CUDAPlace", "ExecContext",
-           "global_scope", "scope_guard", "apply_op"]
+           "global_scope", "scope_guard", "apply_op", "prepare_feed"]
 
 
 class Place:
@@ -152,6 +152,25 @@ def apply_op(ctx, op_desc):
     return outs
 
 
+def prepare_feed(block_desc, name, val, device):
+    """A fed value (array or tensor) cast to its var desc's execution
+    dtype and moved to `device` (int64 ids are range-checked before
+    they narrow to int32)."""
+    vd = block_desc.vars.get(name)
+    declared = vd.dtype if vd is not None else None
+    if isinstance(val, torch.Tensor):
+        if declared is not None:
+            val = val.to(torch_dtype(declared))
+        return val.to(device)
+    arr = np.asarray(val)
+    target = (np_dtype(declared) if declared is not None
+              else np.dtype(np.int32) if arr.dtype == np.int64
+              else arr.dtype)
+    if target == np.int32:
+        guard_int64_narrowing(arr, name)
+    return tensor_from_numpy(arr.astype(target, copy=False), device)
+
+
 class Executor:
     """reference: python/paddle/v2/fluid/executor.py Executor.
 
@@ -162,24 +181,6 @@ class Executor:
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
-
-    def _prepare_feed(self, block_desc, name, val):
-        """Cast to the var desc's execution dtype, then move to the
-        place's device (int64 ids are range-checked before narrowing)."""
-        vd = block_desc.vars.get(name)
-        declared = vd.dtype if vd is not None else None
-        if isinstance(val, torch.Tensor):
-            if declared is not None:
-                val = val.to(torch_dtype(declared))
-            return val.to(self.device)
-        arr = np.asarray(val)
-        target = (np_dtype(declared) if declared is not None
-                  else np.dtype(np.int32) if arr.dtype == np.int64
-                  else arr.dtype)
-        if target == np.int32:
-            guard_int64_narrowing(arr, name)
-        return tensor_from_numpy(arr.astype(target, copy=False),
-                                 self.device)
 
     @staticmethod
     def _to_numpy(t):
@@ -210,7 +211,7 @@ class Executor:
         trains = bool(persist) or any(
             op_registry.is_grad_op_type(op.type) for op in block.ops)
         with torch.no_grad() if trains else torch.inference_mode():
-            env = {name: self._prepare_feed(block, name, val)
+            env = {name: prepare_feed(block, name, val, self.device)
                    for name, val in (feed or {}).items()}
             ctx = ExecContext(program, 0, env, scope=scope,
                               place=self.place, device=self.device,

@@ -15,7 +15,8 @@ from ..param_attr import ParamAttr
 __all__ = [
     "fc", "embedding", "cross_entropy", "square_error_cost", "softmax",
     "softmax_with_cross_entropy", "conv2d", "pool2d", "batch_norm",
-    "layer_norm", "split", "flash_attention",
+    "layer_norm", "split", "flash_attention", "cached_attention",
+    "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
 ]
 
 
@@ -49,6 +50,29 @@ def flash_attention(queries, keys, values, num_heads=1, causal=False,
                "sequence_parallel_mode": sequence_parallel_mode,
                "block_size": int(block_size)})
     return out
+
+
+def cached_attention(query, key, value, k_cache, v_cache, position,
+                     num_heads=1, sm_scale=None, name=None):
+    """One KV-cached decode step (ops/attention.py cached_attention):
+    query/key/value [batch, 1, dim], caches [batch, heads, max_len,
+    head_dim], position int [1] or [batch].  Returns (out, k_cache_out,
+    v_cache_out); thread the cache outputs back as decode state
+    (`fluid.ProgramDecoder` state pairs)."""
+    helper = LayerHelper("cached_attention", name=name)
+    out = helper.create_tmp_variable(query.dtype)
+    kc_out = helper.create_tmp_variable(k_cache.dtype)
+    vc_out = helper.create_tmp_variable(v_cache.dtype)
+    helper.append_op(
+        type="cached_attention",
+        inputs={"Q": [query], "KNew": [key], "VNew": [value],
+                "KCache": [k_cache], "VCache": [v_cache],
+                "Position": [position]},
+        outputs={"Out": [out], "KCacheOut": [kc_out],
+                 "VCacheOut": [vc_out]},
+        attrs={"num_heads": int(num_heads),
+               "sm_scale": float(sm_scale or 0.0)})
+    return out, kc_out, vc_out
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -273,3 +297,24 @@ def split(input, num_or_sections, dim=-1, **kwargs):
                      attrs={"axis": dim, "sections": sections,
                             "num": 0 if sections else num})
     return outs
+
+
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None, **kwargs):
+        helper = LayerHelper(op_type, name=name, **kwargs)
+        out = helper.create_tmp_variable(input.dtype)
+        attrs = {"keep_dim": keep_dim,
+                 "reduce_all": dim is None,
+                 "dim": 0 if dim is None else dim}
+        helper.append_op(type=op_type, inputs={"X": [input]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")

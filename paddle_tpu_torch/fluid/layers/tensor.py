@@ -6,7 +6,8 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["create_tensor", "create_parameter", "create_global_var", "cast",
-           "sums", "fill_constant", "ones", "zeros", "reshape"]
+           "concat", "sums", "fill_constant", "ones", "zeros", "reshape",
+           "increment"]
 
 
 def create_tensor(dtype, name=None, persistable=False, **kwargs):
@@ -36,6 +37,16 @@ def cast(x, dtype, **kwargs):
     out = helper.create_tmp_variable(dtype, lod_level=x.lod_level)
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def concat(input, axis=0, **kwargs):
+    """The inputs joined along `axis` (dense; ragged inputs come with
+    ROADMAP A5).  The output's dtype is inferred, as on the JAX side."""
+    helper = LayerHelper("concat", **kwargs)
+    out = helper.create_tmp_variable(helper.input_dtype)
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out
 
 
@@ -78,4 +89,14 @@ def reshape(x, shape, act=None, **kwargs):
         helper.append_op(type=act, inputs={"X": [out]},
                          outputs={"Out": [tmp]})
         return tmp
+    return out
+
+
+def increment(x, value=1.0, in_place=True, **kwargs):
+    """x + value in x's dtype, into x itself or, with in_place=False, a
+    new variable."""
+    helper = LayerHelper("increment", **kwargs)
+    out = x if in_place else helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="increment", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"step": float(value)})
     return out

@@ -1,16 +1,20 @@
-"""Optimizers at the Program level: `SGDOptimizer`, `MomentumOptimizer`.
+"""Optimizers at the Program level: `SGDOptimizer`, `MomentumOptimizer`,
+`AdamOptimizer`.
 
 Counterpart of paddle_tpu/fluid/optimizer.py (reference:
-python/paddle/v2/fluid/optimizer.py minimize:204, SGD, Momentum).  An
-optimizer declares its update: the op type, its per-parameter state
-slots and its hyperparameter attrs; `minimize` appends the backward
-(fluid/backward.py), then per parameter, in name order, the state
-(`<param>_velocity_0`, zeros) and one update op, with the learning rate
-in a shared persistable var (`learning_rate_0`).  Each new persistable
-is declared in the main and startup programs and initialised by a
-`fill_constant` in the startup, so both programs equal the JAX
-package's through `to_dict()`.  The other optimizers, clipping,
-regularization and fused updates wait (ROADMAP A).
+python/paddle/v2/fluid/optimizer.py minimize:204, SGD, Momentum, Adam).
+An optimizer declares its update: the op type, its per-parameter state
+slots, its shared scalars and its hyperparameter attrs; `minimize`
+appends the backward (fluid/backward.py), then per parameter, in name
+order, the state (`<param>_velocity_0`, `<param>_moment1_0`, ...) and
+one update op, with the learning rate in a shared persistable var
+(`learning_rate_0`) and the shared scalars (Adam's `beta1_pow_acc_0`,
+`beta2_pow_acc_0`) read by every update op and advanced by one in-place
+`scale` each per step.  Each new persistable is declared in the main and
+startup programs and initialised by a `fill_constant` in the startup,
+so both programs equal the JAX package's (with `fuse_optimizer` off,
+its default) through `to_dict()`.  The other optimizers, clipping,
+regularization and fused updates wait (ROADMAP A3).
 """
 
 from collections import namedtuple
@@ -21,11 +25,16 @@ from .initializer import Constant
 from .layer_helper import LayerHelper
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer"]
+           "MomentumOptimizer", "Adam", "AdamOptimizer"]
 
 # a per-parameter accumulator: a variable `{param}_{name}_N`, wired into
 # the update op at in_key and written back at out_key, starting at fill
 StateSlot = namedtuple("StateSlot", ["name", "in_key", "out_key", "fill"])
+
+# a cross-parameter scalar (e.g. beta1^t): initialised to `init`, read by
+# every update op at in_key, multiplied by step_factor once per step
+SharedScalar = namedtuple("SharedScalar",
+                          ["name", "in_key", "init", "step_factor"])
 
 
 class Optimizer:
@@ -33,6 +42,7 @@ class Optimizer:
 
     op_type = None
     state_slots = ()
+    shared_scalars = ()
 
     def __init__(self, learning_rate):
         if not isinstance(learning_rate, (float, Variable)):
@@ -64,15 +74,26 @@ class Optimizer:
                          attrs={"scale": float(scale)})
         return out
 
+    @staticmethod
+    def _shared_var(block, helper, spec):
+        var = block.create_var(
+            name=unique_name(spec.name, program=block.program), shape=[1],
+            dtype="float32", persistable=True)
+        helper.set_variable_initializer(var, Constant(spec.init))
+        return var
+
     def create_optimization_pass(self, parameters_and_grads, loss,
                                  startup_program=None):
         """The state and one update op per parameter with a grad
-        (reference: optimizer.py:151); returns the update Operators."""
+        (reference: optimizer.py:151), then one `scale` per shared
+        scalar; returns the update Operators."""
         program = loss.block.program
         block = program.global_block()
         helper = LayerHelper(type(self).__name__, main_program=program,
                              startup_program=startup_program)
         lr = self._lr_var(program, helper)
+        shared = [(spec, self._shared_var(block, helper, spec))
+                  for spec in self.shared_scalars]
         ops = []
         for param, grad in parameters_and_grads:
             if grad is None or not param.trainable:
@@ -89,9 +110,16 @@ class Optimizer:
                 helper.set_variable_initializer(var, Constant(spec.fill))
                 ins[spec.in_key] = [var]
                 outs[spec.out_key] = [var]
+            for spec, var in shared:
+                ins[spec.in_key] = [var]
             ops.append(block.append_op(type=self.op_type, inputs=ins,
                                        outputs=outs,
                                        attrs=self._hyper_attrs()))
+        # advance the shared scalars once per step (beta1^t *= beta1)
+        for spec, var in shared:
+            block.append_op(type="scale", inputs={"X": [var]},
+                            outputs={"Out": [var]},
+                            attrs={"scale": spec.step_factor})
         return ops
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
@@ -134,5 +162,26 @@ class MomentumOptimizer(Optimizer):
         return {"mu": self._momentum, "use_nesterov": self._use_nesterov}
 
 
+class AdamOptimizer(Optimizer):
+    op_type = "adam"
+    state_slots = (StateSlot("moment1", "Moment1", "Moment1Out", 0.0),
+                   StateSlot("moment2", "Moment2", "Moment2Out", 0.0))
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8):
+        super().__init__(learning_rate)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self.shared_scalars = (
+            SharedScalar("beta1_pow_acc", "Beta1Pow", beta1, beta1),
+            SharedScalar("beta2_pow_acc", "Beta2Pow", beta2, beta2))
+
+    def _hyper_attrs(self):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "epsilon": self._epsilon}
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adam = AdamOptimizer

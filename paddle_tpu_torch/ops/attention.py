@@ -8,7 +8,12 @@ write O straight into a [B, T, H*Dh] tensor: no head-split or merge
 copy.  It goes through `FlashAttentionFunction`, so the generic grad of
 `flash_attention_grad` runs the forward kernel again and then
 `flash_attention_bwd`, as the JAX side's vjp runs its custom_vjp rules.
-`cached_attention` comes with a later slice.
+
+`cached_attention` is one KV-cached decode step.  On the JAX side it is
+plain XLA (einsums), not a Pallas kernel, so its port is PyTorch: the
+caches updated out of place, scores in f32, the mask and the write slot
+read from the position tensor on the device (no host sync per layer per
+token).
 """
 
 import torch
@@ -51,3 +56,41 @@ def flash_attention_op(ctx, ins, attrs):
     o, _, _ = FlashAttentionFunction.apply(*heads, sm_scale, causal, 0,
                                            block, block)
     return {"Out": [o.flatten(2)]}
+
+
+def _heads(x, num_heads):
+    """[B, T, H*Dh] -> [B, H, T, Dh], a view."""
+    return x.unflatten(-1, (num_heads, x.shape[-1] // num_heads)) \
+        .transpose(1, 2)
+
+
+@register_op("cached_attention", stop_gradient_op=True)
+def cached_attention_op(ctx, ins, attrs):
+    """One autoregressive decode step with a KV cache.
+
+    Q/KNew/VNew: [batch, 1, dim], this token's projections;
+    KCache/VCache: [batch, heads, max_len, head_dim]; Position: int [1]
+    or [batch] (rows advance in lockstep: the first entry is the slot
+    this step writes, and keys 0..Position attend).  Out is the context
+    [batch, 1, dim] in Q's dtype; KCacheOut/VCacheOut are new caches in
+    the caches' dtype (the fed ones are not written), as
+    `dynamic_update_slice` gives them, with the slot clamped into the
+    cache as it clamps.  Scores in f32, -1e30 past the position."""
+    q, k_new, v_new = ins["Q"][0], ins["KNew"][0], ins["VNew"][0]
+    k_cache, v_cache = ins["KCache"][0], ins["VCache"][0]
+    # kept on the device: reading it on the host would sync per layer
+    pos = ins["Position"][0].reshape(-1)[:1]
+    num_heads = int(attrs.get("num_heads", 1))
+    qh, kh, vh = (_heads(t, num_heads) for t in (q, k_new, v_new))
+    sm_scale = float(attrs.get("sm_scale", 0.0)) or qh.shape[-1] ** -0.5
+    T = k_cache.shape[2]
+    slot = pos.long().clamp(0, T - 1)
+    k_cache = k_cache.index_copy(2, slot, kh.to(k_cache.dtype))
+    v_cache = v_cache.index_copy(2, slot, vh.to(v_cache.dtype))
+    s = torch.matmul(qh.float(), k_cache.float().transpose(-1, -2)) \
+        * sm_scale
+    valid = torch.arange(T, device=pos.device) <= pos
+    p = torch.softmax(s.masked_fill(~valid, -1e30), dim=-1)
+    out = torch.matmul(p, v_cache.float())
+    return {"Out": [out.transpose(1, 2).flatten(2).to(q.dtype)],
+            "KCacheOut": [k_cache], "VCacheOut": [v_cache]}

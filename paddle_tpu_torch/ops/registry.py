@@ -24,7 +24,7 @@ from ..core.types import GRAD_SUFFIX
 __all__ = ["OpInfo", "register_op", "register_grad_kernel", "get_op_info",
            "has_op", "registered_ops", "is_grad_op_type",
            "forward_type_of_grad", "run_generic_grad", "span",
-           "infer_meta"]
+           "infer_meta", "dense"]
 
 
 def span(name):
@@ -34,6 +34,16 @@ def span(name):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()
+
+
+def dense(x, op_type):
+    """`x` if it is a dense tensor; a ragged (LoD) value raises
+    NotImplementedError: ragged inputs come with ROADMAP A5."""
+    if not isinstance(x, torch.Tensor):
+        raise NotImplementedError(
+            "%s: ragged (LoD) inputs come with ROADMAP A5, got %s"
+            % (op_type, type(x).__name__))
+    return x
 
 
 class OpInfo:

@@ -1,16 +1,17 @@
 """Tensor op kernels: `fill_constant`, `cast`, `scale`, `split`,
-`reshape` and `sum`.
+`concat`, `reshape`, `sum` and `increment`.
 
 Counterpart of paddle_tpu/ops/tensor_ops.py (reference:
 fill_constant_op.cc, cast_op.cc, scale_op.cc, split_op.cc,
-reshape_op.cc, sum_op.cc).
+concat_op.cc, reshape_op.cc, sum_op.cc, increment_op.cc), dense inputs
+only: ragged (LoD) ones come with ROADMAP A5.
 """
 
 import numpy as np
 import torch
 
 from ..core.types import torch_dtype
-from .registry import register_op
+from .registry import dense, register_op
 
 
 @register_op("fill_constant", stop_gradient_op=True)
@@ -57,6 +58,13 @@ def split(ctx, ins, attrs):
     return {"Out": list(parts)}
 
 
+@register_op("concat")
+def concat(ctx, ins, attrs):
+    """The X inputs joined along `axis`."""
+    xs = [dense(x, "concat") for x in ins["X"]]
+    return {"Out": [torch.cat(xs, int(attrs.get("axis", 0)))]}
+
+
 @register_op("reshape")
 def reshape(ctx, ins, attrs):
     """reference reshape_op.cc: a 0 copies the input dim at its
@@ -76,3 +84,14 @@ def sum_op(ctx, ins, attrs):
     for x in xs[1:]:
         acc = acc + x
     return {"Out": [acc]}
+
+
+@register_op("increment")
+def increment(ctx, ins, attrs):
+    """X + `step`, with `step` in X's own dtype (as the JAX side's
+    `jnp.asarray(step, x.dtype)`): an int32 position stays int32."""
+    x = dense(ins["X"][0], "increment")
+    # rounded through the dtype on the host: a device tensor made from a
+    # host scalar would cost a copy, and a sync, per decode step
+    step = torch.tensor(attrs.get("step", 1.0), dtype=x.dtype).item()
+    return {"Out": [x + step]}

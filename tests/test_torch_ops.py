@@ -182,6 +182,9 @@ def test_registry_holds_the_slice_op_set():
         "cross_entropy", "square", "sgd", "cast", "scale",
         "elementwise_sub", "elementwise_mul", "elementwise_div",
         "elementwise_max", "elementwise_min", "elementwise_pow",
-        "sigmoid", "tanh", "exp", "sqrt", "abs", "log"}
+        "sigmoid", "tanh", "exp", "sqrt", "abs", "log",
+        # generation and Adam
+        "cached_attention", "concat", "increment", "reduce_sum",
+        "reduce_mean", "reduce_max", "reduce_min", "adam"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")
