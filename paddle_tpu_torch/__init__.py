@@ -9,9 +9,11 @@ obvious counterpart.  Programs are built through its own fluid.layers.  The one 
 flash-attention forward, is CUDA C++ here (csrc/, built at first use).
 
 Entry points (fluid.Executor, fluid.ProgramDecoder,
-serving.InferenceEngine) run on the card, CUDAPlace(0), unless the
-caller passes CPUPlace(); without a CUDA device they raise instead of
-carrying on on the CPU.
+serving.InferenceEngine, fluid.DataFeeder, reader.device_prefetch,
+fluid.checkpoint.load_checkpoint) run on the card, CUDAPlace(0), unless
+the caller passes CPUPlace(); without a CUDA device they raise instead
+of carrying on on the CPU.  As in the JAX package, `reader`, `dataset`
+and `batch` stand at the top level.
 
 Importing this package sets torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 to False, so float32 matrix products
@@ -24,3 +26,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from . import dataset, reader  # noqa: E402
+from .reader.decorator import batch  # noqa: E402
+
+__all__ = ["batch", "dataset", "reader"]

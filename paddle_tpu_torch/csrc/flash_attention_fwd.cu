@@ -1,5 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a): wgmma tensor cores, TMA
-// loads into a shared-memory ring, warp specialisation.  f32 and bf16.
+// loads into a shared-memory ring, warp specialisation.  f32, bf16 and
+// f16, head dims 1..256.
 //
 // Replaces the Pallas TPU kernel paddle_tpu/kernels/flash_attention.py
 // _fwd_kernel (launched by _fwd through pl.pallas_call).  It computes the
@@ -10,7 +11,7 @@
 // the row max m (of the scaled scores) and row sum l written beside O.  A
 // row whose l is 0 outputs 0.  For bf16 inputs p is rounded to bf16
 // before p . v while l sums the unrounded p, as the TPU kernel casts p to
-// v's dtype.  Fully masked rows (a negative q_offset) see -1e30 for every
+// v's dtype; f16 is the bf16 route with the other 16-bit type.  Fully masked rows (a negative q_offset) see -1e30 for every
 // key: they output the mean of v with l = Tk.
 //
 // What bounds it on this card.  At the served shape (B*H = 128 heads,
@@ -56,14 +57,23 @@
 // Causal scheduling: blocks take the heaviest query tiles first, and key
 // tiles above a block's diagonal are skipped (exact once every row has
 // seen key 0, so not when q_offset leaves a row fully masked).  The head
-// dim is padded with zeros to a 128-byte row: 32, 64 or 128 for f32 (at
-// 128 the key tile is 32 keys to fit shared memory), 64 or 128 for bf16.
+// dim is padded with zeros to a 128-byte row: 32, 64, 128 or 256 for f32
+// (at 128 the key tile is 32 keys to fit shared memory), 64, 128 or 256
+// for bf16 and f16.
+// Head dims 129..256 run at DP = 256.  bf16/f16 keep two consumer
+// warpgroups with 64-key tiles in a 2-stage ring (q 64 KB + K/V 2 x 64 KB)
+// and p.v as one m64n256 wgmma.  f32 split TF32 cannot hold two 64-row q
+// tiles in big and small parts (256 KB), so it runs one consumer
+// warpgroup of 64 rows (q big + small 128 KB) over 16-key K/V tiles in a
+// 2-stage ring (2 x 48 KB), scores on m64n16 wgmma and p.v on mma.sync, as
+// at head dim 128; that block sets no register split (setmaxnreg).
 // The consumers arrive on a stage's "empty" barrier once per warp, not
 // once per thread: 256 arrives on one barrier word serialize.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -74,9 +84,6 @@
 namespace {
 
 constexpr int kRowsWG = 64;                       // query rows per consumer warpgroup
-constexpr int kConsumers = 2;                     // consumer warpgroups per block
-constexpr int kBlockQ = kRowsWG * kConsumers;     // query rows per block
-constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr float kNegInf = -1e30f;                 // the TPU kernel's finite mask value
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSmemLimit = 232448;                // dynamic shared memory a block can use
@@ -86,7 +93,13 @@ constexpr int kSmemLimit = 232448;                // dynamic shared memory a blo
 template <typename T, int DP>
 struct Cfg {
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kBK = (kF32 && DP == 128) ? 32 : 64;    // keys per K/V tile
+  static constexpr bool kF16 = std::is_same<T, __half>::value;
+  // f32 at DP 256: one consumer warpgroup, 16-key tiles (see the head note)
+  static constexpr int kConsumers = (kF32 && DP == 256) ? 1 : 2;
+  static constexpr int kBlockQ = kRowsWG * kConsumers;         // query rows per block
+  static constexpr int kThreads = 128 * (kConsumers + 1);      // + the producer warpgroup
+  static constexpr int kBK =                                   // keys per K/V tile
+      !kF32 ? 64 : DP == 256 ? 16 : DP == 128 ? 32 : 64;
   static constexpr int kSwz = 128 / (int)sizeof(T);            // elements per 128-byte row
   static constexpr int kNCB = DP / kSwz;                       // 128-byte column blocks
   static constexpr int kParts = kF32 ? 2 : 1;                  // big (+ small) parts of q and K
@@ -101,7 +114,10 @@ struct Cfg {
   static constexpr int kStages = kFit > 4 ? 4 : kFit;
   static constexpr int kSmem = 1024 + kQTotal + kStages * kStageBytes + 256;
   static_assert(kStages >= 2, "the K/V ring needs two stages");
+  static_assert(kSmem <= kSmemLimit, "shared memory");
   static_assert(DP % kSwz == 0, "head dim padding");
+  static_assert(kF32 || kF16 || std::is_same<T, __nv_bfloat16>::value,
+                "f32, bf16 or f16");
 };
 
 struct Params {
@@ -233,9 +249,26 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two floats rounded to the 16-bit type T and packed, lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// x rounded to T and back (the scale rounded to q's dtype)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, __half>::value) {
+    return __half2float(__float2half_rn(x));
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
 }
 
 __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t a,
@@ -307,6 +340,113 @@ __device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_bf16_rs_n256(float (&d)[128],
+                                        const uint32_t (&a)[4],
+                                        uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_f16_n64(float (&d)[32], uint64_t a,
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_f16_rs_n64(float (&d)[32],
+                                        const uint32_t (&a)[4],
+                                        uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_f16_rs_n128(float (&d)[64],
+                                        const uint32_t (&a)[4],
+                                        uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_f16_rs_n256(float (&d)[128],
+                                        const uint32_t (&a)[4],
+                                        uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8], uint64_t a,
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 
 __device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
                                         const uint32_t (&a)[4],
@@ -362,11 +502,17 @@ __device__ __forceinline__ void scores(float (&s)[Cfg<T, DP>::kBK / 2],
         wgmma_tf32_n64(s, qb, kb, ks > 0);
         wgmma_tf32_n64(s, qb, kk, 1);
         wgmma_tf32_n64(s, qs, kb, 1);
-      } else {
+      } else if constexpr (C::kBK == 32) {
         wgmma_tf32_n32(s, qb, kb, ks > 0);
         wgmma_tf32_n32(s, qb, kk, 1);
         wgmma_tf32_n32(s, qs, kb, 1);
+      } else {
+        wgmma_tf32_n16(s, qb, kb, ks > 0);
+        wgmma_tf32_n16(s, qb, kk, 1);
+        wgmma_tf32_n16(s, qs, kb, 1);
       }
+    } else if constexpr (C::kF16) {
+      wgmma_f16_n64(s, desc_k(q_big + qo), desc_k(k_big + ko), ks > 0);
     } else {
       wgmma_bf16_n64(s, desc_k(q_big + qo), desc_k(k_big + ko), ks > 0);
     }
@@ -446,23 +592,35 @@ __device__ __forceinline__ void accumulate_pv(float (&o)[DP / 2],
       }
     }
   } else {
-    // A fragments: p rounded to bf16, as the TPU kernel casts p to v's dtype
+    // A fragments: p rounded to T, as the TPU kernel casts p to v's dtype
     uint32_t a[C::kBK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < C::kBK / 16; ++kk) {
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        a[kk][r] = pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+        a[kk][r] = pack2<T>(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
     }
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::kBK / 16; ++kk) {
       const uint64_t b = desc_mn(v_addr + kk * 16 * 128, C::kBK * 128);
-      if constexpr (DP == 64) {
-        wgmma_bf16_rs_n64(o, a[kk], b);
+      if constexpr (C::kF16) {
+        if constexpr (DP == 64) {
+          wgmma_f16_rs_n64(o, a[kk], b);
+        } else if constexpr (DP == 128) {
+          wgmma_f16_rs_n128(o, a[kk], b);
+        } else {
+          wgmma_f16_rs_n256(o, a[kk], b);
+        }
       } else {
-        wgmma_bf16_rs_n128(o, a[kk], b);
+        if constexpr (DP == 64) {
+          wgmma_bf16_rs_n64(o, a[kk], b);
+        } else if constexpr (DP == 128) {
+          wgmma_bf16_rs_n128(o, a[kk], b);
+        } else {
+          wgmma_bf16_rs_n256(o, a[kk], b);
+        }
       }
     }
     wgmma_commit();
@@ -474,12 +632,13 @@ __device__ __forceinline__ void accumulate_pv(float (&o)[DP / 2],
 // ---- the kernel -------------------------------------------------------------
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<T, DP>::kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map, const Params p) {
   using C = Cfg<T, DP>;
   constexpr int BK = C::kBK;
+  constexpr int kConsumers = C::kConsumers;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms sit on 1 KB
@@ -500,7 +659,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int qt = p.n_qt - 1 - (int)(blockIdx.x / bh_count);
   const int bh = blockIdx.x % bh_count;
   const int bi = bh / p.h, hi = bh % p.h;
-  const int q0 = qt * kBlockQ;
+  const int q0 = qt * C::kBlockQ;
 
   // keys each consumer needs: past the diagonal of its last row every
   // score is -1e30 and adds exp(-1e30 - m) = 0 once its rows have seen
@@ -533,7 +692,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // ---- producer: one thread keeps the TMA loads in flight
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if constexpr (kConsumers == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 128 * kConsumers) {
       for (int w = 0; w < kConsumers; ++w) {
         if (!wg_on[w]) continue;
@@ -559,7 +719,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // ---- consumers: 64 query rows each
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    if constexpr (kConsumers == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane >> 2, t = lane & 3;
@@ -586,8 +747,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
           qb[i] = big;
           qs[i] = small;
         }
+      } else if constexpr (C::kF16) {
+        const float scale_t = round_to<T>(p.scale);
+        __half2* q2 = reinterpret_cast<__half2*>(smem + q_off(wg, 0));
+        for (int i = tid; i < C::kQBytes / 4; i += 128) {
+          const float2 x = __half22float2(q2[i]);
+          q2[i] = __floats2half2_rn(x.x * scale_t, x.y * scale_t);
+        }
       } else {
-        const float scale_t = __bfloat162float(__float2bfloat16_rn(p.scale));
+        const float scale_t = round_to<T>(p.scale);
         __nv_bfloat162* q2 =
             reinterpret_cast<__nv_bfloat162*>(smem + q_off(wg, 0));
         for (int i = tid; i < C::kQBytes / 4; i += 128) {
@@ -737,12 +905,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
               if constexpr (C::kF32) {
                 *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
               } else {
-                *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-                    __floats2bfloat162_rn(x0, x1);
+                *reinterpret_cast<uint32_t*>(orow + col) = pack2<T>(x0, x1);
               }
             } else if (col < p.d) {
               if constexpr (C::kF32) {
                 orow[col] = x0;
+              } else if constexpr (C::kF16) {
+                orow[col] = __float2half_rn(x0);
               } else {
                 orow[col] = __float2bfloat16_rn(x0);
               }
@@ -838,8 +1007,9 @@ int tensor_map(const MapKey& key, CUtensorMap* map, int* slot) {
   CUtensorMap made;
   CUresult res = encode(
       &made,
-      key.dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      key.dtype == 0   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : key.dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
       4, const_cast<void*>(key.ptr), dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -885,6 +1055,7 @@ template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, Params& p,
            const long long* st, int dtype, cudaStream_t stream) {
   using C = Cfg<T, DP>;
+  p.n_qt = (p.tq + C::kBlockQ - 1) / C::kBlockQ;
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   int* slots[3] = {p.slot_q, p.slot_k, p.slot_v};
@@ -901,16 +1072,17 @@ int launch(const void* q, const void* k, const void* v, Params& p,
   if (attr != cudaSuccess) return (int)attr;
   const long long blocks = (long long)p.n_qt * p.b * p.h;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(maps[0], maps[1],
-                                                          maps[2], p);
+  kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  q [b, tq, h, d], k and v
-// [b, tk, h, d], o [b, tq, h, d]: views of one dtype (0: float32,
-// 1: bfloat16) with unit stride in d, 16-byte-aligned base pointers, and
+// [b, tk, h, d], o [b, tq, h, d], d in 1..256: views of one dtype
+// (0: float32, 1: bfloat16, 2: float16) with unit stride in d,
+// 16-byte-aligned base pointers, and
 // `strides` holding 12 element strides, (batch, row, head) of q, k, v and
 // o in turn, each a multiple of 16 bytes; m and l [b, h, tq] float32,
 // contiguous.  Launches on `stream` and returns 0 on success, the
@@ -922,8 +1094,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const long long* strides, float sm_scale,
                                    int causal, int q_offset, int dtype,
                                    void* stream) {
-  if (b <= 0 || h <= 0 || tq <= 0 || tk <= 0 || d <= 0 || d > 128 ||
-      (dtype != 0 && dtype != 1)) {
+  if (b <= 0 || h <= 0 || tq <= 0 || tk <= 0 || d <= 0 || d > 256 ||
+      dtype < 0 || dtype > 2) {
     return (int)cudaErrorInvalidValue;
   }
   const int es = dtype == 0 ? 4 : 2;
@@ -951,13 +1123,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.scale = sm_scale;
   p.causal = causal;
   p.q_offset = q_offset;
-  p.n_qt = (tq + kBlockQ - 1) / kBlockQ;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (d <= 32) return launch<float, 32>(q, k, v, p, strides, dtype, s);
     if (d <= 64) return launch<float, 64>(q, k, v, p, strides, dtype, s);
-    return launch<float, 128>(q, k, v, p, strides, dtype, s);
+    if (d <= 128) return launch<float, 128>(q, k, v, p, strides, dtype, s);
+    return launch<float, 256>(q, k, v, p, strides, dtype, s);
   }
-  if (d <= 64) return launch<__nv_bfloat16, 64>(q, k, v, p, strides, dtype, s);
-  return launch<__nv_bfloat16, 128>(q, k, v, p, strides, dtype, s);
+  if (dtype == 1) {
+    if (d <= 64) return launch<__nv_bfloat16, 64>(q, k, v, p, strides, dtype, s);
+    if (d <= 128) return launch<__nv_bfloat16, 128>(q, k, v, p, strides, dtype, s);
+    return launch<__nv_bfloat16, 256>(q, k, v, p, strides, dtype, s);
+  }
+  if (d <= 64) return launch<__half, 64>(q, k, v, p, strides, dtype, s);
+  if (d <= 128) return launch<__half, 128>(q, k, v, p, strides, dtype, s);
+  return launch<__half, 256>(q, k, v, p, strides, dtype, s);
 }

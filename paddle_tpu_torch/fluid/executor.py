@@ -36,6 +36,8 @@ from ..core.types import (guard_int64_narrowing, np_dtype,
 from ..ops import registry as op_registry
 
 EMPTY = "@EMPTY@"
+# the scope entry holding a scope's random stream (a torch.Generator)
+RNG_STATE_NAME = "@RNG_STATE@"
 
 __all__ = ["Executor", "Place", "CPUPlace", "CUDAPlace", "ExecContext",
            "global_scope", "scope_guard", "apply_op", "prepare_feed"]
@@ -174,13 +176,29 @@ def prepare_feed(block_desc, name, val, device):
 class Executor:
     """reference: python/paddle/v2/fluid/executor.py Executor.
 
-    `seed` seeds the random stream that random ops without a `seed`
-    attr draw from (the JAX side's `program.random_seed or 0`)."""
+    Random ops without a `seed` attr draw from a random stream.  By
+    default it lives in the scope, as on the JAX side: the first program
+    run in a scope seeds it from its `random_seed` (0 for a bare
+    ProgramDesc), and later runs in that scope go on drawing from it.
+    `seed` gives the executor a stream of its own instead, seeded with
+    it and shared by every scope it runs in."""
 
-    def __init__(self, place=None, seed=0):
+    def __init__(self, place=None, seed=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
-        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+        self.rng = None if seed is None else \
+            torch.Generator(device=self.device).manual_seed(seed)
+
+    def _stream(self, scope, seed):
+        """The random stream of a run in `scope`: the executor's own, or
+        the scope's, made from `seed` at its first run on this device."""
+        if self.rng is not None:
+            return self.rng
+        gen = scope.get(RNG_STATE_NAME)
+        if gen is None or gen.device != self.device:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            scope.set(RNG_STATE_NAME, gen)
+        return gen
 
     @staticmethod
     def _to_numpy(t):
@@ -197,7 +215,9 @@ class Executor:
         place's device."""
         if program is None:
             program = default_main_program()
+        seed = 0
         if isinstance(program, Program):
+            seed = program.random_seed or 0
             program = program.desc
         if not isinstance(program, ProgramDesc):
             raise TypeError("Executor.run needs a Program or ProgramDesc, "
@@ -215,7 +235,7 @@ class Executor:
                    for name, val in (feed or {}).items()}
             ctx = ExecContext(program, 0, env, scope=scope,
                               place=self.place, device=self.device,
-                              rng=self.rng)
+                              rng=self._stream(scope, seed))
             for op_desc in block.ops:
                 with op_registry.span(op_desc.type):
                     apply_op(ctx, op_desc)

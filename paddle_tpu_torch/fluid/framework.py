@@ -226,11 +226,13 @@ class Block:
 
 class Program:
     """reference: framework.py:789.  `Program.from_desc` wraps a desc
-    built elsewhere (shared, not copied)."""
+    built elsewhere (shared, not copied).  `random_seed` seeds the
+    random stream of the scope it first runs in (fluid/executor.py)."""
 
     def __init__(self):
         self.desc = ProgramDesc()
         self.blocks = [Block(self, self.desc.block(0))]
+        self.random_seed = 0
         # names scope to the program (see unique_name)
         self._name_counters = {}
 
@@ -240,6 +242,7 @@ class Program:
         become Parameters; building on it appends to `desc`."""
         p = cls.__new__(cls)
         p.desc = desc
+        p.random_seed = 0
         p._name_counters = {}
         p.blocks = [Block(p, bd) for bd in desc.blocks]
         for b in p.blocks:
@@ -262,6 +265,12 @@ class Program:
     def current_block(self):
         return self.blocks[0]
 
+    def list_vars(self):
+        """Every Variable of every block, in desc order."""
+        for b in self.blocks:
+            for name in b.desc.vars:
+                yield b.var(name)
+
     def clone(self, for_test=False):
         """A deep copy of the descs (reference: Program.clone), which the
         layers may go on building on; `for_test` sets `is_test` on every
@@ -269,6 +278,7 @@ class Program:
         p = Program.from_desc(ProgramDesc.from_dict(
             copy.deepcopy(self.desc.to_dict())))
         p._name_counters = dict(self._name_counters)
+        p.random_seed = self.random_seed
         for name, var in self.global_block().vars.items():
             if isinstance(var, Parameter) and name in p.global_block().vars:
                 pv = p.global_block().vars[name]

@@ -1,15 +1,21 @@
-"""Program pruning, and inference export and load in the JAX
-package's format.
+"""Saving and loading variables, program pruning, and inference
+export and load, in the JAX package's format.
 
-Counterpart of paddle_tpu/fluid/io.py `prune_program`,
-`get_inference_program`, `save_inference_model` and
-`load_inference_model`.  An export directory holds `__model__`, a JSON
-object {program, feed_names, fetch_names, feed_meta[, bucket_hints]},
-and one `<name>.npz` per persistable of the pruned program,
-`np.savez(__ragged__=0, values=...)`.  Either package loads what the
-other wrote.  Parameters cross between the two as numpy arrays
-(`params_from_numpy`).  The structural verifier stays on the JAX side
-for now.
+Counterpart of paddle_tpu/fluid/io.py (reference:
+python/paddle/v2/fluid/io.py save_vars:63, save_persistables:112,
+load_persistables:174, save_inference_model:237,
+load_inference_model:325).  Each variable is one `<name>.npz` file
+(`/` in a name becomes `_`), `np.savez(__ragged__=0, values=...)`; a
+bfloat16 value is stored by its bits as a 2-byte void array, as numpy
+holds the JAX package's bfloat16 arrays.  An export directory adds
+`__model__`, a JSON object {program, feed_names, fetch_names,
+feed_meta[, bucket_hints]}.  Either package loads what the other wrote.
+The `save_*`/`load_*` functions take the executor, as the JAX side's
+do, and read or write the global scope (`scope_guard` sets it); values
+load onto the executor's device.  Ragged (LoD) values raise: they come
+with ROADMAP A7.  Parameters cross between the two packages as numpy
+arrays too (`params_from_numpy`).  The structural verifier stays on the
+JAX side for now.
 """
 
 import json
@@ -19,16 +25,126 @@ import numpy as np
 import torch
 
 from ..core.desc import ProgramDesc
-from ..core.scope import global_scope
+from ..core.scope import Scope, global_scope
 from ..core.types import np_dtype, tensor_from_numpy
-from .framework import Program, Variable, default_main_program
+from .framework import (Parameter, Program, Variable,
+                        default_main_program)
 
 __all__ = ["params_from_numpy", "prune_program", "get_inference_program",
-           "save_inference_model", "load_inference_model"]
+           "save_inference_model", "load_inference_model", "save_vars",
+           "save_params", "save_persistables", "load_vars", "load_params",
+           "load_persistables", "is_parameter", "is_persistable"]
+
+# numpy's view of a bfloat16 value: its 2 bytes, unnamed
+_BF16_BYTES = np.dtype("V2")
 
 
 def _var_path(dirname, name):
     return os.path.join(dirname, name.replace("/", "_"))
+
+
+def is_parameter(var):
+    return isinstance(var, Parameter) or getattr(var.desc, "is_parameter",
+                                                 False)
+
+
+def is_persistable(var):
+    return var.persistable
+
+
+def _ragged(name):
+    return NotImplementedError(
+        "%r is a ragged (LoD) value; ragged variables come with "
+        "ROADMAP A7" % name)
+
+
+def host_array(name, value):
+    """A copy of `value` (a tensor or array) on the host, as the numpy
+    array its file holds: bfloat16 as its bits in a V2 array.  Later
+    in-place updates of `value` do not reach the copy."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach()
+        if value.dtype == torch.bfloat16:
+            return value.view(torch.int16).to("cpu", copy=True).numpy() \
+                .view(_BF16_BYTES)
+        return value.to("cpu", copy=True).numpy()
+    if isinstance(value, np.ndarray):
+        return value.copy()
+    raise _ragged(name)
+
+
+def _save_one(dirname, name, value):
+    """Write `<dirname>/<name>.npz` (the JAX side's `_save_one`)."""
+    np.savez(_var_path(dirname, name), __ragged__=0,
+             values=host_array(name, value))
+
+
+def _load_one(dirname, name, missing_ok=False, fileobj=None):
+    """The value saved as `name` under `dirname` (or read from the open
+    file `fileobj`), as a CPU tensor of its execution dtype; None when
+    absent and `missing_ok`."""
+    if fileobj is None:
+        fileobj = _var_path(dirname, name) + ".npz"
+        if not os.path.exists(fileobj):
+            if missing_ok:
+                return None
+            raise IOError("no saved var %r under %s" % (name, dirname))
+    with np.load(fileobj) as data:
+        if int(data["__ragged__"]) != 0:
+            raise _ragged(name)
+        arr = data["values"].copy()
+    if arr.dtype == _BF16_BYTES:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return tensor_from_numpy(arr, "cpu")
+
+
+def _names_of(main_program, vars, predicate):
+    if vars is None:
+        vars = [v for v in (main_program or default_main_program())
+                .list_vars() if predicate(v)]
+    return [v.name if isinstance(v, Variable) else str(v) for v in vars]
+
+
+def save_vars(executor, dirname, main_program=None, vars=None,
+              predicate=None):
+    """Write each of `vars` (Variables or names; default those of
+    `main_program` that `predicate` keeps) that has a value in the
+    global scope to `<dirname>/<name>.npz`."""
+    os.makedirs(dirname, exist_ok=True)
+    scope = global_scope()
+    for name in _names_of(main_program, vars, predicate):
+        val = scope.get(name)
+        if val is not None:
+            _save_one(dirname, name, val)
+
+
+def save_params(executor, dirname, main_program=None):
+    save_vars(executor, dirname, main_program, predicate=is_parameter)
+
+
+def save_persistables(executor, dirname, main_program=None):
+    save_vars(executor, dirname, main_program, predicate=is_persistable)
+
+
+def load_vars(executor, dirname, main_program=None, vars=None,
+              predicate=None):
+    """Set each of `vars` (default those of `main_program` that
+    `predicate` keeps) saved under `dirname` in the global scope, on the
+    executor's device; a var with no file is skipped, as save skips a
+    var with no value."""
+    scope = global_scope()
+    for name in _names_of(main_program, vars, predicate):
+        val = _load_one(dirname, name, missing_ok=True)
+        if val is not None:
+            scope.set(name, val.to(executor.device))
+
+
+def load_params(executor, dirname, main_program=None):
+    load_vars(executor, dirname, main_program, predicate=is_parameter)
+
+
+def load_persistables(executor, dirname, main_program=None):
+    load_vars(executor, dirname, main_program, predicate=is_persistable)
 
 
 def params_from_numpy(scope, arrays, device):
@@ -111,14 +227,15 @@ def _feed_meta(desc, feed_names):
     return meta
 
 
-def save_inference_model(dirname, feeded_var_names, target_vars, scope,
-                         main_program=None, bucket_hints=None,
-                         model_filename="__model__"):
+def save_inference_model(dirname, feeded_var_names, target_vars, executor,
+                         main_program=None, model_filename="__model__",
+                         bucket_hints=None):
     """Write `main_program` (a Program or ProgramDesc; default the
     default main program) pruned to `target_vars` (Variables or names),
-    and the values in `scope` of the pruned program's persistables.
-    Returns the pruned Program.  (The JAX side takes the executor, whose
-    scope is global there; the port's values live in the scope given.)"""
+    and the values of the pruned program's persistables.  Returns the
+    pruned Program.  `executor` is an Executor, whose values live in the
+    global scope as on the JAX side, or the Scope that holds them."""
+    scope = executor if isinstance(executor, Scope) else global_scope()
     feed_names = _names(feeded_var_names)
     fetch_names = _names(target_vars)
     source = _as_program(main_program or default_main_program())
@@ -137,28 +254,9 @@ def save_inference_model(dirname, feeded_var_names, target_vars, scope,
         json.dump(meta, f)
     for var in _persistables(program):
         val = scope.get(var.name)
-        if val is None:
-            continue
-        if isinstance(val, torch.Tensor):
-            if val.dtype == torch.bfloat16:
-                raise TypeError("save_inference_model: %r is bfloat16, "
-                                "which numpy cannot hold" % var.name)
-            val = val.detach().cpu().numpy()
-        np.savez(_var_path(dirname, var.name), __ragged__=0,
-                 values=np.asarray(val))
+        if val is not None:
+            _save_one(dirname, var.name, val)
     return pruned
-
-
-def _load_one(dirname, name):
-    path = _var_path(dirname, name) + ".npz"
-    if not os.path.exists(path):
-        return None
-    with np.load(path) as data:
-        if int(data["__ragged__"]) != 0:
-            raise NotImplementedError(
-                "%s holds a ragged (LoD) value; ragged persistables are "
-                "not ported yet" % path)
-        return data["values"].copy()
 
 
 def load_inference_model(dirname, executor, model_filename="__model__",
@@ -170,12 +268,11 @@ def load_inference_model(dirname, executor, model_filename="__model__",
     with open(os.path.join(dirname, model_filename)) as f:
         meta = json.load(f)
     program = ProgramDesc.from_dict(meta["program"])
-    arrays = {}
+    scope = global_scope()
     for var in _persistables(program):
-        val = _load_one(dirname, var.name)
+        val = _load_one(dirname, var.name, missing_ok=True)
         if val is not None:
-            arrays[var.name] = val
-    params_from_numpy(global_scope(), arrays, executor.device)
+            scope.set(var.name, val.to(executor.device))
     fetch_names = list(meta["fetch_names"])
     if return_meta:
         extra = {k: meta.get(k) for k in ("feed_meta", "bucket_hints")}

@@ -3,7 +3,7 @@ that the port's models build with.
 
 Counterpart of paddle_tpu/fluid/layers/nn.py (reference:
 python/paddle/v2/fluid/layers/nn.py — fc:69, embedding:190,
-conv2d:912, pool2d, batch_norm:1250 ...).  Each function appends ops to
+conv2d:912, pool2d, batch_norm:1250, dropout, lrn, accuracy ...).  Each function appends ops to
 the current block with the JAX package's op types, slots, attrs, names
 and initializers; nothing runs here.  The other layers wait (ROADMAP A).
 """
@@ -16,7 +16,8 @@ __all__ = [
     "fc", "embedding", "cross_entropy", "square_error_cost", "softmax",
     "softmax_with_cross_entropy", "conv2d", "pool2d", "batch_norm",
     "layer_norm", "split", "flash_attention", "cached_attention",
-    "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+    "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "dropout",
+    "lrn", "accuracy",
 ]
 
 
@@ -318,3 +319,57 @@ reduce_sum = _reduce_layer("reduce_sum")
 reduce_mean = _reduce_layer("reduce_mean")
 reduce_max = _reduce_layer("reduce_max")
 reduce_min = _reduce_layer("reduce_min")
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, **kwargs):
+    """Zero each element with probability `dropout_prob` (reference:
+    layers/nn.py dropout); `seed` fixes the op's own stream."""
+    helper = LayerHelper("dropout", **kwargs)
+    out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+    mask = helper.create_tmp_variable(x.dtype, stop_gradient=True)
+    helper.append_op(
+        type="dropout", inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "fix_seed": seed is not None, "seed": seed or 0})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, **kwargs):
+    """Local response normalisation across channels (reference:
+    layers/nn.py lrn)."""
+    helper = LayerHelper("lrn", **kwargs)
+    out = helper.create_tmp_variable(input.dtype)
+    mid = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None, **kwargs):
+    """Top-k accuracy: a `top_k` op, then an `accuracy` op (reference:
+    layers/nn.py accuracy)."""
+    helper = LayerHelper("accuracy", **kwargs)
+    topk_out = helper.create_tmp_variable(dtype=input.dtype)
+    topk_indices = helper.create_tmp_variable(dtype="int32",
+                                              stop_gradient=True)
+    helper.append_op(
+        type="top_k", inputs={"X": [input]},
+        outputs={"Out": [topk_out], "Indices": [topk_indices]},
+        attrs={"k": k})
+    acc_out = helper.create_tmp_variable(dtype="float32",
+                                         stop_gradient=True)
+    if correct is None:
+        correct = helper.create_tmp_variable(dtype="int32",
+                                             stop_gradient=True)
+    if total is None:
+        total = helper.create_tmp_variable(dtype="int32",
+                                           stop_gradient=True)
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": [topk_out], "Indices": [topk_indices],
+                "Label": [label]},
+        outputs={"Accuracy": [acc_out], "Correct": [correct],
+                 "Total": [total]})
+    return acc_out

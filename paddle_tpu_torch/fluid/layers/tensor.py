@@ -42,7 +42,7 @@ def cast(x, dtype, **kwargs):
 
 def concat(input, axis=0, **kwargs):
     """The inputs joined along `axis` (dense; ragged inputs come with
-    ROADMAP A5).  The output's dtype is inferred, as on the JAX side."""
+    ROADMAP A7).  The output's dtype is inferred, as on the JAX side."""
     helper = LayerHelper("concat", **kwargs)
     out = helper.create_tmp_variable(helper.input_dtype)
     helper.append_op(type="concat", inputs={"X": input},

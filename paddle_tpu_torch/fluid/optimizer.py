@@ -14,7 +14,7 @@ one update op, with the learning rate in a shared persistable var
 startup programs and initialised by a `fill_constant` in the startup,
 so both programs equal the JAX package's (with `fuse_optimizer` off,
 its default) through `to_dict()`.  The other optimizers, clipping,
-regularization and fused updates wait (ROADMAP A3).
+regularization and fused updates wait (ROADMAP A5).
 """
 
 from collections import namedtuple

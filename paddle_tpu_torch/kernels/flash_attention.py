@@ -16,7 +16,9 @@ halving; for a CUDA tensor they launch the kernel on the views where
 they lie, or raise.  They never fall back from the card to the plain
 version.  `check_kernel_args` is the pure check of what the kernel
 takes.  `flash_attention_fwd.launches` counts kernel launches and
-nothing else.
+nothing else; `flash_attention_fwd.route_launches` splits that count by
+the kernel's route (`kernel_route`: the dtype, and head dims up to 128 or
+129..256, which run other tilings).
 
 The gradient: `FlashAttentionFunction` is a torch.autograd.Function
 whose forward is `flash_attention_bthd` (on the card, the CUDA kernel on
@@ -34,14 +36,25 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "FlashAttentionFunction", "check_kernel_args",
-           "flash_attention", "flash_attention_bthd", "flash_attention_bwd",
-           "flash_attention_fwd", "flash_attention_plain",
-           "reference_attention"]
+__all__ = ["MAX_HEAD_DIM", "NEG_INF", "ROUTES", "FlashAttentionFunction",
+           "check_kernel_args", "flash_attention", "flash_attention_bthd",
+           "flash_attention_bwd", "flash_attention_fwd",
+           "flash_attention_plain", "kernel_route", "reference_attention"]
 
 NEG_INF = -1e30
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float16: "f16"}
+
+# the largest head dim the kernel takes: above it, one 64-row q tile and
+# a two-stage K/V ring no longer fit the 227 KB of shared memory
+MAX_HEAD_DIM = 256
+
+# the kernel's routes: head dims 1..128 and 129..256 run other tilings
+# (csrc/flash_attention_fwd.cu, head comment)
+ROUTES = tuple("%s%s" % (tag, suffix) for suffix in ("", "_d256")
+               for tag in ("f32", "bf16", "f16"))
 
 
 def _scaled_q(q, sm_scale):
@@ -62,7 +75,7 @@ def flash_attention_plain(q, k, v, sm_scale=None, causal=False,
                           block_q=128, block_k=128, q_offset=0):
     """The kernel's function in plain PyTorch: (o, m, l).
 
-    q [B, H, Tq, D], k/v [B, H, Tk, D], f32 or bf16, any strides.  K/V
+    q [B, H, Tq, D], k/v [B, H, Tk, D], f32, bf16 or f16, any strides.  K/V
     stream in `block_k` tiles (halved until they divide Tk, as `_fwd`
     does) with an online softmax in f32; masked scores are the finite
     -1e30.  The query blocks are independent, so all of them run at
@@ -108,11 +121,14 @@ _NAMES = ("q", "k", "v", "o")
 
 
 def check_kernel_args(q, k, v, o):
-    """Raise unless the kernel can read q, k, v and write o as they are;
-    return their 12 element strides, (batch, row, head) of q, k, v, o.
+    """Raise unless the kernel can read q, k, v and write o as they are
+    (the head dim and dtype through `kernel_route`, which picks the
+    kernel's route); return their 12 element strides, (batch, row, head)
+    of q, k, v, o.
 
     Each is a [B, T, H, D] view (q and o [B, Tq, H, D], k and v
-    [B, Tk, H, D]) of one dtype, float32 or bfloat16, with D in 1..128.
+    [B, Tk, H, D]) of one dtype, float32, bfloat16 or float16, with D in
+    1..256.
     The kernel's TMA loads walk the rows of one head, so each view needs
     a unit stride in D, a 16-byte-aligned base pointer, and batch, row
     and head strides that are multiples of 16 bytes.  Looks at shapes,
@@ -123,7 +139,8 @@ def check_kernel_args(q, k, v, o):
     for name, t in zip(_NAMES, ts):
         if t.dtype not in _DTYPE_CODE:
             raise TypeError("flash_attention: %s has dtype %s; the kernel "
-                            "takes float32 or bfloat16" % (name, t.dtype))
+                            "takes float16, float32 or bfloat16"
+                            % (name, t.dtype))
         if t.dtype != dtype:
             raise TypeError("flash_attention: q, k, v, o differ in dtype")
     shapes = [tuple(t.shape) for t in ts]
@@ -137,9 +154,7 @@ def check_kernel_args(q, k, v, o):
             or shapes[3] != shapes[0]:
         raise ValueError("flash_attention: shapes q %s, k %s, v %s, o %s do "
                          "not match" % tuple(shapes))
-    if not 0 < D <= 128:
-        raise ValueError("flash_attention: head dim %d; the kernel takes "
-                         "1..128" % D)
+    kernel_route(dtype, D)
     if min(B, H, Tq, Tk) <= 0:
         raise ValueError("flash_attention: empty input %s" % (shapes[0],))
     strides = [t.stride() for t in ts]
@@ -163,6 +178,20 @@ def check_kernel_args(q, k, v, o):
                         "flash_attention: %s's %s stride of %d bytes is "
                         "not a multiple of 16" % (name, what, x * size))
     return outer
+
+
+def kernel_route(dtype, d):
+    """The kernel's route for `dtype` at head dim `d`: "f32", "bf16" or
+    "f16" for d in 1..128, with "_d256" for d in 129..256 (one consumer
+    warpgroup over 16-key tiles in f32, a two-stage ring of 64-key tiles
+    in bf16 and f16).  Raises for any other dtype or head dim."""
+    if dtype not in _DTYPE_TAG:
+        raise TypeError("flash_attention: dtype %s; the kernel takes "
+                        "float16, float32 or bfloat16" % (dtype,))
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError("flash_attention: head dim %d; the kernel takes "
+                         "1..%d" % (d, MAX_HEAD_DIM))
+    return _DTYPE_TAG[dtype] + ("" if d <= 128 else "_d256")
 
 
 def _padded(q, k, v):
@@ -232,6 +261,7 @@ def _launch(q, k, v, sm_scale, causal, q_offset, out=None):
         raise RuntimeError("flash_attention_fwd kernel launch failed: "
                            "cudaError %d" % err)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.route_launches[kernel_route(q.dtype, D)] += 1
     if out is None:
         out = o[..., :d_in]
     elif o is not out:
@@ -281,6 +311,7 @@ def flash_attention_fwd(q, k, v, sm_scale=None, causal=False, block_q=128,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention(q, k, v, sm_scale=None, causal=False, block_q=128,

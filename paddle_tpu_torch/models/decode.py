@@ -15,6 +15,8 @@ scalar or a per-row [B] tensor (prefill's continuation tokens).
 
 import torch
 
+from ..ops.tensor_ops import stable_top_k as _top_k
+
 __all__ = ["greedy_decode", "beam_search_decode_dense", "prefill",
            "sample_decode", "eos_lengths"]
 
@@ -110,14 +112,6 @@ def sample_decode(step_fn, init_state, bos, eos, max_len, batch_size,
     toks = torch.stack(out, dim=1) if out else \
         torch.empty((batch_size, 0), dtype=torch.int32, device=device)
     return toks, eos_lengths(toks, eos, max_len)
-
-
-def _top_k(x, k):
-    """(values, indices) of the k largest along the last dim, largest
-    first and equal values lower index first, as `lax.top_k` orders
-    them (torch.topk leaves the order of ties unspecified)."""
-    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], indices[..., :k]
 
 
 def beam_search_decode_dense(step_fn, init_state, bos, eos, beam_size,

@@ -12,3 +12,4 @@ from . import attention  # noqa: F401
 from . import loss  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import random  # noqa: F401
+from . import metrics  # noqa: F401

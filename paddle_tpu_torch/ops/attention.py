@@ -49,7 +49,7 @@ def flash_attention_op(ctx, ins, attrs):
     # `sequence_parallel_mode`) only under a device mesh that names the
     # axis, as on the JAX side; the port has no mesh yet, so such a
     # program runs the local kernel.  Ring and Ulysses arrive with
-    # ROADMAP A7, together with a DeviceMesh.
+    # ROADMAP A9, together with a DeviceMesh.
     block = int(attrs.get("block_size", 128))
     heads = [t.unflatten(-1, (num_heads, t.shape[-1] // num_heads))
              for t in (q, k, v)]

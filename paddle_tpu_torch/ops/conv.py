@@ -1,7 +1,8 @@
-"""Convolution and pooling op kernels: `conv2d` and `pool2d`.
+"""Convolution, pooling and local response normalisation op kernels:
+`conv2d`, `pool2d` and `lrn`.
 
 Counterpart of paddle_tpu/ops/conv.py (reference: conv_op.cc,
-conv_cudnn_op.cu.cc, pool_op.cc).  `conv2d` is
+conv_cudnn_op.cu.cc, pool_op.cc, lrn_op.cc).  `conv2d` is
 torch.nn.functional.conv2d, which is cuDNN on the card; under the bf16
 policy its operands and result are bf16 (ops/amp_util.py).  `pool2d` is
 max pooling, or average pooling with the JAX side's counts: the window
@@ -11,7 +12,10 @@ elements that lie inside the input (`_np_pool_counts`).  Images are NCHW
 or NHWC (`data_layout`) with OIHW weights in both.  `ceil_mode` is
 recorded and ignored, as on the JAX side.  Both grads are the generic
 vjp, as on the JAX side; a max-pool window's grad goes to its first
-largest element in row-major order on both sides.
+largest element in row-major order on both sides.  `lrn` divides by
+(k + alpha * the sum of squares over a window of `n` channels) ** beta,
+the window sum added in the JAX side's order; its grad is the generic
+vjp there too.
 """
 
 import numpy as np
@@ -115,3 +119,21 @@ def pool2d(ctx, ins, attrs):
             out = summed / (ksize[0] * ksize[1])
     out = _from_nchw(out, attrs)
     return {"Out": [_check_spatial(out, "pool2d", x, sdims)]}
+
+
+@register_op("lrn")
+def lrn(ctx, ins, attrs):
+    """Local response normalisation across the channels of NCHW X:
+    MidOut = k + alpha * (the sum of X^2 over `n` channels centred on
+    each, zero-padded at the ends), Out = X / MidOut ** beta."""
+    x = ins["X"][0]
+    n = int(attrs.get("n", 5))
+    k = attrs.get("k", 2.0)
+    alpha = attrs.get("alpha", 1e-4)
+    beta = attrs.get("beta", 0.75)
+    half = n // 2
+    padded = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    channels = x.shape[1]
+    window_sum = sum(padded[:, i:i + channels] for i in range(n))
+    mid = k + alpha * window_sum
+    return {"Out": [x / torch.pow(mid, beta)], "MidOut": [mid]}

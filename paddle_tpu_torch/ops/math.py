@@ -100,7 +100,7 @@ def _reduce(name, fn, acc_f32=False):
     shape (1,) or, with `keep_dim`, (1,) * ndim.  Sum and mean
     accumulate a bf16 input in f32 and return f32 (bf16's 8 mantissa
     bits saturate after a few hundred addends); max and min are exact in
-    any dtype.  Ragged inputs (their row masks) come with ROADMAP A5."""
+    any dtype.  Ragged inputs (their row masks) come with ROADMAP A7."""
 
     @register_op(name)
     def kernel(ctx, ins, attrs):

@@ -1,18 +1,21 @@
-"""Random init op kernels: `uniform_random` and `gaussian_random`.
+"""Random op kernels: `uniform_random`, `gaussian_random` and
+`dropout` with its grad.
 
 Counterpart of paddle_tpu/ops/random.py (reference:
-uniform_random_op.cc, gaussian_random_op.cc).  An op with a non-zero
-`seed` attr draws from a generator of its own seeded with it; the
-others draw from the executor's stream (`ExecContext.next_rng`).  The
-values differ from the JAX package's (its PRNG is not torch's); the
-distribution is the same.  Shape inference reads the `shape` and
-`dtype` attrs, since a generator cannot live on the meta device.
+uniform_random_op.cc, gaussian_random_op.cc, dropout_op.cc).  An op
+with a non-zero `seed` attr (dropout: `fix_seed`) draws from a
+generator of its own seeded with it; the others draw from the
+executor's stream (`ExecContext.next_rng`, seeded from the program's
+`random_seed`).  The values differ from the JAX package's (its PRNG is
+not torch's); the distribution is the same.  Shape inference reads the
+attrs, or takes the input's shape, since a generator cannot live on the
+meta device.
 """
 
 import torch
 
 from ..core.types import torch_dtype
-from .registry import META, register_op
+from .registry import META, dense, register_grad_kernel, register_op
 
 
 def _generator(ctx, attrs):
@@ -55,3 +58,39 @@ def gaussian_random(ctx, ins, attrs):
                     dtype=torch.float32, device=ctx.device)
     out = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
     return {"Out": [out.to(_out_dtype(attrs))]}
+
+
+def _like_x(ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [torch.empty_like(x)], "Mask": [torch.empty_like(x)]}
+
+
+@register_op("dropout", uses_rng=True, infer_shape=_like_x)
+def dropout(ctx, ins, attrs):
+    """Out = X * Mask, Mask = (U[0, 1) >= dropout_prob) in X's dtype,
+    drawn in f32 from the executor's stream or, with `fix_seed`, from a
+    generator seeded with `seed`; `is_test` scales X by (1 - p) with a
+    mask of ones (reference dropout_op.h).  Dense X only."""
+    x = dense(ins["X"][0], "dropout")
+    prob = attrs.get("dropout_prob", 0.5)
+    if attrs.get("is_test", False):
+        return {"Out": [x * (1.0 - prob)], "Mask": [torch.ones_like(x)]}
+    if attrs.get("fix_seed", False):
+        gen = torch.Generator(device=x.device).manual_seed(
+            int(attrs.get("seed", 0)))
+    else:
+        gen = ctx.next_rng()
+    u = torch.rand(x.shape, generator=gen, dtype=torch.float32,
+                   device=x.device)
+    mask = (u >= prob).to(x.dtype)
+    return {"Out": [x * mask], "Mask": [mask]}
+
+
+@register_grad_kernel("dropout")
+def dropout_grad(ctx, ins, attrs):
+    """dX from the forward's saved Mask (the stream is not replayed;
+    reference dropout_op.h DropoutGradKernel)."""
+    og = dense(ins["OG@Out"][0], "dropout_grad")
+    if attrs.get("is_test", False):
+        return {"X@GRAD": [og * (1.0 - attrs.get("dropout_prob", 0.5))]}
+    return {"X@GRAD": [og * ins["O@Mask"][0]]}

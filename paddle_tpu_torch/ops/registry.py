@@ -38,10 +38,10 @@ def span(name):
 
 def dense(x, op_type):
     """`x` if it is a dense tensor; a ragged (LoD) value raises
-    NotImplementedError: ragged inputs come with ROADMAP A5."""
+    NotImplementedError: ragged inputs come with ROADMAP A7."""
     if not isinstance(x, torch.Tensor):
         raise NotImplementedError(
-            "%s: ragged (LoD) inputs come with ROADMAP A5, got %s"
+            "%s: ragged (LoD) inputs come with ROADMAP A7, got %s"
             % (op_type, type(x).__name__))
     return x
 

@@ -2,7 +2,7 @@
 
 Counterpart of paddle_tpu/ops/sparse.py (reference:
 lookup_table_op.cc).  Ragged (LoD) ids and the SelectedRows gradient
-(`is_sparse`) come with ROADMAP A5.
+(`is_sparse`) come with ROADMAP A7.
 """
 
 import torch
@@ -56,7 +56,7 @@ def lookup_table_grad(ctx, ins, attrs):
     if attrs.get("is_sparse", False):
         raise NotImplementedError(
             "lookup_table_grad with is_sparse=True gives a SelectedRows "
-            "gradient, which comes with ROADMAP A5")
+            "gradient, which comes with ROADMAP A7")
     w = ins["W"][0]
     vocab = w.shape[0]
     raw, flat, valid = _flat_ids(ins["Ids"][0], vocab)

@@ -1,10 +1,10 @@
 """Tensor op kernels: `fill_constant`, `cast`, `scale`, `split`,
-`concat`, `reshape`, `sum` and `increment`.
+`concat`, `reshape`, `sum`, `increment` and `top_k`.
 
 Counterpart of paddle_tpu/ops/tensor_ops.py (reference:
 fill_constant_op.cc, cast_op.cc, scale_op.cc, split_op.cc,
-concat_op.cc, reshape_op.cc, sum_op.cc, increment_op.cc), dense inputs
-only: ragged (LoD) ones come with ROADMAP A5.
+concat_op.cc, reshape_op.cc, sum_op.cc, increment_op.cc, top_k_op.cc),
+dense inputs only: ragged (LoD) ones come with ROADMAP A7.
 """
 
 import numpy as np
@@ -78,7 +78,7 @@ def reshape(ctx, ins, attrs):
 @register_op("sum")
 def sum_op(ctx, ins, attrs):
     """The sum of dense X inputs, added in order (the backward's grad
-    accumulation).  SelectedRows inputs come with ROADMAP A5."""
+    accumulation).  SelectedRows inputs come with ROADMAP A7."""
     xs = ins["X"]
     acc = xs[0]
     for x in xs[1:]:
@@ -95,3 +95,19 @@ def increment(ctx, ins, attrs):
     # host scalar would cost a copy, and a sync, per decode step
     step = torch.tensor(attrs.get("step", 1.0), dtype=x.dtype).item()
     return {"Out": [x + step]}
+
+
+def stable_top_k(x, k):
+    """(values, indices) of the k largest along the last dim, largest
+    first and equal values lower index first, as `lax.top_k` orders
+    them (torch.topk leaves the order of ties unspecified)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+@register_op("top_k", nondiff_inputs=("X",))
+def top_k(ctx, ins, attrs):
+    """The `k` largest of X's last dim and their int32 indices."""
+    values, indices = stable_top_k(dense(ins["X"][0], "top_k"),
+                                   int(attrs["k"]))
+    return {"Out": [values], "Indices": [indices.to(torch.int32)]}

@@ -135,7 +135,7 @@ def test_reduce_of_int_positions_stays_int():
 @pytest.mark.parametrize("op", ["concat", "increment", "reduce_sum"])
 def test_ragged_inputs_wait_for_a5(op):
     ragged = [[1.0, 2.0], [3.0]]
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A7"):
         pget(op).kernel(None, {"X": [ragged]},
                         {"axis": 0, "dim": 0, "step": 1.0})
 

@@ -179,9 +179,9 @@ def _bad_args(what):
     elif what == "row stride":
         q = torch.zeros(2, 24, 2 * 32 + 1)[..., :64].unflatten(-1, (2, 32))
     elif what == "dtype":
-        q, k, v, o = (t.to(torch.float16) for t in (q, k, v, o))
+        q, k, v, o = (t.to(torch.float64) for t in (q, k, v, o))
     elif what == "head dim":
-        q, k, v, o = (torch.zeros(1, 8, 1, 136) for _ in range(4))
+        q, k, v, o = (torch.zeros(1, 8, 1, 264) for _ in range(4))
     return q, k, v, o
 
 
@@ -190,7 +190,7 @@ def _bad_args(what):
     ("base", ValueError, "base pointer is not 16-byte aligned"),
     ("row stride", ValueError, "row stride of 260 bytes"),
     ("dtype", TypeError, "float32 or bfloat16"),
-    ("head dim", ValueError, "head dim 136"),
+    ("head dim", ValueError, "head dim 264"),
 ])
 def test_check_kernel_args_rejects(what, exc, msg):
     with pytest.raises(exc, match=msg):

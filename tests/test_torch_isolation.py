@@ -64,6 +64,22 @@ def test_serving_import_leaves_jax_unloaded():
     assert out.stdout.strip() == "[]"
 
 
+def test_training_stack_import_leaves_jax_unloaded():
+    """The image slice's modules: feeding, readers, datasets,
+    checkpoints, fault injection, the image models."""
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.fluid, "
+            "paddle_tpu_torch.fluid.checkpoint, paddle_tpu_torch.models, "
+            "paddle_tpu_torch.reader, paddle_tpu_torch.dataset, "
+            "paddle_tpu_torch.resilience, paddle_tpu_torch.ops.metrics; "
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_tf32_is_off_after_import():
     import paddle_tpu_torch  # noqa: F401
 

@@ -185,6 +185,8 @@ def test_registry_holds_the_slice_op_set():
         "sigmoid", "tanh", "exp", "sqrt", "abs", "log",
         # generation and Adam
         "cached_attention", "concat", "increment", "reduce_sum",
-        "reduce_mean", "reduce_max", "reduce_min", "adam"}
+        "reduce_mean", "reduce_max", "reduce_min", "adam",
+        # the image models and the example's accuracy
+        "dropout", "lrn", "top_k", "accuracy"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")
