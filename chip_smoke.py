@@ -106,6 +106,25 @@ no result line:
      loss and accuracy of the run that was not interrupted, and a later
      snapshot torn by injected faults is skipped.  The image models run
      no hand-written kernel.
+  9. sequence: bench.py's stacked-LSTM classifier (BENCH_MODEL=lstm:
+     dict 10,000, embedding 128, hidden 256, 2 layers with peepholes,
+     Adam at lr 1e-3) built through the port's layers as bench.py's
+     `_build_lstm` builds it, its op count, op types and parameter
+     count.  At batch 8 with lengths 1..100 from the seed, padded to a
+     64-row bucket: 3 steps on the CPU plain path, each again on the
+     card from the CPU's state before it (loss, the step's change of the
+     parameters and both moments gated).  At bench.py's 128 sequences of
+     100 ids (128 recurrence steps), f32 and bf16 AMP from the same
+     state: 3 steps with their peak memory, the step's time (median of
+     10 after 2 warm, feeds on the card), samples/s and a profiled step;
+     the AMP losses against the f32 ones.  The lstm op alone at that
+     shape (forward and generic grad, device time by graph replay, and
+     eager) beside its bound and cuDNN's LSTM (a different function: no
+     peepholes).  One forward with CUDA's synchronizing calls made
+     errors.  The inference export, loaded by InferenceEngine on the card
+     and served by InferenceServer: 3 concurrent POST /v1/infer of 1, 2
+     and 3 sequences of different lengths, then one engine.run of 16,
+     against the CPU plain path.  No hand-written kernel runs here.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -278,6 +297,35 @@ ARGMAX_ATOL = 1e-3
 # the best beam's score against its log-probability recomputed through
 # the full forward: 32 f32 log-softmaxes summed (about -9 each)
 BEAM_SCORE_ATOL = 1e-3
+
+# phase 9, sequence: bench.py's BENCH_MODEL=lstm (bench.py:106-132): the
+# stacked-LSTM classifier at dict 10,000, embedding 128, hidden 256 (the
+# lstm op's size 1024), 2 layers, 2 classes, peepholes, Adam at lr 1e-3,
+# fed 128 sequences of 100 ids (max_seqlen 100 buckets to 128 steps)
+SEQ_DICT, SEQ_EMB, SEQ_HID, SEQ_CLASSES = 10000, 128, 256, 2
+SEQ_BATCH, SEQ_LEN = 128, 100
+SEQ_CHECK_BATCH = 8        # the card-against-CPU check, lengths 1..100
+SEQ_SERVE = 16             # one engine.run of 16 sequences
+SEQ_BUCKETS = [1, 2, 4, 8, 16]
+# the card against the CPU at batch 8: f32 on both sides, TF32 off, sums
+# in other orders through 2 recurrences of up to 100 steps.  An H100
+# read the loss (about ln 2 = 0.69) within 5.96e-8, and the step's
+# change in relative L2 within 3.77e-6 (parameters) and 4.45e-7
+# (moments): no entry's grad lies near enough to 0 for the card and the
+# CPU to step it apart (phase 7's Adam reasoning).  The gates are 17
+# and 26-225 times those readings.  By estimate (Adam's first step
+# moves each entry that has a grad by about lr; about 2 M entries have
+# one), a step that leaves only the 2-entry output bias unchanged reads
+# about 1e-3 in the parameters, 10 times their gate
+SEQ_LOSS_ATOL = 1e-6
+SEQ_STATE_RL2 = 1e-4
+# bf16 AMP against f32 from the same state at 128 x 100, 3 steps: bf16
+# products and inputs (a rounding of 2^-9 each) through 2 recurrences
+# of 128 steps.  An H100 read 2.72e-4; the gate is 18 times that.  What
+# a wrong policy reads was not measured
+SEQ_AMP_LOSS_ATOL = 5e-3
+# served probabilities (2 classes) against the CPU plain path, f32
+SEQ_PROB_ATOL = 1e-4
 
 
 def nvidia_smi_line():
@@ -733,7 +781,7 @@ def profile_forward(forward, labels, runs=3, attempts=2):
     else:
         print("profile: no complete profile: device busy share not "
               "measured", flush=True)
-        return
+        return None
     busy_us = sum(k[1] for k in kernels)
     print("profile: %d forwards, wall %.3f ms, device busy %.3f ms (%.1f "
           "%%), %d launches per forward"
@@ -896,7 +944,7 @@ KERNEL_FAMILIES = (  # (family, name fragments), first match wins
     ("flash forward", ("flash_fwd_kernel",)),
     ("convolutions and products", ("xmma", "cutlass", "cudnn", "gemm",
                                    "wgrad", "dgrad", "fft", "sm80_",
-                                   "sm90_")),
+                                   "sm90_", "nvjet")),
 )
 
 
@@ -920,7 +968,8 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
     count in the kernel table and the busy time, in no op's row.  The
     profile counts only when it is complete: the step's `flash_launches`
     flash launches in it; else a fresh session tries again, and the
-    shares are reported as not measured."""
+    shares are reported as not measured (None is returned).  Returns
+    {"busy_ms", "wall_ms", "ops": {op type: (device ms, host ms, ops)}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -943,7 +992,7 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
     else:
         print("profile: no complete profile: device busy share not "
               "measured", flush=True)
-        return
+        return None
     busy_us = sum(k[1] for k in kernels)
     print("profile: %s, wall %.3f ms, device busy %.3f ms "
           "(%.1f %% of the profiled window, idle %.1f %%; %.1f %% of the "
@@ -972,6 +1021,9 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
               "%9.3f ms (%5.1f %% of the window), %4d ops"
               % (name, us / 1e3, 100.0 * us / busy_us, host_us / 1e3,
                  100.0 * host_us / wall_us, count), flush=True)
+    return {"busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
+            "ops": {name: (us / 1e3, host_us / 1e3, count)
+                    for name, us, host_us, count in spans}}
 
 
 def run_from_state(executor, main, loss, state, feeds):
@@ -2174,6 +2226,441 @@ def phase_image():
     return dict(counts)
 
 
+def build_lstm():
+    """bench.py's `_build_lstm` through the port's fluid layers: (main,
+    startup, loss, probs)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models.text import stacked_lstm_text_classifier
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        data = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                 lod_level=1)
+        probs = stacked_lstm_text_classifier(data, SEQ_DICT,
+                                             hid_dim=SEQ_HID)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        loss = fluid.layers.mean(
+            x=fluid.layers.cross_entropy(input=probs, label=label))
+        fluid.optimizer.Adam(learning_rate=ADAM_LR).minimize(loss)
+    return main, startup, loss, probs
+
+
+def lstm_sequences(lengths, seed):
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, SEQ_DICT, size=(int(n), 1)).astype(np.int64)
+            for n in lengths]
+
+
+def lstm_feed(seqs, seed, bucket=None):
+    """{"words": RaggedTensor, "label": [B, 1]} as bench.py's
+    `_lstm_feeds` makes them (`bucket` pads the flat rows, as DataFeeder
+    does)."""
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+
+    rs = np.random.RandomState(seed)
+    return {"words": RaggedTensor.from_sequences(seqs, bucket=bucket),
+            "label": rs.randint(0, SEQ_CLASSES,
+                                size=(len(seqs), 1)).astype(np.int64)}
+
+
+def feed_to(feed, device):
+    """A feed of `lstm_feed` on `device`, ids as int32."""
+    import torch
+
+    return {n: (v.to(device) if hasattr(v, "lod_level")
+                else torch.from_numpy(v.astype(np.int32)).to(device))
+            for n, v in feed.items()}
+
+
+def lstm_bound(batch, steps, rows, hidden, itemsize, flops_per_s,
+               grad=False):
+    """(ms, "bytes" | "operations") of the lstm op's least time: the
+    forward reads the [rows, 4H] input, the weight and bias once and
+    writes hidden and cell [rows, H]; its products are 2 * batch * H *
+    4H operations a step over the `steps` this run's lengths need.  The
+    grad reads the input, weight, bias and both outputs' grads, writes
+    the input's, weight's and bias's grads, and does the forward's
+    products again (the recompute) and twice more (the two grads of the
+    recurrent product)."""
+    H = hidden
+    params = (H * 4 * H + 7 * H) * itemsize
+    if grad:
+        nbytes = (rows * 4 * H * 2 + rows * H * 2) * itemsize + 2 * params
+        flops = 3 * 2.0 * batch * H * 4 * H * steps
+    else:
+        nbytes = (rows * 4 * H + rows * H * 2) * itemsize + params
+        flops = 2.0 * batch * H * 4 * H * steps
+    t_ops, t_bytes = flops / flops_per_s, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def lstm_op_times(exe, x, w, b, amp):
+    """The lstm op alone at the path's shape on the card, and cuDNN's
+    LSTM (a different function: no peepholes, and its own input product)
+    at the same batch, steps and width: {name: ms}.  Device ms by CUDA
+    graph replay (None where capture failed); the plain op's eager ms by
+    CUDA events."""
+    import contextlib
+
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.ops.registry import get_op_info, run_generic_grad
+
+    kernel = get_op_info("lstm").kernel
+    ins = {"Input": [x], "Weight": [w], "Bias": [b]}
+    attrs = {"use_peepholes": True, "is_reverse": False,
+             "gate_activation": "sigmoid", "cell_activation": "tanh",
+             "candidate_activation": "tanh"}
+    out = kernel(None, ins, attrs)
+    og = {"OG@Hidden": [out["Hidden"][0].with_values(
+        torch.ones_like(out["Hidden"][0].values))]}
+    guard = fluid.amp.bf16_guard() if amp else contextlib.nullcontext()
+
+    def forward():
+        with torch.no_grad():
+            return kernel(None, ins, attrs)
+
+    def grad():
+        with torch.no_grad():
+            return run_generic_grad(None, "lstm", dict(ins, **og), attrs)
+
+    B, T = x.nseq(), min(x.values.shape[0], x.max_seqlen)
+    cudnn = torch.nn.LSTM(SEQ_HID, SEQ_HID, batch_first=True).to(
+        x.values.device, torch.bfloat16 if amp else torch.float32)
+    seq = torch.randn(B, T, SEQ_HID, device=x.values.device,
+                      dtype=torch.bfloat16 if amp else torch.float32,
+                      requires_grad=True)
+
+    def library():
+        with torch.no_grad():
+            return cudnn(seq)
+
+    def library_grad():
+        out, _ = cudnn(seq)
+        out.backward(torch.ones_like(out))
+
+    times = {}
+    with guard:
+        for name, fn in (("forward", forward), ("grad", grad),
+                         ("cudnn", library), ("cudnn_grad", library_grad)):
+            try:
+                times[name] = device_ms(fn, launches=2, replays=3)
+            except RuntimeError as exc:
+                print("sequence: %s under CUDA graph capture failed (%s): "
+                      "its device ms not measured" % (name, exc),
+                      flush=True)
+                times[name] = None
+                torch.cuda.synchronize()
+        times["plain"] = cuda_ms(forward, iters=5, warm=1)
+        times["plain_grad"] = cuda_ms(grad, iters=3, warm=1)
+    return times
+
+
+def phase_sequence():
+    """bench.py's stacked-LSTM classifier through the port's fluid
+    layers (phase 9): its build and counts; 3 Adam steps at batch 8 with
+    lengths 1..100 on the CPU plain path, each step again on the card
+    from the CPU's state before it; at bench.py's 128 x 100, f32 (TF32
+    off) and bf16 AMP from the same state: 3 steps with their peak
+    memory, the step time, a profiled step, the AMP losses against the
+    f32 ones; the lstm op alone beside cuDNN's LSTM; one forward with
+    CUDA's synchronizing calls made errors; the inference export served
+    with ragged requests against the CPU plain path.  Returns the launch
+    counts of the f32 steps (no hand-written kernel runs here)."""
+    import contextlib
+
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import io
+    from paddle_tpu_torch.serving import (EngineConfig, InferenceEngine,
+                                          InferenceServer, ServerConfig)
+
+    t0 = time.perf_counter()
+    main, startup, loss, probs = build_lstm()
+    block = main.desc.block(0)
+    counts = collections.Counter(op.type for op in block.ops)
+    n_values = sum(int(np.prod(v.shape)) for v in block.vars.values()
+                   if v.is_parameter)
+    print("sequence: main %d ops of %d types (%s), %d parameter values "
+          "(%.3f M); built in %.1f s"
+          % (len(block.ops), len(counts), ", ".join(
+              "%s %d" % kv for kv in sorted(counts.items())), n_values,
+             n_values / 1e6, time.perf_counter() - t0), flush=True)
+    # embedding, fc 128 -> 4H, 2 lstm (weight and peephole bias), fc over
+    # [4H, H] -> 4H, the softmax fc over the two pooled [4H, H]
+    H4 = 4 * SEQ_HID
+    want = SEQ_DICT * SEQ_EMB + (SEQ_EMB * H4 + H4) \
+        + 2 * (SEQ_HID * H4 + 7 * SEQ_HID) \
+        + ((H4 + SEQ_HID) * H4 + H4) \
+        + ((H4 + SEQ_HID) * SEQ_CLASSES + SEQ_CLASSES)
+    if n_values != want or counts["lstm"] != 2 \
+            or counts["sequence_pool"] != 2:
+        raise SystemExit("chip_smoke: the lstm program has %d parameter "
+                         "values (want %d) and ops %s"
+                         % (n_values, want, dict(counts)))
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    persist = [n for n, v in block.vars.items() if v.persistable]
+    init = {n: scope.get(n).cpu().numpy() for n in persist}
+    del scope
+    params = [n for n in persist if n + "_moment1_0" in block.vars]
+    groups = {"parameters": params,
+              "moment1": [n + "_moment1_0" for n in params],
+              "moment2": [n + "_moment2_0" for n in params]}
+
+    # batch 8, lengths 1..100: the CPU's 3 steps, each again on the card
+    rs = np.random.RandomState(SEED + 40)
+    lengths = rs.randint(1, SEQ_LEN + 1, size=SEQ_CHECK_BATCH)
+    feeds = [lstm_feed(lstm_sequences(lengths, SEED + 41 + k), SEED + 50 + k,
+                       bucket=64) for k in range(TRAIN_STEPS)]
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    t0 = time.perf_counter()
+    states, cpu = [init], []
+    for f in feeds:
+        loss_k, state, _ = run_from_state(cpu_exe, main, loss, states[-1],
+                                          [f])
+        cpu += loss_k
+        states.append(state)
+    print("sequence: %d steps at batch %d (lengths %s, flat rows %d of %d "
+          "valid) on the CPU plain path in %.1f s, losses %s"
+          % (TRAIN_STEPS, SEQ_CHECK_BATCH, lengths.tolist(),
+             feeds[0]["words"].values.shape[0], int(lengths.sum()),
+             time.perf_counter() - t0, ", ".join("%.6f" % x for x in cpu)),
+          flush=True)
+    ok = True
+    for k, f in enumerate(feeds):
+        (loss_k,), got, _ = run_from_state(exe, main, loss, states[k], [f])
+        errs = {g: change_rl2(got, states[k + 1], states[k], names)
+                for g, names in groups.items()}
+        print("sequence: step %d on the card from the CPU's state: loss "
+              "%.6f, max_abs_err %.3g (atol %g); the step's change, "
+              "relative L2 error: %s (limit %g)"
+              % (k + 1, loss_k, abs(loss_k - cpu[k]), SEQ_LOSS_ATOL,
+                 ", ".join("%s %.3g" % kv for kv in errs.items()),
+                 SEQ_STATE_RL2), flush=True)
+        ok = ok and abs(loss_k - cpu[k]) <= SEQ_LOSS_ATOL \
+            and max(errs.values()) <= SEQ_STATE_RL2 \
+            and all(np.isfinite(v).all() for v in got.values())
+    if not ok:
+        raise SystemExit("chip_smoke: lstm steps on the card disagree "
+                         "with the CPU plain path")
+
+    # bench.py's 128 x 100, f32 and then bf16 AMP, each from `init`
+    full = lstm_feed(lstm_sequences([SEQ_LEN] * SEQ_BATCH, SEED + 60),
+                     SEED + 61)
+    dev_feed = feed_to(full, exe.device)
+    steps_run = min(dev_feed["words"].values.shape[0],
+                    dev_feed["words"].max_seqlen)
+    print("sequence: bench.py's feed: %d sequences of %d ids, max_seqlen "
+          "%d, so the recurrence runs %d steps"
+          % (SEQ_BATCH, SEQ_LEN, dev_feed["words"].max_seqlen, steps_run),
+          flush=True)
+    op_types = set(counts)
+    losses, launches, trained, prof = {}, None, None, {}
+    for amp in (False, True):
+        tag = "bf16 AMP" if amp else "f32"
+        scope = fluid.Scope()
+        io.params_from_numpy(scope, init, exe.device)
+        with fluid.amp.bf16_guard() if amp else contextlib.nullcontext():
+            reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses[amp] = [float(exe.run(main, feed=dev_feed,
+                                         fetch_list=[loss],
+                                         scope=scope)[0][0])
+                           for _ in range(TRAIN_STEPS)]
+            seconds = time.perf_counter() - t0
+            if not amp:
+                # the main path ends here: read the counts
+                launches = read_launches()
+                trained = {n: scope.get(n).cpu().numpy() for n in persist}
+            peak = torch.cuda.max_memory_allocated()
+            print("sequence %s: %d steps at %d x %d in %.2f s, losses %s; "
+                  "peak memory %.3f GB; hand-written kernel launches %s"
+                  % (tag, TRAIN_STEPS, SEQ_BATCH, SEQ_LEN, seconds,
+                     ", ".join("%.6f" % x for x in losses[amp]),
+                     peak / 1e9, json.dumps(read_launches())), flush=True)
+
+            def step():
+                return exe.run(main, feed=dev_feed, fetch_list=[loss],
+                               scope=scope, return_numpy=False)
+
+            times = timed_steps(step)
+            med = float(np.median(times))
+            print("sequence %s: step %.3f ms (median of 10 after 2 warm; "
+                  "mean %.3f, min %.3f, max %.3f), %.1f samples/s"
+                  % (tag, med, np.mean(times), min(times), max(times),
+                     SEQ_BATCH / med * 1e3), flush=True)
+            prof[amp] = profile_step(step, op_types, 0, med)
+        del scope
+        torch.cuda.empty_cache()
+    amp_err = max(abs(a - b) for a, b in zip(losses[True], losses[False]))
+    print("sequence: bf16 AMP losses against f32 from the same state: max "
+          "abs difference %.4g (atol %g)" % (amp_err, SEQ_AMP_LOSS_ATOL),
+          flush=True)
+    if amp_err > SEQ_AMP_LOSS_ATOL or not np.isfinite(losses[True]).all() \
+            or not np.isfinite(losses[False]).all():
+        raise SystemExit("chip_smoke: the lstm's bf16 AMP steps disagree "
+                         "with its f32 steps")
+
+    # the lstm op alone at the path's shape: the first layer's input
+    from paddle_tpu_torch.ops.registry import get_op_info
+
+    scope = fluid.Scope()
+    io.params_from_numpy(scope, trained, exe.device)
+    words = dev_feed["words"]
+    with torch.no_grad():
+        emb = get_op_info("lookup_table").kernel(
+            None, {"Ids": [words], "W": [scope.get("embedding_0.w_0")]},
+            {"padding_idx": -1})["Out"][0]
+        x = emb.with_values(emb.values @ scope.get("fc_0.w_0")
+                            + scope.get("fc_0.w_1"))
+    rows = int(words.nvalid)
+    for amp in (False, True):
+        tag = "bf16" if amp else "f32"
+        xa = x.with_values(x.values.to(torch.bfloat16)) if amp else x
+        t = lstm_op_times(exe, xa, scope.get("lstm_0.w_0"),
+                          scope.get("lstm_0.w_1"), amp)
+        itemsize = 2 if amp else 4
+        peak = BF16_FLOPS if amp else F32_CORE_FLOPS
+        fb, fby = lstm_bound(SEQ_BATCH, SEQ_LEN, rows, SEQ_HID, itemsize,
+                             peak)
+        gb, gby = lstm_bound(SEQ_BATCH, SEQ_LEN, rows, SEQ_HID, itemsize,
+                             peak, grad=True)
+
+        def fmt(v):
+            return "not measured" if v is None else "%.4f" % v
+
+        print("sequence: lstm op %s at [%d x %d steps, 4 x %d]: forward "
+              "device %s ms (graph replay), eager %.4f ms, bound %.4f ms "
+              "by %s; grad (generic vjp) device %s ms, eager %.4f ms, "
+              "bound %.4f ms by %s; cuDNN LSTM (no peepholes, its own "
+              "input product; a different function) forward %s ms, "
+              "forward and backward %s ms"
+              % (tag, SEQ_BATCH, steps_run, SEQ_HID, fmt(t["forward"]),
+                 t["plain"], fb, fby, fmt(t["grad"]), t["plain_grad"], gb,
+                 gby, fmt(t["cudnn"]), fmt(t["cudnn_grad"])), flush=True)
+        p = prof.get(amp)
+        if p is not None:
+            print("sequence: lstm in the profiled %s step: lstm %.3f device "
+                  "ms, %.3f host ms, %d ops; lstm_grad %.3f device ms "
+                  "(its recompute; the backward half runs on autograd's "
+                  "thread), %.3f host ms, %d ops"
+                  % ((tag,) + p["ops"].get("lstm", (0, 0, 0))
+                     + p["ops"].get("lstm_grad", (0, 0, 0))), flush=True)
+    del scope
+
+    # one forward of the recurrence with synchronizing calls made errors
+    infer = io.prune_program(main, [probs])
+    scope = fluid.Scope()
+    io.params_from_numpy(scope, trained, exe.device)
+    exe.run(infer, feed=dev_feed, fetch_list=[probs], scope=scope,
+            return_numpy=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = exe.run(infer, feed={"words": dev_feed["words"]},
+                      fetch_list=[probs], scope=scope,
+                      return_numpy=False)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (SEQ_BATCH, SEQ_CLASSES) \
+            or not torch.isfinite(out).all():
+        raise SystemExit("chip_smoke: the lstm forward gave %s"
+                         % (tuple(out.shape),))
+    print("sequence: no synchronizing call in one forward of the %d-step "
+          "recurrence (%d sequences)" % (steps_run, SEQ_BATCH), flush=True)
+    del scope
+
+    # the inference export served with ragged requests
+    rs = np.random.RandomState(SEED + 70)
+    served = lstm_sequences(rs.randint(1, SEQ_LEN + 1, size=SEQ_SERVE),
+                            SEED + 71)
+    requests = [served[0:1], served[1:3], served[3:6]]
+    with tempfile.TemporaryDirectory() as tmp:
+        with fluid.scope_guard(params_scope(trained, "cpu")):
+            io.save_inference_model(
+                tmp, ["words"], [probs], fluid.Executor(fluid.CPUPlace()),
+                main, bucket_hints={"batch_buckets": SEQ_BUCKETS})
+        engine = InferenceEngine.from_saved_model(tmp)
+        if engine.place.device().type != "cuda":
+            raise SystemExit("chip_smoke: the engine is not on the card")
+        server = InferenceServer(engine, ServerConfig(
+            port=0, max_batch=SEQ_SERVE, max_wait_ms=50.0, warmup=True))
+        try:
+            t0 = time.perf_counter()
+            server.start()
+            print("sequence: server up with warmup of %d buckets in %.2f s"
+                  % (len(SEQ_BUCKETS), time.perf_counter() - t0),
+                  flush=True)
+            host, port = server.address
+            url = "http://%s:%d/v1/infer" % (host, port)
+            replies = [None] * len(requests)
+
+            def client(i):
+                replies[i] = _post(url, {"inputs": {"words": [
+                    s.tolist() for s in requests[i]]}})
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(requests))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            if any(r is None for r in replies):
+                raise SystemExit("chip_smoke: an HTTP request got no reply")
+            print("sequence: %d requests of %s sequences (lengths %s) "
+                  "answered in %d batch(es); latencies %s ms"
+                  % (len(requests), [len(r) for r in requests],
+                     [[len(s) for s in r] for r in requests],
+                     server.metrics.batch_occupancy.count,
+                     ", ".join("%.1f" % r[2] for r in replies)), flush=True)
+            t0 = time.perf_counter()
+            out16 = engine.run({"words": served})[0]
+            print("sequence: engine.run of %d sequences (lengths %d..%d) in "
+                  "%.1f ms" % (SEQ_SERVE, min(map(len, served)),
+                               max(map(len, served)),
+                               (time.perf_counter() - t0) * 1e3),
+                  flush=True)
+        finally:
+            server.shutdown()
+        t0 = time.perf_counter()
+        cpu = InferenceEngine.from_saved_model(
+            tmp, place=fluid.CPUPlace(),
+            config=EngineConfig(batch_buckets=None))
+        ref = cpu.run({"words": served})[0]
+        print("sequence: CPU reference of %d sequences in %.1f s"
+              % (SEQ_SERVE, time.perf_counter() - t0), flush=True)
+    errs, lo = [], 0
+    fetch = engine.fetch_names[0]
+    for (status, body, _), req in zip(replies, requests):
+        if status != 200:
+            raise SystemExit("chip_smoke: HTTP %d: %s" % (status, body))
+        got = np.asarray(body["outputs"][fetch], np.float32)
+        if got.shape != (len(req), SEQ_CLASSES):
+            raise SystemExit("chip_smoke: reply shape %s" % (got.shape,))
+        errs.append(float(np.abs(got - ref[lo:lo + len(req)]).max()))
+        lo += len(req)
+    if out16.shape != (SEQ_SERVE, SEQ_CLASSES) \
+            or not np.isfinite(out16).all():
+        raise SystemExit("chip_smoke: engine.run gave %s" % (out16.shape,))
+    errs.append(float(np.abs(out16 - ref).max()))
+    print("sequence: served probabilities max_abs_err against the CPU "
+          "plain path: HTTP requests %s, engine.run %.3g (atol %g)"
+          % (", ".join("%.3g" % e for e in errs[:-1]), errs[-1],
+             SEQ_PROB_ATOL), flush=True)
+    if max(errs) > SEQ_PROB_ATOL:
+        raise SystemExit("chip_smoke: served probabilities disagree with "
+                         "the CPU plain path")
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -2199,13 +2686,16 @@ def main():
     resnet_launches = phase_resnet()
     decode_launches = phase_decode()
     image_launches = phase_image()
+    sequence_launches = phase_sequence()
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
-    # ResNet-50 and the image models run no hand-written kernel: conv2d
-    # is cuDNN and the rest ATen, as the JAX package leaves them to XLA
+    # ResNet-50, the image models and the lstm run no hand-written
+    # kernel: conv2d is cuDNN, the products cuBLAS and the rest ATen, as
+    # the JAX package leaves them to XLA
     for what, got in (("ResNet-50", resnet_launches),
-                      ("the image models", image_launches)):
+                      ("the image models", image_launches),
+                      ("the lstm", sequence_launches)):
         if any(got.values()):
             raise SystemExit("chip_smoke: %s launched %s"
                              % (what, json.dumps(got)))
@@ -2221,7 +2711,7 @@ def main():
         name = route_entry(route)
         total = sum(c.get(name, 0) for c in (
             launches, train_launches, wide_launches, resnet_launches,
-            decode_launches, image_launches))
+            decode_launches, image_launches, sequence_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

@@ -1,0 +1,198 @@
+"""Ragged (LoD) tensors over torch tensors.
+
+Counterpart of paddle_tpu/core/ragged.py (reference: paddle/framework/
+lod_tensor.h:43-58, a dense tensor plus per-level offset vectors).  A
+`RaggedTensor` holds the flat `values` [T, ...] of every sequence of its
+last level, one int32 offset tensor per level in `row_splits` (the
+reference's LoD offsets, outer to inner), `nvalid`, an int32 scalar
+tensor counting the valid rows of `values` (rows past it pad the flat
+length to a bucket), and `max_seqlen`, a static Python int bounding any
+one sequence's length.  Kernels reach the structure through tensors on
+the values' device (`segment_ids`, `valid_mask`, `seq_lengths`) and the
+host ints `nseq` and `max_seqlen`, so no kernel waits on the device to
+learn a shape.
+
+`RaggedTensor` is a torch pytree node (its tensors the leaves, its lod
+level and `max_seqlen` the context), so `torch.utils._pytree` maps over
+it, as the executor does to move a fed value to the card.
+`torch.func.vjp` cannot take one as a primal (its int leaves cannot
+require grad), so the generic grad differentiates its values and
+rebuilds it around them (ops/registry.py).  `SelectedRows` waits
+(ROADMAP A7).
+"""
+
+import numpy as np
+import torch
+import torch.utils._pytree as pytree
+
+from .types import guard_int64_narrowing, tensor_from_numpy
+
+__all__ = ["RaggedTensor", "bucket_max_seqlen", "host_copy",
+           "ragged_to_sequences", "slice_ragged"]
+
+
+def bucket_max_seqlen(lengths):
+    """Static per-sequence length bound: the longest of `lengths`
+    rounded up to the next power of two (at least 8), so the number of
+    distinct padded extents stays logarithmic in the length."""
+    m = max([int(x) for x in lengths] or [1])
+    b = 8
+    while b < m:
+        b *= 2
+    return b
+
+
+class RaggedTensor:
+    """values: [T, ...] flat over all sequences of the last level.
+    row_splits: list (outer to inner) of int32 offset tensors, each
+    [N_i + 1].  nvalid: int32 scalar tensor, the valid rows of values
+    (default: the last offset).  max_seqlen: a static Python int bound on
+    any one sequence's length, or None (then a densified time axis must
+    take all T rows)."""
+
+    def __init__(self, values, row_splits, nvalid=None, max_seqlen=None):
+        self.values = values
+        dev = values.device
+        self.row_splits = [torch.as_tensor(rs, dtype=torch.int32,
+                                           device=dev)
+                           for rs in row_splits]
+        if nvalid is None:
+            nvalid = (self.row_splits[-1][-1] if self.row_splits
+                      else values.shape[0])
+        self.nvalid = torch.as_tensor(nvalid, dtype=torch.int32,
+                                      device=dev)
+        self.max_seqlen = None if max_seqlen is None else int(max_seqlen)
+
+    # -- structure ------------------------------------------------------------
+    @property
+    def lod_level(self):
+        return len(self.row_splits)
+
+    def nseq(self, level=0):
+        """The number of sequences at `level` (static)."""
+        return self.row_splits[level].shape[0] - 1
+
+    def last_splits(self):
+        return self.row_splits[-1]
+
+    def lod(self):
+        """A host copy in the reference's LoD format (offset lists)."""
+        return [rs.cpu().tolist() for rs in self.row_splits]
+
+    # -- the kernels' bridge --------------------------------------------------
+    def segment_ids(self, level=-1):
+        """int32 [T]: the sequence (at `level`) of each row of values;
+        padding rows get `nseq`, one past the last, so a segment
+        reduction over nseq segments drops them."""
+        rs = self.row_splits[level]
+        nseq = rs.shape[0] - 1
+        pos = torch.arange(self.values.shape[0], dtype=torch.int32,
+                           device=rs.device)
+        seg = torch.searchsorted(rs, pos, right=True, out_int32=True) - 1
+        return torch.where(pos < self.nvalid, seg.clamp(0, nseq - 1),
+                           nseq).to(torch.int32)
+
+    def valid_mask(self):
+        pos = torch.arange(self.values.shape[0], dtype=torch.int32,
+                           device=self.values.device)
+        return pos < self.nvalid
+
+    def seq_lengths(self, level=-1):
+        rs = self.row_splits[level]
+        return rs[1:] - rs[:-1]
+
+    def with_values(self, values):
+        """The same structure over new values (same lengths, so the
+        `max_seqlen` hint carries over)."""
+        return RaggedTensor(values, self.row_splits, self.nvalid,
+                            max_seqlen=self.max_seqlen)
+
+    def to(self, device):
+        """Every tensor moved to `device`."""
+        return pytree.tree_map(lambda t: t.to(device), self)
+
+    # -- construction ---------------------------------------------------------
+    @staticmethod
+    def from_sequences(seqs, dtype=None, bucket=None):
+        """Lod level 1 from a list of per-sequence arrays (or lists), as
+        CPU tensors of their execution dtype (int64 ids range-checked,
+        then int32).  `bucket` pads the flat length up to a multiple of
+        it, at least one bucket."""
+        arrs = [np.asarray(s, dtype=dtype) for s in seqs]
+        lengths = [a.shape[0] for a in arrs]
+        splits = np.zeros(len(arrs) + 1, np.int32)
+        np.cumsum(lengths, out=splits[1:])
+        total = int(splits[-1])
+        flat = (np.concatenate(arrs, axis=0) if total > 0 else
+                np.zeros((0,) + tuple(arrs[0].shape[1:]), arrs[0].dtype))
+        if bucket:
+            padded_t = max(bucket,
+                           int(np.ceil(max(total, 1) / bucket)) * bucket)
+            if padded_t > total:
+                flat = np.concatenate(
+                    [flat, np.zeros((padded_t - total,) + flat.shape[1:],
+                                    flat.dtype)], 0)
+        guard_int64_narrowing(flat, "from_sequences")
+        return RaggedTensor(tensor_from_numpy(flat, "cpu"),
+                            [torch.from_numpy(splits)], nvalid=total,
+                            max_seqlen=bucket_max_seqlen(lengths))
+
+    def __repr__(self):
+        return "RaggedTensor(values=%s %s, lod_level=%d, nseq=%d)" % (
+            tuple(self.values.shape), self.values.dtype, self.lod_level,
+            self.nseq(0) if self.row_splits else 0)
+
+
+def host_copy(r):
+    """`r` with every tensor on the CPU and bf16 values widened to f32:
+    a ragged fetch as the executor returns it (numpy holds no bf16)."""
+    values = r.values.detach()
+    if values.dtype == torch.bfloat16:
+        values = values.float()
+    return r.with_values(values).to("cpu")
+
+
+def ragged_to_sequences(r):
+    """The per-sequence value arrays of a lod-level-1 RaggedTensor on
+    the host, its padding rows dropped (the inverse of
+    `RaggedTensor.from_sequences`)."""
+    if r.lod_level != 1:
+        raise ValueError("ragged_to_sequences takes lod_level-1 values; got "
+                         "lod_level=%d" % r.lod_level)
+    r = host_copy(r)
+    splits = r.row_splits[0].numpy()
+    values = r.values.numpy()
+    return [values[splits[i]:splits[i + 1]]
+            for i in range(len(splits) - 1)]
+
+
+def slice_ragged(r, nseq):
+    """The first `nseq` level-0 sequences of a RaggedTensor, as a host
+    copy; the rows past them, padding included, are dropped."""
+    r = host_copy(r)
+    take = int(nseq)
+    out_splits = []
+    for rs in r.row_splits:
+        out_splits.append(rs[:take + 1].clone())
+        take = int(rs[take])
+    return RaggedTensor(r.values[:take].clone(), out_splits, nvalid=take)
+
+
+def _flatten(rt):
+    return ([rt.values] + list(rt.row_splits) + [rt.nvalid],
+            (rt.lod_level, rt.max_seqlen))
+
+
+def _unflatten(children, context):
+    lod_level, max_seqlen = context
+    rt = object.__new__(RaggedTensor)
+    rt.values = children[0]
+    rt.row_splits = list(children[1:1 + lod_level])
+    rt.nvalid = children[1 + lod_level]
+    rt.max_seqlen = max_seqlen
+    return rt
+
+
+pytree.register_pytree_node(
+    RaggedTensor, _flatten, _unflatten,
+    serialized_type_name="paddle_tpu_torch.core.ragged.RaggedTensor")

@@ -26,9 +26,11 @@ import contextlib
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ..core import scope as scope_mod
 from ..core.desc import ProgramDesc
+from ..core.ragged import RaggedTensor, host_copy
 from .framework import Program, Variable, default_main_program
 from ..core.scope import global_scope
 from ..core.types import (guard_int64_narrowing, np_dtype,
@@ -40,7 +42,8 @@ EMPTY = "@EMPTY@"
 RNG_STATE_NAME = "@RNG_STATE@"
 
 __all__ = ["Executor", "Place", "CPUPlace", "CUDAPlace", "ExecContext",
-           "global_scope", "scope_guard", "apply_op", "prepare_feed"]
+           "global_scope", "scope_guard", "apply_op", "prepare_feed",
+           "fetch_to_host"]
 
 
 class Place:
@@ -155,11 +158,20 @@ def apply_op(ctx, op_desc):
 
 
 def prepare_feed(block_desc, name, val, device):
-    """A fed value (array or tensor) cast to its var desc's execution
-    dtype and moved to `device` (int64 ids are range-checked before
-    they narrow to int32)."""
+    """A fed value (array, tensor or RaggedTensor) cast to its var
+    desc's execution dtype and moved to `device` (int64 ids are
+    range-checked before they narrow to int32).  A RaggedTensor's values
+    take the cast (int64 values on the host are range-checked first);
+    its splits and `nvalid` move as they are."""
     vd = block_desc.vars.get(name)
     declared = vd.dtype if vd is not None else None
+    if isinstance(val, RaggedTensor):
+        values = val.values
+        if values.dtype == torch.int64 and values.device.type == "cpu":
+            guard_int64_narrowing(values.numpy(), name)
+        values = prepare_feed(block_desc, name, values, device)
+        return pytree.tree_map(lambda t: t.to(device),
+                               val).with_values(values)
     if isinstance(val, torch.Tensor):
         if declared is not None:
             val = val.to(torch_dtype(declared))
@@ -171,6 +183,16 @@ def prepare_feed(block_desc, name, val, device):
     if target == np.int32:
         guard_int64_narrowing(arr, name)
     return tensor_from_numpy(arr.astype(target, copy=False), device)
+
+
+def fetch_to_host(t):
+    """A fetch on the host: a numpy array, or a RaggedTensor of CPU
+    tensors; bf16 values widen to f32 (the fetch contract)."""
+    if isinstance(t, RaggedTensor):
+        return host_copy(t)
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().cpu().numpy()
 
 
 class Executor:
@@ -200,19 +222,14 @@ class Executor:
             scope.set(RNG_STATE_NAME, gen)
         return gen
 
-    @staticmethod
-    def _to_numpy(t):
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.detach().cpu().numpy()
-
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         """Run block 0 of `program` (a Program, its ProgramDesc, or None
         for the default main program) with `feed` {name: array or
-        tensor}; returns the values of `fetch_list` (Variables or names),
-        as numpy arrays or, with return_numpy=False, as tensors on the
-        place's device."""
+        tensor, or a RaggedTensor for a var with a lod level}; returns
+        the values of `fetch_list` (Variables or names), as numpy arrays
+        (a ragged value as a RaggedTensor on the host) or, with
+        return_numpy=False, as they are on the place's device."""
         if program is None:
             program = default_main_program()
         seed = 0
@@ -246,5 +263,5 @@ class Executor:
             # state) resolves from the scope
             outs = [_lookup(ctx, n) for n in fetch_list]
         if return_numpy:
-            return [self._to_numpy(o) for o in outs]
+            return [fetch_to_host(o) for o in outs]
         return outs

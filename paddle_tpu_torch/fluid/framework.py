@@ -9,8 +9,9 @@ the same names, the JAX package's: a program built here equals the JAX
 package's through `to_dict()`.
 
 Shape inference on `append_op` runs the op's kernel on meta tensors
-(`ops.registry.infer_meta`): it sets each output VarDesc's shape and
-dtype, with -1 wherever a dynamic input dim reaches the output.
+(`ops.registry.infer_meta`): it sets each output VarDesc's shape,
+dtype and lod level, with -1 wherever a dynamic input dim reaches the
+output.
 """
 
 import contextlib
@@ -327,7 +328,7 @@ def infer_shape_for_op(block, op_desc):
             metas = []
             for n in names:
                 vd = _var_desc(block, n)
-                metas.append((vd.shape, vd.dtype))
+                metas.append((vd.shape, vd.dtype, vd.lod_level))
             ins_meta[slot] = metas
         outs = op_registry.infer_meta(op_desc.type, ins_meta, op_desc.attrs)
     except KeyError as err:
@@ -341,7 +342,7 @@ def infer_shape_for_op(block, op_desc):
                 continue
             vd = _var_desc(block, n)
             vd.shape, vd.dtype = meta[0], canonical_dtype(meta[1])
-            vd.lod_level = 0
+            vd.lod_level = meta[2]
             vd.type = VarType.DENSE_TENSOR
 
 

@@ -10,11 +10,14 @@ bfloat16 value is stored by its bits as a 2-byte void array, as numpy
 holds the JAX package's bfloat16 arrays.  An export directory adds
 `__model__`, a JSON object {program, feed_names, fetch_names,
 feed_meta[, bucket_hints]}.  Either package loads what the other wrote.
+A ragged (LoD) value is saved as the JAX side saves one,
+`np.savez(__ragged__=1, values=..., nvalid=..., rs0=..., rs1=...)`
+with one `rs<i>` per level of row splits, and loads back as a
+RaggedTensor (without a `max_seqlen` hint, as on the JAX side).
 The `save_*`/`load_*` functions take the executor, as the JAX side's
 do, and read or write the global scope (`scope_guard` sets it); values
-load onto the executor's device.  Ragged (LoD) values raise: they come
-with ROADMAP A7.  Parameters cross between the two packages as numpy
-arrays too (`params_from_numpy`).  The structural verifier stays on the
+load onto the executor's device.  Parameters cross between the two
+packages as numpy arrays too (`params_from_numpy`).  The structural verifier stays on the
 JAX side for now.
 """
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.desc import ProgramDesc
+from ..core.ragged import RaggedTensor
 from ..core.scope import Scope, global_scope
 from ..core.types import np_dtype, tensor_from_numpy
 from .framework import (Parameter, Program, Variable,
@@ -52,16 +56,17 @@ def is_persistable(var):
     return var.persistable
 
 
-def _ragged(name):
-    return NotImplementedError(
-        "%r is a ragged (LoD) value; ragged variables come with "
-        "ROADMAP A7" % name)
-
-
 def host_array(name, value):
-    """A copy of `value` (a tensor or array) on the host, as the numpy
-    array its file holds: bfloat16 as its bits in a V2 array.  Later
-    in-place updates of `value` do not reach the copy."""
+    """A copy of `value` on the host, as its file holds it: a tensor or
+    array as a numpy array, bfloat16 as its bits in a V2 array; a
+    RaggedTensor as {"values", "nvalid", "rs0", ...} of numpy arrays.
+    Later in-place updates of `value` do not reach the copy."""
+    if isinstance(value, RaggedTensor):
+        arrays = {"values": host_array(name, value.values),
+                  "nvalid": host_array(name, value.nvalid)}
+        for i, rs in enumerate(value.row_splits):
+            arrays["rs%d" % i] = host_array(name, rs)
+        return arrays
     if isinstance(value, torch.Tensor):
         value = value.detach()
         if value.dtype == torch.bfloat16:
@@ -70,19 +75,30 @@ def host_array(name, value):
         return value.to("cpu", copy=True).numpy()
     if isinstance(value, np.ndarray):
         return value.copy()
-    raise _ragged(name)
+    raise TypeError("%r: cannot save a %s" % (name, type(value).__name__))
 
 
 def _save_one(dirname, name, value):
-    """Write `<dirname>/<name>.npz` (the JAX side's `_save_one`)."""
-    np.savez(_var_path(dirname, name), __ragged__=0,
-             values=host_array(name, value))
+    """Write `<dirname>/<name>.npz` (the JAX side's `_save_one`); `value`
+    may be what `host_array` gave."""
+    if not isinstance(value, dict):
+        value = host_array(name, value)
+    if isinstance(value, dict):
+        np.savez(_var_path(dirname, name), __ragged__=1, **value)
+    else:
+        np.savez(_var_path(dirname, name), __ragged__=0, values=value)
+
+
+def _from_file(arr):
+    if arr.dtype == _BF16_BYTES:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return tensor_from_numpy(arr, "cpu")
 
 
 def _load_one(dirname, name, missing_ok=False, fileobj=None):
     """The value saved as `name` under `dirname` (or read from the open
-    file `fileobj`), as a CPU tensor of its execution dtype; None when
-    absent and `missing_ok`."""
+    file `fileobj`), as a CPU tensor of its execution dtype, or a
+    RaggedTensor of CPU tensors; None when absent and `missing_ok`."""
     if fileobj is None:
         fileobj = _var_path(dirname, name) + ".npz"
         if not os.path.exists(fileobj):
@@ -90,12 +106,14 @@ def _load_one(dirname, name, missing_ok=False, fileobj=None):
                 return None
             raise IOError("no saved var %r under %s" % (name, dirname))
     with np.load(fileobj) as data:
-        if int(data["__ragged__"]) != 0:
-            raise _ragged(name)
-        arr = data["values"].copy()
-    if arr.dtype == _BF16_BYTES:
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return tensor_from_numpy(arr, "cpu")
+        values = _from_file(data["values"].copy())
+        if int(data["__ragged__"]) == 0:
+            return values
+        splits = []
+        while "rs%d" % len(splits) in data:
+            splits.append(torch.from_numpy(
+                data["rs%d" % len(splits)].astype(np.int32)))
+        return RaggedTensor(values, splits, nvalid=int(data["nvalid"]))
 
 
 def _names_of(main_program, vars, predicate):

@@ -17,7 +17,8 @@ __all__ = [
     "softmax_with_cross_entropy", "conv2d", "pool2d", "batch_norm",
     "layer_norm", "split", "flash_attention", "cached_attention",
     "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "dropout",
-    "lrn", "accuracy",
+    "lrn", "accuracy", "dynamic_lstm", "sequence_pool",
+    "sequence_first_step", "sequence_last_step",
 ]
 
 
@@ -373,3 +374,63 @@ def accuracy(input, label, k=1, correct=None, total=None, **kwargs):
         outputs={"Accuracy": [acc_out], "Correct": [correct],
                  "Total": [total]})
     return acc_out
+
+
+def dynamic_lstm(input, size, param_attr=None, bias_attr=None,
+                 use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", **kwargs):
+    """Dynamic-length LSTM over ragged input (reference: layers/nn.py:249
+    dynamic_lstm, lstm_op.cc).  `input` is the 4*hidden projection (from
+    fc); this layer adds the recurrent weight [hidden, 4*hidden], the
+    bias [1, 4*hidden] (with peepholes [1, 7*hidden]) and the `lstm`
+    op.  Returns (hidden, cell), ragged as the input."""
+    helper = LayerHelper("lstm", param_attr=param_attr,
+                         bias_attr=bias_attr, **kwargs)
+    size = size // 4
+    weight = helper.create_parameter(
+        helper.param_attr, shape=[size, 4 * size], dtype=dtype)
+    bias_size = [1, 7 * size] if use_peepholes else [1, 4 * size]
+    bias = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                   shape=bias_size, dtype=dtype,
+                                   is_bias=True)
+    hidden = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    cell = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    batch_gate = helper.create_tmp_variable(dtype, stop_gradient=True,
+                                            lod_level=input.lod_level)
+    batch_cell_pre_act = helper.create_tmp_variable(
+        dtype, stop_gradient=True, lod_level=input.lod_level)
+    helper.append_op(
+        type="lstm",
+        inputs={"Input": [input], "Weight": [weight], "Bias": [bias]},
+        outputs={"Hidden": [hidden], "Cell": [cell],
+                 "BatchGate": [batch_gate],
+                 "BatchCellPreAct": [batch_cell_pre_act]},
+        attrs={"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+               "gate_activation": gate_activation,
+               "cell_activation": cell_activation,
+               "candidate_activation": candidate_activation})
+    return hidden, cell
+
+
+def sequence_pool(input, pool_type, **kwargs):
+    """One row per sequence of a ragged input (reference:
+    sequence_pool_op.cc): `pool_type` sum, average, sqrt, max, last or
+    first."""
+    helper = LayerHelper("sequence_pool", input=input, **kwargs)
+    out = helper.create_tmp_variable(input.dtype)
+    max_index = helper.create_tmp_variable(dtype="int32",
+                                           stop_gradient=True)
+    helper.append_op(
+        type="sequence_pool", inputs={"X": [input]},
+        outputs={"Out": [out], "MaxIndex": [max_index]},
+        attrs={"pooltype": pool_type.upper()})
+    return out
+
+
+def sequence_first_step(input, **kwargs):
+    return sequence_pool(input, "first", **kwargs)
+
+
+def sequence_last_step(input, **kwargs):
+    return sequence_pool(input, "last", **kwargs)

@@ -41,7 +41,7 @@ def cast(x, dtype, **kwargs):
 
 
 def concat(input, axis=0, **kwargs):
-    """The inputs joined along `axis` (dense; ragged inputs come with
+    """The inputs joined along `axis` (dense; ragged inputs wait with
     ROADMAP A7).  The output's dtype is inferred, as on the JAX side."""
     helper = LayerHelper("concat", **kwargs)
     out = helper.create_tmp_variable(helper.input_dtype)

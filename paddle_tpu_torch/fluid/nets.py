@@ -3,8 +3,8 @@
 Counterpart of paddle_tpu/fluid/nets.py `simple_img_conv_pool` and
 `img_conv_group` (reference: python/paddle/v2/fluid/nets.py): graph
 builders over conv2d, batch_norm, dropout and pool2d, appending the same
-ops as the JAX package's.  The sequence nets wait for ragged inputs
-(ROADMAP A7).
+ops as the JAX package's.  `sequence_conv_pool` waits for
+`sequence_conv` (ROADMAP A7).
 """
 
 from . import layers

@@ -13,3 +13,4 @@ from . import loss  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import random  # noqa: F401
 from . import metrics  # noqa: F401
+from . import sequence  # noqa: F401

@@ -2,12 +2,13 @@
 
 Counterpart of paddle_tpu/ops/activation.py (reference:
 activation_op.cc, softmax_op.cc).  Each unary activation is one torch
-expression on X; grads come from the generic vjp.
+expression on X (on its values when X is ragged, the result ragged over
+X's splits); grads come from the generic vjp.
 """
 
 import torch
 
-from .registry import register_op
+from .registry import like, register_op, values_of
 
 UNARY = {
     "relu": torch.relu,
@@ -24,7 +25,7 @@ UNARY = {
 def _unary(name, fn):
     @register_op(name)
     def kernel(ctx, ins, attrs):
-        return {"Out": [fn(ins["X"][0])]}
+        return {"Out": [like(ins["X"][0], fn(values_of(ins["X"][0])))]}
 
     kernel.__name__ = name
     return kernel
@@ -38,7 +39,9 @@ for _name, _fn in UNARY.items():
 def softmax(ctx, ins, attrs):
     """Softmax over the last dim; a bf16 input exponentiates in f32 and
     gives its probabilities back in bf16."""
-    x = ins["X"][0]
+    x = values_of(ins["X"][0])
     if x.dtype == torch.bfloat16:
-        return {"Out": [torch.softmax(x.float(), dim=-1).to(x.dtype)]}
-    return {"Out": [torch.softmax(x, dim=-1)]}
+        out = torch.softmax(x.float(), dim=-1).to(x.dtype)
+    else:
+        out = torch.softmax(x, dim=-1)
+    return {"Out": [like(ins["X"][0], out)]}

@@ -7,10 +7,11 @@ is upcast first, as on the JAX side.
 
 import torch
 
-from .registry import register_op
+from .registry import like, register_op, values_of
 
 
 def _f32(x):
+    x = values_of(x)
     return x.float() if x.dtype == torch.bfloat16 else x
 
 
@@ -33,16 +34,17 @@ def _nan_where_invalid(valid, vals):
 def cross_entropy(ctx, ins, attrs):
     """Y [N, 1] = -log(X[label] + 1e-8) of probabilities X [N, C] against
     hard labels (any shape with N entries), or -sum(label * log(X +
-    1e-8)) against soft labels [N, C]."""
+    1e-8)) against soft labels [N, C].  A ragged X gives a ragged Y
+    over its splits (a loss per row)."""
     x = _f32(ins["X"][0])
-    label = ins["Label"][0]
+    label = values_of(ins["Label"][0])
     eps = 1e-8
     if attrs.get("soft_label", False):
-        return {"Y": [-(_f32(label) * torch.log(x + eps))
-                      .sum(dim=-1, keepdim=True)]}
-    ids, valid = _hard_ids(label, x.shape[-1])
-    return {"Y": [_nan_where_invalid(valid,
-                                     -torch.log(x.gather(-1, ids) + eps))]}
+        y = -(_f32(label) * torch.log(x + eps)).sum(dim=-1, keepdim=True)
+    else:
+        ids, valid = _hard_ids(label, x.shape[-1])
+        y = _nan_where_invalid(valid, -torch.log(x.gather(-1, ids) + eps))
+    return {"Y": [like(ins["X"][0], y)]}
 
 
 @register_op("softmax_with_cross_entropy", nondiff_inputs=("Label",))

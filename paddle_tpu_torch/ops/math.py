@@ -6,13 +6,16 @@ elementwise_op_function.h, mean_op.cc, reduce_op.cc).  Products go to torch.matm
 with TF32 off (see the package docstring) a float32 product runs in full
 float32 on the card, as on the JAX side.  Under the bf16 policy
 (ops/amp_util.py) `mul` runs its product in bf16 and the elementwise
-ops keep a bf16 activation bf16.
+ops keep a bf16 activation bf16.  `mul` and the elementwise ops over a
+ragged X work on its rows and give X's structure to the result;
+`mean` of a ragged X covers its valid rows only.
 """
 
 import torch
 
+from ..core.ragged import RaggedTensor
 from .amp_util import amp_harmonize, amp_result, mxu_operands
-from .registry import dense, register_op
+from .registry import dense, like, register_op, values_of
 
 
 def _flatten2d(x, num_col_dims):
@@ -26,13 +29,14 @@ def _flatten2d(x, num_col_dims):
 
 @register_op("mul")
 def mul(ctx, ins, attrs):
-    x, y = ins["X"][0], ins["Y"][0]
+    x, y = values_of(ins["X"][0]), values_of(ins["Y"][0])
     xn = int(attrs.get("x_num_col_dims", 1))
     yn = int(attrs.get("y_num_col_dims", 1))
     dtype = torch.promote_types(x.dtype, y.dtype)
     x2, y2 = mxu_operands(_flatten2d(x, xn), _flatten2d(y, yn))
     out = amp_result(torch.matmul(x2, y2), dtype)
-    return {"Out": [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
+    out = out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))
+    return {"Out": [like(ins["X"][0], out)]}
 
 
 def _bcast_y(x, y, axis):
@@ -48,8 +52,10 @@ def _bcast_y(x, y, axis):
 def _elementwise(name, fn):
     @register_op(name)
     def kernel(ctx, ins, attrs):
-        x, y = amp_harmonize(ins["X"][0], ins["Y"][0])
-        return {"Out": [fn(x, _bcast_y(x, y, attrs.get("axis", -1)))]}
+        x, y = amp_harmonize(values_of(ins["X"][0]),
+                             values_of(ins["Y"][0]))
+        out = fn(x, _bcast_y(x, y, attrs.get("axis", -1)))
+        return {"Out": [like(ins["X"][0], out)]}
 
     kernel.__name__ = name
     return kernel
@@ -67,10 +73,19 @@ _elementwise("elementwise_pow", torch.pow)
 @register_op("mean")
 def mean(ctx, ins, attrs):
     """The mean of all of X as a shape-(1,) tensor (reference
-    mean_op.cc InferShape -> {1}); a bf16 input accumulates in f32."""
-    x = ins["X"][0]
+    mean_op.cc InferShape -> {1}); a bf16 input accumulates in f32.  A
+    ragged X's mean covers its valid rows: the rows that pad it to a
+    bucket do not count."""
+    xr = ins["X"][0]
+    x = values_of(xr)
     if x.dtype == torch.bfloat16:
         x = x.float()
+    if isinstance(xr, RaggedTensor):
+        rows = x.reshape(x.shape[0], -1)
+        mask = xr.valid_mask().to(rows.dtype)
+        total = (rows * mask[:, None]).sum()
+        denom = xr.nvalid.to(rows.dtype) * rows.shape[1]
+        return {"Out": [(total / denom.clamp(min=1)).reshape(1)]}
     return {"Out": [x.mean().reshape(1)]}
 
 
@@ -100,7 +115,7 @@ def _reduce(name, fn, acc_f32=False):
     shape (1,) or, with `keep_dim`, (1,) * ndim.  Sum and mean
     accumulate a bf16 input in f32 and return f32 (bf16's 8 mantissa
     bits saturate after a few hundred addends); max and min are exact in
-    any dtype.  Ragged inputs (their row masks) come with ROADMAP A7."""
+    any dtype.  Ragged inputs (their row masks) wait with ROADMAP A7."""
 
     @register_op(name)
     def kernel(ctx, ins, attrs):

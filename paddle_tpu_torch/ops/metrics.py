@@ -1,7 +1,7 @@
 """Metric op kernels: `accuracy`.
 
 Counterpart of paddle_tpu/ops/metrics.py (reference: accuracy_op.cc),
-dense inputs only: ragged (LoD) ones come with ROADMAP A7.
+dense inputs only: ragged (LoD) ones wait with ROADMAP A7.
 """
 
 import torch

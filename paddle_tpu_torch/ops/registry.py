@@ -13,18 +13,26 @@ device, which carry a shape and a dtype and no values.  An op whose
 kernel cannot run there (one that reads values, or launches a CUDA
 kernel on `data_ptr()`) registers an `infer_shape` stand-in instead: a
 function of the same (ins, attrs) over meta tensors.
+
+Ragged (LoD) values are `core.ragged.RaggedTensor`s.  A kernel that
+takes them reads `values_of(x)` and gives a ragged input's structure to
+its output with `like(x, out)`; a kernel that does not yet calls
+`dense(x, op_type)`, which refuses a ragged value by name.  The generic
+grad of a ragged input is ragged with the input's splits, as on the JAX
+side.
 """
 
 import contextlib
 
 import torch
 
+from ..core.ragged import RaggedTensor
 from ..core.types import GRAD_SUFFIX
 
 __all__ = ["OpInfo", "register_op", "register_grad_kernel", "get_op_info",
            "has_op", "registered_ops", "is_grad_op_type",
            "forward_type_of_grad", "run_generic_grad", "span",
-           "infer_meta", "dense"]
+           "infer_meta", "dense", "values_of", "like"]
 
 
 def span(name):
@@ -37,13 +45,26 @@ def span(name):
 
 
 def dense(x, op_type):
-    """`x` if it is a dense tensor; a ragged (LoD) value raises
-    NotImplementedError: ragged inputs come with ROADMAP A7."""
+    """`x` if it is a dense tensor.  Anything else (a RaggedTensor)
+    raises NotImplementedError: ragged inputs to the ops off the
+    stacked-LSTM path wait with ROADMAP A7."""
     if not isinstance(x, torch.Tensor):
         raise NotImplementedError(
-            "%s: ragged (LoD) inputs come with ROADMAP A7, got %s"
+            "%s: ragged (LoD) inputs to this op wait with ROADMAP A7 "
+            "(ragged inputs to the ops off the stacked-LSTM path), got %s"
             % (op_type, type(x).__name__))
     return x
+
+
+def values_of(x):
+    """A RaggedTensor's flat values; a dense tensor (or None) as is."""
+    return x.values if isinstance(x, RaggedTensor) else x
+
+
+def like(x, out):
+    """`out` with the structure of `x`: ragged over x's splits when x is
+    ragged, else `out` itself."""
+    return x.with_values(out) if isinstance(x, RaggedTensor) else out
 
 
 class OpInfo:
@@ -123,6 +144,9 @@ def forward_type_of_grad(type):
 
 
 def _differentiable(v):
+    """A float tensor, or a RaggedTensor with float values (its values
+    are what the vjp differentiates)."""
+    v = values_of(v)
     return isinstance(v, torch.Tensor) and v.is_floating_point()
 
 
@@ -138,7 +162,10 @@ def run_generic_grad(ctx, fwd_type, ins, attrs):
       ins["OG@SLOT"]  : grads of forward outputs (None where absent)
     An output grad is cast and reshaped to its output's dtype and shape.
     Returns {"SLOT@GRAD": [...]} for the differentiable forward input
-    slots: None where an input is not a float tensor, else its grad."""
+    slots: None where an input is not a float tensor, else its grad.  A
+    ragged input is differentiated through its values, rebuilt around
+    the vjp's values in the forward; its grad is ragged with its splits.
+    A ragged output's cotangent is the values of its grad."""
     info = get_op_info(fwd_type)
     if info.uses_rng:
         raise RuntimeError(
@@ -153,7 +180,7 @@ def run_generic_grad(ctx, fwd_type, ins, attrs):
 
     # the vjp differentiates float tensors of differentiable slots; the
     # rest (nondiff slots, integer ids, absent inputs) pass through
-    diff = {slot: [v for v in vals if _differentiable(v)]
+    diff = {slot: [values_of(v) for v in vals if _differentiable(v)]
             for slot, vals in fwd_in.items()
             if slot not in info.nondiff_inputs}
     out_keys = []
@@ -163,7 +190,8 @@ def run_generic_grad(ctx, fwd_type, ins, attrs):
         for slot, vals in fwd_in.items():
             if slot in dpart:
                 it = iter(dpart[slot])
-                vals = [next(it) if _differentiable(v) else v for v in vals]
+                vals = [like(v, next(it)) if _differentiable(v) else v
+                        for v in vals]
             merged[slot] = vals
         outs = info.kernel(ctx, merged, attrs)
         out_keys.clear()
@@ -172,7 +200,7 @@ def run_generic_grad(ctx, fwd_type, ins, attrs):
             for i, v in enumerate(vals):
                 if _differentiable(v):
                     out_keys.append((slot, i))
-                    flat.append(v)
+                    flat.append(values_of(v))
         return tuple(flat)
 
     with span("recompute"):
@@ -185,7 +213,7 @@ def run_generic_grad(ctx, fwd_type, ins, attrs):
         if g is None:
             cots.append(torch.zeros_like(p))
         else:
-            g = g.to(p.dtype)
+            g = values_of(g).to(p.dtype)
             cots.append(g.reshape(p.shape) if g.shape != p.shape else g)
     (grads,) = vjp_fn(tuple(cots))
 
@@ -193,7 +221,7 @@ def run_generic_grad(ctx, fwd_type, ins, attrs):
     for slot, gs in grads.items():
         it = iter(gs)
         result[slot + GRAD_SUFFIX] = [
-            next(it) if _differentiable(p) else None
+            like(p, next(it)) if _differentiable(p) else None
             for p in fwd_in[slot]]
     return result
 
@@ -220,30 +248,46 @@ class _MetaCtx:
         raise RuntimeError("shape inference has no random stream")
 
 
-def infer_meta(op_type, ins_meta, attrs):
-    """{slot: [(shape, dtype name)]} of the outputs of op `op_type` for
-    inputs `ins_meta` {slot: [(shape, dtype)]}: the kernel (or the op's
-    `infer_shape`) run on meta tensors with every -1 dim substituted,
-    twice where an input has one; a dim that differs between the two
-    runs is -1.  Dtypes are what the inputs execute as (int64 as
-    int32), so the result is what the op gives at run time."""
+def _meta_value(shape, dtype, lod_level, sub):
+    """A meta tensor of `shape` with every -1 dim `sub`; with a lod
+    level, a RaggedTensor over it: `sub` sequences at every level, as on
+    the JAX side, and a `max_seqlen` of 1, so a recurrence runs one step
+    (the time extent of a densified value reaches no output's shape)."""
     from ..core.types import torch_dtype
 
+    values = torch.empty(tuple(sub if d < 0 else d for d in shape),
+                         dtype=torch_dtype(dtype), device=META)
+    if not lod_level:
+        return values
+    splits = [torch.empty((sub + 1,), dtype=torch.int32, device=META)
+              for _ in range(lod_level)]
+    return RaggedTensor(values, splits,
+                        torch.empty((), dtype=torch.int32, device=META),
+                        max_seqlen=1)
+
+
+def infer_meta(op_type, ins_meta, attrs):
+    """{slot: [(shape, dtype name, lod level)]} of the outputs of op
+    `op_type` for inputs `ins_meta` {slot: [(shape, dtype, lod
+    level)]}: the kernel (or the op's `infer_shape`) run on meta
+    tensors (RaggedTensors over them where the lod level is above 0)
+    with every -1 dim substituted, twice where an input has one; a dim
+    that differs between the two runs is -1.  Dtypes are what the inputs
+    execute as (int64 as int32), so the result is what the op gives at
+    run time; a ragged output has the lod level of its RaggedTensor."""
     info = get_op_info(op_type)
     fn = info.infer_shape or (
         lambda ins, a: info.kernel(_MetaCtx(), ins, a))
 
     def run(sub):
-        ins = {slot: [torch.empty(tuple(sub if d < 0 else d
-                                        for d in shape),
-                                  dtype=torch_dtype(dtype), device=META)
-                      for shape, dtype in metas]
+        ins = {slot: [_meta_value(shape, dtype, lod, sub)
+                      for shape, dtype, lod in metas]
                for slot, metas in ins_meta.items()}
         with torch.no_grad():
             return fn(ins, attrs)
 
-    dynamic = any(d < 0 for metas in ins_meta.values()
-                  for shape, _ in metas for d in shape)
+    dynamic = any(lod or any(d < 0 for d in shape)
+                  for metas in ins_meta.values() for shape, _, lod in metas)
     out_a = run(_SUB_A)
     out_b = run(_SUB_B) if dynamic else out_a
     result = {}
@@ -253,8 +297,10 @@ def infer_meta(op_type, ins_meta, attrs):
             if va is None:
                 metas.append(None)
                 continue
+            lod = va.lod_level if isinstance(va, RaggedTensor) else 0
+            va, vb = values_of(va), values_of(vb)
             shape = tuple(int(a) if a == b else -1
                           for a, b in zip(va.shape, vb.shape))
-            metas.append((shape, str(va.dtype).replace("torch.", "")))
+            metas.append((shape, str(va.dtype).replace("torch.", ""), lod))
         result[slot] = metas
     return result

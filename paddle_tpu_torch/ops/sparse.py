@@ -1,13 +1,16 @@
-"""Embedding op kernels: `lookup_table` and its dense grad, dense ids.
+"""Embedding op kernels: `lookup_table` and its dense grad.
 
 Counterpart of paddle_tpu/ops/sparse.py (reference:
-lookup_table_op.cc).  Ragged (LoD) ids and the SelectedRows gradient
-(`is_sparse`) come with ROADMAP A7.
+lookup_table_op.cc).  Ids are dense or ragged (LoD): ragged ids give
+ragged rows over their splits, and the rows that pad them to a bucket
+add nothing to the grad.  The SelectedRows gradient (`is_sparse`) waits
+with ROADMAP A7.
 """
 
 import torch
 
-from .registry import register_grad_kernel, register_op
+from ..core.ragged import RaggedTensor
+from .registry import like, register_grad_kernel, register_op, values_of
 
 
 def _flat_ids(ids, vocab):
@@ -27,9 +30,10 @@ def lookup_table(ctx, ins, attrs):
     reference convention the cached decode step relies on; [B, T] ids
     keep their shape.  Ids index as jnp.take does on the JAX side: a
     negative id counts from the end, and one outside [-vocab, vocab)
-    gives a NaN row rather than a device-side assert."""
+    gives a NaN row rather than a device-side assert.  Ragged ids give
+    ragged rows [T, d] over their splits."""
     w = ins["W"][0]
-    ids = ins["Ids"][0]
+    ids = values_of(ins["Ids"][0])
     vocab = w.shape[0]
     raw, flat, valid = _flat_ids(ids, vocab)
     out = w.index_select(0, flat.clamp(0, vocab - 1))
@@ -41,6 +45,8 @@ def lookup_table(ctx, ins, attrs):
         out = torch.where((raw == padding_idx)[:, None],
                           torch.zeros((), dtype=w.dtype, device=w.device),
                           out)
+    if isinstance(ins["Ids"][0], RaggedTensor):
+        return {"Out": [like(ins["Ids"][0], out)]}
     lead = tuple(ids.shape[:-1]) if ids.dim() > 1 and ids.shape[-1] == 1 \
         else tuple(ids.shape)
     return {"Out": [out.reshape(lead + (w.shape[1],))]}
@@ -52,17 +58,22 @@ def lookup_table_grad(ctx, ins, attrs):
     (`index_add_`; on the card the adds are atomic, so rows hit twice
     sum in a varying order).  Rows of `padding_idx` ids add nothing;
     ids index as in the forward, and those outside [-vocab, vocab) add
-    nothing, as the JAX side's scatter drops them."""
+    nothing, as the JAX side's scatter drops them; so do the rows that
+    pad ragged ids to a bucket."""
     if attrs.get("is_sparse", False):
         raise NotImplementedError(
             "lookup_table_grad with is_sparse=True gives a SelectedRows "
-            "gradient, which comes with ROADMAP A7")
+            "gradient, which waits with ROADMAP A7 (SelectedRows and "
+            "lookup_table(is_sparse=True))")
     w = ins["W"][0]
     vocab = w.shape[0]
-    raw, flat, valid = _flat_ids(ins["Ids"][0], vocab)
-    g = ins["OG@Out"][0].reshape(-1, w.shape[1])
+    ids = ins["Ids"][0]
+    raw, flat, valid = _flat_ids(values_of(ids), vocab)
+    g = values_of(ins["OG@Out"][0]).reshape(-1, w.shape[1])
     padding_idx = int(attrs.get("padding_idx", -1))
     keep = valid & (raw != padding_idx) if padding_idx >= 0 else valid
+    if isinstance(ids, RaggedTensor):
+        keep = keep & ids.valid_mask()
     g = torch.where(keep[:, None], g.to(w.dtype),
                     torch.zeros((), dtype=w.dtype, device=w.device))
     dense = torch.zeros_like(w).index_add_(0, flat.clamp(0, vocab - 1), g)

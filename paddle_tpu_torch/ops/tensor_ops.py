@@ -3,15 +3,16 @@
 
 Counterpart of paddle_tpu/ops/tensor_ops.py (reference:
 fill_constant_op.cc, cast_op.cc, scale_op.cc, split_op.cc,
-concat_op.cc, reshape_op.cc, sum_op.cc, increment_op.cc, top_k_op.cc),
-dense inputs only: ragged (LoD) ones come with ROADMAP A7.
+concat_op.cc, reshape_op.cc, sum_op.cc, increment_op.cc, top_k_op.cc).
+`sum` takes ragged (LoD) inputs; ragged inputs to the others wait with
+ROADMAP A7.
 """
 
 import numpy as np
 import torch
 
 from ..core.types import torch_dtype
-from .registry import dense, register_op
+from .registry import dense, like, register_op, values_of
 
 
 @register_op("fill_constant", stop_gradient_op=True)
@@ -77,13 +78,15 @@ def reshape(ctx, ins, attrs):
 
 @register_op("sum")
 def sum_op(ctx, ins, attrs):
-    """The sum of dense X inputs, added in order (the backward's grad
-    accumulation).  SelectedRows inputs come with ROADMAP A7."""
+    """The sum of the X inputs, added in order (the backward's grad
+    accumulation); ragged over the first input's splits when it is
+    ragged (fc over several sequence inputs).  SelectedRows inputs wait
+    with ROADMAP A7."""
     xs = ins["X"]
-    acc = xs[0]
+    acc = values_of(xs[0])
     for x in xs[1:]:
-        acc = acc + x
-    return {"Out": [acc]}
+        acc = acc + values_of(x)
+    return {"Out": [like(xs[0], acc)]}
 
 
 @register_op("increment")

@@ -1,7 +1,7 @@
 """paddle_tpu_torch.serving — online inference on the card: bucketed
 batch shapes, dynamic micro-batching, bounded admission, metrics.
 
-Counterpart of paddle_tpu/serving for dense feeds:
+Counterpart of paddle_tpu/serving, for dense and ragged (LoD) feeds:
   * shape bucketing — every batch pads up to a configured bucket, so
     the card sees a small, warmable set of shapes
     (`engine.InferenceEngine`);

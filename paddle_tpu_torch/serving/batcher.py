@@ -1,7 +1,9 @@
 """Dynamic micro-batcher: coalesce concurrent requests into one device
 run, split the results back per request.
 
-Counterpart of paddle_tpu/serving/batcher.py, for dense feeds.  One
+Counterpart of paddle_tpu/serving/batcher.py.  Ragged (LoD) requests
+of different lengths merge into one list of sequences (the engine pads
+it), and a ragged fetch splits back into each request's sequences.  One
 consumer thread drains a bounded admission queue: it takes the first
 waiting request, then gathers until `max_batch` rows are assembled or
 `max_wait_ms` has passed since the first.  A request whose deadline has
@@ -17,6 +19,8 @@ import time
 from concurrent.futures import Future
 
 import numpy as np
+
+from ..core.ragged import RaggedTensor, ragged_to_sequences
 
 __all__ = ["BatcherConfig", "MicroBatcher", "ServingError",
            "QueueFullError", "DeadlineExceededError",
@@ -216,21 +220,41 @@ class MicroBatcher:
                 return
 
     def _merge_feeds(self, group):
-        return {name: np.concatenate(
-                    [np.asarray(req.feeds[name],
-                                self.engine._feed_meta[name]["dtype"])
-                     for req in group], axis=0)
-                for name in self.engine.feed_names}
+        """One feed dict of the group's requests in order: dense feeds
+        concatenated, ragged ones (lists of sequences or RaggedTensors)
+        as one list of every request's sequences."""
+        merged = {}
+        for name in self.engine.feed_names:
+            meta = self.engine._feed_meta[name]
+            parts = [req.feeds[name] for req in group]
+            if meta["lod_level"] > 0 or any(
+                    isinstance(p, (RaggedTensor, list, tuple))
+                    for p in parts):
+                merged[name] = [
+                    s for p in parts
+                    for s in (ragged_to_sequences(p)
+                              if isinstance(p, RaggedTensor) else
+                              [np.asarray(x, meta["dtype"]) for x in p])]
+            else:
+                merged[name] = np.concatenate(
+                    [np.asarray(p, meta["dtype"]) for p in parts], axis=0)
+        return merged
 
     @staticmethod
-    def _split_fetch(arr, offsets, group):
-        """Per-request views of one engine fetch value."""
+    def _split_fetch(value, offsets, group):
+        """Per-request views of one engine fetch value: a ragged fetch
+        as a RaggedTensor of each request's sequences."""
+        if isinstance(value, RaggedTensor):
+            seqs = ragged_to_sequences(value)
+            return [RaggedTensor.from_sequences(seqs[off:off + req.batch])
+                    if req.batch else None
+                    for req, off in zip(group, offsets)]
         total = offsets[-1] + group[-1].batch
-        if arr.ndim and arr.shape[0] == total:
-            return [arr[off:off + req.batch]
+        if value.ndim and value.shape[0] == total:
+            return [value[off:off + req.batch]
                     for req, off in zip(group, offsets)]
         # not batch-major (scalar summaries): every request gets it
-        return [arr for _ in group]
+        return [value for _ in group]
 
     def _run_batch(self, group):
         now = time.monotonic()

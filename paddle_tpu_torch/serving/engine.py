@@ -1,13 +1,17 @@
 """Inference engine: a pruned program behind bucket-padded batches.
 
-Counterpart of paddle_tpu/serving/engine.py, for dense feeds.  Every
-batch pads up to a configured batch bucket and the fetches are sliced
-back to the true batch, so the set of shapes the card sees is small and
-known in advance, and `warmup()` runs each of them once at start-up.
-On the JAX side a bucket's first run is an XLA compile; here it is the
-first run of that shape (allocator growth, kernel build and library
-load), and the `serving_compile_cache_*` counters count a bucket's
-first run as its miss.  Ragged (LoD) feeds come with a later slice.
+Counterpart of paddle_tpu/serving/engine.py.  Every batch pads up to a
+configured batch bucket and the fetches are sliced back to the true
+batch, so the set of shapes the card sees is small and known in
+advance, and `warmup()` runs each of them once at start-up.  A ragged
+(LoD) feed, given as a list of per-sequence arrays or as a
+RaggedTensor, pads to the batch bucket with one-row zero sequences and
+its flat rows to a multiple of `token_bucket`, as DataFeeder pads them;
+a ragged fetch comes back as a host RaggedTensor of the true batch's
+sequences.  On the JAX side a bucket's first run is an XLA compile;
+here it is the first run of that shape (allocator growth, kernel build
+and library load), and the `serving_compile_cache_*` counters count a
+bucket's first run as its miss.
 """
 
 import threading
@@ -16,12 +20,16 @@ import time
 import numpy as np
 import torch
 
+from ..core.ragged import (RaggedTensor, ragged_to_sequences,
+                           slice_ragged)
 from ..core.scope import Scope, global_scope
 from ..core.types import np_dtype
 from ..fluid import executor as executor_mod
 from ..fluid import io as fluid_io
+from ..fluid.data_feeder import DEFAULT_RAGGED_BUCKET
 
-__all__ = ["EngineConfig", "InferenceEngine", "DEFAULT_BATCH_BUCKETS"]
+__all__ = ["EngineConfig", "InferenceEngine", "DEFAULT_BATCH_BUCKETS",
+           "slice_ragged"]
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
@@ -29,15 +37,21 @@ DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 class EngineConfig:
     """batch_buckets: ascending batch sizes to pad up to; None disables
     padding (exact-shape execution).  Batches beyond the largest bucket
-    round up to a multiple of it."""
+    round up to a multiple of it.
+    token_bucket: the multiple a ragged feed's flat rows pad up to.
+    warmup_ragged: whether `warmup()` runs a program with ragged feeds
+    (each batch bucket once, with one-row sequences)."""
 
-    def __init__(self, batch_buckets=DEFAULT_BATCH_BUCKETS):
+    def __init__(self, batch_buckets=DEFAULT_BATCH_BUCKETS,
+                 token_bucket=DEFAULT_RAGGED_BUCKET, warmup_ragged=True):
         if batch_buckets is not None:
             batch_buckets = tuple(sorted(set(int(b) for b in
                                              batch_buckets)))
             if not batch_buckets or batch_buckets[0] < 1:
                 raise ValueError("batch_buckets must be positive ints")
         self.batch_buckets = batch_buckets
+        self.token_bucket = int(token_bucket)
+        self.warmup_ragged = bool(warmup_ragged)
 
     def bucket_for(self, batch):
         """Smallest configured bucket >= batch (multiples of the largest
@@ -55,11 +69,14 @@ class InferenceEngine:
     """A pruned inference program (ProgramDesc, fetches by var name)
     wrapped into a bucket-padded callable with its own executor.
 
-    Feeds accepted by `run()` are batch-major numpy arrays or tensors
-    `[B, ...]`.  Returns the fetches as numpy arrays sliced back to the
-    true batch; fetches without a batch-major leading dim pass through.
-    The place defaults to CUDAPlace(0), which raises RuntimeError when
-    no CUDA device is present."""
+    Feeds accepted by `run()` (all batch-major): dense numpy arrays or
+    tensors `[B, ...]`; ragged ones as a list of per-sequence arrays or
+    a lod-level-1 RaggedTensor (rebucketed while padding is on).
+    Returns the fetches sliced back to the true batch: dense ones as
+    numpy arrays, ragged ones as host RaggedTensors of B sequences;
+    fetches without a batch-major leading dim pass through.  The place
+    defaults to CUDAPlace(0), which raises RuntimeError when no CUDA
+    device is present."""
 
     def __init__(self, program, feed_names, fetch_list, place=None,
                  config=None, scope=None, metrics=None, feed_meta=None):
@@ -89,10 +106,6 @@ class InferenceEngine:
                     "lod_level": int(m["lod_level"])}
             else:
                 self._feed_meta[n] = self._var_meta(n)
-            if self._feed_meta[n]["lod_level"] > 0:
-                raise NotImplementedError(
-                    "feed %r is ragged (lod_level %d); ragged feeds are "
-                    "not ported yet" % (n, self._feed_meta[n]["lod_level"]))
 
     @classmethod
     def from_saved_model(cls, dirname, place=None, config=None,
@@ -111,8 +124,11 @@ class InferenceEngine:
                     return_meta=True)
         if config is None:
             hints = extra.get("bucket_hints") or {}
-            config = EngineConfig(batch_buckets=hints.get(
-                "batch_buckets", DEFAULT_BATCH_BUCKETS))
+            config = EngineConfig(
+                batch_buckets=hints.get("batch_buckets",
+                                        DEFAULT_BATCH_BUCKETS),
+                token_bucket=hints.get("token_bucket",
+                                       DEFAULT_RAGGED_BUCKET))
         return cls(program, feed_names, fetch_names, place=place,
                    config=config, scope=scope, metrics=metrics,
                    feed_meta=extra.get("feed_meta"))
@@ -123,9 +139,16 @@ class InferenceEngine:
                 "lod_level": var.lod_level}
 
     # -- padding ------------------------------------------------------------
+    @staticmethod
+    def _batch_of(value):
+        if isinstance(value, RaggedTensor):
+            return value.nseq(0)
+        if hasattr(value, "shape"):
+            return int(value.shape[0])
+        return len(value)
+
     def batch_size(self, feeds):
-        sizes = {n: int(feeds[n].shape[0]) if hasattr(feeds[n], "shape")
-                 else len(feeds[n])
+        sizes = {n: self._batch_of(feeds[n])
                  for n in self.feed_names if n in feeds}
         if not sizes:
             raise ValueError("feeds name none of %s" % self.feed_names)
@@ -140,6 +163,20 @@ class InferenceEngine:
         pad = np.zeros((target - arr.shape[0],) + arr.shape[1:], arr.dtype)
         return np.concatenate([arr, pad], axis=0)
 
+    def _pad_ragged(self, value, target, dtype):
+        """A RaggedTensor of `value`'s sequences and, up to `target`,
+        one-row zero sequences (not empty ones: pooling divides by a
+        length), its flat rows padded to a multiple of token_bucket."""
+        seqs = (ragged_to_sequences(value)
+                if isinstance(value, RaggedTensor) else
+                [np.asarray(s, dtype=dtype) for s in value])
+        trailing = seqs[0].shape[1:] if seqs else ()
+        seqs = [s.astype(dtype, copy=False) for s in seqs] + [
+            np.zeros((1,) + tuple(trailing), dtype)
+            for _ in range(target - len(seqs))]
+        return RaggedTensor.from_sequences(
+            seqs, dtype=dtype, bucket=self.config.token_bucket)
+
     def pad_feeds(self, feeds, true_batch=None):
         """Pad every feed up to the bucket for `true_batch`; returns
         (padded_feed_dict, true_batch, bucket)."""
@@ -152,23 +189,29 @@ class InferenceEngine:
                 raise KeyError("missing feed %r (program expects %s)"
                                % (name, self.feed_names))
             value = feeds[name]
-            if isinstance(value, (list, tuple)):
-                raise NotImplementedError(
-                    "feed %r is a list of sequences; ragged feeds are not "
-                    "ported yet" % name)
+            meta = self._feed_meta[name]
+            ragged = meta["lod_level"] > 0 or isinstance(
+                value, (RaggedTensor, list, tuple))
             if self.config.batch_buckets is None:
+                # exact shapes; a list of sequences still becomes ragged
+                if isinstance(value, (list, tuple)):
+                    value = self._pad_ragged(value, len(value),
+                                             meta["dtype"])
                 padded[name] = value
+            elif ragged:
+                padded[name] = self._pad_ragged(value, bucket,
+                                                meta["dtype"])
             else:
                 padded[name] = self._pad_dense(
-                    np.asarray(value, dtype=self._feed_meta[name]["dtype"]),
-                    bucket)
+                    np.asarray(value, dtype=meta["dtype"]), bucket)
         return padded, true_batch, bucket
 
     @staticmethod
     def _slice_fetch(value, true_batch, bucket):
-        if value.dtype == torch.bfloat16:
-            value = value.float()  # the fetch contract stays f32
-        arr = value.detach().cpu().numpy()
+        if isinstance(value, RaggedTensor):
+            n = value.nseq(0)
+            return slice_ragged(value, true_batch if n == bucket else n)
+        arr = executor_mod.fetch_to_host(value)
         if arr.ndim and arr.shape[0] == bucket and true_batch < bucket:
             return arr[:true_batch]
         return arr
@@ -204,7 +247,8 @@ class InferenceEngine:
     # -- warmup -------------------------------------------------------------
     @staticmethod
     def _synthetic_feed(meta, batch):
-        """Zeros of one bucket's feed shape.
+        """Zeros of one bucket's feed shape; for a ragged feed, `batch`
+        one-row sequences of the row shape (the non-negative dims).
 
         A feed whose exported shape has a negative dim (fluid's
         append_batch_size=True gives [-1, ...]) keeps its non-negative
@@ -217,6 +261,10 @@ class InferenceEngine:
         second batch dim in front of such a shape, so its warmup fails
         on the transformer export."""
         shape = list(meta["shape"])
+        if meta["lod_level"] > 0:
+            row = tuple(s for s in shape if s >= 0)
+            return [np.zeros((1,) + row, meta["dtype"])
+                    for _ in range(batch)]
         if any(s < 0 for s in shape):
             sample = tuple(s for s in shape if s >= 0)
         else:
@@ -227,8 +275,12 @@ class InferenceEngine:
         """Run every batch bucket once with synthetic zero feeds, so no
         in-bucket request is a bucket's first run.  Returns the number
         of buckets warmed; `last_warmup_stats` records buckets and
-        seconds."""
+        seconds.  A program with a ragged feed warms only with
+        `warmup_ragged`."""
         if self.config.batch_buckets is None:
+            return 0
+        if not self.config.warmup_ragged and any(
+                m["lod_level"] > 0 for m in self._feed_meta.values()):
             return 0
         # warmup is start-up cost, not traffic: keep it out of the
         # request-path histograms and hit/miss counters

@@ -3,6 +3,8 @@
 Counterpart of paddle_tpu/serving/server.py.  Endpoints:
   POST /v1/infer   {"inputs": {name: nested lists}, "timeout_ms": n}
                    -> {"outputs": {fetch: nested lists}, "batch": B}
+                   (a ragged input or output is a list of sequences,
+                   each a nested list of its rows)
   GET  /metrics    Prometheus text exposition
   GET  /healthz    {"status": "ok" | "draining", queue depth, totals}
 
@@ -20,6 +22,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..core.ragged import RaggedTensor, ragged_to_sequences
 from .batcher import (BatcherConfig, DeadlineExceededError, MicroBatcher,
                       QueueFullError, ShuttingDownError)
 from .metrics import ServingMetrics
@@ -47,6 +50,14 @@ def _to_list(arr):
     if arr.dtype.kind not in "biuf" or arr.dtype.name == "float16":
         arr = arr.astype(np.float32)
     return arr.tolist()
+
+
+def _jsonable(value):
+    """A fetch as JSON: nested lists, a ragged one as a list of its
+    sequences."""
+    if isinstance(value, RaggedTensor):
+        return [_to_list(s) for s in ragged_to_sequences(value)]
+    return _to_list(value)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -179,8 +190,14 @@ class InferenceServer:
                 raise ValueError("missing input %r (expected %s)"
                                  % (name, self.engine.feed_names))
             meta = self.engine._feed_meta[name]
-            feeds[name] = np.asarray(inputs[name], dtype=meta["dtype"])
-            self._check_tail(name, feeds[name].shape[1:], meta)
+            if meta["lod_level"] > 0:
+                feeds[name] = [np.asarray(s, dtype=meta["dtype"])
+                               for s in inputs[name]]
+                for s in feeds[name]:
+                    self._check_tail(name, s.shape[1:], meta)
+            else:
+                feeds[name] = np.asarray(inputs[name], dtype=meta["dtype"])
+                self._check_tail(name, feeds[name].shape[1:], meta)
         return feeds
 
     @staticmethod
@@ -205,7 +222,7 @@ class InferenceServer:
             batch = self.engine.batch_size(feeds)
             outs = self.batcher.submit_and_wait(
                 feeds, timeout_ms=payload.get("timeout_ms"))
-            outputs = {name: _to_list(val) for name, val in
+            outputs = {name: _jsonable(val) for name, val in
                        zip(self.engine.fetch_names, outs)}
             return 200, {"outputs": outputs, "batch": batch}
         except QueueFullError as exc:

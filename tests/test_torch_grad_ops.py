@@ -323,7 +323,9 @@ def test_lookup_table_grad_sparse_is_refused():
     op = OpDesc("lookup_table_grad",
                 {"Ids": ["ids"], "W": ["w"], "OG@Out": ["g"]},
                 {"W@GRAD": ["w@GRAD"]}, {"is_sparse": True})
-    with pytest.raises(NotImplementedError, match="A7"):
+    # the SelectedRows gradient still waits with ROADMAP A7
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP A7 \(SelectedRows"):
         texec.apply_op(ctx, op)
     assert "w@GRAD" not in ctx.env
 

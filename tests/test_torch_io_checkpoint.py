@@ -13,7 +13,10 @@ bit: the files hold the arrays as they are).
   before its manifest, or by a flipped byte, is skipped by both for the
   one before; `max_to_keep` and the garbage collection as on the JAX
   side; `save` copies the values before it returns.
-- A ragged value raises and names ROADMAP A7.
+- A ragged value saved by the JAX package loads in the port as a
+  RaggedTensor and saves back to the same arrays (more cases in
+  `tests/test_torch_ragged.py`); a value that is neither a tensor, an
+  array nor a RaggedTensor raises TypeError.
 """
 
 import os
@@ -169,12 +172,23 @@ def test_bf16_values_cross_by_their_bits(tmp_path):
 
 
 def test_ragged_value_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    """Ragged values save and load now (they raised before the ragged
+    slice); what still raises is a value of no savable kind."""
+    with pytest.raises(TypeError, match="cannot save a list"):
         tio._save_one(str(tmp_path), "r", [torch.ones(2), torch.ones(3)])
+    vals = np.arange(6, dtype=np.float32).reshape(3, 2)
     jio._save_one(str(tmp_path), "r", RaggedTensor(
-        jnp.ones((3, 2)), [np.array([0, 1, 3], np.int32)]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tio._load_one(str(tmp_path), "r")
+        jnp.asarray(vals), [np.array([0, 1, 3], np.int32)]))
+    got = tio._load_one(str(tmp_path), "r")
+    np.testing.assert_array_equal(got.values.numpy(), vals)
+    assert got.lod() == [[0, 1, 3]] and int(got.nvalid) == 3
+    os.makedirs(str(tmp_path / "port"))
+    tio._save_one(str(tmp_path / "port"), "r", got)
+    a, b = np.load(str(tmp_path / "r.npz")), np.load(
+        str(tmp_path / "port" / "r.npz"))
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k])
 
 
 # -- checkpoints ----------------------------------------------------------------

@@ -187,6 +187,8 @@ def test_registry_holds_the_slice_op_set():
         "cached_attention", "concat", "increment", "reduce_sum",
         "reduce_mean", "reduce_max", "reduce_min", "adam",
         # the image models and the example's accuracy
-        "dropout", "lrn", "top_k", "accuracy"}
+        "dropout", "lrn", "top_k", "accuracy",
+        # the stacked-LSTM classifier's sequence ops
+        "sequence_pool", "lstm"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")

@@ -1,6 +1,7 @@
 """Feeding a training run through the port against the JAX package, on
-the CPU: `DataFeeder` (dense slots) against the JAX package's on the
-same samples, the reader decorators and creators against the JAX
+the CPU: `DataFeeder` (dense slots, and one ragged slot; more in
+`tests/test_torch_ragged.py`) against the JAX package's on the same
+samples, the reader decorators and creators against the JAX
 package's outputs on the same readers (shuffle under the same
 `random.seed`), the prefetching readers, and the CIFAR-10 and MNIST
 readers (the seeded synthetic fallback, and a local CIFAR tarball)
@@ -81,11 +82,24 @@ def test_data_feeder_rejects():
         feeder.feed([(np.zeros(48, np.float32), 2 ** 40)])
     with pytest.raises(TypeError, match="Variables"):
         tfluid.DataFeeder([object()], CPU, main)
+    # a ragged slot feeds now (it raised before the ragged slice), as
+    # the JAX package's feeder does; its ids keep the int32 guard
     with tfluid.program_guard(main, tfluid.Program()):
         words = tfluid.layers.data(name="words", shape=[1], dtype="int64",
                                    lod_level=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tfluid.DataFeeder([words], CPU, main)
+    jmain = jfluid.Program()
+    with jfluid.program_guard(jmain, jfluid.Program()):
+        jwords = jfluid.layers.data(name="words", shape=[1], dtype="int64",
+                                    lod_level=1)
+    rows = [(np.array([[3], [1]], np.int64),), (np.array([[7]], np.int64),)]
+    got = tfluid.DataFeeder([words], CPU, main).feed(rows)["words"]
+    want = jfluid.DataFeeder([jwords], jfluid.CPUPlace(),
+                             jmain).feed(rows)["words"]
+    np.testing.assert_array_equal(got.values.numpy(), np.asarray(want.values))
+    assert got.lod() == want.lod() and int(got.nvalid) == int(want.nvalid)
+    with pytest.raises(OverflowError, match="int32 range"):
+        tfluid.DataFeeder([words], CPU, main).feed(
+            [(np.array([[2 ** 40]], np.int64),)])
 
 
 # -- decorators -------------------------------------------------------------------

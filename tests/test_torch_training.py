@@ -10,6 +10,13 @@ momentum steps on the same feeds.  Tolerance: each step's loss, and
 every parameter and velocity after step 3, at atol 1e-5 (f32 on both
 sides; the same sums in other orders through 2 layers and 3 updates).
 
+The same 3 steps under the bf16 policy (`bench.py`'s default
+`BENCH_AMP=1`), the program built and run under each package's
+`bf16_guard()`: each loss at atol 1e-3 (observed 4.3e-4: bf16 products
+rounded after f32 sums in other orders), and each parameter's and
+velocity's change over the steps within 0.1 of the JAX package's in
+relative L2 (observed 0.042).
+
 Also here: the port's `uniform_random` (statistics, and the same values
 from the same seed), and what the executor does for training: startup
 and optimizer outputs written back to the scope, fetches of state the
@@ -21,6 +28,7 @@ import pytest
 import torch
 
 import paddle_tpu.fluid as jfluid
+import paddle_tpu_torch.fluid as tfluid
 from paddle_tpu.core.scope import Scope as JScope
 from paddle_tpu.models.transformer_program import (
     build_transformer_program as j_build, transformer_program_feeds)
@@ -37,6 +45,8 @@ torch.set_num_threads(1)
 B, T, V, N_LAYER, N_HEAD, D = 4, 32, 64, 2, 4, 32
 ATOL = 1e-5
 STEPS = 3
+AMP_LOSS_ATOL = 1e-3
+AMP_CHANGE_RL2 = 0.1
 
 
 def _port_program():
@@ -90,6 +100,48 @@ def test_three_momentum_steps_match_jax(jax_run):
                                    err_msg=name)
         if name.endswith("_velocity_0"):
             assert np.abs(got).max() > 0, name   # the steps reached it
+
+
+def test_three_amp_momentum_steps_match_jax():
+    with jfluid.amp.bf16_guard():
+        jmain, jstartup, jloss, _ = j_build(B, T, V, n_layer=N_LAYER,
+                                            n_head=N_HEAD, d_model=D)
+        with jfluid.program_guard(jmain, jstartup):
+            jfluid.optimizer.MomentumOptimizer(
+                learning_rate=0.01, momentum=0.9).minimize(jloss)
+    persist = [n for n, v in jmain.desc.block(0).vars.items()
+               if v.persistable]
+    feeds = [transformer_program_feeds(B, T, V, seed=s)
+             for s in range(STEPS)]
+    exe, scope = jfluid.Executor(jfluid.CPUPlace()), JScope()
+    with jfluid.scope_guard(scope), jfluid.amp.bf16_guard():
+        exe.run(jstartup)
+        init = {n: np.array(scope.get(n)) for n in persist}
+        jlosses = [float(exe.run(jmain, feed=f, fetch_list=[jloss])[0][0])
+                   for f in feeds]
+        jfinal = {n: np.array(scope.get(n)) for n in persist}
+    # the policy declares bf16 state, which the first update makes f32
+    assert any(v.dtype.name == "bfloat16" for v in init.values())
+
+    with tfluid.amp.bf16_guard():
+        main, startup, loss, _ = build_transformer_program(
+            B, T, V, n_layer=N_LAYER, n_head=N_HEAD, d_model=D)
+        MomentumOptimizer(0.01, 0.9).minimize(loss, main, startup)
+    assert main.to_dict() == jmain.desc.to_dict()
+    exe, tscope = Executor(CPUPlace()), Scope()
+    io.params_from_numpy(tscope, init, "cpu")
+    with tfluid.amp.bf16_guard():
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=tscope)[0][0]) for f in feeds]
+    np.testing.assert_allclose(losses, jlosses, atol=AMP_LOSS_ATOL, rtol=0)
+    for name, want in jfinal.items():
+        got = tscope.get(name)
+        assert str(got.dtype).replace("torch.", "") == want.dtype.name, name
+        got = got.float().numpy().astype(np.float64)
+        want = want.astype(np.float64)
+        change = np.linalg.norm(want - init[name].astype(np.float64))
+        assert np.linalg.norm(got - want) <= AMP_CHANGE_RL2 * max(
+            change, 1e-30), name
 
 
 def test_port_feeds_match_jax_feeds():
