@@ -125,6 +125,25 @@ no result line:
      and served by InferenceServer: 3 concurrent POST /v1/infer of 1, 2
      and 3 sequences of different lengths, then one engine.run of 16,
      against the CPU plain path.  No hand-written kernel runs here.
+  10. ctr: examples/ctr_deepfm_sparse.py's local loop at its defaults
+     (DeepFM over 10,000 features in 16 fields, embedding 16, hidden
+     (128, 64), both tables `is_sparse`, Adam at lr 1e-2, batch 256)
+     built through the port: exactly two SELECTED_ROWS grads; 3 Adam
+     steps on the card against the CPU plain path from one state (loss,
+     and the steps' change of the parameters and both moments); 60 Adam
+     steps on one batch below 0.7 of the first loss (the JAX test's
+     criterion); the example's 60 steps over its reader through
+     DataFeeder and device_prefetch, the loss every 10; one SGD and one
+     Adagrad step, each from a fresh state, that leave every row the
+     batch did not touch bit-for-bit unchanged and change every touched
+     one; the export served by InferenceEngine and InferenceServer (3
+     concurrent requests of 1, 5 and 32 rows) against the CPU plain
+     path.  Then under Adam, SGD and Adagrad at 10,000 and 10,000,000
+     features: the step's time, samples/s, peak memory, a profiled step
+     and the update ops' device time beside their bound by bytes; at
+     10,000,000 the update op alone on the 640 MB table (and, for SGD,
+     the in-place `index_add_` that a donated buffer would allow).  No
+     hand-written kernel runs here.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -326,6 +345,36 @@ SEQ_STATE_RL2 = 1e-4
 SEQ_AMP_LOSS_ATOL = 5e-3
 # served probabilities (2 classes) against the CPU plain path, f32
 SEQ_PROB_ATOL = 1e-4
+
+# phase 10, ctr: examples/ctr_deepfm_sparse.py's local loop at its
+# defaults (DeepFM over 10,000 features in 16 fields, embedding 16,
+# hidden (128, 64), both tables is_sparse, mean sigmoid cross entropy,
+# Adam at lr 1e-2, batch 256, 60 steps of its synthetic reader from seed
+# 0), and the same model timed at 10,000,000 features (a Criteo-scale
+# hashed table: 640 MB for the second-order table in f32)
+CTR_FEATURES, CTR_FIELDS, CTR_EMBED = 10000, 16, 16
+CTR_HIDDEN = (128, 64)
+CTR_BATCH, CTR_STEPS, CTR_LR = 256, 60, 1e-2
+CTR_BIG_FEATURES = 10_000_000
+CTR_TIMED = ("Adam", "SGD", "Adagrad")
+CTR_SERVE = (1, 5, 32)          # rows of the 3 concurrent requests
+CTR_BUCKETS = [1, 8, 32]
+CTR_CONVERGE = 0.7              # tests/test_ctr_deepfm.py's criterion
+# the card against the CPU, 3 Adam steps at batch 256 from one state: f32
+# on both sides (TF32 off); the scatter-adds of repeated ids (256
+# samples over 625 ids a field) sum in a varying order on the card.  An
+# H100 read the loss (about ln 2) within 5.96e-8 and the steps' change
+# in relative L2 within 1.83e-6 (parameters) and 2.47e-7 (moments); the
+# gates are 17 and 55-480 times those.  By estimate (Adam's first step
+# moves each entry that has a grad by about lr: about 99,000 entries,
+# 57,800 of them in the 3,398 touched rows of the two tables), one
+# touched table row left unchanged reads about 1.3e-2 in the
+# parameters, the first-order table left unchanged about 0.19
+CTR_LOSS_ATOL = 1e-6
+CTR_STATE_RL2 = 1e-4
+# served probabilities against the CPU plain path, f32: an H100 read
+# 5.96e-8 (one ulp of a probability near 0.5); the gate is 17 times that
+CTR_PROB_ATOL = 1e-6
 
 
 def nvidia_smi_line():
@@ -2661,6 +2710,438 @@ def phase_sequence():
     return launches
 
 
+def ctr_reader(features, seed=0):
+    """examples/ctr_deepfm_sparse.py's `synthetic_ctr_reader` (a copy:
+    this script imports nothing of the JAX package's tree) at `features`
+    features in CTR_FIELDS fields and batches of CTR_BATCH: (ids [B,
+    fields] int64, label [B, 1] f32) batches, the click driven by a
+    linear and one pairwise signal."""
+    rs = np.random.RandomState(seed)
+    per_field = features // CTR_FIELDS
+    w = rs.randn(features) * 0.5
+    latent = rs.randn(features, 4)
+    while True:
+        ids = np.stack(
+            [rs.randint(f * per_field, (f + 1) * per_field, size=CTR_BATCH)
+             for f in range(CTR_FIELDS)], axis=1).astype(np.int64)
+        logit = w[ids].sum(axis=1)
+        logit += np.einsum("nd,nd->n", latent[ids[:, 0]],
+                           latent[ids[:, 1]])
+        label = (rs.rand(CTR_BATCH) < 1 / (1 + np.exp(-logit)))
+        yield ids, label.astype(np.float32).reshape(-1, 1)
+
+
+def build_ctr(features, opt="Adam"):
+    """The example's program through the port's layers (its :48-60):
+    (main, startup, loss, predict, params_grads), the optimizer `opt` at
+    lr CTR_LR."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models.ctr import deepfm_ctr
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[CTR_FIELDS],
+                                dtype="int64")
+        label = fluid.layers.data(name="label", shape=[1], dtype="float32")
+        loss, predict = deepfm_ctr(ids, label, features, CTR_FIELDS,
+                                   embed_dim=CTR_EMBED,
+                                   hidden_sizes=CTR_HIDDEN)
+        _, params_grads = getattr(fluid.optimizer, opt)(
+            learning_rate=CTR_LR).minimize(loss)
+    return main, startup, loss, predict, params_grads
+
+
+def ctr_feed(batch, device):
+    """A reader batch as the executor's feed on `device` (ids as int32,
+    the execution dtype of their int64 var)."""
+    import torch
+
+    ids, label = batch
+    return {"ids": torch.from_numpy(ids.astype(np.int32)).to(device),
+            "label": torch.from_numpy(label).to(device)}
+
+
+CTR_TABLES = ("embedding_0.w_0", "embedding_1.w_0")
+CTR_OPS = {"Adam": "adam", "SGD": "sgd", "Adagrad": "adagrad"}
+
+
+def ctr_update_bytes(opt, shapes, nrows, unique):
+    """The bytes one step's update ops must move, each input read once
+    and each output written once: a dense grad's parameter (and state)
+    whole; a table's SelectedRows grad (nrows ids and rows of values)
+    and, for the row updates of sgd and adagrad, only the `unique` rows
+    it names of the table (and of adagrad's moment), read and written;
+    adam densifies, so it reads and writes its table and both moments
+    whole.  `shapes`: {param name: shape}."""
+    total = 0
+    for name, shape in shapes.items():
+        n = int(np.prod(shape))
+        if name in CTR_TABLES:
+            width = int(np.prod(shape[1:]))
+            rows = {"Adam": 6 * n, "SGD": 2 * unique * width,
+                    "Adagrad": 4 * unique * width}[opt]
+            total += nrows * (width * 4 + 4) + 4 * rows
+        else:
+            total += 4 * n * {"Adam": 7, "SGD": 3, "Adagrad": 5}[opt]
+    return total
+
+
+def ctr_op_times(scope, opt, batch, height):
+    """The update op of `opt` alone on the second-order table ([height,
+    CTR_EMBED], its state from `scope`) with a SelectedRows grad of one
+    batch's ids (random values): (device ms by graph replay, bound ms by
+    bytes, and for sgd the device ms of the in-place `index_add_` that
+    a donated buffer would allow: the same rows written, where the op
+    writes a new table)."""
+    import torch
+    from paddle_tpu_torch.core.ragged import SelectedRows
+    from paddle_tpu_torch.ops.registry import get_op_info
+
+    device = torch.device("cuda")
+    name = CTR_TABLES[0]
+    p = scope.get(name)
+    ids = torch.from_numpy(batch[0].reshape(-1).astype(np.int32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    values = torch.randn(ids.shape[0], CTR_EMBED, device=device,
+                         generator=gen) * 1e-3
+    lr = torch.full((1,), CTR_LR, device=device)
+    ins = {"Param": [p], "Grad": [SelectedRows(ids, values, height)],
+           "LearningRate": [lr]}
+    if opt == "Adam":
+        ins.update(Moment1=[scope.get(name + "_moment1_0")],
+                   Moment2=[scope.get(name + "_moment2_0")],
+                   Beta1Pow=[torch.full((1,), 0.9, device=device)],
+                   Beta2Pow=[torch.full((1,), 0.999, device=device)])
+    elif opt == "Adagrad":
+        ins["Moment"] = [scope.get(name + "_moment_0")]
+    kernel = get_op_info(CTR_OPS[opt]).kernel
+
+    def run():
+        with torch.no_grad():
+            return kernel(None, ins, {})
+
+    ms = device_ms(run, launches=5, replays=3)
+    unique = int(np.unique(batch[0]).size)
+    bound = ctr_update_bytes(opt, {name: tuple(p.shape)}, ids.numel(),
+                             unique) / HBM_BYTES_PER_S * 1e3
+    library = None
+    if opt == "SGD":
+        target, upd = p.clone(), -lr * values
+
+        def in_place():
+            target.index_add_(0, ids, upd)
+
+        library = device_ms(in_place, launches=5, replays=3)
+    return ms, bound, library
+
+
+def ctr_row_check(exe, opt, fixed, touched):
+    """One `opt` step from a fresh startup state on `fixed`: the two
+    tables' (and Adagrad's moments') rows that the batch did not touch
+    must keep their bits, and every touched row must change.  Returns
+    the report."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup, loss, _, _ = build_ctr(CTR_FEATURES, opt)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = list(CTR_TABLES)
+    if opt == "Adagrad":
+        names += [t + "_moment_0" for t in CTR_TABLES]
+    before = {n: scope.get(n).cpu().numpy() for n in names}
+    exe.run(main, feed=fixed, fetch_list=[loss], scope=scope)
+    lines = []
+    for n in names:
+        after = scope.get(n).cpu().numpy()
+        kept = after[~touched].tobytes() == before[n][~touched].tobytes()
+        changed = (after[touched] != before[n][touched]).reshape(
+            int(touched.sum()), -1).any(axis=1)
+        lines.append("%s: %d untouched rows %s, %d of %d touched rows "
+                     "changed" % (n, int((~touched).sum()),
+                                  "bit-for-bit unchanged" if kept
+                                  else "CHANGED", int(changed.sum()),
+                                  int(touched.sum())))
+        if not kept or not changed.all():
+            raise SystemExit("chip_smoke: a %s step is not row-sparse: %s"
+                             % (opt, lines[-1]))
+    return "; ".join(lines)
+
+
+def ctr_serve(trained, main, predict):
+    """The export of `predict` from the `ids` feed, with the `trained`
+    state, loaded by InferenceEngine on the card behind InferenceServer:
+    3 concurrent requests of CTR_SERVE rows against the CPU plain path.
+    Returns the largest error."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import io
+    from paddle_tpu_torch.serving import (EngineConfig, InferenceEngine,
+                                          InferenceServer, ServerConfig)
+
+    rows = next(ctr_reader(CTR_FEATURES, seed=SEED + 81))[0]
+    parts = np.cumsum([0] + list(CTR_SERVE))
+    served = rows[:parts[-1]]
+    requests = [served[lo:hi] for lo, hi in zip(parts[:-1], parts[1:])]
+    with tempfile.TemporaryDirectory() as tmp:
+        with fluid.scope_guard(params_scope(trained, "cpu")):
+            io.save_inference_model(
+                tmp, ["ids"], [predict], fluid.Executor(fluid.CPUPlace()),
+                main, bucket_hints={"batch_buckets": CTR_BUCKETS})
+        engine = InferenceEngine.from_saved_model(tmp)
+        if engine.place.device().type != "cuda":
+            raise SystemExit("chip_smoke: the engine is not on the card")
+        server = InferenceServer(engine, ServerConfig(
+            port=0, max_batch=max(CTR_BUCKETS), max_wait_ms=50.0,
+            warmup=True))
+        try:
+            server.start()
+            host, port = server.address
+            url = "http://%s:%d/v1/infer" % (host, port)
+            replies = [None] * len(requests)
+
+            def client(i):
+                replies[i] = _post(url, {"inputs": {
+                    "ids": requests[i].tolist()}})
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(requests))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            if any(r is None for r in replies):
+                raise SystemExit("chip_smoke: an HTTP request got no reply")
+            print("ctr: %d requests of %s rows answered in %d batch(es); "
+                  "latencies %s ms"
+                  % (len(requests), list(CTR_SERVE),
+                     server.metrics.batch_occupancy.count,
+                     ", ".join("%.1f" % r[2] for r in replies)), flush=True)
+        finally:
+            server.shutdown()
+        ref = InferenceEngine.from_saved_model(
+            tmp, place=fluid.CPUPlace(),
+            config=EngineConfig(batch_buckets=None)).run({"ids": served})[0]
+    errs, fetch = [], engine.fetch_names[0]
+    for (status, body, _), lo, hi in zip(replies, parts[:-1], parts[1:]):
+        if status != 200:
+            raise SystemExit("chip_smoke: HTTP %d: %s" % (status, body))
+        got = np.asarray(body["outputs"][fetch], np.float32)
+        if got.shape != (hi - lo, 1) or not np.isfinite(got).all():
+            raise SystemExit("chip_smoke: reply shape %s" % (got.shape,))
+        errs.append(float(np.abs(got - ref[lo:hi]).max()))
+    print("ctr: served probabilities max_abs_err against the CPU plain "
+          "path: %s (atol %g)" % (", ".join("%.3g" % e for e in errs),
+                                  CTR_PROB_ATOL), flush=True)
+    return max(errs)
+
+
+def ctr_timing(exe, features, opt, smi):
+    """The step of `opt` at `features` features on the card, its feed
+    there: 3 steps with their peak memory, the median of 10 after 2 warm,
+    samples/s, a profiled step (busy share, launches, the update ops'
+    device ms beside their bound by bytes) and, at CTR_BIG_FEATURES,
+    the update op alone on the table."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+
+    batch = next(ctr_reader(features))
+    feed = ctr_feed(batch, exe.device)
+    unique = int(np.unique(batch[0]).size)
+    main, startup, loss, _, _ = build_ctr(features, opt)
+    block = main.desc.block(0)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                           scope=scope)[0][0]) for _ in range(TRAIN_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(first).all():
+        raise SystemExit("chip_smoke: ctr %s at %d features gave losses %s"
+                         % (opt, features, first))
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+
+    times = timed_steps(step)
+    med = float(np.median(times))
+    print("ctr %s at %d features: step %.3f ms (median of 10 after 2 warm; "
+          "mean %.3f, min %.3f, max %.3f), %.1f samples/s, peak memory "
+          "%.3f GB, losses %s [%s]"
+          % (opt, features, med, np.mean(times), min(times), max(times),
+             CTR_BATCH / med * 1e3, peak / 1e9,
+             ", ".join("%.4f" % x for x in first), smi), flush=True)
+    prof = profile_step(step, {op.type for op in block.ops}, 0, med,
+                        what="one %s step at %d features" % (opt, features))
+    shapes = {n: v.shape for n, v in block.vars.items() if v.is_parameter}
+    bound = ctr_update_bytes(opt, shapes, CTR_BATCH * CTR_FIELDS,
+                             unique) / HBM_BYTES_PER_S * 1e3
+    op = CTR_OPS[opt]
+    print("ctr %s at %d features: the %d %s ops of the profiled step: "
+          "device %s ms, bound %.4f ms by bytes (%d unique ids of %d) [%s]"
+          % (opt, features, len(shapes), op,
+             "not measured" if prof is None
+             else "%.4f" % prof["ops"].get(op, (0.0,))[0], bound, unique,
+             CTR_BATCH * CTR_FIELDS, smi), flush=True)
+    if features == CTR_BIG_FEATURES:
+        ms, op_bound, library = ctr_op_times(scope, opt, batch, features)
+        print("ctr %s at %d features: %s alone on the [%d, %d] table with "
+              "one batch's SelectedRows grad: device %.4f ms (graph "
+              "replay), bound %.4f ms by bytes%s [%s]"
+              % (opt, features, op, features, CTR_EMBED, ms, op_bound,
+                 "" if library is None else "; the in-place index_add_ "
+                 "(no copy of the table) %.4f ms" % library, smi),
+              flush=True)
+
+
+def phase_ctr():
+    """examples/ctr_deepfm_sparse.py's local loop through the port
+    (phase 10): the program's sparse typing; 3 Adam steps on the card
+    against the CPU plain path from one state; the JAX test's
+    convergence criterion; the example's 60 steps through DataFeeder and
+    device_prefetch; the rows one SGD and one Adagrad step leave alone;
+    the export served against the CPU; and the step's time, busy share,
+    launches, peak memory and update ops' device time under Adam, SGD
+    and Adagrad at 10,000 and 10,000,000 features.  Returns the launch
+    counts of the example's loop (no hand-written kernel runs here)."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.types import VarType
+    from paddle_tpu_torch.reader import device_prefetch
+
+    t0 = time.perf_counter()
+    main, startup, loss, predict, params_grads = build_ctr(CTR_FEATURES)
+    block = main.desc.block(0)
+    counts = collections.Counter(op.type for op in block.ops)
+    sparse = [g.name for _, g in params_grads
+              if g.type == VarType.SELECTED_ROWS]
+    n_values = sum(int(np.prod(v.shape)) for v in block.vars.values()
+                   if v.is_parameter)
+    print("ctr: main %d ops of %d types (%s), %d parameter values (%.3f "
+          "M), SELECTED_ROWS grads %s; built in %.1f s"
+          % (len(block.ops), len(counts), ", ".join(
+              "%s %d" % kv for kv in sorted(counts.items())), n_values,
+             n_values / 1e6, sparse, time.perf_counter() - t0), flush=True)
+    # the two tables, then fc 256 -> 128 -> 64 -> 1 with biases
+    width = CTR_FIELDS * CTR_EMBED
+    want = CTR_FEATURES * (CTR_EMBED + 1) + (width * 128 + 128) \
+        + (128 * 64 + 64) + (64 + 1)
+    if sparse != [t + "@GRAD" for t in CTR_TABLES] or n_values != want:
+        raise SystemExit("chip_smoke: the ctr program has SELECTED_ROWS "
+                         "grads %s (want the 2 tables') and %d parameter "
+                         "values (want %d)" % (sparse, n_values, want))
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    persist = [n for n, v in block.vars.items() if v.persistable]
+    init = {n: scope.get(n).cpu().numpy() for n in persist}
+    del scope
+    params = [n for n in persist if n + "_moment1_0" in block.vars]
+    groups = {"parameters": params,
+              "moment1": [n + "_moment1_0" for n in params],
+              "moment2": [n + "_moment2_0" for n in params]}
+    reader = ctr_reader(CTR_FEATURES)
+    batches = [next(reader) for _ in range(TRAIN_STEPS)]
+    feeds = [{"ids": ids, "label": label} for ids, label in batches]
+
+    # 3 Adam steps from one state: the CPU plain path, then the card
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu, cpu_state, cpu_s = run_from_state(cpu_exe, main, loss, init, feeds)
+    card, card_state, _ = run_from_state(exe, main, loss, init, feeds)
+    errs = {g: change_rl2(card_state, cpu_state, init, names)
+            for g, names in groups.items()}
+    loss_err = max(abs(a - b) for a, b in zip(card, cpu))
+    print("ctr: %d Adam steps at batch %d from one state: CPU plain path "
+          "(%.1f s) losses %s; card %s; loss max_abs_err %.3g (atol %g); "
+          "the steps' change, relative L2 error: %s (limit %g)"
+          % (TRAIN_STEPS, CTR_BATCH, cpu_s, ", ".join(
+              "%.6f" % x for x in cpu), ", ".join("%.6f" % x for x in card),
+             loss_err, CTR_LOSS_ATOL, ", ".join(
+                 "%s %.3g" % kv for kv in errs.items()), CTR_STATE_RL2),
+          flush=True)
+    if loss_err > CTR_LOSS_ATOL or max(errs.values()) > CTR_STATE_RL2 \
+            or not all(np.isfinite(v).all() for v in card_state.values()):
+        raise SystemExit("chip_smoke: ctr steps on the card disagree with "
+                         "the CPU plain path")
+
+    # the JAX test's criterion: 60 Adam steps on one batch
+    scope = params_scope(init, exe.device)
+    fixed = ctr_feed(batches[0], exe.device)
+    fit = [float(exe.run(main, feed=fixed, fetch_list=[loss],
+                         scope=scope)[0][0]) for _ in range(CTR_STEPS)]
+    print("ctr: %d Adam steps on one batch: loss %.6f -> %.6g (limit %g of "
+          "the first)" % (CTR_STEPS, fit[0], fit[-1], CTR_CONVERGE),
+          flush=True)
+    if not np.isfinite(fit).all() or not fit[-1] < CTR_CONVERGE * fit[0]:
+        raise SystemExit("chip_smoke: ctr training did not converge on "
+                         "one batch")
+    del scope
+
+    # the example's loop: its reader through DataFeeder and
+    # device_prefetch, 60 steps from the startup state
+    place = fluid.CUDAPlace(0)
+    gblock = main.global_block()
+    feeder = fluid.DataFeeder(place=place, feed_list=[gblock.var("ids"),
+                                                      gblock.var("label")],
+                              program=main)
+
+    def example_batches():
+        r = ctr_reader(CTR_FEATURES)
+        for _ in range(CTR_STEPS):
+            ids, label = next(r)
+            yield feeder.feed([(ids[i], label[i])
+                               for i in range(CTR_BATCH)])
+
+    scope = params_scope(init, exe.device)
+    losses, times = [], []
+    reset_launches()
+    torch.cuda.synchronize()
+    t_loop = t0 = time.perf_counter()
+    for step, feed in enumerate(device_prefetch(example_batches,
+                                                place=place)()):
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if step % 10 == 0 or step == CTR_STEPS - 1:
+            print("ctr: step %3d  logloss %.4f" % (step, losses[-1]),
+                  flush=True)
+        t0 = time.perf_counter()
+    loop_s = time.perf_counter() - t_loop
+    launches = read_launches()
+    med = float(np.median(times))
+    print("ctr: the example's loop, %d steps in %.2f s: step %.3f ms "
+          "(median, host clock from one fetched loss to the next, feeding "
+          "included; min %.3f, max %.3f), %.1f samples/s; hand-written "
+          "kernel launches %s"
+          % (len(losses), loop_s, med, min(times), max(times),
+             CTR_BATCH / med * 1e3, json.dumps(launches)), flush=True)
+    if len(losses) != CTR_STEPS or not np.isfinite(losses).all():
+        raise SystemExit("chip_smoke: the ctr example's loop gave losses "
+                         "%s" % losses)
+    trained = {n: scope.get(n).cpu().numpy() for n in persist}
+    del scope
+
+    # one SGD and one Adagrad step, each from a fresh state
+    touched = np.zeros(CTR_FEATURES, bool)
+    touched[np.unique(batches[0][0])] = True
+    for opt in ("SGD", "Adagrad"):
+        print("ctr: one %s step: %s"
+              % (opt, ctr_row_check(exe, opt, fixed, touched)), flush=True)
+
+    if ctr_serve(trained, main, predict) > CTR_PROB_ATOL:
+        raise SystemExit("chip_smoke: served ctr probabilities disagree "
+                         "with the CPU plain path")
+
+    smi = nvidia_smi_line()
+    for features in (CTR_FEATURES, CTR_BIG_FEATURES):
+        for opt in CTR_TIMED:
+            ctr_timing(exe, features, opt, smi)
+            torch.cuda.empty_cache()
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -2687,15 +3168,18 @@ def main():
     decode_launches = phase_decode()
     image_launches = phase_image()
     sequence_launches = phase_sequence()
+    ctr_launches = phase_ctr()
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
-    # ResNet-50, the image models and the lstm run no hand-written
-    # kernel: conv2d is cuDNN, the products cuBLAS and the rest ATen, as
-    # the JAX package leaves them to XLA
+    # ResNet-50, the image models, the lstm and the ctr model run no
+    # hand-written kernel: conv2d is cuDNN, the products cuBLAS and the
+    # rest ATen (the sparse updates `index_add`), as the JAX package
+    # leaves them to XLA
     for what, got in (("ResNet-50", resnet_launches),
                       ("the image models", image_launches),
-                      ("the lstm", sequence_launches)):
+                      ("the lstm", sequence_launches),
+                      ("the ctr model", ctr_launches)):
         if any(got.values()):
             raise SystemExit("chip_smoke: %s launched %s"
                              % (what, json.dumps(got)))
@@ -2711,7 +3195,8 @@ def main():
         name = route_entry(route)
         total = sum(c.get(name, 0) for c in (
             launches, train_launches, wide_launches, resnet_launches,
-            decode_launches, image_launches, sequence_launches))
+            decode_launches, image_launches, sequence_launches,
+            ctr_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

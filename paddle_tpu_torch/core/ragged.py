@@ -17,8 +17,16 @@ level and `max_seqlen` the context), so `torch.utils._pytree` maps over
 it, as the executor does to move a fed value to the card.
 `torch.func.vjp` cannot take one as a primal (its int leaves cannot
 require grad), so the generic grad differentiates its values and
-rebuilds it around them (ops/registry.py).  `SelectedRows` waits
-(ROADMAP A7).
+rebuilds it around them (ops/registry.py).
+
+`SelectedRows` is the sparse gradient of `lookup_table(is_sparse=True)`
+(reference: paddle/framework/selected_rows.h:19): `rows`, the int32 ids
+of its rows (they may repeat, and they are the raw ids, not wrapped),
+`values` [nrows, ...], and `height`, the static row count of the dense
+tensor it stands for.  Its rows index as the JAX side's scatter does
+(`row_index`): a negative id in [-height, 0) counts from the end, and
+the rows of any other id outside [0, height) add nothing.  It is a
+torch pytree node too, `height` its context.
 """
 
 import numpy as np
@@ -27,8 +35,9 @@ import torch.utils._pytree as pytree
 
 from .types import guard_int64_narrowing, tensor_from_numpy
 
-__all__ = ["RaggedTensor", "bucket_max_seqlen", "host_copy",
-           "ragged_to_sequences", "slice_ragged"]
+__all__ = ["RaggedTensor", "SelectedRows", "add_rows_",
+           "bucket_max_seqlen", "host_copy", "ragged_to_sequences",
+           "row_index", "slice_ragged"]
 
 
 def bucket_max_seqlen(lengths):
@@ -143,12 +152,76 @@ class RaggedTensor:
             self.nseq(0) if self.row_splits else 0)
 
 
+def row_index(rows, height):
+    """(index, valid): `rows` with a negative id counted from the end,
+    clamped into [0, height) so that it can index on the card, and the
+    mask of the ids that were in [-height, height).  A scatter adds
+    nothing at an invalid id when it adds -0.0 there, the one addend
+    that leaves every float, -0.0 included, as it is."""
+    rows = rows.reshape(-1)
+    wrapped = torch.where(rows < 0, rows + height, rows)
+    valid = (wrapped >= 0) & (wrapped < height)
+    return wrapped.clamp(0, height - 1), valid
+
+
+def add_rows_(x, rows, values):
+    """`x` with the rows of `values` added in place at the SelectedRows
+    ids `rows` (`index_add_`, atomic on the card: repeated ids sum in a
+    varying order), as the JAX side's `x.at[rows].add(values)` adds
+    them: negative ids wrap, and the rows of ids outside the table add
+    -0.0.  Returns `x`."""
+    index, valid = row_index(rows, x.shape[0])
+    mask = valid.reshape((-1,) + (1,) * (values.dim() - 1))
+    values = torch.where(mask, values.to(x.dtype),
+                         torch.full((), -0.0, dtype=x.dtype,
+                                    device=x.device))
+    return x.index_add_(0, index, values)
+
+
+class SelectedRows:
+    """rows: int32 [nrows] ids, which may repeat.  values: [nrows, ...].
+    height: a static Python int, the dense tensor's row count."""
+
+    def __init__(self, rows, values, height):
+        self.rows = torch.as_tensor(rows, dtype=torch.int32,
+                                    device=values.device)
+        self.values = values
+        self.height = int(height)
+
+    @property
+    def shape(self):
+        return (self.height,) + tuple(self.values.shape[1:])
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    def to_dense(self):
+        """The dense [height, ...] tensor: each row's values added at its
+        id, so rows that repeat sum (`add_rows_`)."""
+        return add_rows_(torch.zeros(self.shape, dtype=self.values.dtype,
+                                     device=self.values.device),
+                         self.rows, self.values)
+
+    def to(self, device):
+        """Rows and values moved to `device`."""
+        return pytree.tree_map(lambda t: t.to(device), self)
+
+    def __repr__(self):
+        return "SelectedRows(nrows=%d, height=%d, values=%s %s)" % (
+            self.rows.shape[0], self.height, tuple(self.values.shape),
+            self.values.dtype)
+
+
 def host_copy(r):
-    """`r` with every tensor on the CPU and bf16 values widened to f32:
-    a ragged fetch as the executor returns it (numpy holds no bf16)."""
+    """`r` (a RaggedTensor or SelectedRows) with every tensor on the CPU
+    and bf16 values widened to f32: a fetch as the executor returns it
+    (numpy holds no bf16)."""
     values = r.values.detach()
     if values.dtype == torch.bfloat16:
         values = values.float()
+    if isinstance(r, SelectedRows):
+        return SelectedRows(r.rows, values, r.height).to("cpu")
     return r.with_values(values).to("cpu")
 
 
@@ -196,3 +269,19 @@ def _unflatten(children, context):
 pytree.register_pytree_node(
     RaggedTensor, _flatten, _unflatten,
     serialized_type_name="paddle_tpu_torch.core.ragged.RaggedTensor")
+
+
+def _flatten_rows(sr):
+    return [sr.rows, sr.values], sr.height
+
+
+def _unflatten_rows(children, height):
+    sr = object.__new__(SelectedRows)
+    sr.rows, sr.values = children
+    sr.height = height
+    return sr
+
+
+pytree.register_pytree_node(
+    SelectedRows, _flatten_rows, _unflatten_rows,
+    serialized_type_name="paddle_tpu_torch.core.ragged.SelectedRows")

@@ -2,8 +2,8 @@
 layers, nets, initializers, parameter attributes), places, the
 executor, the backward and the optimizers, AMP, feeding
 (`DataFeeder`), saving and loading variables, training checkpoints,
-pruning and inference export and load, and generation over a step
-program (`ProgramDecoder`)."""
+pruning and inference export and load, generation over a step program
+(`ProgramDecoder`), and the sparse grad value (`SelectedRows`)."""
 
 from . import (amp, backward, framework, initializer, io, layers, nets,
                optimizer, param_attr)
@@ -19,6 +19,7 @@ from .data_feeder import DataFeeder
 from .optimizer import (SGD, Adam, AdamOptimizer, Momentum,
                         MomentumOptimizer, Optimizer, SGDOptimizer)
 from .param_attr import ParamAttr
+from ..core.ragged import SelectedRows
 from ..core.scope import Scope, global_scope
 # last: it builds on the executor, and jit imports this package
 from .fast_decode import ProgramDecoder
@@ -28,7 +29,8 @@ __all__ = ["Adam", "AdamOptimizer", "CPUPlace", "CUDAPlace", "DataFeeder",
            "MomentumOptimizer",
            "Operator", "Optimizer", "ParamAttr", "Parameter", "Place",
            "Program", "ProgramDecoder", "SGD",
-           "SGDOptimizer", "Scope", "Variable", "amp", "append_backward",
+           "SGDOptimizer", "Scope", "SelectedRows", "Variable", "amp",
+           "append_backward",
            "backward", "checkpoint", "data_feeder", "default_main_program",
            "default_startup_program", "framework", "global_scope",
            "initializer", "io", "layers", "nets", "optimizer",

@@ -30,7 +30,7 @@ import torch.utils._pytree as pytree
 
 from ..core import scope as scope_mod
 from ..core.desc import ProgramDesc
-from ..core.ragged import RaggedTensor, host_copy
+from ..core.ragged import RaggedTensor, SelectedRows, host_copy
 from .framework import Program, Variable, default_main_program
 from ..core.scope import global_scope
 from ..core.types import (guard_int64_narrowing, np_dtype,
@@ -158,11 +158,15 @@ def apply_op(ctx, op_desc):
 
 
 def prepare_feed(block_desc, name, val, device):
-    """A fed value (array, tensor or RaggedTensor) cast to its var
-    desc's execution dtype and moved to `device` (int64 ids are
+    """A fed value (array, tensor, RaggedTensor or SelectedRows) cast to
+    its var desc's execution dtype and moved to `device` (int64 ids are
     range-checked before they narrow to int32).  A RaggedTensor's values
     take the cast (int64 values on the host are range-checked first);
-    its splits and `nvalid` move as they are."""
+    its splits and `nvalid` move as they are.  A SelectedRows (a sparse
+    grad fed to an update op) moves its rows and values as they are, as
+    the JAX side feeds one as is."""
+    if isinstance(val, SelectedRows):
+        return val.to(device)
     vd = block_desc.vars.get(name)
     declared = vd.dtype if vd is not None else None
     if isinstance(val, RaggedTensor):
@@ -186,9 +190,10 @@ def prepare_feed(block_desc, name, val, device):
 
 
 def fetch_to_host(t):
-    """A fetch on the host: a numpy array, or a RaggedTensor of CPU
-    tensors; bf16 values widen to f32 (the fetch contract)."""
-    if isinstance(t, RaggedTensor):
+    """A fetch on the host: a numpy array, or a RaggedTensor or
+    SelectedRows of CPU tensors; bf16 values widen to f32 (the fetch
+    contract)."""
+    if isinstance(t, (RaggedTensor, SelectedRows)):
         return host_copy(t)
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -226,10 +231,12 @@ class Executor:
             return_numpy=True):
         """Run block 0 of `program` (a Program, its ProgramDesc, or None
         for the default main program) with `feed` {name: array or
-        tensor, or a RaggedTensor for a var with a lod level}; returns
-        the values of `fetch_list` (Variables or names), as numpy arrays
-        (a ragged value as a RaggedTensor on the host) or, with
-        return_numpy=False, as they are on the place's device."""
+        tensor, a RaggedTensor for a var with a lod level, or a
+        SelectedRows}; returns the values of `fetch_list` (Variables or
+        names), as numpy arrays (a ragged or SelectedRows value on the
+        host) or, with return_numpy=False, as they are on the place's
+        device.  A SelectedRows grad lives in the run's values between
+        the grad op that makes it and the update op that reads it."""
         if program is None:
             program = default_main_program()
         seed = 0

@@ -10,7 +10,8 @@ package's through `to_dict()`.
 
 Shape inference on `append_op` runs the op's kernel on meta tensors
 (`ops.registry.infer_meta`): it sets each output VarDesc's shape,
-dtype and lod level, with -1 wherever a dynamic input dim reaches the
+dtype, lod level and type (SELECTED_ROWS where the op gives a
+SelectedRows), with -1 wherever a dynamic input dim reaches the
 output.
 """
 
@@ -85,6 +86,11 @@ class Variable:
     @property
     def lod_level(self):
         return self.desc.lod_level
+
+    @property
+    def type(self):
+        """The VarType: SELECTED_ROWS for a sparse grad."""
+        return self.desc.type
 
     @property
     def persistable(self):
@@ -328,7 +334,7 @@ def infer_shape_for_op(block, op_desc):
             metas = []
             for n in names:
                 vd = _var_desc(block, n)
-                metas.append((vd.shape, vd.dtype, vd.lod_level))
+                metas.append((vd.shape, vd.dtype, vd.lod_level, vd.type))
             ins_meta[slot] = metas
         outs = op_registry.infer_meta(op_desc.type, ins_meta, op_desc.attrs)
     except KeyError as err:
@@ -343,7 +349,7 @@ def infer_shape_for_op(block, op_desc):
             vd = _var_desc(block, n)
             vd.shape, vd.dtype = meta[0], canonical_dtype(meta[1])
             vd.lod_level = meta[2]
-            vd.type = VarType.DENSE_TENSOR
+            vd.type = meta[3] if len(meta) > 3 else VarType.DENSE_TENSOR
 
 
 def _infer_error(block, op_desc, err, var_name=None):

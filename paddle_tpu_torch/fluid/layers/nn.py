@@ -14,7 +14,8 @@ from ..param_attr import ParamAttr
 
 __all__ = [
     "fc", "embedding", "cross_entropy", "square_error_cost", "softmax",
-    "softmax_with_cross_entropy", "conv2d", "pool2d", "batch_norm",
+    "softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
+    "conv2d", "pool2d", "batch_norm",
     "layer_norm", "split", "flash_attention", "cached_attention",
     "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "dropout",
     "lrn", "accuracy", "dynamic_lstm", "sequence_pool",
@@ -161,6 +162,17 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, **kwargs):
                      outputs={"Softmax": [softmax_v], "Loss": [loss]},
                      attrs={"soft_label": soft_label})
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, **kwargs):
+    """The elementwise logistic loss of logits `x` against labels in
+    [0, 1] (reference: layers/nn.py sigmoid_cross_entropy_with_logits)."""
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", **kwargs)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x], "Label": [label]}, outputs={"Out": [out]})
+    return out
 
 
 def conv2d(input, num_filters, filter_size, stride=None, padding=None,

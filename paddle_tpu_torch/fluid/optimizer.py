@@ -1,20 +1,27 @@
 """Optimizers at the Program level: `SGDOptimizer`, `MomentumOptimizer`,
-`AdamOptimizer`.
+`AdagradOptimizer`, `AdamOptimizer`, `AdamaxOptimizer`,
+`DecayedAdagradOptimizer`, `AdadeltaOptimizer`, `RMSPropOptimizer` and
+`FtrlOptimizer`, each with its short alias (`SGD`, `Adagrad`, ...).
 
 Counterpart of paddle_tpu/fluid/optimizer.py (reference:
-python/paddle/v2/fluid/optimizer.py minimize:204, SGD, Momentum, Adam).
+python/paddle/v2/fluid/optimizer.py minimize:204, :228-550).
 An optimizer declares its update: the op type, its per-parameter state
 slots, its shared scalars and its hyperparameter attrs; `minimize`
 appends the backward (fluid/backward.py), then per parameter, in name
 order, the state (`<param>_velocity_0`, `<param>_moment1_0`, ...) and
 one update op, with the learning rate in a shared persistable var
 (`learning_rate_0`) and the shared scalars (Adam's `beta1_pow_acc_0`,
-`beta2_pow_acc_0`) read by every update op and advanced by one in-place
-`scale` each per step.  Each new persistable is declared in the main and
-startup programs and initialised by a `fill_constant` in the startup,
-so both programs equal the JAX package's (with `fuse_optimizer` off,
-its default) through `to_dict()`.  The other optimizers, clipping,
-regularization and fused updates wait (ROADMAP A5).
+`beta2_pow_acc_0`; Adamax's one `beta1_pow_acc_0`) read by every
+update op and advanced by one in-place `scale` each per step.  Adadelta
+takes no learning rate (`uses_lr = False`): its ops have no
+LearningRate input, though the program still declares
+`learning_rate_0`, as the JAX side's does.  Each new persistable is
+declared in the main and startup programs and initialised by a
+`fill_constant` in the startup, so both programs equal the JAX
+package's (with `fuse_optimizer` off, its default) through `to_dict()`.
+A sparse (SelectedRows) grad goes to the update op as it is.  The
+constructors' `regularization` and `global_step` arguments, clipping
+and fused updates wait with ROADMAP A5.
 """
 
 from collections import namedtuple
@@ -25,7 +32,10 @@ from .initializer import Constant
 from .layer_helper import LayerHelper
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer", "Adam", "AdamOptimizer"]
+           "MomentumOptimizer", "Adagrad", "AdagradOptimizer", "Adam",
+           "AdamOptimizer", "Adamax", "AdamaxOptimizer", "DecayedAdagrad",
+           "DecayedAdagradOptimizer", "Adadelta", "AdadeltaOptimizer",
+           "RMSProp", "RMSPropOptimizer", "Ftrl", "FtrlOptimizer"]
 
 # a per-parameter accumulator: a variable `{param}_{name}_N`, wired into
 # the update op at in_key and written back at out_key, starting at fill
@@ -43,6 +53,7 @@ class Optimizer:
     op_type = None
     state_slots = ()
     shared_scalars = ()
+    uses_lr = True  # adadelta's rule derives its step size from state
 
     def __init__(self, learning_rate):
         if not isinstance(learning_rate, (float, Variable)):
@@ -98,8 +109,9 @@ class Optimizer:
         for param, grad in parameters_and_grads:
             if grad is None or not param.trainable:
                 continue
-            ins = {"Param": [param], "Grad": [grad],
-                   "LearningRate": [self._param_lr(helper, lr, param)]}
+            ins = {"Param": [param], "Grad": [grad]}
+            if self.uses_lr:
+                ins["LearningRate"] = [self._param_lr(helper, lr, param)]
             outs = {"ParamOut": [param]}
             for spec in self.state_slots:
                 var = block.create_var(
@@ -162,6 +174,18 @@ class MomentumOptimizer(Optimizer):
         return {"mu": self._momentum, "use_nesterov": self._use_nesterov}
 
 
+class AdagradOptimizer(Optimizer):
+    op_type = "adagrad"
+    state_slots = (StateSlot("moment", "Moment", "MomentOut", 0.0),)
+
+    def __init__(self, learning_rate, epsilon=1e-6):
+        super().__init__(learning_rate)
+        self._epsilon = epsilon
+
+    def _hyper_attrs(self):
+        return {"epsilon": self._epsilon}
+
+
 class AdamOptimizer(Optimizer):
     op_type = "adam"
     state_slots = (StateSlot("moment1", "Moment1", "Moment1Out", 0.0),
@@ -182,6 +206,97 @@ class AdamOptimizer(Optimizer):
                 "epsilon": self._epsilon}
 
 
+class AdamaxOptimizer(Optimizer):
+    op_type = "adamax"
+    state_slots = (StateSlot("moment", "Moment", "MomentOut", 0.0),
+                   StateSlot("inf_norm", "InfNorm", "InfNormOut", 0.0))
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8):
+        super().__init__(learning_rate)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self.shared_scalars = (
+            SharedScalar("beta1_pow_acc", "Beta1Pow", beta1, beta1),)
+
+    def _hyper_attrs(self):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "epsilon": self._epsilon}
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    op_type = "decayed_adagrad"
+    state_slots = (StateSlot("moment", "Moment", "MomentOut", 0.0),)
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6):
+        super().__init__(learning_rate)
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _hyper_attrs(self):
+        return {"decay": self._decay, "epsilon": self._epsilon}
+
+
+class AdadeltaOptimizer(Optimizer):
+    op_type = "adadelta"
+    uses_lr = False
+    state_slots = (
+        StateSlot("avg_squared_grad", "AvgSquaredGrad",
+                  "AvgSquaredGradOut", 0.0),
+        StateSlot("avg_squared_update", "AvgSquaredUpdate",
+                  "AvgSquaredUpdateOut", 0.0))
+
+    def __init__(self, learning_rate=1.0, epsilon=1e-6, rho=0.95):
+        super().__init__(learning_rate)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _hyper_attrs(self):
+        return {"epsilon": self._epsilon, "rho": self._rho}
+
+
+class RMSPropOptimizer(Optimizer):
+    op_type = "rmsprop"
+    state_slots = (StateSlot("mean_square", "MeanSquare",
+                             "MeanSquareOut", 0.0),
+                   StateSlot("moment", "Moment", "MomentOut", 0.0))
+
+    def __init__(self, learning_rate, decay=0.9, epsilon=1e-6,
+                 momentum=0.0):
+        super().__init__(learning_rate)
+        self._decay = decay
+        self._epsilon = epsilon
+        self._momentum = momentum
+
+    def _hyper_attrs(self):
+        return {"decay": self._decay, "epsilon": self._epsilon,
+                "momentum": self._momentum}
+
+
+class FtrlOptimizer(Optimizer):
+    op_type = "ftrl"
+    state_slots = (StateSlot("squared", "SquaredAccumulator",
+                             "SquaredAccumOut", 0.0),
+                   StateSlot("linear", "LinearAccumulator",
+                             "LinearAccumOut", 0.0))
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5):
+        super().__init__(learning_rate)
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _hyper_attrs(self):
+        return {"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power}
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer

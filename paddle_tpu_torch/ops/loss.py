@@ -1,8 +1,11 @@
-"""Loss op kernels: `cross_entropy` and `softmax_with_cross_entropy`.
+"""Loss op kernels: `cross_entropy`, `softmax_with_cross_entropy` and
+`sigmoid_cross_entropy_with_logits`.
 
 Counterpart of paddle_tpu/ops/loss.py (reference: cross_entropy_op.cc,
-softmax_with_cross_entropy_op.cc).  Losses compute in f32: a bf16 input
-is upcast first, as on the JAX side.
+softmax_with_cross_entropy_op.cc,
+sigmoid_cross_entropy_with_logits_op.cc).  The first two compute in
+f32, a bf16 input upcast first, as on the JAX side; the sigmoid loss
+computes in its input's dtype, as the JAX side's does.
 """
 
 import torch
@@ -63,3 +66,19 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
     ids, valid = _hard_ids(ins["Label"][0], logp.shape[-1])
     loss = _nan_where_invalid(valid, -logp.gather(-1, ids))
     return {"Softmax": [torch.exp(logp)], "Loss": [loss]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
+    """Out = max(x, 0) - x * z + log(1 + exp(-|x|)), elementwise over
+    logits X and labels Z (cast to X's dtype): the stable form of
+    -z log(sigmoid(x)) - (1 - z) log(1 - sigmoid(x)).  Its grad is the
+    generic one."""
+    x = values_of(ins["X"][0])
+    label = values_of(ins["Label"][0]).to(x.dtype)
+    # torch.maximum, not clamp: its grad splits a tie at x == 0 evenly,
+    # as jnp.maximum's does
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    loss = torch.maximum(x, zero) - x * label \
+        + torch.log1p(torch.exp(-torch.abs(x)))
+    return {"Out": [loss]}

@@ -19,15 +19,16 @@ takes them reads `values_of(x)` and gives a ragged input's structure to
 its output with `like(x, out)`; a kernel that does not yet calls
 `dense(x, op_type)`, which refuses a ragged value by name.  The generic
 grad of a ragged input is ragged with the input's splits, as on the JAX
-side.
+side.  A sparse gradient is a `core.ragged.SelectedRows`; `sum` and the
+optimizer update ops take one, and `dense` refuses it elsewhere.
 """
 
 import contextlib
 
 import torch
 
-from ..core.ragged import RaggedTensor
-from ..core.types import GRAD_SUFFIX
+from ..core.ragged import RaggedTensor, SelectedRows
+from ..core.types import GRAD_SUFFIX, VarType
 
 __all__ = ["OpInfo", "register_op", "register_grad_kernel", "get_op_info",
            "has_op", "registered_ops", "is_grad_op_type",
@@ -45,9 +46,15 @@ def span(name):
 
 
 def dense(x, op_type):
-    """`x` if it is a dense tensor.  Anything else (a RaggedTensor)
-    raises NotImplementedError: ragged inputs to the ops off the
-    stacked-LSTM path wait with ROADMAP A7."""
+    """`x` if it is a dense tensor.  A SelectedRows raises TypeError: a
+    sparse gradient goes only to `sum` and the optimizer update ops, as
+    on the JAX side.  A RaggedTensor raises NotImplementedError: ragged
+    inputs to the ops off the stacked-LSTM path wait with ROADMAP A7."""
+    if isinstance(x, SelectedRows):
+        raise TypeError(
+            "%s takes dense tensors, got a SelectedRows (a sparse "
+            "gradient, which only `sum` and the optimizer update ops "
+            "take)" % op_type)
     if not isinstance(x, torch.Tensor):
         raise NotImplementedError(
             "%s: ragged (LoD) inputs to this op wait with ROADMAP A7 "
@@ -248,15 +255,24 @@ class _MetaCtx:
         raise RuntimeError("shape inference has no random stream")
 
 
-def _meta_value(shape, dtype, lod_level, sub):
+def _meta_value(shape, dtype, lod_level, sub,
+                var_type=VarType.DENSE_TENSOR):
     """A meta tensor of `shape` with every -1 dim `sub`; with a lod
     level, a RaggedTensor over it: `sub` sequences at every level, as on
     the JAX side, and a `max_seqlen` of 1, so a recurrence runs one step
-    (the time extent of a densified value reaches no output's shape)."""
+    (the time extent of a densified value reaches no output's shape).
+    A SELECTED_ROWS var is a SelectedRows of `sub` rows (a dynamic
+    count) and of height shape[0] (static, else `sub`)."""
     from ..core.types import torch_dtype
 
-    values = torch.empty(tuple(sub if d < 0 else d for d in shape),
-                         dtype=torch_dtype(dtype), device=META)
+    dims = tuple(sub if d < 0 else d for d in shape)
+    if var_type == VarType.SELECTED_ROWS:
+        height = dims[0] if dims else sub
+        return SelectedRows(
+            torch.empty((sub,), dtype=torch.int32, device=META),
+            torch.empty((sub,) + dims[1:], dtype=torch_dtype(dtype),
+                        device=META), height)
+    values = torch.empty(dims, dtype=torch_dtype(dtype), device=META)
     if not lod_level:
         return values
     splits = [torch.empty((sub + 1,), dtype=torch.int32, device=META)
@@ -268,26 +284,30 @@ def _meta_value(shape, dtype, lod_level, sub):
 
 def infer_meta(op_type, ins_meta, attrs):
     """{slot: [(shape, dtype name, lod level)]} of the outputs of op
-    `op_type` for inputs `ins_meta` {slot: [(shape, dtype, lod
-    level)]}: the kernel (or the op's `infer_shape`) run on meta
-    tensors (RaggedTensors over them where the lod level is above 0)
-    with every -1 dim substituted, twice where an input has one; a dim
-    that differs between the two runs is -1.  Dtypes are what the inputs
-    execute as (int64 as int32), so the result is what the op gives at
-    run time; a ragged output has the lod level of its RaggedTensor."""
+    `op_type` for inputs `ins_meta` {slot: [(shape, dtype, lod level[,
+    var type])]}: the kernel (or the op's `infer_shape`) run on meta
+    tensors (RaggedTensors over them where the lod level is above 0,
+    SelectedRows where the var type is SELECTED_ROWS) with every -1 dim
+    substituted, twice where an input has one or is a SelectedRows; a
+    dim that differs between the two runs is -1.  Dtypes are what the
+    inputs execute as (int64 as int32), so the result is what the op
+    gives at run time; a ragged output has the lod level of its
+    RaggedTensor.  A SelectedRows output's meta is (shape, dtype, 0,
+    SELECTED_ROWS), its shape [height, ...]."""
     info = get_op_info(op_type)
     fn = info.infer_shape or (
         lambda ins, a: info.kernel(_MetaCtx(), ins, a))
 
     def run(sub):
-        ins = {slot: [_meta_value(shape, dtype, lod, sub)
-                      for shape, dtype, lod in metas]
+        ins = {slot: [_meta_value(*meta[:3], sub, *meta[3:])
+                      for meta in metas]
                for slot, metas in ins_meta.items()}
         with torch.no_grad():
             return fn(ins, attrs)
 
-    dynamic = any(lod or any(d < 0 for d in shape)
-                  for metas in ins_meta.values() for shape, _, lod in metas)
+    dynamic = any(meta[2] or any(d < 0 for d in meta[0])
+                  or meta[3:] == (VarType.SELECTED_ROWS,)
+                  for metas in ins_meta.values() for meta in metas)
     out_a = run(_SUB_A)
     out_b = run(_SUB_B) if dynamic else out_a
     result = {}
@@ -296,6 +316,12 @@ def infer_meta(op_type, ins_meta, attrs):
         for va, vb in zip(vals, out_b[slot]):
             if va is None:
                 metas.append(None)
+                continue
+            if isinstance(va, SelectedRows):
+                shape = tuple(int(a) if a == b else -1
+                              for a, b in zip(va.shape, vb.shape))
+                metas.append((shape, str(va.dtype).replace("torch.", ""),
+                              0, VarType.SELECTED_ROWS))
                 continue
             lod = va.lod_level if isinstance(va, RaggedTensor) else 0
             va, vb = values_of(va), values_of(vb)

@@ -1,15 +1,18 @@
-"""Embedding op kernels: `lookup_table` and its dense grad.
+"""Embedding op kernels: `lookup_table` and its grad, dense or sparse.
 
 Counterpart of paddle_tpu/ops/sparse.py (reference:
-lookup_table_op.cc).  Ids are dense or ragged (LoD): ragged ids give
-ragged rows over their splits, and the rows that pad them to a bucket
-add nothing to the grad.  The SelectedRows gradient (`is_sparse`) waits
-with ROADMAP A7.
+lookup_table_op.cc, the CTR workload's sparse-update path).  Ids are
+dense or ragged (LoD): ragged ids give ragged rows over their splits,
+and the rows that pad them to a bucket add nothing to the grad.  With
+`is_sparse` the grad is a SelectedRows of one row per id, which the
+optimizer update ops apply row by row.  `split_selected_rows`, which
+shards such a grad across parameter servers, waits with ROADMAP A9/A10
+(the transpiler, send/recv and the native parameter server).
 """
 
 import torch
 
-from ..core.ragged import RaggedTensor
+from ..core.ragged import RaggedTensor, SelectedRows
 from .registry import like, register_grad_kernel, register_op, values_of
 
 
@@ -54,17 +57,19 @@ def lookup_table(ctx, ins, attrs):
 
 @register_grad_kernel("lookup_table")
 def lookup_table_grad(ctx, ins, attrs):
-    """The dense W@GRAD: OG@Out's rows added into zeros at their ids
+    """W@GRAD.  Dense: OG@Out's rows added into zeros at their ids
     (`index_add_`; on the card the adds are atomic, so rows hit twice
     sum in a varying order).  Rows of `padding_idx` ids add nothing;
     ids index as in the forward, and those outside [-vocab, vocab) add
     nothing, as the JAX side's scatter drops them; so do the rows that
-    pad ragged ids to a bucket."""
+    pad ragged ids to a bucket.
+
+    With `is_sparse`: a SelectedRows of height vocab, one row per id in
+    order, the raw ids (not wrapped: its consumers index as the JAX
+    side's scatter does, `core.ragged.row_index`) and OG@Out's rows in
+    its dtype, those of `padding_idx` ids and of ragged padding zero."""
     if attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table_grad with is_sparse=True gives a SelectedRows "
-            "gradient, which waits with ROADMAP A7 (SelectedRows and "
-            "lookup_table(is_sparse=True))")
+        return {"W@GRAD": [_sparse_grad(ins, attrs)]}
     w = ins["W"][0]
     vocab = w.shape[0]
     ids = ins["Ids"][0]
@@ -78,3 +83,20 @@ def lookup_table_grad(ctx, ins, attrs):
                     torch.zeros((), dtype=w.dtype, device=w.device))
     dense = torch.zeros_like(w).index_add_(0, flat.clamp(0, vocab - 1), g)
     return {"W@GRAD": [dense]}
+
+
+def _sparse_grad(ins, attrs):
+    w = ins["W"][0]
+    ids = ins["Ids"][0]
+    raw = values_of(ids).reshape(-1).to(torch.int32)
+    g = values_of(ins["OG@Out"][0]).reshape(-1, w.shape[1])
+    keep = None
+    padding_idx = int(attrs.get("padding_idx", -1))
+    if padding_idx >= 0:
+        keep = raw != padding_idx
+    if isinstance(ids, RaggedTensor):
+        keep = ids.valid_mask() if keep is None else keep & ids.valid_mask()
+    if keep is not None:
+        g = torch.where(keep[:, None], g,
+                        torch.zeros((), dtype=g.dtype, device=g.device))
+    return SelectedRows(raw, g, w.shape[0])

@@ -4,13 +4,14 @@
 Counterpart of paddle_tpu/ops/tensor_ops.py (reference:
 fill_constant_op.cc, cast_op.cc, scale_op.cc, split_op.cc,
 concat_op.cc, reshape_op.cc, sum_op.cc, increment_op.cc, top_k_op.cc).
-`sum` takes ragged (LoD) inputs; ragged inputs to the others wait with
-ROADMAP A7.
+`sum` takes ragged (LoD) and SelectedRows inputs; ragged inputs to the
+others wait with ROADMAP A7.
 """
 
 import numpy as np
 import torch
 
+from ..core.ragged import SelectedRows
 from ..core.types import torch_dtype
 from .registry import dense, like, register_op, values_of
 
@@ -80,12 +81,19 @@ def reshape(ctx, ins, attrs):
 def sum_op(ctx, ins, attrs):
     """The sum of the X inputs, added in order (the backward's grad
     accumulation); ragged over the first input's splits when it is
-    ragged (fc over several sequence inputs).  SelectedRows inputs wait
-    with ROADMAP A7."""
+    ragged (fc over several sequence inputs).  When every input is a
+    SelectedRows (a table looked up more than once), a SelectedRows of
+    all their rows and values, concatenated in order, with the first's
+    height; SelectedRows among dense inputs are densified first."""
     xs = ins["X"]
-    acc = values_of(xs[0])
-    for x in xs[1:]:
-        acc = acc + values_of(x)
+    if all(isinstance(x, SelectedRows) for x in xs):
+        return {"Out": [SelectedRows(torch.cat([x.rows for x in xs]),
+                                     torch.cat([x.values for x in xs]),
+                                     xs[0].height)]}
+    acc = None
+    for x in xs:
+        d = x.to_dense() if isinstance(x, SelectedRows) else values_of(x)
+        acc = d if acc is None else acc + d
     return {"Out": [like(xs[0], acc)]}
 
 

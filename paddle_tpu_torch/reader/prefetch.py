@@ -17,7 +17,8 @@ batch, its current stream waits on that event, and every tensor of the
 batch is recorded on that stream, so the side stream's allocator does
 not hand the memory out again while a step still reads it.  int64
 arrays stay on the host, as on the JAX side: the executor narrows them
-to int32 after its overflow check.
+to int32 after its overflow check.  A RaggedTensor or SelectedRows
+passes as it is, as on the JAX side: the executor moves it.
 """
 
 import queue
@@ -115,8 +116,8 @@ def device_prefetch(reader, place=None, depth=2):
     """`host_prefetch` that also moves each batch (a dict of arrays, the
     executor's feed, or a tuple or list of them) to `place`'s device on
     the worker thread; default place CUDAPlace(0).  Tensors already on
-    the device and int64 arrays pass as they are, and so does anything
-    that is not an array."""
+    the device, int64 arrays, RaggedTensors and SelectedRows pass as
+    they are, and so does anything that is not an array."""
     if place is None:
         from ..fluid.executor import CUDAPlace
 

@@ -7,7 +7,8 @@ from a grad OpDesc laid out as the backward builder lays it out.  The
 generic grads (`torch.func.vjp` of the forward kernel against
 `jax.vjp` of it) cover mul, elementwise_add (axis broadcast), split,
 relu, reshape, mean, softmax_with_cross_entropy and flash_attention;
-the explicit kernels layer_norm_grad and lookup_table_grad.
+the explicit kernels layer_norm_grad and lookup_table_grad (dense, and
+with is_sparse the SelectedRows grad).
 
 Tolerance: float32 at atol 1e-5 (the same f32 arithmetic, summed in
 other orders); integer and exact outputs must be equal.
@@ -317,17 +318,37 @@ def test_lookup_table_grad_negative_and_out_of_range_ids():
 
 
 def test_lookup_table_grad_sparse_is_refused():
-    ctx = texec.ExecContext(None, 0, {"ids": torch.zeros(2, dtype=torch.int32),
-                                      "w": torch.zeros(4, 2),
-                                      "g": torch.zeros(2, 2)})
-    op = OpDesc("lookup_table_grad",
-                {"Ids": ["ids"], "W": ["w"], "OG@Out": ["g"]},
-                {"W@GRAD": ["w@GRAD"]}, {"is_sparse": True})
-    # the SelectedRows gradient still waits with ROADMAP A7
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP A7 \(SelectedRows"):
-        texec.apply_op(ctx, op)
-    assert "w@GRAD" not in ctx.env
+    """Named for what it held before the SelectedRows gradient was
+    ported (a refusal): `lookup_table_grad` with is_sparse=True through
+    both executors' apply_op gives the JAX package's SelectedRows, the
+    raw ids as its rows (repeated, negative and out-of-range ones
+    included) and OG@Out's rows as its values, the padding_idx row's
+    zero."""
+    from paddle_tpu.core.ragged import SelectedRows as JRows
+    from paddle_tpu_torch.core.ragged import SelectedRows
+
+    ids = np.array([[1, -1, 1], [12, 3, 0]], np.int32)
+    values = {"ids": ids, "w": _f32(10, 4), "g": _f32(2, 3, 4, seed=1)}
+    op = ("lookup_table_grad",
+          {"Ids": ["ids"], "W": ["w"], "OG@Out": ["g"]},
+          {"W@GRAD": ["w@GRAD"]}, {"is_sparse": True, "padding_idx": 3})
+    jctx = jexec.ExecContext(None, None, 0,
+                             {n: jnp.asarray(a) for n, a in values.items()})
+    jexec.apply_op(jctx, JOpDesc(*op))
+    ctx = texec.ExecContext(None, 0, {n: torch.from_numpy(a)
+                                      for n, a in values.items()})
+    texec.apply_op(ctx, OpDesc(*op))
+    got, want = ctx.env["w@GRAD"], jctx.env["w@GRAD"]
+    assert isinstance(got, SelectedRows) and isinstance(want, JRows)
+    assert got.height == want.height == 10
+    np.testing.assert_array_equal(got.rows.numpy(), ids.reshape(-1))
+    np.testing.assert_array_equal(got.rows.numpy(), np.asarray(want.rows))
+    np.testing.assert_allclose(got.values.numpy(), np.asarray(want.values),
+                               rtol=0, atol=ATOL)
+    assert not got.values[4].any()   # the padding_idx id's row
+    np.testing.assert_allclose(got.to_dense().numpy(),
+                               np.asarray(want.to_dense()), rtol=0,
+                               atol=ATOL)
 
 
 def test_grad_op_of_unregistered_op_raises():

@@ -189,6 +189,10 @@ def test_registry_holds_the_slice_op_set():
         # the image models and the example's accuracy
         "dropout", "lrn", "top_k", "accuracy",
         # the stacked-LSTM classifier's sequence ops
-        "sequence_pool", "lstm"}
+        "sequence_pool", "lstm",
+        # sparse updates: the CTR model's loss and every update op
+        "sigmoid_cross_entropy_with_logits", "adagrad", "adamax",
+        "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "proximal_gd",
+        "proximal_adagrad"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")
