@@ -10,8 +10,11 @@ than one grad contribution, with the same op order, var names
 (`<var>@GRAD`, `@RENAME@<n>`, the `@RENAME@0r` rename before a `sum`)
 and grad VarDescs as the JAX side: the desc equals the JAX package's
 through `to_dict()`.  The grad ops go straight into the desc, without
-shape inference: each grad VarDesc mirrors its forward var.  The
-error-clip callback waits with clipping (ROADMAP A).
+shape inference: each grad VarDesc mirrors its forward var, found in
+the block or one of its parents, and a parent's stop_gradient vars get
+no grad.  The grad of a `recurrent` op (a StaticRNN or DynamicRNN) is
+its generic grad, as on the JAX side: no backward sub-block is built.
+The error-clip callback waits with clipping (ROADMAP A).
 """
 
 from collections import defaultdict
@@ -112,9 +115,22 @@ def _make_grad_op(op_desc, state, no_grad_names):
                   dict(op_desc.attrs))
 
 
-def _collect_no_grad(block, no_grad_set):
+def _chain(block, program):
+    """`block` (a BlockDesc) and its parents up to block 0, through the
+    ProgramDesc `program`."""
+    while True:
+        yield block
+        if block.parent_idx < 0:
+            return
+        block = program.block(block.parent_idx)
+
+
+def _collect_no_grad(block, no_grad_set, program):
+    """`no_grad_set` and every stop_gradient var of `block` and of its
+    parents."""
     return set(no_grad_set or ()) | {
-        name for name, vd in block.vars.items() if vd.stop_gradient}
+        name for b in _chain(block, program)
+        for name, vd in b.vars.items() if vd.stop_gradient}
 
 
 def append_backward(loss, parameter_list=None, no_grad_set=None):
@@ -128,7 +144,8 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
         wanted = set(parameter_list)
         params = [p for p in params if p.name in wanted]
     pairs = _append_backward_desc(block.desc, loss.name,
-                                  [p.name for p in params], no_grad_set)
+                                  [p.name for p in params], no_grad_set,
+                                  block.program.desc)
     block.sync_with_desc()
     by_name = {p.name: p for p in params}
     return [(by_name[p], block.var(g)) for p, g in pairs]
@@ -153,11 +170,14 @@ def _append_grad_ops(block, targets, target_grads, no_grad_names):
     return state
 
 
-def _append_backward_desc(block, loss_name, params, no_grad_set):
-    """append_backward on the BlockDesc `block`, for the parameters named
-    in `params`; returns [(param name, grad name)]."""
+def _append_backward_desc(block, loss_name, params, no_grad_set,
+                          program):
+    """append_backward on the BlockDesc `block` of the ProgramDesc
+    `program`, for the parameters named in `params`; returns
+    [(param name, grad name)].  A var of a parent block has its
+    stop_gradient and meta found there."""
     loss = block.var(loss_name)
-    no_grad_names = _collect_no_grad(block, no_grad_set)
+    no_grad_names = _collect_no_grad(block, no_grad_set, program)
 
     # seed: d loss / d loss = 1 (reference fills with fill_constant)
     loss_grad = grad_var_name(loss_name)
@@ -165,7 +185,7 @@ def _append_backward_desc(block, loss_name, params, no_grad_set):
         "fill_constant", {}, {"Out": [loss_grad]},
         {"shape": list(loss.shape) or [1], "value": 1.0,
          "dtype": loss.dtype}))
-    _ensure_grad_var(block, loss_name)
+    _ensure_grad_var(block, loss_name, program)
 
     state = _append_grad_ops(block, [loss_name], [loss_grad], no_grad_names)
 
@@ -180,7 +200,7 @@ def _append_backward_desc(block, loss_name, params, no_grad_set):
         block.ops.append(op)
         for n in op.output_names():
             if n != EMPTY:
-                _ensure_grad_var(block, _src_of(n))
+                _ensure_grad_var(block, _src_of(n), program)
         _apply_sparse_grad_types(block, op)
     return params_grads
 
@@ -219,10 +239,12 @@ def _apply_sparse_grad_types(block, op_desc):
                 block.vars[n].type = VarType.SELECTED_ROWS
 
 
-def _ensure_grad_var(block, src_name):
+def _ensure_grad_var(block, src_name, program):
     """Create the VarDescs of `src@GRAD` and of every rename of it that
-    an op already references, mirroring src's meta."""
-    src = block.vars.get(src_name)
+    an op already references, mirroring src's meta (src found in
+    `block` or a parent)."""
+    src = next((b.vars[src_name] for b in _chain(block, program)
+                if src_name in b.vars), None)
     gname = grad_var_name(src_name)
     names = [gname]
     for op in block.ops:

@@ -12,6 +12,14 @@ program makes) are written back to the scope after the run.
 While torch.profiler records, each op runs in a range named by its
 type, so a profile attributes device time to op types.
 
+A control-flow kernel runs a sub-block through `ExecContext.run_block`
+(the JAX side lowers the same call into its scan body): the sub-block's
+ops see only the env the kernel seeds (its closure, step inputs and
+memories) and what they write there; a name outside it raises a
+KeyError naming it.  The scope is not read from a sub-block: every
+outside value reaches it as an input of the op, so the generic grad
+differentiates it.
+
 A program without grad ops that writes no persistable runs under
 `torch.inference_mode()` (the served forward); any other runs under
 `torch.no_grad()`, since inference tensors cannot be saved for a
@@ -113,6 +121,18 @@ class ExecContext:
                                "through an Executor")
         return self._rng
 
+    def run_block(self, block_idx, env):
+        """Run every op of block `block_idx` against `env` (a dict the
+        caller seeds with the sub-block's inputs), which takes the ops'
+        outputs; returns it.  The random stream carries over (a
+        torch.Generator, advanced in place)."""
+        sub = ExecContext(self.program, block_idx, env, scope=None,
+                          place=self.place, device=self.device,
+                          rng=self._rng)
+        for op_desc in self.program.block(block_idx).ops:
+            apply_op(sub, op_desc)
+        return env
+
 
 def _lookup(ctx, name):
     if name in ctx.env:
@@ -121,7 +141,7 @@ def _lookup(ctx, name):
     if val is None:
         raise KeyError("variable %r is not initialized (op inputs must be "
                        "fed, persistable, or produced earlier in the "
-                       "block)" % name)
+                       "block; block %d)" % (name, ctx.block_idx))
     return val
 
 

@@ -12,7 +12,16 @@ Shape inference on `append_op` runs the op's kernel on meta tensors
 (`ops.registry.infer_meta`): it sets each output VarDesc's shape,
 dtype, lod level and type (SELECTED_ROWS where the op gives a
 SelectedRows), with -1 wherever a dynamic input dim reaches the
-output.
+output.  An op whose output shapes follow from descs rather than from
+running it (`recurrent`, which reads its step block's VarDescs) sets
+them through its `infer_desc` rule instead.
+
+Sub-blocks: `Program.create_block()` appends a block whose parent is
+the current block and makes it current until `rollback()`
+(`block_guard()` does both); the layers build into the current block,
+and parameters always go to block 0.  An op in a sub-block reads the
+vars of its parents: shape inference looks names up through the parent
+chain (`_find_var_desc`), as does `Block.var_recursive`.
 """
 
 import contextlib
@@ -177,6 +186,17 @@ class Block:
     def idx(self):
         return self.desc.idx
 
+    @property
+    def parent_idx(self):
+        return self.desc.parent_idx
+
+    @property
+    def parent_block(self):
+        """The enclosing Block, None for block 0."""
+        if self.parent_idx < 0:
+            return None
+        return self.program.block(self.parent_idx)
+
     def create_var(self, *args, **kwargs):
         v = Variable(self, *args, **kwargs)
         self.vars[v.name] = v
@@ -191,6 +211,15 @@ class Block:
     def has_var(self, name):
         return name in self.desc.vars
 
+    def has_var_recursive(self, name):
+        """Whether this block or one of its parents declares `name`."""
+        b = self
+        while b is not None:
+            if b.has_var(name):
+                return True
+            b = b.parent_block
+        return False
+
     def var(self, name):
         """The Variable `name` of this block; ValueError if absent."""
         if name in self.vars:
@@ -200,6 +229,17 @@ class Block:
             self.vars[name] = v
             return v
         raise ValueError("var %r not in block %d" % (name, self.idx))
+
+    def var_recursive(self, name):
+        """The Variable `name` of this block or of the nearest parent
+        that declares it; ValueError if none does."""
+        b = self
+        while b is not None:
+            if b.has_var(name):
+                return b.var(name)
+            b = b.parent_block
+        raise ValueError("var %r not found from block %d"
+                         % (name, self.idx))
 
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
@@ -239,6 +279,7 @@ class Program:
     def __init__(self):
         self.desc = ProgramDesc()
         self.blocks = [Block(self, self.desc.block(0))]
+        self.current_block_idx = 0
         self.random_seed = 0
         # names scope to the program (see unique_name)
         self._name_counters = {}
@@ -249,6 +290,7 @@ class Program:
         become Parameters; building on it appends to `desc`."""
         p = cls.__new__(cls)
         p.desc = desc
+        p.current_block_idx = 0
         p.random_seed = 0
         p._name_counters = {}
         p.blocks = [Block(p, bd) for bd in desc.blocks]
@@ -270,7 +312,29 @@ class Program:
         return self.blocks[idx]
 
     def current_block(self):
-        return self.blocks[0]
+        return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx=None):
+        """Append a block whose parent is `parent_idx` (default: the
+        current block) and make it the current block."""
+        parent = self.current_block_idx if parent_idx is None \
+            else parent_idx
+        b = Block(self, self.desc.append_block(parent))
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
+    @contextlib.contextmanager
+    def block_guard(self, parent_idx=None):
+        b = self.create_block(parent_idx)
+        try:
+            yield b
+        finally:
+            self.rollback()
 
     def list_vars(self):
         """Every Variable of every block, in desc order."""
@@ -300,7 +364,7 @@ class Program:
 
     def to_string(self):
         return "\n".join(
-            "Block[%d]\n%s" % (b.idx, "\n".join(
+            "Block[%d] parent=%d\n%s" % (b.idx, b.parent_idx, "\n".join(
                 ["  %r" % v for v in b.desc.vars.values()]
                 + ["  %r" % o for o in b.desc.ops]))
             for b in self.blocks)
@@ -325,6 +389,11 @@ def infer_shape_for_op(block, op_desc):
     mirror their forward vars; any other op runs on meta tensors.
     Failures raise InferShapeError naming the op."""
     try:
+        if op_registry.has_op(op_desc.type):
+            rule = op_registry.get_op_info(op_desc.type).infer_desc
+            if rule is not None:
+                rule(block, op_desc)
+                return
         if op_registry.is_grad_op_type(op_desc.type) \
                 and not op_registry.has_op(op_desc.type):
             _grad_op_infer_shape(block, op_desc)
@@ -333,7 +402,7 @@ def infer_shape_for_op(block, op_desc):
         for slot, names in op_desc.inputs.items():
             metas = []
             for n in names:
-                vd = _var_desc(block, n)
+                vd = _find_var_desc(block, n)
                 metas.append((vd.shape, vd.dtype, vd.lod_level, vd.type))
             ins_meta[slot] = metas
         outs = op_registry.infer_meta(op_desc.type, ins_meta, op_desc.attrs)
@@ -346,7 +415,7 @@ def infer_shape_for_op(block, op_desc):
         for n, meta in zip(names, outs.get(slot) or ()):
             if meta is None:
                 continue
-            vd = _var_desc(block, n)
+            vd = _find_var_desc(block, n)
             vd.shape, vd.dtype = meta[0], canonical_dtype(meta[1])
             vd.lod_level = meta[2]
             vd.type = meta[3] if len(meta) > 3 else VarType.DENSE_TENSOR
@@ -364,7 +433,9 @@ def _infer_error(block, op_desc, err, var_name=None):
                            var_name=var_name)
 
 
-def _var_desc(block, name):
+def _find_var_desc(block, name):
+    """The VarDesc `name` of `block` or of the nearest parent declaring
+    it; a KeyError (carrying `var_name`) if none does."""
     bd = block.desc
     while True:
         if name in bd.vars:
@@ -377,13 +448,20 @@ def _var_desc(block, name):
         bd = block.program.desc.block(bd.parent_idx)
 
 
+def _find_var_desc_or_none(block, name):
+    try:
+        return _find_var_desc(block, name)
+    except KeyError:
+        return None
+
+
 def _grad_op_infer_shape(block, op_desc):
-    """X@GRAD has the meta of X."""
+    """X@GRAD has the meta of X (either found through the parents)."""
     for names in op_desc.outputs.values():
         for n in names:
             if n.endswith(GRAD_SUFFIX):
-                src = block.desc.vars.get(n[: -len(GRAD_SUFFIX)])
-                vd = block.desc.vars.get(n)
+                src = _find_var_desc_or_none(block, n[: -len(GRAD_SUFFIX)])
+                vd = _find_var_desc_or_none(block, n)
                 if src is not None and vd is not None:
                     vd.shape, vd.dtype = src.shape, src.dtype
                     vd.lod_level = src.lod_level

@@ -27,7 +27,7 @@ import os
 import numpy as np
 import torch
 
-from ..core.desc import ProgramDesc
+from ..core.desc import BlockRef, ProgramDesc
 from ..core.ragged import RaggedTensor
 from ..core.scope import Scope, global_scope
 from ..core.types import np_dtype, tensor_from_numpy
@@ -185,34 +185,75 @@ def _names(vars_or_names):
             for v in vars_or_names]
 
 
+def _op_block_refs(op):
+    """The sub-block indices an op's attrs reference."""
+    refs = []
+    for v in op.attrs.values():
+        if isinstance(v, BlockRef):
+            refs.append(v.idx)
+        elif isinstance(v, (list, tuple)):
+            refs.extend(x.idx for x in v if isinstance(x, BlockRef))
+    return refs
+
+
+def _closure_reads(desc, block_idx, memo):
+    """Every name a block tree reads before writing it and does not
+    declare: what a parent must keep alive when it keeps the op that
+    owns the tree.  The control-flow layers list their closure among the
+    op's inputs already; this is the net for an op that does not."""
+    if block_idx in memo:
+        return memo[block_idx]
+    bd = desc.block(block_idx)
+    reads, writes = set(), set()
+    for op in bd.ops:
+        for n in op.input_names():
+            if n != "@EMPTY@" and n not in writes:
+                reads.add(n)
+        for sub in _op_block_refs(op):
+            reads |= _closure_reads(desc, sub, memo) - writes
+        writes.update(op.output_names())
+    memo[block_idx] = {n for n in reads if n not in bd.vars}
+    return memo[block_idx]
+
+
 def prune_program(program, targets):
     """The test clone of `program` (a Program or ProgramDesc) keeping
     only the block-0 ops that `targets` (Variables or names) need, and
     the VarDescs those ops or the targets name, and every persistable
-    (reference: framework/prune.cc)."""
+    (reference: framework/prune.cc).  A kept op keeps its whole
+    sub-block tree, and the closure that tree reads; every sub-block
+    stays, and so do the block-0 VarDescs a sub-block names."""
     target_names = set(_names(targets))
     pruned = _as_program(program).clone(for_test=True)
-    block = pruned.desc.block(0)
-    needed, produced, keep = set(target_names), set(), []
+    desc = pruned.desc
+    block = desc.block(0)
+    needed, produced, keep, memo = set(target_names), set(), [], {}
     for op in reversed(block.ops):
         if any(n in needed for n in op.output_names()):
             keep.append(op)
             needed.update(n for n in op.input_names() if n != "@EMPTY@")
             produced.update(op.output_names())
+            for sub in _op_block_refs(op):
+                needed |= _closure_reads(desc, sub, memo)
     block.ops = keep[::-1]
     for name in target_names:
         if name in produced or (name in block.vars
                                 and block.vars[name].persistable):
             continue
         if name not in block.vars:
-            raise ValueError("inference target %r is not a block-0 "
-                             "variable" % name)
+            raise ValueError(
+                "inference target %r is not a block-0 variable; fetch a "
+                "block-0 output (the recurrent group's result, not a "
+                "variable inside its step block)" % name)
         raise ValueError("inference target %r is produced by no op (feed "
                          "variables cannot be targets)" % name)
     referenced = set(target_names)
-    for op in block.ops:
-        referenced.update(op.input_names())
-        referenced.update(op.output_names())
+    for b in desc.blocks:
+        for op in b.ops:
+            referenced.update(op.input_names())
+            referenced.update(op.output_names())
+        if b.idx != 0:
+            referenced.update(b.vars)
     for name in list(block.vars):
         if name not in referenced and not block.vars[name].persistable:
             del block.vars[name]

@@ -19,7 +19,7 @@ __all__ = [
     "layer_norm", "split", "flash_attention", "cached_attention",
     "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "dropout",
     "lrn", "accuracy", "dynamic_lstm", "sequence_pool",
-    "sequence_first_step", "sequence_last_step",
+    "sequence_first_step", "sequence_last_step", "transpose",
 ]
 
 
@@ -357,6 +357,16 @@ def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, **kwargs):
     helper.append_op(type="lrn", inputs={"X": [input]},
                      outputs={"Out": [out], "MidOut": [mid]},
                      attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def transpose(x, perm, **kwargs):
+    """x with its dims permuted by `perm` (reference: layers/nn.py
+    transpose)."""
+    helper = LayerHelper("transpose", **kwargs)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="transpose", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": list(perm)})
     return out
 
 

@@ -6,8 +6,8 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["create_tensor", "create_parameter", "create_global_var", "cast",
-           "concat", "sums", "fill_constant", "ones", "zeros", "reshape",
-           "increment"]
+           "concat", "sums", "fill_constant", "fill_constant_batch_size_like",
+           "ones", "zeros", "reshape", "increment"]
 
 
 def create_tensor(dtype, name=None, persistable=False, **kwargs):
@@ -67,6 +67,22 @@ def fill_constant(shape, dtype, value, out=None, **kwargs):
                      attrs={"shape": [int(s) for s in shape],
                             "dtype": dtype, "value": float(value)})
     out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0,
+                                  **kwargs):
+    """`value` in a tensor of `shape` whose dim `output_dim_idx` is dim
+    `input_dim_idx` of `input` at run time (the batch)."""
+    helper = LayerHelper("fill_constant_batch_size_like", **kwargs)
+    out = helper.create_tmp_variable(dtype, stop_gradient=True)
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [input]}, outputs={"Out": [out]},
+        attrs={"shape": [int(s) for s in shape], "dtype": dtype,
+               "value": float(value), "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx})
     return out
 
 

@@ -2,15 +2,16 @@
 
 Counterpart of paddle_tpu/models/text.py (reference:
 benchmark/paddle/rnn/rnn.py, tests/book/
-test_understand_sentiment_dynamic_lstm.py): the stacked-LSTM
-classifier that bench.py trains as `BENCH_MODEL=lstm`.  The convolution
-classifier (`sequence_conv`) and seq2seq (`DynamicRNN`) wait with
-ROADMAP A7.
+test_understand_sentiment_dynamic_lstm.py,
+tests/book/test_machine_translation.py): the stacked-LSTM classifier
+that bench.py trains as `BENCH_MODEL=lstm`, and the seq2seq translation
+model of the machine-translation book test.  The convolution classifier
+(`sequence_conv`) waits with ROADMAP A7.
 """
 
 from ..fluid import layers
 
-__all__ = ["stacked_lstm_text_classifier"]
+__all__ = ["stacked_lstm_text_classifier", "seq2seq"]
 
 
 def stacked_lstm_text_classifier(data, dict_dim, class_dim=2,
@@ -35,3 +36,35 @@ def stacked_lstm_text_classifier(data, dict_dim, class_dim=2,
     lstm_last = layers.sequence_pool(input=inputs[1], pool_type="max")
     return layers.fc(input=[fc_last, lstm_last], size=class_dim,
                      act="softmax")
+
+
+def seq2seq(src, trg_in, src_dict_size, trg_dict_size, emb_dim=32,
+            hidden_dim=32, encoder_depth=1):
+    """Encoder-decoder translation model, the teacher-forced training
+    path (reference: tests/book/test_machine_translation.py): an LSTM
+    encoder over the source embedding, and a DynamicRNN decoder seeded
+    from the encoder's last state whose step runs an fc over the target
+    embedding and its memory, then the softmax over the target
+    dictionary.  Returns the per-step probabilities (ragged, aligned
+    with `trg_in`)."""
+    src_emb = layers.embedding(input=src, size=[src_dict_size, emb_dim])
+    enc_proj = layers.fc(input=src_emb, size=hidden_dim * 4)
+    enc_hidden, _ = layers.dynamic_lstm(input=enc_proj,
+                                        size=hidden_dim * 4)
+    for _ in range(1, encoder_depth):
+        enc_proj = layers.fc(input=enc_hidden, size=hidden_dim * 4)
+        enc_hidden, _ = layers.dynamic_lstm(input=enc_proj,
+                                            size=hidden_dim * 4)
+    enc_last = layers.sequence_last_step(input=enc_hidden)  # [B, hid]
+
+    trg_emb = layers.embedding(input=trg_in, size=[trg_dict_size, emb_dim])
+
+    rnn = layers.DynamicRNN()
+    with rnn.block():
+        cur = rnn.step_input(trg_emb)
+        mem = rnn.memory(init=enc_last)
+        out = layers.fc(input=[cur, mem], size=hidden_dim, act="tanh")
+        prob = layers.fc(input=out, size=trg_dict_size, act="softmax")
+        rnn.update_memory(mem, out)
+        rnn.step_output(prob)
+    return rnn.outputs[0]

@@ -14,3 +14,4 @@ from . import optimizer_ops  # noqa: F401
 from . import random  # noqa: F401
 from . import metrics  # noqa: F401
 from . import sequence  # noqa: F401
+from . import control_flow  # noqa: F401

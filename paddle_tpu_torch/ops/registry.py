@@ -12,7 +12,17 @@ Shape inference (`infer_meta`, the counterpart of the JAX side's
 device, which carry a shape and a dtype and no values.  An op whose
 kernel cannot run there (one that reads values, or launches a CUDA
 kernel on `data_ptr()`) registers an `infer_shape` stand-in instead: a
-function of the same (ins, attrs) over meta tensors.
+function of the same (ins, attrs) over meta tensors.  An op whose
+output metas follow from descs rather than from its inputs' shapes
+(`recurrent` reads its step block's VarDescs; `sequence_to_dense`
+leaves its time extent dynamic) registers an `infer_desc` rule, a
+function of (block, op_desc) that sets the output VarDescs itself, as
+the JAX side's `infer_shape` hooks do.
+
+A kernel that runs a sub-block (`recurrent`) does so through
+`ctx.run_block` (fluid/executor.py); every tensor the sub-block reads
+from outside is one of the op's inputs, so the generic grad takes the
+vjp of all of them at once.
 
 Ragged (LoD) values are `core.ragged.RaggedTensor`s.  A kernel that
 takes them reads `values_of(x)` and gives a ragged input's structure to
@@ -75,18 +85,21 @@ def like(x, out):
 
 
 class OpInfo:
-    __slots__ = ("type", "kernel", "grad_kernel", "infer_shape", "uses_rng",
-                 "nondiff_inputs", "stop_gradient_op", "in_place_outputs",
-                 "sparse_grad_slots")
+    __slots__ = ("type", "kernel", "grad_kernel", "infer_shape",
+                 "infer_desc", "uses_rng", "nondiff_inputs",
+                 "stop_gradient_op", "in_place_outputs", "sparse_grad_slots")
 
     def __init__(self, type, kernel, grad_kernel=None, infer_shape=None,
-                 uses_rng=False, nondiff_inputs=(), stop_gradient_op=False,
-                 in_place_outputs=(), sparse_grad_slots=None):
+                 infer_desc=None, uses_rng=False, nondiff_inputs=(),
+                 stop_gradient_op=False, in_place_outputs=(),
+                 sparse_grad_slots=None):
         self.type = type
         self.kernel = kernel
         self.grad_kernel = grad_kernel        # None => generic vjp kernel
         # fn(ins, attrs) -> outs over meta tensors; None => the kernel
         self.infer_shape = infer_shape
+        # fn(block, op_desc) setting the output VarDescs; None => meta run
+        self.infer_desc = infer_desc
         self.uses_rng = uses_rng
         self.nondiff_inputs = tuple(nondiff_inputs)  # slots never differentiated
         self.stop_gradient_op = stop_gradient_op     # no grads flow at all

@@ -1,4 +1,5 @@
-"""Sequence op kernels over RaggedTensors: `sequence_pool` and `lstm`.
+"""Sequence op kernels over RaggedTensors: `sequence_pool`, `lstm`,
+and `sequence_to_dense`/`dense_to_sequence`.
 
 Counterpart of paddle_tpu/ops/sequence.py (reference:
 sequence_pool_op.cc, lstm_op.cc + math/lstm_compute), the two sequence
@@ -9,8 +10,11 @@ splits a gradient evenly among tied maxima, as the JAX side's
 [B, maxT] by a masked gather, runs a Python loop over time on the
 executor's device and gathers the steps back into rows.  The loop's
 extent is `max_seqlen`, a host int, so no step waits on the device to
-learn it.  Every grad is the generic vjp (ops/registry.py).  The other
-sequence ops, gru and the control-flow ops wait with ROADMAP A7.
+learn it.  `sequence_to_dense` and `dense_to_sequence` are the
+DynamicRNN's bridge between ragged values and the time-major padded
+tensors of the `recurrent` engine (ops/control_flow.py).  Every grad is
+the generic vjp (ops/registry.py).  The other sequence ops and gru wait
+with ROADMAP A7.
 """
 
 import torch
@@ -227,3 +231,47 @@ def lstm(ctx, ins, attrs):
     cell = padded_to_ragged(cs.to(x.values.dtype), x)
     return {"Hidden": [hidden], "Cell": [cell],
             "BatchGate": [x], "BatchCellPreAct": [cell]}
+
+
+def _sequence_to_dense_infer(block, op_desc):
+    """Out [-1, -1, ...X's row], Mask float32 [-1, -1]: the padded time
+    extent is dynamic (the JAX side's `_sequence_to_dense_infer`)."""
+    from ..fluid.framework import _find_var_desc
+
+    xv = _find_var_desc(block, op_desc.input("X")[0])
+    out = _find_var_desc(block, op_desc.output("Out")[0])
+    mask = _find_var_desc(block, op_desc.output("Mask")[0])
+    out.shape = (-1, -1) + tuple(xv.shape[1:] if xv.shape else ())
+    out.dtype, out.lod_level = xv.dtype, 0
+    mask.shape, mask.dtype, mask.lod_level = (-1, -1), "float32", 0
+
+
+@register_op("sequence_to_dense", infer_desc=_sequence_to_dense_infer)
+def sequence_to_dense(ctx, ins, attrs):
+    """Ragged [T, ...] -> padded [B, maxT, ...] and its float32 validity
+    Mask [B, maxT], maxT the `max_seqlen` hint (`ragged_to_padded`);
+    rows past `nvalid` stay out."""
+    padded, lens = ragged_to_padded(ins["X"][0])
+    t = torch.arange(padded.shape[1], dtype=lens.dtype, device=lens.device)
+    mask = (t[None, :] < lens[:, None]).to(torch.float32)
+    return {"Out": [padded], "Mask": [mask]}
+
+
+def _dense_to_sequence_infer(block, op_desc):
+    """Out [-1, ...X's dims past the time axis] with Like's lod level
+    (the JAX side's `_dense_to_sequence_infer`)."""
+    from ..fluid.framework import _find_var_desc
+
+    xv = _find_var_desc(block, op_desc.input("X")[0])
+    like = _find_var_desc(block, op_desc.input("Like")[0])
+    out = _find_var_desc(block, op_desc.output("Out")[0])
+    out.shape = (-1,) + tuple(xv.shape[2:] if xv.shape else ())
+    out.dtype, out.lod_level = xv.dtype, like.lod_level
+
+
+@register_op("dense_to_sequence", infer_desc=_dense_to_sequence_infer)
+def dense_to_sequence(ctx, ins, attrs):
+    """Padded [B, maxT, ...] -> ragged over Like's splits
+    (`padded_to_ragged`): each valid row takes its (sequence, step), a
+    row past `nvalid` 0.  Like's values are not read."""
+    return {"Out": [padded_to_ragged(ins["X"][0], ins["Like"][0])]}

@@ -1,9 +1,11 @@
-"""Tensor op kernels: `fill_constant`, `cast`, `scale`, `split`,
-`concat`, `reshape`, `sum`, `increment` and `top_k`.
+"""Tensor op kernels: `fill_constant`, `fill_constant_batch_size_like`,
+`cast`, `scale`, `split`, `concat`, `reshape`, `transpose`, `sum`,
+`increment` and `top_k`.
 
 Counterpart of paddle_tpu/ops/tensor_ops.py (reference:
-fill_constant_op.cc, cast_op.cc, scale_op.cc, split_op.cc,
-concat_op.cc, reshape_op.cc, sum_op.cc, increment_op.cc, top_k_op.cc).
+fill_constant_op.cc, fill_constant_batch_size_like_op.cc, cast_op.cc,
+scale_op.cc, split_op.cc, concat_op.cc, reshape_op.cc, transpose_op.cc,
+sum_op.cc, increment_op.cc, top_k_op.cc).
 `sum` takes ragged (LoD) and SelectedRows inputs; ragged inputs to the
 others wait with ROADMAP A7.
 """
@@ -21,6 +23,20 @@ def fill_constant(ctx, ins, attrs):
     """`value` in a tensor of `shape` and `dtype` on the executor's
     device."""
     shape = tuple(int(s) for s in attrs["shape"])
+    return {"Out": [torch.full(shape, attrs.get("value", 0.0),
+                               dtype=torch_dtype(attrs.get("dtype",
+                                                           "float32")),
+                               device=ctx.device)]}
+
+
+@register_op("fill_constant_batch_size_like", stop_gradient_op=True)
+def fill_constant_batch_size_like(ctx, ins, attrs):
+    """`value` in a tensor of `shape`, whose dim `output_dim_idx` is dim
+    `input_dim_idx` of Input (of its values when ragged)."""
+    ref = values_of(ins["Input"][0])
+    shape = [int(s) for s in attrs["shape"]]
+    shape[int(attrs.get("output_dim_idx", 0))] = \
+        ref.shape[int(attrs.get("input_dim_idx", 0))]
     return {"Out": [torch.full(shape, attrs.get("value", 0.0),
                                dtype=torch_dtype(attrs.get("dtype",
                                                            "float32")),
@@ -75,6 +91,13 @@ def reshape(ctx, ins, attrs):
     shape = [x.shape[i] if int(s) == 0 else int(s)
              for i, s in enumerate(attrs["shape"])]
     return {"Out": [x.reshape(shape)]}
+
+
+@register_op("transpose")
+def transpose(ctx, ins, attrs):
+    """X with its dims permuted by `axis` (a view)."""
+    x = dense(ins["X"][0], "transpose")
+    return {"Out": [x.permute(*[int(a) for a in attrs["axis"]])]}
 
 
 @register_op("sum")

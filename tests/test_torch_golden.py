@@ -1,13 +1,14 @@
 """The port's program builder against the pinned golden programs.
 
-`tests/fixtures/golden/{fit_a_line,conv_classifier,transformer}.json`
-are the JAX package's serialized ProgramDescs of the builders in
-`tests/test_golden_programs.py` (the three whose ops the port has).  The
-port's `fluid.layers` run the same builder code, and each program
-serializes equal to its JSON, exactly (descs are data).  This file reads
-the fixtures and imports nothing of JAX.  The port then trains on the
-programs it built: fit-a-line's loss falls under SGD, and the conv
-classifier and the transformer take a finite step.
+`tests/fixtures/golden/{fit_a_line,conv_classifier,transformer,
+dynamic_rnn,deepfm}.json` are the JAX package's serialized ProgramDescs
+of the builders in `tests/test_golden_programs.py` (the five whose ops
+the port has; `dynamic_rnn` has a step sub-block).  The port's
+`fluid.layers` run the same builder code, and each program serializes
+equal to its JSON, exactly (descs are data).  This file reads the
+fixtures and imports nothing of JAX.  The port then trains on the
+programs it built: fit-a-line's loss falls under SGD, and the others
+take a finite step.
 """
 
 import json
@@ -18,6 +19,8 @@ import pytest
 import torch
 
 import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch.core.ragged import RaggedTensor
+from paddle_tpu_torch.models.ctr import deepfm_ctr
 from paddle_tpu_torch.models.transformer_program import (
     build_transformer_program, transformer_feeds)
 
@@ -65,8 +68,34 @@ def _transformer():
     return main, startup, loss
 
 
+def _dynamic_rnn():
+    x = fluid.layers.data(name="x", shape=[8], dtype="float32",
+                          lod_level=1)
+    drnn = fluid.layers.DynamicRNN()
+    with drnn.block():
+        step = drnn.step_input(x)
+        mem = drnn.memory(shape=[8], batch_ref=step, value=0.0)
+        h = fluid.layers.fc(input=[step, mem], size=8, act="tanh")
+        drnn.update_memory(mem, h)
+        drnn.output(h)
+    last = fluid.layers.sequence_last_step(input=drnn())
+    loss = fluid.layers.mean(x=last)
+    fluid.optimizer.SGD(learning_rate=0.01).minimize(loss)
+    return _defaults(loss)
+
+
+def _deepfm():
+    ids = fluid.layers.data(name="ids", shape=[4], dtype="int64")
+    label = fluid.layers.data(name="label", shape=[1], dtype="float32")
+    loss, _ = deepfm_ctr(ids, label, num_features=64, num_fields=4,
+                         embed_dim=4, hidden_sizes=(8,))
+    fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return _defaults(loss)
+
+
 CASES = {"fit_a_line": _fit_a_line, "conv_classifier": _conv_classifier,
-         "transformer": _transformer}
+         "transformer": _transformer, "dynamic_rnn": _dynamic_rnn,
+         "deepfm": _deepfm}
 
 
 def _build(case):
@@ -93,6 +122,13 @@ def _feeds(case, step):
     if case == "conv_classifier":
         return {"img": rs.rand(8, 1, 28, 28).astype(np.float32),
                 "label": rs.randint(0, 10, (8, 1)).astype(np.int64)}
+    if case == "dynamic_rnn":
+        return {"x": RaggedTensor.from_sequences(
+            [rs.randn(n, 8).astype(np.float32) for n in (3, 1, 5)],
+            bucket=16)}
+    if case == "deepfm":
+        return {"ids": rs.randint(0, 64, (8, 4)).astype(np.int64),
+                "label": rs.randint(0, 2, (8, 1)).astype(np.float32)}
     return transformer_feeds(2, 8, 32, seed=step, targets=True)
 
 

@@ -193,6 +193,9 @@ def test_registry_holds_the_slice_op_set():
         # sparse updates: the CTR model's loss and every update op
         "sigmoid_cross_entropy_with_logits", "adagrad", "adamax",
         "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "proximal_gd",
-        "proximal_adagrad"}
+        "proximal_adagrad",
+        # sub-blocks: the DynamicRNN engine and its bridges
+        "recurrent", "sequence_to_dense", "dense_to_sequence", "transpose",
+        "fill_constant_batch_size_like"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")
