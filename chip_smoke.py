@@ -155,9 +155,9 @@ no result line:
      relative L2); the JAX test's loop on the card (dict 1,000, batch
      8, 60 steps) from 5 initial states: its criterion printed for each,
      and the gate, the first 6 batches' loss after the steps below the
-     losses recorded on them on average; one step run twice, with and
-     without torch's deterministic algorithms (the grads that differ);
-     one training step with CUDA's synchronizing calls made errors; the
+     losses recorded on them on average; one step run twice from one
+     state without torch's deterministic algorithms, whose grads and
+     state must repeat bit for bit; one training step with CUDA's synchronizing calls made errors; the
      export of `prob` served by InferenceEngine and InferenceServer (3
      concurrent requests of 1, 2 and 3 sentence pairs, then 8 pairs in
      one engine.run) against the CPU plain path; at batch 8 and 128 the
@@ -166,6 +166,34 @@ no result line:
      device time by graph replay, and eager) beside its bound and
      cuDNN's RNN (a different function).  No hand-written kernel runs
      here.
+  12. book: the Fluid book's chapters of the sequence-op slice.  Each of
+     the 15 op types it added (cos_sim, sequence_conv, linear_chain_crf,
+     crf_decoding with and without Label, chunk_eval, sequence_softmax,
+     row_conv, sequence_expand, sequence_concat, sequence_reshape,
+     sequence_slice, sequence_reverse, lod_reset, gru, gru_unit) on the
+     card against its CPU run on seeded ragged inputs with an empty and
+     a length-1 sequence, forward and generic grad, and whether each
+     grad repeats bit for bit (reported).  The main path: the sentiment
+     chapter's conv model (tests/test_understand_sentiment.py,
+     models/text.py conv_text_classifier at its own widths: embedding
+     128, hidden 128, filters 3 and 4, the 5,147-word imdb dictionary, 2
+     classes, Adam at lr 0.05; 774,274 parameter values): 3 steps at
+     batch 16 on the card against the CPU plain path from one state,
+     one step run twice (grads and state bit for bit), at batch 128 and
+     16 one pass over the imdb reader through DataFeeder,
+     device_prefetch and Executor.run (peak memory of 3 steps), the
+     step's median, samples/s and a profiled step, and the export
+     served by InferenceEngine and InferenceServer (3 concurrent
+     requests of 1, 2 and 3 sequences) against the CPU plain path.
+     Then the SRL (two LSTMs, linear_chain_crf and crf_decoding sharing
+     `crfw`, SGD) at batch 8 and 128, word2vec at 64, the recommender
+     at 64 and fit-a-line at 20, as their JAX tests build them: 3 steps
+     on the card against the CPU from one state, the SRL's Viterbi paths
+     and chunk_eval over them equal, and each step's time.  Last, the
+     device times of sequence_conv (beside F.conv1d over the
+     zero-padded batch), linear_chain_crf and its grad, crf_decoding,
+     and gru and its grad (beside cuDNN's GRU, a different function),
+     each beside its bound.  No hand-written kernel runs here.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -417,14 +445,13 @@ S2S_CONV_DICT, S2S_CONV_STEPS = 1000, 60
 # JAX package's own loop rises from 1 of 8 initial states (random_seed
 # 4: 6.8686 -> 6.9146), the port from 6 of 16 (`PYTHONPATH=. python
 # tests/test_torch_seq2seq.py` prints both), and on an H100 the port
-# rose from its seed-0 and seed-2 states.  Nor does the card repeat a
-# run: lookup_table_grad's index_add_ sums the rows of a repeated id
-# (every target starts with id 0) with atomic adds in a varying order,
-# and 60 Adam steps at lr 0.02 grow those rounding differences (the
-# seed-0 state's last-6 mean read 6.8962, 6.9566, 6.8635 and 6.8757 on
-# four H100 runs).  One step run twice differs in the target
-# embedding's grad alone, and in none under torch's deterministic
-# algorithms (printed below).  So the criterion is printed for each
+# rose from its seed-0 and seed-2 states.  The card repeats a run bit
+# for bit since lookup_table_grad sums the rows of a repeated id (every
+# target starts with id 0) in a fixed order (core/ragged.py sum_rows);
+# before, its atomic adds summed them in a varying order and 60 Adam
+# steps at lr 0.02 grew those rounding differences (the seed-0 state's
+# last-6 mean read 6.8962, 6.9566, 6.8635 and 6.8757 on four H100
+# runs).  So the criterion is printed for each
 # state, and the gate makes the same comparison on fixed batches: the
 # loss of the first 6 batches after the 60 steps against the losses
 # recorded on them, averaged over S2S_CONV_INITS initial states
@@ -435,7 +462,7 @@ S2S_CONV_DICT, S2S_CONV_STEPS = 1000, 60
 # (mean 0.271), and the seed-0 state 0.210 and 0.188 in two runs.  A
 # model that learned nothing reads 0: the gate is about 3 deviations of
 # the mean above 0 and 3 below what the states read.  The seed-0 state
-# runs twice to print the card's run-to-run spread
+# runs twice: its two runs print alike now that a step repeats
 S2S_CONV_INITS = 5
 S2S_CONV_FALL = 0.1
 S2S_SERVE = 8                   # one engine.run of 8 sentence pairs
@@ -3031,7 +3058,9 @@ def ctr_serve(trained, main, predict):
 
 def ctr_timing(exe, features, opt, smi):
     """The step of `opt` at `features` features on the card, its feed
-    there: 3 steps with their peak memory, the median of 10 after 2 warm,
+    there: at CTR_BIG_FEATURES under Adam and SGD first one step run
+    twice from one state (`repeat_gate`), then 3 steps with their peak
+    memory, the median of 10 after 2 warm,
     samples/s, a profiled step (busy share, launches, the update ops'
     device ms beside their bound by bytes) and, at CTR_BIG_FEATURES,
     the update op alone on the table."""
@@ -3045,6 +3074,10 @@ def ctr_timing(exe, features, opt, smi):
     block = main.desc.block(0)
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
+    if features == CTR_BIG_FEATURES and opt in ("Adam", "SGD"):
+        repeat_gate("ctr %s at %d features" % (opt, features), exe, main,
+                    feed, {n: scope.get(n) for n, v in block.vars.items()
+                           if v.persistable})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     first = [float(exe.run(main, feed=feed, fetch_list=[loss],
@@ -3480,11 +3513,9 @@ def s2s_convergence(exe):
     the fall of the first 6 batches' loss after the steps against the
     losses recorded on them, whose mean over the states is the gate
     (S2S_CONV_FALL).  The seed-0 state runs twice.  Before that, one
-    step from one state and feed, twice, with and without PyTorch's
-    deterministic algorithms: the grads that differ bit for bit."""
-    import warnings
-
-    import torch
+    step from one state and feed, twice, without PyTorch's deterministic
+    algorithms: no grad and no state tensor may differ bit for bit
+    (`repeat_gate`)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.fluid import io
 
@@ -3501,30 +3532,11 @@ def s2s_convergence(exe):
         exe.run(startup, scope=scope)
         return {n: scope.get(n).cpu().numpy() for n in persist}
 
-    # the card's run-to-run differences: one step's grads, twice
-    grads = [p.name + "@GRAD" for p in main.global_block().all_parameters()]
-    init = state(0)
-
-    def differing():
-        runs = [exe.run(main, feed=feeds[0], fetch_list=grads,
-                        scope=params_scope(init, exe.device))
-                for _ in range(2)]
-        return [g for g, a, b in zip(grads, *runs)
-                if not np.array_equal(a, b)]
-
-    plain = differing()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            fixed = differing()
-        finally:
-            torch.use_deterministic_algorithms(False)
-    print("seq2seq: one step from one state and feed, run twice: the grads "
-          "that differ bit for bit %s (of %d); with torch's deterministic "
-          "algorithms %s, warnings: %s"
-          % (plain or "none", len(grads), fixed or "none", sorted(
-              {str(w.message)[:90] for w in caught}) or "none"), flush=True)
+    # one step from one state and feed, twice: the same bits
+    init = params_scope(state(0), exe.device)
+    repeat_gate("seq2seq", exe, main, feeds[0],
+                {n: init.get(n) for n in persist})
+    del init
 
     t0 = time.perf_counter()
     rows = []
@@ -3764,6 +3776,1022 @@ def phase_seq2seq():
     return launches
 
 
+# -- the repeat gates (phases 10-12) -----------------------------------------
+
+def same_bits(a, b):
+    """Whether two values (tensors, or RaggedTensors and SelectedRows:
+    their ids and values) hold the same bits."""
+    import torch
+    from paddle_tpu_torch.core.ragged import RaggedTensor, SelectedRows
+
+    if isinstance(a, SelectedRows):
+        return isinstance(b, SelectedRows) and a.height == b.height \
+            and same_bits(a.rows, b.rows) and same_bits(a.values, b.values)
+    if isinstance(a, RaggedTensor):
+        return isinstance(b, RaggedTensor) and a.lod() == b.lod() \
+            and same_bits(a.values, b.values)
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.detach().reshape(-1).view(torch.uint8),
+        b.detach().reshape(-1).view(torch.uint8))
+
+
+def repeat_step(exe, main, feed, state):
+    """One step of `main` on `feed`, twice, each from a copy of `state`
+    ({name: tensor on the card}) in a fresh scope, without PyTorch's
+    deterministic algorithms: the names of the grads (every parameter's
+    @GRAD, fetched) and of the tensors of `state` after the step that
+    differ bit for bit between the two runs, and the count compared."""
+    import torch
+    from paddle_tpu_torch.fluid import Scope
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise SystemExit("chip_smoke: torch's deterministic mode is on")
+    grads = [p.name + "@GRAD" for p in main.global_block().all_parameters()]
+    runs = []
+    for _ in range(2):
+        scope = Scope()
+        for n, t in state.items():
+            scope.set(n, t.clone())
+        fetched = exe.run(main, feed=feed, fetch_list=grads, scope=scope,
+                          return_numpy=False)
+        runs.append((fetched, {n: scope.get(n) for n in state}))
+        del scope
+    differ = [g for g, a, b in zip(grads, runs[0][0], runs[1][0])
+              if not same_bits(a, b)]
+    differ += [n for n in state
+               if not same_bits(runs[0][1][n], runs[1][1][n])]
+    return differ, len(grads) + len(state)
+
+
+def repeat_gate(tag, exe, main, feed, state):
+    """`repeat_step`, printed; the gate: nothing may differ."""
+    differ, n = repeat_step(exe, main, feed, state)
+    print("%s: one step from one state and feed, run twice without torch's "
+          "deterministic algorithms: %s of %d grads and state tensors "
+          "differ bit for bit%s"
+          % (tag, len(differ), n, (" (%s)" % ", ".join(differ))
+             if differ else ""), flush=True)
+    if differ:
+        raise SystemExit("chip_smoke: %s: a step run twice differs in %s"
+                         % (tag, differ))
+
+
+# -- phase 12: the Fluid book's chapters --------------------------------------
+
+# sentiment (tests/test_understand_sentiment.py's conv net,
+# models/text.py conv_text_classifier) at the model's own widths:
+# embedding 128, hidden 128, filters 3 and 4, over the 5,147-word imdb
+# dictionary (the cutoff-150 dictionary's size; the synthetic reader's
+# 512 sequences of 8-60 ids), 2 classes, Adam at lr 0.05 as the JAX test
+# trains it; 774,274 parameter values
+BOOK_DICT, BOOK_EMB, BOOK_HID, BOOK_CLASSES = 5147, 128, 128, 2
+BOOK_LR = 0.05
+BOOK_BATCHES = (128, 16)   # timed; 16 is the JAX test's batch
+BOOK_PARAMS = BOOK_DICT * BOOK_EMB + (3 + 4) * BOOK_EMB * BOOK_HID \
+    + 2 * BOOK_HID + 2 * BOOK_HID * BOOK_CLASSES + BOOK_CLASSES
+BOOK_SERVE = (1, 2, 3)     # sequences in the 3 concurrent requests
+BOOK_BUCKETS = [1, 2, 4, 8]
+# the card against the CPU, 3 Adam steps at batch 16 from one state: f32
+# on both sides (TF32 off), sums in other orders (cuBLAS against CPU
+# BLAS, 128-wide products).  The loss (about ln 2) at 1e-5, 170 ulps;
+# the steps' change in relative L2 at 1e-4 (parameters: Adam moves an
+# entry by about lr times the sign of its grad, so an embedding entry
+# whose grad lies at the rounding floor steps apart on the two sides)
+# and 1e-5 (moments, which follow the grads' values).  An embedding row
+# or a filter left unchanged reads order 1e-2 in the parameters
+BOOK_LOSS_ATOL = 1e-5
+BOOK_PARAM_RL2 = 1e-4
+BOOK_MOMENT_RL2 = 1e-5
+# served probabilities against the CPU plain path, f32 (one ulp of a
+# probability near 0.5 is 6e-8)
+BOOK_PROB_ATOL = 1e-6
+# the other chapters at their JAX tests' programs and batches: SRL
+# (tests/test_label_semantic_roles.py: embeddings of 16, two
+# dynamic_lstm of hidden 32, the second reversed, linear_chain_crf and
+# crf_decoding sharing `crfw`, SGD at lr 0.01) at batch 8 and 128;
+# word2vec (test_word2vec.py, SGD at 0.1) at 64; the recommender
+# (test_recommender_system.py, SGD at 0.2) at 64; fit-a-line
+# (test_fit_a_line.py, SGD at 0.01) at 20
+BOOK_CHAPTERS = (("srl", 8), ("srl", 128), ("word2vec", 64),
+                 ("recommender", 64), ("fit_a_line", 20))
+# their 3 steps on the card against the CPU from one state: f32 on both
+# sides, sums in other orders.  The loss within 1e-5 of its magnitude
+# (the SRL's summed CRF likelihood is about 100, where one ulp is
+# 7.6e-6), and the steps' change of the parameters in relative L2 at
+# 1e-4 (SGD moves each entry by lr times its grad, whose relative error
+# is that of the sums, about 1e-6; a parameter left unchanged reads 1)
+BOOK_STEP_RTOL = 1e-5
+BOOK_STEP_RL2 = 1e-4
+# each op on the card against its CPU run, forward and generic grad:
+# f32 sums in other orders over at most a few hundred terms, at 1e-5
+# of the larger of 1 and the output's largest magnitude; integer
+# outputs, Viterbi paths and chunk counts exactly
+BOOK_OP_RTOL = 1e-5
+# H100 SXM float64 outside the tensor cores (NVIDIA data sheet, 700 W):
+# crf_decoding's rate
+F64_CORE_FLOPS = 34e12
+
+
+def book_ragged(lengths, width, seed, hi=None, pad=3):
+    """A lod-level-1 RaggedTensor on the CPU: `lengths` rows of `width`
+    values (randn, or ints in [0, hi)), then `pad` padding rows, with
+    the length hint; from the seed."""
+    import torch
+    from paddle_tpu_torch.core.ragged import RaggedTensor, bucket_max_seqlen
+
+    rs = np.random.RandomState(seed)
+    total = int(sum(lengths))
+    if hi is None:
+        vals = rs.randn(total + pad, width).astype(np.float32)
+    else:
+        vals = rs.randint(0, hi, size=(total + pad, width)).astype(np.int32)
+    vals[total:] = 0
+    splits = np.cumsum([0] + list(lengths)).astype(np.int32)
+    return RaggedTensor(torch.from_numpy(vals), [torch.from_numpy(splits)],
+                        nvalid=total, max_seqlen=bucket_max_seqlen(lengths))
+
+
+def book_op_cases():
+    """(op, ins {slot: [(name, CPU value)]}, outs {slot: [names]}, attrs,
+    differentiated input slots, output grads {slot: value}) for each of
+    the 15 op types of the sequence-op slice, from the seed, with an
+    empty and a length-1 sequence among mixed lengths."""
+    import torch
+
+    lengths = [7, 0, 12, 1, 30, 5, 19, 2]
+    B, T = len(lengths), sum(lengths) + 3
+    rs = np.random.RandomState(SEED + 120)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(
+            np.float32))
+
+    def og_like(x, width):
+        return x.with_values(t(x.values.shape[0], width))
+
+    x128 = book_ragged(lengths, 128, SEED + 121)
+    x16 = book_ragged(lengths, 16, SEED + 122)
+    x1 = book_ragged(lengths, 1, SEED + 123)
+    emis = book_ragged(lengths, 59, SEED + 124)
+    tags = book_ragged(lengths, 1, SEED + 125, hi=59)
+    gx = book_ragged(lengths, 96, SEED + 126)
+    gx.values.mul_(0.5)
+    other = book_ragged([3, 2, 0, 1, 4, 0, 2, 5], 16, SEED + 127)
+    inf_tags = tags.with_values(torch.where(
+        torch.from_numpy(rs.rand(T, 1) < 0.7), tags.values,
+        torch.from_numpy(rs.randint(0, 59, size=(T, 1)).astype(np.int32))))
+    cases = [
+        ("cos_sim", {"X": [("x", t(256, 200))], "Y": [("y", t(256, 200))]},
+         {"Out": ["o"], "XNorm": ["xn"], "YNorm": ["yn"]}, {},
+         ["X", "Y"], {"Out": t(256, 1)}),
+        ("sequence_conv", {"X": [("x", x128)],
+                           "Filter": [("f", t(4 * 128, 128, scale=0.05))]},
+         {"Out": ["o"]}, {"contextStart": -2, "contextLength": 4,
+                          "contextStride": 1},
+         ["X", "Filter"], {"Out": og_like(x128, 128)}),
+        ("linear_chain_crf", {"Emission": [("e", emis)],
+                              "Transition": [("tr", t(61, 59, scale=0.5))],
+                              "Label": [("l", tags)]},
+         {"Alpha": ["al"], "EmissionExps": ["ee"], "TransitionExps": ["te"],
+          "LogLikelihood": ["ll"]}, {}, ["Emission", "Transition"],
+         {"LogLikelihood": t(B, 1)}),
+        ("crf_decoding", {"Emission": [("e", emis)],
+                          "Transition": [("tr", t(61, 59, scale=0.5))]},
+         {"ViterbiPath": ["p"]}, {}, [], None),
+        ("crf_decoding", {"Emission": [("e", emis)],
+                          "Transition": [("tr", t(61, 59, scale=0.5))],
+                          "Label": [("l", tags)]},
+         {"ViterbiPath": ["p"]}, {}, [], None),
+        ("chunk_eval", {"Inference": [("i", inf_tags)],
+                        "Label": [("l", tags)]},
+         {s: [s.lower()] for s in ("Precision", "Recall", "F1-Score",
+                                   "NumInferChunks", "NumLabelChunks",
+                                   "NumCorrectChunks")},
+         {"num_chunk_types": 29, "chunk_scheme": "IOB",
+          "excluded_chunk_types": []}, [], None),
+        ("sequence_softmax", {"X": [("x", x1)]}, {"Out": ["o"]}, {}, ["X"],
+         {"Out": og_like(x1, 1)}),
+        ("row_conv", {"X": [("x", x16)], "Filter": [("f", t(3, 16))]},
+         {"Out": ["o"]}, {}, ["X", "Filter"], {"Out": og_like(x16, 16)}),
+        ("sequence_expand", {"X": [("x", t(B, 16))], "Y": [("y", x16)]},
+         {"Out": ["o"]}, {}, ["X"], {"Out": og_like(x16, 16)}),
+        ("sequence_concat", {"X": [("a", x16), ("b", other)]},
+         {"Out": ["o"]}, {"axis": 0}, ["X"], None),
+        ("sequence_reshape", {"X": [("x", x16)]}, {"Out": ["o"]},
+         {"new_dim": 8}, ["X"], None),
+        ("sequence_slice", {"X": [("x", x16)],
+                            "Offset": [("off", torch.tensor(
+                                [[2], [0], [5], [0], [10], [1], [0], [1]],
+                                dtype=torch.int32))],
+                            "Length": [("len", torch.tensor(
+                                [[3], [0], [6], [1], [15], [4], [19], [1]],
+                                dtype=torch.int32))]},
+         {"Out": ["o"]}, {}, ["X"], None),
+        ("sequence_reverse", {"X": [("x", x16)]}, {"Y": ["y"]}, {}, ["X"],
+         {"Y": og_like(x16, 16)}),
+        ("lod_reset", {"X": [("x", t(T, 16))]}, {"Out": ["o"]},
+         {"target_lod": [0, 40, T]}, ["X"], None),
+        ("gru", {"Input": [("x", gx)], "Weight": [("w", t(32, 96,
+                                                          scale=0.3))],
+                 "Bias": [("b", t(1, 96, scale=0.3))]},
+         {"Hidden": ["h"], "BatchGate": ["bg"],
+          "BatchResetHiddenPrev": ["br"], "BatchHidden": ["bh"]},
+         {"is_reverse": True}, ["Input", "Weight", "Bias"],
+         {"Hidden": og_like(gx, 32)}),
+        ("gru_unit", {"Input": [("x", t(64, 96, scale=0.5))],
+                      "HiddenPrev": [("h", t(64, 32))],
+                      "Weight": [("w", t(32, 96, scale=0.3))],
+                      "Bias": [("b", t(1, 96, scale=0.3))]},
+         {"Gate": ["g"], "ResetHiddenPrev": ["r"], "Hidden": ["o"]}, {},
+         ["Input", "HiddenPrev", "Weight", "Bias"],
+         {"Hidden": t(64, 32), "Gate": t(64, 96)}),
+    ]
+    return cases
+
+
+def book_run_op(op_type, ins, outs, attrs, device):
+    """Op `op_type` through the executor's `apply_op` on `device` (its
+    inputs moved there): {output name: value}."""
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.fluid import executor as ex
+
+    env = {n: v.to(device) for vals in ins.values() for n, v in vals
+           if v is not None}
+    names = {s: [n if v is not None else ex.EMPTY for n, v in vals]
+             for s, vals in ins.items()}
+    ctx = ex.ExecContext(None, 0, env, device=device)
+    ex.apply_op(ctx, OpDesc(op_type, names, outs, attrs))
+    return {n: ctx.env[n] for ns in outs.values() for n in ns}
+
+
+def book_grad_ins(ins, outs, out_grads, fwd_env):
+    """A generic grad op's inputs as the backward builder lays them out:
+    the forward's inputs, its outputs (O@ slots, unread) and the output
+    grads (OG@ slots; absent ones get zeros like the output)."""
+    import torch
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+
+    g = dict(ins)
+    for slot, names in outs.items():
+        g["O@" + slot] = [(n, None) for n in names]
+        grads = []
+        for n in names:
+            v = (out_grads or {}).get(slot)
+            if v is None:
+                like = fwd_env[n]
+                if isinstance(like, RaggedTensor):
+                    v = like.with_values(torch.zeros(
+                        like.values.shape, dtype=torch.float32))
+                else:
+                    v = torch.zeros(like.shape, dtype=torch.float32)
+            grads.append((n + "@GRAD", v.to("cpu")))
+        g["OG@" + slot] = grads
+    return g
+
+
+def book_host(v):
+    """(values as an ndarray, lod or None) of an op's output."""
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+
+    lod = v.lod() if isinstance(v, RaggedTensor) else None
+    v = v.values if isinstance(v, RaggedTensor) else v
+    return v.detach().float().cpu().numpy() if v.is_floating_point() \
+        else v.cpu().numpy(), lod
+
+
+def book_compare(tag, got, ref):
+    """The largest error of each output of `got` (card) against `ref`
+    (CPU): floats relative to the larger of 1 and the reference's
+    magnitude, the rest exactly (an integer mismatch reads inf); lods
+    must be equal."""
+    worst = 0.0
+    for n, r in ref.items():
+        (gv, glod), (rv, rlod) = book_host(got[n]), book_host(r)
+        if glod != rlod or gv.shape != rv.shape:
+            raise SystemExit("chip_smoke: %s: %s has lod %s shape %s on the "
+                             "card, %s %s on the CPU"
+                             % (tag, n, glod, gv.shape, rlod, rv.shape))
+        if gv.size == 0:
+            continue
+        if not np.issubdtype(rv.dtype, np.floating):
+            worst = max(worst, 0.0 if np.array_equal(gv, rv) else np.inf)
+            continue
+        worst = max(worst, float(np.abs(gv - rv).max()) / max(
+            1.0, float(np.abs(rv).max())))
+    return worst
+
+
+def book_ops(device):
+    """Each op of the slice on the card against its CPU run, forward and
+    generic grad (gate BOOK_OP_RTOL; integers exact), and whether each
+    grad repeats bit for bit on the card (reported)."""
+    import torch
+
+    cpu = torch.device("cpu")
+    repeats_not = []
+    for op, ins, outs, attrs, diff, out_grads in book_op_cases():
+        ref = book_run_op(op, ins, outs, attrs, cpu)
+        got = book_run_op(op, ins, outs, attrs, device)
+        fwd_err = book_compare(op, got, ref)
+        line = "book: op %s on the card against the CPU: forward %.3g" \
+            % (op + (" (with Label)" if op == "crf_decoding"
+                     and "Label" in ins else ""), fwd_err)
+        grad_err = 0.0
+        if diff:
+            gins = book_grad_ins(ins, outs, out_grads, ref)
+            gouts = {s + "@GRAD": ["%s@GRAD" % n for n, _ in ins[s]]
+                     for s in diff}
+            gref = book_run_op(op + "_grad", gins, gouts, attrs, cpu)
+            ggot = book_run_op(op + "_grad", gins, gouts, attrs, device)
+            grad_err = book_compare(op + "_grad", ggot, gref)
+            again = book_run_op(op + "_grad", gins, gouts, attrs, device)
+            same = all(same_bits(ggot[n], again[n]) for n in ggot)
+            if not same:
+                repeats_not.append(op + "_grad")
+            line += ", generic grad %.3g (%s); the grad twice on the " \
+                "card: %s" % (grad_err, ", ".join(diff),
+                              "the same bits" if same else "DIFFERS")
+        print(line + " (gate %g of the larger of 1 and the magnitude; "
+              "integers exact)" % BOOK_OP_RTOL, flush=True)
+        if not fwd_err <= BOOK_OP_RTOL or not grad_err <= BOOK_OP_RTOL:
+            raise SystemExit("chip_smoke: op %s on the card disagrees with "
+                             "the CPU" % op)
+    print("book: generic grads that differ bit for bit when run twice on "
+          "the card: %s" % (", ".join(repeats_not) or "none"), flush=True)
+
+
+def build_book(chapter, **kwargs):
+    """A chapter's program through the port's layers, as its JAX test
+    builds it: (main, startup, loss, feed vars, the chapter's output,
+    reader).  Chapters: "sentiment" (kwargs emb, hid), "srl",
+    "word2vec", "recommender", "fit_a_line"."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import models
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        if chapter == "sentiment":
+            data = L.data(name="words", shape=[1], dtype="int64",
+                          lod_level=1)
+            label = L.data(name="label", shape=[1], dtype="int64")
+            out = models.conv_text_classifier(
+                data, len(paddle.dataset.imdb.word_dict()),
+                class_dim=BOOK_CLASSES, emb_dim=kwargs.get("emb", BOOK_EMB),
+                hid_dim=kwargs.get("hid", BOOK_HID))
+            loss = L.mean(x=L.cross_entropy(input=out, label=label))
+            L.accuracy(input=out, label=label)
+            fluid.optimizer.Adam(learning_rate=BOOK_LR).minimize(loss)
+            fvars, reader = [data, label], paddle.dataset.imdb.train()
+        elif chapter == "srl":
+            words, verbs, labels = paddle.dataset.conll05.get_dict()
+            fvars = [L.data(name=n, shape=[1], dtype="int64", lod_level=1)
+                     for n in ("word_data", "verb_data", "mark_data",
+                               "target")]
+            embs = [L.embedding(input=v, size=[n, 16]) for v, n in zip(
+                fvars[:3], (len(words), len(verbs), 2))]
+            hidden0 = L.fc(input=embs, size=128, act="tanh")
+            lstm0, _ = L.dynamic_lstm(input=hidden0, size=128)
+            fc1 = L.fc(input=[hidden0, lstm0], size=128, act="tanh")
+            lstm1, _ = L.dynamic_lstm(input=fc1, size=128, is_reverse=True)
+            feature = L.fc(input=[fc1, lstm1], size=len(labels), act=None)
+            loss = L.mean(x=L.linear_chain_crf(
+                input=feature, label=fvars[3],
+                param_attr=fluid.ParamAttr(name="crfw")))
+            fluid.optimizer.SGD(learning_rate=0.01).minimize(loss)
+            out = L.crf_decoding(input=feature,
+                                 param_attr=fluid.ParamAttr(name="crfw"))
+            reader = paddle.reader.map_readers(
+                lambda s: (s[0], s[6], s[7], s[8]),
+                paddle.dataset.conll05.test())
+        elif chapter == "word2vec":
+            fvars = [L.data(name=n, shape=[1], dtype="int64")
+                     for n in ("firstw", "secondw", "thirdw", "forthw",
+                               "nextw")]
+            n_words = len(paddle.dataset.imikolov.build_dict())
+            out = models.word2vec_ngram(fvars[:4], n_words, emb_dim=32,
+                                        hidden_size=256)
+            loss = L.mean(x=L.cross_entropy(input=out, label=fvars[4]))
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+            reader = paddle.dataset.imikolov.train()
+        elif chapter == "recommender":
+            ml = paddle.dataset.movielens
+            names = ("user_id", "gender_id", "age_id", "job_id", "movie_id")
+            sizes = (ml.max_user_id() + 1, 2, len(ml.age_table),
+                     ml.max_job_id() + 1, ml.max_movie_id() + 1)
+            widths = (32, 16, 16, 16, 32)
+            tables = ("user_table", "gender_table", "age_table",
+                      "job_table", "movie_table")
+            fvars = [L.data(name=n, shape=[1], dtype="int64") for n in names]
+            fcs = [L.fc(input=L.embedding(input=v, size=[n, w],
+                                          param_attr=tab), size=w)
+                   for v, n, w, tab in zip(fvars, sizes, widths, tables)]
+            usr = L.fc(input=fcs[:4], size=200, act="tanh")
+            cat = L.data(name="category_id", shape=[1], dtype="int64",
+                         lod_level=1)
+            title = L.data(name="movie_title", shape=[1], dtype="int64",
+                           lod_level=1)
+            pools = [L.sequence_pool(input=L.embedding(input=v, size=[n,
+                                                                      32]),
+                                     pool_type="sum")
+                     for v, n in ((cat, len(ml.movie_categories())),
+                                  (title, 5000))]
+            mov = L.fc(input=[fcs[4]] + pools, size=200, act="tanh")
+            out = L.scale(x=L.cos_sim(X=usr, Y=mov), scale=5.0)
+            score = L.data(name="score", shape=[1], dtype="float32")
+            loss = L.mean(x=L.square_error_cost(input=out, label=score))
+            fluid.optimizer.SGD(learning_rate=0.2).minimize(loss)
+            fvars += [cat, title, score]
+            reader = ml.train()
+        elif chapter == "fit_a_line":
+            x = L.data(name="x", shape=[13], dtype="float32")
+            y = L.data(name="y", shape=[1], dtype="float32")
+            out = L.fc(input=x, size=1, act=None)
+            loss = L.mean(x=L.square_error_cost(input=out, label=y))
+            fluid.optimizer.SGD(learning_rate=0.01).minimize(loss)
+            fvars, reader = [x, y], paddle.dataset.uci_housing.train()
+        else:
+            raise ValueError("unknown chapter %r" % chapter)
+    return main, startup, loss, fvars, out, reader
+
+
+def book_batches(reader, batch, n):
+    """The first `n` batches of `batch` samples of `reader`, taken again
+    from its start when it runs out."""
+    import paddle_tpu_torch as paddle
+
+    out = []
+    while len(out) < n:
+        for b in paddle.batch(reader, batch_size=batch)():
+            out.append(b)
+            if len(out) == n:
+                break
+    return out
+
+
+def book_feeds(main, fvars, batches, device=None):
+    """DataFeeder's feeds of `batches` on the host, or moved to
+    `device`."""
+    import torch.utils._pytree as pytree
+    import paddle_tpu_torch.fluid as fluid
+
+    feeder = fluid.DataFeeder(feed_list=fvars, place=fluid.CPUPlace(),
+                              program=main)
+    feeds = [feeder.feed(b) for b in batches]
+    if device is None:
+        return feeds
+    return [pytree.tree_map(lambda t: t.to(device), f) for f in feeds]
+
+
+def book_state(exe, startup, main):
+    """The persistables after `startup` on the executor's device, as
+    host arrays."""
+    import paddle_tpu_torch.fluid as fluid
+
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    persist = [n for n, v in main.desc.block(0).vars.items()
+               if v.persistable]
+    return {n: scope.get(n).cpu().numpy() for n in persist}
+
+
+def book_chapter(exe, chapter, batch, smi):
+    """A chapter's 3 steps at `batch` on the card against the CPU plain
+    path from one state (the loss within BOOK_STEP_RTOL of its size, the
+    parameters' change within BOOK_STEP_RL2); for SRL the Viterbi paths
+    of the first step and chunk_eval over them equal the CPU's; the
+    step's time (median of 10 after 2 warm, feeds on the card)."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup, loss, fvars, out, reader = build_book(chapter)
+    batches = book_batches(reader, batch, TRAIN_STEPS)
+    feeds = book_feeds(main, fvars, batches)
+    init = book_state(exe, startup, main)
+    params = [p.name for p in main.global_block().all_parameters()]
+    decode = chapter == "srl"
+    runs = {}
+    for name, ex in (("cpu", fluid.Executor(fluid.CPUPlace())),
+                     ("card", exe)):
+        scope = params_scope(init, ex.device)
+        t0 = time.perf_counter()
+        losses, paths = [], []
+        for f in feeds:
+            outs = ex.run(main, feed=f, fetch_list=[loss] + (
+                [out] if decode else []), scope=scope)
+            losses.append(float(np.asarray(outs[0]).reshape(-1)[0]))
+            if decode:
+                paths.append(outs[1])
+        runs[name] = (losses, paths, {n: scope.get(n).cpu().numpy()
+                                      for n in params},
+                      time.perf_counter() - t0)
+    (cl, cp, cs, csec), (gl, gp, gs, gsec) = runs["cpu"], runs["card"]
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(gl, cl))
+    errs = {n: change_rl2(gs, cs, init, [n]) for n in params}
+    worst = max(errs, key=lambda n: errs[n])
+    line = ("book %s batch %d: %d steps, CPU %.1f s, card %.1f s: losses "
+            "%s (CPU %s), error %.3g of the loss (gate %g); the "
+            "parameters' change, relative L2 error, worst %.3g (%s; gate "
+            "%g)" % (chapter, batch, TRAIN_STEPS, csec, gsec, ", ".join(
+                "%.6f" % x for x in gl), ", ".join("%.6f" % x for x in cl),
+                loss_err, BOOK_STEP_RTOL, errs[worst], worst, BOOK_STEP_RL2))
+    ok = loss_err <= BOOK_STEP_RTOL and errs[worst] <= BOOK_STEP_RL2 \
+        and np.isfinite(gl).all()
+    if decode:
+        from paddle_tpu_torch.ops.crf import chunk_eval
+
+        same = gp[0].lod() == cp[0].lod() and np.array_equal(
+            gp[0].values.numpy(), cp[0].values.numpy())
+        target = feeds[0]["target"]
+        counts = []
+        for p, dev in ((gp[0], exe.device), (cp[0], torch.device("cpu"))):
+            ce = chunk_eval(None, {
+                "Inference": [p.to(dev)], "Label": [target.to(dev)]},
+                {"num_chunk_types": 29, "chunk_scheme": "IOB"})
+            counts.append([float(ce[k][0][0]) for k in (
+                "NumInferChunks", "NumLabelChunks", "NumCorrectChunks",
+                "F1-Score")])
+        line += ("; the first step's Viterbi paths (%d tags) %s the CPU's; "
+                 "chunk_eval over them (IOB, 29 types) %s on the card, %s "
+                 "on the CPU" % (int(target.nvalid), "equal" if same
+                                 else "DIFFER FROM", counts[0], counts[1]))
+        ok = ok and same and counts[0] == counts[1]
+    print(line, flush=True)
+    if not ok:
+        raise SystemExit("chip_smoke: book %s at batch %d on the card "
+                         "disagrees with the CPU plain path" % (chapter,
+                                                                batch))
+    scope = params_scope(init, exe.device)
+    dev_feed = book_feeds(main, fvars, batches[:1], exe.device)[0]
+
+    def step():
+        return exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+
+    times = timed_steps(step)
+    med = float(np.median(times))
+    print("book %s batch %d: step %.3f ms (median of 10 after 2 warm; min "
+          "%.3f, max %.3f), %.1f samples/s [%s]"
+          % (chapter, batch, med, min(times), max(times), batch / med * 1e3,
+             smi), flush=True)
+    del scope
+
+
+def seq_conv_bound(rows, d, k, m):
+    """(ms, "bytes" | "operations") of sequence_conv's least time: X
+    [rows, d], the filter [k d, m] read once, the output [rows, m]
+    written once; 2 k d m operations a row on the f32 cores (TF32
+    off)."""
+    t_ops = 2.0 * rows * k * d * m / F32_CORE_FLOPS
+    t_bytes = 4.0 * (rows * d + k * d * m + rows * m) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def crf_bound(lengths, d, grad=False):
+    """(ms, "bytes" | "operations") of linear_chain_crf's least time on
+    these lengths: the emission [T, d], the transition [d + 2, d] and
+    the labels read once; Alpha and EmissionExps [T, d], TransitionExps
+    and the likelihoods written once; 4 d^2 f32 operations a step after
+    the first (alpha + w, the max's subtraction, the exponential, the
+    sum) on the f32 cores.  The grad reads the same inputs and the
+    likelihoods' grad and writes the emission's and transition's grads;
+    it does the forward again and its backward, counted as twice the
+    forward's operations."""
+    T, B = int(sum(lengths)), len(lengths)
+    steps = sum(max(n - 1, 0) for n in lengths)
+    flops = 4.0 * d * d * steps
+    ins = T * d + (d + 2) * d + T
+    if grad:
+        nbytes, flops = 4.0 * (ins + B + T * d + (d + 2) * d), 3 * flops
+    else:
+        nbytes = 4.0 * (ins + 2 * T * d + (d + 2) * d + B)
+    t_ops, t_bytes = flops / F32_CORE_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def viterbi_bound(lengths, d):
+    """(ms, "bytes" | "operations") of crf_decoding's least time: the f32
+    emission [T, d] and the transition read once, the int32 path [T]
+    written once; 2 d^2 float64 operations a step after the first (the
+    additions and the comparisons of the max) at the f64 rate."""
+    T = int(sum(lengths))
+    steps = sum(max(n - 1, 0) for n in lengths)
+    t_ops = 2.0 * d * d * steps / F64_CORE_FLOPS
+    t_bytes = 4.0 * (T * d + (d + 2) * d + T) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def gru_bound(lengths, d, grad=False):
+    """(ms, "bytes" | "operations") of gru's least time: the input [T,
+    3d], the weight [d, 3d] and the bias read once, the hidden [T, d]
+    written once; 6 d^2 operations of products a valid step (h W_ur, (r
+    h) W_c) on the f32 cores (TF32 off).  The grad reads the inputs and
+    the hidden's grad and writes the input's, weight's and bias's
+    grads; the forward again and the products' two backward products:
+    3 times the forward's."""
+    T = int(sum(lengths))
+    flops = 6.0 * d * d * T
+    ins = 3 * T * d + 3 * d * d + 3 * d
+    if grad:
+        nbytes, flops = 4.0 * (2 * ins + T * d), 3 * flops
+    else:
+        nbytes = 4.0 * (ins + T * d)
+    t_ops, t_bytes = flops / F32_CORE_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def book_op_times(device, smi):
+    """Device ms (CUDA graph replay) of sequence_conv at the sentiment
+    step's batch-128 shape beside F.conv1d over the zero-padded batch
+    (the same function for contextStart -(k // 2)), of
+    linear_chain_crf (forward and generic grad) and crf_decoding at the
+    SRL's batch-128 shape, and of gru (forward and generic grad) over
+    the sentiment's 128 sequences at hidden 128 beside cuDNN's nn.GRU (a
+    different function: its reset gate multiplies after the product),
+    each beside its bound."""
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.ragged import RaggedTensor, bucket_max_seqlen
+    from paddle_tpu_torch.ops.registry import get_op_info, run_generic_grad
+    from paddle_tpu_torch.ops.sequence import ragged_to_padded
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=device, generator=gen) * scale
+
+    def ragged(lengths, width, scale=1.0):
+        splits = torch.tensor(np.cumsum([0] + list(lengths)),
+                              dtype=torch.int32, device=device)
+        return RaggedTensor(randn(int(sum(lengths)), width, scale=scale),
+                            [splits], max_seqlen=bucket_max_seqlen(lengths))
+
+    def fmt(v):
+        return "not measured" if v is None else "%.4f" % v
+
+    def replay(fn):
+        try:
+            return device_ms(fn, launches=5, replays=3)
+        except RuntimeError as err:  # a capture the graph refused
+            print("book: graph capture failed: %s" % str(err)[:200],
+                  flush=True)
+            return None
+
+    def kernel(op):
+        k = get_op_info(op).kernel
+
+        def run(ins, attrs):
+            with torch.no_grad():
+                return k(None, ins, attrs)
+        return run
+
+    imdb = [len(s) for s, _ in book_batches(paddle.dataset.imdb.train(),
+                                            128, 1)[0]]
+    srl = [len(b[0]) for b in book_batches(paddle.dataset.conll05.test(),
+                                           128, 1)[0]]
+    rows = {}
+
+    # sequence_conv, filter 4 (the wider branch), emb 128 -> hid 128
+    k, d, m = 4, BOOK_EMB, BOOK_HID
+    x = ragged(imdb, d)
+    filt = randn(k * d, m, scale=0.05)
+    attrs = {"contextStart": -(k // 2), "contextLength": k}
+    conv = kernel("sequence_conv")
+    ms = replay(lambda: conv({"X": [x], "Filter": [filt]}, attrs))
+    plain = cuda_ms(lambda: conv({"X": [x], "Filter": [filt]}, attrs),
+                    iters=10)
+    padded, _ = ragged_to_padded(x)
+    xp = F.pad(padded.transpose(1, 2), (k // 2, k - 1 - k // 2))
+    w = filt.reshape(k, d, m).permute(2, 1, 0).contiguous()
+    lib = replay(lambda: F.conv1d(xp, w))
+    bound = seq_conv_bound(sum(imdb), d, k, m)
+    rows["sequence_conv"] = (ms, plain, bound, lib)
+    print("book: sequence_conv at [%d rows of %d sequences, %d -> %d, "
+          "filter %d]: device %s ms (graph replay), eager %.4f ms, bound "
+          "%.4f ms by %s; F.conv1d over the zero-padded [%d, %d, %d] batch "
+          "(the same function) %s ms [%s]"
+          % (sum(imdb), len(imdb), d, m, k, fmt(ms), plain, bound[0],
+             bound[1], xp.shape[0], xp.shape[1], xp.shape[2], fmt(lib),
+             smi), flush=True)
+
+    # linear_chain_crf and its generic grad, crf_decoding: the SRL's
+    # emission at batch 128 over its 59 labels
+    d = 59
+    e = ragged(srl, d)
+    label = RaggedTensor(torch.randint(0, d, (int(sum(srl)), 1),
+                                       device=device, generator=gen,
+                                       dtype=torch.int32),
+                         e.row_splits, max_seqlen=e.max_seqlen)
+    trans = randn(d + 2, d, scale=0.5)
+    crf = kernel("linear_chain_crf")
+    ins = {"Emission": [e], "Transition": [trans], "Label": [label]}
+    ms = replay(lambda: crf(ins, {}))
+    plain = cuda_ms(lambda: crf(ins, {}), iters=5)
+    og = randn(len(srl), 1)
+    gins = dict(ins, **{"OG@LogLikelihood": [og]})
+
+    def crf_grad():
+        return run_generic_grad(None, "linear_chain_crf", gins, {})
+
+    gms = replay(crf_grad)
+    gplain = cuda_ms(crf_grad, iters=5)
+    bound, gbound = crf_bound(srl, d), crf_bound(srl, d, grad=True)
+    rows["linear_chain_crf"] = (ms, plain, bound, None)
+    rows["linear_chain_crf_grad"] = (gms, gplain, gbound, None)
+    dec = kernel("crf_decoding")
+    dms = replay(lambda: dec({"Emission": [e], "Transition": [trans]}, {}))
+    dplain = cuda_ms(lambda: dec({"Emission": [e], "Transition": [trans]},
+                                 {}), iters=5)
+    dbound = viterbi_bound(srl, d)
+    rows["crf_decoding"] = (dms, dplain, dbound, None)
+    print("book: linear_chain_crf at [%d rows of %d sequences (%d..%d "
+          "steps), %d tags]: forward device %s ms, eager %.4f ms, bound "
+          "%.4f ms by %s; grad (generic vjp) device %s ms, eager %.4f ms, "
+          "bound %.4f ms by %s; crf_decoding (float64) device %s ms, eager "
+          "%.4f ms, bound %.4f ms by %s; no one PyTorch call computes "
+          "either [%s]"
+          % (sum(srl), len(srl), min(srl), max(srl), d, fmt(ms), plain,
+             bound[0], bound[1], fmt(gms), gplain, gbound[0], gbound[1],
+             fmt(dms), dplain, dbound[0], dbound[1], smi), flush=True)
+
+    # gru over the sentiment's 128 sequences, hidden 128
+    h = BOOK_HID
+    gx = ragged(imdb, 3 * h, scale=0.5)
+    w, b = randn(h, 3 * h, scale=0.1), randn(1, 3 * h, scale=0.1)
+    gru = kernel("gru")
+    gins = {"Input": [gx], "Weight": [w], "Bias": [b]}
+    ms = replay(lambda: gru(gins, {}))
+    plain = cuda_ms(lambda: gru(gins, {}), iters=5)
+    ogh = gx.with_values(randn(int(sum(imdb)), h))
+    grad_ins = dict(gins, **{"OG@Hidden": [ogh]})
+
+    def gru_grad():
+        return run_generic_grad(None, "gru", grad_ins, {})
+
+    gms = replay(gru_grad)
+    gplain = cuda_ms(gru_grad, iters=3)
+    bound, gbound = gru_bound(imdb, h), gru_bound(imdb, h, grad=True)
+    rows["gru"] = (ms, plain, bound, None)
+    rows["gru_grad"] = (gms, gplain, gbound, None)
+    cudnn = torch.nn.GRU(3 * h, h, batch_first=True).to(device)
+    xin = ragged_to_padded(gx)[0]
+    c_ms = replay(lambda: cudnn(xin))
+    xg = xin.clone().requires_grad_(True)
+
+    def cudnn_fb():
+        out, _ = cudnn(xg)
+        out.sum().backward()
+
+    c_fb = replay(cudnn_fb)
+    print("book: gru at [%d sequences, %d rows (%d..%d steps, padded to "
+          "%d), hidden %d]: forward device %s ms, eager %.4f ms, bound "
+          "%.4f ms by %s; grad (generic vjp) device %s ms, eager %.4f ms, "
+          "bound %.4f ms by %s; no one PyTorch call computes it: cuDNN's "
+          "nn.GRU over the same padded input (its reset gate multiplies "
+          "after the product, its own input product: a different "
+          "function) forward %s ms, forward and backward %s ms [%s]"
+          % (len(imdb), sum(imdb), min(imdb), max(imdb), gx.max_seqlen, h,
+             fmt(ms), plain, bound[0], bound[1], fmt(gms), gplain,
+             gbound[0], gbound[1], fmt(c_ms), fmt(c_fb), smi), flush=True)
+    return rows
+
+
+def book_serve(trained, main, prob, seqs):
+    """The export of `prob` from the `words` feed, with the `trained`
+    state, loaded by InferenceEngine on the card behind InferenceServer
+    (its MicroBatcher): 3 concurrent requests of BOOK_SERVE ragged
+    sequences against the CPU plain path.  Returns the largest error."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import io
+    from paddle_tpu_torch.serving import (EngineConfig, InferenceEngine,
+                                          InferenceServer, ServerConfig)
+
+    parts = np.cumsum([0] + list(BOOK_SERVE))
+    served = seqs[:parts[-1]]
+    requests = [served[lo:hi] for lo, hi in zip(parts[:-1], parts[1:])]
+    with tempfile.TemporaryDirectory() as tmp:
+        with fluid.scope_guard(params_scope(trained, "cpu")):
+            io.save_inference_model(
+                tmp, ["words"], [prob], fluid.Executor(fluid.CPUPlace()),
+                main, bucket_hints={"batch_buckets": BOOK_BUCKETS})
+        engine = InferenceEngine.from_saved_model(tmp)
+        if engine.place.device().type != "cuda":
+            raise SystemExit("chip_smoke: the engine is not on the card")
+        server = InferenceServer(engine, ServerConfig(
+            port=0, max_batch=max(BOOK_BUCKETS), max_wait_ms=50.0,
+            warmup=True))
+        try:
+            server.start()
+            host, port = server.address
+            url = "http://%s:%d/v1/infer" % (host, port)
+            replies = [None] * len(requests)
+
+            def client(i):
+                replies[i] = _post(url, {"inputs": {"words": [
+                    s.tolist() for s in requests[i]]}})
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(requests))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            if any(r is None for r in replies):
+                raise SystemExit("chip_smoke: an HTTP request got no reply")
+            print("book sentiment: %d requests of %s sequences (lengths %s) "
+                  "answered in %d batch(es); latencies %s ms"
+                  % (len(requests), list(BOOK_SERVE),
+                     [[len(s) for s in r] for r in requests],
+                     server.metrics.batch_occupancy.count,
+                     ", ".join("%.1f" % r[2] for r in replies)), flush=True)
+        finally:
+            server.shutdown()
+        ref = InferenceEngine.from_saved_model(
+            tmp, place=fluid.CPUPlace(),
+            config=EngineConfig(batch_buckets=None)).run(
+                {"words": served})[0]
+    errs, fetch = [], engine.fetch_names[0]
+    for (status, body, _), lo, hi in zip(replies, parts[:-1], parts[1:]):
+        if status != 200:
+            raise SystemExit("chip_smoke: HTTP %d: %s" % (status, body))
+        got = np.asarray(body["outputs"][fetch], np.float32)
+        if got.shape != (hi - lo, BOOK_CLASSES) or not np.isfinite(got).all():
+            raise SystemExit("chip_smoke: reply shape %s" % (got.shape,))
+        errs.append(float(np.abs(got - ref[lo:hi]).max()))
+    print("book sentiment: served probabilities max_abs_err against the CPU "
+          "plain path: %s (atol %g)" % (", ".join("%.3g" % e for e in errs),
+                                        BOOK_PROB_ATOL), flush=True)
+    return max(errs)
+
+
+def book_sentiment(exe, smi):
+    """The sentiment chapter's conv model at full width (the phase's main
+    path): its op counts and parameter count; 3 Adam steps at batch 16
+    on the card against the CPU plain path from one state; the repeat
+    gate; at each of BOOK_BATCHES one pass over the imdb reader through
+    DataFeeder, device_prefetch and Executor.run (its first 3 steps'
+    peak memory, the host time from one fetched loss to the next), the
+    step's median on a fed batch, samples/s and a profiled step (busy
+    share, launches); the export served.  Returns the launch counts of
+    the checked steps."""
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.reader import device_prefetch
+
+    t0 = time.perf_counter()
+    main, startup, loss, fvars, prob, reader = build_book("sentiment")
+    block = main.desc.block(0)
+    counts = collections.Counter(op.type for op in block.ops)
+    n_values = sum(int(np.prod(v.shape)) for v in block.vars.values()
+                   if v.is_parameter)
+    print("book sentiment: main %d ops of %d types (%s), %d parameter "
+          "values (%.3f M); built in %.1f s"
+          % (len(block.ops), len(counts), ", ".join(
+              "%s %d" % kv for kv in sorted(counts.items())), n_values,
+             n_values / 1e6, time.perf_counter() - t0), flush=True)
+    if n_values != BOOK_PARAMS or counts["sequence_conv"] != 2 \
+            or counts["sequence_conv_grad"] != 2:
+        raise SystemExit("chip_smoke: the sentiment program is not the JAX "
+                         "package's (%d parameter values, two "
+                         "sequence_conv)" % BOOK_PARAMS)
+    init = book_state(exe, startup, main)
+    params = [n for n in init if n + "_moment1_0" in block.vars]
+    groups = {"parameters": params,
+              "moment1": [n + "_moment1_0" for n in params],
+              "moment2": [n + "_moment2_0" for n in params]}
+
+    # 3 Adam steps at the JAX test's batch from one state
+    batches = book_batches(reader, 16, TRAIN_STEPS)
+    feeds = book_feeds(main, fvars, batches)
+    cpu, cpu_state, secs = run_from_state(
+        fluid.Executor(fluid.CPUPlace()), main, loss, init, feeds)
+    reset_launches()
+    card, card_state, csecs = run_from_state(exe, main, loss, init, feeds)
+    launches = read_launches()
+    loss_err = max(abs(a - b) for a, b in zip(card, cpu))
+    errs = {g: change_rl2(card_state, cpu_state, init, names)
+            for g, names in groups.items()}
+    print("book sentiment: %d Adam steps at batch 16 from one state: CPU "
+          "plain path (%.1f s) losses %s; card (%.1f s) %s; loss "
+          "max_abs_err %.3g (atol %g); the steps' change, relative L2 "
+          "error: %s (limits %g parameters, %g moments); hand-written "
+          "kernel launches %s"
+          % (TRAIN_STEPS, secs, ", ".join("%.6f" % x for x in cpu), csecs,
+             ", ".join("%.6f" % x for x in card), loss_err, BOOK_LOSS_ATOL,
+             ", ".join("%s %.3g" % kv for kv in errs.items()),
+             BOOK_PARAM_RL2, BOOK_MOMENT_RL2, json.dumps(launches)),
+          flush=True)
+    if loss_err > BOOK_LOSS_ATOL or errs["parameters"] > BOOK_PARAM_RL2 \
+            or max(errs["moment1"], errs["moment2"]) > BOOK_MOMENT_RL2 \
+            or not all(np.isfinite(v).all() for v in card_state.values()):
+        raise SystemExit("chip_smoke: sentiment steps on the card disagree "
+                         "with the CPU plain path")
+
+    # one step twice, at the timed batch
+    scope = params_scope(init, exe.device)
+    repeat_gate("book sentiment", exe, main, book_feeds(
+        main, fvars, book_batches(reader, BOOK_BATCHES[0], 1),
+        exe.device)[0], {n: scope.get(n) for n in init})
+    del scope
+
+    place = fluid.CUDAPlace(0)
+    op_types = set(counts)
+    for batch in BOOK_BATCHES:
+        feeder = fluid.DataFeeder(place=place, feed_list=fvars, program=main)
+
+        def book_loop():
+            for b in paddle.batch(reader, batch_size=batch)():
+                yield feeder.feed(b)
+
+        scope = params_scope(init, exe.device)
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_loop = t0 = time.perf_counter()
+        for feed in device_prefetch(book_loop, place=place)():
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            losses.append(float(np.asarray(out).reshape(-1)[0]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            if len(losses) == TRAIN_STEPS:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+        loop_s = time.perf_counter() - t_loop
+        if not np.isfinite(losses).all():
+            raise SystemExit("chip_smoke: sentiment losses %s" % losses)
+        print("book sentiment batch %d: one pass of %d steps through "
+              "DataFeeder, device_prefetch and Executor.run in %.2f s: step "
+              "%.3f ms (median, host clock from one fetched loss to the "
+              "next, feeding included; min %.3f, max %.3f), %.1f samples/s; "
+              "losses %.4f -> %.4f; peak memory of the first %d steps %.3f "
+              "GB [%s]"
+              % (batch, len(losses), loop_s, float(np.median(times)),
+                 min(times), max(times),
+                 batch / float(np.median(times)) * 1e3, losses[0],
+                 losses[-1], TRAIN_STEPS, peak / 1e9, smi), flush=True)
+        dev_feed = book_feeds(main, fvars, book_batches(reader, batch, 1),
+                              exe.device)[0]
+
+        def step():
+            return exe.run(main, feed=dev_feed, fetch_list=[loss],
+                           scope=scope, return_numpy=False)
+
+        times = timed_steps(step)
+        med = float(np.median(times))
+        rows = int(dev_feed["words"].nvalid)
+        print("book sentiment batch %d: step %.3f ms (median of 10 after 2 "
+              "warm, feeds on the card; mean %.3f, min %.3f, max %.3f), "
+              "%.1f samples/s, %.1f words/s (%d words) [%s]"
+              % (batch, med, np.mean(times), min(times), max(times),
+                 batch / med * 1e3, rows / med * 1e3, rows, smi), flush=True)
+        profile_step(step, op_types, 0, med,
+                     what="one sentiment step at batch %d" % batch)
+        trained = {n: scope.get(n).cpu().numpy() for n in init}
+        del scope
+        torch.cuda.empty_cache()
+
+    seqs = [np.asarray(s, np.int64).reshape(-1, 1)
+            for s, _ in paddle.dataset.imdb.test()()]
+    if book_serve(trained, main, prob, seqs) > BOOK_PROB_ATOL:
+        raise SystemExit("chip_smoke: served sentiment probabilities "
+                         "disagree with the CPU plain path")
+    return launches
+
+
+def phase_book():
+    """The Fluid book's chapters of the sequence-op slice (phase 12):
+    each of its 15 op types on the card against the CPU; the sentiment
+    conv model at full width, its main path (`book_sentiment`); the SRL,
+    word2vec, recommender and fit-a-line programs' 3 steps on the card
+    against the CPU and their step times (`book_chapter`); the ops'
+    device times beside their bounds (`book_op_times`).  Returns the
+    launch counts of the sentiment's checked steps (no hand-written
+    kernel runs here)."""
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    smi = nvidia_smi_line()
+    book_ops(exe.device)
+    launches = book_sentiment(exe, smi)
+    for chapter, batch in BOOK_CHAPTERS:
+        book_chapter(exe, chapter, batch, smi)
+    book_op_times(exe.device, smi)
+    print("book: phase 12 in %.1f s" % (time.perf_counter() - t0),
+          flush=True)
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -3792,19 +4820,21 @@ def main():
     sequence_launches = phase_sequence()
     ctr_launches = phase_ctr()
     seq2seq_launches = phase_seq2seq()
+    book_launches = phase_book()
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
-    # ResNet-50, the image models, the lstm, the ctr model and the
-    # seq2seq run no hand-written kernel: conv2d is cuDNN, the products
-    # cuBLAS and the rest ATen (the sparse updates `index_add`, the
-    # recurrence a loop of ATen ops), as the JAX package leaves them to
-    # XLA
+    # ResNet-50, the image models, the lstm, the ctr model, the seq2seq
+    # and the book's chapters run no hand-written kernel: conv2d is
+    # cuDNN, the products cuBLAS and the rest ATen (the sparse updates
+    # a segment reduction and `index_add`, the recurrences and the CRF
+    # loops of ATen ops), as the JAX package leaves them to XLA
     for what, got in (("ResNet-50", resnet_launches),
                       ("the image models", image_launches),
                       ("the lstm", sequence_launches),
                       ("the ctr model", ctr_launches),
-                      ("the seq2seq", seq2seq_launches)):
+                      ("the seq2seq", seq2seq_launches),
+                      ("the book's chapters", book_launches)):
         if any(got.values()):
             raise SystemExit("chip_smoke: %s launched %s"
                              % (what, json.dumps(got)))

@@ -37,7 +37,7 @@ from .types import guard_int64_narrowing, tensor_from_numpy
 
 __all__ = ["RaggedTensor", "SelectedRows", "add_rows_",
            "bucket_max_seqlen", "host_copy", "ragged_to_sequences",
-           "row_index", "slice_ragged"]
+           "row_index", "slice_ragged", "sum_rows"]
 
 
 def bucket_max_seqlen(lengths):
@@ -164,18 +164,47 @@ def row_index(rows, height):
     return wrapped.clamp(0, height - 1), valid
 
 
+def sum_rows(index, values):
+    """(ids [N], sums [N, ...]): the rows of `values` summed by `index`
+    (ids into a table, each in range) in an order fixed by the data
+    alone.  The ids are sorted stably, and each run of equal ids is
+    summed in row order by one segment reduction (`segment_reduce`, a
+    loop over the run per output element), so the same inputs give the
+    same bits on every run, where `index_add_`'s atomic adds on the card
+    sum a repeated id in a varying order.  Run k's id is ids[k] and its
+    sum sums[k]; the N - nruns entries past the last run repeat the
+    last id with sums of -0.0, the one addend that leaves every float
+    as it is, so no host sync learns the run count.  A sum starts from
+    -0.0 for the same reason: a run whose rows are all -0.0 adds
+    nothing."""
+    n = index.shape[0]
+    sorted_ids, perm = torch.sort(index, stable=True)
+    starts = torch.ones(n, dtype=torch.bool, device=index.device)
+    starts[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    run_of_row = torch.cumsum(starts, 0) - 1
+    offsets = torch.searchsorted(
+        run_of_row, torch.arange(n + 1, device=index.device))
+    sums = torch.segment_reduce(values[perm], "sum", offsets=offsets,
+                                axis=0, unsafe=True, initial=-0.0)
+    return sorted_ids[offsets[:-1].clamp(max=n - 1)], sums
+
+
 def add_rows_(x, rows, values):
     """`x` with the rows of `values` added in place at the SelectedRows
-    ids `rows` (`index_add_`, atomic on the card: repeated ids sum in a
-    varying order), as the JAX side's `x.at[rows].add(values)` adds
-    them: negative ids wrap, and the rows of ids outside the table add
-    -0.0.  Returns `x`."""
+    ids `rows`, as the JAX side's `x.at[rows].add(values)` adds them:
+    negative ids wrap, and the rows of ids outside the table add -0.0.
+    Repeated ids are summed first in a fixed order (`sum_rows`), so
+    `index_add_` adds at most one addend other than -0.0 at any row and
+    the result repeats bit for bit on the card.  Returns `x`."""
+    if rows.numel() == 0:
+        return x
     index, valid = row_index(rows, x.shape[0])
     mask = valid.reshape((-1,) + (1,) * (values.dim() - 1))
     values = torch.where(mask, values.to(x.dtype),
                          torch.full((), -0.0, dtype=x.dtype,
                                     device=x.device))
-    return x.index_add_(0, index, values)
+    ids, sums = sum_rows(index, values)
+    return x.index_add_(0, ids, sums)
 
 
 class SelectedRows:

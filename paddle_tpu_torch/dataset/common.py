@@ -2,8 +2,8 @@
 downloads and the seeded synthetic fallbacks.
 
 Counterpart of paddle_tpu/dataset/common.py (reference:
-python/paddle/v2/dataset/common.py), the same code without the
-generators of datasets the port has no reader for.  Files are read from
+python/paddle/v2/dataset/common.py), the same code and the same seeded
+generators, so a synthetic reader gives the JAX package's samples.  Files are read from
 DATA_HOME (`PADDLE_TPU_DATA_HOME`, else ~/.cache/paddle_tpu/dataset);
 a fetch from the network happens only with PADDLE_TPU_ALLOW_DOWNLOAD=1
 (and PADDLE_TPU_OFFLINE unset).  Otherwise each dataset falls back to a
@@ -20,7 +20,8 @@ from ..resilience import faults as _faults
 from ..resilience.retry import RetryPolicy
 
 __all__ = ["DATA_HOME", "md5file", "download", "fetch_or_none",
-           "rng", "synthetic_images"]
+           "rng", "synthetic_linear", "synthetic_images",
+           "synthetic_sequences"]
 
 DATA_HOME = os.environ.get(
     "PADDLE_TPU_DATA_HOME",
@@ -96,6 +97,19 @@ def rng(seed):
     return np.random.RandomState(seed)
 
 
+def synthetic_linear(n, dim, w_seed=1234, x_seed=1, noise=0.1):
+    """Linear-regression data with a fixed ground-truth weight vector: a
+    faithful stand-in for uci_housing's learnable structure."""
+    r = rng(w_seed)
+    w = r.uniform(-1, 1, size=(dim,)).astype("float32")
+    b = 0.5
+    x = rng(w_seed + x_seed).uniform(-1, 1, size=(n, dim)).astype("float32")
+    y = (x @ w + b + noise *
+         rng(w_seed + x_seed + 1).randn(n).astype("float32")) \
+        .astype("float32")
+    return x, y.reshape(-1, 1)
+
+
 def synthetic_images(n, shape, num_classes, seed):
     """Class-dependent image patterns: each class has a fixed template plus
     noise, so real learning happens (loss falls, accuracy rises)."""
@@ -107,3 +121,21 @@ def synthetic_images(n, shape, num_classes, seed):
     imgs = templates[labels] + noise
     return imgs.astype("float32"), labels.astype("int64")
 
+
+def synthetic_sequences(n, vocab_size, num_classes, seed, min_len=4,
+                        max_len=30):
+    """Sequences whose class correlates with token distribution."""
+    r = rng(seed)
+    class_bias = rng(seed + 1).randint(0, vocab_size,
+                                       size=(num_classes, 8))
+    out = []
+    for i in range(n):
+        label = int(r.randint(0, num_classes))
+        length = int(r.randint(min_len, max_len + 1))
+        base = r.randint(0, vocab_size, size=length)
+        # sprinkle class-marker tokens
+        marker_positions = r.randint(0, length, size=max(1, length // 3))
+        base[marker_positions] = class_bias[label][
+            r.randint(0, class_bias.shape[1], size=marker_positions.size)]
+        out.append((base.astype("int64").tolist(), label))
+    return out

@@ -3,8 +3,9 @@ that the port's models build with.
 
 Counterpart of paddle_tpu/fluid/layers/nn.py (reference:
 python/paddle/v2/fluid/layers/nn.py — fc:69, embedding:190,
-conv2d:912, pool2d, batch_norm:1250, dropout, lrn, accuracy ...).  Each function appends ops to
-the current block with the JAX package's op types, slots, attrs, names
+conv2d:912, pool2d, batch_norm:1250, dropout, lrn, accuracy, the
+sequence layers, the CRF ...).  Each function appends ops to the current
+block with the JAX package's op types, slots, attrs, names
 and initializers; nothing runs here.  The other layers wait (ROADMAP A).
 """
 
@@ -19,7 +20,11 @@ __all__ = [
     "layer_norm", "split", "flash_attention", "cached_attention",
     "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "dropout",
     "lrn", "accuracy", "dynamic_lstm", "sequence_pool",
-    "sequence_first_step", "sequence_last_step", "transpose",
+    "sequence_first_step", "sequence_last_step", "transpose", "cos_sim",
+    "dynamic_gru", "gru_unit", "sequence_softmax", "sequence_concat",
+    "sequence_slice", "lod_reset", "sequence_conv", "sequence_reverse",
+    "sequence_expand", "sequence_reshape", "row_conv", "linear_chain_crf",
+    "crf_decoding", "chunk_eval",
 ]
 
 
@@ -456,3 +461,254 @@ def sequence_first_step(input, **kwargs):
 
 def sequence_last_step(input, **kwargs):
     return sequence_pool(input, "last", **kwargs)
+
+
+def cos_sim(X, Y, **kwargs):
+    """Cosine similarity of X's and Y's rows, [N, 1] (reference:
+    layers/nn.py cos_sim, cos_sim_op.cc)."""
+    helper = LayerHelper("cos_sim", **kwargs)
+    out = helper.create_tmp_variable(X.dtype)
+    xnorm = helper.create_tmp_variable(X.dtype)
+    ynorm = helper.create_tmp_variable(X.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xnorm],
+                              "YNorm": [ynorm]})
+    return out
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None, dtype="float32",
+                **kwargs):
+    """Dynamic GRU over ragged input (reference: layers/nn.py
+    dynamic_gru, gru_op.cc): `input` is the 3 * size projection; this
+    layer adds the weight [size, 3 * size], the bias [1, 3 * size] and
+    the `gru` op.  Returns the ragged hidden state."""
+    helper = LayerHelper("gru", param_attr=param_attr,
+                         bias_attr=bias_attr, **kwargs)
+    weight = helper.create_parameter(
+        helper.param_attr, shape=[size, 3 * size], dtype=dtype)
+    bias = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                   shape=[1, 3 * size], dtype=dtype,
+                                   is_bias=True)
+    hidden = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    batch_gate = helper.create_tmp_variable(dtype, stop_gradient=True)
+    batch_reset = helper.create_tmp_variable(dtype, stop_gradient=True)
+    batch_hidden = helper.create_tmp_variable(dtype, stop_gradient=True)
+    inputs = {"Input": [input], "Weight": [weight], "Bias": [bias]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    helper.append_op(
+        type="gru", inputs=inputs,
+        outputs={"Hidden": [hidden], "BatchGate": [batch_gate],
+                 "BatchResetHiddenPrev": [batch_reset],
+                 "BatchHidden": [batch_hidden]},
+        attrs={"is_reverse": is_reverse,
+               "gate_activation": gate_activation,
+               "activation": candidate_activation})
+    return hidden
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid", **kwargs):
+    """One GRU step on dense tensors (reference: layers/nn.py gru_unit,
+    gru_unit_op.cc); `size` is 3 * the hidden width.  Returns (hidden,
+    reset hidden prev, gate)."""
+    helper = LayerHelper("gru_unit", param_attr=param_attr,
+                         bias_attr=bias_attr, **kwargs)
+    dtype = input.dtype
+    size = size // 3
+    weight = helper.create_parameter(
+        helper.param_attr, shape=[size, 3 * size], dtype=dtype)
+    bias = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                   shape=[1, 3 * size], dtype=dtype,
+                                   is_bias=True)
+    gate = helper.create_tmp_variable(dtype)
+    reset_hidden_pre = helper.create_tmp_variable(dtype)
+    updated_hidden = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type="gru_unit",
+        inputs={"Input": [input], "HiddenPrev": [hidden],
+                "Weight": [weight], "Bias": [bias]},
+        outputs={"Gate": [gate], "ResetHiddenPrev": [reset_hidden_pre],
+                 "Hidden": [updated_hidden]},
+        attrs={"activation": activation,
+               "gate_activation": gate_activation})
+    return updated_hidden, reset_hidden_pre, gate
+
+
+def sequence_softmax(x=None, input=None, **kwargs):
+    """Softmax within each sequence of a ragged [T, 1] input."""
+    x = x if x is not None else input
+    helper = LayerHelper("sequence_softmax", **kwargs)
+    out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+    helper.append_op(type="sequence_softmax", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_concat(input, axis=0, **kwargs):
+    """Ragged inputs joined per example along time (axis 0) or the
+    features (axis 1) (reference: sequence_concat_op.cc)."""
+    helper = LayerHelper("sequence_concat", input=input, **kwargs)
+    inputs = helper.multiple_input()
+    out = helper.create_tmp_variable(dtype=inputs[0].dtype,
+                                     lod_level=inputs[0].lod_level)
+    helper.append_op(type="sequence_concat", inputs={"X": inputs},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def sequence_slice(input, offset, length, **kwargs):
+    """Rows [offset, offset + length) of each sequence."""
+    helper = LayerHelper("sequence_slice", **kwargs)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op(type="sequence_slice",
+                     inputs={"X": [input], "Offset": [offset],
+                             "Length": [length]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None, **kwargs):
+    """x's rows under y's offsets, or under `target_lod`."""
+    helper = LayerHelper("lod_reset", **kwargs)
+    out = helper.create_tmp_variable(x.dtype, lod_level=1)
+    if y is not None:
+        helper.append_op(type="lod_reset",
+                         inputs={"X": [x], "TargetLoD": [y]},
+                         outputs={"Out": [out]})
+    else:
+        helper.append_op(type="lod_reset", inputs={"X": [x]},
+                         outputs={"Out": [out]},
+                         attrs={"target_lod": list(target_lod)})
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  **kwargs):
+    """Context-window convolution along each sequence (reference:
+    layers/nn.py sequence_conv, sequence_conv_op.cc): the filter
+    [filter_size * D, num_filters], the window starting at
+    -(filter_size // 2), then the bias and the activation."""
+    helper = LayerHelper("sequence_conv", input=input, act=act,
+                         param_attr=param_attr, bias_attr=bias_attr,
+                         **kwargs)
+    dtype = input.dtype
+    filter_param = helper.create_parameter(
+        helper.param_attr, shape=[filter_size * input.shape[1],
+                                  num_filters], dtype=dtype)
+    pre_bias = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    helper.append_op(
+        type="sequence_conv",
+        inputs={"X": [input], "Filter": [filter_param]},
+        outputs={"Out": [pre_bias]},
+        attrs={"contextStride": filter_stride,
+               "contextStart": -int(filter_size // 2),
+               "contextLength": filter_size})
+    pre_act = helper.append_bias_op(pre_bias)
+    return helper.append_activation(pre_act)
+
+
+def sequence_reverse(x, **kwargs):
+    """Each sequence's rows in reverse order."""
+    helper = LayerHelper("sequence_reverse", input=x, **kwargs)
+    out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+    helper.append_op(type="sequence_reverse", inputs={"X": [x]},
+                     outputs={"Y": [out]})
+    return out
+
+
+def sequence_expand(x, y, **kwargs):
+    """x's rows (or sequences) tiled over y's sequences."""
+    helper = LayerHelper("sequence_expand", input=x, **kwargs)
+    out = helper.create_tmp_variable(x.dtype, lod_level=y.lod_level)
+    helper.append_op(type="sequence_expand",
+                     inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]})
+    return out
+
+
+def sequence_reshape(input, new_dim, **kwargs):
+    """The rows regrouped to width `new_dim`, the splits scaled."""
+    helper = LayerHelper("sequence_reshape", **kwargs)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op(type="sequence_reshape", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"new_dim": new_dim})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             **kwargs):
+    """Lookahead row convolution over future_context_size + 1 rows."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act,
+                         **kwargs)
+    dtype = input.dtype
+    filter_param = helper.create_parameter(
+        helper.param_attr, shape=[future_context_size + 1, input.shape[1]],
+        dtype=dtype)
+    out = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    helper.append_op(type="row_conv",
+                     inputs={"X": [input], "Filter": [filter_param]},
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def linear_chain_crf(input, label, param_attr=None, **kwargs):
+    """The CRF's negative log-likelihood per sequence, [B, 1] (reference:
+    linear_chain_crf_op.cc), with its Transition parameter [D + 2, D]."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr,
+                         **kwargs)
+    size = input.shape[1]
+    transition = helper.create_parameter(
+        helper.param_attr, shape=[size + 2, size], dtype=input.dtype)
+    alpha = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    emission_exps = helper.create_tmp_variable(input.dtype,
+                                               stop_gradient=True)
+    transition_exps = helper.create_tmp_variable(input.dtype,
+                                                 stop_gradient=True)
+    log_likelihood = helper.create_tmp_variable(input.dtype)
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input], "Transition": [transition],
+                "Label": [label]},
+        outputs={"Alpha": [alpha], "EmissionExps": [emission_exps],
+                 "TransitionExps": [transition_exps],
+                 "LogLikelihood": [log_likelihood]})
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None, **kwargs):
+    """The Viterbi path under the Transition named by `param_attr`, or,
+    with `label`, the mask of the tags that equal it."""
+    helper = LayerHelper("crf_decoding", **kwargs)
+    transition = helper.main_program.global_block().var(
+        ParamAttr.to_attr(param_attr).name)
+    viterbi_path = helper.create_tmp_variable(dtype="int32",
+                                              stop_gradient=True)
+    inputs = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [viterbi_path]})
+    return viterbi_path
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, **kwargs):
+    """Chunk precision, recall and F1 with the chunk counts (reference:
+    chunk_eval_op.cc)."""
+    helper = LayerHelper("chunk_eval", **kwargs)
+    outs = [helper.create_tmp_variable(dtype=dtype, stop_gradient=True)
+            for dtype in ("float32",) * 3 + ("int32",) * 3]
+    precision, recall, f1, num_infer, num_label, num_correct = outs
+    helper.append_op(
+        type="chunk_eval", inputs={"Inference": [input], "Label": [label]},
+        outputs={"Precision": [precision], "Recall": [recall],
+                 "F1-Score": [f1], "NumInferChunks": [num_infer],
+                 "NumLabelChunks": [num_label],
+                 "NumCorrectChunks": [num_correct]},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return tuple(outs)

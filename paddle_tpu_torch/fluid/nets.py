@@ -1,15 +1,15 @@
 """Composite image networks built from the port's layers.
 
-Counterpart of paddle_tpu/fluid/nets.py `simple_img_conv_pool` and
-`img_conv_group` (reference: python/paddle/v2/fluid/nets.py): graph
-builders over conv2d, batch_norm, dropout and pool2d, appending the same
-ops as the JAX package's.  `sequence_conv_pool` waits for
-`sequence_conv` (ROADMAP A7).
+Counterpart of paddle_tpu/fluid/nets.py `simple_img_conv_pool`,
+`img_conv_group` and `sequence_conv_pool` (reference:
+python/paddle/v2/fluid/nets.py): graph builders over conv2d,
+batch_norm, dropout, pool2d, sequence_conv and sequence_pool, appending
+the same ops as the JAX package's.
 """
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
 
 
 def _per_stage(value, n_stages):
@@ -59,3 +59,13 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 x = layers.dropout(x=x, dropout_prob=drop)
     return layers.pool2d(input=x, pool_size=pool_size, pool_type=pool_type,
                          pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    """A sequence_conv with its activation, then a sequence_pool: one
+    row per sequence."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)

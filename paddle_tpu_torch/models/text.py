@@ -3,15 +3,17 @@
 Counterpart of paddle_tpu/models/text.py (reference:
 benchmark/paddle/rnn/rnn.py, tests/book/
 test_understand_sentiment_dynamic_lstm.py,
-tests/book/test_machine_translation.py): the stacked-LSTM classifier
-that bench.py trains as `BENCH_MODEL=lstm`, and the seq2seq translation
-model of the machine-translation book test.  The convolution classifier
-(`sequence_conv`) waits with ROADMAP A7.
+test_understand_sentiment_conv.py, tests/book/test_machine_translation.py,
+tests/book/test_word2vec.py): the stacked-LSTM classifier that bench.py
+trains as `BENCH_MODEL=lstm`, the sequence-convolution classifier of the
+sentiment book test, the seq2seq translation model of the
+machine-translation book test and the word2vec N-gram model.
 """
 
-from ..fluid import layers
+from ..fluid import layers, nets
 
-__all__ = ["stacked_lstm_text_classifier", "seq2seq"]
+__all__ = ["stacked_lstm_text_classifier", "conv_text_classifier",
+           "seq2seq", "word2vec_ngram"]
 
 
 def stacked_lstm_text_classifier(data, dict_dim, class_dim=2,
@@ -36,6 +38,21 @@ def stacked_lstm_text_classifier(data, dict_dim, class_dim=2,
     lstm_last = layers.sequence_pool(input=inputs[1], pool_type="max")
     return layers.fc(input=[fc_last, lstm_last], size=class_dim,
                      act="softmax")
+
+
+def conv_text_classifier(data, dict_dim, class_dim=2, emb_dim=128,
+                         hid_dim=128):
+    """The sentiment book test's convolution net: an embedding, two
+    sequence_conv_pool branches (filters 3 and 4, tanh, max pool) and a
+    softmax fc over both.  Returns probabilities [batch, class_dim]."""
+    emb = layers.embedding(input=data, size=[dict_dim, emb_dim])
+    conv_3 = nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
+                                     filter_size=3, act="tanh",
+                                     pool_type="max")
+    conv_4 = nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
+                                     filter_size=4, act="tanh",
+                                     pool_type="max")
+    return layers.fc(input=[conv_3, conv_4], size=class_dim, act="softmax")
 
 
 def seq2seq(src, trg_in, src_dict_size, trg_dict_size, emb_dim=32,
@@ -68,3 +85,18 @@ def seq2seq(src, trg_in, src_dict_size, trg_dict_size, emb_dim=32,
         rnn.update_memory(mem, out)
         rnn.step_output(prob)
     return rnn.outputs[0]
+
+
+def word2vec_ngram(words, dict_size, emb_dim=32, hidden_size=256,
+                   shared_embedding=True):
+    """The word2vec book test's N-gram language model: each context word
+    (a dense int64 [batch, 1] var) embedded, by one shared table
+    "shared_w" unless `shared_embedding` is off, concatenated, a sigmoid
+    fc and a softmax fc over the dictionary."""
+    embs = [layers.embedding(
+        input=w, size=[dict_size, emb_dim],
+        param_attr="shared_w" if shared_embedding else None)
+        for w in words]
+    concat = layers.concat(input=embs, axis=1)
+    hidden = layers.fc(input=concat, size=hidden_size, act="sigmoid")
+    return layers.fc(input=hidden, size=dict_size, act="softmax")

@@ -1,9 +1,9 @@
-"""Math op kernels: `mul`, the `elementwise_*` family, `mean` and the
-dense `reduce_*` family.
+"""Math op kernels: `mul`, the `elementwise_*` family, `mean`, the
+dense `reduce_*` family and `cos_sim`.
 
 Counterparts of paddle_tpu/ops/math.py (reference: mul_op.cc,
-elementwise_op_function.h, mean_op.cc, reduce_op.cc).  Products go to torch.matmul;
-with TF32 off (see the package docstring) a float32 product runs in full
+elementwise_op_function.h, mean_op.cc, reduce_op.cc, cos_sim_op.cc).
+Products go to torch.matmul; with TF32 off (see the package docstring) a float32 product runs in full
 float32 on the card, as on the JAX side.  Under the bf16 policy
 (ops/amp_util.py) `mul` runs its product in bf16 and the elementwise
 ops keep a bf16 activation bf16.  `mul` and the elementwise ops over a
@@ -139,3 +139,18 @@ _reduce("reduce_sum", _sum, acc_f32=True)
 _reduce("reduce_mean", _mean, acc_f32=True)
 _reduce("reduce_max", _max)
 _reduce("reduce_min", _min)
+
+
+@register_op("cos_sim")
+def cos_sim(ctx, ins, attrs):
+    """Cosine similarity of X's and Y's rows (reference: cos_sim_op.cc):
+    Out = <x, y> / (|x| |y| + 1e-12), [N, 1], with the norms XNorm and
+    YNorm; a Y of one row broadcasts.  The 1e-12 is added to the product
+    of the norms, as on the JAX side; `F.cosine_similarity` clamps each
+    norm instead, which gives other numbers."""
+    x, y = values_of(ins["X"][0]), values_of(ins["Y"][0])
+    xnorm = torch.sqrt(torch.sum(torch.square(x), -1, keepdim=True))
+    ynorm = torch.sqrt(torch.sum(torch.square(y), -1, keepdim=True))
+    prod = torch.sum(x * y, -1, keepdim=True)
+    return {"Out": [prod / (xnorm * ynorm + 1e-12)], "XNorm": [xnorm],
+            "YNorm": [ynorm]}

@@ -11,10 +11,11 @@ outputs, which name the same variables as Param and the state inputs
 (`in_place_outputs`), back to the scope after the run.
 
 A SelectedRows grad (`lookup_table(is_sparse=True)`) takes the JAX
-side's semantics exactly.  `sgd` and `adagrad` update by rows: a
-scatter-add (`index_add`, atomic on the card) at the grad's ids, so
-rows outside the batch keep their bits.  The out-of-place scatter
-copies the table first: the JAX executor donates the buffer instead,
+side's semantics exactly.  `sgd` and `adagrad` update by rows
+(`core.ragged.add_rows_`: the rows of a repeated id summed in a fixed
+order, then one `index_add` at the grad's ids), so rows outside the
+batch keep their bits and the update repeats bit for bit on the card.
+The out-of-place scatter copies the table first: the JAX executor donates the buffer instead,
 and the port's executor has no such donation yet (ROADMAP A2).  Every
 other op densifies the grad first (`SelectedRows.to_dense`), so under
 Adam a row outside the batch still moves once its moments are nonzero;

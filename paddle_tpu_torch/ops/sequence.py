@@ -1,27 +1,36 @@
-"""Sequence op kernels over RaggedTensors: `sequence_pool`, `lstm`,
-and `sequence_to_dense`/`dense_to_sequence`.
+"""Sequence op kernels over RaggedTensors: `sequence_pool`,
+`sequence_softmax`, `sequence_conv`, `row_conv`, `sequence_expand`,
+`sequence_concat`, `sequence_reshape`, `sequence_slice`,
+`sequence_reverse`, `lod_reset`, the recurrences `lstm`, `gru` and
+`gru_unit`, and `sequence_to_dense`/`dense_to_sequence`.
 
 Counterpart of paddle_tpu/ops/sequence.py (reference:
-sequence_pool_op.cc, lstm_op.cc + math/lstm_compute), the two sequence
-ops of bench.py's stacked-LSTM classifier.  Pooling reduces each
-sequence's rows by segment (`index_add` and `scatter_reduce`, whose max
-splits a gradient evenly among tied maxima, as the JAX side's
-`segment_max` does).  The recurrence densifies the ragged rows into
-[B, maxT] by a masked gather, runs a Python loop over time on the
-executor's device and gathers the steps back into rows.  The loop's
-extent is `max_seqlen`, a host int, so no step waits on the device to
-learn it.  `sequence_to_dense` and `dense_to_sequence` are the
-DynamicRNN's bridge between ragged values and the time-major padded
-tensors of the `recurrent` engine (ops/control_flow.py).  Every grad is
-the generic vjp (ops/registry.py).  The other sequence ops and gru wait
-with ROADMAP A7.
+sequence_pool_op.cc, sequence_conv_op.cc + math/context_project.h,
+sequence_expand_op.cc, sequence_concat_op.cc, sequence_reshape_op.cc,
+sequence_slice_op.cc, sequence_softmax_op.cc, lod_reset_op.cc,
+row_conv_op.cc, lstm_op.cc + math/lstm_compute, gru_op.cc +
+math/gru_compute).  A sum over each sequence's rows is one segment
+reduction over its splits (`_segment_sum`), which adds in row order, so
+it repeats bit for bit on the card; the max is `scatter_reduce`, whose
+grad splits evenly among tied maxima, as the JAX side's `segment_max`
+does.  Rows move between sequences by indexed gathers, whose grads on
+the card sum repeated rows in a fixed order.  A recurrence densifies
+the ragged rows into [B, maxT] by a masked gather, runs a Python loop
+over time on the executor's device and gathers the steps back into
+rows.  The loop's extent is `max_seqlen`, a host int, so no step waits
+on the device to learn it.  `sequence_to_dense` and `dense_to_sequence`
+are the DynamicRNN's bridge between ragged values and the time-major
+padded tensors of the `recurrent` engine (ops/control_flow.py).  Every
+grad is the generic vjp (ops/registry.py).  The nested-sequence ops
+(`seq_unnest`, `seq_outer_expand`, `seq_renest`) wait with nested
+DynamicRNN (ROADMAP A7).
 """
 
 import torch
 
 from ..core.ragged import RaggedTensor
 from .amp_util import amp_result, mxu_operands
-from .registry import register_op
+from .registry import register_op, values_of
 
 __all__ = ["ragged_to_padded", "padded_to_ragged"]
 
@@ -95,6 +104,26 @@ def padded_to_ragged(padded, rt_like):
                         max_seqlen=rt_like.max_seqlen)
 
 
+def _segment_sum(x, values=None):
+    """[B, ...]: each sequence's valid rows of `values` (X's own by
+    default) summed in row order by one segment reduction over X's
+    splits (the rows already lie in sequence order), so the sums repeat
+    bit for bit on the card, as an atomic `index_add` would not.
+    Sequence b covers rows [splits[b], splits[b + 1]) cut at `nvalid`
+    (a row between the last split and `nvalid` counts in the last
+    sequence, as the JAX side's clipped segment ids count it); one more
+    segment takes the rows past `nvalid` and is dropped.  An empty
+    sequence sums to 0."""
+    v = x.values if values is None else values
+    rs = x.last_splits().long()
+    nvalid = x.nvalid.long().reshape(1)
+    offsets = torch.cat([torch.minimum(rs[:-1], nvalid), nvalid,
+                         torch.full((1,), v.shape[0], dtype=torch.long,
+                                    device=rs.device)])
+    return torch.segment_reduce(v, "sum", offsets=offsets, axis=0,
+                                unsafe=True)[:-1]
+
+
 @register_op("sequence_pool")
 def sequence_pool(ctx, ins, attrs):
     """reference: sequence_pool_op.cc.  SUM, AVERAGE, SQRT, MAX, LAST or
@@ -111,11 +140,7 @@ def sequence_pool(ctx, ins, attrs):
     seg_s = torch.where(valid, seg, B)  # padding -> the dropped segment
     zeros_idx = torch.zeros((B,), dtype=torch.int32, device=v.device)
     if ptype in ("SUM", "AVERAGE", "SQRT"):
-        s = torch.zeros((B + 1,) + tuple(v.shape[1:]), dtype=v.dtype,
-                        device=v.device).index_add(
-            0, seg_s, torch.where(vmask, v, torch.zeros((), dtype=v.dtype,
-                                                        device=v.device)))
-        s = s[:B]
+        s = _segment_sum(x)
         if ptype != "SUM":
             lens = x.seq_lengths().clamp(min=1).to(s.dtype)
             if ptype == "SQRT":
@@ -151,12 +176,14 @@ _ACTS = {
 
 def _reverse_in_length(padded, lens):
     """Each sequence of [B, T, ...] reversed within its length (steps
-    past it take a clipped copy, which the masks ignore)."""
-    T = padded.shape[1]
+    past it take a clipped copy, which the masks ignore).  An indexed
+    gather, whose grad on the card sums repeated positions in a fixed
+    order (an index put with accumulation sorts its indices)."""
+    B, T = padded.shape[0], padded.shape[1]
     t = torch.arange(T, dtype=lens.dtype, device=lens.device)
     rev = (lens[:, None] - 1 - t[None, :]).clamp(0, T - 1).long()
-    return torch.gather(padded, 1, _lead_mask(rev, padded).expand(
-        padded.shape))
+    rows = torch.arange(B, device=lens.device)[:, None]
+    return padded[rows, rev]
 
 
 @register_op("lstm")
@@ -275,3 +302,297 @@ def dense_to_sequence(ctx, ins, attrs):
     (`padded_to_ragged`): each valid row takes its (sequence, step), a
     row past `nvalid` 0.  Like's values are not read."""
     return {"Out": [padded_to_ragged(ins["X"][0], ins["Like"][0])]}
+
+
+@register_op("sequence_softmax")
+def sequence_softmax(ctx, ins, attrs):
+    """Softmax within each sequence of X [T, 1] (reference:
+    sequence_softmax_op.cc): the max by segment (`scatter_reduce`, whose
+    grad splits evenly among tied maxima as `segment_max`'s does), the
+    denominators by `_segment_sum`, at least 1e-12; rows past `nvalid`
+    give 0."""
+    x = ins["X"][0]
+    seg, _, valid = _seg_pos(x)
+    B = x.nseq()
+    v = x.values.reshape(-1)
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    v = torch.where(valid, v, torch.full((), float("-inf"), dtype=v.dtype,
+                                         device=v.device))
+    seg_s = torch.where(valid, seg, B).long()
+    mx = torch.full((B + 1,), float("-inf"), dtype=v.dtype,
+                    device=v.device).scatter_reduce(
+        0, seg_s, v, reduce="amax", include_self=False)
+    mx = torch.where(torch.isfinite(mx), mx, zero)
+    e = torch.where(valid, torch.exp(v - mx[seg]), zero)
+    denom = _segment_sum(x, e)
+    out = e / torch.clamp(denom[seg], min=1e-12)
+    out = torch.where(valid, out, zero)
+    return {"Out": [x.with_values(out.reshape(x.values.shape))]}
+
+
+@register_op("sequence_conv")
+def sequence_conv(ctx, ins, attrs):
+    """Context-window convolution along each sequence (reference:
+    sequence_conv_op.cc + math/context_project.h): row i of a sequence
+    takes the rows at offsets contextStart .. contextStart +
+    contextLength - 1 from it (zeros outside the sequence or past
+    `nvalid`), side by side [T, contextLength * D], times Filter
+    [contextLength * D, M].  contextStride is not read, as on the JAX
+    side.  The rows are gathered by indexing, whose grad on the card
+    sums repeated rows in a fixed order."""
+    x = ins["X"][0]
+    filt = ins["Filter"][0]
+    ctx_start = int(attrs.get("contextStart", -1))
+    ctx_len = int(attrs.get("contextLength", 3))
+    seg, inseq, valid = _seg_pos(x)
+    T = x.values.shape[0]
+    lens = x.seq_lengths()[seg]
+    pos = torch.arange(T, dtype=torch.int32, device=seg.device)
+    zero = torch.zeros((), dtype=x.values.dtype, device=x.values.device)
+    cols = []
+    for j in range(ctx_len):
+        off = ctx_start + j
+        src = (pos + off).clamp(0, max(T - 1, 0)).long()
+        ok = (inseq + off >= 0) & (inseq + off < lens) & valid
+        cols.append(torch.where(ok[:, None], x.values[src], zero))
+    ctx_mat = torch.cat(cols, dim=1)
+    dtype = torch.promote_types(ctx_mat.dtype, filt.dtype)
+    out = torch.matmul(ctx_mat.to(dtype), filt.to(dtype))
+    return {"Out": [x.with_values(out)]}
+
+
+@register_op("row_conv")
+def row_conv(ctx, ins, attrs):
+    """Lookahead row convolution (reference: row_conv_op.cc): row i of a
+    sequence is the sum over j < k of Filter[j] times row i + j, where
+    that row lies in the sequence (Filter [k, D])."""
+    x = ins["X"][0]
+    filt = ins["Filter"][0]
+    seg, inseq, valid = _seg_pos(x)
+    T = x.values.shape[0]
+    lens = x.seq_lengths()[seg]
+    pos = torch.arange(T, dtype=torch.int32, device=seg.device)
+    zero = torch.zeros((), dtype=x.values.dtype, device=x.values.device)
+    out = torch.zeros_like(x.values)
+    for j in range(filt.shape[0]):
+        src = (pos + j).clamp(0, max(T - 1, 0)).long()
+        ok = (inseq + j < lens) & valid
+        out = out + torch.where(ok[:, None], x.values[src] * filt[j][None],
+                                zero)
+    return {"Out": [x.with_values(out)]}
+
+
+@register_op("sequence_expand")
+def sequence_expand(ctx, ins, attrs):
+    """X tiled over Y's lod (reference: sequence_expand_op.cc): a dense
+    X's row i fills Y's i-th sequence (level 0); a ragged X's sequence i
+    is laid over it row by row.  The result has Y's splits and `nvalid`
+    (no length hint, as on the JAX side); rows past `nvalid` are 0."""
+    x, y = ins["X"][0], ins["Y"][0]
+    seg, inseq, valid = _seg_pos(y, level=0)
+    xv = values_of(x)
+    if isinstance(x, RaggedTensor):
+        src = (x.last_splits()[seg] + inseq).clamp(0, xv.shape[0] - 1)
+        out = xv[src.long()]
+    else:
+        out = xv[seg.long()]
+    out = torch.where(_lead_mask(valid, out), out,
+                      torch.zeros((), dtype=out.dtype, device=out.device))
+    return {"Out": [RaggedTensor(out, y.row_splits, y.nvalid)]}
+
+
+def _concat_time_pair(a, b):
+    """out[i] = a[i] ++ b[i] for two lod-level-1 RaggedTensors, by one
+    indexed gather over their stacked rows (the JAX side's
+    `_concat_time_pair`, padding rows included: the flat length is the
+    sum of both, and `nvalid` the sum of theirs)."""
+    rs_a, rs_b = a.row_splits[-1], b.row_splits[-1]
+    nseq = rs_a.shape[0] - 1
+    la, lb = rs_a[1:] - rs_a[:-1], rs_b[1:] - rs_b[:-1]
+    out_splits = torch.cat([torch.zeros(1, dtype=torch.int32,
+                                        device=rs_a.device),
+                            torch.cumsum(la + lb, 0, dtype=torch.int32)])
+    ta = a.values.shape[0]
+    n_out = ta + b.values.shape[0]
+    pos = torch.arange(n_out, dtype=torch.int32, device=rs_a.device)
+    seg = (torch.searchsorted(out_splits, pos, right=True) - 1).clamp(
+        0, nseq - 1)
+    off = pos - out_splits[seg]
+    src = torch.where(off < la[seg], rs_a[seg] + off,
+                      ta + rs_b[seg] + (off - la[seg]))
+    vals = torch.cat([a.values, b.values], 0)[
+        src.clamp(0, n_out - 1).long()]
+    return RaggedTensor(vals, [out_splits], nvalid=a.nvalid + b.nvalid)
+
+
+@register_op("sequence_concat")
+def sequence_concat(ctx, ins, attrs):
+    """Concatenation along time (axis 0: each sequence of the first
+    input, then the same sequence of the next) or along the features
+    (axis 1) (reference: sequence_concat_op.cc)."""
+    xs = ins["X"]
+    if int(attrs.get("axis", 0)) == 1:
+        return {"Out": [xs[0].with_values(
+            torch.cat([x.values for x in xs], dim=1))]}
+    out = xs[0]
+    for x in xs[1:]:
+        out = _concat_time_pair(out, x)
+    return {"Out": [out]}
+
+
+def _sequence_reshape_infer(block, op_desc):
+    """Out [-1, new_dim] at lod level at least 1 (the JAX side's
+    `_sequence_reshape_infer`: a meta run's row count need not divide
+    by new_dim)."""
+    from ..fluid.framework import _find_var_desc
+
+    xv = _find_var_desc(block, op_desc.input("X")[0])
+    out = _find_var_desc(block, op_desc.output("Out")[0])
+    out.shape = (-1, int(op_desc.attrs["new_dim"]))
+    out.dtype = xv.dtype
+    out.lod_level = max(xv.lod_level or 0, 1)
+
+
+@register_op("sequence_reshape", infer_desc=_sequence_reshape_infer)
+def sequence_reshape(ctx, ins, attrs):
+    """Rows of width D regrouped into rows of `new_dim` (reference:
+    sequence_reshape_op.cc): every split and `nvalid` scaled by D /
+    new_dim in float32, then truncated, as the JAX side computes
+    them."""
+    x = ins["X"][0]
+    new_dim = int(attrs["new_dim"])
+    factor = torch.tensor(x.values.shape[1] / new_dim, dtype=torch.float32,
+                          device=x.values.device)
+    rs = [(r.to(torch.float32) * factor).to(torch.int32)
+          for r in x.row_splits]
+    nvalid = (x.nvalid.to(torch.float32) * factor).to(torch.int32)
+    return {"Out": [RaggedTensor(x.values.reshape(-1, new_dim), rs,
+                                 nvalid)]}
+
+
+@register_op("sequence_slice")
+def sequence_slice(ctx, ins, attrs):
+    """Rows [Offset[i], Offset[i] + Length[i]) of each sequence i
+    (reference: sequence_slice_op.cc).  The flat buffer keeps its size:
+    the sliced rows lead it, and the rows past the new `nvalid` are
+    0."""
+    x = ins["X"][0]
+    offset = ins["Offset"][0].reshape(-1).to(torch.int32)
+    length = ins["Length"][0].reshape(-1).to(torch.int32)
+    T = x.values.shape[0]
+    dev = x.values.device
+    new_splits = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                            torch.cumsum(length, 0, dtype=torch.int32)])
+    pos = torch.arange(T, dtype=torch.int32, device=dev)
+    new_seg = (torch.searchsorted(new_splits, pos, right=True) - 1).clamp(
+        0, x.nseq() - 1)
+    new_in = pos - new_splits[new_seg]
+    src = (x.last_splits()[new_seg] + offset[new_seg] + new_in).clamp(
+        0, max(T - 1, 0))
+    vals = x.values[src.long()]
+    nvalid = new_splits[-1]
+    vals = torch.where(_lead_mask(pos < nvalid, vals), vals,
+                       torch.zeros((), dtype=vals.dtype, device=dev))
+    return {"Out": [RaggedTensor(vals, [new_splits], nvalid)]}
+
+
+@register_op("sequence_reverse")
+def sequence_reverse(ctx, ins, attrs):
+    """The rows of each sequence in reverse order, the same splits out
+    (reference: RecurrentLayerGroup's reversed inlinks): a gather
+    through the mirrored position in the sequence; rows past `nvalid`
+    are 0."""
+    x = ins["X"][0]
+    seg, inseq, valid = _seg_pos(x)
+    rs = x.last_splits()
+    lengths = rs[1:] - rs[:-1]
+    src = (rs[seg] + lengths[seg] - 1 - inseq).clamp(
+        0, x.values.shape[0] - 1)
+    vals = torch.where(_lead_mask(valid, x.values), x.values[src.long()],
+                       torch.zeros((), dtype=x.values.dtype,
+                                   device=x.values.device))
+    return {"Y": [RaggedTensor(vals, x.row_splits, x.nvalid)]}
+
+
+@register_op("lod_reset")
+def lod_reset(ctx, ins, attrs):
+    """X's rows under a new lod level 1: TargetLoD's offsets when it is
+    given, else the `target_lod` attr (reference: lod_reset_op.cc)."""
+    xv = values_of(ins["X"][0])
+    if ins.get("TargetLoD"):
+        target = ins["TargetLoD"][0].reshape(-1).to(torch.int32)
+    else:
+        target = torch.tensor([int(v) for v in attrs["target_lod"]],
+                              dtype=torch.int32, device=xv.device)
+    return {"Out": [RaggedTensor(xv, [target])]}
+
+
+@register_op("gru")
+def gru(ctx, ins, attrs):
+    """Dynamic GRU over a ragged batch (reference: gru_op.cc +
+    math/gru_compute; gates [update u, reset r, candidate c]).  Input is
+    the ragged [T, 3D] projection, with the Bias [1, 3D] added to it;
+    Weight [D, 3D] holds the u and r weights [D, 2D], then the
+    candidate's [D, D].  A step: u, r = act_g(x_ur + h W_ur), c =
+    act(x_c + (r h) W_c), h = u h + (1 - u) c, where r multiplies h
+    before the candidate's product.  This is not cuDNN's GRU, whose
+    reset gate multiplies after it.  Under the bf16 policy the state
+    stays f32 and Hidden drops back to the input's dtype.  `is_reverse`
+    runs each sequence backwards within its length.  The workspace
+    outputs name the input and Hidden, as on the JAX side."""
+    x = ins["Input"][0]
+    w = ins["Weight"][0]
+    b = ins["Bias"][0] if ins.get("Bias") else None
+    act_g = _ACTS[attrs.get("gate_activation", "sigmoid")]
+    act_c = _ACTS[attrs.get("activation", "tanh")]
+    D = w.shape[0]
+    w_ur, w_c = w[:, :2 * D], w[:, 2 * D:]
+    padded, lens = ragged_to_padded(x)
+    B, T = padded.shape[0], padded.shape[1]
+    if attrs.get("is_reverse", False):
+        padded = _reverse_in_length(padded, lens)
+    if b is not None:
+        padded = padded + b.reshape(1, 1, -1)
+    state_dtype = torch.float32 if x.values.dtype == torch.bfloat16 \
+        else x.values.dtype
+    h = (ins["H0"][0] if ins.get("H0") else torch.zeros(
+        (B, D), device=padded.device)).to(state_dtype)
+    t = torch.arange(T, dtype=lens.dtype, device=lens.device)
+    mask = (t[:, None] < lens[None, :]).to(state_dtype)[..., None]
+    hs = []
+    for step in range(T):
+        x_t = padded[:, step]
+        ur = act_g(x_t[:, :2 * D].to(state_dtype) + _amp_dot(h, w_ur))
+        u, r = ur[:, :D], ur[:, D:]
+        c = act_c(x_t[:, 2 * D:].to(state_dtype) + _amp_dot(r * h, w_c))
+        h_new = u * h + (1 - u) * c
+        m = mask[step]
+        h = m * h_new + (1 - m) * h
+        hs.append(h)
+    hs = torch.stack(hs, 1)
+    if attrs.get("is_reverse", False):
+        hs = _reverse_in_length(hs, lens)
+    hidden = padded_to_ragged(hs.to(x.values.dtype), x)
+    return {"Hidden": [hidden], "BatchGate": [x],
+            "BatchResetHiddenPrev": [hidden], "BatchHidden": [hidden]}
+
+
+@register_op("gru_unit")
+def gru_unit(ctx, ins, attrs):
+    """One GRU step on dense tensors (reference: gru_unit_op.cc): Input
+    [N, 3D] plus the Bias, HiddenPrev [N, D]; Gate is [u, r, c] and
+    ResetHiddenPrev r * h_prev."""
+    x = ins["Input"][0]
+    h_prev = ins["HiddenPrev"][0]
+    w = ins["Weight"][0]
+    act_g = _ACTS[attrs.get("gate_activation", "sigmoid")]
+    act_c = _ACTS[attrs.get("activation", "tanh")]
+    D = h_prev.shape[1]
+    if ins.get("Bias"):
+        x = x + ins["Bias"][0].reshape(1, -1)
+    ur = act_g(x[:, :2 * D] + _amp_dot(h_prev, w[:, :2 * D]))
+    u, r = ur[:, :D], ur[:, D:]
+    c = act_c(x[:, 2 * D:] + _amp_dot(r * h_prev, w[:, 2 * D:]))
+    h = u * h_prev + (1 - u) * c
+    return {"Gate": [torch.cat([u, r, c], dim=1)],
+            "ResetHiddenPrev": [r * h_prev], "Hidden": [h]}

@@ -12,7 +12,7 @@ shards such a grad across parameter servers, waits with ROADMAP A9/A10
 
 import torch
 
-from ..core.ragged import RaggedTensor, SelectedRows
+from ..core.ragged import RaggedTensor, SelectedRows, add_rows_
 from .registry import like, register_grad_kernel, register_op, values_of
 
 
@@ -58,8 +58,9 @@ def lookup_table(ctx, ins, attrs):
 @register_grad_kernel("lookup_table")
 def lookup_table_grad(ctx, ins, attrs):
     """W@GRAD.  Dense: OG@Out's rows added into zeros at their ids
-    (`index_add_`; on the card the adds are atomic, so rows hit twice
-    sum in a varying order).  Rows of `padding_idx` ids add nothing;
+    (`core.ragged.add_rows_`: the rows of a repeated id are summed in a
+    fixed order, so the grad repeats bit for bit on the card).  Rows of
+    `padding_idx` ids add nothing;
     ids index as in the forward, and those outside [-vocab, vocab) add
     nothing, as the JAX side's scatter drops them; so do the rows that
     pad ragged ids to a bucket.
@@ -81,8 +82,8 @@ def lookup_table_grad(ctx, ins, attrs):
         keep = keep & ids.valid_mask()
     g = torch.where(keep[:, None], g.to(w.dtype),
                     torch.zeros((), dtype=w.dtype, device=w.device))
-    dense = torch.zeros_like(w).index_add_(0, flat.clamp(0, vocab - 1), g)
-    return {"W@GRAD": [dense]}
+    return {"W@GRAD": [add_rows_(torch.zeros_like(w),
+                                 flat.clamp(0, vocab - 1), g)]}
 
 
 def _sparse_grad(ins, attrs):

@@ -196,6 +196,11 @@ def test_registry_holds_the_slice_op_set():
         "proximal_adagrad",
         # sub-blocks: the DynamicRNN engine and its bridges
         "recurrent", "sequence_to_dense", "dense_to_sequence", "transpose",
-        "fill_constant_batch_size_like"}
+        "fill_constant_batch_size_like",
+        # the rest of the sequence ops, the CRF and the book's cos_sim
+        "cos_sim", "sequence_conv", "linear_chain_crf", "crf_decoding",
+        "chunk_eval", "sequence_softmax", "row_conv", "sequence_expand",
+        "sequence_concat", "sequence_reshape", "sequence_slice",
+        "sequence_reverse", "lod_reset", "gru", "gru_unit"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")

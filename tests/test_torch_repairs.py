@@ -1,4 +1,4 @@
-"""Three faults of the port against the JAX package, each repaired:
+"""Four faults of the port against the JAX package, each repaired:
 
 - The flash kernel's routes: head dims up to 256 in float32, bfloat16
   and float16 (129..256 on routes of their own), a clear error above
@@ -11,6 +11,17 @@
 - `Program.random_seed` seeds the scope's random stream: startup
   programs with seeds 1 and 2 give different fc weights, the same seed
   equal ones, and `clone` keeps the seed.
+- Sums of repeated rows repeat bit for bit: `core.ragged.sum_rows`
+  sorts the ids stably and sums each run in row order, and
+  `add_rows_` (the SelectedRows `to_dense` and `sum`, the row updates
+  of `sgd` and `adagrad`), the dense `lookup_table_grad` and
+  `sequence_pool`'s SUM go through such fixed-order sums instead of
+  `index_add_`'s atomic adds.  With repeated, negative and
+  out-of-range ids each equals `index_add_` and JAX's `segment_sum`
+  within f32 rounding (atol 1e-6 times the number of addends and the
+  largest magnitude), gives the same bits when run twice, adds -0.0
+  where nothing lands (a -0.0 entry keeps its sign) and leaves the rows
+  no id names bit for bit.
 """
 
 import importlib
@@ -177,3 +188,126 @@ def test_random_seed_survives_clone_and_stream_advances():
     seeded.run(startup, scope=a)
     seeded.run(startup, scope=b)
     assert not torch.equal(a.get("fc_0.w_0"), b.get("fc_0.w_0"))
+
+
+# -- sums of repeated rows in a fixed order ------------------------------------
+
+def _rows_case(seed, n=64, height=10, width=3):
+    """Ids with repeats, negatives in [-height, 0) and ids outside
+    [-height, height), and their values."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(-height - 3, height + 3, size=n).astype(np.int32)
+    ids[:8] = 2  # one id hit eight times
+    vals = rs.randn(n, width).astype(np.float32)
+    return ids, vals
+
+
+def _jax_scatter(ids, vals, height):
+    """The JAX side's `x.at[ids].add(values)` into zeros."""
+    return np.asarray(jnp.zeros((height, vals.shape[1]), jnp.float32)
+                      .at[jnp.asarray(ids)].add(jnp.asarray(vals)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_add_rows_matches_index_add_and_jax(seed):
+    from paddle_tpu_torch.core.ragged import add_rows_, row_index
+
+    height = 10
+    ids, vals = _rows_case(seed, height=height)
+    got = add_rows_(torch.zeros(height, 3), torch.from_numpy(ids),
+                    torch.from_numpy(vals))
+    index, valid = row_index(torch.from_numpy(ids), height)
+    atomic = torch.zeros(height, 3).index_add_(
+        0, index, torch.from_numpy(vals) * valid[:, None])
+    tol = 1e-6 * len(ids) * float(np.abs(vals).max())
+    np.testing.assert_allclose(got.numpy(), atomic.numpy(), atol=tol,
+                               rtol=0)
+    np.testing.assert_allclose(got.numpy(), _jax_scatter(ids, vals, height),
+                               atol=tol, rtol=0)
+    again = add_rows_(torch.zeros(height, 3), torch.from_numpy(ids),
+                      torch.from_numpy(vals))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_sum_rows_sums_runs_in_row_order():
+    from paddle_tpu_torch.core.ragged import sum_rows
+
+    index = torch.tensor([3, 1, 3, 0, 1, 3])
+    vals = torch.tensor([[1.0], [2.0], [4.0], [8.0], [16.0], [32.0]])
+    ids, sums = sum_rows(index, vals)
+    assert ids[:3].tolist() == [0, 1, 3]
+    assert sums[:3, 0].tolist() == [8.0, 18.0, 37.0]
+    # past the last run: the last id again, adding -0.0
+    assert ids[3:].tolist() == [3, 3, 3]
+    assert torch.signbit(sums[3:]).all() and not sums[3:].any()
+    # f32 sums in row order: 1e8 + 1 + ... is not 1 + ... + 1e8
+    big = torch.tensor([[1e8], [1.0], [1.0], [1.0], [1.0]])
+    _, s = sum_rows(torch.zeros(5, dtype=torch.long), big)
+    want = np.float32(1e8)
+    for _ in range(4):
+        want = np.float32(want + np.float32(1.0))
+    assert s[0, 0].item() == want
+
+
+def test_add_rows_keeps_negative_zero_and_untouched_rows():
+    from paddle_tpu_torch.core.ragged import add_rows_
+
+    x = torch.full((6, 2), -0.0)
+    x[5] = 7.0
+    ids = torch.tensor([1, 1, 9, -9, 3], dtype=torch.int32)
+    vals = torch.tensor([[1.0, -0.0], [-1.0, -0.0], [5.0, 5.0],
+                         [5.0, 5.0], [-0.0, -0.0]])
+    out = add_rows_(x.clone(), ids, vals)
+    # rows 0, 2, 4 untouched; row 3 added -0.0 only; out-of-range ids
+    # (9, -9) add nothing; row 1 sums 1 + -1 = 0 in row order
+    for r in (0, 2, 3, 4):
+        assert torch.equal(out[r].view(torch.int32),
+                           x[r].view(torch.int32)), r
+    assert out[5].tolist() == [7.0, 7.0]
+    assert out[1].tolist() == [0.0, 0.0]
+
+
+def test_dense_lookup_table_grad_repeats_and_matches_jax():
+    from paddle_tpu.fluid import executor as jexec
+    from paddle_tpu.core.desc import OpDesc as JOpDesc
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.fluid import executor as texec
+
+    rs = np.random.RandomState(3)
+    ids = rs.randint(-12, 12, size=(40, 1)).astype(np.int32)
+    ids[:10] = 0
+    w = rs.randn(12, 4).astype(np.float32)
+    og = rs.randn(40, 4).astype(np.float32)
+    names = {"Ids": ["ids"], "W": ["w"], "O@Out": ["@EMPTY@"],
+             "OG@Out": ["og"]}
+    attrs = {"is_sparse": False, "padding_idx": -1}
+    env = {"ids": ids, "w": w, "og": og}
+    op = ("lookup_table_grad", names, {"W@GRAD": ["gw"]}, attrs)
+    jctx = jexec.ExecContext(None, None, 0,
+                             {k: jnp.asarray(v) for k, v in env.items()})
+    jexec.apply_op(jctx, JOpDesc(*op))
+    runs = []
+    for _ in range(2):
+        tctx = texec.ExecContext(
+            None, 0, {k: torch.from_numpy(v) for k, v in env.items()},
+            device=torch.device("cpu"))
+        texec.apply_op(tctx, OpDesc(*op))
+        runs.append(tctx.env["gw"])
+    assert torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+    np.testing.assert_allclose(runs[0].numpy(), np.asarray(jctx.env["gw"]),
+                               atol=1e-6 * 40 * np.abs(og).max(), rtol=0)
+
+
+def test_sequence_pool_sum_is_the_rows_in_order():
+    """SUM over a sequence of 1e8 and four 1s: the f32 sum in row order
+    (a segment reduction over the splits); padding rows take no part."""
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+    from paddle_tpu_torch.ops.sequence import sequence_pool
+
+    vals = torch.tensor([[1e8], [1.0], [1.0], [1.0], [1.0], [2.0], [9e9]])
+    x = RaggedTensor(vals, [torch.tensor([0, 5, 5, 6])], nvalid=6)
+    out = sequence_pool(None, {"X": [x]}, {"pooltype": "SUM"})["Out"][0]
+    want = np.float32(1e8)
+    for _ in range(4):
+        want = np.float32(want + np.float32(1.0))
+    assert out[:, 0].tolist() == [float(want), 0.0, 2.0]
