@@ -194,6 +194,34 @@ no result line:
      zero-padded batch), linear_chain_crf and its grad, crf_decoding,
      and gru and its grad (beside cuDNN's GRU, a different function),
      each beside its bound.  No hand-written kernel runs here.
+  13. ctc: loops, conditionals, tensor arrays, rank tables and CTC.
+     (a) At the JAX tests' sizes, on the card against the port's plain
+     CPU path: a bounded While (a masked loop carrying a tensor, a
+     counter, its condition and a TensorArray) and its generic grad, the
+     same loop unbounded (a host read a step), IfElse routing rows,
+     split_lod_tensor and merge_lod_tensor of a ragged value, and the
+     rank-table round trip and reorder, flat and lod-level-2; exact where
+     the output is an integer or a permutation, else at CTC_LOOP_ATOL.
+     The bounded while op's device time.  (b) tests/test_ctc_training.py's
+     flow (its program, seed and data): the first step against the CPU
+     plain path, 200 SGD steps to its criterion, the greedy decode equal
+     to the targets.  (c) CRNN-CTC (PaddlePaddle/models
+     fluid/ocr_recognition crnn_ctc_model.py) at its own widths, batch
+     32 of 1 x 48 x 512 images: its op count, op types and parameter
+     count; 2 Momentum steps on the card against the CPU plain path from
+     one state (the loss, and the change of the parameters, velocities
+     and batch-norm statistics); peak memory over 3 steps; one training
+     step with CUDA's synchronizing calls made errors; the step's median
+     of 10 after 2 warm (feeds on the card), images/s, labels/s and a
+     profiled step; one step run twice from one state without torch's
+     deterministic algorithms: the grads of warpctc's logits, the GRUs
+     and the fcs bit for bit (the convolutions' and batch norms' grads
+     counted and reported); the greedy decode and edit distance on the
+     card equal to the CPU's; the export (image -> ids) served to 3
+     concurrent requests, the ids equal to the card engine's and the
+     CPU's.  (d) warpctc alone at CRNN's shape (B 32, T 32, C 96),
+     forward and generic grad, beside F.ctc_loss over log_softmax and
+     the bound by bytes.  No hand-written kernel runs here.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -4792,6 +4820,912 @@ def phase_book():
     return launches
 
 
+# -- phase 13: loops, conditionals, tensor arrays, rank tables and CTC --------
+
+# 13a: the loop machinery at the JAX tests' sizes, on the card against the
+# port's plain CPU path.  Integer outputs, permutations and row copies
+# exactly; float ones (the bounded loop's carries and grads: a 4-wide
+# product and tanh, 3 steps) within CTC_LOOP_ATOL of the larger of 1 and
+# their largest magnitude, the f32 arithmetic of two libraries
+CTC_LOOP_ATOL = 1e-5
+CTC_LOOP_LIMIT, CTC_LOOP_STEPS = 3, 5     # the loop's bound and max_steps
+# 13b: tests/test_ctc_training.py's flow (V classes and a blank, FEAT
+# features, 4 sequences from RandomState(0), fc -> warpctc -> mean, SGD
+# at 0.5, 200 steps; its criterion: the last loss below a tenth of the
+# first, the greedy decode the targets).  Its first step on the card
+# against the CPU: f32 at 1e-5 of the loss and of each parameter
+CTC_FLOW_V, CTC_FLOW_FEAT, CTC_FLOW_STEPS = 5, 6, 200
+CTC_FLOW_RTOL = 1e-5
+# 13c: CRNN-CTC (PaddlePaddle/models fluid/ocr_recognition
+# crnn_ctc_model.py, early 2018) at its own widths: 1 x 48 x 512 images
+# (the reader's DATA_SHAPE), batch 32, four groups of two 3x3
+# convolutions ([16, 16] .. [128, 128], each with batch_norm and relu,
+# each group a 2x2 max pool), im2sequence to 32 steps of 384, two fc of
+# 600, GRUs of 200 both ways (relu candidates), fc to 95 classes and the
+# blank, warpctc(norm_by_times) summed, Momentum at lr 1e-3 and 0.9;
+# less the source's L2 regularizer and gradient clip (ROADMAP A5).
+# Labels of 4-16 classes, pixels uniform in [0, 255) less 127.5
+CRNN_HW, CRNN_BATCH, CRNN_CLASSES, CRNN_HIDDEN = (48, 512), 32, 95, 200
+CRNN_GROUPS = ((16, 16), (32, 32), (64, 64), (128, 128))
+CRNN_LABELS = (4, 16)
+CRNN_LR, CRNN_MOMENTUM = 1e-3, 0.9
+CRNN_SERVE = 3                   # concurrent requests of one image each
+CRNN_BUCKETS = [1, 2, 4]
+# 2 Momentum steps on the card against the CPU plain path from one state:
+# f32 on both sides (TF32 off), cuDNN's convolutions against the CPU's and
+# the batch norms' and GRUs' sums in other orders.  The loss (a sum of 32
+# per-frame CTC losses, about 150, where one ulp is 1.5e-5) within
+# CRNN_LOSS_RTOL of its size; each group's change over the steps
+# (parameters, velocities, batch-norm statistics) in relative L2 within
+# CRNN_STATE_RL2
+CRNN_LOSS_RTOL = 1e-5
+CRNN_STATE_RL2 = 1e-3
+
+
+def ctc_while_program(fluid, max_steps, limit=CTC_LOOP_LIMIT):
+    """A loop carrying acc = tanh(acc W + x), a counter, its condition
+    and an array written each step (capacity 8), built by `fluid`'s
+    layers (tests/test_torch_control_flow.py builds it with both
+    packages' and holds the port's run to the JAX package's)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        layers = fluid.layers
+        x = layers.data(name="x", shape=[2, 4], dtype="float32",
+                        append_batch_size=False)
+        acc = layers.data(name="acc", shape=[2, 4], dtype="float32",
+                          append_batch_size=False)
+        i = layers.fill_constant(shape=[1], dtype="int64", value=0)
+        top = layers.fill_constant(shape=[1], dtype="int64", value=limit)
+        arr = layers.array_write(x, i=i, capacity=8)
+        cond = layers.less_than(x=i, y=top)
+        loop = layers.While(cond=cond, max_steps=max_steps)
+        with loop.block():
+            h = layers.fc(input=acc, size=4, bias_attr=False)
+            layers.sums(input=[layers.tanh(
+                layers.elementwise_add(x=h, y=x))], out=acc)
+            layers.increment(x=i, value=1, in_place=True)
+            layers.array_write(acc, i=i, array=arr)
+            layers.less_than(x=i, y=top, cond=cond)
+    return main
+
+
+def ctc_while_env(main, device, seed=SEED):
+    """The while op's inputs on `device`: the feeds and the weight from
+    the seed, and block 0's values before the loop."""
+    import torch
+    from paddle_tpu_torch.core.tensor_array import TensorArray
+
+    rs = np.random.RandomState(seed)
+    x = rs.randn(2, 4).astype(np.float32)
+    env = {"x": x, "acc": rs.randn(2, 4).astype(np.float32),
+           "fc_0.w_0": (rs.randn(4, 4) * 0.5).astype(np.float32)}
+    env = {n: torch.from_numpy(v).to(device) for n, v in env.items()}
+    for op in main.desc.block(0).ops:
+        name = (op.output("Out") or [None])[0]
+        if op.type == "fill_constant":
+            env[name] = torch.tensor([int(op.attrs["value"])],
+                                     dtype=torch.int32, device=device)
+        elif op.type == "less_than":
+            env[name] = torch.tensor([True], device=device)
+        elif op.type == "write_to_array":
+            buf = torch.zeros((8, 2, 4), device=device)
+            buf[0] = env["x"]
+            env[name] = TensorArray(buf, 1)
+    return env
+
+
+def ctc_host(v):
+    """A value as host arrays: (values, lod or length or None)."""
+    if hasattr(v, "buffer"):
+        return v.buffer.detach().cpu().numpy(), int(v.length)
+    if hasattr(v, "row_splits"):
+        return v.values.detach().cpu().numpy()[:int(v.nvalid)], v.lod()
+    if isinstance(v, (list, tuple)):
+        return [ctc_host(s) for s in v], None
+    return np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach")
+                      else v), None
+
+
+def ctc_same(tag, got, ref, exact):
+    """The largest difference of two host values (0 where exact and
+    equal); raises on a mismatch."""
+    (gv, gmeta), (rv, rmeta) = ctc_host(got), ctc_host(ref)
+    if isinstance(gv, list):
+        errs = [ctc_same("%s[%d]" % (tag, k), a, b, exact)
+                for k, (a, b) in enumerate(zip(got, ref))]
+        if len(gv) != len(rv):
+            raise SystemExit("chip_smoke: %s: %d steps on the card, %d on "
+                             "the CPU" % (tag, len(gv), len(rv)))
+        return max(errs or [0.0])
+    if gmeta != rmeta or gv.shape != rv.shape or gv.dtype != rv.dtype:
+        raise SystemExit("chip_smoke: %s: structure %s %s %s on the card, "
+                         "%s %s %s on the CPU" % (tag, gmeta, gv.shape,
+                                                  gv.dtype, rmeta, rv.shape,
+                                                  rv.dtype))
+    if exact or not np.issubdtype(rv.dtype, np.floating):
+        if not np.array_equal(gv, rv):
+            raise SystemExit("chip_smoke: %s differs from the CPU" % tag)
+        return 0.0
+    err = float(np.abs(gv - rv).max()) if rv.size else 0.0
+    if err > CTC_LOOP_ATOL * max(1.0, float(np.abs(rv).max())):
+        raise SystemExit("chip_smoke: %s: max_abs_err %.3g on the card"
+                         % (tag, err))
+    return err
+
+
+def ctc_machinery(device, smi):
+    """13a: each loop-machinery program on the card and on the CPU plain
+    path.  Returns {name: ms} of the bounded while op and its grad
+    (device ms by graph replay, and eager)."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+    from paddle_tpu_torch.core.tensor_array import TensorArray
+    from paddle_tpu_torch.fluid.executor import ExecContext, apply_op
+    from paddle_tpu_torch.ops.registry import get_op_info
+
+    cpu = torch.device("cpu")
+    lines = []
+
+    # the bounded loop and its generic grad, the op alone
+    main = ctc_while_program(fluid, CTC_LOOP_STEPS)
+    op = next(o for o in main.desc.block(0).ops if o.type == "while")
+    outs = op.output("Out")
+    arr = next(n for n in outs if n.startswith("array"))
+    grad_ins = dict(op.inputs, **{"O@Out": list(outs), "OG@Out": [
+        n + "@GRAD" if n in ("acc", arr) else "@EMPTY@" for n in outs]})
+    grad_op = OpDesc("while_grad", grad_ins,
+                     {"X@GRAD": [n + "@GRAD" for n in op.input("X")]},
+                     dict(op.attrs))
+    rs = np.random.RandomState(SEED + 1)
+    og_acc = rs.randn(2, 4).astype(np.float32)
+    og_buf = rs.randn(8, 2, 4).astype(np.float32)
+
+    def run_loop(dev):
+        env = ctc_while_env(main, dev)
+        ctx = ExecContext(main.desc, 0, dict(env), device=dev)
+        apply_op(ctx, op)
+        fwd = {n: ctx.env[n] for n in outs}
+        genv = dict(env, **fwd)
+        genv["acc@GRAD"] = torch.from_numpy(og_acc).to(dev)
+        genv[arr + "@GRAD"] = TensorArray(torch.from_numpy(og_buf).to(dev),
+                                          0)
+        gctx = ExecContext(main.desc, 0, genv, device=dev)
+        apply_op(gctx, grad_op)
+        return fwd, {n: gctx.env[n + "@GRAD"] for n in ("x", "acc",
+                                                        "fc_0.w_0", arr)}
+
+    (cf, cg), (gf, gg) = run_loop(cpu), run_loop(device)
+    errs = [ctc_same("bounded while " + n, gf[n], cf[n], False)
+            for n in outs]
+    errs += [ctc_same("bounded while grad " + n, gg[n], cg[n], False)
+             for n in cg]
+    steps = int(gf[next(n for n in outs if gf[n].dtype == torch.int32)
+                   ].reshape(-1)[0])
+    if steps != CTC_LOOP_LIMIT:
+        raise SystemExit("chip_smoke: the bounded loop ran %d steps" % steps)
+    lines.append("a bounded While (max_steps %d, %d steps taken; the carry, "
+                 "the counter, the condition and a TensorArray) and its "
+                 "generic grad: max_abs_err %.3g" % (CTC_LOOP_STEPS, steps,
+                                                    max(errs)))
+
+    # the same loop unbounded, forward
+    main_u = ctc_while_program(fluid, None)
+    op_u = next(o for o in main_u.desc.block(0).ops if o.type == "while")
+    res = []
+    for dev in (cpu, device):
+        ctx = ExecContext(main_u.desc, 0, ctc_while_env(main_u, dev),
+                          device=dev)
+        apply_op(ctx, op_u)
+        res.append({n: ctx.env[n] for n in op_u.output("Out")})
+    err = max(ctc_same("unbounded while " + n, res[1][n], res[0][n], False)
+              for n in res[0])
+    lines.append("an unbounded While (a host read a step), forward: "
+                 "max_abs_err %.3g" % err)
+
+    # IfElse row routing (tests/test_lod_machinery.py:158)
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        layers = fluid.layers
+        x = layers.data(name="x", shape=[1], dtype="float32")
+        zero = layers.fill_constant(shape=[1], dtype="float32", value=0.0)
+        ie = layers.IfElse(layers.less_than(x=x, y=zero))
+        with ie.true_block():
+            ie.output(layers.scale(x=ie.input(x), scale=-1.0))
+        with ie.false_block():
+            ie.output(ie.input(x))
+        out = ie()
+    xs = np.random.RandomState(SEED + 2).randn(64, 1).astype(np.float32)
+    got = [fluid.Executor(place).run(prog, feed={"x": xs},
+                                     fetch_list=[out])[0]
+           for place in (fluid.CPUPlace(), fluid.CUDAPlace(0))]
+    if not (np.array_equal(got[0], got[1])
+            and np.array_equal(got[1], np.abs(xs))):
+        raise SystemExit("chip_smoke: IfElse on the card differs")
+    lines.append("IfElse routing 64 rows by sign: exact")
+
+    # split and merge of a ragged value (tests/test_lod_machinery.py:183)
+    vals = np.arange(12, dtype=np.float32).reshape(6, 2)
+    splits = np.array([0, 1, 4, 6], np.int32)
+    mask = np.array([[1], [0], [1]], np.int32)
+    parts = []
+    for dev in (cpu, device):
+        x = RaggedTensor(torch.from_numpy(vals).to(dev),
+                         [torch.from_numpy(splits).to(dev)])
+        m = torch.from_numpy(mask).to(dev)
+        sp = get_op_info("split_lod_tensor").kernel(
+            None, {"X": [x], "Mask": [m]}, {})
+        mg = get_op_info("merge_lod_tensor").kernel(
+            None, {"X": [x], "Mask": [m], "InTrue": sp["OutTrue"],
+                   "InFalse": sp["OutFalse"]}, {})
+        parts.append([sp["OutTrue"][0], sp["OutFalse"][0], mg["Out"][0]])
+    for name, a, b in zip(("OutTrue", "OutFalse", "merged"), parts[1],
+                          parts[0]):
+        ctc_same("split/merge " + name, a, b, True)
+    if not np.array_equal(ctc_host(parts[1][2])[0], vals):
+        raise SystemExit("chip_smoke: the merge is not the input")
+    lines.append("split_lod_tensor and merge_lod_tensor of a ragged value: "
+                 "exact, the merge the input")
+
+    # the rank-table round trip, flat (a program) and lod-level-2 (the ops)
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        layers = fluid.layers
+        x = layers.data(name="x", shape=[2], dtype="float32", lod_level=1)
+        table = layers.lod_rank_table(x)
+        back = layers.array_to_lod_tensor(layers.lod_tensor_to_array(
+            x, table), table)
+        reordered = layers.reorder_lod_tensor_by_rank(x, table)
+    seqs = [np.full((n, 2), k + 1, np.float32)
+            for k, n in enumerate([1, 3, 2, 5, 0, 4])]
+    got = [fluid.Executor(place).run(
+        prog, feed={"x": RaggedTensor.from_sequences(seqs, bucket=8)},
+        fetch_list=[back, reordered], return_numpy=False)
+        for place in (fluid.CPUPlace(), fluid.CUDAPlace(0))]
+    for name, a, b in zip(("round trip", "reorder"), got[1], got[0]):
+        ctc_same("rank table " + name, a, b, True)
+    vals = np.arange(1, 7, dtype=np.float32).reshape(6, 1)
+    nested = []
+    for dev in (cpu, device):
+        x = RaggedTensor(torch.from_numpy(vals).to(dev), [
+            torch.tensor([0, 1, 3], dtype=torch.int32, device=dev),
+            torch.tensor([0, 2, 3, 6], dtype=torch.int32, device=dev)])
+        t = get_op_info("lod_rank_table").kernel(None, {"X": [x]},
+                                                 {"level": 0})["Out"][0]
+        steps = get_op_info("lod_tensor_to_array").kernel(
+            None, {"X": [x], "RankTable": [t]}, {})["Out"][0]
+        back = get_op_info("array_to_lod_tensor").kernel(
+            None, {"X": [steps], "RankTable": [t]}, {})["Out"][0]
+        nested.append((t.items, steps, back))
+    if nested[0][0] != nested[1][0]:
+        raise SystemExit("chip_smoke: the lod-level-2 rank table differs")
+    ctc_same("lod-level-2 steps", nested[1][1], nested[0][1], True)
+    ctc_same("lod-level-2 round trip", nested[1][2], nested[0][2], True)
+    lines.append("the rank-table round trip and reorder of 6 sequences (one "
+                 "empty, a 16-row bucket), and the lod-level-2 round trip: "
+                 "exact")
+    for line in lines:
+        print("ctc: loops on the card against the CPU plain path: " + line,
+              flush=True)
+
+    # the bounded loop's device and eager ms (for PERF.md's table)
+    env = ctc_while_env(main, device)
+    ctx = ExecContext(main.desc, 0, {}, device=device)
+    kernel = get_op_info("while").kernel
+    names = op.input("X")
+    ins = {"X": [env[n] for n in names],
+           "Condition": [env[op.input("Condition")[0]]]}
+    fwd, _ = run_loop(device)
+
+    def loop():
+        with torch.no_grad():
+            return kernel(ctx, ins, op.attrs)
+
+    genv = dict(env, **fwd)
+    genv["acc@GRAD"] = torch.from_numpy(og_acc).to(device)
+    genv[arr + "@GRAD"] = TensorArray(torch.from_numpy(og_buf).to(device),
+                                      torch.zeros((), dtype=torch.int32,
+                                                  device=device))
+
+    def loop_grad():
+        with torch.no_grad():
+            apply_op(ExecContext(main.desc, 0, dict(genv), device=device),
+                     grad_op)
+
+    times = {}
+    for name, fn in (("while", loop), ("while_grad", loop_grad)):
+        times[name] = replay_or_profile(name, fn)
+        times[name + "_plain"] = cuda_ms(fn, iters=10)
+    # its bound: the float inputs read and the outputs written once (its
+    # few hundred operations take far less)
+    nbytes = sum(v.values.numel() * 4 if isinstance(v, TensorArray)
+                 else v.numel() * v.element_size() for v in
+                 list(env.values()) + list(fwd.values()))
+    times["bound"] = nbytes / HBM_BYTES_PER_S * 1e3
+    print("ctc: the bounded while op ([2, 4] carry, %d masked steps): "
+          "device ms %.4f (%s), grad %.4f (%s); eager %.4f ms, grad %.4f ms; "
+          "bound %.3g ms by bytes (%d bytes) [%s]"
+          % (CTC_LOOP_STEPS, *times["while"], *times["while_grad"],
+             times["while_plain"], times["while_grad_plain"],
+             times["bound"], nbytes, smi), flush=True)
+    return times
+
+
+def ctc_flow_data(rs, n_seqs=4):
+    """tests/test_ctc_training.py's `_make_data`, copied (the test file
+    imports the JAX package): each class a feature direction, one frame
+    per target symbol, targets without adjacent repeats."""
+    protos = rs.randn(CTC_FLOW_V + 1, CTC_FLOW_FEAT).astype(np.float32) * 2.0
+    xs, ys = [], []
+    for _ in range(n_seqs):
+        target = [int(rs.randint(1, CTC_FLOW_V + 1))]
+        for _ in range(int(rs.randint(1, 3))):
+            nxt = int(rs.randint(1, CTC_FLOW_V + 1))
+            while nxt == target[-1]:
+                nxt = int(rs.randint(1, CTC_FLOW_V + 1))
+            target.append(nxt)
+        frames = [protos[t] + rs.randn(CTC_FLOW_FEAT).astype(np.float32)
+                  * 0.05 for t in target]
+        xs.append(np.stack(frames, 0))
+        ys.append(np.asarray(target, np.int64).reshape(-1, 1))
+    return xs, ys
+
+
+def ctc_flow(exe):
+    """13b: the JAX CTC test's flow on the card: its first step against
+    the CPU plain path from one state, then its 200 SGD steps and its
+    criterion, and the greedy decode equal to the targets."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[CTC_FLOW_FEAT],
+                              dtype="float32", lod_level=1)
+        y = fluid.layers.data(name="y", shape=[1], dtype="int64",
+                              lod_level=1)
+        logits = fluid.layers.fc(input=x, size=CTC_FLOW_V + 1, act=None)
+        loss = fluid.layers.mean(
+            x=fluid.layers.warpctc(input=logits, label=y, blank=0))
+        decoded = fluid.layers.ctc_greedy_decoder(logits, blank=0)
+        fluid.optimizer.SGD(learning_rate=0.5).minimize(loss)
+    xs, ys = ctc_flow_data(np.random.RandomState(0))
+    feed = fluid.DataFeeder(place=fluid.CPUPlace(), feed_list=[x, y]).feed(
+        list(zip(xs, ys)))
+    init = book_state(exe, startup, main)
+    cpu, cpu_state, _ = run_from_state(fluid.Executor(fluid.CPUPlace()),
+                                       main, loss, init, [feed])
+    card, card_state, _ = run_from_state(exe, main, loss, init, [feed])
+    errs = [abs(card[0] - cpu[0]) / max(1.0, abs(cpu[0]))]
+    errs += [float(np.abs(card_state[n] - cpu_state[n]).max())
+             / max(1.0, float(np.abs(cpu_state[n]).max())) for n in init]
+    scope = params_scope(card_state, exe.device)
+    t0 = time.perf_counter()
+    losses = card + [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=scope)[0][0])
+                     for _ in range(CTC_FLOW_STEPS - 1)]
+    secs = time.perf_counter() - t0
+    dec, = exe.run(main, feed=feed, fetch_list=[decoded], scope=scope,
+                   return_numpy=False)
+    dec = ctc_host(dec)
+    splits, vals = dec[1][0], dec[0].reshape(-1).tolist()
+    got = [vals[splits[i]:splits[i + 1]] for i in range(len(splits) - 1)]
+    want = [t.reshape(-1).tolist() for t in ys]
+    print("ctc: tests/test_ctc_training.py's flow on the card: the first "
+          "step against the CPU plain path, relative error %.3g (gate %g); "
+          "%d SGD steps in %.1f s, loss %.6f -> %.6f (criterion: below %.6f);"
+          " greedy decode %s, targets %s"
+          % (max(errs), CTC_FLOW_RTOL, CTC_FLOW_STEPS, secs, losses[0],
+             losses[-1], 0.1 * losses[0], got, want), flush=True)
+    if max(errs) > CTC_FLOW_RTOL or not losses[-1] < 0.1 * losses[0] \
+            or got != want:
+        raise SystemExit("chip_smoke: the CTC flow failed on the card")
+
+
+def build_crnn(fluid, hw=CRNN_HW, groups=CRNN_GROUPS, hidden=CRNN_HIDDEN,
+               classes=CRNN_CLASSES, lr=CRNN_LR):
+    """crnn_ctc_model.py's ctc_train_net through `fluid`'s layers (the
+    port's here; tests/test_torch_ctc.py builds it with both packages'
+    and holds the descs and steps equal): (main, startup, infer, loss,
+    decoded, distance); `infer` is main's clone for test before the
+    optimizer, with the greedy decode and the edit distance to the
+    label appended."""
+    layers = fluid.layers
+
+    def attr(std, lr=1.0):
+        # a fresh ParamAttr per parameter: a reused one would name them
+        # all alike
+        return fluid.ParamAttr(initializer=fluid.initializer.Normal(
+            0.0, std), learning_rate=lr)
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        images = layers.data(name="pixel", shape=[1, hw[0], hw[1]],
+                             dtype="float32")
+        label = layers.data(name="label", shape=[1], dtype="int32",
+                            lod_level=1)
+        t = images
+        for g, chans in enumerate(groups):
+            for ch in chans:
+                t = layers.conv2d(input=t, num_filters=ch, filter_size=3,
+                                  padding=1,
+                                  param_attr=attr(0.0005 if g == 0 else 0.01),
+                                  bias_attr=attr(0.0))
+                t = layers.batch_norm(input=t, act="relu",
+                                      param_attr=attr(0.01),
+                                      bias_attr=attr(0.0))
+            t = layers.pool2d(input=t, pool_size=2, pool_type="max",
+                              pool_stride=2, ceil_mode=True)
+        seq = layers.im2sequence(input=t, stride=[1, 1],
+                                 filter_size=[t.shape[2], 1])
+        fc_1 = layers.fc(input=seq, size=hidden * 3, param_attr=attr(0.02),
+                         bias_attr=attr(0.02))
+        fc_2 = layers.fc(input=seq, size=hidden * 3, param_attr=attr(0.02),
+                         bias_attr=attr(0.02))
+        forward = layers.dynamic_gru(input=fc_1, size=hidden,
+                                     param_attr=attr(0.02),
+                                     bias_attr=attr(0.02, 2.0),
+                                     candidate_activation="relu")
+        backward = layers.dynamic_gru(input=fc_2, size=hidden,
+                                      is_reverse=True, param_attr=attr(0.02),
+                                      bias_attr=attr(0.02, 2.0),
+                                      candidate_activation="relu")
+        fc_out = layers.fc(input=[forward, backward], size=classes + 1,
+                           param_attr=attr(0.02), bias_attr=attr(0.0))
+        cost = layers.warpctc(input=fc_out, label=label, blank=classes,
+                              norm_by_times=True)
+        loss = layers.reduce_sum(cost)
+        infer = main.clone(for_test=True)
+        fluid.optimizer.Momentum(learning_rate=lr,
+                                 momentum=CRNN_MOMENTUM).minimize(loss)
+    with fluid.program_guard(infer, fluid.Program()):
+        block = infer.global_block()
+        decoded = layers.ctc_greedy_decoder(block.var(fc_out.name),
+                                            blank=classes)
+        distance, _ = layers.edit_distance(decoded, block.var(label.name))
+    return main, startup, infer, loss, decoded, distance
+
+
+def crnn_samples(n, hw, classes, seed, lengths=CRNN_LABELS):
+    """`n` (image, label) samples from the seed: pixels uniform in
+    [0, 255) less 127.5, labels of lengths[0]..lengths[1] classes in
+    [0, classes)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        img = (rs.uniform(0, 255, (1,) + tuple(hw)) - 127.5) \
+            .astype(np.float32)
+        lab = rs.randint(0, classes, rs.randint(lengths[0], lengths[1] + 1))
+        out.append((img, lab.astype(np.int32).reshape(-1, 1)))
+    return out
+
+
+def crnn_decode_state(state, params, seed=SEED + 3):
+    """`state` with every bias of `params` 0, the batch norms' scales 1,
+    the convolutions' filters N(0, 2 / fan in) and the last fc's weights
+    N(0, 1), drawn from the seed.  Under the source's initializers the
+    image's signal reaches the GRUs far below the biases' (the inference
+    program normalizes by running statistics near 0 and 1), so every
+    image decodes alike, which no comparison of decodes could tell from
+    a wrong one; with these each step's argmax follows the image."""
+    out = dict(state)
+    rs = np.random.RandomState(seed)
+    for name in params:
+        v = state[name]
+        if name.startswith("batch_norm_"):
+            out[name] = (np.ones_like(v) if name.endswith(".w_0")
+                         else np.zeros_like(v))
+        elif v.ndim == 4:
+            out[name] = (rs.randn(*v.shape) * np.sqrt(
+                2.0 / np.prod(v.shape[1:]))).astype(np.float32)
+        elif v.ndim == 1 or v.shape[0] == 1:
+            out[name] = np.zeros_like(v)
+    for name in ("fc_2.w_0", "fc_2.w_1"):
+        out[name] = rs.randn(*state[name].shape).astype(np.float32)
+    return out
+
+
+def crnn_serve(state, infer, decoded, images, smi):
+    """The export of `decoded` from the `pixel` feed with `state`,
+    loaded by InferenceEngine on the card behind InferenceServer:
+    CRNN_SERVE concurrent requests of one image each.  Returns (the
+    replies' ids, the card engine's, the CPU engine's)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.ragged import ragged_to_sequences
+    from paddle_tpu_torch.fluid import io
+    from paddle_tpu_torch.serving import (InferenceEngine, InferenceServer,
+                                          ServerConfig)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with fluid.scope_guard(params_scope(state, "cpu")):
+            io.save_inference_model(
+                tmp, ["pixel"], [decoded], fluid.Executor(fluid.CPUPlace()),
+                infer, bucket_hints={"batch_buckets": CRNN_BUCKETS})
+        engine = InferenceEngine.from_saved_model(tmp)
+        if engine.place.device().type != "cuda":
+            raise SystemExit("chip_smoke: the engine is not on the card")
+        server = InferenceServer(engine, ServerConfig(
+            port=0, max_batch=max(CRNN_BUCKETS), max_wait_ms=50.0,
+            warmup=True))
+        try:
+            server.start()
+            host, port = server.address
+            url = "http://%s:%d/v1/infer" % (host, port)
+            replies = [None] * CRNN_SERVE
+
+            def client(i):
+                replies[i] = _post(url, {"inputs": {"pixel": [
+                    images[i].tolist()]}})
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(CRNN_SERVE)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            if any(r is None for r in replies):
+                raise SystemExit("chip_smoke: an HTTP request got no reply")
+            print("ctc: CRNN %d concurrent requests of one image answered "
+                  "in %d batch(es); latencies %s ms [%s]"
+                  % (CRNN_SERVE, server.metrics.batch_occupancy.count,
+                     ", ".join("%.1f" % r[2] for r in replies), smi),
+                  flush=True)
+        finally:
+            server.shutdown()
+        card = engine.run({"pixel": images[:CRNN_SERVE]})[0]
+        cpu = InferenceEngine.from_saved_model(
+            tmp, place=fluid.CPUPlace()).run(
+                {"pixel": images[:CRNN_SERVE]})[0]
+    fetch = engine.fetch_names[0]
+    served = []
+    for status, body, _ in replies:
+        if status != 200:
+            raise SystemExit("chip_smoke: HTTP %d: %s" % (status, body))
+        served.append([row[0] for row in body["outputs"][fetch][0]])
+    ids = [[s.reshape(-1).tolist() for s in ragged_to_sequences(r)]
+           for r in (card, cpu)]
+    return served, ids[0], ids[1]
+
+
+def crnn_repeat(exe, main, feed, state, logits):
+    """One CRNN step twice from one state: (the names of the grads of
+    warpctc's logits, the GRUs and the fcs that differ bit for bit, the
+    count of those, {convolution or batch-norm grad name: largest
+    difference} of those that differ, their count)."""
+    import torch
+    from paddle_tpu_torch.fluid import Scope
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise SystemExit("chip_smoke: torch's deterministic mode is on")
+    params = [p.name for p in main.global_block().all_parameters()]
+    grads = [logits + "@GRAD"] + [p + "@GRAD" for p in params]
+    runs = []
+    for _ in range(2):
+        scope = Scope()
+        for n, t in state.items():
+            scope.set(n, t.clone())
+        runs.append(exe.run(main, feed=feed, fetch_list=grads, scope=scope,
+                            return_numpy=False))
+        del scope
+    gated = [g for g in grads if not g.startswith(("conv2d", "batch_norm"))]
+    differ = [g for g, a, b in zip(grads, *runs) if g in gated
+              and not same_bits(a, b)]
+    conv = {}
+    for g, a, b in zip(grads, *runs):
+        if g not in gated and not same_bits(a, b):
+            conv[g] = float((a - b).abs().max())
+    return differ, len(gated), conv, len(grads) - len(gated)
+
+
+def crnn_full(exe, smi):
+    """13c: CRNN-CTC at full width on the card (see CRNN_HW).  Returns
+    the launch counts of its checked steps."""
+    import torch
+    import torch.utils._pytree as pytree
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    main, startup, infer, loss, decoded, distance = build_crnn(fluid)
+    block = main.desc.block(0)
+    counts = collections.Counter(op.type for op in block.ops)
+    n_values = sum(int(np.prod(v.shape)) for v in block.vars.values()
+                   if v.is_parameter)
+    print("ctc: CRNN-CTC main %d ops of %d types (%s), %d parameter values "
+          "(%.3f M), inference program %d ops; built in %.1f s"
+          % (len(block.ops), len(counts), ", ".join(
+              "%s %d" % kv for kv in sorted(counts.items())), n_values,
+             n_values / 1e6, len(infer.desc.block(0).ops),
+             time.perf_counter() - t0), flush=True)
+    if counts["conv2d"] != 8 or counts["gru"] != 2 \
+            or counts["warpctc_grad"] != 1:
+        raise SystemExit("chip_smoke: the CRNN program is not the one "
+                         "held against the JAX package")
+    init = book_state(exe, startup, main)
+    params = [p.name for p in main.global_block().all_parameters()]
+    groups = {"parameters": params,
+              "velocities": [n for n in init if "_velocity_" in n],
+              "statistics": [n for n in init
+                             if n.startswith("_generated_var_")]}
+    samples = crnn_samples(CRNN_BATCH * 3, CRNN_HW, CRNN_CLASSES, SEED)
+    batches = [samples[k * CRNN_BATCH:(k + 1) * CRNN_BATCH]
+               for k in range(3)]
+    fvars = [main.global_block().var(n) for n in ("pixel", "label")]
+    feeds = book_feeds(main, fvars, batches)
+    cpu, cpu_state, csecs = run_from_state(
+        fluid.Executor(fluid.CPUPlace()), main, loss, init, feeds[:2])
+    reset_launches()
+    card, card_state, gsecs = run_from_state(exe, main, loss, init,
+                                             feeds[:2])
+    launches = read_launches()
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(card, cpu))
+    errs = {g: change_rl2(card_state, cpu_state, init, names)
+            for g, names in groups.items()}
+    print("ctc: CRNN 2 Momentum steps at batch %d from one state: CPU plain "
+          "path (%.1f s) losses %s; card (%.1f s) %s; loss error %.3g of "
+          "its size (gate %g); the steps' change, relative L2 error: %s "
+          "(gate %g); hand-written kernel launches %s"
+          % (CRNN_BATCH, csecs, ", ".join("%.6f" % x for x in cpu), gsecs,
+             ", ".join("%.6f" % x for x in card), loss_err, CRNN_LOSS_RTOL,
+             ", ".join("%s %.3g" % kv for kv in errs.items()),
+             CRNN_STATE_RL2, json.dumps(launches)), flush=True)
+    if loss_err > CRNN_LOSS_RTOL or max(errs.values()) > CRNN_STATE_RL2 \
+            or not all(np.isfinite(v).all() for v in card_state.values()):
+        raise SystemExit("chip_smoke: CRNN steps on the card disagree with "
+                         "the CPU plain path")
+
+    dev_feeds = [pytree.tree_map(lambda t: t.to(exe.device), f)
+                 for f in feeds]
+    scope = params_scope(init, exe.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in dev_feeds:
+        exe.run(main, feed=f, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    # no synchronizing call in a training step
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = exe.run(main, feed=dev_feeds[0], fetch_list=[loss],
+                      scope=scope, return_numpy=False)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise SystemExit("chip_smoke: the CRNN step gave %s" % out)
+    print("ctc: CRNN: no synchronizing call in one training step (8 "
+          "convolutions, two 32-step GRUs, the 32-step CTC recursion and "
+          "their grads)", flush=True)
+
+    def step():
+        return exe.run(main, feed=dev_feeds[0], fetch_list=[loss],
+                       scope=scope, return_numpy=False)
+
+    times = timed_steps(step)
+    med = float(np.median(times))
+    labels = int(dev_feeds[0]["label"].nvalid)
+    print("ctc: CRNN batch %d: step %.3f ms (median of 10 after 2 warm, "
+          "feeds on the card; mean %.3f, min %.3f, max %.3f), %.1f images/s,"
+          " %.1f labels/s (%d labels); peak memory of 3 steps %.3f GB [%s]"
+          % (CRNN_BATCH, med, np.mean(times), min(times), max(times),
+             CRNN_BATCH / med * 1e3, labels / med * 1e3, labels, peak / 1e9,
+             smi), flush=True)
+    profile_step(step, set(counts), 0, med,
+                 what="one CRNN-CTC step at batch %d" % CRNN_BATCH)
+
+    # one step twice from one state
+    logits = next(op for op in block.ops
+                  if op.type == "warpctc").input("Logits")[0]
+    state = {n: torch.from_numpy(v).to(exe.device) for n, v in init.items()}
+    differ, n_gated, conv, n_conv = crnn_repeat(exe, main, dev_feeds[0],
+                                                state, logits)
+    print("ctc: CRNN one step from one state and feed, run twice without "
+          "torch's deterministic algorithms: %d of %d grads of warpctc's "
+          "logits, the GRUs and the fcs differ bit for bit%s; %d of %d "
+          "convolution and batch-norm grads differ%s"
+          % (len(differ), n_gated, " (%s)" % ", ".join(differ) if differ
+             else "", len(conv), n_conv, " (largest differences: %s)"
+             % ", ".join("%s %.3g" % kv for kv in sorted(
+                 conv.items(), key=lambda kv: -kv[1])[:6]) if conv else ""),
+          flush=True)
+    if differ:
+        raise SystemExit("chip_smoke: CRNN grads differ run to run: %s"
+                         % differ)
+
+    # decode and edit distance on the card against the CPU
+    dstate = crnn_decode_state({n: scope.get(n).cpu().numpy()
+                                for n in init}, params)
+    res = []
+    for ex in (fluid.Executor(fluid.CPUPlace()), exe):
+        res.append(ex.run(infer, feed=feeds[0], fetch_list=[decoded,
+                                                            distance],
+                          scope=params_scope(dstate, ex.device),
+                          return_numpy=False))
+    ctc_same("CRNN decode", res[1][0], res[0][0], True)
+    ctc_same("CRNN edit distance", res[1][1], res[0][1], True)
+    dec, dist = ctc_host(res[1][0]), ctc_host(res[1][1])[0]
+    print("ctc: CRNN greedy decode of batch %d (%d ids) and edit distance "
+          "(mean %.3f) on the card equal the CPU's exactly"
+          % (CRNN_BATCH, len(dec[0]), float(dist.mean())), flush=True)
+    if not len(dec[0]):
+        raise SystemExit("chip_smoke: the CRNN decode is empty")
+
+    images = np.stack([s[0] for s in batches[0]])
+    served, card_ids, cpu_ids = crnn_serve(dstate, infer, decoded, images,
+                                           smi)
+    print("ctc: CRNN served ids %s; the card engine's %s; the CPU's %s"
+          % (served, card_ids, cpu_ids), flush=True)
+    if not served == card_ids == cpu_ids:
+        raise SystemExit("chip_smoke: served CRNN ids disagree")
+    del scope
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_sum_ms(fn, runs=10):
+    """Mean device ms of fn()'s kernels a call, summed from
+    torch.profiler's CUDA activity over `runs` calls: the device time of
+    a call that CUDA graph capture refuses (one that copies from the
+    host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(k[1] for k in device_kernels(prof.key_averages(), set())) \
+        / 1e3 / runs
+
+
+def replay_or_profile(tag, fn):
+    """(device ms, how): by CUDA graph replay, else (capture refused) by
+    the profiler's kernel sum."""
+    import torch
+
+    try:
+        return device_ms(fn, launches=5, replays=3), "graph replay"
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        print("ctc: %s under CUDA graph capture failed (%s): its device ms "
+              "from the profiler's kernel sum" % (tag, str(exc)[:160]),
+              flush=True)
+        return kernel_sum_ms(fn), "profiler kernel sum"
+
+
+def ctc_bound(t_lens, l_lens, classes, grad=False):
+    """(ms, "bytes" | "operations") of warpctc's least time on these
+    inputs: the logits [T, C] and the labels read once and the loss [B]
+    written (the grad: the loss's grad read too, the logits' grad
+    written); the log-softmax's 5 operations an element and 9 a state
+    (two log-add-exps and an add) for each of a sequence's steps and its
+    2 L + 1 states, on the f32 cores (the grad: 3 times that)."""
+    T = int(sum(t_lens))
+    labels = int(sum(l_lens))
+    flops = 5.0 * T * classes + 9.0 * sum(
+        t * (2 * n + 1) for t, n in zip(t_lens, l_lens))
+    nbytes = 4.0 * (T * classes + labels + len(t_lens))
+    if grad:
+        nbytes, flops = nbytes + 4.0 * T * classes, 3 * flops
+    t_ops, t_bytes = flops / F32_CORE_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ctc_op_times(device, smi):
+    """13d: warpctc alone at CRNN's shape (B 32, T 32, C 96, labels of
+    4-16): forward and generic grad by CUDA graph replay and eagerly,
+    beside F.ctc_loss over log_softmax (forward, and with its backward)
+    and the bound.  Returns {name: ms}."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.core.ragged import RaggedTensor, bucket_max_seqlen
+    from paddle_tpu_torch.ops.registry import get_op_info, run_generic_grad
+
+    rs = np.random.RandomState(SEED + 4)
+    B, T, C = CRNN_BATCH, CRNN_HW[1] // 16, CRNN_CLASSES + 1
+    l_lens = rs.randint(CRNN_LABELS[0], CRNN_LABELS[1] + 1, B)
+    logits = torch.from_numpy(rs.randn(B * T, C).astype(np.float32)).to(
+        device)
+    labels = torch.from_numpy(rs.randint(0, CRNN_CLASSES, int(l_lens.sum()))
+                              .astype(np.int32)).to(device)
+    lg = RaggedTensor(logits, [torch.arange(B + 1, dtype=torch.int32,
+                                            device=device) * T],
+                      max_seqlen=T)
+    lb = RaggedTensor(labels.reshape(-1, 1), [torch.from_numpy(np.cumsum(
+        [0] + list(l_lens)).astype(np.int32)).to(device)],
+        max_seqlen=bucket_max_seqlen(l_lens))
+    attrs = {"blank": CRNN_CLASSES, "norm_by_times": True}
+    og = torch.ones(B, 1, device=device)
+    kernel = get_op_info("warpctc").kernel
+    ins = {"Logits": [lg], "Label": [lb]}
+
+    def forward():
+        with torch.no_grad():
+            return kernel(None, ins, attrs)
+
+    def grad():
+        with torch.no_grad():
+            return run_generic_grad(None, "warpctc", dict(
+                ins, **{"OG@Loss": [og], "OG@WarpCTCGrad": [None]}), attrs)
+
+    x = logits.reshape(B, T, C).transpose(0, 1).contiguous()
+    t_list, l_list = [T] * B, [int(n) for n in l_lens]
+    lab64 = labels.long()
+
+    def library():
+        with torch.no_grad():
+            return F.ctc_loss(F.log_softmax(x, -1), lab64, t_list, l_list,
+                              blank=CRNN_CLASSES, reduction="none") / T
+
+    xg = x.clone().requires_grad_(True)
+
+    def library_grad():
+        with torch.enable_grad():
+            out = F.ctc_loss(F.log_softmax(xg, -1), lab64, t_list, l_list,
+                             blank=CRNN_CLASSES, reduction="none") / T
+            return torch.autograd.grad(out.sum(), xg)
+
+    port = forward()["Loss"][0].reshape(-1)
+    ref = library()
+    err = float((port - ref).abs().max())
+    g_port = grad()["Logits@GRAD"][0].values.reshape(B, T, C)
+    g_ref = library_grad()[0].transpose(0, 1).reshape(B, T, C)
+    g_err = float((g_port - g_ref).abs().max())
+    times = {}
+    for name, fn in (("warpctc", forward), ("warpctc_grad", grad),
+                     ("ctc_loss", library), ("ctc_loss_grad", library_grad)):
+        times[name] = replay_or_profile(name, fn)
+        times[name + "_plain"] = cuda_ms(fn, iters=10)
+    bound = ctc_bound(t_list, l_list, C)
+    bound_grad = ctc_bound(t_list, l_list, C, grad=True)
+
+    def fmt(name):
+        return "%.4f (%s)" % times[name]
+
+    print("ctc: warpctc alone at B %d, T %d, C %d (labels of %d-%d, %d in "
+          "all): against F.ctc_loss over log_softmax, loss max_abs_err %.3g, "
+          "grad %.3g; device ms forward %s, grad %s; eager %.4f, grad %.4f; "
+          "F.ctc_loss %s, with backward %s (eager %.4f, %.4f); bound %.6f by "
+          "%s, grad %.6f by %s [%s]"
+          % (B, T, C, min(l_list), max(l_list), sum(l_list), err, g_err,
+             fmt("warpctc"), fmt("warpctc_grad"), times["warpctc_plain"],
+             times["warpctc_grad_plain"], fmt("ctc_loss"),
+             fmt("ctc_loss_grad"), times["ctc_loss_plain"],
+             times["ctc_loss_grad_plain"], bound[0], bound[1],
+             bound_grad[0], bound_grad[1], smi), flush=True)
+    if err > 1e-4 or g_err > 1e-4:
+        raise SystemExit("chip_smoke: warpctc disagrees with F.ctc_loss")
+    times["bound"], times["bound_grad"] = bound[0], bound_grad[0]
+    return times
+
+
+def phase_ctc():
+    """Loops, conditionals, tensor arrays, rank tables and CTC (phase
+    13): the loop machinery on the card against the CPU (13a), the JAX
+    CTC test's flow (13b), CRNN-CTC at full width (13c) and warpctc
+    alone (13d).  Returns the launch counts of CRNN's checked steps (no
+    hand-written kernel runs here)."""
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    smi = nvidia_smi_line()
+    ctc_machinery(exe.device, smi)
+    ctc_flow(exe)
+    launches = crnn_full(exe, smi)
+    ctc_op_times(exe.device, smi)
+    print("ctc: phase 13 in %.1f s" % (time.perf_counter() - t0),
+          flush=True)
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -4821,20 +5755,22 @@ def main():
     ctr_launches = phase_ctr()
     seq2seq_launches = phase_seq2seq()
     book_launches = phase_book()
+    ctc_launches = phase_ctc()
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
-    # ResNet-50, the image models, the lstm, the ctr model, the seq2seq
-    # and the book's chapters run no hand-written kernel: conv2d is
-    # cuDNN, the products cuBLAS and the rest ATen (the sparse updates
-    # a segment reduction and `index_add`, the recurrences and the CRF
-    # loops of ATen ops), as the JAX package leaves them to XLA
+    # ResNet-50, the image models, the lstm, the ctr model, the seq2seq,
+    # the book's chapters and CRNN-CTC run no hand-written kernel: conv2d
+    # is cuDNN, the products cuBLAS and the rest ATen (the sparse updates
+    # a segment reduction and `index_add`, the recurrences, the CRF and
+    # the CTC loops of ATen ops), as the JAX package leaves them to XLA
     for what, got in (("ResNet-50", resnet_launches),
                       ("the image models", image_launches),
                       ("the lstm", sequence_launches),
                       ("the ctr model", ctr_launches),
                       ("the seq2seq", seq2seq_launches),
-                      ("the book's chapters", book_launches)):
+                      ("the book's chapters", book_launches),
+                      ("CRNN-CTC", ctc_launches)):
         if any(got.values()):
             raise SystemExit("chip_smoke: %s launched %s"
                              % (what, json.dumps(got)))
@@ -4851,7 +5787,7 @@ def main():
         total = sum(c.get(name, 0) for c in (
             launches, train_launches, wide_launches, resnet_launches,
             decode_launches, image_launches, sequence_launches,
-            ctr_launches, seq2seq_launches))
+            ctr_launches, seq2seq_launches, book_launches, ctc_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

@@ -41,7 +41,7 @@ from ..core.desc import ProgramDesc
 from ..core.ragged import RaggedTensor, SelectedRows, host_copy
 from .framework import Program, Variable, default_main_program
 from ..core.scope import global_scope
-from ..core.types import (guard_int64_narrowing, np_dtype,
+from ..core.types import (VarType, guard_int64_narrowing, np_dtype,
                           tensor_from_numpy, torch_dtype)
 from ..ops import registry as op_registry
 
@@ -134,10 +134,28 @@ class ExecContext:
         return env
 
 
+def _declared_array(ctx, name):
+    """Whether `name` is declared a TENSOR_ARRAY in the context's block
+    or a parent of it."""
+    if ctx.program is None:
+        return False
+    bd = ctx.program.block(ctx.block_idx)
+    while True:
+        if name in bd.vars:
+            return bd.vars[name].type == VarType.TENSOR_ARRAY
+        if bd.parent_idx < 0:
+            return False
+        bd = ctx.program.block(bd.parent_idx)
+
+
 def _lookup(ctx, name):
     if name in ctx.env:
         return ctx.env[name]
     val = ctx.scope.get(name) if ctx.scope is not None else None
+    if val is None and _declared_array(ctx, name):
+        # a TensorArray read before its first write: `write_to_array`
+        # makes it (the JAX side's executor does the same)
+        return None
     if val is None:
         raise KeyError("variable %r is not initialized (op inputs must be "
                        "fed, persistable, or produced earlier in the "

@@ -1,29 +1,115 @@
-"""Control-flow layers: the RNN half — StaticRNN and DynamicRNN.
+"""Control-flow layers: StaticRNN and DynamicRNN; While,
+ConditionalBlock and IfElse; the comparisons that build their
+conditions; the tensor-array and LoD rank-table layers.
 
 Counterpart of paddle_tpu/fluid/layers/control_flow.py (reference:
-python/paddle/v2/fluid/layers/control_flow.py — StaticRNN:378,
-DynamicRNN:1252).  `rnn.step()` (or `rnn.block()`) builds the step
-block as a sub-block of the current block; on leaving it one
-`recurrent` op in the parent runs that block once per step over
-time-major step inputs (ops/control_flow.py).  The step block's reads
-from outside become the op's `Closure` inputs, so the backward
-differentiates them.  A DynamicRNN pads a ragged step input to
-[B, maxT, ...] with a validity mask (`sequence_to_dense`): memories
-freeze past each sequence's end and the step outputs become ragged again
-(`dense_to_sequence`).  The descs equal the JAX package's.
-
-`While`, `ConditionalBlock`, `IfElse`, the tensor-array and rank-table
-layers and `less_than`/`equal` wait with ROADMAP A7 (their ops are not
-ported yet).
+python/paddle/v2/fluid/layers/control_flow.py — While:602,
+StaticRNN:378, DynamicRNN:1252, ConditionalBlock:1065, IfElse, the
+array and rank-table helpers, less_than and equal).  `rnn.step()` (or
+`rnn.block()`) builds the step block as a sub-block of the current
+block; on leaving it one `recurrent` op in the parent runs that block
+once per step over time-major step inputs (ops/control_flow.py).  The
+step block's reads from outside become the op's `Closure` inputs, so
+the backward differentiates them.  A DynamicRNN pads a ragged step
+input to [B, maxT, ...] with a validity mask (`sequence_to_dense`):
+memories freeze past each sequence's end and the step outputs become
+ragged again (`dense_to_sequence`).  `While.block()` and
+`ConditionalBlock.block()` build a sub-block the same way and append
+one `while` or `conditional_block` op whose `X` are the block's reads
+from outside and whose outputs are the outer vars it writes.  `IfElse`
+builds no sub-block: it splits its inputs by rows, runs both branches'
+ops in the current block and merges their outputs.  The descs equal
+the JAX package's.
 """
 
 import contextlib
 
 from ...core.desc import BlockRef
-from ..framework import unique_name
+from ...core.tensor_array import DEFAULT_CAPACITY
+from ...core.types import VarType
+from ..framework import Variable, unique_name
 from ..layer_helper import LayerHelper
 
-__all__ = ["StaticRNN", "DynamicRNN"]
+__all__ = [
+    "While", "StaticRNN", "DynamicRNN", "ConditionalBlock", "less_than",
+    "array_write", "array_read", "array_length", "create_array",
+    "max_sequence_len", "lod_rank_table", "lod_tensor_to_array",
+    "array_to_lod_tensor", "shrink_memory", "reorder_lod_tensor_by_rank",
+    "split_lod_tensor", "merge_lod_tensor", "IfElse", "equal",
+]
+
+
+def _compare(op_type, x, y, cond, kwargs):
+    helper = LayerHelper(op_type, **kwargs)
+    if cond is None:
+        cond = helper.create_tmp_variable(dtype="bool")
+        cond.stop_gradient = True
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [cond]})
+    return cond
+
+
+def less_than(x, y, cond=None, **kwargs):
+    """x < y into `cond` (a new bool var by default); reference:
+    compare_op.cc."""
+    return _compare("less_than", x, y, cond, kwargs)
+
+
+def equal(x, y, cond=None, **kwargs):
+    """x == y into `cond`; reference: compare_op.cc."""
+    return _compare("equal", x, y, cond, kwargs)
+
+
+def create_array(dtype, capacity=None, **kwargs):
+    """A TENSOR_ARRAY var; the first `array_write` makes its value."""
+    helper = LayerHelper("array", **kwargs)
+    arr = helper.create_variable(name=unique_name("array"), dtype=dtype,
+                                 type=VarType.TENSOR_ARRAY)
+    arr.capacity = capacity
+    return arr
+
+
+def array_write(x, i, array=None, capacity=None, **kwargs):
+    """array[i] = x (reference: tensor_array_read_write_op.cc); the
+    array is made with `capacity` entries (DEFAULT_CAPACITY) at its
+    first write."""
+    helper = LayerHelper("array_write", **kwargs)
+    if array is None:
+        array = create_array(x.dtype)
+    cap = capacity or getattr(array, "capacity", None) or DEFAULT_CAPACITY
+    helper.append_op(type="write_to_array",
+                     inputs={"X": [x], "I": [i], "Array": [array]},
+                     outputs={"Out": [array]}, attrs={"capacity": int(cap)})
+    return array
+
+
+def array_read(array, i, **kwargs):
+    helper = LayerHelper("array_read", **kwargs)
+    out = helper.create_tmp_variable(array.dtype)
+    helper.append_op(type="read_from_array",
+                     inputs={"X": [array], "I": [i]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def array_length(array, **kwargs):
+    helper = LayerHelper("array_length", **kwargs)
+    out = helper.create_tmp_variable(dtype="int64")
+    out.stop_gradient = True
+    helper.append_op(type="lod_array_length", inputs={"X": [array]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def max_sequence_len(rank_table, **kwargs):
+    # the JAX package's helper name, misspelt as there (unique names)
+    helper = LayerHelper("max_seqence_len", **kwargs)
+    out = helper.create_tmp_variable(dtype="int64")
+    out.stop_gradient = True
+    helper.append_op(type="max_sequence_len",
+                     inputs={"RankTable": [rank_table]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def _block_reads_writes(block):
@@ -45,6 +131,74 @@ def _block_reads_writes(block):
     outer_reads = [n for n in outer_reads
                    if block.parent_block.has_var_recursive(n)]
     return outer_reads, writes
+
+
+class While:
+    """reference: control_flow.py While:602.  `cond` is a bool scalar
+    var that the block assigns again.  `max_steps` bounds the loop and
+    makes it differentiable (a masked loop of max_steps steps); without
+    it the loop runs forward only and reads `cond` on the host once per
+    iteration."""
+
+    def __init__(self, cond, max_steps=None, name=None):
+        self.helper = LayerHelper("while", name=name)
+        self.cond_var = cond
+        self.max_steps = max_steps
+
+    @contextlib.contextmanager
+    def block(self):
+        program = self.helper.main_program
+        parent_block = program.current_block()
+        sub_block = program.create_block()
+        yield
+        program.rollback()
+        outer_reads, writes = _block_reads_writes(sub_block)
+        cond_name = self.cond_var.name
+        # the loop state: the outer vars the block writes, and the cond
+        carry = [n for n in writes if parent_block.has_var_recursive(n)]
+        if cond_name not in carry:
+            carry.append(cond_name)
+        x_names = list(dict.fromkeys(outer_reads + carry))
+        parent_block.append_op(
+            type="while",
+            inputs={"X": x_names, "Condition": [cond_name]},
+            outputs={"Out": list(carry)},
+            attrs={"sub_block": BlockRef(sub_block.idx),
+                   "x_names": x_names, "carry_names": list(carry),
+                   "cond_name": cond_name, "max_steps": self.max_steps},
+            infer_shape=False)
+
+
+class ConditionalBlock:
+    """reference: control_flow.py ConditionalBlock:1065.  The block runs
+    iff inputs[0] holds; the outer vars it writes keep their values
+    otherwise."""
+
+    def __init__(self, inputs, is_scalar_condition=True, name=None):
+        for i in inputs:
+            assert isinstance(i, Variable)
+        self.inputs = inputs
+        self.is_scalar_condition = is_scalar_condition
+        self.helper = LayerHelper("conditional_block", name=name)
+
+    @contextlib.contextmanager
+    def block(self):
+        program = self.helper.main_program
+        parent_block = program.current_block()
+        sub_block = program.create_block()
+        yield
+        program.rollback()
+        outer_reads, writes = _block_reads_writes(sub_block)
+        out_names = [n for n in writes if parent_block.has_var_recursive(n)]
+        x_names = list(dict.fromkeys(outer_reads + out_names))
+        parent_block.append_op(
+            type="conditional_block",
+            inputs={"X": x_names, "Cond": [self.inputs[0].name]},
+            outputs={"Out": list(out_names)},
+            attrs={"sub_block": BlockRef(sub_block.idx),
+                   "x_names": x_names, "out_names": list(out_names),
+                   "is_scalar_condition": self.is_scalar_condition},
+            infer_shape=False)
 
 
 class StaticRNN:
@@ -283,3 +437,140 @@ def _dense_to_sequence(helper, x, like):
         type="dense_to_sequence", inputs={"X": [x], "Like": [like]},
         outputs={"Out": [out]})
     return out
+
+
+# -- the LoD rank-table layers (ops/control_flow.py: host ops that keep the
+# metas declared here) ---------------------------------------------------------
+
+def lod_rank_table(x, level=0, **kwargs):
+    helper = LayerHelper("lod_rank_table", **kwargs)
+    table = helper.create_variable(
+        name=unique_name("lod_rank_table.tmp"), dtype="int32",
+        type=VarType.RAW, stop_gradient=True)
+    helper.append_op(type="lod_rank_table", inputs={"X": [x]},
+                     outputs={"Out": [table]}, attrs={"level": level},
+                     infer_shape=False)
+    return table
+
+
+def lod_tensor_to_array(x, table, **kwargs):
+    helper = LayerHelper("lod_tensor_to_array", **kwargs)
+    array = helper.create_variable(
+        name=unique_name("lod_tensor_to_array.tmp"), dtype=x.dtype,
+        type=VarType.TENSOR_ARRAY, stop_gradient=True)
+    helper.append_op(type="lod_tensor_to_array",
+                     inputs={"X": [x], "RankTable": [table]},
+                     outputs={"Out": [array]}, infer_shape=False)
+    return array
+
+
+def array_to_lod_tensor(x, table, **kwargs):
+    helper = LayerHelper("array_to_lod_tensor", **kwargs)
+    out = helper.create_tmp_variable(dtype=x.dtype, lod_level=1)
+    helper.append_op(type="array_to_lod_tensor",
+                     inputs={"X": [x], "RankTable": [table]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def shrink_memory(x, i, table, **kwargs):
+    helper = LayerHelper("shrink_memory", **kwargs)
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="shrink_rnn_memory",
+                     inputs={"X": [x], "I": [i], "RankTable": [table]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def reorder_lod_tensor_by_rank(x, rank_table, **kwargs):
+    helper = LayerHelper("reorder_lod_tensor_by_rank", **kwargs)
+    out = helper.create_tmp_variable(dtype=x.dtype, lod_level=1)
+    helper.append_op(type="reorder_lod_tensor_by_rank",
+                     inputs={"X": [x], "RankTable": [rank_table]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def split_lod_tensor(input, mask, level=0, **kwargs):
+    helper = LayerHelper("split_lod_tensor", **kwargs)
+    out_true = helper.create_tmp_variable(dtype=input.dtype,
+                                          lod_level=input.lod_level)
+    out_false = helper.create_tmp_variable(dtype=input.dtype,
+                                           lod_level=input.lod_level)
+    helper.append_op(type="split_lod_tensor",
+                     inputs={"X": [input], "Mask": [mask]},
+                     outputs={"OutTrue": [out_true], "OutFalse": [out_false]},
+                     attrs={"level": level}, infer_shape=False)
+    return out_true, out_false
+
+
+def merge_lod_tensor(in_true, in_false, x, mask, level=0, **kwargs):
+    helper = LayerHelper("merge_lod_tensor", **kwargs)
+    out = helper.create_tmp_variable(dtype=in_true.dtype,
+                                     lod_level=x.lod_level)
+    helper.append_op(type="merge_lod_tensor",
+                     inputs={"X": [x], "Mask": [mask], "InTrue": [in_true],
+                             "InFalse": [in_false]},
+                     outputs={"Out": [out]}, attrs={"level": level},
+                     infer_shape=False)
+    return out
+
+
+class IfElse:
+    """Rows routed to two branches (reference: control_flow.py IfElse
+    over split_lod_tensor, the branches' ops and merge_lod_tensor): rows
+    where `cond` holds go through the true block, the rest through the
+    false block, and the outputs merge back in input order."""
+
+    OUT_IF_ELSE_BLOCKS = 0
+    IN_IF_ELSE_TRUE_BLOCKS = 1
+    IN_IF_ELSE_FALSE_BLOCKS = 2
+
+    def __init__(self, cond, name=None):
+        self.helper = LayerHelper("ifelse", name=name)
+        self.cond = cond
+        self.status = self.OUT_IF_ELSE_BLOCKS
+        self._true_inputs = {}
+        self._false_inputs = {}
+        self._true_outputs = []
+        self._false_outputs = []
+
+    def input(self, x):
+        if self.status == self.OUT_IF_ELSE_BLOCKS:
+            raise ValueError("input() must be called inside a block")
+        true_part, false_part = split_lod_tensor(x, self.cond)
+        self._true_inputs[x.name] = true_part
+        self._false_inputs[x.name] = false_part
+        return (true_part if self.status == self.IN_IF_ELSE_TRUE_BLOCKS
+                else false_part)
+
+    @contextlib.contextmanager
+    def true_block(self):
+        self.status = self.IN_IF_ELSE_TRUE_BLOCKS
+        yield
+        self.status = self.OUT_IF_ELSE_BLOCKS
+
+    @contextlib.contextmanager
+    def false_block(self):
+        self.status = self.IN_IF_ELSE_FALSE_BLOCKS
+        yield
+        self.status = self.OUT_IF_ELSE_BLOCKS
+
+    def output(self, *outs):
+        if self.status == self.IN_IF_ELSE_TRUE_BLOCKS:
+            self._true_outputs.extend(outs)
+        elif self.status == self.IN_IF_ELSE_FALSE_BLOCKS:
+            self._false_outputs.extend(outs)
+        else:
+            raise ValueError("output() must be called inside a block")
+
+    def __call__(self):
+        if len(self._true_outputs) != len(self._false_outputs):
+            raise ValueError("true/false blocks must produce the same "
+                             "number of outputs")
+        # any split input gives the row order
+        template = self.helper.main_program.current_block().var(
+            next(iter(self._true_inputs)))
+        merged = [merge_lod_tensor(t, f, template, self.cond)
+                  for t, f in zip(self._true_outputs, self._false_outputs)]
+        return merged if len(merged) > 1 else merged[0]

@@ -9,6 +9,8 @@ block with the JAX package's op types, slots, attrs, names
 and initializers; nothing runs here.  The other layers wait (ROADMAP A).
 """
 
+import numpy as np
+
 from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
@@ -24,7 +26,8 @@ __all__ = [
     "dynamic_gru", "gru_unit", "sequence_softmax", "sequence_concat",
     "sequence_slice", "lod_reset", "sequence_conv", "sequence_reverse",
     "sequence_expand", "sequence_reshape", "row_conv", "linear_chain_crf",
-    "crf_decoding", "chunk_eval",
+    "crf_decoding", "chunk_eval", "topk", "im2sequence", "warpctc",
+    "ctc_greedy_decoder", "edit_distance",
 ]
 
 
@@ -712,3 +715,72 @@ def chunk_eval(input, label, chunk_scheme, num_chunk_types,
                "num_chunk_types": num_chunk_types,
                "excluded_chunk_types": excluded_chunk_types or []})
     return tuple(outs)
+
+
+def topk(input, k, **kwargs):
+    """The k largest of the last dim and their int32 indices (ragged
+    over a ragged input's splits)."""
+    helper = LayerHelper("top_k", **kwargs)
+    values = helper.create_tmp_variable(dtype=input.dtype)
+    indices = helper.create_tmp_variable(dtype="int32", stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, **kwargs):
+    """Each image's patches as a sequence (reference:
+    im2sequence_op.cc)."""
+    helper = LayerHelper("im2sequence", **kwargs)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op(
+        type="im2sequence", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"kernels": _pair(filter_size), "strides": _pair(stride),
+               "paddings": _pair(padding) + _pair(padding)})
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, **kwargs):
+    """The CTC loss of ragged logits against ragged labels (reference:
+    warpctc_op.cc), [B, 1]."""
+    helper = LayerHelper("warpctc", **kwargs)
+    loss_out = helper.create_tmp_variable(input.dtype)
+    grad_out = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    helper.append_op(
+        type="warpctc", inputs={"Logits": [input], "Label": [label]},
+        outputs={"WarpCTCGrad": [grad_out], "Loss": [loss_out]},
+        attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss_out
+
+
+def ctc_greedy_decoder(input, blank, **kwargs):
+    """The greedy CTC decode of ragged per-step scores: the argmax of
+    each step (`top_k`), repeats merged and blanks dropped
+    (`ctc_align`); an int input is taken as ids already."""
+    helper = LayerHelper("ctc_align", **kwargs)
+    ids = input
+    if not np.issubdtype(np.dtype(str(input.dtype)), np.integer):
+        _, ids = topk(input, 1)
+    out = helper.create_tmp_variable(dtype="int32", stop_gradient=True)
+    helper.append_op(type="ctc_align", inputs={"Input": [ids]},
+                     outputs={"Output": [out]},
+                     attrs={"blank": blank, "merge_repeated": True})
+    return out
+
+
+def edit_distance(input, label, normalized=False, ignored_tokens=None,
+                  **kwargs):
+    """(distance [B, 1], sequence count [1]) of ragged hypotheses to
+    ragged references (reference: edit_distance_op.cc)."""
+    helper = LayerHelper("edit_distance", **kwargs)
+    out = helper.create_tmp_variable(dtype="float32", stop_gradient=True,
+                                     shape=[-1, 1])
+    seq_num = helper.create_tmp_variable(dtype="int32", stop_gradient=True,
+                                         shape=[1])
+    helper.append_op(
+        type="edit_distance", inputs={"Hyps": [input], "Refs": [label]},
+        outputs={"Out": [out], "SequenceNum": [seq_num]},
+        attrs={"normalized": normalized,
+               "ignored_tokens": ignored_tokens or []})
+    return out, seq_num

@@ -179,6 +179,10 @@ def resnet50(image, class_dim=1000):
     return resnet(image, class_dim, depth=50)
 
 
+def resnet101(image, class_dim=1000):
+    return resnet(image, class_dim, depth=101)
+
+
 def resnet_cifar10(image, class_dim=10, depth=32):
     """CIFAR ResNet: depth 6n + 2, basic blocks at 16, 32, 64 channels."""
     if (depth - 2) % 6:

@@ -16,3 +16,4 @@ from . import metrics  # noqa: F401
 from . import sequence  # noqa: F401
 from . import control_flow  # noqa: F401
 from . import crf  # noqa: F401
+from . import ctc  # noqa: F401

@@ -1,8 +1,8 @@
 """Convolution, pooling and local response normalisation op kernels:
-`conv2d`, `pool2d` and `lrn`.
+`conv2d`, `pool2d`, `lrn`, and `im2sequence`.
 
 Counterpart of paddle_tpu/ops/conv.py (reference: conv_op.cc,
-conv_cudnn_op.cu.cc, pool_op.cc, lrn_op.cc).  `conv2d` is
+conv_cudnn_op.cu.cc, pool_op.cc, lrn_op.cc, im2sequence_op.cc).  `conv2d` is
 torch.nn.functional.conv2d, which is cuDNN on the card; under the bf16
 policy its operands and result are bf16 (ops/amp_util.py).  `pool2d` is
 max pooling, or average pooling with the JAX side's counts: the window
@@ -15,13 +15,16 @@ vjp, as on the JAX side; a max-pool window's grad goes to its first
 largest element in row-major order on both sides.  `lrn` divides by
 (k + alpha * the sum of squares over a window of `n` channels) ** beta,
 the window sum added in the JAX side's order; its grad is the generic
-vjp there too.
+vjp there too.  `im2sequence` is `F.unfold` over the padded image,
+whose patch features run (C, kh, kw) as `conv_general_dilated_patches`
+orders them on the JAX side.
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.ragged import RaggedTensor
 from .amp_util import amp_result, mxu_operands
 from .registry import register_op
 
@@ -137,3 +140,27 @@ def lrn(ctx, ins, attrs):
     window_sum = sum(padded[:, i:i + channels] for i in range(n))
     mid = k + alpha * window_sum
     return {"Out": [x / torch.pow(mid, beta)], "MidOut": [mid]}
+
+
+@register_op("im2sequence")
+def im2sequence(ctx, ins, attrs):
+    """reference: im2sequence_op.cc.  Each image's patches as one
+    sequence, a step per patch position in row-major order, a step's
+    C * kh * kw features ordered (C, kh, kw).  paddings are [top, left,
+    bottom, right].  Every sequence has oh * ow steps: that is the
+    output's `max_seqlen`, so a recurrence over it runs oh * ow steps,
+    not one per flat row.  Its grad is the generic vjp (F.fold sums the
+    overlapping patches)."""
+    x = ins["X"][0]
+    kh, kw = attrs.get("kernels", [1, 1])
+    sh, sw = attrs.get("strides", [1, 1])
+    top, left, bottom, right = attrs.get("paddings", [0, 0, 0, 0])
+    xp = F.pad(x, (left, right, top, bottom))
+    n, c = x.shape[0], x.shape[1]
+    oh = (xp.shape[2] - kh) // sh + 1
+    ow = (xp.shape[3] - kw) // sw + 1
+    patches = F.unfold(xp, (kh, kw), stride=(sh, sw))  # [n, c*kh*kw, L]
+    seq = patches.transpose(1, 2).reshape(n * oh * ow, c * kh * kw)
+    splits = torch.arange(n + 1, dtype=torch.int32,
+                          device=x.device) * (oh * ow)
+    return {"Out": [RaggedTensor(seq, [splits], max_seqlen=oh * ow)]}

@@ -1,8 +1,10 @@
 """Math op kernels: `mul`, the `elementwise_*` family, `mean`, the
-dense `reduce_*` family and `cos_sim`.
+dense `reduce_*` family, `cos_sim`, and the comparison and logical ops
+(`less_than` ... `not_equal`, `logical_and`, `_or`, `_xor`, `_not`).
 
 Counterparts of paddle_tpu/ops/math.py (reference: mul_op.cc,
-elementwise_op_function.h, mean_op.cc, reduce_op.cc, cos_sim_op.cc).
+elementwise_op_function.h, mean_op.cc, reduce_op.cc, cos_sim_op.cc,
+compare_op.cc, logical_op.cc).
 Products go to torch.matmul; with TF32 off (see the package docstring) a float32 product runs in full
 float32 on the card, as on the JAX side.  Under the bf16 policy
 (ops/amp_util.py) `mul` runs its product in bf16 and the elementwise
@@ -154,3 +156,34 @@ def cos_sim(ctx, ins, attrs):
     prod = torch.sum(x * y, -1, keepdim=True)
     return {"Out": [prod / (xnorm * ynorm + 1e-12)], "XNorm": [xnorm],
             "YNorm": [ynorm]}
+
+
+# -- comparison and logical ops (compare_op.cc, logical_op.cc) --------------
+
+def _compare(name, fn):
+    """A bool op of X and Y (broadcast, the promoted dtype), no grad; a
+    ragged operand gives its values, as on the JAX side."""
+
+    @register_op(name, stop_gradient_op=True, nondiff_inputs=("X", "Y"))
+    def kernel(ctx, ins, attrs):
+        return {"Out": [fn(values_of(ins["X"][0]),
+                           values_of(ins["Y"][0]))]}
+
+    kernel.__name__ = name
+    return kernel
+
+
+_compare("less_than", torch.lt)
+_compare("less_equal", torch.le)
+_compare("greater_than", torch.gt)
+_compare("greater_equal", torch.ge)
+_compare("equal", torch.eq)
+_compare("not_equal", torch.ne)
+_compare("logical_and", torch.logical_and)
+_compare("logical_or", torch.logical_or)
+_compare("logical_xor", torch.logical_xor)
+
+
+@register_op("logical_not", stop_gradient_op=True, nondiff_inputs=("X",))
+def logical_not(ctx, ins, attrs):
+    return {"Out": [torch.logical_not(values_of(ins["X"][0]))]}

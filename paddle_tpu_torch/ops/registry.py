@@ -38,12 +38,18 @@ import contextlib
 import torch
 
 from ..core.ragged import RaggedTensor, SelectedRows
+from ..core.tensor_array import TensorArray
 from ..core.types import GRAD_SUFFIX, VarType
 
 __all__ = ["OpInfo", "register_op", "register_grad_kernel", "get_op_info",
            "has_op", "registered_ops", "is_grad_op_type",
            "forward_type_of_grad", "run_generic_grad", "span",
-           "infer_meta", "dense", "values_of", "like"]
+           "infer_meta", "dense", "values_of", "like", "keep_declared"]
+
+
+# values with a structure around one float tensor: the generic grad
+# differentiates that tensor and rebuilds the structure around it
+_STRUCTURED = (RaggedTensor, TensorArray)
 
 
 def span(name):
@@ -73,15 +79,24 @@ def dense(x, op_type):
     return x
 
 
+def keep_declared(block, op_desc):
+    """An `infer_desc` rule that leaves the output VarDescs as their
+    layer declared them: the JAX side's `infer_shape` hooks that return
+    None, and its host ops, whose outputs' sizes depend on the data."""
+    return None
+
+
 def values_of(x):
-    """A RaggedTensor's flat values; a dense tensor (or None) as is."""
-    return x.values if isinstance(x, RaggedTensor) else x
+    """A RaggedTensor's flat values, a TensorArray's buffer; a dense
+    tensor (or None) as is."""
+    return x.values if isinstance(x, _STRUCTURED) else x
 
 
 def like(x, out):
     """`out` with the structure of `x`: ragged over x's splits when x is
-    ragged, else `out` itself."""
-    return x.with_values(out) if isinstance(x, RaggedTensor) else out
+    ragged, a TensorArray of x's length when x is one, else `out`
+    itself."""
+    return x.with_values(out) if isinstance(x, _STRUCTURED) else out
 
 
 class OpInfo:
@@ -164,8 +179,8 @@ def forward_type_of_grad(type):
 
 
 def _differentiable(v):
-    """A float tensor, or a RaggedTensor with float values (its values
-    are what the vjp differentiates)."""
+    """A float tensor, or a RaggedTensor or TensorArray over float
+    values (its values are what the vjp differentiates)."""
     v = values_of(v)
     return isinstance(v, torch.Tensor) and v.is_floating_point()
 

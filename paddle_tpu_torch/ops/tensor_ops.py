@@ -6,8 +6,8 @@ Counterpart of paddle_tpu/ops/tensor_ops.py (reference:
 fill_constant_op.cc, fill_constant_batch_size_like_op.cc, cast_op.cc,
 scale_op.cc, split_op.cc, concat_op.cc, reshape_op.cc, transpose_op.cc,
 sum_op.cc, increment_op.cc, top_k_op.cc).
-`sum` takes ragged (LoD) and SelectedRows inputs; ragged inputs to the
-others wait with ROADMAP A7.
+`sum` takes ragged (LoD) and SelectedRows inputs, and `top_k` a
+ragged X; ragged inputs to the others wait with ROADMAP A7.
 """
 
 import numpy as np
@@ -141,7 +141,10 @@ def stable_top_k(x, k):
 
 @register_op("top_k", nondiff_inputs=("X",))
 def top_k(ctx, ins, attrs):
-    """The `k` largest of X's last dim and their int32 indices."""
-    values, indices = stable_top_k(dense(ins["X"][0], "top_k"),
-                                   int(attrs["k"]))
-    return {"Out": [values], "Indices": [indices.to(torch.int32)]}
+    """The `k` largest of X's last dim and their int32 indices; the top
+    k of each step of a ragged X is ragged over its splits (the greedy
+    CTC decode's argmax)."""
+    x = ins["X"][0]
+    values, indices = stable_top_k(values_of(x), int(attrs["k"]))
+    return {"Out": [like(x, values)],
+            "Indices": [like(x, indices.to(torch.int32))]}

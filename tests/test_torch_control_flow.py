@@ -26,6 +26,21 @@ package, on the CPU, on inputs made from a numpy seed.
   into a fresh scope with the outputs of the unpruned run, a target
   inside the step block raises naming block 0, a fed target raises
   "produced by no op".
+- The 10 comparison and logical ops on broadcast f32, int32 and bool
+  operands: the bool results equal exactly.
+- `TensorArray` against the JAX class (writes past the capacity and
+  from the end, the length, reads, `stack`), and
+  tests/test_op_coverage.py's tensor-array program (less get_places)
+  built by both packages: descs equal, its fetches exactly equal.
+- `while` built by both packages' `While` (descs equal): unbounded,
+  bounded past the loop's end and short of it, at the f32 tolerance
+  above (integer carries and the array's length exactly); the bounded
+  loop's generic grad (a TensorArray carry through its buffer) against
+  JAX's while_grad and jax.vjp of the JAX kernel; an unwritten array
+  carried in raises the JAX side's message; tests/test_compile_passes.py
+  :143's unbounded loop through both executors.
+- `conditional_block` built by `ConditionalBlock` (descs equal), the
+  branch taken and not, forward and generic grad; `cond` picking rows.
 """
 
 import json
@@ -37,6 +52,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 import paddle_tpu.ops  # noqa: F401 — registers the JAX kernels
 import paddle_tpu.fluid as jfluid
 from paddle_tpu.core.desc import OpDesc as JOpDesc
@@ -568,3 +584,383 @@ def test_prune_rejects_feed_target(fresh_programs):
     x, _, _ = _build_rnn_classifier()
     with pytest.raises(ValueError, match="produced by no op"):
         tio.prune_program(tfluid.default_main_program(), [x])
+
+
+# -- comparison and logical ops -----------------------------------------------
+
+COMPARE_OPS = ["less_than", "less_equal", "greater_than", "greater_equal",
+               "equal", "not_equal"]
+LOGICAL_OPS = ["logical_and", "logical_or", "logical_xor"]
+
+
+def _both(v):
+    return (jnp.asarray(v), tensor_from_numpy(np.asarray(v), "cpu"))
+
+
+@pytest.mark.parametrize("op", COMPARE_OPS + LOGICAL_OPS + ["logical_not"])
+def test_compare_and_logical_ops_match_jax(op):
+    """Broadcast operands, f32 and int32 (ties included); bool operands
+    for the logical ops; the bool results equal exactly."""
+    rs = np.random.RandomState(0)
+    if op.startswith("logical"):
+        cases = [(rs.rand(3, 4) > 0.5, rs.rand(3, 4) > 0.5),
+                 (rs.rand(3, 4) > 0.5, np.array([True, False, True, True]))]
+    else:
+        cases = [(rs.randint(-2, 3, (3, 4)).astype(np.float32),
+                  rs.randint(-2, 3, (3, 4)).astype(np.float32)),
+                 (rs.randint(-2, 3, (3, 4)).astype(np.int32),
+                  np.array([0], np.int32)),
+                 (np.array([1], np.int32), np.array([1], np.int32))]
+    for x, y in cases:
+        ins = {"X": [("x", _both(x))]}
+        if op != "logical_not":
+            ins["Y"] = [("y", _both(y))]
+        jenv, tenv = _apply_both(op, ins, {"Out": ["o"]})
+        assert tenv["o"].dtype == torch.bool
+        np.testing.assert_array_equal(tenv["o"].numpy(),
+                                      np.asarray(jenv["o"]))
+
+
+# -- TensorArray and the array ops --------------------------------------------
+
+def test_tensor_array_matches_jax():
+    """Writes in and past the capacity (clamped, as dynamic_update_slice
+    clamps) and from the end, the length as the largest index + 1,
+    reads, and `stack` with zeros past the length."""
+    from paddle_tpu.core.tensor_array import EmptyTensorArray as JEmpty
+    from paddle_tpu_torch.core.tensor_array import (DEFAULT_CAPACITY,
+                                                    EmptyTensorArray)
+
+    assert DEFAULT_CAPACITY == 256
+    rs = np.random.RandomState(1)
+    vals = [rs.randn(2, 3).astype(np.float32) for _ in range(4)]
+    ja, ta = JEmpty(4), EmptyTensorArray(4)
+    for i, v in zip([1, 0, 6, -2], vals):
+        ja = ja.write(jnp.asarray(i), jnp.asarray(v))
+        ta = ta.write(torch.tensor(i), torch.from_numpy(v))
+        assert int(ta.length) == int(ja.length)
+        np.testing.assert_array_equal(ta.buffer.numpy(),
+                                      np.asarray(ja.buffer))
+    assert int(ta.length) == 7 and ta.capacity == 4
+    for i in (0, 3, 9, -1):
+        np.testing.assert_array_equal(ta.read(torch.tensor(i)).numpy(),
+                                      np.asarray(ja.read(jnp.asarray(i))))
+    short = EmptyTensorArray(5).write(torch.tensor(1), torch.ones(2))
+    np.testing.assert_array_equal(short.stack().numpy(),
+                                  [[0, 0], [1, 1], [0, 0], [0, 0], [0, 0]])
+
+
+def _array_ops_program(fluid):
+    """tests/test_op_coverage.py:541's tensor-array program, less
+    get_places: two writes, the length, a read and an IfElse."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        layers = fluid.layers
+        x = layers.data(name="x", shape=[2], dtype="float32")
+        i = layers.fill_constant(shape=[1], dtype="int64", value=0)
+        arr = layers.array_write(x, i=i)
+        i2 = layers.increment(x=i, value=1, in_place=False)
+        layers.array_write(x, i=i2, array=arr)
+        length = layers.array_length(arr)
+        back = layers.array_read(array=arr, i=i)
+        cond = layers.less_than(x=i, y=i2)
+        ie = layers.IfElse(cond)
+        with ie.true_block():
+            ie.output(layers.scale(x=ie.input(x), scale=2.0))
+        with ie.false_block():
+            ie.output(ie.input(x))
+        out = ie()
+    return main, [length, back, out]
+
+
+def test_array_ops_program_matches_jax():
+    jmain, jfetch = _array_ops_program(jfluid)
+    tmain, tfetch = _array_ops_program(tfluid)
+    assert tmain.desc.to_dict() == jmain.desc.to_dict()
+    feed = {"x": np.array([[1.0, 2.0]], np.float32)}
+    jres = jfluid.Executor(jfluid.CPUPlace()).run(jmain, feed=feed,
+                                                  fetch_list=jfetch)
+    tres = texec.Executor(CPU).run(tmain, feed=feed, fetch_list=tfetch)
+    for t, j in zip(tres, jres):
+        np.testing.assert_array_equal(t, np.asarray(j))
+    assert tres[0].tolist() == [2] and tres[2].tolist() == [[2, 4]]
+
+
+# -- while ------------------------------------------------------------------
+
+# chip_smoke.py's loop: acc = tanh(acc W + x), a counter, its condition
+# and an array written each step, built by either package's layers
+_while_program = chip_smoke.ctc_while_program
+WHILE_LIMIT = chip_smoke.CTC_LOOP_LIMIT
+
+
+def _while_values(main, seed=0, limit=WHILE_LIMIT):
+    """{name: (jax value, port value)} of the while op's inputs: the
+    feeds, the weight, and block 0's values before the loop (the
+    counter at 0, the bound, the condition, the array holding x)."""
+    from paddle_tpu.core.tensor_array import TensorArray as JArray
+    from paddle_tpu_torch.core.tensor_array import TensorArray
+
+    rs = np.random.RandomState(seed)
+    x = rs.randn(2, 4).astype(np.float32)
+    out = {n: _both(v) for n, v in (
+        ("x", x), ("acc", rs.randn(2, 4).astype(np.float32)),
+        ("fc_0.w_0", (rs.randn(4, 4) * 0.5).astype(np.float32)))}
+    for o in main.desc.block(0).ops:
+        name = (o.output("Out") or [None])[0]
+        if o.type == "fill_constant":
+            out[name] = _both(np.array([o.attrs["value"]], np.int32))
+        elif o.type == "less_than":
+            out[name] = _both(np.array([True]))
+        elif o.type == "write_to_array":
+            buf = np.zeros((8, 2, 4), np.float32)
+            buf[0] = x
+            out[name] = (JArray(jnp.asarray(buf), 1),
+                         TensorArray(torch.from_numpy(buf), 1))
+    return out
+
+
+def _while_op(main):
+    op = next(o for o in main.desc.block(0).ops if o.type == "while")
+    return OpDesc.from_dict(op.to_dict())
+
+
+def _run_op_both(prog_dict, op, values):
+    """Run `op` in block 0 of both programs over `values` ({name: (jax,
+    port)}); returns (jax env, port env)."""
+    jctx = jexec.ExecContext(None, _jax_program(prog_dict), 0,
+                             {n: v[0] for n, v in values.items()})
+    jexec.apply_op(jctx, JOpDesc.from_dict(op.to_dict()))
+    tctx = texec.ExecContext(ProgramDesc.from_dict(prog_dict), 0,
+                             {n: v[1] for n, v in values.items()},
+                             device=torch.device("cpu"))
+    texec.apply_op(tctx, op)
+    return jctx.env, tctx.env
+
+
+def _array_host(v):
+    return (np.asarray(v.buffer), int(np.asarray(v.length))) \
+        if hasattr(v, "buffer") else (np.asarray(v), None)
+
+
+@pytest.mark.parametrize("max_steps", [None, 5, 2])
+def test_while_matches_jax(max_steps):
+    """Unbounded (a host read a step), bounded past the loop's end (the
+    masked steps keep the carries) and bounded short of it."""
+    main = _while_program(tfluid, max_steps)
+    assert main.desc.to_dict() == \
+        _while_program(jfluid, max_steps).desc.to_dict()
+    op = _while_op(main)
+    assert op.attrs["max_steps"] == max_steps
+    prog_dict = main.desc.to_dict()
+    jenv, tenv = _run_op_both(prog_dict, op, _while_values(main))
+    steps = min(WHILE_LIMIT, max_steps or WHILE_LIMIT)
+    for n in op.output("Out"):
+        (tv, tl), (jv, jl) = _array_host(tenv[n]), _array_host(jenv[n])
+        assert tl == jl, n
+        assert tv.dtype == jv.dtype, (n, tv.dtype, jv.dtype)
+        _assert_close(tv, jv, n)
+    i_name = next(n for n in op.output("Out")
+                  if getattr(tenv[n], "dtype", None) == torch.int32)
+    assert tenv[i_name].tolist() == [steps]
+
+
+def test_bounded_while_grad_matches_jax_vjp():
+    """The bounded loop's generic grad (torch.func.vjp of the masked
+    loop, the TensorArray carry through its buffer) against JAX's
+    while_grad and against jax.vjp of the JAX kernel called directly:
+    the grads of x, the initial acc, the weight and the array."""
+    from paddle_tpu.core.tensor_array import TensorArray as JArray
+    from paddle_tpu_torch.core.tensor_array import TensorArray
+
+    main = _while_program(tfluid, 5)
+    op = _while_op(main)
+    prog_dict = main.desc.to_dict()
+    values = _while_values(main, seed=3)
+    jenv, tenv = _run_op_both(prog_dict, op, values)
+    outs = op.output("Out")
+    arr_name = next(n for n in outs if hasattr(tenv[n], "buffer"))
+    rs = np.random.RandomState(4)
+    og_acc = rs.randn(2, 4).astype(np.float32)
+    og_buf = rs.randn(8, 2, 4).astype(np.float32)
+    grads = {"acc@GRAD": _both(og_acc),
+             arr_name + "@GRAD": (JArray(jnp.asarray(og_buf), 0),
+                                  TensorArray(torch.from_numpy(og_buf), 0))}
+    ins = dict(op.inputs)
+    ins["O@Out"] = list(outs)
+    ins["OG@Out"] = [n + "@GRAD" if n + "@GRAD" in grads else EMPTY
+                     for n in outs]
+    grad_op = OpDesc("while_grad", ins,
+                     {"X@GRAD": [n + "@GRAD" for n in op.input("X")]},
+                     dict(op.attrs))
+    fwd = {n: (jenv[n], tenv[n]) for n in outs}
+    jg, tg = _run_op_both(prog_dict, grad_op,
+                          dict(values, **{k: v for k, v in fwd.items()
+                                          if k not in values}, **grads))
+
+    jprog = _jax_program(prog_dict)
+    info = jreg.get_op_info("while")
+    names = op.input("X")
+
+    def f(x, acc, w, buf):
+        env = {n: values[n][0] for n in names}
+        env.update({"x": x, "acc": acc, "fc_0.w_0": w,
+                    arr_name: JArray(buf, values[arr_name][0].length)})
+        ctx = jexec.ExecContext(None, jprog, 0, {})
+        out = dict(zip(outs, info.kernel(
+            ctx, {"X": [env[n] for n in names],
+                  "Condition": [env[op.input("Condition")[0]]]},
+            dict(op.attrs))["Out"]))
+        return (jnp.sum(out["acc"] * og_acc)
+                + jnp.sum(out[arr_name].buffer * og_buf))
+
+    want = dict(zip(("x", "acc", "fc_0.w_0", arr_name), jax.grad(
+        f, argnums=(0, 1, 2, 3))(values["x"][0], values["acc"][0],
+                                 values["fc_0.w_0"][0],
+                                 values[arr_name][0].buffer)))
+    for n, w in want.items():
+        got = tg[n + "@GRAD"]
+        got = got.buffer if hasattr(got, "buffer") else got
+        ref = jg[n + "@GRAD"]
+        ref = ref.buffer if hasattr(ref, "buffer") else ref
+        _assert_close(got, np.asarray(ref), n + "@GRAD (JAX's while_grad)")
+        _assert_close(got, np.asarray(w), n + "@GRAD (jax.vjp)")
+        assert np.abs(np.asarray(w)).max() > 0, n
+
+
+def test_while_rejects_an_unwritten_array_as_jax():
+    from paddle_tpu.core.tensor_array import EmptyTensorArray as JEmpty
+    from paddle_tpu_torch.core.tensor_array import EmptyTensorArray
+
+    main = _while_program(tfluid, 5)
+    op = _while_op(main)
+    values = _while_values(main)
+    arr = [n for n in op.input("X") if n.startswith("array")][0]
+    values[arr] = (JEmpty(8), EmptyTensorArray(8))
+    with pytest.raises(RuntimeError) as jerr:
+        _run_op_both(main.desc.to_dict(), op, values)
+    tctx = texec.ExecContext(main.desc, 0,
+                             {n: v[1] for n, v in values.items()},
+                             device=torch.device("cpu"))
+    with pytest.raises(RuntimeError) as terr:
+        texec.apply_op(tctx, op)
+    assert str(terr.value) == str(jerr.value)
+    assert "written once before the loop" in str(terr.value)
+
+
+def test_unbounded_while_program_runs_as_jax():
+    """tests/test_compile_passes.py:143's loop (acc += i + 1 while i <
+    5, then 2 * acc), with `sums` where it assigns: 30 in both."""
+    def build(fluid):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            layers = fluid.layers
+            i = layers.fill_constant(shape=[1], dtype="float32", value=0.0)
+            acc = layers.fill_constant(shape=[1], dtype="float32",
+                                       value=0.0)
+            limit = layers.fill_constant(shape=[1], dtype="float32",
+                                         value=5.0)
+            cond = layers.less_than(x=i, y=limit)
+            loop = layers.While(cond=cond)
+            with loop.block():
+                ni = layers.increment(x=i, value=1.0, in_place=True)
+                layers.sums(input=[acc, ni], out=acc)
+                layers.less_than(x=ni, y=limit, cond=cond)
+            out = layers.scale(x=acc, scale=2.0)
+        return main, out
+
+    jmain, jout = build(jfluid)
+    tmain, tout = build(tfluid)
+    assert tmain.desc.to_dict() == jmain.desc.to_dict()
+    j, = jfluid.Executor(jfluid.CPUPlace()).run(jmain, fetch_list=[jout])
+    t, = texec.Executor(CPU).run(tmain, fetch_list=[tout])
+    np.testing.assert_array_equal(t, np.asarray(j))
+    assert t.tolist() == [30.0]
+
+
+# -- conditional_block and cond -----------------------------------------------
+
+def _conditional_program(fluid):
+    """out = x W where the scalar a < b holds, else out keeps its value
+    (scale(x, 3)); built by `fluid`'s ConditionalBlock."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        layers = fluid.layers
+        x = layers.data(name="x", shape=[3, 4], dtype="float32",
+                        append_batch_size=False)
+        a = layers.data(name="a", shape=[1], dtype="float32",
+                        append_batch_size=False)
+        b = layers.data(name="b", shape=[1], dtype="float32",
+                        append_batch_size=False)
+        out = layers.scale(x=x, scale=3.0)
+        cond = layers.less_than(x=a, y=b)
+        block = layers.ConditionalBlock([cond])
+        with block.block():
+            layers.sums(input=[layers.fc(input=x, size=4, bias_attr=False)],
+                        out=out)
+    return main
+
+
+@pytest.mark.parametrize("taken", [True, False])
+def test_conditional_block_and_its_grad_match_jax(taken):
+    """The predicate read once; the branch's outputs and the generic
+    grad of the branch taken (lax.cond's vjp on the JAX side)."""
+    main = _conditional_program(tfluid)
+    assert main.desc.to_dict() == \
+        _conditional_program(jfluid).desc.to_dict()
+    prog_dict = main.desc.to_dict()
+    op = OpDesc.from_dict(next(o for o in main.desc.block(0).ops
+                               if o.type == "conditional_block").to_dict())
+    rs = np.random.RandomState(5)
+    values = {n: _both(rs.randn(*s).astype(np.float32))
+              for n, s in (("x", (3, 4)), ("fc_0.w_0", (4, 4)))}
+    out_name = op.output("Out")[0]
+    values[out_name] = _both(rs.randn(3, 4).astype(np.float32))
+    values[op.input("Cond")[0]] = _both(np.array([taken]))
+    jenv, tenv = _run_op_both(prog_dict, op, values)
+    _assert_close(tenv[out_name], np.asarray(jenv[out_name]), "Out")
+    want = values["x"][0] @ values["fc_0.w_0"][0] if taken \
+        else values[out_name][0]
+    _assert_close(tenv[out_name], np.asarray(want), "Out by hand")
+
+    og = rs.randn(3, 4).astype(np.float32)
+    ins = dict(op.inputs)
+    ins["O@Out"] = [out_name]
+    ins["OG@Out"] = [out_name + "@GRAD"]
+    grad = OpDesc("conditional_block_grad", ins,
+                  {"X@GRAD": [n + "@GRAD" for n in op.input("X")]},
+                  dict(op.attrs))
+    vals = dict(values)
+    vals[out_name + "@GRAD"] = _both(og)
+    jg, tg = _run_op_both(prog_dict, grad, vals)
+    for n in op.input("X"):
+        if n + "@GRAD" in jg and jg[n + "@GRAD"] is not None:
+            _assert_close(tg[n + "@GRAD"], np.asarray(jg[n + "@GRAD"]),
+                          n + "@GRAD")
+    w_grad = tg["fc_0.w_0@GRAD"]
+    assert bool(w_grad.abs().max() > 0) == taken
+
+
+def test_cond_op_picks_rows_as_jax():
+    """Both blocks over the full batch, rows by mask: 2x where the
+    mask holds, -x elsewhere."""
+    prog = tfluid.Program()
+    gb = prog.global_block()
+    for n in ("x", "c", "o"):
+        gb.create_var(name=n, dtype="float32")
+    for scale in (2.0, -1.0):
+        with prog.block_guard() as sub:
+            sub.create_var(name="y", dtype="float32")
+            sub.append_op(type="scale", inputs={"X": ["x"]},
+                          outputs={"Out": ["y"]}, attrs={"scale": scale},
+                          infer_shape=False)
+    op = OpDesc("cond", {"Cond": ["c"], "Xs": ["x"]}, {"Outs": ["o"]},
+                {"true_block": BlockRef(1), "false_block": BlockRef(2),
+                 "x_names": ["x"], "out_names": ["y"]})
+    x = np.random.RandomState(6).randn(5, 3).astype(np.float32)
+    mask = np.array([True, False, False, True, True])
+    jenv, tenv = _run_op_both(prog.desc.to_dict(), op,
+                              {"x": _both(x), "c": _both(mask)})
+    np.testing.assert_array_equal(tenv["o"].numpy(), np.asarray(jenv["o"]))
+    np.testing.assert_array_equal(tenv["o"].numpy(),
+                                  np.where(mask[:, None], 2 * x, -x))

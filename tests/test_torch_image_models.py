@@ -48,6 +48,7 @@ DESC_MODELS = {
     "vgg16": ("vgg16", 3, 224, 1000),
     "vgg19": ("vgg19", 3, 224, 1000),
     "googlenet": ("googlenet", 3, 224, 1000),
+    "resnet101": ("resnet101", 3, 224, 1000),
 }
 
 

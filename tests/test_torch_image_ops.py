@@ -142,13 +142,20 @@ def test_dropout_grad_matches_jax(is_test):
      {"Accuracy": ["a"], "Correct": ["c"], "Total": ["t"]}),
 ])
 def test_ragged_inputs_raise(op_type, ins, outs):
-    """Ragged inputs to these ops still wait with ROADMAP A7 (the ops
-    off the stacked-LSTM path)."""
+    """Ragged inputs to dropout and accuracy still wait with ROADMAP A7
+    (the ops off the stacked-LSTM path).  top_k takes one now (the
+    greedy CTC decode's argmax of each step) and keeps its splits;
+    tests/test_torch_ctc.py holds it against the JAX package's."""
     ragged = RaggedTensor(torch.ones(3, 3), [torch.tensor([0, 2, 3])])
     ctx = _tctx({"x": ragged, "l": torch.zeros(3, 1, dtype=torch.int32)})
+    op = OpDesc(op_type, ins, outs, {"dropout_prob": 0.5, "k": 1})
+    if op_type == "top_k":
+        out = texec.apply_op(ctx, op)
+        assert [o.lod() for o in (out["Out"][0], out["Indices"][0])] == \
+            [[[0, 2, 3]]] * 2
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        texec.apply_op(ctx, OpDesc(op_type, ins, outs,
-                                   {"dropout_prob": 0.5, "k": 1}))
+        texec.apply_op(ctx, op)
 
 
 # -- lrn ------------------------------------------------------------------------

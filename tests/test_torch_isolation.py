@@ -32,6 +32,9 @@ def test_every_port_module_is_scanned():
     assert "chip_smoke.py" in rel
     assert os.path.join("paddle_tpu_torch", "kernels",
                         "flash_attention.py") in rel
+    for new in (("core", "tensor_array.py"), ("core", "rank_table.py"),
+                ("ops", "ctc.py"), ("ops", "control_flow.py")):
+        assert os.path.join("paddle_tpu_torch", *new) in rel
     assert len(rel) >= 25
 
 

@@ -201,6 +201,16 @@ def test_registry_holds_the_slice_op_set():
         "cos_sim", "sequence_conv", "linear_chain_crf", "crf_decoding",
         "chunk_eval", "sequence_softmax", "row_conv", "sequence_expand",
         "sequence_concat", "sequence_reshape", "sequence_slice",
-        "sequence_reverse", "lod_reset", "gru", "gru_unit"}
+        "sequence_reverse", "lod_reset", "gru", "gru_unit",
+        # loops, conditionals, tensor arrays, rank tables and CTC
+        "less_than", "less_equal", "greater_than", "greater_equal",
+        "equal", "not_equal", "logical_and", "logical_or", "logical_xor",
+        "logical_not", "while", "conditional_block", "cond",
+        "split_lod_tensor", "merge_lod_tensor", "write_to_array",
+        "read_from_array", "lod_array_length", "max_sequence_len",
+        "lod_rank_table", "reorder_lod_tensor_by_rank",
+        "lod_tensor_to_array", "array_to_lod_tensor", "shrink_rnn_memory",
+        "warpctc", "ctc_align", "edit_distance", "sequence_erase",
+        "im2sequence"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")

@@ -16,7 +16,8 @@ against the JAX package's, on the CPU.
   a tie built by hand goes to the first tag, and with a Label the match
   mask equals too; `chunk_eval`'s six outputs equal under each scheme.
 - Every new layer appends the JAX package's ops and vars
-  (`to_dict()`), and the port registers 79 op types.
+  (`to_dict()`), and the port registers these 15 op types among its
+  108.
 
 Tolerances: f32 outputs and grads at atol 1e-5 times the larger of 1
 and the largest magnitude (the same f32 arithmetic summed in other
@@ -71,7 +72,7 @@ def _check(op, ins, outs, attrs, og, grads, amp=False):
 def test_the_port_registers_the_fifteen_new_op_types():
     ops = set(registered_ops())
     assert set(NEW_OPS) <= ops
-    assert len(ops) == 79
+    assert len(ops) == 108
 
 
 # -- sequence_softmax, sequence_conv, row_conv ---------------------------------
