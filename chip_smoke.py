@@ -214,14 +214,38 @@ no result line:
      step with CUDA's synchronizing calls made errors; the step's median
      of 10 after 2 warm (feeds on the card), images/s, labels/s and a
      profiled step; one step run twice from one state without torch's
-     deterministic algorithms: the grads of warpctc's logits, the GRUs
-     and the fcs bit for bit (the convolutions' and batch norms' grads
-     counted and reported); the greedy decode and edit distance on the
-     card equal to the CPU's; the export (image -> ids) served to 3
+     deterministic algorithms: every grad bit for bit, warpctc's logits',
+     the GRUs', the fcs' and the 32 of the convolutions and batch norms
+     (conv2d and its grad run under deterministic cuDNN algorithms, the
+     op's registration; the step's median is also timed with them
+     free); the greedy decode and edit distance on the card equal to
+     the CPU's; the export (image -> ids) served to 3
      concurrent requests, the ids equal to the card engine's and the
      CPU's.  (d) warpctc alone at CRNN's shape (B 32, T 32, C 96),
      forward and generic grad, beside F.ctc_loss over log_softmax and
      the bound by bytes.  No hand-written kernel runs here.
+  14. v2: the v2 API (`paddle_tpu_torch.v2`) and the book's attention
+     NMT.  (a) The nested-sequence ops (seq_unnest, seq_outer_expand and
+     its grad, seq_renest), print, the ragged inputs of concat,
+     increment, reduce_*, dropout (and its grad) and accuracy, sign,
+     beam_search and beam_search_decode on the card against the CPU
+     plain path: exact, sums and means within V2_OP_RTOL.  (b)
+     tests/test_v2_api.py's fit-a-line through v2.trainer.SGD on the
+     card (12 passes; the cost must fall), test() and infer().  (c) The
+     Paddle book's machine_translation `seq_to_seq_net` (BASELINE.json
+     configs[3], `build_nmt`) at its widths (dictionaries of 30,000, 512
+     wide, Adam at 5e-5 with L2 8e-4), batch 64 of the wmt14 reader: 2
+     steps through SGD.train on the card against the same 2 on the CPU
+     plain path from one state (loss, each group's change in relative
+     L2), one step run twice (every grad and Adam moment bit for bit),
+     peak memory, the step's median, target tokens/s, the synchronizing
+     calls of a step and where they are, a profiled step.  (d) Beam 3 to
+     at most 250 tokens over 4 sentences through v2.infer on a
+     generation topology, from `nmt_decode_state`, on the card and the
+     CPU: ids equal, scores within NMT_SCORE_ATOL, ms per generated
+     token and the steps run.  (e) The nested SubsequenceInput groups of
+     tests/test_v2_recurrent.py:281-380 on the card against the CPU.
+     No hand-written kernel runs here.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -230,6 +254,7 @@ Imports nothing of JAX and nothing of the paddle_tpu package.
 """
 
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -5389,11 +5414,13 @@ def crnn_serve(state, infer, decoded, images, smi):
 
 def crnn_repeat(exe, main, feed, state, logits):
     """One CRNN step twice from one state: (the names of the grads of
-    warpctc's logits, the GRUs and the fcs that differ bit for bit, the
-    count of those, {convolution or batch-norm grad name: largest
-    difference} of those that differ, their count)."""
+    warpctc's logits and of every parameter, the convolutions' and batch
+    norms' included, that differ bit for bit, with their largest
+    differences; the count of grads compared, and of those the
+    convolutions' and batch norms')."""
     import torch
     from paddle_tpu_torch.fluid import Scope
+    from paddle_tpu_torch.ops.registry import values_of
 
     if torch.are_deterministic_algorithms_enabled():
         raise SystemExit("chip_smoke: torch's deterministic mode is on")
@@ -5407,14 +5434,10 @@ def crnn_repeat(exe, main, feed, state, logits):
         runs.append(exe.run(main, feed=feed, fetch_list=grads, scope=scope,
                             return_numpy=False))
         del scope
-    gated = [g for g in grads if not g.startswith(("conv2d", "batch_norm"))]
-    differ = [g for g, a, b in zip(grads, *runs) if g in gated
-              and not same_bits(a, b)]
-    conv = {}
-    for g, a, b in zip(grads, *runs):
-        if g not in gated and not same_bits(a, b):
-            conv[g] = float((a - b).abs().max())
-    return differ, len(gated), conv, len(grads) - len(gated)
+    differ = {g: float((values_of(a) - values_of(b)).abs().max())
+              for g, a, b in zip(grads, *runs) if not same_bits(a, b)}
+    n_conv = sum(g.startswith(("conv2d", "batch_norm")) for g in grads)
+    return differ, len(grads), n_conv
 
 
 def crnn_full(exe, smi):
@@ -5502,36 +5525,50 @@ def crnn_full(exe, smi):
         return exe.run(main, feed=dev_feeds[0], fetch_list=[loss],
                        scope=scope, return_numpy=False)
 
+    # ROADMAP C4's cost: the same step with cuDNN's algorithms free
+    # (conv2d's registration off), then held to deterministic ones again
+    from paddle_tpu_torch.ops.registry import get_op_info
+
+    conv = get_op_info("conv2d")
+    conv.deterministic = False
+    try:
+        free = timed_steps(step)
+    finally:
+        conv.deterministic = True
     times = timed_steps(step)
     med = float(np.median(times))
     labels = int(dev_feeds[0]["label"].nvalid)
     print("ctc: CRNN batch %d: step %.3f ms (median of 10 after 2 warm, "
-          "feeds on the card; mean %.3f, min %.3f, max %.3f), %.1f images/s,"
-          " %.1f labels/s (%d labels); peak memory of 3 steps %.3f GB [%s]"
+          "feeds on the card, conv2d and its grad under deterministic "
+          "cuDNN algorithms; mean %.3f, min %.3f, max %.3f), %.1f images/s,"
+          " %.1f labels/s (%d labels); peak memory of 3 steps %.3f GB; the "
+          "same step with cuDNN's algorithms free, timed just before: "
+          "%.3f ms (mean %.3f, min %.3f, max %.3f) [%s]"
           % (CRNN_BATCH, med, np.mean(times), min(times), max(times),
              CRNN_BATCH / med * 1e3, labels / med * 1e3, labels, peak / 1e9,
+             float(np.median(free)), np.mean(free), min(free), max(free),
              smi), flush=True)
     profile_step(step, set(counts), 0, med,
                  what="one CRNN-CTC step at batch %d" % CRNN_BATCH)
 
-    # one step twice from one state
+    # one step twice from one state: every grad, the convolutions' and
+    # batch norms' included (ROADMAP C4)
     logits = next(op for op in block.ops
                   if op.type == "warpctc").input("Logits")[0]
     state = {n: torch.from_numpy(v).to(exe.device) for n, v in init.items()}
-    differ, n_gated, conv, n_conv = crnn_repeat(exe, main, dev_feeds[0],
-                                                state, logits)
+    differ, n_grads, n_conv = crnn_repeat(exe, main, dev_feeds[0], state,
+                                          logits)
     print("ctc: CRNN one step from one state and feed, run twice without "
-          "torch's deterministic algorithms: %d of %d grads of warpctc's "
-          "logits, the GRUs and the fcs differ bit for bit%s; %d of %d "
-          "convolution and batch-norm grads differ%s"
-          % (len(differ), n_gated, " (%s)" % ", ".join(differ) if differ
-             else "", len(conv), n_conv, " (largest differences: %s)"
+          "torch's deterministic algorithms: %d of %d grads (warpctc's "
+          "logits, the GRUs, the fcs and the %d convolution and batch-norm "
+          "grads) differ bit for bit%s"
+          % (len(differ), n_grads, n_conv, " (largest differences: %s)"
              % ", ".join("%s %.3g" % kv for kv in sorted(
-                 conv.items(), key=lambda kv: -kv[1])[:6]) if conv else ""),
-          flush=True)
+                 differ.items(), key=lambda kv: -kv[1])[:6])
+             if differ else ""), flush=True)
     if differ:
         raise SystemExit("chip_smoke: CRNN grads differ run to run: %s"
-                         % differ)
+                         % sorted(differ))
 
     # decode and edit distance on the card against the CPU
     dstate = crnn_decode_state({n: scope.get(n).cpu().numpy()
@@ -5726,6 +5763,650 @@ def phase_ctc():
     return launches
 
 
+# -- phase 14: the v2 API and the book's attention NMT ------------------------
+
+# the Paddle book's chapter 8 (machine_translation, the v2 train.py; the
+# reference's demo/seqToseq): BASELINE.json configs[3] "seq2seq NMT with
+# attention" at its published widths
+NMT_DICT = 30000          # source and target dictionaries
+NMT_WORD = 512            # word vectors
+NMT_HID = 512             # encoder GRUs (each way) and decoder GRU
+NMT_LR, NMT_L2 = 5e-5, 8e-4
+NMT_BEAM, NMT_MAXLEN = 3, 250
+NMT_BATCH = 64            # the port's seeded wmt14 synthetic reader
+NMT_GEN_BATCH = 4         # sentences beam-generated on the card and CPU
+
+
+def build_nmt(v2, dict_size=NMT_DICT, word=NMT_WORD, hidden=NMT_HID,
+              generating=False, beam_size=NMT_BEAM, max_length=NMT_MAXLEN):
+    """The book's `seq_to_seq_net` through `v2`'s layers (the port's
+    here; tests/test_torch_v2.py builds it with both packages' and holds
+    the descs and steps equal), into the current default programs: a
+    forward and a reverse `simple_gru` over the source embedding,
+    concatenated; the encoder projection (`fc`, linear, no bias); the
+    decoder boot `fc(first_seq(backward), tanh, no bias)`; the decoder
+    step (`memory("gru_decoder")`, `simple_attention`, `fc([context,
+    word]) -> 3 * hidden`, `gru_step_layer`, `fc(dict, softmax)`).
+    Training returns the `classification_cost`; generating, the
+    `beam_search` handle (bos 0, eos 1).  Both topologies name their
+    parameters alike in a fresh program, so the generation topology
+    reads what training left in the scope."""
+    layer, networks = v2.layer, v2.networks
+    act, dtype = v2.activation, v2.data_type
+    src = layer.data(name="source_language_word",
+                     type=dtype.integer_value_sequence(dict_size))
+    src_emb = layer.embedding(input=src, size=word)
+    fwd = networks.simple_gru(input=src_emb, size=hidden)
+    bwd = networks.simple_gru(input=src_emb, size=hidden, reverse=True)
+    enc = layer.concat(input=[fwd, bwd])
+    enc_proj = layer.fc(input=enc, size=hidden, act=act.Linear(),
+                        bias_attr=False)
+    boot = layer.fc(input=layer.first_seq(input=bwd), size=hidden,
+                    act=act.Tanh(), bias_attr=False)
+
+    def step(enc_vec, proj, current_word):
+        mem = layer.memory(name="gru_decoder", size=hidden, boot_layer=boot)
+        context = networks.simple_attention(
+            encoded_sequence=enc_vec, encoded_proj=proj, decoder_state=mem)
+        inputs = layer.fc(input=[context, current_word], size=hidden * 3,
+                          act=act.Linear(), bias_attr=False)
+        gru = layer.gru_step_layer(input=inputs, output_mem=mem,
+                                   size=hidden, name="gru_decoder")
+        return layer.fc(input=gru, size=dict_size, act=act.Softmax(),
+                        bias_attr=True)
+
+    statics = [layer.StaticInput(input=enc), layer.StaticInput(input=enc_proj)]
+    if generating:
+        word_in = layer.GeneratedInput(
+            size=dict_size, embedding_name="_target_language_embedding",
+            embedding_size=word)
+        return layer.beam_search(step=step, input=statics + [word_in],
+                                 bos_id=0, eos_id=1, beam_size=beam_size,
+                                 max_length=max_length)
+    trg = layer.embedding(
+        input=layer.data(name="target_language_word",
+                         type=dtype.integer_value_sequence(dict_size)),
+        size=word, param_attr=v2.attr.Param(name="_target_language_embedding"))
+    decoder = layer.recurrent_group(step=step, input=statics + [trg])
+    label = layer.data(name="target_language_next_word",
+                       type=dtype.integer_value_sequence(dict_size))
+    return layer.classification_cost(input=decoder, label=label)
+
+
+def nmt_decode_state(state, main, seed=SEED + 4):
+    """A state from which beam search decodes non-degenerately: `state`
+    ({name: ndarray} of `main`'s parameters, `main` the training
+    program) with, in the decoder step (block 1), the weights of the
+    product into the GRU's gates 20 times theirs, the output layer's
+    weight drawn from N(0, 1000^2 / hidden) by `seed` and its bias 0.
+    From random weights every step's probabilities lie near 1 / dict: a
+    step's top candidates are ties within rounding, and over 250 steps
+    the beams' scores (sums near -2,500) differ by less than the card's
+    and the CPU's rounding.  With these the decoder's state saturates
+    and sets a peaked softmax: the best word of a step has a
+    log-probability near 0, the beams' scores stay near -10 and lie
+    apart by 0.05 and more, and the words follow the source (through
+    the attention) and the last word (through its embedding)."""
+    out = dict(state)
+    block = main.desc.block(1)
+    gru = next(op for op in block.ops if op.type == "gru_unit")
+    gates = state[gru.input("Weight")[0]].shape[1]
+    muls = [op.input("Y")[0] for op in block.ops if op.type == "mul"]
+    out_w = muls[-1]                      # the last fc: the dictionary
+    for n in muls[:-1]:
+        if state[n].shape[1] == gates:
+            out[n] = state[n] * np.float32(20.0)
+    rows, dict_size = state[out_w].shape
+    out[out_w] = (np.random.RandomState(seed).randn(rows, dict_size)
+                  * (1000.0 / np.sqrt(rows))).astype(np.float32)
+    for n, v in state.items():
+        if v.shape == (dict_size,):
+            out[n] = np.zeros_like(v)
+    return out
+
+
+# the card against the CPU plain path: (a) each new op's outputs exactly
+# (they copy, move or count rows, or print) but the ragged sums and means
+# and the nested gather's grad, f32 sums in other orders, within
+# V2_OP_RTOL of the larger of 1 and their magnitude; (c) the NMT's 2 Adam
+# steps from one state: the loss within NMT_LOSS_RTOL of its size (f32 on
+# both sides; the 30,000-way softmax and the 32-step decoder sum in other
+# orders) and each group's change (parameters, moments) within
+# NMT_CHANGE_RL2 in relative L2, as the seq2seq of phase 11; (d) the beam's
+# ids exactly and its scores within NMT_SCORE_ATOL: a score sums up to 250
+# log-probabilities whose logits reach about 1e3 under the decode state
+# (`nmt_decode_state`), where an f32 rounding of 1e-7 of a logit moves a
+# step's log-probability by up to 1e-4; on the CPU, perturbing every
+# weight by 1e-6 of itself moved the scores by up to 7.4e-4, and the
+# beams a step keeps lie 0.086 and more apart; (e) the nested group's
+# outputs exactly and its 10 SGD losses within NMT_LOSS_RTOL
+V2_OP_RTOL = 1e-6
+NMT_LOSS_RTOL = 1e-5
+NMT_CHANGE_RL2 = 1e-4
+NMT_SCORE_ATOL = 5e-3
+
+
+@contextlib.contextmanager
+def v2_program(v2, use_gpu, scope=None):
+    """The v2 API on the card (or, with use_gpu False, the CPU) building
+    into fresh default programs, with `scope` (a fresh Scope when None)
+    as the global scope: yields (main, startup, scope)."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    scope = scope if scope is not None else fluid.Scope()
+    v2.init(use_gpu=use_gpu)
+    with fluid.program_guard(main, startup), fluid.scope_guard(scope):
+        yield main, startup, scope
+
+
+def v2_op_cases(rs):
+    """(tag, op type, inputs {slot: [(name, value)]}, outputs, attrs,
+    exact) of 14a: the nested ops, print, the five ops' ragged inputs
+    and sign, on CPU tensors from `rs`."""
+    import torch
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+
+    def rag(lengths, width, outer=None, pad=3, ints=None):
+        total = int(sum(lengths))
+        vals = (rs.randint(0, ints, size=(total + pad, width)) if ints
+                else rs.randn(total + pad, width)).astype(
+                    np.int32 if ints else np.float32)
+        vals[total:] = ints - 1 if ints else 1e4
+        splits = ([outer] if outer else []) + [np.cumsum([0] + lengths)]
+        return RaggedTensor(torch.from_numpy(vals),
+                            [torch.tensor(sp, dtype=torch.int32)
+                             for sp in splits], nvalid=total, max_seqlen=8)
+
+    ref = RaggedTensor(torch.zeros(5, 1),
+                       [torch.tensor([0, 2, 2, 5], dtype=torch.int32)])
+    x, y = rag([2, 0, 3, 1], 3), rag([2, 0, 3, 1], 3)
+    ids = rag([2, 0, 3, 1], 2, ints=4)
+    label = torch.from_numpy(rs.randint(0, 4, size=(9, 1)).astype(np.int32))
+    red = [("reduce_sum", {"dim": 0}, False),
+           ("reduce_mean", {"reduce_all": True}, False),
+           ("reduce_max", {"dim": 0, "keep_dim": True}, True),
+           ("reduce_min", {"dim": 1, "keep_dim": True}, True)]
+    return [
+        ("seq_unnest", "seq_unnest",
+         {"X": [("x", rag([2, 1, 3, 1, 2], 3, outer=[0, 2, 2, 5]))]},
+         {"Inner": ["i"], "OuterRef": ["r"]}, {}, True),
+        ("seq_outer_expand", "seq_outer_expand",
+         {"X": [("x", torch.from_numpy(rs.randn(3, 4).astype(np.float32)))],
+          "OuterRef": [("r", ref)]}, {"Out": ["o"]}, {}, True),
+        ("seq_renest dense", "seq_renest",
+         {"X": [("x", torch.from_numpy(rs.randn(5, 3).astype(np.float32)))],
+          "OuterRef": [("r", ref)]}, {"Out": ["o"]}, {}, True),
+        ("seq_renest ragged", "seq_renest",
+         {"X": [("x", rag([2, 1, 3, 1, 2], 3))], "OuterRef": [("r", ref)]},
+         {"Out": ["o"]}, {}, True),
+        ("print", "print", {"In": [("x", x)]}, {"Out": ["o"]},
+         {"message": "v2: the print op on the card:", "summarize": 4}, True),
+        ("concat", "concat", {"X": [("x", x), ("y", y)]}, {"Out": ["o"]},
+         {"axis": 1}, True),
+        ("increment", "increment", {"X": [("x", x)]}, {"Out": ["o"]},
+         {"step": 2.0}, True),
+    ] + [(op, op, {"X": [("x", x)]}, {"Out": ["o"]}, attrs, exact)
+         for op, attrs, exact in red] + [
+        ("dropout", "dropout", {"X": [("x", x)]},
+         {"Out": ["o"], "Mask": ["m"]},
+         {"dropout_prob": 0.3, "is_test": True}, True),
+        ("accuracy", "accuracy",
+         {"Out": [("o", ids.values.float())], "Indices": [("i", ids)],
+          "Label": [("l", label)]},
+         {"Accuracy": ["a"], "Correct": ["c"], "Total": ["t"]}, {}, True),
+        ("sign", "sign", {"X": [("x", x)]}, {"Out": ["o"]}, {}, True),
+    ]
+
+
+def v2_beam_inputs(rs, steps=4, n_src=3, beam=3, cands=4):
+    """(beam_search's inputs of the reference test, the per-step
+    selections of `steps` seeded beam_search calls on the CPU): the
+    latter feed beam_search_decode."""
+    import torch
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+    from paddle_tpu_torch.ops.registry import get_op_info
+
+    def two(vals, lod0, lod1):
+        return RaggedTensor(torch.from_numpy(np.asarray(vals)),
+                            [torch.tensor(lod0, dtype=torch.int32),
+                             torch.tensor(lod1, dtype=torch.int32)])
+
+    lod = ([0, 2, 4], [0, 1, 2, 3, 4])
+    first = {"pre_ids": [two(np.asarray([[1], [2], [0], [4]], np.int32),
+                             *lod)],
+             "ids": [two(np.asarray([[4, 2, 5], [2, 1, 3], [3, 5, 2],
+                                     [8, 2, 1]], np.int32), *lod)],
+             "scores": [two(np.asarray([[.5, .3, .2], [.6, .3, .1],
+                                        [.9, .5, .1], [.7, .5, .1]],
+                                       np.float32), *lod)]}
+    kernel = get_op_info("beam_search").kernel
+    lod0, lod1 = np.arange(n_src + 1), np.arange(n_src + 1)
+    pre = np.zeros((n_src, 1), np.int32)
+    sel = []
+    for _ in range(steps):
+        rows = int(lod1[-1])
+        out = kernel(None, {
+            "pre_ids": [two(pre, lod0, lod1)],
+            "ids": [two(rs.randint(2, 20, size=(rows, cands)).astype(
+                np.int32), lod0, lod1)],
+            "scores": [two(rs.rand(rows, cands).astype(np.float32), lod0,
+                           lod1)]}, {"beam_size": beam, "end_id": 1})
+        ids, scores = out["selected_ids"][0], out["selected_scores"][0]
+        sel.append((ids, scores))
+        lod0 = ids.row_splits[1][ids.row_splits[0].long()].numpy()
+        lod1 = np.arange(int(ids.row_splits[1][-1]) + 1)
+        pre = ids.values.numpy()
+    return first, sel
+
+
+def v2_ops(device):
+    """14a: each new op on the card against the CPU plain path; the
+    nested gather's generic grad too; the beam ops on the reference
+    test's inputs and on 4 seeded steps of 3 sources."""
+    import torch
+    from paddle_tpu_torch.ops.registry import get_op_info, like, values_of
+
+    rs = np.random.RandomState(SEED)
+    worst = {}
+    for tag, op, ins, outs, attrs, exact in v2_op_cases(rs):
+        ref = book_run_op(op, ins, outs, attrs, torch.device("cpu"))
+        got = book_run_op(op, ins, outs, attrs, device)
+        err = book_compare(tag, got, ref)
+        if err > (0.0 if exact else V2_OP_RTOL):
+            raise SystemExit("chip_smoke: %s on the card differs from the "
+                             "CPU by %.3g" % (tag, err))
+        worst[tag] = err
+        if op in ("seq_outer_expand", "dropout"):
+            o = ref["o"]
+            og = torch.from_numpy(rs.randn(*values_of(o).shape).astype(
+                np.float32))
+            gins = book_grad_ins(ins, outs, {"Out": like(o, og)}, ref)
+            if op == "dropout":
+                gins["O@Mask"] = [("m", torch.from_numpy(
+                    (rs.rand(*ref["m"].shape) > 0.3).astype(np.float32)))]
+            gouts = {"X@GRAD": ["x@GRAD"]}
+            gattrs = dict(attrs, is_test=False)
+            err = book_compare(tag + " grad", book_run_op(
+                op + "_grad", gins, gouts, gattrs, device), book_run_op(
+                op + "_grad", gins, gouts, gattrs, torch.device("cpu")))
+            if err > V2_OP_RTOL:
+                raise SystemExit("chip_smoke: %s's grad on the card differs "
+                                 "from the CPU by %.3g" % (tag, err))
+            worst[tag + " grad"] = err
+
+    def on(v, dev):
+        return [x.to(dev) for x in v] if isinstance(v, list) else v.to(dev)
+
+    first, sel = v2_beam_inputs(rs)
+    decode_ins = {"Ids": [[i for i, _ in sel]], "Scores": [[s for _, s in
+                                                           sel]]}
+    for op, ins in (("beam_search", first), ("beam_search_decode",
+                                             decode_ins)):
+        kernel = get_op_info(op).kernel
+        attrs = {"beam_size": 2, "end_id": 0}
+        ref = kernel(None, {k: [on(v, "cpu") for v in vs]
+                            for k, vs in ins.items()}, attrs)
+        got = kernel(None, {k: [on(v, device) for v in vs]
+                            for k, vs in ins.items()}, attrs)
+        for slot in ref:
+            if got[slot][0].values.device.type != "cuda":
+                raise SystemExit("chip_smoke: %s's %s is not on the card"
+                                 % (op, slot))
+            if book_compare(op, {slot: got[slot][0]},
+                            {slot: ref[slot][0]}) != 0.0:
+                raise SystemExit("chip_smoke: %s's %s differs on the card"
+                                 % (op, slot))
+        worst[op] = 0.0
+    print("v2: 14a, each new op on the card against the CPU plain path, "
+          "largest error of its size: %s (gate: exact, sums and means %g)"
+          % (", ".join("%s %.3g" % kv for kv in worst.items()), V2_OP_RTOL),
+          flush=True)
+
+
+def v2_fit_a_line(smi):
+    """14b: tests/test_v2_api.py's fit-a-line through v2's SGD.train on
+    the card: 12 passes of the shuffled uci_housing reader at batch 20,
+    the cost must fall; then test() and infer()."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.v2 as v2
+
+    t0 = time.perf_counter()
+    with v2_program(v2, True):
+        x = v2.layer.data(name="x", type=v2.data_type.dense_vector(13))
+        pred = v2.layer.fc(input=x, size=1, act=v2.activation.Linear())
+        y = v2.layer.data(name="y", type=v2.data_type.dense_vector(1))
+        cost = v2.layer.square_error_cost(input=pred, label=y)
+        params = v2.parameters.create(cost)
+        trainer = v2.trainer.SGD(
+            cost=cost, parameters=params,
+            update_equation=v2.optimizer.Momentum(momentum=0.9,
+                                                  learning_rate=1e-3))
+        costs = []
+        trainer.train(reader=v2.batch(v2.reader.shuffle(
+            paddle.dataset.uci_housing.train(), buf_size=500),
+            batch_size=20), num_passes=12, feeding={"x": 0, "y": 1},
+            event_handler=lambda e: costs.append(e.cost) if isinstance(
+                e, v2.event.EndIteration) else None)
+        test = trainer.test(reader=v2.batch(
+            paddle.dataset.uci_housing.test(), batch_size=20),
+            feeding={"x": 0, "y": 1})
+        data = [(s[0],) for s in paddle.dataset.uci_housing.test()()][:8]
+        out = v2.infer(output_layer=pred, parameters=params, input=data,
+                       feeding={"x": 0, "y": 1})
+    print("v2: 14b fit-a-line through v2.trainer.SGD on the card: %d steps,"
+          " cost %.6f -> %.6f, test cost %.6f, infer %s finite; %.1f s [%s]"
+          % (len(costs), costs[0], costs[-1], test.cost, out.shape,
+             time.perf_counter() - t0, smi), flush=True)
+    if not costs[-1] < costs[0] or not np.isfinite(out).all():
+        raise SystemExit("chip_smoke: v2 fit-a-line did not learn")
+
+
+def nmt_batches(n, batch=NMT_BATCH):
+    """The first n batches of the port's wmt14 reader at dict 30,000."""
+    import paddle_tpu_torch as paddle
+
+    rows = []
+    for sample in paddle.dataset.wmt14.train(NMT_DICT)():
+        rows.append(sample)
+        if len(rows) == n * batch:
+            break
+    return [rows[k * batch:(k + 1) * batch] for k in range(n)]
+
+
+def sync_count(fn):
+    """(count, {"file:line": count}) of the synchronizing CUDA calls
+    fn() makes, counted by PyTorch's sync debug mode (one warning each,
+    at the Python line that made the call)."""
+    import warnings
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = collections.Counter(
+        "%s:%d" % (os.path.relpath(w.filename), w.lineno) for w in caught
+        if "synchroniz" in str(w.message))
+    return sum(where.values()), dict(where)
+
+
+def nmt_train(exe, smi):
+    """14c: the book's attention NMT at full width, trained through v2's
+    SGD on the card.  Returns (the launches of its 2 checked steps, the
+    card's state after them, the parameter names, the program)."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    import paddle_tpu_torch.v2 as v2
+
+    t0 = time.perf_counter()
+    with v2_program(v2, True) as (main, startup, scope):
+        cost = build_nmt(v2)
+        params = v2.parameters.create(cost)
+        trainer = v2.trainer.SGD(
+            cost=cost, parameters=params,
+            update_equation=v2.optimizer.Adam(
+                learning_rate=NMT_LR, regularization_rate=NMT_L2))
+        block = main.desc.block(0)
+        counts = collections.Counter(op.type for op in block.ops)
+        pnames = [p.name for p in main.global_block().all_parameters()]
+        n_values = sum(int(np.prod(block.vars[n].shape)) for n in pnames)
+        persist = [n for n, vd in block.vars.items() if vd.persistable]
+        init = {n: scope.get(n).cpu().numpy() for n in persist}
+        print("v2: 14c NMT (the book's seq_to_seq_net at dict %d, %d wide): "
+              "main %d ops in %d blocks (%d + %d), %d parameters, %d values "
+              "(%.3f M), %d persistables; built and started in %.1f s"
+              % (NMT_DICT, NMT_WORD, len(block.ops) + len(
+                  main.desc.block(1).ops), len(main.desc.blocks),
+                 len(block.ops), len(main.desc.block(1).ops), len(pnames),
+                 n_values, n_values / 1e6, len(persist),
+                 time.perf_counter() - t0), flush=True)
+        if counts["recurrent"] != 1 or counts["adam"] != len(pnames):
+            raise SystemExit("chip_smoke: the NMT program is not the one "
+                             "held against the JAX package")
+        batches = nmt_batches(3)
+        rows = [sum(len(s[2]) for s in b) for b in batches]
+        card = []
+        reset_launches()
+        t1 = time.perf_counter()
+        trainer.train(reader=lambda: iter(batches[:2]),
+                      event_handler=lambda e: card.append(e.cost)
+                      if isinstance(e, v2.event.EndIteration) else None)
+        torch.cuda.synchronize()
+        gsecs = time.perf_counter() - t1
+        launches = read_launches()
+        after = {n: scope.get(n).cpu().numpy() for n in persist}
+    fvars = [main.global_block().var(n) for n in (
+        "source_language_word", "target_language_word",
+        "target_language_next_word")]
+    cpu_feeds = book_feeds(main, fvars, batches)
+    cpu, cpu_state, csecs = run_from_state(
+        fluid.Executor(fluid.CPUPlace()), main, cost, init, cpu_feeds[:2])
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(card, cpu))
+    groups = {"parameters": pnames,
+              "moments": [n for n in persist if "_moment" in n]}
+    errs = {g: change_rl2(after, cpu_state, init, names)
+            for g, names in groups.items()}
+    print("v2: NMT 2 Adam steps at batch %d (%d and %d target rows) from "
+          "one state: v2 SGD.train on the card (%.1f s) costs %s; the CPU "
+          "plain path (%.1f s) %s; loss error %.3g of its size (gate %g); "
+          "the steps' change, relative L2 error: %s (gate %g); hand-written "
+          "kernel launches %s"
+          % (NMT_BATCH, rows[0], rows[1], gsecs, ", ".join(
+              "%.6f" % c for c in card), csecs, ", ".join(
+              "%.6f" % c for c in cpu), loss_err, NMT_LOSS_RTOL, ", ".join(
+              "%s %.3g" % kv for kv in errs.items()), NMT_CHANGE_RL2,
+             json.dumps(launches)), flush=True)
+    if loss_err > NMT_LOSS_RTOL or max(errs.values()) > NMT_CHANGE_RL2 \
+            or not all(np.isfinite(v).all() for v in after.values()):
+        raise SystemExit("chip_smoke: the NMT steps on the card disagree "
+                         "with the CPU plain path")
+
+    dev_feeds = book_feeds(main, fvars, batches, exe.device)
+    state = {n: torch.from_numpy(v).to(exe.device) for n, v in init.items()}
+    repeat_gate("v2: NMT", exe, main, dev_feeds[0], state)
+    del state
+    scope = params_scope(init, exe.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in dev_feeds:
+        exe.run(main, feed=f, fetch_list=[cost], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    def step():
+        return exe.run(main, feed=dev_feeds[0], fetch_list=[cost],
+                       scope=scope, return_numpy=False)
+
+    syncs = sync_count(step)
+    with fluid.scope_guard(scope):
+        sgd_syncs = sync_count(lambda: trainer.train(
+            reader=lambda: iter(batches[:1])))
+    times = timed_steps(step)
+    med = float(np.median(times))
+    print("v2: NMT batch %d: step %.3f ms (median of 10 after 2 warm, feeds "
+          "on the card; mean %.3f, min %.3f, max %.3f), %.1f target "
+          "tokens/s (%d target rows), %.1f sentence pairs/s; peak memory "
+          "of 3 steps %.3f GB; synchronizing calls: %d in an executor step "
+          "(the cost left on the card; %s), %d in one SGD.train step "
+          "(feeding from the host and fetching the cost; %s) [%s]"
+          % (NMT_BATCH, med, np.mean(times), min(times), max(times),
+             rows[0] / med * 1e3, rows[0], NMT_BATCH / med * 1e3,
+             peak / 1e9, syncs[0], json.dumps(syncs[1]), sgd_syncs[0],
+             json.dumps(sgd_syncs[1]), smi), flush=True)
+    profile_step(step, set(counts) | set(
+        op.type for op in main.desc.block(1).ops), 0, med,
+        what="one NMT step at batch %d" % NMT_BATCH)
+    del scope
+    torch.cuda.empty_cache()
+    return launches, after, pnames, main
+
+
+def nmt_generate(state, pnames, main, smi):
+    """14d: beam 3 to at most 250 tokens on the card and on the CPU from
+    one decode state (`nmt_decode_state` over the trained `state` of
+    the training program `main`),
+    through v2.infer on a generation topology built in a fresh program:
+    ids equal, scores within NMT_SCORE_ATOL; ms per generated token."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    import paddle_tpu_torch.v2 as v2
+
+    dstate = nmt_decode_state({n: state[n] for n in pnames}, main)
+    sources = [(s[0],) for s in nmt_batches(1, NMT_GEN_BATCH)[0]]
+    res = {}
+    for use_gpu in (False, True):
+        dev = "cuda" if use_gpu else "cpu"
+        place = fluid.CUDAPlace(0) if use_gpu else fluid.CPUPlace()
+        with v2_program(v2, use_gpu, scope=params_scope(dstate,
+                                                        place.device())):
+            beam = build_nmt(v2, generating=True)
+            inference = v2.inference.Inference(beam)
+            # on the card the second of two runs is timed: the first
+            # meets each shape's first launch
+            for _ in range(2 if use_gpu else 1):
+                t0 = time.perf_counter()
+                probs, ids = inference.iter_infer_field(
+                    sources, field=["prob", "id"])
+                if use_gpu:
+                    torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                if use_gpu and dev in res and res[dev][1] != ids:
+                    raise SystemExit("chip_smoke: the NMT beam differs "
+                                     "run to run on the card")
+                res[dev] = (probs, ids, secs,
+                            inference.last_stats["steps"])
+    (cprobs, cids, csecs, csteps), (gprobs, gids, gsecs, gsteps) = \
+        res["cpu"], res["cuda"]
+    err = float(np.abs(gprobs - cprobs).max())
+    seqs, cur = [], []
+    for w in gids:
+        if w == -1:
+            seqs.append(cur)
+            cur = []
+        else:
+            cur.append(w)
+    print("v2: 14d beam %d to at most %d tokens for %d sentences on the "
+          "card (the second of two runs, which gave the same ids): %d steps "
+          "in %.1f ms, %.3f ms per generated token (CPU %d steps, %.1f "
+          "ms); %d results of %s tokens, %d distinct; ids equal the CPU's: "
+          "%s; scores %s, max_abs_err %.3g (gate %g) [%s]"
+          % (NMT_BEAM, NMT_MAXLEN, len(sources), gsteps, gsecs * 1e3,
+             gsecs * 1e3 / max(gsteps, 1), csteps, csecs * 1e3, len(seqs),
+             sorted({len(s) for s in seqs}), len({tuple(s) for s in seqs}),
+             gids == cids, np.round(gprobs, 4).tolist(), err,
+             NMT_SCORE_ATOL, smi), flush=True)
+    if gids != cids or err > NMT_SCORE_ATOL or gsteps != csteps:
+        raise SystemExit("chip_smoke: the NMT beam on the card differs from "
+                         "the CPU")
+    words = {w for s in seqs for w in s[1:-1]}
+    print("v2: the NMT beam's results use %d distinct words" % len(words),
+          flush=True)
+    if len({tuple(s) for s in seqs}) < len(seqs) or len(words) < 10:
+        raise SystemExit("chip_smoke: the NMT beam decodes degenerately")
+
+
+def v2_nested(device):
+    """14e: the nested SubsequenceInput groups of
+    tests/test_v2_recurrent.py:281-380 on the card against the CPU: the
+    inner accumulation exactly, the sentence encoder's 10 SGD steps."""
+    import paddle_tpu_torch.fluid as fluid
+    import paddle_tpu_torch.v2 as v2
+
+    layer = v2.layer
+    out = []
+    seqs = [[[[1, 0], [2, 0]], [[5, 0], [1, 0], [1, 0]]], [[[7, 0]]]]
+    for use_gpu in (False, True):
+        with v2_program(v2, use_gpu) as (main, startup, scope):
+            x = layer.data(name="x",
+                           type=v2.data_type.dense_vector_sub_sequence(2))
+
+            def outer_step(sent):
+                def inner_step(w):
+                    mem = layer.memory(name="nacc", size=2)
+                    acc = layer.addto(input=[mem, w], act=None)
+                    mem.set_input(acc)
+                    return acc
+                return layer.recurrent_group(step=inner_step, input=sent)
+
+            res = layer.recurrent_group(step=outer_step,
+                                        input=layer.SubsequenceInput(x))
+            place = v2.config._place()
+            feed = fluid.DataFeeder(feed_list=[x], place=place).feed(
+                [(s,) for s in seqs])
+            out.append(fluid.Executor(place).run(main, feed=feed,
+                                                 fetch_list=[res])[0])
+    (gv, glod), (cv, clod) = ctc_host(out[1]), ctc_host(out[0])
+    if glod != clod or not np.array_equal(gv, cv):
+        raise SystemExit("chip_smoke: the nested group differs on the card")
+
+    rs = np.random.RandomState(SEED)
+    docs = [[rs.rand(rs.randint(2, 5), 4).tolist()
+             for _ in range(rs.randint(1, 4))] for _ in range(6)]
+    rows = list(zip(docs, [rs.rand(4).tolist() for _ in range(6)],
+                    [[float(len(d))] for d in docs]))
+    with v2_program(v2, True) as (main, startup, _):
+        words = layer.data(name="words",
+                           type=v2.data_type.dense_vector_sub_sequence(4))
+        glob = layer.data(name="glob", type=v2.data_type.dense_vector(4))
+        label = layer.data(name="label", type=v2.data_type.dense_vector(1))
+
+        def encode_sentence(sent, g):
+            h = layer.fc(input=sent, size=6, act=v2.activation.Tanh())
+            return layer.addto(input=[layer.last_seq(input=h),
+                                      layer.fc(input=g, size=6)], act=None)
+
+        sent_seq = layer.recurrent_group(
+            step=encode_sentence,
+            input=[layer.SubsequenceInput(words), layer.StaticInput(glob)])
+        pred = layer.fc(input=layer.last_seq(input=sent_seq), size=1)
+        cost = layer.mse_cost(input=pred, label=label)
+        fluid.optimizer.SGD(learning_rate=0.05).minimize(cost)
+    init = book_state(fluid.Executor(fluid.CPUPlace()), startup, main)
+    feeds = book_feeds(main, [main.global_block().var(n) for n in (
+        "words", "glob", "label")], [rows] * 10)
+    losses = [run_from_state(ex, main, cost, init, feeds)[0] for ex in (
+        fluid.Executor(fluid.CPUPlace()), fluid.Executor(fluid.CUDAPlace(0)))]
+    err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(*losses[::-1]))
+    print("v2: 14e nested SubsequenceInput groups on the card: the inner "
+          "accumulation %s with lod %s, equal to the CPU's; the sentence "
+          "encoder's 10 SGD steps %.6f -> %.6f, loss error %.3g of its size "
+          "(gate %g)"
+          % (gv.tolist(), glod, losses[1][0], losses[1][-1], err,
+             NMT_LOSS_RTOL), flush=True)
+    if err > NMT_LOSS_RTOL or not losses[1][-1] < losses[1][0]:
+        raise SystemExit("chip_smoke: the nested encoder differs on the "
+                         "card")
+
+
+def phase_v2():
+    """The v2 API and the book's attention NMT (phase 14): the new ops on
+    the card (14a), v2 fit-a-line (14b), the NMT trained at full width
+    (14c) and beam-generated (14d), the nested groups (14e).  Returns the
+    launch counts of the NMT's checked steps (no hand-written kernel
+    runs here)."""
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    smi = nvidia_smi_line()
+    v2_ops(exe.device)
+    v2_fit_a_line(smi)
+    launches, state, pnames, main = nmt_train(exe, smi)
+    nmt_generate(state, pnames, main, smi)
+    v2_nested(exe.device)
+    print("v2: phase 14 in %.1f s" % (time.perf_counter() - t0), flush=True)
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -5756,21 +6437,24 @@ def main():
     seq2seq_launches = phase_seq2seq()
     book_launches = phase_book()
     ctc_launches = phase_ctc()
+    v2_launches = phase_v2()
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
     # ResNet-50, the image models, the lstm, the ctr model, the seq2seq,
-    # the book's chapters and CRNN-CTC run no hand-written kernel: conv2d
-    # is cuDNN, the products cuBLAS and the rest ATen (the sparse updates
-    # a segment reduction and `index_add`, the recurrences, the CRF and
-    # the CTC loops of ATen ops), as the JAX package leaves them to XLA
+    # the book's chapters, CRNN-CTC and the v2 NMT run no hand-written
+    # kernel: conv2d is cuDNN, the products cuBLAS and the rest ATen (the
+    # sparse updates a segment reduction and `index_add`, the
+    # recurrences, the CRF and the CTC loops of ATen ops), as the JAX
+    # package leaves them to XLA
     for what, got in (("ResNet-50", resnet_launches),
                       ("the image models", image_launches),
                       ("the lstm", sequence_launches),
                       ("the ctr model", ctr_launches),
                       ("the seq2seq", seq2seq_launches),
                       ("the book's chapters", book_launches),
-                      ("CRNN-CTC", ctc_launches)):
+                      ("CRNN-CTC", ctc_launches),
+                      ("the v2 NMT", v2_launches)):
         if any(got.values()):
             raise SystemExit("chip_smoke: %s launched %s"
                              % (what, json.dumps(got)))
@@ -5787,7 +6471,8 @@ def main():
         total = sum(c.get(name, 0) for c in (
             launches, train_launches, wide_launches, resnet_launches,
             decode_launches, image_launches, sequence_launches,
-            ctr_launches, seq2seq_launches, book_launches, ctc_launches))
+            ctr_launches, seq2seq_launches, book_launches, ctc_launches,
+            v2_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

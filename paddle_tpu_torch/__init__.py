@@ -13,7 +13,8 @@ serving.InferenceEngine, fluid.DataFeeder, reader.device_prefetch,
 fluid.checkpoint.load_checkpoint) run on the card, CUDAPlace(0), unless
 the caller passes CPUPlace(); without a CUDA device they raise instead
 of carrying on on the CPU.  As in the JAX package, `reader`, `dataset`
-and `batch` stand at the top level.
+and `batch` stand at the top level, with the v2 API (`v2`, and its
+`layer`, `image` and `infer`).
 
 Importing this package sets torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 to False, so float32 matrix products
@@ -29,5 +30,8 @@ __version__ = "0.1.0"
 
 from . import dataset, reader  # noqa: E402
 from .reader.decorator import batch  # noqa: E402
+from . import v2  # noqa: E402
+from .v2 import image, layer  # noqa: E402
+from .v2.inference import infer  # noqa: E402
 
-__all__ = ["batch", "dataset", "reader"]
+__all__ = ["batch", "dataset", "image", "infer", "layer", "reader", "v2"]

@@ -1,12 +1,12 @@
 """The fluid surface of the port: the program builder (framework,
 layers, nets, initializers, parameter attributes), places, the
 executor, the backward and the optimizers, AMP, feeding
-(`DataFeeder`), saving and loading variables, training checkpoints,
+(`DataFeeder`), weight-decay regularizers, saving and loading variables, training checkpoints,
 pruning and inference export and load, generation over a step program
 (`ProgramDecoder`), and the sparse grad value (`SelectedRows`)."""
 
 from . import (amp, backward, framework, initializer, io, layers, nets,
-               optimizer, param_attr)
+               optimizer, param_attr, regularizer)
 from .backward import append_backward
 from .executor import (CPUPlace, CUDAPlace, ExecContext, Executor, Place,
                        scope_guard)
@@ -34,4 +34,5 @@ __all__ = ["Adam", "AdamOptimizer", "CPUPlace", "CUDAPlace", "DataFeeder",
            "backward", "checkpoint", "data_feeder", "default_main_program",
            "default_startup_program", "framework", "global_scope",
            "initializer", "io", "layers", "nets", "optimizer",
-           "param_attr", "program_guard", "scope_guard", "unique_name"]
+           "param_attr", "program_guard", "regularizer", "scope_guard",
+           "unique_name"]

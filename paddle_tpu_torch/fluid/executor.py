@@ -202,9 +202,13 @@ def prepare_feed(block_desc, name, val, device):
     take the cast (int64 values on the host are range-checked first);
     its splits and `nvalid` move as they are.  A SelectedRows (a sparse
     grad fed to an update op) moves its rows and values as they are, as
-    the JAX side feeds one as is."""
+    the JAX side feeds one as is.  A list of RaggedTensors (the per-step
+    selections `beam_search_decode` reads) moves item by item."""
     if isinstance(val, SelectedRows):
         return val.to(device)
+    if isinstance(val, (list, tuple)) and val and all(
+            isinstance(v, RaggedTensor) for v in val):
+        return [prepare_feed(block_desc, name, v, device) for v in val]
     vd = block_desc.vars.get(name)
     declared = vd.dtype if vd is not None else None
     if isinstance(val, RaggedTensor):

@@ -123,10 +123,11 @@ class Variable:
 
 class Parameter(Variable):
     """A trainable persistable variable (reference: framework.py
-    Parameter): its shape is static."""
+    Parameter): its shape is static; `regularizer` is its own weight
+    decay (fluid/regularizer.py), None for the optimizer's."""
 
     def __init__(self, block, shape, dtype, trainable=True,
-                 optimize_attr=None, **kwargs):
+                 optimize_attr=None, regularizer=None, **kwargs):
         if shape is None or dtype is None:
             raise ValueError("Parameter needs shape and dtype")
         if any(d < 0 for d in shape):
@@ -137,6 +138,7 @@ class Parameter(Variable):
         self.desc.is_parameter = True
         self.trainable = trainable
         self.optimize_attr = optimize_attr or {"learning_rate": 1.0}
+        self.regularizer = regularizer
 
 
 class Operator:
@@ -301,6 +303,7 @@ class Program:
                     param.block, param.desc = b, vd
                     param.trainable = True
                     param.optimize_attr = {"learning_rate": 1.0}
+                    param.regularizer = None
                     b.vars[name] = param
             b.sync_with_desc()
         return p
@@ -355,6 +358,7 @@ class Program:
                 pv = p.global_block().vars[name]
                 pv.trainable = var.trainable
                 pv.optimize_attr = var.optimize_attr
+                pv.regularizer = var.regularizer
         if for_test:
             for b in p.desc.blocks:
                 for op in b.ops:

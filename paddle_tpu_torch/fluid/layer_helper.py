@@ -24,6 +24,7 @@ def _broadcast_attrs(attr, n):
         a = attrs[0]
         return attrs + [ParamAttr(initializer=a.initializer,
                                   learning_rate=a.learning_rate,
+                                  regularizer=a.regularizer,
                                   trainable=a.trainable)
                         for _ in range(n - 1)]
     raise ValueError("got %d param_attr entries for %d inputs"

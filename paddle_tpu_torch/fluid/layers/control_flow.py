@@ -16,7 +16,8 @@ memories freeze past each sequence's end and the step outputs become
 ragged again (`dense_to_sequence`).  `While.block()` and
 `ConditionalBlock.block()` build a sub-block the same way and append
 one `while` or `conditional_block` op whose `X` are the block's reads
-from outside and whose outputs are the outer vars it writes.  `IfElse`
+from outside and whose outputs are the outer vars it writes.  `Print`
+forwards a var through the `print` op.  `IfElse`
 builds no sub-block: it splits its inputs by rows, runs both branches'
 ops in the current block and merges their outputs.  The descs equal
 the JAX package's.
@@ -35,7 +36,7 @@ __all__ = [
     "array_write", "array_read", "array_length", "create_array",
     "max_sequence_len", "lod_rank_table", "lod_tensor_to_array",
     "array_to_lod_tensor", "shrink_memory", "reorder_lod_tensor_by_rank",
-    "split_lod_tensor", "merge_lod_tensor", "IfElse", "equal",
+    "split_lod_tensor", "merge_lod_tensor", "IfElse", "equal", "Print",
 ]
 
 
@@ -512,6 +513,26 @@ def merge_lod_tensor(in_true, in_false, x, mask, level=0, **kwargs):
                      inputs={"X": [x], "Mask": [mask], "InTrue": [in_true],
                              "InFalse": [in_false]},
                      outputs={"Out": [out]}, attrs={"level": level},
+                     infer_shape=False)
+    return out
+
+
+def Print(input, first_n=-1, message=None, summarize=-1,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both", **kwargs):
+    """The `print` op over `input`: prints it as it flows and forwards
+    it unchanged (reference: print_op.cc)."""
+    helper = LayerHelper("print", **kwargs)
+    out = helper.create_tmp_variable(dtype=input.dtype,
+                                     lod_level=input.lod_level)
+    helper.append_op(type="print", inputs={"In": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"first_n": first_n,
+                            "message": message or "",
+                            "summarize": summarize,
+                            "print_tensor_name": print_tensor_name,
+                            "print_phase": print_phase},
                      infer_shape=False)
     return out
 

@@ -27,7 +27,8 @@ __all__ = [
     "sequence_slice", "lod_reset", "sequence_conv", "sequence_reverse",
     "sequence_expand", "sequence_reshape", "row_conv", "linear_chain_crf",
     "crf_decoding", "chunk_eval", "topk", "im2sequence", "warpctc",
-    "ctc_greedy_decoder", "edit_distance",
+    "ctc_greedy_decoder", "edit_distance", "sequence_unnest",
+    "sequence_renest", "beam_search", "beam_search_decode",
 ]
 
 
@@ -630,6 +631,76 @@ def sequence_expand(x, y, **kwargs):
     helper.append_op(type="sequence_expand",
                      inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]})
     return out
+
+
+def sequence_unnest(x, **kwargs):
+    """A nested (lod-level-2) sequence's outer level flattened into the
+    batch: (inner, outer_ref), `inner` the lod-1 batch of every
+    subsequence and `outer_ref` the outer splits, for `sequence_renest`
+    (the flattened form of the reference's nested-sequence mode)."""
+    helper = LayerHelper("sequence_unnest", input=x, **kwargs)
+    inner = helper.create_tmp_variable(x.dtype, lod_level=1)
+    outer_ref = helper.create_tmp_variable("float32", lod_level=1)
+    helper.append_op(type="seq_unnest", inputs={"X": [x]},
+                     outputs={"Inner": [inner], "OuterRef": [outer_ref]})
+    return inner, outer_ref
+
+
+def sequence_renest(x, outer_ref, **kwargs):
+    """The outer splits `sequence_unnest` dropped, put back: dense rows,
+    one per subsequence, become a lod-1 sequence over the samples; a
+    lod-1 x becomes the lod-2 nested sequence."""
+    helper = LayerHelper("sequence_renest", input=x, **kwargs)
+    out = helper.create_tmp_variable(x.dtype,
+                                     lod_level=2 if x.lod_level else 1)
+    helper.append_op(type="seq_renest",
+                     inputs={"X": [x], "OuterRef": [outer_ref]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def beam_search(pre_ids, ids, scores, beam_size, end_id, level=0,
+                **kwargs):
+    """One beam step: each source's `beam_size` best candidates
+    (reference: layers/nn.py beam_search over beam_search_op.cc)."""
+    helper = LayerHelper("beam_search", **kwargs)
+    selected_ids = helper.create_tmp_variable(dtype="int64",
+                                              stop_gradient=True,
+                                              lod_level=2)
+    selected_scores = helper.create_tmp_variable(dtype="float32",
+                                                 stop_gradient=True,
+                                                 lod_level=2)
+    helper.append_op(
+        type="beam_search",
+        inputs={"pre_ids": [pre_ids], "ids": [ids], "scores": [scores]},
+        outputs={"selected_ids": [selected_ids],
+                 "selected_scores": [selected_scores]},
+        attrs={"beam_size": beam_size, "end_id": end_id, "level": level},
+        infer_shape=False)
+    return selected_ids, selected_scores
+
+
+def beam_search_decode(ids, scores, **kwargs):
+    """The per-step beam selections traced back into hypotheses
+    (reference: beam_search_decode_op.cc); ids and scores are the
+    per-step selections' vars (or one var each holding their list)."""
+    helper = LayerHelper("beam_search_decode", **kwargs)
+    sentence_ids = helper.create_tmp_variable(dtype="int64",
+                                              stop_gradient=True,
+                                              lod_level=2)
+    sentence_scores = helper.create_tmp_variable(dtype="float32",
+                                                 stop_gradient=True,
+                                                 lod_level=2)
+    helper.append_op(
+        type="beam_search_decode",
+        inputs={"Ids": list(ids) if isinstance(ids, (list, tuple))
+                else [ids],
+                "Scores": list(scores) if isinstance(scores, (list, tuple))
+                else [scores]},
+        outputs={"SentenceIds": [sentence_ids],
+                 "SentenceScores": [sentence_scores]},
+        infer_shape=False)
+    return sentence_ids, sentence_scores
 
 
 def sequence_reshape(input, new_dim, **kwargs):

@@ -2,8 +2,8 @@
 
 Counterpart of paddle_tpu/fluid/layers/ops.py (reference:
 layers/ops.py, generated from the OpProtos): one layer per activation op
-the port registers (ops/activation.py), `mean`, `scale` and the
-`elementwise_*` family.
+the port registers (ops/activation.py), `mean`, `scale`, `sign` and
+the `elementwise_*` family.
 """
 
 from ...ops.activation import UNARY
@@ -11,7 +11,7 @@ from ..layer_helper import LayerHelper
 
 __act_ops__ = sorted(UNARY)
 
-__all__ = __act_ops__ + ["mean", "scale"]
+__all__ = __act_ops__ + ["mean", "scale", "sign"]
 
 
 def _make_unary(op_type):
@@ -30,7 +30,7 @@ def _make_unary(op_type):
     return layer
 
 
-for _op in __act_ops__:
+for _op in __act_ops__ + ["sign"]:
     globals()[_op] = _make_unary(_op)
 
 

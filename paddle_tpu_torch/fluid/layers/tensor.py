@@ -41,8 +41,9 @@ def cast(x, dtype, **kwargs):
 
 
 def concat(input, axis=0, **kwargs):
-    """The inputs joined along `axis` (dense; ragged inputs wait with
-    ROADMAP A7).  The output's dtype is inferred, as on the JAX side."""
+    """The inputs joined along `axis` (ragged inputs along a feature
+    axis stay ragged).  The output's dtype is inferred, as on the JAX
+    side."""
     helper = LayerHelper("concat", **kwargs)
     out = helper.create_tmp_variable(helper.input_dtype)
     helper.append_op(type="concat", inputs={"X": input},

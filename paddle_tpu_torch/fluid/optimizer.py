@@ -19,9 +19,12 @@ LearningRate input, though the program still declares
 declared in the main and startup programs and initialised by a
 `fill_constant` in the startup, so both programs equal the JAX
 package's (with `fuse_optimizer` off, its default) through `to_dict()`.
-A sparse (SelectedRows) grad goes to the update op as it is.  The
-constructors' `regularization` and `global_step` arguments, clipping
-and fused updates wait with ROADMAP A5.
+A sparse (SelectedRows) grad goes to the update op as it is.  Every
+constructor takes `regularization` (fluid/regularizer.py: its ops are
+appended to the sorted grads before the updates, a parameter's own
+`regularizer` first) and `global_step` (a var one `increment` op
+advances after the updates).  Clipping and fused updates wait with
+ROADMAP A5.
 """
 
 from collections import namedtuple
@@ -30,6 +33,7 @@ from .backward import append_backward
 from .framework import Program, Variable, unique_name
 from .initializer import Constant
 from .layer_helper import LayerHelper
+from .regularizer import append_regularization_ops
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "MomentumOptimizer", "Adagrad", "AdagradOptimizer", "Adam",
@@ -55,10 +59,12 @@ class Optimizer:
     shared_scalars = ()
     uses_lr = True  # adadelta's rule derives its step size from state
 
-    def __init__(self, learning_rate):
+    def __init__(self, learning_rate, regularization=None, global_step=None):
         if not isinstance(learning_rate, (float, Variable)):
             raise TypeError("learning_rate should be float or Variable")
         self._learning_rate = learning_rate
+        self.regularization = regularization
+        self._global_step = global_step
 
     def _hyper_attrs(self):
         return {}
@@ -132,6 +138,11 @@ class Optimizer:
             block.append_op(type="scale", inputs={"X": [var]},
                             outputs={"Out": [var]},
                             attrs={"scale": spec.step_factor})
+        if self._global_step is not None:
+            from .layers import tensor as tensor_layers
+
+            tensor_layers.increment(self._global_step, value=1.0,
+                                    in_place=True)
         return ops
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
@@ -153,6 +164,8 @@ class Optimizer:
         params_grads = sorted(
             append_backward(loss, parameter_list, no_grad_set),
             key=lambda pg: pg[0].name)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
         return self.create_optimization_pass(params_grads, loss,
                                              startup_program), params_grads
 
@@ -165,8 +178,9 @@ class MomentumOptimizer(Optimizer):
     op_type = "momentum"
     state_slots = (StateSlot("velocity", "Velocity", "VelocityOut", 0.0),)
 
-    def __init__(self, learning_rate, momentum, use_nesterov=False):
-        super().__init__(learning_rate)
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
 
@@ -178,8 +192,8 @@ class AdagradOptimizer(Optimizer):
     op_type = "adagrad"
     state_slots = (StateSlot("moment", "Moment", "MomentOut", 0.0),)
 
-    def __init__(self, learning_rate, epsilon=1e-6):
-        super().__init__(learning_rate)
+    def __init__(self, learning_rate, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
         self._epsilon = epsilon
 
     def _hyper_attrs(self):
@@ -192,8 +206,8 @@ class AdamOptimizer(Optimizer):
                    StateSlot("moment2", "Moment2", "Moment2Out", 0.0))
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8):
-        super().__init__(learning_rate)
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -212,8 +226,8 @@ class AdamaxOptimizer(Optimizer):
                    StateSlot("inf_norm", "InfNorm", "InfNormOut", 0.0))
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8):
-        super().__init__(learning_rate)
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -229,8 +243,8 @@ class DecayedAdagradOptimizer(Optimizer):
     op_type = "decayed_adagrad"
     state_slots = (StateSlot("moment", "Moment", "MomentOut", 0.0),)
 
-    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6):
-        super().__init__(learning_rate)
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
         self._decay = decay
         self._epsilon = epsilon
 
@@ -247,8 +261,9 @@ class AdadeltaOptimizer(Optimizer):
         StateSlot("avg_squared_update", "AvgSquaredUpdate",
                   "AvgSquaredUpdateOut", 0.0))
 
-    def __init__(self, learning_rate=1.0, epsilon=1e-6, rho=0.95):
-        super().__init__(learning_rate)
+    def __init__(self, learning_rate=1.0, epsilon=1e-6, rho=0.95,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
         self._epsilon = epsilon
         self._rho = rho
 
@@ -263,8 +278,8 @@ class RMSPropOptimizer(Optimizer):
                    StateSlot("moment", "Moment", "MomentOut", 0.0))
 
     def __init__(self, learning_rate, decay=0.9, epsilon=1e-6,
-                 momentum=0.0):
-        super().__init__(learning_rate)
+                 momentum=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
         self._decay = decay
         self._epsilon = epsilon
         self._momentum = momentum
@@ -281,8 +296,9 @@ class FtrlOptimizer(Optimizer):
                    StateSlot("linear", "LinearAccumulator",
                              "LinearAccumOut", 0.0))
 
-    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5):
-        super().__init__(learning_rate)
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
         self._l1 = l1
         self._l2 = l2
         self._lr_power = lr_power

@@ -2,8 +2,9 @@
 
 Counterpart of paddle_tpu/fluid/param_attr.py (reference:
 python/paddle/v2/fluid/param_attr.py): a name, an initializer, a
-learning-rate scale and `trainable`.  Regularizers and gradient clips
-wait with their optimizer passes (ROADMAP A).
+learning-rate scale, a regularizer (fluid/regularizer.py; it overrides
+the optimizer's `regularization` for this parameter) and `trainable`.
+Gradient clips wait with `clip.py` (ROADMAP A5).
 """
 
 from .initializer import Constant, Initializer, Xavier
@@ -13,10 +14,11 @@ __all__ = ["ParamAttr"]
 
 class ParamAttr:
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
-                 trainable=True):
+                 regularizer=None, trainable=True):
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate
+        self.regularizer = regularizer
         self.trainable = trainable
 
     def set_default_initializer(self, initializer):
@@ -50,4 +52,5 @@ class ParamAttr:
     def to_kwargs(self):
         return {"name": self.name,
                 "optimize_attr": {"learning_rate": self.learning_rate},
+                "regularizer": self.regularizer,
                 "trainable": self.trainable}

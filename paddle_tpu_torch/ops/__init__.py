@@ -17,3 +17,5 @@ from . import sequence  # noqa: F401
 from . import control_flow  # noqa: F401
 from . import crf  # noqa: F401
 from . import ctc  # noqa: F401
+from . import io_ops  # noqa: F401
+from . import beam  # noqa: F401

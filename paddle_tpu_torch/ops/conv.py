@@ -17,8 +17,11 @@ largest element in row-major order on both sides.  `lrn` divides by
 the window sum added in the JAX side's order; its grad is the generic
 vjp there too.  `im2sequence` is `F.unfold` over the padded image,
 whose patch features run (C, kh, kw) as `conv_general_dilated_patches`
-orders them on the JAX side.
+orders them on the JAX side.  `conv2d` and its grad run with cuDNN
+held to deterministic algorithms (ops/registry.py `deterministic_cudnn`).
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 
 from ..core.ragged import RaggedTensor
 from .amp_util import amp_result, mxu_operands
-from .registry import register_op
+from .registry import deterministic_cudnn, get_op_info, register_op
 
 
 def _to_nchw(x, attrs):
@@ -58,15 +61,21 @@ def _check_spatial(out, opname, x, sdims):
     return out
 
 
-@register_op("conv2d")
+@register_op("conv2d", deterministic=True)
 def conv2d(ctx, ins, attrs):
+    """cuDNN's convolution under `deterministic_cudnn` while the op's
+    registration asks for it (its default; the generic grad's backward
+    takes the same scope), so a training step repeats bit for bit."""
     x, w = ins["Input"][0], ins["Filter"][0]
     xm, wm = mxu_operands(x, w)
     xm, _ = _to_nchw(xm, attrs)
-    out = F.conv2d(xm, wm, stride=tuple(attrs.get("strides", [1, 1])),
-                   padding=tuple(attrs.get("paddings", [0, 0])),
-                   dilation=tuple(attrs.get("dilations", [1, 1])),
-                   groups=int(attrs.get("groups", 1) or 1))
+    scoped = deterministic_cudnn() if get_op_info("conv2d").deterministic \
+        else contextlib.nullcontext()
+    with scoped:
+        out = F.conv2d(xm, wm, stride=tuple(attrs.get("strides", [1, 1])),
+                       padding=tuple(attrs.get("paddings", [0, 0])),
+                       dilation=tuple(attrs.get("dilations", [1, 1])),
+                       groups=int(attrs.get("groups", 1) or 1))
     out = _from_nchw(out, attrs)
     _check_spatial(out, "conv2d", x, _to_nchw(x, attrs)[1])
     return {"Output": [amp_result(out, x.dtype)]}

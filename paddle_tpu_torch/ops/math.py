@@ -1,5 +1,5 @@
 """Math op kernels: `mul`, the `elementwise_*` family, `mean`, the
-dense `reduce_*` family, `cos_sim`, and the comparison and logical ops
+`reduce_*` family, `cos_sim`, and the comparison and logical ops
 (`less_than` ... `not_equal`, `logical_and`, `_or`, `_xor`, `_not`).
 
 Counterparts of paddle_tpu/ops/math.py (reference: mul_op.cc,
@@ -10,9 +10,11 @@ float32 on the card, as on the JAX side.  Under the bf16 policy
 (ops/amp_util.py) `mul` runs its product in bf16 and the elementwise
 ops keep a bf16 activation bf16.  `mul` and the elementwise ops over a
 ragged X work on its rows and give X's structure to the result;
-`mean` of a ragged X covers its valid rows only.
+`mean` of a ragged X covers its valid rows only, as do the reductions
+across a ragged X's rows.
 """
 
+import numpy as np
 import torch
 
 from ..core.ragged import RaggedTensor
@@ -117,21 +119,54 @@ def _reduce(name, fn, acc_f32=False):
     shape (1,) or, with `keep_dim`, (1,) * ndim.  Sum and mean
     accumulate a bf16 input in f32 and return f32 (bf16's 8 mantissa
     bits saturate after a few hundred addends); max and min are exact in
-    any dtype.  Ragged inputs (their row masks) wait with ROADMAP A7."""
+    any dtype.  A ragged X reduced across its rows (`dim` 0 or
+    `reduce_all`) leaves out the rows past `nvalid`: a sum adds 0 there,
+    a max or min takes the dtype's least or largest value, and a mean
+    divides by the valid rows; reduced over a feature dim with
+    `keep_dim`, it stays ragged over X's splits, as on the JAX side."""
 
     @register_op(name)
     def kernel(ctx, ins, attrs):
-        x = dense(ins["X"][0], name)
+        xr = ins["X"][0]
+        ragged = isinstance(xr, RaggedTensor)
+        x = xr.values if ragged else dense(xr, name)
         if acc_f32 and x.dtype == torch.bfloat16:
             x = x.float()
         keep = bool(attrs.get("keep_dim", False))
-        if attrs.get("reduce_all", False):
-            out = fn(x, None, False)
-            return {"Out": [out.reshape((1,) * x.dim() if keep else (1,))]}
+        reduce_all = bool(attrs.get("reduce_all", False))
         dim = int(attrs.get("dim", 0))
         if dim < 0:
             dim += x.dim()
-        return {"Out": [fn(x, dim, keep)]}
+        if ragged and (reduce_all or dim == 0):
+            mask = xr.valid_mask().reshape((-1,) + (1,) * (x.dim() - 1))
+            if name == "reduce_mean":
+                x = x if x.is_floating_point() else x.float()
+                zero = torch.zeros((), dtype=x.dtype, device=x.device)
+                kept = torch.where(mask, x, zero)
+                total = kept.sum() if reduce_all else kept.sum(0)
+                denom = xr.nvalid.clamp(min=1).to(total.dtype)
+                if reduce_all:
+                    feat = max(1, int(np.prod(x.shape[1:])))
+                    out = total / (denom * feat)
+                    return {"Out": [out.reshape((1,) * x.dim() if keep
+                                                else (1,))]}
+                out = total / denom
+                return {"Out": [out.unsqueeze(0) if keep else out]}
+            if name == "reduce_sum":
+                neutral = 0
+            else:
+                info = (torch.finfo if x.is_floating_point()
+                        else torch.iinfo)(x.dtype)
+                neutral = info.min if name == "reduce_max" else info.max
+            x = torch.where(mask, x, torch.full((), neutral, dtype=x.dtype,
+                                                device=x.device))
+        if reduce_all:
+            out = fn(x, None, False)
+            return {"Out": [out.reshape((1,) * x.dim() if keep else (1,))]}
+        out = fn(x, dim, keep)
+        if ragged and dim != 0 and keep:
+            return {"Out": [like(xr, out)]}
+        return {"Out": [out]}
 
     kernel.__name__ = name
     return kernel

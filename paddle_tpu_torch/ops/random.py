@@ -15,7 +15,9 @@ meta device.
 import torch
 
 from ..core.types import torch_dtype
-from .registry import META, dense, register_grad_kernel, register_op
+from ..core.ragged import RaggedTensor
+from .registry import (META, dense, like, register_grad_kernel, register_op,
+                       values_of)
 
 
 def _generator(ctx, attrs):
@@ -62,7 +64,9 @@ def gaussian_random(ctx, ins, attrs):
 
 def _like_x(ins, attrs):
     x = ins["X"][0]
-    return {"Out": [torch.empty_like(x)], "Mask": [torch.empty_like(x)]}
+    xv = values_of(x)
+    return {"Out": [like(x, torch.empty_like(xv))],
+            "Mask": [torch.empty_like(xv)]}
 
 
 @register_op("dropout", uses_rng=True, infer_shape=_like_x)
@@ -70,11 +74,14 @@ def dropout(ctx, ins, attrs):
     """Out = X * Mask, Mask = (U[0, 1) >= dropout_prob) in X's dtype,
     drawn in f32 from the executor's stream or, with `fix_seed`, from a
     generator seeded with `seed`; `is_test` scales X by (1 - p) with a
-    mask of ones (reference dropout_op.h).  Dense X only."""
-    x = dense(ins["X"][0], "dropout")
+    mask of ones (reference dropout_op.h).  A ragged X drops from its
+    values and keeps its splits; the Mask is over its values."""
+    xr = ins["X"][0]
+    x = xr.values if isinstance(xr, RaggedTensor) else dense(xr, "dropout")
     prob = attrs.get("dropout_prob", 0.5)
     if attrs.get("is_test", False):
-        return {"Out": [x * (1.0 - prob)], "Mask": [torch.ones_like(x)]}
+        return {"Out": [like(xr, x * (1.0 - prob))],
+                "Mask": [torch.ones_like(x)]}
     if attrs.get("fix_seed", False):
         gen = torch.Generator(device=x.device).manual_seed(
             int(attrs.get("seed", 0)))
@@ -83,14 +90,19 @@ def dropout(ctx, ins, attrs):
     u = torch.rand(x.shape, generator=gen, dtype=torch.float32,
                    device=x.device)
     mask = (u >= prob).to(x.dtype)
-    return {"Out": [x * mask], "Mask": [mask]}
+    return {"Out": [like(xr, x * mask)], "Mask": [mask]}
 
 
 @register_grad_kernel("dropout")
 def dropout_grad(ctx, ins, attrs):
     """dX from the forward's saved Mask (the stream is not replayed;
-    reference dropout_op.h DropoutGradKernel)."""
-    og = dense(ins["OG@Out"][0], "dropout_grad")
+    reference dropout_op.h DropoutGradKernel); ragged over a ragged
+    Out@GRAD's splits."""
+    ogr = ins["OG@Out"][0]
+    og = ogr.values if isinstance(ogr, RaggedTensor) \
+        else dense(ogr, "dropout_grad")
     if attrs.get("is_test", False):
-        return {"X@GRAD": [og * (1.0 - attrs.get("dropout_prob", 0.5))]}
-    return {"X@GRAD": [og * ins["O@Mask"][0]]}
+        g = og * (1.0 - attrs.get("dropout_prob", 0.5))
+    else:
+        g = og * ins["O@Mask"][0]
+    return {"X@GRAD": [like(ogr, g)]}

@@ -26,11 +26,18 @@ vjp of all of them at once.
 
 Ragged (LoD) values are `core.ragged.RaggedTensor`s.  A kernel that
 takes them reads `values_of(x)` and gives a ragged input's structure to
-its output with `like(x, out)`; a kernel that does not yet calls
+its output with `like(x, out)`; a kernel that takes none calls
 `dense(x, op_type)`, which refuses a ragged value by name.  The generic
 grad of a ragged input is ragged with the input's splits, as on the JAX
 side.  A sparse gradient is a `core.ragged.SelectedRows`; `sum` and the
 optimizer update ops take one, and `dense` refuses it elsewhere.
+
+An op registered `deterministic=True` (`conv2d`) runs its kernel, and
+its generic grad runs the vjp's recompute and backward, with cuDNN
+held to deterministic algorithms (`deterministic_cudnn`): cuDNN's
+fastest f32 weight-grad algorithms add atomically, so a step would not
+repeat bit for bit.  The scope is the op alone; torch's global
+deterministic mode stays off.
 """
 
 import contextlib
@@ -44,7 +51,8 @@ from ..core.types import GRAD_SUFFIX, VarType
 __all__ = ["OpInfo", "register_op", "register_grad_kernel", "get_op_info",
            "has_op", "registered_ops", "is_grad_op_type",
            "forward_type_of_grad", "run_generic_grad", "span",
-           "infer_meta", "dense", "values_of", "like", "keep_declared"]
+           "infer_meta", "dense", "values_of", "like", "keep_declared",
+           "deterministic_cudnn"]
 
 
 # values with a structure around one float tensor: the generic grad
@@ -64,8 +72,8 @@ def span(name):
 def dense(x, op_type):
     """`x` if it is a dense tensor.  A SelectedRows raises TypeError: a
     sparse gradient goes only to `sum` and the optimizer update ops, as
-    on the JAX side.  A RaggedTensor raises NotImplementedError: ragged
-    inputs to the ops off the stacked-LSTM path wait with ROADMAP A7."""
+    on the JAX side.  A RaggedTensor raises NotImplementedError: the op
+    takes no ragged input in the port (`transpose`; ROADMAP A10)."""
     if isinstance(x, SelectedRows):
         raise TypeError(
             "%s takes dense tensors, got a SelectedRows (a sparse "
@@ -73,10 +81,18 @@ def dense(x, op_type):
             "take)" % op_type)
     if not isinstance(x, torch.Tensor):
         raise NotImplementedError(
-            "%s: ragged (LoD) inputs to this op wait with ROADMAP A7 "
-            "(ragged inputs to the ops off the stacked-LSTM path), got %s"
-            % (op_type, type(x).__name__))
+            "%s: ragged (LoD) inputs to this op are not ported (ROADMAP "
+            "A10), got %s" % (op_type, type(x).__name__))
     return x
+
+
+def deterministic_cudnn():
+    """A context in which cuDNN picks only deterministic algorithms (no
+    autotuning), its other settings (TF32 off, see the package
+    docstring) as they are."""
+    b = torch.backends.cudnn
+    return b.flags(enabled=b.enabled, benchmark=False,
+                   deterministic=True, allow_tf32=b.allow_tf32)
 
 
 def keep_declared(block, op_desc):
@@ -102,12 +118,13 @@ def like(x, out):
 class OpInfo:
     __slots__ = ("type", "kernel", "grad_kernel", "infer_shape",
                  "infer_desc", "uses_rng", "nondiff_inputs",
-                 "stop_gradient_op", "in_place_outputs", "sparse_grad_slots")
+                 "stop_gradient_op", "in_place_outputs", "sparse_grad_slots",
+                 "deterministic")
 
     def __init__(self, type, kernel, grad_kernel=None, infer_shape=None,
                  infer_desc=None, uses_rng=False, nondiff_inputs=(),
                  stop_gradient_op=False, in_place_outputs=(),
-                 sparse_grad_slots=None):
+                 sparse_grad_slots=None, deterministic=False):
         self.type = type
         self.kernel = kernel
         self.grad_kernel = grad_kernel        # None => generic vjp kernel
@@ -123,6 +140,8 @@ class OpInfo:
         # fn(attrs) -> forward-input slots whose grad is a SelectedRows;
         # the backward builder types those grad VarDescs accordingly
         self.sparse_grad_slots = sparse_grad_slots
+        # the kernel and its generic grad under `deterministic_cudnn`
+        self.deterministic = deterministic
 
 
 _OP_REGISTRY = {}
@@ -238,7 +257,9 @@ def run_generic_grad(ctx, fwd_type, ins, attrs):
                     flat.append(values_of(v))
         return tuple(flat)
 
-    with span("recompute"):
+    scoped = deterministic_cudnn() if info.deterministic \
+        else contextlib.nullcontext()
+    with scoped, span("recompute"):
         primals_out, vjp_fn = torch.func.vjp(f, diff)
 
     cots = []
@@ -250,7 +271,10 @@ def run_generic_grad(ctx, fwd_type, ins, attrs):
         else:
             g = values_of(g).to(p.dtype)
             cots.append(g.reshape(p.shape) if g.shape != p.shape else g)
-    (grads,) = vjp_fn(tuple(cots))
+    scoped = deterministic_cudnn() if info.deterministic \
+        else contextlib.nullcontext()
+    with scoped:
+        (grads,) = vjp_fn(tuple(cots))
 
     result = {}
     for slot, gs in grads.items():

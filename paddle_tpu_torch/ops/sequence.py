@@ -2,7 +2,8 @@
 `sequence_softmax`, `sequence_conv`, `row_conv`, `sequence_expand`,
 `sequence_concat`, `sequence_reshape`, `sequence_slice`,
 `sequence_reverse`, `lod_reset`, the recurrences `lstm`, `gru` and
-`gru_unit`, and `sequence_to_dense`/`dense_to_sequence`.
+`gru_unit`, `sequence_to_dense`/`dense_to_sequence`, and the
+nested-sequence ops `seq_unnest`, `seq_outer_expand` and `seq_renest`.
 
 Counterpart of paddle_tpu/ops/sequence.py (reference:
 sequence_pool_op.cc, sequence_conv_op.cc + math/context_project.h,
@@ -22,8 +23,8 @@ on the device to learn it.  `sequence_to_dense` and `dense_to_sequence`
 are the DynamicRNN's bridge between ragged values and the time-major
 padded tensors of the `recurrent` engine (ops/control_flow.py).  Every
 grad is the generic vjp (ops/registry.py).  The nested-sequence ops
-(`seq_unnest`, `seq_outer_expand`, `seq_renest`) wait with nested
-DynamicRNN (ROADMAP A7).
+flatten a lod-level-2 sequence's outer level into the batch and put it
+back, so a nested DynamicRNN is two ordinary ones.
 """
 
 import torch
@@ -596,3 +597,66 @@ def gru_unit(ctx, ins, attrs):
     h = u * h_prev + (1 - u) * c
     return {"Gate": [torch.cat([u, r, c], dim=1)],
             "ResetHiddenPrev": [r * h_prev], "Hidden": [h]}
+
+
+# -- nested (lod-level-2) sequences --------------------------------------------
+# The nested mode of the reference's RecurrentGradientMachine (layers.py
+# SubsequenceInput) runs flattened, as on the JAX side: the outer loop over
+# subsequences becomes the batch (each inner sequence an independent lod-1
+# sequence), the step runs once over all of them, and the outer splits are
+# put back after.  The three ops move splits; their values pass through.
+
+@register_op("seq_unnest")
+def seq_unnest(ctx, ins, attrs):
+    """A lod-level-2 X -> (Inner: the lod-1 batch of its inner sequences,
+    OuterRef: [n_inner, 1] zeros ragged over X's outer splits, which
+    carries them to `seq_outer_expand` and `seq_renest`)."""
+    x = ins["X"][0]
+    if not isinstance(x, RaggedTensor) or x.lod_level < 2:
+        raise ValueError("seq_unnest needs a lod_level-2 input")
+    outer, inner = x.row_splits[0], x.row_splits[-1]
+    n_inner = inner.shape[0] - 1
+    inner_batch = RaggedTensor(x.values, [inner], x.nvalid,
+                               max_seqlen=x.max_seqlen)
+    outer_ref = RaggedTensor(
+        torch.zeros((n_inner, 1), dtype=torch.float32, device=outer.device),
+        [outer], n_inner)
+    return {"Inner": [inner_batch], "OuterRef": [outer_ref]}
+
+
+@register_op("seq_outer_expand", nondiff_inputs=("OuterRef",))
+def seq_outer_expand(ctx, ins, attrs):
+    """Out[s] = X[the sample of inner sequence s]: a per-sample row
+    tiled over that sample's subsequences (a StaticInput entering every
+    outer step, flattened); an indexed gather, whose grad sums the
+    repeated rows in a fixed order."""
+    x, ref = ins["X"][0], ins["OuterRef"][0]
+    seg = ref.segment_ids(level=-1)
+    return {"Out": [values_of(x)[seg.long()]]}
+
+
+@register_op("seq_renest", nondiff_inputs=("OuterRef",))
+def seq_renest(ctx, ins, attrs):
+    """The outer splits of OuterRef put back over a flattened result:
+    dense [n_inner, D] rows become a lod-1 sequence over the samples; a
+    lod-1 X (steps of each inner sequence) becomes the lod-2 nested
+    sequence.  Off the meta device the outer splits must cover X's rows
+    or sequences, checked on the host (one read of the last offset), as
+    the JAX side checks eagerly."""
+    x, ref = ins["X"][0], ins["OuterRef"][0]
+    outer = ref.row_splits[0]
+    rows = (x.last_splits().shape[0] - 1 if isinstance(x, RaggedTensor)
+            else x.shape[0])
+    if outer.device.type != "meta":
+        expected = int(outer[-1])
+        if expected != rows:
+            raise ValueError(
+                "seq_renest: step output has %d %s but the outer splits "
+                "cover %d inner sequences — the nested step must produce "
+                "one row (or one sequence) per subsequence"
+                % (rows, "sequences" if isinstance(x, RaggedTensor)
+                   else "rows", expected))
+    if isinstance(x, RaggedTensor):
+        return {"Out": [RaggedTensor(x.values, [outer, x.last_splits()],
+                                     x.nvalid, max_seqlen=x.max_seqlen)]}
+    return {"Out": [RaggedTensor(x, [outer])]}

@@ -1,19 +1,20 @@
 """Tensor op kernels: `fill_constant`, `fill_constant_batch_size_like`,
 `cast`, `scale`, `split`, `concat`, `reshape`, `transpose`, `sum`,
-`increment` and `top_k`.
+`increment`, `sign` and `top_k`.
 
 Counterpart of paddle_tpu/ops/tensor_ops.py (reference:
 fill_constant_op.cc, fill_constant_batch_size_like_op.cc, cast_op.cc,
 scale_op.cc, split_op.cc, concat_op.cc, reshape_op.cc, transpose_op.cc,
-sum_op.cc, increment_op.cc, top_k_op.cc).
-`sum` takes ragged (LoD) and SelectedRows inputs, and `top_k` a
-ragged X; ragged inputs to the others wait with ROADMAP A7.
+sum_op.cc, increment_op.cc, sign_op.cc, top_k_op.cc).
+`sum` takes ragged (LoD) and SelectedRows inputs; `split` and
+`concat` along a feature axis, `increment`, `sign` and `top_k` keep a
+ragged input's splits.
 """
 
 import numpy as np
 import torch
 
-from ..core.ragged import SelectedRows
+from ..core.ragged import RaggedTensor, SelectedRows
 from ..core.types import torch_dtype
 from .registry import dense, like, register_op, values_of
 
@@ -52,15 +53,20 @@ def cast(ctx, ins, attrs):
 
 @register_op("scale")
 def scale(ctx, ins, attrs):
-    return {"Out": [ins["X"][0] * attrs.get("scale", 1.0)]}
+    """X times `scale`; a ragged X keeps its splits."""
+    x = ins["X"][0]
+    return {"Out": [like(x, values_of(x) * attrs.get("scale", 1.0))]}
 
 
 @register_op("split")
 def split(ctx, ins, attrs):
     """By `sections` (sizes along `axis`) when the list is non-empty,
     else into `num` equal parts — the JAX side's rule, so a desc
-    carrying `sections: []` and `num: 3` splits by num."""
-    x = ins["X"][0]
+    carrying `sections: []` and `num: 3` splits by num.  A ragged X
+    splits its values; split along a feature axis (not 0), each part
+    keeps X's splits, as on the JAX side."""
+    xr = ins["X"][0]
+    x = values_of(xr)
     axis = int(attrs.get("axis", 0))
     sections = attrs.get("sections")
     if sections:
@@ -73,14 +79,26 @@ def split(ctx, ins, attrs):
                              "into %d equal parts"
                              % (axis, x.shape[axis], num))
         parts = torch.split(x, x.shape[axis] // num, dim=axis)
+    if isinstance(xr, RaggedTensor) and axis != 0:
+        parts = [like(xr, p) for p in parts]
     return {"Out": list(parts)}
 
 
 @register_op("concat")
 def concat(ctx, ins, attrs):
-    """The X inputs joined along `axis`."""
-    xs = [dense(x, "concat") for x in ins["X"]]
-    return {"Out": [torch.cat(xs, int(attrs.get("axis", 0)))]}
+    """The X inputs joined along `axis`.  Ragged inputs join their rows'
+    values; along a feature axis (not 0) the rows line up step for step,
+    so the result keeps the first ragged input's splits, as on the JAX
+    side (axis 0 across sequences is `sequence_concat`)."""
+    axis = int(attrs.get("axis", 0))
+    ragged = next((x for x in ins["X"] if isinstance(x, RaggedTensor)),
+                  None)
+    xs = [x.values if isinstance(x, RaggedTensor) else dense(x, "concat")
+          for x in ins["X"]]
+    out = torch.cat(xs, axis)
+    if ragged is not None and axis != 0:
+        return {"Out": [like(ragged, out)]}
+    return {"Out": [out]}
 
 
 @register_op("reshape")
@@ -123,12 +141,23 @@ def sum_op(ctx, ins, attrs):
 @register_op("increment")
 def increment(ctx, ins, attrs):
     """X + `step`, with `step` in X's own dtype (as the JAX side's
-    `jnp.asarray(step, x.dtype)`): an int32 position stays int32."""
-    x = dense(ins["X"][0], "increment")
+    `jnp.asarray(step, x.dtype)`): an int32 position stays int32.  A
+    ragged X adds to its values and keeps its splits (the JAX kernel's
+    `x + step` raises a TypeError on one: ROADMAP C)."""
+    xr = ins["X"][0]
+    x = xr.values if isinstance(xr, RaggedTensor) else dense(xr, "increment")
     # rounded through the dtype on the host: a device tensor made from a
     # host scalar would cost a copy, and a sync, per decode step
     step = torch.tensor(attrs.get("step", 1.0), dtype=x.dtype).item()
-    return {"Out": [x + step]}
+    return {"Out": [like(xr, x + step)]}
+
+
+@register_op("sign")
+def sign(ctx, ins, attrs):
+    """-1, 0 or 1 by the sign of each element (reference sign_op.cc;
+    the L1 regularizer's term); a ragged X keeps its splits."""
+    x = ins["X"][0]
+    return {"Out": [like(x, torch.sign(values_of(x)))]}
 
 
 def stable_top_k(x, k):

@@ -135,13 +135,33 @@ def test_reduce_of_int_positions_stays_int():
 
 @pytest.mark.parametrize("op", ["concat", "increment", "reduce_sum"])
 def test_ragged_inputs_wait_for_a5(op):
-    """Ragged inputs to these ops still wait with ROADMAP A7 (the ops
-    off the stacked-LSTM path)."""
-    ragged = RaggedTensor(torch.tensor([1.0, 2.0, 3.0]),
-                          [torch.tensor([0, 2, 3])])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        pget(op).kernel(None, {"X": [ragged]},
-                        {"axis": 0, "dim": 0, "step": 1.0})
+    """Ragged inputs to these ops, which the port takes since the
+    nested-sequence slice: one sequence of 2 rows, one of 1, and a row
+    that pads the values past `nvalid`.  concat along axis 0 gives the
+    values dense and reduce_sum over the rows adds the valid rows only,
+    both exactly as the JAX kernels do; increment adds to the values and
+    keeps the splits, where the JAX kernel raises a TypeError on a
+    RaggedTensor (ROADMAP C)."""
+    from paddle_tpu.core.ragged import RaggedTensor as JRagged
+
+    vals = np.array([1.0, 2.0, 3.0, 9.0], np.float32)
+    splits = np.array([0, 2, 3], np.int32)
+    ragged = RaggedTensor(torch.from_numpy(vals), [torch.from_numpy(splits)])
+    jragged = JRagged(jnp.asarray(vals), [splits])
+    attrs = {"axis": 0, "dim": 0, "step": 1.0}
+    out = pget(op).kernel(None, {"X": [ragged]}, attrs)["Out"][0]
+    if op == "increment":
+        with pytest.raises(TypeError):
+            jget(op).kernel(None, {"X": [jragged]}, attrs)
+        assert isinstance(out, RaggedTensor) and out.lod() == [[0, 2, 3]]
+        np.testing.assert_array_equal(out.values.numpy(), vals + 1.0)
+        return
+    jout = np.asarray(jget(op).kernel(None, {"X": [jragged]},
+                                      attrs)["Out"][0])
+    assert isinstance(out, torch.Tensor)
+    np.testing.assert_array_equal(out.numpy(), jout)
+    if op == "reduce_sum":
+        assert jout.tolist() == 6.0
 
 
 def _attention_inputs(rs, b, h, t, dh):

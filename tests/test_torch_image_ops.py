@@ -142,20 +142,34 @@ def test_dropout_grad_matches_jax(is_test):
      {"Accuracy": ["a"], "Correct": ["c"], "Total": ["t"]}),
 ])
 def test_ragged_inputs_raise(op_type, ins, outs):
-    """Ragged inputs to dropout and accuracy still wait with ROADMAP A7
-    (the ops off the stacked-LSTM path).  top_k takes one now (the
-    greedy CTC decode's argmax of each step) and keeps its splits;
-    tests/test_torch_ctc.py holds it against the JAX package's."""
-    ragged = RaggedTensor(torch.ones(3, 3), [torch.tensor([0, 2, 3])])
-    ctx = _tctx({"x": ragged, "l": torch.zeros(3, 1, dtype=torch.int32)})
+    """Ragged inputs to dropout, top_k and accuracy, with a row that pads
+    the values past `nvalid`.  dropout and top_k keep the input's splits
+    (top_k is the greedy CTC decode's argmax of each step;
+    tests/test_torch_ctc.py holds it against the JAX package's); dropout's
+    Mask is over the values.  accuracy counts the valid rows only: the
+    padding row's hit counts neither as a hit nor in the total, as on the
+    JAX side (tests/test_torch_nested_beam.py holds all three against
+    the JAX package's)."""
+    ragged = RaggedTensor(torch.ones(4, 3), [torch.tensor([0, 2, 3])])
+    label = torch.tensor([[0], [0], [0], [1]], dtype=torch.int32)
+    ctx = _tctx({"x": ragged, "l": label})
     op = OpDesc(op_type, ins, outs, {"dropout_prob": 0.5, "k": 1})
-    if op_type == "top_k":
-        out = texec.apply_op(ctx, op)
-        assert [o.lod() for o in (out["Out"][0], out["Indices"][0])] == \
-            [[[0, 2, 3]]] * 2
+    out = texec.apply_op(ctx, op)
+    if op_type == "accuracy":
+        assert [int(out[k][0]) for k in ("Correct", "Total")] == [0, 3]
+        assert float(out["Accuracy"][0]) == 0.0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        texec.apply_op(ctx, op)
+    first, second = (("Out", "Indices") if op_type == "top_k"
+                     else ("Out", "Mask"))
+    assert isinstance(out[first][0], RaggedTensor)
+    assert out[first][0].lod() == [[0, 2, 3]]
+    assert int(out[first][0].nvalid) == 3
+    if op_type == "top_k":
+        assert out[second][0].lod() == [[0, 2, 3]]
+    else:
+        assert tuple(out[second][0].shape) == (4, 3)
+        np.testing.assert_array_equal(out[first][0].values.numpy(),
+                                      out[second][0].numpy())
 
 
 # -- lrn ------------------------------------------------------------------------

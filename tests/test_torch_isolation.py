@@ -33,8 +33,19 @@ def test_every_port_module_is_scanned():
     assert os.path.join("paddle_tpu_torch", "kernels",
                         "flash_attention.py") in rel
     for new in (("core", "tensor_array.py"), ("core", "rank_table.py"),
-                ("ops", "ctc.py"), ("ops", "control_flow.py")):
+                ("ops", "ctc.py"), ("ops", "control_flow.py"),
+                ("ops", "beam.py"), ("ops", "io_ops.py"),
+                ("fluid", "regularizer.py"), ("obs", "__init__.py"),
+                ("obs", "trace.py"), ("obs", "registry.py"),
+                ("obs", "telemetry.py")):
         assert os.path.join("paddle_tpu_torch", *new) in rel
+    v2 = sorted(os.path.basename(p) for p in rel
+                if os.path.dirname(p) == os.path.join("paddle_tpu_torch",
+                                                      "v2"))
+    jax_v2 = sorted(f for f in os.listdir(os.path.join(ROOT, "paddle_tpu",
+                                                       "v2"))
+                    if f.endswith(".py"))
+    assert v2 == jax_v2 and len(v2) == 17
     assert len(rel) >= 25
 
 
@@ -74,6 +85,20 @@ def test_training_stack_import_leaves_jax_unloaded():
             "paddle_tpu_torch.fluid.checkpoint, paddle_tpu_torch.models, "
             "paddle_tpu_torch.reader, paddle_tpu_torch.dataset, "
             "paddle_tpu_torch.resilience, paddle_tpu_torch.ops.metrics; "
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_v2_import_leaves_jax_unloaded():
+    """The v2 API, its trainer's obs copies and the top-level names."""
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.v2, "
+            "paddle_tpu_torch.obs; "
+            "from paddle_tpu_torch import layer, infer, v2; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'))")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -211,6 +211,9 @@ def test_registry_holds_the_slice_op_set():
         "lod_rank_table", "reorder_lod_tensor_by_rank",
         "lod_tensor_to_array", "array_to_lod_tensor", "shrink_rnn_memory",
         "warpctc", "ctc_align", "edit_distance", "sequence_erase",
-        "im2sequence"}
+        "im2sequence",
+        # nested sequences, print, the beam ops and the L1 decay's sign
+        "seq_unnest", "seq_outer_expand", "seq_renest", "print",
+        "beam_search", "beam_search_decode", "sign"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")
