@@ -207,7 +207,8 @@ no result line:
      plain path, 200 SGD steps to its criterion, the greedy decode equal
      to the targets.  (c) CRNN-CTC (PaddlePaddle/models
      fluid/ocr_recognition crnn_ctc_model.py) at its own widths, batch
-     32 of 1 x 48 x 512 images: its op count, op types and parameter
+     32 of 1 x 48 x 512 images, every parameter with ctc_train.py's L2
+     decay and value clip: its op count, op types and parameter
      count; 2 Momentum steps on the card against the CPU plain path from
      one state (the loss, and the change of the parameters, velocities
      and batch-norm statistics); peak memory over 3 steps; one training
@@ -246,11 +247,39 @@ no result line:
      token and the steps run.  (e) The nested SubsequenceInput groups of
      tests/test_v2_recurrent.py:281-380 on the card against the CPU.
      No hand-written kernel runs here.
+  15. stack: the rest of the optimizer and layer stack.  (a) Each case
+     of `stack_op_cases` (the slice's 43 op types besides fused_update:
+     the activations at their ties, matmul transposed, batched and 1-D,
+     gather, scatter and multiplex with negative, repeated and
+     out-of-range ids, one_hot's zero rows, soft labels, smooth_l1 at its
+     bound, ...) on the card against the CPU plain path, forward and
+     grad: bit for bit where the op only moves or makes values, else
+     within STACK_OP_RTOL; gather's grad twice on the card bit for bit;
+     fused_update against the unfused Adam, Momentum and SGD, dense and
+     with a SelectedRows grad, bit for bit.  (b)
+     nets.scaled_dot_product_attention at [16, 512, 512] with 8 heads:
+     the dense route (matmul, softmax) against use_flash (the f32 route
+     of the flash kernel, launched at least once), and the dense route's
+     forward and grads on the card against the CPU.  (c) The transformer
+     at bench.py's width trained as its users train it (`build_stack`:
+     label smoothing 0.1 through one_hot and soft labels, one
+     GradientClipByGlobalNorm(1.0) on every parameter,
+     piecewise_decay([2, 4], [1e-3, 5e-4, 2.5e-4]), Adam with fused
+     updates at the default cap): its op count and types; 2 steps on
+     the card against the CPU plain path from one state (the loss, the
+     global norm, the learning rate, each group's change), with 12
+     flash launches a step counted from 0 just before, whether the clip
+     bound (if not, one step at half the first norm, gated the same);
+     one step fused and one unfused from one state, bit for bit; the
+     repeat gate; peak memory, and fused and unfused each: the step's
+     median, tokens/s, launches a step and the busy share of a profiled
+     step.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
 
-Imports nothing of JAX and nothing of the paddle_tpu package.
+Imports nothing of JAX and nothing of the paddle_tpu package.  The
+whole script prints its time on the line before the card's.
 """
 
 import collections
@@ -1184,7 +1213,8 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
     profile counts only when it is complete: the step's `flash_launches`
     flash launches in it; else a fresh session tries again, and the
     shares are reported as not measured (None is returned).  Returns
-    {"busy_ms", "wall_ms", "ops": {op type: (device ms, host ms, ops)}}."""
+    {"busy_ms", "wall_ms", "launches", "ops": {op type: (device ms, host
+    ms, ops)}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1237,6 +1267,7 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
               % (name, us / 1e3, 100.0 * us / busy_us, host_us / 1e3,
                  100.0 * host_us / wall_us, count), flush=True)
     return {"busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
+            "launches": sum(k[2] for k in kernels),
             "ops": {name: (us / 1e3, host_us / 1e3, count)
                     for name, us, host_us, count in spans}}
 
@@ -4868,9 +4899,11 @@ CTC_FLOW_RTOL = 1e-5
 # each group a 2x2 max pool), im2sequence to 32 steps of 384, two fc of
 # 600, GRUs of 200 both ways (relu candidates), fc to 95 classes and the
 # blank, warpctc(norm_by_times) summed, Momentum at lr 1e-3 and 0.9;
-# less the source's L2 regularizer and gradient clip (ROADMAP A5).
-# Labels of 4-16 classes, pixels uniform in [0, 255) less 127.5
+# every parameter with ctc_train.py's L2Decay(l2 = 0.0004) and
+# GradientClipByValue(max_clip = 10.0, min_clip = -10.0).  Labels of
+# 4-16 classes, pixels uniform in [0, 255) less 127.5
 CRNN_HW, CRNN_BATCH, CRNN_CLASSES, CRNN_HIDDEN = (48, 512), 32, 95, 200
+CRNN_L2, CRNN_CLIP = 0.0004, 10.0
 CRNN_GROUPS = ((16, 16), (32, 32), (64, 64), (128, 128))
 CRNN_LABELS = (4, 16)
 CRNN_LR, CRNN_MOMENTUM = 1e-3, 0.9
@@ -5260,8 +5293,11 @@ def build_crnn(fluid, hw=CRNN_HW, groups=CRNN_GROUPS, hidden=CRNN_HIDDEN,
     def attr(std, lr=1.0):
         # a fresh ParamAttr per parameter: a reused one would name them
         # all alike
-        return fluid.ParamAttr(initializer=fluid.initializer.Normal(
-            0.0, std), learning_rate=lr)
+        return fluid.ParamAttr(
+            initializer=fluid.initializer.Normal(0.0, std), learning_rate=lr,
+            regularizer=fluid.regularizer.L2Decay(CRNN_L2),
+            gradient_clip=fluid.clip.GradientClipByValue(
+                max=CRNN_CLIP, min=-CRNN_CLIP))
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -6407,6 +6443,707 @@ def phase_v2():
     return launches
 
 
+# -- phase 15: the optimizer and layer stack; the transformer trained as
+# its users train it ------------------------------------------------------
+
+# the transformer at bench.py's width (BATCH, SEQ, VOCAB, N_LAYER, N_HEAD,
+# D_MODEL) with label smoothing STACK_EPS on its logits, one
+# GradientClipByGlobalNorm(STACK_CLIP) on every parameter, a piecewise
+# schedule whose steps cross a boundary, and Adam with fused updates at
+# the default cap (2^18 elements)
+STACK_EPS = 0.1
+STACK_CLIP = 1.0
+STACK_BOUNDS, STACK_LRS = [2, 4], [1e-3, 5e-4, 2.5e-4]
+
+
+def build_stack(fluid, batch=BATCH, seq=SEQ, vocab=VOCAB, n_layer=N_LAYER,
+                n_head=N_HEAD, d_model=D_MODEL, clip_norm=STACK_CLIP,
+                fuse=True):
+    """The transformer of models/transformer_program.py through
+    `fluid`'s layers (the port's here; tests/test_torch_optim_stack.py
+    builds it with both packages' and holds the descs and steps equal),
+    trained with label smoothing (a `one_hot` of the targets scaled by
+    1 - STACK_EPS plus STACK_EPS / vocab, against
+    `softmax_with_cross_entropy(soft_label=True)`), a global-norm clip of
+    `clip_norm` on every parameter, the STACK_BOUNDS / STACK_LRS
+    piecewise schedule and Adam, its updates fused with `fuse`: (main,
+    startup, loss, lr, the global norm's var name)."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        tokens, positions, targets = (
+            layers.data(name=name, shape=shape, dtype="int64",
+                        append_batch_size=False)
+            for name, shape in (("tokens", [batch, seq]),
+                                ("positions", [batch, seq]),
+                                ("targets", [batch, seq, 1])))
+        x = layers.embedding(tokens, size=[vocab, d_model]) \
+            + layers.embedding(positions, size=[seq, d_model])
+        for _ in range(n_layer):
+            h = layers.layer_norm(x, begin_norm_axis=2)
+            qkv = layers.fc(input=h, size=3 * d_model, num_flatten_dims=2)
+            q, k, v = layers.split(qkv, num_or_sections=3, dim=-1)
+            o = layers.flash_attention(q, k, v, num_heads=n_head,
+                                       causal=True)
+            x = x + layers.fc(input=o, size=d_model, num_flatten_dims=2)
+            h = layers.layer_norm(x, begin_norm_axis=2)
+            h = layers.fc(input=h, size=4 * d_model, num_flatten_dims=2,
+                          act="relu")
+            x = x + layers.fc(input=h, size=d_model, num_flatten_dims=2)
+        x = layers.layer_norm(x, begin_norm_axis=2)
+        logits = layers.fc(input=x, size=vocab, num_flatten_dims=2)
+        flat = layers.reshape(x=logits, shape=[-1, vocab])
+        tgt = layers.reshape(x=targets, shape=[-1, 1])
+        smooth = layers.elementwise_add(
+            x=layers.scale(x=layers.one_hot(tgt, vocab),
+                           scale=1.0 - STACK_EPS),
+            y=layers.fill_constant(shape=[1], dtype="float32",
+                                   value=STACK_EPS / vocab))
+        loss = layers.mean(x=layers.softmax_with_cross_entropy(
+            flat, smooth, soft_label=True))
+        clip = fluid.clip.GradientClipByGlobalNorm(clip_norm=clip_norm)
+        for p in main.global_block().all_parameters():
+            p.gradient_clip_attr = clip
+        lr = fluid.lr_schedules.piecewise_decay(STACK_BOUNDS, STACK_LRS)
+        fluid.optimizer.AdamOptimizer(learning_rate=lr).minimize(
+            loss, fuse_updates=fuse)
+    gnorm = next(op.output("Out")[0] for op in main.global_block().ops
+                 if op.type == "sqrt"
+                 and op.output("Out")[0].startswith("global_norm"))
+    return main, startup, loss, lr, gnorm
+
+
+# the activations' tie points: each bound of brelu (-1, 2 as set below),
+# relu6 (0, 6), hard_sigmoid (x = -2.5, 2.5), soft_relu (-40, 40),
+# softshrink and hard_shrink (-0.5, 0.5), thresholded_relu (1), the 0 of
+# relu, leaky_relu, elu, abs and the clip op, the halves round takes to
+# even; then randn
+STACK_TIES = (-41.0, -40.0, -24.0, -6.0, -2.5, -2.0, -1.0, -0.5, -0.25, -0.0,
+              0.0, 0.25, 0.5, 1.0, 2.0, 2.5, 6.0, 24.0, 40.0, 41.0)
+STACK_ACTS = (  # (op type, attrs)
+    ("brelu", {"t_min": -1.0, "t_max": 2.0}), ("ceil", {}), ("elu", {}),
+    ("elu", {"alpha": 0.5}), ("floor", {}), ("hard_shrink", {}),
+    ("hard_sigmoid", {}), ("leaky_relu", {"alpha": 0.1}),
+    ("logsigmoid", {}), ("pow", {"factor": 3.0}), ("reciprocal", {}),
+    ("relu6", {}), ("round", {}), ("soft_relu", {}), ("softplus", {}),
+    ("softshrink", {}), ("softsign", {}), ("stanh", {}),
+    ("swish", {"beta": 2.0}), ("tanh_shrink", {}),
+    ("thresholded_relu", {}), ("abs", {}), ("relu", {}))
+
+
+def stack_op_cases():
+    """(case id, op, ins {slot: [(name, CPU value)]}, outs {slot:
+    [names]}, attrs, differentiated input slots, output grads {slot:
+    value}, exact) for the op types of the optimizer and layer stack's
+    slice, from the seed: the activations over STACK_TIES; matmul
+    transposed, batched, broadcast and 1-D; gather with negative,
+    repeated and out-of-range ids; scatter with a repeated, a negative and
+    an out-of-range id; multiplex's negative and out-of-range ids;
+    one_hot's out-of-range and negative ids, and ragged ones; soft
+    labels; smooth_l1 at its bound.  `exact`: the op only moves or makes
+    values, so card and CPU must agree bit for bit (NaN for NaN)."""
+    import torch
+
+    rs = np.random.RandomState(SEED + 150)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(
+            np.float32))
+
+    def ids(*v):
+        return torch.tensor(v, dtype=torch.int32)
+
+    ties = torch.cat([torch.tensor(STACK_TIES, dtype=torch.float32),
+                      t(20)]).reshape(5, 8)
+    x, og = [("x", ties)], {"Out": t(5, 8)}
+    cases = [("%s%s" % (op, "".join("_%s%g" % kv for kv in attrs.items())),
+              op, {"X": x}, {"Out": ["o"]}, attrs, ["X"], og, False)
+             for op, attrs in STACK_ACTS]
+    cases.append(("pow_2.5", "pow", {"X": [("x", t(5, 8).abs())]},
+                  {"Out": ["o"]}, {"factor": 2.5}, ["X"], og, False))
+    for tag, xs, ys, attrs in (
+            ("2d", (5, 7), (7, 3), {}),
+            ("transposed", (7, 5), (3, 7),
+             {"transpose_X": True, "transpose_Y": True}),
+            ("batched", (2, 4, 5, 6), (2, 4, 6, 3), {}),
+            ("broadcast", (3, 4, 5), (5, 2), {"transpose_Y": False}),
+            ("1d_2d", (5,), (5, 3), {}), ("2d_1d", (3, 5), (5,), {})):
+        out_shape = torch.matmul(
+            torch.zeros(xs).transpose(-1, -2) if attrs.get("transpose_X")
+            else torch.zeros(xs),
+            torch.zeros(ys).transpose(-1, -2) if attrs.get("transpose_Y")
+            else torch.zeros(ys)).shape
+        cases.append(("matmul_" + tag, "matmul",
+                      {"X": [("x", t(*xs))], "Y": [("y", t(*ys))]},
+                      {"Out": ["o"]}, attrs, ["X", "Y"],
+                      {"Out": t(*out_shape)}, False))
+    cases += [
+        ("squared_l2_norm", "squared_l2_norm", {"X": [("x", t(6, 7))]},
+         {"Out": ["o"]}, {}, ["X"], {"Out": torch.tensor(0.7)}, False),
+        ("l1_norm", "l1_norm", {"X": x}, {"Out": ["o"]}, {}, ["X"],
+         {"Out": torch.tensor(-1.3)}, False),
+        ("minus", "minus", {"X": [("x", t(4, 5))], "Y": [("y", t(4, 5))]},
+         {"Out": ["o"]}, {}, ["X", "Y"], {"Out": t(4, 5)}, False),
+        ("squared_l2_distance", "squared_l2_distance",
+         {"X": [("x", t(6, 4))], "Y": [("y", t(6, 4))]},
+         {"sub_result": ["s"], "Out": ["o"]}, {}, ["X", "Y"],
+         {"Out": t(6, 1)}, False),
+        ("squared_l2_distance_row", "squared_l2_distance",
+         {"X": [("x", t(6, 4))], "Y": [("y", t(1, 4))]},
+         {"sub_result": ["s"], "Out": ["o"]}, {}, ["X", "Y"],
+         {"Out": t(6, 1), "sub_result": t(6, 4)}, False),
+        ("assign", "assign", {"X": [("x", t(3, 4))]}, {"Out": ["o"]}, {},
+         ["X"], {"Out": t(3, 4)}, True),
+        ("assign_value_int32", "assign_value", {}, {"Out": ["o"]},
+         {"shape": [2, 3], "dtype": "int32", "values": [3, -1, 0, 7, 2, 5]},
+         [], None, True),
+        ("assign_value_float32", "assign_value", {}, {"Out": ["o"]},
+         {"shape": [3], "dtype": "float32", "values": [0.5, -2.0, 1e-3]},
+         [], None, True),
+        ("fill", "fill", {}, {"Out": ["o"]},
+         {"shape": [2, 2], "dtype": "float32", "data": [1.0, 2.5, -3.0, 0.0]},
+         [], None, True),
+        ("fill_zeros_like", "fill_zeros_like", {"X": [("x", t(3, 4))]},
+         {"Out": ["o"]}, {}, [], None, True),
+        ("fill_zeros_like_ragged", "fill_zeros_like",
+         {"X": [("x", book_ragged([2, 0, 3], 4, SEED + 151))]},
+         {"Out": ["o"]}, {}, [], None, True),
+        ("clip", "clip", {"X": x}, {"Out": ["o"]},
+         {"min": 0.0, "max": 6.0}, ["X"], og, False),
+        ("clip_by_norm_scaled", "clip_by_norm", {"X": [("x", t(4, 6))]},
+         {"Out": ["o"]}, {"max_norm": 1.0}, ["X"], {"Out": t(4, 6)}, False),
+        ("clip_by_norm_kept", "clip_by_norm", {"X": [("x", t(4, 6))]},
+         {"Out": ["o"]}, {"max_norm": 1e3}, ["X"], {"Out": t(4, 6)}, False),
+        ("expand", "expand", {"X": [("x", t(2, 3))]}, {"Out": ["o"]},
+         {"expand_times": [2, 3]}, ["X"], {"Out": t(4, 9)}, True),
+        ("expand_fewer_times", "expand", {"X": [("x", t(2, 3))]},
+         {"Out": ["o"]}, {"expand_times": [2]}, ["X"], {"Out": t(2, 6)},
+         True),
+        ("gather", "gather", {"X": [("x", t(6, 4))],
+                              "Index": [("i", ids(-1, 2, 2, 7, -7, 0, 5, 2))]},
+         {"Out": ["o"]}, {}, ["X"], {"Out": t(8, 4)}, False),
+        ("scatter", "scatter",
+         {"Ref": [("r", t(6, 3))], "Index": [("i", ids(1, 1, 2, -1, 9, 1))],
+          "Updates": [("u", t(6, 3))]},
+         {"Out": ["o"]}, {}, ["Ref", "Updates"], {"Out": t(6, 3)}, True),
+        ("pad", "pad", {"X": [("x", t(2, 3))]}, {"Out": ["o"]},
+         {"paddings": [1, 0, 2, 1], "pad_value": 0.5}, ["X"],
+         {"Out": t(3, 6)}, True),
+        ("crop", "crop", {"X": [("x", t(4, 5))]}, {"Out": ["o"]},
+         {"offsets": [1, 2], "shape": [2, 3]}, ["X"], {"Out": t(2, 3)},
+         True),
+        ("multiplex", "multiplex",
+         {"X": [("a", t(5, 3)), ("b", t(5, 3)), ("c", t(5, 3))],
+          "Ids": [("i", ids([0], [2], [-1], [7], [-5]))]},
+         {"Out": ["o"]}, {}, ["X"], {"Out": t(5, 3)}, True),
+        ("is_empty", "is_empty", {"X": [("x", t(2, 3))]}, {"Out": ["o"]},
+         {}, [], None, True),
+        ("is_empty_empty", "is_empty", {"X": [("x", t(0, 3))]},
+         {"Out": ["o"]}, {}, [], None, True),
+        ("shape", "shape", {"Input": [("x", t(2, 3, 4))]}, {"Out": ["o"]},
+         {}, [], None, True),
+        ("prelu_scalar", "prelu", {"X": [("x", ties)],
+                                   "Alpha": [("a", torch.tensor([0.25]))]},
+         {"Out": ["o"]}, {}, ["X", "Alpha"], og, False),
+        ("prelu_columns", "prelu", {"X": [("x", ties)],
+                                    "Alpha": [("a", t(8))]},
+         {"Out": ["o"]}, {}, ["X", "Alpha"], og, False),
+        ("one_hot", "one_hot", {"X": [("x", ids([0], [3], [-1], [9], [2]))]},
+         {"Out": ["o"]}, {"depth": 5}, [], None, True),
+        ("one_hot_ragged", "one_hot",
+         {"X": [("x", book_ragged([2, 0, 3], 1, SEED + 152, hi=6))]},
+         {"Out": ["o"]}, {"depth": 5}, [], None, True),
+        ("norm_axis1", "norm", {"X": [("x", t(3, 4, 5))]}, {"Out": ["o"]},
+         {"axis": 1, "epsilon": 1e-10}, ["X"], {"Out": t(3, 4, 5)}, False),
+        ("norm_last", "norm", {"X": [("x", t(3, 4, 5))]}, {"Out": ["o"]},
+         {}, ["X"], {"Out": t(3, 4, 5)}, False),
+        ("softmax_with_cross_entropy_soft", "softmax_with_cross_entropy",
+         {"Logits": [("z", t(6, 10, scale=3.0))],
+          "Label": [("l", torch.softmax(t(6, 10), -1))]},
+         {"Softmax": ["p"], "Loss": ["o"]}, {"soft_label": True},
+         ["Logits"], {"Loss": t(6, 1)}, False),
+        ("cross_entropy_soft", "cross_entropy",
+         {"X": [("x", torch.softmax(t(6, 10), -1))],
+          "Label": [("l", torch.softmax(t(6, 10), -1))]},
+         {"Y": ["o"]}, {"soft_label": True}, ["X"], {"Y": t(6, 1)}, False),
+        ("smooth_l1_loss", "smooth_l1_loss",
+         {"X": [("x", torch.cat([torch.tensor([[0.25, -0.25, 0.0, 1.0]]),
+                                 t(4, 4)]))],
+          "Y": [("y", torch.cat([torch.zeros(1, 4), t(4, 4)]))]},
+         {"Diff": ["d"], "Out": ["o"]}, {"sigma": 2.0}, ["X", "Y"],
+         {"Out": t(5, 1)}, False),
+        ("smooth_l1_loss_weighted", "smooth_l1_loss",
+         {"X": [("x", t(5, 4))], "Y": [("y", t(5, 4))],
+          "InsideWeight": [("iw", t(5, 4).abs())],
+          "OutsideWeight": [("ow", t(5, 4).abs())]},
+         {"Diff": ["d"], "Out": ["o"]}, {}, ["X", "Y"], {"Out": t(5, 1)},
+         False),
+    ]
+    return cases
+
+
+def stack_feeds(batch, seq, vocab, steps, seed=SEED):
+    """`steps` feeds of tokens, positions and targets from the seed."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        tokens = rs.randint(0, vocab, (batch, seq)).astype(np.int64)
+        out.append({"tokens": tokens,
+                    "positions": np.tile(np.arange(seq, dtype=np.int64),
+                                         (batch, 1)),
+                    "targets": np.concatenate(
+                        [tokens[:, 1:], rs.randint(0, vocab, (batch, 1))],
+                        1).reshape(batch, seq, 1).astype(np.int64)})
+    return out
+
+
+# the recipes held fused against unfused: (attrs, shared scalars, the
+# per-parameter state slots)
+STACK_FUSED = {
+    "sgd": ({}, {}, ()),
+    "momentum": ({"mu": 0.9, "use_nesterov": False}, {}, ("Velocity",)),
+    "adam": ({"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+             {"Beta1Pow": 0.9, "Beta2Pow": 0.999}, ("Moment1", "Moment2")),
+}
+# card against CPU, each op of stack_op_cases and its grad: the largest
+# error over the larger of 1 and the reference's magnitude (f32; CUDA's
+# and the CPU's libm and sum orders differ by a few ulps)
+STACK_OP_RTOL = 1e-5
+# 15b: nets.scaled_dot_product_attention at the transformer's attention
+# shape, its dense route (two f32 matmuls and a softmax, TF32 off)
+# against its use_flash route (the kernel's f32 route, split TF32): the
+# largest absolute difference of the outputs (values of about 1); and the
+# dense route on the card against the CPU plain path, forward and grads,
+# over the larger of 1 and the magnitude
+STACK_ATTN_ATOL = 1e-4
+STACK_ATTN_RTOL = 1e-5
+# 15c: 2 Adam steps on the card against the CPU plain path from one
+# state.  The loss within 1e-5 of its size and the learning rate exactly.
+# The grads differ more than f32 sums in other orders would make them:
+# the card's forward differs from the CPU's by about 1e-6, which flips
+# relu's mask at the few pre-activations that lie that close to 0, and
+# a flipped entry's whole grad flows on one side only.  An H100 read the
+# grads equal to 1.1e-6 (relative L2) down to the last layer's relu_grad
+# and 4.6e-4 after it, the flash kernel replaced by its plain version
+# on the card too; the global norm 2.6e-5 of its size (8.4e-6 with the
+# plain version).  Adam then moves each entry by about lr * sign(g), so
+# the parameters differ more than the moments: phase 7's gates for the
+# same model and optimizer (ADAM_MOMENT_RL2, ADAM_PARAM_RL2; read 2.6e-3
+# m1, 1.2e-3 m2, 6.8e-3 parameters over 2 steps), the global norm at
+# 2e-4; a wrong grad, clip or update reads order 1.  At 2 layers on the
+# CPU, tests/test_torch_optim_stack.py holds the port against the JAX
+# package at 1e-4 and 1e-5
+STACK_STEPS = 2
+STACK_LOSS_RTOL = 1e-5
+STACK_NORM_RTOL = 2e-4
+
+
+def stack_update_inputs(op, sparse, device, seed=SEED + 160):
+    """The ins of one update recipe over a stack of 3 parameters of
+    different shapes (the first grad a SelectedRows of a repeated row
+    when `sparse`), on `device`, and the stacked slots."""
+    import torch
+    from paddle_tpu_torch.core.ragged import SelectedRows
+
+    rs = np.random.RandomState(seed)
+    shapes = [(4, 3), (5,), (2, 2, 2)]
+
+    def t(shape, pos=False):
+        a = rs.randn(*shape).astype(np.float32)
+        return torch.from_numpy(np.abs(a) if pos else a).to(device)
+
+    _, shared, slots = STACK_FUSED[op]
+    ins = {"Param": [t(s) for s in shapes],
+           "Grad": [t(s) for s in shapes],
+           "LearningRate": [torch.full((1,), 0.05, device=device)]}
+    if sparse:
+        ins["Grad"][0] = SelectedRows(
+            torch.tensor([3, 0, 3], dtype=torch.int32, device=device),
+            t((3, 3)), 4)
+    for slot in slots:
+        ins[slot] = [t(s, pos=slot == "Moment2") for s in shapes]
+    for slot, v in shared.items():
+        ins[slot] = [torch.full((1,), v, device=device)]
+    return ins, sorted(["Grad", "Param"] + list(slots))
+
+
+def stack_fused_differ(op, sparse, device):
+    """The outputs of `fused_update` over stack_update_inputs that differ
+    bit for bit from the unfused op's, run per parameter on `device`;
+    and the count compared."""
+    from paddle_tpu_torch.fluid import executor as ex
+    from paddle_tpu_torch.ops.registry import get_op_info
+
+    ins, stacked = stack_update_inputs(op, sparse, device)
+    attrs = STACK_FUSED[op][0]
+    ctx = ex.ExecContext(None, 0, {}, device=device)
+    fused = get_op_info("fused_update").kernel(
+        ctx, ins, dict(attrs, inner_type=op, stacked_slots=stacked))
+    differ, n = [], 0
+    for i in range(len(ins["Param"])):
+        one = {k: [v[i]] if k in stacked else v for k, v in ins.items()}
+        for slot, vals in get_op_info(op).kernel(ctx, one, attrs).items():
+            n += 1
+            if not same_bits(fused[slot][i], vals[0]):
+                differ.append("%s[%d]" % (slot, i))
+    return differ, n
+
+
+def stack_compare(tag, got, ref):
+    """`book_compare` of the outputs with NaN where the reference has NaN
+    (gather's rows of out-of-range ids) and nowhere else: those places
+    must agree, and the rest is compared."""
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+
+    def finite(v):
+        vals = v.values if isinstance(v, RaggedTensor) else v
+        vals = vals.nan_to_num(nan=0.0) if vals.is_floating_point() \
+            else vals
+        return v.with_values(vals) if isinstance(v, RaggedTensor) else vals
+
+    for n, r in ref.items():
+        (gv, _), (rv, _) = book_host(got[n]), book_host(r)
+        if gv.dtype.kind == "f" and gv.shape == rv.shape \
+                and not np.array_equal(np.isnan(gv), np.isnan(rv)):
+            raise SystemExit("chip_smoke: %s: %s has NaN at other places on "
+                             "the card than on the CPU" % (tag, n))
+    return book_compare(tag, {n: finite(v) for n, v in got.items()},
+                        {n: finite(v) for n, v in ref.items()})
+
+
+def stack_ops(device):
+    """15a: each case of stack_op_cases on the card against its CPU run,
+    forward (exact where the op only moves or makes values) and grad
+    (STACK_OP_RTOL); gather's grad run twice on the card, bit for bit;
+    fused_update against the unfused ops on the card, bit for bit."""
+    import torch
+
+    cpu = torch.device("cpu")
+    worst = {}
+    for name, op, ins, outs, attrs, diff, out_grads, exact in \
+            stack_op_cases():
+        ref = book_run_op(op, ins, outs, attrs, cpu)
+        got = book_run_op(op, ins, outs, attrs, device)
+        if exact:
+            for n, r in ref.items():
+                (gv, glod), (rv, rlod) = book_host(got[n]), book_host(r)
+                if glod != rlod or gv.dtype != rv.dtype \
+                        or not np.array_equal(gv, rv, equal_nan=gv.dtype.kind
+                                              == "f"):
+                    raise SystemExit("chip_smoke: op case %s: %s on the "
+                                     "card is not the CPU's" % (name, n))
+            err = 0.0
+        else:
+            err = stack_compare(name, got, ref)
+        if diff:
+            gins = book_grad_ins(ins, outs, out_grads, ref)
+            gouts = {s + "@GRAD": ["%s@GRAD" % n for n, _ in ins[s]]
+                     for s in diff}
+            gref = book_run_op(op + "_grad", gins, gouts, attrs, cpu)
+            ggot = book_run_op(op + "_grad", gins, gouts, attrs, device)
+            err = max(err, stack_compare(name + "_grad", ggot, gref))
+            if op == "gather":
+                again = book_run_op(op + "_grad", gins, gouts, attrs,
+                                    device)
+                if not all(same_bits(ggot[n], again[n]) for n in ggot):
+                    raise SystemExit("chip_smoke: gather's grad differs "
+                                     "when run twice on the card")
+        worst[name] = err
+        if not err <= STACK_OP_RTOL:
+            raise SystemExit("chip_smoke: op case %s on the card disagrees "
+                             "with the CPU (%.3g, gate %g)"
+                             % (name, err, STACK_OP_RTOL))
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    print("stack: 15a %d op cases of %d op types on the card against the "
+          "CPU plain path, forward and %d grads: the exact ones bit for bit "
+          "(NaN rows of out-of-range gather ids, scatter's last update "
+          "winning, one_hot's zero rows), the rest within %g of the larger "
+          "of 1 and the magnitude, worst %s; gather's grad (ids -1, 2, 2, "
+          "7, -7, 0, 5, 2) twice on the card: the same bits"
+          % (len(worst), len({c[1] for c in stack_op_cases()}),
+             sum(1 for c in stack_op_cases() if c[5]), STACK_OP_RTOL,
+             ", ".join("%s %.3g" % kv for kv in top)), flush=True)
+    for op in sorted(STACK_FUSED):
+        for sparse in (False, True):
+            differ, n = stack_fused_differ(op, sparse, device)
+            print("stack: fused_update[%s]%s on the card against the "
+                  "unfused op per parameter: %d of %d outputs differ bit "
+                  "for bit" % (op, " with a SelectedRows grad" if sparse
+                               else "", len(differ), n), flush=True)
+            if differ:
+                raise SystemExit("chip_smoke: fused_update[%s] differs from "
+                                 "the unfused op in %s" % (op, differ))
+
+
+def stack_attention(exe, smi):
+    """15b: nets.scaled_dot_product_attention at the transformer's
+    attention shape (queries, keys and values [BATCH, SEQ, D_MODEL],
+    N_HEAD heads): the dense route against use_flash on the card, and
+    the dense route's forward and grads (calc_gradient, a random output
+    grad) on the card against the CPU.  Returns the launch counts of the
+    flash route's run."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+
+    def build(use_flash):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            q, k, v, og = (fluid.layers.data(
+                name=n, shape=[BATCH, SEQ, D_MODEL], dtype="float32",
+                append_batch_size=False) for n in ("q", "k", "v", "og"))
+            out = fluid.nets.scaled_dot_product_attention(
+                q, k, v, num_heads=N_HEAD, use_flash=use_flash)
+            grads = [] if use_flash else fluid.calc_gradient(
+                out, [q, k, v], target_gradients=[og])
+        return main, [out] + grads
+
+    rs = np.random.RandomState(SEED + 170)
+    feed = {n: rs.randn(BATCH, SEQ, D_MODEL).astype(np.float32)
+            for n in ("q", "k", "v", "og")}
+    dev = {n: torch.from_numpy(a).to(exe.device) for n, a in feed.items()}
+    flash_main, flash_fetch = build(True)
+    dense_main, dense_fetch = build(False)
+    types = collections.Counter(op.type for op in dense_main.desc.block(0)
+                                .ops)
+    scope = fluid.Scope()
+    reset_launches()
+    flash = exe.run(flash_main, feed=dev, fetch_list=flash_fetch,
+                    scope=scope, return_numpy=False)[0]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    dense = exe.run(dense_main, feed=dev, fetch_list=dense_fetch,
+                    scope=scope, return_numpy=False)
+    routes = float((dense[0] - flash).abs().max())
+    f32 = launches[route_entry("f32")]
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        dense_main, feed=feed, fetch_list=dense_fetch, scope=fluid.Scope())
+    errs = [float(np.abs(d.cpu().numpy() - c).max()) / max(
+        1.0, float(np.abs(c).max())) for d, c in zip(dense, cpu)]
+    flash_ms = cuda_ms(lambda: exe.run(flash_main, feed=dev,
+                                       fetch_list=flash_fetch, scope=scope,
+                                       return_numpy=False))
+    dense_ms = cuda_ms(lambda: exe.run(dense_main, feed=dev,
+                                       fetch_list=dense_fetch[:1],
+                                       scope=scope, return_numpy=False))
+    print("stack: 15b nets.scaled_dot_product_attention [%d, %d, %d], %d "
+          "heads: the dense route (%s) against use_flash (one "
+          "flash_attention op; f32 route launches %d): max abs difference "
+          "%.3g (gate %g); the dense route on the card against the CPU "
+          "plain path: forward %.3g, dq %.3g, dk %.3g, dv %.3g of the "
+          "magnitude (gate %g); forward ms (CUDA events, eager): dense "
+          "%.4f, flash %.4f [%s]"
+          % (BATCH, SEQ, D_MODEL, N_HEAD, ", ".join(
+              "%s %d" % kv for kv in sorted(types.items())), f32, routes,
+             STACK_ATTN_ATOL, errs[0], errs[1], errs[2], errs[3],
+             STACK_ATTN_RTOL, dense_ms, flash_ms, smi), flush=True)
+    if f32 < 1 or not routes <= STACK_ATTN_ATOL \
+            or not max(errs) <= STACK_ATTN_RTOL:
+        raise SystemExit("chip_smoke: scaled_dot_product_attention's routes "
+                         "or the card and the CPU disagree")
+    return launches
+
+
+def stack_run(exe, main, fetch, state, feeds):
+    """([[loss, lr, global norm] per step], the state after, seconds):
+    the steps of `feeds` through `main` from `state` in a fresh scope on
+    the executor's device."""
+    from paddle_tpu_torch.fluid import Scope, io
+
+    scope = Scope()
+    io.params_from_numpy(scope, state, exe.device)
+    t0 = time.perf_counter()
+    out = [[float(v.reshape(-1)[0]) for v in exe.run(
+        main, feed=f, fetch_list=fetch, scope=scope)] for f in feeds]
+    return out, {n: scope.get(n).cpu().numpy() for n in state}, \
+        time.perf_counter() - t0
+
+
+def stack_check(exe, main, fetch, init, feeds, groups, tag,
+                clip_norm=STACK_CLIP):
+    """The steps of `feeds` on the card (launches counted from 0 just
+    before) against the CPU plain path from `init`, gated; returns (the
+    card's [[loss, lr, norm]], the launches)."""
+    import paddle_tpu_torch.fluid as fluid
+
+    cpu, cpu_state, csecs = stack_run(fluid.Executor(fluid.CPUPlace()),
+                                      main, fetch, init, feeds)
+    reset_launches()
+    card, card_state, gsecs = stack_run(exe, main, fetch, init, feeds)
+    launches = read_launches()
+    loss_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card, cpu))
+    norm_err = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(card, cpu))
+    lr_same = all(a[1] == b[1] for a, b in zip(card, cpu))
+    errs = {g: change_rl2(card_state, cpu_state, init, names)
+            for g, names in groups.items()}
+    gates = {g: ADAM_PARAM_RL2 if g == "parameters" else ADAM_MOMENT_RL2
+             for g in groups}
+    print("stack: %s: %d Adam steps from one state: CPU plain path (%.1f "
+          "s) loss, lr, global norm %s; card (%.1f s) %s; loss error %.3g "
+          "of its size (gate %g), global norm %.3g (gate %g), learning "
+          "rates %s; the steps' change, relative L2 error: %s; the clip "
+          "bound in %d of %d steps (norm above the clip_norm)"
+          % (tag, len(feeds), csecs, json.dumps(cpu), gsecs,
+             json.dumps(card), loss_err, STACK_LOSS_RTOL, norm_err,
+             STACK_NORM_RTOL, "equal" if lr_same else "DIFFER",
+             ", ".join("%s %.3g (gate %g)" % (g, e, gates[g])
+                       for g, e in errs.items()),
+             sum(1 for c in card if c[2] > clip_norm), len(card)),
+          flush=True)
+    if not (loss_err <= STACK_LOSS_RTOL and norm_err <= STACK_NORM_RTOL
+            and lr_same and all(errs[g] <= gates[g] for g in errs)) \
+            or not all(np.isfinite(v).all() for v in card_state.values()):
+        raise SystemExit("chip_smoke: %s: the steps on the card disagree "
+                         "with the CPU plain path" % tag)
+    return card, launches
+
+
+def stack_train(exe, smi):
+    """15c: the transformer at bench.py's width trained with label
+    smoothing, the global-norm clip, the piecewise schedule and fused
+    Adam updates.  Returns the launch counts of its checked steps."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    main, startup, loss, lr, gnorm = build_stack(fluid)
+    umain, _, uloss, _, _ = build_stack(fluid, fuse=False)
+    block = main.desc.block(0)
+    counts = collections.Counter(op.type for op in block.ops)
+    ucounts = collections.Counter(op.type for op in umain.desc.block(0).ops)
+    pnames = [p.name for p in main.global_block().all_parameters()]
+    n_values = sum(int(np.prod(block.vars[n].shape)) for n in pnames)
+    fused = [op for op in block.ops if op.type == "fused_update"]
+    print("stack: 15c the transformer (batch %d, seq %d, d_model %d, %d "
+          "layers, %d heads, vocab %d), label smoothing %g, "
+          "GradientClipByGlobalNorm(%g) on its %d parameters (%d values), "
+          "piecewise_decay(%s, %s), Adam with fused updates (cap 2^18): "
+          "main %d ops of %d types (%s); %d fused_update op(s) stacking %s "
+          "parameters and %d adam ops (%d adam ops unfused, %d ops); built "
+          "in %.1f s"
+          % (BATCH, SEQ, D_MODEL, N_LAYER, N_HEAD, VOCAB, STACK_EPS,
+             STACK_CLIP, len(pnames), n_values, STACK_BOUNDS, STACK_LRS,
+             len(block.ops), len(counts), ", ".join(
+                 "%s %d" % kv for kv in sorted(counts.items())), len(fused),
+             "+".join(str(len(op.input("Param"))) for op in fused),
+             counts["adam"], ucounts["adam"], len(umain.desc.block(0).ops),
+             time.perf_counter() - t0), flush=True)
+    if counts["flash_attention"] != N_LAYER or not fused \
+            or counts["adam"] + sum(len(op.input("Param")) for op in fused) \
+            != len(pnames) or ucounts["adam"] != len(pnames) \
+            or counts["squared_l2_norm"] != len(pnames):
+        raise SystemExit("chip_smoke: the stack program is not the one held "
+                         "against the JAX package")
+    init = book_state(exe, startup, main)
+    persist = list(init)
+    groups = {"parameters": pnames,
+              "moment1": [n for n in persist if n.endswith("_moment1_0")],
+              "moment2": [n for n in persist if n.endswith("_moment2_0")]}
+    feeds = stack_feeds(BATCH, SEQ, VOCAB, STACK_STEPS)
+    card, launches = stack_check(exe, main, [loss, lr, gnorm], init, feeds,
+                                 groups, "15c")
+    per_step = 2 * N_LAYER
+    flash = launches[route_entry("f32")]
+    print("stack: 15c flash launches in the %d checked steps, counted from "
+          "0 just before: %d (%d per step: the forward op and the generic "
+          "grad's recompute per layer); all launches %s"
+          % (STACK_STEPS, flash, per_step, json.dumps(launches)), flush=True)
+    if flash != per_step * STACK_STEPS:
+        raise SystemExit("chip_smoke: %d flash launches in %d steps, "
+                         "designed %d per step" % (flash, STACK_STEPS,
+                                                   per_step))
+    if card[0][2] <= STACK_CLIP:
+        # the clip did not bind: hold the scaling path at full width too
+        half, hstart, hloss, hlr, hnorm = build_stack(
+            fluid, clip_norm=card[0][2] / 2)
+        stack_check(exe, half, [hloss, hlr, hnorm], init, feeds[:1],
+                    groups, "15c at clip_norm %.6g (half the first norm)"
+                    % (card[0][2] / 2), clip_norm=card[0][2] / 2)
+
+    # fused against unfused: one step from one state, every tensor
+    dev_feed = {n: torch.from_numpy(a.astype(np.int32)).to(exe.device)
+                for n, a in feeds[0].items()}
+    state = {n: torch.from_numpy(v).to(exe.device) for n, v in init.items()}
+    after = []
+    for prog, lss in ((main, loss), (umain, uloss)):
+        scope = fluid.Scope()
+        for n, v in state.items():
+            scope.set(n, v.clone())
+        out = exe.run(prog, feed=dev_feed, fetch_list=[lss], scope=scope,
+                      return_numpy=False)[0]
+        after.append((out, {n: scope.get(n) for n in state}))
+    differ = [n for n in state if not same_bits(after[0][1][n],
+                                                after[1][1][n])]
+    if not same_bits(after[0][0], after[1][0]):
+        differ.append("the loss")
+    print("stack: 15c one step fused and one unfused from one state: %d of "
+          "%d parameters, moments, schedule and Adam scalars differ bit for "
+          "bit%s" % (len(differ), len(state), (" (%s)" % ", ".join(differ))
+                     if differ else ""), flush=True)
+    if differ:
+        raise SystemExit("chip_smoke: fused and unfused steps differ in %s"
+                         % differ)
+    del after
+    repeat_gate("stack: 15c", exe, main, dev_feed, state)
+
+    scope = params_scope(init, exe.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    report = {}
+    for tag, prog, lss in (("fused", main, loss), ("unfused", umain, uloss)):
+        def step(prog=prog, lss=lss):
+            return exe.run(prog, feed=dev_feed, fetch_list=[lss],
+                           scope=scope, return_numpy=False)
+
+        times = timed_steps(step)
+        med = float(np.median(times))
+        prof = profile_step(step, set(counts) | set(ucounts), per_step,
+                            med, what="one %s 15c step" % tag)
+        report[tag] = (med, prof)
+        print("stack: 15c %s: step %.3f ms (median of 10 after 2 warm, "
+              "feeds on the card; mean %.3f, min %.3f, max %.3f), %.0f "
+              "tokens/s; %s launches a step, device busy %s ms [%s]"
+              % (tag, med, np.mean(times), min(times), max(times),
+                 BATCH * SEQ / med * 1e3,
+                 prof["launches"] if prof else "not measured",
+                 "%.3f" % prof["busy_ms"] if prof else "not measured", smi),
+              flush=True)
+    print("stack: 15c peak memory of 3 steps %.3f GB; fused against "
+          "unfused: %s against %s launches a step, %.3f against %.3f ms"
+          % (peak / 1e9, *(report[k][1]["launches"] if report[k][1]
+                           else "not measured" for k in ("fused",
+                                                         "unfused")),
+             report["fused"][0], report["unfused"][0]), flush=True)
+    del scope, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_stack():
+    """The optimizer and layer stack (phase 15): the new op types on the
+    card (15a), nets.scaled_dot_product_attention's two routes (15b) and
+    the transformer trained as its users train it (15c).  Returns the
+    launch counts of 15b's flash route and 15c's checked steps."""
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    smi = nvidia_smi_line()
+    stack_ops(exe.device)
+    attn = stack_attention(exe, smi)
+    train = stack_train(exe, smi)
+    print("stack: phase 15 in %.1f s" % (time.perf_counter() - t0),
+          flush=True)
+    return {n: attn.get(n, 0) + train.get(n, 0)
+            for n in set(attn) | set(train)}
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -6438,6 +7175,7 @@ def main():
     book_launches = phase_book()
     ctc_launches = phase_ctc()
     v2_launches = phase_v2()
+    stack_launches = phase_stack()
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
@@ -6460,11 +7198,12 @@ def main():
                              % (what, json.dumps(got)))
     # the f32 route on each of the transformer's main paths
     f32 = route_entry("f32")
-    paths = (launches[f32], train_launches[f32], decode_launches[f32])
+    paths = (launches[f32], train_launches[f32], decode_launches[f32],
+             stack_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
-                         "a main path (served, trained, decoded: %s)"
-                         % (paths,))
+                         "a main path (served, trained, decoded, trained "
+                         "with the whole stack: %s)" % (paths,))
     kernels = []
     for route in fa.ROUTES:
         name = route_entry(route)
@@ -6472,7 +7211,7 @@ def main():
             launches, train_launches, wide_launches, resnet_launches,
             decode_launches, image_launches, sequence_launches,
             ctr_launches, seq2seq_launches, book_launches, ctc_launches,
-            v2_launches))
+            v2_launches, stack_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

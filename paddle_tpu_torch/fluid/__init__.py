@@ -1,20 +1,24 @@
 """The fluid surface of the port: the program builder (framework,
 layers, nets, initializers, parameter attributes), places, the
-executor, the backward and the optimizers, AMP, feeding
+executor, the backward and the optimizers with gradient clipping
+(`clip`), learning-rate schedules (`lr_schedules`) and fused updates
+(`fusion`), streaming metrics (`evaluator`), AMP, feeding
 (`DataFeeder`), weight-decay regularizers, saving and loading variables, training checkpoints,
 pruning and inference export and load, generation over a step program
 (`ProgramDecoder`), and the sparse grad value (`SelectedRows`)."""
 
-from . import (amp, backward, framework, initializer, io, layers, nets,
-               optimizer, param_attr, regularizer)
-from .backward import append_backward
+from . import (amp, backward, clip, framework, fusion, initializer, io,
+               layers, lr_schedules, nets, optimizer, param_attr,
+               regularizer)
+from .backward import append_backward, calc_gradient
 from .executor import (CPUPlace, CUDAPlace, ExecContext, Executor, Place,
-                       scope_guard)
+                       fetch_var, scope_guard)
 from .framework import (Operator, Parameter, Program, Variable,
                         default_main_program, default_startup_program,
-                        program_guard, unique_name)
+                        program_guard, switch_main_program,
+                        switch_startup_program, unique_name)
 from .layer_helper import LayerHelper
-from . import checkpoint, data_feeder
+from . import checkpoint, data_feeder, evaluator
 from .data_feeder import DataFeeder
 from .optimizer import (SGD, Adam, AdamOptimizer, Momentum,
                         MomentumOptimizer, Optimizer, SGDOptimizer)
@@ -30,9 +34,11 @@ __all__ = ["Adam", "AdamOptimizer", "CPUPlace", "CUDAPlace", "DataFeeder",
            "Operator", "Optimizer", "ParamAttr", "Parameter", "Place",
            "Program", "ProgramDecoder", "SGD",
            "SGDOptimizer", "Scope", "SelectedRows", "Variable", "amp",
-           "append_backward",
-           "backward", "checkpoint", "data_feeder", "default_main_program",
-           "default_startup_program", "framework", "global_scope",
-           "initializer", "io", "layers", "nets", "optimizer",
-           "param_attr", "program_guard", "regularizer", "scope_guard",
+           "append_backward", "backward", "calc_gradient", "checkpoint",
+           "clip", "data_feeder", "default_main_program",
+           "default_startup_program", "evaluator", "fetch_var",
+           "framework", "fusion", "global_scope", "initializer", "io",
+           "layers", "lr_schedules", "nets", "optimizer", "param_attr",
+           "program_guard", "regularizer", "scope_guard",
+           "switch_main_program", "switch_startup_program",
            "unique_name"]

@@ -14,7 +14,11 @@ shape inference: each grad VarDesc mirrors its forward var, found in
 the block or one of its parents, and a parent's stop_gradient vars get
 no grad.  The grad of a `recurrent` op (a StaticRNN or DynamicRNN) is
 its generic grad, as on the JAX side: no backward sub-block is built.
-The error-clip callback waits with clipping (ROADMAP A).
+After each grad op it appends, `append_backward` runs its `callbacks`
+(default: fluid/clip.py `error_clip_callback`, which clips in place the
+grad of a var that carries an `error_clip`).  `calc_gradient(targets,
+inputs)` appends the grads of targets (seeded with ones, or with given
+target grads) with respect to any inputs, stop_gradient ones included.
 """
 
 from collections import defaultdict
@@ -23,7 +27,7 @@ from ..core.desc import OpDesc, VarDesc
 from ..core.types import GRAD_SUFFIX, VarType, grad_var_name
 from ..ops import registry as op_registry
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "calc_gradient"]
 
 EMPTY = "@EMPTY@"
 
@@ -133,19 +137,33 @@ def _collect_no_grad(block, no_grad_set, program):
         for name, vd in b.vars.items() if vd.stop_gradient}
 
 
-def append_backward(loss, parameter_list=None, no_grad_set=None):
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None):
     """Append the ops computing d(loss)/d(param) for every trainable
     parameter of the loss's program (or those named in
     `parameter_list`); returns [(Parameter, grad Variable)] in the
-    block's parameter order (reference: backward.py:338)."""
+    block's parameter order (reference: backward.py:338).  Each of
+    `callbacks` (one or a list; default [`clip.error_clip_callback`])
+    runs as fn(block=, context={}) after each grad op is appended."""
+    from .clip import error_clip_callback
+
     block = loss.block.program.global_block()
     params = [p for p in block.all_parameters() if p.trainable]
     if parameter_list is not None:
         wanted = set(parameter_list)
         params = [p for p in params if p.name in wanted]
+    if callbacks is None:
+        callbacks = [error_clip_callback]
+    elif not isinstance(callbacks, (list, tuple)):
+        callbacks = [callbacks]
+
+    def after_op():
+        for cb in callbacks:
+            cb(block=block, context={})
+
     pairs = _append_backward_desc(block.desc, loss.name,
                                   [p.name for p in params], no_grad_set,
-                                  block.program.desc)
+                                  block.program.desc, after_op)
     block.sync_with_desc()
     by_name = {p.name: p for p in params}
     return [(by_name[p], block.var(g)) for p, g in pairs]
@@ -171,11 +189,12 @@ def _append_grad_ops(block, targets, target_grads, no_grad_names):
 
 
 def _append_backward_desc(block, loss_name, params, no_grad_set,
-                          program):
+                          program, after_op=None):
     """append_backward on the BlockDesc `block` of the ProgramDesc
     `program`, for the parameters named in `params`; returns
     [(param name, grad name)].  A var of a parent block has its
-    stop_gradient and meta found there."""
+    stop_gradient and meta found there.  `after_op()` runs after each
+    grad op is appended."""
     loss = block.var(loss_name)
     no_grad_names = _collect_no_grad(block, no_grad_set, program)
 
@@ -197,12 +216,61 @@ def _append_backward_desc(block, loss_name, params, no_grad_set,
             params_grads.append((p, gname))
 
     for op in state.new_ops:
-        block.ops.append(op)
+        _append_grad_op(block, op, program)
+        if after_op is not None:
+            after_op()
+    return params_grads
+
+
+def _append_grad_op(block, op, program):
+    """Append the grad OpDesc `op` to `block` with the VarDescs of the
+    grads it writes."""
+    block.ops.append(op)
+    for n in op.output_names():
+        if n != EMPTY:
+            _ensure_grad_var(block, _src_of(n), program)
+    _apply_sparse_grad_types(block, op)
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Append the grads of `targets` (a Variable or a list) with respect
+    to `inputs` (the same), each target seeded with ones of its shape or
+    with its entry of `target_gradients`; returns the grad Variables of
+    the inputs, None where none reaches one.  An input gets its grad even
+    when it is stop_gradient."""
+    if not isinstance(targets, (list, tuple)):
+        targets = [targets]
+    if not isinstance(inputs, (list, tuple)):
+        inputs = [inputs]
+    block = targets[0].block
+    bd, program = block.desc, block.program.desc
+    no_grad_names = _collect_no_grad(bd, no_grad_set, program) \
+        - {v.name for v in inputs}
+    tnames, tgrads = [], []
+    for i, t in enumerate(targets):
+        g = grad_var_name(t.name)
+        if target_gradients is not None and target_gradients[i] is not None:
+            g = target_gradients[i].name
+        else:
+            bd.ops.append(OpDesc(
+                "fill_constant", {}, {"Out": [g]},
+                {"shape": list(t.shape) or [1], "value": 1.0,
+                 "dtype": t.dtype}))
+            _ensure_grad_var(bd, t.name, program)
+        tnames.append(t.name)
+        tgrads.append(g)
+    state = _append_grad_ops(bd, tnames, tgrads, no_grad_names)
+    grads = [state.finalize(v.name) for v in inputs]
+    # all the grad ops first, then their VarDescs, in the JAX side's
+    # order (the VarDescs' order is part of the desc)
+    bd.ops.extend(state.new_ops)
+    for op in state.new_ops:
         for n in op.output_names():
             if n != EMPTY:
-                _ensure_grad_var(block, _src_of(n), program)
-        _apply_sparse_grad_types(block, op)
-    return params_grads
+                _ensure_grad_var(bd, _src_of(n), program)
+        _apply_sparse_grad_types(bd, op)
+    block.sync_with_desc()
+    return [block.var(g) if g is not None else None for g in grads]
 
 
 def _src_of(grad_name):

@@ -50,8 +50,8 @@ EMPTY = "@EMPTY@"
 RNG_STATE_NAME = "@RNG_STATE@"
 
 __all__ = ["Executor", "Place", "CPUPlace", "CUDAPlace", "ExecContext",
-           "global_scope", "scope_guard", "apply_op", "prepare_feed",
-           "fetch_to_host"]
+           "global_scope", "scope_guard", "fetch_var", "apply_op",
+           "prepare_feed", "fetch_to_host"]
 
 
 class Place:
@@ -96,6 +96,16 @@ def scope_guard(scope):
         yield
     finally:
         scope_mod._global_scope = old
+
+
+def fetch_var(name, scope=None, return_numpy=True):
+    """The value of `name` in `scope` (default: the global scope): on
+    the host (`fetch_to_host`) unless return_numpy is False; None where
+    the scope has none."""
+    val = (scope or global_scope()).get(name)
+    if return_numpy and val is not None:
+        return fetch_to_host(val)
+    return val
 
 
 class ExecContext:

@@ -52,7 +52,9 @@ def unique_name(prefix, program=None):
 
 class Variable:
     """A symbolic variable of a Block (reference: framework.py:125); its
-    VarDesc is created on first sight, updated when found again."""
+    VarDesc is created on first sight, updated when found again.
+    `error_clip` (fluid/clip.py `ErrorClipByValue`) clips its grad where
+    the backward writes it."""
 
     def __init__(self, block, name=None, shape=None, dtype=None,
                  lod_level=None, persistable=None, stop_gradient=False,
@@ -79,6 +81,7 @@ class Variable:
             if persistable is not None:
                 desc.persistable = bool(persistable)
         self.desc = desc
+        self.error_clip = kwargs.get("error_clip")
 
     @property
     def name(self):
@@ -124,10 +127,13 @@ class Variable:
 class Parameter(Variable):
     """A trainable persistable variable (reference: framework.py
     Parameter): its shape is static; `regularizer` is its own weight
-    decay (fluid/regularizer.py), None for the optimizer's."""
+    decay (fluid/regularizer.py), None for the optimizer's;
+    `gradient_clip_attr` clips its grad (fluid/clip.py), None for no
+    clip."""
 
     def __init__(self, block, shape, dtype, trainable=True,
-                 optimize_attr=None, regularizer=None, **kwargs):
+                 optimize_attr=None, regularizer=None,
+                 gradient_clip_attr=None, **kwargs):
         if shape is None or dtype is None:
             raise ValueError("Parameter needs shape and dtype")
         if any(d < 0 for d in shape):
@@ -139,6 +145,7 @@ class Parameter(Variable):
         self.trainable = trainable
         self.optimize_attr = optimize_attr or {"learning_rate": 1.0}
         self.regularizer = regularizer
+        self.gradient_clip_attr = gradient_clip_attr
 
 
 class Operator:
@@ -301,9 +308,11 @@ class Program:
                 if vd.is_parameter:
                     param = Parameter.__new__(Parameter)
                     param.block, param.desc = b, vd
+                    param.error_clip = None
                     param.trainable = True
                     param.optimize_attr = {"learning_rate": 1.0}
                     param.regularizer = None
+                    param.gradient_clip_attr = None
                     b.vars[name] = param
             b.sync_with_desc()
         return p
@@ -359,6 +368,7 @@ class Program:
                 pv.trainable = var.trainable
                 pv.optimize_attr = var.optimize_attr
                 pv.regularizer = var.regularizer
+                pv.gradient_clip_attr = var.gradient_clip_attr
         if for_test:
             for b in p.desc.blocks:
                 for op in b.ops:

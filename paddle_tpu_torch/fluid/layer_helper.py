@@ -25,7 +25,8 @@ def _broadcast_attrs(attr, n):
         return attrs + [ParamAttr(initializer=a.initializer,
                                   learning_rate=a.learning_rate,
                                   regularizer=a.regularizer,
-                                  trainable=a.trainable)
+                                  trainable=a.trainable,
+                                  gradient_clip=a.gradient_clip)
                         for _ in range(n - 1)]
     raise ValueError("got %d param_attr entries for %d inputs"
                      % (len(attrs), n))

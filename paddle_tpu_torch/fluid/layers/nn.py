@@ -4,9 +4,10 @@ that the port's models build with.
 Counterpart of paddle_tpu/fluid/layers/nn.py (reference:
 python/paddle/v2/fluid/layers/nn.py — fc:69, embedding:190,
 conv2d:912, pool2d, batch_norm:1250, dropout, lrn, accuracy, the
-sequence layers, the CRF ...).  Each function appends ops to the current
-block with the JAX package's op types, slots, attrs, names
-and initializers; nothing runs here.  The other layers wait (ROADMAP A).
+sequence layers, the CRF, matmul, one_hot, clip ...).  Each function
+appends ops to the current block with the JAX package's op types,
+slots, attrs, names and initializers; nothing runs here.  The other
+layers wait (ROADMAP A).
 """
 
 import numpy as np
@@ -28,7 +29,9 @@ __all__ = [
     "sequence_expand", "sequence_reshape", "row_conv", "linear_chain_crf",
     "crf_decoding", "chunk_eval", "topk", "im2sequence", "warpctc",
     "ctc_greedy_decoder", "edit_distance", "sequence_unnest",
-    "sequence_renest", "beam_search", "beam_search_decode",
+    "sequence_renest", "beam_search", "beam_search_decode", "matmul",
+    "l2_normalize", "one_hot", "clip", "clip_by_norm", "multiplex",
+    "smooth_l1",
 ]
 
 
@@ -855,3 +858,71 @@ def edit_distance(input, label, normalized=False, ignored_tokens=None,
         attrs={"normalized": normalized,
                "ignored_tokens": ignored_tokens or []})
     return out, seq_num
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None, **kwargs):
+    helper = LayerHelper("matmul", **kwargs)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(
+        type="matmul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y})
+    return out
+
+
+def clip(x, min, max, **kwargs):
+    helper = LayerHelper("clip", **kwargs)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, **kwargs):
+    helper = LayerHelper("clip_by_norm", **kwargs)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"max_norm": max_norm})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, **kwargs):
+    """x over its L2 norm along `axis` (the `norm` op)."""
+    helper = LayerHelper("l2_normalize", **kwargs)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="norm", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def one_hot(input, depth, **kwargs):
+    helper = LayerHelper("one_hot", **kwargs)
+    out = helper.create_tmp_variable(dtype="float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def multiplex(inputs, index, **kwargs):
+    helper = LayerHelper("multiplex", **kwargs)
+    out = helper.create_tmp_variable(inputs[0].dtype)
+    helper.append_op(type="multiplex",
+                     inputs={"X": inputs, "Ids": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None,
+              **kwargs):
+    """The per-row smooth L1 loss [N, 1] (the `smooth_l1_loss` op)."""
+    helper = LayerHelper("smooth_l1_loss", **kwargs)
+    diff = helper.create_tmp_variable(x.dtype, stop_gradient=True)
+    loss = helper.create_tmp_variable(x.dtype)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": [diff], "Out": [loss]},
+                     attrs={"sigma": sigma or 1.0})
+    return loss

@@ -1,15 +1,21 @@
 """Unary and elementwise layers, generated from op lists.
 
 Counterpart of paddle_tpu/fluid/layers/ops.py (reference:
-layers/ops.py, generated from the OpProtos): one layer per activation op
-the port registers (ops/activation.py), `mean`, `scale`, `sign` and
-the `elementwise_*` family.
+layers/ops.py, generated from the OpProtos): one layer per activation
+op of the JAX package's list (ops/activation.py; a keyword argument of
+the layer becomes an attr of its op), `mean`, `scale`, `sign` and the
+`elementwise_*` family.
 """
 
-from ...ops.activation import UNARY
 from ..layer_helper import LayerHelper
 
-__act_ops__ = sorted(UNARY)
+__act_ops__ = [
+    "sigmoid", "logsigmoid", "exp", "relu", "tanh", "tanh_shrink",
+    "softshrink", "hard_shrink", "sqrt", "abs", "ceil", "floor", "round",
+    "reciprocal", "log", "square", "softplus", "softsign", "brelu",
+    "leaky_relu", "soft_relu", "elu", "relu6", "pow", "stanh",
+    "thresholded_relu", "hard_sigmoid", "swish",
+]
 
 __all__ = __act_ops__ + ["mean", "scale", "sign"]
 

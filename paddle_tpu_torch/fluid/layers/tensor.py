@@ -1,13 +1,17 @@
 """Tensor layers (reference: python/paddle/v2/fluid/layers/tensor.py):
 the subset whose ops the port has."""
 
+import numpy as np
+
+from ..framework import Variable
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["create_tensor", "create_parameter", "create_global_var", "cast",
-           "concat", "sums", "fill_constant", "fill_constant_batch_size_like",
-           "ones", "zeros", "reshape", "increment"]
+           "concat", "sums", "assign", "fill_constant",
+           "fill_constant_batch_size_like", "ones", "zeros", "reshape",
+           "increment"]
 
 
 def create_tensor(dtype, name=None, persistable=False, **kwargs):
@@ -58,6 +62,22 @@ def sums(input, out=None, **kwargs):
     helper.append_op(type="sum", inputs={"X": input},
                      outputs={"Out": [out]})
     return out
+
+
+def assign(input, output, **kwargs):
+    """`output` = `input`: a Variable by an `assign` op, an array (or
+    anything numpy takes) by an `assign_value` op holding its values."""
+    helper = LayerHelper("assign", **kwargs)
+    if isinstance(input, Variable):
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+    else:
+        arr = np.asarray(input)
+        helper.append_op(
+            type="assign_value", outputs={"Out": [output]},
+            attrs={"shape": list(arr.shape), "dtype": str(arr.dtype),
+                   "values": arr.reshape(-1).tolist()})
+    return output
 
 
 def fill_constant(shape, dtype, value, out=None, **kwargs):

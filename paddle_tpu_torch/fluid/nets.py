@@ -1,15 +1,19 @@
-"""Composite image networks built from the port's layers.
+"""Composite networks built from the port's layers.
 
-Counterpart of paddle_tpu/fluid/nets.py `simple_img_conv_pool`,
-`img_conv_group` and `sequence_conv_pool` (reference:
-python/paddle/v2/fluid/nets.py): graph builders over conv2d,
-batch_norm, dropout, pool2d, sequence_conv and sequence_pool, appending
-the same ops as the JAX package's.
+Counterpart of paddle_tpu/fluid/nets.py (reference:
+python/paddle/v2/fluid/nets.py): `simple_img_conv_pool`,
+`img_conv_group` and `sequence_conv_pool` over conv2d, batch_norm,
+dropout, pool2d, sequence_conv and sequence_pool; `glu`; and
+`scaled_dot_product_attention`, whose dense route runs `matmul` and
+`softmax` over heads folded into the batch and whose `use_flash` route
+is one `flash_attention` op (the hand-written kernel on the card).
+Each appends the same ops as the JAX package's.
 """
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
 
 def _per_stage(value, n_stages):
@@ -69,3 +73,67 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                                     filter_size=filter_size,
                                     param_attr=param_attr, act=act)
     return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    """The gated linear unit: the first half of `input` along `dim` times
+    the sigmoid of the second."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(x=a, y=layers.sigmoid(x=b))
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0, use_flash=False):
+    """Multi-head scaled dot-product attention over dense [batch, seq,
+    dim] tensors: the heads folded into the batch ([b, t, d] -> [b*h, t,
+    d/h]), softmax(q k^T / sqrt(d/h)) v by two batched `matmul`s, and the
+    heads unfolded.  `use_flash` appends one `flash_attention` op
+    instead (no [t, t] matrix in memory: the same function to rounding);
+    it takes no dropout and one hidden size for queries, keys and
+    values."""
+    if len(queries.shape) != 3 or len(keys.shape) != 3 \
+            or len(values.shape) != 3:
+        raise ValueError("inputs must be 3-D [batch, seq, dim]")
+    d = queries.shape[-1]
+    tq = queries.shape[1]
+    if d != keys.shape[-1]:
+        raise ValueError("queries and keys hidden dims must match")
+    if keys.shape[1] != values.shape[1]:
+        raise ValueError("keys and values seq lens must match")
+    if d % num_heads:
+        raise ValueError("hidden size must divide num_heads")
+    if values.shape[-1] % num_heads:
+        raise ValueError("values hidden size must divide num_heads")
+    head = d // num_heads
+    dv_head = values.shape[-1] // num_heads
+
+    if use_flash:
+        if dropout_rate:
+            raise ValueError(
+                "use_flash has no probability matrix to apply dropout "
+                "to; set dropout_rate=0")
+        if values.shape[-1] != d:
+            raise ValueError(
+                "use_flash requires matching q/k/v hidden sizes")
+        return layers.flash_attention(queries, keys, values,
+                                      num_heads=num_heads)
+
+    def fold(x, per_head):
+        # [b, t, d] -> [b*h, t, d/h]; one -1 per reshape, so a dynamic
+        # batch dim infers
+        t = x.shape[1]
+        x = layers.reshape(x=x, shape=[-1, t, num_heads, per_head])
+        x = layers.transpose(x=x, perm=[0, 2, 1, 3])
+        return layers.reshape(x=x, shape=[-1, t, per_head])
+
+    scores = layers.matmul(
+        x=layers.scale(x=fold(queries, head), scale=head ** -0.5),
+        y=fold(keys, head), transpose_y=True)     # [b*h, tq, tk]
+    attn = layers.softmax(scores)
+    if dropout_rate:
+        attn = layers.dropout(attn, dropout_prob=dropout_rate,
+                              is_test=False)
+    ctx = layers.matmul(attn, fold(values, dv_head))  # [b*h, tq, dv/h]
+    ctx = layers.reshape(x=ctx, shape=[-1, num_heads, tq, dv_head])
+    ctx = layers.transpose(x=ctx, perm=[0, 2, 1, 3])
+    return layers.reshape(x=ctx, shape=[-1, tq, num_heads * dv_head])

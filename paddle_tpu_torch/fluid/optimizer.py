@@ -10,7 +10,8 @@ slots, its shared scalars and its hyperparameter attrs; `minimize`
 appends the backward (fluid/backward.py), then per parameter, in name
 order, the state (`<param>_velocity_0`, `<param>_moment1_0`, ...) and
 one update op, with the learning rate in a shared persistable var
-(`learning_rate_0`) and the shared scalars (Adam's `beta1_pow_acc_0`,
+(`learning_rate_0`, or the Variable given, such as a schedule's:
+fluid/lr_schedules.py) and the shared scalars (Adam's `beta1_pow_acc_0`,
 `beta2_pow_acc_0`; Adamax's one `beta1_pow_acc_0`) read by every
 update op and advanced by one in-place `scale` each per step.  Adadelta
 takes no learning rate (`uses_lr = False`): its ops have no
@@ -20,20 +21,25 @@ declared in the main and startup programs and initialised by a
 `fill_constant` in the startup, so both programs equal the JAX
 package's (with `fuse_optimizer` off, its default) through `to_dict()`.
 A sparse (SelectedRows) grad goes to the update op as it is.  Every
-constructor takes `regularization` (fluid/regularizer.py: its ops are
-appended to the sorted grads before the updates, a parameter's own
-`regularizer` first) and `global_step` (a var one `increment` op
-advances after the updates).  Clipping and fused updates wait with
-ROADMAP A5.
+constructor takes `regularization` (fluid/regularizer.py) and
+`global_step` (a var one `increment` op advances after the updates).
+`minimize` appends, in the JAX side's order, the backward, each
+parameter's gradient clip (fluid/clip.py, by its `gradient_clip_attr`),
+the regularizers (a parameter's own `regularizer` first), the updates,
+and with `fuse_updates` (default: the flag `fuse_optimizer`, off)
+stacks same-recipe updates into `fused_update` ops (fluid/fusion.py).
 """
 
 from collections import namedtuple
 
+from . import clip as clip_mod
+from . import fusion
 from .backward import append_backward
 from .framework import Program, Variable, unique_name
 from .initializer import Constant
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
+from ..utils import flags
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
            "MomentumOptimizer", "Adagrad", "AdagradOptimizer", "Adam",
@@ -100,10 +106,12 @@ class Optimizer:
         return var
 
     def create_optimization_pass(self, parameters_and_grads, loss,
-                                 startup_program=None):
+                                 startup_program=None, fuse_updates=None):
         """The state and one update op per parameter with a grad
         (reference: optimizer.py:151), then one `scale` per shared
-        scalar; returns the update Operators."""
+        scalar; with `fuse_updates` (default: the flag
+        `fuse_optimizer`), the updates stacked by fusion.fuse_update_ops.
+        Returns the update Operators."""
         program = loss.block.program
         block = program.global_block()
         helper = LayerHelper(type(self).__name__, main_program=program,
@@ -143,13 +151,18 @@ class Optimizer:
 
             tensor_layers.increment(self._global_step, value=1.0,
                                     in_place=True)
+        if fuse_updates is None:
+            fuse_updates = flags.get_flag("fuse_optimizer")
+        if fuse_updates:
+            ops = fusion.fuse_update_ops(block, ops)
         return ops
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
-                 no_grad_set=None):
-        """Append the backward and the updates; returns (update
-        Operators, [(Parameter, grad Variable)] sorted by name)
-        (reference: optimizer.py:204).
+                 no_grad_set=None, fuse_updates=None):
+        """Append the backward, the clips, the regularizers and the
+        updates; returns (update Operators, [(Parameter, grad Variable)]
+        sorted by name, the grads clipped and regularized) (reference:
+        optimizer.py:204).
 
         The desc form `minimize(loss_name, main_desc, startup_desc)`
         works on ProgramDescs built without the layers (it wraps them
@@ -158,16 +171,19 @@ class Optimizer:
         if isinstance(loss, str):
             main = Program.from_desc(startup_program)
             ops, pairs = self.minimize(main.global_block().var(loss),
-                                       Program.from_desc(parameter_list))
+                                       Program.from_desc(parameter_list),
+                                       fuse_updates=fuse_updates)
             return [op.desc for op in ops], \
                 [(p.name, g.name) for p, g in pairs]
         params_grads = sorted(
             append_backward(loss, parameter_list, no_grad_set),
             key=lambda pg: pg[0].name)
+        params_grads, _ = clip_mod.append_gradient_clip_ops(params_grads)
         params_grads = append_regularization_ops(params_grads,
                                                  self.regularization)
-        return self.create_optimization_pass(params_grads, loss,
-                                             startup_program), params_grads
+        return self.create_optimization_pass(
+            params_grads, loss, startup_program,
+            fuse_updates=fuse_updates), params_grads
 
 
 class SGDOptimizer(Optimizer):

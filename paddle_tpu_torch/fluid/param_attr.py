@@ -3,8 +3,9 @@
 Counterpart of paddle_tpu/fluid/param_attr.py (reference:
 python/paddle/v2/fluid/param_attr.py): a name, an initializer, a
 learning-rate scale, a regularizer (fluid/regularizer.py; it overrides
-the optimizer's `regularization` for this parameter) and `trainable`.
-Gradient clips wait with `clip.py` (ROADMAP A5).
+the optimizer's `regularization` for this parameter), `trainable`, and
+a gradient clip (fluid/clip.py; `clip` and `gradient_clip` name the
+same field), which the parameter carries as `gradient_clip_attr`.
 """
 
 from .initializer import Constant, Initializer, Xavier
@@ -14,12 +15,15 @@ __all__ = ["ParamAttr"]
 
 class ParamAttr:
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
-                 regularizer=None, trainable=True):
+                 regularizer=None, trainable=True, clip=None,
+                 gradient_clip=None):
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate
         self.regularizer = regularizer
         self.trainable = trainable
+        self.gradient_clip = gradient_clip if gradient_clip is not None \
+            else clip
 
     def set_default_initializer(self, initializer):
         if self.initializer is None:
@@ -53,4 +57,5 @@ class ParamAttr:
         return {"name": self.name,
                 "optimize_attr": {"learning_rate": self.learning_rate},
                 "regularizer": self.regularizer,
-                "trainable": self.trainable}
+                "trainable": self.trainable,
+                "gradient_clip_attr": self.gradient_clip}

@@ -1,37 +1,111 @@
-"""Activation op kernels: the unary activations and `softmax`.
+"""Activation op kernels: the unary activations, `prelu` and `softmax`.
 
 Counterpart of paddle_tpu/ops/activation.py (reference:
 activation_op.cc, softmax_op.cc).  Each unary activation is one torch
 expression on X (on its values when X is ragged, the result ragged over
-X's splits); grads come from the generic vjp.
+X's splits) and its attrs; grads come from the generic vjp.  Where the
+JAX side's expression has a tie, the torch one is chosen to take the
+same grad there: `jnp.clip` (`brelu`, `relu6`, `hard_sigmoid`,
+`soft_relu`) is `minimum(maximum(x, lo), hi)`, whose grad is half at a
+bound, where `torch.clamp`'s is whole; `jnp.abs`'s grad at 0 is 1, where
+`torch.abs`'s is 0.
 """
 
 import torch
 
 from .registry import like, register_op, values_of
 
+
+def jnp_abs(x):
+    """|x| with `jnp.abs`'s grad: 1 at 0 and at -0.0 (`torch.abs`'s is
+    0).  x + 0.0 turns -0.0 into +0.0 and leaves every other x as it
+    is, so the value is `torch.abs`'s."""
+    return torch.where(x >= 0, x + 0.0, -x)
+
+
+def jnp_clip(x, lo, hi):
+    """`jnp.clip(x, lo, hi)` with its grad: half at a bound, as
+    `jnp.maximum` and `jnp.minimum` split a tie (the scalar bounds become
+    0-d tensors, filled on the device without a copy from the host:
+    `torch.clamp` would give the whole grad there)."""
+    lo = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+# the activations without attrs
 UNARY = {
     "relu": torch.relu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "exp": torch.exp,
     "sqrt": torch.sqrt,
-    "abs": torch.abs,
+    "abs": jnp_abs,
     "log": torch.log,
     "square": torch.square,
+}
+
+
+def _softplus(x):
+    # jax.nn.softplus is jnp.logaddexp(x, 0), whose grad is
+    # exp(x - out), as torch.logaddexp's
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _where0(cond, x):
+    return torch.where(cond, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+# the activations with attrs, each fn(x, attrs), with the JAX side's
+# defaults
+ACTIVATIONS = {
+    "logsigmoid": lambda x, a: -_softplus(-x),
+    "tanh_shrink": lambda x, a: x - torch.tanh(x),
+    "softshrink": lambda x, a: torch.where(
+        x > a.get("lambda", 0.5), x - a.get("lambda", 0.5),
+        _where0(x < -a.get("lambda", 0.5), x + a.get("lambda", 0.5))),
+    "hard_shrink": lambda x, a: _where0(
+        jnp_abs(x) > a.get("threshold", 0.5), x),
+    "ceil": lambda x, a: torch.ceil(x),
+    "floor": lambda x, a: torch.floor(x),
+    "round": lambda x, a: torch.round(x),
+    "reciprocal": lambda x, a: 1.0 / x,
+    "softplus": lambda x, a: _softplus(x),
+    "softsign": lambda x, a: x / (1 + jnp_abs(x)),
+    "brelu": lambda x, a: jnp_clip(x, a.get("t_min", 0.0),
+                                   a.get("t_max", 24.0)),
+    "leaky_relu": lambda x, a: torch.where(x >= 0, x,
+                                           x * a.get("alpha", 0.02)),
+    "soft_relu": lambda x, a: torch.log(1 + torch.exp(jnp_clip(
+        x, -a.get("threshold", 40.0), a.get("threshold", 40.0)))),
+    "elu": lambda x, a: torch.where(
+        x >= 0, x, a.get("alpha", 1.0) * (torch.exp(x) - 1)),
+    "relu6": lambda x, a: jnp_clip(x, 0.0, a.get("threshold", 6.0)),
+    "pow": lambda x, a: torch.pow(x, a.get("factor", 1.0)),
+    "stanh": lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
+        a.get("scale_a", 2.0 / 3.0) * x),
+    "thresholded_relu": lambda x, a: _where0(
+        x > a.get("threshold", 1.0), x),
+    "hard_sigmoid": lambda x, a: jnp_clip(
+        a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0),
+    "swish": lambda x, a: x * torch.sigmoid(a.get("beta", 1.0) * x),
 }
 
 
 def _unary(name, fn):
     @register_op(name)
     def kernel(ctx, ins, attrs):
-        return {"Out": [like(ins["X"][0], fn(values_of(ins["X"][0])))]}
+        return {"Out": [like(ins["X"][0], fn(values_of(ins["X"][0]),
+                                             attrs))]}
 
     kernel.__name__ = name
     return kernel
 
 
 for _name, _fn in UNARY.items():
+    _unary(_name, lambda x, a, fn=_fn: fn(x))
+for _name, _fn in ACTIVATIONS.items():
     _unary(_name, _fn)
 
 
@@ -45,3 +119,12 @@ def softmax(ctx, ins, attrs):
     else:
         out = torch.softmax(x, dim=-1)
     return {"Out": [like(ins["X"][0], out)]}
+
+
+@register_op("prelu")
+def prelu(ctx, ins, attrs):
+    """x where x >= 0, else x * Alpha: one Alpha for all of X, or one
+    per column of a [N, C] X."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    slope = alpha.reshape(1, -1) if alpha.numel() > 1 else alpha
+    return {"Out": [torch.where(x >= 0, x, x * slope)]}

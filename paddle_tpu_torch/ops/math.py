@@ -1,14 +1,18 @@
-"""Math op kernels: `mul`, the `elementwise_*` family, `mean`, the
-`reduce_*` family, `cos_sim`, and the comparison and logical ops
-(`less_than` ... `not_equal`, `logical_and`, `_or`, `_xor`, `_not`).
+"""Math op kernels: `mul`, `matmul`, the `elementwise_*` family, `minus`,
+`mean`, the `reduce_*` family, the norms and distances
+(`squared_l2_norm`, `l1_norm`, `squared_l2_distance`, `cos_sim`), and
+the comparison and logical ops (`less_than` ... `not_equal`,
+`logical_and`, `_or`, `_xor`, `_not`).
 
 Counterparts of paddle_tpu/ops/math.py (reference: mul_op.cc,
-elementwise_op_function.h, mean_op.cc, reduce_op.cc, cos_sim_op.cc,
-compare_op.cc, logical_op.cc).
+matmul_op.cc, elementwise_op_function.h, minus_op.cc, mean_op.cc,
+reduce_op.cc, squared_l2_norm_op.cc, l1_norm_op.cc,
+squared_l2_distance_op.cc, cos_sim_op.cc, compare_op.cc,
+logical_op.cc).
 Products go to torch.matmul; with TF32 off (see the package docstring) a float32 product runs in full
 float32 on the card, as on the JAX side.  Under the bf16 policy
-(ops/amp_util.py) `mul` runs its product in bf16 and the elementwise
-ops keep a bf16 activation bf16.  `mul` and the elementwise ops over a
+(ops/amp_util.py) `mul` and `matmul` run their product in bf16 and the
+elementwise ops keep a bf16 activation bf16.  `mul` and the elementwise ops over a
 ragged X work on its rows and give X's structure to the result;
 `mean` of a ragged X covers its valid rows only, as do the reductions
 across a ragged X's rows.
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.ragged import RaggedTensor
+from .activation import jnp_abs
 from .amp_util import amp_harmonize, amp_result, mxu_operands
 from .registry import dense, like, register_op, values_of
 
@@ -41,6 +46,21 @@ def mul(ctx, ins, attrs):
     out = amp_result(torch.matmul(x2, y2), dtype)
     out = out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))
     return {"Out": [like(ins["X"][0], out)]}
+
+
+@register_op("matmul")
+def matmul(ctx, ins, attrs):
+    """X @ Y (torch.matmul's rules: batched, broadcast, 1-D operands),
+    each operand's last two dims swapped first under `transpose_X` or
+    `transpose_Y` (a 1-D operand as it is)."""
+    x, y = values_of(ins["X"][0]), values_of(ins["Y"][0])
+    if attrs.get("transpose_X") and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y") and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    dtype = torch.promote_types(x.dtype, y.dtype)
+    xm, ym = mxu_operands(x, y)
+    return {"Out": [amp_result(torch.matmul(xm, ym), dtype)]}
 
 
 def _bcast_y(x, y, axis):
@@ -72,6 +92,12 @@ _elementwise("elementwise_div", torch.div)
 _elementwise("elementwise_max", torch.maximum)
 _elementwise("elementwise_min", torch.minimum)
 _elementwise("elementwise_pow", torch.pow)
+
+
+@register_op("minus")
+def minus(ctx, ins, attrs):
+    """X - Y, broadcast."""
+    return {"Out": [values_of(ins["X"][0]) - values_of(ins["Y"][0])]}
 
 
 @register_op("mean")
@@ -176,6 +202,29 @@ _reduce("reduce_sum", _sum, acc_f32=True)
 _reduce("reduce_mean", _mean, acc_f32=True)
 _reduce("reduce_max", _max)
 _reduce("reduce_min", _min)
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(ctx, ins, attrs):
+    """The sum of X's squares, a 0-d tensor (the JAX side's `jnp.sum`)."""
+    return {"Out": [torch.sum(torch.square(values_of(ins["X"][0])))]}
+
+
+@register_op("l1_norm")
+def l1_norm(ctx, ins, attrs):
+    """The sum of |X|, a 0-d tensor; its grad at 0 is 1, as `jnp.abs`'s."""
+    return {"Out": [torch.sum(jnp_abs(values_of(ins["X"][0])))]}
+
+
+@register_op("squared_l2_distance")
+def squared_l2_distance(ctx, ins, attrs):
+    """sub_result = X - Y (a Y of one row broadcasts) and Out [N, 1], the
+    sum of its squares over every dim but the first."""
+    x, y = values_of(ins["X"][0]), values_of(ins["Y"][0])
+    sub = x - y
+    out = torch.sum(torch.square(sub), dim=tuple(range(1, sub.dim())),
+                    keepdim=True)
+    return {"sub_result": [sub], "Out": [out.reshape(x.shape[0], 1)]}
 
 
 @register_op("cos_sim")

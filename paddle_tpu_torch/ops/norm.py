@@ -1,8 +1,9 @@
 """Normalisation op kernels: `batch_norm` and `layer_norm`, each with
-its closed-form grad.
+its closed-form grad, `norm` (L2 normalisation along an axis) and
+`one_hot`.
 
 Counterpart of paddle_tpu/ops/norm.py (reference: batch_norm_op.cc,
-layer_norm_op.cc).  The port keeps the JAX side's conventions, which
+layer_norm_op.cc, norm_op.cc, one_hot_op.cc).  The port keeps the JAX side's conventions, which
 torch's native batch norm does not share: one-pass f32 statistics
 E[x^2] - E[x]^2 clamped at 0 (or the shifted form under
 `bn_shifted_stats`); `SavedVariance` is the raw batch variance, not an
@@ -14,7 +15,7 @@ persistable write-back stores them.
 import torch
 
 from ..utils import flags
-from .registry import register_grad_kernel, register_op
+from .registry import like, register_grad_kernel, register_op, values_of
 
 
 def _slot0(ins, slot):
@@ -259,3 +260,28 @@ def layer_norm_grad(ctx, ins, attrs):
         out["Bias@GRAD"] = [dys.sum(dim=0) if dy is not None
                             else torch.zeros(n, device=x.device)]
     return out
+
+
+@register_op("norm")
+def norm(ctx, ins, attrs):
+    """X / sqrt(sum(X^2 along `axis`) + epsilon), computed in f32 and
+    given back in X's dtype."""
+    x = ins["X"][0]
+    axis = int(attrs.get("axis", -1))
+    eps = attrs.get("epsilon", 1e-12)
+    xs = x if x.dtype == torch.float32 else x.float()
+    n = torch.sqrt(torch.sum(torch.square(xs), dim=axis, keepdim=True) + eps)
+    return {"Out": [(xs / n).to(x.dtype)]}
+
+
+@register_op("one_hot", stop_gradient_op=True, nondiff_inputs=("X",))
+def one_hot(ctx, ins, attrs):
+    """[N, depth] f32 rows, one per id of X (flattened; ragged ids give
+    rows ragged over their splits): 1 at the id, and a zero row for an
+    id outside [0, depth), as `jax.nn.one_hot` gives (`F.one_hot` raises
+    on one)."""
+    x = ins["X"][0]
+    ids = values_of(x).reshape(-1, 1)
+    depth = int(attrs["depth"])
+    classes = torch.arange(depth, dtype=ids.dtype, device=ids.device)
+    return {"Out": [like(x, (ids == classes).to(torch.float32))]}

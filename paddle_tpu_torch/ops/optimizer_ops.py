@@ -1,6 +1,7 @@
 """Optimizer update ops: `sgd`, `momentum`, `adam`, `adamax`, `adagrad`,
 `decayed_adagrad`, `adadelta`, `rmsprop`, `ftrl`, `proximal_gd` and
-`proximal_adagrad`, each over a dense or a SelectedRows grad.
+`proximal_adagrad`, each over a dense or a SelectedRows grad, and
+`fused_update`, one recipe over a stack of parameters.
 
 Counterpart of paddle_tpu/ops/optimizer_ops.py (reference: sgd_op.cc,
 momentum_op.cc, adam_op.cc, adamax_op.cc, adagrad_op.cc,
@@ -19,14 +20,14 @@ The out-of-place scatter copies the table first: the JAX executor donates the bu
 and the port's executor has no such donation yet (ROADMAP A2).  Every
 other op densifies the grad first (`SelectedRows.to_dense`), so under
 Adam a row outside the batch still moves once its moments are nonzero;
-a "lazy" sparse Adam is not the JAX side's function.  `fused_update`
-waits with `fluid/fusion.py` (ROADMAP A5).
+a "lazy" sparse Adam is not the JAX side's function.
 """
 
+import numpy as np
 import torch
 
 from ..core.ragged import SelectedRows, add_rows_, row_index
-from .registry import register_op
+from .registry import get_op_info, register_op
 
 
 def _lr(ins):
@@ -247,3 +248,41 @@ def proximal_adagrad(ctx, ins, attrs):
     return {"ParamOut": [_shrink(p - lr_t * g, lr_t, attrs.get("l1", 0.0),
                                  attrs.get("l2", 0.0))],
             "MomentOut": [mom_out]}
+
+
+# the attrs fluid/fusion.py adds to the inner recipe's own
+FUSION_ATTRS = ("inner_type", "stacked_slots")
+
+
+@register_op("fused_update", stop_gradient_op=True,
+             in_place_outputs=("ParamOut",))
+def fused_update(ctx, ins, attrs):
+    """One update recipe (`inner_type`) over a stack of parameters
+    (fluid/fusion.py `fuse_update_ops`): each slot of `stacked_slots`
+    holds one tensor per parameter, flattened and concatenated; the
+    inner kernel runs once over the concatenation; each output splits
+    back into the parameters' shapes.  The other slots (the learning
+    rate, Adam's beta powers) are shared.  Every recipe is elementwise
+    per parameter, so each element takes the same operations on the
+    same operands as in the unfused op: the same bits.  A SelectedRows
+    grad among them indexes rows of its own parameter, so the recipe
+    then runs per parameter, as on the JAX side."""
+    inner = get_op_info(attrs["inner_type"]).kernel
+    stacked = set(attrs["stacked_slots"])
+    inner_attrs = {k: v for k, v in attrs.items() if k not in FUSION_ATTRS}
+    params = ins["Param"]
+    if any(isinstance(g, SelectedRows) for g in ins["Grad"]):
+        outs = {}
+        for i in range(len(params)):
+            one = {k: [v[i]] if k in stacked else v for k, v in ins.items()}
+            for k, v in inner(ctx, one, inner_attrs).items():
+                outs.setdefault(k, []).append(v[0])
+        return outs
+    shapes = [p.shape for p in params]
+    sizes = [int(np.prod(s)) for s in shapes]
+    res = inner(ctx, {k: [torch.cat([t.reshape(-1) for t in v])]
+                      if k in stacked else v for k, v in ins.items()},
+                inner_attrs)
+    return {k: [piece.reshape(s) for piece, s in
+                zip(torch.split(v[0], sizes), shapes)]
+            for k, v in res.items()}

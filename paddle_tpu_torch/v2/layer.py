@@ -330,6 +330,23 @@ def context_projection(input, context_len, context_start=None):
         filter_size=context_len, bias_attr=False))
 
 
+def trans_full_matrix_projection(input, size, param_attr=None):
+    """out = x W^T with W [size, in] (reference: layers.py
+    trans_full_matrix_projection), so a weight can be tied to an
+    ordinary projection's."""
+
+    def build():
+        from ..fluid.layer_helper import LayerHelper
+
+        helper = LayerHelper("trans_fm_projection", param_attr=param_attr)
+        w = helper.create_parameter(helper.param_attr,
+                                    shape=[size, input.shape[-1]],
+                                    dtype=input.dtype)
+        return fl.matmul(x=input, y=w, transpose_y=True)
+
+    return _Projection(build)
+
+
 def scaling_projection(input, param_attr=None):
     """out = w * x with one learned scalar w (reference: layers.py
     scaling_projection over ScalingProjection.cpp)."""
@@ -341,6 +358,36 @@ def scaling_projection(input, param_attr=None):
         w = helper.create_parameter(helper.param_attr, shape=[1],
                                     dtype=input.dtype)
         return fl.elementwise_mul(x=input, y=w)
+
+    return _Projection(build)
+
+
+def slice_projection(input, slices):
+    """The input's column ranges [(start, end), ...] side by side
+    (reference: layers.py slice_projection): a transpose, one `gather`
+    of the chosen columns (their ids an `assign_value`), a transpose
+    back."""
+    for s, e in slices:
+        if not (0 <= s < e <= input.shape[-1]):
+            raise ValueError("bad slice (%d, %d) for width %d"
+                             % (s, e, input.shape[-1]))
+
+    def build():
+        from ..fluid.layer_helper import LayerHelper
+
+        cols = [c for s, e in slices for c in range(s, e)]
+        helper = LayerHelper("slice_projection")
+        idx = helper.create_tmp_variable("int32")
+        idx.stop_gradient = True
+        helper.append_op(type="assign_value", inputs={},
+                         outputs={"Out": [idx]},
+                         attrs={"shape": [len(cols)], "dtype": "int32",
+                                "values": cols})
+        t = fl.transpose(x=input, perm=[1, 0])
+        picked = helper.create_tmp_variable(input.dtype)
+        helper.append_op(type="gather", inputs={"X": [t], "Index": [idx]},
+                         outputs={"Out": [picked]})
+        return fl.transpose(x=picked, perm=[1, 0])
 
     return _Projection(build)
 
@@ -527,10 +574,25 @@ def sum_to_one_norm(input, name=None, **kw):
     return register_layer_output(name, fl.elementwise_div(x=input, y=s))
 
 
+def row_l2_norm(input, name=None, **kw):
+    return register_layer_output(name, fl.l2_normalize(x=input, axis=1))
+
+
 def dot_prod(a, b, name=None, **kw):
     prod = fl.elementwise_mul(x=a, y=b)
     return register_layer_output(
         name, fl.reduce_sum(input=prod, dim=1, keep_dim=True))
+
+
+def l2_distance(a, b, name=None, **kw):
+    """The L2 distance of a's and b's rows, [N, 1]."""
+    sq = _helper_op("squared_l2_distance", {"X": [a], "Y": [b]})
+    return register_layer_output(name, fl.sqrt(sq))
+
+
+def clip(input, min, max, name=None, **kw):
+    return register_layer_output(
+        name, fl.clip(x=input, min=float(min), max=float(max)))
 
 
 def resize(input, size, name=None, **kw):
@@ -572,6 +634,39 @@ def sub_seq(input, offsets, sizes, name=None, **kw):
 seq_slice = sub_seq
 
 
+def factorization_machine(input, factor_size, param_attr=None,
+                          act=None, name=None, **kw):
+    """0.5 * sum((x V)^2 - x^2 V^2) over the factors, [N, 1] (reference:
+    FactorizationMachineLayer.cpp)."""
+    from ..fluid.layer_helper import LayerHelper
+
+    helper = LayerHelper("factorization_machine", param_attr=param_attr)
+    v = helper.create_parameter(helper.param_attr,
+                                shape=[input.shape[-1], factor_size],
+                                dtype=input.dtype)
+    xv = fl.matmul(x=input, y=v)
+    x2v2 = fl.matmul(x=fl.square(input), y=fl.square(v))
+    diff = fl.elementwise_sub(x=fl.square(xv), y=x2v2)
+    out = fl.scale(x=fl.reduce_sum(input=diff, dim=1, keep_dim=True),
+                   scale=0.5)
+    act_n = _act_name(act)
+    if act_n:
+        out = getattr(fl, act_n)(out)
+    return register_layer_output(name, out)
+
+
+def _helper_op(op_type, inputs, attrs=None, name=None, dtype="float32"):
+    """One op of `op_type` with one output "Out" (an op's other outputs
+    go unwritten), registered under `name`."""
+    from ..fluid.layer_helper import LayerHelper
+
+    helper = LayerHelper(op_type)
+    out = helper.create_tmp_variable(dtype, lod_level=0)
+    helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs or {})
+    return register_layer_output(name, out)
+
+
 def gated_unit(input, size, act=None, name=None, gate_attr=None,
                gate_param_attr=None, inproj_attr=None,
                inproj_param_attr=None, **kw):
@@ -601,6 +696,59 @@ def img_cmrnorm(input, size, scale=0.0128, power=0.75, name=None, **kw):
     CMRProjectionNormLayer)."""
     return register_layer_output(
         name, fl.lrn(input=input, n=size, alpha=scale, beta=power))
+
+
+def cross_channel_norm(input, param_attr=None, name=None, **kw):
+    """The L2 norm across the channels of [B, C, H, W], times a learned
+    per-channel scale (reference: cross_channel_norm_layer)."""
+    from ..fluid.layer_helper import LayerHelper
+
+    helper = LayerHelper("cross_channel_norm", param_attr=param_attr)
+    scale = helper.create_parameter(helper.param_attr,
+                                    shape=[1, input.shape[1], 1, 1],
+                                    dtype=input.dtype)
+    normed = _helper_op("norm", {"X": [input]}, {"axis": 1})
+    return register_layer_output(
+        name, fl.elementwise_mul(x=normed, y=scale))
+
+
+def pad(input, pad_c=None, pad_h=None, pad_w=None, name=None, **kw):
+    """Zero-pad [B, C, H, W] by (before, after) per dim (reference:
+    pad_layer)."""
+    paddings = []
+    for p in ((0, 0), tuple(pad_c or (0, 0)), tuple(pad_h or (0, 0)),
+              tuple(pad_w or (0, 0))):
+        paddings.extend(p)
+    return _helper_op("pad", {"X": [input]}, {"paddings": paddings},
+                      name=name, dtype=input.dtype)
+
+
+def crop(input, shape=None, offsets=None, axis=0, name=None, **kw):
+    return _helper_op("crop", {"X": [input]},
+                      {"shape": list(shape),
+                       "offsets": list(offsets or [0] * 4)},
+                      name=name, dtype=input.dtype)
+
+
+def prelu(input, param_attr=None, name=None, **kw):
+    """x where x >= 0, else x times a learned slope per feature."""
+    from ..fluid.layer_helper import LayerHelper
+
+    helper = LayerHelper("prelu", param_attr=param_attr)
+    alpha = helper.create_parameter(helper.param_attr,
+                                    shape=[input.shape[-1]],
+                                    dtype=input.dtype)
+    return _helper_op("prelu", {"X": [input], "Alpha": [alpha]},
+                      name=name, dtype=input.dtype)
+
+
+def multiplex(input, index=None, name=None, **kw):
+    """Row i of the index[i]-th input; without `index`, the first of
+    `input` is the index."""
+    if index is None:
+        index, input = input[0], input[1:]
+    return register_layer_output(
+        name, fl.multiplex(inputs=list(input), index=index))
 
 
 def block_expand(input, block_x, block_y, stride_x=1, stride_y=1,
@@ -634,6 +782,11 @@ def printer(input, format=None, name=None, **kw):
 
 # -- costs -------------------------------------------------------------------
 
+def smooth_l1_cost(input, label, name=None, **kw):
+    return register_layer_output(
+        name, fl.mean(x=fl.smooth_l1(x=input, y=label)))
+
+
 def ctc(input, label, size=None, norm_by_times=False, name=None, **kw):
     """CTC cost (reference: ctc_layer over CTCLayer.cpp; lowered to the
     same native CTC as warp_ctc)."""
@@ -653,19 +806,12 @@ def warp_ctc(input, label, size=None, blank=0, norm_by_times=False,
 
 # name -> (the op types it appends, the ROADMAP item they wait with)
 _WAITING = {
-    "trans_full_matrix_projection": ("matmul", "A5"),
-    "slice_projection": ("assign_value, gather", "A5"),
     "conv_operator": ("conv2d_dynamic_filter", "A10"),
-    "row_l2_norm": ("norm", "A5"),
-    "l2_distance": ("squared_l2_distance", "A10"),
-    "clip": ("clip", "A5"),
     "kmax_seq_score": ("kmax_seq_score", "A10"),
     "sub_nested_seq": ("sub_nested_seq", "A10"),
-    "factorization_machine": ("matmul", "A5"),
     "tensor": ("bilinear_tensor_product", "A10"),
     "maxout": ("maxout", "A10"),
     "spp": ("spp", "A10"),
-    "cross_channel_norm": ("norm", "A5"),
     "img_pool3d": ("pool3d", "A10"),
     "img_conv3d": ("conv3d", "A10"),
     "bilinear_interp": ("bilinear_interp", "A10"),
@@ -673,11 +819,7 @@ _WAITING = {
     "out_prod": ("out_prod", "A10"),
     "linear_comb": ("linear_comb", "A10"),
     "conv_shift": ("conv_shift", "A10"),
-    "pad": ("pad", "A5"),
-    "crop": ("crop", "A10"),
     "scale_sub_region": ("scale_sub_region", "A10"),
-    "prelu": ("prelu", "A10"),
-    "multiplex": ("multiplex", "A10"),
     "sampling_id": ("sampling_id", "A10"),
     "hsigmoid": ("hsigmoid", "A10"),
     "nce": ("nce", "A10"),
@@ -688,7 +830,6 @@ _WAITING = {
         "multi_binary_label_cross_entropy", "A10"),
     "huber_regression_cost": ("huber_loss", "A10"),
     "huber_classification_cost": ("modified_huber_loss", "A10"),
-    "smooth_l1_cost": ("smooth_l1", "A10"),
     "priorbox": ("prior_box", "A10"),
     "roi_pool": ("roi_pool", "A10"),
     "detection_output": ("detection_output", "A10"),

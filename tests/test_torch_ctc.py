@@ -22,7 +22,8 @@ from a numpy seed; and the CRNN-CTC text recognizer built by both.
   decode through the port (the JAX test's criterion, decode exact).
 - CRNN-CTC (PaddlePaddle/models fluid/ocr_recognition
   crnn_ctc_model.py, built by chip_smoke.py's `build_crnn` through
-  each package's layers): the training, inference and startup descs
+  each package's layers, with ctc_train.py's L2 decay and gradient clip
+  on every parameter): the training, inference and startup descs
   equal between the packages at full width (1 x 48 x 512 images, four
   conv groups, GRUs of 200, 95 classes + blank); at a narrow width (one conv
   group, 8 x 32 images, GRUs of 16, 10 classes) 2 Momentum steps from
@@ -366,8 +367,16 @@ def test_crnn_descs_equal_jax_at_full_width():
     types = [op.type for op in block.ops]
     assert types.count("conv2d") == 8 and types.count("gru") == 2
     assert types.count("im2sequence") == 1 and "warpctc_grad" in types
-    assert types.count("momentum") == sum(
-        1 for v in block.vars.values() if v.is_parameter)
+    n_params = sum(1 for v in block.vars.values() if v.is_parameter)
+    assert types.count("momentum") == n_params
+    # ctc_train.py's GradientClipByValue(10, -10) and L2Decay(0.0004) on
+    # every parameter: a clip, then the decay's scale and sum, per grad
+    assert types.count("clip") == n_params
+    clips = [op for op in block.ops if op.type == "clip"]
+    assert {(op.attrs["min"], op.attrs["max"]) for op in clips} == \
+        {(-10.0, 10.0)}
+    assert sum(1 for op in block.ops if op.type == "scale"
+               and abs(op.attrs["scale"] - 0.0004) < 1e-12) == n_params
     # the sequence is 32 steps of 128 x 3 features
     seq = next(op for op in block.ops if op.type == "im2sequence")
     assert block.vars[seq.output("Out")[0]].shape == (-1, 384)

@@ -150,13 +150,19 @@ def test_softmax_with_cross_entropy(label_shape):
 
 
 def test_softmax_with_cross_entropy_soft_label_is_refused():
-    ctx = texec.ExecContext(None, 0, {"x": torch.zeros(2, 3),
-                                      "y": torch.full((2, 3), 1 / 3)})
-    op = OpDesc("softmax_with_cross_entropy", {"Logits": ["x"],
-                                               "Label": ["y"]},
-                {"Softmax": ["sm"], "Loss": ["loss"]}, {"soft_label": True})
-    with pytest.raises(NotImplementedError, match="hard labels"):
-        texec.apply_op(ctx, op)
+    """Soft labels were refused until the optimizer and layer stack's
+    slice ported them: the op now computes -sum(label * log_softmax) as
+    the JAX kernel does (ln 3 for uniform labels over 3 equal logits)."""
+    _check("softmax_with_cross_entropy",
+           {"Logits": [("x", np.zeros((2, 3), np.float32))],
+            "Label": [("y", np.full((2, 3), 1 / 3, np.float32))]},
+           {"Softmax": ["sm"], "Loss": ["loss"]}, {"soft_label": True})
+    loss = _apply_both("softmax_with_cross_entropy",
+                       {"Logits": [("x", np.zeros((2, 3), np.float32))],
+                        "Label": [("y", np.full((2, 3), 1 / 3, np.float32))]},
+                       {"Loss": ["loss"]}, {"soft_label": True})["Loss"][0][1]
+    np.testing.assert_allclose(loss, np.full((2, 1), np.log(3.0)),
+                               rtol=1e-6)
 
 
 def test_softmax_with_cross_entropy_label_index_rule():

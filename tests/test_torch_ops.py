@@ -214,6 +214,18 @@ def test_registry_holds_the_slice_op_set():
         "im2sequence",
         # nested sequences, print, the beam ops and the L1 decay's sign
         "seq_unnest", "seq_outer_expand", "seq_renest", "print",
-        "beam_search", "beam_search_decode", "sign"}
+        "beam_search", "beam_search_decode", "sign",
+        # the rest of the optimizer and layer stack: matmul, the norms
+        # and distances, the tensor ops, the activations, one_hot, norm,
+        # smooth_l1_loss and fused_update
+        "matmul", "squared_l2_norm", "l1_norm", "minus",
+        "squared_l2_distance", "assign", "assign_value", "fill",
+        "fill_zeros_like", "clip", "clip_by_norm", "expand", "gather",
+        "scatter", "pad", "crop", "multiplex", "is_empty", "shape",
+        "brelu", "ceil", "elu", "floor", "hard_shrink", "hard_sigmoid",
+        "leaky_relu", "logsigmoid", "pow", "reciprocal", "relu6", "round",
+        "soft_relu", "softplus", "softshrink", "softsign", "stanh",
+        "swish", "tanh_shrink", "thresholded_relu", "prelu", "one_hot",
+        "norm", "smooth_l1_loss", "fused_update"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")
