@@ -274,6 +274,44 @@ no result line:
      repeat gate; peak memory, and fused and unfused each: the step's
      median, tokens/s, launches a step and the busy share of a profiled
      step.
+  16. obs: numerics health, the flight recorder, the profiler, request
+     tracing and the NHWC relayout.  (a) isfinite and count_nonfinite in
+     f32, bf16 and f16 on 2^20 + 7 values with NaN, +Inf and -Inf planted
+     at seeded places, equal to the CPU plain path exactly; the served
+     transformer's forward with an Inf planted in layer 1's q/k/v weight
+     under FLAGS_check_nan_inf raises the same NonfiniteError (op type,
+     index, slot, var, count) on the card and the CPU.  (b) The
+     transformer at bench.py's width under bf16_guard() with Adam,
+     obs.health.NumericsMonitor.for_train_program and a LossScaler, 3
+     steps, the bf16 flash route 12 times a step counted from 0 just
+     before; the first step again on the CPU plain path from the same
+     state (nonfinite counts, the grad global norm within
+     OBS_NORM_RTOL, the cost's max-abs within OBS_AMP_LOSS_ATOL, the
+     scale); the step's median with the monitor and without it, with
+     fluid.profiler's table and with FLAGS_check_nan_inf, the launches
+     and the bf16 flash route's device ms of a profiled step; then an Inf
+     planted in a weight: locate_nonfinite names the CPU's op, the scope
+     is bit for bit as before the replay, and the step finds it and
+     halves the loss scale (the amp_loss_scale gauge reads 2^14).  (c)
+     The flight recorder around (b)'s steps, the obs trace on: a feed of
+     the wrong shape leaves a bundle with the step records, the feeds'
+     shapes and dtypes, the exception and the span tail; record_step's
+     cost a step.  (d) obs.health.enable() and obs.flight.install()
+     around 2 steps of phase 14's NMT at batch 16 through v2's
+     step_runner, on the card and the CPU from one state: the trainer
+     installs the monitor, whose norms agree.  (e) Phase 3's transformer
+     exported with its logits' top 2 per position, served with the SLO,
+     the tail recorder, the access log, Retry-After 2 and check_numerics:
+     64 requests of one row from 4 threads, each with a traceparent,
+     against the same server without them (p50, p99, the answers); every
+     reply echoes its trace id, the access log has the 64 lines, the
+     tail holds exactly the requests at or above tail_slow_ms, /healthz
+     has the SLO section and no nonfinite output, a burst past the queue
+     with the engine held gets 429 with Retry-After: 2.  (f) ResNet-50 at
+     bench.py's width under bf16 AMP, converted by fluid.convert_layout
+     before minimize, against NCHW from one state: 2 Momentum steps
+     each, the first loss and the first step's change gated, step ms,
+     launches and cuDNN's layout-transposing kernels' device ms in each.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -291,6 +329,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1213,8 +1252,9 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
     profile counts only when it is complete: the step's `flash_launches`
     flash launches in it; else a fresh session tries again, and the
     shares are reported as not measured (None is returned).  Returns
-    {"busy_ms", "wall_ms", "launches", "ops": {op type: (device ms, host
-    ms, ops)}}."""
+    {"busy_ms", "wall_ms", "launches", "families": {family: device ms},
+    "flash": (the flash kernel's device ms, its launches), "ops": {op
+    type: (device ms, host ms, ops)}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1266,8 +1306,12 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
               "%9.3f ms (%5.1f %% of the window), %4d ops"
               % (name, us / 1e3, 100.0 * us / busy_us, host_us / 1e3,
                  100.0 * host_us / wall_us, count), flush=True)
+    flash = [k for k in kernels if "flash_fwd_kernel" in k[0]]
     return {"busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
             "launches": sum(k[2] for k in kernels),
+            "families": {f: us / 1e3 for f, us in families.items()},
+            "flash": (sum(k[1] for k in flash) / 1e3,
+                      sum(k[2] for k in flash)),
             "ops": {name: (us / 1e3, host_us / 1e3, count)
                     for name, us, host_us, count in spans}}
 
@@ -7144,6 +7188,842 @@ def phase_stack():
             for n in set(attn) | set(train)}
 
 
+# phase 16, obs: numerics health, the flight recorder, the profiler,
+# request tracing and the NHWC relayout.  16a: the finiteness ops on
+# 2^20 + 7 values with OBS_PLANTED NaNs, +Infs and -Infs each, f32, bf16
+# and f16, card against CPU exactly (they count; nothing rounds)
+OBS_VALUES = (1 << 20) + 7
+OBS_PLANTED = 64
+# the served forward under FLAGS_check_nan_inf: one Inf in layer 1's
+# q/k/v weight, so the scan must pass layer 0 and stop at that product
+OBS_INF_WEIGHT, OBS_INF_AT = "fc_4.w_0", (0, 0)
+OBS_SCAN_ROWS = 2
+# 16b: the transformer at bench.py's width under bf16 AMP with Adam and
+# the numerics monitor, OBS_STEPS steps; its first step again on the CPU
+# plain path from the same state.  Both run bf16 products and keep bf16
+# activations between ops, rounding at the same points; their f32 sums
+# run in other orders, so an activation near a bf16 rounding boundary
+# rounds the other way (2^-9 of it) on one side, through 6 layers.  The
+# cost's max-abs (the loss itself, about ln 8192 = 9.0) within
+# OBS_AMP_LOSS_ATOL, 1e-4 of it: test_torch_training's AMP parity read
+# 4.3e-4 at 2 layers against the JAX package, whose products round
+# elsewhere; a wrong policy or route reads order 1e-2 (phase 5's wide
+# AMP against f32) and up.  The grad global norm within OBS_NORM_RTOL of
+# its size: phase 15c's 2e-4 holds f32 steps, but a bf16 step moves its
+# norm by more when only its inputs' last bits move: on an H100 the card
+# against itself from the state with every f32 value moved by one ulp
+# read 6.5e-4, the card against the CPU 4.4e-4; the gate is 3 times the
+# first, and a grad lost or doubled moves the norm by percents
+OBS_STEPS = 3
+OBS_AMP_LOSS_ATOL = 1e-3
+OBS_NORM_RTOL = 2e-3
+# 16d: the v2 NMT of phase 14 through step_runner at a smaller batch
+OBS_NMT_BATCH = 16
+# 16e: requests of one row each from 4 client threads, to phase 3's
+# transformer exported with its logits' top 2 per position as the fetch:
+# a [1, 512, 8192] logits reply is 86 MB of JSON (5.3 s to write and 2.9
+# s to read on one CPU core), so 64 of them would be minutes of JSON
+OBS_REQUESTS, OBS_CLIENTS, OBS_TOPK = 64, 4, 2
+OBS_QUEUE = 8
+OBS_SLO_MS = 500.0
+# 16f: ResNet-50 at bench.py's training shape under bf16 AMP, NHWC
+# (fluid.convert_layout before minimize) against NCHW from one state, 2
+# Momentum steps.  The same bf16 products and activations in another
+# memory order: cuDNN picks other algorithms per layout, whose f32 sums
+# round differently before the bf16 rounding, through 50 layers and the
+# batch norms' statistics.  The first loss (about ln 1000 = 6.9) within
+# NHWC_LOSS_ATOL, a third of phase 6's AMP-against-f32 gate (an H100
+# read 2.7e-4).  The first step's update under AMP is not a usable
+# gate: from a state with every f32 value moved by one ulp the NCHW
+# step's change moved by 1.12 in relative L2 on an H100 (the bf16 batch
+# norms' grads at initialisation), so it is printed; the update is held
+# in f32 instead (TF32 off, one step from the same state): the loss at
+# phase 6's RN_LOSS_ATOL and the change within NHWC_F32_CHANGE_RL2,
+# phase 6's card-against-CPU gate (an H100 read 4.3e-6 and 2.7e-2).  A
+# layout misread (an NHWC image taken as NCHW) reads order 1 in both
+NHWC_STEPS = 2
+NHWC_LOSS_ATOL = 0.05
+NHWC_F32_CHANGE_RL2 = 0.1
+
+
+def obs_ops(device):
+    """16a: isfinite and count_nonfinite on the card against the CPU."""
+    import torch
+    from paddle_tpu_torch.ops.registry import get_op_info
+
+    rs = np.random.RandomState(SEED + 160)
+    checked = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = rs.randn(OBS_VALUES).astype(np.float32)
+        idx = rs.choice(x.size, 3 * OBS_PLANTED, replace=False)
+        x[idx[:OBS_PLANTED]] = np.nan
+        x[idx[OBS_PLANTED:2 * OBS_PLANTED]] = np.inf
+        x[idx[2 * OBS_PLANTED:]] = -np.inf
+        for planted in (True, False):
+            vals = x if planted else np.nan_to_num(x, nan=0.0, posinf=1.0,
+                                                  neginf=-1.0)
+            t = torch.from_numpy(vals).to(dtype)
+            for op, want in (("isfinite", not planted),
+                             ("count_nonfinite",
+                              3 * OBS_PLANTED if planted else 0)):
+                kernel = get_op_info(op).kernel
+                got = kernel(None, {"X": [t.to(device)]}, {})["Out"][0]
+                ref = kernel(None, {"X": [t]}, {})["Out"][0]
+                got = got.cpu()
+                if got.dtype != ref.dtype or not torch.equal(got, ref) \
+                        or got.shape != (1,) or got.item() != want:
+                    raise SystemExit(
+                        "chip_smoke: %s of %s on the card %s, the CPU %s, "
+                        "planted %s" % (op, dtype, got.tolist(),
+                                        ref.tolist(), want))
+                checked.append(got.item())
+    print("obs: 16a isfinite and count_nonfinite on %d values with %d "
+          "NaN, +Inf and -Inf planted, f32, bf16 and f16: %d cases equal "
+          "to the CPU plain path exactly (%s)"
+          % (OBS_VALUES, OBS_PLANTED, len(checked),
+             ", ".join(str(c) for c in checked)), flush=True)
+
+
+def obs_scan(exe, smi):
+    """16a: the served transformer's forward with one Inf planted in a
+    weight, under FLAGS_check_nan_inf, on the card and the CPU: the same
+    NonfiniteError."""
+    from paddle_tpu_torch.fluid import CPUPlace, Executor
+    from paddle_tpu_torch.fluid.executor import NonfiniteError
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.utils import flags
+
+    prog = tp.build_transformer_inference_program(
+        BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL)
+    params = tp.init_transformer_params(prog, seed=SEED)
+    params[OBS_INF_WEIGHT][OBS_INF_AT] = np.inf
+    feed = {n: v[:OBS_SCAN_ROWS] for n, v in tp.transformer_feeds(
+        BATCH, SEQ, VOCAB, seed=SEED + 161).items()}
+    fetch = [tp.logits_name(N_LAYER)]
+    errors = []
+    flags.set_flag("check_nan_inf", True)
+    try:
+        for executor, device in ((exe, exe.device), (Executor(CPUPlace()),
+                                                     "cpu")):
+            t0 = time.perf_counter()
+            try:
+                executor.run(prog, feed=feed, fetch_list=fetch,
+                             scope=params_scope(params, device))
+            except NonfiniteError as err:
+                errors.append((err, time.perf_counter() - t0))
+            else:
+                raise SystemExit("chip_smoke: the planted Inf passed the "
+                                 "check_nan_inf scan on %s" % device)
+    finally:
+        flags.set_flag("check_nan_inf", False)
+    fields = [tuple(getattr(e, f) for f in (
+        "op_type", "op_index", "slot", "var_name", "nonfinite_count"))
+        for e, _ in errors]
+    print("obs: 16a the served forward (%d rows) with an Inf in %s under "
+          "FLAGS_check_nan_inf: card %s in %.2f s, CPU %s in %.2f s [%s]"
+          % (OBS_SCAN_ROWS, OBS_INF_WEIGHT, fields[0], errors[0][1],
+             fields[1], errors[1][1], smi), flush=True)
+    if fields[0] != fields[1] or fields[0][0] != "mul":
+        raise SystemExit("chip_smoke: the card's NonfiniteError differs "
+                         "from the CPU's")
+
+
+def scope_bits(scope):
+    """{name: a copy of each value's tensors, or the random stream's
+    state} of a scope, to hold it bit for bit."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    out = {}
+    for name, value in scope._vars.items():
+        if isinstance(value, torch.Generator):
+            out[name] = [value.get_state()]
+        else:
+            out[name] = [t.clone() for t in pytree.tree_leaves(value)
+                         if isinstance(t, torch.Tensor)]
+    return out
+
+
+def bits_differ(before, scope):
+    """Names whose tensors in `scope` differ in any bit from `before`."""
+    import torch
+
+    def raw(t):
+        return t.view(torch.uint8) if t.is_floating_point() else t
+
+    now = scope_bits(scope)
+    return [n for n in set(before) | set(now)
+            if n not in before or n not in now
+            or len(before[n]) != len(now[n])
+            or not all(a.dtype == b.dtype and a.shape == b.shape
+                       and torch.equal(raw(a), raw(b))
+                       for a, b in zip(before[n], now[n]))]
+
+
+def obs_amp(exe, smi):
+    """16b and 16c: the transformer at full width under bf16 AMP with
+    Adam, the numerics monitor and a loss scaler, inside the flight
+    recorder; then the costs of each surface, the planted Inf and a
+    crash.  Returns the launch counts of the monitored steps."""
+    import copy
+    import io as io_mod
+
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.desc import ProgramDesc
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.amp import LossScaler
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.obs import flight, health, registry, trace
+    from paddle_tpu_torch.utils import flags
+
+    t0 = time.perf_counter()
+    main_d, startup_d, loss, _ = tp.build_transformer_program(
+        BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL)
+    _, pairs = fluid.Adam(ADAM_LR).minimize(loss, main_d, startup_d)
+    plain = ProgramDesc.from_dict(main_d.to_dict())  # without the monitor
+    main = fluid.Program.from_desc(main_d)
+    scaler = LossScaler()
+    with fluid.program_guard(main):
+        mon = health.NumericsMonitor.for_train_program(
+            main, cost=loss, params_grads=pairs, loss_scaler=scaler) \
+            .install()
+    fetch = [loss] + mon.fetch_names
+    block = main_d.block(0)
+    persist = [n for n, v in block.vars.items() if v.persistable]
+    scope = fluid.Scope()
+    exe.run(startup_d, scope=scope)
+    init = {n: scope.get(n).cpu().numpy() for n in persist}
+    feeds = [tp.transformer_feeds(BATCH, SEQ, VOCAB, seed=SEED + 162 + i,
+                                  targets=True) for i in range(OBS_STEPS)]
+    print("obs: 16b the transformer (%d layers, d_model %d, %d heads, "
+          "vocab %d, batch %d x %d) with Adam (lr %g) and the monitor: %d "
+          "ops, %d of them the monitor's, %d fetched scalars; built in "
+          "%.1f s" % (N_LAYER, D_MODEL, N_HEAD, VOCAB, BATCH, SEQ, ADAM_LR,
+                      len(block.ops), len(block.ops) - len(plain.block(0)
+                                                            .ops),
+                      len(mon.fetch_names), time.perf_counter() - t0),
+          flush=True)
+
+    # 16c around the monitored steps: the flight recorder, and the obs
+    # trace on for its span tail
+    flight_dir = tempfile.mkdtemp(prefix="flight_")
+    rec = flight.install(out_dir=flight_dir, min_dump_interval_s=0.0)
+    trace.enable()
+    summaries, scales, record_us = [], [], []
+    try:
+        with fluid.amp.bf16_guard():
+            reset_launches()
+            for i, f in enumerate(feeds):
+                outs = exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+                summaries.append(mon.record(outs[1:]))
+                scales.append(scaler.scale)
+                t1 = time.perf_counter()
+                flight.record_step("transformer", i, feeds=f,
+                                   loss=float(outs[0][0]))
+                record_us.append((time.perf_counter() - t1) * 1e6)
+            # the main path ends here: read the counts
+            launches = read_launches()
+            bad = dict(feeds[0], tokens=feeds[0]["tokens"][:, :SEQ // 2])
+            try:
+                exe.run(main, feed=bad, fetch_list=[loss], scope=scope)
+            except Exception as exc:  # noqa: BLE001 — the forced crash
+                crash = exc
+            else:
+                raise SystemExit("chip_smoke: a feed of the wrong shape "
+                                 "ran")
+    finally:
+        trace.disable()
+        trace.reset()
+        flight.uninstall()
+    with open(rec.last_bundle_path) as fh:
+        bundle = json.load(fh)
+    note = bundle["notes"][-1]
+    bundle_ok = (
+        [r["step"] for r in bundle["steps"]] == list(range(OBS_STEPS))
+        and all(r["feeds"] == {n: "int64%s" % list(v.shape)
+                               for n, v in feeds[0].items()}
+                for r in bundle["steps"])
+        and note["origin"] == "executor/run"
+        and note["feeds"]["tokens"] == "int64[%d, %d]" % (BATCH, SEQ // 2)
+        and bundle["exception"]["type"] == type(crash).__name__
+        and bundle["recent_spans"]
+        and os.path.getsize(rec.last_bundle_path) < 1 << 20)
+    print("obs: 16c the flight bundle (%d bytes): %d step records, feeds "
+          "%s, the crash %s (%s) noted from %s, %d spans in its tail; "
+          "record_step %.1f us a step (mean of %d; %s)"
+          % (os.path.getsize(rec.last_bundle_path), len(bundle["steps"]),
+             bundle["steps"][0]["feeds"], bundle["exception"]["type"],
+             str(crash)[:80], note["origin"], len(bundle["recent_spans"]),
+             np.mean(record_us), len(record_us),
+             ", ".join("%.1f" % u for u in record_us)), flush=True)
+    if not bundle_ok:
+        raise SystemExit("chip_smoke: the flight bundle lacks what it must "
+                         "hold")
+
+    # the first step again on the CPU plain path, from the same state
+    cpu_scope = params_scope(init, "cpu")
+    cpu_mon = copy.copy(mon)
+    cpu_mon.loss_scaler = LossScaler()
+    t0 = time.perf_counter()
+    with fluid.amp.bf16_guard():
+        cpu_outs = fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feeds[0], fetch_list=fetch, scope=cpu_scope)
+    cpu = cpu_mon.record(cpu_outs[1:])
+    cpu_s = time.perf_counter() - t0
+    del cpu_scope
+    # the card against itself from the state with every f32 value moved
+    # by about one ulp: how far the bf16 step's rounding alone moves the
+    # norm
+    nudge_mon = copy.copy(mon)
+    nudge_mon.loss_scaler = None
+    nudged = params_scope({n: v * np.float32(1 + 2 ** -23)
+                           if v.dtype == np.float32 else v
+                           for n, v in init.items()}, exe.device)
+    with fluid.amp.bf16_guard():
+        nudge = nudge_mon.record(exe.run(main, feed=feeds[0],
+                                         fetch_list=fetch,
+                                         scope=nudged)[1:])
+    del nudged
+    card = summaries[0]
+    nudge_err = abs(card["grad_global_norm"] - nudge["grad_global_norm"]) \
+        / card["grad_global_norm"]
+    norm_err = abs(card["grad_global_norm"] - cpu["grad_global_norm"]) \
+        / cpu["grad_global_norm"]
+    cost_err = abs(card["max_abs"][loss] - cpu["max_abs"][loss])
+    print("obs: 16b %d monitored AMP steps on the card: losses' max-abs "
+          "%s, grad global norms %s, nonfinite %d, loss scale %s; the first "
+          "on the CPU plain path (%.1f s): max-abs %.6f, norm %.6f, "
+          "nonfinite %d, scale %g; card against CPU: cost %.3g (atol %g), "
+          "norm %.3g of its size (gate %g); the card from the state moved "
+          "by one ulp: norm %.3g of its size"
+          % (OBS_STEPS, ", ".join("%.6f" % s["max_abs"][loss]
+                                  for s in summaries),
+             ", ".join("%.6f" % s["grad_global_norm"] for s in summaries),
+             sum(sum(s["nonfinite"].values()) for s in summaries),
+             scales, cpu_s, cpu["max_abs"][loss], cpu["grad_global_norm"],
+             sum(cpu["nonfinite"].values()), cpu["loss_scale"], cost_err,
+             OBS_AMP_LOSS_ATOL, norm_err, OBS_NORM_RTOL, nudge_err),
+          flush=True)
+    if any(s["found_nonfinite"] for s in summaries) \
+            or cpu["nonfinite"] != card["nonfinite"] \
+            or norm_err > OBS_NORM_RTOL or cost_err > OBS_AMP_LOSS_ATOL \
+            or cpu["loss_scale"] != scales[0] \
+            or scales != [2.0 ** 15] * OBS_STEPS:
+        raise SystemExit("chip_smoke: the monitored AMP steps disagree "
+                         "with the CPU plain path")
+
+    # what each surface costs: the step with the monitor and without,
+    # with FLAGS_check_nan_inf, with fluid.profiler's table
+    dev_feed = {n: torch.from_numpy(v.astype(np.int32)).to(exe.device)
+                for n, v in feeds[0].items()}
+
+    def step(prog, names):
+        return lambda: exe.run(prog, feed=dev_feed, fetch_list=names,
+                               scope=scope)
+
+    monitored, unmonitored = step(main, fetch), step(plain, [loss])
+    times = collections.defaultdict(list)
+    with fluid.amp.bf16_guard():
+        for tag, fn in (("without", unmonitored), ("with", monitored),
+                        ("with", monitored), ("without", unmonitored)):
+            times[tag] += timed_steps(fn, runs=5, warm=1)
+        table = io_mod.StringIO()
+        with contextlib.redirect_stdout(table), profiler.profiler():
+            times["profiler"] = timed_steps(unmonitored, runs=5, warm=1)
+        records = profiler.get_profile_records()
+        flags.set_flag("check_nan_inf", True)
+        try:
+            times["check_nan_inf"] = timed_steps(unmonitored, runs=3,
+                                                 warm=1)
+        finally:
+            flags.set_flag("check_nan_inf", False)
+        op_types = {op.type for op in main_d.block(0).ops}
+        profiles = {tag: profile_step(fn, op_types, 2 * N_LAYER,
+                                      float(np.median(times[tag])),
+                                      what="one AMP step %s the monitor"
+                                      % tag)
+                    for tag, fn in (("without", unmonitored),
+                                    ("with", monitored))}
+    # the monitor's scalars' copies to the host alone, after a step
+    with fluid.amp.bf16_guard():
+        left = exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)[1:]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for v in left:
+        fluid.executor.fetch_to_host(v)
+    fetch_ms = (time.perf_counter() - t1) * 1e3
+    med = {tag: float(np.median(t)) for tag, t in times.items()}
+    ops = profiles["with"]["ops"] if profiles["with"] else {}
+    print("obs: 16b the monitor's cost: its %d scalars' copies to the host "
+          "%.3f ms after a step; host ms of its op types in a profiled "
+          "step: %s" % (len(left), fetch_ms, ", ".join(
+              "%s %.3f (%d ops)" % (t, ops[t][1], ops[t][2])
+              for t in ("count_nonfinite", "squared_l2_norm", "abs",
+                        "reduce_max") if t in ops)), flush=True)
+    print("obs: 16b AMP step (median, feeds on the card, fetches to the "
+          "host): without the monitor %.3f ms, with it %.3f ms (%+.3f ms, "
+          "%d scalars fetched); with fluid.profiler's table %.3f ms (%+.3f "
+          "ms; %d op types, %d ops timed); with FLAGS_check_nan_inf %.3f "
+          "ms (%.2fx, one read back per float output) [%s]"
+          % (med["without"], med["with"], med["with"] - med["without"],
+             len(mon.fetch_names), med["profiler"],
+             med["profiler"] - med["without"], len(records),
+             sum(r["calls"] for r in records.values()),
+             med["check_nan_inf"], med["check_nan_inf"] / med["without"],
+             smi), flush=True)
+    for tag, prof in profiles.items():
+        if prof is None:
+            continue
+        flash_ms, flash_n = prof["flash"]
+        print("obs: 16b %s the monitor: %d launches a step, busy %.3f "
+              "device-ms; the bf16 flash route %d launches a step, %.4f "
+              "device-ms each (%.3f ms a step) [%s]"
+              % (tag, prof["launches"], prof["busy_ms"], flash_n,
+                 flash_ms / max(flash_n, 1), flash_ms, smi), flush=True)
+    bf16 = launches[route_entry("bf16")]
+    if bf16 != 2 * N_LAYER * OBS_STEPS:
+        raise SystemExit("chip_smoke: %d bf16 flash launches in %d AMP "
+                         "steps, designed %d a step"
+                         % (bf16, OBS_STEPS, 2 * N_LAYER))
+
+    # an Inf planted in one weight: located on the card and the CPU, the
+    # scope bit for bit after the replay; then the step finds it
+    scope.get(OBS_INF_WEIGHT)[OBS_INF_AT] = float("inf")
+    before = scope_bits(scope)
+    with fluid.amp.bf16_guard():
+        t0 = time.perf_counter()
+        found = health.locate_nonfinite(main, feeds[0], scope=scope)
+        card_s = time.perf_counter() - t0
+        differ = bits_differ(before, scope)
+        planted = {n: scope.get(n).cpu().numpy() for n in persist}
+        t0 = time.perf_counter()
+        found_cpu = health.locate_nonfinite(
+            main, feeds[0], scope=params_scope(planted, "cpu"),
+            place=fluid.CPUPlace())
+        cpu_s = time.perf_counter() - t0
+        del planted
+        outs = exe.run(main, feed=feeds[0], fetch_list=fetch, scope=scope)
+        verdict = mon.record(outs[1:])
+    gauge = registry.get_registry().gauge("amp_loss_scale").value
+    print("obs: 16b Inf in %s%s: locate_nonfinite on the card (%.2f s) %s; "
+          "on the CPU (%.2f s) %s; %d of %d scope entries differ after the "
+          "replay; the step: found_nonfinite %s, %d nonfinite, loss scale "
+          "%g -> %g, amp_loss_scale gauge %g"
+          % (OBS_INF_WEIGHT, list(OBS_INF_AT), card_s,
+             {k: v for k, v in (found or {}).items() if k != "message"},
+             cpu_s, {k: v for k, v in (found_cpu or {}).items()
+                     if k != "message"}, len(differ), len(before),
+             verdict["found_nonfinite"], sum(verdict["nonfinite"].values()),
+             scales[-1], verdict["loss_scale"], gauge), flush=True)
+    if found is None or found != found_cpu or differ \
+            or not verdict["found_nonfinite"] \
+            or verdict["loss_scale"] != 2.0 ** 14 or gauge != 2.0 ** 14:
+        raise SystemExit("chip_smoke: the planted Inf was not handled as "
+                         "on the CPU")
+    del scope, before
+    torch.cuda.empty_cache()
+    return launches
+
+
+def obs_v2(smi):
+    """16d: phase 14's NMT through v2's step_runner with health and the
+    flight recorder on, on the card and the CPU from one state."""
+    import paddle_tpu_torch.v2 as v2
+    from paddle_tpu_torch.fluid import io
+    from paddle_tpu_torch.obs import flight, health
+
+    batches = nmt_batches(2, batch=OBS_NMT_BATCH)
+    health.enable()
+    rec = flight.install(out_dir=tempfile.mkdtemp(prefix="flight_"))
+    runs = {}
+    try:
+        init = None
+        for use_gpu in (True, False):
+            with v2_program(v2, use_gpu) as (main, startup, scope):
+                cost = build_nmt(v2)
+                trainer = v2.trainer.SGD(
+                    cost=cost, parameters=v2.parameters.create(cost),
+                    update_equation=v2.optimizer.Adam(
+                        learning_rate=NMT_LR, regularization_rate=NMT_L2))
+                persist = [n for n, vd in main.desc.block(0).vars.items()
+                           if vd.persistable]
+                if init is None:
+                    init = {n: scope.get(n).cpu().numpy() for n in persist}
+                else:
+                    io.params_from_numpy(scope, init, "cpu")
+                step = trainer.step_runner()
+                t0 = time.perf_counter()
+                costs, norms = [], []
+                for b in batches:
+                    costs.append(step(b))
+                    norms.append(trainer._health_monitor.last)
+                runs[use_gpu] = (costs, norms, time.perf_counter() - t0,
+                                 trainer._health_monitor)
+    finally:
+        health.disable()
+        flight.uninstall()
+    (card, cnorm, card_s, mon), (cpu, pnorm, cpu_s, _) = \
+        runs[True], runs[False]
+    errs = [abs(a["grad_global_norm"] - b["grad_global_norm"])
+            / b["grad_global_norm"] for a, b in zip(cnorm, pnorm)]
+    steps = [r for r in rec._steps if r["trainer"] == "v2"]
+    print("obs: 16d the v2 NMT (dict %d, %d wide) at batch %d, 2 steps "
+          "through step_runner with health on: the trainer's monitor %d "
+          "scalars; card (%.1f s) costs %s norms %s; CPU (%.1f s) costs %s "
+          "norms %s; norm error %s of its size (gate %g); %d nonfinite; "
+          "%d flight records"
+          % (NMT_DICT, NMT_WORD, OBS_NMT_BATCH, len(mon.fetch_names),
+             card_s, ", ".join("%.6f" % c for c in card),
+             ", ".join("%.6f" % n["grad_global_norm"] for n in cnorm),
+             cpu_s, ", ".join("%.6f" % c for c in cpu),
+             ", ".join("%.6f" % n["grad_global_norm"] for n in pnorm),
+             ", ".join("%.3g" % e for e in errs), OBS_NORM_RTOL,
+             sum(sum(n["nonfinite"].values()) for n in cnorm + pnorm),
+             len(steps)), flush=True)
+    if mon is None or max(errs) > OBS_NORM_RTOL or len(steps) != 4 \
+            or any(n["found_nonfinite"] for n in cnorm + pnorm) \
+            or not np.isfinite(card).all():
+        raise SystemExit("chip_smoke: the v2 trainer's monitor disagrees "
+                         "with the CPU")
+
+
+def _request(url, payload, headers):
+    """(status, body, headers, client ms) of one POST, errors included."""
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode("utf-8"),
+        headers=dict(headers, **{"Content-Type": "application/json"}))
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, raw, hdrs = resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as err:
+        status, raw, hdrs = err.code, err.read(), err.headers
+    return status, json.loads(raw), hdrs, (time.perf_counter() - t0) * 1e3
+
+
+def _drive(url, rows, clients, traceparents):
+    """Each request (one row of `rows`) from `clients` threads, in turn:
+    the replies in row order."""
+    replies = [None] * len(traceparents)
+
+    def client(c):
+        for i in range(c, len(traceparents), clients):
+            replies[i] = _request(url, {"inputs": {
+                n: v[i:i + 1].tolist() for n, v in rows.items()}},
+                {"traceparent": traceparents[i]})
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    if any(r is None for r in replies):
+        raise SystemExit("chip_smoke: a request got no reply")
+    return replies
+
+
+def obs_serve(smi):
+    """16e: phase 3's transformer served with the SLO, the tail, the
+    access log, traceparent, Retry-After and check_numerics on, against
+    the same server without them.  Returns the launch counts of the
+    observed server's run."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import Scope, io
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.obs import registry
+    from paddle_tpu_torch.serving import (EngineConfig, InferenceEngine,
+                                          InferenceServer, ServerConfig)
+
+    registry.reset_registry()
+    rows = tp.transformer_feeds(OBS_REQUESTS, SEQ, VOCAB, seed=SEED + 170)
+    rs = np.random.RandomState(SEED + 171)
+    traceparents = ["00-%s-%s-01" % (rs.bytes(16).hex(), rs.bytes(8).hex())
+                    for _ in range(OBS_REQUESTS)]
+    tmp = tempfile.mkdtemp(prefix="serve_")
+    prog = fluid.Program.from_desc(tp.build_transformer_inference_program(
+        BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL))
+    params = tp.init_transformer_params(prog.desc, seed=SEED)
+    with fluid.program_guard(prog):
+        values, ids = fluid.layers.topk(
+            prog.global_block().var(tp.logits_name(N_LAYER)), k=OBS_TOPK)
+    scope = Scope()
+    io.params_from_numpy(scope, params, "cpu")
+    io.save_inference_model(tmp, ["tokens", "positions"],
+                            [values.name, ids.name], scope, prog,
+                            bucket_hints={"batch_buckets": BUCKETS})
+    results, log_path = {}, os.path.join(tmp, "access.jsonl")
+    slow_ms = None
+    for observed in (False, True):
+        config = dict(port=0, max_batch=BATCH, max_wait_ms=50.0,
+                      warmup=True)
+        engine_config = None
+        if observed:
+            config.update(slo_ms=OBS_SLO_MS, tail_slow_ms=slow_ms,
+                          tail_capacity=OBS_REQUESTS, access_log=log_path,
+                          retry_after_s=2, queue_size=OBS_QUEUE)
+            engine_config = EngineConfig(batch_buckets=BUCKETS,
+                                         check_numerics=True)
+            reset_launches()
+        engine = InferenceEngine.from_saved_model(tmp, config=engine_config)
+        server = InferenceServer(engine, ServerConfig(**config))
+        try:
+            server.start()
+            url = "http://%s:%d/v1/infer" % server.address
+            t0 = time.perf_counter()
+            replies = _drive(url, rows, OBS_CLIENTS, traceparents)
+            wall = time.perf_counter() - t0
+            lat = np.array([r[3] for r in replies])
+            results[observed] = (replies, lat)
+            print("obs: 16e %s: %d requests from %d threads in %.2f s, "
+                  "client latency p50 %.3f ms, p99 %.3f ms, max %.3f ms "
+                  "[%s]" % ("with the observability" if observed else
+                            "phase 3's server without it", OBS_REQUESTS,
+                            OBS_CLIENTS, wall, np.percentile(lat, 50),
+                            np.percentile(lat, 99), lat.max(), smi),
+                  flush=True)
+            if not observed:
+                slow_ms = float(np.percentile(lat, 50))
+                continue
+            with open(log_path) as fh:
+                log = [json.loads(line) for line in fh]
+            base = "http://%s:%d" % server.address
+            with urllib.request.urlopen(base + "/debug/tail",
+                                        timeout=60) as r:
+                tail = json.loads(r.read())
+            with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            # a burst past the queue while the engine is held
+            burst = [None] * (OBS_QUEUE + BATCH + 8)
+            with engine._lock:
+                def shed(i):
+                    burst[i] = _request(url, {"inputs": {
+                        n: v[:1].tolist() for n, v in rows.items()}}, {})
+
+                threads = [threading.Thread(target=shed, args=(i,))
+                           for i in range(len(burst))]
+                for th in threads:
+                    th.start()
+                t1 = time.time()
+                while time.time() - t1 < 60 and sum(
+                        b is not None for b in burst) < 8:
+                    time.sleep(0.05)
+            for th in threads:
+                th.join(timeout=600)
+            # the main path ends here: read the counts
+            launches = read_launches()
+        finally:
+            server.shutdown()
+
+    plain, _ = results[False]
+    replies, lat = results[True]
+    sent = [tp_.split("-")[1] for tp_ in traceparents]
+    echoed = [r[2].get("traceparent", "").split("-")[1:2] for r in replies]
+    ids_ok = all(r[0] == 200 and e == [s] and r[2].get("x-request-id")
+                 == r[1]["request_id"] for r, e, s in
+                 zip(replies, echoed, sent))
+    log_ok = len(log) == OBS_REQUESTS and sorted(
+        (x["trace_id"], x["request_id"]) for x in log) == sorted(
+        (s, r[1]["request_id"]) for s, r in zip(sent, replies))
+    want_tail = {x["request_id"] for x in log
+                 if x["latency_ms"] >= slow_ms}
+    got_tail = {x["request_id"] for x in tail["requests"]}
+    edge = {x["request_id"] for x in log
+            if abs(x["latency_ms"] - slow_ms) < 1e-3}
+    tail_ok = (got_tail ^ want_tail) <= edge
+    health_ok = "slo" in health and "slo_burn_rate" in health \
+        and health["numerics_nonfinite_total"] == 0
+    shed = [b for b in burst if b is not None and b[0] == 429]
+    burst_ok = all(b is not None and b[0] in (200, 429) for b in burst) \
+        and shed and all(b[2].get("Retry-After") == "2" for b in shed)
+    worst, flips = 0.0, 0
+    for p, r in zip(plain, replies):
+        pv = np.asarray(p[1]["outputs"][values.name], np.float32)
+        rv = np.asarray(r[1]["outputs"][values.name], np.float32)
+        pi = np.asarray(p[1]["outputs"][ids.name])
+        ri = np.asarray(r[1]["outputs"][ids.name])
+        worst = max(worst, float(np.abs(pv - rv).max()))
+        clear = (pv[..., 0] - pv[..., 1]) > 2 * LOGITS_ATOL
+        flips += int((pi[..., 0] != ri[..., 0])[clear].sum())
+    print("obs: 16e every reply echoed its trace id and request id: %s; "
+          "access log %d lines carrying them: %s; /debug/tail %d requests, "
+          "the %d logged at or above tail_slow_ms %.3f ms: %s; /healthz "
+          "slo %s, burn %s, numerics_nonfinite_total %s; burst of %d with "
+          "the engine held: %d answered 429 with Retry-After %s; answers "
+          "against the server without the observability: top-%d values "
+          "max_abs_err %.3g (atol %g), %d top-1 ids differ where the top "
+          "two lie more than %g apart"
+          % (ids_ok, len(log), log_ok, len(got_tail), len(want_tail),
+             slow_ms, tail_ok, health.get("slo"),
+             health.get("slo_burn_rate"),
+             health.get("numerics_nonfinite_total"), len(burst), len(shed),
+             sorted({b[2].get("Retry-After") for b in shed}), OBS_TOPK,
+             worst, LOGITS_ATOL, flips, 2 * LOGITS_ATOL), flush=True)
+    if tail["requests"]:
+        slowest = max(tail["requests"], key=lambda r: r["latency_ms"])
+        stages = []
+
+        def walk(nodes):
+            for node in nodes:
+                stages.append("%s %.1f" % (node["name"].split("/")[-1],
+                                           node["dur_ms"]))
+                walk(node["children"])
+
+        walk(slowest["spans"])
+        print("obs: 16e the slowest request's span tree (%.1f ms): %s"
+              % (slowest["latency_ms"], ", ".join(stages)), flush=True)
+    if not (ids_ok and log_ok and tail_ok and health_ok and burst_ok) \
+            or worst > LOGITS_ATOL or flips:
+        raise SystemExit("chip_smoke: the observed server broke its "
+                         "contract")
+    return launches
+
+
+def obs_nhwc(exe, smi):
+    """16f: ResNet-50 at bench.py's width under bf16 AMP, converted to
+    NHWC by fluid.convert_layout before minimize, against NCHW from one
+    state; the first step also in f32."""
+    import contextlib
+
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models.image import resnet50
+
+    progs = {}
+    for layout in ("NCHW", "NHWC"):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            image = fluid.layers.data(
+                name="image", shape=[RN_BATCH, 3, RN_HW, RN_HW],
+                dtype="float32", append_batch_size=False)
+            label = fluid.layers.data(name="label", shape=[RN_BATCH, 1],
+                                      dtype="int64",
+                                      append_batch_size=False)
+            logits = resnet50(image, class_dim=RN_CLASSES)
+            avg_loss = fluid.layers.mean(
+                fluid.layers.softmax_with_cross_entropy(logits, label))
+            n = fluid.convert_layout(main) if layout == "NHWC" else 0
+            fluid.MomentumOptimizer(LR, MOMENTUM).minimize(avg_loss)
+        progs[layout] = (main, startup, avg_loss, n)
+    main, startup, _, _ = progs["NCHW"]
+    persist = [n for n, v in main.desc.block(0).vars.items()
+               if v.persistable]
+    params = [p.name for p in main.global_block().all_parameters()]
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).cpu().numpy() for n in persist}
+    del scope
+    feeds = [{n: torch.from_numpy(v).to(exe.device) for n, v in f.items()}
+             for f in resnet_feeds(RN_BATCH, NHWC_STEPS, SEED + 180)]
+
+    def steps(layout, amp, state, n):
+        """(losses, the parameters after each) of n steps from state."""
+        main, _, loss, _ = progs[layout]
+        scope = params_scope(state, exe.device)
+        losses, after = [], []
+        with fluid.amp.bf16_guard() if amp else contextlib.nullcontext():
+            for f in feeds[:n]:
+                losses.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                            scope=scope)[0][0]))
+                after.append({p: scope.get(p).float().cpu().numpy()
+                              for p in params})
+        return losses, after
+
+    out = {layout: steps(layout, True, init, NHWC_STEPS)
+           for layout in progs}
+    torch.cuda.empty_cache()
+    # the step's time in turns, NCHW, NHWC, NHWC, NCHW (the host's
+    # spread moves a median between calls by more than the layouts do)
+    fns, times = {}, collections.defaultdict(list)
+    for layout, (main, _, loss, _) in progs.items():
+        scope = params_scope(init, exe.device)
+        fns[layout] = (lambda main=main, loss=loss, scope=scope: exe.run(
+            main, feed=feeds[0], fetch_list=[loss], scope=scope,
+            return_numpy=False))
+    with fluid.amp.bf16_guard():
+        for layout in ("NCHW", "NHWC", "NHWC", "NCHW"):
+            times[layout] += timed_steps(fns[layout], runs=5, warm=1)
+        profs = {layout: profile_step(
+            fns[layout], {op.type for op in progs[layout][0].desc.block(0)
+                          .ops}, 0, float(np.median(times[layout])),
+            what="one ResNet-50 AMP step in %s" % layout)
+            for layout in progs}
+    del fns
+    torch.cuda.empty_cache()
+    for layout, (losses, _) in out.items():
+        med, prof = float(np.median(times[layout])), profs[layout]
+        print("obs: 16f ResNet-50 %s (%d transposes inserted), batch %d, "
+              "bf16 AMP: losses %s; step %.3f ms (median of 10 in two "
+              "turns), %.1f images/s; %s launches, cuDNN's layout "
+              "transposes %s device-ms, busy %s device-ms [%s]"
+              % (layout, progs[layout][3], RN_BATCH,
+                 ", ".join("%.6f" % x for x in losses), med,
+                 RN_BATCH / med * 1e3,
+                 prof["launches"] if prof else "not measured",
+                 "%.3f" % prof["families"].get("layout transposes", 0.0)
+                 if prof else "not measured",
+                 "%.3f" % prof["busy_ms"] if prof else "not measured", smi),
+              flush=True)
+    (nchw, nchw_after), (nhwc, nhwc_after) = out["NCHW"], out["NHWC"]
+    # how far a bf16 step moves when its inputs' last bits do: NCHW from
+    # the state with every f32 value moved by about one ulp
+    _, nudged = steps("NCHW", True, {
+        n: v * np.float32(1 + 2 ** -23) if v.dtype == np.float32 else v
+        for n, v in init.items()}, 1)
+    nudge = change_rl2(nudged[0], nchw_after[0], init, params)
+    f32 = {layout: steps(layout, False, init, 1) for layout in progs}
+    torch.cuda.empty_cache()
+    f32_loss = abs(f32["NHWC"][0][0] - f32["NCHW"][0][0])
+    f32_change = change_rl2(f32["NHWC"][1][0], f32["NCHW"][1][0], init,
+                            params)
+    loss_err = abs(nhwc[0] - nchw[0])
+    change = change_rl2(nhwc_after[0], nchw_after[0], init, params)
+    worst = sorted(params, key=lambda p: -change_rl2(
+        nhwc_after[0], nchw_after[0], init, [p]))[:3]
+    print("obs: 16f NHWC against NCHW from one state, bf16 AMP: first loss "
+          "%.4g (atol %g), the first step's change %.4g in relative L2 "
+          "(not gated: NCHW against itself from the state moved by one ulp "
+          "%.4g; most apart %s); after step 2: loss %.4g, change %.4g; in "
+          "f32 (TF32 off): first loss %.4g (atol %g), the first step's "
+          "change %.4g (gate %g)"
+          % (loss_err, NHWC_LOSS_ATOL, change, nudge,
+             ", ".join("%s %.3g" % (p, change_rl2(nhwc_after[0],
+                                                  nchw_after[0], init, [p]))
+                       for p in worst),
+             abs(nhwc[1] - nchw[1]),
+             change_rl2(nhwc_after[1], nchw_after[1], init, params),
+             f32_loss, RN_LOSS_ATOL, f32_change, NHWC_F32_CHANGE_RL2),
+          flush=True)
+    if loss_err > NHWC_LOSS_ATOL or f32_loss > RN_LOSS_ATOL \
+            or f32_change > NHWC_F32_CHANGE_RL2 \
+            or not np.isfinite(nhwc).all():
+        raise SystemExit("chip_smoke: the NHWC program disagrees with NCHW")
+
+
+def phase_obs():
+    """Numerics health, the flight recorder, the profiler, request
+    tracing and the NHWC relayout (phase 16).  Returns the launch counts
+    of 16b's monitored AMP steps and of 16e's observed server."""
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    smi = nvidia_smi_line()
+    obs_ops(exe.device)
+    obs_scan(exe, smi)
+    amp = obs_amp(exe, smi)
+    obs_v2(smi)
+    serve = obs_serve(smi)
+    obs_nhwc(exe, smi)
+    print("obs: phase 16 in %.1f s" % (time.perf_counter() - t0),
+          flush=True)
+    return amp, serve
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -7176,6 +8056,7 @@ def main():
     ctc_launches = phase_ctc()
     v2_launches = phase_v2()
     stack_launches = phase_stack()
+    obs_amp_launches, obs_serve_launches = phase_obs()
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
@@ -7199,11 +8080,12 @@ def main():
     # the f32 route on each of the transformer's main paths
     f32 = route_entry("f32")
     paths = (launches[f32], train_launches[f32], decode_launches[f32],
-             stack_launches[f32])
+             stack_launches[f32], obs_serve_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
                          "a main path (served, trained, decoded, trained "
-                         "with the whole stack: %s)" % (paths,))
+                         "with the whole stack, served with the "
+                         "observability: %s)" % (paths,))
     kernels = []
     for route in fa.ROUTES:
         name = route_entry(route)
@@ -7211,7 +8093,8 @@ def main():
             launches, train_launches, wide_launches, resnet_launches,
             decode_launches, image_launches, sequence_launches,
             ctr_launches, seq2seq_launches, book_launches, ctc_launches,
-            v2_launches, stack_launches))
+            v2_launches, stack_launches, obs_amp_launches,
+            obs_serve_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

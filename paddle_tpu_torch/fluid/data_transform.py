@@ -1,0 +1,166 @@
+"""Kernel-boundary data-layout transforms (NCHW <-> NHWC).
+
+Counterpart of paddle_tpu/fluid/data_transform.py, making the same
+rewrite.  The reference inserts layout transforms whenever a tensor's
+layout differs from what the chosen kernel expects (reference:
+framework/data_transform.cc:29, data_layout_transform.cc — invoked from
+operator.cc:520 between InferShape and Compute).  Here the LOGICAL
+layout, NCHW vs NHWC, is a program property: ``convert_layout``
+rewrites a built forward program once so every layout-capable op runs
+in the requested layout, inserting explicit ``transpose`` ops exactly
+where a layout boundary is crossed (the same points operator.cc would
+have transformed at, but visible in the IR and differentiable).
+
+Run it BEFORE ``append_backward``/``minimize``: gradients of the
+rewritten forward then follow the new layout automatically, including
+the inserted transposes.  Weights are untouched — conv kernels keep
+OIHW filters in both layouts (ops/conv.py), so parameters and
+checkpoints are layout-portable.
+
+On the card an NHWC ``conv2d`` hands cuDNN channels-last input and
+weight (ops/conv.py), so cuDNN runs its NHWC kernels instead of
+transposing around NCHW ones; the ``transpose`` at each boundary is one
+copy.  ``bench.py``'s ``BENCH_LAYOUT=NHWC`` only tags a run: a caller
+converts the program itself, as here.
+"""
+
+from ..core.desc import OpDesc, VarDesc
+from ..ops import registry as op_registry
+
+__all__ = ["convert_layout", "LAYOUT_CAPABLE", "LAYOUT_AGNOSTIC"]
+
+NCHW_TO_NHWC = (0, 2, 3, 1)
+NHWC_TO_NCHW = (0, 3, 1, 2)
+
+# ops whose kernels read a data_layout attr (ops/conv.py, ops/norm.py)
+LAYOUT_CAPABLE = ("conv2d", "conv2d_transpose", "pool2d", "batch_norm")
+
+# elementwise ops that operate identically on any dim order, so a
+# layout flows through them without a transform.  Binary entries are
+# only transparent when both tensor operands carry the same layout
+# (broadcast against a vector is handled by the axis rewrite below).
+LAYOUT_AGNOSTIC = ("relu", "relu6", "sigmoid", "tanh", "sqrt", "abs",
+                   "square", "exp", "dropout", "scale", "cast", "clip",
+                   "elementwise_add", "elementwise_sub",
+                   "elementwise_mul", "elementwise_div", "elementwise_max",
+                   "elementwise_min", "sum")
+
+# per-op input slots that carry the image tensor (other slots are
+# layout-free side inputs: scales, biases, running stats, RNG state)
+_DATA_SLOTS = {
+    "conv2d": ("Input",), "conv2d_transpose": ("Input",),
+    "pool2d": ("X",), "batch_norm": ("X",),
+}
+
+
+def _is_4d(block, name):
+    try:
+        shape = block.desc.var(name).shape
+    except KeyError:
+        return False
+    return shape is not None and len(shape) == 4
+
+
+def _permute_shape(shape, perm):
+    return tuple(shape[p] for p in perm)
+
+
+def convert_layout(program, to="NHWC", block=None, layout_out=None):
+    """Rewrite a forward program's conv stack to run in ``to`` layout.
+
+    Feeds and parameters keep their declared layouts; consumers that
+    are neither layout-capable nor layout-agnostic see NCHW restored at
+    their inputs, so the program's observable contract (feeds, fetches
+    of boundary values, parameter shapes) is unchanged.  Returns the
+    number of inserted transpose ops.  ``layout_out`` (a dict, when
+    given) is filled with the final var -> "NHWC" map so callers (the
+    `layout` rewrite pass) can tell which vars now live in the new
+    layout — shape comparison cannot: a C==H==W tensor permutes to an
+    identical shape.  Must run before the backward is appended —
+    rewriting grad ops would require transforming grad chains too,
+    which append_backward does for free afterwards.
+    """
+    if to != "NHWC":
+        raise ValueError("convert_layout targets NHWC (programs are "
+                         "built NCHW); got %r" % (to,))
+    block = block if block is not None else program.global_block()
+    for op in block.desc.ops:
+        if op_registry.is_grad_op_type(op.type):
+            raise ValueError(
+                "convert_layout must run before append_backward "
+                "(found grad op %r)" % (op.type,))
+
+    new_ops = []
+    inserted = [0]
+    # var name -> "NHWC" for vars currently in NHWC
+    layout = layout_out if layout_out is not None else {}
+    alias = {}       # (var name, target layout) -> transposed alias name
+
+    def transposed(name, to_layout):
+        """Alias of ``name`` in ``to_layout``, inserting the transform
+        op (cached: one transform per var per direction, the same
+        de-dup operator.cc gets from its transform cache)."""
+        key = (name, to_layout)
+        if key in alias:
+            return alias[key]
+        perm = NCHW_TO_NHWC if to_layout == "NHWC" else NHWC_TO_NCHW
+        new_name = "%s@%s" % (name, to_layout)
+        src = block.desc.var(name)
+        block.desc.vars[new_name] = VarDesc(
+            new_name, src.type, src.dtype,
+            _permute_shape(src.shape, perm), src.lod_level)
+        new_ops.append(OpDesc("transpose", {"X": [name]},
+                              {"Out": [new_name]}, {"axis": list(perm)}))
+        inserted[0] += 1
+        alias[key] = new_name
+        if to_layout == "NHWC":
+            layout[new_name] = "NHWC"
+        return new_name
+
+    def rewrite_slot(op, slot, names, to_layout):
+        op.inputs[slot] = [
+            transposed(n, to_layout)
+            if _is_4d(block, n) and
+            (layout.get(n, "NCHW") != to_layout) else n
+            for n in names]
+
+    for op in list(block.desc.ops):
+        if op.type in LAYOUT_CAPABLE:
+            for slot in _DATA_SLOTS[op.type]:
+                rewrite_slot(op, slot, op.input(slot), "NHWC")
+            op.attrs["data_layout"] = "NHWC"
+            for out_name in op.output_names():
+                if _is_4d(block, out_name):
+                    v = block.desc.var(out_name)
+                    v.shape = _permute_shape(v.shape, NCHW_TO_NHWC)
+                    layout[out_name] = "NHWC"
+        elif op.type in LAYOUT_AGNOSTIC:
+            in_4d = [n for ns in op.inputs.values() for n in ns
+                     if _is_4d(block, n)]
+            if any(layout.get(n) == "NHWC" for n in in_4d):
+                # converge mixed operands to NHWC rather than falling
+                # back: one transform here beats two at the boundary
+                for slot, names in list(op.inputs.items()):
+                    rewrite_slot(op, slot, names, "NHWC")
+                if op.attr("axis", None) == 1 and op.type.startswith(
+                        "elementwise_"):
+                    # channel-vector broadcast (conv bias): channel
+                    # moved from dim 1 to dim 3
+                    op.attrs["axis"] = 3
+                for out_name in op.output_names():
+                    if _is_4d(block, out_name):
+                        v = block.desc.var(out_name)
+                        v.shape = _permute_shape(v.shape, NCHW_TO_NHWC)
+                        layout[out_name] = "NHWC"
+        else:
+            # layout boundary: this op's kernel assumes the built
+            # (NCHW) dim order — restore it at each NHWC input
+            for slot, names in list(op.inputs.items()):
+                op.inputs[slot] = [
+                    transposed(n, "NCHW")
+                    if layout.get(n) == "NHWC" else n for n in names]
+        new_ops.append(op)
+
+    block.desc.ops = new_ops
+    block.sync_with_desc()
+    return inserted[0]

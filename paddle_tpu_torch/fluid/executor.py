@@ -10,7 +10,19 @@ outputs (parameters updated by the optimizer ops, everything a startup
 program makes) are written back to the scope after the run.
 
 While torch.profiler records, each op runs in a range named by its
-type, so a profile attributes device time to op types.
+type, so a profile attributes device time to op types.  While
+`fluid.profiler` or the obs trace is on, each top-level op also runs in
+`profiler.record_event` (a row of the per-op table, a span on the
+trace); while both are off the run asks once and opens nothing.
+
+Under `FLAGS_check_nan_inf` every top-level op's float outputs are
+scanned after it runs (reference: executor.cc:29, CheckTensorNANOrInf
+executor.cc:66-77): one read back to the host per output, and the
+first op with a NaN or Inf raises `NonfiniteError` naming the op type,
+its index in block 0, the output slot and var, and the count.  Ops of a
+sub-block run inside their op's kernel and are not scanned, as on the
+JAX side.  An exception from a run reaches `obs.flight.on_crash` with
+the feeds described (shapes and dtypes) before it propagates.
 
 A control-flow kernel runs a sub-block through `ExecContext.run_block`
 (the JAX side lowers the same call into its scan body): the sub-block's
@@ -43,15 +55,53 @@ from .framework import Program, Variable, default_main_program
 from ..core.scope import global_scope
 from ..core.types import (VarType, guard_int64_narrowing, np_dtype,
                           tensor_from_numpy, torch_dtype)
+from ..obs import flight as obs_flight
+from ..obs import telemetry as obs_tele
 from ..ops import registry as op_registry
+from ..utils import flags
+from . import profiler as profiler_mod
 
 EMPTY = "@EMPTY@"
 # the scope entry holding a scope's random stream (a torch.Generator)
 RNG_STATE_NAME = "@RNG_STATE@"
 
 __all__ = ["Executor", "Place", "CPUPlace", "CUDAPlace", "ExecContext",
-           "global_scope", "scope_guard", "fetch_var", "apply_op",
-           "prepare_feed", "fetch_to_host"]
+           "NonfiniteError", "global_scope", "scope_guard", "fetch_var",
+           "apply_op", "prepare_feed", "fetch_to_host"]
+
+
+class NonfiniteError(FloatingPointError):
+    """Raised by the FLAGS_check_nan_inf scan, carrying the identity of
+    the first offending op so `obs.health.locate_nonfinite` can report
+    it structurally (op_index is its position in block 0)."""
+
+    def __init__(self, message, op_type=None, slot=None, var_name=None,
+                 op_index=None, nonfinite_count=None):
+        super().__init__(message)
+        self.op_type = op_type
+        self.slot = slot
+        self.var_name = var_name
+        self.op_index = op_index
+        self.nonfinite_count = nonfinite_count
+
+
+def _check_outputs_finite(op_desc, outs):
+    """The NaN/Inf scan of one op's float outputs (a ragged or
+    SelectedRows output's values): one device-to-host read per output."""
+    for slot, names in op_desc.outputs.items():
+        for name, val in zip(names, outs.get(slot) or ()):
+            arr = val.values if isinstance(val, SelectedRows) \
+                else op_registry.values_of(val)
+            if name == EMPTY or not isinstance(arr, torch.Tensor) \
+                    or not arr.is_floating_point():
+                continue
+            bad = int(torch.logical_not(torch.isfinite(arr)).sum())
+            if bad:
+                raise NonfiniteError(
+                    "%d NaN/Inf element(s) in output %r (slot %r) of "
+                    "op %r" % (bad, name, slot, op_desc.type),
+                    op_type=op_desc.type, slot=slot, var_name=name,
+                    nonfinite_count=bad)
 
 
 class Place:
@@ -301,6 +351,19 @@ class Executor:
         fetch_list = [v.name if isinstance(v, Variable) else v
                       for v in fetch_list or ()]
         scope = scope if scope is not None else global_scope()
+        obs_tele.on_executor_run()
+        try:
+            return self._run(program, seed, feed, fetch_list, scope,
+                             return_numpy)
+        except Exception as exc:
+            # a crashing run leaves a post-mortem bundle (a no-op unless
+            # obs.flight.install() was called)
+            obs_flight.on_crash(exc, origin="executor/run",
+                                feeds=obs_flight.describe_feeds(feed),
+                                fetches=list(fetch_list), eager=True)
+            raise
+
+    def _run(self, program, seed, feed, fetch_list, scope, return_numpy):
         block = program.block(0)
         persist = [n for op in block.ops for n in op.output_names()
                    if n in block.vars and block.vars[n].persistable]
@@ -312,9 +375,21 @@ class Executor:
             ctx = ExecContext(program, 0, env, scope=scope,
                               place=self.place, device=self.device,
                               rng=self._stream(scope, seed))
-            for op_desc in block.ops:
+            timed = profiler_mod.active()
+            check = flags.get_flag("check_nan_inf")
+            for index, op_desc in enumerate(block.ops):
                 with op_registry.span(op_desc.type):
-                    apply_op(ctx, op_desc)
+                    if timed:
+                        with profiler_mod.record_event(op_desc.type):
+                            outs = apply_op(ctx, op_desc)
+                    else:
+                        outs = apply_op(ctx, op_desc)
+                if check:
+                    try:
+                        _check_outputs_finite(op_desc, outs)
+                    except NonfiniteError as err:
+                        err.op_index = index
+                        raise
             for name in persist:
                 if name in env:
                     scope.set(name, env[name])

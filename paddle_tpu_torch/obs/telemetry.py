@@ -4,9 +4,11 @@ A copy of paddle_tpu/obs/telemetry.py's trainer half: per-step wall
 time, examples/sec, steps and last loss in one labeled metric family
 (the `trainer` label; the v2 SGD loop reports as "v2"), a
 `<trainer>/step` span on the trace, an optional step observer, and
-gauges through `set_gauge`.  The JAX module's executor hooks (jit
-traces, transfer bytes) have no counterpart in the port's eager
-executor.
+gauges through `set_gauge`; `snapshot`/`snapshot_delta` are what the
+flight recorder's step records carry.  Of the JAX module's executor
+hooks the port keeps `on_executor_run` (the `executor_runs_total`
+counter); jit traces and transfer bytes have no counterpart in the
+port's eager executor.
 
 Everything funnels into the default registry (`obs.registry`).  All
 helpers are cheap enough to call unconditionally: a counter inc is one
@@ -18,8 +20,9 @@ import time
 from . import registry as registry_mod
 from . import trace as trace_mod
 
-__all__ = ["step", "set_gauge", "install_step_observer", "step_observer",
-           "snapshot", "snapshot_delta", "snapshot_and_delta"]
+__all__ = ["on_executor_run", "step", "set_gauge", "install_step_observer",
+           "step_observer", "snapshot", "snapshot_delta",
+           "snapshot_and_delta"]
 
 # histogram bounds for step wall time: sub-ms tiny CPU steps up to
 # multi-second first steps
@@ -29,6 +32,12 @@ STEP_SECONDS_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
 
 def _reg():
     return registry_mod.get_registry()
+
+
+def on_executor_run():
+    """One Executor.run() dispatch (any program)."""
+    _reg().counter("executor_runs_total",
+                   "Executor.run() invocations").inc()
 
 
 # ---------------------------------------------------------------------------

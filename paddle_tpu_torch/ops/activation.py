@@ -7,13 +7,16 @@ X's splits) and its attrs; grads come from the generic vjp.  Where the
 JAX side's expression has a tie, the torch one is chosen to take the
 same grad there: `jnp.clip` (`brelu`, `relu6`, `hard_sigmoid`,
 `soft_relu`) is `minimum(maximum(x, lo), hi)`, whose grad is half at a
-bound, where `torch.clamp`'s is whole; `jnp.abs`'s grad at 0 is 1, where
-`torch.abs`'s is 0.
+bound, where `torch.clamp`'s is whole, and 0 times dOut at a NaN x,
+where `torch.maximum`'s passes dOut; `jnp.abs`'s grad at 0 is 1, where
+`torch.abs`'s is 0.  `relu` has a grad kernel of its own: `jax.nn.relu`'s
+grad selects (dOut where X > 0, else 0), so a NaN X takes 0, where
+`torch.relu`'s passes dOut through.
 """
 
 import torch
 
-from .registry import like, register_op, values_of
+from .registry import like, register_grad_kernel, register_op, values_of
 
 
 def jnp_abs(x):
@@ -23,14 +26,47 @@ def jnp_abs(x):
     return torch.where(x >= 0, x + 0.0, -x)
 
 
+class _JnpBound(torch.autograd.Function):
+    """`jnp.maximum(x, bound)` (greater) or `jnp.minimum(x, bound)` of x
+    and a 0-d bound, with JAX's value and grad.  The value is NaN at a
+    NaN x and +0.0 at a tie of zeros.  The grad is dOut times JAX's
+    `_balanced_eq`: 1 where x alone is the result, 1/2 at a tie, 0 where
+    the bound wins or x is NaN (NaN equals no result), so a NaN dOut
+    stays NaN there; torch.maximum's passes dOut whole at a NaN x."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, bound, greater):
+        wins = x > bound if greater else x < bound
+        rest = torch.where(torch.isnan(x), x, bound)
+        return torch.where(wins, x, torch.where(x == bound,
+                                                (x + bound) * 0.5, rest))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, bound, _ = inputs
+        ctx.save_for_backward(x, bound, output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, bound, out = ctx.saved_tensors
+        one = torch.ones((), dtype=grad.dtype, device=grad.device)
+        zero = torch.zeros((), dtype=grad.dtype, device=grad.device)
+        share = torch.where(x == out, one, zero) / torch.where(
+            bound == out, one + one, one)
+        return grad * share, None, None
+
+
 def jnp_clip(x, lo, hi):
     """`jnp.clip(x, lo, hi)` with its grad: half at a bound, as
-    `jnp.maximum` and `jnp.minimum` split a tie (the scalar bounds become
-    0-d tensors, filled on the device without a copy from the host:
-    `torch.clamp` would give the whole grad there)."""
+    `jnp.maximum` and `jnp.minimum` split a tie, and 0 times dOut at a
+    NaN x (`_JnpBound`; the scalar bounds become 0-d tensors, filled on
+    the device without a copy from the host: `torch.clamp` would give
+    the whole grad there)."""
     lo = torch.full((), lo, dtype=x.dtype, device=x.device)
     hi = torch.full((), hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo), hi)
+    return _JnpBound.apply(_JnpBound.apply(x, lo, True), hi, False)
 
 
 # the activations without attrs
@@ -107,6 +143,18 @@ for _name, _fn in UNARY.items():
     _unary(_name, lambda x, a, fn=_fn: fn(x))
 for _name, _fn in ACTIVATIONS.items():
     _unary(_name, _fn)
+
+
+@register_grad_kernel("relu")
+def relu_grad(ctx, ins, attrs):
+    """dX = dOut where X > 0, else 0 (`jax.nn.relu`'s select; for every X
+    but NaN the bits of torch.relu's backward); ragged over a ragged X's
+    splits."""
+    x = ins["X"][0]
+    xv = values_of(x)
+    og = values_of(ins["OG@Out"][0]).to(xv.dtype).reshape(xv.shape)
+    zero = torch.zeros((), dtype=xv.dtype, device=xv.device)
+    return {"X@GRAD": [like(x, torch.where(xv > 0, og, zero))]}
 
 
 @register_op("softmax")

@@ -9,7 +9,11 @@ max pooling, or average pooling with the JAX side's counts: the window
 sum over the zero-padded input divided by the window's size, or, with
 `exclusive` (the default) and padding, by the count of the window's
 elements that lie inside the input (`_np_pool_counts`).  Images are NCHW
-or NHWC (`data_layout`) with OIHW weights in both.  `ceil_mode` is
+or NHWC (`data_layout`) with OIHW weights in both; an NHWC `conv2d`
+hands cuDNN its input and weight in channels-last memory, so cuDNN runs
+NHWC kernels rather than transposing around NCHW ones (an input that
+is an NHWC view of NCHW memory, as a `transpose` op leaves it, is
+copied once).  `ceil_mode` is
 recorded and ignored, as on the JAX side.  Both grads are the generic
 vjp, as on the JAX side; a max-pool window's grad goes to its first
 largest element in row-major order on both sides.  `lrn` divides by
@@ -69,6 +73,10 @@ def conv2d(ctx, ins, attrs):
     x, w = ins["Input"][0], ins["Filter"][0]
     xm, wm = mxu_operands(x, w)
     xm, _ = _to_nchw(xm, attrs)
+    if attrs.get("data_layout", "NCHW") == "NHWC":
+        # both operands channels-last, or torch picks NCHW for the call
+        xm = xm.contiguous(memory_format=torch.channels_last)
+        wm = wm.contiguous(memory_format=torch.channels_last)
     scoped = deterministic_cudnn() if get_op_info("conv2d").deterministic \
         else contextlib.nullcontext()
     with scoped:

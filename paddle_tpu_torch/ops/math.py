@@ -2,7 +2,8 @@
 `mean`, the `reduce_*` family, the norms and distances
 (`squared_l2_norm`, `l1_norm`, `squared_l2_distance`, `cos_sim`), and
 the comparison and logical ops (`less_than` ... `not_equal`,
-`logical_and`, `_or`, `_xor`, `_not`).
+`logical_and`, `_or`, `_xor`, `_not`), and the finiteness checks
+`isfinite` and `count_nonfinite`.
 
 Counterparts of paddle_tpu/ops/math.py (reference: mul_op.cc,
 matmul_op.cc, elementwise_op_function.h, minus_op.cc, mean_op.cc,
@@ -214,6 +215,26 @@ def squared_l2_norm(ctx, ins, attrs):
 def l1_norm(ctx, ins, attrs):
     """The sum of |X|, a 0-d tensor; its grad at 0 is 1, as `jnp.abs`'s."""
     return {"Out": [torch.sum(jnp_abs(values_of(ins["X"][0])))]}
+
+
+@register_op("isfinite", stop_gradient_op=True, nondiff_inputs=("X",))
+def isfinite(ctx, ins, attrs):
+    """[1] bool: X (a ragged X's values) holds only finite values
+    (reference: the CheckTensorNANOrInf scan, executor.cc:66-77, as an
+    op)."""
+    x = values_of(ins["X"][0])
+    return {"Out": [torch.isfinite(x).all().reshape(1)]}
+
+
+@register_op("count_nonfinite", stop_gradient_op=True,
+             nondiff_inputs=("X",))
+def count_nonfinite(ctx, ins, attrs):
+    """[1] int32: the NaN and Inf elements of X (a ragged X's values),
+    the reduction behind `numerics_nonfinite_total` (obs/health.py).  It
+    stays on the device: nothing is read back until it is fetched."""
+    x = values_of(ins["X"][0])
+    bad = torch.logical_not(torch.isfinite(x))
+    return {"Out": [bad.sum(dtype=torch.int32).reshape(1)]}
 
 
 @register_op("squared_l2_distance")

@@ -10,7 +10,9 @@ waiting request, then gathers until `max_batch` rows are assembled or
 passed is completed with `DeadlineExceededError` instead of taking a
 device slot; a full queue rejects at submit (`QueueFullError`, HTTP
 429); `close()` drains what was admitted before the thread exits.
-Request trace contexts come with the observability slice.
+Each request carries its trace context (`obs.context`) across the queue
+hop, and the worker records the batch's stages (queue wait, assembly,
+pad, device run, split) into every co-batched request's span tree.
 """
 
 import queue
@@ -21,6 +23,8 @@ from concurrent.futures import Future
 import numpy as np
 
 from ..core.ragged import RaggedTensor, ragged_to_sequences
+from ..obs import context as obs_context
+from ..obs import trace as obs_trace
 
 __all__ = ["BatcherConfig", "MicroBatcher", "ServingError",
            "QueueFullError", "DeadlineExceededError",
@@ -60,14 +64,19 @@ class BatcherConfig:
 
 
 class _Request:
-    __slots__ = ("feeds", "batch", "deadline", "future", "submitted")
+    __slots__ = ("feeds", "batch", "deadline", "future", "submitted",
+                 "submitted_wall", "ctx")
 
-    def __init__(self, feeds, batch, deadline):
+    def __init__(self, feeds, batch, deadline, ctx=None):
         self.feeds = feeds
         self.batch = batch
         self.deadline = deadline
+        # the request's trace context rides the queue hop WITH the
+        # request, so the worker's stage records land in its tree
+        self.ctx = ctx
         self.future = Future()
         self.submitted = time.monotonic()
+        self.submitted_wall = time.time()
 
     def expired(self, now=None):
         return (self.deadline is not None
@@ -97,9 +106,11 @@ class MicroBatcher:
                 self._thread.start()
         return self
 
-    def submit(self, feeds, timeout_ms=None):
+    def submit(self, feeds, timeout_ms=None, ctx=None):
         """Enqueue one request; returns a Future resolving to its fetch
-        list.  Raises instead of queueing when draining or full."""
+        list.  Raises instead of queueing when draining or full.  `ctx`
+        (a TraceContext; default: the thread's current one) is carried
+        to the worker, which records its stages into it."""
         if self._draining:
             if self.metrics:
                 self.metrics.rejected_draining.inc()
@@ -109,7 +120,9 @@ class MicroBatcher:
             timeout_ms = self.config.default_timeout_ms
         deadline = (time.monotonic() + float(timeout_ms) / 1000.0
                     if timeout_ms is not None else None)
-        req = _Request(feeds, batch, deadline)
+        if ctx is None:
+            ctx = obs_context.current()
+        req = _Request(feeds, batch, deadline, ctx=ctx)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
@@ -123,8 +136,8 @@ class MicroBatcher:
             self.metrics.note_queue_depth(self._queue.qsize())
         return req.future
 
-    def submit_and_wait(self, feeds, timeout_ms=None):
-        fut = self.submit(feeds, timeout_ms=timeout_ms)
+    def submit_and_wait(self, feeds, timeout_ms=None, ctx=None):
+        fut = self.submit(feeds, timeout_ms=timeout_ms, ctx=ctx)
         # a backstop over the request deadline; the worker completes
         # expired requests itself
         wait = (float(timeout_ms) / 1000.0 + 30.0
@@ -256,6 +269,33 @@ class MicroBatcher:
         # not batch-major (scalar summaries): every request gets it
         return [value for _ in group]
 
+    @staticmethod
+    def _record_stages(live, now_wall, assemble_s, split_s, timings,
+                       rows):
+        """Attribute the batch-level stage timings (measured once) to
+        every co-batched request's span tree: queue wait, batch
+        assembly, pad/bucket, device run, split."""
+        pad_s = timings.get("pad", 0.0)
+        compute_s = timings.get("compute", 0.0)
+        # reconstruct wall starts backwards from the post-split clock
+        t_split0 = now_wall - split_s
+        t_exec0 = t_split0 - compute_s
+        t_pad0 = t_exec0 - pad_s
+        t_asm0 = t_pad0 - assemble_s
+        for req in live:
+            ctx = req.ctx
+            if ctx is None:
+                continue
+            ctx.record("serving/queue_wait", req.submitted_wall,
+                       max(0.0, t_asm0 - req.submitted_wall))
+            ctx.record("serving/batch_assemble", t_asm0, assemble_s,
+                       args={"occupancy": len(live), "rows": rows})
+            ctx.record("serving/pad_bucket", t_pad0, pad_s,
+                       args={"bucket": timings.get("bucket")})
+            ctx.record("serving/device_execute", t_exec0, compute_s,
+                       args={"compiled": timings.get("compiled")})
+            ctx.record("serving/split_serialize", t_split0, split_s)
+
     def _run_batch(self, group):
         now = time.monotonic()
         live = []
@@ -278,15 +318,27 @@ class MicroBatcher:
             self.metrics.batch_rows.observe(rows)
             self.metrics.inflight.inc()
         try:
-            outs = self.engine.run(self._merge_feeds(live))
+            timings = {}
+            with obs_trace.span("serving/batch", cat="serving",
+                                occupancy=len(live), rows=rows):
+                t0 = time.perf_counter()
+                merged = self._merge_feeds(live)
+                t1 = time.perf_counter()
+                outs = self.engine.run(merged, timings=timings)
+            t2 = time.perf_counter()
             offsets = np.cumsum([0] + [r.batch for r in live])[:-1]
             per_fetch = [self._split_fetch(o, offsets, live) for o in outs]
+            self._record_stages(live, time.time(), t1 - t0,
+                                time.perf_counter() - t2, timings, rows)
             for i, req in enumerate(live):
                 req.future.set_result([pf[i] for pf in per_fetch])
                 if self.metrics:
                     self.metrics.responses_total.inc()
+                    # the exemplar links this latency bucket to the
+                    # request's trace in /metrics
                     self.metrics.observe_stage(
-                        "total", time.monotonic() - req.submitted)
+                        "total", time.monotonic() - req.submitted,
+                        exemplar=req.ctx.trace_id if req.ctx else None)
         # fail the requests, not the server
         except Exception as exc:  # noqa: BLE001
             if self.metrics:

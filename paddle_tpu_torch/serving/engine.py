@@ -11,7 +11,9 @@ a ragged fetch comes back as a host RaggedTensor of the true batch's
 sequences.  On the JAX side a bucket's first run is an XLA compile;
 here it is the first run of that shape (allocator growth, kernel build
 and library load), and the `serving_compile_cache_*` counters count a
-bucket's first run as its miss.
+bucket's first run as its miss.  With `check_numerics` the fetched
+outputs are scanned for NaN/Inf on the host (`obs.health.scan_outputs`);
+a failing run reaches `obs.flight.on_crash` before it propagates.
 """
 
 import threading
@@ -27,6 +29,9 @@ from ..core.types import np_dtype
 from ..fluid import executor as executor_mod
 from ..fluid import io as fluid_io
 from ..fluid.data_feeder import DEFAULT_RAGGED_BUCKET
+from ..obs import flight as obs_flight
+from ..obs import health as obs_health
+from ..obs import trace as obs_trace
 
 __all__ = ["EngineConfig", "InferenceEngine", "DEFAULT_BATCH_BUCKETS",
            "slice_ragged"]
@@ -40,10 +45,15 @@ class EngineConfig:
     round up to a multiple of it.
     token_bucket: the multiple a ragged feed's flat rows pad up to.
     warmup_ragged: whether `warmup()` runs a program with ragged feeds
-    (each batch bucket once, with one-row sequences)."""
+    (each batch bucket once, with one-row sequences).
+    check_numerics: scan the fetched outputs for NaN/Inf on the host
+    after each run, feeding `numerics_nonfinite_total{tensor=}` (the
+    /healthz nonfinite signal).  Off by default: one host pass over the
+    outputs, which the JSON path reads again anyway."""
 
     def __init__(self, batch_buckets=DEFAULT_BATCH_BUCKETS,
-                 token_bucket=DEFAULT_RAGGED_BUCKET, warmup_ragged=True):
+                 token_bucket=DEFAULT_RAGGED_BUCKET, warmup_ragged=True,
+                 check_numerics=False):
         if batch_buckets is not None:
             batch_buckets = tuple(sorted(set(int(b) for b in
                                              batch_buckets)))
@@ -52,6 +62,7 @@ class EngineConfig:
         self.batch_buckets = batch_buckets
         self.token_bucket = int(token_bucket)
         self.warmup_ragged = bool(warmup_ragged)
+        self.check_numerics = bool(check_numerics)
 
     def bucket_for(self, batch):
         """Smallest configured bucket >= batch (multiples of the largest
@@ -221,19 +232,26 @@ class InferenceEngine:
         """Pad, execute, slice.  `timings`, when given, receives pad and
         compute seconds, whether this was the bucket's first run, and
         the bucket."""
-        with self._lock:
+        with self._lock, obs_trace.span("serving/engine_run",
+                                        cat="serving") as run_span:
             t0 = time.perf_counter()
             padded, true_batch, bucket = self.pad_feeds(feeds)
             t1 = time.perf_counter()
             scope = self.scope if self.scope is not None else global_scope()
-            outs = self._exe.run(self.program, feed=padded,
-                                 fetch_list=self.fetch_names, scope=scope,
-                                 return_numpy=False)
-            if self._exe.device.type == "cuda":
-                torch.cuda.synchronize(self._exe.device)
+            try:
+                outs = self._exe.run(self.program, feed=padded,
+                                     fetch_list=self.fetch_names,
+                                     scope=scope, return_numpy=False)
+                if self._exe.device.type == "cuda":
+                    torch.cuda.synchronize(self._exe.device)
+            except Exception as exc:
+                obs_flight.on_crash(exc, origin="serving/engine",
+                                    batch=true_batch, bucket=bucket)
+                raise
             t2 = time.perf_counter()
             first = bucket not in self._seen_buckets
             self._seen_buckets.add(bucket)
+            run_span.set(batch=true_batch, bucket=bucket, compiled=first)
         if self.metrics is not None:
             (self.metrics.cache_miss_total if first
              else self.metrics.cache_hit_total).inc()
@@ -242,7 +260,10 @@ class InferenceEngine:
         if timings is not None:
             timings.update(pad=t1 - t0, compute=t2 - t1, compiled=first,
                            bucket=bucket)
-        return [self._slice_fetch(o, true_batch, bucket) for o in outs]
+        sliced = [self._slice_fetch(o, true_batch, bucket) for o in outs]
+        if self.config.check_numerics:
+            obs_health.scan_outputs(zip(self.fetch_names, sliced))
+        return sliced
 
     # -- warmup -------------------------------------------------------------
     @staticmethod

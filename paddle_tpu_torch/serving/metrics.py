@@ -1,214 +1,185 @@
-"""Serving metrics: counters, gauges and latency histograms, rendered as
-Prometheus text for `/metrics`.
+"""Serving metrics: counters, gauges, per-stage latency histograms and
+the latency SLO's burn rate.
 
-Counterpart of paddle_tpu/serving/metrics.py, with the same metric
-names and the same text format, kept in this package: the JAX side's
-process-wide registry, profiler mirror, exemplars and SLO tracker come
-with the observability slice.
+Counterpart of paddle_tpu/serving/metrics.py, built the same way on the
+port's `obs.registry`: the metric classes and `DEFAULT_LATENCY_BUCKETS`
+are the registry's (labeled metrics, exemplars), and `ServingMetrics`
+keeps its fixed metric set in a registry of its own that it also mounts
+into the process-wide default registry, so `/metrics` serves executor,
+trainer, numerics, tail and serving metrics from one surface, with the
+JAX package's family names and labels.
+
+Every latency observation is also mirrored into `fluid.profiler`'s
+table (`serving/<stage>` rows), so `fluid.profiler.profiler()` around a
+serving run shows the queue, pad and compute stages beside the ops.
 """
 
 import threading
 
-__all__ = ["Counter", "Gauge", "Histogram", "ServingMetrics",
-           "DEFAULT_LATENCY_BUCKETS"]
+from ..fluid import profiler as profiler_mod
+from ..obs.registry import (DEFAULT_LATENCY_BUCKETS, Counter, Gauge,
+                            Histogram, MetricsRegistry, get_registry)
 
-DEFAULT_LATENCY_BUCKETS = (
-    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
-    1.0, 2.5, 5.0, 10.0, 30.0)
-
-
-class _Metric:
-    kind = None
-
-    def __init__(self, name, help_text=""):
-        self.name = name
-        self.help_text = help_text
-        self._lock = threading.Lock()
-
-    def render(self):
-        lines = []
-        if self.help_text:
-            lines.append("# HELP %s %s" % (self.name, self.help_text))
-        lines.append("# TYPE %s %s" % (self.name, self.kind))
-        lines.extend(self._samples())
-        return lines
-
-
-class Counter(_Metric):
-    kind = "counter"
-
-    def __init__(self, name, help_text=""):
-        super().__init__(name, help_text)
-        self._value = 0
-
-    def inc(self, amount=1):
-        if amount < 0:
-            raise ValueError("counter %s cannot decrease" % self.name)
-        with self._lock:
-            self._value += amount
-
-    @property
-    def value(self):
-        with self._lock:
-            return self._value
-
-    def _samples(self):
-        return ["%s %g" % (self.name, self.value)]
-
-
-class Gauge(_Metric):
-    kind = "gauge"
-
-    def __init__(self, name, help_text=""):
-        super().__init__(name, help_text)
-        self._value = 0
-
-    def set(self, value):
-        with self._lock:
-            self._value = value
-
-    def inc(self, amount=1):
-        with self._lock:
-            self._value += amount
-
-    def dec(self, amount=1):
-        with self._lock:
-            self._value -= amount
-
-    @property
-    def value(self):
-        with self._lock:
-            return self._value
-
-    def _samples(self):
-        return ["%s %g" % (self.name, self.value)]
-
-
-class Histogram(_Metric):
-    """Cumulative-bucket histogram: a bucket `le` counts every
-    observation <= its bound, plus +Inf."""
-
-    kind = "histogram"
-
-    def __init__(self, name, buckets=DEFAULT_LATENCY_BUCKETS,
-                 help_text=""):
-        super().__init__(name, help_text)
-        self.bounds = tuple(sorted(buckets))
-        self._counts = [0] * (len(self.bounds) + 1)
-        self._sum = 0.0
-        self._total = 0
-
-    def observe(self, value):
-        value = float(value)
-        i = 0
-        while i < len(self.bounds) and value > self.bounds[i]:
-            i += 1
-        with self._lock:
-            self._counts[i] += 1
-            self._sum += value
-            self._total += 1
-
-    @property
-    def count(self):
-        with self._lock:
-            return self._total
-
-    @property
-    def sum(self):
-        with self._lock:
-            return self._sum
-
-    def _samples(self):
-        lines = []
-        with self._lock:
-            cum = 0
-            for bound, n in zip(self.bounds, self._counts):
-                cum += n
-                lines.append('%s_bucket{le="%g"} %d'
-                             % (self.name, bound, cum))
-            cum += self._counts[-1]
-            lines.append('%s_bucket{le="+Inf"} %d' % (self.name, cum))
-            lines.append("%s_sum %g" % (self.name, self._sum))
-            lines.append("%s_count %d" % (self.name, self._total))
-        return lines
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "ServingMetrics", "SLOTracker", "DEFAULT_LATENCY_BUCKETS"]
 
 
 class ServingMetrics:
     """The fixed metric set one server instance exposes."""
 
     def __init__(self):
-        self._metrics = []
-        self.requests_total = self._add(Counter(
-            "serving_requests_total", "requests admitted to the queue"))
-        self.responses_total = self._add(Counter(
-            "serving_responses_total", "requests answered successfully"))
-        self.rejected_queue_full = self._add(Counter(
+        reg = self.registry = MetricsRegistry()
+        self.requests_total = reg.counter(
+            "serving_requests_total", "requests admitted to the queue")
+        self.responses_total = reg.counter(
+            "serving_responses_total", "requests answered successfully")
+        self.rejected_queue_full = reg.counter(
             "serving_rejected_queue_full_total",
-            "requests shed because the admission queue was full"))
-        self.rejected_deadline = self._add(Counter(
+            "requests shed because the admission queue was full")
+        self.rejected_deadline = reg.counter(
             "serving_rejected_deadline_total",
-            "requests dropped because their deadline expired"))
-        self.rejected_draining = self._add(Counter(
+            "requests dropped because their deadline expired")
+        self.rejected_draining = reg.counter(
             "serving_rejected_draining_total",
-            "requests refused during shutdown drain"))
-        self.errors_total = self._add(Counter(
-            "serving_errors_total", "requests failed with an error"))
-        self.cache_hit_total = self._add(Counter(
+            "requests refused during shutdown drain")
+        self.errors_total = reg.counter(
+            "serving_errors_total", "requests failed with an error")
+        self.cache_hit_total = reg.counter(
             "serving_compile_cache_hit_total",
-            "batches whose padded bucket had run before"))
-        self.cache_miss_total = self._add(Counter(
+            "batches whose padded bucket had run before")
+        self.cache_miss_total = reg.counter(
             "serving_compile_cache_miss_total",
-            "batches that were the first run of their padded bucket"))
-        self.queue_depth = self._add(Gauge(
+            "batches that were the first run of their padded bucket")
+        self.queue_depth = reg.gauge(
             "serving_queue_depth",
-            "requests waiting in the admission queue"))
-        self.queue_depth_peak = self._add(Gauge(
+            "requests waiting in the admission queue")
+        # a scrape between enqueue/dequeue samples misses transient
+        # saturation; the high-watermark gauge keeps the worst depth
+        # seen since the last /metrics render (reset on scrape)
+        self.queue_depth_peak = reg.gauge(
             "serving_queue_depth_peak",
-            "max admission-queue depth since the last scrape"))
-        self.inflight = self._add(Gauge(
-            "serving_inflight_batches", "batches currently executing"))
-        self.batch_occupancy = self._add(Histogram(
+            "max admission-queue depth since the last scrape")
+        self.inflight = reg.gauge(
+            "serving_inflight_batches", "batches currently executing")
+        self.batch_occupancy = reg.histogram(
             "serving_batch_occupancy",
             buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
-            help_text="requests coalesced per executed batch"))
-        self.batch_rows = self._add(Histogram(
+            help_text="requests coalesced per executed batch")
+        self.batch_rows = reg.histogram(
             "serving_batch_rows",
             buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
-            help_text="sample rows per executed batch (pre-padding)"))
-        self.queue_seconds = self._add(Histogram(
+            help_text="sample rows per executed batch (pre-padding)")
+        self.queue_seconds = reg.histogram(
             "serving_queue_seconds",
-            help_text="submit -> batch-assembly latency"))
-        self.pad_seconds = self._add(Histogram(
+            help_text="submit -> batch-assembly latency")
+        self.pad_seconds = reg.histogram(
             "serving_pad_seconds",
-            help_text="merge + bucket-padding latency"))
-        self.compute_seconds = self._add(Histogram(
+            help_text="merge + bucket-padding latency")
+        self.compute_seconds = reg.histogram(
             "serving_compute_seconds",
-            help_text="device execution latency (blocked on results)"))
-        self.total_seconds = self._add(Histogram(
+            help_text="device execution latency (blocked on results)")
+        self.total_seconds = reg.histogram(
             "serving_total_seconds",
-            help_text="submit -> response latency"))
+            help_text="submit -> response latency")
+        # newest instance owns the unified registry's "serving" group
+        # (each keeps its own `registry` intact either way)
+        get_registry().attach("serving", reg)
         self._depth_lock = threading.Lock()
 
-    def _add(self, metric):
-        self._metrics.append(metric)
-        return metric
-
     def note_queue_depth(self, depth):
-        """Publish the live queue depth and raise the high-watermark."""
+        """Publish the live queue depth AND raise the high-watermark,
+        at every depth transition (enqueue, dequeue, the shed path)."""
         depth = int(depth)
         with self._depth_lock:
             self.queue_depth.set(depth)
             if depth > self.queue_depth_peak.value:
                 self.queue_depth_peak.set(depth)
 
-    def observe_stage(self, stage, seconds):
-        getattr(self, stage + "_seconds").observe(seconds)
+    def observe_stage(self, stage, seconds, exemplar=None):
+        """Record a per-stage latency in both systems: the histogram
+        for /metrics scrapes and fluid.profiler for its table.
+        `exemplar` (a trace id or label dict) is retained on the
+        histogram bucket and rendered in OpenMetrics exemplar syntax,
+        so a latency bucket links to a concrete trace."""
+        getattr(self, stage + "_seconds").observe(seconds,
+                                                  exemplar=exemplar)
+        profiler_mod.record("serving/" + stage, seconds)
 
-    def render_text(self):
-        """Prometheus text exposition; restarts the peak-depth window."""
-        lines = []
-        for m in self._metrics:
-            lines.extend(m.render())
+    def render_text(self, exemplars=False):
+        """The unified exposition: the default registry's metrics plus
+        this instance's serving metrics (overriding whatever instance
+        currently holds the "serving" mount).  `exemplars=True` is for
+        OpenMetrics-negotiated scrapes only; restarts the peak-depth
+        window."""
+        text = get_registry().render_text(
+            override_groups={"serving": self.registry},
+            exemplars=exemplars)
         with self._depth_lock:
             self.queue_depth_peak.set(self.queue_depth.value)
-        return "\n".join(lines) + "\n"
+        return text
+
+
+class SLOTracker:
+    """Latency-objective burn rate over the request-latency histogram
+    (`serving_total_seconds`) — no second timing path.
+
+    The objective is "`target` of requests answer within
+    `objective_ms`"; the error budget is the allowed violating fraction
+    (1 - target).  Each `update()` reads the histogram's cumulative
+    (count, count-below-objective) pair, diffs it against the previous
+    update, and publishes
+
+        burn = violating_fraction_in_window / (1 - target)
+
+    into the default registry as `slo_burn_rate{model=...}`: 1.0 means
+    the budget is consumed exactly as provisioned, > 1 that the SLO
+    fails if the window's behavior persists.  The window IS the update
+    cadence (/healthz polls define it).  A window with no traffic burns
+    nothing (0.0).  The within-objective count interpolates linearly
+    inside the bucket holding the objective
+    (registry.Histogram.count_and_below)."""
+
+    def __init__(self, metrics, objective_ms, target=0.99,
+                 model="default"):
+        if not 0.0 < float(target) < 1.0:
+            raise ValueError("slo target must be in (0, 1); got %r"
+                             % (target,))
+        self.objective_s = float(objective_ms) / 1e3
+        self.target = float(target)
+        self.model = str(model)
+        self._hist = metrics.total_seconds
+        if self.objective_s > self._hist.bounds[-1]:
+            # beyond the largest finite bucket every violation would
+            # count as within objective and the burn could never rise
+            raise ValueError(
+                "slo objective %gms exceeds the latency histogram's "
+                "largest finite bucket (%gs); violations beyond it "
+                "are unmeasurable" % (float(objective_ms),
+                                      self._hist.bounds[-1]))
+        self._lock = threading.Lock()  # /healthz probes are threaded
+        self._prev = (0, 0.0)  # cumulative (count, count_below)
+        self._gauge = get_registry().gauge(
+            "slo_burn_rate",
+            "latency-SLO error-budget burn rate per model "
+            "(violating fraction / allowed fraction, over the "
+            "window between updates)", labelnames=("model",)) \
+            .labels(model=self.model)
+        self._gauge.set(0.0)
+
+    def update(self):
+        """Recompute the burn over the window since the last update;
+        publishes and returns it.  Locked: concurrent probes must
+        window against disjoint `_prev` states."""
+        with self._lock:
+            count, good = self._hist.count_and_below(self.objective_s)
+            prev_count, prev_good = self._prev
+            self._prev = (count, good)
+        d_count = count - prev_count
+        if d_count <= 0:
+            burn = 0.0
+        else:
+            bad_frac = max(0.0, 1.0 - (good - prev_good) / d_count)
+            burn = bad_frac / (1.0 - self.target)
+        burn = round(burn, 6)
+        self._gauge.set(burn)
+        return burn

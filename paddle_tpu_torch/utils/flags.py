@@ -2,9 +2,10 @@
 name, default and `FLAGS_<name>` environment bootstrap.
 
 Counterpart of paddle_tpu/utils/flags.py, holding only what the port
-consults: the AMP policy (`amp_bf16`, `amp_bf16_act`), the batch-norm
-statistics form (`bn_shifted_stats`), and the optimizer's update
-fusion (`fuse_optimizer`, `fuse_optimizer_max_numel`: fluid/fusion.py).
+consults: the eager NaN/Inf scan (`check_nan_inf`: fluid/executor.py),
+the AMP policy (`amp_bf16`, `amp_bf16_act`), the batch-norm statistics
+form (`bn_shifted_stats`), and the optimizer's update fusion
+(`fuse_optimizer`, `fuse_optimizer_max_numel`: fluid/fusion.py).
 Kernels read a flag when they run, so a flag set around `Executor.run`
 (`fluid.amp.bf16_guard()`) governs that run; the optimizer reads the
 fusion flags when it builds the updates.
@@ -15,6 +16,9 @@ import os
 __all__ = ["get_flag", "set_flag", "all_flags", "parse_flags_from_env"]
 
 _DEFAULTS = {
+    # scan every top-level op's float outputs for NaN/Inf, raising
+    # NonfiniteError (reference: executor.cc:29); one read back per output
+    "check_nan_inf": False,
     # cast mul/conv operands to bfloat16, f32 master weights (fluid.amp)
     "amp_bf16": False,
     # under amp_bf16, keep activations bfloat16 between ops

@@ -6,9 +6,11 @@ by op on the v2 place).
 The port's counterpart of paddle_tpu/v2/trainer.py.  Each step reports
 through the port's `obs` copies: a `v2/step` span, the step time and
 examples/s (`obs.telemetry.step`) and the `trainer_last_loss` gauge.
-The JAX trainer's numerics monitor (`obs/health.py`) and crash flight
-recorder (`obs/flight.py`) wait with ROADMAP A8, so this trainer has no
-hook for them yet.
+While `obs.health.enable()` is on, the trainer installs a numerics
+monitor (`obs.health.NumericsMonitor`) on its program, whose
+reductions ride each step's fetches; while a flight recorder is
+installed (`obs.flight.install()`), each step leaves a record and a
+failing step a bundle.
 """
 
 import os
@@ -17,6 +19,8 @@ import numpy as np
 
 from .. import fluid
 from ..fluid import framework
+from ..obs import flight as obs_flight
+from ..obs import health as obs_health
 from ..obs import telemetry as obs_tele
 from . import event as v2_event
 from . import layer as v2_layer
@@ -45,6 +49,7 @@ class SGD:
             opt = opt.to_fluid()
         self._optimizer = opt
         self._optimize_ops, self._params_grads = opt.minimize(cost)
+        self._health_monitor = None
         self._exe = fluid.Executor(_place())
         self._run_startup_for_missing(self._exe)
 
@@ -86,29 +91,76 @@ class SGD:
                 feeding, self._main_program),
             place=_place())
 
-    def _run_step(self, feeder, data, fetch, **span_args):
-        """One forward, backward and update on `data`: the fetched
-        values, the step timed and reported as `v2`."""
-        feed = feeder.feed(data)
-        with obs_tele.step("v2", examples=len(data), **span_args):
-            outs = self._exe.run(self._main_program, feed=feed,
-                                 fetch_list=fetch)
-        obs_tele.set_gauge("trainer_last_loss", _cost_of(outs),
-                           trainer="v2")
-        return outs
+    def _numerics_monitor(self):
+        """Install (once) and return the numerics health monitor when
+        `obs.health.enable()` is active; None otherwise.  The monitor's
+        on-device reductions ride the regular fetch list."""
+        if not obs_health.enabled():
+            return None
+        if self._health_monitor is None:
+            self._health_monitor = obs_health.NumericsMonitor \
+                .for_train_program(self._main_program, cost=self._cost,
+                                   params_grads=self._params_grads) \
+                .install()
+        return self._health_monitor
+
+    def _fetches(self):
+        """(fetch list, user fetches, monitor or None): the cost and
+        extra layers, then the monitor's scalars."""
+        fetch = [self._cost] + list(self._extra)
+        monitor = self._numerics_monitor()
+        n_user = len(fetch)
+        if monitor is not None:
+            fetch = fetch + monitor.fetch_names
+        return fetch, n_user, monitor
+
+    def _run_step(self, feeder, data, fetch, n_user, monitor, origin,
+                  step_index, **span_args):
+        """One forward, backward and update on `data`: (the user's
+        fetched values, the monitor's summary or None), the step timed
+        and reported as `v2`, recorded by the flight recorder."""
+        feed = None
+        try:
+            feed = feeder.feed(data)
+            with obs_tele.step("v2", examples=len(data), **span_args):
+                outs = self._exe.run(self._main_program, feed=feed,
+                                     fetch_list=fetch)
+        except Exception as exc:
+            obs_flight.on_crash(
+                exc, origin=origin,
+                feeds=obs_flight.describe_feeds(feed) if feed else None,
+                **span_args)
+            raise
+        summary = None
+        if monitor is not None:
+            summary = monitor.record(dict(zip(monitor.fetch_names,
+                                              outs[n_user:])))
+            outs = outs[:n_user]
+        cost = _cost_of(outs)
+        obs_tele.set_gauge("trainer_last_loss", cost, trainer="v2")
+        if obs_flight.active():
+            obs_flight.record_step("v2", step_index, feeds=feed, loss=cost,
+                                   **span_args)
+        return outs, summary
 
     def step_runner(self, feeding=None):
         """Return `step(data) -> float cost`: one forward/backward/
-        update through the executor, with the same telemetry as
-        `train()` (the entry of a supervisor that owns batching and
-        epochs)."""
+        update through the executor, with the same telemetry, numerics
+        monitoring and flight hooks as `train()` (the entry of a
+        supervisor that owns batching and epochs).  A step the monitor
+        finds nonfinite returns NaN: grads can go nonfinite while the
+        loss still reads finite."""
         feeder = self._feeder(feeding)
-        fetch = [self._cost] + list(self._extra)
+        fetch, n_user, monitor = self._fetches()
         counter = [0]
 
         def step(data):
-            outs = self._run_step(feeder, data, fetch, batch_id=counter[0])
+            outs, summary = self._run_step(
+                feeder, data, fetch, n_user, monitor, "v2/supervised_step",
+                counter[0], batch_id=counter[0])
             counter[0] += 1
+            if summary is not None and summary["found_nonfinite"]:
+                return float("nan")
             return _cost_of(outs)
 
         return step
@@ -122,13 +174,16 @@ class SGD:
         if event_handler is None:
             event_handler = lambda e: None  # noqa: E731
         feeder = self._feeder(feeding)
-        fetch = [self._cost] + list(self._extra)
+        fetch, n_user, monitor = self._fetches()
+        step_index = 0
         for pass_id in range(num_passes):
             event_handler(v2_event.BeginPass(pass_id))
             for batch_id, data in enumerate(reader()):
                 event_handler(v2_event.BeginIteration(pass_id, batch_id))
-                outs = self._run_step(feeder, data, fetch, pass_id=pass_id,
-                                      batch_id=batch_id)
+                outs, _ = self._run_step(
+                    feeder, data, fetch, n_user, monitor, "v2/train",
+                    step_index, pass_id=pass_id, batch_id=batch_id)
+                step_index += 1
                 event_handler(v2_event.EndForwardBackward(pass_id,
                                                           batch_id))
                 event_handler(v2_event.EndIteration(pass_id, batch_id,

@@ -226,6 +226,8 @@ def test_registry_holds_the_slice_op_set():
         "leaky_relu", "logsigmoid", "pow", "reciprocal", "relu6", "round",
         "soft_relu", "softplus", "softshrink", "softsign", "stanh",
         "swish", "tanh_shrink", "thresholded_relu", "prelu", "one_hot",
-        "norm", "smooth_l1_loss", "fused_update"}
+        "norm", "smooth_l1_loss", "fused_update",
+        # the numerics health's finiteness checks
+        "isfinite", "count_nonfinite"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")

@@ -72,11 +72,12 @@ def _check(op, ins, outs, attrs, og, grads, amp=False):
 def test_the_port_registers_the_fifteen_new_op_types():
     """The 15 op types of the sequence-op slice; the port's count since
     the nested-sequence slice added seq_unnest, seq_outer_expand,
-    seq_renest, print, beam_search, beam_search_decode and sign, and the
-    optimizer and layer stack's slice 44 more."""
+    seq_renest, print, beam_search, beam_search_decode and sign, the
+    optimizer and layer stack's slice 44 more, and the observability
+    slice isfinite and count_nonfinite."""
     ops = set(registered_ops())
     assert set(NEW_OPS) <= ops
-    assert len(ops) == 159
+    assert len(ops) == 161
 
 
 # -- sequence_softmax, sequence_conv, row_conv ---------------------------------

@@ -266,3 +266,230 @@ def test_sequence_parallel_export_serves_as_in_jax(tmp_path):
     got = engine.run(feeds)[0]
     assert got.shape == want.shape == (2, T, V)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+# -- request tracing, the tail, the access log, SLO and /metrics ---------------
+
+TRACEPARENT = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
+
+
+def _http(method, url, payload=None, headers=None):
+    """(status, body, headers) of one request; JSON bodies decoded."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers=dict(headers or {}))
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            status, raw, hdrs = resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as err:
+        status, raw, hdrs = err.code, err.read(), err.headers
+    text = raw.decode()
+    body = json.loads(text) if hdrs.get_content_type() == \
+        "application/json" else text
+    return status, body, hdrs
+
+
+def _families(text):
+    """{family: sorted label names} of a Prometheus text exposition."""
+    import re
+
+    fams = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            fams.setdefault(line.split()[2], set())
+        elif line and not line.startswith("#"):
+            m = re.match(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{([^}]*)\})?", line)
+            name = m.group(1)
+            fam = next((f for f in fams if name == f or name.startswith(
+                f + "_")), name)
+            labels = {kv.split("=")[0] for kv in
+                      (m.group(3) or "").split(",") if kv}
+            fams.setdefault(fam, set()).update(labels - {"le"})
+    return {k: sorted(v) for k, v in fams.items()}
+
+
+def _serve_both(jax_export, tmp_path, feeds):
+    """The JAX and port servers (warmup off: ROADMAP C2) with the same
+    observability config, each answering `feeds` one row per request:
+    ({family: labels} of each /metrics, each /healthz body)."""
+    from paddle_tpu.serving import InferenceServer as JServer
+    from paddle_tpu.serving import ServerConfig as JConfig
+    from paddle_tpu.serving import EngineConfig as JEngineConfig
+    from paddle_tpu_torch.obs import registry as t_registry
+
+    t_registry.reset_registry()
+    kw = dict(port=0, max_wait_ms=1.0, warmup=False, slo_ms=500.0,
+              tail_slow_ms=1e6)
+    servers = [
+        JServer(JEngine.from_saved_model(
+            jax_export[0], place=jfluid.CPUPlace(),
+            config=JEngineConfig(batch_buckets=[1, 2, 4],
+                                 check_numerics=True)),
+            JConfig(access_log=str(tmp_path / "jax.jsonl"), **kw)),
+        InferenceServer(InferenceEngine.from_saved_model(
+            jax_export[0], place=CPUPlace(),
+            config=EngineConfig(batch_buckets=[1, 2, 4],
+                                check_numerics=True)),
+            ServerConfig(access_log=str(tmp_path / "port.jsonl"), **kw))]
+    metrics, health = [], []
+    for server in servers:
+        server.start()
+        try:
+            base = "http://%s:%d" % server.address
+            for i in range(feeds["tokens"].shape[0]):
+                status, _, _ = _http("POST", base + "/v1/infer", {
+                    "inputs": {n: v[i:i + 1].tolist()
+                               for n, v in feeds.items()}},
+                    {"traceparent": TRACEPARENT,
+                     "Content-Type": "application/json"})
+                assert status == 200
+            metrics.append(_families(_http("GET", base + "/metrics")[1]))
+            health.append(_http("GET", base + "/healthz")[1])
+        finally:
+            server.shutdown()
+    return metrics, health
+
+
+def test_metrics_families_labels_and_healthz_match_jax(jax_export,
+                                                        tmp_path):
+    (jfam, tfam), (jhealth, thealth) = _serve_both(
+        jax_export, tmp_path, transformer_feeds(2, T, V, seed=10))
+    serving = {f for f in jfam if f.startswith("serving_")}
+    assert serving and {f for f in tfam if f.startswith("serving_")} \
+        == serving
+    for fam in serving | {"slo_burn_rate", "numerics_nonfinite_total",
+                          "profiler_event_seconds_total",
+                          "profiler_event_calls_total"}:
+        assert tfam[fam] == jfam[fam], fam
+    assert tfam["slo_burn_rate"] == ["model"]
+    assert tfam["numerics_nonfinite_total"] == ["tensor"]
+    # the JAX server's /healthz keys, but its jit-trace count (the port
+    # compiles nothing) and the memory section (ROADMAP A2)
+    assert set(thealth) == set(jhealth) - {"jit_traces_total", "memory"}
+    assert thealth["slo"] == jhealth["slo"]
+    assert thealth["numerics_nonfinite_total"] == \
+        jhealth["numerics_nonfinite_total"] == 0
+    assert thealth["responses_total"] == jhealth["responses_total"] == 2
+    jlog = [json.loads(line) for line in open(str(tmp_path / "jax.jsonl"))]
+    tlog = [json.loads(line) for line in open(str(tmp_path / "port.jsonl"))]
+    assert [sorted(r) for r in tlog] == [sorted(r) for r in jlog]
+    assert [(r["status"], r["batch"], r["bucket"], r["trace_id"])
+            for r in tlog] == [(r["status"], r["batch"], r["bucket"],
+                                r["trace_id"]) for r in jlog]
+
+
+def test_server_tracing_tail_and_access_log(jax_export, tmp_path):
+    from paddle_tpu.tools import obs_dump
+
+    log = str(tmp_path / "access.jsonl")
+    engine = InferenceEngine.from_saved_model(jax_export[0],
+                                              place=CPUPlace())
+    server = InferenceServer(engine, ServerConfig(
+        port=0, max_wait_ms=1.0, tail_slow_ms=150.0, access_log=log))
+    real_run = engine.run
+
+    def slow_once(feeds, timings=None):
+        import time as _time
+
+        if feeds["tokens"][0, 0] == 7:
+            _time.sleep(0.2)
+        return real_run(feeds, timings=timings)
+
+    engine.run = slow_once
+    server.start()
+    base = "http://%s:%d" % server.address
+    feeds = transformer_feeds(1, T, V, seed=11)
+    slow = {n: v.copy() for n, v in feeds.items()}
+    slow["tokens"][0, 0] = 7
+    try:
+        st, body, hdrs = _http("POST", base + "/v1/infer", {"inputs": {
+            n: v.tolist() for n, v in feeds.items()}},
+            {"traceparent": TRACEPARENT})
+        assert st == 200 and body["request_id"]
+        assert hdrs["traceparent"].split("-")[1] == TRACEPARENT.split("-")[1]
+        assert hdrs["x-request-id"] == body["request_id"]
+        st, slow_body, _ = _http("POST", base + "/v1/infer", {
+            "inputs": {n: v.tolist() for n, v in slow.items()}})
+        assert st == 200
+        st, body400, hdrs400 = _http("POST", base + "/v1/infer",
+                                     {"inputs": {}})
+        assert st == 400 and body400["request_id"] \
+            and hdrs400["x-request-id"] == body400["request_id"]
+        st, tail, _ = _http("GET", base + "/debug/tail")
+        doc = obs_dump.validate_tail_dump(tail)
+        assert st == 200 and [r["request_id"] for r in doc["requests"]] \
+            == [slow_body["request_id"]]
+        names = set()
+
+        def walk(nodes):
+            for n in nodes:
+                names.add(n["name"])
+                walk(n["children"])
+
+        walk(doc["requests"][0]["spans"])
+        assert {"serving/request", "serving/admission",
+                "serving/queue_wait", "serving/batch_assemble",
+                "serving/pad_bucket", "serving/device_execute",
+                "serving/split_serialize", "serving/serialize"} <= names
+        server.draining = True
+        st, body503, _ = _http("POST", base + "/v1/infer", {"inputs": {
+            n: v.tolist() for n, v in feeds.items()}})
+        server.draining = False
+        assert st == 503 and body503["request_id"]
+        assert len(server.tail.records()) == 1
+        om = _http("GET", base + "/metrics",
+                   headers={"Accept": "application/openmetrics-text"})[1]
+        assert om.endswith("# EOF\n")
+        assert any("serving_total_seconds_bucket" in line and " # " in line
+                   for line in om.splitlines())
+    finally:
+        server.shutdown()
+    lines = [json.loads(line) for line in open(log)]
+    assert [r["status"] for r in lines] == [200, 200, 400, 503]
+    assert lines[0]["trace_id"] == TRACEPARENT.split("-")[1]
+    assert lines[1]["request_id"] == slow_body["request_id"]
+    assert lines[1]["latency_ms"] >= 150.0 > lines[0]["latency_ms"]
+    assert lines[0]["bucket"] == 1 and lines[0]["batch"] == 1
+
+
+def test_429_carries_retry_after_and_skips_the_tail(jax_export):
+    from paddle_tpu_torch.serving import QueueFullError
+
+    engine = InferenceEngine.from_saved_model(jax_export[0],
+                                              place=CPUPlace())
+    server = InferenceServer(engine, ServerConfig(
+        port=0, warmup=False, retry_after_s=2, tail_slow_ms=0.0))
+    server.start()
+
+    def full(*a, **kw):
+        raise QueueFullError("admission queue full (64 waiting)")
+
+    server.batcher.submit_and_wait = full
+    try:
+        st, body, hdrs = _http("POST", "http://%s:%d/v1/infer"
+                               % server.address, {"inputs": {
+                                   n: v.tolist() for n, v in
+                                   transformer_feeds(1, T, V).items()}})
+    finally:
+        server.shutdown()
+    assert st == 429 and body["request_id"]
+    assert hdrs["Retry-After"] == "2"
+    assert server.tail.records() == []
+
+
+def test_engine_check_numerics_counts_nonfinite_outputs(jax_export):
+    from paddle_tpu_torch.obs import registry as t_registry
+
+    t_registry.reset_registry()
+    engine = InferenceEngine.from_saved_model(
+        jax_export[0], place=CPUPlace(),
+        config=EngineConfig(batch_buckets=[2], check_numerics=True))
+    feeds = transformer_feeds(2, T, V, seed=12)
+    engine.run(feeds)
+    fam = t_registry.get_registry().counter("numerics_nonfinite_total",
+                                            labelnames=("tensor",))
+    assert [s["value"] for s in fam.samples()] == [0]
+    engine.scope.get("embedding_0.w_0")[feeds["tokens"][0, 0]] = \
+        float("nan")
+    engine.run(feeds)
+    assert sum(s["value"] for s in fam.samples()) > 0

@@ -137,9 +137,10 @@ def _grad_pairs(case):
 
 
 def test_the_port_registers_the_new_op_types():
+    # 161 since the observability slice's isfinite and count_nonfinite
     assert len(NEW_OPS) == 44
     ops = set(registered_ops())
-    assert set(NEW_OPS) <= ops and len(ops) == 159
+    assert set(NEW_OPS) <= ops and len(ops) == 161
     assert {c[1] for c in CASES} >= set(NEW_OPS) - {"fused_update"}
 
 
