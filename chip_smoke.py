@@ -312,6 +312,34 @@ no result line:
      before minimize, against NCHW from one state: 2 Momentum steps
      each, the first loss and the first step's change gated, step ms,
      launches and cuDNN's layout-transposing kernels' device ms in each.
+  17. pserver: the parameter-server path (the native runtime built
+     from paddle_tpu_torch/native/ with g++, dist_send, the
+     DistributeTranspiler, the launcher).  (a)
+     examples/ctr_deepfm_sparse.py --pserver at its defaults (phase
+     10's model, Adam at lr 1e-2, batch 256, 60 steps of its reader):
+     two in-process pservers, the trainer on the card, against the same
+     loop through the port on the CPU on servers of its own from one
+     startup state (the losses within PS_LOSS_ATOL; the servers'
+     sparse rows exactly 60 x 256 x 16 x 2 on both sides); then 60
+     steps on one batch through the servers below 0.7 of the first loss
+     (tests/test_ctr_deepfm.py's criterion).  (b) The same model at
+     10,000,000 features: the step's median of 10 after 2 warm, the
+     forward and backward alone, the copies from the card, the round
+     trips and the writes back of a profiled step with its device busy
+     share, the bytes each way; after the steps every touched row of
+     both tables on the card equals its server's bit for bit and every
+     other row is as initialised.  (c) Phase 5's transformer (78
+     parameters in blocks over two servers, Momentum): 2 steps through
+     the servers against the same 2 local steps on the card (losses,
+     every parameter within PS_STATE_RTOL of the steps' change), 12 flash
+     launches a step counted from 0 just before; the step's time through
+     the servers and locally, where it goes, one block's round trip.
+     (d) examples/dist_pserver_fit_a_line.py's flow through
+     tools/cluster_launch.launch: 2 pserver processes and 2 trainer
+     processes (this script re-entered with TRAINING_ROLE=TRAINER) on
+     the one card in sync mode, static and then elastic (a master,
+     leases, discover_pservers): both trainers exit 0 with parameters
+     equal bit for bit.  Every process it starts is stopped.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -8024,6 +8052,547 @@ def phase_obs():
     return amp, serve
 
 
+# -- phase 17: the parameter-server path -------------------------------------
+
+# 17a: examples/ctr_deepfm_sparse.py --pserver at its defaults (phase
+# 10's model and reader), two in-process pservers in sync mode, the
+# trainer on the card; the same loop through the port on the CPU, on
+# servers of its own, from the same startup state.  Every id of a step
+# sends one row to each of the two tables' servers
+PS_SERVERS = 2
+PS_ROWS = CTR_STEPS * CTR_BATCH * CTR_FIELDS * 2
+# the card's losses against the CPU's over the 60 steps: both sides'
+# servers run the same f32 Adam on grads that differ in their last bits
+# (sums in other orders on the card), and Adam's division by the root
+# of the second moment carries that into every later step.  An H100
+# read 1.19e-7 (2 ulps of a loss near ln 2); the gate is 17 times that
+PS_LOSS_ATOL = 2e-6
+# 17b: the same model at 10^7 features, timed PS_TIMED steps after
+# PS_WARM from the reader
+PS_WARM, PS_TIMED = 2, 10
+# 17c: phase 5's transformer (27.57 M parameters, 78 of them) split into
+# blocks over the two servers under Momentum (lr LR, mu MOMENTUM), 2
+# steps, against the same 2 local Momentum steps on the card from one
+# state.  The server applies the op's formula (v = mu v + g, p -= lr v)
+# in f32 on the host.  An H100 read every parameter and both losses
+# equal to the local steps' bit for bit: the card's momentum op rounds
+# as the host does.  The gate allows each parameter 1e-4 of the steps'
+# change beyond STATE_ULPS ulps (phase 5's measure), for an update op
+# that fused its multiply-add and so rounded once less; a wrong block
+# (a parameter a step behind, or another block's values) reads near 1
+PS_TRANSFORMER_STEPS = 2
+PS_STATE_RTOL = 1e-4
+PS_TRANSFORMER_TIMED = 3
+# 17d: examples/dist_pserver_fit_a_line.py's flow through the port's
+# launcher: 2 pserver processes, 2 trainer processes on the one card in
+# sync mode, 3 passes of uci_housing at batch 20 and SGD at lr 1e-3
+PS_LAUNCH_PASSES = 3
+PS_LAUNCH_TIMEOUT_S = 300
+
+
+def ps_servers(n=PS_SERVERS, **kw):
+    """`n` in-process pservers on free ports and their endpoints."""
+    from paddle_tpu_torch import native
+
+    servers = [native.ParameterServer(num_trainers=1, sync=True, **kw)
+               for _ in range(n)]
+    return servers, ",".join("127.0.0.1:%d" % s.port for s in servers)
+
+
+def ps_stop(servers):
+    """Close this process's pserver connections and stop `servers`."""
+    from paddle_tpu_torch.ops.dist import ClientPool
+
+    ClientPool.reset()
+    for s in servers:
+        s.stop()
+
+
+def ps_ctr(features, place, init=None):
+    """The example's program at `features` features transpiled for two
+    fresh pservers, its startup run on `place` (or `init`, {name:
+    ndarray}, set into the scope), the servers initialised from it:
+    (main, loss, transpiler, servers, executor, scope)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.distributed import DistributeTranspiler
+
+    main, startup, loss, _, params_grads = build_ctr(features)
+    servers, endpoints = ps_servers()
+    t = DistributeTranspiler().transpile(params_grads=params_grads,
+                                         program=main, pservers=endpoints)
+    exe = fluid.Executor(place)
+    if init is None:
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+    else:
+        scope = params_scope(init, exe.device)
+    t.init_pservers(scope)
+    return main, loss, t, servers, exe, scope
+
+
+def ps_loop(tag, place, init, batches):
+    """The example's loop over `batches` on `place` from `init` through
+    two fresh pservers: (losses, sparse rows applied per server)."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, loss, _, servers, exe, scope = ps_ctr(CTR_FEATURES, place, init)
+    try:
+        gblock = main.global_block()
+        feeder = fluid.DataFeeder(place=place, feed_list=[
+            gblock.var("ids"), gblock.var("label")], program=main)
+        losses, times = [], []
+        t_loop = t0 = time.perf_counter()
+        for step, (ids, label) in enumerate(batches):
+            feed = feeder.feed([(ids[i], label[i]) for i in range(CTR_BATCH)])
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            losses.append(float(np.asarray(out).reshape(-1)[0]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            if step % 10 == 0 or step == len(batches) - 1:
+                print("pserver: %s step %3d  logloss %.4f"
+                      % (tag, step, losses[-1]), flush=True)
+            t0 = time.perf_counter()
+        rows = [s.num_sparse_rows() for s in servers]
+        print("pserver: %s: %d steps in %.2f s, step %.3f ms (median, host "
+              "clock from one fetched loss to the next, feeding included; "
+              "min %.3f, max %.3f), sparse rows applied %s, updates %s"
+              % (tag, len(losses), time.perf_counter() - t_loop,
+                 float(np.median(times)), min(times), max(times), rows,
+                 [s.num_updates() for s in servers]), flush=True)
+        return losses, rows
+    finally:
+        ps_stop(servers)
+
+
+def pserver_example():
+    """17a: the example's --pserver loop on the card against the same
+    loop on the CPU, and the JAX test's one-batch criterion through the
+    servers.  Returns the card loop's launch counts."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup, _, _, _ = build_ctr(CTR_FEATURES)
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).cpu().numpy()
+            for n, v in main.desc.block(0).vars.items() if v.persistable}
+    del scope
+    reader = ctr_reader(CTR_FEATURES)
+    batches = [next(reader) for _ in range(CTR_STEPS)]
+    reset_launches()
+    card, rows = ps_loop("17a card", fluid.CUDAPlace(0), init, batches)
+    launches = read_launches()
+    cpu, cpu_rows = ps_loop("17a CPU", fluid.CPUPlace(), init, batches)
+    err = max(abs(a - b) for a, b in zip(card, cpu))
+    print("pserver: 17a card against CPU over %d steps: loss max_abs_err "
+          "%.3g (atol %g), first %.6f / %.6f, last %.6f / %.6f; sparse rows "
+          "%d / %d (want %d); hand-written kernel launches %s"
+          % (CTR_STEPS, err, PS_LOSS_ATOL, card[0], cpu[0], card[-1],
+             cpu[-1], sum(rows), sum(cpu_rows), PS_ROWS,
+             json.dumps(launches)), flush=True)
+    if err > PS_LOSS_ATOL or not np.isfinite(card).all():
+        raise SystemExit("chip_smoke: the pserver loop on the card disagrees "
+                         "with the CPU's")
+    if sum(rows) != PS_ROWS or sum(cpu_rows) != PS_ROWS:
+        raise SystemExit("chip_smoke: the servers applied %d and %d sparse "
+                         "rows, want %d" % (sum(rows), sum(cpu_rows),
+                                            PS_ROWS))
+    # tests/test_ctr_deepfm.py's criterion, through the servers: 60 Adam
+    # steps on one batch below CTR_CONVERGE of the first loss
+    fit, _ = ps_loop("17a one batch", fluid.CUDAPlace(0), init,
+                     batches[:1] * CTR_STEPS)
+    print("pserver: 17a %d steps on one batch: loss %.6f -> %.6g (limit %g "
+          "of the first)" % (CTR_STEPS, fit[0], fit[-1], CTR_CONVERGE),
+          flush=True)
+    if not np.isfinite(fit).all() or not fit[-1] < CTR_CONVERGE * fit[0]:
+        raise SystemExit("chip_smoke: the pserver loop did not converge on "
+                         "one batch")
+    return launches
+
+
+def ps_bytes(batch, param_blocks, sparse, widths):
+    """(bytes to the servers, bytes back) of one step's payloads: a
+    dense parameter's f32 grad out and its f32 value back; a table's
+    int32 row ids and f32 rows out, its distinct ids out and their f32
+    rows back."""
+    ids = batch[0]
+    out = back = 0
+    for pname, blocks in param_blocks.items():
+        n = sum(size for _, _, size in blocks)
+        if pname not in sparse:
+            out += 4 * n
+            back += 4 * n
+            continue
+        width = widths[pname]
+        unique = len(np.unique(ids))
+        out += 4 * ids.size * (1 + width) + 4 * unique
+        back += 4 * unique * width
+    return out, back
+
+
+def ps_profile(step, main):
+    """One profiled `step` of `main` (a Program or ProgramDesc): ({dist_send
+    stage: host ms}, {device copy: ms}, device busy ms, wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    host = collections.Counter()
+    dev = collections.Counter()
+    for e in events:
+        if e.key.startswith("dist_send/"):
+            host[e.key] += e.cpu_time_total / 1e3
+        if "Memcpy" in e.key:
+            dev[e.key] += e.device_time_total / 1e3
+    desc = getattr(main, "desc", main)
+    labels = {op.type for op in desc.block(0).ops} | set(host)
+    busy = sum(k[1] for k in device_kernels(events, labels)) / 1e3
+    return host, dev, busy, wall
+
+
+def pserver_big(smi):
+    """17b: the example's model at 10^7 features through the servers:
+    the step's time and where it goes (the card's forward and backward,
+    the copies from the card, the round trips, the writes back), the
+    bytes each way, and the card's tables against the servers' rows."""
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    main, loss, t, servers, exe, scope = ps_ctr(CTR_BIG_FEATURES,
+                                                fluid.CUDAPlace(0))
+    try:
+        print("pserver: 17b %d features: startup and init_pservers in %.1f "
+              "s (%.0f MB of parameters pushed and pulled)"
+              % (CTR_BIG_FEATURES, time.perf_counter() - t0, sum(
+                  4 * size for blocks in t.param_blocks.values()
+                  for _, _, size in blocks) / 1e6), flush=True)
+        initial = {n: scope.get(n).cpu().numpy() for n in CTR_TABLES}
+        reader = ctr_reader(CTR_BIG_FEATURES)
+        batches = [next(reader) for _ in range(PS_WARM + PS_TIMED + 1)]
+        feeds = [ctr_feed(b, exe.device) for b in batches]
+        it = iter(feeds)
+
+        def step():
+            return exe.run(main, feed=next(it), fetch_list=[loss],
+                           scope=scope, return_numpy=False)
+
+        times = timed_steps(step, runs=PS_TIMED, warm=PS_WARM)
+        med = float(np.median(times))
+        # the forward and backward alone: the program without its sends
+        fb = main.clone()
+        fb.desc.block(0).ops[:] = [od for od in fb.desc.block(0).ops
+                                   if od.type != "dist_send"]
+        fixed = feeds[0]
+        fb_times = timed_steps(lambda: exe.run(
+            fb, feed=fixed, fetch_list=[loss], scope=scope,
+            return_numpy=False), runs=PS_TIMED, warm=PS_WARM)
+        fb_med = float(np.median(fb_times))
+        host, dev, busy, wall = ps_profile(step, main)
+        out_b, back_b = ps_bytes(batches[0], t.param_blocks,
+                                 t._sparse_params,
+                                 {n: scope.get(n).shape[1]
+                                  for n in CTR_TABLES})
+        print("pserver: 17b step %.3f ms (median of %d after %d warm; min "
+              "%.3f, max %.3f), %.1f samples/s; the forward and backward "
+              "alone %.3f ms; in a profiled step: copies from the card "
+              "%.3f host-ms, pserver round trips %.3f, writes back %.3f; "
+              "device copies %s; device busy %.3f of the profiled step's "
+              "%.3f ms (idle %.1f %%); %.3f MB to the servers and %.3f MB "
+              "back a step (the JAX op's table copies would add %.0f MB "
+              "each way); %s"
+              % (med, PS_TIMED, PS_WARM, min(times), max(times),
+                 CTR_BATCH / med * 1e3, fb_med,
+                 host["dist_send/copy_out"], host["dist_send/round_trip"],
+                 host["dist_send/write_back"], ", ".join(
+                     "%s %.3f ms" % kv for kv in sorted(dev.items())),
+                 busy, wall, 100.0 - 100.0 * busy / wall,
+                 out_b / 1e6, back_b / 1e6,
+                 sum(4 * scope.get(n).numel() for n in CTR_TABLES) / 1e6,
+                 smi), flush=True)
+        # every table row the steps touched equals its server's, bit for
+        # bit; every other row is as init_pservers left it
+        touched = np.unique(np.concatenate([b[0].reshape(-1)
+                                            for b in batches]))
+        for name in CTR_TABLES:
+            (ep, _, _), = t.param_blocks[name]
+            card = scope.get(name).cpu().numpy()
+            from paddle_tpu_torch.ops.dist import ClientPool, block_name
+
+            served = ClientPool.get(ep).get_rows(block_name(name, 0),
+                                                 touched, card.shape[1])
+            rest = np.ones(card.shape[0], bool)
+            rest[touched] = False
+            same_touched = same_bits(card[touched], served)
+            same_rest = same_bits(card[rest], initial[name][rest])
+            moved = int((card[touched] != initial[name][touched])
+                        .any(axis=1).sum())
+            print("pserver: 17b %s: %d touched rows equal the server's bit "
+                  "for bit: %s (%d of them moved); %d untouched rows as "
+                  "initialised: %s" % (name, touched.size, same_touched,
+                                       moved, int(rest.sum()), same_rest),
+                  flush=True)
+            if not (same_touched and same_rest and moved):
+                raise SystemExit("chip_smoke: 17b's table %s disagrees with "
+                                 "its server" % name)
+    finally:
+        ps_stop(servers)
+
+
+def pserver_transformer(smi):
+    """17c: the full-width transformer through the dense path, 2
+    Momentum steps on the card through the servers against the same 2
+    local steps on the card; then the step's time through the servers
+    and locally, where a step through them goes, and one block's round
+    trip.  Returns the launch counts of the 2 steps."""
+    import torch
+    from paddle_tpu_torch.distributed import DistributeTranspiler
+    from paddle_tpu_torch.fluid import Executor, MomentumOptimizer, Scope
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.ops.dist import ClientPool, block_name
+
+    def build():
+        main, startup, loss, _ = tp.build_transformer_program(
+            BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD,
+            d_model=D_MODEL)
+        _, pairs = MomentumOptimizer(LR, MOMENTUM).minimize(loss, main,
+                                                            startup)
+        return main, startup, loss, pairs
+
+    feeds = [tp.transformer_feeds(BATCH, SEQ, VOCAB, seed=SEED + i,
+                                  targets=True)
+             for i in range(PS_TRANSFORMER_STEPS)]
+    main, startup, loss, pairs = build()
+    servers, endpoints = ps_servers()
+    try:
+        t = DistributeTranspiler().transpile(params_grads=pairs, program=main,
+                                             pservers=endpoints)
+        nblocks = sum(len(b) for b in t.param_blocks.values())
+        exe = Executor()
+        scope = Scope()
+        exe.run(startup, scope=scope)
+        params = sorted(t.param_blocks)
+        t0 = time.perf_counter()
+        t.init_pservers(scope)
+        init_s = time.perf_counter() - t0
+        # every persistable (the velocities stay at 0: no op reads them)
+        state = {n: scope.get(n).cpu().numpy()
+                 for n, v in main.block(0).vars.items() if v.persistable}
+        init = {n: state[n] for n in params}
+        reset_launches()
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)[0][0]) for f in feeds]
+        # the main path ends here: read the counts
+        launches = read_launches()
+        after = {n: scope.get(n).cpu().numpy() for n in params}
+
+        dev_feed = {n: torch.from_numpy(v.astype(np.int32)).to(exe.device)
+                    for n, v in feeds[0].items()}
+
+        def step():
+            return exe.run(main, feed=dev_feed, fetch_list=[loss],
+                           scope=scope, return_numpy=False)
+
+        times = timed_steps(step, runs=PS_TRANSFORMER_TIMED, warm=0)
+        host, _, busy, wall = ps_profile(step, main)
+        # one block of the largest size: its round trip with the
+        # server's Momentum, and the same bytes fetched back alone
+        pname, (ep, begin, size) = max(
+            ((n, b) for n, blocks in t.param_blocks.items() for b in blocks),
+            key=lambda nb: nb[1][2])
+        client = ClientPool.get(ep)
+        grad = np.zeros(size, np.float32)
+        t0 = time.perf_counter()
+        client.send_grad(block_name(pname, begin), grad)
+        send_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        client.get_param(block_name(pname, begin), size)
+        get_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ps_stop(servers)
+    # the same steps through the local Momentum op on the card
+    local_main, _, local_loss, _ = build()
+    local_scope = params_scope(state, exe.device)
+    local = [float(exe.run(local_main, feed=f, fetch_list=[local_loss],
+                           scope=local_scope)[0][0]) for f in feeds]
+    local_state = {n: local_scope.get(n).cpu().numpy() for n in params}
+    local_times = timed_steps(lambda: exe.run(
+        local_main, feed=dev_feed, fetch_list=[local_loss],
+        scope=local_scope, return_numpy=False), runs=PS_TRANSFORMER_TIMED,
+        warm=0)
+    del local_scope
+    errs = state_errors(after, local_state, init)
+    loss_err = max(abs(a - b) for a, b in zip(losses, local))
+    nbytes = 4 * sum(int(np.prod(v.shape)) for v in init.values())
+    med, local_med = float(np.median(times)), float(np.median(local_times))
+    print("pserver: 17c the transformer, %d parameters in %d blocks over %d "
+          "servers (init_pservers %.2f s): losses through the servers %s, "
+          "locally %s; flash launches %s"
+          % (len(params), nblocks, PS_SERVERS, init_s,
+             ", ".join("%.6f" % x for x in losses),
+             ", ".join("%.6f" % x for x in local), json.dumps(launches)),
+          flush=True)
+    print("pserver: 17c step through the servers %.3f ms (median of %d; "
+          "%s), locally %.3f ms (%s); %d round trips and %.3f MB each way a "
+          "step; in a profiled step (wall %.3f ms, device busy %.3f, idle "
+          "%.1f %%): copies from the card %.3f host-ms, round trips %.3f, "
+          "writes back %.3f; one %d-value block: send_grad with the "
+          "server's Momentum %.3f ms, get_param of it %.3f ms; %s"
+          % (med, len(times), ", ".join("%.1f" % x for x in times),
+             local_med, ", ".join("%.1f" % x for x in local_times), nblocks,
+             nbytes / 1e6, wall, busy, 100.0 - 100.0 * busy / wall,
+             host["dist_send/copy_out"], host["dist_send/round_trip"],
+             host["dist_send/write_back"], size, send_ms, get_ms, smi),
+          flush=True)
+    report("pserver", "17c through the servers against the local steps",
+           local, losses, errs, PS_STATE_RTOL)
+    per_step = 2 * N_LAYER
+    if launches[route_entry("f32")] != per_step * PS_TRANSFORMER_STEPS:
+        raise SystemExit("chip_smoke: %d flash launches in 17c's %d steps, "
+                         "designed %d a step"
+                         % (launches[route_entry("f32")],
+                            PS_TRANSFORMER_STEPS, per_step))
+    if loss_err > LOSS_ATOL or max(errs.values()) > PS_STATE_RTOL \
+            or not all(np.isfinite(v).all() for v in after.values()):
+        raise SystemExit("chip_smoke: 17c's parameters through the servers "
+                         "disagree with the local steps")
+    return launches
+
+
+def ps_trainer():
+    """A trainer process of 17d (chip_smoke.py re-entered with
+    TRAINING_ROLE=TRAINER by the launcher): fit-a-line as
+    examples/dist_pserver_fit_a_line.py trains it, through the port on
+    the card, its parameters saved to $PS_OUT_DIR.  Every trainer
+    initialises the servers (the first wins, and each pulls the same
+    values), so no trainer sends before the parameters exist."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.distributed import (DistributeTranspiler,
+                                              discover_pservers)
+
+    x = fluid.layers.data(name="x", shape=[13], dtype="float32")
+    y_pred = fluid.layers.fc(input=x, size=1)
+    y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+    loss = fluid.layers.mean(
+        x=fluid.layers.square_error_cost(input=y_pred, label=y))
+    _, params_grads = fluid.optimizer.SGD(learning_rate=0.001).minimize(loss)
+    pservers = os.environ.get("PSERVERS") or ",".join(
+        discover_pservers(timeout=60))
+    trainer_id = int(os.environ["TRAINER_ID"])
+    t = DistributeTranspiler().transpile(
+        params_grads=params_grads, trainer_id=trainer_id, pservers=pservers,
+        trainers=int(os.environ["TRAINERS"]),
+        sync=os.environ["PADDLE_SYNC"] == "1")
+    place = fluid.CUDAPlace(0)
+    exe = fluid.Executor(place)
+    exe.run(fluid.default_startup_program())
+    t.init_pservers()
+    feeder = fluid.DataFeeder(place=place, feed_list=[x, y])
+    reader = paddle.batch(paddle.dataset.uci_housing.train(), batch_size=20)
+    costs = []
+    for pass_id in range(PS_LAUNCH_PASSES):
+        costs.append([float(np.asarray(exe.run(
+            feed=feeder.feed(data), fetch_list=[loss])[0]).reshape(-1)[0])
+            for data in reader()])
+        print("trainer %d pass %d avg cost %.4f"
+              % (trainer_id, pass_id, float(np.mean(costs[-1]))), flush=True)
+    t.release()
+    np.savez(os.path.join(os.environ["PS_OUT_DIR"],
+                          "trainer%d.npz" % trainer_id),
+             **{n: fluid.global_scope().get(n).cpu().numpy()
+                for n in t.param_blocks})
+    return 0 if np.isfinite(costs).all() \
+        and np.mean(costs[-1]) < np.mean(costs[0]) else 1
+
+
+def pserver_launch(elastic):
+    """17d: the roles as processes through the port's launcher, static
+    or elastic: both trainers exit 0 and end with the same parameters,
+    bit for bit.  Stops every process it starts."""
+    import shutil
+    import socket
+    from paddle_tpu_torch.tools import cluster_launch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ps_")
+    endpoints = []
+    for _ in range(PS_SERVERS):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            endpoints.append("127.0.0.1:%d" % sk.getsockname()[1])
+    env = {"PYTHONPATH": os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p),
+        "PS_OUT_DIR": out_dir}
+    t0 = time.perf_counter()
+    ps, trainers, master = cluster_launch.launch(
+        [os.path.abspath(__file__)], endpoints, trainers=2, sync=True,
+        env=env, elastic=elastic)
+    try:
+        rcs = [p.wait(timeout=PS_LAUNCH_TIMEOUT_S) for p in trainers]
+    finally:
+        for p in trainers:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for p in ps:
+            p.terminate()
+        for p in ps:
+            p.wait(timeout=30)
+            p.stdout.close()
+        if master is not None:
+            master.stop()
+    saved = []
+    for i in range(2):
+        if rcs[i] == 0:
+            with np.load(os.path.join(out_dir, "trainer%d.npz" % i)) as f:
+                saved.append({n: f[n] for n in f.files})
+    shutil.rmtree(out_dir)
+    same = len(saved) == 2 and sorted(saved[0]) == sorted(saved[1]) \
+        and all(same_bits(saved[0][n], saved[1][n]) for n in saved[0])
+    print("pserver: 17d %s launch, %d pservers and 2 trainers on the card: "
+          "trainers exited %s in %.1f s; their %d parameters equal bit for "
+          "bit: %s" % ("elastic" if elastic else "static", PS_SERVERS, rcs,
+                       time.perf_counter() - t0,
+                       len(saved[0]) if saved else 0, same),
+          flush=True)
+    if rcs != [0, 0] or not same:
+        raise SystemExit("chip_smoke: 17d's trainers exited %s, parameters "
+                         "equal: %s" % (rcs, same))
+
+
+def phase_pserver():
+    """Phase 17: the parameter-server path (17a-d).  Returns the launch
+    counts of the example's loop (17a) and of the transformer's steps
+    through the servers (17c)."""
+    from paddle_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.lib()
+    print("pserver: native runtime %s (built or loaded in %.1f s)"
+          % (native.library_path(), time.perf_counter() - t0), flush=True)
+    smi = nvidia_smi_line()
+    ctr_launches = pserver_example()
+    pserver_big(smi)
+    import torch
+
+    torch.cuda.empty_cache()
+    transformer_launches = pserver_transformer(smi)
+    torch.cuda.empty_cache()
+    pserver_launch(elastic=False)
+    pserver_launch(elastic=True)
+    print("pserver: phase 17 in %.1f s" % (time.perf_counter() - t0),
+          flush=True)
+    return ctr_launches, transformer_launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -8057,6 +8626,7 @@ def main():
     v2_launches = phase_v2()
     stack_launches = phase_stack()
     obs_amp_launches, obs_serve_launches = phase_obs()
+    ps_ctr_launches, ps_transformer_launches = phase_pserver()
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
@@ -8073,19 +8643,23 @@ def main():
                       ("the seq2seq", seq2seq_launches),
                       ("the book's chapters", book_launches),
                       ("CRNN-CTC", ctc_launches),
-                      ("the v2 NMT", v2_launches)):
+                      ("the v2 NMT", v2_launches),
+                      ("the ctr model through the pservers",
+                       ps_ctr_launches)):
         if any(got.values()):
             raise SystemExit("chip_smoke: %s launched %s"
                              % (what, json.dumps(got)))
     # the f32 route on each of the transformer's main paths
     f32 = route_entry("f32")
     paths = (launches[f32], train_launches[f32], decode_launches[f32],
-             stack_launches[f32], obs_serve_launches[f32])
+             stack_launches[f32], obs_serve_launches[f32],
+             ps_transformer_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
                          "a main path (served, trained, decoded, trained "
                          "with the whole stack, served with the "
-                         "observability: %s)" % (paths,))
+                         "observability, trained through the pservers: "
+                         "%s)" % (paths,))
     kernels = []
     for route in fa.ROUTES:
         name = route_entry(route)
@@ -8094,7 +8668,7 @@ def main():
             decode_launches, image_launches, sequence_launches,
             ctr_launches, seq2seq_launches, book_launches, ctc_launches,
             v2_launches, stack_launches, obs_amp_launches,
-            obs_serve_launches))
+            obs_serve_launches, ps_ctr_launches, ps_transformer_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)
@@ -8116,4 +8690,7 @@ def main():
 
 
 if __name__ == "__main__":
+    # phase 17d's launcher re-enters this script as a trainer process
+    if os.environ.get("TRAINING_ROLE") == "TRAINER":
+        sys.exit(ps_trainer())
     sys.exit(main())

@@ -8,24 +8,29 @@ on the place's device, so a decode loop built on it costs one host pass
 over the block's ops per call and no copy to or from the host.
 
 Parameters and other persistable state flow through the `state`
-argument, not a scope, so the caller owns every buffer.
+argument, not a scope, so the caller owns every buffer.  So does the
+random stream, as on the JAX side: `rng=` hands the block a
+torch.Generator, or `state[RNG_STATE_NAME]` holds a generator's state
+(the uint8 tensor `Generator.get_state()` gives), which the call
+advances and returns in `new_state`.
 """
 
 import torch
 
 from .core.desc import ProgramDesc
 from .core.scope import global_scope
-from .fluid.executor import CUDAPlace, ExecContext, apply_op
+from .fluid.executor import RNG_STATE_NAME, CUDAPlace, ExecContext, apply_op
 from .fluid.framework import Program
 from .ops.registry import span
 
-__all__ = ["FunctionalProgram", "state_from_scope", "state_to_scope"]
+__all__ = ["FunctionalProgram", "RNG_STATE_NAME", "state_from_scope",
+           "state_to_scope"]
 
 
 class FunctionalProgram:
     """A Program block as a function.
 
-    __call__(state, feeds) -> (fetches, new_state)
+    __call__(state, feeds, rng=None) -> (fetches, new_state)
       state:   {name: tensor} for every persistable var the block reads
                (`state_in_names`: parameters, statistics, accumulators)
       feeds:   {feed name: tensor}, on the place's device
@@ -33,10 +38,16 @@ class FunctionalProgram:
       new_state: `state` with the persistables the block writes
                (`state_out_names`) replaced by their new values
 
+    Random ops without a seed of their own draw from `rng`, a
+    torch.Generator on the place's device, advanced in place; without
+    it, from a generator on that device set to `state[RNG_STATE_NAME]`,
+    whose advanced state `new_state[RNG_STATE_NAME]` returns.  A caller
+    that passes `rng=` gets `state`'s keys back unchanged.  With
+    neither, a random op raises (a test clone's dropout draws nothing).
+
     `place` is the device the block's own tensors (constants) are made
     on; CUDAPlace(0) unless the caller asks for another, raising without
-    a CUDA device.  The block runs without a random stream: a random op
-    in it raises (a test clone's dropout draws nothing).
+    a CUDA device.
     """
 
     def __init__(self, program, feed_names, fetch_names, block_idx=0,
@@ -74,11 +85,15 @@ class FunctionalProgram:
         self.state_in_names = sorted(persist & reads)
         self.state_out_names = sorted(persist & writes)
 
-    def __call__(self, state, feeds):
+    def __call__(self, state, feeds, rng=None):
         env = dict(state)
         env.update(feeds)
+        carried = env.pop(RNG_STATE_NAME, None)
+        if rng is None and carried is not None:
+            rng = torch.Generator(device=self.device)
+            rng.set_state(carried)
         ctx = ExecContext(self.desc, self.block_idx, env, place=self.place,
-                          device=self.device)
+                          device=self.device, rng=rng)
         with torch.inference_mode():
             for od in self.ops:
                 with span(od.type):
@@ -86,6 +101,9 @@ class FunctionalProgram:
         new_state = dict(state)
         new_state.update((n, env[n]) for n in self.state_out_names
                          if n in env)
+        # the stream rides `state` only where the caller put it there
+        if rng is not None and RNG_STATE_NAME in state:
+            new_state[RNG_STATE_NAME] = rng.get_state()
         return [env[n] for n in self.fetch_names], new_state
 
 
@@ -103,7 +121,9 @@ def state_from_scope(fp, scope=None):
 
 
 def state_to_scope(state, scope=None):
-    """Write a state dict back into a Scope."""
+    """Write a state dict back into a Scope, all but its random stream's
+    state (a scope holds its stream as a generator, fluid/executor.py)."""
     scope = scope if scope is not None else global_scope()
     for n, v in state.items():
-        scope.set(n, v)
+        if n != RNG_STATE_NAME:
+            scope.set(n, v)

@@ -19,3 +19,4 @@ from . import crf  # noqa: F401
 from . import ctc  # noqa: F401
 from . import io_ops  # noqa: F401
 from . import beam  # noqa: F401
+from . import dist  # noqa: F401

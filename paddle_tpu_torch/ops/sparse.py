@@ -5,9 +5,9 @@ lookup_table_op.cc, the CTR workload's sparse-update path).  Ids are
 dense or ragged (LoD): ragged ids give ragged rows over their splits,
 and the rows that pad them to a bucket add nothing to the grad.  With
 `is_sparse` the grad is a SelectedRows of one row per id, which the
-optimizer update ops apply row by row.  `split_selected_rows`, which
-shards such a grad across parameter servers, waits with ROADMAP A9/A10
-(the transpiler, send/recv and the native parameter server).
+optimizer update ops apply row by row.  `split_selected_rows` shards
+such a grad by row range (reference: split_selected_rows_op.cc), as a
+parameter-server layout that splits a table by rows would ship it.
 """
 
 import torch
@@ -101,3 +101,24 @@ def _sparse_grad(ins, attrs):
         g = torch.where(keep[:, None], g,
                         torch.zeros((), dtype=g.dtype, device=g.device))
     return SelectedRows(raw, g, w.shape[0])
+
+
+@register_op("split_selected_rows", stop_gradient_op=True)
+def split_selected_rows(ctx, ins, attrs):
+    """Out: one SelectedRows per section of `height_sections`, each of
+    every row of X at a static shape: a row in the section's range
+    rebased to it with its values, any other pointing at row 0 with
+    zero values, as on the JAX side."""
+    x = ins["X"][0]
+    outs = []
+    start = 0
+    for h in attrs["height_sections"]:
+        in_range = (x.rows >= start) & (x.rows < start + h)
+        rows = torch.where(in_range, x.rows - start, 0)
+        mask = in_range.reshape((-1,) + (1,) * (x.values.dim() - 1))
+        values = torch.where(mask, x.values,
+                             torch.zeros((), dtype=x.values.dtype,
+                                         device=x.values.device))
+        outs.append(SelectedRows(rows, values, h))
+        start += h
+    return {"Out": outs}

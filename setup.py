@@ -35,7 +35,8 @@ setup(
     packages=find_packages(include=["paddle_tpu", "paddle_tpu.*",
                                     "paddle_tpu_torch",
                                     "paddle_tpu_torch.*"]),
-    package_data={"paddle_tpu_torch": ["csrc/*.cu"]},
+    package_data={"paddle_tpu_torch": ["csrc/*.cu", "native/*.cc",
+                                       "native/*.h", "native/Makefile"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     # the native runtime builds from these at first use (installed

@@ -39,7 +39,13 @@ def test_every_port_module_is_scanned():
                 ("obs", "trace.py"), ("obs", "registry.py"),
                 ("obs", "telemetry.py"), ("fluid", "clip.py"),
                 ("fluid", "lr_schedules.py"), ("fluid", "fusion.py"),
-                ("fluid", "evaluator.py")):
+                ("fluid", "evaluator.py"), ("native.py",),
+                ("ops", "dist.py"), ("analysis", "__init__.py"),
+                ("analysis", "common.py"), ("analysis", "diagnostics.py"),
+                ("analysis", "verifier.py"), ("distributed", "__init__.py"),
+                ("distributed", "transpiler.py"),
+                ("distributed", "coordinator.py"), ("tools", "__init__.py"),
+                ("tools", "cluster_launch.py")):
         assert os.path.join("paddle_tpu_torch", *new) in rel
     v2 = sorted(os.path.basename(p) for p in rel
                 if os.path.dirname(p) == os.path.join("paddle_tpu_torch",
@@ -101,6 +107,23 @@ def test_v2_import_leaves_jax_unloaded():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.v2, "
             "paddle_tpu_torch.obs; "
             "from paddle_tpu_torch import layer, infer, v2; "
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_pserver_stack_import_leaves_jax_unloaded():
+    """The parameter-server path: the native bindings, the transpiler,
+    the coordinator, the launcher, the analysis and the readers over
+    the runtime."""
+    code = ("import sys, paddle_tpu_torch.native, "
+            "paddle_tpu_torch.distributed, paddle_tpu_torch.analysis, "
+            "paddle_tpu_torch.tools.cluster_launch, "
+            "paddle_tpu_torch.reader.creator, paddle_tpu_torch.ops.dist; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'))")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -228,6 +228,9 @@ def test_registry_holds_the_slice_op_set():
         "swish", "tanh_shrink", "thresholded_relu", "prelu", "one_hot",
         "norm", "smooth_l1_loss", "fused_update",
         # the numerics health's finiteness checks
-        "isfinite", "count_nonfinite"}
+        "isfinite", "count_nonfinite",
+        # the parameter-server path: the sparse grad's row shards and
+        # the trainer's round trip
+        "split_selected_rows", "dist_send"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")

@@ -73,11 +73,12 @@ def test_the_port_registers_the_fifteen_new_op_types():
     """The 15 op types of the sequence-op slice; the port's count since
     the nested-sequence slice added seq_unnest, seq_outer_expand,
     seq_renest, print, beam_search, beam_search_decode and sign, the
-    optimizer and layer stack's slice 44 more, and the observability
-    slice isfinite and count_nonfinite."""
+    optimizer and layer stack's slice 44 more, the observability slice
+    isfinite and count_nonfinite, and the parameter-server slice
+    split_selected_rows and dist_send."""
     ops = set(registered_ops())
     assert set(NEW_OPS) <= ops
-    assert len(ops) == 161
+    assert len(ops) == 163
 
 
 # -- sequence_softmax, sequence_conv, row_conv ---------------------------------

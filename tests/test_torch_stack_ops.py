@@ -137,10 +137,12 @@ def _grad_pairs(case):
 
 
 def test_the_port_registers_the_new_op_types():
-    # 161 since the observability slice's isfinite and count_nonfinite
+    # 161 since the observability slice's isfinite and count_nonfinite,
+    # 163 since the parameter-server slice's split_selected_rows and
+    # dist_send
     assert len(NEW_OPS) == 44
     ops = set(registered_ops())
-    assert set(NEW_OPS) <= ops and len(ops) == 161
+    assert set(NEW_OPS) <= ops and len(ops) == 163
     assert {c[1] for c in CASES} >= set(NEW_OPS) - {"fused_update"}
 
 
