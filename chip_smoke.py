@@ -340,6 +340,28 @@ no result line:
      the one card in sync mode, static and then elastic (a master,
      leases, discover_pservers): both trainers exit 0 with parameters
      equal bit for bit.  Every process it starts is stopped.
+  18. cli: the user entry points.  (a) `serve_cli.main` in-process on
+     the main thread at its default place, serving phase 4's full-width
+     transformer export (rebuilt from the seed): 3 concurrent POST
+     /v1/infer of one row and a /metrics scrape from a client thread,
+     which then sends SIGTERM; the drain returns 0, the replies agree
+     with the in-process engine on the card (LOGITS_ATOL), the f32 flash
+     route's launches, counted from 0 just before main, are at least 1.
+     (b) `python -m paddle_tpu_torch.tools.serve_cli --selftest` as a
+     process: exit 0 and its green line.  (c) `trainer_cli.main` on the
+     port's copy of examples/trainer_config_fit_a_line.py, 5 passes on
+     the card and with --use_gpu=0 from one parameters tar: each pass's
+     costs within CLI_TRAIN_RTOL, seconds per pass.  (d)
+     `python -m paddle_tpu_torch.tools.obs_dump --selftest` on the card:
+     exit 0.  (e) The 15 op types of A10's first two groups: each case
+     of `cli_op_cases` (shared with tests/test_torch_nn_loss_ops.py) and
+     its grad on the card against the CPU, each grad twice bit for bit;
+     nce's draw on the card (uniform, within 6 standard deviations),
+     its cost and grad from the card's samples against the CPU; and
+     conv2d_transpose at an image model's size (batch 64, 64 -> 32
+     channels, 32 x 32 -> 64 x 64, stride 2) in a conv2d ->
+     conv2d_transpose SGD step run twice under `repeat_gate`, with its
+     forward device ms beside cuDNN's call and its bound.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -352,6 +374,7 @@ import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -5633,8 +5656,9 @@ def crnn_full(exe, smi):
         return exe.run(main, feed=dev_feeds[0], fetch_list=[loss],
                        scope=scope, return_numpy=False)
 
-    # ROADMAP C4's cost: the same step with cuDNN's algorithms free
-    # (conv2d's registration off), then held to deterministic ones again
+    # what the deterministic cuDNN scope costs (conv2d's registration,
+    # ops/registry.py `deterministic_cudnn`): the same step with cuDNN's
+    # algorithms free, then held to deterministic ones again
     from paddle_tpu_torch.ops.registry import get_op_info
 
     conv = get_op_info("conv2d")
@@ -5660,7 +5684,8 @@ def crnn_full(exe, smi):
                  what="one CRNN-CTC step at batch %d" % CRNN_BATCH)
 
     # one step twice from one state: every grad, the convolutions' and
-    # batch norms' included (ROADMAP C4)
+    # batch norms' included, held bit for bit by the deterministic cuDNN
+    # scope that conv2d (and conv2d_transpose) register
     logits = next(op for op in block.ops
                   if op.type == "warpctc").input("Logits")[0]
     state = {n: torch.from_numpy(v).to(exe.device) for n, v in init.items()}
@@ -8593,6 +8618,688 @@ def phase_pserver():
     return ctr_launches, transformer_launches
 
 
+# -- phase 18: the user entry points and the first op groups of A10 ------------
+
+# 18e: the card against the CPU plain path, f32 on both sides.  The
+# einsums, the transposed convolution (cuDNN against CPU MKL-DNN) and
+# the losses sum in other orders; the gate is the stack's (15a): 1e-5 of
+# the larger of 1 and the reference's magnitude.  An H100 read at most
+# 2.27e-7 (the transposed convolution at test_amp_bf16.py's shape) and
+# 3.86e-7 (nce's grad over 4,096 rows)
+CLI_OP_RTOL = 1e-5
+# nce's draw on the card: the negatives of CLI_NCE_DRAWS rows over
+# CLI_NCE_CLASSES classes, each class's count within 6 standard
+# deviations of the uniform draw's mean
+CLI_NCE_CLASSES, CLI_NCE_DRAWS, CLI_NCE_NEG = 50, 4096, 25
+# 18e's transposed convolution at an image model's size: batch 64, 64 ->
+# 32 channels, 32 x 32 -> 64 x 64 (kernel 4, stride 2, padding 1, the
+# DCGAN generator's upsampling layer)
+CLI_CT_SHAPE = (64, 64, 32, 32)
+CLI_CT_OUT, CLI_CT_K = 32, 4
+
+
+def cli_op_cases():
+    """(case id, op, ins {slot: [(name, CPU value)]}, outs {slot:
+    [names]}, attrs, differentiated input slots, output grads {slot:
+    value}, exact) for the op types of ops/nn.py (but `nce`, which
+    `nce_inputs` serves), `conv2d_transpose`, the six losses and the
+    three metrics, from the seed, at the reference tests' shapes
+    (tests/test_op_coverage.py, test_tensor_ops.py, test_conv_norm_ops.py,
+    test_amp_bf16.py, test_loss_ops.py, test_evaluators.py,
+    test_beam_detection_ops.py): the losses also at their ties (hinge
+    and margin_rank at 0, huber at |r| = delta, modified huber at z =
+    +-1), auc with scores equal to thresholds, positive_negative_pair
+    with tied scores and weights.  `exact`: card and CPU must agree bit
+    for bit."""
+    import torch
+
+    rs = np.random.RandomState(SEED + 180)
+
+    def t(*shape, lo=None, hi=None):
+        if lo is None:
+            v = rs.rand(*shape)
+        else:
+            v = rs.uniform(lo, hi, shape)
+        return torch.from_numpy(v.astype(np.float32))
+
+    def bits(*shape):
+        return torch.from_numpy(rs.randint(0, 2, shape).astype(np.float32))
+
+    cases = [
+        ("lstm_unit", "lstm_unit",
+         {"X": [("x", t(4, 12))], "C_prev": [("c", t(4, 3))]},
+         {"C": ["oc"], "H": ["oh"]}, {"forget_bias": 0.5}, ["X", "C_prev"],
+         {"C": t(4, 3, lo=-1, hi=1), "H": t(4, 3, lo=-1, hi=1)}, False),
+        ("bilinear_tensor_product", "bilinear_tensor_product",
+         {"X": [("x", t(3, 4))], "Y": [("y", t(3, 5))],
+          "Weight": [("w", t(2, 4, 5))], "Bias": [("b", t(1, 2))]},
+         {"Out": ["o"]}, {}, ["X", "Y", "Weight", "Bias"],
+         {"Out": t(3, 2, lo=-1, hi=1)}, False),
+        ("conv_shift", "conv_shift",
+         {"X": [("x", t(3, 8))], "Y": [("y", t(3, 3))]}, {"Out": ["o"]},
+         {}, ["X", "Y"], {"Out": t(3, 8, lo=-1, hi=1)}, False),
+        ("conv_shift_5", "conv_shift",
+         {"X": [("x", t(2, 7))], "Y": [("y", t(2, 5))]}, {"Out": ["o"]},
+         {}, ["X", "Y"], {"Out": t(2, 7, lo=-1, hi=1)}, False),
+        ("cast_embedding_ids", "cast_embedding_ids",
+         {"X": [("x", torch.tensor([1, 2, -3, 7], dtype=torch.int64))]},
+         {"Out": ["o"]}, {}, [], None, True),
+    ]
+    for tag, xs, ws, attrs in (
+            ("stride2_pad1", (1, 3, 4, 4), (3, 2, 3, 3),
+             {"strides": [2, 2], "paddings": [1, 1]}),
+            ("amp_shape", (2, 4, 8, 8), (4, 3, 3, 3),
+             {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1]}),
+            ("dilated", (2, 2, 5, 5), (2, 3, 3, 2),
+             {"strides": [1, 2], "paddings": [0, 1], "dilations": [2, 1]})):
+        x, w = t(*xs), t(*ws)
+        with torch.no_grad():
+            oshape = torch.nn.functional.conv_transpose2d(
+                x, w, stride=attrs["strides"], padding=attrs["paddings"],
+                dilation=attrs.get("dilations", [1, 1])).shape
+        cases.append(("conv2d_transpose_" + tag, "conv2d_transpose",
+                      {"Input": [("x", x)], "Filter": [("w", w)]},
+                      {"Output": ["o"]}, attrs, ["Input", "Filter"],
+                      {"Output": t(*oshape, lo=-1, hi=1)}, False))
+    logits = torch.cat([torch.tensor([[1.0], [-1.0], [0.0]]),
+                        t(6, 1, lo=-2, hi=2)])
+    labels = torch.cat([torch.tensor([[1.0], [0.0], [1.0]]), bits(6, 1)])
+    hx = t(8, 1)
+    hy = torch.cat([hx[:2] + torch.tensor([[0.5], [-0.5]]), t(6, 1)])
+    mx = torch.cat([torch.tensor([[-1.0], [1.0], [0.5], [-0.5]]),
+                    t(6, 1, lo=-2, hi=2)])
+    my = torch.cat([torch.tensor([[1.0], [1.0], [0.0], [0.0]]), bits(6, 1)])
+    x1 = torch.cat([torch.tensor([[0.3]]), t(6, 1, lo=-1, hi=1)])
+    x2 = torch.cat([torch.tensor([[0.2]]), t(6, 1, lo=-1, hi=1)])
+    margin_label = torch.cat([torch.tensor([[1.0]]), bits(6, 1) * 2 - 1])
+    cases += [
+        ("hinge_loss", "hinge_loss",
+         {"Logits": [("x", logits)], "Labels": [("l", labels)]},
+         {"Loss": ["o"]}, {}, ["Logits"], {"Loss": t(9, 1, lo=-1, hi=1)},
+         False),
+        ("huber_loss", "huber_loss",
+         {"X": [("x", hx)], "Y": [("y", hy)]},
+         {"Residual": ["r"], "Out": ["o"]}, {"delta": 0.5}, ["X", "Y"],
+         {"Out": t(8, 1, lo=-1, hi=1)}, False),
+        ("log_loss", "log_loss",
+         {"Predicted": [("p", t(6, 1, lo=0.1, hi=0.9))],
+          "Labels": [("l", bits(6, 1))]},
+         {"Loss": ["o"]}, {"epsilon": 1e-4}, ["Predicted"],
+         {"Loss": t(6, 1, lo=-1, hi=1)}, False),
+        ("rank_loss", "rank_loss",
+         {"Label": [("l", bits(6, 1))], "Left": [("a", t(6, 1, lo=-1, hi=1))],
+          "Right": [("b", t(6, 1, lo=-1, hi=1))]},
+         {"Out": ["o"]}, {}, ["Left", "Right"],
+         {"Out": t(6, 1, lo=-1, hi=1)}, False),
+        ("margin_rank_loss", "margin_rank_loss",
+         {"Label": [("l", margin_label)], "X1": [("a", x1)],
+          "X2": [("b", x2)]},
+         {"Out": ["o"], "Activated": ["act"]}, {"margin": 0.1},
+         ["X1", "X2"], {"Out": t(7, 1, lo=-1, hi=1)}, False),
+        ("modified_huber_loss", "modified_huber_loss",
+         {"X": [("x", mx)], "Y": [("y", my)]},
+         {"IntermediateVal": ["z"], "Out": ["o"]}, {}, ["X"],
+         {"Out": t(10, 1, lo=-1, hi=1)}, False),
+    ]
+    from paddle_tpu_torch.ops.metrics import auc_thresholds
+
+    ths = auc_thresholds(200)
+    on = np.array([ths[40], ths[120], ths[199], ths[0]], np.float32)
+    scores = np.concatenate([on, rs.rand(12).astype(np.float32)])
+    cases += [
+        ("auc_separated", "auc",
+         {"Out": [("p", torch.tensor([[0.1, 0.9], [0.9, 0.1], [0.2, 0.8],
+                                      [0.8, 0.2]]))],
+          "Indices": [("i", torch.zeros(4, 2))],
+          "Label": [("l", torch.tensor([[1], [0], [1], [0]],
+                                       dtype=torch.int32))]},
+         {"AUC": ["o"]}, {}, [], None, True),
+        ("auc_evaluator_feed", "auc",
+         {"Out": [("p", torch.tensor([[0.1, 0.9], [0.8, 0.2]]))],
+          "Indices": [("i", torch.zeros(2, 2))],
+          "Label": [("l", torch.tensor([[1], [0]], dtype=torch.int64))]},
+         {"AUC": ["o"]}, {}, [], None, True),
+        ("auc_on_thresholds", "auc",
+         {"Out": [("p", torch.from_numpy(scores).reshape(-1, 1))],
+          "Indices": [("i", torch.zeros(16, 1))],
+          "Label": [("l", torch.from_numpy(
+              rs.randint(0, 2, (16, 1)).astype(np.int32)))]},
+         {"AUC": ["o"]}, {"num_thresholds": 200}, [], None, True),
+        ("auc_coarse", "auc",
+         {"Out": [("p", t(32, 2))], "Indices": [("i", torch.zeros(32, 2))],
+          "Label": [("l", torch.from_numpy(
+              rs.randint(0, 2, (32, 1)).astype(np.int32)))]},
+         {"AUC": ["o"]}, {"num_thresholds": 7}, [], None, True),
+        ("precision_recall_perfect", "precision_recall",
+         {"MaxProbs": [("m", torch.ones(4, 1))],
+          "Indices": [("i", torch.tensor([0, 1, 2, 1], dtype=torch.int32))],
+          "Labels": [("l", torch.tensor([0, 1, 2, 1], dtype=torch.int32))]},
+         {"BatchMetrics": ["b"], "AccumMetrics": ["a"],
+          "AccumStatesInfo": ["s"]}, {"class_number": 3}, [], None, True),
+        ("precision_recall_states", "precision_recall",
+         {"MaxProbs": [("m", t(6, 1))],
+          "Indices": [("i", torch.from_numpy(
+              rs.randint(0, 4, (6, 1)).astype(np.int32)))],
+          "Labels": [("l", torch.from_numpy(
+              rs.randint(0, 4, (6, 1)).astype(np.int64)))],
+          "StatesInfo": [("st", torch.from_numpy(
+              rs.randint(0, 5, (4, 4)).astype(np.float32)))]},
+         {"BatchMetrics": ["b"], "AccumMetrics": ["a"],
+          "AccumStatesInfo": ["s"]}, {"class_number": 4}, [], None, True),
+        ("positive_negative_pair", "positive_negative_pair",
+         {"Score": [("s", torch.tensor([[0.8], [0.2], [0.5], [0.6]]))],
+          "Label": [("l", torch.tensor([[1.0], [0.0], [1.0], [0.0]]))],
+          "QueryID": [("q", torch.tensor([[1], [1], [2], [2]],
+                                         dtype=torch.int64))]},
+         {"PositivePair": ["pp"], "NegativePair": ["np"],
+          "NeutralPair": ["nu"]}, {"column": 0}, [], None, True),
+        ("positive_negative_pair_weighted", "positive_negative_pair",
+         {"Score": [("s", torch.tensor(
+             [[0.1, 0.5], [0.3, 0.5], [0.2, 0.7], [0.9, 0.1], [0.4, 0.1],
+              [0.6, 0.3]]))],
+          "Label": [("l", torch.tensor([[2.0], [1.0], [0.0], [1.0], [0.0],
+                                        [1.0]]))],
+          "QueryID": [("q", torch.tensor([[3], [3], [3], [5], [5], [5]],
+                                         dtype=torch.int64))],
+          "Weight": [("w", torch.tensor([[1.0], [2.0], [0.5], [1.0], [3.0],
+                                         [1.5]]))],
+          "AccumulatePositivePair": [("ap", torch.tensor([2.0]))],
+          "AccumulateNegativePair": [("an", torch.tensor([1.0]))],
+          "AccumulateNeutralPair": [("au", torch.tensor([0.5]))]},
+         {"PositivePair": ["pp"], "NegativePair": ["np"],
+          "NeutralPair": ["nu"]}, {"column": -1}, [], None, True),
+    ]
+    return cases
+
+
+def nce_inputs(seed=SEED + 181, n=8, dim=6, classes=20):
+    """{slot: CPU tensor} and attrs of an nce op at
+    tests/test_op_coverage.py's shape (8 rows of 6 features, 20 classes, 5
+    negatives), with a bias, and an output grad of its cost."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    ins = {"Input": torch.from_numpy(rs.rand(n, dim).astype(np.float32)),
+           "Label": torch.from_numpy(
+               rs.randint(0, classes, (n, 1)).astype(np.int64)),
+           "Weight": torch.from_numpy(
+               (rs.randn(classes, dim) * 0.5).astype(np.float32)),
+           "Bias": torch.from_numpy(
+               (rs.randn(classes, 1) * 0.1).astype(np.float32))}
+    attrs = {"num_total_classes": classes, "num_neg_samples": 5}
+    og = torch.from_numpy(rs.uniform(-1, 1, (n, 1)).astype(np.float32))
+    return ins, attrs, og
+
+
+def nce_run(ins, attrs, device, generator):
+    """nce's outputs {slot: value} through `apply_op` on `device`,
+    drawing from `generator`."""
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.fluid import executor as ex
+
+    env = {s.lower(): v.to(device) for s, v in ins.items()}
+    ctx = ex.ExecContext(None, 0, env, device=device, rng=generator)
+    outs = {"Cost": ["cost"], "SampleLogits": ["logits"],
+            "SampleLabels": ["samples"]}
+    ex.apply_op(ctx, OpDesc("nce", {s: [s.lower()] for s in ins}, outs,
+                            attrs))
+    return {s: ctx.env[n[0]] for s, n in outs.items()}
+
+
+def nce_grad_run(ins, attrs, samples, og, device):
+    """nce_grad's {slot: value} on `device` from the given samples."""
+    from paddle_tpu_torch.core.desc import OpDesc
+    from paddle_tpu_torch.fluid import executor as ex
+
+    env = {s.lower(): v.to(device) for s, v in ins.items()}
+    env.update(samples=samples.to(device), og=og.to(device))
+    names = {s: [s.lower()] for s in ins}
+    names.update({"O@SampleLabels": ["samples"], "OG@Cost": ["og"]})
+    outs = {s + "@GRAD": ["g_" + s.lower()]
+            for s in ("Input", "Weight", "Bias")}
+    ctx = ex.ExecContext(None, 0, env, device=device)
+    ex.apply_op(ctx, OpDesc("nce_grad", names, outs, attrs))
+    return {s: ctx.env[n[0]] for s, n in outs.items()}
+
+
+def nce_draw_check(samples, labels, classes, num_neg):
+    """Raises unless `samples` [N, T + S] starts with the labels and its
+    S negatives lie in [0, classes) with each class's count within 6
+    standard deviations of a uniform draw's; returns the largest
+    deviation in standard deviations."""
+    s = samples.cpu().numpy()
+    n, t = labels.shape
+    if s.shape != (n, t + num_neg) or s.dtype != np.int32:
+        raise SystemExit("chip_smoke: nce samples %s %s" % (s.shape,
+                                                            s.dtype))
+    if not np.array_equal(s[:, :t], labels.cpu().numpy()):
+        raise SystemExit("chip_smoke: nce's samples do not start with "
+                         "the labels")
+    neg = s[:, t:]
+    if neg.min() < 0 or neg.max() >= classes:
+        raise SystemExit("chip_smoke: nce drew outside [0, %d)" % classes)
+    counts = np.bincount(neg.reshape(-1), minlength=classes)
+    mean = neg.size / classes
+    sd = np.sqrt(neg.size * (1.0 / classes) * (1 - 1.0 / classes))
+    worst = float(np.abs(counts - mean).max() / sd)
+    if worst > 6:
+        raise SystemExit("chip_smoke: nce's draw is not uniform: a class "
+                         "%.1f standard deviations off" % worst)
+    return worst
+
+
+# 18c: examples/trainer_config_fit_a_line.py through the port's trainer
+# CLI, CLI_TRAIN_PASSES passes on the card and on the CPU from one
+# parameters tar.  Both sides run f32 Momentum (lr 0.01, mu 0.9) over the
+# same 21 batches a pass, the card's products in other orders; each
+# pass's average and test cost, as the CLI prints them (6 decimals),
+# within CLI_TRAIN_RTOL of the largest cost of the CPU's.  An H100 read
+# every printed cost equal; the gate is 10 units of the last printed
+# decimal of the first pass's cost (about 1)
+CLI_TRAIN_PASSES = 5
+CLI_TRAIN_RTOL = 1e-5
+CLI_SERVE_REQUESTS = 3
+CLI_TIMEOUT_S = 300
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_serve(smi):
+    """18a: `serve_cli.main` in-process on this (main) thread, at its
+    default place, serving phase 4's full-width transformer export;
+    CLI_SERVE_REQUESTS concurrent POST /v1/infer of one row each and a
+    /metrics scrape from a client thread, which then delivers SIGTERM:
+    the drain must return 0.  The replies against the in-process engine
+    on the card (LOGITS_ATOL); the launch counts of the CLI's run (its
+    warmup and the requests), read just after main returns."""
+    import signal
+    import torch
+    from paddle_tpu_torch.fluid import Scope, io
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.serving import InferenceEngine
+    from paddle_tpu_torch.tools import serve_cli
+
+    logits = tp.logits_name(N_LAYER)
+    feeds = tp.transformer_feeds(BATCH, SEQ, VOCAB, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        prog = tp.build_transformer_inference_program(
+            BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD,
+            d_model=D_MODEL)
+        scope = Scope()
+        io.params_from_numpy(scope, tp.init_transformer_params(
+            prog, seed=SEED), "cpu")
+        io.save_inference_model(tmp, ["tokens", "positions"], [logits],
+                                scope, prog,
+                                bucket_hints={"batch_buckets": BUCKETS})
+        engine = InferenceEngine.from_saved_model(tmp)
+        rows = {n: v[:CLI_SERVE_REQUESTS] for n, v in feeds.items()}
+        ref = engine.run(rows)[0]
+        del engine
+        torch.cuda.synchronize()
+
+        port = _free_port()
+        base = "http://127.0.0.1:%d" % port
+        state = {"replies": [None] * CLI_SERVE_REQUESTS}
+
+        def client():
+            try:
+                deadline = time.perf_counter() + CLI_TIMEOUT_S
+                while True:
+                    try:
+                        with urllib.request.urlopen(base + "/healthz",
+                                                    timeout=5):
+                            break
+                    except (urllib.error.URLError, ConnectionError):
+                        if time.perf_counter() > deadline:
+                            raise
+                        time.sleep(0.2)
+
+                def one(i):
+                    state["replies"][i] = _post(base + "/v1/infer", {
+                        "inputs": {n: v[i:i + 1].tolist()
+                                   for n, v in feeds.items()}})
+
+                threads = [threading.Thread(target=one, args=(i,))
+                           for i in range(CLI_SERVE_REQUESTS)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=CLI_TIMEOUT_S)
+                with urllib.request.urlopen(base + "/metrics",
+                                            timeout=60) as resp:
+                    state["metrics"] = resp.read().decode()
+            except Exception as exc:  # reported after the drain
+                state["error"] = exc
+            finally:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        reset_launches()
+        watcher = threading.Thread(target=client, daemon=True)
+        watcher.start()
+        t0 = time.perf_counter()
+        rc = serve_cli.main(["--model_dir=" + tmp, "--port=%d" % port,
+                             "--max_batch=%d" % BATCH,
+                             "--max_wait_ms=50"])
+        served_s = time.perf_counter() - t0
+        launches = read_launches()
+        watcher.join(timeout=60)
+    if "error" in state:
+        raise SystemExit("chip_smoke: 18a client failed: %r"
+                         % (state["error"],))
+    if rc != 0:
+        raise SystemExit("chip_smoke: serve_cli.main returned %r" % (rc,))
+    from paddle_tpu_torch.tools.obs_dump import validate_prometheus_text
+
+    families = validate_prometheus_text(state["metrics"])
+    errs = []
+    for i, reply in enumerate(state["replies"]):
+        if reply is None or reply[0] != 200:
+            raise SystemExit("chip_smoke: 18a request %d: %s" % (i, reply))
+        got = np.asarray(reply[1]["outputs"][logits], np.float32)
+        if got.shape != (1, SEQ, VOCAB) or not np.isfinite(got).all():
+            raise SystemExit("chip_smoke: 18a reply logits %s" % (got.shape,))
+        errs.append(float(np.abs(got[0] - ref[i]).max()))
+    f32 = launches[route_entry("f32")]
+    print("cli: 18a serve_cli.main on the card served the full-width "
+          "transformer export (%d-row buckets %s): %d concurrent requests, "
+          "latencies %s ms, /metrics %d families, drained by SIGTERM with "
+          "exit 0; %.1f s from main() to its return; logits max_abs_err "
+          "against the in-process engine on the card %s (atol %g); "
+          "launches %s [%s]"
+          % (BATCH, BUCKETS, CLI_SERVE_REQUESTS,
+             ", ".join("%.1f" % r[2] for r in state["replies"]),
+             len(families), served_s, ", ".join("%.3g" % e for e in errs),
+             LOGITS_ATOL, json.dumps(launches), smi), flush=True)
+    if max(errs) > LOGITS_ATOL:
+        raise SystemExit("chip_smoke: 18a replies disagree with the engine")
+    if "serving_responses_total %d" % CLI_SERVE_REQUESTS not in \
+            state["metrics"]:
+        raise SystemExit("chip_smoke: 18a /metrics does not count the "
+                         "requests")
+    if f32 < 1:
+        raise SystemExit("chip_smoke: serve_cli launched no f32 flash "
+                         "kernel")
+    return launches
+
+
+def _cli_process(args, tag):
+    """A CLI of the port as a process from this checkout; its stdout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m"] + args, cwd=root, env=env,
+                         capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    if run.returncode != 0:
+        raise SystemExit("chip_smoke: %s exited %d: %s"
+                         % (tag, run.returncode, run.stderr[-3000:]))
+    green = [line for line in run.stdout.splitlines() if "green" in line]
+    if not green:
+        raise SystemExit("chip_smoke: %s printed no green line: %s"
+                         % (tag, run.stdout[-2000:]))
+    print("cli: %s exit 0 in %.1f s: %s" % (tag, time.perf_counter() - t0,
+                                            green[-1]), flush=True)
+
+
+def _fit_a_line_config(path):
+    """examples/trainer_config_fit_a_line.py for the port (its package
+    names made the port's), written to `path`."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "examples",
+                           "trainer_config_fit_a_line.py")) as f:
+        text = f.read().replace("paddle_tpu.", "paddle_tpu_torch.")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _fit_a_line_init(path):
+    """A parameters tar of the config's topology (fc 13 -> 1) from the
+    seed, through the port's v2 Parameters on the CPU."""
+    import paddle_tpu_torch.v2 as v2
+
+    with v2_program(v2, False):
+        x = v2.layer.data(name="x", type=v2.data_type.dense_vector(13))
+        pred = v2.layer.fc(input=x, size=1, act=v2.activation.Linear())
+        y = v2.layer.data(name="y", type=v2.data_type.dense_vector(1))
+        params = v2.parameters.create(v2.layer.mse_cost(input=pred,
+                                                        label=y))
+        rs = np.random.RandomState(SEED + 182)
+        for name in params.keys():
+            params.set(name, (rs.randn(*params.get_shape(name)) * 0.1)
+                       .astype(np.float32))
+        with open(path, "wb") as f:
+            params.to_tar(f)
+    return path
+
+
+def cli_trainer(smi):
+    """18c: trainer_cli.main on the port's copy of the fit-a-line config,
+    CLI_TRAIN_PASSES passes on the card (its default) and with
+    --use_gpu=0, from one init tar: each pass's costs against the
+    CPU's."""
+    import io as io_mod
+    from paddle_tpu_torch.tools import trainer_cli
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        config = _fit_a_line_config(os.path.join(tmp, "conf.py"))
+        init = _fit_a_line_init(os.path.join(tmp, "init.tar"))
+        for tag, extra in (("card", []), ("cpu", ["--use_gpu=0"])):
+            out = io_mod.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = trainer_cli.main(
+                    ["--config=" + config, "--init_model_path=" + init,
+                     "--num_passes=%d" % CLI_TRAIN_PASSES,
+                     "--log_period=1000"] + extra)
+            secs = time.perf_counter() - t0
+            if rc != 0:
+                raise SystemExit("chip_smoke: trainer_cli (%s) returned %r"
+                                 % (tag, rc))
+            costs = [[float(v) for v in re.findall(
+                r"(?:AvgCost|TestCost) ([-+.e\d]+)", line)]
+                     for line in out.getvalue().splitlines()
+                     if "AvgCost" in line]
+            runs[tag] = (np.asarray(costs), secs)
+    card, cpu = runs["card"][0], runs["cpu"][0]
+    if card.shape != (CLI_TRAIN_PASSES, 2) or cpu.shape != card.shape:
+        raise SystemExit("chip_smoke: 18c pass lines %s / %s"
+                         % (card.shape, cpu.shape))
+    rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    print("cli: 18c trainer_cli on the fit-a-line config, %d passes of 21 "
+          "batches of 20: card %.3f s a pass, CPU %.3f s a pass; AvgCost "
+          "card %s, CPU %s; TestCost card %s, CPU %s; largest difference "
+          "%.3g of the largest cost (gate %g) [%s]"
+          % (CLI_TRAIN_PASSES, runs["card"][1] / CLI_TRAIN_PASSES,
+             runs["cpu"][1] / CLI_TRAIN_PASSES,
+             ", ".join("%.6f" % c for c in card[:, 0]),
+             ", ".join("%.6f" % c for c in cpu[:, 0]),
+             ", ".join("%.6f" % c for c in card[:, 1]),
+             ", ".join("%.6f" % c for c in cpu[:, 1]), rel,
+             CLI_TRAIN_RTOL, smi), flush=True)
+    if not rel <= CLI_TRAIN_RTOL or not card[-1, 0] < card[0, 0]:
+        raise SystemExit("chip_smoke: 18c the card's passes disagree with "
+                         "the CPU's or do not learn")
+
+
+def cli_ops(device, smi):
+    """18e: each case of cli_op_cases on the card against its CPU run,
+    forward and grad (CLI_OP_RTOL; the metrics exactly), each grad again
+    on the card, bit for bit; nce's draw on the card, its cost and grad
+    from the card's samples against the CPU's; conv2d_transpose at an
+    image model's size in a training step run twice under repeat_gate,
+    and its device ms."""
+    import torch
+
+    cpu = torch.device("cpu")
+    worst = {}
+    for name, op, ins, outs, attrs, diff, out_grads, exact in \
+            cli_op_cases():
+        ref = book_run_op(op, ins, outs, attrs, cpu)
+        got = book_run_op(op, ins, outs, attrs, device)
+        if exact:
+            for n, r in ref.items():
+                if not same_bits(got[n].cpu(), r):
+                    raise SystemExit("chip_smoke: op case %s: %s on the "
+                                     "card is not the CPU's" % (name, n))
+            err = 0.0
+        else:
+            err = book_compare(name, got, ref)
+        if diff:
+            gins = book_grad_ins(ins, outs, out_grads, ref)
+            gouts = {s + "@GRAD": ["%s@GRAD" % n for n, _ in ins[s]]
+                     for s in diff}
+            gref = book_run_op(op + "_grad", gins, gouts, attrs, cpu)
+            ggot = book_run_op(op + "_grad", gins, gouts, attrs, device)
+            again = book_run_op(op + "_grad", gins, gouts, attrs, device)
+            if not all(same_bits(ggot[n], again[n]) for n in ggot):
+                raise SystemExit("chip_smoke: %s's grad differs when run "
+                                 "twice on the card" % name)
+            err = max(err, book_compare(name + "_grad", ggot, gref))
+        worst[name] = err
+        if not err <= CLI_OP_RTOL:
+            raise SystemExit("chip_smoke: op case %s on the card disagrees "
+                             "with the CPU (%.3g, gate %g)"
+                             % (name, err, CLI_OP_RTOL))
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print("cli: 18e %d op cases of %d op types on the card against the CPU "
+          "plain path, forward and %d grads (each grad twice on the card, "
+          "bit for bit): the metrics exactly, the rest within %g, worst %s"
+          % (len(worst), len({c[1] for c in cli_op_cases()}),
+             sum(1 for c in cli_op_cases() if c[5]), CLI_OP_RTOL,
+             ", ".join("%s %.3g" % kv for kv in top)), flush=True)
+
+    # nce: the draw on the card, then cost and grad from its samples
+    ins, attrs, og = nce_inputs(n=CLI_NCE_DRAWS, classes=CLI_NCE_CLASSES)
+    attrs["num_neg_samples"] = CLI_NCE_NEG
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = nce_run(ins, attrs, device, gen)
+    dev = nce_draw_check(out["SampleLabels"], ins["Label"].to(torch.int32),
+                         CLI_NCE_CLASSES, CLI_NCE_NEG)
+    from paddle_tpu_torch.ops.nn import nce_cost
+
+    samples = out["SampleLabels"].cpu()
+    cost, logits = nce_cost(ins["Input"], ins["Weight"], ins["Bias"],
+                            samples, CLI_NCE_CLASSES, 1)
+    err = book_compare("nce", {"c": out["Cost"], "l": out["SampleLogits"]},
+                       {"c": cost, "l": logits})
+    gref = nce_grad_run(ins, attrs, samples, og, cpu)
+    ggot = nce_grad_run(ins, attrs, samples, og, device)
+    again = nce_grad_run(ins, attrs, samples, og, device)
+    err = max(err, book_compare("nce_grad", ggot, gref))
+    if not all(same_bits(ggot[s], again[s]) for s in ggot):
+        raise SystemExit("chip_smoke: nce's grad differs when run twice")
+    print("cli: 18e nce on the card: %d x %d negatives over %d classes, the "
+          "largest class count %.2f standard deviations from uniform; cost, "
+          "logits and grad from the card's samples against the CPU within "
+          "%.3g (gate %g), the grad twice bit for bit"
+          % (CLI_NCE_DRAWS, CLI_NCE_NEG, CLI_NCE_CLASSES, dev, err,
+             CLI_OP_RTOL), flush=True)
+    if not err <= CLI_OP_RTOL:
+        raise SystemExit("chip_smoke: nce on the card disagrees")
+    cli_conv_transpose(device, smi)
+
+
+def cli_conv_transpose(device, smi):
+    """conv2d_transpose at CLI_CT_SHAPE: one SGD step of a conv2d ->
+    conv2d_transpose program run twice under repeat_gate (its Input and
+    Filter grads included), and the op's forward device ms (graph
+    replay) and generic grad ms (CUDA events) beside the bound of its
+    f32 work (TF32 off) and one cuDNN call (F.conv_transpose2d)."""
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.ops.registry import (deterministic_cudnn,
+                                               get_op_info)
+
+    n, c, h, w = CLI_CT_SHAPE
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[n, c, h, w],
+                                dtype="float32", append_batch_size=False)
+        feat = fluid.layers.conv2d(input=img, num_filters=c, filter_size=3,
+                                   padding=1, act="relu")
+        up = fluid.layers.conv2d_transpose(input=feat,
+                                           num_filters=CLI_CT_OUT,
+                                           filter_size=CLI_CT_K, stride=2,
+                                           padding=1)
+        loss = fluid.layers.mean(x=fluid.layers.square(up))
+        fluid.optimizer.SGD(learning_rate=1e-3).minimize(loss)
+    if tuple(up.shape) != (n, CLI_CT_OUT, 2 * h, 2 * w):
+        raise SystemExit("chip_smoke: conv2d_transpose shape %s"
+                         % (up.shape,))
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    state = {name: scope.get(name)
+             for name, vd in main.desc.block(0).vars.items()
+             if vd.persistable and scope.get(name) is not None}
+    rs = np.random.RandomState(SEED + 183)
+    feed = {"img": torch.from_numpy(rs.randn(n, c, h, w).astype(
+        np.float32)).to(device)}
+    repeat_gate("cli: 18e conv2d_transpose [%d, %d, %d, %d] -> [%d, %d, "
+                "%d, %d]" % (n, c, h, w, n, CLI_CT_OUT, 2 * h, 2 * w),
+                exe, main, feed, state)
+
+    x = torch.randn(n, c, h, w, device=device)
+    wt = torch.randn(c, CLI_CT_OUT, CLI_CT_K, CLI_CT_K, device=device)
+    kernel = get_op_info("conv2d_transpose").kernel
+    attrs = {"strides": [2, 2], "paddings": [1, 1]}
+
+    def forward():
+        return kernel(None, {"Input": [x], "Filter": [wt]}, attrs)
+
+    og = torch.randn(n, CLI_CT_OUT, 2 * h, 2 * w, device=device)
+    from paddle_tpu_torch.ops.registry import run_generic_grad
+
+    def grad():
+        return run_generic_grad(None, "conv2d_transpose",
+                                {"Input": [x], "Filter": [wt],
+                                 "OG@Output": [og]}, attrs)
+
+    def library():
+        with deterministic_cudnn():
+            return F.conv_transpose2d(x, wt, stride=2, padding=1)
+
+    fwd_ms, lib_ms = device_ms(forward), device_ms(library)
+    grad_ms = cuda_ms(grad)
+    flops = 2.0 * n * c * CLI_CT_OUT * CLI_CT_K * CLI_CT_K * h * w
+    nbytes = 4.0 * (x.numel() + wt.numel() + og.numel())
+    bound = max(flops / F32_CORE_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    print("cli: 18e conv2d_transpose [%d, %d, %d, %d] by [%d, %d, %d, %d], "
+          "stride 2: forward %.4f device-ms (graph replay), cuDNN's "
+          "conv_transpose2d under the same scope %.4f, the generic grad "
+          "(forward again, Input and Filter grads) %.4f ms (CUDA events); "
+          "bound %.4f ms by operations on the f32 cores (TF32 off) [%s]"
+          % (n, c, h, w, c, CLI_CT_OUT, CLI_CT_K, CLI_CT_K, fwd_ms, lib_ms,
+             grad_ms, bound, smi), flush=True)
+
+
+def phase_cli():
+    """Phase 18: the user entry points (serve_cli, trainer_cli, obs_dump)
+    and the first op groups of A10; returns 18a's launch counts."""
+    import torch
+
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    launches = cli_serve(smi)
+    _cli_process(["paddle_tpu_torch.tools.serve_cli", "--selftest"],
+                 "18b serve_cli --selftest")
+    cli_trainer(smi)
+    _cli_process(["paddle_tpu_torch.tools.obs_dump", "--selftest"],
+                 "18d obs_dump --selftest")
+    cli_ops(torch.device("cuda", 0), smi)
+    print("cli: phase 18 took %.1f s" % (time.perf_counter() - t0),
+          flush=True)
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -8627,6 +9334,7 @@ def main():
     stack_launches = phase_stack()
     obs_amp_launches, obs_serve_launches = phase_obs()
     ps_ctr_launches, ps_transformer_launches = phase_pserver()
+    cli_launches = phase_cli()
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
@@ -8653,13 +9361,13 @@ def main():
     f32 = route_entry("f32")
     paths = (launches[f32], train_launches[f32], decode_launches[f32],
              stack_launches[f32], obs_serve_launches[f32],
-             ps_transformer_launches[f32])
+             ps_transformer_launches[f32], cli_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
                          "a main path (served, trained, decoded, trained "
                          "with the whole stack, served with the "
-                         "observability, trained through the pservers: "
-                         "%s)" % (paths,))
+                         "observability, trained through the pservers, "
+                         "served by serve_cli: %s)" % (paths,))
     kernels = []
     for route in fa.ROUTES:
         name = route_entry(route)
@@ -8668,7 +9376,8 @@ def main():
             decode_launches, image_launches, sequence_launches,
             ctr_launches, seq2seq_launches, book_launches, ctc_launches,
             v2_launches, stack_launches, obs_amp_launches,
-            obs_serve_launches, ps_ctr_launches, ps_transformer_launches))
+            obs_serve_launches, ps_ctr_launches, ps_transformer_launches,
+            cli_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

@@ -40,6 +40,10 @@ class Scope:
         s = self.find_var(name)
         (s if s is not None else self)._vars[name] = value
 
+    def set_local(self, name, value):
+        """Set in this scope, whatever its ancestors hold."""
+        self._vars[name] = value
+
     def new_scope(self):
         kid = Scope(self)
         self._kids.append(kid)

@@ -140,14 +140,18 @@ class ServiceLease:
         # run on a new connection or the retry is dead weight
         self._reconnect = reconnect
         # transient connection blips within ONE beat retry quickly
-        # instead of dropping the slot; the backoffs sum to at most
-        # half a beat interval, so a genuinely dead master still lapses
-        # the lease before the TTL reclaims it.  Renew at 1/3 TTL so
-        # one missed beat doesn't drop the slot.
+        # instead of dropping the slot; the whole retry budget, slow
+        # attempts included, stays under one beat interval, so a
+        # genuinely dead master still lapses the lease before the TTL
+        # reclaims it.  Renew at 1/3 TTL so one missed beat doesn't
+        # drop the slot.
         self._beat_interval = max(0.01, ttl_ms / 3000.0)
         self._retry = retry or RetryPolicy(
             max_attempts=3, base_delay=0.01,
-            max_delay=self._beat_interval / 4)
+            max_delay=self._beat_interval / 4,
+            deadline=self._beat_interval * 0.9,
+            retryable=(ConnectionError, OSError),
+            name="lease_heartbeat")
         self.lapsed = False
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._beat, daemon=True)

@@ -13,7 +13,9 @@ While torch.profiler records, each op runs in a range named by its
 type, so a profile attributes device time to op types.  While
 `fluid.profiler` or the obs trace is on, each top-level op also runs in
 `profiler.record_event` (a row of the per-op table, a span on the
-trace); while both are off the run asks once and opens nothing.
+trace); while both are off the run asks once and opens nothing.  While
+the obs trace is on, a run is an `executor/run` span (cat "executor")
+around its ops' spans, as on the JAX side.
 
 Under `FLAGS_check_nan_inf` every top-level op's float outputs are
 scanned after it runs (reference: executor.cc:29, CheckTensorNANOrInf
@@ -57,6 +59,7 @@ from ..core.types import (VarType, guard_int64_narrowing, np_dtype,
                           tensor_from_numpy, torch_dtype)
 from ..obs import flight as obs_flight
 from ..obs import telemetry as obs_tele
+from ..obs import trace as obs_trace
 from ..ops import registry as op_registry
 from ..utils import flags
 from . import profiler as profiler_mod
@@ -65,7 +68,8 @@ EMPTY = "@EMPTY@"
 # the scope entry holding a scope's random stream (a torch.Generator)
 RNG_STATE_NAME = "@RNG_STATE@"
 
-__all__ = ["Executor", "Place", "CPUPlace", "CUDAPlace", "ExecContext",
+__all__ = ["Executor", "Place", "CPUPlace", "CUDAPlace", "TPUPlace",
+           "ExecContext",
            "NonfiniteError", "global_scope", "scope_guard", "fetch_var",
            "apply_op", "prepare_feed", "fetch_to_host"]
 
@@ -136,6 +140,12 @@ class CUDAPlace(Place):
 
     def __repr__(self):
         return "CUDAPlace(%d)" % self.device_id
+
+
+# the accelerator place of scripts written for the JAX package
+# (`fluid.TPUPlace(0)`): there TPUPlace is the class and CUDAPlace its
+# alias; here the card's class is CUDAPlace and TPUPlace the alias
+TPUPlace = CUDAPlace
 
 
 @contextlib.contextmanager
@@ -353,8 +363,11 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         obs_tele.on_executor_run()
         try:
-            return self._run(program, seed, feed, fetch_list, scope,
-                             return_numpy)
+            with obs_trace.span("executor/run", cat="executor",
+                                feeds=len(feed or {}),
+                                fetches=len(fetch_list)):
+                return self._run(program, seed, feed, fetch_list, scope,
+                                 return_numpy)
         except Exception as exc:
             # a crashing run leaves a post-mortem bundle (a no-op unless
             # obs.flight.install() was called)

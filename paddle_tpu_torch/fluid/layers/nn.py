@@ -4,7 +4,8 @@ that the port's models build with.
 Counterpart of paddle_tpu/fluid/layers/nn.py (reference:
 python/paddle/v2/fluid/layers/nn.py — fc:69, embedding:190,
 conv2d:912, pool2d, batch_norm:1250, dropout, lrn, accuracy, the
-sequence layers, the CRF, matmul, one_hot, clip ...).  Each function
+sequence layers, the CRF, matmul, one_hot, clip, conv2d_transpose,
+lstm_unit, nce ...).  Each function
 appends ops to the current block with the JAX package's op types,
 slots, attrs, names and initializers; nothing runs here.  The other
 layers wait (ROADMAP A).
@@ -31,7 +32,7 @@ __all__ = [
     "ctc_greedy_decoder", "edit_distance", "sequence_unnest",
     "sequence_renest", "beam_search", "beam_search_decode", "matmul",
     "l2_normalize", "one_hot", "clip", "clip_by_norm", "multiplex",
-    "smooth_l1",
+    "smooth_l1", "conv2d_transpose", "lstm_unit", "nce",
 ]
 
 
@@ -926,3 +927,94 @@ def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None,
                      outputs={"Diff": [diff], "Out": [loss]},
                      attrs={"sigma": sigma or 1.0})
     return loss
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=None, stride=None, dilation=None,
+                     param_attr=None, use_cudnn=True, name=None, **kwargs):
+    """The transposed convolution (reference: conv2d_transpose_op.cc),
+    its filter [in_c, num_filters, kh, kw]; without `filter_size`, the
+    one that maps the input to `output_size`."""
+    helper = LayerHelper("conv2d_transpose", input=input,
+                         param_attr=param_attr, name=name, **kwargs)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    stride = _pair(stride or 1)
+    padding = _pair(padding or 0)
+    dilation = _pair(dilation or 1)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("need filter_size or output_size")
+        output_size = _pair(output_size)
+        h_in, w_in = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h_in - 1) * stride[0] + 2 * padding[0] - 1)
+            // dilation[0] + 1,
+            (output_size[1] - (w_in - 1) * stride[1] + 2 * padding[1] - 1)
+            // dilation[1] + 1]
+    else:
+        filter_size = _pair(filter_size)
+    img_filter = helper.create_parameter(
+        helper.param_attr,
+        shape=[num_channels, num_filters] + list(filter_size), dtype=dtype)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [img_filter]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation})
+    return out
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, **kwargs):
+    """One LSTM step on dense tensors (reference: layers/nn.py lstm_unit,
+    lstm_unit_op.cc): an fc of [x_t, hidden_t_prev] to the four gates,
+    then the `lstm_unit` op; returns (hidden, cell)."""
+    helper = LayerHelper("lstm_unit", param_attr=param_attr,
+                         bias_attr=bias_attr, **kwargs)
+    size = cell_t_prev.shape[1]
+    gates = fc(input=[x_t, hidden_t_prev], size=4 * size,
+               param_attr=param_attr, bias_attr=bias_attr, act=None)
+    c = helper.create_tmp_variable(x_t.dtype)
+    h = helper.create_tmp_variable(x_t.dtype)
+    helper.append_op(
+        type="lstm_unit",
+        inputs={"X": [gates], "C_prev": [cell_t_prev]},
+        outputs={"C": [c], "H": [h]},
+        attrs={"forget_bias": forget_bias})
+    return h, c
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None, **kwargs):
+    """Noise-contrastive estimation (reference: nce_op.cc): the cost
+    [N, 1] of each row's labels against `num_neg_samples` (default 10)
+    classes drawn uniformly."""
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr,
+                         **kwargs)
+    dim = input.shape[1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    inputs = {"Input": [input], "Label": [label], "Weight": [w]}
+    if helper.bias_attr is not None:
+        b = helper.create_parameter(helper.bias_attr,
+                                    shape=[num_total_classes, 1],
+                                    dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight]
+    cost = helper.create_tmp_variable(input.dtype)
+    sample_logits = helper.create_tmp_variable(input.dtype,
+                                               stop_gradient=True)
+    sample_labels = helper.create_tmp_variable(dtype="int32",
+                                               stop_gradient=True)
+    helper.append_op(
+        type="nce", inputs=inputs,
+        outputs={"Cost": [cost], "SampleLogits": [sample_logits],
+                 "SampleLabels": [sample_labels]},
+        attrs={"num_total_classes": num_total_classes,
+               "num_neg_samples": num_neg_samples or 10})
+    return cost

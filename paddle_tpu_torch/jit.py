@@ -23,8 +23,8 @@ from .fluid.executor import RNG_STATE_NAME, CUDAPlace, ExecContext, apply_op
 from .fluid.framework import Program
 from .ops.registry import span
 
-__all__ = ["FunctionalProgram", "RNG_STATE_NAME", "state_from_scope",
-           "state_to_scope"]
+__all__ = ["FunctionalProgram", "RNG_STATE_NAME", "functionalize",
+           "state_from_scope", "state_to_scope"]
 
 
 class FunctionalProgram:
@@ -105,6 +105,13 @@ class FunctionalProgram:
         if rng is not None and RNG_STATE_NAME in state:
             new_state[RNG_STATE_NAME] = rng.get_state()
         return [env[n] for n in self.fetch_names], new_state
+
+
+def functionalize(program, feed_names, fetch_names, block_idx=0, **kw):
+    """`FunctionalProgram(program, feed_names, fetch_names, block_idx)`:
+    the JAX package's spelling (`paddle_tpu/jit.py` functionalize)."""
+    return FunctionalProgram(program, feed_names, fetch_names, block_idx,
+                             **kw)
 
 
 def state_from_scope(fp, scope=None):

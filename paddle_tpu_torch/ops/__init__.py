@@ -20,3 +20,4 @@ from . import ctc  # noqa: F401
 from . import io_ops  # noqa: F401
 from . import beam  # noqa: F401
 from . import dist  # noqa: F401
+from . import nn  # noqa: F401

@@ -1,8 +1,11 @@
 """Convolution, pooling and local response normalisation op kernels:
-`conv2d`, `pool2d`, `lrn`, and `im2sequence`.
+`conv2d`, `conv2d_transpose`, `pool2d`, `lrn`, and `im2sequence`.
 
 Counterpart of paddle_tpu/ops/conv.py (reference: conv_op.cc,
-conv_cudnn_op.cu.cc, pool_op.cc, lrn_op.cc, im2sequence_op.cc).  `conv2d` is
+conv_cudnn_op.cu.cc, conv_transpose_op.cc, pool_op.cc, lrn_op.cc,
+im2sequence_op.cc).  `conv2d_transpose` is
+torch.nn.functional.conv_transpose2d, its filter [in_c, out_c, kh, kw]
+as the reference lays it out, under the same AMP policy.  `conv2d` is
 torch.nn.functional.conv2d, which is cuDNN on the card; under the bf16
 policy its operands and result are bf16 (ops/amp_util.py).  `pool2d` is
 max pooling, or average pooling with the JAX side's counts: the window
@@ -21,8 +24,9 @@ largest element in row-major order on both sides.  `lrn` divides by
 the window sum added in the JAX side's order; its grad is the generic
 vjp there too.  `im2sequence` is `F.unfold` over the padded image,
 whose patch features run (C, kh, kw) as `conv_general_dilated_patches`
-orders them on the JAX side.  `conv2d` and its grad run with cuDNN
-held to deterministic algorithms (ops/registry.py `deterministic_cudnn`).
+orders them on the JAX side.  `conv2d`, `conv2d_transpose` and their
+grads run with cuDNN held to deterministic algorithms (ops/registry.py
+`deterministic_cudnn`).
 """
 
 import contextlib
@@ -86,6 +90,31 @@ def conv2d(ctx, ins, attrs):
                        groups=int(attrs.get("groups", 1) or 1))
     out = _from_nchw(out, attrs)
     _check_spatial(out, "conv2d", x, _to_nchw(x, attrs)[1])
+    return {"Output": [amp_result(out, x.dtype)]}
+
+
+@register_op("conv2d_transpose", deterministic=True)
+def conv2d_transpose(ctx, ins, attrs):
+    """The transposed convolution (the gradient of conv2d with respect
+    to its input) of Input by Filter [in_c, out_c, kh, kw]:
+    F.conv_transpose2d, cuDNN on the card, held to deterministic
+    algorithms as `conv2d` is, its generic grad too.  The output's
+    spatial size is (in - 1) * stride - 2 * padding + dilation * (k - 1)
+    + 1, the JAX side's input-dilated convolution by the flipped
+    filter."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    xm, wm = mxu_operands(x, w)
+    xm, _ = _to_nchw(xm, attrs)
+    scoped = deterministic_cudnn() \
+        if get_op_info("conv2d_transpose").deterministic \
+        else contextlib.nullcontext()
+    with scoped:
+        out = F.conv_transpose2d(
+            xm, wm, stride=tuple(attrs.get("strides", [1, 1])),
+            padding=tuple(attrs.get("paddings", [0, 0])),
+            dilation=tuple(attrs.get("dilations", [1, 1])))
+    out = _from_nchw(out, attrs)
+    _check_spatial(out, "conv2d_transpose", x, _to_nchw(x, attrs)[1])
     return {"Output": [amp_result(out, x.dtype)]}
 
 

@@ -1,12 +1,18 @@
 """Loss op kernels: `cross_entropy`, `softmax_with_cross_entropy`,
-`sigmoid_cross_entropy_with_logits` and `smooth_l1_loss`.
+`sigmoid_cross_entropy_with_logits`, `smooth_l1_loss`, `hinge_loss`,
+`huber_loss`, `log_loss`, `rank_loss`, `margin_rank_loss` and
+`modified_huber_loss`.
 
 Counterpart of paddle_tpu/ops/loss.py (reference: cross_entropy_op.cc,
 softmax_with_cross_entropy_op.cc,
-sigmoid_cross_entropy_with_logits_op.cc, smooth_l1_loss_op.cc).  The
-first two take hard or soft labels; they and `smooth_l1_loss` compute
-in f32, a bf16 input upcast first, as on the JAX side; the sigmoid loss
-computes in its input's dtype, as the JAX side's does.
+sigmoid_cross_entropy_with_logits_op.cc, smooth_l1_loss_op.cc,
+hinge_loss_op.cc, huber_loss_op.cc, log_loss_op.cc, rank_loss_op.cc,
+margin_rank_loss_op.cc, modified_huber_loss_op.cc).  The first two take
+hard or soft labels; every loss but the sigmoid one computes in f32, a
+bf16 input upcast first, as on the JAX side; the sigmoid loss computes
+in its input's dtype, as the JAX side's does.  Their grads are the
+generic vjp; `torch.maximum` splits a tie's grad evenly and `jnp_abs`
+gives |x|'s grad 1 at 0, as `jnp.maximum` and `jnp.abs` do.
 """
 
 import torch
@@ -106,3 +112,69 @@ def smooth_l1_loss(ctx, ins, attrs):
         val = val * _f32(outside)
     out = torch.sum(val, dim=tuple(range(1, val.dim())))
     return {"Diff": [d], "Out": [out.reshape(-1, 1)]}
+
+
+def _zero(x):
+    return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+@register_op("hinge_loss")
+def hinge_loss(ctx, ins, attrs):
+    """Loss = max(0, 1 - (2 * Labels - 1) * Logits)."""
+    logits = _f32(ins["Logits"][0])
+    labels = _f32(ins["Labels"][0]).to(logits.dtype)
+    return {"Loss": [torch.maximum(_zero(logits),
+                                   1.0 - (2.0 * labels - 1.0) * logits)]}
+
+
+@register_op("huber_loss")
+def huber_loss(ctx, ins, attrs):
+    """Residual = Y - X; Out = 0.5 r^2 where |r| <= delta, else
+    delta * (|r| - 0.5 delta)."""
+    x, y = _f32(ins["X"][0]), _f32(ins["Y"][0])
+    delta = attrs.get("delta", 1.0)
+    r = y - x
+    ar = jnp_abs(r)
+    loss = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return {"Residual": [r], "Out": [loss]}
+
+
+@register_op("log_loss")
+def log_loss(ctx, ins, attrs):
+    """Loss = -l log(p + eps) - (1 - l) log(1 - p + eps)."""
+    p = _f32(ins["Predicted"][0])
+    lab = _f32(ins["Labels"][0]).to(p.dtype)
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": [-lab * torch.log(p + eps)
+                     - (1 - lab) * torch.log(1 - p + eps)]}
+
+
+@register_op("rank_loss")
+def rank_loss(ctx, ins, attrs):
+    """Out = log(1 + exp(Left - Right)) - Label * (Left - Right)."""
+    label = _f32(ins["Label"][0])
+    d = _f32(ins["Left"][0]) - _f32(ins["Right"][0])
+    return {"Out": [torch.log1p(torch.exp(d)) - label * d]}
+
+
+@register_op("margin_rank_loss")
+def margin_rank_loss(ctx, ins, attrs):
+    """Out = max(0, -Label * (X1 - X2) + margin); Activated = Out > 0
+    in X1's dtype."""
+    label = _f32(ins["Label"][0])
+    x1, x2 = _f32(ins["X1"][0]), _f32(ins["X2"][0])
+    out = torch.maximum(_zero(x1),
+                        -label * (x1 - x2) + attrs.get("margin", 0.0))
+    return {"Out": [out], "Activated": [(out > 0).to(x1.dtype)]}
+
+
+@register_op("modified_huber_loss")
+def modified_huber_loss(ctx, ins, attrs):
+    """z = (2 Y - 1) X; Out = -4 z where z < -1, (1 - z)^2 where z < 1,
+    else 0."""
+    x, y = _f32(ins["X"][0]), _f32(ins["Y"][0])
+    z = (2.0 * y - 1.0) * x
+    loss = torch.where(z < -1.0, -4.0 * z,
+                       torch.where(z < 1.0, torch.square(1.0 - z),
+                                   _zero(z)))
+    return {"IntermediateVal": [z], "Out": [loss]}

@@ -1,8 +1,9 @@
 """Fault injection and retries: the parts of paddle_tpu/resilience that
-the checkpoint saver, the prefetching readers and the dataset
-downloads call (`faults.check`, `RetryPolicy`)."""
+the checkpoint saver, the prefetching readers, the dataset downloads,
+the coordinator and the serving engine call (`faults.check`,
+`RetryPolicy`)."""
 
 from . import faults, retry
-from .retry import RetryPolicy
+from .retry import AttemptTimeout, RetryPolicy
 
-__all__ = ["RetryPolicy", "faults", "retry"]
+__all__ = ["AttemptTimeout", "RetryPolicy", "faults", "retry"]

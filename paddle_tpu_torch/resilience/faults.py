@@ -1,25 +1,42 @@
 """Seeded, deterministic fault injection behind named points.
 
-Counterpart of paddle_tpu/resilience/faults.py, with the one fault kind
-the port's points use, `io_error`, which raises `InjectedIOError` (an
-IOError, so retry policies treat it as transient); the JAX side's other
-kinds, seeded probabilities, metrics and trace hooks have no caller in
-the port.  A plan is an ordered list of `FaultSpec`s, each bound to one
-named point and firing on exact call counts (`after`, `times`).
-Instrumented code calls `faults.check("point")`, one None check when no
-plan is enabled.  Points in the port:
+Counterpart of paddle_tpu/resilience/faults.py, with two of its fault
+kinds:
+
+    io_error   raise `InjectedIOError` (an IOError, so retry policies
+               treat it as transient)
+    latency    sleep `latency_s`, then continue
+
+The JAX side's `preempt`, `nonfinite` and `lease_expiry` kinds and its
+seeded probabilities wait with their points (ROADMAP A10).  A plan is
+an ordered list of `FaultSpec`s, each bound to one named point and
+firing on exact call counts (`after`, `times`).  Instrumented code
+calls `faults.check("point")`, one None check when no plan is enabled.
+Every fired fault counts into `faults_injected_total{point,kind}`,
+emits a `fault_injected` trace instant and, while a flight recorder is
+installed, leaves a note in its bundle.  Points in the port:
 
     checkpoint/write     fluid/checkpoint.py  snapshot write attempt
     checkpoint/manifest  fluid/checkpoint.py  after a snapshot's files,
                          before its manifest (a fault here tears it)
     reader/pump          reader/prefetch.py  one pumped item
     dataset/download     dataset/common.py  one download attempt
+    coordinator/register distributed/coordinator.py  register RPC
+    coordinator/heartbeat  ..  one keep-alive RPC
+    coordinator/discover   ..  one list_prefix RPC
+    serving/run          serving/engine.py  one engine request
 """
 
 import threading
+import time
+
+from ..obs import registry as registry_mod
+from ..obs import trace as trace_mod
 
 __all__ = ["FaultSpec", "FaultPlan", "InjectedIOError", "enable",
-           "disable", "inject", "check"]
+           "disable", "inject", "check", "fired_counts"]
+
+KINDS = ("io_error", "latency")
 
 
 class InjectedIOError(IOError):
@@ -27,17 +44,20 @@ class InjectedIOError(IOError):
 
 
 class FaultSpec:
-    """One planned io_error at one point: skip the first `after`
-    matching calls, then fire at most `times` times (None: unbounded)."""
+    """One planned fault at one point: skip the first `after` matching
+    calls, then fire at most `times` times (None: unbounded); a
+    `latency` fault sleeps `latency_s` seconds."""
 
-    def __init__(self, point, kind="io_error", after=0, times=1):
-        if kind != "io_error":
-            raise ValueError("unknown fault kind %r (the port injects "
-                             "io_error)" % (kind,))
+    def __init__(self, point, kind="io_error", after=0, times=1,
+                 latency_s=0.05):
+        if kind not in KINDS:
+            raise ValueError("unknown fault kind %r (the port injects %s)"
+                             % (kind, " and ".join(KINDS)))
         self.point = str(point)
         self.kind = kind
         self.after = int(after)
         self.times = None if times is None else int(times)
+        self.latency_s = float(latency_s)
         self.calls = 0   # matching calls seen
         self.fired = 0   # times actually fired
 
@@ -48,8 +68,9 @@ class FaultSpec:
         return self.calls > self.after
 
     def __repr__(self):
-        return ("FaultSpec(point=%r, after=%d, times=%r, fired=%d)"
-                % (self.point, self.after, self.times, self.fired))
+        return ("FaultSpec(point=%r, kind=%r, after=%d, times=%r, "
+                "fired=%d)" % (self.point, self.kind, self.after,
+                               self.times, self.fired))
 
 
 class FaultPlan:
@@ -69,15 +90,50 @@ class FaultPlan:
             self._specs.append(spec)
         return spec
 
+    def fired_counts(self):
+        """{(point, kind): fired} over the whole plan."""
+        out = {}
+        with self._lock:
+            for s in self._specs:
+                out[(s.point, s.kind)] = out.get((s.point, s.kind), 0) \
+                    + s.fired
+        return out
+
     def check(self, point, **context):
-        """Raise InjectedIOError when a spec of `point` fires; `context`
-        names what the point was doing."""
+        """Evaluate `point` against the plan: raise InjectedIOError for
+        an io_error, sleep for a latency fault; returns the fired spec
+        or None.  `context` names what the point was doing."""
+        fired = None
         with self._lock:
             for spec in self._specs:
                 if spec.point == point and spec._should_fire():
                     spec.fired += 1
-                    raise InjectedIOError("injected io_error fault at %r"
-                                          % point)
+                    fired = spec
+                    break
+        if fired is None:
+            return None
+        self._record(fired, context)
+        if fired.kind == "io_error":
+            raise InjectedIOError("injected io_error fault at %r" % point)
+        time.sleep(fired.latency_s)
+        return fired
+
+    @staticmethod
+    def _record(spec, context):
+        registry_mod.get_registry().counter(
+            "faults_injected_total",
+            "deliberately injected faults, by point and kind",
+            labelnames=("point", "kind")) \
+            .labels(point=spec.point, kind=spec.kind).inc()
+        trace_mod.instant("fault_injected", cat="fault",
+                          point=spec.point, kind=spec.kind,
+                          **{k: str(v) for k, v in context.items()})
+        from ..obs import flight as flight_mod
+
+        rec = flight_mod.get_recorder()
+        if rec is not None:
+            rec.note("faults", point=spec.point, kind=spec.kind,
+                     fired=spec.fired)
 
 
 _plan = None
@@ -108,5 +164,12 @@ def check(point, **context):
     """The instrumentation hook: one None check when no plan is active,
     else the active plan evaluated at `point`."""
     plan = _plan
-    if plan is not None:
-        plan.check(point, **context)
+    if plan is None:
+        return None
+    return plan.check(point, **context)
+
+
+def fired_counts():
+    """{(point, kind): fired} for the active plan ({} when off)."""
+    plan = _plan
+    return plan.fired_counts() if plan is not None else {}

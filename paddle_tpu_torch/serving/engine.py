@@ -13,7 +13,8 @@ here it is the first run of that shape (allocator growth, kernel build
 and library load), and the `serving_compile_cache_*` counters count a
 bucket's first run as its miss.  With `check_numerics` the fetched
 outputs are scanned for NaN/Inf on the host (`obs.health.scan_outputs`);
-a failing run reaches `obs.flight.on_crash` before it propagates.
+a failing run reaches `obs.flight.on_crash` before it propagates.  Each
+`run` passes the `serving/run` fault point (resilience/faults.py).
 """
 
 import threading
@@ -32,6 +33,7 @@ from ..fluid.data_feeder import DEFAULT_RAGGED_BUCKET
 from ..obs import flight as obs_flight
 from ..obs import health as obs_health
 from ..obs import trace as obs_trace
+from ..resilience import faults as faults_mod
 
 __all__ = ["EngineConfig", "InferenceEngine", "DEFAULT_BATCH_BUCKETS",
            "slice_ragged"]
@@ -93,7 +95,8 @@ class InferenceEngine:
                  config=None, scope=None, metrics=None, feed_meta=None):
         self.program = program
         self.feed_names = list(feed_names)
-        self.fetch_names = list(fetch_list)
+        # Variables or names, as on the JAX side
+        self.fetch_names = [getattr(f, "name", f) for f in fetch_list]
         self.place = place if place is not None \
             else executor_mod.CUDAPlace(0)
         self.config = config or EngineConfig()
@@ -232,6 +235,9 @@ class InferenceEngine:
         """Pad, execute, slice.  `timings`, when given, receives pad and
         compute seconds, whether this was the bucket's first run, and
         the bucket."""
+        # chaos hook: an injected transient IOError or latency on the
+        # request path (one None check when no fault plan is active)
+        faults_mod.check("serving/run")
         with self._lock, obs_trace.span("serving/engine_run",
                                         cat="serving") as run_span:
             t0 = time.perf_counter()

@@ -1,5 +1,6 @@
 """Process flags: the few the port reads, each with the JAX package's
-name, default and `FLAGS_<name>` environment bootstrap.
+name, default and `FLAGS_<name>` environment bootstrap, and
+`DEFINE_flag` for a caller's own.
 
 Counterpart of paddle_tpu/utils/flags.py, holding only what the port
 consults: the eager NaN/Inf scan (`check_nan_inf`: fluid/executor.py),
@@ -13,25 +14,10 @@ fusion flags when it builds the updates.
 
 import os
 
-__all__ = ["get_flag", "set_flag", "all_flags", "parse_flags_from_env"]
+__all__ = ["DEFINE_flag", "get_flag", "set_flag", "all_flags",
+           "parse_flags_from_env"]
 
-_DEFAULTS = {
-    # scan every top-level op's float outputs for NaN/Inf, raising
-    # NonfiniteError (reference: executor.cc:29); one read back per output
-    "check_nan_inf": False,
-    # cast mul/conv operands to bfloat16, f32 master weights (fluid.amp)
-    "amp_bf16": False,
-    # under amp_bf16, keep activations bfloat16 between ops
-    "amp_bf16_act": True,
-    # batch-norm statistics in the shifted one-pass form (ops/norm.py)
-    "bn_shifted_stats": False,
-    # stack same-recipe update ops into fused_update ops (fluid/fusion.py)
-    "fuse_optimizer": False,
-    # only parameters of at most this many elements join a stack; 0: all
-    "fuse_optimizer_max_numel": 1 << 18,
-}
-
-_FLAGS = dict(_DEFAULTS)
+_FLAGS = {}
 
 
 def _coerce(value, default):
@@ -39,29 +25,61 @@ def _coerce(value, default):
         if isinstance(value, str):
             return value.lower() in ("1", "true", "yes", "on")
         return bool(value)
-    return int(value)
+    if isinstance(default, int):
+        return int(value)
+    if isinstance(default, float):
+        return float(value)
+    return value
+
+
+def DEFINE_flag(name, default, help_str=""):
+    """Register flag `name` with its default (whose type later values
+    are coerced to) and help; returns the default."""
+    _FLAGS[name] = {"value": default, "default": default,
+                    "help": help_str}
+    return default
 
 
 def get_flag(name):
-    return _FLAGS[name]
+    return _FLAGS[name]["value"]
 
 
 def set_flag(name, value):
     if name not in _FLAGS:
         raise KeyError("unknown flag %r" % name)
-    _FLAGS[name] = _coerce(value, _DEFAULTS[name])
+    f = _FLAGS[name]
+    f["value"] = _coerce(value, f["default"])
 
 
 def all_flags():
-    return dict(_FLAGS)
+    return {k: v["value"] for k, v in _FLAGS.items()}
 
 
 def parse_flags_from_env(names=None):
     """Set each flag of `names` (default: all) from `FLAGS_<name>` where
     the environment has it."""
-    for name in names if names is not None else _DEFAULTS:
+    for name in names if names is not None else list(_FLAGS):
         if "FLAGS_" + name in os.environ:
             set_flag(name, os.environ["FLAGS_" + name])
 
+
+DEFINE_flag("check_nan_inf", False,
+            "scan every top-level op's float outputs for NaN/Inf, raising "
+            "NonfiniteError (reference: executor.cc:29); one read back "
+            "per output")
+DEFINE_flag("amp_bf16", False,
+            "cast mul/conv operands to bfloat16, f32 master weights "
+            "(fluid.amp)")
+DEFINE_flag("amp_bf16_act", True,
+            "under amp_bf16, keep activations bfloat16 between ops")
+DEFINE_flag("bn_shifted_stats", False,
+            "batch-norm statistics in the shifted one-pass form "
+            "(ops/norm.py)")
+DEFINE_flag("fuse_optimizer", False,
+            "stack same-recipe update ops into fused_update ops "
+            "(fluid/fusion.py)")
+DEFINE_flag("fuse_optimizer_max_numel", 1 << 18,
+            "only parameters of at most this many elements join a "
+            "stack; 0: all")
 
 parse_flags_from_env()

@@ -7,10 +7,9 @@ The port's counterpart of paddle_tpu/v2/evaluator.py.  Each function
 appends the metric ops to the default program and returns the metric
 Variable(s); fetch them alongside the cost (the reference prints them
 per batch/pass from inside the trainer — here they are fetchable
-outputs, and the printer evaluators wrap the print op).  An evaluator
-whose op the port does not register yet (`auc`, `precision_recall`,
-`detection_map`, `positive_negative_pair`) raises NotImplementedError
-naming ROADMAP A10."""
+outputs, and the printer evaluators wrap the print op).  The evaluator
+whose op the port does not register yet (`detection_map`) raises
+NotImplementedError naming ROADMAP A10."""
 
 from ..fluid import layers as fl
 from ..fluid.layer_helper import LayerHelper
@@ -28,8 +27,7 @@ __all__ = [
 
 
 # the metric ops the port does not register yet (ROADMAP A10)
-_WAITING_OPS = ("auc", "precision_recall", "detection_map",
-                "positive_negative_pair")
+_WAITING_OPS = ("detection_map",)
 
 
 def _metric_op(op_type, inputs, attrs, out_slots, dtypes=None,

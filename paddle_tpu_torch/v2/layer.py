@@ -655,16 +655,45 @@ def factorization_machine(input, factor_size, param_attr=None,
     return register_layer_output(name, out)
 
 
-def _helper_op(op_type, inputs, attrs=None, name=None, dtype="float32"):
-    """One op of `op_type` with one output "Out" (an op's other outputs
-    go unwritten), registered under `name`."""
+def _helper_op(op_type, inputs, attrs=None, name=None, dtype="float32",
+               n_outs=1, out_slots=("Out",)):
+    """One op of `op_type` writing `n_outs` outputs to `out_slots` (an
+    op's other outputs go unwritten).  One output is registered under
+    `name` and returned; several are returned as a list."""
     from ..fluid.layer_helper import LayerHelper
 
     helper = LayerHelper(op_type)
-    out = helper.create_tmp_variable(dtype, lod_level=0)
-    helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]},
+    outs = [helper.create_tmp_variable(dtype, lod_level=0)
+            for _ in range(n_outs)]
+    helper.append_op(type=op_type, inputs=inputs,
+                     outputs={s: [o] for s, o in zip(out_slots, outs)},
                      attrs=attrs or {})
+    if n_outs == 1:
+        return register_layer_output(name, outs[0])
+    return outs
+
+
+def tensor(a, b, size, act=None, param_attr=None, name=None, **kw):
+    """Bilinear tensor product a W_k b (reference: tensor_layer over
+    TensorLayer.cpp)."""
+    from ..fluid.layer_helper import LayerHelper
+
+    helper = LayerHelper("tensor_layer", param_attr=param_attr)
+    w = helper.create_parameter(
+        helper.param_attr, shape=[size, a.shape[-1], b.shape[-1]],
+        dtype=a.dtype)
+    out = _helper_op("bilinear_tensor_product",
+                     {"X": [a], "Y": [b], "Weight": [w]})
+    act_n = _act_name(act)
+    if act_n:
+        out = getattr(fl, act_n)(out)
     return register_layer_output(name, out)
+
+
+def conv_shift(a, b, name=None, **kw):
+    """Circular correlation of a with b (reference: conv_shift_layer)."""
+    return _helper_op("conv_shift", {"X": [a], "Y": [b]}, name=name,
+                      dtype=a.dtype)
 
 
 def gated_unit(input, size, act=None, name=None, gate_attr=None,
@@ -787,6 +816,40 @@ def smooth_l1_cost(input, label, name=None, **kw):
         name, fl.mean(x=fl.smooth_l1(x=input, y=label)))
 
 
+def nce(input, label, num_classes, param_attr=None, bias_attr=None,
+        num_neg_samples=10, name=None, **kw):
+    """Noise-contrastive estimation cost, averaged (reference: nce_layer
+    over NCELayer.cpp)."""
+    out = fl.nce(input=input, label=label,
+                 num_total_classes=num_classes, param_attr=param_attr,
+                 bias_attr=bias_attr, num_neg_samples=num_neg_samples)
+    return register_layer_output(name, fl.mean(x=out))
+
+
+def rank_cost(left, right, label, weight=None, name=None, **kw):
+    """Pairwise ranking cost (reference: rank_cost over RankingCost.cpp
+    -> rank_loss_op)."""
+    out = _helper_op("rank_loss",
+                     {"Left": [left], "Right": [right], "Label": [label]})
+    if weight is not None:
+        out = fl.elementwise_mul(x=out, y=weight)
+    return register_layer_output(name, fl.mean(x=out))
+
+
+def huber_regression_cost(input, label, delta=1.0, name=None, **kw):
+    out = _helper_op("huber_loss", {"X": [input], "Y": [label]},
+                     {"delta": float(delta)}, n_outs=2,
+                     out_slots=("Out", "Residual"))
+    return register_layer_output(name, fl.mean(x=out[0]))
+
+
+def huber_classification_cost(input, label, name=None, **kw):
+    out = _helper_op("modified_huber_loss",
+                     {"X": [input], "Y": [label]}, n_outs=2,
+                     out_slots=("Out", "IntermediateVal"))
+    return register_layer_output(name, fl.mean(x=out[0]))
+
+
 def ctc(input, label, size=None, norm_by_times=False, name=None, **kw):
     """CTC cost (reference: ctc_layer over CTCLayer.cpp; lowered to the
     same native CTC as warp_ctc)."""
@@ -809,7 +872,6 @@ _WAITING = {
     "conv_operator": ("conv2d_dynamic_filter", "A10"),
     "kmax_seq_score": ("kmax_seq_score", "A10"),
     "sub_nested_seq": ("sub_nested_seq", "A10"),
-    "tensor": ("bilinear_tensor_product", "A10"),
     "maxout": ("maxout", "A10"),
     "spp": ("spp", "A10"),
     "img_pool3d": ("pool3d", "A10"),
@@ -818,18 +880,13 @@ _WAITING = {
     "rotate": ("rotate", "A10"),
     "out_prod": ("out_prod", "A10"),
     "linear_comb": ("linear_comb", "A10"),
-    "conv_shift": ("conv_shift", "A10"),
     "scale_sub_region": ("scale_sub_region", "A10"),
     "sampling_id": ("sampling_id", "A10"),
     "hsigmoid": ("hsigmoid", "A10"),
-    "nce": ("nce", "A10"),
-    "rank_cost": ("rank_loss", "A10"),
     "lambda_cost": ("lambda_cost", "A10"),
     "cross_entropy_with_selfnorm": ("cross_entropy_selfnorm", "A10"),
     "multi_binary_label_cross_entropy": (
         "multi_binary_label_cross_entropy", "A10"),
-    "huber_regression_cost": ("huber_loss", "A10"),
-    "huber_classification_cost": ("modified_huber_loss", "A10"),
     "priorbox": ("prior_box", "A10"),
     "roi_pool": ("roi_pool", "A10"),
     "detection_output": ("detection_output", "A10"),

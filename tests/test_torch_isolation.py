@@ -1,7 +1,8 @@
 """The port stands alone: no module of paddle_tpu_torch, nor
-chip_smoke.py, imports jax or the paddle_tpu package; importing the
-serving stack leaves jax unloaded; and the entry points refuse to run
-on the CPU unless asked, raising where there is no CUDA device."""
+chip_smoke.py, imports jax or the paddle_tpu package or aliases it in
+sys.modules; importing the serving stack (or the CLIs) leaves jax
+unloaded; and the entry points, the CLIs among them, refuse to run on
+the CPU unless asked, raising where there is no CUDA device."""
 
 import ast
 import os
@@ -45,7 +46,14 @@ def test_every_port_module_is_scanned():
                 ("analysis", "verifier.py"), ("distributed", "__init__.py"),
                 ("distributed", "transpiler.py"),
                 ("distributed", "coordinator.py"), ("tools", "__init__.py"),
-                ("tools", "cluster_launch.py")):
+                ("tools", "cluster_launch.py"),
+                # the user entry points and utilities, and their ops
+                ("tools", "serve_cli.py"), ("tools", "trainer_cli.py"),
+                ("tools", "obs_dump.py"), ("utils", "merge_model.py"),
+                ("utils", "model_diagram.py"), ("utils", "torch2paddle.py"),
+                ("trainer_config_helpers", "__init__.py"),
+                ("trainer_config_helpers", "config.py"),
+                ("dataset", "uci_housing_provider.py"), ("ops", "nn.py")):
         assert os.path.join("paddle_tpu_torch", *new) in rel
     v2 = sorted(os.path.basename(p) for p in rel
                 if os.path.dirname(p) == os.path.join("paddle_tpu_torch",
@@ -72,6 +80,86 @@ def test_no_jax_or_paddle_tpu_import(path):
             elif node.module is None:
                 bad += [a.name for a in node.names if _forbidden(a.name)]
     assert not bad, "%s imports %s" % (path, bad)
+
+
+def _aliases_paddle_tpu(node):
+    """An assignment into sys.modules (or a sys.modules.setdefault or
+    update call) whose key names the JAX package."""
+    def names_it(expr):
+        return any(isinstance(c, ast.Constant) and isinstance(c.value, str)
+                   and _forbidden(c.value) for c in ast.walk(expr))
+
+    def is_sys_modules(expr):
+        return (isinstance(expr, ast.Attribute) and expr.attr == "modules"
+                and isinstance(expr.value, ast.Name)
+                and expr.value.id == "sys")
+
+    if isinstance(node, (ast.Assign, ast.AugAssign)):
+        targets = node.targets if isinstance(node, ast.Assign) \
+            else [node.target]
+        return any(isinstance(t, ast.Subscript) and is_sys_modules(t.value)
+                   and names_it(t.slice) for t in targets)
+    if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+        return (node.func.attr in ("setdefault", "update", "__setitem__")
+                and is_sys_modules(node.func.value)
+                and any(names_it(a) for a in node.args))
+    return False
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_sys_modules_alias_for_the_jax_package(path):
+    """No module puts a `paddle_tpu` name into sys.modules: a config or
+    script written for the port imports `paddle_tpu_torch` itself."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = [getattr(n, "lineno", "?") for n in ast.walk(tree)
+           if _aliases_paddle_tpu(n)]
+    assert not bad, "%s aliases the JAX package at lines %s" % (path, bad)
+
+
+def test_cli_stack_import_leaves_jax_unloaded():
+    """The CLIs, the config DSL, the provider and the utilities."""
+    code = ("import sys, paddle_tpu_torch.tools.serve_cli, "
+            "paddle_tpu_torch.tools.trainer_cli, "
+            "paddle_tpu_torch.tools.obs_dump, "
+            "paddle_tpu_torch.trainer_config_helpers, "
+            "paddle_tpu_torch.dataset.uci_housing_provider, "
+            "paddle_tpu_torch.utils.merge_model, "
+            "paddle_tpu_torch.utils.model_diagram, "
+            "paddle_tpu_torch.utils.torch2paddle; "
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_clis_refuse_the_cpu_unless_asked(tmp_path):
+    """serve_cli and trainer_cli run on CUDAPlace(0) unless given
+    --use_gpu=0: without a CUDA device they raise naming CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default place is valid")
+    from paddle_tpu_torch.tools import serve_cli, trainer_cli
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_cli.main(["--selftest"])
+    config = tmp_path / "conf.py"
+    with open(os.path.join(ROOT, "examples",
+                           "trainer_config_fit_a_line.py")) as f:
+        config.write_text(f.read().replace("paddle_tpu.",
+                                           "paddle_tpu_torch."))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer_cli.main(["--config=%s" % config, "--num_passes=1"])
+    for bad in ("2", "maybe"):
+        with pytest.raises(SystemExit):
+            serve_cli.parse_args(["--use_gpu=%s" % bad])
+    assert serve_cli.parse_args(["--use_gpu=0"]).use_gpu is False
+    assert trainer_cli.parse_args(["--config=c", "--use_gpu=false"]) \
+        .use_gpu is False
+    assert trainer_cli.parse_args(["--config=c"]).use_gpu is True
 
 
 def test_serving_import_leaves_jax_unloaded():

@@ -231,6 +231,13 @@ def test_registry_holds_the_slice_op_set():
         "isfinite", "count_nonfinite",
         # the parameter-server path: the sparse grad's row shards and
         # the trainer's round trip
-        "split_selected_rows", "dist_send"}
+        "split_selected_rows", "dist_send",
+        # the entry-point slice: ops/nn.py, the transposed convolution,
+        # the six losses and the three metrics (ROADMAP A10 groups 1-2)
+        "lstm_unit", "nce", "bilinear_tensor_product", "conv_shift",
+        "cast_embedding_ids", "conv2d_transpose", "hinge_loss",
+        "huber_loss", "log_loss", "rank_loss", "margin_rank_loss",
+        "modified_huber_loss", "auc", "precision_recall",
+        "positive_negative_pair"}
     with pytest.raises(KeyError):
         treg.get_op_info("conv3d")

@@ -1,4 +1,4 @@
-"""Four faults of the port against the JAX package, each repaired:
+"""Six faults of the port against the JAX package, each repaired:
 
 - The flash kernel's routes: head dims up to 256 in float32, bfloat16
   and float16 (129..256 on routes of their own), a clear error above
@@ -22,6 +22,18 @@
   largest magnitude), gives the same bits when run twice, adds -0.0
   where nothing lands (a -0.0 entry keeps its sign) and leaves the rows
   no id names bit for bit.
+- The retry policy's deadline, attempt timeout, retryable set, name and
+  metrics (ROADMAP C6): tests/test_resilience.py's policy cases (backoff
+  bounds, the overall deadline, the attempt timeout, the retry and
+  exhaustion counters) on both packages' `RetryPolicy`, and its lease
+  cases on both packages' `ServiceLease`, whose default policy now has
+  the JAX coordinator's deadline (0.9 of a beat), retryable set and name.
+- The public names the port lacked (ROADMAP C7): `fluid.Block`,
+  `fluid.RaggedTensor`, `fluid.TPUPlace` (the port's accelerator place,
+  the same class as `CUDAPlace`), `utils`' flags surface with
+  `DEFINE_flag`, and `jit.functionalize`; the `__all__` of `fluid`,
+  `fluid.layers`, `utils` and `jit` hold every JAX name but
+  `ParallelDo` and `get_places` (ROADMAP A9).
 """
 
 import importlib
@@ -311,3 +323,243 @@ def test_sequence_pool_sum_is_the_rows_in_order():
     for _ in range(4):
         want = np.float32(want + np.float32(1.0))
     assert out[:, 0].tolist() == [float(want), 0.0, 2.0]
+
+
+# -- retry policy and the lease heartbeat (ROADMAP C6) -------------------------
+
+def _retry_pair():
+    from paddle_tpu.resilience import retry as jretry
+    from paddle_tpu_torch.resilience import retry as tretry
+
+    return jretry, tretry
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_retry_backoff_deadline_and_attempt_timeout(pkg):
+    """tests/test_resilience.py:63-112 on either package's policy."""
+    import random
+    import time
+
+    mod = _retry_pair()[pkg == "port"]
+    RetryPolicy, AttemptTimeout = mod.RetryPolicy, mod.AttemptTimeout
+    policy = RetryPolicy(base_delay=0.1, max_delay=1.0,
+                         rng=random.Random(0))
+    for attempt in range(1, 8):
+        cap = min(1.0, 0.1 * (2 ** (attempt - 1)))
+        for _ in range(20):
+            assert 0 <= policy.backoff(attempt) <= cap
+    nojit = RetryPolicy(base_delay=0.1, max_delay=1.0, jitter=False)
+    assert nojit.backoff(1) == 0.1 and nojit.backoff(5) == 1.0
+
+    slept = []
+
+    def never():
+        raise IOError("x")
+
+    with pytest.raises(IOError):
+        RetryPolicy(max_attempts=100, base_delay=10.0, jitter=False,
+                    deadline=0.5, sleep=slept.append).call(never)
+    assert slept == []   # the first backoff would blow the budget
+
+    calls = []
+
+    def hangs_once():
+        calls.append(1)
+        if len(calls) == 1:
+            time.sleep(5)
+        return "done"
+
+    assert RetryPolicy(max_attempts=2, base_delay=0.0,
+                       attempt_timeout=0.2).call(hangs_once) == "done"
+    assert len(calls) == 2
+    with pytest.raises(AttemptTimeout):
+        RetryPolicy(max_attempts=1, attempt_timeout=0.05).call(
+            time.sleep, 5)
+    with pytest.raises(ValueError):
+        RetryPolicy(max_attempts=5, base_delay=0.0,
+                    retryable=(ConnectionError,)).call(
+            lambda: (_ for _ in ()).throw(ValueError("bug")))
+    blips = [IOError("t"), IOError("t")]
+
+    def two_blips():
+        if blips:
+            raise blips.pop()
+        return "ok"
+
+    # a predicate as the retryable set
+    assert RetryPolicy(max_attempts=3, base_delay=0.0,
+                       retryable=lambda e: isinstance(e, IOError)).call(
+        two_blips) == "ok"
+
+
+def test_retry_metrics_match_jax():
+    """retries_total{op} and retry_exhausted_total{op}, by the policy's
+    name, on each package's registry."""
+    from paddle_tpu.obs import registry as j_registry
+    from paddle_tpu.obs import telemetry as j_tele
+    from paddle_tpu_torch.obs import registry as t_registry
+    from paddle_tpu_torch.obs import telemetry as t_tele
+
+    snaps = []
+    for (mod, reg, tele) in zip(_retry_pair(), (j_registry, t_registry),
+                                (j_tele, t_tele)):
+        reg.reset_registry()
+        calls = []
+
+        def flaky():
+            calls.append(1)
+            if len(calls) < 3:
+                raise IOError("transient")
+            return "ok"
+
+        assert mod.RetryPolicy(max_attempts=3, base_delay=0.0,
+                               name="t").call(flaky) == "ok"
+        with pytest.raises(ConnectionError):
+            mod.RetryPolicy(max_attempts=2, base_delay=0.0,
+                            name="boom").call(
+                lambda: (_ for _ in ()).throw(ConnectionError("down")))
+        snap = tele.snapshot()
+        snaps.append({k: v for k, v in snap.items()
+                      if k.startswith(("retries_total",
+                                       "retry_exhausted_total"))})
+        reg.reset_registry()
+    assert snaps[0] == snaps[1] == {"retries_total{op=t}": 2,
+                                    "retries_total{op=boom}": 1,
+                                    "retry_exhausted_total{op=boom}": 1}
+
+
+class _FakeLeaseClient:
+    """tests/test_resilience.py's fake master client."""
+
+    def __init__(self, fail_beats=0):
+        self.fail_beats = fail_beats
+        self.beats = 0
+        self.closed = False
+        self.unregistered = False
+
+    def keep_alive(self, lease):
+        self.beats += 1
+        if self.fail_beats > 0:
+            self.fail_beats -= 1
+            raise ConnectionError("blip")
+        return True
+
+    def unregister(self, lease):
+        self.unregistered = True
+
+    def close(self):
+        self.closed = True
+
+
+def _lease_classes():
+    from paddle_tpu.distributed.coordinator import ServiceLease as J
+    from paddle_tpu_torch.distributed.coordinator import ServiceLease as T
+
+    return J, T
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_lease_survives_a_blip_and_lapses_on_persistent_failure(pkg):
+    """tests/test_resilience.py:394-420 on either package's lease."""
+    import time
+
+    ServiceLease = _lease_classes()[pkg == "port"]
+    client = _FakeLeaseClient(fail_beats=1)
+    lease = ServiceLease(client, lease_id=1, ttl_ms=120)
+    deadline = time.time() + 3
+    while client.beats < 3 and time.time() < deadline:
+        time.sleep(0.01)
+    assert not lease.lapsed
+    lease.release()
+    assert client.unregistered and client.closed
+
+    client = _FakeLeaseClient(fail_beats=10 ** 6)
+    lease = ServiceLease(client, lease_id=1, ttl_ms=120)
+    deadline = time.time() + 3
+    while not lease.lapsed and time.time() < deadline:
+        time.sleep(0.01)
+    assert lease.lapsed
+    lease.release()
+
+
+def test_lease_retry_budget_is_the_jax_coordinators():
+    """The default heartbeat policy: 3 attempts, its whole budget under
+    0.9 of a beat interval, only connection errors retried, named
+    lease_heartbeat — as the JAX coordinator builds it."""
+    policies = []
+    for cls in _lease_classes():
+        client = _FakeLeaseClient()
+        lease = cls(client, lease_id=1, ttl_ms=300)
+        policies.append(lease._retry)
+        lease.release()
+    jp, tp = policies
+    for key in ("max_attempts", "base_delay", "max_delay", "deadline",
+                "retryable", "name", "jitter", "attempt_timeout"):
+        assert getattr(tp, key) == getattr(jp, key), key
+    assert tp.deadline == pytest.approx(0.09)
+    assert tp.name == "lease_heartbeat"
+    assert not tp.is_retryable(ValueError("bug"))
+
+
+# -- public names (ROADMAP C7) ----------------------------------------------------
+
+def test_public_names_match_jax_but_the_mesh_layers():
+    """The JAX `__all__` of fluid, fluid.layers, utils and jit, less the
+    port's: ParallelDo and get_places (ROADMAP A9), nothing else."""
+    import paddle_tpu.jit as jjit
+    import paddle_tpu.utils as jutils
+    import paddle_tpu_torch.jit as tjit
+    import paddle_tpu_torch.utils as tutils
+
+    missing = set()
+    for j, t in ((jfluid, tfluid), (jfluid.layers, tfluid.layers),
+                 (jutils, tutils), (jjit, tjit)):
+        missing |= set(j.__all__) - set(t.__all__)
+        for name in t.__all__:
+            assert hasattr(t, name), (t.__name__, name)
+    assert missing == {"ParallelDo", "get_places"}
+
+
+def test_tpu_place_is_the_accelerator_place():
+    """The JAX package aliases CUDAPlace to its TPUPlace; the port
+    aliases TPUPlace to its CUDAPlace, so `fluid.TPUPlace(0)` in a
+    script written for the JAX package names the card."""
+    assert tfluid.TPUPlace is tfluid.CUDAPlace
+    assert jfluid.CUDAPlace is jfluid.TPUPlace
+    assert repr(tfluid.TPUPlace(0)) == "CUDAPlace(0)"
+    assert tfluid.Block is tfluid.framework.Block
+    from paddle_tpu_torch.core.ragged import RaggedTensor
+
+    assert tfluid.RaggedTensor is RaggedTensor
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tfluid.Executor(tfluid.TPUPlace(0))
+
+
+def test_define_flag_and_functionalize():
+    from paddle_tpu_torch import utils as tutils
+    from paddle_tpu_torch.jit import FunctionalProgram, functionalize
+
+    assert tutils.DEFINE_flag("port_test_flag", 1.5, "a test flag") == 1.5
+    tutils.set_flag("port_test_flag", "2.25")
+    assert tutils.get_flag("port_test_flag") == 2.25
+    assert tutils.flags.all_flags()["check_nan_inf"] is False
+    with pytest.raises(KeyError):
+        tutils.set_flag("no_such_flag", 1)
+    import os
+
+    os.environ["FLAGS_port_test_flag"] = "3.5"
+    try:
+        tutils.parse_flags_from_env(["port_test_flag"])
+    finally:
+        del os.environ["FLAGS_port_test_flag"]
+    assert tutils.get_flag("port_test_flag") == 3.5
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[3], dtype="float32")
+        y = tfluid.layers.scale(x=x, scale=2.0)
+    fp = functionalize(main, ["x"], [y.name], place=tfluid.CPUPlace())
+    assert isinstance(fp, FunctionalProgram)
+    (out,), _ = fp({}, {"x": torch.ones(2, 3)})
+    assert out.tolist() == [[2.0] * 3] * 2

@@ -1151,7 +1151,8 @@ def test_v2_surface_matches_jax():
     assert tpaddle.v2 is tv2
 
 
-@pytest.mark.parametrize("name", ["rotate", "maxout", "nce", "priorbox"])
+@pytest.mark.parametrize("name", ["rotate", "maxout", "hsigmoid",
+                                  "priorbox"])
 def test_waiting_zoo_names_raise(name):
     """A zoo name whose op the port does not register raises
     NotImplementedError naming the op and its ROADMAP item."""
