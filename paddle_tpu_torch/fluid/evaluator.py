@@ -1,5 +1,5 @@
 """Streaming metrics over the batches of a run: `Accuracy`,
-`ChunkEvaluator` and `EditDistance`.
+`ChunkEvaluator`, `EditDistance` and `DetectionMAP`.
 
 Counterpart of paddle_tpu/fluid/evaluator.py (reference:
 python/paddle/v2/fluid/evaluator.py; gserver/evaluators' CTC error
@@ -9,7 +9,7 @@ part of the step (one `sum` op a counter); `reset()` and `eval()` work
 on the scope from the host: zeroing a counter is a store, and the
 metric is a few scalar divisions of the counters read back.  The
 programs equal the JAX package's through `to_dict()`.  `DetectionMAP`
-needs the `detection_map` op, which waits with ROADMAP A10.
+keeps the JAX evaluator's unweighted mean of the batches' mAPs.
 """
 
 import numpy as np
@@ -166,10 +166,35 @@ class EditDistance(Evaluator):
 
 
 class DetectionMAP(Evaluator):
-    """Detection mean average precision: its `detection_map` op is not
-    ported yet."""
+    """Detection mean average precision (reference:
+    gserver/evaluators/DetectionMAPEvaluator.cpp): the `detection_map`
+    op scores each batch, and eval() gives the unweighted mean of the
+    batches' mAPs since the last reset, as the JAX evaluator does (the
+    reference pools the per-class hits of the whole pass instead, which
+    differs on uneven batches)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fluid.evaluator.DetectionMAP needs the op type detection_map, "
-            "which the port does not register yet (ROADMAP A10)")
+    def __init__(self, detect_res, label, overlap_threshold=0.5,
+                 background_id=0, ap_type="11point",
+                 evaluate_difficult=False, **kwargs):
+        super().__init__("detection_map", **kwargs)
+        self.map_sum = self._counter("map_sum", "float32")
+        self.batches = self._counter("batches", "float32")
+        batch_map = self.helper.create_tmp_variable(
+            dtype="float32", stop_gradient=True)
+        self.helper.append_op(
+            type="detection_map",
+            inputs={"DetectRes": [detect_res], "Label": [label]},
+            outputs={"MAP": [batch_map]},
+            attrs={"overlap_threshold": float(overlap_threshold),
+                   "background_label_id": int(background_id),
+                   "ap_type": ap_type,
+                   "evaluate_difficult": bool(evaluate_difficult)})
+        self._accumulate(self.map_sum, batch_map)
+        self._accumulate(
+            self.batches,
+            layers.fill_constant(shape=[1], dtype="float32", value=1.0))
+        self.metrics.append(batch_map)
+
+    def _combine(self, reads):
+        map_sum, batches = (r.sum() for r in reads)
+        return np.array([_ratio(map_sum, batches)])

@@ -21,3 +21,5 @@ from . import io_ops  # noqa: F401
 from . import beam  # noqa: F401
 from . import dist  # noqa: F401
 from . import nn  # noqa: F401
+from . import v2_extra  # noqa: F401
+from . import detection  # noqa: F401

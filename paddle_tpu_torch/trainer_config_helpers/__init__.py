@@ -6,9 +6,7 @@ optimizers.py, networks.py.  Counterpart of
 paddle_tpu/trainer_config_helpers, with the same names: every `*_layer`
 name maps onto the port's `v2.layer` (same call signatures for the
 common arguments, one implementation underneath), and every evaluator
-of `v2.evaluator` is re-exported.  A name whose op the port does not
-register yet raises NotImplementedError naming its ROADMAP item, as it
-does in v2.  A config written for the port imports
+of `v2.evaluator` is re-exported.  A config written for the port imports
 `paddle_tpu_torch.trainer_config_helpers` and names its data provider
 in the port's package (`paddle_tpu_torch.dataset.uci_housing_provider`).
 """

@@ -7,9 +7,9 @@ The port's counterpart of paddle_tpu/v2/evaluator.py.  Each function
 appends the metric ops to the default program and returns the metric
 Variable(s); fetch them alongside the cost (the reference prints them
 per batch/pass from inside the trainer — here they are fetchable
-outputs, and the printer evaluators wrap the print op).  The evaluator
-whose op the port does not register yet (`detection_map`) raises
-NotImplementedError naming ROADMAP A10."""
+outputs, and the printer evaluators wrap the print op).
+`detection_map_evaluator` gives one batch's mAP (the `detection_map`
+op); `fluid.evaluator.DetectionMAP` averages them over the batches."""
 
 from ..fluid import layers as fl
 from ..fluid.layer_helper import LayerHelper
@@ -26,16 +26,13 @@ __all__ = [
 ]
 
 
-# the metric ops the port does not register yet (ROADMAP A10)
-_WAITING_OPS = ("detection_map",)
+# the metric ops the port does not register: none since A10's last op
+# groups
+_WAITING_OPS = ()
 
 
 def _metric_op(op_type, inputs, attrs, out_slots, dtypes=None,
                lod_levels=None, name=None):
-    if op_type in _WAITING_OPS:
-        raise NotImplementedError(
-            "the %s evaluator needs the op type %s, which the port does "
-            "not register yet (ROADMAP A10)" % (op_type, op_type))
     helper = LayerHelper(op_type)
     outs = []
     for i, slot in enumerate(out_slots):

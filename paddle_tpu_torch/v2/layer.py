@@ -5,9 +5,10 @@ The port's counterpart of paddle_tpu/v2/layer.py, with the same
 `__all__`.  Each function appends fluid ops to the default Program
 through the port's `fluid.layers` and returns the fluid Variable;
 ``data`` additionally records declaration order so the trainer can map
-reader tuple slots without an explicit ``feeding``.  A name whose op
-the port does not register yet stays in `__all__` and raises
-NotImplementedError naming the op and its ROADMAP item (`_WAITING`).
+reader tuple slots without an explicit ``feeding``.  Every name builds
+its ops (`_WAITING`, the names whose op the port lacks, is empty);
+`detection_output` gives its op the slot and attrs the op reads, where
+the JAX package's layer does not (its program cannot run).
 """
 
 from ..fluid import layers as fl
@@ -656,15 +657,20 @@ def factorization_machine(input, factor_size, param_attr=None,
 
 
 def _helper_op(op_type, inputs, attrs=None, name=None, dtype="float32",
-               n_outs=1, out_slots=("Out",)):
-    """One op of `op_type` writing `n_outs` outputs to `out_slots` (an
-    op's other outputs go unwritten).  One output is registered under
-    `name` and returned; several are returned as a list."""
+               lod_level=0, n_outs=1, out_slots=("Out",),
+               stop_gradient=False):
+    """One op of `op_type` writing `n_outs` outputs of `lod_level` to
+    `out_slots` (an op's other outputs go unwritten), marked
+    `stop_gradient` when asked.  One output is registered under `name`
+    and returned; several are returned as a list."""
     from ..fluid.layer_helper import LayerHelper
 
     helper = LayerHelper(op_type)
-    outs = [helper.create_tmp_variable(dtype, lod_level=0)
+    outs = [helper.create_tmp_variable(dtype, lod_level=lod_level)
             for _ in range(n_outs)]
+    if stop_gradient:
+        for o in outs:
+            o.stop_gradient = True
     helper.append_op(type=op_type, inputs=inputs,
                      outputs={s: [o] for s, o in zip(out_slots, outs)},
                      attrs=attrs or {})
@@ -865,46 +871,259 @@ def warp_ctc(input, label, size=None, blank=0, norm_by_times=False,
     return register_layer_output(name, fl.mean(x=cost))
 
 
-# -- names whose ops wait ----------------------------------------------------
+# -- the layers over A10's last op groups ------------------------------------
 
-# name -> (the op types it appends, the ROADMAP item they wait with)
-_WAITING = {
-    "conv_operator": ("conv2d_dynamic_filter", "A10"),
-    "kmax_seq_score": ("kmax_seq_score", "A10"),
-    "sub_nested_seq": ("sub_nested_seq", "A10"),
-    "maxout": ("maxout", "A10"),
-    "spp": ("spp", "A10"),
-    "img_pool3d": ("pool3d", "A10"),
-    "img_conv3d": ("conv3d", "A10"),
-    "bilinear_interp": ("bilinear_interp", "A10"),
-    "rotate": ("rotate", "A10"),
-    "out_prod": ("out_prod", "A10"),
-    "linear_comb": ("linear_comb", "A10"),
-    "scale_sub_region": ("scale_sub_region", "A10"),
-    "sampling_id": ("sampling_id", "A10"),
-    "hsigmoid": ("hsigmoid", "A10"),
-    "lambda_cost": ("lambda_cost", "A10"),
-    "cross_entropy_with_selfnorm": ("cross_entropy_selfnorm", "A10"),
-    "multi_binary_label_cross_entropy": (
-        "multi_binary_label_cross_entropy", "A10"),
-    "priorbox": ("prior_box", "A10"),
-    "roi_pool": ("roi_pool", "A10"),
-    "detection_output": ("detection_output", "A10"),
-    "multibox_loss": ("multibox_loss", "A10"),
-}
+def conv_operator(img, filter, filter_size, num_filters,
+                  num_channels=None, stride=1, padding=0,
+                  filter_size_y=None, stride_y=None, padding_y=None):
+    """Each sample of `img` convolved with its own filters, a row of
+    another layer's output (reference: layers.py conv_operator over
+    ConvOperator.cpp), for a mixed layer."""
 
+    def build():
+        from ..fluid.layer_helper import LayerHelper
 
-def _waiting(name, ops, item):
-    def layer(*args, **kwargs):
-        raise NotImplementedError(
-            "v2.layer.%s needs the op type %s, which the port does not "
-            "register yet (ROADMAP %s)" % (name, ops, item))
+        helper = LayerHelper("conv_operator")
+        kx = filter_size
+        ky = filter_size if filter_size_y is None else filter_size_y
+        s = [stride if stride_y is None else stride_y, stride]
+        p = [padding if padding_y is None else padding_y, padding]
+        out = helper.create_tmp_variable(img.dtype)
+        helper.append_op(type="conv2d_dynamic_filter",
+                         inputs={"Input": [img], "Filter": [filter]},
+                         outputs={"Output": [out]},
+                         attrs={"strides": s, "paddings": p,
+                                "num_filters": int(num_filters),
+                                "ksize": [ky, kx]})
+        return out
 
-    layer.__name__ = name
-    return layer
+    return _Projection(build)
 
 
-for _name, (_ops, _item) in _WAITING.items():
-    globals()[_name] = _waiting(_name, _ops, _item)
-convex_comb = globals()["linear_comb"]
+def kmax_seq_score(input, beam_size=1, name=None, **kw):
+    return _helper_op("kmax_seq_score", {"X": [input]},
+                      {"beam_size": int(beam_size)}, name=name,
+                      dtype="int32", lod_level=1, stop_gradient=True)
+
+
+def sub_nested_seq(input, selected_indices, name=None, **kw):
+    return _helper_op("sub_nested_seq",
+                      {"X": [input], "S": [selected_indices]},
+                      name=name, dtype=input.dtype, lod_level=1)
+
+
+def maxout(input, groups, num_channels=None, name=None, **kw):
+    return _helper_op("maxout", {"X": [input]}, {"groups": int(groups)},
+                      name=name, dtype=input.dtype)
+
+
+def _pool_type_name(pool_type):
+    from . import pooling
+
+    if pool_type is None:
+        pool_type = pooling.Max
+    pt = pool_type.name if not isinstance(pool_type, str) else pool_type
+    return {"average": "avg"}.get(pt, pt)
+
+
+def spp(input, pyramid_height=3, pool_type=None, name=None, **kw):
+    return _helper_op("spp", {"X": [input]},
+                      {"pyramid_height": int(pyramid_height),
+                       "pooling_type": _pool_type_name(pool_type)},
+                      name=name, dtype=input.dtype)
+
+
+def _triple(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * 3
+
+
+def img_pool3d(input, pool_size, pool_type=None, stride=None,
+               padding=0, name=None, **kw):
+    s = stride if isinstance(stride, (list, tuple)) \
+        else [stride or pool_size] * 3
+    return _helper_op("pool3d", {"X": [input]},
+                      {"pooling_type": _pool_type_name(pool_type),
+                       "ksize": _triple(pool_size), "strides": list(s),
+                       "paddings": _triple(padding)},
+                      name=name, dtype=input.dtype)
+
+
+def img_conv3d(input, filter_size, num_filters, num_channels=None,
+               stride=1, padding=0, act=None, param_attr=None,
+               bias_attr=None, name=None, **kw):
+    from ..fluid.layer_helper import LayerHelper
+
+    helper = LayerHelper("conv3d", param_attr=param_attr,
+                         bias_attr=bias_attr)
+    cin = num_channels or input.shape[1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_filters, cin]
+                                + _triple(filter_size),
+                                dtype=input.dtype)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="conv3d",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": _triple(stride),
+                            "paddings": _triple(padding),
+                            "dilations": [1, 1, 1], "groups": 1})
+    out = helper.append_bias_op(out, dim_start=1, dim_end=2) \
+        if bias_attr is not False else out
+    act_n = _act_name(act)
+    if act_n:
+        out = getattr(fl, act_n)(out)
+    return register_layer_output(name, out)
+
+
+def bilinear_interp(input, out_size_x, out_size_y, name=None, **kw):
+    return _helper_op("bilinear_interp", {"X": [input]},
+                      {"out_h": int(out_size_y), "out_w": int(out_size_x)},
+                      name=name, dtype=input.dtype)
+
+
+def rotate(input, height, width, name=None, **kw):
+    c = input.shape[-1] // (height * width)
+    return _helper_op("rotate", {"X": [input]},
+                      {"channels": int(c), "height": int(height),
+                       "width": int(width)}, name=name,
+                      dtype=input.dtype)
+
+
+def out_prod(a, b, name=None, **kw):
+    return _helper_op("out_prod", {"X": [a], "Y": [b]}, name=name,
+                      dtype=a.dtype)
+
+
+def linear_comb(weights, vectors, size, name=None, **kw):
+    return _helper_op("linear_comb",
+                      {"X": [vectors], "W": [weights]},
+                      {"size": int(size)}, name=name,
+                      dtype=vectors.dtype)
+
+
+convex_comb = linear_comb
+
+
+def scale_sub_region(input, indices, value=1.0, name=None, **kw):
+    return _helper_op("scale_sub_region",
+                      {"X": [input], "Indices": [indices]},
+                      {"value": float(value)}, name=name,
+                      dtype=input.dtype)
+
+
+def sampling_id(input, name=None, **kw):
+    return _helper_op("sampling_id", {"X": [input]}, name=name,
+                      dtype="int64", stop_gradient=True)
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, **kw):
+    """Hierarchical sigmoid cost (reference: hsigmoid over
+    HierarchicalSigmoidLayer.cpp), its mean."""
+    from ..fluid.layer_helper import LayerHelper
+    from ..fluid.param_attr import ParamAttr
+
+    helper = LayerHelper("hsigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr)
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_classes - 1, input.shape[-1]],
+                                dtype=input.dtype)
+    inputs = {"X": [input], "W": [w], "Label": [label]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            helper.bias_attr or ParamAttr(), shape=[1, num_classes - 1],
+            dtype=input.dtype, is_bias=True)]
+    out = _helper_op("hsigmoid", inputs, {"num_classes": int(num_classes)})
+    return register_layer_output(name, fl.mean(x=out))
+
+
+def lambda_cost(input, score, NDCG_num=5, max_sort_size=-1, name=None,
+                **kw):
+    out = _helper_op("lambda_cost",
+                     {"Score": [input], "Label": [score]},
+                     {"NDCG_num": int(NDCG_num)}, lod_level=1)
+    return register_layer_output(name, fl.mean(x=out))
+
+
+def cross_entropy_with_selfnorm(input, label, softmax_selfnorm_alpha=0.1,
+                                name=None, **kw):
+    out = _helper_op("cross_entropy_selfnorm",
+                     {"X": [input], "Label": [label]},
+                     {"softmax_selfnorm_alpha":
+                      float(softmax_selfnorm_alpha)},
+                     lod_level=getattr(input, "lod_level", 0))
+    return register_layer_output(name, fl.mean(x=out))
+
+
+def multi_binary_label_cross_entropy(input, label, name=None, **kw):
+    out = _helper_op("multi_binary_label_cross_entropy",
+                     {"X": [input], "Label": [label]},
+                     lod_level=getattr(input, "lod_level", 0))
+    return register_layer_output(name, fl.mean(x=out))
+
+
+def priorbox(input, image, min_size, max_size=(), aspect_ratio=(),
+             variance=(0.1, 0.1, 0.2, 0.2), name=None, **kw):
+    """[Boxes, Variances] of `prior_box`: [H, W, priors, 4] each."""
+    return _helper_op(
+        "prior_box", {"Input": [input], "Image": [image]},
+        {"min_sizes": list(min_size) if isinstance(
+            min_size, (list, tuple)) else [min_size],
+         "max_sizes": list(max_size), "aspect_ratios":
+         list(aspect_ratio) or [1.0], "variances": list(variance)},
+        n_outs=2, out_slots=("Boxes", "Variances"), stop_gradient=True)
+
+
+def roi_pool(input, rois, pooled_width, pooled_height, spatial_scale,
+             name=None, **kw):
+    out = _helper_op("roi_pool", {"X": [input], "ROIs": [rois]},
+                     {"pooled_height": int(pooled_height),
+                      "pooled_width": int(pooled_width),
+                      "spatial_scale": float(spatial_scale)},
+                     n_outs=2, out_slots=("Out", "Argmax"))
+    return register_layer_output(name, out[0])
+
+
+def detection_output(input_loc, input_conf, priorbox, num_classes,
+                     nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
+                     confidence_threshold=0.01, background_id=0,
+                     name=None, **kw):
+    """SSD's detections, [M, 7] rows (image, label, score, box).  The op
+    gets the slot and attrs it reads (`Conf`, `num_classes`, `top_k`,
+    `confidence_threshold`, `background_label_id`); the JAX package's
+    layer passes `Scores`, `keep_top_k`, `score_threshold` and
+    `background_label` and no `num_classes`, which its op cannot run."""
+    return _helper_op(
+        "detection_output",
+        {"Loc": [input_loc], "Conf": [input_conf], "PriorBox": [priorbox]},
+        {"num_classes": int(num_classes),
+         "nms_threshold": float(nms_threshold),
+         "nms_top_k": int(nms_top_k), "top_k": int(keep_top_k),
+         "confidence_threshold": float(confidence_threshold),
+         "background_label_id": int(background_id)},
+        name=name, lod_level=1, stop_gradient=True)
+
+
+def multibox_loss(input_loc, input_conf, priorbox, label, gt_box,
+                  num_classes, overlap_threshold=0.5,
+                  neg_pos_ratio=3.0, background_id=0, name=None, **kw):
+    """SSD's training cost (reference: layers.py multibox_loss_layer over
+    MultiBoxLossLayer.cpp), the mean per-image loss; `gt_box` is the
+    ragged [G, 4] ground-truth boxes and `label` their ragged [G, 1]
+    classes, two data layers where the reference packs one blob."""
+    out = _helper_op(
+        "multibox_loss",
+        {"Loc": [input_loc], "Conf": [input_conf],
+         "PriorBox": [priorbox], "GtBox": [gt_box], "GtLabel": [label]},
+        {"num_classes": int(num_classes),
+         "overlap_threshold": float(overlap_threshold),
+         "neg_pos_ratio": float(neg_pos_ratio),
+         "background_label_id": int(background_id)},
+        out_slots=("Loss",))
+    return register_layer_output(name, fl.mean(x=out))
+
+
+# the names that wait for an op type the port does not register: none
+# since A10's last op groups
+_WAITING = {}
 

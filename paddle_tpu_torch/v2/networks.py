@@ -7,8 +7,7 @@ paddle_tpu/v2/networks.py: each composite is restated on the v2 DSL
 primitives; the recurrent units hang off the recurrent_group/memory
 machinery in v2/recurrent.py (one DynamicRNN), and the attention heads
 are sequence ops over the static encoder sequence inside the decoder's
-step.  A composite whose layer waits (v2/layer.py `_WAITING`) raises as
-that layer does."""
+step."""
 
 from ..fluid import layers as fl
 from ..fluid import nets as fluid_nets

@@ -355,13 +355,18 @@ def test_v2_layer_matches_jax(name):
 
 
 def test_waiting_names_after_this_slice():
-    """21 v2 layer names and one evaluator op still wait (ROADMAP A10)."""
-    assert len(tv2.layer._WAITING) == 21
-    assert tv2.evaluator._WAITING_OPS == ("detection_map",)
-    for name in V2_NAMES:
-        assert name not in tv2.layer._WAITING
-    with pytest.raises(NotImplementedError, match="A10"):
-        tv2.evaluator.detection_map_evaluator(None, None)
+    """No v2 layer name and no evaluator op waits since A10's last op
+    groups; the detection evaluator builds its op."""
+    assert tv2.layer._WAITING == {}
+    assert tv2.evaluator._WAITING_OPS == ()
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        det = tfluid.layers.data(name="det", shape=[6], dtype="float32",
+                                 lod_level=1)
+        gt = tfluid.layers.data(name="gt", shape=[5], dtype="float32",
+                                lod_level=1)
+        tv2.evaluator.detection_map_evaluator(det, gt)
+    assert main.desc.block(0).ops[-1].type == "detection_map"
 
 
 def _evaluators(v2, fluid, which):

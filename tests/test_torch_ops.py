@@ -238,6 +238,17 @@ def test_registry_holds_the_slice_op_set():
         "cast_embedding_ids", "conv2d_transpose", "hinge_loss",
         "huber_loss", "log_loss", "rank_loss", "margin_rank_loss",
         "modified_huber_loss", "auc", "precision_recall",
-        "positive_negative_pair"}
+        "positive_negative_pair",
+        # A10's last op groups: the rest of ops/conv.py, ops/v2_extra.py,
+        # ops/detection.py and io_ops' feed, fetch, save and load
+        "conv3d", "conv3d_transpose", "pool3d", "max_pool2d_with_index",
+        "max_pool3d_with_index", "unpool", "maxout", "spp", "roi_pool",
+        "conv2d_dynamic_filter", "bilinear_interp", "hsigmoid",
+        "sampling_id", "kmax_seq_score", "sub_nested_seq",
+        "scale_sub_region", "lambda_cost", "cross_entropy_selfnorm",
+        "multi_binary_label_cross_entropy", "rotate", "out_prod",
+        "linear_comb", "prior_box", "iou_similarity", "bipartite_match",
+        "detection_output", "multibox_loss", "detection_map", "feed",
+        "fetch", "save", "load"}
     with pytest.raises(KeyError):
-        treg.get_op_info("conv3d")
+        treg.get_op_info("fused_elemwise_chain")

@@ -602,7 +602,8 @@ def _feed(pkg, feed):
 def test_evaluators_match_jax():
     """Accuracy (top 2), ChunkEvaluator (IOB) and EditDistance over two
     batches: descs equal, each eval() equal to the JAX package's, and
-    after reset() the counters are 0."""
+    after reset() the counters are 0; then DetectionMAP, which raised
+    until A10's last op groups, against the JAX package's."""
     jm, js, jev = _evaluators(jfluid)
     tm, ts, tev = _evaluators(tfluid)
     _equal_descs((jm, js), (tm, ts))
@@ -627,8 +628,47 @@ def test_evaluators_match_jax():
             te.reset(texe)
             for v in te.states:
                 assert not tfluid.fetch_var(v.name).any()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tfluid.evaluator.DetectionMAP(None, None)
+    _detection_map_matches_jax()
+
+
+def _detection_map_matches_jax():
+    """DetectionMAP over two batches of 3 images: descs equal, each
+    batch's mAP and eval()'s mean of them equal to the JAX package's."""
+    from paddle_tpu.core.ragged import RaggedTensor as JRagged
+
+    progs = []
+    for fluid in (jfluid, tfluid):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            det = fluid.layers.data(name="det", shape=[6], dtype="float32",
+                                    lod_level=1)
+            gt = fluid.layers.data(name="gt", shape=[5], dtype="float32",
+                                   lod_level=1)
+            progs.append((main, startup,
+                          fluid.evaluator.DetectionMAP(det, gt)))
+    (jm, js, jev), (tm, ts, tev) = progs
+    _equal_descs((jm, js), (tm, ts))
+    rs = np.random.RandomState(12)
+    jexe, texe = jfluid.Executor(jfluid.CPUPlace()), tfluid.Executor(CPU)
+    with jfluid.scope_guard(JScope()), tfluid.scope_guard(tfluid.Scope()):
+        jexe.run(js)
+        texe.run(ts)
+        for _ in range(2):
+            gts = [np.concatenate([rs.randint(1, 3, (2, 1)),
+                                   np.sort(rs.rand(2, 4), 1)], 1).astype(
+                np.float32) for _ in range(3)]
+            dets = [np.concatenate([g[:, :1], rs.rand(2, 1), g[:, 1:]
+                                    + rs.uniform(-0.02, 0.02, (2, 4))],
+                                   1).astype(np.float32) for g in gts]
+            j = jexe.run(jm, feed={"det": JRagged.from_sequences(dets),
+                                   "gt": JRagged.from_sequences(gts)},
+                         fetch_list=jev.metrics)
+            t = texe.run(tm, feed={"det": RaggedTensor.from_sequences(dets),
+                                   "gt": RaggedTensor.from_sequences(gts)},
+                         fetch_list=tev.metrics)
+            np.testing.assert_allclose(t[0], np.asarray(j[0]), rtol=1e-6)
+        np.testing.assert_allclose(tev.eval(texe), jev.eval(jexe),
+                                   rtol=1e-6)
 
 
 # -- the transformer trained with the whole stack --------------------------------------

@@ -75,11 +75,13 @@ def test_the_port_registers_the_fifteen_new_op_types():
     seq_renest, print, beam_search, beam_search_decode and sign, the
     optimizer and layer stack's slice 44 more, the observability slice
     isfinite and count_nonfinite, the parameter-server slice
-    split_selected_rows and dist_send, and the entry-point slice 15
-    (ops/nn.py, conv2d_transpose, 6 losses, 3 metrics)."""
+    split_selected_rows and dist_send, the entry-point slice 15
+    (ops/nn.py, conv2d_transpose, 6 losses, 3 metrics), and A10's last
+    op groups 32 (the rest of ops/conv.py, ops/v2_extra.py,
+    ops/detection.py, feed, fetch, save and load)."""
     ops = set(registered_ops())
     assert set(NEW_OPS) <= ops
-    assert len(ops) == 178
+    assert len(ops) == 210
 
 
 # -- sequence_softmax, sequence_conv, row_conv ---------------------------------
