@@ -1,18 +1,61 @@
 """paddle_tpu_torch.analysis — static analysis over the Program IR.
 
-Counterpart of paddle_tpu/analysis, with its structural layer: the
-`verifier` (registry membership, def-before-use per block, BlockRef
-scoping, attr serializability and, at `level="full"`, dtype and shape
-re-derived through the registry; V0xx codes, `diagnostics`).  The
-DistributeTranspiler verifies the program it rewrites before it
-returns.  The JAX package's `dataflow`, `lints`, `shard` and `costmodel`
-passes and `check_program` wait with ROADMAP A10, `alias` with A2's
-buffer donation.
+Counterpart of paddle_tpu/analysis, with its three single-device
+layers (each diagnostic code means what it means there):
+
+  * `verifier`  structural well-formedness: registry membership,
+    def-before-use per block, BlockRef scoping, attr serializability
+    and, at `level="full"`, dtype and shape re-derived through the
+    registry (V0xx codes).
+  * `dataflow`  def-use chains and liveness, dead ops and vars, and the
+    write-write and in-place alias hazards (D0xx, H0xx codes).
+  * `lints`     dynamic dims into matrix products, host ops between
+    device ops, unseeded random ops, AMP dtype mixes, grad orphans
+    (L0xx codes).
+
+`check_program` runs all three and publishes the finding counters
+(`analysis_diagnostics_total{code,severity}`) into the obs registry; the
+roofline cost analysis lives in `fluid/analysis.py`.
+
+Verification runs at the trust boundaries, as on the JAX side: the
+executor's FLAGS_verify_program gate, `fluid.io.load_inference_model`
+(a structural check on load), the serving engine's warmup (the full
+check), the rewrite passes (around each pass) and the
+DistributeTranspiler.  The JAX package's `shard` and `costmodel` passes
+wait with ROADMAP A9 (a mesh), `alias` with A2's buffer donation.
 """
 
 from .diagnostics import (Diagnostic, ProgramVerificationError, Report,
                           Severity)
+from .dataflow import Liveness, analyze_dataflow
+from .lints import lint_program
 from .verifier import verify_program
 
 __all__ = ["Diagnostic", "Severity", "Report", "ProgramVerificationError",
-           "verify_program"]
+           "Liveness", "verify_program", "analyze_dataflow",
+           "lint_program", "check_program"]
+
+
+def check_program(program, level="full", fetches=None, bucket_hints=None,
+                  suppress=(), publish=True, origin="analysis"):
+    """Run the verifier, the dataflow pass and the lints over `program`
+    (a Program or ProgramDesc); returns one merged `Report`.
+
+    level: "structural" skips the shape re-derivation (V005-007), cheap
+        enough for every program load.
+    fetches: the run's fetch names; enables dead-op detection (a fetch
+        is a by-name scope lookup, invisible to the IR without this).
+    bucket_hints: the serving export's bucket config; demotes the
+        dynamic batch-dim finding to a covered advisory.
+    suppress: diagnostic suppressions ("H002", "H002@scale",
+        "H002@var:name").
+    publish: count the findings into the obs registry
+        (`analysis_diagnostics_total{code,severity}`).
+    """
+    report = Report(suppress=suppress)
+    verify_program(program, level=level, report=report)
+    analyze_dataflow(program, fetches=fetches, report=report)
+    lint_program(program, bucket_hints=bucket_hints, report=report)
+    if publish:
+        report.publish(origin=origin)
+    return report

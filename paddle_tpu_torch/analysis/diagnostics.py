@@ -6,11 +6,15 @@ carries a stable code (docs/ANALYSIS.md documents them), a severity,
 and the op/block/var identity needed to act on it.  A `Report`
 aggregates them, applies suppressions, publishes per-code counters into
 the obs registry, and can be turned into a `ProgramVerificationError`
-when a caller wants errors to be fatal (the DistributeTranspiler does).
+when a caller wants errors to be fatal (the executor's
+FLAGS_verify_program gate, `fluid.io.load_inference_model`, the serving
+engine's warmup, the rewrite passes and the DistributeTranspiler do).
 
-Code families: V0xx, structural verification (verifier.py).  The JAX
-package's dataflow (D0xx, H0xx), lint (L0xx) and alias (A0xx) passes
-are not ported (ROADMAP A10, A2).
+Code families:
+  V0xx  structural verification (verifier.py)
+  D0xx / H0xx  dataflow: dead code and write/alias hazards (dataflow.py)
+  L0xx  lints (lints.py)
+The JAX package's alias pass (A0xx) waits with ROADMAP A2.
 
 Suppressions are strings, matched most-specific-first:
   "H002"              suppress the code everywhere

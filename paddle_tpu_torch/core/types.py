@@ -12,6 +12,10 @@ import torch
 
 GRAD_SUFFIX = "@GRAD"
 
+# the fused elementwise-chain op type: its kernel (ops/math.py) and the
+# rewrite that emits it (fluid/fusion.py) must agree on the name
+FUSED_ELEMWISE_OP = "fused_elemwise_chain"
+
 
 def grad_var_name(name: str) -> str:
     """The gradient variable of `name` (reference:

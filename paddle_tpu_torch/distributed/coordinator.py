@@ -18,9 +18,11 @@ The JAX package's dense collective half (`init_multihost`,
 reporter (`start_fleet_reporter`, `stop_fleet_reporter`) with
 `obs/fleet.py` (A10): each raises NotImplementedError naming its item.
 
-Fault points (resilience/faults.py, io_error): coordinator/register,
-coordinator/discover, coordinator/heartbeat.  The JAX side's
-`lease_expiry` drill waits with the port's other fault kinds (A10).
+Fault points (resilience/faults.py): coordinator/register,
+coordinator/discover, coordinator/heartbeat.  A `lease_expiry` fault at
+the heartbeat stalls the beat past 1.5 TTL, so the master really
+reclaims the lease (the JAX side's drill of a host that stops
+heartbeating).
 
 Env protocol (set by tools/cluster_launch.py or any scheduler):
     PADDLE_MASTER          host:port of the registry's master
@@ -164,7 +166,12 @@ class ServiceLease:
         # toward the beat interval is the early warning
         t0 = time.perf_counter()
         try:
-            faults_mod.check("coordinator/heartbeat")
+            fired = faults_mod.check("coordinator/heartbeat")
+            if fired is not None and fired.kind == "lease_expiry":
+                # the host-death drill: stall past the TTL so the master
+                # really reclaims the lease; the next keep_alive finds
+                # it lapsed, as for a host that stopped heartbeating
+                time.sleep(self._ttl_ms / 1000.0 * 1.5 + 0.05)
             alive = self._client.keep_alive(self._lease)
         except (ConnectionError, OSError):
             _heartbeat_failures().inc()

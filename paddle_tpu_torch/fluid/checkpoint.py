@@ -90,14 +90,17 @@ class CheckpointSaver:
         saver.wait()
 
     It snapshots the persistables of `main_program` (default the default
-    main program); a write retries transient I/O errors 3 times."""
+    main program), or the names `var_names` when given; a write retries
+    transient I/O errors 3 times."""
 
     def __init__(self, root, main_program=None, interval_secs=600,
-                 max_to_keep=3):
+                 max_to_keep=3, var_names=None):
         self.root = root
         self.interval_secs = interval_secs
         self.max_to_keep = max_to_keep
         self._program = main_program
+        self._explicit_vars = (list(var_names) if var_names is not None
+                               else None)
         self._write_retry = RetryPolicy(max_attempts=3, base_delay=0.05,
                                         max_delay=0.5)
         # the first interval counts from construction: a run just
@@ -107,6 +110,8 @@ class CheckpointSaver:
         self._error = None
 
     def _var_names(self):
+        if self._explicit_vars is not None:
+            return self._explicit_vars
         program = self._program or framework.default_main_program()
         return [v.name for v in program.list_vars() if is_persistable(v)]
 

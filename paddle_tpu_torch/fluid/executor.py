@@ -34,6 +34,20 @@ KeyError naming it.  The scope is not read from a sub-block: every
 outside value reaches it as an input of the op, so the generic grad
 differentiates it.
 
+Before the ops run, as on the JAX side (paddle_tpu/fluid/executor.py
+:883-951): the fault point `executor/run` is checked
+(resilience/faults.py); under `FLAGS_verify_program` the program is
+verified by `analysis.check_program(level="full")` once per (program,
+version), and an error finding raises ProgramVerificationError; under
+`FLAGS_compile_passes` the run executes a clone rewritten by
+`compile.passes.optimize_program(program, spec, fetches)`, the caller's
+program unchanged.  The rewritten clone is cached by (program identity,
+version, fetch names, spec, AMP flags), the JAX compile cache's key, so
+the pipeline runs once for a program and not on every step
+(`pipeline_runs` counts its runs).  A program's version is the identity
+of its op lists and its count of vars: an appended or removed op or
+var makes another version.
+
 A program without grad ops that writes no persistable runs under
 `torch.inference_mode()` (the served forward); any other runs under
 `torch.no_grad()`, since inference tensors cannot be saved for a
@@ -45,6 +59,7 @@ the executor is made — the port never carries on on the CPU by itself.
 """
 
 import contextlib
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -61,6 +76,7 @@ from ..obs import flight as obs_flight
 from ..obs import telemetry as obs_tele
 from ..obs import trace as obs_trace
 from ..ops import registry as op_registry
+from ..resilience import faults as faults_mod
 from ..utils import flags
 from . import profiler as profiler_mod
 
@@ -312,6 +328,13 @@ def fetch_to_host(t):
     return t.detach().cpu().numpy()
 
 
+def _desc_version(desc):
+    """The version of a ProgramDesc: each block's ops (compared by
+    identity; holding them keeps their ids from being reused) and its
+    count of vars."""
+    return tuple((tuple(b.ops), len(b.vars)) for b in desc.blocks)
+
+
 class Executor:
     """reference: python/paddle/v2/fluid/executor.py Executor.
 
@@ -322,11 +345,20 @@ class Executor:
     `seed` gives the executor a stream of its own instead, seeded with
     it and shared by every scope it runs in."""
 
+    # rewritten programs kept (the JAX executor's cache bound)
+    _CACHE_MAX = 64
+
     def __init__(self, place=None, seed=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
         self.rng = None if seed is None else \
             torch.Generator(device=self.device).manual_seed(seed)
+        self._verified = set()
+        # (id(desc), fetches, spec, amp flags) -> (desc, version, clone)
+        self._optimized = OrderedDict()
+        # the rewrite pipeline's runs, and the last run's PassManager
+        self.pipeline_runs = 0
+        self.last_pipeline = None
 
     def _stream(self, scope, seed):
         """The random stream of a run in `scope`: the executor's own, or
@@ -351,6 +383,7 @@ class Executor:
         the grad op that makes it and the update op that reads it."""
         if program is None:
             program = default_main_program()
+        source = program
         seed = 0
         if isinstance(program, Program):
             seed = program.random_seed or 0
@@ -362,10 +395,15 @@ class Executor:
                       for v in fetch_list or ()]
         scope = scope if scope is not None else global_scope()
         obs_tele.on_executor_run()
+        # chaos hook: an injected IOError or latency on the run's
+        # dispatch (one None check when no fault plan is active)
+        faults_mod.check("executor/run")
         try:
             with obs_trace.span("executor/run", cat="executor",
                                 feeds=len(feed or {}),
                                 fetches=len(fetch_list)):
+                program = self._program_to_run(source, program,
+                                               fetch_list)
                 return self._run(program, seed, feed, fetch_list, scope,
                                  return_numpy)
         except Exception as exc:
@@ -375,6 +413,53 @@ class Executor:
                                 feeds=obs_flight.describe_feeds(feed),
                                 fetches=list(fetch_list), eager=True)
             raise
+
+    def _program_to_run(self, source, desc, fetch_names):
+        """The ProgramDesc a run of `desc` executes: `desc` itself, or
+        under FLAGS_compile_passes its rewritten clone; verified first
+        under FLAGS_verify_program.  `source` is what the caller passed
+        (a Program carries its random_seed, which lint L003 reads)."""
+        verify = flags.get_flag("verify_program")
+        spec = flags.get_flag("compile_passes")
+        if not verify and not spec:
+            return desc
+        version = _desc_version(desc)
+        if verify:
+            self._verify_program(source, version, fetch_names)
+        if not spec:
+            return desc
+        key = (id(desc), tuple(fetch_names), spec,
+               flags.get_flag("amp_bf16"), flags.get_flag("amp_bf16_act"))
+        hit = self._optimized.get(key)
+        if hit is not None and hit[0] is desc and hit[1] == version:
+            self._optimized.move_to_end(key)
+            return hit[2]
+        from ..compile import passes as passes_mod
+
+        optimized, pm = passes_mod.optimize_program(
+            desc, spec, fetches=list(fetch_names))
+        self.pipeline_runs += 1
+        self.last_pipeline = pm
+        self._optimized[key] = (desc, version, optimized.desc)
+        self._optimized.move_to_end(key)
+        if len(self._optimized) > self._CACHE_MAX:
+            self._optimized.popitem(last=False)
+        return optimized.desc
+
+    def _verify_program(self, source, version, fetch_names):
+        """FLAGS_verify_program: the full analysis, once per (program,
+        version); a clean verdict is remembered, so later runs pay one
+        set lookup."""
+        if version in self._verified:
+            return
+        from .. import analysis
+
+        analysis.check_program(
+            source, level="full", fetches=list(fetch_names),
+            origin="executor").raise_on_error()
+        self._verified.add(version)
+        if len(self._verified) > 4 * self._CACHE_MAX:
+            self._verified.clear()  # rare: unbounded program churn
 
     def _run(self, program, seed, feed, fetch_list, scope, return_numpy):
         block = program.block(0)

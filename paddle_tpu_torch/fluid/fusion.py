@@ -18,18 +18,28 @@ by small tensors, while the copies it adds scale with bytes, dominated
 by the big ones.  `unfuse_update_ops` expands the fused ops back.  The
 rewritten programs equal the JAX package's through `to_dict()`.
 
-The elementwise-chain fusion of the JAX module (`fuse_elemwise_chains`)
-waits with `paddle_tpu/compile/`, its only caller (ROADMAP A10).
+The second rewrite, `fuse_elemwise_chains` (paddle_tpu/fluid/fusion.py
+:189-343, run by the `fuse` pass of compile/opt_passes.py), collapses
+straight-line chains of elementwise, activation and bias ops (a
+residual `elementwise_add` feeding its `relu`, a bias add feeding an
+activation) into one `fused_elemwise_chain` op (ops/math.py), whose
+kernel applies the original kernels in order; the chain's
+intermediates leave the program.  The rewritten descs equal the JAX
+package's.
 """
 
+import json
 from collections import OrderedDict
 
+from ..analysis.common import EMPTY
 from ..core.desc import OpDesc
+from ..core.types import FUSED_ELEMWISE_OP
 from ..ops.optimizer_ops import FUSION_ATTRS
 from ..utils import flags
 
 __all__ = ["PER_PARAM_UPDATE_OPS", "FUSED_UPDATE_OP", "fuse_update_ops",
-           "unfuse_update_ops"]
+           "unfuse_update_ops", "FUSABLE_UNARY", "FUSABLE_BINARY",
+           "fuse_elemwise_chains"]
 
 # every per-parameter update op (ops/optimizer_ops.py)
 PER_PARAM_UPDATE_OPS = frozenset([
@@ -130,6 +140,176 @@ def fuse_update_ops(block, ops=None, min_group=2, max_numel=None):
     mine = ({id(d) for d in fused_descs}
             | {id(op.desc) for op in candidates})
     return [op for op in block.ops if id(op.desc) in mine]
+
+
+# single-input stages: one "X" operand, one "Out" output, registered
+# deterministic device kernels (dropout draws from the random stream,
+# batch_norm is a multi-output reduction: neither belongs here)
+FUSABLE_UNARY = frozenset([
+    "relu", "relu6", "sigmoid", "tanh", "exp", "sqrt", "abs", "square",
+    "softplus", "softsign", "leaky_relu", "elu", "brelu", "scale",
+    "cast", "clip"])
+
+# two-input stages: the chain value enters X or Y, the other operand
+# rides along as a side input (bias adds, residual adds, gating muls)
+FUSABLE_BINARY = frozenset([
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min"])
+
+
+def _stage_kind(od):
+    """'unary' / 'binary' when `od` can be a fused-chain stage, else
+    None.  Requires exactly the canonical slots, one name each."""
+    outs = od.output("Out")
+    if len(outs) != 1 or outs[0] == EMPTY:
+        return None
+    if any(slot != "Out" and names
+           for slot, names in od.outputs.items()):
+        return None
+    if od.type in FUSABLE_UNARY:
+        want = ("X",)
+    elif od.type in FUSABLE_BINARY:
+        want = ("X", "Y")
+    else:
+        return None
+    for slot in want:
+        names = od.input(slot)
+        if len(names) != 1 or names[0] == EMPTY:
+            return None
+    if any(slot not in want and names
+           for slot, names in od.inputs.items()):
+        return None
+    return "unary" if len(want) == 1 else "binary"
+
+
+def _stage_reads(od):
+    return [n for n in od.input_names() if n != EMPTY]
+
+
+def fuse_elemwise_chains(desc, block_idx=0, keep=(), cap=0):
+    """Greedily fuse single-consumer elementwise chains in one block.
+
+    A chain extends from stage k to the op consuming its output iff
+    the intermediate has exactly one definition and one use in the
+    program, is not in ``keep`` (fetches, persistables, names other
+    blocks read), and the consumer is itself a fusable stage.  Every
+    var any stage reads must be defined at most once in the block, so
+    running the whole chain at the last stage's position reads the
+    same values the originals read: the rewrite gives the same bits by
+    construction (the fused kernel applies the original registered
+    kernels in order).
+
+    ``cap`` bounds stages per fused op (0 = unbounded).  Chains
+    shorter than 2 stages are left alone.  Returns the explain list
+    (one entry per fused chain); the block is rewritten in place and
+    the dead intermediate VarDescs are dropped.
+    """
+    from ..compile.fingerprint import _jsonable
+
+    bd = desc.block(block_idx)
+    ops = bd.ops
+    keep = set(keep)
+
+    def_count, use_count, sole_consumer = {}, {}, {}
+    for i, od in enumerate(ops):
+        for n in _stage_reads(od):
+            use_count[n] = use_count.get(n, 0) + 1
+            sole_consumer[n] = i
+        for n in od.output_names():
+            if n != EMPTY:
+                def_count[n] = def_count.get(n, 0) + 1
+
+    kinds = {i: k for i, od in enumerate(ops)
+             for k in [_stage_kind(od)] if k}
+
+    def stable_reads(idx):
+        # every read var must be single-def so its value at the fused
+        # position (the chain's last index) matches the original read
+        return all(def_count.get(n, 0) <= 1 for n in _stage_reads(ops[idx]))
+
+    consumed = set()
+    groups = []            # (chain indices, fused OpDesc)
+    explain = []
+    dead_names = []
+    for i in range(len(ops)):
+        if i in consumed or i not in kinds or not stable_reads(i):
+            continue
+        chain = [i]
+        while True:
+            if cap and len(chain) >= cap:
+                break
+            cur = ops[chain[-1]].output("Out")[0]
+            if cur in keep or def_count.get(cur, 0) != 1 \
+                    or use_count.get(cur, 0) != 1:
+                break
+            j = sole_consumer[cur]
+            if j in consumed or j not in kinds or not stable_reads(j):
+                break
+            od_j = ops[j]
+            if kinds[j] == "binary":
+                on_x = od_j.input("X")[0] == cur
+                on_y = od_j.input("Y")[0] == cur
+                if on_x == on_y:  # both slots (x*x) or neither
+                    break
+            elif od_j.input("X")[0] != cur:
+                break
+            chain.append(j)
+        if len(chain) < 2:
+            continue
+
+        stages = []
+        side_ins = []
+        for k, idx in enumerate(chain):
+            od = ops[idx]
+            st = {"op": od.type}
+            attrs = {a: _jsonable(v) for a, v in sorted(od.attrs.items())}
+            if attrs:
+                st["attrs"] = attrs
+            if k == 0:
+                st["in"] = "X"
+                side = od.input("Y")[0] if kinds[idx] == "binary" \
+                    else None
+            else:
+                prev_out = ops[chain[k - 1]].output("Out")[0]
+                if kinds[idx] == "binary":
+                    if od.input("X")[0] == prev_out:
+                        st["in"], side = "X", od.input("Y")[0]
+                    else:
+                        st["in"], side = "Y", od.input("X")[0]
+                else:
+                    st["in"], side = "X", None
+            if side is not None:
+                st["side"] = len(side_ins)
+                side_ins.append(side)
+            stages.append(st)
+
+        x0 = ops[chain[0]].input("X")[0]
+        final_out = ops[chain[-1]].output("Out")[0]
+        ins = OrderedDict([("X", [x0])])
+        if side_ins:
+            ins["SideIns"] = side_ins
+        fused = OpDesc(
+            FUSED_ELEMWISE_OP, ins, {"Out": [final_out]},
+            {"stages": json.dumps(stages, sort_keys=True),
+             "inner_types": [ops[idx].type for idx in chain]})
+        consumed.update(chain)
+        inter = [ops[idx].output("Out")[0] for idx in chain[:-1]]
+        dead_names.extend(inter)
+        groups.append((chain, fused))
+        explain.append({"block": block_idx,
+                        "ops": [ops[idx].type for idx in chain],
+                        "out": final_out, "stages": len(chain),
+                        "intermediates": inter})
+
+    if not groups:
+        return []
+    replace_at = {chain[-1]: fused for chain, fused in groups}
+    removed = consumed - set(replace_at)
+    bd.ops = [replace_at.get(i, od) for i, od in enumerate(ops)
+              if i in replace_at or i not in removed]
+    for n in dead_names:
+        bd.vars.pop(n, None)
+    return explain
 
 
 def unfuse_update_ops(block):

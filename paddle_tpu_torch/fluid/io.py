@@ -323,10 +323,21 @@ def load_inference_model(dirname, executor, model_filename="__model__",
     """Returns (program_desc, feed_names, fetch_names); with
     `return_meta`, also the export's {feed_meta, bucket_hints}.  The
     persistables land in the global scope (use `scope_guard`), on the
-    executor's device."""
+    executor's device.  The program is verified (its structure) before
+    anything is loaded: a malformed export raises
+    ProgramVerificationError."""
     with open(os.path.join(dirname, model_filename)) as f:
         meta = json.load(f)
     program = ProgramDesc.from_dict(meta["program"])
+    # a loaded program was not built by this process: verify its
+    # structure before anything runs it (a desc walk, no shape
+    # re-derivation; the serving engine's warmup runs the full check).
+    # An error finding raises ProgramVerificationError naming the op
+    # index and var.
+    from .. import analysis
+
+    analysis.verify_program(program, level="structural") \
+        .publish(origin="io_load").raise_on_error()
     scope = global_scope()
     for var in _persistables(program):
         val = _load_one(dirname, var.name, missing_ok=True)

@@ -37,7 +37,7 @@ def _ragged(arr, splits, dtype, device):
                          for s in splits])
 
 
-@register_op("beam_search", stop_gradient_op=True,
+@register_op("beam_search", jittable=False, stop_gradient_op=True,
              nondiff_inputs=("pre_ids", "ids", "scores"))
 def beam_search(ctx, ins, attrs):
     """The `beam_size` best (row, candidate) items of each source by
@@ -87,7 +87,7 @@ def beam_search(ctx, ins, attrs):
                                         device)]}
 
 
-@register_op("beam_search_decode", stop_gradient_op=True,
+@register_op("beam_search_decode", jittable=False, stop_gradient_op=True,
              nondiff_inputs=("Ids", "Scores"))
 def beam_search_decode(ctx, ins, attrs):
     """Ids and Scores: the per-step selected ids and scores (lists of

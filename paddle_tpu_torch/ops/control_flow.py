@@ -283,7 +283,7 @@ def lod_array_length(ctx, ins, attrs):
     return {"Out": [arr.length.reshape(1)]}
 
 
-@register_op("max_sequence_len", stop_gradient_op=True,
+@register_op("max_sequence_len", jittable=False, stop_gradient_op=True,
              infer_desc=keep_declared)
 def max_sequence_len(ctx, ins, attrs):
     """reference: max_sequence_len_op.cc: the longest length of a
@@ -322,7 +322,7 @@ def _splits_of(lengths, device):
     return torch.tensor(out, dtype=torch.int32, device=device)
 
 
-@register_op("lod_rank_table", stop_gradient_op=True,
+@register_op("lod_rank_table", jittable=False, stop_gradient_op=True,
              infer_desc=keep_declared)
 def lod_rank_table(ctx, ins, attrs):
     """Level `level`'s sequences sorted by length, descending.  At level
@@ -348,8 +348,8 @@ def _outer_bounds(lod, i):
     return begin, end
 
 
-@register_op("reorder_lod_tensor_by_rank", stop_gradient_op=True,
-             infer_desc=keep_declared)
+@register_op("reorder_lod_tensor_by_rank", jittable=False,
+             stop_gradient_op=True, infer_desc=keep_declared)
 def reorder_lod_tensor_by_rank(ctx, ins, attrs):
     """X's level-0 sequences in the rank table's order; deeper levels
     travel with their outer sequence."""
@@ -369,7 +369,7 @@ def reorder_lod_tensor_by_rank(ctx, ins, attrs):
                                  [_splits_of(ls, dev) for ls in lengths])]}
 
 
-@register_op("lod_tensor_to_array", stop_gradient_op=True,
+@register_op("lod_tensor_to_array", jittable=False, stop_gradient_op=True,
              infer_desc=keep_declared)
 def lod_tensor_to_array(ctx, ins, attrs):
     """Per-step slices in rank-table order, a list.  Lod level 1: step t
@@ -398,7 +398,7 @@ def lod_tensor_to_array(ctx, ins, attrs):
     return {"Out": [steps]}
 
 
-@register_op("array_to_lod_tensor", stop_gradient_op=True,
+@register_op("array_to_lod_tensor", jittable=False, stop_gradient_op=True,
              infer_desc=keep_declared)
 def array_to_lod_tensor(ctx, ins, attrs):
     """The inverse of lod_tensor_to_array (dense or ragged steps); the
@@ -438,8 +438,8 @@ def array_to_lod_tensor(ctx, ins, attrs):
         [_splits_of(table.lengths(), dev), _splits_of(inner, dev)])]}
 
 
-@register_op("shrink_rnn_memory", nondiff_inputs=("RankTable", "I"),
-             infer_desc=keep_declared)
+@register_op("shrink_rnn_memory", jittable=False,
+             nondiff_inputs=("RankTable", "I"), infer_desc=keep_declared)
 def shrink_rnn_memory(ctx, ins, attrs):
     """The prefix of the dense memory X's rows still active at step I
     (I read on the host)."""
@@ -467,7 +467,7 @@ def _mask_host(mask):
         torch.bool).cpu().tolist()
 
 
-@register_op("split_lod_tensor", stop_gradient_op=True,
+@register_op("split_lod_tensor", jittable=False, stop_gradient_op=True,
              infer_desc=keep_declared)
 def split_lod_tensor(ctx, ins, attrs):
     """X's rows (a ragged X's sequences) where Mask holds to OutTrue,
@@ -500,7 +500,7 @@ def _segments(r):
     return r, list(range(r.shape[0] + 1))
 
 
-@register_op("merge_lod_tensor", stop_gradient_op=True,
+@register_op("merge_lod_tensor", jittable=False, stop_gradient_op=True,
              infer_desc=keep_declared)
 def merge_lod_tensor(ctx, ins, attrs):
     """The inverse routing (IfElse's output merge): row i (or sequence

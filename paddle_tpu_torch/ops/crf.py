@@ -130,7 +130,7 @@ def viterbi_tags(emission, transition):
                                    device=tags.device))
 
 
-@register_op("crf_decoding", stop_gradient_op=True,
+@register_op("crf_decoding", jittable=False, stop_gradient_op=True,
              nondiff_inputs=("Emission", "Transition", "Label"),
              infer_desc=_keep_declared)
 def crf_decoding(ctx, ins, attrs):
@@ -225,7 +225,7 @@ def _extract_chunks(tags, num_types, scheme, excluded):
     return {(b, e, t) for (b, e, t) in chunks if t not in excluded}
 
 
-@register_op("chunk_eval", stop_gradient_op=True,
+@register_op("chunk_eval", jittable=False, stop_gradient_op=True,
              nondiff_inputs=("Inference", "Label"),
              infer_desc=_keep_declared)
 def chunk_eval(ctx, ins, attrs):

@@ -114,8 +114,8 @@ def _ragged_ids(seqs, dtype, device):
         [torch.tensor(splits, dtype=torch.int32, device=device)])
 
 
-@register_op("ctc_align", stop_gradient_op=True, nondiff_inputs=("Input",),
-             infer_desc=keep_declared)
+@register_op("ctc_align", jittable=False, stop_gradient_op=True,
+             nondiff_inputs=("Input",), infer_desc=keep_declared)
 def ctc_align(ctx, ins, attrs):
     """The greedy CTC decode of each sequence of ids: repeats merged
     (with `merge_repeated`), then blanks dropped; int32."""
@@ -144,7 +144,7 @@ def _levenshtein(hyp, ref):
     return prev[n]
 
 
-@register_op("edit_distance", stop_gradient_op=True,
+@register_op("edit_distance", jittable=False, stop_gradient_op=True,
              nondiff_inputs=("Hyps", "Refs"), infer_desc=keep_declared)
 def edit_distance(ctx, ins, attrs):
     """Out [B, 1] f32: the Levenshtein distance of each hypothesis to its
@@ -166,8 +166,8 @@ def edit_distance(ctx, ins, attrs):
                                          device=dev)]}
 
 
-@register_op("sequence_erase", stop_gradient_op=True, nondiff_inputs=("X",),
-             infer_desc=keep_declared)
+@register_op("sequence_erase", jittable=False, stop_gradient_op=True,
+             nondiff_inputs=("X",), infer_desc=keep_declared)
 def sequence_erase(ctx, ins, attrs):
     """Each sequence with the `tokens` removed, in X's dtype."""
     x = ins["X"][0]

@@ -164,7 +164,7 @@ def _host(v):
     return values_of(v).detach().cpu().numpy()
 
 
-@register_op("bipartite_match", stop_gradient_op=True,
+@register_op("bipartite_match", jittable=False, stop_gradient_op=True,
              nondiff_inputs=("DistMat",), infer_desc=keep_declared)
 def bipartite_match(ctx, ins, attrs):
     """reference: bipartite_match_op.cc BipartiteMatch.  Per image (a
@@ -244,7 +244,7 @@ def decode_boxes(loc, pboxes, pvars):
                      dcy + dh / 2], axis=-1)
 
 
-@register_op("detection_output", stop_gradient_op=True,
+@register_op("detection_output", jittable=False, stop_gradient_op=True,
              nondiff_inputs=("Loc", "Conf", "PriorBox"),
              infer_desc=keep_declared)
 def detection_output(ctx, ins, attrs):
@@ -415,7 +415,7 @@ def _unpack(t):
     return v, np.asarray([0, v.shape[0]], np.int64)
 
 
-@register_op("detection_map", stop_gradient_op=True,
+@register_op("detection_map", jittable=False, stop_gradient_op=True,
              nondiff_inputs=("DetectRes", "Label"),
              infer_desc=keep_declared)
 def detection_map(ctx, ins, attrs):

@@ -113,7 +113,7 @@ def _send_dense(param, grad, pname, blocks):
                                                             param.dtype)
 
 
-@register_op("dist_send", stop_gradient_op=True,
+@register_op("dist_send", jittable=False, stop_gradient_op=True,
              in_place_outputs=("ParamOut",), infer_desc=keep_declared)
 def dist_send(ctx, ins, attrs):
     """ParamOut: Param after its server applied Grad.  `blocks` is

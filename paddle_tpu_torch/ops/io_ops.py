@@ -28,14 +28,16 @@ from .registry import (keep_declared, register_grad_kernel, register_op,
                        values_of)
 
 
-@register_op("feed", stop_gradient_op=True, infer_desc=keep_declared)
+@register_op("feed", jittable=False, stop_gradient_op=True,
+             infer_desc=keep_declared)
 def feed(ctx, ins, attrs):
     """Column `col` of the scope's "feed" list."""
     feed_list = ctx.scope.get("feed") or []
     return {"Out": [feed_list[int(attrs.get("col", 0))]]}
 
 
-@register_op("fetch", stop_gradient_op=True, infer_desc=keep_declared)
+@register_op("fetch", jittable=False, stop_gradient_op=True,
+             infer_desc=keep_declared)
 def fetch(ctx, ins, attrs):
     """X into column `col` of the scope's "fetch" list (grown with None
     as needed)."""
@@ -55,7 +57,8 @@ def _numpy(t):
     return t.cpu().numpy()
 
 
-@register_op("save", stop_gradient_op=True, infer_desc=keep_declared)
+@register_op("save", jittable=False, stop_gradient_op=True,
+             infer_desc=keep_declared)
 def save(ctx, ins, attrs):
     """X to `file_path` (np.savez, which adds `.npz`), its directory
     made; an existing file raises unless `overwrite` (default True)."""
@@ -74,7 +77,8 @@ def save(ctx, ins, attrs):
     return {}
 
 
-@register_op("load", stop_gradient_op=True, infer_desc=keep_declared)
+@register_op("load", jittable=False, stop_gradient_op=True,
+             infer_desc=keep_declared)
 def load(ctx, ins, attrs):
     """The value `save` wrote to `file_path` (or `file_path`.npz), on
     the executor's device; int64 ids narrowed to int32 as a feed is."""
@@ -94,7 +98,7 @@ def load(ctx, ins, attrs):
     return {"Out": [out]}
 
 
-@register_op("print")
+@register_op("print", jittable=False)
 def print_op(ctx, ins, attrs):
     x = ins["In"][0] if "In" in ins else ins["X"][0]
     v = values_of(x).detach()

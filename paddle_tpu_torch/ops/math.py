@@ -2,8 +2,9 @@
 `mean`, the `reduce_*` family, the norms and distances
 (`squared_l2_norm`, `l1_norm`, `squared_l2_distance`, `cos_sim`), and
 the comparison and logical ops (`less_than` ... `not_equal`,
-`logical_and`, `_or`, `_xor`, `_not`), and the finiteness checks
-`isfinite` and `count_nonfinite`.
+`logical_and`, `_or`, `_xor`, `_not`), the finiteness checks
+`isfinite` and `count_nonfinite`, and `fused_elemwise_chain`, the op
+the `fuse` rewrite pass emits.
 
 Counterparts of paddle_tpu/ops/math.py (reference: mul_op.cc,
 matmul_op.cc, elementwise_op_function.h, minus_op.cc, mean_op.cc,
@@ -19,13 +20,16 @@ ragged X work on its rows and give X's structure to the result;
 across a ragged X's rows.
 """
 
+import json
+
 import numpy as np
 import torch
 
 from ..core.ragged import RaggedTensor
+from ..core.types import FUSED_ELEMWISE_OP
 from .activation import jnp_abs
 from .amp_util import amp_harmonize, amp_result, mxu_operands
-from .registry import dense, like, register_op, values_of
+from .registry import dense, get_op_info, like, register_op, values_of
 
 
 def _flatten2d(x, num_col_dims):
@@ -93,6 +97,34 @@ _elementwise("elementwise_div", torch.div)
 _elementwise("elementwise_max", torch.maximum)
 _elementwise("elementwise_min", torch.minimum)
 _elementwise("elementwise_pow", torch.pow)
+
+
+@register_op(FUSED_ELEMWISE_OP)
+def fused_elemwise_chain(ctx, ins, attrs):
+    """One op standing for a chain of elementwise, activation and bias
+    stages (built by `fluid.fusion.fuse_elemwise_chains`, run from the
+    `fuse` rewrite pass).
+
+    The `stages` attr is a JSON list, in chain order:
+      {"op": <registered type>, "attrs": {...},
+       "in": "X"|"Y"            the slot the chain value feeds,
+       "side": <SideIns index>} the other operand of a binary stage.
+    Each stage applies the registered kernel of its op type with its
+    attrs, so the result is the unfused op sequence's, bit for bit.
+    The stages run as the ATen calls of their kernels, one after the
+    other; the grad is the generic vjp through them, as on the JAX
+    side."""
+    val = ins["X"][0]
+    side_vals = ins.get("SideIns", [])
+    for st in json.loads(attrs["stages"]):
+        main_slot = st.get("in", "X")
+        sins = {main_slot: [val]}
+        side = st.get("side")
+        if side is not None:
+            sins["Y" if main_slot == "X" else "X"] = [side_vals[side]]
+        kernel = get_op_info(st["op"]).kernel
+        val = kernel(ctx, sins, st.get("attrs") or {})["Out"][0]
+    return {"Out": [val]}
 
 
 @register_op("minus")

@@ -125,7 +125,7 @@ def precision_recall(ctx, ins, attrs):
             "AccumStatesInfo": [states]}
 
 
-@register_op("positive_negative_pair", stop_gradient_op=True,
+@register_op("positive_negative_pair", jittable=False, stop_gradient_op=True,
              nondiff_inputs=("Score", "Label", "QueryID", "Weight",
                              "AccumulatePositivePair",
                              "AccumulateNegativePair",

@@ -116,15 +116,25 @@ def like(x, out):
 
 
 class OpInfo:
+    """What the framework knows of one op type.  `jittable` is the JAX
+    package's fact about the type, kept with the same value: False for
+    a host op there (it reads values on the host, or has an effect:
+    `print`, `save`, `dist_send`, the beam and rank-table bookkeeping),
+    True for a device op.  It says nothing about how the port runs the
+    op (the port runs every op eagerly); the program analysis reads it:
+    dead-code elimination keeps a host op, CSE merges only device ops,
+    and lint L002 reports a host op between device ops."""
+
     __slots__ = ("type", "kernel", "grad_kernel", "infer_shape",
-                 "infer_desc", "uses_rng", "nondiff_inputs",
+                 "infer_desc", "jittable", "uses_rng", "nondiff_inputs",
                  "stop_gradient_op", "in_place_outputs", "sparse_grad_slots",
                  "deterministic")
 
     def __init__(self, type, kernel, grad_kernel=None, infer_shape=None,
-                 infer_desc=None, uses_rng=False, nondiff_inputs=(),
-                 stop_gradient_op=False, in_place_outputs=(),
-                 sparse_grad_slots=None, deterministic=False):
+                 infer_desc=None, jittable=True, uses_rng=False,
+                 nondiff_inputs=(), stop_gradient_op=False,
+                 in_place_outputs=(), sparse_grad_slots=None,
+                 deterministic=False):
         self.type = type
         self.kernel = kernel
         self.grad_kernel = grad_kernel        # None => generic vjp kernel
@@ -132,6 +142,7 @@ class OpInfo:
         self.infer_shape = infer_shape
         # fn(block, op_desc) setting the output VarDescs; None => meta run
         self.infer_desc = infer_desc
+        self.jittable = jittable
         self.uses_rng = uses_rng
         self.nondiff_inputs = tuple(nondiff_inputs)  # slots never differentiated
         self.stop_gradient_op = stop_gradient_op     # no grads flow at all

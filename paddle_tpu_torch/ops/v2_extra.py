@@ -177,7 +177,7 @@ def _ragged(flat, splits, device):
                         [torch.from_numpy(np.asarray(splits, np.int32))])
 
 
-@register_op("kmax_seq_score", stop_gradient_op=True,
+@register_op("kmax_seq_score", jittable=False, stop_gradient_op=True,
              infer_desc=keep_declared)
 def kmax_seq_score(ctx, ins, attrs):
     """reference: KmaxSeqScoreLayer.cpp.  Per sequence of X [T, 1], the
@@ -199,7 +199,7 @@ def kmax_seq_score(ctx, ins, attrs):
     return {"Out": [_ragged(flat, out_splits, values_of(x).device)]}
 
 
-@register_op("sub_nested_seq", stop_gradient_op=True,
+@register_op("sub_nested_seq", jittable=False, stop_gradient_op=True,
              infer_desc=keep_declared)
 def sub_nested_seq(ctx, ins, attrs):
     """reference: SubNestedSequenceLayer.cpp.  The inner sequences of the

@@ -1,0 +1,447 @@
+"""Preemption-safe auto-resume training supervisor.
+
+Counterpart of paddle_tpu/resilience/supervisor.py.  A training job on
+a preemptible pool will be interrupted: the scheduler sends SIGTERM
+with a grace window, disks and coordinators flake, and a bad batch can
+blow the loss to NaN.  `TrainingSupervisor` wraps a step-driven loop so
+that it survives all three:
+
+  * **Preemption**: SIGTERM and SIGINT hooks (installed on the main
+    thread only, the handlers before restored on exit) flip a flag; the
+    step loop notices it at the next step boundary, writes an urgent
+    synchronous checkpoint (parameters, optimizer state and a
+    `supervisor.json` meta with step, epoch and batch), and either
+    resumes in place (`on_preempt="resume"`) or raises `Preempted` so
+    the process can exit and be rescheduled (`on_preempt="raise"`: the
+    next start of the same supervisor resumes from the urgent
+    snapshot).
+  * **Resume**: `run()` restores `latest_checkpoint` into the scope, on
+    the supervisor's place (the card unless given `CPUPlace()`), reads
+    the meta and replays the epoch's reader, skipping the batches
+    already consumed: with a deterministic reader the resumed
+    trajectory equals an uninterrupted run's step for step.
+  * **Transient faults**: retryable exceptions (IOError, OSError,
+    ConnectionError, TimeoutError by default) from the step or the
+    reader trigger a restore and resume, bounded by `max_restarts`
+    across the run; anything else propagates.
+  * **Nonfinite loss**: when the step's loss (or an attached numerics
+    monitor's summary) goes NaN or Inf, the supervisor rolls back to
+    the last good snapshot, backs off the `fluid.amp.LossScaler` when
+    one is attached, and replays from there.
+
+The checkpoints are the supervisor's own synchronous saves
+(`steps_per_checkpoint` or `interval_secs`): synchronous because the
+meta sidecar and the rollback need the manifest on disk before training
+goes on past it.  Random state is not checkpointed: resume determinism
+holds for programs whose per-step ops draw nothing from the random
+stream (dropout-free); see docs/RESILIENCE.md.  The JAX supervisor's
+mesh-parallel adapters (`run_parallel`, `for_parallel`) wait with the
+port's mesh (ROADMAP A9), and its report of the persistent executable
+cache on restore with the cache (A2).
+"""
+
+import json
+import math
+import os
+import signal as signal_mod
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..fluid.checkpoint import (CheckpointSaver, latest_checkpoint,
+                                load_checkpoint)
+from ..obs import registry as registry_mod
+from ..obs import trace as trace_mod
+from . import faults as faults_mod
+from .retry import DEFAULT_RETRYABLE
+
+__all__ = ["TrainingSupervisor", "Preempted", "RestartBudgetExceeded",
+           "ElasticResized", "SUPERVISOR_META"]
+
+SUPERVISOR_META = "supervisor.json"
+
+
+class Preempted(Exception):
+    """A preemption signal arrived; the urgent checkpoint is on disk."""
+
+
+class ElasticResized(Exception):
+    """The elastic membership layer committed a new cluster view and
+    already moved the trainer onto it (state restored at the new
+    layout).  A step loop raises this so the supervisor counts the
+    cycle as `reason="elastic_resize"`, distinct from `preempt`,
+    without rolling the re-placed state back to a snapshot from before
+    the resize."""
+
+    def __init__(self, generation, direction="shrink"):
+        super().__init__("elastic resize to generation %d (%s)"
+                         % (int(generation), direction))
+        self.generation = int(generation)
+        self.direction = direction
+
+
+class RestartBudgetExceeded(RuntimeError):
+    """The supervisor restarted `max_restarts` times and gave up."""
+
+
+class _Rollback(Exception):
+    """Internal: roll back to the last-good snapshot and resume."""
+
+    def __init__(self, reason):
+        super().__init__(reason)
+        self.reason = reason
+
+
+def _reg():
+    return registry_mod.get_registry()
+
+
+class TrainingSupervisor:
+    """Supervise a step-driven train loop with checkpoint/resume.
+
+    Core entry point::
+
+        sup = TrainingSupervisor("ckpts", program=main_program,
+                                 steps_per_checkpoint=50)
+        sup.run(step_fn, reader_fn, num_epochs=3)
+
+    where `step_fn(batch) -> loss` runs one optimizer step and
+    `reader_fn()` yields one epoch of batches (re-invocable, the paddle
+    reader contract: resume re-creates the iterator and skips the
+    consumed batches).  `run_v2` adapts the v2 trainer onto this loop.
+
+    program: the Program (or ProgramDesc) whose persistables the
+    snapshots hold, unless `var_names` names them.
+    place: where a restore loads the snapshot: CUDAPlace(0) by default
+    (which raises without a CUDA device), CPUPlace() when asked; give
+    the executor's place.
+    state_dump(scope) and state_restore(scope) run before every
+    snapshot save and after every snapshot load.
+    """
+
+    def __init__(self, ckpt_dir, program=None, scope=None,
+                 var_names=None, interval_secs=30.0,
+                 steps_per_checkpoint=None, max_to_keep=3,
+                 max_restarts=3, retryable=DEFAULT_RETRYABLE,
+                 loss_scaler=None, on_preempt="resume",
+                 preempt_signals=(signal_mod.SIGTERM,
+                                  signal_mod.SIGINT),
+                 resume=True, state_dump=None, state_restore=None,
+                 saver=None, generation=0, place=None):
+        if on_preempt not in ("resume", "raise"):
+            raise ValueError("on_preempt must be 'resume' or 'raise'")
+        if place is None:
+            from ..fluid.executor import CUDAPlace
+
+            place = CUDAPlace(0)
+        place.device()  # a CUDAPlace without a CUDA device raises here
+        self.place = place
+        if var_names is None and program is not None \
+                and not hasattr(program, "list_vars"):
+            # a ProgramDesc: its persistables
+            var_names = [n for b in program.blocks
+                         for n, vd in b.vars.items() if vd.persistable]
+        self.ckpt_dir = str(ckpt_dir)
+        # elastic generation of the view this supervisor serves; the
+        # meta records it, so a resume after a restart of the whole job
+        # picks the view after a shrink, not the one at launch
+        self.generation = int(generation or 0)
+        self.max_restarts = int(max_restarts)
+        self.retryable = retryable
+        self.loss_scaler = loss_scaler
+        self.on_preempt = on_preempt
+        self.preempt_signals = tuple(preempt_signals)
+        self.resume = bool(resume)
+        self.steps_per_checkpoint = steps_per_checkpoint
+        self.state_dump = state_dump
+        self.state_restore = state_restore
+        from ..core.scope import global_scope
+
+        self._scope = scope if scope is not None else global_scope()
+        self._saver = saver or CheckpointSaver(
+            self.ckpt_dir,
+            main_program=program if var_names is None else None,
+            interval_secs=interval_secs, max_to_keep=max_to_keep,
+            var_names=var_names)
+        self._step = 0
+        self._epoch = 0
+        self._batch = 0          # batches consumed in the current epoch
+        self._restarts = 0
+        self._last_ckpt_step = 0
+        self._last_ckpt_time = time.time()
+        self._preempted = False
+        self._old_handlers = None
+
+    # -- signal hooks -------------------------------------------------------
+    def _on_signal(self, signum, frame):
+        self._preempted = True
+        _reg().counter("supervisor_preemptions_total",
+                       "preemption signals observed by the "
+                       "supervisor").inc()
+        trace_mod.instant("preempt_signal", cat="supervisor",
+                          signum=int(signum))
+
+    def _install_signals(self):
+        if threading.current_thread() is not threading.main_thread():
+            return  # signal.signal only works from the main thread
+        self._old_handlers = {}
+        for sig in self.preempt_signals:
+            self._old_handlers[sig] = signal_mod.signal(
+                sig, self._on_signal)
+
+    def _restore_signals(self):
+        if self._old_handlers is None:
+            return
+        for sig, handler in self._old_handlers.items():
+            try:
+                signal_mod.signal(sig, handler)
+            except (ValueError, TypeError):
+                pass
+        self._old_handlers = None
+
+    # -- checkpointing ------------------------------------------------------
+    def _checkpoint(self, kind):
+        """Synchronous snapshot + supervisor meta sidecar.  Returns the
+        snapshot path."""
+        if self.state_dump is not None:
+            self.state_dump(self._scope)
+        snap = self._saver.save(self._step, self._scope)
+        self._saver.wait()  # manifest + fsync done before meta lands
+        meta = {"step": self._step, "epoch": self._epoch,
+                "batch": self._batch, "kind": kind,
+                "generation": self.generation,
+                "time": time.time()}
+        if self.loss_scaler is not None:
+            meta["loss_scale"] = self.loss_scaler.scale
+        tmp = os.path.join(snap, SUPERVISOR_META + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(snap, SUPERVISOR_META))
+        self._last_ckpt_step = self._step
+        self._last_ckpt_time = time.time()
+        _reg().counter("supervisor_checkpoints_total",
+                       "supervisor-driven snapshots, by kind",
+                       labelnames=("kind",)).labels(kind=kind).inc()
+        return snap
+
+    def _checkpoint_due(self):
+        if self.steps_per_checkpoint is not None:
+            return (self._step - self._last_ckpt_step
+                    >= self.steps_per_checkpoint)
+        return (time.time() - self._last_ckpt_time
+                >= self._saver.interval_secs)
+
+    def _latest_snapshot(self):
+        """Newest complete snapshot path, through the saver when it has
+        `latest` (a saver of another snapshot layout), else the
+        `latest_checkpoint` scan."""
+        if hasattr(self._saver, "latest"):
+            return self._saver.latest()
+        return latest_checkpoint(self.ckpt_dir)
+
+    def _restore_latest(self):
+        """Load the newest valid snapshot and its meta into the scope, on
+        the supervisor's place; resets step, epoch and batch to the
+        restored position.  A saver with `restore_latest` owns the
+        load."""
+        if hasattr(self._saver, "restore_latest"):
+            step = self._saver.restore_latest(scope=self._scope)
+        else:
+            step = load_checkpoint(self.ckpt_dir, scope=self._scope,
+                                   place=self.place)
+        if step is None:
+            raise IOError("no checkpoint to restore under %r"
+                          % self.ckpt_dir)
+        snap = self._latest_snapshot()
+        meta = {}
+        meta_path = os.path.join(snap, SUPERVISOR_META) if snap else None
+        if meta_path and os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+        self._step = int(meta.get("step", step))
+        self._epoch = int(meta.get("epoch", 0))
+        self._batch = int(meta.get("batch", 0))
+        self.generation = int(meta.get("generation", self.generation))
+        if self.loss_scaler is not None and "loss_scale" in meta:
+            self.loss_scaler.set_scale(meta["loss_scale"])
+        if self.state_restore is not None:
+            self.state_restore(self._scope)
+        # a just-restored run must not immediately re-snapshot what it
+        # loaded: the checkpoint cadence restarts from here
+        self._last_ckpt_step = self._step
+        self._last_ckpt_time = time.time()
+        trace_mod.instant("supervisor_restore", cat="supervisor",
+                          step=self._step, epoch=self._epoch,
+                          batch=self._batch)
+        # the JAX supervisor reports its persistent executable cache's
+        # entries here; that cache waits with ROADMAP A2
+        return self._step
+
+    # -- the supervised loop ------------------------------------------------
+    @staticmethod
+    def _loss_value(out):
+        """Best-effort scalar view of a step result (a float, an array
+        or tensor, a [loss, ...] fetch list); None when there is no
+        scalar to check."""
+        if out is None:
+            return None
+        if isinstance(out, (list, tuple)):
+            out = out[0] if out else None
+            if out is None:
+                return None
+        if isinstance(out, torch.Tensor):
+            out = out.detach().float().cpu().numpy()
+        try:
+            return float(np.asarray(out).reshape(-1)[0])
+        except (TypeError, ValueError, IndexError):
+            return None
+
+    def _check_preempt(self):
+        if not self._preempted:
+            return
+        self._preempted = False
+        self._checkpoint("urgent")
+        raise Preempted("preemption signal at step %d" % self._step)
+
+    def _train(self, step_fn, reader_fn, num_epochs, on_step):
+        while self._epoch < num_epochs:
+            skip = self._batch
+            for batch_idx, data in enumerate(reader_fn()):
+                if batch_idx < skip:
+                    continue
+                self._check_preempt()
+                fault = faults_mod.check("supervisor/step",
+                                         step=self._step)
+                if fault is not None and fault.kind == "nonfinite":
+                    # a simulated numerics blowup: the step does not run
+                    # (the parameters are untouched); the supervisor
+                    # observes a nonfinite loss and must recover
+                    loss = float("nan")
+                else:
+                    loss = self._loss_value(step_fn(data))
+                if loss is not None and not math.isfinite(loss):
+                    _reg().counter(
+                        "supervisor_nonfinite_total",
+                        "nonfinite step losses observed by the "
+                        "supervisor").inc()
+                    trace_mod.instant("supervisor_nonfinite",
+                                      cat="supervisor",
+                                      step=self._step)
+                    raise _Rollback("nonfinite")
+                self._step += 1
+                self._batch = batch_idx + 1
+                _reg().gauge("supervisor_step",
+                             "global step of the supervised "
+                             "run").set(self._step)
+                _reg().gauge("supervisor_epoch",
+                             "epoch of the supervised "
+                             "run").set(self._epoch)
+                if on_step is not None:
+                    on_step(self._step, loss)
+                if self._checkpoint_due():
+                    self._checkpoint("interval")
+                self._check_preempt()
+            self._epoch += 1
+            self._batch = 0
+            self._checkpoint("epoch")
+        self._checkpoint("final")
+
+    def run(self, step_fn, reader_fn, num_epochs=1, on_step=None):
+        """Supervise `num_epochs` of training; returns a summary dict.
+
+        Restores the newest checkpoint first (resume=True), restarts on
+        retryable failures / preemption / nonfinite rollback up to
+        `max_restarts` times, and always leaves a final checkpoint on
+        success."""
+        self._install_signals()
+        try:
+            if self.resume and self._latest_snapshot():
+                self._restore_latest()
+            else:
+                # baseline snapshot: the rollback target before the
+                # first interval checkpoint lands
+                self._checkpoint("baseline")
+            while True:
+                try:
+                    self._train(step_fn, reader_fn, num_epochs,
+                                on_step)
+                    return {"steps": self._step,
+                            "epochs": self._epoch,
+                            "restarts": self._restarts}
+                except Preempted:
+                    if self.on_preempt == "raise":
+                        raise
+                    reason = "preempt"
+                except ElasticResized as er:
+                    # the elastic layer already re-placed the state at
+                    # the new generation: count the cycle, adopt the
+                    # generation, and do not restore (that would roll
+                    # back the resize)
+                    reason = "elastic_resize"
+                    self.generation = er.generation
+                except _Rollback as rb:
+                    reason = rb.reason
+                except Exception as exc:
+                    if not isinstance(exc, self.retryable):
+                        raise
+                    reason = "fault"
+                    trace_mod.instant("supervisor_fault",
+                                      cat="supervisor",
+                                      error=type(exc).__name__)
+                self._restarts += 1
+                _reg().counter(
+                    "supervisor_restarts_total",
+                    "supervisor restore-and-resume cycles, by reason",
+                    labelnames=("reason",)).labels(reason=reason).inc()
+                if self._restarts > self.max_restarts:
+                    raise RestartBudgetExceeded(
+                        "gave up after %d restarts (last reason: %s)"
+                        % (self._restarts - 1, reason))
+                if reason != "elastic_resize":
+                    self._restore_latest()
+                if reason == "nonfinite" and self.loss_scaler is not None:
+                    # back off after the restore, so the meta's scale
+                    # (captured before the blowup) does not undo it
+                    self.loss_scaler.update(True)
+        finally:
+            self._restore_signals()
+
+    # -- trainer adapters ---------------------------------------------------
+    def run_v2(self, sgd, reader_fn, num_passes=1, feeding=None,
+               on_step=None):
+        """Supervise a `v2.trainer.SGD`: one supervised step is one
+        forward, backward and update through its executor (the numerics
+        monitor included when `obs.health.enable()` is on)."""
+        return self.run(sgd.step_runner(feeding=feeding), reader_fn,
+                        num_epochs=num_passes, on_step=on_step)
+
+    @classmethod
+    def for_v2(cls, sgd, ckpt_dir, **kw):
+        """Supervisor over the v2 trainer's program and the global
+        scope, restoring onto its executor's place."""
+        from ..core.scope import global_scope
+
+        kw.setdefault("loss_scaler", getattr(sgd, "loss_scaler", None))
+        kw.setdefault("place", sgd._exe.place)
+        return cls(ckpt_dir, program=sgd._main_program,
+                   scope=global_scope(), **kw)
+
+    def run_parallel(self, trainer, reader_fn, num_epochs=1,
+                     on_step=None):
+        """Supervise a mesh-parallel trainer: waits with the port's mesh
+        (ROADMAP A9)."""
+        raise NotImplementedError(
+            "TrainingSupervisor.run_parallel supervises the mesh-parallel "
+            "trainer, which the port does not have yet (ROADMAP A9)")
+
+    @classmethod
+    def for_parallel(cls, trainer, ckpt_dir, **kw):
+        """Supervisor over a mesh-parallel trainer's state: waits with
+        the port's mesh (ROADMAP A9)."""
+        raise NotImplementedError(
+            "TrainingSupervisor.for_parallel supervises the mesh-parallel "
+            "trainer, which the port does not have yet (ROADMAP A9)")

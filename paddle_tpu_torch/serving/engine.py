@@ -109,6 +109,7 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self._seen_buckets = set()
         self.last_warmup_stats = None
+        self.last_check = None  # set by warmup()
         exported = feed_meta or {}
         self._feed_meta = {}
         for n in self.feed_names:
@@ -299,11 +300,30 @@ class InferenceEngine:
         return np.zeros((batch,) + sample, meta["dtype"])
 
     def warmup(self):
-        """Run every batch bucket once with synthetic zero feeds, so no
-        in-bucket request is a bucket's first run.  Returns the number
-        of buckets warmed; `last_warmup_stats` records buckets and
-        seconds.  A program with a ragged feed warms only with
-        `warmup_ragged`."""
+        """Check the program, then run every batch bucket once with
+        synthetic zero feeds, so no in-bucket request is a bucket's
+        first run.  Returns the number of buckets warmed;
+        `last_warmup_stats` records buckets and seconds, and
+        `last_check` the program check's report and seconds.  A program
+        with a ragged feed warms only with `warmup_ragged`.
+
+        The check comes first and runs even without buckets: the engine
+        serves a program it did not build, so `check_program(level=
+        "full")` (structure, re-derived metas, hazards, lints, with the
+        bucket hints) runs before any request; an error finding raises
+        ProgramVerificationError, and the findings count into
+        `analysis_diagnostics_total{code,severity}`."""
+        from .. import analysis
+
+        hints = (None if self.config.batch_buckets is None
+                 else {"batch_buckets": list(self.config.batch_buckets)})
+        t0 = time.perf_counter()
+        report = analysis.check_program(
+            self.program, level="full", fetches=list(self.fetch_names),
+            bucket_hints=hints, origin="serving_warmup")
+        self.last_check = {"report": report,
+                           "seconds": time.perf_counter() - t0}
+        report.raise_on_error()
         if self.config.batch_buckets is None:
             return 0
         if not self.config.warmup_ragged and any(

@@ -1,7 +1,8 @@
 """Operational tools: the cluster launcher (`cluster_launch`), the
 inference server (`serve_cli`), the paddle_trainer-style trainer
-(`trainer_cli`) and the observability dump and selftest (`obs_dump`).
-The JAX package's other CLIs wait with ROADMAP A9 and A10.
+(`trainer_cli`), the observability dump and selftest (`obs_dump`) and
+the chaos harness (`chaos_cli`: supervised training under injected
+faults).  The JAX package's other CLIs wait with ROADMAP A9 and A10.
 
 The CLIs run on the card, as the reference's `paddle` CLIs do with
 `--use_gpu=1`; `--use_gpu=0` runs them on the CPU."""

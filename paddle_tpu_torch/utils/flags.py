@@ -5,8 +5,10 @@ name, default and `FLAGS_<name>` environment bootstrap, and
 Counterpart of paddle_tpu/utils/flags.py, holding only what the port
 consults: the eager NaN/Inf scan (`check_nan_inf`: fluid/executor.py),
 the AMP policy (`amp_bf16`, `amp_bf16_act`), the batch-norm statistics
-form (`bn_shifted_stats`), and the optimizer's update fusion
-(`fuse_optimizer`, `fuse_optimizer_max_numel`: fluid/fusion.py).
+form (`bn_shifted_stats`), the optimizer's update fusion
+(`fuse_optimizer`, `fuse_optimizer_max_numel`: fluid/fusion.py), and
+the executor's program verification and rewrite pipeline
+(`verify_program`, `compile_passes`: fluid/executor.py).
 Kernels read a flag when they run, so a flag set around `Executor.run`
 (`fluid.amp.bf16_guard()`) governs that run; the optimizer reads the
 fusion flags when it builds the updates.
@@ -81,5 +83,25 @@ DEFINE_flag("fuse_optimizer", False,
 DEFINE_flag("fuse_optimizer_max_numel", 1 << 18,
             "only parameters of at most this many elements join a "
             "stack; 0: all")
+DEFINE_flag("verify_program", False,
+            "run paddle_tpu_torch.analysis.check_program on every "
+            "program before its first run (per executor, program and "
+            "version): structure, re-derived shapes and dtypes, "
+            "write/alias hazards and lints.  Error findings raise "
+            "ProgramVerificationError naming the op index and variable "
+            "instead of surfacing as an error from inside a kernel.  "
+            "Default off: the full check re-derives every op's output "
+            "meta, a build-time cost that the surfaces opting into "
+            "verification (tests, serving warmup) pay explicitly")
+DEFINE_flag("compile_passes", "",
+            "Program-level IR rewrite pipeline the executor applies to a "
+            "clone of a program before running it "
+            "(paddle_tpu_torch.compile.passes): pass names joined by ',' "
+            "or '+': the cleanup set (dce,fold,cse,dve; 'default') and "
+            "the cost-model-guided passes (layout, fuse, auto_remat; "
+            "compile/opt_passes.py), with knobs attached by ':' as in "
+            "'default+fuse:cap=8'.  Every pass is verified before and "
+            "after it runs.  Empty (the default) runs programs exactly "
+            "as built")
 
 parse_flags_from_env()

@@ -320,7 +320,7 @@ def test_latency_fault_sleeps_and_counts_as_jax_does():
     assert "point=serving/run" in next(iter(counts)) \
         and "kind=latency" in next(iter(counts))
     with pytest.raises(ValueError, match="unknown fault kind"):
-        t_faults.FaultSpec("serving/run", "preempt")
+        t_faults.FaultSpec("serving/run", "no_such_kind")
     t_registry.reset_registry()
 
 

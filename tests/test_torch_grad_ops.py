@@ -359,6 +359,6 @@ def test_lookup_table_grad_sparse_is_refused():
 
 def test_grad_op_of_unregistered_op_raises():
     ctx = texec.ExecContext(None, 0, {})
-    with pytest.raises(KeyError, match="fused_elemwise_chain_grad"):
-        texec.apply_op(ctx, OpDesc("fused_elemwise_chain_grad", {}, {},
+    with pytest.raises(KeyError, match="recompute_barrier_grad"):
+        texec.apply_op(ctx, OpDesc("recompute_barrier_grad", {}, {},
                                    {}))

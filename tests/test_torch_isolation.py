@@ -58,7 +58,14 @@ def test_every_port_module_is_scanned():
                 ("ops", "v2_extra.py"), ("ops", "detection.py"),
                 ("dataset", "flowers.py"), ("dataset", "mq2007.py"),
                 ("dataset", "sentiment.py"), ("dataset", "voc2012.py"),
-                ("dataset", "wmt16.py")):
+                ("dataset", "wmt16.py"),
+                # the program analysis, the passes and resilience
+                ("analysis", "dataflow.py"), ("analysis", "lints.py"),
+                ("fluid", "analysis.py"), ("compile", "__init__.py"),
+                ("compile", "fingerprint.py"), ("compile", "passes.py"),
+                ("compile", "opt_passes.py"),
+                ("resilience", "supervisor.py"), ("tools", "chaos_cli.py"),
+                ("utils", "device_peaks.py")):
         assert os.path.join("paddle_tpu_torch", *new) in rel
     v2 = sorted(os.path.basename(p) for p in rel
                 if os.path.dirname(p) == os.path.join("paddle_tpu_torch",

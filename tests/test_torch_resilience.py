@@ -1,0 +1,653 @@
+"""The resilience half of the port against the JAX package's, on the CPU:
+the fault kinds and the seeded probability, the executor's
+`executor/run` point, `CircuitBreaker`, `TrainingSupervisor` and
+`chaos_cli`.
+
+Fault plans: the same plan over the same calls fires the same calls in
+both packages (fired counts and the per-call pattern compared exactly).
+The supervisor: the cases of tests/test_supervisor.py on the port's v2
+trainer (parameters compared bit for bit against a fault-free run), and
+a small transformer (2 layers, d_model 64, Adam) preempted by a real
+SIGTERM, rolled back from a NaN and restarted after a read error, whose
+final state equals the port's fault-free run bit for bit, and a JAX
+supervisor's run through the same faults from the same state: the
+losses within atol 1e-5 (f32 on both sides, the same sums in other
+orders), each parameter's and Adam moment's change within 1e-2 of the
+JAX change in relative L2 (the fc bias slice of the attention keys has
+a gradient that is zero but for rounding, which Adam normalizes into
+steps of lr in either package's direction: 6.9e-3 observed on this CPU;
+every other tensor within 4e-5).  The breaker: the cases of
+tests/test_resilience.py.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu.fluid as jfluid
+from paddle_tpu.resilience import faults as jfaults
+from paddle_tpu.resilience import retry as jretry
+import paddle_tpu_torch.fluid as tfluid
+import paddle_tpu_torch.v2 as paddle
+from paddle_tpu_torch.obs import telemetry as obs_tele
+from paddle_tpu_torch.reader import host_prefetch
+from paddle_tpu_torch.resilience import faults
+from paddle_tpu_torch.resilience.retry import (CircuitBreaker,
+                                               CircuitOpenError,
+                                               RetryPolicy)
+from paddle_tpu_torch.resilience.supervisor import (
+    Preempted, RestartBudgetExceeded, SUPERVISOR_META, TrainingSupervisor)
+
+torch.set_num_threads(1)
+
+CPU = tfluid.CPUPlace()
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _no_plans():
+    yield
+    faults.disable()
+    jfaults.disable()
+
+
+# -- the fault kinds --------------------------------------------------------------
+
+def _pattern(mod, seed, specs, point_calls):
+    """Which calls fire (the kind, or None) under a plan of `specs` in
+    package `mod`; an io_error is caught as its kind."""
+    plan = mod.FaultPlan(seed=seed)
+    for point, kind, kw in specs:
+        plan.inject(point, kind, **kw)
+    out = []
+    for point in point_calls:
+        try:
+            fired = plan.check(point)
+            out.append(fired.kind if fired is not None else None)
+        except IOError:
+            out.append("io_error")
+    return out, plan.fired_counts()
+
+
+_PLANS = {
+    "counts": [("a", "io_error", dict(after=2, times=2)),
+               ("a", "nonfinite", dict(after=1, times=1)),
+               ("b", "lease_expiry", dict(times=None))],
+    "probability": [("a", "nonfinite", dict(probability=0.5, times=None)),
+                    ("b", "io_error", dict(probability=0.25, times=3))],
+    "latency": [("a", "latency", dict(latency_s=0.01, times=2))],
+}
+
+
+@pytest.mark.parametrize("plan", sorted(_PLANS))
+@pytest.mark.parametrize("seed", [0, 42])
+def test_plan_fires_the_same_calls_as_jax(plan, seed):
+    calls = ["a", "b"] * 24
+    want = _pattern(jfaults, seed, _PLANS[plan], calls)
+    got = _pattern(faults, seed, _PLANS[plan], calls)
+    assert got == want
+    assert any(k is not None for k in got[0])
+
+
+def test_the_five_kinds():
+    assert faults.KINDS == jfaults.KINDS
+    for kind in ("no_such_kind", "meteor_strike"):
+        with pytest.raises(ValueError, match="unknown fault kind"):
+            faults.FaultSpec("p", kind)
+    plan = faults.enable(seed=3)
+    spec = plan.inject("p/x", "io_error", after=2, times=2)
+    assert faults.check("p/x") is None and faults.check("p/x") is None
+    for _ in range(2):
+        with pytest.raises(faults.InjectedIOError):
+            faults.check("p/x")
+    assert faults.check("p/x") is None and spec.fired == 2
+    snap = obs_tele.snapshot()
+    assert snap.get("faults_injected_total{kind=io_error,point=p/x}") >= 2
+    faults.inject("p/n", "nonfinite")
+    assert faults.check("p/n").kind == "nonfinite"
+    faults.inject("p/l", "lease_expiry")
+    assert faults.check("p/l").kind == "lease_expiry"
+    faults.inject("p/slow", "latency", latency_s=0.1)
+    t0 = time.perf_counter()
+    assert faults.check("p/slow").kind == "latency"
+    assert time.perf_counter() - t0 >= 0.09
+    faults.disable()
+    assert not faults.active() and faults.check("p") is None
+    with pytest.raises(RuntimeError):
+        faults.inject("p", "io_error")
+
+
+def test_preempt_delivers_a_real_signal():
+    seen = []
+    old = signal.signal(signal.SIGUSR1, lambda s, f: seen.append(s))
+    try:
+        faults.enable(seed=0)
+        faults.inject("p/pre", "preempt", signum=signal.SIGUSR1)
+        assert faults.check("p/pre").kind == "preempt"
+        assert seen == [signal.SIGUSR1]
+    finally:
+        signal.signal(signal.SIGUSR1, old)
+
+
+def _fit_program(fluid):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        loss = fluid.layers.mean(x=fluid.layers.fc(input=x, size=3))
+    return main, startup, loss
+
+
+def test_executor_run_point_fires_in_both_packages():
+    """A plan at `executor/run` fires in the port's executor as in the
+    JAX one: one injected IOError, then the run goes through."""
+    feed = {"x": np.ones((2, 4), np.float32)}
+    fired = []
+    from paddle_tpu.core.scope import Scope as JScope
+
+    for fluid, mod in ((jfluid, jfaults), (tfluid, faults)):
+        main, startup, loss = _fit_program(fluid)
+        exe = fluid.Executor(fluid.CPUPlace())
+        scope = JScope() if fluid is jfluid else tfluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            mod.enable(seed=0)
+            mod.inject("executor/run", "io_error", times=1)
+            with pytest.raises(mod.InjectedIOError):
+                exe.run(main, feed=feed, fetch_list=[loss])
+            out, = exe.run(main, feed=feed, fetch_list=[loss])
+            assert np.isfinite(np.asarray(out)).all()
+            fired.append(mod.fired_counts())
+            mod.disable()
+    assert fired[0] == fired[1] == {("executor/run", "io_error"): 1}
+
+
+# -- retry and the breaker ---------------------------------------------------------
+
+def test_retry_wrap_and_on_retry():
+    calls, seen = [], []
+
+    @RetryPolicy(max_attempts=2, base_delay=0.0,
+                 on_retry=lambda a, e, d: seen.append(a)).wrap
+    def flaky():
+        calls.append(1)
+        if len(calls) == 1:
+            raise OSError("t")
+        return 7
+
+    assert flaky() == 7 and seen == [1]
+
+
+def test_circuit_opens_fast_fails_and_recovers():
+    now = [0.0]
+    cb = CircuitBreaker(failure_threshold=2, reset_timeout=10.0,
+                        name="torch_dep", clock=lambda: now[0])
+
+    def boom():
+        raise IOError("down")
+
+    for _ in range(2):
+        with pytest.raises(IOError):
+            cb.call(boom)
+    assert cb.state == cb.OPEN == "open"
+    with pytest.raises(CircuitOpenError):
+        cb.call(lambda: 1)
+    now[0] = 11.0
+    assert cb.state == cb.HALF_OPEN
+    assert cb.call(lambda: 42) == 42
+    assert cb.state == cb.CLOSED
+    snap = obs_tele.snapshot()
+    assert snap.get("circuit_opened_total{breaker=torch_dep}") == 1
+    assert snap.get("circuit_state{breaker=torch_dep}") == 0
+
+
+def test_circuit_failed_probe_reopens():
+    now = [0.0]
+    cb = CircuitBreaker(failure_threshold=1, reset_timeout=5.0,
+                        name="torch_dep2", clock=lambda: now[0])
+    with pytest.raises(IOError):
+        cb.call(lambda: (_ for _ in ()).throw(IOError()))
+    now[0] = 6.0
+    with pytest.raises(IOError):
+        cb.call(lambda: (_ for _ in ()).throw(IOError()))
+    assert not cb.allow()
+    assert obs_tele.snapshot().get(
+        "circuit_state{breaker=torch_dep2}") == 2
+    with pytest.raises(ValueError):
+        CircuitBreaker(failure_threshold=0)
+
+
+def test_circuit_states_follow_the_jax_breaker():
+    """The same sequence of calls and clock readings through both
+    breakers gives the same states and the same fast failures."""
+    def drive(mod):
+        now = [0.0]
+        cb = mod.CircuitBreaker(failure_threshold=2, reset_timeout=3.0,
+                                name="cmp_" + mod.__name__.split(".")[0],
+                                clock=lambda: now[0])
+        out = []
+        for t, ok in ((0, False), (1, False), (2, True), (4, False),
+                      (5, True), (8, True), (9, False), (9, False),
+                      (10, True), (13, True)):
+            now[0] = float(t)
+            try:
+                cb.call(lambda: 1 if ok else (_ for _ in ()).throw(
+                    IOError()))
+                out.append("ok")
+            except mod.CircuitOpenError:
+                out.append("open")
+            except IOError:
+                out.append("fail")
+            out.append(cb.state)
+        return out
+
+    from paddle_tpu_torch.resilience import retry as tretry
+
+    assert drive(tretry) == drive(jretry)
+
+
+# -- the supervisor over the v2 trainer (tests/test_supervisor.py) -------------------
+
+def _reset_workspace():
+    from paddle_tpu_torch.core import scope as scope_mod
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.v2 import layer as v2_layer
+
+    framework.switch_main_program(framework.Program())
+    framework.switch_startup_program(framework.Program())
+    scope_mod._global_scope = scope_mod.Scope()
+    v2_layer._reset_data_layers()
+
+
+@pytest.fixture
+def fresh():
+    from paddle_tpu_torch.core import scope as scope_mod
+    from paddle_tpu_torch.fluid import framework
+
+    old = (framework.default_main_program(),
+           framework.default_startup_program(), scope_mod._global_scope)
+    _reset_workspace()
+    yield
+    framework.switch_main_program(old[0])
+    framework.switch_startup_program(old[1])
+    scope_mod._global_scope = old[2]
+
+
+def _build_sgd(lr=0.1):
+    paddle.init(use_gpu=False)
+    x = paddle.layer.data(name="x", type=paddle.data_type.dense_vector(4))
+    y = paddle.layer.data(name="y", type=paddle.data_type.dense_vector(1))
+    pred = paddle.layer.fc(input=x, size=1)
+    cost = paddle.layer.square_error_cost(input=pred, label=y)
+    params = paddle.parameters.create(cost)
+    return paddle.trainer.SGD(
+        cost=cost, parameters=params,
+        update_equation=paddle.optimizer.Momentum(momentum=0.9,
+                                                  learning_rate=lr))
+
+
+def _batches(n=6, batch=4, seed=0):
+    rs = np.random.RandomState(seed)
+    return [[(rs.rand(4).astype("f"), rs.rand(1).astype("f"))
+             for _ in range(batch)] for _ in range(n)]
+
+
+def _reader_fn(batches):
+    def reader():
+        for b in batches:
+            yield b
+
+    return reader
+
+
+def _params_of(sgd):
+    from paddle_tpu_torch.core.scope import global_scope
+
+    out = {}
+    for v in sgd._main_program.list_vars():
+        if v.persistable:
+            val = global_scope().get(v.name)
+            if val is not None:
+                out[v.name] = val.numpy().copy()
+    return [out[k] for k in sorted(out)]
+
+
+def _supervise(tmp, sgd, name, reader=None, epochs=2, **kw):
+    kw.setdefault("steps_per_checkpoint", 1)
+    losses = {}
+    sup = TrainingSupervisor(str(tmp / name), program=sgd._main_program,
+                             place=CPU, **kw)
+    out = sup.run(sgd.step_runner(feeding={"x": 0, "y": 1}),
+                  reader or _reader_fn(_batches()), num_epochs=epochs,
+                  on_step=lambda s, l: losses.__setitem__(s, l))
+    return out, losses, _params_of(sgd)
+
+
+def _clean(tmp_path):
+    _, losses, params = _supervise(tmp_path, _build_sgd(), "clean")
+    _reset_workspace()
+    return losses, params
+
+
+def _assert_same_run(got, want):
+    losses, params = got
+    assert sorted(losses) == sorted(want[0])
+    assert all(losses[s] == want[0][s] for s in want[0])
+    for a, b in zip(params, want[1]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind,point,after", [
+    ("preempt", "supervisor/step", 3),
+    ("nonfinite", "supervisor/step", 4),
+    ("io_error", "reader/pump", 4)])
+def test_supervised_run_through_a_fault_matches_the_clean_run(
+        tmp_path, fresh, kind, point, after):
+    clean = _clean(tmp_path)
+    faults.enable(seed=0)
+    faults.inject(point, kind, after=after, times=1)
+    reader = (host_prefetch(_reader_fn(_batches()), depth=2)
+              if point == "reader/pump" else None)
+    out, losses, params = _supervise(tmp_path, _build_sgd(), "chaos",
+                                     reader=reader)
+    assert out == {"steps": 12, "epochs": 2, "restarts": 1}
+    assert faults.fired_counts() == {(point, kind): 1}
+    _assert_same_run((losses, params), clean)
+    snap = obs_tele.snapshot()
+    reason = {"io_error": "fault"}.get(kind, kind)
+    assert snap.get("supervisor_restarts_total{reason=%s}" % reason) >= 1
+
+
+def test_preempt_writes_urgent_checkpoint_with_meta(tmp_path, fresh):
+    from paddle_tpu_torch.fluid.checkpoint import latest_checkpoint
+
+    sgd = _build_sgd()
+    faults.enable(seed=0)
+    faults.inject("supervisor/step", "preempt", after=2, times=1)
+    sup = TrainingSupervisor(str(tmp_path / "ck"),
+                             program=sgd._main_program,
+                             steps_per_checkpoint=10 ** 6,
+                             on_preempt="raise", place=CPU)
+    with pytest.raises(Preempted):
+        sup.run(sgd.step_runner(feeding={"x": 0, "y": 1}),
+                _reader_fn(_batches()), num_epochs=2)
+    snap = latest_checkpoint(str(tmp_path / "ck"))
+    with open(os.path.join(snap, SUPERVISOR_META)) as f:
+        meta = json.load(f)
+    assert meta["kind"] == "urgent" and meta["step"] == 3
+    sup2 = TrainingSupervisor(str(tmp_path / "ck"),
+                              program=sgd._main_program,
+                              steps_per_checkpoint=10 ** 6, place=CPU)
+    out = sup2.run(sgd.step_runner(feeding={"x": 0, "y": 1}),
+                   _reader_fn(_batches()), num_epochs=2)
+    assert out["steps"] == 12
+
+
+def test_nonfinite_backs_off_loss_scale(tmp_path, fresh):
+    from paddle_tpu_torch.fluid.amp import LossScaler
+
+    sgd = _build_sgd()
+    scaler = LossScaler(init_scale=1024.0)
+    faults.enable(seed=0)
+    faults.inject("supervisor/step", "nonfinite", after=2, times=1)
+    _supervise(tmp_path, sgd, "ls", epochs=1, loss_scaler=scaler)
+    assert scaler.scale == 512.0
+
+
+def test_restart_budget_exceeded_raises(tmp_path, fresh):
+    sgd = _build_sgd()
+    faults.enable(seed=0)
+    faults.inject("supervisor/step", "nonfinite", times=None)
+    before = obs_tele.snapshot().get(
+        "supervisor_restarts_total{reason=nonfinite}", 0)
+    with pytest.raises(RestartBudgetExceeded):
+        _supervise(tmp_path, sgd, "rb", epochs=1, max_restarts=2)
+    assert obs_tele.snapshot().get(
+        "supervisor_restarts_total{reason=nonfinite}") == before + 3
+
+
+def test_nonretryable_step_error_propagates(tmp_path, fresh):
+    sgd = _build_sgd()
+    sup = TrainingSupervisor(str(tmp_path / "nr"),
+                             program=sgd._main_program, place=CPU)
+
+    def bad_step(data):
+        raise ValueError("a bug must not be retried away")
+
+    with pytest.raises(ValueError):
+        sup.run(bad_step, _reader_fn(_batches()), num_epochs=1)
+
+
+def test_signal_handlers_restored_after_a_preempted_run(tmp_path, fresh):
+    before = (signal.getsignal(signal.SIGTERM),
+              signal.getsignal(signal.SIGINT))
+    faults.enable(seed=0)
+    faults.inject("supervisor/step", "preempt", after=1, times=1)
+    out, _, _ = _supervise(tmp_path, _build_sgd(), "sh", epochs=1)
+    assert out["restarts"] == 1
+    assert (signal.getsignal(signal.SIGTERM),
+            signal.getsignal(signal.SIGINT)) == before
+
+
+def test_step_runner_surfaces_numerics_monitor_signal(fresh):
+    import math
+
+    from paddle_tpu_torch.obs import health as obs_health
+
+    obs_health.enable()
+    try:
+        sgd = _build_sgd()
+        step = sgd.step_runner(feeding={"x": 0, "y": 1})
+        bad = [(np.full(4, np.nan, np.float32), np.zeros(1, np.float32))
+               for _ in range(4)]
+        assert math.isnan(step(bad))
+    finally:
+        obs_health.disable()
+
+
+def test_for_v2_restores_onto_the_trainers_place(tmp_path, fresh):
+    sgd = _build_sgd()
+    sup = TrainingSupervisor.for_v2(sgd, str(tmp_path / "v2"),
+                                    steps_per_checkpoint=2)
+    assert sup.place is sgd._exe.place
+    out = sup.run_v2(sgd, _reader_fn(_batches(n=3)), num_passes=1,
+                     feeding={"x": 0, "y": 1})
+    assert out["steps"] == 3
+    with pytest.raises(NotImplementedError, match="A9"):
+        sup.run_parallel(None, None)
+    with pytest.raises(NotImplementedError, match="A9"):
+        TrainingSupervisor.for_parallel(None, str(tmp_path / "p"))
+
+
+def test_default_place_is_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError):
+        TrainingSupervisor(str(tmp_path / "c"), program=tfluid.Program())
+
+
+# -- the supervisor over a small transformer, against the JAX supervisor ------------
+
+B, T, V, LAYERS, HEADS, D = 2, 16, 64, 2, 4, 64
+STEPS, EVERY = 8, 2
+FAULTS = (("reader/pump", "io_error", 2), ("supervisor/step", "preempt", 3),
+          ("supervisor/step", "nonfinite", 5))
+
+
+def _jax_transformer_state():
+    from paddle_tpu.core.scope import Scope as JScope
+    from paddle_tpu.models.transformer_program import \
+        build_transformer_program
+
+    main, startup, loss, _ = build_transformer_program(
+        B, T, V, n_layer=LAYERS, n_head=HEADS, d_model=D)
+    with jfluid.program_guard(main, startup):
+        jfluid.optimizer.AdamOptimizer(learning_rate=1e-3).minimize(loss)
+    scope = JScope()
+    with jfluid.scope_guard(scope):
+        jfluid.Executor(jfluid.CPUPlace()).run(startup)
+    persist = [n for n, v in main.desc.block(0).vars.items()
+               if v.persistable]
+    return main, loss.name, {n: np.array(scope.get(n)) for n in persist}
+
+
+@pytest.fixture(scope="module")
+def transformer_init():
+    return _jax_transformer_state()[2]
+
+
+def _feeds():
+    from paddle_tpu_torch.models.transformer_program import \
+        transformer_feeds
+
+    return [transformer_feeds(B, T, V, seed=100 + i, targets=True)
+            for i in range(STEPS)]
+
+
+def _port_supervised(tmp, init, chaos):
+    from paddle_tpu_torch.fluid import io
+    from paddle_tpu_torch.models.transformer_program import \
+        build_transformer_program
+
+    main, startup, loss, _ = build_transformer_program(
+        B, T, V, n_layer=LAYERS, n_head=HEADS, d_model=D)
+    tfluid.AdamOptimizer(1e-3).minimize(loss, main, startup)
+    exe, scope = tfluid.Executor(CPU), tfluid.Scope()
+    io.params_from_numpy(scope, init, exe.device)
+    feeds = _feeds()
+    if chaos:
+        faults.enable(seed=0)
+        for point, kind, after in FAULTS:
+            faults.inject(point, kind, after=after, times=1)
+    losses = {}
+    sup = TrainingSupervisor(str(tmp), program=main, scope=scope,
+                             steps_per_checkpoint=EVERY, place=CPU)
+    try:
+        out = sup.run(
+            lambda f: exe.run(main, feed=f, fetch_list=[loss],
+                              scope=scope)[0],
+            host_prefetch(lambda: iter(feeds), depth=2),
+            on_step=lambda s, l: losses.__setitem__(s, l))
+        fired = faults.fired_counts()
+    finally:
+        faults.disable()
+    return out, losses, {n: scope.get(n).numpy() for n in init}, fired
+
+
+def _jax_supervised(tmp, init):
+    from paddle_tpu.core.scope import Scope as JScope
+    from paddle_tpu.reader import host_prefetch as jprefetch
+    from paddle_tpu.resilience.supervisor import \
+        TrainingSupervisor as JSupervisor
+
+    main, loss, _ = _jax_transformer_state()
+    scope = JScope()
+    for n, v in init.items():
+        scope.set(n, v)
+    feeds = _feeds()
+    exe = jfluid.Executor(jfluid.CPUPlace())
+    jfaults.enable(seed=0)
+    for point, kind, after in FAULTS:
+        jfaults.inject(point, kind, after=after, times=1)
+    losses = {}
+    try:
+        with jfluid.scope_guard(scope):
+            out = JSupervisor(str(tmp), program=main, scope=scope,
+                              steps_per_checkpoint=EVERY).run(
+                lambda f: exe.run(main, feed=f, fetch_list=[loss])[0],
+                jprefetch(lambda: iter(feeds), depth=2),
+                on_step=lambda s, l: losses.__setitem__(s, l))
+        fired = jfaults.fired_counts()
+    finally:
+        jfaults.disable()
+    return out, losses, {n: np.array(scope.get(n)) for n in init}, fired
+
+
+def test_transformer_supervised_through_three_faults(tmp_path,
+                                                     transformer_init):
+    before = (signal.getsignal(signal.SIGTERM),
+              signal.getsignal(signal.SIGINT))
+    clean = _port_supervised(tmp_path / "clean", transformer_init, False)
+    chaos = _port_supervised(tmp_path / "chaos", transformer_init, True)
+    assert (signal.getsignal(signal.SIGTERM),
+            signal.getsignal(signal.SIGINT)) == before
+    assert clean[0] == {"steps": STEPS, "epochs": 1, "restarts": 0}
+    assert chaos[0] == {"steps": STEPS, "epochs": 1, "restarts": 3}
+    assert chaos[3] == {(p, k): 1 for p, k, _ in FAULTS}
+    assert chaos[1] == clean[1]
+    for n in transformer_init:
+        a, b = chaos[2][n], clean[2][n]
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), n
+
+    jax = _jax_supervised(tmp_path / "jax", transformer_init)
+    assert jax[0] == chaos[0] and jax[3] == chaos[3]
+    assert sorted(jax[1]) == sorted(chaos[1])
+    np.testing.assert_allclose([chaos[1][s] for s in sorted(chaos[1])],
+                               [jax[1][s] for s in sorted(jax[1])],
+                               rtol=0, atol=1e-5)
+    for n, before in transformer_init.items():
+        want = jax[2][n].astype(np.float64)
+        den = np.linalg.norm(want - before)
+        assert np.linalg.norm(chaos[2][n] - want) <= 1e-2 * den, n
+
+
+# -- lease_expiry over the native master ----------------------------------------------
+
+def test_lease_expiry_drill_over_the_native_master():
+    """A `lease_expiry` at the heartbeat stalls the beat past 1.5 TTL:
+    the native master reclaims the slot, the lease lapses, and another
+    endpoint claims the slot."""
+    from paddle_tpu_torch import distributed, native
+
+    ttl_ms = 300
+    master = native.Master()
+    try:
+        reg = distributed.ElasticRegistry("127.0.0.1", master.port)
+        faults.enable(seed=0)
+        faults.inject("coordinator/heartbeat", "lease_expiry", times=1)
+        slot, lease = reg.register_pserver("h1:1", 1, ttl_ms=ttl_ms)
+        deadline = time.time() + 5
+        while not lease.lapsed and time.time() < deadline:
+            time.sleep(0.02)
+        assert lease.lapsed
+        assert faults.fired_counts() == {
+            ("coordinator/heartbeat", "lease_expiry"): 1}
+        assert reg.pservers() == {}
+        slot2, lease2 = reg.register_pserver("h2:2", 1, ttl_ms=ttl_ms,
+                                             timeout=5)
+        assert slot2 == slot and reg.pservers() == {slot: "h2:2"}
+        lease2.release()
+        reg.close()
+    finally:
+        faults.disable()
+        master.stop()
+
+
+# -- chaos_cli -----------------------------------------------------------------------
+
+def test_chaos_cli_selftest_as_a_subprocess():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.chaos_cli",
+         "--selftest", "--use_gpu=0", "--steps", "6", "--batch", "8"],
+        capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "selftest green" in proc.stdout
+    assert "waits with the persistent executable cache" in proc.stdout
+
+
+def test_chaos_cli_custom_faults(tmp_path, fresh):
+    from paddle_tpu_torch.tools import chaos_cli
+
+    assert chaos_cli.main([
+        "--use_gpu=0", "--epochs", "1", "--steps", "4", "--batch", "4",
+        "--faults", "supervisor/step:preempt:2,reader/pump:io_error:1",
+        "--ckpt-dir", str(tmp_path / "ck")]) == 0
+    with pytest.raises(SystemExit):
+        chaos_cli._parse_fault_specs("nokind")

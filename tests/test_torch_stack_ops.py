@@ -142,10 +142,11 @@ def test_the_port_registers_the_new_op_types():
     # dist_send, 178 since the entry-point slice's ops/nn.py (5 types),
     # conv2d_transpose, 6 losses and 3 metrics, 210 since A10's last op
     # groups (ops/conv.py's other 10, ops/v2_extra.py's 12,
-    # ops/detection.py's 6, feed, fetch, save and load)
+    # ops/detection.py's 6, feed, fetch, save and load), 211 since the
+    # program analysis slice's fused_elemwise_chain
     assert len(NEW_OPS) == 44
     ops = set(registered_ops())
-    assert set(NEW_OPS) <= ops and len(ops) == 210
+    assert set(NEW_OPS) <= ops and len(ops) == 211
     assert {c[1] for c in CASES} >= set(NEW_OPS) - {"fused_update"}
 
 
