@@ -403,6 +403,41 @@ no result line:
      counters, each restore's and each snapshot's host ms, the
      snapshot's size, the SIGTERM handlers restored.  (e) `chaos_cli
      --selftest` as a subprocess on the card.
+  21. perf: the step profiler, the load generator and the C API.  (a)
+     Phase 5's training program (Momentum), 6 steps fed numpy arrays,
+     each inside obs.telemetry.step, under obs.perf.install(
+     sample_every=2) after one warm step: the ring's records (the JAX
+     record's keys), each sampled step's device time (the card's busy
+     time, from the profiler's own torch.profiler session) below its
+     wall and within PERF_BUSY_RTOL of profile_step's busy time of one more step,
+     input_s > 0, h2d bytes equal to the feeds', the JSONL and Chrome
+     trace exports valid, 12 f32 flash launches a step, the
+     classification at 67 TFLOP/s and 3,350 GB/s with its reason, and
+     the unsampled steps' median beside the same steps without the
+     profiler.  (b) perf_cli classify --model resnet50 --batch 128 --f32
+     in this process: its floors against fluid.analysis.roofline_report
+     at the same figures (PERF_FLOOR_RTOL), its verdict on phase 6's f32
+     median step.  (c) Phase 16e's export (topk_export) served by
+     InferenceServer on the card (max_batch 16, BUCKETS, the SLO, the
+     tail, the access log): a closed loop of 64 requests from 4 workers
+     of the mix 1:6,2:3,4:1 rows, then an open Poisson loop at half its
+     rate of 128, each with p50/p90/p99/p99.9, SLO attainment, the
+     queue-depth peak and the slowest request joined to /debug/tail and
+     /metrics; 16 replies against the in-process engine, the access log
+     replayed at speed 1 to the same count and bucket mix, the open
+     loop's latency blob through perf_cli gate --latency-tolerance 0.5
+     (3 copies pass, a fourth with its p99 doubled fails naming it), the
+     f32 route's launches at least the batches run.  (d) The same server
+     with its engine in load_cli's _StallEngine, one 1 s stall: the open
+     loop's p99 at least 500 ms, a one-worker closed loop's max at least
+     800 ms and its p99 below half the open loop's.  (e) ResNet-50's
+     batch-16 inference clone exported; a C program built with this
+     machine's C compiler runs ptcapi_create/run/destroy on the card
+     through libpaddle_tpu_torch_capi.so (built at first use, PYTHONPATH
+     from native.capi_pythonpath()): its logits within RN_LOGITS_RTOL of
+     the in-process engine's, a short buffer refused with -1, the build,
+     create, first and later runs' seconds beside engine.run's.  (f) The
+     perf, load and lint CLIs' selftests as three processes on the card.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -413,6 +448,7 @@ whole script prints its time on the line before the card's.
 
 import collections
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -1331,7 +1367,7 @@ def kernel_family(name):
 
 
 def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
-                 what="one training step"):
+                 what="one training step", strict=True):
     """Device time of one step (`what`) by kernel, from torch.profiler's
     CUDA activity, with the busy share of the profiled window and of the
     unprofiled step (`step_ms`); and by op type, from the executor's
@@ -1343,10 +1379,12 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
     count in the kernel table and the busy time, in no op's row.  The
     profile counts only when it is complete: the step's `flash_launches`
     flash launches in it; else a fresh session tries again, and the
-    shares are reported as not measured (None is returned).  Returns
-    {"busy_ms", "wall_ms", "launches", "families": {family: device ms},
-    "flash": (the flash kernel's device ms, its launches), "ops": {op
-    type: (device ms, host ms, ops)}}."""
+    shares are reported as not measured (None is returned), unless
+    `strict` is False: then the last attempt's numbers are reported and
+    returned with "complete" False.  Returns {"busy_ms", "wall_ms",
+    "launches", "complete", "families": {family: device ms}, "flash":
+    (the flash kernel's device ms, its launches), "ops": {op type:
+    (device ms, host ms, ops)}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1367,9 +1405,13 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
         print("profile: attempt %d incomplete: %d flash launches of %d"
               % (attempt, flash, flash_launches), flush=True)
     else:
-        print("profile: no complete profile: device busy share not "
-              "measured", flush=True)
-        return None
+        if strict:
+            print("profile: no complete profile: device busy share not "
+                  "measured", flush=True)
+            return None
+        print("profile: no complete profile: the last attempt's numbers "
+              "follow (%d flash launches of %d)" % (flash, flash_launches),
+              flush=True)
     busy_us = sum(k[1] for k in kernels)
     print("profile: %s, wall %.3f ms, device busy %.3f ms "
           "(%.1f %% of the profiled window, idle %.1f %%; %.1f %% of the "
@@ -1401,6 +1443,7 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
     flash = [k for k in kernels if "flash_fwd_kernel" in k[0]]
     return {"busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
             "launches": sum(k[2] for k in kernels),
+            "complete": sum(k[2] for k in flash) == flash_launches,
             "families": {f: us / 1e3 for f, us in families.items()},
             "flash": (sum(k[1] for k in flash) / 1e3,
                       sum(k[2] for k in flash)),
@@ -1724,6 +1767,10 @@ def forward_flops(block):
     return total
 
 
+# measured numbers a later phase reads: {name: ms}
+RUN_MS = {}
+
+
 def phase_resnet():
     """ResNet-50 built through the port's fluid layers, as bench.py
     builds it: 3 steps at batch 8 on the card against the CPU plain path;
@@ -1854,6 +1901,8 @@ def phase_resnet():
 
             times = timed_steps(step)
             med = float(np.median(times))
+            if not amp:
+                RUN_MS["resnet_f32_step"] = med  # phase 21b classifies it
             print("resnet %s: step %.3f ms (median of 10 after 2 warm; mean "
                   "%.3f, min %.3f, max %.3f), %.1f images/s, %.1f TFLOP/s "
                   "of forward and backward products"
@@ -4279,9 +4328,10 @@ def book_host(v):
 
 def book_compare(tag, got, ref):
     """The largest error of each output of `got` (card) against `ref`
-    (CPU): floats relative to the larger of 1 and the reference's
+    (CPU): floats relative to the larger of 1 and the reference's finite
     magnitude, the rest exactly (an integer mismatch reads inf); lods
-    must be equal."""
+    must be equal.  Equal values (infinities and NaNs too) differ by 0;
+    a NaN or an infinity at one side only reads inf."""
     worst = 0.0
     for n, r in ref.items():
         (gv, glod), (rv, rlod) = book_host(got[n]), book_host(r)
@@ -4294,8 +4344,14 @@ def book_compare(tag, got, ref):
         if not np.issubdtype(rv.dtype, np.floating):
             worst = max(worst, 0.0 if np.array_equal(gv, rv) else np.inf)
             continue
-        worst = max(worst, float(np.abs(gv - rv).max()) / max(
-            1.0, float(np.abs(rv).max())))
+        with np.errstate(invalid="ignore"):
+            diff = np.abs(gv.astype(np.float64) - rv)
+        same = (gv == rv) | (np.isnan(gv) & np.isnan(rv))
+        diff = np.where(same, 0.0,
+                        np.nan_to_num(diff, nan=np.inf, posinf=np.inf))
+        finite = np.abs(rv[np.isfinite(rv)])
+        worst = max(worst, float(diff.max()) / max(
+            1.0, float(finite.max()) if finite.size else 0.0))
     return worst
 
 
@@ -7816,13 +7872,34 @@ def _drive(url, rows, clients, traceparents):
     return replies
 
 
+def topk_export(dirname):
+    """Phase 3's full-width transformer (weights from SEED) exported to
+    `dirname` with its logits' top OBS_TOPK per position as the fetches
+    and BUCKETS as its batch buckets; returns the (values, ids) fetch
+    names.  Served by 16e and 21c."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import Scope, io
+    from paddle_tpu_torch.models import transformer_program as tp
+
+    prog = fluid.Program.from_desc(tp.build_transformer_inference_program(
+        BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL))
+    params = tp.init_transformer_params(prog.desc, seed=SEED)
+    with fluid.program_guard(prog):
+        values, ids = fluid.layers.topk(
+            prog.global_block().var(tp.logits_name(N_LAYER)), k=OBS_TOPK)
+    scope = Scope()
+    io.params_from_numpy(scope, params, "cpu")
+    io.save_inference_model(dirname, ["tokens", "positions"],
+                            [values.name, ids.name], scope, prog,
+                            bucket_hints={"batch_buckets": BUCKETS})
+    return values.name, ids.name
+
+
 def obs_serve(smi):
     """16e: phase 3's transformer served with the SLO, the tail, the
     access log, traceparent, Retry-After and check_numerics on, against
     the same server without them.  Returns the launch counts of the
     observed server's run."""
-    import paddle_tpu_torch.fluid as fluid
-    from paddle_tpu_torch.fluid import Scope, io
     from paddle_tpu_torch.models import transformer_program as tp
     from paddle_tpu_torch.obs import registry
     from paddle_tpu_torch.serving import (EngineConfig, InferenceEngine,
@@ -7834,17 +7911,7 @@ def obs_serve(smi):
     traceparents = ["00-%s-%s-01" % (rs.bytes(16).hex(), rs.bytes(8).hex())
                     for _ in range(OBS_REQUESTS)]
     tmp = tempfile.mkdtemp(prefix="serve_")
-    prog = fluid.Program.from_desc(tp.build_transformer_inference_program(
-        BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL))
-    params = tp.init_transformer_params(prog.desc, seed=SEED)
-    with fluid.program_guard(prog):
-        values, ids = fluid.layers.topk(
-            prog.global_block().var(tp.logits_name(N_LAYER)), k=OBS_TOPK)
-    scope = Scope()
-    io.params_from_numpy(scope, params, "cpu")
-    io.save_inference_model(tmp, ["tokens", "positions"],
-                            [values.name, ids.name], scope, prog,
-                            bucket_hints={"batch_buckets": BUCKETS})
+    values_name, ids_name = topk_export(tmp)
     results, log_path = {}, os.path.join(tmp, "access.jsonl")
     slow_ms = None
     for observed in (False, True):
@@ -7931,10 +7998,10 @@ def obs_serve(smi):
         and shed and all(b[2].get("Retry-After") == "2" for b in shed)
     worst, flips = 0.0, 0
     for p, r in zip(plain, replies):
-        pv = np.asarray(p[1]["outputs"][values.name], np.float32)
-        rv = np.asarray(r[1]["outputs"][values.name], np.float32)
-        pi = np.asarray(p[1]["outputs"][ids.name])
-        ri = np.asarray(r[1]["outputs"][ids.name])
+        pv = np.asarray(p[1]["outputs"][values_name], np.float32)
+        rv = np.asarray(r[1]["outputs"][values_name], np.float32)
+        pi = np.asarray(p[1]["outputs"][ids_name])
+        ri = np.asarray(r[1]["outputs"][ids_name])
         worst = max(worst, float(np.abs(pv - rv).max()))
         clear = (pv[..., 0] - pv[..., 1]) > 2 * LOGITS_ATOL
         flips += int((pi[..., 0] != ri[..., 0])[clear].sum())
@@ -10027,6 +10094,66 @@ def ssd_train(smi):
     return launches, trained
 
 
+def detection_output_bound(loc, conf, prior, attrs):
+    """(ms, "bytes" | "operations", operations, bytes): the least time the
+    card needs for detection_output on these inputs (numpy Loc [N, P*4],
+    Conf [N, P*C], PriorBox [2P, 4]) at its f32 rates, the work counted
+    from the op's code on this data: the softmax (5 operations an entry:
+    the max, subtract, exp, sum, divide) and the box decode (18 an
+    image's prior); per image and class but the background, the
+    threshold test of each prior, ordering the m candidates that pass
+    (m + k log2 k comparisons for the k = min(m, nms_top_k) kept in
+    order), 3 operations for each candidate's area and 14 for each IoU
+    and test the greedy NMS needs (a kept box against each later box not
+    yet suppressed); per image the sort of its kept boxes.  Bytes: the
+    three inputs read once, the [M, 7] f32 rows written once."""
+    from paddle_tpu_torch.ops.detection import _iou_np, decode_boxes
+
+    n = loc.shape[0]
+    n_prior = prior.shape[0] // 2
+    classes = int(attrs["num_classes"])
+    background = int(attrs.get("background_label_id", 0))
+    nms_threshold = float(attrs.get("nms_threshold", 0.45))
+    threshold = float(attrs.get("confidence_threshold", 0.01))
+    nms_top_k = int(attrs.get("nms_top_k", 400))
+    top_k = int(attrs.get("top_k", 100))
+    boxes = decode_boxes(loc.reshape(n, n_prior, 4), prior[:n_prior],
+                         prior[n_prior:])
+    scores = conf.reshape(n, n_prior, classes).astype(np.float64)
+    scores = np.exp(scores - scores.max(-1, keepdims=True))
+    scores /= scores.sum(-1, keepdims=True)
+    ops = 5.0 * n * n_prior * classes + 18.0 * n * n_prior
+    rows = 0
+    for b in range(n):
+        kept = 0
+        for c in range(classes):
+            if c == background:
+                continue
+            ops += n_prior
+            idx = np.where(scores[b, :, c] > threshold)[0]
+            if not len(idx):
+                continue
+            order = idx[np.argsort(-scores[b, idx, c])][:nms_top_k]
+            k = len(order)
+            ops += len(idx) + k * np.log2(max(k, 2)) + 3 * k
+            iou = _iou_np(boxes[b, order], boxes[b, order], floor=0.0)
+            suppressed = np.zeros(k, bool)
+            for pos in range(k):
+                if suppressed[pos]:
+                    continue
+                kept += 1
+                ops += 14 * int((~suppressed[pos + 1:]).sum())
+                suppressed[pos + 1:] |= ~(iou[pos, pos + 1:]
+                                          <= nms_threshold)
+        ops += kept * np.log2(max(kept, 2))
+        rows += min(kept, top_k)
+    nbytes = loc.nbytes + conf.nbytes + prior.nbytes + max(rows, 1) * 7 * 4
+    t_ops = ops / F32_CORE_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes", ops, nbytes
+
+
 def ssd_detect(trained, smi):
     """19b: the test clone at batch 32 on the card (a profiled forward),
     detection_output's rows against the CPU op on the card's Loc and
@@ -10105,6 +10232,17 @@ def ssd_detect(trained, smi):
         print("ssd: 19b the CPU op on the card's Loc and Conf (%.1f "
               "host-ms): rows equal %s, boxes max_abs_err %.3g (atol %g)"
               % (cpu_ms, same, err, SSD_BOX_ATOL), flush=True)
+        bound_ms, bound_by, ops, nbytes = detection_output_bound(
+            loc.cpu().numpy(), conf.cpu().numpy(), prior.cpu().numpy(),
+            detect_attrs)
+        print("ssd: 19b detection_output's bound on this batch at the "
+              "card's f32 rates: %.4f ms by %s (%.4g operations, %.4g "
+              "bytes), against its %.1f host-ms in the profiled forward's "
+              "range and %.1f on the CPU [%s]"
+              % (bound_ms, bound_by, ops, nbytes,
+                 prof["ops"].get("detection_output", (0.0, 0.0, 0))[1]
+                 if prof is not None else float("nan"), cpu_ms, smi),
+              flush=True)
         if not same or err > SSD_BOX_ATOL:
             raise SystemExit("chip_smoke: the card's detections differ from "
                              "the CPU op's")
@@ -11023,6 +11161,716 @@ def phase_analysis():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: perf and load observability, the C API
+# ---------------------------------------------------------------------------
+
+# 21a: phase 5's training program, PERF_STEPS steps under obs.perf's step
+# profiler sampling every PERF_SAMPLE_EVERY-th step, after one warm step
+PERF_STEPS, PERF_SAMPLE_EVERY = 6, 2
+# the same steps without the profiler, half before and half after
+PERF_PLAIN = 6
+# a sampled step's device_s (the card's busy time: its kernels' summed
+# durations as torch.profiler's CUDA activity records them) against
+# profile_step's busy time of one more step of the same program from the
+# same state.  Two profiler sessions over the same work: what differs is
+# the step's own run-to-run spread of kernel times and the kernels a
+# session misses (profile_step has read 11 of a step's 12 flash launches
+# on an H100), each a few percent; a device_s that summed the run's wall, or
+# a span from the first launch to the last completion, reads about twice
+# the busy time (57 of a 111 ms step)
+PERF_BUSY_RTOL = 0.15
+# the keys of a paddle_tpu.obs.perf step record (a sampled one adds
+# "segments")
+PERF_RECORD_KEYS = ("step", "trainer", "t0_s", "wall_s", "examples",
+                    "failed", "sampled", "retraces", "pcache_hits",
+                    "pcache_misses", "h2d_bytes", "d2h_bytes", "input_s",
+                    "device_s", "host_s")
+# 21b: perf_cli classify's floors against fluid.analysis.roofline_report
+# of the same program at the same figures: one computation, so only the
+# JSON round trip of a float may differ
+PERF_FLOOR_RTOL = 1e-6
+# 21c: the served transformer under load: a closed loop of LOAD_CLOSED_N
+# requests from LOAD_WORKERS workers (its achieved rate is R), then an
+# open Poisson loop at LOAD_OPEN_FRACTION * R of LOAD_OPEN_N requests, of
+# LOAD_MIX rows per request; LOAD_SAMPLED replies held against the
+# in-process engine (top-1 ids exactly where the top two lie more than
+# LOAD_MARGIN apart, values within LOGITS_ATOL); the open loop's latency
+# blob gated by perf_cli at LOAD_GATE_TOL
+LOAD_MIX = "1:6,2:3,4:1"
+LOAD_CLOSED_N, LOAD_WORKERS = 64, 4
+LOAD_OPEN_N, LOAD_OPEN_FRACTION = 128, 0.5
+LOAD_SEED = SEED + 210
+LOAD_POOL = 64               # distinct rows the payloads cycle through
+LOAD_SAMPLED = 16
+LOAD_MARGIN = 1e-3
+LOAD_GATE_TOL = 0.5
+LOAD_MAX_WAIT_MS = 5.0
+# 21d: one LOAD_STALL_S stall of the engine, armed after LOAD_STALL_AFTER
+# batches, under the open loop and under a closed loop of one worker (the
+# load_cli selftest's criteria, scaled to the stall)
+LOAD_STALL_S, LOAD_STALL_AFTER = 1.0, 10
+# 21e: the C API on ResNet-50's batch-16 inference clone: CAPI_RUNS runs
+# after the first, each timed by the C program
+CAPI_RUNS = 5
+CAPI_TIMEOUT_S = 600
+
+CAPI_SRC = r'''
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <time.h>
+
+extern void *ptcapi_create(const char *model_dir);
+extern int64_t ptcapi_run(void *h, const float *in, const int64_t *dims,
+                          int ndims, float *out, int64_t cap,
+                          int64_t *out_dims, int *out_ndims);
+extern void ptcapi_destroy(void *h);
+
+static double now(void) {
+  struct timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return ts.tv_sec + ts.tv_nsec * 1e-9;
+}
+
+/* model_dir input.bin output.bin runs n c h w */
+int main(int argc, char **argv) {
+  if (argc != 9) return 9;
+  int runs = atoi(argv[4]);
+  int64_t dims[4];
+  int64_t n_in = 1;
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = atoll(argv[5 + i]);
+    n_in *= dims[i];
+  }
+  float *in = malloc(n_in * sizeof(float));
+  FILE *f = fopen(argv[2], "rb");
+  if (!f || fread(in, sizeof(float), n_in, f) != (size_t)n_in) return 4;
+  fclose(f);
+  int64_t cap = 1 << 24;
+  float *out = malloc(cap * sizeof(float));
+  int64_t out_dims[8];
+  int out_nd = 0;
+  double t0 = now();
+  void *h = ptcapi_create(argv[1]);
+  if (!h) { fprintf(stderr, "create failed\n"); return 2; }
+  double t1 = now();
+  int64_t n = ptcapi_run(h, in, dims, 4, out, cap, out_dims, &out_nd);
+  double t2 = now();
+  if (n < 0) { fprintf(stderr, "run failed\n"); return 3; }
+  printf("create_s=%.6f first_s=%.6f runs_ms=", t1 - t0, t2 - t1);
+  for (int r = 0; r < runs; ++r) {
+    double a = now();
+    if (ptcapi_run(h, in, dims, 4, out, cap, out_dims, &out_nd) != n)
+      return 5;
+    printf("%s%.6f", r ? "," : "", (now() - a) * 1e3);
+  }
+  int64_t small = ptcapi_run(h, in, dims, 4, out, n - 1, out_dims, &out_nd);
+  printf(" small=%lld n=%lld nd=%d", (long long)small, (long long)n, out_nd);
+  for (int i = 0; i < out_nd; ++i)
+    printf(" d%d=%lld", i, (long long)out_dims[i]);
+  printf("\n");
+  /* the capacity refusal wrote nothing: the last good run is in out */
+  f = fopen(argv[3], "wb");
+  if (!f || fwrite(out, sizeof(float), n, f) != (size_t)n) return 6;
+  fclose(f);
+  ptcapi_destroy(h);
+  return 0;
+}
+'''
+
+
+def perf_profile(smi):
+    """21a: phase 5's training program, fed numpy arrays as a user's loop
+    feeds them, each step inside `obs.telemetry.step` under
+    `obs.perf.install(sample_every=PERF_SAMPLE_EVERY)`: the ring's
+    records, the sampled steps' split against profile_step's busy time,
+    the exports, the classification at the card's figures, the
+    profiler's cost.  Returns the launch counts of the profiled steps."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.types import np_dtype
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.obs import perf as obs_perf
+    from paddle_tpu_torch.obs import telemetry, trace
+    from paddle_tpu_torch.tools.obs_dump import validate_chrome_trace
+
+    main, startup, loss, _ = tp.build_transformer_program(
+        BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL)
+    fluid.MomentumOptimizer(LR, MOMENTUM).minimize(loss, main, startup)
+    block = main.block(0)
+    op_types = {op.type for op in block.ops}
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise SystemExit("chip_smoke: the executor is not on the card")
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = [tp.transformer_feeds(BATCH, SEQ, VOCAB, seed=SEED + 200 + i,
+                                  targets=True)
+             for i in range(PERF_STEPS + 1)]
+    feed_bytes = sum(np.asarray(v).astype(np_dtype(block.vars[n].dtype))
+                     .nbytes for n, v in feeds[0].items())
+
+    def step(feed):
+        with telemetry.step("fluid", examples=BATCH):
+            return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+    def plain_steps():
+        times = []
+        for f in feeds[1:PERF_PLAIN // 2 + 1]:
+            t0 = time.perf_counter()
+            step(f)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    step(feeds[0])  # warm, unprofiled
+    # the same steps without the profiler, half before and half after
+    plain_ms = plain_steps()
+    profiler = obs_perf.install(capacity=64, sample_every=PERF_SAMPLE_EVERY)
+    reset_launches()
+    try:
+        losses = [float(step(f)[0][0]) for f in feeds[1:]]
+    finally:
+        obs_perf.uninstall()
+    torch.cuda.synchronize()
+    # the main path ends here: read the counts
+    launches = read_launches()
+    recs = profiler.records()
+    for r in recs:
+        print("perf: 21a record %s" % json.dumps(r, sort_keys=True),
+              flush=True)
+    sampled = [r for r in recs if r["sampled"]]
+    unsampled = [r["wall_s"] * 1e3 for r in recs if not r["sampled"]]
+    unsampled_ms = float(np.median(unsampled))
+    plain_ms = float(np.median(plain_ms + plain_steps()))
+    # a sampled step's whole cost in one more step, timed around the
+    # profiler's begin and end: its perf/device span carries the
+    # seconds of the session's stop
+    one = obs_perf.StepProfiler(capacity=1, sample_every=1).install()
+    trace.enable(clear=True)
+    t0 = time.perf_counter()
+    try:
+        step(feeds[1])
+    finally:
+        one.uninstall()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    span = [ev for ev in trace.events()
+            if ev["name"].startswith("perf/device")][-1]
+    trace.disable()
+    prof = profile_step(lambda: exe.run(main, feed=feeds[1],
+                                        fetch_list=[loss], scope=scope),
+                        op_types, 2 * N_LAYER, unsampled_ms,
+                        what="one more step (21a)", strict=False)
+    busy_ms = prof["busy_ms"]
+    summary = profiler.summary()
+    floors = obs_perf.roofline_floors(
+        main, peak_tflops=F32_CORE_FLOPS / 1e12,
+        hbm_gbps=HBM_BYTES_PER_S / 1e9)
+    verdict = profiler.classify(t_mxu_s=floors["t_mxu_s"],
+                                t_hbm_s=floors["t_hbm_s"],
+                                dominant=floors["top_ops"][0][0])
+    for r in sampled:
+        print("perf: 21a sampled step %d: wall %.3f ms = device %.3f (the "
+              "card's busy time, %d runs) + input %.3f + host %.3f; "
+              "profile_step's busy time of one more step %.3f ms (%s "
+              "profile), device_s off it by %.1f %% (rtol %g) [%s]"
+              % (r["step"], r["wall_s"] * 1e3, r["device_s"] * 1e3,
+                 r["segments"]["count"], r["input_s"] * 1e3,
+                 r["host_s"] * 1e3, busy_ms,
+                 "complete" if prof["complete"] else "incomplete",
+                 100.0 * abs(r["device_s"] * 1e3 - busy_ms) / busy_ms,
+                 PERF_BUSY_RTOL, smi), flush=True)
+    print("perf: 21a %d steps, losses %s; summary %s; roofline at 67 "
+          "TFLOP/s and 3,350 GB/s: compute floor %.3f ms, bytes floor "
+          "%.3f ms, serial %.3f ms, top ops %s; verdict %s (dominant %s, "
+          "shares %s): %s; f32 launches %d [%s]"
+          % (len(recs), ", ".join("%.6f" % x for x in losses),
+             json.dumps(summary, sort_keys=True), floors["t_mxu_s"] * 1e3,
+             floors["t_hbm_s"] * 1e3, floors["floor_ms_serial"],
+             floors["top_ops"], verdict["verdict"], verdict["dominant"],
+             verdict["shares"], verdict["reason"],
+             launches[route_entry("f32")], smi), flush=True)
+    print("perf: 21a the profiler's cost: the unsampled steps' median %.3f "
+          "ms with the profiler installed, %.3f ms without it (%d steps, "
+          "half before and half after; %+.3f ms); the sampled steps' "
+          "median %.3f ms; a sampled step with the trace on, timed "
+          "around the profiler's begin and end, %.3f ms, its span's args "
+          "%s, busy %.3f ms [%s]"
+          % (unsampled_ms, plain_ms, PERF_PLAIN, unsampled_ms - plain_ms,
+             float(np.median([r["wall_s"] * 1e3 for r in sampled])),
+             window_ms, span["args"], span["dur"] / 1e3, smi),
+          flush=True)
+    # the exports load
+    events = validate_chrome_trace(profiler.export_chrome_trace())
+    lines = profiler.export_jsonl().strip().splitlines()
+    parsed = [json.loads(line) for line in lines]
+    ok = len(recs) == PERF_STEPS \
+        and [r["step"] for r in sampled] == list(range(0, PERF_STEPS,
+                                                       PERF_SAMPLE_EVERY)) \
+        and all(set(PERF_RECORD_KEYS) <= set(r) for r in recs) \
+        and all(r["input_s"] > 0 and r["h2d_bytes"] == feed_bytes
+                and r["examples"] == BATCH for r in recs) \
+        and all(r["device_s"] < r["wall_s"] and abs(
+            r["device_s"] * 1e3 - busy_ms) <= PERF_BUSY_RTOL * busy_ms
+            for r in sampled) \
+        and sum(1 for e in events if e["ph"] == "X") == len(recs) \
+        and parsed == json.loads(json.dumps(recs)) \
+        and verdict["verdict"] in obs_perf.VERDICTS \
+        and launches[route_entry("f32")] == 2 * N_LAYER * PERF_STEPS \
+        and np.isfinite(losses).all()
+    print("perf: 21a h2d bytes a step %d (the feeds' %d), input_s > 0: %s; "
+          "exports: %d trace spans, %d JSONL lines" % (
+              recs[0]["h2d_bytes"], feed_bytes,
+              all(r["input_s"] > 0 for r in recs),
+              sum(1 for e in events if e["ph"] == "X"), len(lines)),
+          flush=True)
+    if not ok:
+        raise SystemExit("chip_smoke: the step profiler's records broke "
+                         "their contract")
+    return launches
+
+
+def perf_classify(smi):
+    """21b: `perf_cli classify --model resnet50 --batch 128 --f32` in this
+    process: its floors against fluid.analysis.roofline_report of the
+    same program at the same figures, then its verdict on phase 6's f32
+    median step (or, when this phase runs alone, on 10 steps after 2
+    warm)."""
+    import io as io_mod
+
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import analysis
+    from paddle_tpu_torch.tools import perf_cli
+
+    step_ms = RUN_MS.get("resnet_f32_step")
+    source = "phase 6's f32 median"
+    if step_ms is None:
+        main, startup, _, loss = build_resnet50(RN_BATCH)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        feed = {n: torch.from_numpy(v).to(exe.device) for n, v in
+                resnet_feeds(RN_BATCH, 1, SEED + 1)[0].items()}
+        step_ms = float(np.median(timed_steps(
+            lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                            return_numpy=False))))
+        source = "the median of 10 f32 steps after 2 warm"
+        del scope, feed
+        torch.cuda.empty_cache()
+    argv = ["classify", "--model", "resnet50", "--batch", str(RN_BATCH),
+            "--image-size", str(RN_HW), "--class-dim", str(RN_CLASSES),
+            "--f32"]
+    out = io_mod.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = perf_cli.main(argv + ["--json"])
+    seconds = time.perf_counter() - t0
+    floors = json.loads(out.getvalue())
+    main, _, _, _ = build_resnet50(RN_BATCH)
+    peak, bw = F32_CORE_FLOPS / 1e12, HBM_BYTES_PER_S / 1e9
+    rep = analysis.roofline_report(main, peak_tflops=peak, hbm_gbps=bw)
+    want = {"floor_ms_serial": rep["floor_ms_serial"],
+            "floor_ms_ideal": rep["floor_ms_ideal"],
+            "t_mxu_s": rep["total_gflops"] / (peak * 1e3),
+            "t_hbm_s": rep["unique_gbytes"] / bw}
+    errs = {k: abs(floors[k] - v) / abs(v) for k, v in want.items()}
+    out = io_mod.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_step = perf_cli.main(argv + ["--step-ms", "%.6f" % step_ms])
+    verdict = [line for line in out.getvalue().splitlines()
+               if line.startswith("measured")]
+    print("perf: 21b perf_cli classify (%.1f s, in this process): floors "
+          "serial %.3f ms, ideal %.3f ms, compute %.3f ms, bytes %.3f ms "
+          "at %g TFLOP/s and %g GB/s, against roofline_report relative "
+          "%s (rtol %g); on %s %.3f ms: %s [%s]"
+          % (seconds, floors["floor_ms_serial"], floors["floor_ms_ideal"],
+             floors["t_mxu_s"] * 1e3, floors["t_hbm_s"] * 1e3,
+             floors["peak_tflops"], floors["hbm_gbps"],
+             ", ".join("%s %.2g" % kv for kv in errs.items()),
+             PERF_FLOOR_RTOL, source, step_ms,
+             verdict[-1] if verdict else None, smi), flush=True)
+    if rc or rc_step or not verdict or floors["peak_tflops"] != peak \
+            or max(errs.values()) > PERF_FLOOR_RTOL:
+        raise SystemExit("chip_smoke: perf_cli classify disagrees with the "
+                         "roofline")
+
+
+def transformer_payload(pool):
+    """A load payload builder for the transformer's int feeds: batch ->
+    the /v1/infer body of `batch` rows of `pool` ({feed: [rows, seq]}),
+    taken in turn (rows wrap around the pool)."""
+    rows = len(next(iter(pool.values())))
+    counter = itertools.count()
+
+    def build(batch):
+        start = next(counter) * 4
+        idx = [(start + i) % rows for i in range(int(batch))]
+        return {"inputs": {n: v[idx].tolist() for n, v in pool.items()}}
+    return build
+
+
+class RecordingTarget:
+    """A load target that keeps the first `n` (payload, reply) pairs of
+    the 200 replies through it."""
+
+    def __init__(self, inner, n):
+        self.inner = inner
+        self.n = n
+        self.kept = []
+        self._lock = threading.Lock()
+
+    def get(self, path):
+        return self.inner.get(path)
+
+    def infer(self, payload, ctx, timeout_s=None):
+        status, body, headers = self.inner.infer(payload, ctx,
+                                                 timeout_s=timeout_s)
+        if status == 200:
+            with self._lock:
+                if len(self.kept) < self.n:
+                    self.kept.append((payload, body))
+        return status, body, headers
+
+
+def _queue_peak(metrics_text):
+    """serving_queue_depth_peak of a /metrics scrape (the scrape resets
+    it, so it is the peak since the scrape before)."""
+    for line in str(metrics_text).splitlines():
+        if line.startswith("serving_queue_depth_peak"):
+            return float(line.split()[-1])
+    return None
+
+
+def _load_line(tag, report, peak, smi):
+    pct = report["percentiles_ms"]
+    worst = report["worst"][0]
+    tail = worst.get("tail")
+    stages = []
+
+    def walk(nodes):
+        for node in nodes or ():
+            stages.append("%s %.1f" % (node["name"].split("/")[-1],
+                                       node["dur_ms"]))
+            walk(node.get("children"))
+
+    if tail:
+        walk(tail["spans"])
+    print("load: %s: %d requests, offered %s req/s, achieved %.3f req/s; "
+          "latency p50 %.3f, p90 %.3f, p99 %.3f, p99.9 %.3f, max %.3f ms; "
+          "SLO %s ms attainment %s; queue-depth peak %s; status %s; the "
+          "slowest request (%.3f ms, %s rows) joined to /debug/tail: %s "
+          "(server %s ms: %s), to /metrics exemplars: %s [%s]"
+          % (tag, report["n"], report.get("offered_rps"),
+             report["achieved_rps"], pct["p50_ms"], pct["p90_ms"],
+             pct["p99_ms"], pct["p99_9_ms"], report["max_ms"],
+             (report.get("slo") or {}).get("slo_ms"),
+             (report.get("slo") or {}).get("attainment"), peak,
+             report["by_status"], worst["latency_ms"], worst["batch"],
+             bool(tail), tail and tail.get("server_latency_ms"),
+             ", ".join(stages), worst.get("exemplars"), smi), flush=True)
+
+
+def load_serve(smi):
+    """21c-d: phase 16e's export served on the card under the load
+    generator (closed loop, then open loop at half its rate), the replies
+    against the in-process engine, the access log replayed, the latency
+    gate, then the same server with its engine stalled once.  Returns
+    the launch counts of 21c's and 21d's servers."""
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.obs import load as obs_load
+    from paddle_tpu_torch.obs import perf as obs_perf
+    from paddle_tpu_torch.obs import registry
+    from paddle_tpu_torch.serving import (InferenceEngine, InferenceServer,
+                                          ServerConfig)
+    from paddle_tpu_torch.tools import load_cli, perf_cli
+
+    registry.reset_registry()
+    tmp = tempfile.mkdtemp(prefix="load_")
+    values_name, ids_name = topk_export(tmp)
+    pool = tp.transformer_feeds(LOAD_POOL, SEQ, VOCAB, seed=LOAD_SEED + 1)
+    payload = transformer_payload(pool)
+    mix = obs_load.TrafficMix.parse(LOAD_MIX)
+    log_path = os.path.join(tmp, "access.jsonl")
+    engine = InferenceEngine.from_saved_model(tmp)
+    if engine.place.device().type != "cuda":
+        raise SystemExit("chip_smoke: the engine is not on the card")
+
+    def config(**kw):
+        return ServerConfig(port=0, max_batch=BATCH,
+                            max_wait_ms=LOAD_MAX_WAIT_MS, warmup=True,
+                            slo_ms=OBS_SLO_MS, tail_slow_ms=0.0,
+                            tail_capacity=4 * (LOAD_CLOSED_N + LOAD_OPEN_N),
+                            model_name="transformer", **kw)
+
+    def joined(report, target):
+        obs_load.join_tail(report, target.get("/debug/tail"))
+        text = target.get("/metrics")
+        obs_load.join_exemplars(report, text)
+        return _queue_peak(text), bool(obs_load.parse_exemplars(text))
+
+    reset_launches()
+    server = InferenceServer(engine, config(access_log=log_path)).start()
+    try:
+        url = "http://%s:%d" % server.address
+        target = RecordingTarget(obs_load.HttpTarget(url, timeout_s=600),
+                                 LOAD_SAMPLED)
+        target.get("/metrics")  # resets the queue-depth peak
+        closed = obs_load.run_closed_loop(
+            target, payload, workers=LOAD_WORKERS, n=LOAD_CLOSED_N,
+            mix=mix, seed=LOAD_SEED, slo_ms=OBS_SLO_MS)
+        closed_peak, ex_closed = joined(closed, target)
+        rate = LOAD_OPEN_FRACTION * closed["achieved_rps"]
+        schedule = obs_load.build_schedule(rate, n=LOAD_OPEN_N,
+                                           arrival="poisson", mix=mix,
+                                           seed=LOAD_SEED)
+        open_ = obs_load.run_open_loop(target, schedule, payload,
+                                       slo_ms=OBS_SLO_MS)
+        open_peak, ex_open = joined(open_, target)
+        _load_line("21c closed loop, %d workers" % LOAD_WORKERS, closed,
+                   closed_peak, smi)
+        _load_line("21c open loop, Poisson at %.3f req/s (%g R)"
+                   % (rate, LOAD_OPEN_FRACTION), open_, open_peak, smi)
+        # the access log replays to the same count and bucket mix
+        entries = obs_load.load_access_log(log_path)
+        want = collections.Counter("b%d" % max(1, int(e.get("batch") or 1))
+                                   for e in entries)
+        replay = obs_load.run_open_loop(
+            obs_load.HttpTarget(url, timeout_s=600),
+            obs_load.replay_schedule(entries, speed=1.0), payload)
+        got = {b: st["n"] for b, st in replay["by_bucket"].items()}
+        batches = server.metrics.batch_rows.count
+        # the main path ends here: read the counts
+        launches = read_launches()
+    finally:
+        server.shutdown()
+    print("load: 21c the access log's %d requests replayed at speed 1: %d "
+          "answered %s, buckets %s against the log's %s, p99 %.3f ms; "
+          "%d batches ran, f32 flash launches %d"
+          % (len(entries), replay["n"], replay["by_status"], got,
+             dict(want), replay["percentiles_ms"]["p99_ms"], batches,
+             launches[route_entry("f32")]), flush=True)
+
+    # LOAD_SAMPLED replies against the in-process engine on the card
+    check = InferenceEngine.from_saved_model(tmp)
+    worst, flips, clear = 0.0, 0, 0
+    for sent, body in target.kept:
+        feeds = {n: np.asarray(v, np.int64)
+                 for n, v in sent["inputs"].items()}
+        ref_v, ref_i = check.run(feeds)
+        got_v = np.asarray(body["outputs"][values_name], np.float32)
+        got_i = np.asarray(body["outputs"][ids_name])
+        worst = max(worst, float(np.abs(got_v - ref_v).max()))
+        apart = (ref_v[..., 0] - ref_v[..., 1]) > LOAD_MARGIN
+        clear += int(apart.sum())
+        flips += int((got_i[..., 0] != ref_i[..., 0])[apart].sum())
+    print("load: 21c %d sampled replies against the in-process engine on "
+          "the card: top-%d values max_abs_err %.3g (atol %g), %d top-1 ids "
+          "differ of the %d positions whose top two lie more than %g apart"
+          % (len(target.kept), OBS_TOPK, worst, LOGITS_ATOL, flips, clear,
+             LOAD_MARGIN), flush=True)
+
+    # the open loop's latency blob through the history and perf_cli gate
+    hist = os.path.join(tmp, "perf_history.jsonl")
+    blob = obs_load.latency_blob(open_)
+    record = {"metric": "transformer_serving_openloop_rps",
+              "value": open_["achieved_rps"], "unit": "req/s",
+              "platform": obs_perf.platform_of(engine.place),
+              "latency": blob}
+    for i in range(3):
+        obs_perf.append_history(record, hist, leg="21c", ts=float(i))
+    gate_argv = ["gate", "--history", hist, "--latency-tolerance",
+                 str(LOAD_GATE_TOL)]
+    rc_same = perf_cli.main(gate_argv)
+    doubled = dict(blob, p99_ms=2 * blob["p99_ms"],
+                   p99_9_ms=2 * blob["p99_9_ms"])
+    obs_perf.append_history(dict(record, latency=doubled), hist, leg="21c",
+                            ts=3.0)
+    rc_doubled = perf_cli.main(gate_argv)
+    res = obs_perf.gate_history(obs_perf.load_history(hist),
+                                latency_tolerance=LOAD_GATE_TOL)
+    why = res.failures[0]["why"] if res.failures else None
+    print("load: 21c latency gate at %g: 3 copies of the open loop's blob "
+          "exit %d; a fourth with its p99 and p99.9 doubled exit %d: %s"
+          % (LOAD_GATE_TOL, rc_same, rc_doubled, why), flush=True)
+    ok_c = closed["n"] == LOAD_CLOSED_N and open_["n"] == LOAD_OPEN_N \
+        and closed["by_status"] == {"200": LOAD_CLOSED_N} \
+        and open_["by_status"] == {"200": LOAD_OPEN_N} \
+        and closed["worst"][0].get("tail") \
+        and open_["worst"][0].get("tail") and ex_closed and ex_open \
+        and len(target.kept) == LOAD_SAMPLED \
+        and worst <= LOGITS_ATOL and flips == 0 \
+        and replay["n"] == len(entries) and got == dict(want) \
+        and replay["by_status"] == {"200": len(entries)} \
+        and rc_same == 0 and rc_doubled == 1 \
+        and res.failures and res.failures[0]["kind"] == "latency" \
+        and "p99" in why \
+        and launches[route_entry("f32")] >= batches >= 1
+    if not ok_c:
+        raise SystemExit("chip_smoke: the served transformer under load "
+                         "broke its contract")
+
+    # 21d: the same server, its engine stalled once
+    stall = load_cli._StallEngine(engine)
+    engine.metrics = None  # the new server's metrics take it over
+    reset_launches()
+    server = InferenceServer(stall, config()).start()
+    try:
+        url = "http://%s:%d" % server.address
+        target = obs_load.HttpTarget(url, timeout_s=600)
+        stall.arm(after_calls=LOAD_STALL_AFTER, stall_s=LOAD_STALL_S)
+        open_s = obs_load.run_open_loop(
+            target, obs_load.build_schedule(rate, n=LOAD_OPEN_N,
+                                            arrival="poisson", mix=mix,
+                                            seed=LOAD_SEED + 2),
+            payload, slo_ms=OBS_SLO_MS)
+        stall_peak_open, _ = joined(open_s, target)
+        stall.arm(after_calls=LOAD_STALL_AFTER, stall_s=LOAD_STALL_S)
+        closed_s = obs_load.run_closed_loop(
+            target, payload, workers=1, n=LOAD_OPEN_N, mix=mix,
+            seed=LOAD_SEED + 2, slo_ms=OBS_SLO_MS)
+        stall_peak_closed, _ = joined(closed_s, target)
+        # the main path ends here: read the counts
+        stalled_launches = read_launches()
+    finally:
+        server.shutdown()
+    _load_line("21d open loop with one %.1f s stall" % LOAD_STALL_S,
+               open_s, stall_peak_open, smi)
+    _load_line("21d closed loop, 1 worker, the same stall", closed_s,
+               stall_peak_closed, smi)
+    open_p99 = open_s["percentiles_ms"]["p99_ms"]
+    closed_p99 = closed_s["percentiles_ms"]["p99_ms"]
+    print("load: 21d coordinated omission at full width: open-loop p99 "
+          "%.3f ms (at least %.0f), closed-loop max %.3f ms (at least "
+          "%.0f) and p99 %.3f ms (below %.3f) [%s]"
+          % (open_p99, LOAD_STALL_S * 500, closed_s["max_ms"],
+             LOAD_STALL_S * 800, closed_p99, open_p99 / 2, smi), flush=True)
+    if open_p99 < LOAD_STALL_S * 500 \
+            or closed_s["max_ms"] < LOAD_STALL_S * 800 \
+            or closed_p99 >= open_p99 / 2 \
+            or stalled_launches[route_entry("f32")] < 1:
+        raise SystemExit("chip_smoke: the injected stall did not split the "
+                         "open loop from the closed loop")
+    return launches, stalled_launches
+
+
+def capi_run(smi):
+    """21e: ResNet-50's batch-16 inference clone exported, and a C program
+    built with this machine's C compiler against the port's C API running
+    it on the card: its logits against the in-process engine's, the
+    capacity refusal, its timings beside engine.run's."""
+    import shutil
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.fluid import io
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    tmp = tempfile.mkdtemp(prefix="capi_")
+    model_dir = os.path.join(tmp, "model")
+    fwd, startup, logits, _ = build_resnet50(RN_INFER_BATCH, train=False)
+    infer = fwd.clone(for_test=True)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    io.save_inference_model(model_dir, ["image"], [logits], scope, infer)
+    del scope
+    image = resnet_feeds(RN_INFER_BATCH, 1, SEED + 220)[0]["image"]
+    in_path, out_path = os.path.join(tmp, "in.bin"), \
+        os.path.join(tmp, "out.bin")
+    image.astype(np.float32).tofile(in_path)
+
+    t0 = time.perf_counter()
+    lib = native.build_capi()
+    build_s = time.perf_counter() - t0
+    src = os.path.join(tmp, "use_capi.c")
+    with open(src, "w") as f:
+        f.write(CAPI_SRC)
+    prog = os.path.join(tmp, "use_capi")
+    cc = shutil.which("cc") or shutil.which("gcc")
+    t0 = time.perf_counter()
+    subprocess.run([cc, src, "-O2", "-o", prog, "-L" + os.path.dirname(lib),
+                    "-lpaddle_tpu_torch_capi",
+                    "-Wl,-rpath," + os.path.dirname(lib)], check=True,
+                   timeout=120)
+    cc_s = time.perf_counter() - t0
+    env = dict(os.environ, PYTHONPATH=native.capi_pythonpath())
+    env.pop("FLAGS_use_gpu", None)
+    t0 = time.perf_counter()
+    out = subprocess.run([prog, model_dir, in_path, out_path,
+                          str(CAPI_RUNS)] + [str(d) for d in image.shape],
+                         env=env, capture_output=True, text=True,
+                         timeout=CAPI_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise SystemExit("chip_smoke: the C program exited %d: %s"
+                         % (out.returncode, out.stderr[-3000:]))
+    fields = dict(kv.split("=", 1) for kv in out.stdout.split())
+    got = np.fromfile(out_path, np.float32)
+    runs_ms = [float(x) for x in fields["runs_ms"].split(",")]
+
+    engine = InferenceEngine.from_saved_model(model_dir)
+    ref = engine.run({"image": image})[0]
+    engine_ms = []
+    for _ in range(CAPI_RUNS):
+        t1 = time.perf_counter()
+        engine.run({"image": image})
+        engine_ms.append((time.perf_counter() - t1) * 1e3)
+    got = got.reshape(ref.shape) if got.size == ref.size else got
+    err = float(np.abs(got - ref).max()) if got.shape == ref.shape \
+        else float("inf")
+    top = float(np.abs(ref).max())
+    print("capi: 21e libpaddle_tpu_torch_capi.so built in %.1f s (%s), the "
+          "C program compiled by %s in %.1f s; it ran %.1f s: create "
+          "(interpreter, torch import, load) %s s, first run %s s, the "
+          "median of %d later runs %.3f ms beside engine.run's %.3f ms; "
+          "output %s x %s, the short buffer's run returned %s; logits "
+          "against the in-process engine on the card max_abs_err %.3g "
+          "(%.3g of the largest; rtol %g) [%s]"
+          % (build_s, lib, cc, cc_s, wall_s, fields["create_s"],
+             fields["first_s"], CAPI_RUNS, float(np.median(runs_ms)),
+             float(np.median(engine_ms)), fields.get("d0"),
+             fields.get("d1"), fields["small"], err, err / top,
+             RN_LOGITS_RTOL, smi), flush=True)
+    if fields["small"] != "-1" or ref.shape != (RN_INFER_BATCH, RN_CLASSES) \
+            or err > RN_LOGITS_RTOL * top or not np.isfinite(got).all():
+        raise SystemExit("chip_smoke: the C API's logits disagree with the "
+                         "in-process engine")
+
+
+def phase_perf():
+    """Phase 21: the step profiler and the perf gate, the load generator,
+    the C API and the perf, load and lint CLIs on the card; returns the
+    launch counts of 21a's profiled steps and 21c-d's served
+    transformer."""
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    profiled = perf_profile(smi)
+    t1 = time.perf_counter()
+    perf_classify(smi)
+    t2 = time.perf_counter()
+    served, stalled = load_serve(smi)
+    t3 = time.perf_counter()
+    capi_run(smi)
+    t4 = time.perf_counter()
+    _cli_processes([
+        (["paddle_tpu_torch.tools.perf_cli", "--selftest"],
+         "perf_cli --selftest"),
+        (["paddle_tpu_torch.tools.load_cli", "--selftest"],
+         "load_cli --selftest"),
+        (["paddle_tpu_torch.tools.lint_cli", "--selftest"],
+         "lint_cli --selftest")])
+    f32 = route_entry("f32")
+    print("perf: 21a %.1f s, 21b %.1f s, 21c-d %.1f s, 21e %.1f s, 21f %.1f "
+          "s; phase 21 took %.1f s; f32 flash launches: 21a %d, 21c %d, "
+          "21d %d"
+          % (t1 - t0, t2 - t1, t3 - t2, t4 - t3, time.perf_counter() - t4,
+             time.perf_counter() - t0, profiled[f32], served[f32],
+             stalled[f32]), flush=True)
+    return {k: profiled.get(k, 0) + served.get(k, 0) + stalled.get(k, 0)
+            for k in set(profiled) | set(served) | set(stalled)}
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -11068,6 +11916,7 @@ def main():
     cli_launches = run(phase_cli)
     ssd_launches = run(phase_ssd)
     analysis_launches = run(phase_analysis)
+    perf_launches = run(phase_perf)
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
@@ -11096,14 +11945,15 @@ def main():
     paths = (launches[f32], train_launches[f32], decode_launches[f32],
              stack_launches[f32], obs_serve_launches[f32],
              ps_transformer_launches[f32], cli_launches[f32],
-             analysis_launches[f32])
+             analysis_launches[f32], perf_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
                          "a main path (served, trained, decoded, trained "
                          "with the whole stack, served with the "
                          "observability, trained through the pservers, "
                          "served by serve_cli, trained verified and "
-                         "optimized: %s)" % (paths,))
+                         "optimized, profiled and served under load: %s)"
+                         % (paths,))
     kernels = []
     for route in fa.ROUTES:
         name = route_entry(route)
@@ -11113,7 +11963,7 @@ def main():
             ctr_launches, seq2seq_launches, book_launches, ctc_launches,
             v2_launches, stack_launches, obs_amp_launches,
             obs_serve_launches, ps_ctr_launches, ps_transformer_launches,
-            cli_launches, ssd_launches, analysis_launches))
+            cli_launches, ssd_launches, analysis_launches, perf_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

@@ -10,7 +10,10 @@ to a multiple of `ragged_bucket` (DEFAULT_RAGGED_BUCKET, so the flat
 lengths the card sees are few), `nvalid` counts the real rows and
 `max_seqlen` is the innermost level's longest sequence bucketed by
 `bucket_max_seqlen`.  Either way int64 ids are range-checked, then run
-as int32, as the executor converts a feed.
+as int32, as the executor converts a feed.  Each array placed on the
+device counts its bytes as h2d (`obs.telemetry.on_transfer`; a ragged
+slot its values), as the JAX feeder counts its device_put: the
+executor then counts nothing for the feed that is already there.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import numpy as np
 from ..core.ragged import RaggedTensor, bucket_max_seqlen
 from ..core.types import (canonical_dtype, guard_int64_narrowing,
                           tensor_from_numpy)
+from ..obs import telemetry as obs_tele
 from .framework import Variable, default_main_program
 
 __all__ = ["DataFeeder", "DEFAULT_RAGGED_BUCKET"]
@@ -96,6 +100,7 @@ class DataFeeder:
                                       values.dtype)], 0)
         guard_int64_narrowing(values, name)
         inner = splits[-1]
+        obs_tele.on_transfer("h2d", values.nbytes)
         return RaggedTensor(
             tensor_from_numpy(values, self.device),
             [tensor_from_numpy(s, self.device) for s in splits],
@@ -122,5 +127,6 @@ class DataFeeder:
             if shape is not None:
                 arr = arr.reshape([-1] + list(shape))
             guard_int64_narrowing(arr, name)
+            obs_tele.on_transfer("h2d", arr.nbytes)
             out[name] = tensor_from_numpy(arr, self.device)
         return out

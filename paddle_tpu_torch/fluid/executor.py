@@ -1,7 +1,7 @@
 """Executor: runs block 0 of a Program op by op, eagerly.
 
 Counterpart of paddle_tpu/fluid/executor.py without its jit
-segmentation, buffer donation, compile cache and telemetry.  Each op's
+segmentation, buffer donation and compile cache.  Each op's
 kernel comes from the registry and runs on the tensors of the
 executor's place; PyTorch dispatches the work to the card as it goes.
 A grad op `<type>_grad` runs the explicit grad kernel registered for
@@ -53,12 +53,20 @@ A program without grad ops that writes no persistable runs under
 `torch.no_grad()`, since inference tensors cannot be saved for a
 backward and `torch.func.vjp` computes its grads regardless.
 
+Telemetry, as on the JAX side (paddle_tpu/fluid/executor.py:921,
+:1080, :1092): a run's feed preparation is timed
+(`obs.telemetry.on_feed_seconds`), each feed the run places on the
+device counts its bytes as h2d and each fetch pulled to the host its
+bytes as d2h (`on_transfer`); a feed already on the device moves
+nothing and counts nothing.
+
 Places: `CUDAPlace(device_id)` is the default; `CPUPlace()` must be
 asked for.  A CUDAPlace without a CUDA device raises RuntimeError when
 the executor is made — the port never carries on on the CPU by itself.
 """
 
 import contextlib
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -307,6 +315,8 @@ def prepare_feed(block_desc, name, val, device):
     if isinstance(val, torch.Tensor):
         if declared is not None:
             val = val.to(torch_dtype(declared))
+        if val.device != torch.device(device):
+            obs_tele.on_transfer("h2d", val.numel() * val.element_size())
         return val.to(device)
     arr = np.asarray(val)
     target = (np_dtype(declared) if declared is not None
@@ -314,7 +324,18 @@ def prepare_feed(block_desc, name, val, device):
               else arr.dtype)
     if target == np.int32:
         guard_int64_narrowing(arr, name)
-    return tensor_from_numpy(arr.astype(target, copy=False), device)
+    arr = arr.astype(target, copy=False)
+    obs_tele.on_transfer("h2d", arr.nbytes)
+    return tensor_from_numpy(arr, device)
+
+
+def _count_fetch(t):
+    """A dense fetch's bytes as d2h, counted before bf16 widens (the
+    JAX executor counts its arrays' bytes; ragged fetches count
+    nothing there either)."""
+    if isinstance(t, torch.Tensor):
+        obs_tele.on_transfer("d2h", t.numel() * t.element_size())
+    return t
 
 
 def fetch_to_host(t):
@@ -468,8 +489,11 @@ class Executor:
         trains = bool(persist) or any(
             op_registry.is_grad_op_type(op.type) for op in block.ops)
         with torch.no_grad() if trains else torch.inference_mode():
+            t_feed = time.perf_counter()
             env = {name: prepare_feed(block, name, val, self.device)
                    for name, val in (feed or {}).items()}
+            if feed:
+                obs_tele.on_feed_seconds(time.perf_counter() - t_feed)
             ctx = ExecContext(program, 0, env, scope=scope,
                               place=self.place, device=self.device,
                               rng=self._stream(scope, seed))
@@ -495,5 +519,5 @@ class Executor:
             # state) resolves from the scope
             outs = [_lookup(ctx, n) for n in fetch_list]
         if return_numpy:
-            return [fetch_to_host(o) for o in outs]
+            return [fetch_to_host(_count_fetch(o)) for o in outs]
         return outs

@@ -16,13 +16,29 @@ lock on a file in the build directory, into a temporary directory, and
 `os.replace`s the finished library into place, so no process loads a
 half-written one; it runs only when a source is newer than the library.
 A failed build raises with make's output.
+
+The C inference API (`native/capi.cc`, which embeds CPython and drives
+`paddle_tpu_torch.capi_impl`) builds the same way, at first use of
+`build_capi()`, into `libpaddle_tpu_torch_capi.so` beside the runtime.
+Its compile and link flags come from the building interpreter's
+`sysconfig` (INCLUDEPY, LIBDIR, LDVERSION), not from `python3-config`,
+which need not be on PATH for that interpreter; an interpreter without
+a shared libpython (`Py_ENABLE_SHARED` 0) cannot be embedded this way
+and `build_capi` raises saying so.  An embedded CPython computes its
+prefix from the C program, not from the environment that holds torch:
+a C program linked against the library runs with `PYTHONPATH` set to
+`capi_pythonpath()` (the repo root and this interpreter's
+site-packages).  Nothing is written under `native/` or `paddle_tpu/`.
 """
 
 import ctypes
 import fcntl
 import os
 import shutil
+import site
 import subprocess
+import sys
+import sysconfig
 import tempfile
 import threading
 
@@ -31,7 +47,8 @@ import numpy as np
 __all__ = ["lib", "ParameterServer", "PServerClient", "Master",
            "MasterClient", "RecordIOWriter", "RecordIOReader",
            "BuddyAllocator", "OPT_SGD", "OPT_MOMENTUM", "OPT_ADAGRAD",
-           "OPT_ADAM", "SOURCE_DIR", "BUILD_DIR", "library_path"]
+           "OPT_ADAM", "SOURCE_DIR", "BUILD_DIR", "library_path",
+           "capi_library_path", "build_capi", "capi_pythonpath"]
 
 OPT_SGD = 0
 OPT_MOMENTUM = 1
@@ -43,6 +60,8 @@ SOURCE_DIR = os.path.join(_PKG_DIR, "native")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "paddle_tpu_torch", "native")
 _LIB_NAME = "libpaddle_tpu_rt.so"
+_CAPI_NAME = "libpaddle_tpu_torch_capi.so"
+_CAPI_SOURCES = ("capi.cc", "Makefile")
 
 _load_lock = threading.Lock()
 _lib = None
@@ -53,40 +72,87 @@ def library_path():
     return os.path.join(BUILD_DIR, _LIB_NAME)
 
 
-def _stale(so_path):
-    """True when the library is missing or a source, header or the
-    Makefile is newer than it."""
+def capi_library_path():
+    """Where the built C inference API library lives."""
+    return os.path.join(BUILD_DIR, _CAPI_NAME)
+
+
+def _runtime_sources():
+    return [f for f in os.listdir(SOURCE_DIR)
+            if (f.endswith((".cc", ".h")) or f == "Makefile")
+            and f != "capi.cc"]
+
+
+def _stale(so_path, sources=None):
+    """True when the library is missing or one of its `sources` (default:
+    the runtime's sources, headers and the Makefile) is newer than
+    it."""
     if not os.path.exists(so_path):
         return True
     so_mtime = os.path.getmtime(so_path)
     return any(os.path.getmtime(os.path.join(SOURCE_DIR, f)) > so_mtime
-               for f in os.listdir(SOURCE_DIR)
-               if f.endswith((".cc", ".h")) or f == "Makefile")
+               for f in (sources or _runtime_sources()))
 
 
-def _build(so_path):
-    """Build the library into `so_path` unless it is fresh: make writes
-    into a temporary directory beside it, under an exclusive file lock
-    that other processes building the same library wait on."""
+def _build(so_path, target="all", var="OUT", sources=None, extra=()):
+    """Build `make target` into `so_path` unless it is fresh: make
+    writes into a temporary directory beside it, under an exclusive file
+    lock that other processes building the native libraries wait on."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not _stale(so_path):
+        if not _stale(so_path, sources):
             return  # another process built it while we waited
         tmp = tempfile.mkdtemp(dir=BUILD_DIR, prefix="make-")
         try:
-            out = os.path.join(tmp, _LIB_NAME)
-            proc = subprocess.run(["make", "-C", SOURCE_DIR, "OUT=" + out],
-                                  stdout=subprocess.PIPE,
+            out = os.path.join(tmp, os.path.basename(so_path))
+            cmd = ["make", "-C", SOURCE_DIR, target, "%s=%s" % (var, out)]
+            cmd += list(extra)
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT)
             if proc.returncode != 0 or not os.path.exists(out):
                 raise RuntimeError(
-                    "native runtime build failed (make -C %s OUT=%s):\n%s"
-                    % (SOURCE_DIR, out,
-                       proc.stdout.decode(errors="replace")))
+                    "native build failed (%s):\n%s"
+                    % (" ".join(cmd), proc.stdout.decode(errors="replace")))
             os.replace(out, so_path)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _python_flags():
+    """(PY_INCLUDES, PY_LDFLAGS) for embedding this interpreter, from
+    its sysconfig."""
+    cfg = sysconfig.get_config_var
+    if not cfg("Py_ENABLE_SHARED"):
+        raise RuntimeError(
+            "the C inference API embeds CPython and links its shared "
+            "library, but this interpreter (%s) was built without one "
+            "(Py_ENABLE_SHARED=%r, LDLIBRARY=%r)"
+            % (sys.executable, cfg("Py_ENABLE_SHARED"), cfg("LDLIBRARY")))
+    libdir = cfg("LIBDIR")
+    return ("-I" + cfg("INCLUDEPY"),
+            "-L%s -lpython%s -Wl,-rpath,%s" % (libdir, cfg("LDVERSION"),
+                                               libdir))
+
+
+def build_capi():
+    """Build (if needed) the C inference API library; returns its path.
+    A C program links it with `-L<dir> -lpaddle_tpu_torch_capi` and
+    runs with PYTHONPATH=`capi_pythonpath()`."""
+    so_path = capi_library_path()
+    if _stale(so_path, _CAPI_SOURCES):
+        includes, ldflags = _python_flags()
+        _build(so_path, target="capi", var="CAPI", sources=_CAPI_SOURCES,
+               extra=("PY_INCLUDES=" + includes, "PY_LDFLAGS=" + ldflags))
+    return so_path
+
+
+def capi_pythonpath():
+    """The PYTHONPATH a C program embedding the library runs with: the
+    directory that holds this package, then the building interpreter's
+    site-packages (where torch and numpy are)."""
+    return os.pathsep.join([os.path.dirname(_PKG_DIR)]
+                           + list(site.getsitepackages()))
 
 
 def lib():

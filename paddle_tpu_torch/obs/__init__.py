@@ -21,11 +21,19 @@ values.
                   thread-local current binding, and per-request spans
                   that survive the serving batcher's thread hop;
   * `tail`      — tail-latency capture: the full span tree of slow or
-                  errored requests in a bounded ring (`/debug/tail`).
+                  errored requests in a bounded ring (`/debug/tail`);
+  * `perf`      — the step profiler (a device/input/host split of
+                  sampled steps, the device part the card's busy time),
+                  the bottleneck classifier over the roofline, and the
+                  perf-history regression gate;
+  * `load`      — the load generator (open and closed loop, access-log
+                  replay, the tail and exemplar joins); a submodule
+                  imported by name (`paddle_tpu_torch.obs.load`), not
+                  listed here, as in the JAX package.
 
 They are copies, not imports: the port imports nothing of the JAX
-package.  The JAX package's `perf`, `mem`, `comm`, `fleet` and `load`
-have no port yet (ROADMAP A2, A9, A10).
+package.  The JAX package's `mem` waits with the compiled segments
+(ROADMAP A2), `comm` and `fleet` with the mesh (A9).
 
 Everything is off by default and cheap when off: a span with tracing
 disabled is one check, the health and flight hooks start with one
@@ -33,7 +41,7 @@ flag or None check.
 """
 
 from . import registry, telemetry, trace  # noqa: F401
-from . import context, flight, health, tail  # noqa: F401
+from . import context, flight, health, perf, tail  # noqa: F401
 
-__all__ = ["context", "flight", "health", "registry", "tail", "telemetry",
-           "trace"]
+__all__ = ["context", "flight", "health", "perf", "registry", "tail",
+           "telemetry", "trace"]

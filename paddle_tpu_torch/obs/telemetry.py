@@ -5,10 +5,18 @@ time, examples/sec, steps and last loss in one labeled metric family
 (the `trainer` label; the v2 SGD loop reports as "v2"), a
 `<trainer>/step` span on the trace, an optional step observer, and
 gauges through `set_gauge`; `snapshot`/`snapshot_delta` are what the
-flight recorder's step records carry.  Of the JAX module's executor
-hooks the port keeps `on_executor_run` (the `executor_runs_total`
-counter); jit traces and transfer bytes have no counterpart in the
-port's eager executor.
+flight recorder's and `obs.perf`'s step records carry.  Of the JAX
+module's executor hooks the port keeps `on_executor_run` (the
+`executor_runs_total` counter), `on_feed_seconds` (the seconds of a
+run's feed preparation, `executor_feed_seconds_total`) and
+`on_transfer` (`executor_transfer_bytes_total{direction}`: the bytes of
+each feed the executor or the DataFeeder places on the device, h2d, and
+of each fetch pulled to the host, d2h; a feed already on the device
+moves nothing and counts nothing).  On `CPUPlace` they count as the JAX
+package counts them on its CPU backend.  Jit traces
+(`executor_jit_traces_total`) and the persistent compile cache
+(`compile_cache_*`) have no counterpart until the executor compiles
+segments (ROADMAP A2): `obs.perf`'s records read them as 0.
 
 Everything funnels into the default registry (`obs.registry`).  All
 helpers are cheap enough to call unconditionally: a counter inc is one
@@ -20,9 +28,9 @@ import time
 from . import registry as registry_mod
 from . import trace as trace_mod
 
-__all__ = ["on_executor_run", "step", "set_gauge", "install_step_observer",
-           "step_observer", "snapshot", "snapshot_delta",
-           "snapshot_and_delta"]
+__all__ = ["on_executor_run", "on_feed_seconds", "on_transfer", "step",
+           "set_gauge", "install_step_observer", "step_observer",
+           "snapshot", "snapshot_delta", "snapshot_and_delta"]
 
 # histogram bounds for step wall time: sub-ms tiny CPU steps up to
 # multi-second first steps
@@ -38,6 +46,29 @@ def on_executor_run():
     """One Executor.run() dispatch (any program)."""
     _reg().counter("executor_runs_total",
                    "Executor.run() invocations").inc()
+
+
+def on_feed_seconds(seconds):
+    """Wall time the executor spent preparing feeds (dtype casts, the
+    int64 guard, host->device placement) for one run.  A counter of
+    seconds, so `snapshot_delta` attributes input time per step — the
+    h2d-INPUT half of the time split that `on_transfer` only reports in
+    bytes."""
+    if seconds > 0:
+        _reg().counter("executor_feed_seconds_total",
+                       "seconds spent preparing/placing executor "
+                       "feeds (host->device input time)").inc(seconds)
+
+
+def on_transfer(direction, nbytes):
+    """Host<->device bytes moved by the executor feed/fetch paths.
+    direction: "h2d" (feeds placed on device) or "d2h" (fetches pulled
+    to host)."""
+    if nbytes:
+        _reg().counter("executor_transfer_bytes_total",
+                       "host<->device bytes moved by executor "
+                       "feed/fetch", labelnames=("direction",)) \
+              .labels(direction=direction).inc(int(nbytes))
 
 
 # ---------------------------------------------------------------------------

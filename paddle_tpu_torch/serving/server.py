@@ -9,7 +9,8 @@ Counterpart of paddle_tpu/serving/server.py.  Endpoints:
                    exemplars, when the scraper asks for it)
   GET  /healthz    {"status": "ok" | "draining", plus registry-derived
                    signals: queue depth, error and shed totals, nonfinite
-                   counts, bucket first runs, and the SLO's burn}
+                   counts, bucket first runs, and the SLO's burn; and
+                   the platform of the engine's place, "gpu" or "cpu"}
   GET  /debug/tail the tail recorder's ring: the span trees of the slow
                    and errored requests
 
@@ -35,6 +36,7 @@ import numpy as np
 from ..core.ragged import RaggedTensor, ragged_to_sequences
 from ..obs import context as obs_context
 from ..obs import flight as obs_flight
+from ..obs import perf as obs_perf
 from ..obs import registry as obs_registry
 from ..obs import tail as obs_tail
 from .batcher import (BatcherConfig, DeadlineExceededError, MicroBatcher,
@@ -103,6 +105,10 @@ class _Handler(BaseHTTPRequestHandler):
     # one handler thread per connection; all state lives on
     # self.server.owner
     protocol_version = "HTTP/1.1"
+    # a reply leaves in two writes (headers, then body): with Nagle's
+    # algorithm the body waits for the client's delayed ACK of the
+    # headers, about 40 ms on every keep-alive request after the first
+    disable_nagle_algorithm = True
 
     def log_message(self, fmt, *args):  # quiet by default
         pass
@@ -262,6 +268,10 @@ class InferenceServer:
             "numerics_nonfinite_total": sum(
                 s["value"] for s in nonfinite.samples()),
         }
+        place = getattr(self.engine, "place", None)
+        if place is not None:
+            # what load_cli's history records name (not in the JAX body)
+            body["platform"] = obs_perf.platform_of(place)
         if self.slo is not None:
             # the probe cadence defines the burn window (SLOTracker)
             body["slo_burn_rate"] = self.slo.update()

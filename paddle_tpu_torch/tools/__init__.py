@@ -1,8 +1,13 @@
 """Operational tools: the cluster launcher (`cluster_launch`), the
 inference server (`serve_cli`), the paddle_trainer-style trainer
-(`trainer_cli`), the observability dump and selftest (`obs_dump`) and
-the chaos harness (`chaos_cli`: supervised training under injected
-faults).  The JAX package's other CLIs wait with ROADMAP A9 and A10.
+(`trainer_cli`), the observability dump and selftest (`obs_dump`), the
+chaos harness (`chaos_cli`: supervised training under injected
+faults), the perf CLI (`perf_cli`: bottleneck classification, perf
+history and its regression gate), the load generator (`load_cli`: open
+and closed loop, access-log replay) and the program linter
+(`lint_cli`).  The JAX package's other CLIs wait with ROADMAP A2
+(`pcache_cli`, `mem_cli`) and A9 (`shard_cli`, `comm_cli`, `fleet_cli`,
+`elastic_cli`, `tune_cli`).
 
 The CLIs run on the card, as the reference's `paddle` CLIs do with
 `--use_gpu=1`; `--use_gpu=0` runs them on the CPU."""

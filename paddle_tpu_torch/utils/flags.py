@@ -8,7 +8,10 @@ the AMP policy (`amp_bf16`, `amp_bf16_act`), the batch-norm statistics
 form (`bn_shifted_stats`), the optimizer's update fusion
 (`fuse_optimizer`, `fuse_optimizer_max_numel`: fluid/fusion.py), and
 the executor's program verification and rewrite pipeline
-(`verify_program`, `compile_passes`: fluid/executor.py).
+(`verify_program`, `compile_passes`: fluid/executor.py), and the C
+inference API's place (`use_gpu`: capi_impl.py; the C signature has
+none, so `FLAGS_use_gpu=0` in a C program's environment asks for the
+CPU).
 Kernels read a flag when they run, so a flag set around `Executor.run`
 (`fluid.amp.bf16_guard()`) governs that run; the optimizer reads the
 fusion flags when it builds the updates.
@@ -103,5 +106,9 @@ DEFINE_flag("compile_passes", "",
             "'default+fuse:cap=8'.  Every pass is verified before and "
             "after it runs.  Empty (the default) runs programs exactly "
             "as built")
+DEFINE_flag("use_gpu", True,
+            "the C inference API (capi_impl.CEngine) runs on CUDAPlace(0); "
+            "0 runs it on the CPU.  Read from FLAGS_use_gpu when the "
+            "package is imported, as the other flags are")
 
 parse_flags_from_env()

@@ -65,7 +65,11 @@ def test_every_port_module_is_scanned():
                 ("compile", "fingerprint.py"), ("compile", "passes.py"),
                 ("compile", "opt_passes.py"),
                 ("resilience", "supervisor.py"), ("tools", "chaos_cli.py"),
-                ("utils", "device_peaks.py")):
+                ("utils", "device_peaks.py"),
+                # perf and load observability, the C API and their CLIs
+                ("obs", "perf.py"), ("obs", "load.py"), ("capi_impl.py",),
+                ("tools", "perf_cli.py"), ("tools", "load_cli.py"),
+                ("tools", "lint_cli.py")):
         assert os.path.join("paddle_tpu_torch", *new) in rel
     v2 = sorted(os.path.basename(p) for p in rel
                 if os.path.dirname(p) == os.path.join("paddle_tpu_torch",
@@ -150,11 +154,19 @@ def test_cli_stack_import_leaves_jax_unloaded():
 
 
 def test_clis_refuse_the_cpu_unless_asked(tmp_path):
-    """serve_cli and trainer_cli run on CUDAPlace(0) unless given
-    --use_gpu=0: without a CUDA device they raise naming CUDA."""
+    """serve_cli, trainer_cli and the perf, load and lint CLIs run on
+    CUDAPlace(0) unless given --use_gpu=0: without a CUDA device they
+    raise naming CUDA."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default place is valid")
-    from paddle_tpu_torch.tools import serve_cli, trainer_cli
+    from paddle_tpu_torch.tools import (lint_cli, load_cli, perf_cli,
+                                        serve_cli, trainer_cli)
+
+    for cli in (perf_cli, load_cli, lint_cli):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--selftest"])
+        assert cli.parse_args(["--use_gpu=0"]).use_gpu is False
+        assert cli.parse_args([]).use_gpu is True
 
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_cli.main(["--selftest"])
@@ -172,6 +184,23 @@ def test_clis_refuse_the_cpu_unless_asked(tmp_path):
     assert trainer_cli.parse_args(["--config=c", "--use_gpu=false"]) \
         .use_gpu is False
     assert trainer_cli.parse_args(["--config=c"]).use_gpu is True
+
+
+def test_perf_load_capi_import_leaves_jax_unloaded():
+    """The step profiler and gate, the load generator, the C API's
+    Python side and the perf, load and lint CLIs."""
+    code = ("import sys, paddle_tpu_torch.obs.perf, "
+            "paddle_tpu_torch.obs.load, paddle_tpu_torch.capi_impl, "
+            "paddle_tpu_torch.tools.perf_cli, "
+            "paddle_tpu_torch.tools.load_cli, "
+            "paddle_tpu_torch.tools.lint_cli; "
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_serving_import_leaves_jax_unloaded():

@@ -417,7 +417,9 @@ def test_wire_protocol_crosses_the_packages():
 def test_the_port_builds_its_own_library():
     """Its library lives under build/paddle_tpu_torch/native/, built
     from the port's sources, which equal the JAX package's byte for
-    byte; the port's Makefile names only the runtime."""
+    byte; the port's Makefile's default target builds only the runtime,
+    and its `capi` target the C inference API (a source of its own, which
+    a change to does not make the runtime stale)."""
     native.lib()
     path = native.library_path()
     assert path == os.path.join(ROOT, "build", "paddle_tpu_torch", "native",
@@ -429,10 +431,13 @@ def test_the_port_builds_its_own_library():
         assert filecmp.cmp(os.path.join(ROOT, "native", f),
                            os.path.join(native.SOURCE_DIR, f), shallow=False)
     with open(os.path.join(native.SOURCE_DIR, "Makefile")) as f:
-        assert "capi" not in f.read()
+        make = f.read()
+    assert "\nall: $(OUT)\n" in make and "\ncapi: $(CAPI)\n" in make
     assert sorted(os.listdir(native.SOURCE_DIR)) == sorted(
-        ["Makefile", "master.cc", "optimizer.h", "paddle_tpu_rt.h",
-         "pserver.cc", "recordio.cc", "transport.cc", "transport.h"])
+        ["Makefile", "capi.cc", "master.cc", "optimizer.h",
+         "paddle_tpu_rt.h", "pserver.cc", "recordio.cc", "transport.cc",
+         "transport.h"])
+    assert "capi.cc" not in native._runtime_sources()
 
 
 _LOAD = r'''

@@ -1,4 +1,4 @@
-"""Six faults of the port against the JAX package, each repaired:
+"""Seven faults of the port against the JAX package, each repaired:
 
 - The flash kernel's routes: head dims up to 256 in float32, bfloat16
   and float16 (129..256 on routes of their own), a clear error above
@@ -34,6 +34,16 @@
   `DEFINE_flag`, and `jit.functionalize`; the `__all__` of `fluid`,
   `fluid.layers`, `utils` and `jit` hold every JAX name but
   `ParallelDo` and `get_places` (ROADMAP A9).
+- The executor's feed and transfer telemetry (found in PR 19): the
+  port's executor timed no feed preparation and counted no transfer
+  bytes, where the JAX executor publishes `executor_feed_seconds_total`
+  and `executor_transfer_bytes_total{direction}` (h2d per placed feed,
+  d2h per fetch) and its DataFeeder counts what it places; a DataFeeder
+  batch then fed counts once, as in the JAX package.
+- The server's replies on a kept-alive connection (found in PR 19):
+  headers and body left in two writes without TCP_NODELAY, so each
+  reply after a connection's first waited for the client's delayed ACK
+  (about 40 ms a request on Linux); the handler now sets TCP_NODELAY.
 """
 
 import importlib
@@ -563,3 +573,80 @@ def test_define_flag_and_functionalize():
     assert isinstance(fp, FunctionalProgram)
     (out,), _ = fp({}, {"x": torch.ones(2, 3)})
     assert out.tolist() == [[2.0] * 3] * 2
+
+
+def test_executor_and_feeder_count_feeds_and_transfers():
+    from paddle_tpu.obs import telemetry as jtele
+    from paddle_tpu_torch.obs import registry as tregistry
+    from paddle_tpu_torch.obs import telemetry as ttele
+
+    tregistry.reset_registry()
+    rows = [(np.full(13, i, np.float32), np.full(1, i, np.float32))
+            for i in range(5)]
+    got = {}
+    for name, fluid, tele in (("jax", jfluid, jtele),
+                              ("torch", tfluid, ttele)):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = fluid.layers.data(name="x", shape=[13], dtype="float32")
+            y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+            loss = fluid.layers.mean(x=fluid.layers.square_error_cost(
+                input=fluid.layers.fc(input=x, size=1), label=y))
+            fluid.optimizer.SGD(learning_rate=0.01).minimize(loss)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CPUPlace())
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            feeder = fluid.DataFeeder(place=fluid.CPUPlace(),
+                                      feed_list=[x, y])
+            snap = tele.snapshot()
+            exe.run(main, feed=feeder.feed(rows), fetch_list=[loss])
+            exe.run(main, feed={"x": np.ones((2, 13), np.float32),
+                                "y": np.ones((2, 1), np.float32)},
+                    fetch_list=[loss])
+            delta = tele.snapshot_delta(snap)
+        got[name] = {k: v for k, v in delta.items()
+                     if k.startswith("executor_transfer_bytes_total")}
+        assert delta.get("executor_feed_seconds_total", 0) > 0
+    assert got["torch"] == got["jax"] == {
+        "executor_transfer_bytes_total{direction=h2d}": 5 * 14 * 4
+        + 2 * 14 * 4,
+        "executor_transfer_bytes_total{direction=d2h}": 2 * 4}
+
+
+def test_server_replies_without_nagle_delay():
+    import socket
+
+    from paddle_tpu_torch.obs import context as obs_context
+    from paddle_tpu_torch.obs import load as obs_load
+    from paddle_tpu_torch.serving import InferenceServer, ServerConfig
+    from paddle_tpu_torch.serving import server as server_mod
+
+    nodelay = []
+    handler = server_mod._Handler
+    setup = handler.setup
+
+    def recording_setup(self):
+        setup(self)
+        nodelay.append(self.connection.getsockopt(
+            socket.IPPROTO_TCP, socket.TCP_NODELAY))
+
+    engine = obs_load.build_tiny_engine(dim=8, classes=3, buckets=(2,),
+                                        place=tfluid.CPUPlace())
+    handler.setup = recording_setup
+    try:
+        server = InferenceServer(engine, ServerConfig(
+            port=0, max_batch=2, warmup=False)).start()
+        try:
+            host, port = server.address
+            target = obs_load.HttpTarget("http://%s:%d" % (host, port))
+            payload = obs_load.vector_payload("img", 8)(2)
+            for _ in range(3):
+                status, _, _ = target.infer(payload,
+                                            obs_context.TraceContext())
+                assert status == 200
+        finally:
+            server.shutdown()
+    finally:
+        handler.setup = setup
+    assert nodelay and all(nodelay), nodelay
