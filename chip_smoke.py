@@ -438,6 +438,26 @@ no result line:
      the in-process engine's, a short buffer refused with -1, the build,
      create, first and later runs' seconds beside engine.run's.  (f) The
      perf, load and lint CLIs' selftests as three processes on the card.
+  22. mesh: the parallel package over NCCL at world size 1 (one card).
+     (a) distributed.init_multihost over a file:// store (a fresh
+     temporary directory), then global_mesh(): the backend (nccl), the
+     axes ({"dp": 1}), the device type (cuda) and get_places' count
+     under the mesh.  (b) Phase 5's program (Momentum 0.9 at lr 0.01)
+     through parallel.ParallelTrainer with zero_stage=1 on that mesh:
+     startup on the card, 3 steps whose losses (rtol 2e-5) and state
+     (rtol 2e-4, atol 1e-5, tests/test_parallel_trainer.py's
+     tolerances) must equal the plain Executor's 3 steps on the card
+     from the same state, 12 f32 flash launches a step (the op runs the
+     kernel on each rank's local shard), and the median step of each
+     (2 warm, 5 timed, fed tensors on the card).  (c)
+     models/transformer.py at the same widths: flash against dense
+     logits (atol 1e-4), 2 SGD steps through the flash kernel with
+     finite grads and a falling loss, and Ulysses at sp 1 equal to
+     flash bit for bit.  (d) parallel.pipeline_apply with 1 stage and 4
+     microbatches against the stage applied in sequence, and
+     switch_moe at ep 1 with 8 experts at d_model 512 and capacity
+     factor 8 (no token dropped) against the dense mixture, each within
+     1e-5.  (e) The process group is destroyed.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -11871,6 +11891,265 @@ def phase_perf():
             for k in set(profiled) | set(served) | set(stalled)}
 
 
+# phase 22: the mesh (the tolerances are tests/test_parallel_trainer.py's)
+MESH_LOSS_RTOL, MESH_PARAM_RTOL, MESH_PARAM_ATOL = 2e-5, 2e-4, 1e-5
+MESH_STEPS, MESH_WARM, MESH_TIMED = 3, 2, 5
+MESH_LOGITS_ATOL = 1e-4       # flash against dense, the functional model
+MESH_SCHEDULE_ATOL = 1e-5     # GPipe and MoE against their plain versions
+MESH_MOE_TOKENS, MESH_MOE_EXPERTS, MESH_MOE_CF = 256, 8, 8.0
+MESH_PIPE_ROWS, MESH_PIPE_MB = 64, 4
+
+
+def mesh_group(device):
+    """22a: init_multihost over a world of one rank (a file:// store in a
+    fresh temporary directory), then global_mesh(); the backend, axes and
+    get_places' count.  Returns the mesh."""
+    import torch
+    from paddle_tpu_torch import distributed as tdist
+    from paddle_tpu_torch.fluid import Executor, Program, layers, \
+        program_guard
+    from paddle_tpu_torch.parallel.mesh import mesh_scope
+    from paddle_tpu_torch.parallel.trainer import place_of
+
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_mesh_"),
+                         "store")
+    started = tdist.init_multihost(coordinator="file://" + store,
+                                   num_processes=1, process_id=0,
+                                   device=device)
+    mesh = tdist.global_mesh(device=device)
+    backend = torch.distributed.get_backend()
+    main, startup = Program(), Program()
+    with mesh_scope(mesh):
+        with program_guard(main, startup):
+            places = layers.get_places()
+        count, = Executor(place_of(mesh)).run(main, fetch_list=[places])
+    print("mesh: init_multihost %s, backend %s, world %d, axes %s, device "
+          "%s, get_places %s"
+          % (started, backend, torch.distributed.get_world_size(),
+             dict(zip(mesh.mesh_dim_names, mesh.shape)), mesh.device_type,
+             count.tolist()), flush=True)
+    want = "nccl" if device == "cuda" else "gloo"
+    if not started or backend != want or mesh.device_type != device \
+            or mesh.mesh_dim_names != ("dp",) or count.tolist() != [0]:
+        raise SystemExit("chip_smoke: the mesh is not a %s world of one "
+                         "%s rank" % (want, device))
+    return mesh
+
+
+def _worst(got, ref, rtol, atol):
+    """(name, the largest |got - ref| over atol + rtol |ref|) of two
+    {name: ndarray}."""
+    worst = ("", 0.0)
+    for n in ref:
+        r = np.abs(got[n] - ref[n]) / (atol + rtol * np.abs(ref[n]))
+        worst = max(worst, (n, float(r.max())), key=lambda w: w[1])
+    return worst
+
+
+def mesh_trainer(mesh, device, smi, batch=BATCH, seq=SEQ, vocab=VOCAB,
+                 n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL):
+    """22b: phase 5's program through ParallelTrainer (ZeRO-1) on the
+    mesh, 3 steps against the plain Executor's from the same state; both
+    steps' medians.  Returns the launch counts of the trainer's steps."""
+    import torch
+    from paddle_tpu_torch.fluid import Executor, MomentumOptimizer
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.parallel import ParallelTrainer
+
+    main, startup, loss, _ = tp.build_transformer_program(
+        batch, seq, vocab, n_layer=n_layer, n_head=n_head, d_model=d_model)
+    MomentumOptimizer(LR, MOMENTUM).minimize(loss, main, startup)
+    names = ["tokens", "positions", "targets"]
+    t0 = time.perf_counter()
+    trainer = ParallelTrainer(main, startup, names, [loss], mesh,
+                              zero_stage=1).init()
+    init_s = time.perf_counter() - t0
+    init = {n: trainer.fetch_state(n) for n in sorted(trainer.state)}
+    feeds = [tp.transformer_feeds(batch, seq, vocab, seed=SEED + i,
+                                  targets=True) for i in range(MESH_STEPS)]
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(trainer.step(f)[0].reshape(-1)[0]) for f in feeds]
+    steps_s = time.perf_counter() - t0
+    launches = read_launches()
+    after = {n: trainer.fetch_state(n) for n in init}
+    exe = Executor(trainer.place)
+    ref_losses, ref_after, _ = run_from_state(exe, main, loss, init, feeds)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    name, worst = _worst(after, ref_after, MESH_PARAM_RTOL, MESH_PARAM_ATOL)
+    print("mesh: ParallelTrainer (zero_stage 1) init %.2f s, %d steps %.2f "
+          "s, losses %s; the executor's %s; loss rel err %.3g (rtol %g); "
+          "state %d tensors, worst %s at %.3g of atol %g + rtol %g; "
+          "launches %s"
+          % (init_s, MESH_STEPS, steps_s,
+             ", ".join("%.6f" % x for x in losses),
+             ", ".join("%.6f" % x for x in ref_losses), loss_err,
+             MESH_LOSS_RTOL, len(after), name, worst, MESH_PARAM_ATOL,
+             MESH_PARAM_RTOL, json.dumps(launches)), flush=True)
+    if not all(np.isfinite(losses)) or loss_err > MESH_LOSS_RTOL \
+            or worst > 1.0:
+        raise SystemExit("chip_smoke: ParallelTrainer's steps differ from "
+                         "the executor's")
+    if device == "cuda" and launches["flash_attention_fwd"] != \
+            2 * n_layer * MESH_STEPS:
+        raise SystemExit("chip_smoke: %d flash launches in %d trainer "
+                         "steps, designed %d per step"
+                         % (launches["flash_attention_fwd"], MESH_STEPS,
+                            2 * n_layer))
+    if device != "cuda":
+        return launches
+    dev_feed = {n: torch.from_numpy(v.astype(np.int32)).to(device)
+                for n, v in feeds[0].items()}
+    scope = params_scope(init, exe.device)
+    trainer_ms = timed_steps(lambda: trainer.step(dev_feed),
+                             runs=MESH_TIMED, warm=MESH_WARM)
+    exe_ms = timed_steps(lambda: exe.run(main, feed=dev_feed,
+                                         fetch_list=[loss], scope=scope,
+                                         return_numpy=False),
+                         runs=MESH_TIMED, warm=MESH_WARM)
+    tm, em = float(np.median(trainer_ms)), float(np.median(exe_ms))
+    print("mesh: step ms (median of %d after %d warm, %s): ParallelTrainer "
+          "%.3f (min %.3f, max %.3f), executor %.3f (min %.3f, max %.3f), "
+          "ratio %.3f"
+          % (MESH_TIMED, MESH_WARM, smi, tm, min(trainer_ms),
+             max(trainer_ms), em, min(exe_ms), max(exe_ms), tm / em),
+          flush=True)
+    return launches
+
+
+def mesh_functional(device, batch=BATCH, seq=SEQ, vocab=VOCAB,
+                    n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL):
+    """22c: models/transformer.py at phase 5's widths: flash against
+    dense, 2 SGD steps through the flash kernel, Ulysses at sp 1 against
+    flash bit for bit."""
+    import torch
+    from paddle_tpu_torch.models import transformer as tf
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.sharding import to_full
+
+    params = tf.transformer_params_from_numpy(
+        tf.init_transformer(SEED, vocab, n_layer=n_layer, n_head=n_head,
+                            d_model=d_model, max_len=seq), device)
+    rs = np.random.RandomState(SEED + 22)
+    tokens = torch.from_numpy(rs.randint(0, vocab, size=(batch, seq))) \
+        .to(device)
+    targets = torch.from_numpy(rs.randint(0, vocab, size=(batch, seq))) \
+        .to(device)
+    mesh_sp = make_mesh(axes=("dp", "sp"), device=device)
+    with torch.no_grad():
+        flash = tf.transformer_forward(params, tokens, attn_impl="flash")
+        dense = tf.transformer_forward(params, tokens, attn_impl="dense")
+        uly = to_full(tf.transformer_forward(params, tokens,
+                                             attn_impl="ulysses",
+                                             mesh=mesh_sp))
+    err = float((flash - dense).abs().max())
+    same = bool(torch.equal(uly, flash))
+    meta = params.pop("_meta")
+    losses, finite = [], True
+    for _ in range(2):
+        leaves = {n: v.detach().requires_grad_(True)
+                  for n, v in params.items()}
+        loss = tf.transformer_loss(dict(leaves, _meta=meta), tokens,
+                                   targets, attn_impl="flash")
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        finite = finite and all(bool(torch.isfinite(g).all())
+                                for g in grads)
+        losses.append(float(loss.detach()))
+        params = {n: (v - 0.1 * g).detach()
+                  for (n, v), g in zip(leaves.items(), grads)}
+    print("mesh: models/transformer.py [%d, %d] x %d layers: flash against "
+          "dense max_abs_err %.3g (atol %g); ulysses at sp 1 equal to "
+          "flash bit for bit: %s (max_abs_err %.3g); SGD losses %s, grads "
+          "finite %s"
+          % (batch, seq, n_layer, err, MESH_LOGITS_ATOL, same,
+             float((uly - flash).abs().max()),
+             ", ".join("%.6f" % x for x in losses), finite), flush=True)
+    if err > MESH_LOGITS_ATOL or not same or not finite \
+            or not losses[1] < losses[0]:
+        raise SystemExit("chip_smoke: the functional transformer failed")
+
+
+def mesh_schedules(device, d_model=D_MODEL):
+    """22d: GPipe with 1 stage and 4 microbatches against the stage
+    applied in sequence; Switch MoE at ep 1, 8 experts, capacity factor 8
+    (no token dropped) against the dense mixture."""
+    import torch
+    from paddle_tpu_torch.parallel import (init_moe_params, make_mesh,
+                                           moe_shard_map, pipeline_apply)
+    from paddle_tpu_torch.parallel.sharding import to_full
+
+    rs = np.random.RandomState(SEED + 23)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    stage = {"w": t(rs.randn(1, d_model, d_model) * d_model ** -0.5),
+             "b": t(rs.randn(1, d_model) * 0.1)}
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    x = t(rs.randn(MESH_PIPE_ROWS, d_model))
+    with torch.no_grad():
+        out = to_full(pipeline_apply(make_mesh(axes=("pp",), device=device),
+                                     stage_fn, stage, x, MESH_PIPE_MB))
+        ref = stage_fn({k: v[0] for k, v in stage.items()}, x)
+    pipe_err = float((out - ref).abs().max())
+
+    params = init_moe_params(SEED, d_model, 4 * d_model, MESH_MOE_EXPERTS,
+                             device=device)
+    xm = t(rs.randn(MESH_MOE_TOKENS, d_model))
+    with torch.no_grad():
+        y, aux = moe_shard_map(make_mesh(axes=("ep",), device=device),
+                               capacity_factor=MESH_MOE_CF)(params, xm)
+        y, aux = to_full(y), float(to_full(aux))
+        probs = torch.softmax(xm @ params["gate_w"], dim=-1)
+        gate, idx = probs.max(dim=-1)
+        h = torch.relu(torch.einsum("bd,bdh->bh", xm, params["w1"][idx])
+                       + params["b1"][idx])
+        dense = (torch.einsum("bh,bhd->bd", h, params["w2"][idx])
+                 + params["b2"][idx]) * gate[:, None]
+    moe_err = float((y - dense).abs().max())
+    print("mesh: pipeline_apply (1 stage, %d microbatches, [%d, %d]) "
+          "max_abs_err %.3g; switch_moe (ep 1, %d experts, capacity factor "
+          "%g, %d tokens) against the dense mixture max_abs_err %.3g, aux "
+          "%.6f (atol %g)"
+          % (MESH_PIPE_MB, MESH_PIPE_ROWS, d_model, pipe_err,
+             MESH_MOE_EXPERTS, MESH_MOE_CF, MESH_MOE_TOKENS, moe_err, aux,
+             MESH_SCHEDULE_ATOL), flush=True)
+    if pipe_err > MESH_SCHEDULE_ATOL or moe_err > MESH_SCHEDULE_ATOL \
+            or not aux >= 1.0 - 1e-5:
+        raise SystemExit("chip_smoke: GPipe or MoE differ from their plain "
+                         "versions")
+
+
+def phase_mesh():
+    """Phase 22: the device mesh over NCCL at world size 1, the bench
+    transformer through ParallelTrainer, the functional transformer, and
+    GPipe and MoE; returns the launch counts of the trainer's 3 steps."""
+    import torch
+
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    try:
+        mesh = mesh_group("cuda")
+        t1 = time.perf_counter()
+        launches = mesh_trainer(mesh, "cuda", smi)
+        t2 = time.perf_counter()
+        mesh_functional("cuda")
+        t3 = time.perf_counter()
+        mesh_schedules("cuda")
+    finally:
+        # 22e: nothing later inherits the group
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    print("mesh: 22a %.1f s, 22b %.1f s, 22c %.1f s, 22d %.1f s; phase 22 "
+          "took %.1f s" % (t1 - t0, t2 - t1, t3 - t2,
+                           time.perf_counter() - t3,
+                           time.perf_counter() - t0), flush=True)
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -11917,6 +12196,7 @@ def main():
     ssd_launches = run(phase_ssd)
     analysis_launches = run(phase_analysis)
     perf_launches = run(phase_perf)
+    mesh_launches = run(phase_mesh)
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
@@ -11945,15 +12225,16 @@ def main():
     paths = (launches[f32], train_launches[f32], decode_launches[f32],
              stack_launches[f32], obs_serve_launches[f32],
              ps_transformer_launches[f32], cli_launches[f32],
-             analysis_launches[f32], perf_launches[f32])
+             analysis_launches[f32], perf_launches[f32],
+             mesh_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
                          "a main path (served, trained, decoded, trained "
                          "with the whole stack, served with the "
                          "observability, trained through the pservers, "
                          "served by serve_cli, trained verified and "
-                         "optimized, profiled and served under load: %s)"
-                         % (paths,))
+                         "optimized, profiled and served under load, "
+                         "trained over the mesh: %s)" % (paths,))
     kernels = []
     for route in fa.ROUTES:
         name = route_entry(route)
@@ -11963,7 +12244,8 @@ def main():
             ctr_launches, seq2seq_launches, book_launches, ctc_launches,
             v2_launches, stack_launches, obs_amp_launches,
             obs_serve_launches, ps_ctr_launches, ps_transformer_launches,
-            cli_launches, ssd_launches, analysis_launches, perf_launches))
+            cli_launches, ssd_launches, analysis_launches, perf_launches,
+            mesh_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

@@ -22,7 +22,7 @@ executor's FLAGS_verify_program gate, `fluid.io.load_inference_model`
 (a structural check on load), the serving engine's warmup (the full
 check), the rewrite passes (around each pass) and the
 DistributeTranspiler.  The JAX package's `shard` and `costmodel` passes
-wait with ROADMAP A9 (a mesh), `alias` with A2's buffer donation.
+wait with ROADMAP A9's second part, `alias` with A2's buffer donation.
 """
 
 from .diagnostics import (Diagnostic, ProgramVerificationError, Report,

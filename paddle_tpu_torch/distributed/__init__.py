@@ -5,17 +5,20 @@ transpiler that rewrites the trainer program to ship gradients to
 native C++ pservers that run the optimizer server-side (reference:
 python/paddle/v2/fluid/distribute_transpiler.py:81, operators/send_op.cc,
 recv_op.cc, paddle/pserver/ParameterServer2, go/pserver/service.go), and
-the elastic registry its pservers and trainers meet through.  The dense
-collective path (`init_multihost`, `global_mesh`) waits with ROADMAP A9
-and the fleet reporter with A10; `coordinator` holds them as names that
-raise NotImplementedError.
+the elastic registry its pservers and trainers meet through, and the
+dense collective path's entry points: `init_multihost` starts the job's
+process group and `global_mesh` lays a mesh over it (parallel/).  The
+fleet reporter waits with obs/fleet.py; `coordinator` holds it as names
+that raise NotImplementedError.
 """
 
 from .transpiler import (DistributeTranspiler, split_dense_variable,
                          run_pserver)
-from .coordinator import (process_count, process_index, ElasticRegistry,
-                          ServiceLease, discover_pservers)
+from .coordinator import (init_multihost, global_mesh, process_count,
+                          process_index, ElasticRegistry, ServiceLease,
+                          discover_pservers)
 
 __all__ = ["DistributeTranspiler", "split_dense_variable", "run_pserver",
-           "process_count", "process_index", "ElasticRegistry",
-           "ServiceLease", "discover_pservers"]
+           "init_multihost", "global_mesh", "process_count",
+           "process_index", "ElasticRegistry", "ServiceLease",
+           "discover_pservers"]

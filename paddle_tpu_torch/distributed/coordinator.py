@@ -13,10 +13,12 @@ endpoint under /ps/<slot> and heartbeats; when it dies, the lease
 lapses, discovery stops returning it, and a replacement can claim the
 slot and restore from checkpoint.
 
-The JAX package's dense collective half (`init_multihost`,
-`global_mesh`) waits with the port's mesh (ROADMAP A9), and the fleet
-reporter (`start_fleet_reporter`, `stop_fleet_reporter`) with
-`obs/fleet.py` (A10): each raises NotImplementedError naming its item.
+The JAX package's dense collective half: `init_multihost` starts the
+job's process group (NCCL, one CUDA device per process, unless the
+caller asks for the CPU: gloo), and `global_mesh` lays a mesh over all
+of its ranks (parallel.make_mesh with drop_unit_axes).  The fleet
+reporter (`start_fleet_reporter`, `stop_fleet_reporter`) waits with
+`obs/fleet.py`: each raises NotImplementedError naming its item.
 
 Fault points (resilience/faults.py): coordinator/register,
 coordinator/discover, coordinator/heartbeat.  A `lease_expiry` fault at
@@ -27,6 +29,11 @@ heartbeating).
 Env protocol (set by tools/cluster_launch.py or any scheduler):
     PADDLE_MASTER          host:port of the registry's master
     PADDLE_PSERVER_COUNT   the pservers a trainer waits for
+    PADDLE_COORDINATOR     the process group's rendezvous: host:port
+                           (tcp://) or a URL (file://...), for
+                           init_multihost
+    PADDLE_NUM_PROCESSES   the job's process count
+    PADDLE_PROCESS_ID      this process's rank
 """
 
 import os
@@ -94,13 +101,73 @@ def _waiting(name, item, what):
     return fn
 
 
-init_multihost = _waiting("init_multihost", "A9",
-                          "the multi-GPU runtime and its mesh")
-global_mesh = _waiting("global_mesh", "A9", "the port's device mesh")
 start_fleet_reporter = _waiting("start_fleet_reporter", "A10",
                                 "obs/fleet.py")
 stop_fleet_reporter = _waiting("stop_fleet_reporter", "A10",
                                "obs/fleet.py")
+
+
+def init_multihost(coordinator=None, num_processes=None, process_id=None,
+                   local_device_ids=None, device="cuda"):
+    """Start the job's process group: NCCL over one CUDA device per
+    process (`device="cuda"`), or gloo over CPU ranks (`device="cpu"`).
+    Arguments left out come from PADDLE_COORDINATOR,
+    PADDLE_NUM_PROCESSES and PADDLE_PROCESS_ID, or else from the
+    `env://` variables (MASTER_ADDR and MASTER_PORT, WORLD_SIZE, RANK).
+    With none of them set this is a single process and returns False;
+    once a group is up (by this call or another) it returns True.  A
+    coordinator "host:port" rendezvouses over TCP, a URL ("file://...")
+    as it says.  The process's CUDA device is local_device_ids[0], else
+    its rank modulo the visible devices.  With PADDLE_OBS_MASTER set the
+    fleet reporter would start beside it, as on the JAX side; it waits
+    with obs/fleet.py and raises."""
+    from ..parallel.mesh import backend_for
+
+    env = os.environ
+    coordinator = coordinator or env.get("PADDLE_COORDINATOR")
+    if num_processes is None:
+        num_processes = int(env.get("PADDLE_NUM_PROCESSES", "0")) or None
+    if process_id is None:
+        pid = env.get("PADDLE_PROCESS_ID")
+        process_id = int(pid) if pid is not None else None
+    if coordinator is None and "MASTER_ADDR" in env:
+        coordinator = "env://"
+        if num_processes is None and "WORLD_SIZE" in env:
+            num_processes = int(env["WORLD_SIZE"])
+        if process_id is None and "RANK" in env:
+            process_id = int(env["RANK"])
+    if env.get("PADDLE_OBS_MASTER"):
+        start_fleet_reporter()
+    dist = torch.distributed
+    if dist.is_initialized():
+        return True
+    if coordinator is None and num_processes in (None, 1):
+        return False  # a single process; nothing to start
+    backend = backend_for(device)
+    if "://" not in coordinator:
+        coordinator = "tcp://" + coordinator
+    num_processes = num_processes or 1
+    process_id = process_id or 0
+    if device == "cuda":
+        local = local_device_ids[0] if local_device_ids \
+            else process_id % torch.cuda.device_count()
+        torch.cuda.set_device(int(local))
+    dist.init_process_group(backend, init_method=coordinator,
+                            world_size=num_processes, rank=process_id)
+    return True
+
+
+def global_mesh(dp=None, mp=1, sp=1, pp=1, ep=1, devices=None,
+                device="cuda"):
+    """A mesh over all the job's ranks (the world of init_multihost, or
+    a world of one started here): parallel.make_mesh with
+    drop_unit_axes=True, so only the axes above 1 appear (and "dp"), in
+    (dp, mp, sp, pp, ep) order."""
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(dp=dp, mp=mp, sp=sp, pp=pp, ep=ep,
+                     axes=("dp", "mp", "sp", "pp", "ep"), devices=devices,
+                     drop_unit_axes=True, device=device)
 
 
 def process_count():

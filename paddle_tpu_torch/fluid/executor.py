@@ -274,14 +274,69 @@ def _kernel_of(op_type):
     raise KeyError("operator %r is not registered" % op_type)
 
 
+def _mesh_of(ins):
+    """The device mesh of the first DTensor among an op's inputs, or
+    None (every input a plain tensor: the single-device path)."""
+    dtensor = op_registry.dtensor_type()
+    if dtensor is None:
+        return None
+    for vals in ins.values():
+        for v in vals:
+            if isinstance(v, dtensor):
+                return v.device_mesh
+    return None
+
+
+# op types whose kernels fail on DTensors (no sharding rule, a value
+# read on the host, a launch on raw pointers): they run on full values
+_FULL_VALUE_OPS = set()
+
+
+def _run_on_mesh(ctx, op_type, kernel, ins, attrs, mesh):
+    """Run a kernel whose inputs include DTensors (an op under
+    `parallel.ParallelTrainer`): on the DTensors themselves, with plain
+    tensors taken as replicated, so DTensor's sharding rules give the
+    op's global result; an op type whose kernel cannot run so runs, once
+    it has failed and from then on, on the full values, its outputs
+    distributed back as replicated.  This is the one place where the
+    executor meets the mesh."""
+    from ..parallel.sharding import replicating
+
+    if op_type not in _FULL_VALUE_OPS:
+        try:
+            with replicating():
+                return kernel(ctx, ins, attrs)
+        except Exception:
+            # DTensor's dispatch raises what its checks raise (no
+            # sharding rule, an assertion, a host read of a sharded
+            # value); a kernel's own error raises again from the run on
+            # full values below
+            _FULL_VALUE_OPS.add(op_type)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    full = pytree.tree_map(
+        lambda v: v.full_tensor() if isinstance(v, DTensor) else v, ins)
+    outs = kernel(ctx, full, attrs)
+    rep = [Replicate()] * mesh.ndim
+    return pytree.tree_map(
+        lambda v: DTensor.from_local(v, mesh, rep, run_check=False)
+        if isinstance(v, torch.Tensor) and not isinstance(v, DTensor)
+        else v, outs)
+
+
 def apply_op(ctx, op_desc):
     """Run one op's kernel against ctx.env; returns its outputs.
     `@EMPTY@` inputs read as None and `@EMPTY@` or None outputs are not
-    written."""
+    written.  An op with a DTensor input runs through `_run_on_mesh`."""
     kernel = _kernel_of(op_desc.type)
     ins = {slot: [None if n == EMPTY else _lookup(ctx, n) for n in names]
            for slot, names in op_desc.inputs.items()}
-    outs = kernel(ctx, ins, op_desc.attrs)
+    mesh = _mesh_of(ins)
+    if mesh is None:
+        outs = kernel(ctx, ins, op_desc.attrs)
+    else:
+        outs = _run_on_mesh(ctx, op_desc.type, kernel, ins, op_desc.attrs,
+                            mesh)
     for slot, names in op_desc.outputs.items():
         for name, val in zip(names, outs.get(slot) or ()):
             if val is not None and name != EMPTY:
@@ -312,6 +367,10 @@ def prepare_feed(block_desc, name, val, device):
         values = prepare_feed(block_desc, name, values, device)
         return pytree.tree_map(lambda t: t.to(device),
                                val).with_values(values)
+    dtensor = op_registry.dtensor_type()
+    if dtensor is not None and isinstance(val, dtensor):
+        # laid out over a mesh already: cast, never gathered to a device
+        return val if declared is None else val.to(torch_dtype(declared))
     if isinstance(val, torch.Tensor):
         if declared is not None:
             val = val.to(torch_dtype(declared))

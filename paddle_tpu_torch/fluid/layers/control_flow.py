@@ -19,8 +19,9 @@ one `while` or `conditional_block` op whose `X` are the block's reads
 from outside and whose outputs are the outer vars it writes.  `Print`
 forwards a var through the `print` op.  `IfElse`
 builds no sub-block: it splits its inputs by rows, runs both branches'
-ops in the current block and merges their outputs.  The descs equal
-the JAX package's.
+ops in the current block and merges their outputs.  `ParallelDo` runs
+its block once on the global batch (parallel.ParallelTrainer lays the
+batch over the mesh).  The descs equal the JAX package's.
 """
 
 import contextlib
@@ -37,6 +38,7 @@ __all__ = [
     "max_sequence_len", "lod_rank_table", "lod_tensor_to_array",
     "array_to_lod_tensor", "shrink_memory", "reorder_lod_tensor_by_rank",
     "split_lod_tensor", "merge_lod_tensor", "IfElse", "equal", "Print",
+    "ParallelDo",
 ]
 
 
@@ -595,3 +597,33 @@ class IfElse:
         merged = [merge_lod_tensor(t, f, template, self.cond)
                   for t, f in zip(self._true_outputs, self._false_outputs)]
         return merged if len(merged) > 1 else merged[0]
+
+
+class ParallelDo:
+    """The reference's data-parallel block (reference: control_flow.py
+    ParallelDo:230 over parallel_do_op.cc, which splits the batch across
+    places and averages gradients over NCCL).  Here batch splitting is
+    declarative: the whole program runs over a mesh
+    (parallel.ParallelTrainer lays the batch over the dp axis and the
+    DTensor step reduces the gradients), so this wrapper runs its block
+    once on the global batch, which computes what the reference's
+    split-and-average does."""
+
+    def __init__(self, places, name=None):
+        self.places = places
+        self._ins = []
+        self._outs = []
+
+    @contextlib.contextmanager
+    def do(self):
+        yield
+
+    def read_input(self, var):
+        self._ins.append(var)
+        return var
+
+    def write_output(self, var):
+        self._outs.append(var)
+
+    def __call__(self):
+        return self._outs if len(self._outs) != 1 else self._outs[0]

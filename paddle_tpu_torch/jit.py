@@ -3,9 +3,13 @@
 Counterpart of paddle_tpu/jit.py, which turns a block into one pure
 function that `jax.jit` compiles.  This one compiles nothing: calling it
 runs the block op by op through the executor's `apply_op`
-(fluid/executor.py) under `torch.inference_mode()`, on tensors that stay
-on the place's device, so a decode loop built on it costs one host pass
-over the block's ops per call and no copy to or from the host.
+(fluid/executor.py) under `torch.inference_mode()` (a block that trains,
+with grad ops or writes to persistables, under `torch.no_grad()`, as the
+executor runs one), on tensors that stay on the place's device, so a
+decode loop built on it costs one host pass over the block's ops per
+call and no copy to or from the host.  State and feeds may be DTensors
+on a device mesh (`parallel.ParallelTrainer`): each op then runs on
+them through `apply_op`'s mesh path.
 
 Parameters and other persistable state flow through the `state`
 argument, not a scope, so the caller owns every buffer.  So does the
@@ -21,7 +25,7 @@ from .core.desc import ProgramDesc
 from .core.scope import global_scope
 from .fluid.executor import RNG_STATE_NAME, CUDAPlace, ExecContext, apply_op
 from .fluid.framework import Program
-from .ops.registry import span
+from .ops.registry import is_grad_op_type, span
 
 __all__ = ["FunctionalProgram", "RNG_STATE_NAME", "functionalize",
            "state_from_scope", "state_to_scope"]
@@ -84,6 +88,10 @@ class FunctionalProgram:
                     writes.add(n)
         self.state_in_names = sorted(persist & reads)
         self.state_out_names = sorted(persist & writes)
+        # inference tensors cannot be saved for a backward, which the
+        # generic grad of an op on DTensors takes through torch.autograd
+        self._trains = bool(self.state_out_names) or any(
+            is_grad_op_type(od.type) for od in self.ops)
 
     def __call__(self, state, feeds, rng=None):
         env = dict(state)
@@ -94,7 +102,7 @@ class FunctionalProgram:
             rng.set_state(carried)
         ctx = ExecContext(self.desc, self.block_idx, env, place=self.place,
                           device=self.device, rng=rng)
-        with torch.inference_mode():
+        with torch.no_grad() if self._trains else torch.inference_mode():
             for od in self.ops:
                 with span(od.type):
                     apply_op(ctx, od)

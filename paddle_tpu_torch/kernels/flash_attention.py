@@ -37,7 +37,8 @@ import torch
 from . import _build
 
 __all__ = ["MAX_HEAD_DIM", "NEG_INF", "ROUTES", "FlashAttentionFunction",
-           "check_kernel_args", "flash_attention", "flash_attention_bthd",
+           "check_kernel_args", "flash_attention", "flash_attention_bhtd",
+           "flash_attention_bthd",
            "flash_attention_bwd", "flash_attention_fwd",
            "flash_attention_plain", "kernel_route", "reference_attention"]
 
@@ -399,6 +400,16 @@ class FlashAttentionFunction(torch.autograd.Function):
                                          do.transpose(1, 2), *ctx.args)
         return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
                 None, None, None, None, None)
+
+
+def flash_attention_bhtd(q, k, v, sm_scale=None, causal=False):
+    """`FlashAttentionFunction` on [B, H, T, D] tensors (the JAX side's
+    layout, as ring and Ulysses attention and the functional transformer
+    hold them): o [B, H, Tq, D], with its gradient."""
+    o, _, _ = FlashAttentionFunction.apply(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), sm_scale,
+        causal, 0, 128, 128)
+    return o.transpose(1, 2)
 
 
 def reference_attention(q, k, v, sm_scale=None, causal=False, q_offset=0):

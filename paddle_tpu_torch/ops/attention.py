@@ -1,6 +1,11 @@
 """Attention ops: the flash-attention kernel as a registered op.
 
-Counterpart of paddle_tpu/ops/attention.py.  The op views q, k and v as
+Counterpart of paddle_tpu/ops/attention.py.  Under a device mesh (the
+ambient mesh `parallel.ParallelTrainer.step` enters) the op runs per rank
+on local shards: ring or Ulysses attention (parallel/ring.py) where its
+`sequence_parallel_axis` names a mesh axis of size above 1, as the JAX op
+does, else the kernel on each rank's batch and head shard.  Otherwise:
+the op views q, k and v as
 [B, T, H, Dh] where they lie (the `split` op leaves them as strided
 views of the fc output), runs kernels/flash_attention.py on those views
 (the CUDA kernel on the card, its plain version on the CPU) and has it
@@ -45,17 +50,63 @@ def flash_attention_op(ctx, ins, attrs):
         if t.shape[-1] % num_heads:
             raise ValueError("hidden size %d must divide num_heads %d"
                              % (t.shape[-1], num_heads))
-    # A `sequence_parallel_axis` runs ring or Ulysses attention (by
-    # `sequence_parallel_mode`) only under a device mesh that names the
-    # axis, as on the JAX side; the port has no mesh yet, so such a
-    # program runs the local kernel.  Ring and Ulysses arrive with
-    # ROADMAP A9, together with a DeviceMesh.
     block = int(attrs.get("block_size", 128))
+    from ..parallel.mesh import ambient_mesh
+
+    mesh = ambient_mesh()
+    if mesh is not None:
+        return {"Out": [_on_mesh(mesh, q, k, v, num_heads, causal, sm_scale,
+                                 block, attrs)]}
     heads = [t.unflatten(-1, (num_heads, t.shape[-1] // num_heads))
              for t in (q, k, v)]
     o, _, _ = FlashAttentionFunction.apply(*heads, sm_scale, causal, 0,
                                            block, block)
     return {"Out": [o.flatten(2)]}
+
+
+def _on_mesh(mesh, q, k, v, num_heads, causal, sm_scale, block, attrs):
+    """The op under a device mesh (`parallel.ParallelTrainer.step`), q,
+    k and v [B, T, H*Dh] DTensors (or full values).  Where the mesh
+    names `sequence_parallel_axis` with a size above 1, ring or Ulysses
+    attention (`sequence_parallel_mode`) over that axis, as the JAX op
+    runs them; otherwise the kernel on each rank's local shard.  Either
+    way the batch shards over dp and the heads over mp where the mesh
+    has those axes (and mp divides the heads), and the per-rank code
+    gets plain local tensors."""
+    from ..parallel import ring
+    from ..parallel.mesh import mesh_shape
+    from ..parallel.sharding import P, shard_map_norep
+
+    axes = mesh_shape(mesh)
+    sp_axis = attrs.get("sequence_parallel_axis", "")
+    sp_mode = attrs.get("sequence_parallel_mode", "ring")
+    sp = bool(sp_axis) and axes.get(sp_axis, 1) > 1
+    if sp and sp_mode not in ("ring", "ulysses"):
+        raise ValueError("sequence_parallel_mode must be ring or ulysses, "
+                         "got %r" % sp_mode)
+    mp = axes.get("mp", 1)
+    spec = P("dp" if "dp" in axes else None, sp_axis if sp else None,
+             "mp" if "mp" in axes and num_heads % mp == 0 else None)
+    heads_local = num_heads // mp if spec[2] else num_heads
+
+    def local(q, k, v):
+        qh, kh, vh = (t.unflatten(-1, (heads_local,
+                                       t.shape[-1] // heads_local))
+                      for t in (q, k, v))
+        if not sp:
+            o, _, _ = FlashAttentionFunction.apply(qh, kh, vh, sm_scale,
+                                                   causal, 0, block, block)
+            return o.flatten(2)
+        qh, kh, vh = (t.transpose(1, 2) for t in (qh, kh, vh))
+        if sp_mode == "ring":
+            o = ring.ring_attention(qh, kh, vh, sp_axis, sm_scale, causal)
+        else:
+            o = ring.ulysses_attention(qh, kh, vh, sp_axis, sm_scale,
+                                       causal)
+        return o.transpose(1, 2).flatten(2).to(q.dtype)
+
+    return shard_map_norep(local, mesh, in_specs=(spec, spec, spec),
+                           out_specs=spec)(q, k, v)
 
 
 def _heads(x, num_heads):

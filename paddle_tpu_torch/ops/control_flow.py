@@ -296,6 +296,31 @@ def max_sequence_len(ctx, ins, attrs):
     return {"Out": [lens.max().reshape(1).to(torch.int32)]}
 
 
+def visible_places():
+    """The places data-parallel layout spans: the ranks of the ambient
+    mesh (parallel.mesh_scope), else the visible CUDA devices, 1 on a
+    host without one."""
+    from ..parallel.mesh import ambient_mesh
+
+    mesh = ambient_mesh()
+    if mesh is not None:
+        return int(mesh.size())
+    return max(torch.cuda.device_count(), 1)
+
+
+@register_op("get_places", jittable=False, stop_gradient_op=True,
+             infer_desc=keep_declared)
+def get_places(ctx, ins, attrs):
+    """reference: get_places_op.cc: the place indices 0..n-1 as int32,
+    n the `device_count` attr clamped to `visible_places()` (all of
+    them for 0).  Informational: the mesh owns the layout."""
+    n = int(attrs.get("device_count") or 0)
+    avail = visible_places()
+    n = avail if n <= 0 else min(n, avail)
+    return {"Out": [torch.arange(n, dtype=torch.int32,
+                                 device=_device(ctx))]}
+
+
 # -- the LoD rank-table machinery (lod_rank_table_op.cc,
 # reorder_lod_tensor_by_rank_op.cc, lod_tensor_to_array_op.cc,
 # array_to_lod_tensor_op.cc, shrink_rnn_memory_op.cc,

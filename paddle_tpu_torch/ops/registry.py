@@ -5,7 +5,10 @@ per op type, `fn(ctx, ins, attrs) -> {slot: [tensor]}`, over torch
 tensors; PyTorch runs it eagerly on whatever device its inputs live
 on.  A grad op `<type>_grad` runs the explicit grad kernel registered
 for `<type>`, or else `run_generic_grad`: `torch.func.vjp` of the
-forward kernel, as the JAX side takes `jax.vjp` of it.
+forward kernel, as the JAX side takes `jax.vjp` of it (for an op whose
+inputs are DTensors on a device mesh, the same vjp by torch.autograd,
+since torch.func cannot transform DTensor's `to_local` and the
+collectives' Functions).
 
 Shape inference (`infer_meta`, the counterpart of the JAX side's
 `generic_infer_shape`) runs the op's kernel on tensors on the "meta"
@@ -41,6 +44,7 @@ deterministic mode stays off.
 """
 
 import contextlib
+import sys
 
 import torch
 
@@ -52,7 +56,7 @@ __all__ = ["OpInfo", "register_op", "register_grad_kernel", "get_op_info",
            "has_op", "registered_ops", "is_grad_op_type",
            "forward_type_of_grad", "run_generic_grad", "span",
            "infer_meta", "dense", "values_of", "like", "keep_declared",
-           "deterministic_cudnn"]
+           "deterministic_cudnn", "dtensor_type"]
 
 
 # values with a structure around one float tensor: the generic grad
@@ -215,6 +219,54 @@ def _differentiable(v):
     return isinstance(v, torch.Tensor) and v.is_floating_point()
 
 
+def dtensor_type():
+    """The DTensor class once torch.distributed.tensor is imported (a
+    parallel entry point imports it), else None: no DTensor exists yet,
+    and the single-device path does not pay for the import."""
+    return getattr(sys.modules.get("torch.distributed.tensor"), "DTensor",
+                   None)
+
+
+def _is_dtensor(t):
+    dtensor = dtensor_type()
+    return dtensor is not None and isinstance(t, dtensor)
+
+
+def _autograd_vjp(f, primals, cotangents, scoped):
+    """The vjp of `f` at `primals` ({slot: [tensor]}) by torch.autograd:
+    the generic grad of an op whose inputs are DTensors (under
+    `parallel.ParallelTrainer`), whose per-rank pieces (`to_local`, the
+    collectives' Functions) torch.func cannot transform.  An input the
+    outputs do not depend on gets zeros, as from torch.func.vjp."""
+    leaves = {slot: [t.detach().requires_grad_(True) for t in vals]
+              for slot, vals in primals.items()}
+    flat = [t for vals in leaves.values() for t in vals]
+    with scoped(), span("recompute"), torch.enable_grad():
+        outs = f(leaves)
+    cots = cotangents(outs)
+    pairs = [(o, c if _is_dtensor(c) or not _is_dtensor(o)
+              else _replicate_like(c, o))
+             for o, c in zip(outs, cots) if o.requires_grad]
+    got = [None] * len(flat)
+    if pairs and flat:
+        with scoped():
+            got = torch.autograd.grad([o for o, _ in pairs], flat,
+                                      [c for _, c in pairs],
+                                      allow_unused=True)
+    it = iter(torch.zeros_like(t) if g is None else g
+              for t, g in zip(flat, got))
+    return {slot: [next(it) for _ in vals] for slot, vals in leaves.items()}
+
+
+def _replicate_like(t, like):
+    """A plain tensor as a replicated DTensor on `like`'s mesh."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def run_generic_grad(ctx, fwd_type, ins, attrs):
     """Execute `<fwd_type>_grad` with inputs laid out by the grad maker
     (fluid/backward.py):
@@ -268,24 +320,29 @@ def run_generic_grad(ctx, fwd_type, ins, attrs):
                     flat.append(values_of(v))
         return tuple(flat)
 
-    scoped = deterministic_cudnn() if info.deterministic \
-        else contextlib.nullcontext()
-    with scoped, span("recompute"):
-        primals_out, vjp_fn = torch.func.vjp(f, diff)
+    def cotangents(primals_out):
+        cots = []
+        for (slot, i), p in zip(out_keys, primals_out):
+            gs = out_grads.get(slot)
+            g = gs[i] if gs is not None and i < len(gs) else None
+            if g is None:
+                cots.append(torch.zeros_like(p))
+            else:
+                g = values_of(g).to(p.dtype)
+                cots.append(g.reshape(p.shape) if g.shape != p.shape else g)
+        return cots
 
-    cots = []
-    for (slot, i), p in zip(out_keys, primals_out):
-        gs = out_grads.get(slot)
-        g = gs[i] if gs is not None and i < len(gs) else None
-        if g is None:
-            cots.append(torch.zeros_like(p))
-        else:
-            g = values_of(g).to(p.dtype)
-            cots.append(g.reshape(p.shape) if g.shape != p.shape else g)
-    scoped = deterministic_cudnn() if info.deterministic \
-        else contextlib.nullcontext()
-    with scoped:
-        (grads,) = vjp_fn(tuple(cots))
+    def scoped():
+        return deterministic_cudnn() if info.deterministic \
+            else contextlib.nullcontext()
+
+    if any(_is_dtensor(t) for vals in diff.values() for t in vals):
+        grads = _autograd_vjp(f, diff, cotangents, scoped)
+    else:
+        with scoped(), span("recompute"):
+            primals_out, vjp_fn = torch.func.vjp(f, diff)
+        with scoped():
+            (grads,) = vjp_fn(tuple(cotangents(primals_out)))
 
     result = {}
     for slot, gs in grads.items():

@@ -1,0 +1,278 @@
+"""Mesh-parallel training.
+
+Counterpart of paddle_tpu/parallel/trainer.py.  There the whole train
+step (forward, backward and optimizer, one Program block) is one jitted
+function laid out over the mesh, XLA's GSPMD inserting the collectives.
+Here the same step runs through the port's `FunctionalProgram` with its
+state and feeds as DTensors on a `DeviceMesh`: each parameter and
+accumulator laid out by its spec (`sharding.param_spec`, with ZeRO-1's
+rewrite of the accumulators), each feed by `batch_spec` (or
+`feed_specs`), and every op runs on them through the executor's mesh
+path (fluid/executor.py `_run_on_mesh`), so DTensor's sharding rules
+place the collectives.  The step has the single-device step's global
+semantics: batch_norm's statistics, `mean` and the fetched loss are
+those of the whole batch.  After a step the state is laid out by its
+specs again (the JAX step's `out_shardings`), and the fetches come back
+as full tensors, as the JAX fetches come back replicated.
+
+The mesh's ranks run on CUDA over NCCL unless it was made for the CPU
+(`make_mesh(..., device="cpu")`, gloo).  `FLAGS_verify_sharding`, and
+`sharding_plan` and `verify_sharding`, need the static SPMD analyzer
+(`analysis/shard.py`), which the port does not have yet: they raise
+NotImplementedError naming it.
+"""
+
+import numpy as np
+import torch
+
+from ..fluid.executor import (CPUPlace, CUDAPlace, Executor,
+                              fetch_to_host, prepare_feed)
+from ..core.scope import Scope
+from ..jit import FunctionalProgram, state_from_scope
+from ..obs import flight as obs_flight
+from ..obs import health as obs_health
+from ..obs import telemetry as obs_tele
+from .mesh import mesh_scope
+from .sharding import (NamedSharding, batch_spec, check_verify_flag,
+                       distribute, is_optimizer_state,
+                       optimizer_state_names, param_spec, replicating,
+                       to_full, zero1_spec)
+
+__all__ = ["make_parallel_step", "ParallelTrainer", "verify_sharding"]
+
+_ANALYZER = ("the static SPMD analyzer (analysis/shard.py), which the "
+             "port does not have yet (ROADMAP A9, second part: "
+             "analysis/shard.py)")
+
+
+def verify_sharding(program, mesh, feed_names, fetch_names,
+                    feed_specs=None, zero_stage=0, dp_axis="dp",
+                    mp_axis="mp", origin="parallel_trainer", hbm_gb=None):
+    """The static SPMD analyzer's gate over a program and mesh: waits
+    with analysis/shard.py."""
+    raise NotImplementedError("verify_sharding needs " + _ANALYZER)
+
+
+def place_of(mesh):
+    """The executor place of this rank's device on `mesh`."""
+    if mesh.device_type == "cuda":
+        return CUDAPlace(torch.cuda.current_device())
+    return CPUPlace()
+
+
+def make_parallel_step(program, feed_names, fetch_names, mesh,
+                       state_template, dp_axis="dp", mp_axis="mp",
+                       donate_state=None, fp=None, zero_stage=0,
+                       feed_specs=None, spec_overrides=None):
+    """A Program block as a step over the mesh.
+
+    Returns (step, state_shardings) where
+      step(state, feeds, rng) -> (fetches, new_state)
+    takes the state as DTensors laid out by `state_shardings` (a
+    NamedSharding per name: param_spec, and with zero_stage=1 the
+    optimizer accumulators also sharded over dp), feeds (arrays or
+    tensors; each is distributed by `feed_specs`, else by batch_spec)
+    and rng (a torch.Generator on the mesh's device, or None), and
+    returns the fetches as full tensors and the new state laid out by
+    `state_shardings`.
+
+    spec_overrides maps a state name to the spec it takes, bypassing
+    param_spec and the zero1 rewrite.  donate_state is accepted and does
+    nothing: the step makes new state tensors and drops the old ones
+    (buffer donation waits with ROADMAP A2).  With FLAGS_verify_sharding
+    on, this raises: the analyzer is not ported yet.
+    """
+    if fp is None:
+        if program is not None:
+            check_verify_flag("make_parallel_step")
+        fp = FunctionalProgram(program, feed_names, fetch_names,
+                               place=place_of(mesh))
+    acc_names = optimizer_state_names(program) if program is not None \
+        else None
+    spec_overrides = spec_overrides or {}
+
+    def spec_for(name, shape):
+        if name in spec_overrides:
+            return spec_overrides[name]
+        spec = param_spec(name, shape, mesh, mp_axis=mp_axis)
+        if zero_stage >= 1 and is_optimizer_state(name, known=acc_names):
+            spec = zero1_spec(spec, shape, mesh, dp_axis=dp_axis)
+        return spec
+
+    state_shardings = {
+        name: NamedSharding(mesh, spec_for(name, tuple(v.shape)))
+        for name, v in state_template.items()}
+    placements = {n: s.placements for n, s in state_shardings.items()}
+    feed_specs = feed_specs or {}
+    block = fp.desc.block(fp.block_idx)
+    device = fp.device
+
+    def step(state, feeds, rng):
+        dist_feeds = {}
+        for n in sorted(feeds):
+            v = prepare_feed(block, n, feeds[n], device)
+            if isinstance(v, torch.Tensor):
+                v = distribute(v, mesh, feed_specs.get(
+                    n, batch_spec(tuple(v.shape), mesh, dp_axis)))
+            dist_feeds[n] = v
+        with replicating():
+            fetches, new_state = fp(state, dist_feeds, rng)
+            new_state = {n: (distribute(v, mesh, placements[n])
+                             if n in placements else v)
+                         for n, v in new_state.items()}
+            fetches = [to_full(f) for f in fetches]
+        return fetches, new_state
+
+    return step, state_shardings
+
+
+class ParallelTrainer:
+    """End-to-end sharded trainer for a built Program.
+
+    Usage:
+        mesh = make_mesh(dp=2, mp=2)        # over the process group
+        trainer = ParallelTrainer(main_prog, startup_prog,
+                                  feed_names=["image", "label"],
+                                  fetch_names=[loss.name], mesh=mesh)
+        trainer.init()                       # run startup, shard params
+        (loss,) = trainer.step({"image": x, "label": y})
+
+    Every rank of the mesh runs the same calls with the same feeds (the
+    global batch; each rank keeps its shard of it).
+    """
+
+    def __init__(self, main_program, startup_program, feed_names,
+                 fetch_names, mesh, dp_axis="dp", mp_axis="mp", seed=0,
+                 zero_stage=0, feed_specs=None):
+        self.main_program = main_program
+        self.startup_program = startup_program
+        self.feed_names = list(feed_names)
+        self.fetch_names = list(fetch_names)
+        self.mesh = mesh
+        self.dp_axis = dp_axis
+        self.mp_axis = mp_axis
+        self.zero_stage = zero_stage
+        self.feed_specs = feed_specs
+        self.seed = int(seed)
+        self.place = place_of(mesh)
+        self._step_count = 0
+        self._step_fn = None
+        self._monitor = None
+        self.state = None
+
+    def init(self, scope=None, executor=None):
+        """Run the startup program on this rank's device, then lay the
+        state out over the mesh by the sharding specs.  With
+        FLAGS_verify_sharding on this raises first: the analyzer is not
+        ported yet."""
+        self._verify()
+        scope = scope or Scope()
+        exe = executor or Executor(self.place)
+        exe.run(self.startup_program, scope=scope)
+
+        # numerics health: the monitor's reductions (nonfinite counts
+        # over fetches and grads, global grad norm) join the step as
+        # extra fetches
+        fetch_all = list(self.fetch_names)
+        self._monitor = None
+        if obs_health.enabled():
+            self._monitor = obs_health.NumericsMonitor(
+                self.main_program,
+                tensors=list(self.fetch_names)).install()
+            fetch_all += self._monitor.fetch_names
+
+        fp = FunctionalProgram(self.main_program, self.feed_names,
+                               fetch_all, place=self.place)
+        state = state_from_scope(fp, scope)
+        self._step_fn, self._shardings = self._make_step(fp, state,
+                                                         fetch_all)
+        device = self.place.device()
+        # sorted: every rank distributes in one order
+        self.state = {n: distribute(torch.as_tensor(state[n]).to(device),
+                                    self.mesh,
+                                    self._shardings[n].placements)
+                      for n in sorted(state)}
+        return self
+
+    def _verify(self):
+        check_verify_flag("ParallelTrainer.init")
+
+    def _make_step(self, fp, state, fetch_all):
+        """Build (step_fn, state_shardings): the hook a subclass
+        overrides."""
+        return make_parallel_step(
+            self.main_program, self.feed_names, fetch_all, self.mesh,
+            state, dp_axis=self.dp_axis, mp_axis=self.mp_axis, fp=fp,
+            zero_stage=self.zero_stage, feed_specs=self.feed_specs)
+
+    def step(self, feeds):
+        """One training step on the global batch `feeds`; returns the
+        fetches as full tensors on this rank's device."""
+        if self.state is None:
+            raise RuntimeError("call init() before step()")
+        step_id = self._step_count
+        self._step_count += 1
+        rng = torch.Generator(device=self.place.device()).manual_seed(
+            self.seed * 1000003 + step_id)
+        examples = next((int(v.shape[0]) for v in feeds.values()
+                         if getattr(v, "ndim", 0)), None)
+        try:
+            with obs_tele.step("parallel", examples=examples,
+                               step=step_id):
+                # under the mesh: mesh-aware ops (flash_attention's
+                # sequence parallelism) find it here
+                with mesh_scope(self.mesh):
+                    fetches, self.state = self._step_fn(self.state,
+                                                        feeds, rng)
+                if self.mesh.device_type == "cuda":
+                    torch.cuda.synchronize()
+        except Exception as exc:
+            obs_flight.on_crash(exc, origin="parallel/step",
+                                step=step_id,
+                                feeds=obs_flight.describe_feeds(feeds))
+            raise
+        if self._monitor is not None:
+            n_user = len(self.fetch_names)
+            self._monitor.record(dict(zip(
+                self._monitor.fetch_names,
+                [fetch_to_host(f) for f in fetches[n_user:]])))
+            fetches = fetches[:n_user]
+        if obs_flight.active():
+            loss = None
+            first = fetches[0] if fetches else None
+            if first is not None and first.numel() == 1:
+                loss = float(first.reshape(-1)[0])
+            obs_flight.record_step("parallel", step_id, feeds=feeds,
+                                   loss=loss)
+        return fetches
+
+    def fetch_state(self, name):
+        return fetch_to_host(to_full(self.state[name]))
+
+    def sharding_plan(self, hbm_gb=None):
+        """The static SPMD analysis of this trainer's program and mesh:
+        waits with analysis/shard.py."""
+        raise NotImplementedError("sharding_plan needs " + _ANALYZER)
+
+    # -- supervisor integration ---------------------------------------------
+    def dump_state_to(self, scope):
+        """The full values of the sharded state into `scope` (called by
+        the resilience supervisor right before a checkpoint save)."""
+        for name, val in self.state.items():
+            scope.set(name, to_full(val))
+
+    def load_state_from(self, scope):
+        """Lay checkpointed values out on the mesh again with the step's
+        shardings (after a supervisor restore)."""
+        device = self.place.device()
+        restored = {}
+        for name in sorted(self.state):
+            val = scope.get(name)
+            if val is None:
+                raise KeyError("checkpoint is missing state var %r"
+                               % name)
+            restored[name] = distribute(
+                torch.as_tensor(np.asarray(val) if not isinstance(
+                    val, torch.Tensor) else val).to(device),
+                self.mesh, self._shardings[name].placements)
+        self.state = restored

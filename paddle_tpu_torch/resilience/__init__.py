@@ -2,7 +2,8 @@
 preemption-safe training supervisor.
 
 Counterpart of paddle_tpu/resilience without its elastic membership
-(`elastic`, whose trainer is bound to a mesh: ROADMAP A9):
+(`elastic`, whose trainer is an SPMD trainer: ROADMAP A9, second
+part):
 
   * `faults`      a seeded, deterministic fault-injection registry with
                   named points through the executor's run path, the

@@ -34,10 +34,11 @@ The checkpoints are the supervisor's own synchronous saves
 meta sidecar and the rollback need the manifest on disk before training
 goes on past it.  Random state is not checkpointed: resume determinism
 holds for programs whose per-step ops draw nothing from the random
-stream (dropout-free); see docs/RESILIENCE.md.  The JAX supervisor's
-mesh-parallel adapters (`run_parallel`, `for_parallel`) wait with the
-port's mesh (ROADMAP A9), and its report of the persistent executable
-cache on restore with the cache (A2).
+stream (dropout-free); see docs/RESILIENCE.md.  The mesh-parallel
+adapters (`run_parallel`, `for_parallel`) supervise a
+`parallel.ParallelTrainer`, whose snapshots hold the full values of its
+sharded state; the JAX supervisor's report of the persistent executable
+cache on restore waits with the cache (ROADMAP A2).
 """
 
 import json
@@ -432,16 +433,30 @@ class TrainingSupervisor:
 
     def run_parallel(self, trainer, reader_fn, num_epochs=1,
                      on_step=None):
-        """Supervise a mesh-parallel trainer: waits with the port's mesh
-        (ROADMAP A9)."""
-        raise NotImplementedError(
-            "TrainingSupervisor.run_parallel supervises the mesh-parallel "
-            "trainer, which the port does not have yet (ROADMAP A9)")
+        """Supervise a `parallel.ParallelTrainer` (init() already
+        called): the sharded state syncs through the supervisor scope
+        around every snapshot (see for_parallel)."""
+
+        def step(data):
+            fetches = trainer.step(data)
+            return self._loss_value(fetches)
+
+        return self.run(step, reader_fn, num_epochs=num_epochs,
+                        on_step=on_step)
 
     @classmethod
     def for_parallel(cls, trainer, ckpt_dir, **kw):
-        """Supervisor over a mesh-parallel trainer's state: waits with
-        the port's mesh (ROADMAP A9)."""
-        raise NotImplementedError(
-            "TrainingSupervisor.for_parallel supervises the mesh-parallel "
-            "trainer, which the port does not have yet (ROADMAP A9)")
+        """Supervisor over a ParallelTrainer's state dict: snapshots save
+        the full values of the sharded state (`dump_state_to`), restores
+        lay them out on the mesh again (`load_state_from`) on the
+        trainer's place."""
+        from ..core.scope import Scope
+
+        if trainer.state is None:
+            raise ValueError("call trainer.init() before attaching a "
+                             "supervisor")
+        kw.setdefault("place", trainer.place)
+        return cls(ckpt_dir, scope=Scope(),
+                   var_names=list(trainer.state),
+                   state_dump=trainer.dump_state_to,
+                   state_restore=trainer.load_state_from, **kw)

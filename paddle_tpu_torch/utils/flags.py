@@ -11,7 +11,8 @@ the executor's program verification and rewrite pipeline
 (`verify_program`, `compile_passes`: fluid/executor.py), and the C
 inference API's place (`use_gpu`: capi_impl.py; the C signature has
 none, so `FLAGS_use_gpu=0` in a C program's environment asks for the
-CPU).
+CPU), and the sharding verification of the parallel trainer
+(`verify_sharding`: parallel/).
 Kernels read a flag when they run, so a flag set around `Executor.run`
 (`fluid.amp.bf16_guard()`) governs that run; the optimizer reads the
 fusion flags when it builds the updates.
@@ -106,6 +107,14 @@ DEFINE_flag("compile_passes", "",
             "'default+fuse:cap=8'.  Every pass is verified before and "
             "after it runs.  Empty (the default) runs programs exactly "
             "as built")
+DEFINE_flag("verify_sharding", False,
+            "run the static SPMD analyzer (analysis/shard.py) at the "
+            "parallel trust boundaries before a step runs: "
+            "ParallelTrainer.init and make_parallel_step check the "
+            "program against the mesh, the pipeline and MoE schedules "
+            "their axis layouts.  The analyzer is not ported yet "
+            "(ROADMAP A9, second part), so with the flag on those entry "
+            "points raise NotImplementedError naming it")
 DEFINE_flag("use_gpu", True,
             "the C inference API (capi_impl.CEngine) runs on CUDAPlace(0); "
             "0 runs it on the CPU.  Read from FLAGS_use_gpu when the "

@@ -640,14 +640,13 @@ def test_program_costs_rows_equal_jax():
 # -- the registry facts the analysis reads --------------------------------------
 
 _JAX_TYPES = sorted(jreg._OP_REGISTRY)
-# the two types the port does not register: get_places (ROADMAP A9) and
-# recompute_barrier (A5)
-_WAITING = {"get_places", "recompute_barrier"}
+# the type the port does not register: recompute_barrier (ROADMAP A5)
+_WAITING = {"recompute_barrier"}
 
 
 def test_the_port_registers_all_but_two_jax_types():
     assert set(_JAX_TYPES) - set(treg.registered_ops()) == _WAITING
-    assert len(treg.registered_ops()) == 211
+    assert len(treg.registered_ops()) == 212
     assert set(treg.registered_ops()) <= set(_JAX_TYPES)
 
 

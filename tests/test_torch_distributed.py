@@ -780,12 +780,17 @@ def test_kill_pserver_and_recover_training(servers):
 
 
 def test_waiting_names_raise_naming_their_item():
-    for fn, item in ((coordinator.init_multihost, "A9"),
-                     (coordinator.global_mesh, "A9"),
-                     (coordinator.start_fleet_reporter, "A10"),
+    for fn, item in ((coordinator.start_fleet_reporter, "A10"),
                      (coordinator.stop_fleet_reporter, "A10")):
         with pytest.raises(NotImplementedError, match=item):
             fn()
+    # the mesh entry points came with the parallel package: a single
+    # process with nothing set starts no group (as jax.distributed is
+    # left alone there), and a CUDA mesh without a device raises
+    assert coordinator.init_multihost() is False
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            coordinator.global_mesh()
     with pytest.raises(NotImplementedError, match="A10"):
         cluster_launch.print_fleet_view(None)
     assert coordinator.process_count() == 1
@@ -793,8 +798,7 @@ def test_waiting_names_raise_naming_their_item():
     jall = set(__import__("paddle_tpu.distributed",
                           fromlist=["__all__"]).__all__)
     assert set(distributed.__all__) == jall - {
-        "init_multihost", "global_mesh", "start_fleet_reporter",
-        "stop_fleet_reporter"}
+        "start_fleet_reporter", "stop_fleet_reporter"}
 
 
 # -- the verifier -------------------------------------------------------------

@@ -69,7 +69,16 @@ def test_every_port_module_is_scanned():
                 # perf and load observability, the C API and their CLIs
                 ("obs", "perf.py"), ("obs", "load.py"), ("capi_impl.py",),
                 ("tools", "perf_cli.py"), ("tools", "load_cli.py"),
-                ("tools", "lint_cli.py")):
+                ("tools", "lint_cli.py"),
+                # A9's collective half, first part: the mesh and what
+                # needs only a mesh
+                ("parallel", "__init__.py"), ("parallel", "mesh.py"),
+                ("parallel", "sharding.py"), ("parallel", "collectives.py"),
+                ("parallel", "trainer.py"), ("parallel", "ring.py"),
+                ("parallel", "pipeline.py"), ("parallel", "moe.py"),
+                ("parallel", "optim.py"), ("parallel", "program_api.py"),
+                ("models", "transformer.py"),
+                ("fluid", "layers", "device.py")):
         assert os.path.join("paddle_tpu_torch", *new) in rel
     v2 = sorted(os.path.basename(p) for p in rel
                 if os.path.dirname(p) == os.path.join("paddle_tpu_torch",

@@ -251,7 +251,9 @@ def test_registry_holds_the_slice_op_set():
         "detection_output", "multibox_loss", "detection_map", "feed",
         "fetch", "save", "load",
         # the program analysis slice: the `fuse` rewrite pass's op
-        "fused_elemwise_chain"}
+        "fused_elemwise_chain",
+        # the mesh slice: get_places counts the mesh's ranks
+        "get_places"}
     # the `fuse` rewrite pass's op, registered since the program
     # analysis slice
     assert treg.get_op_info("fused_elemwise_chain").kernel is not None

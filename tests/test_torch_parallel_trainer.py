@@ -1,0 +1,328 @@
+"""The port's ParallelTrainer at 4 gloo ranks against the JAX package's on
+a 4-device mesh, and against the port at world size 1.
+
+The JAX side runs here, on `make_mesh(n_devices=4, ...)` over the
+virtual CPU devices; its initial state moves to the ranks as numpy
+arrays (`params_from_numpy`, then `load_state_from`).  The port's side
+runs in 4 gloo ranks spawned once for the file (`torch_ranks`), each
+building its program through the port's layers.  Tolerances are
+`tests/test_parallel_trainer.py`'s: losses at rtol 2e-5 and atol 1e-6,
+params at rtol 2e-4 and atol 1e-5.
+
+- The JAX test's MLP (4 Momentum steps) at dp 4, dp 2 x mp 2, ZeRO-1 at
+  dp 4 and ZeRO-1 with mp 2; the accumulators ZeRO-1 should shard are
+  `Shard` on dp, and the mp-sized fc weight `Shard` on mp.
+- A conv + batch_norm program at dp 4 equals the single-device step,
+  statistics included (the global-batch contract: a data-parallel port
+  whose ranks normalise their own shards would fail it).
+- `get_places` at 4 ranks counts the mesh; in one process its output
+  has the JAX op's shape and dtype.
+- `ParallelDo` equals inline execution, as on the JAX side.
+- At world size 1 in this process: the MLP through ParallelTrainer
+  equals the plain Executor, and `TrainingSupervisor.for_parallel`
+  snapshots and restores the trainer's state, the resumed run's params
+  equal to an unbroken run's; the step's telemetry (the `parallel`
+  step's counters and the numerics monitor's records, as the JAX
+  step's); `FLAGS_verify_sharding` raising, naming the analyzer the
+  port does not have yet.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu.fluid as jfluid
+from paddle_tpu.parallel import ParallelTrainer as JTrainer
+from paddle_tpu.parallel import make_mesh as jmake_mesh
+
+import paddle_tpu_torch.fluid as tfluid
+from paddle_tpu_torch.parallel import ParallelTrainer, make_mesh
+from paddle_tpu_torch.parallel.sharding import is_optimizer_state
+
+import torch_parallel_cases as cases
+from torch_ranks import CaseFailed, run_cases
+
+torch.set_num_threads(1)
+
+LOSS_TOL = dict(rtol=2e-5, atol=1e-6)
+PARAM_TOL = dict(rtol=2e-4, atol=1e-5)
+STEPS = 4
+CONFIGS = {
+    "dp4": ({}, 0),
+    "dp2_mp2": ({"mp": 2}, 0),
+    "zero1_dp4": ({}, 1),
+    "zero1_dp2_mp2": ({"mp": 2}, 1),
+}
+
+
+def _jax_run(build, feeds_fn, feed_names, mesh_kw, steps, zero_stage=0):
+    """(initial state, losses, final state) of the JAX trainer on a
+    4-device mesh."""
+    main, startup, avg = build(jfluid)
+    tr = JTrainer(main, startup, feed_names=feed_names,
+                  fetch_names=[avg.name],
+                  mesh=jmake_mesh(n_devices=4, **mesh_kw),
+                  zero_stage=zero_stage).init()
+    init = {n: np.array(v) for n, v in tr.state.items()}
+    losses = [float(np.asarray(tr.step(feeds_fn(i))[0]).reshape(-1)[0])
+              for i in range(steps)]
+    return init, losses, {n: np.asarray(v) for n, v in tr.state.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    runs = {name: _jax_run(cases.build_mlp, cases.mlp_feeds,
+                           ["x", "label"], mesh_kw, STEPS, zero)
+            for name, (mesh_kw, zero) in CONFIGS.items()}
+    runs["conv_bn"] = _jax_run(cases.build_conv_bn, cases.conv_bn_feeds,
+                               ["img", "label"], {}, 2)
+    return runs
+
+
+@pytest.fixture(scope="module")
+def ranks(jax_runs, tmp_path_factory):
+    """Every rank-side case of this file, in one spawn of 4 ranks."""
+    todo = {}
+    for name, (mesh_kw, zero) in CONFIGS.items():
+        todo[name] = (cases.train, (
+            cases.build_mlp, cases.mlp_feeds, ["x", "label"], mesh_kw,
+            jax_runs[name][0], STEPS, zero))
+    todo["conv_bn"] = (cases.train, (
+        cases.build_conv_bn, cases.conv_bn_feeds, ["img", "label"], {},
+        jax_runs["conv_bn"][0], 2))
+    todo["places"] = (cases.place_count, ({"mp": 2},))
+    return run_cases(todo, 4, tmp_path_factory.mktemp("ranks"))
+
+
+def _result(ranks, name):
+    got = ranks[name]
+    if isinstance(got, CaseFailed):
+        pytest.fail("rank-side case %s raised:\n%s" % (name, got))
+    return got
+
+
+def _assert_parity(losses_a, state_a, losses_b, state_b):
+    np.testing.assert_allclose(losses_a, losses_b, **LOSS_TOL)
+    assert state_a.keys() == state_b.keys()
+    for n in state_a:
+        np.testing.assert_allclose(state_a[n], state_b[n], err_msg=n,
+                                   **PARAM_TOL)
+
+
+@pytest.fixture(scope="module")
+def world_one(jax_runs):
+    """The MLP through ParallelTrainer at world size 1 in this process,
+    from each configuration's initial state (the world-1 run the JAX
+    test holds every mesh against)."""
+    runs = {name: cases.train(0, cases.build_mlp, cases.mlp_feeds,
+                              ["x", "label"], {}, jax_runs[name][0], STEPS)
+            for name in CONFIGS}
+    runs["conv_bn"] = cases.train(0, cases.build_conv_bn,
+                                  cases.conv_bn_feeds, ["img", "label"], {},
+                                  jax_runs["conv_bn"][0], 2)
+    yield runs
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_mlp_at_4_ranks_matches_jax(name, ranks, jax_runs):
+    losses, state, _ = _result(ranks, name)
+    _, jlosses, jstate = jax_runs[name]
+    assert all(np.isfinite(losses))
+    _assert_parity(losses, state, jlosses, jstate)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_mlp_at_4_ranks_matches_world_one(name, ranks, world_one):
+    losses, state, _ = _result(ranks, name)
+    _assert_parity(losses, state, *world_one[name][:2])
+
+
+def test_layouts_are_the_specs(ranks):
+    """ZeRO-1's accumulators shard over dp (the shape-[4] bias velocity
+    at dp 4 too: 4 divides it), the dp-only mesh's params replicate, and
+    the (8, 1024) fc weight shards over mp."""
+    _, _, dp4 = _result(ranks, "dp4")
+    assert all(p == ["Replicate()", "Replicate()"] for p in dp4.values())
+    _, _, z1 = _result(ranks, "zero1_dp4")
+    accs = [n for n in z1 if is_optimizer_state(n)]
+    assert accs and all(z1[n][0].startswith("Shard(") for n in accs), z1
+    assert all(z1[n][0] == "Replicate()" for n in z1
+               if not is_optimizer_state(n))
+    _, _, mp = _result(ranks, "zero1_dp2_mp2")
+    assert mp["fc_0.w_0"] == ["Replicate()", "Shard(dim=1)"]
+    assert mp["fc_0.w_0_velocity_0"] == ["Shard(dim=0)", "Shard(dim=1)"]
+
+
+def test_conv_batch_norm_step_is_the_global_batch_step(ranks, jax_runs,
+                                                       world_one):
+    losses, state, _ = _result(ranks, "conv_bn")
+    _, jlosses, jstate = jax_runs["conv_bn"]
+    _assert_parity(losses, state, jlosses, jstate)
+    _assert_parity(losses, state, *world_one["conv_bn"][:2])
+    # the running statistics moved with the whole batch's mean
+    mean = [n for n in state if n.endswith(".w_1") and
+            state[n].shape == (4,) and "batch_norm" in n]
+    assert mean and np.abs(state[mean[0]]).max() > 0.1
+
+
+def test_get_places_counts_the_mesh(ranks):
+    out = _result(ranks, "places")
+    np.testing.assert_array_equal(out, np.arange(4, dtype=np.int32))
+
+
+def test_get_places_has_the_jax_ops_shape_and_dtype():
+    from paddle_tpu.ops.registry import get_op_info as jop
+
+    jout = np.asarray(jop("get_places").kernel(None, {},
+                                               {"device_count": 1})["Out"][0])
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        places = tfluid.layers.get_places(device_count=1)
+    out, = tfluid.Executor(tfluid.CPUPlace()).run(main,
+                                                  fetch_list=[places])
+    assert out.shape == jout.shape and out.dtype == jout.dtype
+    np.testing.assert_array_equal(out, jout)
+    jmain, jstartup = jfluid.Program(), jfluid.Program()
+    with jfluid.program_guard(jmain, jstartup):
+        jfluid.layers.get_places(device_count=1)
+    assert [op.type for op in main.global_block().ops] == \
+        [op.type for op in jmain.global_block().ops]
+
+
+def test_parallel_do_shim_matches_plain_execution():
+    """ParallelDo runs its block once on the global batch."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[4], dtype="float32")
+        pd = tfluid.layers.ParallelDo(places=None)
+        with pd.do():
+            xi = pd.read_input(x)
+            pd.write_output(tfluid.layers.scale(x=xi, scale=3.0))
+        out = pd()
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    exe.run(startup)
+    xs = np.arange(8, dtype=np.float32).reshape(2, 4)
+    res, = exe.run(main, feed={"x": xs}, fetch_list=[out])
+    np.testing.assert_allclose(res, xs * 3.0, rtol=1e-6)
+
+
+def test_world_one_trainer_equals_the_executor(jax_runs, world_one):
+    """ParallelTrainer over a world of one rank is the plain executor's
+    training, from the same state."""
+    init = jax_runs["dp4"][0]
+    main, startup, avg = cases.build_mlp()
+    scope = tfluid.Scope()
+    tfluid.io.params_from_numpy(scope, init, "cpu")
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    losses = [float(exe.run(main, feed=cases.mlp_feeds(i), fetch_list=[avg],
+                            scope=scope)[0].reshape(-1)[0])
+              for i in range(STEPS)]
+    state = {n: scope.get(n).numpy() for n in init}
+    wlosses, wstate, _ = world_one["dp4"]
+    np.testing.assert_allclose(wlosses, losses, rtol=0, atol=1e-6)
+    for n in state:
+        np.testing.assert_allclose(wstate[n], state[n], rtol=0, atol=1e-6,
+                                   err_msg=n)
+
+
+def test_for_parallel_snapshots_and_restores(tmp_path, world_one):
+    """Supervised run_parallel at world 1: interrupted after a snapshot
+    and resumed by a new supervisor into a fresh trainer, it ends where
+    an unbroken run ends."""
+    from paddle_tpu_torch.resilience.supervisor import TrainingSupervisor
+
+    feeds = [cases.mlp_feeds(i) for i in range(6)]
+    mesh = make_mesh(device="cpu")
+
+    def trainer():
+        main, startup, avg = cases.build_mlp()
+        return ParallelTrainer(main, startup, ["x", "label"], [avg.name],
+                               mesh).init()
+
+    unbroken = trainer()
+    for f in feeds:
+        unbroken.step(f)
+
+    def reader_of(batches):
+        return lambda: iter(batches)
+
+    class Cut(Exception):
+        pass
+
+    class CutAt:
+        """The trainer, stopped by an error at its `at`-th step."""
+
+        def __init__(self, trainer, at):
+            self.trainer, self.at, self.n = trainer, at, 0
+
+        def step(self, data):
+            self.n += 1
+            if self.n == self.at:
+                raise Cut()
+            return self.trainer.step(data)
+
+    first = trainer()
+    sup = TrainingSupervisor.for_parallel(first, str(tmp_path / "ck"),
+                                          steps_per_checkpoint=3)
+    assert sup.place.device() == torch.device("cpu")
+    with pytest.raises(Cut):
+        sup.run_parallel(CutAt(first, 5), reader_of(feeds))
+    # a new trainer (its own startup: other weights) resumes from the
+    # snapshot of step 3, skips the 3 batches it consumed and runs 3
+    second = trainer()
+    sup2 = TrainingSupervisor.for_parallel(second, str(tmp_path / "ck"),
+                                           steps_per_checkpoint=3)
+    out = sup2.run_parallel(second, reader_of(feeds))
+    assert out["steps"] == 6
+    for n in unbroken.state:
+        np.testing.assert_allclose(second.fetch_state(n),
+                                   unbroken.fetch_state(n), rtol=0,
+                                   atol=1e-6, err_msg=n)
+
+
+def test_step_telemetry_and_the_numerics_monitor(world_one):
+    """The step counts as a `parallel` trainer step with its examples,
+    and under obs.health the monitor's extra fetches are recorded and
+    left out of the step's fetches, as on the JAX side."""
+    from paddle_tpu_torch.obs import health, registry, telemetry
+
+    registry.reset_registry()
+    mesh = make_mesh(device="cpu")
+    main, startup, avg = cases.build_mlp()
+    tr = ParallelTrainer(main, startup, ["x", "label"], [avg.name],
+                         mesh).init()
+    tr.step(cases.mlp_feeds(0))
+    snap = telemetry.snapshot()
+    assert snap["trainer_steps_total{trainer=parallel}"] == 1
+    assert snap["trainer_examples_total{trainer=parallel}"] == \
+        cases.MLP["BATCH"]
+    health.enable()
+    try:
+        main, startup, avg = cases.build_mlp()
+        tr = ParallelTrainer(main, startup, ["x", "label"], [avg.name],
+                             mesh).init()
+        fetches = tr.step(cases.mlp_feeds(0))
+    finally:
+        health.disable()
+    assert len(fetches) == 1 and tr._monitor is not None
+    last = tr._monitor.last
+    assert last is not None and last["nonfinite"]
+    assert all(v == 0 for v in last["nonfinite"].values())
+
+
+def test_verify_sharding_waits_with_the_analyzer(world_one):
+    from paddle_tpu_torch.utils import flags
+
+    mesh = make_mesh(device="cpu")
+    main, startup, avg = cases.build_mlp()
+    tr = ParallelTrainer(main, startup, ["x", "label"], [avg.name], mesh)
+    with pytest.raises(NotImplementedError, match="analysis/shard.py"):
+        tr.sharding_plan()
+    flags.set_flag("verify_sharding", True)
+    try:
+        with pytest.raises(NotImplementedError,
+                           match="analysis/shard.py"):
+            tr.init()
+    finally:
+        flags.set_flag("verify_sharding", False)

@@ -32,8 +32,8 @@
   `fluid.RaggedTensor`, `fluid.TPUPlace` (the port's accelerator place,
   the same class as `CUDAPlace`), `utils`' flags surface with
   `DEFINE_flag`, and `jit.functionalize`; the `__all__` of `fluid`,
-  `fluid.layers`, `utils` and `jit` hold every JAX name but
-  `ParallelDo` and `get_places` (ROADMAP A9).
+  `fluid.layers`, `utils` and `jit` hold every JAX name (the last two,
+  `ParallelDo` and `get_places`, came with the parallel package).
 - The executor's feed and transfer telemetry (found in PR 19): the
   port's executor timed no feed preparation and counted no transfer
   bytes, where the JAX executor publishes `executor_feed_seconds_total`
@@ -514,8 +514,9 @@ def test_lease_retry_budget_is_the_jax_coordinators():
 # -- public names (ROADMAP C7) ----------------------------------------------------
 
 def test_public_names_match_jax_but_the_mesh_layers():
-    """The JAX `__all__` of fluid, fluid.layers, utils and jit, less the
-    port's: ParallelDo and get_places (ROADMAP A9), nothing else."""
+    """The JAX `__all__` of fluid, fluid.layers, utils and jit, and the
+    port's: every name (ParallelDo and get_places came with the parallel
+    package)."""
     import paddle_tpu.jit as jjit
     import paddle_tpu.utils as jutils
     import paddle_tpu_torch.jit as tjit
@@ -527,7 +528,7 @@ def test_public_names_match_jax_but_the_mesh_layers():
         missing |= set(j.__all__) - set(t.__all__)
         for name in t.__all__:
             assert hasattr(t, name), (t.__name__, name)
-    assert missing == {"ParallelDo", "get_places"}
+    assert missing == set()
 
 
 def test_tpu_place_is_the_accelerator_place():

@@ -78,11 +78,11 @@ def test_the_port_registers_the_fifteen_new_op_types():
     split_selected_rows and dist_send, the entry-point slice 15
     (ops/nn.py, conv2d_transpose, 6 losses, 3 metrics), and A10's last
     op groups 32 (the rest of ops/conv.py, ops/v2_extra.py,
-    ops/detection.py, feed, fetch, save and load), and the program
-    analysis slice fused_elemwise_chain."""
+    ops/detection.py, feed, fetch, save and load), the program
+    analysis slice fused_elemwise_chain, and the mesh slice get_places."""
     ops = set(registered_ops())
     assert set(NEW_OPS) <= ops
-    assert len(ops) == 211
+    assert len(ops) == 212
 
 
 # -- sequence_softmax, sequence_conv, row_conv ---------------------------------

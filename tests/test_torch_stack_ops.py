@@ -143,10 +143,11 @@ def test_the_port_registers_the_new_op_types():
     # conv2d_transpose, 6 losses and 3 metrics, 210 since A10's last op
     # groups (ops/conv.py's other 10, ops/v2_extra.py's 12,
     # ops/detection.py's 6, feed, fetch, save and load), 211 since the
-    # program analysis slice's fused_elemwise_chain
+    # program analysis slice's fused_elemwise_chain, 212 since the mesh
+    # slice's get_places
     assert len(NEW_OPS) == 44
     ops = set(registered_ops())
-    assert set(NEW_OPS) <= ops and len(ops) == 211
+    assert set(NEW_OPS) <= ops and len(ops) == 212
     assert {c[1] for c in CASES} >= set(NEW_OPS) - {"fused_update"}
 
 
