@@ -11898,6 +11898,9 @@ MESH_LOGITS_ATOL = 1e-4       # flash against dense, the functional model
 MESH_SCHEDULE_ATOL = 1e-5     # GPipe and MoE against their plain versions
 MESH_MOE_TOKENS, MESH_MOE_EXPERTS, MESH_MOE_CF = 256, 8, 8.0
 MESH_PIPE_ROWS, MESH_PIPE_MB = 64, 4
+# 22b's initial state, losses and final state, which phase 23 holds
+# SpmdTrainer's steps against
+MESH_RECORD = {}
 
 
 def mesh_group(device):
@@ -11973,6 +11976,7 @@ def mesh_trainer(mesh, device, smi, batch=BATCH, seq=SEQ, vocab=VOCAB,
     steps_s = time.perf_counter() - t0
     launches = read_launches()
     after = {n: trainer.fetch_state(n) for n in init}
+    MESH_RECORD.update(init=init, losses=losses, after=after)
     exe = Executor(trainer.place)
     ref_losses, ref_after, _ = run_from_state(exe, main, loss, init, feeds)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
@@ -12150,6 +12154,310 @@ def phase_mesh():
     return launches
 
 
+# phase 23: the sharding analyzer and the plan-driven SpmdTrainer at world
+# size 1 (the overlapped dp step needs dp >= 2: one card per machine, so
+# it runs only as gloo ranks on the CPU, tests/test_torch_spmd.py)
+SPMD_BUCKET = 4 << 20
+SPMD_MESHES = (("the card's", {"dp": 1}, 0), ("dp=8", {"dp": 8}, 0),
+               ("dp=4,mp=2", {"dp": 4, "mp": 2}, 0),
+               ("dp=8 zero1", {"dp": 8}, 1))
+SPMD_FALLBACK = "mesh has no dp axis wider than 1"
+
+
+def spmd_program(batch=BATCH, seq=SEQ, vocab=VOCAB, n_layer=N_LAYER,
+                 n_head=N_HEAD, d_model=D_MODEL):
+    """Phase 5's training program (Momentum): (main, startup, loss)."""
+    from paddle_tpu_torch.fluid import MomentumOptimizer
+    from paddle_tpu_torch.models import transformer_program as tp
+
+    main, startup, loss, _ = tp.build_transformer_program(
+        batch, seq, vocab, n_layer=n_layer, n_head=n_head, d_model=d_model)
+    MomentumOptimizer(LR, MOMENTUM).minimize(loss, main, startup)
+    return main, startup, loss
+
+
+def _shard_facts(plan):
+    """What the analyzer decided, in plain data."""
+    return {"diagnostics": [(d.code, d.severity, d.var_name, d.op_index,
+                             d.message) for d in plan.report.diagnostics],
+            "var_specs": dict(plan.var_specs),
+            "param_reasons": dict(plan.param_reasons),
+            "comm": plan.comm.to_dict(topk=10),
+            "peak_hbm_bytes": plan.peak_hbm_bytes,
+            "hbm_breakdown": plan.hbm_breakdown}
+
+
+def spmd_analysis(mesh, main, loss, hbm_gb):
+    """23a: analyze_sharding over the training program against the
+    card's own mesh and three larger meshes: host ms (median of 3), the
+    codes, wire bytes by collective, the peak-memory estimate.  Each
+    must equal the same call over a static mesh description (the
+    analyzer reads the program and the axis sizes, no tensor).  Returns
+    the card mesh's ShardingPlan."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.parallel.mesh import MeshConfig
+
+    names = ["tokens", "positions", "targets"]
+    card_plan = None
+    for label, axes, zero in SPMD_MESHES:
+        target = mesh if label == "the card's" else dict(axes)
+        times, plan = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            plan = analysis.analyze_sharding(
+                main, target, feed_names=names, fetches=[loss],
+                zero_stage=zero, hbm_gb=hbm_gb)
+            times.append((time.perf_counter() - t0) * 1e3)
+        static = analysis.analyze_sharding(
+            main, MeshConfig(axes=tuple(axes), **axes), feed_names=names,
+            fetches=[loss], zero_stage=zero, hbm_gb=hbm_gb)
+        codes = sorted({d.code for d in plan.report.diagnostics})
+        print("spmd: analyze_sharding on %s mesh %s (zero %d, budget %.1f "
+              "GiB): host ms %.2f (median of 3: %s), codes %s (%d "
+              "findings, %d errors), wire bytes %s, peak_hbm_bytes %d"
+              % (label, axes, zero, hbm_gb, float(np.median(times)),
+                 ", ".join("%.2f" % t for t in times), codes,
+                 len(plan.report.diagnostics), len(plan.report.errors),
+                 json.dumps(dict(plan.comm.totals())),
+                 plan.peak_hbm_bytes), flush=True)
+        if _shard_facts(plan) != _shard_facts(static):
+            raise SystemExit("chip_smoke: the analysis on %s mesh differs "
+                             "from the same call over a static mesh"
+                             % label)
+        if not plan.report.ok():
+            raise SystemExit("chip_smoke: the training program does not "
+                             "shard clean on %s mesh:\n%s"
+                             % (label, plan.report.format()))
+        if card_plan is None:
+            card_plan = plan
+    return card_plan
+
+
+def spmd_trainer(mesh, device, smi, main, startup, loss, feeds):
+    """23b: SpmdTrainer under FLAGS_verify_sharding with 4 MiB buckets:
+    its plan against the one built over a static mesh, the mode and the
+    fallback reason at dp 1, its 3 steps against a ParallelTrainer's
+    (ZeRO-1, as 22b) from the same state, bit for bit, and against 22b's
+    own run when there is one; both steps' medians.  Returns (the launch
+    counts of SpmdTrainer's 3 steps, the trainer)."""
+    import torch
+    from paddle_tpu_torch.parallel import ParallelTrainer
+    from paddle_tpu_torch.parallel.mesh import MeshConfig
+    from paddle_tpu_torch.spmd import SpmdTrainer, build_partition_plan
+    from paddle_tpu_torch.utils import flags
+
+    names = ["tokens", "positions", "targets"]
+    static = build_partition_plan(main, MeshConfig(axes=("dp",), dp=1),
+                                  names, [loss], zero_stage=1)
+    flags.set_flag("verify_sharding", True)
+    try:
+        t0 = time.perf_counter()
+        spmd = SpmdTrainer(main, startup, names, [loss], mesh,
+                           bucket_bytes=SPMD_BUCKET, zero_stage=1).init()
+        init_s = time.perf_counter() - t0
+        ref = ParallelTrainer(main, startup, names, [loss], mesh,
+                              zero_stage=1).init()
+    finally:
+        flags.set_flag("verify_sharding", False)
+    init = MESH_RECORD.get("init") or {
+        n: ref.fetch_state(n) for n in sorted(ref.state)}
+    for tr in (spmd, ref):
+        tr.load_state_from(params_scope(init, tr.place.device()))
+    ref_losses = [float(ref.step(f)[0].reshape(-1)[0]) for f in feeds]
+    ref_after = {n: ref.fetch_state(n) for n in init}
+    reset_launches()
+    losses = [float(spmd.step(f)[0].reshape(-1)[0]) for f in feeds]
+    launches = read_launches()
+    after = {n: spmd.fetch_state(n) for n in init}
+    same = losses == ref_losses and all(
+        np.array_equal(after[n], ref_after[n]) for n in init)
+    same_22b = None
+    if MESH_RECORD:
+        same_22b = losses == MESH_RECORD["losses"] and all(
+            np.array_equal(after[n], MESH_RECORD["after"][n])
+            for n in init)
+    print("spmd: SpmdTrainer (FLAGS_verify_sharding, bucket %d B, zero 1) "
+          "init %.2f s, plan %s (static %s), step_mode %s, fallback %r, "
+          "_aot_state %s; losses %s; equal to ParallelTrainer bit for bit: "
+          "%s; to 22b's run: %s; launches %s"
+          % (SPMD_BUCKET, init_s, spmd.plan.fingerprint()[:16],
+             static.fingerprint()[:16], spmd.step_mode,
+             spmd.overlap_fallback_reason, spmd._aot_state,
+             ", ".join("%.6f" % x for x in losses), same, same_22b,
+             json.dumps(launches)), flush=True)
+    if spmd.plan.fingerprint() != static.fingerprint() \
+            or spmd.step_mode != "gspmd" \
+            or spmd.overlap_fallback_reason != SPMD_FALLBACK:
+        raise SystemExit("chip_smoke: SpmdTrainer's plan or mode is not "
+                         "the static plan's at dp 1")
+    if not all(np.isfinite(losses)) or not same or same_22b is False:
+        raise SystemExit("chip_smoke: SpmdTrainer's steps differ from "
+                         "ParallelTrainer's")
+    if device == "cuda" and launches[route_entry("f32")] != \
+            2 * N_LAYER * len(feeds):
+        raise SystemExit("chip_smoke: %d f32 flash launches in %d "
+                         "SpmdTrainer steps, designed %d per step"
+                         % (launches[route_entry("f32")], len(feeds),
+                            2 * N_LAYER))
+    if device != "cuda":
+        return launches, spmd
+    dev_feed = {n: torch.from_numpy(v.astype(np.int32)).to(device)
+                for n, v in feeds[0].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spmd.step(dev_feed)
+    torch.cuda.synchronize()
+    spmd.peak_bytes = torch.cuda.max_memory_allocated()
+    spmd_ms = timed_steps(lambda: spmd.step(dev_feed), runs=MESH_TIMED,
+                          warm=MESH_WARM)
+    ref_ms = timed_steps(lambda: ref.step(dev_feed), runs=MESH_TIMED,
+                         warm=MESH_WARM)
+    sm, rm = float(np.median(spmd_ms)), float(np.median(ref_ms))
+    print("spmd: step ms (median of %d after %d warm, %s): SpmdTrainer "
+          "%.3f (min %.3f, max %.3f), ParallelTrainer %.3f (min %.3f, max "
+          "%.3f), ratio %.3f"
+          % (MESH_TIMED, MESH_WARM, smi, sm, min(spmd_ms), max(spmd_ms),
+             rm, min(ref_ms), max(ref_ms), sm / rm), flush=True)
+    return launches, spmd
+
+
+def spmd_buckets(mesh, device, main, feeds, state):
+    """23c: one step's real grads (the executor's, from `state`) through
+    `bucketed_allreduce` under shard_map_norep on the mesh: the buckets
+    in reverse production order, the spans nesting, the outputs equal to
+    the inputs bit for bit at p = 1; `measure_bucket_times` and
+    `drift_report` (nothing to time at p = 1)."""
+    import torch
+    from paddle_tpu_torch.fluid import Executor
+    from paddle_tpu_torch.obs import comm as obs_comm
+    from paddle_tpu_torch.obs import trace as obs_trace
+    from paddle_tpu_torch.parallel.ring import (bucketed_allreduce,
+                                                grad_buckets)
+    from paddle_tpu_torch.parallel.sharding import P, shard_map_norep
+    from paddle_tpu_torch.parallel.trainer import place_of
+    from paddle_tpu_torch.spmd.overlap import _split_point
+
+    _split, grad_order = _split_point(list(main.block(0).ops))
+    exe = Executor(place_of(mesh))
+    scope = params_scope(state, exe.device)
+    grads = dict(zip(grad_order, exe.run(
+        main, feed=feeds[0], fetch_list=grad_order, scope=scope,
+        return_numpy=False)))
+    order = list(reversed(grad_order))
+    members = sorted(grads)
+
+    def reduce(g):
+        out = bucketed_allreduce(g, SPMD_BUCKET, order=order)
+        return tuple(out[n] for n in members)
+
+    fn = shard_map_norep(reduce, mesh, in_specs=({n: P() for n in grads},),
+                         out_specs=tuple(P() for _ in members))
+    obs_comm.reset()
+    obs_trace.enable()
+    try:
+        with torch.no_grad():
+            out = fn(grads)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        events = obs_trace.events()
+    finally:
+        obs_trace.disable()
+        obs_trace.reset()
+    sched = obs_comm.last_schedule()
+    want = grad_buckets([(n, grads[n].numel() * grads[n].element_size())
+                         for n in order], SPMD_BUCKET)
+    parents = [e for e in events if e.get("name") ==
+               "comm/bucketed_allreduce"]
+    children = [e for e in events if e.get("name") == "comm/bucket"]
+    nested = len(parents) == 1 and len(children) == len(want) and all(
+        parents[0]["ts"] <= c["ts"] and c["ts"] + c["dur"]
+        <= parents[0]["ts"] + parents[0]["dur"] for c in children)
+    equal = all(torch.equal(o.to_local(), grads[n])
+                for n, o in zip(members, out))
+    print("spmd: bucketed_allreduce over %d grads (%d bytes) at p = 1: %d "
+          "buckets of %s bytes, first names %s; spans nest: %s; outputs "
+          "equal the inputs bit for bit: %s"
+          % (len(grads), sched["total_bytes"], sched["n_buckets"],
+             [b["bytes"] for b in sched["buckets"]],
+             [b["names"][0] for b in sched["buckets"]], nested, equal),
+          flush=True)
+    if [b["names"] for b in sched["buckets"]] != want or [
+            b["bytes"] for b in sched["buckets"]] != [
+            sum(grads[n].numel() * 4 for n in b) for b in want] \
+            or not nested or not equal:
+        raise SystemExit("chip_smoke: the bucketed all-reduce's schedule, "
+                         "spans or values are wrong")
+    rows = obs_comm.measure_bucket_times(
+        mesh, {n: v.cpu().numpy() for n, v in grads.items()}, SPMD_BUCKET)
+    print("spmd: measure_bucket_times at p = 1: %s; drift_report: %s "
+          "(a ring of one moves nothing: no comm cost is measured here)"
+          % (rows, json.dumps(obs_comm.drift_report(rows))), flush=True)
+
+
+def spmd_schedules(device):
+    """23c: phase 22d's GPipe and MoE under FLAGS_verify_sharding, and
+    `check_pipeline` and `check_moe` on their meshes, clean."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.utils import flags
+
+    reports = [analysis.check_pipeline(
+        make_mesh(axes=("pp",), device=device), n_stages=1,
+        n_microbatches=MESH_PIPE_MB, batch_size=MESH_PIPE_ROWS),
+        analysis.check_moe(make_mesh(axes=("ep",), device=device),
+                           MESH_MOE_EXPERTS, capacity_factor=MESH_MOE_CF,
+                           tokens=MESH_MOE_TOKENS)]
+    flags.set_flag("verify_sharding", True)
+    try:
+        mesh_schedules(device)
+    finally:
+        flags.set_flag("verify_sharding", False)
+    print("spmd: check_pipeline and check_moe findings: %s"
+          % [r.codes() for r in reports], flush=True)
+    if any(r.diagnostics for r in reports):
+        raise SystemExit("chip_smoke: GPipe or MoE do not check clean")
+
+
+def phase_spmd():
+    """Phase 23: the sharding analyzer on the card's host, SpmdTrainer on
+    the bench transformer over NCCL at world size 1, the bucketed
+    all-reduce on one step's grads, GPipe and MoE under the flag;
+    returns the launch counts of SpmdTrainer's 3 steps."""
+    import torch
+    from paddle_tpu_torch.models import transformer_program as tp
+
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    try:
+        mesh = mesh_group("cuda")
+        main, startup, loss = spmd_program()
+        hbm_gb = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+        t1 = time.perf_counter()
+        card_plan = spmd_analysis(mesh, main, loss, hbm_gb)
+        t2 = time.perf_counter()
+        feeds = [tp.transformer_feeds(BATCH, SEQ, VOCAB, seed=SEED + i,
+                                      targets=True)
+                 for i in range(MESH_STEPS)]
+        launches, trainer = spmd_trainer(mesh, "cuda", smi, main, startup,
+                                         loss, feeds)
+        print("spmd: the dp=1 static peak-memory estimate %d bytes beside "
+              "torch.cuda.max_memory_allocated() over one step %d bytes "
+              "(not gated: the port's executor keeps every intermediate "
+              "until the run ends, ROADMAP A5)"
+              % (card_plan.peak_hbm_bytes, trainer.peak_bytes), flush=True)
+        t3 = time.perf_counter()
+        spmd_buckets(mesh, "cuda", main, feeds,
+                     {n: trainer.fetch_state(n) for n in trainer.state})
+        spmd_schedules("cuda")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    print("spmd: 23a %.1f s, 23b %.1f s, 23c %.1f s; phase 23 took %.1f s"
+          % (t2 - t1, t3 - t2, time.perf_counter() - t3,
+             time.perf_counter() - t0), flush=True)
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -12197,6 +12505,7 @@ def main():
     analysis_launches = run(phase_analysis)
     perf_launches = run(phase_perf)
     mesh_launches = run(phase_mesh)
+    spmd_launches = run(phase_spmd)
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
@@ -12226,7 +12535,7 @@ def main():
              stack_launches[f32], obs_serve_launches[f32],
              ps_transformer_launches[f32], cli_launches[f32],
              analysis_launches[f32], perf_launches[f32],
-             mesh_launches[f32])
+             mesh_launches[f32], spmd_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
                          "a main path (served, trained, decoded, trained "
@@ -12234,7 +12543,8 @@ def main():
                          "observability, trained through the pservers, "
                          "served by serve_cli, trained verified and "
                          "optimized, profiled and served under load, "
-                         "trained over the mesh: %s)" % (paths,))
+                         "trained over the mesh, trained by the "
+                         "plan-driven SpmdTrainer: %s)" % (paths,))
     kernels = []
     for route in fa.ROUTES:
         name = route_entry(route)
@@ -12245,7 +12555,7 @@ def main():
             v2_launches, stack_launches, obs_amp_launches,
             obs_serve_launches, ps_ctr_launches, ps_transformer_launches,
             cli_launches, ssd_launches, analysis_launches, perf_launches,
-            mesh_launches))
+            mesh_launches, spmd_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

@@ -13,6 +13,14 @@ layers (each diagnostic code means what it means there):
     device ops, unseeded random ops, AMP dtype mixes, grad orphans
     (L0xx codes).
 
+and the sharding layer:
+
+  * `shard`     static SPMD analysis: spec propagation against a mesh
+    description, divisibility, conflict and schedule checks, the
+    per-device peak-memory estimate (S0xx codes), with `costmodel`
+    pricing the collectives the layout implies
+    (`shard_comm_bytes_total{collective}`).
+
 `check_program` runs all three and publishes the finding counters
 (`analysis_diagnostics_total{code,severity}`) into the obs registry; the
 roofline cost analysis lives in `fluid/analysis.py`.
@@ -21,8 +29,9 @@ Verification runs at the trust boundaries, as on the JAX side: the
 executor's FLAGS_verify_program gate, `fluid.io.load_inference_model`
 (a structural check on load), the serving engine's warmup (the full
 check), the rewrite passes (around each pass) and the
-DistributeTranspiler.  The JAX package's `shard` and `costmodel` passes
-wait with ROADMAP A9's second part, `alias` with A2's buffer donation.
+DistributeTranspiler; the sharding analyzer at the mesh's
+(`FLAGS_verify_sharding`, `lint_cli --mesh`).  The JAX package's `alias`
+pass waits with A2's buffer donation.
 """
 
 from .diagnostics import (Diagnostic, ProgramVerificationError, Report,
@@ -30,10 +39,15 @@ from .diagnostics import (Diagnostic, ProgramVerificationError, Report,
 from .dataflow import Liveness, analyze_dataflow
 from .lints import lint_program
 from .verifier import verify_program
+from .shard import (analyze_sharding, check_moe, check_pipeline,
+                    check_ring, mesh_axis_sizes, ShardingPlan)
+from .costmodel import CommCostReport
 
 __all__ = ["Diagnostic", "Severity", "Report", "ProgramVerificationError",
            "Liveness", "verify_program", "analyze_dataflow",
-           "lint_program", "check_program"]
+           "lint_program", "check_program", "analyze_sharding",
+           "check_pipeline", "check_moe", "check_ring", "mesh_axis_sizes",
+           "ShardingPlan", "CommCostReport"]
 
 
 def check_program(program, level="full", fetches=None, bucket_hints=None,

@@ -101,9 +101,11 @@ def _waiting(name, item, what):
     return fn
 
 
-start_fleet_reporter = _waiting("start_fleet_reporter", "A10",
+start_fleet_reporter = _waiting("start_fleet_reporter",
+                                "A9, second part, slice 22",
                                 "obs/fleet.py")
-stop_fleet_reporter = _waiting("stop_fleet_reporter", "A10",
+stop_fleet_reporter = _waiting("stop_fleet_reporter",
+                               "A9, second part, slice 22",
                                "obs/fleet.py")
 
 

@@ -29,11 +29,19 @@ values.
   * `load`      — the load generator (open and closed loop, access-log
                   replay, the tail and exemplar joins); a submodule
                   imported by name (`paddle_tpu_torch.obs.load`), not
-                  listed here, as in the JAX package.
+                  listed here, as in the JAX package;
+  * `comm`      — the collectives' observability in one process: the
+                  bucket schedule's spans, per-bucket ring timing
+                  against the analytic floor, the overlap split of the
+                  data-parallel step, the calibration blob; imported by
+                  name, as in the JAX package;
+  * `fleet`     — this worker's identity (`host_id`), which the SPMD
+                  trainer stamps into the flight recorder.
 
 They are copies, not imports: the port imports nothing of the JAX
 package.  The JAX package's `mem` waits with the compiled segments
-(ROADMAP A2), `comm` and `fleet` with the mesh (A9).
+(ROADMAP A2); the rest of `fleet` and the cross-host half of `comm`
+with A9's slice 22.
 
 Everything is off by default and cheap when off: a span with tracing
 disabled is one check, the health and flight hooks start with one
@@ -41,7 +49,7 @@ flag or None check.
 """
 
 from . import registry, telemetry, trace  # noqa: F401
-from . import context, flight, health, perf, tail  # noqa: F401
+from . import context, fleet, flight, health, perf, tail  # noqa: F401
 
-__all__ = ["context", "flight", "health", "perf", "registry", "tail",
-           "telemetry", "trace"]
+__all__ = ["context", "fleet", "flight", "health", "perf", "registry",
+           "tail", "telemetry", "trace"]

@@ -683,8 +683,8 @@ def normalize_record(record, leg=None, ts=None):
         norm["config"] = cfg
     comm = record.get("comm")
     if comm:
-        # a multi-device comm measurement (the JAX package's keys; the
-        # port's collective half is ROADMAP A9): the analytic ring
+        # a multi-device comm measurement (the JAX package's keys, as
+        # obs/comm.py reports them): the analytic ring
         # floor vs the timed grad-allreduce, the overlap split and the
         # mode stamps that keep fallback runs out of the overlap
         # baseline.  Per-bucket detail stays OUT of history lines.

@@ -76,17 +76,19 @@ def span(name):
 def dense(x, op_type):
     """`x` if it is a dense tensor.  A SelectedRows raises TypeError: a
     sparse gradient goes only to `sum` and the optimizer update ops, as
-    on the JAX side.  A RaggedTensor raises NotImplementedError: the op
-    takes no ragged input in the port (`transpose`; ROADMAP A10)."""
+    on the JAX side.  A RaggedTensor raises TypeError too: the op takes
+    no ragged input, as the JAX op takes none (it hands the value to
+    `jnp`, which refuses it)."""
     if isinstance(x, SelectedRows):
         raise TypeError(
             "%s takes dense tensors, got a SelectedRows (a sparse "
             "gradient, which only `sum` and the optimizer update ops "
             "take)" % op_type)
     if not isinstance(x, torch.Tensor):
-        raise NotImplementedError(
-            "%s: ragged (LoD) inputs to this op are not ported (ROADMAP "
-            "A10), got %s" % (op_type, type(x).__name__))
+        raise TypeError(
+            "%s takes no ragged (LoD) input, got a %s (as on the JAX "
+            "side, the op reads dense tensors only)"
+            % (op_type, type(x).__name__))
     return x
 
 

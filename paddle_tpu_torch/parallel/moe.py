@@ -19,7 +19,7 @@ import torch.utils._pytree as pytree
 
 from . import collectives as C
 from .mesh import mesh_shape
-from .sharding import P, check_verify_flag, shard_map_norep
+from .sharding import P, shard_map_norep
 
 __all__ = ["switch_moe", "moe_shard_map", "init_moe_params",
            "expert_capacity", "moe_axis_info"]
@@ -174,7 +174,6 @@ def moe_shard_map(mesh, axis_name="ep", batch_axis="dp",
         param_specs = {"gate_w": P(),
                        "experts": pytree.tree_map(lambda _: P(axis_name),
                                                   expert_param_template)}
-    check_verify_flag("moe_shard_map")
     fn = functools.partial(
         switch_moe, axis_name=axis_name, capacity_factor=capacity_factor,
         batch_axes=tuple(a for a in axes if a != axis_name),

@@ -24,7 +24,7 @@ from ..obs import trace as obs_trace
 from ..ops.registry import span
 from . import collectives as C
 from .mesh import mesh_shape
-from .sharding import P, check_verify_flag, shard_map_norep
+from .sharding import P, shard_map_norep
 
 __all__ = ["gpipe_spmd", "pipeline_apply", "split_microbatches",
            "stack_stage_params", "pipeline_schedule_info"]
@@ -129,8 +129,18 @@ def pipeline_apply(mesh, stage_fn, stacked_params, x, n_microbatches,
     axis [S, ...]; S must equal the mesh's `axis_name` size.  x: the
     [B, ...] global batch; with a "dp" axis in the mesh the microbatch
     dimension is dp-sharded too.  Returns the [B, ...] outputs of the
-    final stage, a DTensor on `mesh`."""
-    check_verify_flag("pipeline_apply")
+    final stage, a DTensor on `mesh`.  With FLAGS_verify_sharding on,
+    the schedule's layout is checked first (`analysis.check_pipeline`),
+    and an S0xx error raises ProgramVerificationError."""
+    from ..utils import flags as _flags
+
+    if _flags.get_flag("verify_sharding"):
+        from ..analysis import shard as _shard
+
+        _shard.check_pipeline(
+            mesh, n_stages=pytree.tree_leaves(stacked_params)[0].shape[0],
+            n_microbatches=n_microbatches, axis_name=axis_name,
+            batch_size=int(x.shape[0])).raise_on_error()
     axes = mesh_shape(mesh)
     s = axes[axis_name]
     n_stages = pytree.tree_leaves(stacked_params)[0].shape[0]

@@ -16,8 +16,7 @@ import torch
 from .mesh import mesh_shape
 from .moe import moe_shard_map
 from .pipeline import pipeline_apply, stack_stage_params
-from .sharding import (P, check_verify_flag, distribute, replicating,
-                       to_full)
+from .sharding import P, distribute, replicating, to_full
 from .trainer import place_of
 
 __all__ = ["lower_program_fn", "PipelineProgramTrainer",
@@ -90,7 +89,15 @@ class PipelineProgramTrainer:
         if optimizer is None:
             optimizer = MomentumOptimizer(learning_rate=lr, momentum=0.9)
         self.optimizer = PytreeOptimizer(optimizer)
-        check_verify_flag("PipelineProgramTrainer")
+        from ..utils import flags as _flags
+
+        if _flags.get_flag("verify_sharding"):
+            from ..analysis import shard as _shard
+
+            _shard.check_pipeline(
+                mesh, n_stages=mesh_shape(mesh).get(pp_axis, 0),
+                n_microbatches=n_microbatches,
+                axis_name=pp_axis).raise_on_error()
         place = place_of(mesh)
         self.device = place.device()
         n_stages = mesh_shape(mesh)[pp_axis]
@@ -157,7 +164,15 @@ class MoEProgramLayer:
     def __init__(self, build_expert, n_experts, d_model, mesh,
                  ep_axis="ep", batch_axis="dp", capacity_factor=1.25,
                  seed=0):
-        check_verify_flag("MoEProgramLayer")
+        from ..utils import flags as _flags
+
+        if _flags.get_flag("verify_sharding"):
+            from ..analysis import shard as _shard
+
+            _shard.check_moe(
+                mesh, n_experts, capacity_factor=capacity_factor,
+                axis_name=ep_axis,
+                batch_axis=batch_axis).raise_on_error()
         place = place_of(mesh)
         expert_states, fns = [], []
         for e in range(n_experts):

@@ -15,8 +15,9 @@ with `use_flash`, else `reference_attention`), one all-to-all after.
 
 `ring_attention` and `ulysses_attention` are per-rank functions: call
 them inside `sp_shard_map` (or `sharding.shard_map_norep`).
-`bucketed_allreduce` records its schedule in `obs/comm.py`, which the
-port does not have yet; it raises, naming that item.
+`bucketed_allreduce` runs `ring_allreduce` once per bucket of
+gradients (the overlapped data-parallel step's reduction,
+spmd/overlap.py) and records its schedule in `obs/comm.py`.
 """
 
 import torch
@@ -194,13 +195,47 @@ def grad_buckets(sized_names, bucket_bytes):
 
 def bucketed_allreduce(grads, bucket_bytes, axis_name="dp", mean=True,
                        order=None):
-    """Ring-allreduce a dict of gradient shards in buckets, recording
-    the schedule in obs/comm.py: waits with that module (ROADMAP A9,
-    second part)."""
-    raise NotImplementedError(
-        "parallel.ring.bucketed_allreduce records its bucket schedule in "
-        "obs/comm.py, which the port does not have yet (ROADMAP A9, "
-        "second part: obs/comm.py)")
+    """Ring-allreduce a dict of per-rank gradient shards in buckets.
+
+    Each bucket flattens and concatenates its members into one f32
+    vector, runs ONE `ring_allreduce` over it, and splits the result
+    back — one collective chain per bucket instead of one per tensor
+    (tiny grads amortize) or one for everything.  `order` (default:
+    reversed dict order) fixes which grads reduce first.  Call inside
+    shard_map_norep.  The schedule (buckets, names, bytes) is recorded
+    through obs/comm.py on every call, with a `comm/bucketed_allreduce`
+    span nesting one `comm/bucket` span per bucket.
+    """
+    from ..obs import comm as obs_comm
+
+    if not grads:
+        return grads
+    names = list(order) if order is not None \
+        else list(reversed(list(grads)))
+    sized = [(n, grads[n].numel() * grads[n].element_size())
+             for n in names]
+    size_of = dict(sized)
+    buckets = grad_buckets(sized, bucket_bytes)
+    sched = obs_comm.record_schedule(
+        "allreduce", axis_name,
+        [{"bucket": i, "names": list(b),
+          "bytes": int(sum(size_of[n] for n in b))}
+         for i, b in enumerate(buckets)], mean=mean)
+    out = dict(grads)
+    with obs_comm.schedule_span(sched):
+        for i, bucket in enumerate(buckets):
+            with obs_comm.bucket_span(sched, i):
+                parts = [grads[n].to(torch.float32).reshape(-1)
+                         for n in bucket]
+                flat = parts[0] if len(parts) == 1 else torch.cat(parts)
+                flat = ring_allreduce(flat, axis_name, mean=mean)
+                off = 0
+                for n in bucket:
+                    size = grads[n].numel()
+                    out[n] = flat[off:off + size].reshape(
+                        grads[n].shape).to(grads[n].dtype)
+                    off += size
+    return out
 
 
 def sp_shard_map(fn, mesh, axis_name="sp", dp_axis="dp", mp_axis="mp"):

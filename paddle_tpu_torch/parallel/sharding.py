@@ -32,7 +32,7 @@ __all__ = ["P", "PartitionSpec", "NamedSharding", "placements",
            "shard_state", "shard_feeds", "zero1_spec",
            "zero1_spec_reason", "optimizer_state_names",
            "is_optimizer_state", "shard_map_norep", "distribute",
-           "to_full", "replicating", "check_verify_flag"]
+           "to_full", "replicating"]
 
 
 class PartitionSpec(tuple):
@@ -263,19 +263,6 @@ def zero1_spec(base_spec, shape, mesh, dp_axis="dp"):
     spec, _reason = zero1_spec_reason(base_spec, shape, mesh,
                                       dp_axis=dp_axis)
     return spec
-
-
-def check_verify_flag(what):
-    """Under FLAGS_verify_sharding, raise: `what` would check its layout
-    with the static SPMD analyzer (analysis/shard.py), which the port
-    does not have yet."""
-    from ..utils import flags
-
-    if flags.get_flag("verify_sharding"):
-        raise NotImplementedError(
-            "FLAGS_verify_sharding: %s checks its layout with the static "
-            "SPMD analyzer (analysis/shard.py), which the port does not "
-            "have yet (ROADMAP A9, second part: analysis/shard.py)" % what)
 
 
 def _dtensor():

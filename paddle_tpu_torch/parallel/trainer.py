@@ -16,10 +16,11 @@ specs again (the JAX step's `out_shardings`), and the fetches come back
 as full tensors, as the JAX fetches come back replicated.
 
 The mesh's ranks run on CUDA over NCCL unless it was made for the CPU
-(`make_mesh(..., device="cpu")`, gloo).  `FLAGS_verify_sharding`, and
-`sharding_plan` and `verify_sharding`, need the static SPMD analyzer
-(`analysis/shard.py`), which the port does not have yet: they raise
-NotImplementedError naming it.
+(`make_mesh(..., device="cpu")`, gloo).  With `FLAGS_verify_sharding`
+on, the static SPMD analyzer (`analysis/shard.py`) checks the program
+against the mesh before the startup program runs or a step is built
+(`verify_sharding`), and `sharding_plan` returns its analysis without
+raising, as on the JAX side.
 """
 
 import numpy as np
@@ -32,25 +33,36 @@ from ..jit import FunctionalProgram, state_from_scope
 from ..obs import flight as obs_flight
 from ..obs import health as obs_health
 from ..obs import telemetry as obs_tele
+from ..utils import flags as _flags
 from .mesh import mesh_scope
-from .sharding import (NamedSharding, batch_spec, check_verify_flag,
-                       distribute, is_optimizer_state,
-                       optimizer_state_names, param_spec, replicating,
-                       to_full, zero1_spec)
+from .sharding import (NamedSharding, batch_spec, distribute,
+                       is_optimizer_state, optimizer_state_names,
+                       param_spec, replicating, to_full, zero1_spec)
 
 __all__ = ["make_parallel_step", "ParallelTrainer", "verify_sharding"]
-
-_ANALYZER = ("the static SPMD analyzer (analysis/shard.py), which the "
-             "port does not have yet (ROADMAP A9, second part: "
-             "analysis/shard.py)")
 
 
 def verify_sharding(program, mesh, feed_names, fetch_names,
                     feed_specs=None, zero_stage=0, dp_axis="dp",
                     mp_axis="mp", origin="parallel_trainer", hbm_gb=None):
-    """The static SPMD analyzer's gate over a program and mesh: waits
-    with analysis/shard.py."""
-    raise NotImplementedError("verify_sharding needs " + _ANALYZER)
+    """Run the static SPMD analyzer over `program` against `mesh` and
+    raise ProgramVerificationError on any error-severity S0xx finding
+    (non-divisible shard, schedule hazard, budget overrun) before
+    anything runs.  The trust-boundary gate behind
+    FLAGS_verify_sharding; callers can also invoke it directly.
+    Returns the ShardingPlan for introspection."""
+    from ..analysis import shard as shard_analysis
+
+    plan = shard_analysis.analyze_sharding(
+        program, mesh, feed_names=list(feed_names),
+        feed_specs=feed_specs, fetches=list(fetch_names),
+        zero_stage=zero_stage, dp_axis=dp_axis, mp_axis=mp_axis,
+        hbm_gb=hbm_gb, publish=True, origin=origin,
+        # trainer feeds carry their real runtime shapes: a
+        # non-divisible static batch is a hard S002 here
+        concrete_feeds=True)
+    plan.report.raise_on_error()
+    return plan
 
 
 def place_of(mesh):
@@ -79,12 +91,19 @@ def make_parallel_step(program, feed_names, fetch_names, mesh,
     spec_overrides maps a state name to the spec it takes, bypassing
     param_spec and the zero1 rewrite.  donate_state is accepted and does
     nothing: the step makes new state tensors and drops the old ones
-    (buffer donation waits with ROADMAP A2).  With FLAGS_verify_sharding
-    on, this raises: the analyzer is not ported yet.
+    (buffer donation waits with ROADMAP A2).
+
+    With FLAGS_verify_sharding on, the static SPMD analyzer runs over
+    the program and mesh first (unless the caller already did:
+    ParallelTrainer.init verifies before running startup, and passes
+    `fp`) and rejects S0xx errors before the step is built.
     """
     if fp is None:
-        if program is not None:
-            check_verify_flag("make_parallel_step")
+        if program is not None and _flags.get_flag("verify_sharding"):
+            verify_sharding(program, mesh, feed_names, fetch_names,
+                            feed_specs=feed_specs,
+                            zero_stage=zero_stage, dp_axis=dp_axis,
+                            mp_axis=mp_axis, origin="parallel_step")
         fp = FunctionalProgram(program, feed_names, fetch_names,
                                place=place_of(mesh))
     acc_names = optimizer_state_names(program) if program is not None \
@@ -162,9 +181,12 @@ class ParallelTrainer:
 
     def init(self, scope=None, executor=None):
         """Run the startup program on this rank's device, then lay the
-        state out over the mesh by the sharding specs.  With
-        FLAGS_verify_sharding on this raises first: the analyzer is not
-        ported yet."""
+        state out over the mesh by the sharding specs.
+
+        With FLAGS_verify_sharding on, the static SPMD analyzer runs
+        first, before the startup program executes, so a non-divisible
+        shard or a schedule hazard rejects with op, var and spec
+        identity instead of failing inside a step."""
         self._verify()
         scope = scope or Scope()
         exe = executor or Executor(self.place)
@@ -195,7 +217,16 @@ class ParallelTrainer:
         return self
 
     def _verify(self):
-        check_verify_flag("ParallelTrainer.init")
+        """The pre-startup trust-boundary gate; `SpmdTrainer` replaces
+        it with the partition-plan build (which raises on the same S0xx
+        errors, rules included)."""
+        if _flags.get_flag("verify_sharding"):
+            verify_sharding(self.main_program, self.mesh,
+                            self.feed_names, self.fetch_names,
+                            feed_specs=self.feed_specs,
+                            zero_stage=self.zero_stage,
+                            dp_axis=self.dp_axis, mp_axis=self.mp_axis,
+                            origin="parallel_trainer")
 
     def _make_step(self, fp, state, fetch_all):
         """Build (step_fn, state_shardings): the hook a subclass
@@ -250,9 +281,16 @@ class ParallelTrainer:
         return fetch_to_host(to_full(self.state[name]))
 
     def sharding_plan(self, hbm_gb=None):
-        """The static SPMD analysis of this trainer's program and mesh:
-        waits with analysis/shard.py."""
-        raise NotImplementedError("sharding_plan needs " + _ANALYZER)
+        """Introspection: the static SPMD analysis of this trainer's
+        program and mesh (specs, replication reasons, comm cost,
+        per-device peak-memory estimate) without raising."""
+        from ..analysis import shard as shard_analysis
+
+        return shard_analysis.analyze_sharding(
+            self.main_program, self.mesh, feed_names=self.feed_names,
+            feed_specs=self.feed_specs, fetches=self.fetch_names,
+            zero_stage=self.zero_stage, dp_axis=self.dp_axis,
+            mp_axis=self.mp_axis, hbm_gb=hbm_gb, publish=False)
 
     # -- supervisor integration ---------------------------------------------
     def dump_state_to(self, scope):

@@ -3,7 +3,7 @@ preemption-safe training supervisor.
 
 Counterpart of paddle_tpu/resilience without its elastic membership
 (`elastic`, whose trainer is an SPMD trainer: ROADMAP A9, second
-part):
+part, slice 22):
 
   * `faults`      a seeded, deterministic fault-injection registry with
                   named points through the executor's run path, the

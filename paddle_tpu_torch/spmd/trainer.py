@@ -1,0 +1,181 @@
+"""SpmdTrainer — the plan-driven SPMD trainer.
+
+Counterpart of paddle_tpu/spmd/trainer.py.  A thin subclass of
+`parallel.ParallelTrainer` that routes the step through the
+partition-plan artifact (`plan.build_partition_plan`):
+
+  * the plan build IS the pre-startup verification (it runs the static
+    analyzer with the partition rules and raises on S0xx errors), so
+    `_verify` defers to it instead of running the analyzer twice, and
+    stamps this worker's identity (host, rank, mesh, plan fingerprint)
+    into the flight recorder's host context;
+  * the plan's per-var specs override the `sharding.param_spec`
+    heuristics in the mesh step (`make_parallel_step`'s
+    `spec_overrides`), so a regex rule edit changes the layout with no
+    trainer code change;
+  * with `bucket_bytes > 0` and a pure-dp layout, the step is the
+    explicit bucketed schedule (`overlap.make_overlapped_dp_step`), and
+    it falls back to the mesh step otherwise (`overlap_fallback_reason`
+    says why, in the JAX trainer's words).  `step_mode` names the step
+    that runs: "overlap-dp" or "gspmd" (the JAX package's name for the
+    mesh step, kept so records join across the packages).
+
+The JAX trainer's first step acquires its compiled step from the
+persistent compile cache.  The port compiles nothing and has no such
+cache yet (ROADMAP A2): the first step records `_aot_state = "no-cache"`,
+what the JAX trainer records when `pcache.get_cache()` returns None.
+Sharded checkpoints (`save_checkpoint`, `restore_checkpoint`) and
+`attach_supervisor` need `spmd/checkpoint.py`, which comes with ROADMAP
+A9's slice 22: they raise NotImplementedError naming it.
+"""
+
+from ..parallel.trainer import ParallelTrainer, make_parallel_step
+from .overlap import make_overlapped_dp_step, overlap_supported
+from .plan import build_partition_plan, load_rules
+
+__all__ = ["SpmdTrainer", "attach_supervisor"]
+
+_CHECKPOINT = ("needs the sharded checkpoints of spmd/checkpoint.py, "
+               "which the port does not have yet (ROADMAP A9, second "
+               "part, slice 22)")
+
+
+def _rank():
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+class SpmdTrainer(ParallelTrainer):
+    """End-to-end plan-driven SPMD trainer.
+
+    Usage::
+
+        trainer = SpmdTrainer(main_prog, startup_prog,
+                              feed_names=["image", "label"],
+                              fetch_names=[loss.name], mesh=mesh,
+                              rules=[(r"fc_.*\\.w_0", ("mp", None))],
+                              zero_stage=1)
+        trainer.init()
+        (loss,) = trainer.step({"image": x, "label": y})
+
+    rules: partition rules in any `plan.load_rules` shape (path, rule
+        document, or [(pattern, spec), ...]); None keeps the pure
+        heuristic layout.
+    plan: a pre-built `PartitionPlan` (e.g. loaded from the `shard_cli
+        plan` artifact) — skips the analyzer run; the plan's mesh axes
+        must match `mesh`.
+    bucket_bytes: > 0 requests the explicit bucketed dp step with
+        ring-allreduce buckets of that size; 0 (default) keeps the mesh
+        step.  `step_mode` records which step runs.
+    use_pcache: kept for the JAX signature; the port has no compile
+        cache (`_aot_state` reads "no-cache" after the first step when
+        it is on, "off" when it is off).
+    """
+
+    def __init__(self, main_program, startup_program, feed_names,
+                 fetch_names, mesh, rules=None, plan=None,
+                 bucket_bytes=0, model=None, use_pcache=True, **kw):
+        super().__init__(main_program, startup_program, feed_names,
+                         fetch_names, mesh, **kw)
+        self.rules = load_rules(rules) if rules is not None else None
+        self.plan = plan
+        self.bucket_bytes = int(bucket_bytes or 0)
+        self.model = model
+        self.use_pcache = bool(use_pcache)
+        self.step_mode = None
+        self.overlap_fallback_reason = None
+        self._fetch_all = list(fetch_names)
+        self._state_template = None
+        self._aot_state = "pending" if self.use_pcache else "off"
+
+    # -- plan-driven step hooks -----------------------------------------------
+    def _build_plan(self):
+        return build_partition_plan(
+            self.main_program, self.mesh, self.feed_names,
+            self.fetch_names, rules=self.rules,
+            zero_stage=self.zero_stage, feed_specs=self.feed_specs,
+            dp_axis=self.dp_axis, mp_axis=self.mp_axis,
+            model=self.model, raise_on_error=True)
+
+    def _mesh_axes(self):
+        from ..parallel.mesh import mesh_shape
+
+        return {a: int(s) for a, s in mesh_shape(self.mesh).items()}
+
+    def _verify(self):
+        # the plan build runs the analyzer (rules included) and raises
+        # on the same S0xx errors verify_sharding would — one pass
+        if self.plan is None:
+            self.plan = self._build_plan()
+        else:
+            want = self._mesh_axes()
+            if dict(self.plan.mesh_axes) != want:
+                raise ValueError(
+                    "partition plan was built for mesh %r but the "
+                    "trainer mesh is %r — rebuild with `shard_cli plan`"
+                    % (dict(self.plan.mesh_axes), want))
+        # stamp this worker's identity into any future flight bundle:
+        # a multi-process post-mortem must say WHICH process on WHICH
+        # mesh (and against which plan) died, not just that one did
+        from ..obs import fleet as obs_fleet
+        from ..obs import flight as obs_flight
+
+        obs_flight.set_host_context(
+            host=obs_fleet.host_id(), process_index=_rank(),
+            mesh_axes=self._mesh_axes(),
+            plan_fingerprint=self.plan.fingerprint())
+
+    def _make_step(self, fp, state, fetch_all, donate_state=None):
+        if self.plan is None:       # init() not used (a caller drives
+            self.plan = self._build_plan()  # _make_step directly)
+        self._fetch_all = list(fetch_all)
+        self._state_template = state
+        if self.bucket_bytes > 0:
+            ok, reason = overlap_supported(
+                self.main_program, self.mesh, dp_axis=self.dp_axis,
+                zero_stage=self.zero_stage)
+            if ok:
+                self.step_mode = "overlap-dp"
+                return make_overlapped_dp_step(
+                    self.main_program, self.feed_names, fetch_all,
+                    self.mesh, state, dp_axis=self.dp_axis,
+                    bucket_bytes=self.bucket_bytes,
+                    donate_state=donate_state,
+                    feed_specs=self.feed_specs)
+            self.overlap_fallback_reason = reason
+        self.step_mode = "gspmd"
+        overrides = {n: self.plan.spec_of(n) for n in state
+                     if self.plan.has(n)}
+        return make_parallel_step(
+            self.main_program, self.feed_names, fetch_all, self.mesh,
+            state, dp_axis=self.dp_axis, mp_axis=self.mp_axis, fp=fp,
+            zero_stage=self.zero_stage, feed_specs=self.feed_specs,
+            donate_state=donate_state, spec_overrides=overrides)
+
+    def step(self, feeds):
+        if self._aot_state == "pending":
+            # the JAX trainer's first step acquires its compiled step
+            # from the persistent compile cache; with none (the port's
+            # case until ROADMAP A2) it records this
+            self._aot_state = "no-cache"
+        return super().step(feeds)
+
+    # -- sharded checkpoints --------------------------------------------------
+    def save_checkpoint(self, root, step):
+        """A sharded per-host snapshot: waits with spmd/checkpoint.py."""
+        raise NotImplementedError("SpmdTrainer.save_checkpoint "
+                                  + _CHECKPOINT)
+
+    def restore_checkpoint(self, root, max_generation=None):
+        """Restore a sharded per-host snapshot: waits with
+        spmd/checkpoint.py."""
+        raise NotImplementedError("SpmdTrainer.restore_checkpoint "
+                                  + _CHECKPOINT)
+
+
+def attach_supervisor(trainer, ckpt_dir, interval_secs=30.0,
+                      max_to_keep=3, **kw):
+    """A resilience supervisor over the trainer's sharded snapshots:
+    waits with spmd/checkpoint.py."""
+    raise NotImplementedError("spmd.attach_supervisor " + _CHECKPOINT)

@@ -20,7 +20,7 @@ The role processes must find paddle_tpu_torch (install it, or pass its
 checkout's root in PYTHONPATH through `env`).  A pserver that has not
 reported ready within READY_TIMEOUT_S fails the launch.  The fleet view
 that the JAX launcher prints after an elastic job (`print_fleet_view`)
-waits with obs/fleet.py (ROADMAP A10).
+waits with obs/fleet.py (ROADMAP A9, second part, slice 22).
 """
 
 import argparse
@@ -137,7 +137,8 @@ def print_fleet_view(master, out=sys.stdout):
     """The JAX launcher's per-host fleet view of an elastic job: it
     needs obs/fleet.py, which the port does not have yet."""
     raise NotImplementedError("print_fleet_view needs obs/fleet.py, which "
-                              "the port does not have yet (ROADMAP A10)")
+                              "the port does not have yet (ROADMAP A9, "
+                              "second part, slice 22)")
 
 
 def _pserver_code(wait):

@@ -4,6 +4,11 @@
     # by either package):
     python -m paddle_tpu_torch.tools.lint_cli path/to/model_dir
 
+    # additionally run the static SPMD/sharding analyzer against a
+    # mesh description (no card needed; S0xx codes):
+    python -m paddle_tpu_torch.tools.lint_cli path/to/model_dir \
+        --mesh dp=4,mp=2 --hbm-gb 16 [--zero 1]
+
     # lint the checked-in golden program fixtures
     # (tests/fixtures/golden), optionally after a rewrite pipeline:
     python -m paddle_tpu_torch.tools.lint_cli --golden --passes default
@@ -19,9 +24,12 @@ also fails on warnings).  `--json` emits the structured report instead
 of text; the codes, severities and suppression syntax are the JAX
 package's.
 
-`--mesh`, `--hbm-gb` and `--zero` need the sharding analyzer and the
-mesh (ROADMAP A9); `--donation` needs the donation-safety analysis
-(A2).  Each raises SystemExit naming its item.
+`--mesh` (with `--hbm-gb` and `--zero`) runs the sharding analyzer
+(analysis/shard.py) against a mesh description and merges its S0xx
+findings into the report; the text output adds the comm totals and the
+per-device peak-memory estimate, `--json` a `sharding` section.
+`--donation` needs the donation-safety analysis (ROADMAP A2): it raises
+SystemExit naming its item.
 
 `--selftest` builds a REAL training program, asserts it verifies with
 zero error-severity diagnostics, then seeds seven deliberate
@@ -31,9 +39,14 @@ asserts each is reported under its stable diagnostic code; it checks
 that a suppression filters, drives the executor's FLAGS_verify_program
 gate end to end at the place `--use_gpu` names (the corrupted program
 must fail BEFORE any op runs, with an error naming the op index and
-variable), and finds the finding counters in the registry.  The JAX
-selftest's sharding and donation legs wait on A9 and A2; the port's
-prints a line saying so.
+variable), and finds the finding counters in the registry.  Its
+sharding leg then analyzes a clean lenet5 training program and every
+golden fixture over the four dryrun mesh shapes (dp/mp, dp/mp/sp,
+pp/dp, dp/ep) asserting zero errors, seeds one corruption per S0xx code
+(unmatched rule, non-divisible batch, conflicting layouts, schedule
+mismatch, memory budget) asserting each exact code, and finds the comm
+bytes in the registry.  The JAX selftest's donation leg waits on A2;
+the port's prints a line saying so.
 """
 
 import argparse
@@ -61,14 +74,15 @@ def parse_args(argv=None):
                    help="comma-separated runtime fetch names (enables "
                         "dead-op detection)")
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help="the static sharding analyzer against a mesh "
-                        "description: waits with the mesh (ROADMAP A9)")
+                   help="axis=size mesh description, e.g. dp=4,mp=2 — "
+                        "also run the static SPMD/sharding analyzer "
+                        "(S0xx codes) against it; no card needed")
     p.add_argument("--hbm-gb", type=float, default=None,
-                   help="the sharding analyzer's per-device memory "
-                        "budget: waits with the mesh (ROADMAP A9)")
+                   help="per-device memory budget in GiB for the S005 "
+                        "peak-memory check (needs --mesh)")
     p.add_argument("--zero", type=int, default=0, metavar="STAGE",
-                   help="ZeRO stage for the sharding analysis: waits "
-                        "with the mesh (ROADMAP A9)")
+                   help="ZeRO stage for the sharding analysis "
+                        "(1 = dp-shard optimizer state)")
     p.add_argument("--passes", default=None, metavar="SPEC",
                    help="optimize each target through this rewrite "
                         "pipeline (compile/passes.py spec, e.g. "
@@ -100,13 +114,8 @@ def _split(csv):
 
 
 def _refuse_waiting(args):
-    """The options whose analyses have no port yet raise SystemExit
-    naming their ROADMAP item."""
-    if args.mesh or args.hbm_gb is not None or args.zero:
-        raise SystemExit(
-            "lint_cli: --mesh, --hbm-gb and --zero need the sharding "
-            "analyzer (analysis/shard.py) and the mesh (parallel.mesh), "
-            "which the port does not have yet (ROADMAP A9)")
+    """The option whose analysis has no port yet raises SystemExit
+    naming its ROADMAP item."""
     if args.donation:
         raise SystemExit(
             "lint_cli: --donation needs the donation-safety analysis "
@@ -114,10 +123,35 @@ def _refuse_waiting(args):
             "does not have yet (ROADMAP A2)")
 
 
-def _report_exit(name, report, args):
+def _shard_analyze(desc, args, report, fetches=None):
+    """Run the SPMD analyzer against --mesh, merging S0xx findings
+    into `report`; returns the ShardingPlan (None without --mesh)."""
+    if not args.mesh:
+        return None
+    from .. import analysis
+    from ..parallel.mesh import parse_mesh_spec
+
+    before = len(report.diagnostics)
+    plan = analysis.analyze_sharding(
+        desc, parse_mesh_spec(args.mesh), fetches=fetches,
+        zero_stage=args.zero, hbm_gb=args.hbm_gb, report=report,
+        publish=False)
+    # `report` was already published by check_program: count ONLY the
+    # findings this analysis added (re-publishing the merged report
+    # would double-count every V/D/H/L finding), plus the comm and
+    # memory side the plan carries
+    analysis.Report(report.diagnostics[before:]).publish(
+        origin="lint_cli_mesh")
+    plan.publish(diagnostics=False)
+    return plan
+
+
+def _report_exit(name, report, args, plan=None):
     if args.json:
         doc = report.to_dict()
         doc["target"] = name
+        if plan is not None:
+            doc["sharding"] = plan.to_dict()
         print(json.dumps(doc, indent=1, sort_keys=True))
     else:
         shown = report.sorted()
@@ -125,6 +159,12 @@ def _report_exit(name, report, args):
             shown = [d for d in shown if d.severity != "info"]
         for d in shown:
             print(d.format())
+        if plan is not None:
+            comm = plan.comm.totals()
+            print("[lint] %s: mesh=%s comm=%s peak_hbm=%.3fGiB"
+                  % (name, dict(plan.mesh_axes),
+                     {k: int(v) for k, v in comm.items()} or "none",
+                     (plan.peak_hbm_bytes or 0) / 2**30))
         print("[lint] %s: %d error(s), %d warning(s), %d info, "
               "%d suppressed"
               % (name, len(report.errors), len(report.warnings),
@@ -148,15 +188,18 @@ def lint_model_dir(args):
         desc, level=args.level, fetches=fetches,
         bucket_hints=meta.get("bucket_hints"),
         suppress=_split(args.suppress), origin="lint_cli")
-    return _report_exit(args.model_dir, report, args)
+    plan = _shard_analyze(desc, args, report, fetches=fetches)
+    return _report_exit(args.model_dir, report, args, plan=plan)
 
 
 def lint_golden(args):
     """Lint every checked-in golden ProgramDesc fixture (a red fixture
-    means the pinned IR itself is broken, not just changed)."""
+    means the pinned IR itself is broken, not just changed).  With
+    --mesh the pinned IR must also shard clean against that mesh
+    description."""
     from .. import analysis
 
-    results = []  # (name, report)
+    results = []  # (name, report, sharding plan)
     for name, desc in _golden_descs(args.golden):
         if args.passes:
             # lint the POST-PASS program: the optimized IR is what
@@ -171,7 +214,8 @@ def lint_golden(args):
         report = analysis.check_program(
             desc, level=args.level, suppress=_split(args.suppress),
             origin="lint_golden")
-        results.append((name, report))
+        plan = _shard_analyze(desc, args, report)
+        results.append((name, report, plan))
     if not results:
         print("[lint] no golden ProgramDesc fixtures found")
         return 1
@@ -180,17 +224,19 @@ def lint_golden(args):
         # json.dumps per fixture
         docs = []
         rc = 0
-        for name, report in results:
+        for name, report, plan in results:
             d = report.to_dict()
             d["target"] = name
+            if plan is not None:
+                d["sharding"] = plan.to_dict()
             docs.append(d)
             if report.errors or (args.strict and report.warnings):
                 rc = 1
         print(json.dumps(docs, indent=1, sort_keys=True))
         return rc
     rc = 0
-    for name, report in results:
-        rc |= _report_exit(name, report, args)
+    for name, report, plan in results:
+        rc |= _report_exit(name, report, args, plan=plan)
     return rc
 
 
@@ -296,6 +342,163 @@ def _corruptions(main, loss_name, param_name):
     ]
 
 
+# the four multichip dryrun mesh shapes: the sharding selftest proves
+# every clean program analyzes green on ALL of them
+DRYRUN_MESHES = [
+    ("dp/mp", "dp=4,mp=2"),
+    ("dp/mp/sp", "dp=2,mp=2,sp=2"),
+    ("pp/dp", "pp=4,dp=2"),
+    ("dp/ep", "dp=2,ep=4"),
+]
+
+
+def _build_lenet5_train():
+    """lenet5 -> cross-entropy -> Momentum in a fresh Program pair (the
+    flagship small-model topology: conv/pool/fc/softmax, real backward
+    and update ops)."""
+    from .. import fluid
+    from ..models.image import lenet5
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[1, 28, 28],
+                                dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1],
+                                  dtype="int64")
+        probs = lenet5(img, class_dim=10)
+        loss = fluid.layers.mean(
+            x=fluid.layers.cross_entropy(input=probs, label=label))
+        fluid.optimizer.MomentumOptimizer(
+            learning_rate=0.01, momentum=0.9).minimize(loss)
+    return main, loss.name
+
+
+def _shard_corruptions():
+    """[(label, expected S-code, run(analysis, mesh) -> Report)] — one
+    seeded sharding corruption per stable S0xx code, each run against a
+    mesh parsed from a dryrun shape."""
+    from .. import fluid
+    from ..parallel.mesh import parse_mesh_spec
+
+    def _mlp(batch=None):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            kw = {} if batch is None else \
+                {"append_batch_size": False}
+            shp = [1024] if batch is None else [batch, 1024]
+            x = fluid.layers.data(name="x", shape=shp,
+                                  dtype="float32", **kw)
+            h = fluid.layers.fc(input=x, size=1024, act="relu")
+            loss = fluid.layers.mean(x=h)
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        return main, loss.name
+
+    def s001_unmatched_rule(analysis, mesh):
+        main, loss = _mlp()
+        return analysis.analyze_sharding(
+            main, mesh, fetches=[loss], publish=False,
+            rules=[("^matches_nothing$", ())]).report
+
+    def s002_non_divisible_batch(analysis, mesh):
+        main, loss = _mlp(batch=6)  # 6 % dp=4 != 0
+        # concrete_feeds: the trainer boundary, where the static
+        # batch IS the runtime batch
+        return analysis.analyze_sharding(
+            main, mesh, fetches=[loss], publish=False,
+            concrete_feeds=True).report
+
+    def s003_conflicting_layouts(analysis, mesh):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            a = fluid.layers.data(name="a", shape=[8, 16],
+                                  dtype="float32",
+                                  append_batch_size=False)
+            b = fluid.layers.data(name="b", shape=[8, 16],
+                                  dtype="float32",
+                                  append_batch_size=False)
+            fluid.layers.elementwise_add(x=a, y=b)
+        # a shards dim0 over dp (the default), b demands mp there
+        return analysis.analyze_sharding(
+            main, mesh, feed_specs={"b": ("mp",)},
+            publish=False).report
+
+    def s004_schedule_mismatch(analysis, mesh):
+        # 3 stacked stages on a pp=4 ring: the ppermute misroutes
+        return analysis.check_pipeline(
+            parse_mesh_spec("pp=4,dp=2"), n_stages=3,
+            n_microbatches=8)
+
+    def s005_hbm_budget(analysis, mesh):
+        main, loss = _mlp()
+        return analysis.analyze_sharding(
+            main, mesh, fetches=[loss], hbm_gb=1e-6,
+            publish=False).report
+
+    return [
+        ("param matched no partition rule", "S001",
+         s001_unmatched_rule),
+        ("batch not divisible by dp", "S002",
+         s002_non_divisible_batch),
+        ("conflicting input layouts", "S003",
+         s003_conflicting_layouts),
+        ("pipeline stage/mesh mismatch", "S004",
+         s004_schedule_mismatch),
+        ("peak HBM over budget", "S005", s005_hbm_budget),
+    ]
+
+
+def _selftest_sharding(args):
+    """The sharding analyzer leg of --selftest."""
+    from .. import analysis
+    from ..obs import registry as obs_registry
+    from ..parallel.mesh import parse_mesh_spec
+
+    # 1. the clean lenet5 training program and every golden fixture
+    #    analyze with ZERO errors on all four dryrun mesh shapes
+    lenet_main, lenet_loss = _build_lenet5_train()
+    targets = [("lenet5", lenet_main, [lenet_loss])]
+    targets += [(name, desc, None) for name, desc in _golden_descs()]
+    for mesh_label, mesh_spec in DRYRUN_MESHES:
+        mesh = parse_mesh_spec(mesh_spec)
+        for name, prog, fetches in targets:
+            plan = analysis.analyze_sharding(prog, mesh,
+                                             fetches=fetches,
+                                             publish=False)
+            assert plan.report.ok(), \
+                "%s on %s mesh reported errors:\n%s" \
+                % (name, mesh_label, plan.report.format())
+
+    # 2. every seeded sharding corruption reports its exact S-code.
+    # The seeds are tuned to this mesh (batch 6 % dp=4, an mp axis to
+    # conflict with) — pinned, NOT args.mesh, so any legal --mesh
+    # value leaves the selftest self-contained
+    default_mesh = parse_mesh_spec("dp=4,mp=2")
+    for label, code, run in _shard_corruptions():
+        report = run(analysis, default_mesh)
+        assert report.has(code), \
+            "%s: expected %s, got codes %s\n%s" \
+            % (label, code, report.codes(), report.format())
+        assert any(d.code == code and d.severity in
+                   ("error", "warning") for d in report.diagnostics), \
+            "%s: %s only reported as info" % (label, code)
+
+    # 3. the comm cost model prices the dp gradient sync and lands in
+    #    the registry as shard_comm_bytes_total{collective}
+    plan = analysis.analyze_sharding(lenet_main, default_mesh,
+                                     fetches=[lenet_loss],
+                                     publish=True,
+                                     origin="lint_selftest")
+    totals = plan.comm.totals()
+    assert totals.get("allreduce", 0) > 0, \
+        "no gradient all-reduce priced: %s" % totals
+    assert plan.peak_hbm_bytes and plan.peak_hbm_bytes > 0
+    snap = {s["name"] for s in
+            obs_registry.get_registry().to_dict()["metrics"]}
+    assert "shard_comm_bytes_total" in snap, \
+        "shard_comm_bytes_total missing from the registry"
+    return len(_shard_corruptions())
+
+
 def selftest(args):
     import numpy as np
 
@@ -367,16 +570,22 @@ def selftest(args):
         k.startswith("analysis_") for k in snap), \
         "no analysis_* metrics in the registry"
 
+    # 6. the SPMD/sharding analyzer: clean programs green on all four
+    #    dryrun mesh shapes, seeded S0xx corruptions each caught,
+    #    comm cost model in the registry
+    n_shard = _selftest_sharding(args)
+
     print("[lint] selftest green: clean program verified (0 errors), "
           "%d seeded corruptions each reported their code, "
           "suppression filters, executor FLAGS_verify_program gate "
           "on %s rejects before any op runs with op identity, finding "
-          "counters in the registry"
-          % (len(_corruptions(main, loss_name, param_name)), place),
-          flush=True)
-    print("[lint] the sharding leg waits with the mesh (ROADMAP A9), "
-          "the donation leg with buffer donation (ROADMAP A2)",
-          flush=True)
+          "counters in the registry; sharding: lenet5 + golden "
+          "fixtures clean on %d dryrun mesh shapes, %d seeded S-code "
+          "corruptions each caught, comm bytes published"
+          % (len(_corruptions(main, loss_name, param_name)), place,
+             len(DRYRUN_MESHES), n_shard), flush=True)
+    print("[lint] the donation leg waits with buffer donation (ROADMAP "
+          "A2)", flush=True)
     return 0
 
 

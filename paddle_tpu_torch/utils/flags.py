@@ -112,9 +112,8 @@ DEFINE_flag("verify_sharding", False,
             "parallel trust boundaries before a step runs: "
             "ParallelTrainer.init and make_parallel_step check the "
             "program against the mesh, the pipeline and MoE schedules "
-            "their axis layouts.  The analyzer is not ported yet "
-            "(ROADMAP A9, second part), so with the flag on those entry "
-            "points raise NotImplementedError naming it")
+            "their axis layouts, and an S0xx error raises "
+            "ProgramVerificationError before anything runs")
 DEFINE_flag("use_gpu", True,
             "the C inference API (capi_impl.CEngine) runs on CUDAPlace(0); "
             "0 runs it on the CPU.  Read from FLAGS_use_gpu when the "

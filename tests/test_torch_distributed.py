@@ -780,8 +780,8 @@ def test_kill_pserver_and_recover_training(servers):
 
 
 def test_waiting_names_raise_naming_their_item():
-    for fn, item in ((coordinator.start_fleet_reporter, "A10"),
-                     (coordinator.stop_fleet_reporter, "A10")):
+    for fn, item in ((coordinator.start_fleet_reporter, "slice 22"),
+                     (coordinator.stop_fleet_reporter, "slice 22")):
         with pytest.raises(NotImplementedError, match=item):
             fn()
     # the mesh entry points came with the parallel package: a single
@@ -791,7 +791,7 @@ def test_waiting_names_raise_naming_their_item():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             coordinator.global_mesh()
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="slice 22"):
         cluster_launch.print_fleet_view(None)
     assert coordinator.process_count() == 1
     assert coordinator.process_index() == 0

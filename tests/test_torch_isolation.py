@@ -78,7 +78,14 @@ def test_every_port_module_is_scanned():
                 ("parallel", "pipeline.py"), ("parallel", "moe.py"),
                 ("parallel", "optim.py"), ("parallel", "program_api.py"),
                 ("models", "transformer.py"),
-                ("fluid", "layers", "device.py")):
+                ("fluid", "layers", "device.py"),
+                # A9's second part, first slice: the sharding analyzer,
+                # the plan-driven trainer and the comm observability
+                ("analysis", "shard.py"), ("analysis", "costmodel.py"),
+                ("spmd", "__init__.py"), ("spmd", "plan.py"),
+                ("spmd", "overlap.py"), ("spmd", "trainer.py"),
+                ("obs", "comm.py"), ("obs", "fleet.py"),
+                ("tools", "shard_cli.py")):
         assert os.path.join("paddle_tpu_torch", *new) in rel
     v2 = sorted(os.path.basename(p) for p in rel
                 if os.path.dirname(p) == os.path.join("paddle_tpu_torch",

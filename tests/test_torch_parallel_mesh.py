@@ -303,12 +303,32 @@ def test_expert_capacity_and_grad_buckets_equal_jax():
 
 
 def test_bucketed_allreduce_and_verify_sharding_wait():
-    """The pieces that need the next PR's modules raise naming them."""
+    """The pieces that waited with the next slice's modules run as the
+    JAX package's do: `bucketed_allreduce` of nothing is nothing, and
+    `verify_sharding` over a static mesh rejects a batch of 6 at dp=4
+    with the JAX gate's S002 error, word for word."""
+    import paddle_tpu.fluid as jfluid
+    from paddle_tpu import analysis as janalysis
+    from paddle_tpu.parallel import trainer as jtrainer
+    import paddle_tpu_torch.fluid as tfluid
+    from paddle_tpu_torch import analysis as tanalysis
     from paddle_tpu_torch.parallel import trainer as ttrainer
     from paddle_tpu_torch.utils import flags
 
-    with pytest.raises(NotImplementedError, match="obs/comm.py"):
-        tring.bucketed_allreduce({}, 1024)
-    with pytest.raises(NotImplementedError, match="analysis/shard.py"):
-        ttrainer.verify_sharding(None, None, [], [])
+    assert tring.bucketed_allreduce({}, 1024) == {} == \
+        jring.bucketed_allreduce({}, 1024)
+    errors = []
+    for fl, tr, an in ((tfluid, ttrainer, tanalysis),
+                       (jfluid, jtrainer, janalysis)):
+        main, startup = fl.Program(), fl.Program()
+        with fl.program_guard(main, startup):
+            x = fl.layers.data(name="x", shape=[6, 64], dtype="float32",
+                               append_batch_size=False)
+            loss = fl.layers.mean(x=fl.layers.fc(input=x, size=64))
+            fl.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        with pytest.raises(an.ProgramVerificationError) as err:
+            tr.verify_sharding(main, {"dp": 4, "mp": 2}, ["x"],
+                               [loss.name])
+        errors.append(str(err.value))
+    assert "S002" in errors[0] and errors[0] == errors[1]
     assert flags.get_flag("verify_sharding") is False

@@ -23,8 +23,9 @@ params at rtol 2e-4 and atol 1e-5.
   snapshots and restores the trainer's state, the resumed run's params
   equal to an unbroken run's; the step's telemetry (the `parallel`
   step's counters and the numerics monitor's records, as the JAX
-  step's); `FLAGS_verify_sharding` raising, naming the analyzer the
-  port does not have yet.
+  step's); `sharding_plan` against the JAX trainer's and
+  `FLAGS_verify_sharding` rejecting a bad feed spec before the startup
+  program runs, with the JAX gate's error.
 """
 
 import numpy as np
@@ -312,17 +313,48 @@ def test_step_telemetry_and_the_numerics_monitor(world_one):
 
 
 def test_verify_sharding_waits_with_the_analyzer(world_one):
+    """The analyzer the gate waited for is here: `sharding_plan` gives
+    the JAX trainer's plan at world size 1 (specs and comm alike), and
+    under FLAGS_verify_sharding `init` analyzes first — a feed spec
+    naming an axis the mesh lacks rejects (S004) before the startup
+    program runs, as the JAX trainer does, and a clean program
+    trains."""
+    from paddle_tpu.analysis import ProgramVerificationError as JErr
+    from paddle_tpu.utils import flags as jflags
+    from paddle_tpu_torch.analysis import ProgramVerificationError
     from paddle_tpu_torch.utils import flags
+
+    class MustNotRun:
+        def run(self, *a, **k):
+            raise AssertionError("startup ran before the gate rejected")
 
     mesh = make_mesh(device="cpu")
     main, startup, avg = cases.build_mlp()
+    jmain, jstartup, javg = cases.build_mlp(jfluid)
     tr = ParallelTrainer(main, startup, ["x", "label"], [avg.name], mesh)
-    with pytest.raises(NotImplementedError, match="analysis/shard.py"):
-        tr.sharding_plan()
+    jtr = JTrainer(jmain, jstartup, ["x", "label"], [javg.name],
+                   jmake_mesh(n_devices=1))
+    plan, jplan = tr.sharding_plan(), jtr.sharding_plan()
+    assert plan.var_specs == jplan.var_specs
+    assert plan.to_dict() == jplan.to_dict()
+    errors = []
     flags.set_flag("verify_sharding", True)
+    jflags.set_flag("verify_sharding", True)
     try:
-        with pytest.raises(NotImplementedError,
-                           match="analysis/shard.py"):
-            tr.init()
+        for trainer_cls, fl, make, err_cls in (
+                (ParallelTrainer, tfluid, lambda: mesh, ProgramVerificationError),
+                (JTrainer, jfluid, lambda: jmake_mesh(n_devices=1), JErr)):
+            m, s, a = cases.build_mlp(fl)
+            bad = trainer_cls(m, s, ["x", "label"], [a.name], make(),
+                              feed_specs={"x": ("sp",)})
+            with pytest.raises(err_cls) as err:
+                bad.init(executor=MustNotRun())
+            errors.append(str(err.value))
+            assert bad.state is None
+        assert "S004" in errors[0] and errors[0] == errors[1]
+        tr.init()
+        (loss,) = tr.step(cases.mlp_feeds(0))
+        assert np.isfinite(loss.numpy()).all()
     finally:
         flags.set_flag("verify_sharding", False)
+        jflags.set_flag("verify_sharding", False)

@@ -44,6 +44,11 @@
   headers and body left in two writes without TCP_NODELAY, so each
   reply after a connection's first waited for the client's delayed ACK
   (about 40 ms a request on Linux); the handler now sets TCP_NODELAY.
+- A ragged input to an op that takes dense tensors only (ROADMAP C8):
+  `ops.registry.dense` raised NotImplementedError calling the input
+  "not ported", where the JAX op refuses one too (`jnp` takes no
+  RaggedTensor); it now raises TypeError saying the op takes no ragged
+  input, for each op that calls it.
 """
 
 import importlib
@@ -651,3 +656,47 @@ def test_server_replies_without_nagle_delay():
     finally:
         handler.setup = setup
     assert nodelay and all(nodelay), nodelay
+
+
+# -- ragged inputs to dense-only ops (C8) ---------------------------------------
+
+_RAGGED_REFUSED = {
+    "transpose": ({}, {"axis": [1, 0]}),
+    "expand": ({}, {"expand_times": [1, 2]}),
+    "clip": ({}, {"min": -1.0, "max": 1.0}),
+    "clip_by_norm": ({}, {"max_norm": 1.0}),
+    "gather": ({"Index": [[0, 1]]}, {}),
+    "scatter": ({"Index": [[0, 1]], "Updates": [np.ones((2, 3))]}, {}),
+    "pad": ({}, {"paddings": [0, 0, 0, 1], "pad_value": 0.0}),
+    "crop": ({}, {"shape": [1, 3], "offsets": [0, 0]}),
+}
+
+
+@pytest.mark.parametrize("op_type", sorted(_RAGGED_REFUSED))
+def test_dense_only_ops_refuse_a_ragged_input(op_type):
+    """The JAX op refuses a RaggedTensor (its kernel hands it to
+    `jnp`); the port's raises TypeError saying the op takes none."""
+    from paddle_tpu.core.ragged import RaggedTensor as JRagged
+    from paddle_tpu.ops import registry as jreg
+    from paddle_tpu_torch.core.ragged import RaggedTensor as TRagged
+    from paddle_tpu_torch.ops import registry as treg
+
+    extra, attrs = _RAGGED_REFUSED[op_type]
+    seqs = [np.ones((2, 3), np.float32), np.ones((1, 3), np.float32)]
+    slot = "Ref" if op_type == "scatter" else "X"
+
+    def ins(ragged, as_array):
+        out = {slot: [ragged]}
+        for k, v in extra.items():
+            arr = np.asarray(v[0], np.int32 if k == "Index"
+                             else np.float32)
+            out[k] = [as_array(arr)]
+        return out
+
+    with pytest.raises((TypeError, AttributeError)):
+        jreg.get_op_info(op_type).kernel(
+            None, ins(JRagged.from_sequences(seqs), jnp.asarray), attrs)
+    with pytest.raises(TypeError, match="takes no ragged"):
+        treg.get_op_info(op_type).kernel(
+            None, ins(TRagged.from_sequences(seqs), torch.from_numpy),
+            attrs)
