@@ -458,6 +458,34 @@ no result line:
      switch_moe at ep 1 with 8 experts at d_model 512 and capacity
      factor 8 (no token dropped) against the dense mixture, each within
      1e-5.  (e) The process group is destroyed.
+  23. spmd: the static sharding analyzer over phase 5's program against
+     the card's mesh and three larger ones (each equal to the same call
+     over a static mesh), SpmdTrainer (FLAGS_verify_sharding, 4 MiB
+     buckets, ZeRO-1) at world size 1 falling back to the mesh step,
+     its 3 steps bit for bit against ParallelTrainer's, the bucketed
+     all-reduce of one step's grads at p = 1, GPipe and MoE under the
+     flag.
+  24. elastic: the SPMD trainer's sharded checkpoints, the fleet and
+     elasticity.  (a) Phase 5's program through SpmdTrainer
+     (FLAGS_verify_sharding, ZeRO-1) on the card's mesh: 2 steps, a
+     sharded save (capture host-ms, and a second save's, the
+     background write's ms, the snapshot's MB), a fresh trainer restored from it (nothing
+     densified, restore host-ms) and 2 more steps, whose losses and
+     final state equal 4 uninterrupted steps from the same state bit for
+     bit, with 12 f32 flash launches a step; attach_supervisor over a
+     fresh trainer resumes the saved step with the saved state.  (b)
+     Two gloo ranks on the card's host restore that snapshot at dp 2
+     (the densify path) and save it split 2 ways; the card restores that
+     at dp 1 (densified again) to 24a's saved state bit for bit; no
+     step runs on the CPU.  (d) A FleetReporter with its span window
+     pushes into a native master, the aggregator lists the host with
+     its step ms, a ClockResponder skewed 0.25 s is recovered within
+     0.2 s, the merged trace validates, and spmd.bench's ResNet-50 leg
+     at dp 1 (batch 128) prints its record.  (c) Beside 24b and 24d,
+     after 24a's numbers are taken, elastic_cli's chaos drill with its workers on the card, each a mesh
+     of one rank: a real SIGTERM from one's fault plan, then exactly one
+     shrink and, when the replacement registers, one grow in the
+     survivor's history, restores shard-exact, finite losses.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -9173,13 +9201,31 @@ def _cli_processes(runs):
     """The CLIs of the port `runs` ([(module and arguments, tag)]) as
     processes from this checkout, all started at once (each spends most
     of its time starting up); each must exit 0 and print a green line."""
+    _finish_cli_processes(_start_cli_processes(runs))
+
+
+def _start_cli_processes(runs):
+    """`_cli_processes`' start: the processes, running beside the
+    caller's next work until `_finish_cli_processes`."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
-    t0 = time.perf_counter()
-    procs = [(subprocess.Popen([sys.executable, "-m"] + args, cwd=root,
-                               env=env, stdout=subprocess.PIPE,
-                               stderr=subprocess.PIPE, text=True), tag)
-             for args, tag in runs]
+    return time.perf_counter(), [
+        (subprocess.Popen([sys.executable, "-m"] + args, cwd=root, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True), tag)
+        for args, tag in runs]
+
+
+def _kill_cli_processes(started):
+    """Stop `_start_cli_processes`' processes (the caller's work failed)."""
+    for proc, _ in started[1]:
+        proc.kill()
+        proc.communicate()
+
+
+def _finish_cli_processes(started):
+    """`_cli_processes`' end: each process's exit and green line."""
+    t0, procs = started
     try:
         outs = [(proc.communicate(timeout=CLI_TIMEOUT_S), proc.returncode,
                  tag, time.perf_counter() - t0) for proc, tag in procs]
@@ -9406,11 +9452,18 @@ def phase_cli():
 
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    launches = cli_serve(smi)
-    _cli_processes([(["paddle_tpu_torch.tools.serve_cli", "--selftest"],
-                     "18b serve_cli --selftest"),
-                    (["paddle_tpu_torch.tools.obs_dump", "--selftest"],
-                     "18d obs_dump --selftest")])
+    # 18b and 18d start up beside 18a
+    selftests = _start_cli_processes(
+        [(["paddle_tpu_torch.tools.serve_cli", "--selftest"],
+          "18b serve_cli --selftest"),
+         (["paddle_tpu_torch.tools.obs_dump", "--selftest"],
+          "18d obs_dump --selftest")])
+    try:
+        launches = cli_serve(smi)
+    except BaseException:
+        _kill_cli_processes(selftests)
+        raise
+    _finish_cli_processes(selftests)
     cli_trainer(smi)
     cli_ops(torch.device("cuda", 0), smi)
     print("cli: phase 18 took %.1f s" % (time.perf_counter() - t0),
@@ -10715,7 +10768,6 @@ SUP_STEPS, SUP_EVERY = 12, 4
 SUP_FAULTS = (("reader/pump", "io_error", 3),
               ("supervisor/step", "preempt", 6),
               ("supervisor/step", "nonfinite", 9))
-CHAOS_TIMEOUT_S = 300
 
 
 @contextlib.contextmanager
@@ -11135,22 +11187,6 @@ def analysis_supervisor(main, loss, init, persist, smi):
                          % (differ[:8], sum_f))
 
 
-def analysis_chaos():
-    """20e: `chaos_cli --selftest` as a subprocess on the card."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "paddle_tpu_torch.tools.chaos_cli",
-         "--selftest"], capture_output=True, text=True,
-        timeout=CHAOS_TIMEOUT_S)
-    lines = (proc.stdout + proc.stderr).strip().splitlines()
-    for line in lines[-4:]:
-        print("analysis: 20e   %s" % line, flush=True)
-    print("analysis: 20e chaos_cli --selftest exited %d in %.1f s"
-          % (proc.returncode, time.perf_counter() - t0), flush=True)
-    if proc.returncode != 0:
-        raise SystemExit("chip_smoke: chaos_cli --selftest failed")
-
-
 def phase_analysis():
     """Phase 20: the program analysis and rewrite passes, and the
     resilience half; returns the launch counts of 20b's optimized
@@ -11171,11 +11207,20 @@ def phase_analysis():
     t1 = time.perf_counter()
     analysis_resnet(exe, smi)
     t2 = time.perf_counter()
-    analysis_supervisor(main, loss, init, persist, smi)
+    # 20e, chaos_cli --selftest on the card, runs beside 20d (whose
+    # SIGTERM is this process's own)
+    chaos = _start_cli_processes(
+        [(["paddle_tpu_torch.tools.chaos_cli", "--selftest"],
+          "20e chaos_cli --selftest")])
+    try:
+        analysis_supervisor(main, loss, init, persist, smi)
+    except BaseException:
+        _kill_cli_processes(chaos)
+        raise
     t3 = time.perf_counter()
-    analysis_chaos()
+    _finish_cli_processes(chaos)
     print("analysis: 20a-b %.1f s, 20a and 20c (ResNet-50) %.1f s, 20d %.1f "
-          "s, 20e %.1f s; phase 20 took %.1f s"
+          "s, 20e's end %.1f s later; phase 20 took %.1f s"
           % (t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3,
              time.perf_counter() - t0), flush=True)
     return launches
@@ -11871,19 +11916,25 @@ def phase_perf():
     t2 = time.perf_counter()
     served, stalled = load_serve(smi)
     t3 = time.perf_counter()
-    capi_run(smi)
-    t4 = time.perf_counter()
-    _cli_processes([
+    # 21f's CLIs start up beside 21e
+    selftests = _start_cli_processes([
         (["paddle_tpu_torch.tools.perf_cli", "--selftest"],
          "perf_cli --selftest"),
         (["paddle_tpu_torch.tools.load_cli", "--selftest"],
          "load_cli --selftest"),
         (["paddle_tpu_torch.tools.lint_cli", "--selftest"],
          "lint_cli --selftest")])
+    try:
+        capi_run(smi)
+    except BaseException:
+        _kill_cli_processes(selftests)
+        raise
+    t4 = time.perf_counter()
+    _finish_cli_processes(selftests)
     f32 = route_entry("f32")
-    print("perf: 21a %.1f s, 21b %.1f s, 21c-d %.1f s, 21e %.1f s, 21f %.1f "
-          "s; phase 21 took %.1f s; f32 flash launches: 21a %d, 21c %d, "
-          "21d %d"
+    print("perf: 21a %.1f s, 21b %.1f s, 21c-d %.1f s, 21e %.1f s, 21f's end "
+          "%.1f s later; phase 21 took %.1f s; f32 flash launches: 21a %d, "
+          "21c %d, 21d %d"
           % (t1 - t0, t2 - t1, t3 - t2, t4 - t3, time.perf_counter() - t4,
              time.perf_counter() - t0, profiled[f32], served[f32],
              stalled[f32]), flush=True)
@@ -12458,6 +12509,358 @@ def phase_spmd():
     return launches
 
 
+# phase 24: the SPMD trainer's sharded checkpoints, the fleet and
+# elasticity.  One card takes one rank, so the layouts wider than 1 run as
+# gloo ranks on the card's host (24b) and the elastic drill as two worker
+# processes sharing the card, each a mesh of one rank (24c)
+ELASTIC_STEPS = 2           # 24a: steps before the save and after the resume
+ELASTIC_DRILL_STEPS = 100   # 24c: each worker's steps
+CLOCK_SKEW_S, CLOCK_TOL_S = 0.25, 0.2
+ELASTIC_BENCH = dict(model="resnet50", mesh_spec="dp=1", batch=128, iters=8,
+                     warmup=2)
+
+
+def _add_launches(total, more):
+    return {k: total.get(k, 0) + more.get(k, 0)
+            for k in set(total) | set(more)}
+
+
+def _snapshot_mb(snap):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(snap) for f in files) / 2 ** 20
+
+
+def elastic_resume(mesh, main, startup, loss, feeds, smi, root):
+    """24a: SpmdTrainer (FLAGS_verify_sharding, ZeRO-1) on the card's mesh:
+    2 steps, a sharded save, a fresh trainer restored from it (nothing
+    densified) and 2 more steps, against 4 uninterrupted steps from the
+    same state, bit for bit; then attach_supervisor over a fresh trainer
+    resumes the saved step with the saved state.  Returns (the launch
+    counts of the 4 saved-and-resumed steps, the state at the save, each
+    step's host ms)."""
+    import torch
+    from paddle_tpu_torch.obs import trace as obs_trace
+    from paddle_tpu_torch.spmd import SpmdCheckpointSaver, SpmdTrainer, \
+        attach_supervisor
+    from paddle_tpu_torch.utils import flags
+
+    names = ["tokens", "positions", "targets"]
+
+    def trainer(init=None):
+        tr = SpmdTrainer(main, startup, names, [loss], mesh,
+                         zero_stage=1).init()
+        if init is not None:
+            tr.load_state_from(params_scope(init, tr.place.device()))
+        return tr
+
+    def steps(tr, part):
+        out, ms = [], []
+        for f in part:
+            t0 = time.perf_counter()
+            out.append(float(tr.step(f)[0].reshape(-1)[0]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    flags.set_flag("verify_sharding", True)
+    try:
+        ref = trainer()
+        init = {n: ref.fetch_state(n).copy() for n in sorted(ref.state)}
+        straight, _ = steps(ref, feeds)
+        final = {n: ref.fetch_state(n) for n in init}
+        saved_tr = trainer(init)
+        reset_launches()
+        first, ms = steps(saved_tr, feeds[:ELASTIC_STEPS])
+        launches = read_launches()
+        saved = {n: saved_tr.fetch_state(n).copy() for n in init}
+        saver = SpmdCheckpointSaver(saved_tr, root, interval_secs=0.0)
+        t0 = time.perf_counter()
+        snap = saver.save(ELASTIC_STEPS)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        saver.wait()
+        # the same state saved again (another root): its capture copies
+        # into host memory the first one's freed
+        again = SpmdCheckpointSaver(saved_tr, os.path.join(root, "again"),
+                                    interval_secs=0.0)
+        again.save(ELASTIC_STEPS)
+        again.wait()
+        fresh = trainer()
+        t0 = time.perf_counter()
+        info = fresh.restore_checkpoint(root)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        restored_equal = all(np.array_equal(fresh.fetch_state(n), saved[n])
+                             for n in init)
+        reset_launches()
+        second, ms2 = steps(fresh, feeds[ELASTIC_STEPS:])
+        launches = _add_launches(launches, read_launches())
+        resumed = {n: fresh.fetch_state(n) for n in init}
+        # traced: 24d pushes this span window to the fleet
+        obs_trace.enable()
+        with obs_trace.span("elastic/supervised_resume", cat="elastic"):
+            sup_tr = trainer()
+            sup = attach_supervisor(sup_tr, root, interval_secs=0.0)
+            sup_step = sup._restore_latest()
+        obs_trace.disable()
+        sup_equal = all(np.array_equal(sup_tr.fetch_state(n), saved[n])
+                        for n in init)
+    finally:
+        flags.set_flag("verify_sharding", False)
+    same = first + second == straight and all(
+        np.array_equal(resumed[n], final[n]) for n in init)
+    print("elastic: 24a SpmdTrainer (FLAGS_verify_sharding, zero 1) on %s: "
+          "%d steps, a sharded save, a fresh trainer restored (step %d, "
+          "densified %s, generation %d, equal to the saved state bit for "
+          "bit: %s) and %d more steps: losses %s against the uninterrupted "
+          "%s, equal bit for bit with the final state: %s; the supervisor "
+          "resumed step %s with the saved state: %s"
+          % (dict(zip(mesh.mesh_dim_names, mesh.shape)), ELASTIC_STEPS,
+             info["step"], info["densified"], info["generation"],
+             restored_equal, len(feeds) - ELASTIC_STEPS,
+             ", ".join("%.6f" % x for x in first + second),
+             ", ".join("%.6f" % x for x in straight), same, sup_step,
+             sup_equal), flush=True)
+    print("elastic: 24a the save (%s): capture %.3f host-ms on the caller's "
+          "thread (save() returned in %.3f; the same state's second save "
+          "captured in %.3f), background write %.3f ms, snapshot %.3f MB in "
+          "%d vars; restore %.3f host-ms; the steps' host ms %s, f32 flash "
+          "launches %d"
+          % (smi, saver.last_capture_s * 1e3, save_ms,
+             again.last_capture_s * 1e3, saver.last_write_s * 1e3,
+             _snapshot_mb(snap), len(init),
+             restore_ms, ", ".join("%.3f" % x for x in ms + ms2),
+             launches[route_entry("f32")]), flush=True)
+    if info["densified"] or info["step"] != ELASTIC_STEPS \
+            or not restored_equal or not same or sup_step != ELASTIC_STEPS \
+            or not sup_equal:
+        raise SystemExit("chip_smoke: the resumed SpmdTrainer differs from "
+                         "the uninterrupted one")
+    if launches[route_entry("f32")] != 2 * N_LAYER * len(feeds):
+        raise SystemExit("chip_smoke: %d f32 flash launches in %d saved and "
+                         "resumed steps, designed %d per step"
+                         % (launches[route_entry("f32")], len(feeds),
+                            2 * N_LAYER))
+    return launches, saved, ms + ms2
+
+
+def relayout_rank(rank, snap_root, out_root, widths):
+    """24b, in each of 2 gloo ranks on the card's host: the transformer's
+    SpmdTrainer (ZeRO-1) at `widths` (spmd_program's arguments) at dp 2
+    restores the card's snapshot (the densify path, 1 -> 2) and saves it
+    split 2 ways.  No step runs.  Returns (this rank's restore info, its
+    first velocity's name and local shape)."""
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.spmd import SpmdTrainer
+
+    main, startup, loss = spmd_program(*widths)
+    tr = SpmdTrainer(main, startup, ["tokens", "positions", "targets"],
+                     [loss], make_mesh(device="cpu"), zero_stage=1,
+                     use_pcache=False).init()
+    info = tr.restore_checkpoint(snap_root)
+    tr.save_checkpoint(out_root, info["step"])
+    vel = sorted(n for n in tr.state if n.endswith("_velocity_0"))[0]
+    return info, (vel, tuple(tr.state[vel].to_local().shape))
+
+
+def elastic_relayout(mesh, main, startup, loss, smi, root, saved):
+    """24b: 2 gloo ranks on the card's host restore 24a's snapshot at dp 2
+    and save it split 2 ways; the card restores that at dp 1 (densified
+    again, 2 -> 1): every value equals 24a's saved state bit for bit."""
+    from paddle_tpu_torch.distributed.ranks import run_local_ranks
+    from paddle_tpu_torch.spmd import SpmdTrainer
+
+    out_root = os.path.join(root, "dp2")
+    t0 = time.perf_counter()
+    widths = (BATCH, SEQ, VOCAB, N_LAYER, N_HEAD, D_MODEL)
+    info2, (vel, local) = run_local_ranks(relayout_rank, 2, root, root,
+                                          out_root, widths)
+    ranks_s = time.perf_counter() - t0
+    with open(os.path.join(out_root, "checkpoint_%09d" % info2["step"],
+                           "_spmd_manifest.json")) as f:
+        man = json.load(f)
+    tr = SpmdTrainer(main, startup, ["tokens", "positions", "targets"],
+                     [loss], mesh, zero_stage=1).init()
+    t0 = time.perf_counter()
+    info1 = tr.restore_checkpoint(out_root)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    equal = all(np.array_equal(tr.fetch_state(n), saved[n]) for n in saved)
+    print("elastic: 24b 2 gloo ranks restored 24a's snapshot at dp 2 "
+          "(densified %d vars: 1 -> 2; %s held %s rows of %s) and saved it "
+          "over %s (%d host dirs), %.1f s with the spawn; the card restored "
+          "that at dp 1 in %.3f host-ms (%s) densifying %d vars (2 -> 1); "
+          "every value equals 24a's saved state bit for bit: %s"
+          % (len(info2["densified"]), vel, local, saved[vel].shape,
+             man["mesh"], len(man["hosts"]), ranks_s, restore_ms, smi,
+             len(info1["densified"]), equal), flush=True)
+    if not info2["densified"] or not info1["densified"] or not equal \
+            or man["mesh"].get("dp") != 2 or len(man["hosts"]) != 2:
+        raise SystemExit("chip_smoke: the restore across layouts is wrong")
+
+
+def elastic_drill(smi, stop):
+    """24c: elastic_cli's chaos drill with its workers on the card (local
+    mode: one process, one rank, one mesh each): a fault plan SIGTERMs one
+    mid-step, the survivor shrinks, continues shard-exact, and grows when
+    the replacement worker registers: exactly one shrink and one grow.
+    Setting `stop` ends the drill and its workers at once.  Returns its
+    seconds."""
+    import shutil
+
+    from paddle_tpu_torch.tools import elastic_cli
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_drill_")
+    t0 = time.perf_counter()
+    try:
+        chaos = elastic_cli._selftest_chaos(workdir, use_gpu=True,
+                                            steps=ELASTIC_DRILL_STEPS,
+                                            stop=stop)
+    finally:
+        logs = {}
+        for host in ("w0", "w1"):
+            path = os.path.join(workdir, "%s.log" % host)
+            if os.path.exists(path):
+                with open(path) as f:
+                    logs[host] = f.read()[-2000:]
+        shutil.rmtree(workdir, ignore_errors=True)
+    w0 = chaos["w0"]
+    print("elastic: 24c the workers on the card (%s): w1 SIGTERM'd by its "
+          "fault plan at step %d, the survivor's resizes %s, %d steps at "
+          "generation %d, last losses %s, restores densified nothing: %s; "
+          "%.1f s; w0's log ends %r"
+          % (smi, chaos["w1_preempted_at"],
+             [(r["direction"], r["generation"], r["dp"])
+              for r in chaos["resizes"]], w0["step"], w0["generation"],
+             ["%.4f" % x for x in w0["losses"]],
+             all(r["densified"] == [] for r in chaos["resizes"]),
+             time.perf_counter() - t0, logs.get("w0", "")[-160:]),
+          flush=True)
+    return time.perf_counter() - t0
+
+
+def elastic_fleet(smi, step_ms):
+    """24d: this process's FleetReporter (with its span window) pushes into
+    a native master; the aggregator lists the host with its step ms; a
+    ClockResponder skewed CLOCK_SKEW_S is recovered within CLOCK_TOL_S; the
+    merged trace validates; spmd.bench's leg of ResNet-50 at dp 1."""
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.obs import comm as obs_comm
+    from paddle_tpu_torch.obs import fleet as obs_fleet
+    from paddle_tpu_torch.obs import trace as obs_trace
+    from paddle_tpu_torch.spmd import bench
+    from paddle_tpu_torch.tools.obs_dump import validate_chrome_trace
+
+    master = native.Master()
+    addr = "127.0.0.1:%d" % master.port
+    reporter = responder = None
+    try:
+        reporter = obs_fleet.FleetReporter(addr, host="card0",
+                                           interval_s=3600.0,
+                                           span_window=256)
+        pushed = reporter.push_once()
+        agg = obs_fleet.FleetAggregator()
+        n = agg.collect(addr)
+        report = agg.stragglers(publish=False)
+        responder = obs_comm.ClockResponder(addr, host="card0", poll_s=0.02,
+                                            skew_s=CLOCK_SKEW_S).start()
+        offsets = obs_comm.estimate_clock_offsets(addr, ["card0"], reps=3,
+                                                  timeout_s=5.0)
+        windows = obs_comm.collect_span_windows(addr)
+        merged = obs_comm.merge_windows(windows, offsets)
+        events = validate_chrome_trace(merged)
+    finally:
+        if responder is not None:
+            responder.stop()
+        if reporter is not None:
+            reporter.stop()
+        master.stop()
+        obs_trace.disable()
+        obs_trace.reset()
+    off = offsets.get("card0")
+    print("elastic: 24d the fleet (%s): pushed %s, %d host(s) %s, step ms "
+          "%s (24a's steps' mean %.3f), stragglers %s; the clock offset of a "
+          "responder skewed %.2f s estimated %s s (tolerance %.2f); the "
+          "merged trace of %d window(s), %d events, valid"
+          % (smi, pushed, n, agg.hosts(), report["step_ms"],
+             float(np.mean(step_ms)), report["flagged"], CLOCK_SKEW_S,
+             off, CLOCK_TOL_S, len(windows), len(events)), flush=True)
+    if not pushed or agg.hosts() != ["card0"] \
+            or "card0" not in report["step_ms"] or off is None \
+            or abs(off - CLOCK_SKEW_S) > CLOCK_TOL_S \
+            or "card0" not in merged["otherData"]["hosts"]:
+        raise SystemExit("chip_smoke: the fleet view or the clock exchange "
+                         "is wrong")
+    rec = bench.run_leg(**ELASTIC_BENCH)
+    print("elastic: 24d spmd.bench.run_leg(%s) (%s): %.2f img/s, %.2f ms a "
+          "step, loss %.4f, platform_class %s, comm %s, step_mode %s"
+          % (", ".join("%s=%r" % kv for kv in ELASTIC_BENCH.items()), smi,
+             rec["value"], rec["step_ms"], rec["loss"],
+             rec["platform_class"], rec["comm"], rec["config"]["step_mode"]),
+          flush=True)
+    if not rec["platform_class"].startswith("gpu:d1:dp=1") \
+            or not np.isfinite(rec["loss"]) or rec["value"] <= 0:
+        raise SystemExit("chip_smoke: the bench leg's record is wrong")
+
+
+def phase_elastic():
+    """Phase 24: the SPMD trainer's sharded checkpoints at full width on
+    the card, a restore across layouts through gloo ranks, the elastic
+    drill on the card, the fleet and the clocks; returns the launch
+    counts of 24a's saved and resumed steps."""
+    import shutil
+
+    import torch
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.obs import trace as obs_trace
+
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    drill, stop = {}, threading.Event()
+
+    def run_drill():
+        try:
+            drill["seconds"] = elastic_drill(smi, stop)
+        except BaseException as exc:  # raised again on the main thread
+            drill["error"] = exc
+
+    drill_thread = threading.Thread(target=run_drill, daemon=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        mesh = mesh_group("cuda")
+        main, startup, loss = spmd_program(BATCH, SEQ, VOCAB, N_LAYER,
+                                           N_HEAD, D_MODEL)
+        feeds = [tp.transformer_feeds(BATCH, SEQ, VOCAB, seed=SEED + i,
+                                      targets=True)
+                 for i in range(2 * ELASTIC_STEPS)]
+        launches, saved, step_ms = elastic_resume(mesh, main, startup, loss,
+                                                  feeds, smi, root)
+        t1 = time.perf_counter()
+        # 24c's workers (their own processes, mostly starting up and then
+        # pacing their steps) run beside 24b and 24d, after 24a's
+        # numbers are taken
+        drill_thread.start()
+        elastic_relayout(mesh, main, startup, loss, smi, root, saved)
+        t2 = time.perf_counter()
+        elastic_fleet(smi, step_ms)
+    except BaseException:
+        stop.set()
+        raise
+    finally:
+        obs_trace.disable()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+        t3 = time.perf_counter()
+        if drill_thread.ident is not None:
+            drill_thread.join()
+    if "error" in drill:
+        raise drill["error"]
+    print("elastic: 24a %.1f s, 24b %.1f s, 24d %.1f s, then 24c's end %.1f "
+          "s later (24c took %.1f s beside 24b and 24d); phase 24 took %.1f s"
+          % (t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3,
+             drill["seconds"], time.perf_counter() - t0), flush=True)
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -12506,6 +12909,7 @@ def main():
     perf_launches = run(phase_perf)
     mesh_launches = run(phase_mesh)
     spmd_launches = run(phase_spmd)
+    elastic_launches = run(phase_elastic)
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
@@ -12535,7 +12939,8 @@ def main():
              stack_launches[f32], obs_serve_launches[f32],
              ps_transformer_launches[f32], cli_launches[f32],
              analysis_launches[f32], perf_launches[f32],
-             mesh_launches[f32], spmd_launches[f32])
+             mesh_launches[f32], spmd_launches[f32],
+             elastic_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
                          "a main path (served, trained, decoded, trained "
@@ -12544,7 +12949,8 @@ def main():
                          "served by serve_cli, trained verified and "
                          "optimized, profiled and served under load, "
                          "trained over the mesh, trained by the "
-                         "plan-driven SpmdTrainer: %s)" % (paths,))
+                         "plan-driven SpmdTrainer, saved and resumed "
+                         "sharded: %s)" % (paths,))
     kernels = []
     for route in fa.ROUTES:
         name = route_entry(route)
@@ -12555,7 +12961,7 @@ def main():
             v2_launches, stack_launches, obs_amp_launches,
             obs_serve_launches, ps_ctr_launches, ps_transformer_launches,
             cli_launches, ssd_launches, analysis_launches, perf_launches,
-            mesh_launches, spmd_launches))
+            mesh_launches, spmd_launches, elastic_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

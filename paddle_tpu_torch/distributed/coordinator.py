@@ -17,8 +17,10 @@ The JAX package's dense collective half: `init_multihost` starts the
 job's process group (NCCL, one CUDA device per process, unless the
 caller asks for the CPU: gloo), and `global_mesh` lays a mesh over all
 of its ranks (parallel.make_mesh with drop_unit_axes).  The fleet
-reporter (`start_fleet_reporter`, `stop_fleet_reporter`) waits with
-`obs/fleet.py`: each raises NotImplementedError naming its item.
+reporter (`start_fleet_reporter`, `stop_fleet_reporter`) pushes this
+process's metric snapshots into the master's lease store
+(obs/fleet.py); `init_multihost` starts it where the launcher exported
+PADDLE_OBS_MASTER.
 
 Fault points (resilience/faults.py): coordinator/register,
 coordinator/discover, coordinator/heartbeat.  A `lease_expiry` fault at
@@ -91,22 +93,46 @@ def discover_pservers(count=None, timeout=60.0, master=None):
         reg.close()
 
 
-def _waiting(name, item, what):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            "distributed.%s needs %s, which the port does not have yet "
-            "(ROADMAP %s)" % (name, what, item))
-
-    fn.__name__ = name
-    return fn
+_fleet_reporter = [None]
 
 
-start_fleet_reporter = _waiting("start_fleet_reporter",
-                                "A9, second part, slice 22",
-                                "obs/fleet.py")
-stop_fleet_reporter = _waiting("stop_fleet_reporter",
-                               "A9, second part, slice 22",
-                               "obs/fleet.py")
+def start_fleet_reporter(master=None, host=None, interval_s=2.0):
+    """Start (or return) this process's fleet snapshot reporter
+    (obs.fleet.FleetReporter): periodic registry snapshots pushed
+    under /obs/<host> in the master's TTL-lease store, so an
+    aggregator anywhere can merge per-host metrics and flag
+    stragglers.  `master` defaults to $PADDLE_OBS_MASTER; returns
+    None when neither is set (reporting is strictly opt-in)."""
+    from ..obs import fleet as fleet_mod
+
+    existing = _fleet_reporter[0]
+    if existing is not None:
+        # explicit args that contradict the running reporter must not
+        # be silently dropped — the caller would believe snapshots
+        # reach the master it named
+        running = "%s:%d" % existing._master
+        if (master is not None and str(master) != running) \
+                or (host is not None and host != existing.host):
+            raise RuntimeError(
+                "fleet reporter already running (master %s, host %s); "
+                "stop_fleet_reporter() before starting one for "
+                "master=%r host=%r" % (running, existing.host,
+                                       master, host))
+        return existing
+    master = master or os.environ.get(fleet_mod.MASTER_ENV)
+    if not master:
+        return None
+    _fleet_reporter[0] = fleet_mod.FleetReporter(
+        master, host=host, interval_s=interval_s).start()
+    return _fleet_reporter[0]
+
+
+def stop_fleet_reporter():
+    rep = _fleet_reporter[0]
+    _fleet_reporter[0] = None
+    if rep is not None:
+        rep.stop()
+    return rep
 
 
 def init_multihost(coordinator=None, num_processes=None, process_id=None,
@@ -121,8 +147,9 @@ def init_multihost(coordinator=None, num_processes=None, process_id=None,
     coordinator "host:port" rendezvouses over TCP, a URL ("file://...")
     as it says.  The process's CUDA device is local_device_ids[0], else
     its rank modulo the visible devices.  With PADDLE_OBS_MASTER set the
-    fleet reporter would start beside it, as on the JAX side; it waits
-    with obs/fleet.py and raises."""
+    fleet snapshot reporter starts beside it, as on the JAX side, so
+    every worker's metrics reach the aggregated /obs/ view without
+    per-script wiring."""
     from ..parallel.mesh import backend_for
 
     env = os.environ

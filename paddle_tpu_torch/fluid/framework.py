@@ -50,6 +50,15 @@ def unique_name(prefix, program=None):
     return "%s_%d" % (prefix, idx)
 
 
+def reset_unique_name(program=None):
+    """Clear a program's name counters (default: the current main
+    program), so a build into it gives the first names again.  Rarely
+    needed with per-program counters; kept, as on the JAX side, for
+    code that rebuilds into one program (`resilience.elastic`'s
+    `build_fn`, the tests' builders)."""
+    (program or default_main_program())._name_counters.clear()
+
+
 class Variable:
     """A symbolic variable of a Block (reference: framework.py:125); its
     VarDesc is created on first sight, updated when found again.

@@ -30,18 +30,21 @@ values.
                   replay, the tail and exemplar joins); a submodule
                   imported by name (`paddle_tpu_torch.obs.load`), not
                   listed here, as in the JAX package;
-  * `comm`      — the collectives' observability in one process: the
-                  bucket schedule's spans, per-bucket ring timing
-                  against the analytic floor, the overlap split of the
-                  data-parallel step, the calibration blob; imported by
-                  name, as in the JAX package;
+  * `comm`      — the collectives' observability: the bucket
+                  schedule's spans, per-bucket ring timing against the
+                  analytic floor, the overlap split of the data-parallel
+                  step, the calibration blob, and across hosts the span
+                  windows, the clock-offset exchange and the merged
+                  trace; imported by name, as in the JAX package;
   * `fleet`     — this worker's identity (`host_id`), which the SPMD
-                  trainer stamps into the flight recorder.
+                  trainer stamps into the flight recorder, and the
+                  per-host metric snapshots pushed into the master's
+                  lease store (`FleetReporter`) with their merged view
+                  and straggler verdict (`FleetAggregator`).
 
 They are copies, not imports: the port imports nothing of the JAX
 package.  The JAX package's `mem` waits with the compiled segments
-(ROADMAP A2); the rest of `fleet` and the cross-host half of `comm`
-with A9's slice 22.
+(ROADMAP A2).
 
 Everything is off by default and cheap when off: a span with tracing
 disabled is one check, the health and flight hooks start with one

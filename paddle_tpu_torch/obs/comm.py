@@ -38,13 +38,24 @@ and schedules it (the bucketed ring-allreduce in `parallel/ring.py` and
 A mesh axis of size 1 moves nothing: `measure_bucket_times` and
 `measure_trainer_comm` return None there, as on the JAX side.
 
-The cross-host half of the JAX module (span windows pushed to the
-master, the clock-offset exchange, the merged trace) needs the fleet
-reporter: its names raise NotImplementedError naming ROADMAP A9's
-slice 22, with `obs/fleet.py`.
+The cross-host half, over the native master's lease store:
+
+  * **Span windows** — `span_window_payload` is this process's recent
+    trace events (`obs.trace`) with the wall-clock time of the trace
+    epoch; `push_span_window` registers it under `/obsspan/<host>` (the
+    FleetReporter does so beside its snapshot with `span_window` > 0)
+    and `collect_span_windows` pulls every live one.
+  * **Clock offsets** — a `ClockResponder` thread answers
+    `/obsclock/ping/<host>/<nonce>` probes with a pong carrying its
+    receive and send wall times; `estimate_clock_offsets` runs the
+    NTP-style four-timestamp exchange over the store.
+  * **The merged trace** — `merge_windows` puts every host's window on
+    one wall-clock timebase (corrected by the offsets), a process track
+    per host, as one Chrome/Perfetto trace (`comm_cli merge`).
 """
 
 import json
+import math
 import os
 import threading
 import time
@@ -63,14 +74,15 @@ __all__ = ["record_schedule", "bucket_span", "schedule_span",
 
 COMM_CALIBRATION_KIND = "paddle_tpu.comm_calibration"
 
-# lease-store key prefixes of the cross-host half (slice 22), kept so
-# the names a store holds stay the JAX package's
+# lease-store key prefixes of the cross-host half, the JAX package's,
+# so either package's collector reads either package's pushes
 SPAN_PREFIX = "/obsspan/"
 CLOCK_PING_PREFIX = "/obsclock/ping/"
 CLOCK_PONG_PREFIX = "/obsclock/pong/"
 
 _lock = threading.Lock()
 _last_schedule = None
+_nonce_counter = [0]
 
 
 def _reg():
@@ -551,23 +563,301 @@ def save_calibration(blob, path):
 
 
 # ---------------------------------------------------------------------------
-# the cross-host half: waits with obs/fleet.py
+# cross-host span windows + clock-offset exchange + merge
 # ---------------------------------------------------------------------------
 
-def _waiting(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            "obs.comm.%s is the cross-host half of obs/comm.py, which "
-            "needs obs/fleet.py: the port does not have it yet (ROADMAP "
-            "A9, second part, slice 22)" % name)
+def span_window_payload(host=None, limit=512):
+    """This process's recent trace events as one bounded JSON-able
+    push.  `epoch_wall` is the wall-clock time of the trace epoch
+    (event `ts` values are microseconds after it), so a merger can
+    re-base hosts with different process start times onto one
+    timeline; residual wall-clock skew is what the clock-offset
+    exchange corrects."""
+    from . import fleet as fleet_mod
 
-    fn.__name__ = name
-    return fn
+    now_wall = time.time()
+    epoch_wall = now_wall - (time.perf_counter() - trace_mod.epoch())
+    events = []
+    for ev in trace_mod.events()[-int(limit):]:
+        if ev.get("ph") not in ("X", "i"):
+            continue
+        row = {"name": ev.get("name"), "cat": ev.get("cat"),
+               "ph": ev["ph"], "ts": round(ev.get("ts", 0.0), 1),
+               "tid": ev.get("tid", 0)}
+        if "dur" in ev:
+            row["dur"] = round(ev["dur"], 1)
+        if ev.get("args"):
+            row["args"] = ev["args"]
+        if ev.get("ph") == "i":
+            row["s"] = ev.get("s", "t")
+        events.append(row)
+    return {"host": host or fleet_mod.host_id(),
+            "ts": round(now_wall, 3),
+            "epoch_wall": epoch_wall,
+            "dropped": trace_mod.dropped_events(),
+            "events": events}
 
 
-span_window_payload = _waiting("span_window_payload")
-push_span_window = _waiting("push_span_window")
-collect_span_windows = _waiting("collect_span_windows")
-merge_windows = _waiting("merge_windows")
-estimate_clock_offsets = _waiting("estimate_clock_offsets")
-ClockResponder = _waiting("ClockResponder")
+def push_span_window(master, host=None, limit=512, ttl_ms=30000,
+                     lease_prev=None):
+    """Register this process's span window under `/obsspan/<host>`
+    (unregistering `lease_prev` first — the lease value is immutable,
+    so an update IS unregister + register, the FleetReporter
+    discipline).  Returns the new lease or None on failure."""
+    from .. import native
+
+    payload = span_window_payload(host=host, limit=limit)
+    value = json.dumps(payload, sort_keys=True)
+    mhost, mport = str(master).rsplit(":", 1)
+    try:
+        client = native.MasterClient(mhost, int(mport))
+    except (ConnectionError, OSError):
+        return None
+    try:
+        if lease_prev is not None:
+            try:
+                client.unregister(lease_prev)
+            except (ConnectionError, OSError):
+                pass
+        return client.register(SPAN_PREFIX + payload["host"], value,
+                               int(ttl_ms))
+    except (ConnectionError, OSError):
+        return None
+    finally:
+        client.close()
+
+
+def collect_span_windows(master):
+    """{host: span-window payload} for every live `/obsspan/*` lease
+    (corrupt pushes skipped — one bad host must not blind the
+    merge)."""
+    from .. import native
+
+    mhost, mport = str(master).rsplit(":", 1)
+    client = native.MasterClient(mhost, int(mport))
+    try:
+        entries = client.list_prefix(SPAN_PREFIX)
+    finally:
+        client.close()
+    out = {}
+    for key, value in entries.items():
+        try:
+            payload = json.loads(value)
+        except (ValueError, TypeError):
+            continue
+        if not isinstance(payload, dict) \
+                or not isinstance(payload.get("events"), list):
+            continue
+        payload.setdefault("host", key[len(SPAN_PREFIX):])
+        out[payload["host"]] = payload
+    return out
+
+
+class ClockResponder:
+    """Worker-side half of the heartbeat clock-offset exchange: a
+    daemon thread that answers `/obsclock/ping/<host>/<nonce>` probes
+    with a pong carrying this host's receive and send wall times.
+    The estimator's accuracy is bounded by `poll_s` (the worker sees
+    a ping at most one poll late), so the responder polls fast and
+    exists only while an exchange is expected — it is not a
+    steady-state load on the store.
+
+    `skew_s` offsets this host's reported clock — a test hook that
+    lets a single-process selftest prove the estimator recovers a
+    known skew."""
+
+    def __init__(self, master, host=None, poll_s=0.05, skew_s=0.0,
+                 ttl_ms=10000):
+        from . import fleet as fleet_mod
+
+        mhost, mport = str(master).rsplit(":", 1)
+        self._master = (mhost, int(mport))
+        self.host = host or fleet_mod.host_id()
+        self.poll_s = float(poll_s)
+        self.skew_s = float(skew_s)
+        self.ttl_ms = int(ttl_ms)
+        self._stop = threading.Event()
+        self._thread = None
+        self._answered = set()
+
+    def _now(self):
+        return time.time() + self.skew_s
+
+    def _poll_once(self, client):
+        prefix = CLOCK_PING_PREFIX + self.host + "/"
+        entries = client.list_prefix(prefix)
+        for key in entries:
+            nonce = key[len(prefix):]
+            if not nonce or nonce in self._answered:
+                continue
+            t_recv = self._now()
+            if len(self._answered) > 4096:
+                self._answered.clear()
+            self._answered.add(nonce)
+            pong = {"nonce": nonce, "t_recv": t_recv,
+                    "t_send": self._now(), "host": self.host}
+            client.register(
+                CLOCK_PONG_PREFIX + self.host + "/" + nonce,
+                json.dumps(pong, sort_keys=True), self.ttl_ms)
+
+    def _loop(self):
+        from .. import native
+
+        client = None
+        while not self._stop.wait(self.poll_s):
+            try:
+                if client is None:
+                    client = native.MasterClient(*self._master)
+                self._poll_once(client)
+            except (ConnectionError, OSError):
+                if client is not None:
+                    try:
+                        client.close()
+                    except Exception:  # noqa: BLE001
+                        pass
+                client = None
+        if client is not None:
+            try:
+                client.close()
+            except Exception:  # noqa: BLE001
+                pass
+
+    def start(self):
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, name="comm-clock-responder",
+                daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+
+def estimate_clock_offsets(master, hosts, reps=3, timeout_s=3.0,
+                           poll_s=0.02):
+    """NTP-style clock-offset estimation over the lease store.
+
+    For each host and rep: register a ping at t0 (this process's
+    clock), wait for the host's `ClockResponder` pong carrying
+    (t_recv, t_send) on ITS clock, note t3 on arrival; the offset
+    estimate is the standard four-timestamp form
+
+        offset = ((t_recv - t0) + (t_send - t3)) / 2
+
+    whose error is the PATH ASYMMETRY (store hop + responder poll
+    latency), not the full round trip.  Returns {host: median offset
+    seconds or None (no pong within timeout)} — positive offset means
+    the host's clock runs ahead of this process's."""
+    from .. import native
+
+    mhost, mport = str(master).rsplit(":", 1)
+    client = native.MasterClient(mhost, int(mport))
+    out = {}
+    try:
+        for host in hosts:
+            samples = []
+            for _ in range(int(reps)):
+                with _lock:
+                    _nonce_counter[0] += 1
+                    nonce = "%d-%d" % (os.getpid(),
+                                       _nonce_counter[0])
+                ping_key = CLOCK_PING_PREFIX + host + "/" + nonce
+                pong_key = CLOCK_PONG_PREFIX + host + "/" + nonce
+                t0 = time.time()
+                lease = client.register(
+                    ping_key, json.dumps({"t0": t0}),
+                    int(timeout_s * 1000) + 2000)
+                pong = None
+                deadline = time.monotonic() + float(timeout_s)
+                while time.monotonic() < deadline:
+                    entries = client.list_prefix(pong_key)
+                    if pong_key in entries:
+                        t3 = time.time()
+                        try:
+                            pong = json.loads(entries[pong_key])
+                        except (ValueError, TypeError):
+                            pong = None
+                        break
+                    time.sleep(poll_s)
+                if lease is not None:
+                    try:
+                        client.unregister(lease)
+                    except (ConnectionError, OSError):
+                        pass
+                if not pong:
+                    continue
+                try:
+                    t_recv = float(pong["t_recv"])
+                    t_send = float(pong["t_send"])
+                except (KeyError, TypeError, ValueError):
+                    continue
+                off = ((t_recv - t0) + (t_send - t3)) / 2.0
+                if math.isfinite(off):
+                    samples.append(off)
+            out[host] = _median(samples)
+    finally:
+        client.close()
+    return out
+
+
+def merge_windows(windows, offsets=None):
+    """Merge per-host span windows into ONE Chrome/Perfetto trace with
+    a process track per host on a common wall-clock timebase.
+
+    Each window's events are microseconds after its own trace epoch;
+    `epoch_wall` anchors that epoch to the host's wall clock, and
+    `offsets` (an `estimate_clock_offsets` result; positive = host
+    clock ahead) corrects residual skew.  The earliest corrected
+    event anchor becomes t=0 of the merged trace."""
+    if isinstance(windows, dict):
+        windows = [windows[h] for h in sorted(windows)]
+    offsets = offsets or {}
+    anchored = []
+    for w in windows:
+        host = w.get("host") or "host?"
+        off = offsets.get(host)
+        base_wall = float(w.get("epoch_wall", 0.0)) \
+            - float(off if off is not None else 0.0)
+        anchored.append((host, base_wall, w))
+    if not anchored:
+        return {"traceEvents": [], "displayTimeUnit": "ms",
+                "otherData": {"producer": "paddle_tpu.obs.comm",
+                              "hosts": []}}
+    t_zero = min(base for _, base, _ in anchored)
+    events = []
+    for idx, (host, base_wall, w) in enumerate(anchored):
+        pid = idx + 1
+        events.append({"name": "process_name", "ph": "M", "pid": pid,
+                       "tid": 0, "args": {"name": host}})
+        events.append({"name": "process_sort_index", "ph": "M",
+                       "pid": pid, "tid": 0, "args": {"sort_index":
+                                                      idx}})
+        shift_us = (base_wall - t_zero) * 1e6
+        for ev in w.get("events", []):
+            row = {"name": ev.get("name", "?"),
+                   "cat": ev.get("cat", "paddle_tpu"),
+                   "ph": ev.get("ph", "X"),
+                   "ts": round(float(ev.get("ts", 0.0)) + shift_us, 1),
+                   "pid": pid, "tid": ev.get("tid", 0)}
+            if row["ph"] == "X":
+                row["dur"] = float(ev.get("dur", 0.0))
+            if row["ph"] == "i":
+                row["s"] = ev.get("s", "t")
+            if ev.get("args"):
+                row["args"] = ev["args"]
+            events.append(row)
+    return {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "producer": "paddle_tpu.obs.comm",
+            "hosts": [h for h, _, _ in anchored],
+            "clock_offsets": {h: offsets.get(h)
+                              for h, _, _ in anchored},
+            "epoch_wall": t_zero,
+        },
+    }

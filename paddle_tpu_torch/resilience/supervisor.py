@@ -8,7 +8,8 @@ that it survives all three:
 
   * **Preemption**: SIGTERM and SIGINT hooks (installed on the main
     thread only, the handlers before restored on exit) flip a flag; the
-    step loop notices it at the next step boundary, writes an urgent
+    step loop notices it at the next step boundary (the same boundary
+    on every rank where the saver's ranks must agree), writes an urgent
     synchronous checkpoint (parameters, optimizer state and a
     `supervisor.json` meta with step, epoch and batch), and either
     resumes in place (`on_preempt="resume"`) or raises `Preempted` so
@@ -216,7 +217,10 @@ class TrainingSupervisor:
                 "time": time.time()}
         if self.loss_scaler is not None:
             meta["loss_scale"] = self.loss_scaler.scale
-        tmp = os.path.join(snap, SUPERVISOR_META + ".tmp")
+        # every rank of a sharded job writes the same meta into the one
+        # snapshot: a temporary of its own, so no rank renames another's
+        tmp = os.path.join(snap, "%s.%d.tmp" % (SUPERVISOR_META,
+                                                os.getpid()))
         with open(tmp, "w") as f:
             json.dump(meta, f)
             f.flush()
@@ -301,8 +305,21 @@ class TrainingSupervisor:
         except (TypeError, ValueError, IndexError):
             return None
 
-    def _check_preempt(self):
-        if not self._preempted:
+    def _agreed(self, *flags):
+        """`flags` as every rank of the job reads them: through the
+        saver's `agree` where it has one (a sharded saver, whose saves
+        every rank must make at the same step), else as given."""
+        agree = getattr(self._saver, "agree", None)
+        return flags if agree is None else tuple(agree(*flags))
+
+    def _check_preempt(self, due=False):
+        """A step boundary: the interval snapshot when `due`, then the
+        urgent snapshot and Preempted when a signal was seen, both
+        decided for all ranks at once (`_agreed`)."""
+        due, preempted = self._agreed(due, self._preempted)
+        if due:
+            self._checkpoint("interval")
+        if not preempted:
             return
         self._preempted = False
         self._checkpoint("urgent")
@@ -343,9 +360,7 @@ class TrainingSupervisor:
                              "run").set(self._epoch)
                 if on_step is not None:
                     on_step(self._step, loss)
-                if self._checkpoint_due():
-                    self._checkpoint("interval")
-                self._check_preempt()
+                self._check_preempt(due=self._checkpoint_due())
             self._epoch += 1
             self._batch = 0
             self._checkpoint("epoch")

@@ -24,9 +24,10 @@ The JAX trainer's first step acquires its compiled step from the
 persistent compile cache.  The port compiles nothing and has no such
 cache yet (ROADMAP A2): the first step records `_aot_state = "no-cache"`,
 what the JAX trainer records when `pcache.get_cache()` returns None.
-Sharded checkpoints (`save_checkpoint`, `restore_checkpoint`) and
-`attach_supervisor` need `spmd/checkpoint.py`, which comes with ROADMAP
-A9's slice 22: they raise NotImplementedError naming it.
+`save_checkpoint` and `restore_checkpoint` write and read the sharded
+per-rank snapshots of `checkpoint.py`, and `attach_supervisor` puts a
+resilience supervisor over them; `elastic_generation` (set by
+`resilience.elastic`) stamps each snapshot and guards each restore.
 """
 
 from ..parallel.trainer import ParallelTrainer, make_parallel_step
@@ -34,10 +35,6 @@ from .overlap import make_overlapped_dp_step, overlap_supported
 from .plan import build_partition_plan, load_rules
 
 __all__ = ["SpmdTrainer", "attach_supervisor"]
-
-_CHECKPOINT = ("needs the sharded checkpoints of spmd/checkpoint.py, "
-               "which the port does not have yet (ROADMAP A9, second "
-               "part, slice 22)")
 
 
 def _rank():
@@ -88,6 +85,9 @@ class SpmdTrainer(ParallelTrainer):
         self._fetch_all = list(fetch_names)
         self._state_template = None
         self._aot_state = "pending" if self.use_pcache else "off"
+        # the committed elastic view's generation (resilience.elastic
+        # sets it): stamped into sharded snapshots, guards restores
+        self.elastic_generation = None
 
     # -- plan-driven step hooks -----------------------------------------------
     def _build_plan(self):
@@ -163,19 +163,64 @@ class SpmdTrainer(ParallelTrainer):
 
     # -- sharded checkpoints --------------------------------------------------
     def save_checkpoint(self, root, step):
-        """A sharded per-host snapshot: waits with spmd/checkpoint.py."""
-        raise NotImplementedError("SpmdTrainer.save_checkpoint "
-                                  + _CHECKPOINT)
+        """Blocking sharded save: this rank's shard files + manifests
+        under root/checkpoint_<step> (every rank of the mesh calls it).
+        Use `attach_supervisor` / `SpmdCheckpointSaver` for the
+        background-writing loop form."""
+        from .checkpoint import SpmdCheckpointSaver
+
+        saver = SpmdCheckpointSaver(self, root, interval_secs=0.0)
+        snap = saver.save(step)
+        saver.wait()
+        return snap
 
     def restore_checkpoint(self, root, max_generation=None):
-        """Restore a sharded per-host snapshot: waits with
-        spmd/checkpoint.py."""
-        raise NotImplementedError("SpmdTrainer.restore_checkpoint "
-                                  + _CHECKPOINT)
+        """Restore the newest complete sharded snapshot under `root`
+        into this trainer's shardings (shard-exact when the layout
+        matches; densified reassembly only on a layout change).
+        `max_generation` defaults to the trainer's elastic generation
+        (when set) so a stale host refuses a newer manifest.
+        Returns the restore info dict ({step, snap, generation,
+        densified})."""
+        from .checkpoint import (latest_sharded_checkpoint,
+                                 restore_sharded)
+
+        snap = latest_sharded_checkpoint(root)
+        if snap is None:
+            raise IOError("no complete sharded checkpoint under %r"
+                          % str(root))
+        if max_generation is None:
+            max_generation = self.elastic_generation
+        state, info = restore_sharded(snap, self._shardings,
+                                      max_generation=max_generation)
+        self.state = state
+        return info
 
 
 def attach_supervisor(trainer, ckpt_dir, interval_secs=30.0,
                       max_to_keep=3, **kw):
-    """A resilience supervisor over the trainer's sharded snapshots:
-    waits with spmd/checkpoint.py."""
-    raise NotImplementedError("spmd.attach_supervisor " + _CHECKPOINT)
+    """A resilience `TrainingSupervisor` whose checkpoints are the
+    SHARDED per-rank snapshots — preempt/auto-resume without ever
+    densifying the optimizer state.
+
+    The supervisor detects the saver's `latest`/`restore_latest`
+    protocol and routes resume through them; `state_dump` stays None
+    because `SpmdCheckpointSaver.save` captures the trainer's sharded
+    state directly (no dense scope copy exists at any point).  The
+    supervisor's place is the trainer's unless `place` is given.
+    """
+    from ..core.scope import Scope
+    from ..resilience.supervisor import TrainingSupervisor
+    from .checkpoint import SpmdCheckpointSaver
+
+    if trainer.state is None:
+        raise ValueError("call trainer.init() before attaching a "
+                         "supervisor")
+    saver = SpmdCheckpointSaver(trainer, ckpt_dir,
+                                interval_secs=interval_secs,
+                                max_to_keep=max_to_keep)
+    kw.setdefault("generation",
+                  getattr(trainer, "elastic_generation", None) or 0)
+    kw.setdefault("place", trainer.place)
+    return TrainingSupervisor(ckpt_dir, scope=Scope(), saver=saver,
+                              **kw)

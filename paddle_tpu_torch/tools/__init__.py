@@ -5,10 +5,13 @@ chaos harness (`chaos_cli`: supervised training under injected
 faults), the perf CLI (`perf_cli`: bottleneck classification, perf
 history and its regression gate), the load generator (`load_cli`: open
 and closed loop, access-log replay), the program linter (`lint_cli`,
-with the sharding analyzer under `--mesh`) and the partition-plan CLI
-(`shard_cli`).  The JAX package's other CLIs wait with ROADMAP A2
-(`pcache_cli`, `mem_cli`) and A9's slices 22 (`comm_cli`, `fleet_cli`,
-`elastic_cli`) and 23 (`tune_cli`).
+with the sharding analyzer under `--mesh`), the partition-plan CLI
+(`shard_cli`), the collective-observability CLI (`comm_cli`: the
+per-bucket report, the cross-host merged trace), the fleet aggregation
+CLI (`fleet_cli`) and the elastic training CLI (`elastic_cli`: a
+worker, the densify bench, the chaos drill).  The JAX package's other
+CLIs wait with ROADMAP A2 (`pcache_cli`, `mem_cli`) and A9's slice 23
+(`tune_cli`).
 
 The CLIs run on the card, as the reference's `paddle` CLIs do with
 `--use_gpu=1`; `--use_gpu=0` runs them on the CPU."""

@@ -18,9 +18,11 @@ Usage:
 
 The role processes must find paddle_tpu_torch (install it, or pass its
 checkout's root in PYTHONPATH through `env`).  A pserver that has not
-reported ready within READY_TIMEOUT_S fails the launch.  The fleet view
-that the JAX launcher prints after an elastic job (`print_fleet_view`)
-waits with obs/fleet.py (ROADMAP A9, second part, slice 22).
+reported ready within READY_TIMEOUT_S fails the launch.  An elastic job
+exports PADDLE_OBS_MASTER (its master), so workers that call
+`distributed.init_multihost` publish metric snapshots there, and the
+launcher prints the aggregated per-host view after the trainers end
+(`print_fleet_view`).
 """
 
 import argparse
@@ -87,6 +89,11 @@ def launch(script_argv, pservers, trainers, sync=True, env=None,
         master = native.Master()
         base_env["PADDLE_MASTER"] = "127.0.0.1:%d" % master.port
         base_env["PADDLE_PSERVER_COUNT"] = str(len(pservers))
+        # fleet observability rides the same master: workers that call
+        # distributed.init_multihost (or start_fleet_reporter) publish
+        # registry snapshots under /obs/<host>, and the launcher
+        # prints the aggregated per-host view after the job
+        base_env["PADDLE_OBS_MASTER"] = base_env["PADDLE_MASTER"]
         code = (
             "import os,signal;"
             "from paddle_tpu_torch import native;"
@@ -134,11 +141,29 @@ def launch(script_argv, pservers, trainers, sync=True, env=None,
 
 
 def print_fleet_view(master, out=sys.stdout):
-    """The JAX launcher's per-host fleet view of an elastic job: it
-    needs obs/fleet.py, which the port does not have yet."""
-    raise NotImplementedError("print_fleet_view needs obs/fleet.py, which "
-                              "the port does not have yet (ROADMAP A9, "
-                              "second part, slice 22)")
+    """Aggregate whatever /obs/<host> snapshots the job's workers
+    published into the master's lease store and print the host-labeled
+    view + straggler report (obs.fleet).  Quietly a no-op when no
+    worker reported."""
+    from ..obs.fleet import FleetAggregator
+
+    agg = FleetAggregator()
+    try:
+        n = agg.collect("127.0.0.1:%d" % master.port)
+    except Exception as exc:  # noqa: BLE001 — an observability
+        # printout must never turn a successful job into a failed
+        # launcher exit (list_prefix buffer overflow, corrupt
+        # snapshot, master already gone)
+        out.write("[cluster] fleet view unavailable: %s\n" % exc)
+        return None
+    if not n:
+        return None
+    report = agg.stragglers()
+    out.write(agg.render_text())
+    out.write("[cluster] fleet: %d host snapshot(s), step_ms=%s, "
+              "stragglers=%s\n"
+              % (n, report["step_ms"], report["flagged"] or "none"))
+    return report
 
 
 def _pserver_code(wait):
@@ -294,6 +319,9 @@ def main(argv=None):
     try:
         for p in tr_procs:
             rc |= p.wait()
+        if master is not None:
+            # before pservers stop: their /obs/ leases are still live
+            print_fleet_view(master)
     finally:
         if args.hosts:
             for p in ps_procs:

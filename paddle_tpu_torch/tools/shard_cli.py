@@ -21,10 +21,9 @@ and review the layout a large job will launch with; a plan built here
 has the JAX CLI's fingerprint.  `--selftest` proves the loop on the
 process group's ranks (one without a launcher): rule matching
 precedence, a plan build whose rules change the layout, save/load
-round-trip with a stable fingerprint, and a REAL SpmdTrainer step
-driven by the plan at the place `--use_gpu` names.  The JAX selftest's
-last check, a sharded checkpoint round-trip, needs spmd/checkpoint.py
-(ROADMAP A9, slice 22): the port's prints a line saying so.
+round-trip with a stable fingerprint, a REAL SpmdTrainer step driven
+by the plan at the place `--use_gpu` names, and a sharded checkpoint
+save -> restore into a fresh trainer with nothing densified.
 
 The models are the autotuner's image models (the JAX package's
 `tune/models.py`, which comes with slice 23), built here by a private
@@ -74,7 +73,7 @@ def parse_args(argv=None):
     p.add_argument("--plan", default=None,
                    help="saved plan path (for `show`)")
     p.add_argument("--selftest", action="store_true",
-                   help="prove the plan->train loop")
+                   help="prove the plan->train->checkpoint loop")
     p.add_argument("--use_gpu", type=use_gpu_arg, default=True,
                    help="the selftest's training leg: 1 on the card (the "
                         "default), 0 on the CPU")
@@ -234,11 +233,22 @@ def selftest(args):
         check("plan-driven step trains (%d device(s))" % n,
               np.isfinite(loss0) and loss1 < loss0,
               "loss %.4f -> %.4f" % (loss0, loss1))
+
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer.save_checkpoint(tmp, step=2)
+            fresh = SpmdTrainer(main, startup, ["image", "label"],
+                                [loss_name], mesh, model="lenet5",
+                                use_pcache=False)
+            fresh.init()
+            info = fresh.restore_checkpoint(tmp)
+            same = all(
+                np.allclose(fresh.fetch_state(k), trainer.fetch_state(k))
+                for k in trainer.state)
+            check("sharded checkpoint round-trip, nothing densified",
+                  info["step"] == 2 and not info["densified"] and same)
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
-    print("  sharded checkpoint round-trip: waits with "
-          "spmd/checkpoint.py (ROADMAP A9, second part, slice 22)")
 
     if failures:
         print("pshard selftest: FAIL (%s)" % ", ".join(failures))

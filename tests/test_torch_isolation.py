@@ -85,7 +85,13 @@ def test_every_port_module_is_scanned():
                 ("spmd", "__init__.py"), ("spmd", "plan.py"),
                 ("spmd", "overlap.py"), ("spmd", "trainer.py"),
                 ("obs", "comm.py"), ("obs", "fleet.py"),
-                ("tools", "shard_cli.py")):
+                ("tools", "shard_cli.py"),
+                # A9's checkpoint-and-fleet slice: sharded checkpoints,
+                # the bench legs, elasticity and their CLIs
+                ("spmd", "checkpoint.py"), ("spmd", "bench.py"),
+                ("resilience", "elastic.py"), ("distributed", "ranks.py"),
+                ("tools", "comm_cli.py"), ("tools", "fleet_cli.py"),
+                ("tools", "elastic_cli.py")):
         assert os.path.join("paddle_tpu_torch", *new) in rel
     v2 = sorted(os.path.basename(p) for p in rel
                 if os.path.dirname(p) == os.path.join("paddle_tpu_torch",
@@ -217,6 +223,46 @@ def test_perf_load_capi_import_leaves_jax_unloaded():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_checkpoint_fleet_elastic_import_leaves_jax_unloaded():
+    """The sharded checkpoints, the bench legs, the fleet, elasticity
+    and the comm, fleet and elastic CLIs."""
+    code = ("import sys, paddle_tpu_torch.spmd.checkpoint, "
+            "paddle_tpu_torch.spmd.bench, paddle_tpu_torch.obs.fleet, "
+            "paddle_tpu_torch.resilience.elastic, "
+            "paddle_tpu_torch.distributed.ranks, "
+            "paddle_tpu_torch.tools.comm_cli, "
+            "paddle_tpu_torch.tools.fleet_cli, "
+            "paddle_tpu_torch.tools.elastic_cli; "
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_comm_cli_and_bench_refuse_the_cpu_unless_asked():
+    """`comm_cli report`, `spmd.bench.run_leg` and the elastic worker's
+    trainer run on the card unless asked for the CPU: without a CUDA
+    device their mesh raises naming CUDA, and no group is left up."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default place is valid")
+    from paddle_tpu_torch.resilience.elastic import ElasticTrainer
+    from paddle_tpu_torch.spmd import bench
+    from paddle_tpu_torch.tools import comm_cli, elastic_cli
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        comm_cli.main(["report"])
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.run_leg(mesh_spec="dp=1")
+    assert ElasticTrainer(None, None, "/x").device == "cuda"
+    for cli in (comm_cli, elastic_cli):
+        assert cli.parse_args(["--use_gpu=0"]).use_gpu is False
+        assert cli.parse_args([]).use_gpu is True
 
 
 def test_serving_import_leaves_jax_unloaded():

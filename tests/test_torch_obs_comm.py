@@ -19,7 +19,8 @@ in-process half) against the JAX package's, on the CPU.
 - `drift_report` and `calibration_blob` on one bucket report through
   both packages, equal; the blob's file read by the JAX package's
   `tune.fit.load_comm_calibration` with its platform-class discipline.
-- The cross-host half raising, naming slice 22.
+- The cross-host half's names and key prefixes equal the JAX module's
+  (its cases are in tests/test_torch_obs_fleet.py).
 """
 
 import json
@@ -338,8 +339,10 @@ def test_cross_host_half_waits_with_the_fleet():
             obs_comm.CLOCK_PONG_PREFIX) == (
         jcomm.SPAN_PREFIX, jcomm.CLOCK_PING_PREFIX,
         jcomm.CLOCK_PONG_PREFIX)
+    # the half came with obs/fleet.py: every name is callable, and a
+    # merge of no windows is the JAX function's empty trace
     for name in ("span_window_payload", "push_span_window",
                  "collect_span_windows", "merge_windows",
                  "estimate_clock_offsets", "ClockResponder"):
-        with pytest.raises(NotImplementedError, match="slice 22"):
-            getattr(obs_comm, name)()
+        assert callable(getattr(obs_comm, name))
+    assert obs_comm.merge_windows({}) == jcomm.merge_windows({})

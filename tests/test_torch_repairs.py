@@ -1,4 +1,4 @@
-"""Seven faults of the port against the JAX package, each repaired:
+"""Eight faults of the port against the JAX package, each repaired:
 
 - The flash kernel's routes: head dims up to 256 in float32, bfloat16
   and float16 (129..256 on routes of their own), a clear error above
@@ -49,6 +49,10 @@
   "not ported", where the JAX op refuses one too (`jnp` takes no
   RaggedTensor); it now raises TypeError saying the op takes no ragged
   input, for each op that calls it.
+- `fluid.framework.reset_unique_name` (ROADMAP C9): the port lacked it,
+  where the JAX package's builders (and `resilience.elastic`'s
+  `build_fn`) call it before rebuilding into one program; after a reset
+  a build into the same program gives the JAX package's names again.
 """
 
 import importlib
@@ -700,3 +704,33 @@ def test_dense_only_ops_refuse_a_ragged_input(op_type):
         treg.get_op_info(op_type).kernel(
             None, ins(TRagged.from_sequences(seqs), torch.from_numpy),
             attrs)
+
+
+# -- reset_unique_name (C9) ------------------------------------------------------
+
+def _names_built_twice(fl, reset):
+    """The parameter names of two fc layers built into one program, the
+    second build after `reset` (or not)."""
+    main, startup = fl.Program(), fl.Program()
+    names = []
+    with fl.program_guard(main, startup):
+        for i in range(2):
+            if reset and i:
+                fl.framework.reset_unique_name()
+            x = fl.layers.data(name="x%d" % i, shape=[4], dtype="float32")
+            fl.layers.fc(input=x, size=3)
+            names.append(sorted(p.name for p in
+                                main.global_block().all_parameters()))
+    return names
+
+
+@pytest.mark.parametrize("reset", [True, False])
+def test_reset_unique_name_gives_the_jax_names(reset):
+    got = _names_built_twice(tfluid, reset)
+    assert got == _names_built_twice(jfluid, reset)
+    assert (got[1] == got[0]) is reset
+    # a program given by name is reset alone
+    prog = tfluid.Program()
+    tfluid.framework.unique_name("fc", prog)
+    tfluid.framework.reset_unique_name(prog)
+    assert tfluid.framework.unique_name("fc", prog) == "fc_0"

@@ -821,7 +821,9 @@ def test_shard_cli_selftest(capsys):
 
     tchecks, jchecks = checks(tout), checks(jout)
     # the same five static checks, word for word; both trained a step;
-    # the checkpoint check waits with slice 22 in the port
+    # and both ran the sharded checkpoint round trip
     assert tchecks[:5] == jchecks[:5]
     assert "plan-driven step trains (1 device(s))" in tchecks[5]
-    assert "slice 22" in tout and "pshard selftest: green" in tout
+    assert tchecks[6] == jchecks[6] == ("  sharded checkpoint round-trip, "
+                                        "nothing densified PASS")
+    assert "slice 22" not in tout and "pshard selftest: green" in tout

@@ -12,7 +12,9 @@ the JAX package's, on the CPU.
   ("gspmd"), the fallback reason of a dp axis of 1, `_aot_state`
   "no-cache", the flight host context, losses and state against the
   JAX single-device trainer from one initial state; the checkpoint
-  names raising, naming slice 22.
+  names, which work now (their cases are in
+  tests/test_torch_spmd_checkpoint.py), with the JAX package's
+  `__all__`.
 - The overlapped dp step at dp 4, in ONE spawn of 4 gloo ranks
   (`torch_ranks`): its losses and state against the JAX overlapped step
   at dp 4 on 4 virtual devices and against the port's single-rank step,
@@ -297,20 +299,22 @@ def test_world_one_trainer_matches_jax_single_device(world_one,
     assert ctx["plan_fingerprint"] == tr.plan.fingerprint()
 
 
-def test_aot_state_and_checkpoint_names(world_one):
+def test_aot_state_and_checkpoint_names(world_one, tmp_path):
     main, startup, avg = pcases.build_mlp(tfluid)
     tr = spmd.SpmdTrainer(main, startup, FEEDS, [avg.name],
                           world_one.mesh).init()
     assert tr._aot_state == "pending"
     tr.step(pcases.mlp_feeds(0))
     assert tr._aot_state == "no-cache"
-    for call in (lambda: tr.save_checkpoint("/nonexistent", 1),
-                 lambda: tr.restore_checkpoint("/nonexistent"),
-                 lambda: spmd.attach_supervisor(tr, "/nonexistent"),
-                 lambda: spmd.save_sharded(),
-                 lambda: spmd.restore_sharded()):
-        with pytest.raises(NotImplementedError, match="slice 22"):
-            call()
+    # the checkpoint names came with spmd/checkpoint.py: an empty root
+    # has nothing to restore, the JAX trainer's IOError
+    with pytest.raises(IOError, match="no complete sharded checkpoint"):
+        tr.restore_checkpoint(str(tmp_path))
+    assert tr.elastic_generation is None
+    snap = tr.save_checkpoint(str(tmp_path), 1)
+    assert spmd.latest_sharded_checkpoint(str(tmp_path)) == snap
+    sup = spmd.attach_supervisor(tr, str(tmp_path))
+    assert sup._latest_snapshot() == snap and sup.place == tr.place
     from paddle_tpu.spmd import __all__ as jall
 
     assert sorted(spmd.__all__) == sorted(jall)
