@@ -39,7 +39,7 @@ no result line:
      run on the card, 3 steps on the card, in which the flash kernel must
      run 12 times per step (the forward op, and again in the generic grad
      of flash_attention_grad), counted from 0 just before, with their
-     peak memory; the step's time (median of 10 after 2 warm), tokens/s
+     peak memory; the step's time (median of 5 after 2 warm), tokens/s
      and a profile of one step: device time by kernel and by op type,
      the generic grads' recompute, host time by op type, the device's
      idle share.  Then the same 3 steps from the same state again on the
@@ -61,7 +61,7 @@ no result line:
      running statistics gated), then the card's own 3 steps.  At batch
      128, f32 and then bf16 AMP (`fluid.amp.bf16_guard()`), each from
      the same state: 3 steps with their peak memory, the step's time
-     (median of 10 after 2 warm, feeds on the card), images/s and a
+     (median of 5 after 2 warm, feeds on the card), images/s and a
      profile of one step; the AMP losses against the f32 ones.  The
      batch-16 inference clone (`clone(for_test=True)`): its forward time
      and its logits against the CPU plain path.  ResNet-50 runs no
@@ -94,7 +94,7 @@ no result line:
   8. image: bench.py's alexnet and vgg16 at its training shape (batch
      128 at 224x224, 1000 classes, momentum 0.9 at lr 0.01, f32 with
      TF32 off): 3 steps with their peak memory, the step's time (median
-     of 10 after 2 warm), images/s and a profiled step.  At batch 8 one
+     of 5 after 2 warm), images/s and a profiled step.  At batch 8 one
      vgg16 and one smallnet step on the card against the CPU plain path
      from the same state; alexnet's dropout keep rates and its is_test
      clone's logits against the CPU.  Then
@@ -116,7 +116,7 @@ no result line:
      parameters and both moments gated).  At bench.py's 128 sequences of
      100 ids (128 recurrence steps), f32 and bf16 AMP from the same
      state: 3 steps with their peak memory, the step's time (median of
-     10 after 2 warm, feeds on the card), samples/s and a profiled step;
+     5 after 2 warm, feeds on the card), samples/s and a profiled step;
      the AMP losses against the f32 ones.  The lstm op alone at that
      shape (forward and generic grad, device time by graph replay, and
      eager) beside its bound and cuDNN's LSTM (a different function: no
@@ -213,7 +213,7 @@ no result line:
      one state (the loss, and the change of the parameters, velocities
      and batch-norm statistics); peak memory over 3 steps; one training
      step with CUDA's synchronizing calls made errors; the step's median
-     of 10 after 2 warm (feeds on the card), images/s, labels/s and a
+     of 5 after 2 warm (feeds on the card), images/s, labels/s and a
      profiled step; one step run twice from one state without torch's
      deterministic algorithms: every grad bit for bit, warpctc's logits',
      the GRUs', the fcs' and the 32 of the convolutions and batch norms
@@ -323,7 +323,7 @@ no result line:
      sparse rows exactly 60 x 256 x 16 x 2 on both sides); then 60
      steps on one batch through the servers below 0.7 of the first loss
      (tests/test_ctr_deepfm.py's criterion).  (b) The same model at
-     10,000,000 features: the step's median of 10 after 2 warm, the
+     10,000,000 features: the step's median of 5 after 2 warm, the
      forward and backward alone, the copies from the card, the round
      trips and the writes back of a profiled step with its device busy
      share, the bytes each way; after the steps every touched row of
@@ -486,6 +486,22 @@ no result line:
      of one rank: a real SIGTERM from one's fault plan, then exactly one
      shrink and, when the replacement registers, one grow in the
      survivor's history, restores shard-exact, finite losses.
+  25. tune: the autotuner.  (a) `tune_cli --selftest` as a process, its
+     two measurement legs (lenet5) on the card.  (b) ResNet-50 at its
+     published widths (224 x 224, 1,000 classes, Momentum(0.01, 0.9))
+     planned by `tune_cli plan` for 8 cards of 80 GB under bf16 AMP over
+     8 candidates (4 meshes x micro-batches 1, 2 at batch 256, pipeline
+     none), with rank's host seconds; the top-2 measured on the card,
+     each as a child process running its per-device slice
+     (`tune.measure.measure_plan`), each one's predicted and measured
+     step ms; `tune_cli fit` over those records (the error before and
+     after), solved here again: the two points independent, the fit
+     their exact solution where it is admissible, else the median
+     ratio; a re-rank with the calibration (the top-1's new
+     prediction).  Every measurement ok with its config blob matching,
+     finite losses, `gpu:` platform classes, the fit's error not risen,
+     and no flash launch counted in any leg's process (25a's and
+     25b's, each counting its own).
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -514,6 +530,9 @@ import numpy as np
 # the port's roofline takes as its defaults too
 from paddle_tpu_torch.utils.device_peaks import (
     BF16_FLOPS, F32_CORE_FLOPS, FP16_FLOPS, HBM_BYTES_PER_S, TF32_FLOPS)
+# every kernel's launch counts, and the flash kernel's by route
+from paddle_tpu_torch.kernels import (
+    launch_counts as read_launches, reset_launches, route_entry)
 
 SEED = 0
 # the served model: bench.py's BENCH_MODEL=transformer configuration
@@ -795,35 +814,6 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def route_entry(route):
-    """The kernels-line name of the flash kernel's `route`."""
-    return "flash_attention_fwd[%s]" % route
-
-
-def reset_launches():
-    """Every launch count to 0: each kernel's, and the flash kernel's by
-    route."""
-    from paddle_tpu_torch.kernels import KERNELS
-    from paddle_tpu_torch.kernels import flash_attention as fa
-
-    for w in KERNELS.values():
-        w.launches = 0
-    for route in fa.ROUTES:
-        fa.flash_attention_fwd.route_launches[route] = 0
-
-
-def read_launches():
-    """{name: launches} of each kernel, and of the flash kernel by route
-    (`route_entry`)."""
-    from paddle_tpu_torch.kernels import KERNELS
-    from paddle_tpu_torch.kernels import flash_attention as fa
-
-    counts = {n: w.launches for n, w in KERNELS.items()}
-    counts.update({route_entry(r): n for r, n in
-                   fa.flash_attention_fwd.route_launches.items()})
-    return counts
-
-
 def cuda_ms(fn, iters=20, warm=3):
     """Mean milliseconds of fn() on the card, by CUDA events."""
     import torch
@@ -873,7 +863,7 @@ def device_ms(fn, launches=20, replays=5):
     return ms
 
 
-def timed_steps(step, runs=10, warm=2):
+def timed_steps(step, runs=5, warm=2):
     """Host milliseconds of `runs` calls of step() that each end in a
     synchronize, after `warm` calls."""
     import torch
@@ -1354,7 +1344,7 @@ def phase_slice():
                 t0 = time.perf_counter()
                 engine.run(feeds)
                 run_times.append((time.perf_counter() - t0) * 1e3)
-            print("slice: 16-row forward %.3f ms (mean of 10 after 2 warm; "
+            print("slice: 16-row forward %.3f ms (mean of 5 after 2 warm; "
                   "median %.3f, min %.3f, max %.3f); engine.run of 16 rows "
                   "with the logits copied to the host %.1f ms (mean of 3)"
                   % (np.mean(times), np.median(times), min(times),
@@ -1614,7 +1604,7 @@ def phase_train():
 
     times = timed_steps(step)
     med = float(np.median(times))
-    print("train: step %.3f ms (median of 10 after 2 warm; mean %.3f, min "
+    print("train: step %.3f ms (median of 5 after 2 warm; mean %.3f, min "
           "%.3f, max %.3f), %.0f tokens/s"
           % (med, np.mean(times), min(times), max(times),
              BATCH * SEQ / med * 1e3), flush=True)
@@ -1951,7 +1941,7 @@ def phase_resnet():
             med = float(np.median(times))
             if not amp:
                 RUN_MS["resnet_f32_step"] = med  # phase 21b classifies it
-            print("resnet %s: step %.3f ms (median of 10 after 2 warm; mean "
+            print("resnet %s: step %.3f ms (median of 5 after 2 warm; mean "
                   "%.3f, min %.3f, max %.3f), %.1f images/s, %.1f TFLOP/s "
                   "of forward and backward products"
                   % (tag, med, np.mean(times), min(times), max(times),
@@ -1996,7 +1986,7 @@ def phase_resnet():
     err = float(np.abs(out - ref).max())
     top = float(np.abs(ref).max())
     print("resnet: inference clone at batch %d: forward %.3f ms (median of "
-          "10 after 2 warm; mean %.3f, min %.3f, max %.3f), %.1f images/s; "
+          "5 after 2 warm; mean %.3f, min %.3f, max %.3f), %.1f images/s; "
           "logits %s, max abs %.4g, against the CPU plain path (%.1f s) "
           "max_abs_err %.3g (%.3g of the largest; rtol %g)"
           % (RN_INFER_BATCH, np.median(times), np.mean(times), min(times),
@@ -2499,7 +2489,7 @@ def phase_image():
 
         times = timed_steps(step)
         med = float(np.median(times))
-        print("image %s: step %.3f ms (median of 10 after 2 warm; mean "
+        print("image %s: step %.3f ms (median of 5 after 2 warm; mean "
               "%.3f, min %.3f, max %.3f), %.1f images/s, %.1f TFLOP/s of "
               "forward and backward products"
               % (name, med, np.mean(times), min(times), max(times),
@@ -2698,7 +2688,7 @@ def phase_image():
 
     times = timed_steps(one_step)
     med = float(np.median(times))
-    print("example: one step with its feed on the card %.3f ms (median of 10 "
+    print("example: one step with its feed on the card %.3f ms (median of 5 "
           "after 2 warm; min %.3f, max %.3f), %.1f images/s"
           % (med, min(times), max(times), EX_BATCH / med * 1e3), flush=True)
     profile_step(one_step, op_types, 0, med)
@@ -2980,7 +2970,7 @@ def phase_sequence():
 
             times = timed_steps(step)
             med = float(np.median(times))
-            print("sequence %s: step %.3f ms (median of 10 after 2 warm; "
+            print("sequence %s: step %.3f ms (median of 5 after 2 warm; "
                   "mean %.3f, min %.3f, max %.3f), %.1f samples/s"
                   % (tag, med, np.mean(times), min(times), max(times),
                      SEQ_BATCH / med * 1e3), flush=True)
@@ -3377,7 +3367,7 @@ def ctr_timing(exe, features, opt, smi):
     """The step of `opt` at `features` features on the card, its feed
     there: at CTR_BIG_FEATURES under Adam and SGD first one step run
     twice from one state (`repeat_gate`), then 3 steps with their peak
-    memory, the median of 10 after 2 warm,
+    memory, the median of 5 after 2 warm,
     samples/s, a profiled step (busy share, launches, the update ops'
     device ms beside their bound by bytes) and, at CTR_BIG_FEATURES,
     the update op alone on the table."""
@@ -3410,7 +3400,7 @@ def ctr_timing(exe, features, opt, smi):
 
     times = timed_steps(step)
     med = float(np.median(times))
-    print("ctr %s at %d features: step %.3f ms (median of 10 after 2 warm; "
+    print("ctr %s at %d features: step %.3f ms (median of 5 after 2 warm; "
           "mean %.3f, min %.3f, max %.3f), %.1f samples/s, peak memory "
           "%.3f GB, losses %s [%s]"
           % (opt, features, med, np.mean(times), min(times), max(times),
@@ -4037,7 +4027,7 @@ def phase_seq2seq():
 
         times = timed_steps(step)
         med = float(np.median(times))
-        print("seq2seq batch %d: step %.3f ms (median of 10 after 2 warm; "
+        print("seq2seq batch %d: step %.3f ms (median of 5 after 2 warm; "
               "mean %.3f, min %.3f, max %.3f), %.1f target tokens/s, %.1f "
               "sentence pairs/s"
               % (batch, med, np.mean(times), min(times), max(times),
@@ -4583,7 +4573,7 @@ def book_chapter(exe, chapter, batch, smi):
     path from one state (the loss within BOOK_STEP_RTOL of its size, the
     parameters' change within BOOK_STEP_RL2); for SRL the Viterbi paths
     of the first step and chunk_eval over them equal the CPU's; the
-    step's time (median of 10 after 2 warm, feeds on the card)."""
+    step's time (median of 5 after 2 warm, feeds on the card)."""
     import torch
     import paddle_tpu_torch.fluid as fluid
 
@@ -4653,7 +4643,7 @@ def book_chapter(exe, chapter, batch, smi):
 
     times = timed_steps(step)
     med = float(np.median(times))
-    print("book %s batch %d: step %.3f ms (median of 10 after 2 warm; min "
+    print("book %s batch %d: step %.3f ms (median of 5 after 2 warm; min "
           "%.3f, max %.3f), %.1f samples/s [%s]"
           % (chapter, batch, med, min(times), max(times), batch / med * 1e3,
              smi), flush=True)
@@ -5068,7 +5058,7 @@ def book_sentiment(exe, smi):
         times = timed_steps(step)
         med = float(np.median(times))
         rows = int(dev_feed["words"].nvalid)
-        print("book sentiment batch %d: step %.3f ms (median of 10 after 2 "
+        print("book sentiment batch %d: step %.3f ms (median of 5 after 2 "
               "warm, feeds on the card; mean %.3f, min %.3f, max %.3f), "
               "%.1f samples/s, %.1f words/s (%d words) [%s]"
               % (batch, med, np.mean(times), min(times), max(times),
@@ -5812,7 +5802,7 @@ def crnn_full(exe, smi):
     times = timed_steps(step)
     med = float(np.median(times))
     labels = int(dev_feeds[0]["label"].nvalid)
-    print("ctc: CRNN batch %d: step %.3f ms (median of 10 after 2 warm, "
+    print("ctc: CRNN batch %d: step %.3f ms (median of 5 after 2 warm, "
           "feeds on the card, conv2d and its grad under deterministic "
           "cuDNN algorithms; mean %.3f, min %.3f, max %.3f), %.1f images/s,"
           " %.1f labels/s (%d labels); peak memory of 3 steps %.3f GB; the "
@@ -6505,7 +6495,7 @@ def nmt_train(exe, smi):
             reader=lambda: iter(batches[:1])))
     times = timed_steps(step)
     med = float(np.median(times))
-    print("v2: NMT batch %d: step %.3f ms (median of 10 after 2 warm, feeds "
+    print("v2: NMT batch %d: step %.3f ms (median of 5 after 2 warm, feeds "
           "on the card; mean %.3f, min %.3f, max %.3f), %.1f target "
           "tokens/s (%d target rows), %.1f sentence pairs/s; peak memory "
           "of 3 steps %.3f GB; synchronizing calls: %d in an executor step "
@@ -7343,7 +7333,7 @@ def stack_train(exe, smi):
         prof = profile_step(step, set(counts) | set(ucounts), per_step,
                             med, what="one %s 15c step" % tag)
         report[tag] = (med, prof)
-        print("stack: 15c %s: step %.3f ms (median of 10 after 2 warm, "
+        print("stack: 15c %s: step %.3f ms (median of 5 after 2 warm, "
               "feeds on the card; mean %.3f, min %.3f, max %.3f), %.0f "
               "tokens/s; %s launches a step, device busy %s ms [%s]"
               % (tag, med, np.mean(times), min(times), max(times),
@@ -9224,7 +9214,8 @@ def _kill_cli_processes(started):
 
 
 def _finish_cli_processes(started):
-    """`_cli_processes`' end: each process's exit and green line."""
+    """`_cli_processes`' end: each process's exit and green line; returns
+    the green lines."""
     t0, procs = started
     try:
         outs = [(proc.communicate(timeout=CLI_TIMEOUT_S), proc.returncode,
@@ -9234,6 +9225,7 @@ def _finish_cli_processes(started):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    lines = []
     for (stdout, stderr), code, tag, seconds in outs:
         if code != 0:
             raise SystemExit("chip_smoke: %s exited %d: %s"
@@ -9244,6 +9236,8 @@ def _finish_cli_processes(started):
                              % (tag, stdout[-2000:]))
         print("cli: %s exit 0 within %.1f s of the start: %s"
               % (tag, seconds, green[-1]), flush=True)
+        lines.append(green[-1])
+    return lines
 
 
 def _fit_a_line_config(path):
@@ -10114,7 +10108,7 @@ def ssd_train(smi):
 
     times = timed_steps(step)
     med = float(np.median(times))
-    print("ssd: step %.3f ms (median of 10 after 2 warm; mean %.3f, min "
+    print("ssd: step %.3f ms (median of 5 after 2 warm; mean %.3f, min "
           "%.3f, max %.3f), %.1f images/s [%s]"
           % (med, np.mean(times), min(times), max(times),
              SSD_BATCH / med * 1e3, smi), flush=True)
@@ -10927,7 +10921,7 @@ def analysis_train(exe, main, startup, loss, smi):
     t_plain = timed_steps(plain_step)
     t_opt = timed_steps(opt_step)
     print("analysis: 20b step median %.3f ms plain, %.3f ms under both "
-          "flags (10 after 2 warm; the pipeline ran %d more times); %s"
+          "flags (5 after 2 warm; the pipeline ran %d more times); %s"
           % (np.median(t_plain), np.median(t_opt),
              opt.pipeline_runs - runs_before, smi), flush=True)
     if opt.pipeline_runs != runs_before:
@@ -11520,7 +11514,7 @@ def perf_classify(smi):
         step_ms = float(np.median(timed_steps(
             lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
                             return_numpy=False))))
-        source = "the median of 10 f32 steps after 2 warm"
+        source = "the median of 5 f32 steps after 2 warm"
         del scope, feed
         torch.cuda.empty_cache()
     argv = ["classify", "--model", "resnet50", "--batch", str(RN_BATCH),
@@ -12861,6 +12855,215 @@ def phase_elastic():
     return launches
 
 
+# the `none` pipeline alone: `default` changes no op of ResNet-50 and
+# is priced alike, so beside it the top-2 would be one program twice,
+# and the fit two copies of one point.  Alone, the top-2 are the
+# micro-batch splits 1 and 2 of one mesh: one compute term, two overhead
+# terms, two independent points
+TUNE_PLAN = ["--model", "resnet50", "--chips", "8", "--hbm-gb", "80",
+             "--batches", "256", "--micro-batches", "1,2",
+             "--pipelines", "none"]
+TUNE_CANDIDATES = 8     # 4 meshes x 2 micro-batch splits
+TUNE_TOPK = 2
+TUNE_ITERS = 3          # timed steps of each measured leg, after 1 warm
+TUNE_TIMEOUT_S = 600
+
+
+def tune_plan(path, calibration=None):
+    """`tune_cli plan` of TUNE_PLAN into `path` (with `calibration`):
+    (the plan's JSON, the call's host seconds)."""
+    from paddle_tpu_torch.tools import tune_cli
+
+    argv = ["plan"] + TUNE_PLAN + ["--out", path, "--topk", "4"]
+    if calibration:
+        argv += ["--calibration", calibration]
+    t0 = time.perf_counter()
+    if tune_cli.main(argv) != 0:
+        raise SystemExit("chip_smoke: tune_cli plan failed")
+    seconds = time.perf_counter() - t0
+    with open(path) as f:
+        return json.load(f), seconds
+
+
+def _selftest_launches(line, names):
+    """The kernel launches that `tune_cli --selftest`'s legs counted, read
+    from its green line; every kernel of `names` must be there."""
+    m = re.search(r"kernel launches=(\{[^}]*\})", line)
+    if not m:
+        raise SystemExit("chip_smoke: the tune selftest's green line "
+                         "counts no kernel launches: %s" % line)
+    counts = json.loads(m.group(1))
+    if sorted(counts) != sorted(names):
+        raise SystemExit("chip_smoke: the tune selftest counted %s, not %s"
+                         % (sorted(counts), sorted(names)))
+    return counts
+
+
+def tune_fit_check(cal, pairs):
+    """The fit over the two measured points, solved here on its own: two
+    independent points (the space pinned so) give a 2 x 2 system; where
+    its solution is admissible (compute > 0, overhead >= 0) the fitted
+    coefficients must be it and reproduce both measurements, else the fit
+    falls back to the median measured/predicted ratio.  Returns which."""
+    X = np.array([[p["meas_compute_s"], p["overhead_s"]] for p in pairs])
+    y = np.array([p["measured_s"] for p in pairs])
+    det = np.linalg.det(X)
+    if abs(det) <= 1e-9 * np.abs(X).max() ** 2:
+        raise SystemExit("chip_smoke: the measured candidates are one "
+                         "point of the fit (determinant %r): %s"
+                         % (det, json.dumps(pairs)))
+    a, b = (float(v) for v in np.linalg.solve(X, y))
+    # the calibration file keeps 9 decimals of each coefficient
+    coef = np.array([cal.coef["compute"], cal.coef["overhead"]])
+    fitted = X @ coef + cal.bias_s
+    if a > 0 and b >= 0:
+        if not (np.allclose(coef, [a, b], rtol=0, atol=1e-9)
+                and cal.bias_s == 0.0
+                and np.allclose(fitted, y, rtol=1e-9, atol=0)):
+            raise SystemExit("chip_smoke: the fit %s does not reproduce "
+                             "the measurements %s (solved: %r, %r)"
+                             % (json.dumps(cal.to_dict()), y.tolist(), a, b))
+        return "exact"
+    ratio = float(np.median(y / X.sum(axis=1)))
+    if not (np.allclose(coef, [ratio, ratio], rtol=0, atol=1e-9)
+            and cal.bias_s == 0.0):
+        raise SystemExit("chip_smoke: the solution (%r, %r) is not "
+                         "admissible and the fit %s is not the median ratio "
+                         "%r" % (a, b, json.dumps(cal.to_dict()), ratio))
+    return "median ratio (solved %r, %r)" % (a, b)
+
+
+def phase_tune():
+    """Phase 25: the autotuner's selftest on the card, then ResNet-50's
+    launch plan for 8 cards ranked, its top-2 measured on the card,
+    fitted and re-ranked; returns the phase's launch counts, summed over
+    the legs' processes, each of which counts its own."""
+    import shutil
+
+    from paddle_tpu_torch.obs import perf as obs_perf
+    from paddle_tpu_torch.tools import tune_cli
+    from paddle_tpu_torch.tune import fit as tune_fit
+    from paddle_tpu_torch.tune import measure as tune_measure
+    from paddle_tpu_torch.tune.rank import Calibration
+
+    import gc
+
+    import torch
+
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    names = sorted(read_launches())
+    # each leg is a process of its own that needs about 36 GiB at batch
+    # 256: this process gives back what the earlier phases cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("tune: this process holds %.2f GiB of the card (%.2f GiB "
+          "allocated) before the legs" % (torch.cuda.memory_reserved() / 2**30,
+                                          torch.cuda.memory_allocated() / 2**30),
+          flush=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    # 25a's planning runs on the host beside 25b's; its legs are done
+    # before 25b's legs start
+    selftest = _start_cli_processes(
+        [(["paddle_tpu_torch.tools.tune_cli", "--selftest"],
+          "tune_cli --selftest")])
+    try:
+        plan, rank_s = tune_plan(os.path.join(work, "plan.json"))
+        n = len(plan["ranked"]) + len(plan["rejected"])
+        print("tune: 25b ResNet-50 for 8 cards of 80 GB under bf16 AMP "
+              "(%s): %d candidates ranked (%d rejected) in %.3f host-s by "
+              "tune_cli plan; peaks %s TFLOP/s, %s GB/s"
+              % (smi, n, len(plan["rejected"]), rank_s,
+                 plan["context"]["peak_tflops"], plan["context"]["hbm_gbps"]),
+              flush=True)
+        if n != TUNE_CANDIDATES or len(plan["ranked"]) < TUNE_TOPK:
+            raise SystemExit("chip_smoke: the plan holds %d candidates, %d "
+                             "ranked" % (n, len(plan["ranked"])))
+    except BaseException:
+        _kill_cli_processes(selftest)
+        raise
+    try:
+        (green,) = _finish_cli_processes(selftest)
+        launches = _selftest_launches(green, names)
+        t1 = time.perf_counter()
+        history = os.path.join(work, "history.jsonl")
+        results = tune_measure.measure_plan(
+            plan, topk=TUNE_TOPK, history=history, iters=TUNE_ITERS,
+            warmup=1, timeout=TUNE_TIMEOUT_S,
+            echo=lambda msg: print("tune: " + msg, flush=True))
+        t2 = time.perf_counter()
+        for r in results:
+            if not r["ok"]:
+                raise SystemExit("chip_smoke: measuring %s failed: %s"
+                                 % (r["tag"], r["error"]))
+        legs = tune_measure.leg_launches(results)
+        if sorted(legs) != names:
+            raise SystemExit("chip_smoke: the legs counted %s, not %s"
+                             % (sorted(legs), names))
+        launches = _add_launches(launches, legs)
+        records = obs_perf.load_history(history)
+        pairs = {p["tag"]: p for p in tune_fit.join_history(plan, records)}
+        entries = {e["tag"]: e for e in plan["ranked"]}
+        for r in results:
+            rec, tag = r["record"], r["tag"]
+            p = pairs[tag]
+            print("tune: 25b %s (%s): predicted %.3f ms a step on 8 cards, "
+                  "its one-card proxy (per-device batch %d, %d micro-steps) "
+                  "%.3f ms; measured %.4f ms (%.2f img/s), loss %.6f, %s; "
+                  "the leg's host-s before its timed steps %s; its kernel "
+                  "launches %s"
+                  % (tag, smi, entries[tag]["predicted_step_ms"],
+                     rec["config"]["batch"], rec["config"]["micro_batches"],
+                     (p["meas_compute_s"] + p["overhead_s"]) * 1e3,
+                     rec["step_ms"], rec["value"], rec["loss"],
+                     rec["platform_class"],
+                     json.dumps(rec["seconds"], sort_keys=True),
+                     json.dumps(rec["kernel_launches"], sort_keys=True)),
+                  flush=True)
+            if not np.isfinite(rec["loss"]) or rec["step_ms"] <= 0 \
+                    or not rec["platform_class"].startswith("gpu:"):
+                raise SystemExit("chip_smoke: the leg of %s is wrong: %s"
+                                 % (tag, json.dumps(rec)))
+        if sorted(pairs) != sorted(r["tag"] for r in results) \
+                or len(records) != TUNE_TOPK:
+            raise SystemExit("chip_smoke: the history holds %d records "
+                             "joining %s" % (len(records), sorted(pairs)))
+        cal_path = os.path.join(work, "cal.json")
+        if tune_cli.main(["fit", "--plan", os.path.join(work, "plan.json"),
+                          "--history", history,
+                          "--calibration", cal_path]) != 0:
+            raise SystemExit("chip_smoke: tune_cli fit failed")
+        cal = Calibration.load(cal_path)
+        if cal.n != TUNE_TOPK or cal.error_before is None \
+                or cal.error_after > cal.error_before:
+            raise SystemExit("chip_smoke: the calibration is wrong: %s"
+                             % json.dumps(cal.to_dict()))
+        solved = tune_fit_check(cal, [pairs[r["tag"]] for r in results])
+        top = plan["ranked"][0]["tag"]
+        plan2, _ = tune_plan(os.path.join(work, "plan2.json"), cal_path)
+        new = {e["tag"]: e for e in plan2["ranked"]}[top]
+        print("tune: 25b the fit over %d records (%s): median relative "
+              "error %.6f before, %.6f after, coefficients %s, bias %.6f "
+              "ms, %s; re-ranked, %s predicted %.3f ms (was %.3f), the new "
+              "top-1 %s at %.3f ms"
+              % (cal.n, smi, cal.error_before, cal.error_after,
+                 json.dumps(cal.to_dict()["coef"], sort_keys=True),
+                 cal.bias_s * 1e3, solved, top, new["predicted_step_ms"],
+                 plan["ranked"][0]["predicted_step_ms"],
+                 plan2["ranked"][0]["tag"],
+                 plan2["ranked"][0]["predicted_step_ms"]), flush=True)
+        if new["predicted_step_ms"] == plan["ranked"][0]["predicted_step_ms"]:
+            raise SystemExit("chip_smoke: the calibrated re-rank left %s's "
+                             "prediction unchanged" % top)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("tune: 25a %.1f s beside the plan, 25b's legs %.1f s, phase 25 "
+          "%.1f s (%s); the legs' kernel launches %s"
+          % (t1 - t0, t2 - t1, time.perf_counter() - t0, smi,
+             json.dumps(launches, sort_keys=True)), flush=True)
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -12910,12 +13113,13 @@ def main():
     mesh_launches = run(phase_mesh)
     spmd_launches = run(phase_spmd)
     elastic_launches = run(phase_elastic)
+    tune_launches = run(phase_tune)
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
     # ResNet-50, the image models, the lstm, the ctr model, the seq2seq,
-    # the book's chapters, CRNN-CTC, the v2 NMT and SSD300 run no
-    # hand-written kernel: conv2d is cuDNN, the products cuBLAS and the rest ATen (the
+    # the book's chapters, CRNN-CTC, the v2 NMT, SSD300 and the tuner's
+    # image models run no hand-written kernel: conv2d is cuDNN, the products cuBLAS and the rest ATen (the
     # sparse updates a segment reduction and `index_add`, the
     # recurrences, the CRF and the CTC loops of ATen ops), as the JAX
     # package leaves them to XLA
@@ -12929,7 +13133,8 @@ def main():
                       ("the v2 NMT", v2_launches),
                       ("the ctr model through the pservers",
                        ps_ctr_launches),
-                      ("SSD300", ssd_launches)):
+                      ("SSD300", ssd_launches),
+                      ("the tuner", tune_launches)):
         if any(got.values()):
             raise SystemExit("chip_smoke: %s launched %s"
                              % (what, json.dumps(got)))
@@ -12961,7 +13166,7 @@ def main():
             v2_launches, stack_launches, obs_amp_launches,
             obs_serve_launches, ps_ctr_launches, ps_transformer_launches,
             cli_launches, ssd_launches, analysis_launches, perf_launches,
-            mesh_launches, spmd_launches, elastic_launches))
+            mesh_launches, spmd_launches, elastic_launches, tune_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

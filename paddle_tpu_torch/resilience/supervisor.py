@@ -30,6 +30,18 @@ that it survives all three:
     the last good snapshot, backs off the `fluid.amp.LossScaler` when
     one is attached, and replays from there.
 
+In a sharded job (a saver with `agree`, one answer for every rank) the
+ranks decide each of these at the same step boundary: whether the
+reader's next batch raised a retryable error, whether the
+`supervisor/step` fault point fired (`io_error`, `nonfinite`), and
+whether the step's loss is nonfinite.  Only then does any rank raise,
+restore or go on, so a fault on one rank restarts every rank from the
+same snapshot, as the JAX package's one-process sharded job does.  A
+fault raised inside `step_fn` after the step's first collective cannot
+be agreed this way: the other ranks already wait in that collective.
+Nor can a reader that fails where the other ranks' readers end their
+epoch.
+
 The checkpoints are the supervisor's own synchronous saves
 (`steps_per_checkpoint` or `interval_secs`): synchronous because the
 meta sidecar and the rollback need the manifest on disk before training
@@ -94,6 +106,11 @@ class _Rollback(Exception):
     def __init__(self, reason):
         super().__init__(reason)
         self.reason = reason
+
+
+class _PeerFault(Exception):
+    """Internal: another rank of the job faulted at this step boundary;
+    this rank restores with it."""
 
 
 def _reg():
@@ -312,36 +329,81 @@ class TrainingSupervisor:
         agree = getattr(self._saver, "agree", None)
         return flags if agree is None else tuple(agree(*flags))
 
+    @staticmethod
+    def _raise_fault(error):
+        """Raise this rank's own fault, or, when the fault was another
+        rank's, `_PeerFault`."""
+        if error is not None:
+            raise error
+        raise _PeerFault("a fault on another rank")
+
+    def _preempt(self):
+        """The urgent snapshot, then Preempted."""
+        self._preempted = False
+        self._checkpoint("urgent")
+        raise Preempted("preemption signal at step %d" % self._step)
+
     def _check_preempt(self, due=False):
-        """A step boundary: the interval snapshot when `due`, then the
+        """The end of a step: the interval snapshot when `due`, then the
         urgent snapshot and Preempted when a signal was seen, both
         decided for all ranks at once (`_agreed`)."""
         due, preempted = self._agreed(due, self._preempted)
         if due:
             self._checkpoint("interval")
-        if not preempted:
-            return
-        self._preempted = False
-        self._checkpoint("urgent")
-        raise Preempted("preemption signal at step %d" % self._step)
+        if preempted:
+            self._preempt()
+
+    def _start_step(self, error):
+        """The start of a step, decided for all ranks in one vote
+        (`_agreed`): a fault (this rank's reader `error`, or the
+        `supervisor/step` fault point raising), else a pending
+        preemption signal, else a simulated blowup, which is returned.
+        The fault point is not evaluated where the reader failed or a
+        signal is pending, as a world of one never reached it there."""
+        preempted, fault = self._preempted, None
+        if error is None and not preempted:
+            try:
+                fault = faults_mod.check("supervisor/step",
+                                         step=self._step)
+            except self.retryable as exc:
+                error = exc
+        faulted, preempted, blowup = self._agreed(
+            error is not None, preempted,
+            fault is not None and fault.kind == "nonfinite")
+        if faulted:
+            self._raise_fault(error)
+        if preempted:
+            self._preempt()
+        return blowup
 
     def _train(self, step_fn, reader_fn, num_epochs, on_step):
         while self._epoch < num_epochs:
             skip = self._batch
-            for batch_idx, data in enumerate(reader_fn()):
-                if batch_idx < skip:
+            batches = None
+            while True:
+                error = None
+                try:
+                    if batches is None:
+                        batches = enumerate(reader_fn())
+                    batch_idx, data = next(batches)
+                except StopIteration:
+                    break
+                except self.retryable as exc:
+                    # agreed at the step boundary, then raised
+                    error = exc
+                if error is None and batch_idx < skip:
                     continue
-                self._check_preempt()
-                fault = faults_mod.check("supervisor/step",
-                                         step=self._step)
-                if fault is not None and fault.kind == "nonfinite":
+                blowup = self._start_step(error)
+                if blowup:
                     # a simulated numerics blowup: the step does not run
                     # (the parameters are untouched); the supervisor
                     # observes a nonfinite loss and must recover
                     loss = float("nan")
                 else:
                     loss = self._loss_value(step_fn(data))
-                if loss is not None and not math.isfinite(loss):
+                (nonfinite,) = self._agreed(
+                    loss is not None and not math.isfinite(loss))
+                if nonfinite:
                     _reg().counter(
                         "supervisor_nonfinite_total",
                         "nonfinite step losses observed by the "
@@ -401,6 +463,10 @@ class TrainingSupervisor:
                     self.generation = er.generation
                 except _Rollback as rb:
                     reason = rb.reason
+                except _PeerFault:
+                    reason = "fault"
+                    trace_mod.instant("supervisor_fault",
+                                      cat="supervisor", error="peer")
                 except Exception as exc:
                     if not isinstance(exc, self.retryable):
                         raise

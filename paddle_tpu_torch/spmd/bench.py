@@ -14,8 +14,7 @@ record with:
     on one card), so the perf gate baselines a run only against runs of
     its own class.
 
-The models come from `tools/shard_cli.py`'s copy of the JAX package's
-`tune/models.py` builder until `tune/` is ported (ROADMAP A9, slice 23).
+The models come from the autotuner's builder (`tune.models`).
 Per-host telemetry rides the fleet store: with `fleet=True` each leg
 pushes its counters through a `FleetReporter` into an in-process lease
 master and the run summary carries the aggregator's merged view.
@@ -158,7 +157,7 @@ def run_leg(model="lenet5", mesh_spec="dp=8", batch=None, iters=8,
     from ..fluid.analysis import program_costs
     from ..obs import perf as obs_perf
     from ..parallel.mesh import mesh_shape
-    from ..tools.shard_cli import MODELS, _build_program
+    from ..tune.models import MODELS, builder
     from .trainer import SpmdTrainer
 
     mesh = _build_mesh(mesh_spec, device)
@@ -172,7 +171,7 @@ def run_leg(model="lenet5", mesh_spec="dp=8", batch=None, iters=8,
     spec = MODELS[model]
     size = spec["image_size"]
 
-    main, startup, loss_name = _build_program(model, batch)
+    main, startup, loss_name = builder(model, with_startup=True)(batch)
     trainer = SpmdTrainer(
         main, startup, ["image", "label"], [loss_name], mesh,
         rules=rules, zero_stage=zero_stage, bucket_bytes=bucket_bytes,

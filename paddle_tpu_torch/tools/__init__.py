@@ -8,10 +8,10 @@ and closed loop, access-log replay), the program linter (`lint_cli`,
 with the sharding analyzer under `--mesh`), the partition-plan CLI
 (`shard_cli`), the collective-observability CLI (`comm_cli`: the
 per-bucket report, the cross-host merged trace), the fleet aggregation
-CLI (`fleet_cli`) and the elastic training CLI (`elastic_cli`: a
-worker, the densify bench, the chaos drill).  The JAX package's other
-CLIs wait with ROADMAP A2 (`pcache_cli`, `mem_cli`) and A9's slice 23
-(`tune_cli`).
+CLI (`fleet_cli`), the elastic training CLI (`elastic_cli`: a
+worker, the densify bench, the chaos drill) and the autotuner
+(`tune_cli`: plan, measure, fit, report).  The JAX package's other
+CLIs wait with ROADMAP A2 (`pcache_cli`, `mem_cli`).
 
 The CLIs run on the card, as the reference's `paddle` CLIs do with
 `--use_gpu=1`; `--use_gpu=0` runs them on the CPU."""

@@ -35,11 +35,10 @@ falls back with its reason and measures no comm.  A real master lease
 store carries span windows + the NTP-style clock exchange (a
 ClockResponder with 0.5s injected skew is recovered and the merged
 trace re-bases by it, validating as a Chrome trace); the drift
-calibration blob is written and read back; and `perf_cli gate
---comm-tolerance` passes ±2% exposed-comm noise while failing an
-injected 20% regression.  The JAX selftest also fits the blob into a
-comm coefficient with `tune.fit`, which comes with ROADMAP A9's slice
-23: the selftest prints a line saying that this leg waits with it.
+calibration blob is written, read back through `tune.fit` and fitted
+into the comm coefficient (same platform class only; a wrong-kind blob
+refused); and `perf_cli gate --comm-tolerance` passes ±2% exposed-comm
+noise while failing an injected 20% regression.
 """
 
 import argparse
@@ -438,9 +437,10 @@ def _selftest_own_place(device):
 
 
 def _selftest_calibration(workdir, bucket_report):
-    """Leg 3: the drift blob, written and read back; its fit into a
-    comm coefficient waits with tune/ (ROADMAP A9, slice 23)."""
+    """Leg 3: drift blob -> tune.fit comm coefficient, same-class
+    only."""
     from ..obs import comm as obs_comm
+    from ..tune import fit as tune_fit
 
     blob = obs_comm.calibration_blob(
         bucket_report, platform_class=bucket_report["platform_class"],
@@ -450,14 +450,36 @@ def _selftest_calibration(workdir, bucket_report):
                for p in blob["pairs"]), blob
     cal_path = os.path.join(workdir, "comm_cal.json")
     obs_comm.save_calibration(blob, cal_path)
-    with open(cal_path) as f:
-        assert json.load(f) == blob
-    print("[pcomm] calibration -> tune.fit comm coefficient: waits with "
-          "tune/ (ROADMAP A9, slice 23); the blob (%d pair(s), "
-          "comm_ratio %.3f, %s) is written and read back"
-          % (blob["n"], blob["comm_ratio"], blob["platform_class"]),
-          flush=True)
-    return blob
+    pairs = tune_fit.load_comm_calibration(cal_path)
+    assert len(pairs) == blob["n"] \
+        and pairs[0]["platform_class"] == blob["platform_class"]
+    cal = tune_fit.fit_calibration([], comm_pairs=pairs)
+    assert abs(cal.coef["comm"] - blob["comm_ratio"]) < 1e-9, \
+        (cal.coef, blob["comm_ratio"])
+    # same-platform-class discipline: training on a DIFFERENT class
+    # keeps the analytic prior instead of ingesting these pairs
+    foreign = [{"leg": "ptune:x", "measured_s": 0.1,
+                "meas_compute_s": 0.08, "overhead_s": 0.01,
+                "platform_class": "tpu:d8:dp=8"}]
+    cal2 = tune_fit.fit_calibration(foreign, comm_pairs=pairs)
+    assert cal2.coef["comm"] == 1.0, cal2.coef
+    assert "kept analytic" in cal2.note, cal2.note
+    # a wrong-kind blob must be refused, not silently skipped
+    bad_path = os.path.join(workdir, "not_comm.json")
+    with open(bad_path, "w") as f:
+        json.dump({"kind": tune_fit.MEM_CALIBRATION_KIND,
+                   "pairs": []}, f)
+    try:
+        tune_fit.load_comm_calibration(bad_path)
+        raise AssertionError("wrong-kind blob loaded")
+    except ValueError:
+        pass
+    print("[pcomm] calibration -> tune.fit comm coefficient %.6g (the "
+          "blob's comm_ratio %.6g over %d pair(s), %s); a foreign class "
+          "keeps the analytic prior; a wrong-kind blob is refused"
+          % (cal.coef["comm"], blob["comm_ratio"], blob["n"],
+             blob["platform_class"]), flush=True)
+    return blob, cal
 
 
 def _selftest_merge(workdir):
@@ -621,7 +643,7 @@ def selftest(args):
         rep, bucket_report, n = _selftest_spans_and_overlap(workdir)
         loss, reason = _selftest_own_place(
             "cuda" if args.use_gpu else "cpu")
-        blob = _selftest_calibration(workdir, bucket_report)
+        blob, cal = _selftest_calibration(workdir, bucket_report)
         n_hosts, off, n_events = _selftest_merge(workdir)
         gate_why = _selftest_gate(workdir)
     finally:
@@ -631,14 +653,15 @@ def selftest(args):
           "order on %d gloo ranks, overlap split step %.2fms = compute "
           "%.2fms + exposed %.2fms (efficiency %.0f%%); at the %s a "
           "world of one trains (loss %.4f) and falls back (%s); "
-          "calibration %d pair(s) written; %d host window(s) merged on "
+          "calibration %d pair(s) fitted to comm coef %.4g; %d host "
+          "window(s) merged on "
           "a common timebase (%d events, recovered skew %.3fs); comm "
           "gate discriminates: %s"
           % (len(bucket_report["buckets"]), n, rep["step_s"] * 1e3,
              rep["compute_s"] * 1e3, rep["exposed_s"] * 1e3,
              rep["overlap_efficiency"] * 100,
              "card" if args.use_gpu else "CPU", loss, reason, blob["n"],
-             n_hosts, n_events, off, gate_why),
+             cal.coef["comm"], n_hosts, n_events, off, gate_why),
           flush=True)
     return 0
 

@@ -25,9 +25,8 @@ round-trip with a stable fingerprint, a REAL SpmdTrainer step driven
 by the plan at the place `--use_gpu` names, and a sharded checkpoint
 save -> restore into a fresh trainer with nothing densified.
 
-The models are the autotuner's image models (the JAX package's
-`tune/models.py`, which comes with slice 23), built here by a private
-copy of its build function.
+The models are the autotuner's image models, built through
+`tune.models` (the port's one copy of the builder).
 """
 
 import argparse
@@ -36,18 +35,7 @@ import sys
 import tempfile
 
 from . import cli_place, use_gpu_arg
-
-# channels / default image size / default class count per model (the
-# JAX package's tune/models.py MODELS)
-MODELS = {
-    "lenet5": dict(channels=1, image_size=28, class_dim=10),
-    "smallnet": dict(channels=3, image_size=32, class_dim=10),
-    "alexnet": dict(channels=3, image_size=224, class_dim=1000),
-    "vgg16": dict(channels=3, image_size=224, class_dim=1000),
-    "vgg19": dict(channels=3, image_size=224, class_dim=1000),
-    "googlenet": dict(channels=3, image_size=224, class_dim=1000),
-    "resnet50": dict(channels=3, image_size=224, class_dim=1000),
-}
+from ..tune.models import MODELS, builder
 
 
 def parse_args(argv=None):
@@ -80,47 +68,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _build_program(model, batch):
-    """(main, startup, loss name) of `model`'s training program at
-    `batch`: concrete feed shapes (so the sharding analyzer sees the
-    real batch dim), softmax_with_cross_entropy -> mean,
-    Momentum(0.01, 0.9), as the JAX package's tune/models.py builds it."""
-    from .. import fluid
-    from .. import models as model_zoo
-
-    if model not in MODELS:
-        raise ValueError("unknown model %r; pshard knows %s"
-                         % (model, ", ".join(sorted(MODELS))))
-    spec = MODELS[model]
-    fn = {"lenet5": model_zoo.lenet5,
-          "smallnet": model_zoo.smallnet_mnist_cifar,
-          "alexnet": model_zoo.alexnet,
-          "vgg16": model_zoo.vgg16,
-          "vgg19": model_zoo.vgg19,
-          "googlenet": model_zoo.googlenet,
-          "resnet50": model_zoo.resnet50}[model]
-    size = spec["image_size"]
-    main, startup = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, startup):
-        image = fluid.layers.data(
-            name="image", shape=[batch, spec["channels"], size, size],
-            dtype="float32", append_batch_size=False)
-        logits = fn(image, class_dim=spec["class_dim"])
-        label = fluid.layers.data(
-            name="label", shape=[batch, 1], dtype="int64",
-            append_batch_size=False)
-        loss = fluid.layers.softmax_with_cross_entropy(logits, label)
-        avg_loss = fluid.layers.mean(loss)
-        fluid.optimizer.MomentumOptimizer(
-            learning_rate=0.01, momentum=0.9).minimize(avg_loss)
-    return main, startup, avg_loss.name
-
-
 def cmd_plan(args):
     from ..parallel.mesh import parse_mesh_spec
     from ..spmd.plan import build_partition_plan, load_rules
 
-    main, _startup, loss_name = _build_program(args.model, args.batch)
+    main, _startup, loss_name = builder(
+        args.model, with_startup=True)(args.batch)
     mesh = parse_mesh_spec(args.mesh)
     rules = load_rules(args.rules) if args.rules else None
     # print the findings instead of raising: the CLI is the review
@@ -182,7 +135,7 @@ def selftest(args):
           == (None, None))
 
     # 2. plan build on a static mesh (no card), rules change layout
-    main, startup, loss_name = _build_program("lenet5", 32)
+    main, startup, loss_name = builder("lenet5", with_startup=True)(32)
     mesh = parse_mesh_spec("dp=2,mp=2")
     base = build_partition_plan(main, mesh, ["image", "label"],
                                 [loss_name], model="lenet5")
@@ -217,7 +170,8 @@ def selftest(args):
         mesh = make_mesh(device="cuda" if args.use_gpu else "cpu")
         n = mesh.size()
         batch = 4 * n
-        main, startup, loss_name = _build_program("lenet5", batch)
+        main, startup, loss_name = builder("lenet5",
+                                                   with_startup=True)(batch)
         trainer = SpmdTrainer(main, startup, ["image", "label"],
                               [loss_name], mesh, model="lenet5",
                               use_pcache=False)

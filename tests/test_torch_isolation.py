@@ -91,7 +91,12 @@ def test_every_port_module_is_scanned():
                 ("spmd", "checkpoint.py"), ("spmd", "bench.py"),
                 ("resilience", "elastic.py"), ("distributed", "ranks.py"),
                 ("tools", "comm_cli.py"), ("tools", "fleet_cli.py"),
-                ("tools", "elastic_cli.py")):
+                ("tools", "elastic_cli.py"),
+                # A9's last part: the autotuner and its CLI
+                ("tune", "__init__.py"), ("tune", "models.py"),
+                ("tune", "space.py"), ("tune", "rank.py"),
+                ("tune", "measure.py"), ("tune", "fit.py"),
+                ("tune", "leg.py"), ("tools", "tune_cli.py")):
         assert os.path.join("paddle_tpu_torch", *new) in rel
     v2 = sorted(os.path.basename(p) for p in rel
                 if os.path.dirname(p) == os.path.join("paddle_tpu_torch",
@@ -206,6 +211,20 @@ def test_clis_refuse_the_cpu_unless_asked(tmp_path):
     assert trainer_cli.parse_args(["--config=c", "--use_gpu=false"]) \
         .use_gpu is False
     assert trainer_cli.parse_args(["--config=c"]).use_gpu is True
+
+
+def test_tune_import_leaves_jax_unloaded():
+    """The autotuner, its measurement leg and its CLI."""
+    code = ("import sys, paddle_tpu_torch.tune, "
+            "paddle_tpu_torch.tune.leg, "
+            "paddle_tpu_torch.tools.tune_cli; "
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_perf_load_capi_import_leaves_jax_unloaded():

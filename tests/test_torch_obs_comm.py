@@ -17,8 +17,9 @@ in-process half) against the JAX package's, on the CPU.
   and its gauges published; a dp 2 x mp 2 trainer's report is refused
   without an `exposed_s`.
 - `drift_report` and `calibration_blob` on one bucket report through
-  both packages, equal; the blob's file read by the JAX package's
-  `tune.fit.load_comm_calibration` with its platform-class discipline.
+  both packages, equal; the blob's file read by the port's
+  `tune.fit.load_comm_calibration` and the JAX package's alike, with
+  their platform-class discipline.
 - The cross-host half's names and key prefixes equal the JAX module's
   (its cases are in tests/test_torch_obs_fleet.py).
 """
@@ -35,11 +36,12 @@ from paddle_tpu.obs import registry as jregistry
 from paddle_tpu.obs import trace as jtrace
 from paddle_tpu.parallel import make_mesh as jmake_mesh
 from paddle_tpu.spmd import SpmdTrainer as JSpmd
-from paddle_tpu.tune import fit as tune_fit
+from paddle_tpu.tune import fit as jfit
 
 from paddle_tpu_torch.obs import comm as obs_comm
 from paddle_tpu_torch.obs import registry as obs_registry
 from paddle_tpu_torch.obs import trace as obs_trace
+from paddle_tpu_torch.tune import fit as tune_fit
 
 import torch_parallel_cases as pcases
 import torch_spmd_cases as cases
@@ -318,14 +320,19 @@ def test_calibration_blob_roundtrip_and_class_discipline(tmp_path):
     with open(path) as f:
         assert json.load(f) == blob
     pairs = tune_fit.load_comm_calibration(path)
+    assert pairs == jfit.load_comm_calibration(path)
     assert len(pairs) == 2 and pairs[0]["leg"].endswith("bucket0")
     assert tune_fit.fit_calibration(
         [], comm_pairs=pairs).coef["comm"] == pytest.approx(2.5)
+    assert tune_fit.fit_calibration([], comm_pairs=pairs).to_dict() == \
+        jfit.fit_calibration([], comm_pairs=pairs).to_dict()
     foreign = [{"leg": "ptune:x", "measured_s": 0.1,
                 "meas_compute_s": 0.08, "overhead_s": 0.01,
                 "platform_class": "cpu:d8:dp=8"}]
     cal = tune_fit.fit_calibration(foreign, comm_pairs=pairs)
     assert cal.coef["comm"] == 1.0 and "kept analytic" in cal.note
+    assert cal.to_dict() == \
+        jfit.fit_calibration(foreign, comm_pairs=pairs).to_dict()
     assert obs_comm.calibration_blob({"buckets": []}) is None
     assert obs_comm.calibration_blob(None, platform_class="x") is None
     # without a class, this process's: no group up, no card here

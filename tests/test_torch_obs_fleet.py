@@ -23,8 +23,9 @@ against the JAX package's, on the CPU.
   gloo ranks (one spawn through `torch_ranks`) and at a world of one,
   where the overlapped step falls back with its reason;
   `comm_cli --selftest --use_gpu=0` (its own spawn of 4 ranks; its
-  calibration leg's fit waits with `tune/`, ROADMAP A9 slice 23, and it
-  says so); `fleet_cli --push` and `--aggregate` against the JAX CLI's
+  calibration leg fits the comm coefficient through the port's own
+  `tune.fit` and prints it); `fleet_cli --push` and `--aggregate`
+  against the JAX CLI's
   view of one master; the launcher's `print_fleet_view`.
 """
 
@@ -32,6 +33,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import time
 
 import numpy as np
@@ -432,7 +434,13 @@ def test_comm_cli_report_at_a_world_of_one(capsys):
 def test_comm_cli_selftest_on_the_cpu(capsys):
     assert comm_cli.main(["--selftest", "--use_gpu=0"]) == 0
     out = capsys.readouterr().out
-    assert "waits with tune/ (ROADMAP A9, slice 23)" in out
+    assert re.search(r"\[pcomm\] calibration -> tune\.fit comm coefficient "
+                     r"(\S+) \(the blob's comm_ratio (\S+) over", out)
+    coef, ratio = re.search(r"comm coefficient (\S+) \(the blob's "
+                            r"comm_ratio (\S+) over", out).groups()
+    assert float(coef) == float(ratio) > 0
+    assert "a foreign class keeps the analytic prior; a wrong-kind blob " \
+        "is refused" in out
     assert "[pcomm] selftest green" in out and "4 gloo ranks" in out
 
 

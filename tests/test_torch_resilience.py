@@ -656,3 +656,47 @@ def test_chaos_cli_custom_faults(tmp_path, fresh):
         "--ckpt-dir", str(tmp_path / "ck")]) == 0
     with pytest.raises(SystemExit):
         chaos_cli._parse_fault_specs("nokind")
+
+
+def _voting_saver(tmp, sgd):
+    """A world of one whose saver has `agree`, as a sharded saver does:
+    each vote is counted and returns the flags as given."""
+    from paddle_tpu_torch.fluid.checkpoint import CheckpointSaver
+
+    class VotingSaver(CheckpointSaver):
+        votes = 0
+
+        def agree(self, *flags):
+            self.votes += 1
+            return flags
+
+    return VotingSaver(str(tmp), main_program=sgd._main_program)
+
+
+@pytest.mark.parametrize("kind,point,after", [
+    (None, None, None),
+    ("preempt", "supervisor/step", 3),
+    ("nonfinite", "supervisor/step", 4),
+    ("io_error", "reader/pump", 4),
+    ("io_error", "supervisor/step", 5)])
+def test_agreed_world_of_one_matches_the_clean_run(tmp_path, fresh, kind,
+                                                   point, after):
+    """The agreed path (the sharded saver's votes) in a world of one runs
+    as the unagreed path: the same restarts, losses and parameters, and
+    a fault-free step takes 3 votes (its start, its loss, its saves)."""
+    clean = _clean(tmp_path)
+    reader = None
+    if kind is not None:
+        faults.enable(seed=0)
+        faults.inject(point, kind, after=after, times=1)
+        if point == "reader/pump":
+            reader = host_prefetch(_reader_fn(_batches()), depth=2)
+    sgd = _build_sgd()
+    saver = _voting_saver(tmp_path / "vote", sgd)
+    out, losses, params = _supervise(tmp_path, sgd, "vote", reader=reader,
+                                     saver=saver)
+    assert out == {"steps": 12, "epochs": 2,
+                   "restarts": 0 if kind is None else 1}
+    _assert_same_run((losses, params), clean)
+    if kind is None:
+        assert saver.votes == 3 * 12

@@ -28,16 +28,20 @@ the CPU.
   blob's fields and values (its `device_peak_bytes` waits with
   ROADMAP A2 in the port, and the JAX package's CPU backend reports
   none); `spmd.bench.run_leg` at dp 4 gives tests/test_spmd.py's record
-  schema, and its history line is one the JAX package's
-  `tune.fit.join_comm_history` joins (the port's own `tune.fit` comes
-  with ROADMAP A9's slice 23).
+  schema, and its history line is one the port's
+  `tune.fit.join_comm_history` joins as the JAX package's does.
 - In a second spawn of 4 gloo ranks, `attach_supervisor(...).run()`
   decides its saves on every rank at once: a wall-clock interval that
   comes due on one rank a step before the others, and SIGTERM sent to
   one rank only, give every rank the same snapshots at the same steps,
   and the run equals the unsupervised one (ROADMAP C11: each rank read
   its own clock and its own signal, and a rank that saved alone met the
-  others' step collectives with its checkpoint's).
+  others' step collectives with its checkpoint's).  In the same spawn a
+  retryable fault on one rank only (an io_error at `supervisor/step` on
+  rank 1, a reader IOError on rank 2, an injected nonfinite on rank 3)
+  restarts every rank from the same snapshot, and the run again equals
+  the unsupervised one (ROADMAP C12: the faulted rank restored alone
+  while the others waited in their next step's collectives).
 """
 
 import json
@@ -361,7 +365,9 @@ def test_measure_densify_restore_blob_equals_jax(ranks, tmp_path):
 
 
 def test_bench_record_schema_at_dp4(ranks):
-    from paddle_tpu.tune import fit as tune_fit
+    from paddle_tpu.tune import fit as jfit
+
+    from paddle_tpu_torch.tune import fit as tune_fit
 
     rec, lines = _result(ranks, "bench")
     assert rec["unit"] == "img/s" and rec["value"] > 0
@@ -374,9 +380,11 @@ def test_bench_record_schema_at_dp4(ranks):
     assert comm["step_mode"] == rec["config"]["step_mode"] == "gspmd"
     (line,) = lines
     assert line["platform_class"] == rec["platform_class"]
-    # the record is one the JAX package's fit joins (the port's own
-    # tune.fit comes with ROADMAP A9's slice 23)
-    assert tune_fit.join_comm_history([line])
+    # the record is one the port's fit joins as the JAX package's does
+    pairs = tune_fit.join_comm_history([line])
+    assert pairs and pairs == jfit.join_comm_history([line])
+    assert tune_fit.fit_calibration([], comm_pairs=pairs).to_dict() == \
+        jfit.fit_calibration([], comm_pairs=pairs).to_dict()
 
 
 def test_supervisor_meta_needs_no_shared_temporary(world_one, tmp_path):
@@ -396,6 +404,9 @@ def test_supervisor_meta_needs_no_shared_temporary(world_one, tmp_path):
 
 
 SUPERVISED_STEPS = 8
+# (case, fault kind at `supervisor/step`, the one rank it fires on, step)
+STEP_FAULTS = (("step_io_error", "io_error", 1, 5),
+               ("step_nonfinite", "nonfinite", 3, 7))
 
 
 @pytest.fixture(scope="module")
@@ -410,6 +421,11 @@ def supervised(jax_side, tmp_path_factory):
         "sigterm": (ckcases.supervised_sigterm,
                     (str(d / "sigterm"), init, n)),
     }
+    for name, kind, rank, at in STEP_FAULTS:
+        todo[name] = (ckcases.supervised_step_fault,
+                      (str(d / name), init, n, kind, rank, at))
+    todo["reader_io_error"] = (ckcases.supervised_reader_fault,
+                               (str(d / "reader"), init, n, 2, 3))
     return run_cases(todo, 4, d, timeout=180)
 
 
@@ -430,6 +446,25 @@ def test_sigterm_on_one_rank_preempts_every_rank(supervised):
     everyone, summary, losses, state = _result(supervised, "sigterm")
     expected = [(0, "baseline"), (4, "urgent"), (8, "epoch"), (8, "final")]
     assert everyone == [expected] * 4
+    assert summary == {"steps": 8, "epochs": 1, "restarts": 1}
+    assert losses == straight
+    _assert_same(state, straight_state)
+
+
+@pytest.mark.parametrize("case", ["step_io_error", "reader_io_error",
+                                  "step_nonfinite"])
+def test_fault_on_one_rank_restarts_every_rank(supervised, case):
+    """A retryable fault on one rank of four (ROADMAP C12): an io_error at
+    `supervisor/step` on rank 1, a reader IOError on rank 2, an injected
+    nonfinite on rank 3.  The ranks agree on it at the step boundary, so
+    every rank restores the same snapshot and replays (before the repair
+    the faulted rank restored alone and the others hung in their next
+    step's collectives)."""
+    straight, straight_state = _result(supervised, "straight")
+    everyone, summary, losses, state = _result(supervised, case)
+    made = everyone[0]
+    assert all(m == made for m in everyone), everyone
+    assert made[0] == (0, "baseline") and made[-1] == (8, "final"), made
     assert summary == {"steps": 8, "epochs": 1, "restarts": 1}
     assert losses == straight
     _assert_same(state, straight_state)

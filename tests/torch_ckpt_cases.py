@@ -143,14 +143,16 @@ def straight_run(rank, init, n_steps):
     return _steps(tr, 0, n_steps), _full(tr)
 
 
-def _supervised(rank, root, init, n_steps, after_step, **sup_kw):
-    """`attach_supervisor(...).run` over `n_steps` batches from `init`,
-    `after_step(rank, i)` called after each step of batch i: (every
-    rank's snapshots as [(step, kind), ...], gathered; the run's
-    summary; each step's loss; the final state)."""
+def _supervised(rank, root, init, n_steps, after_step, reader=None,
+                **sup_kw):
+    """`attach_supervisor(...).run` over `n_steps` batches from `init`
+    (`reader`, default `range(n_steps)`), `after_step(rank, i)` called
+    after each step of batch i: (every rank's snapshots as [(step,
+    kind), ...], gathered; the run's summary; each step's loss, the
+    last run of a step replayed after a restore; the final state)."""
     tr = trainer({}, init, 0, zero_stage=1)
     sup = spmd.attach_supervisor(tr, root, max_to_keep=0, **sup_kw)
-    made, losses = [], []
+    made, losses = [], {}
     checkpoint = sup._checkpoint
 
     def recorded(kind):
@@ -164,11 +166,12 @@ def _supervised(rank, root, init, n_steps, after_step, **sup_kw):
         after_step(rank, i)
         return loss
 
-    summary = sup.run(step, lambda: iter(range(n_steps)),
-                      on_step=lambda _step, loss: losses.append(loss))
+    summary = sup.run(step, reader or (lambda: iter(range(n_steps))),
+                      on_step=losses.__setitem__)
     everyone = [None] * dist.get_world_size()
     dist.all_gather_object(everyone, made)
-    return everyone, summary, losses, _full(tr)
+    return everyone, summary, [losses[s] for s in sorted(losses)], \
+        _full(tr)
 
 
 def _rank0_lags(rank, i):
@@ -196,3 +199,41 @@ def supervised_sigterm(rank, root, init, n_steps):
     take the urgent snapshot at step 4, resume from it and finish."""
     return _supervised(rank, root, init, n_steps, _sigterm_rank2,
                        interval_secs=3600.0)
+
+
+def _no_lag(rank, i):
+    pass
+
+
+def supervised_step_fault(rank, root, init, n_steps, kind, fault_rank,
+                          at):
+    """A supervised run (a snapshot every 2 steps) in which the
+    `supervisor/step` fault point fires `kind` ("io_error" or
+    "nonfinite") on `fault_rank` alone, at step `at`: every rank must
+    restore the same snapshot and replay from it."""
+    from paddle_tpu_torch.resilience import faults
+
+    if rank == fault_rank:
+        faults.enable(seed=0)
+        faults.inject("supervisor/step", kind, after=at, times=1)
+    try:
+        return _supervised(rank, root, init, n_steps, _no_lag,
+                           interval_secs=3600.0, steps_per_checkpoint=2)
+    finally:
+        faults.disable()
+
+
+def supervised_reader_fault(rank, root, init, n_steps, fault_rank, at):
+    """A supervised run (a snapshot every 2 steps) whose reader raises an
+    IOError on `fault_rank` alone, once, in place of batch `at`."""
+    failed = []
+
+    def reader():
+        for i in range(n_steps):
+            if rank == fault_rank and i == at and not failed:
+                failed.append(i)
+                raise IOError("reader fault on rank %d" % rank)
+            yield i
+
+    return _supervised(rank, root, init, n_steps, _no_lag, reader=reader,
+                       interval_secs=3600.0, steps_per_checkpoint=2)
