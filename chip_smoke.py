@@ -337,9 +337,10 @@ no result line:
      (d) examples/dist_pserver_fit_a_line.py's flow through
      tools/cluster_launch.launch: 2 pserver processes and 2 trainer
      processes (this script re-entered with TRAINING_ROLE=TRAINER) on
-     the one card in sync mode, static and then elastic (a master,
-     leases, discover_pservers): both trainers exit 0 with parameters
-     equal bit for bit.  Every process it starts is stopped.
+     the one card in sync mode, static and elastic (a master, leases,
+     discover_pservers) at once, beside (a)-(c): both trainers exit 0
+     with parameters equal bit for bit.  Every process it starts is
+     stopped.
   18. cli: the user entry points.  (a) `serve_cli.main` in-process on
      the main thread at its default place, serving phase 4's full-width
      transformer export (rebuilt from the seed): 3 concurrent POST
@@ -487,12 +488,14 @@ no result line:
      shrink and, when the replacement registers, one grow in the
      survivor's history, restores shard-exact, finite losses.
   25. tune: the autotuner.  (a) `tune_cli --selftest` as a process, its
-     two measurement legs (lenet5) on the card.  (b) ResNet-50 at its
-     published widths (224 x 224, 1,000 classes, Momentum(0.01, 0.9))
-     planned by `tune_cli plan` for 8 cards of 80 GB under bf16 AMP over
-     8 candidates (4 meshes x micro-batches 1, 2 at batch 256, pipeline
-     none), with rank's host seconds; the top-2 measured on the card,
-     each as a child process running its per-device slice
+     two measurement legs (lenet5) on the card; under main() its
+     planning runs beside phases 22-23 and its legs before phase 24.
+     (b) ResNet-50 at its published widths (224 x 224, 1,000 classes,
+     Momentum(0.01, 0.9)) planned by `tune_cli plan` for 8 cards of 80
+     GB under bf16 AMP over 8 candidates (4 meshes x micro-batches 1, 2
+     at batch 256, pipeline none), with rank's host seconds; the top-2
+     measured on the card, each as a child process running its
+     per-device slice
      (`tune.measure.measure_plan`), each one's predicted and measured
      step ms; `tune_cli fit` over those records (the error before and
      after), solved here again: the two points independent, the fit
@@ -502,6 +505,11 @@ no result line:
      finite losses, `gpu:` platform classes, the fit's error not risen,
      and no flash launch counted in any leg's process (25a's and
      25b's, each counting its own).
+Under main() the full-width references on the CPU plain path (phases 5,
+7, 14c, 15c and 16b) run in a process of their own, which sees no card,
+beside the card's phases; each one's check runs once every phase has
+run, before the result lines.  Run alone, a phase checks its references
+in place.
 The kernels line lists each route of the flash kernel with its launches
 over every main path, and the numbers of its first case in phase 3.
 The last line is {"ok": true, "device": {...}}.
@@ -512,6 +520,7 @@ whole script prints its time on the line before the card's.
 
 import collections
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -935,11 +944,33 @@ def sass_opcodes(library):
 
 
 def phase_build():
+    from paddle_tpu_torch import native
     from paddle_tpu_torch.kernels import _build
 
-    seconds = _build.build_all()
-    print("build: %d kernel libraries in %.1f s"
-          % (len(_build.SOURCES), seconds), flush=True)
+    # the native runtime (phase 17) and the C inference API (21e) build
+    # with make beside nvcc
+    built = {}
+
+    def build_native():
+        try:
+            t0 = time.perf_counter()
+            native.lib()
+            native.build_capi()
+            built["seconds"] = time.perf_counter() - t0
+        except BaseException as exc:  # raised again below
+            built["error"] = exc
+
+    th = threading.Thread(target=build_native)
+    th.start()
+    try:
+        seconds = _build.build_all()
+    finally:
+        th.join()
+    if "error" in built:
+        raise built["error"]
+    print("build: %d kernel libraries in %.1f s; beside them the native "
+          "runtime and the C inference API in %.1f s"
+          % (len(_build.SOURCES), seconds, built["seconds"]), flush=True)
     for name in _build.SOURCES:
         log = _build.build_log(name) or "(already built)"
         print("build %s:\n%s" % (name, log.strip()), flush=True)
@@ -1285,7 +1316,9 @@ def phase_slice():
         try:
             t0 = time.perf_counter()
             server.start()
-            forwards += len(BUCKETS)
+            # the engine's warmup runs each bucket twice: the executor
+            # warms its segments up, then captures them
+            forwards += 2 * len(BUCKETS)
             print("slice: server up with warmup of %d buckets in %.2f s"
                   % (len(BUCKETS), time.perf_counter() - t0), flush=True)
             if fa_fwd.launches != 6 * forwards:
@@ -1404,8 +1437,28 @@ def kernel_family(name):
     return "other"
 
 
+@contextlib.contextmanager
+def eager_runs():
+    """Every Executor.run inside runs with eager=True: a profile by op
+    type needs the per-op ranges an eager run opens, which a replayed
+    CUDA graph has not."""
+    from paddle_tpu_torch.fluid.executor import Executor
+
+    run = Executor.run
+
+    def eager(self, *args, **kwargs):
+        kwargs["eager"] = True
+        return run(self, *args, **kwargs)
+
+    Executor.run = eager
+    try:
+        yield
+    finally:
+        Executor.run = run
+
+
 def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
-                 what="one training step", strict=True):
+                 what="one training step", strict=True, eager=True):
     """Device time of one step (`what`) by kernel, from torch.profiler's
     CUDA activity, with the busy share of the profiled window and of the
     unprofiled step (`step_ms`); and by op type, from the executor's
@@ -1419,7 +1472,10 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
     flash launches in it; else a fresh session tries again, and the
     shares are reported as not measured (None is returned), unless
     `strict` is False: then the last attempt's numbers are reported and
-    returned with "complete" False.  Returns {"busy_ms", "wall_ms",
+    returned with "complete" False.  With `eager` (the default) the
+    executor runs the step eagerly (`eager_runs`), since a replayed
+    graph opens no op ranges; eager=False profiles the replay, by
+    kernel only.  Returns {"busy_ms", "wall_ms",
     "launches", "complete", "families": {family: device ms}, "flash":
     (the flash kernel's device ms, its launches), "ops": {op type:
     (device ms, host ms, ops)}}."""
@@ -1430,7 +1486,8 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
+                     acc_events=True) as prof, \
+                eager_runs() if eager else contextlib.nullcontext():
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
@@ -1504,6 +1561,174 @@ def run_from_state(executor, main, loss, state, feeds):
         time.perf_counter() - t0
 
 
+def run_fetch(executor, main, fetch, state, feed):
+    """(the fetched values, seconds): one run of `main` on `feed` from
+    `state` in a fresh scope on the executor's device."""
+    from paddle_tpu_torch.fluid import Scope, io
+
+    s = Scope()
+    io.params_from_numpy(s, state, executor.device)
+    t0 = time.perf_counter()
+    outs = executor.run(main, feed=feed, fetch_list=fetch, scope=s)
+    return outs, time.perf_counter() - t0
+
+
+# -- the plain CPU path's reference steps, beside the card's phases ---------
+#
+# The full-width references (phases 5, 7, 14c, 15c, 16b: about 120 s of
+# CPU time) run in a process of their own while this process goes on with
+# the card's phases; each check runs here once its reference is in
+
+# the reference process's torch threads, so that the card's process keeps
+# cores of its own for its host work
+CPU_REF_THREADS = 4
+# the longest wait for one reference once every phase has run
+CPU_REF_TIMEOUT_S = 600
+
+_CPU_REF = None
+
+
+def _cpu_job(name, args, flag_values):
+    """The reference job `name` (a function of this module, called with an
+    Executor on the CPU and `args`) under the port's flags `flag_values`."""
+    from paddle_tpu_torch.fluid import CPUPlace, Executor
+    from paddle_tpu_torch.utils import flags
+
+    saved = {k: flags.get_flag(k) for k in flag_values}
+    for k, v in flag_values.items():
+        flags.set_flag(k, v)
+    try:
+        return globals()[name](Executor(CPUPlace()), *args)
+    finally:
+        for k, v in saved.items():
+            flags.set_flag(k, v)
+
+
+def _cpu_ref_main(jobs, results):
+    """The reference process: each job's (True, result) or (False, its
+    traceback), in the order given, until None."""
+    import pickle
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(CPU_REF_THREADS)
+    while True:
+        payload = jobs.get()
+        if payload is None:
+            return
+        try:
+            out = (True, _cpu_job(*pickle.loads(payload)))
+        except BaseException:  # noqa: BLE001 — reported by settle()
+            out = (False, traceback.format_exc()[-3000:])
+        results.put(out)
+
+
+def _portable(value):
+    """`value`, a Program made what the executor runs of it (its desc and
+    random seed): the layers that built a Program may leave on it what
+    does not pickle."""
+    from paddle_tpu_torch.fluid.framework import Program
+
+    if not isinstance(value, Program):
+        return value
+    program = Program.from_desc(value.desc)
+    program.random_seed = value.random_seed
+    return program
+
+
+class CpuReference:
+    """A spawned process that sees no card and runs the reference jobs one
+    at a time; `settle` takes their results in order and runs each job's
+    check here."""
+
+    def __init__(self):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self._jobs, self._results = ctx.Queue(), ctx.Queue()
+        self._pending = []
+        # the child inherits the environment at its start; this process's
+        # CUDA has read it already
+        hidden = os.environ.get("CUDA_VISIBLE_DEVICES")
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+        try:
+            self._proc = ctx.Process(target=_cpu_ref_main,
+                                     args=(self._jobs, self._results),
+                                     daemon=True)
+            self._proc.start()
+        finally:
+            if hidden is None:
+                del os.environ["CUDA_VISIBLE_DEVICES"]
+            else:
+                os.environ["CUDA_VISIBLE_DEVICES"] = hidden
+
+    def submit(self, tag, fn, args, check, flag_values=None):
+        """Queue `fn(Executor(CPUPlace()), *args)`; `check(its result)`
+        runs at `settle`.  The arguments are pickled now, so the caller
+        may go on changing them."""
+        import pickle
+
+        args = tuple(_portable(a) for a in args)
+        self._jobs.put(pickle.dumps((fn.__name__, args, flag_values or {}),
+                                    protocol=pickle.HIGHEST_PROTOCOL))
+        self._pending.append((tag, check))
+
+    def settle(self):
+        """Each job's result in turn, and its check."""
+        import queue
+
+        while self._pending:
+            tag, check = self._pending.pop(0)
+            deadline = time.monotonic() + CPU_REF_TIMEOUT_S
+            while True:
+                try:
+                    ok, value = self._results.get(timeout=5)
+                    break
+                except queue.Empty:
+                    if not self._proc.is_alive():
+                        raise SystemExit("chip_smoke: the CPU reference "
+                                         "process exited %s before %s"
+                                         % (self._proc.exitcode, tag))
+                    if time.monotonic() > deadline:
+                        raise SystemExit("chip_smoke: no CPU reference of "
+                                         "%s within %d s"
+                                         % (tag, CPU_REF_TIMEOUT_S))
+            if not ok:
+                raise SystemExit("chip_smoke: the CPU reference of %s "
+                                 "failed:\n%s" % (tag, value))
+            check(value)
+
+    def close(self):
+        """Stop the process, whatever it is doing; a job it never read
+        does not hold this process's exit."""
+        for q in (self._jobs, self._results):
+            q.cancel_join_thread()
+            q.close()
+        self._proc.terminate()
+        self._proc.join(timeout=30)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join()
+
+
+def cpu_reference(tag, fn, args, check, flag_values=None):
+    """`check(fn(Executor(CPUPlace()), *args))`: beside the card's phases
+    when main() runs the reference process, else here and now (a phase
+    run alone)."""
+    if _CPU_REF is not None:
+        _CPU_REF.submit(tag, fn, args, check, flag_values)
+    else:
+        check(_cpu_job(fn.__name__, args, flag_values or {}))
+
+
+def fetch_name(var):
+    """The name the executor fetches `var` by (a Variable's, or a name)."""
+    from paddle_tpu_torch.fluid.framework import Variable
+
+    return var.name if isinstance(var, Variable) else var
+
+
 def state_errors(got, ref, bases):
     """{name: largest difference, less STATE_ULPS ulps of the largest
     entry (the rounding of stored values), over the largest entry of the
@@ -1542,8 +1767,7 @@ def phase_train():
     against the port's plain CPU path; returns the launch counts of those
     3 steps."""
     import torch
-    from paddle_tpu_torch.fluid import (CPUPlace, Executor,
-                                        MomentumOptimizer, Scope)
+    from paddle_tpu_torch.fluid import Executor, MomentumOptimizer, Scope
     from paddle_tpu_torch.models import transformer_program as tp
 
     t0 = time.perf_counter()
@@ -1592,6 +1816,28 @@ def phase_train():
                          % (launches["flash_attention_fwd"], TRAIN_STEPS,
                             per_step))
     after = {n: scope.get(n).cpu().numpy() for n in persist}
+    if not (all(np.isfinite(v).all() for v in after.values())
+            and all(np.isfinite(card))):
+        raise SystemExit("chip_smoke: training on the card left nonfinite "
+                         "values")
+    bases = dict({n: init[n] for n in params},
+                 **{n + "_velocity_0": 0.0 for n in params})
+
+    # the same steps from the same state through the plain CPU path
+    def check(result):
+        cpu, cpu_state, cpu_s = result
+        print("train: the same %d steps on the CPU plain path in %.1f s, "
+              "losses %s" % (TRAIN_STEPS, cpu_s,
+                             ", ".join("%.6f" % x for x in cpu)), flush=True)
+        errs = state_errors(after, cpu_state, bases)
+        report("train", "card against CPU", card, cpu, errs, STATE_RTOL)
+        loss_err = max(abs(a - b) for a, b in zip(card, cpu))
+        if loss_err > LOSS_ATOL or max(errs.values()) > STATE_RTOL:
+            raise SystemExit("chip_smoke: training on the card disagrees "
+                             "with the CPU plain path (loss atol %g, state "
+                             "rtol %g)" % (LOSS_ATOL, STATE_RTOL))
+
+    cpu_reference("train", run_from_state, (main, loss, init, feeds), check)
 
     # the step's time on the card, feeds already there (training goes on
     # in `scope`; the state after the 3 steps is kept above)
@@ -1610,29 +1856,11 @@ def phase_train():
              BATCH * SEQ / med * 1e3), flush=True)
     profile_step(step, op_types, per_step, med)
 
-    bases = dict({n: init[n] for n in params},
-                 **{n + "_velocity_0": 0.0 for n in params})
     # the card against itself from the same state: the floor that its
     # nondeterminism (the embedding grads' atomic adds) leaves
     again, again_state, _ = run_from_state(exe, main, loss, init, feeds)
     report("train", "card against the card again", card, again,
            state_errors(again_state, after, bases), STATE_RTOL)
-    # the same steps from the same state through the plain CPU path
-    cpu, cpu_state, cpu_s = run_from_state(Executor(CPUPlace()), main,
-                                           loss, init, feeds)
-    print("train: the same %d steps on the CPU plain path in %.1f s, "
-          "losses %s" % (TRAIN_STEPS, cpu_s,
-                         ", ".join("%.6f" % x for x in cpu)), flush=True)
-    errs = state_errors(after, cpu_state, bases)
-    report("train", "card against CPU", card, cpu, errs, STATE_RTOL)
-    loss_err = max(abs(a - b) for a, b in zip(card, cpu))
-    finite = all(np.isfinite(v).all() for v in after.values()) \
-        and all(np.isfinite(card))
-    if loss_err > LOSS_ATOL or max(errs.values()) > STATE_RTOL \
-            or not finite:
-        raise SystemExit("chip_smoke: training on the card disagrees with "
-                         "the CPU plain path (loss atol %g, state rtol %g)"
-                         % (LOSS_ATOL, STATE_RTOL))
     return launches
 
 
@@ -2069,28 +2297,35 @@ def phase_decode():
     print("decode: %d Adam steps (lr %g) on the card in %.2f s, losses %s"
           % (TRAIN_STEPS, ADAM_LR, time.perf_counter() - t0,
              ", ".join("%.6f" % x for x in card)), flush=True)
-    (cpu_loss,), cpu1, cpu_s = run_from_state(
-        fluid.Executor(fluid.CPUPlace()), main, loss, init, feeds[:1])
-    errs = {"parameters": change_rl2(after1, cpu1, init, params),
-            "moment1": change_rl2(after1, cpu1, init,
-                                  [n + "_moment1_0" for n in params]),
-            "moment2": change_rl2(after1, cpu1, init,
-                                  [n + "_moment2_0" for n in params])}
-    pows = max(abs(float(after1[n][0]) - float(cpu1[n][0]))
-               for n in ("beta1_pow_acc_0", "beta2_pow_acc_0"))
-    print("decode: Adam step 1 on the card against the CPU plain path "
-          "(%.1f s): loss max_abs_err %.3g (atol %g); the step's change, "
-          "relative L2 error: %s (parameters %g, moments %g); beta powers "
-          "%.3g" % (cpu_s, abs(card[0] - cpu_loss), LOSS_ATOL,
-                    ", ".join("%s %.3g" % kv for kv in errs.items()),
-                    ADAM_PARAM_RL2, ADAM_MOMENT_RL2, pows), flush=True)
-    if abs(card[0] - cpu_loss) > LOSS_ATOL \
-            or errs["parameters"] > ADAM_PARAM_RL2 \
-            or max(errs["moment1"], errs["moment2"]) > ADAM_MOMENT_RL2 \
-            or pows > 1e-7 or not np.isfinite(card).all():
-        raise SystemExit("chip_smoke: the Adam step on the card disagrees "
-                         "with the CPU plain path")
-    del init, after1, cpu1
+    if not np.isfinite(card).all():
+        raise SystemExit("chip_smoke: the Adam steps on the card gave "
+                         "nonfinite losses %s" % card)
+
+    def check(result):
+        (cpu_loss,), cpu1, cpu_s = result
+        errs = {"parameters": change_rl2(after1, cpu1, init, params),
+                "moment1": change_rl2(after1, cpu1, init,
+                                      [n + "_moment1_0" for n in params]),
+                "moment2": change_rl2(after1, cpu1, init,
+                                      [n + "_moment2_0" for n in params])}
+        pows = max(abs(float(after1[n][0]) - float(cpu1[n][0]))
+                   for n in ("beta1_pow_acc_0", "beta2_pow_acc_0"))
+        print("decode: Adam step 1 on the card against the CPU plain path "
+              "(%.1f s): loss max_abs_err %.3g (atol %g); the step's "
+              "change, relative L2 error: %s (parameters %g, moments %g); "
+              "beta powers %.3g"
+              % (cpu_s, abs(card[0] - cpu_loss), LOSS_ATOL,
+                 ", ".join("%s %.3g" % kv for kv in errs.items()),
+                 ADAM_PARAM_RL2, ADAM_MOMENT_RL2, pows), flush=True)
+        if abs(card[0] - cpu_loss) > LOSS_ATOL \
+                or errs["parameters"] > ADAM_PARAM_RL2 \
+                or max(errs["moment1"], errs["moment2"]) > ADAM_MOMENT_RL2 \
+                or pows > 1e-7:
+            raise SystemExit("chip_smoke: the Adam step on the card "
+                             "disagrees with the CPU plain path")
+
+    cpu_reference("decode", run_from_state, (main, loss, init, feeds[:1]),
+                  check)
 
     # the full forward: the training program's test clone, on the card
     fwd_main, _, _, fwd_logits = tp.build_transformer_program(
@@ -3037,8 +3272,10 @@ def phase_sequence():
     infer = io.prune_program(main, [probs])
     scope = fluid.Scope()
     io.params_from_numpy(scope, trained, exe.device)
-    exe.run(infer, feed=dev_feed, fetch_list=[probs], scope=scope,
-            return_numpy=False)
+    # the warm-up and the capture: the checked forward replays
+    for _ in range(2):
+        exe.run(infer, feed=dev_feed, fetch_list=[probs], scope=scope,
+                return_numpy=False)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3968,8 +4205,10 @@ def phase_seq2seq():
     # one training step with synchronizing calls made errors
     scope = params_scope(cpu_state, exe.device)
     dev_feed = s2s_feed(fvars, batches[0], exe.device)
-    exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
-            return_numpy=False)
+    # the warm-up and the capture: the checked step replays
+    for _ in range(2):
+        exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -6450,27 +6689,35 @@ def nmt_train(exe, smi):
         "source_language_word", "target_language_word",
         "target_language_next_word")]
     cpu_feeds = book_feeds(main, fvars, batches)
-    cpu, cpu_state, csecs = run_from_state(
-        fluid.Executor(fluid.CPUPlace()), main, cost, init, cpu_feeds[:2])
-    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(card, cpu))
+    if not all(np.isfinite(v).all() for v in after.values()):
+        raise SystemExit("chip_smoke: the NMT steps on the card left "
+                         "nonfinite state")
     groups = {"parameters": pnames,
               "moments": [n for n in persist if "_moment" in n]}
-    errs = {g: change_rl2(after, cpu_state, init, names)
-            for g, names in groups.items()}
-    print("v2: NMT 2 Adam steps at batch %d (%d and %d target rows) from "
-          "one state: v2 SGD.train on the card (%.1f s) costs %s; the CPU "
-          "plain path (%.1f s) %s; loss error %.3g of its size (gate %g); "
-          "the steps' change, relative L2 error: %s (gate %g); hand-written "
-          "kernel launches %s"
-          % (NMT_BATCH, rows[0], rows[1], gsecs, ", ".join(
-              "%.6f" % c for c in card), csecs, ", ".join(
-              "%.6f" % c for c in cpu), loss_err, NMT_LOSS_RTOL, ", ".join(
-              "%s %.3g" % kv for kv in errs.items()), NMT_CHANGE_RL2,
-             json.dumps(launches)), flush=True)
-    if loss_err > NMT_LOSS_RTOL or max(errs.values()) > NMT_CHANGE_RL2 \
-            or not all(np.isfinite(v).all() for v in after.values()):
-        raise SystemExit("chip_smoke: the NMT steps on the card disagree "
-                         "with the CPU plain path")
+    costs = list(card)
+
+    def check(result):
+        cpu, cpu_state, csecs = result
+        loss_err = max(abs(a - b) / max(1.0, abs(b))
+                       for a, b in zip(costs, cpu))
+        errs = {g: change_rl2(after, cpu_state, init, names)
+                for g, names in groups.items()}
+        print("v2: NMT 2 Adam steps at batch %d (%d and %d target rows) "
+              "from one state: v2 SGD.train on the card (%.1f s) costs %s; "
+              "the CPU plain path (%.1f s) %s; loss error %.3g of its size "
+              "(gate %g); the steps' change, relative L2 error: %s (gate "
+              "%g); hand-written kernel launches %s"
+              % (NMT_BATCH, rows[0], rows[1], gsecs, ", ".join(
+                  "%.6f" % c for c in costs), csecs, ", ".join(
+                  "%.6f" % c for c in cpu), loss_err, NMT_LOSS_RTOL,
+                 ", ".join("%s %.3g" % kv for kv in errs.items()),
+                 NMT_CHANGE_RL2, json.dumps(launches)), flush=True)
+        if loss_err > NMT_LOSS_RTOL or max(errs.values()) > NMT_CHANGE_RL2:
+            raise SystemExit("chip_smoke: the NMT steps on the card "
+                             "disagree with the CPU plain path")
+
+    cpu_reference("v2 NMT", run_from_state,
+                  (main, fetch_name(cost), init, cpu_feeds[:2]), check)
 
     dev_feeds = book_feeds(main, fvars, batches, exe.device)
     state = {n: torch.from_numpy(v).to(exe.device) for n, v in init.items()}
@@ -7190,39 +7437,46 @@ def stack_run(exe, main, fetch, state, feeds):
 def stack_check(exe, main, fetch, init, feeds, groups, tag,
                 clip_norm=STACK_CLIP):
     """The steps of `feeds` on the card (launches counted from 0 just
-    before) against the CPU plain path from `init`, gated; returns (the
-    card's [[loss, lr, norm]], the launches)."""
-    import paddle_tpu_torch.fluid as fluid
-
-    cpu, cpu_state, csecs = stack_run(fluid.Executor(fluid.CPUPlace()),
-                                      main, fetch, init, feeds)
+    before) against the CPU plain path from `init`, gated once the
+    reference is in (`cpu_reference`); returns (the card's [[loss, lr,
+    norm]], the launches)."""
     reset_launches()
     card, card_state, gsecs = stack_run(exe, main, fetch, init, feeds)
     launches = read_launches()
-    loss_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card, cpu))
-    norm_err = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(card, cpu))
-    lr_same = all(a[1] == b[1] for a, b in zip(card, cpu))
-    errs = {g: change_rl2(card_state, cpu_state, init, names)
-            for g, names in groups.items()}
-    gates = {g: ADAM_PARAM_RL2 if g == "parameters" else ADAM_MOMENT_RL2
-             for g in groups}
-    print("stack: %s: %d Adam steps from one state: CPU plain path (%.1f "
-          "s) loss, lr, global norm %s; card (%.1f s) %s; loss error %.3g "
-          "of its size (gate %g), global norm %.3g (gate %g), learning "
-          "rates %s; the steps' change, relative L2 error: %s; the clip "
-          "bound in %d of %d steps (norm above the clip_norm)"
-          % (tag, len(feeds), csecs, json.dumps(cpu), gsecs,
-             json.dumps(card), loss_err, STACK_LOSS_RTOL, norm_err,
-             STACK_NORM_RTOL, "equal" if lr_same else "DIFFER",
-             ", ".join("%s %.3g (gate %g)" % (g, e, gates[g])
-                       for g, e in errs.items()),
-             sum(1 for c in card if c[2] > clip_norm), len(card)),
-          flush=True)
-    if not (loss_err <= STACK_LOSS_RTOL and norm_err <= STACK_NORM_RTOL
-            and lr_same and all(errs[g] <= gates[g] for g in errs)) \
-            or not all(np.isfinite(v).all() for v in card_state.values()):
-        raise SystemExit("chip_smoke: %s: the steps on the card disagree "
-                         "with the CPU plain path" % tag)
+    if not all(np.isfinite(v).all() for v in card_state.values()):
+        raise SystemExit("chip_smoke: %s: the steps on the card left "
+                         "nonfinite state" % tag)
+
+    def check(result):
+        cpu, cpu_state, csecs = result
+        loss_err = max(abs(a[0] - b[0]) / abs(b[0])
+                       for a, b in zip(card, cpu))
+        norm_err = max(abs(a[2] - b[2]) / abs(b[2])
+                       for a, b in zip(card, cpu))
+        lr_same = all(a[1] == b[1] for a, b in zip(card, cpu))
+        errs = {g: change_rl2(card_state, cpu_state, init, names)
+                for g, names in groups.items()}
+        gates = {g: ADAM_PARAM_RL2 if g == "parameters" else ADAM_MOMENT_RL2
+                 for g in groups}
+        print("stack: %s: %d Adam steps from one state: CPU plain path "
+              "(%.1f s) loss, lr, global norm %s; card (%.1f s) %s; loss "
+              "error %.3g of its size (gate %g), global norm %.3g (gate %g), "
+              "learning rates %s; the steps' change, relative L2 error: %s; "
+              "the clip bound in %d of %d steps (norm above the clip_norm)"
+              % (tag, len(feeds), csecs, json.dumps(cpu), gsecs,
+                 json.dumps(card), loss_err, STACK_LOSS_RTOL, norm_err,
+                 STACK_NORM_RTOL, "equal" if lr_same else "DIFFER",
+                 ", ".join("%s %.3g (gate %g)" % (g, e, gates[g])
+                           for g, e in errs.items()),
+                 sum(1 for c in card if c[2] > clip_norm), len(card)),
+              flush=True)
+        if not (loss_err <= STACK_LOSS_RTOL and norm_err <= STACK_NORM_RTOL
+                and lr_same and all(errs[g] <= gates[g] for g in errs)):
+            raise SystemExit("chip_smoke: %s: the steps on the card "
+                             "disagree with the CPU plain path" % tag)
+
+    cpu_reference(tag, stack_run,
+                  (main, [fetch_name(f) for f in fetch], init, feeds), check)
     return card, launches
 
 
@@ -7646,17 +7900,6 @@ def obs_amp(exe, smi):
         raise SystemExit("chip_smoke: the flight bundle lacks what it must "
                          "hold")
 
-    # the first step again on the CPU plain path, from the same state
-    cpu_scope = params_scope(init, "cpu")
-    cpu_mon = copy.copy(mon)
-    cpu_mon.loss_scaler = LossScaler()
-    t0 = time.perf_counter()
-    with fluid.amp.bf16_guard():
-        cpu_outs = fluid.Executor(fluid.CPUPlace()).run(
-            main, feed=feeds[0], fetch_list=fetch, scope=cpu_scope)
-    cpu = cpu_mon.record(cpu_outs[1:])
-    cpu_s = time.perf_counter() - t0
-    del cpu_scope
     # the card against itself from the state with every f32 value moved
     # by about one ulp: how far the bf16 step's rounding alone moves the
     # norm
@@ -7673,30 +7916,46 @@ def obs_amp(exe, smi):
     card = summaries[0]
     nudge_err = abs(card["grad_global_norm"] - nudge["grad_global_norm"]) \
         / card["grad_global_norm"]
-    norm_err = abs(card["grad_global_norm"] - cpu["grad_global_norm"]) \
-        / cpu["grad_global_norm"]
-    cost_err = abs(card["max_abs"][loss] - cpu["max_abs"][loss])
-    print("obs: 16b %d monitored AMP steps on the card: losses' max-abs "
-          "%s, grad global norms %s, nonfinite %d, loss scale %s; the first "
-          "on the CPU plain path (%.1f s): max-abs %.6f, norm %.6f, "
-          "nonfinite %d, scale %g; card against CPU: cost %.3g (atol %g), "
-          "norm %.3g of its size (gate %g); the card from the state moved "
-          "by one ulp: norm %.3g of its size"
-          % (OBS_STEPS, ", ".join("%.6f" % s["max_abs"][loss]
-                                  for s in summaries),
-             ", ".join("%.6f" % s["grad_global_norm"] for s in summaries),
-             sum(sum(s["nonfinite"].values()) for s in summaries),
-             scales, cpu_s, cpu["max_abs"][loss], cpu["grad_global_norm"],
-             sum(cpu["nonfinite"].values()), cpu["loss_scale"], cost_err,
-             OBS_AMP_LOSS_ATOL, norm_err, OBS_NORM_RTOL, nudge_err),
-          flush=True)
     if any(s["found_nonfinite"] for s in summaries) \
-            or cpu["nonfinite"] != card["nonfinite"] \
-            or norm_err > OBS_NORM_RTOL or cost_err > OBS_AMP_LOSS_ATOL \
-            or cpu["loss_scale"] != scales[0] \
             or scales != [2.0 ** 15] * OBS_STEPS:
-        raise SystemExit("chip_smoke: the monitored AMP steps disagree "
-                         "with the CPU plain path")
+        raise SystemExit("chip_smoke: the monitored AMP steps found "
+                         "nonfinite values or moved the loss scale: %s"
+                         % scales)
+
+    # the first step again on the CPU plain path, from the same state
+    cpu_mon = copy.copy(mon)
+    cpu_mon.loss_scaler = LossScaler()
+
+    def check(result):
+        cpu_outs, cpu_s = result
+        cpu = cpu_mon.record(cpu_outs[1:])
+        norm_err = abs(card["grad_global_norm"] - cpu["grad_global_norm"]) \
+            / cpu["grad_global_norm"]
+        cost_err = abs(card["max_abs"][loss] - cpu["max_abs"][loss])
+        print("obs: 16b %d monitored AMP steps on the card: losses' max-abs "
+              "%s, grad global norms %s, nonfinite %d, loss scale %s; the "
+              "first on the CPU plain path (%.1f s): max-abs %.6f, norm "
+              "%.6f, nonfinite %d, scale %g; card against CPU: cost %.3g "
+              "(atol %g), norm %.3g of its size (gate %g); the card from "
+              "the state moved by one ulp: norm %.3g of its size"
+              % (OBS_STEPS, ", ".join("%.6f" % s["max_abs"][loss]
+                                      for s in summaries),
+                 ", ".join("%.6f" % s["grad_global_norm"]
+                           for s in summaries),
+                 sum(sum(s["nonfinite"].values()) for s in summaries),
+                 scales, cpu_s, cpu["max_abs"][loss],
+                 cpu["grad_global_norm"], sum(cpu["nonfinite"].values()),
+                 cpu["loss_scale"], cost_err, OBS_AMP_LOSS_ATOL, norm_err,
+                 OBS_NORM_RTOL, nudge_err), flush=True)
+        if cpu["nonfinite"] != card["nonfinite"] \
+                or norm_err > OBS_NORM_RTOL or cost_err > OBS_AMP_LOSS_ATOL \
+                or cpu["loss_scale"] != scales[0]:
+            raise SystemExit("chip_smoke: the monitored AMP steps disagree "
+                             "with the CPU plain path")
+
+    cpu_reference("16b", run_fetch,
+                  (main, [fetch_name(f) for f in fetch], init, feeds[0]),
+                  check, {"amp_bf16": True})
 
     # what each surface costs: the step with the monitor and without,
     # with FLAGS_check_nan_inf, with fluid.profiler's table
@@ -7714,7 +7973,9 @@ def obs_amp(exe, smi):
                         ("with", monitored), ("without", unmonitored)):
             times[tag] += timed_steps(fn, runs=5, warm=1)
         table = io_mod.StringIO()
-        with contextlib.redirect_stdout(table), profiler.profiler():
+        # the per-op table needs eager runs: a replay records no op
+        with contextlib.redirect_stdout(table), profiler.profiler(), \
+                eager_runs():
             times["profiler"] = timed_steps(unmonitored, runs=5, warm=1)
         records = profiler.get_profile_records()
         flags.set_flag("check_nan_inf", True)
@@ -8747,15 +9008,8 @@ def phase_pserver():
     print("pserver: native runtime %s (built or loaded in %.1f s)"
           % (native.library_path(), time.perf_counter() - t0), flush=True)
     smi = nvidia_smi_line()
-    ctr_launches = pserver_example()
-    pserver_big(smi)
-    import torch
-
-    torch.cuda.empty_cache()
-    transformer_launches = pserver_transformer(smi)
-    torch.cuda.empty_cache()
-    # 17d's static and elastic launches run at once: their servers,
-    # trainers, ports and output directories are their own
+    # 17d's static and elastic launches run at once, beside 17a-c: their
+    # servers, trainers, ports and output directories are their own
     errors = []
 
     def launch(elastic):
@@ -8768,8 +9022,17 @@ def phase_pserver():
                for e in (False, True)]
     for th in threads:
         th.start()
-    for th in threads:
-        th.join()
+    try:
+        ctr_launches = pserver_example()
+        pserver_big(smi)
+        import torch
+
+        torch.cuda.empty_cache()
+        transformer_launches = pserver_transformer(smi)
+        torch.cuda.empty_cache()
+    finally:
+        for th in threads:
+            th.join()
     if errors:
         raise errors[0]
     print("pserver: phase 17 in %.1f s" % (time.perf_counter() - t0),
@@ -9196,21 +9459,39 @@ def _cli_processes(runs):
 
 def _start_cli_processes(runs):
     """`_cli_processes`' start: the processes, running beside the
-    caller's next work until `_finish_cli_processes`."""
+    caller's next work until `_finish_cli_processes`.  Their output goes
+    to files, so that none waits on a full pipe meanwhile."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
-    return time.perf_counter(), [
-        (subprocess.Popen([sys.executable, "-m"] + args, cwd=root, env=env,
-                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                          text=True), tag)
-        for args, tag in runs]
+    t0, procs = time.perf_counter(), []
+    for args, tag in runs:
+        out = tempfile.TemporaryFile(mode="w+")
+        err = tempfile.TemporaryFile(mode="w+")
+        proc = subprocess.Popen([sys.executable, "-m"] + args, cwd=root,
+                                env=env, stdout=out, stderr=err, text=True)
+        proc.outputs = (out, err)
+        procs.append((proc, tag))
+    return t0, procs
+
+
+def _cli_outputs(proc):
+    """(stdout, stderr) of a finished `_start_cli_processes` process; its
+    files are closed."""
+    texts = []
+    for f in proc.outputs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return tuple(texts)
 
 
 def _kill_cli_processes(started):
     """Stop `_start_cli_processes`' processes (the caller's work failed)."""
     for proc, _ in started[1]:
         proc.kill()
-        proc.communicate()
+        proc.wait()
+        for f in proc.outputs:
+            f.close()
 
 
 def _finish_cli_processes(started):
@@ -9218,13 +9499,18 @@ def _finish_cli_processes(started):
     the green lines."""
     t0, procs = started
     try:
-        outs = [(proc.communicate(timeout=CLI_TIMEOUT_S), proc.returncode,
-                 tag, time.perf_counter() - t0) for proc, tag in procs]
+        outs = []
+        for proc, tag in procs:
+            code = proc.wait(timeout=CLI_TIMEOUT_S)
+            outs.append((_cli_outputs(proc), code, tag,
+                         time.perf_counter() - t0))
     finally:
         for proc, _ in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+            for f in proc.outputs:
+                f.close()
     lines = []
     for (stdout, stderr), code, tag, seconds in outs:
         if code != 0:
@@ -12933,11 +13219,18 @@ def tune_fit_check(cal, pairs):
     return "median ratio (solved %r, %r)" % (a, b)
 
 
-def phase_tune():
+# 25a: the autotuner's selftest, processes of their own
+TUNE_SELFTEST = [(["paddle_tpu_torch.tools.tune_cli", "--selftest"],
+                  "tune_cli --selftest")]
+
+
+def phase_tune(green=None):
     """Phase 25: the autotuner's selftest on the card, then ResNet-50's
     launch plan for 8 cards ranked, its top-2 measured on the card,
     fitted and re-ranked; returns the phase's launch counts, summed over
-    the legs' processes, each of which counts its own."""
+    the legs' processes, each of which counts its own.  `green`: 25a's
+    green line where main() ran the selftest beside earlier phases (its
+    legs are small), else it runs here, beside 25b's plan."""
     import shutil
 
     from paddle_tpu_torch.obs import perf as obs_perf
@@ -12962,11 +13255,8 @@ def phase_tune():
                                           torch.cuda.memory_allocated() / 2**30),
           flush=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_tune_")
-    # 25a's planning runs on the host beside 25b's; its legs are done
-    # before 25b's legs start
-    selftest = _start_cli_processes(
-        [(["paddle_tpu_torch.tools.tune_cli", "--selftest"],
-          "tune_cli --selftest")])
+    # 25a's legs are done before 25b's legs start
+    selftest = None if green else _start_cli_processes(TUNE_SELFTEST)
     try:
         plan, rank_s = tune_plan(os.path.join(work, "plan.json"))
         n = len(plan["ranked"]) + len(plan["rejected"])
@@ -12980,16 +13270,20 @@ def phase_tune():
             raise SystemExit("chip_smoke: the plan holds %d candidates, %d "
                              "ranked" % (n, len(plan["ranked"])))
     except BaseException:
-        _kill_cli_processes(selftest)
+        if selftest is not None:
+            _kill_cli_processes(selftest)
         raise
     try:
-        (green,) = _finish_cli_processes(selftest)
+        if selftest is not None:
+            (green,) = _finish_cli_processes(selftest)
         launches = _selftest_launches(green, names)
         t1 = time.perf_counter()
         history = os.path.join(work, "history.jsonl")
+        # 2 untimed steps: the executor warms a step up on its first
+        # run and captures it on its second, so the timed steps replay
         results = tune_measure.measure_plan(
             plan, topk=TUNE_TOPK, history=history, iters=TUNE_ITERS,
-            warmup=1, timeout=TUNE_TIMEOUT_S,
+            warmup=2, timeout=TUNE_TIMEOUT_S,
             echo=lambda msg: print("tune: " + msg, flush=True))
         t2 = time.perf_counter()
         for r in results:
@@ -13057,10 +13351,493 @@ def phase_tune():
                              "prediction unchanged" % top)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print("tune: 25a %.1f s beside the plan, 25b's legs %.1f s, phase 25 "
-          "%.1f s (%s); the legs' kernel launches %s"
-          % (t1 - t0, t2 - t1, time.perf_counter() - t0, smi,
+    print("tune: 25a %s, 25b's legs %.1f s, phase 25 %.1f s (%s); the "
+          "legs' kernel launches %s"
+          % ("%.1f s beside the plan" % (t1 - t0) if selftest
+             else "before phase 24", t2 - t1,
+             time.perf_counter() - t0, smi,
              json.dumps(launches, sort_keys=True)), flush=True)
+    return launches
+
+
+# -- phase 26: captured segments, donation, the captured decode loop --------
+
+GRAPH_STEPS = 5        # 26a: eager steps against replayed steps
+GRAPH_MODE_STEPS = 3   # 26b, 26e: warm-up, capture and replay, per mode
+GRAPH_REQUESTS = 16    # 26d: one-row requests timed per mode
+GRAPH_DROPOUT = (64, 1024, 0.5)   # 26a: rows, width, dropout_prob
+
+
+def graphs_copy_in(scope, state):
+    """`state` ({name: tensor}) into the scope's own tensors, in place:
+    their addresses, which a captured graph reads, stay."""
+    for n, t in state.items():
+        scope.get(n).copy_(t)
+
+
+def graphs_scope(state):
+    """A fresh Scope holding copies of `state` ({name: tensor})."""
+    from paddle_tpu_torch.fluid import Scope
+
+    scope = Scope()
+    for n, t in state.items():
+        scope.set(n, t.clone())
+    return scope
+
+
+def graphs_plan(exe):
+    """(segments, capturable segments, {label: donated names}) of the
+    program the executor planned last."""
+    compiled = list(exe._cache.values())[-1][2]
+    plan = compiled._plan
+    return len(plan), sum(1 for seg in plan if seg["capture"]), \
+        {seg["label"]: seg["donate"] for seg in plan if seg["capture"]}
+
+
+def graphs_differ(a, b):
+    """The names whose tensors differ bit for bit between two states."""
+    return [n for n in a if not same_bits(a[n], b[n])]
+
+
+def graphs_dropout(smi):
+    """26a's dropout check: a program of fc, dropout 0.5 and SGD, from
+    one state and one seeded stream, 4 eager runs against 4 default runs
+    (warm-up, capture, two replays): each replay's kept activations
+    equal the eager run's bit for bit, and the two replays' masks
+    differ."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+
+    rows, width, prob = GRAPH_DROPOUT
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[width], dtype="float32")
+        h = fluid.layers.fc(input=x, size=width)
+        d = fluid.layers.dropout(h, dropout_prob=prob)
+        cost = fluid.layers.mean(x=d)
+        fluid.optimizer.SGD(learning_rate=0.01).minimize(cost)
+    init_scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=init_scope)
+    persist = [n for n, v in main.desc.block(0).vars.items()
+               if v.persistable and init_scope.get(n) is not None]
+    init = {n: init_scope.get(n).clone() for n in persist}
+    feed = {"x": torch.randn(rows, width, device=exe.device,
+                             generator=torch.Generator(exe.device)
+                             .manual_seed(SEED + 261))}
+    outs = {}
+    for eager in (True, False):
+        exe = fluid.Executor(seed=SEED + 262)
+        scope = graphs_scope(init)
+        outs[eager] = [exe.run(main, feed=feed, fetch_list=[d], scope=scope,
+                               return_numpy=False, eager=eager)[0]
+                       for _ in range(4)]
+        if not eager:
+            captures, replays = exe.captures, exe.replays
+    equal = all(same_bits(a, b) for a, b in zip(outs[True], outs[False]))
+    masks = [(o != 0) for o in outs[False]]
+    fresh = not torch.equal(masks[2], masks[3])
+    kept = [float(m.float().mean()) for m in masks]
+    print("graphs: 26a dropout %g over [%d, %d] (%s): 4 eager runs "
+          "against 4 runs (the warm-up, %d capture, %d replays) from one "
+          "state and stream: equal bit for bit %s; the last two runs' "
+          "masks differ %s; kept shares %s"
+          % (prob, rows, width, smi, captures, replays, equal, fresh,
+             ", ".join("%.4f" % k for k in kept)), flush=True)
+    if not equal or not fresh or captures != 1:
+        raise SystemExit("chip_smoke: replayed dropout repeats or "
+                         "disagrees with the eager runs")
+
+
+def graphs_transformer(smi):
+    """26a and 26b: the full-width transformer with Adam from one state,
+    GRAPH_STEPS eager steps against as many replayed ones, then the
+    three donation modes.  Returns (the scope the replayed steps left,
+    the launch counts of the replayed steps)."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.utils import flags
+
+    arch = dict(n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL)
+    main, startup, loss, _ = tp.build_transformer_program(BATCH, SEQ, VOCAB,
+                                                          **arch)
+    fluid.Adam(ADAM_LR).minimize(loss, main, startup)
+    block = main.block(0)
+    op_types = {op.type for op in block.ops}
+    persist = [n for n, v in block.vars.items() if v.persistable]
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).clone() for n in persist}
+    dev = exe.device
+    feeds = [{n: torch.from_numpy(v.astype(np.int32)).to(dev)
+              for n, v in tp.transformer_feeds(
+                  BATCH, SEQ, VOCAB, seed=SEED + 263 + i,
+                  targets=True).items()} for i in range(GRAPH_STEPS)]
+
+    def steps(executor, sc, eager, fs=feeds):
+        return [float(executor.run(main, feed=f, fetch_list=[loss],
+                                   scope=sc, eager=eager)[0][0])
+                for f in fs]
+
+    # the floor: one step from one state, twice
+    differ, n = repeat_step(exe, fluid.Program.from_desc(main), feeds[0],
+                            init)
+    print("graphs: 26a one step run twice from one state: %d of %d grads "
+          "and state tensors differ bit for bit%s"
+          % (len(differ), n, " (%s)" % differ if differ else ""),
+          flush=True)
+    e_scope = graphs_scope(init)
+    e_exe = fluid.Executor()
+    t0 = time.perf_counter()
+    e_losses = steps(e_exe, e_scope, True)
+    e_s = time.perf_counter() - t0
+    g_exe = fluid.Executor()
+    steps(g_exe, scope, False, feeds[:2])   # the warm-up, the capture
+    captures = g_exe.captures
+    n_seg, n_cap, donated = graphs_plan(g_exe)
+    stats = [rec["stats"] for rec in list(g_exe._cache.values())[-1][2]
+             ._records.values()]
+    graphs_copy_in(scope, init)
+    replays = g_exe.replays
+    reset_launches()
+    t0 = time.perf_counter()
+    g_losses = steps(g_exe, scope, False)
+    g_s = time.perf_counter() - t0
+    launches = read_launches()
+    replays = g_exe.replays - replays
+    e_state = {n: e_scope.get(n) for n in persist}
+    g_state = {n: scope.get(n) for n in persist}
+    off = graphs_differ(e_state, g_state)
+    per_step = launches["flash_attention_fwd"] / GRAPH_STEPS
+    print("graphs: 26a %d segments, %d capturable, %d captures (%s); %d "
+          "eager steps (%.2f s) against %d replayed (%.2f s, %d replays): "
+          "losses %s and %s; %d of %d state tensors differ bit for bit; "
+          "flash launches per replayed step %g (%s)"
+          % (n_seg, n_cap, captures, ", ".join(
+              "%.3f s, pool %.3f GB" % (st["seconds"],
+                                        st["pool_bytes"] / 1e9)
+              for st in stats), GRAPH_STEPS, e_s, GRAPH_STEPS, g_s,
+             replays, ", ".join("%.6f" % x for x in e_losses),
+             ", ".join("%.6f" % x for x in g_losses), len(off),
+             len(persist), per_step, smi), flush=True)
+    if captures != n_cap or replays != GRAPH_STEPS * n_cap \
+            or per_step != 2 * N_LAYER:
+        raise SystemExit("chip_smoke: 26a captured %d of %d segments, "
+                         "replayed %d times, %g flash launches a step"
+                         % (captures, n_cap, replays, per_step))
+    if differ:
+        # the step does not repeat bit for bit: the modes agree within
+        # the state tolerance of the card against itself (phase 5)
+        base = {n: init[n].cpu().numpy() for n in persist}
+        errs = state_errors({n: v.cpu().numpy() for n, v in
+                             g_state.items()},
+                            {n: v.cpu().numpy() for n, v in
+                             e_state.items()}, base)
+        worst = max(errs.values())
+        print("graphs: 26a replay against eager: state error worst %.3g "
+              "(rtol %g)" % (worst, STATE_RTOL), flush=True)
+        if worst > STATE_RTOL or max(abs(a - b) for a, b in
+                                     zip(e_losses, g_losses)) > LOSS_ATOL:
+            raise SystemExit("chip_smoke: replayed steps disagree with "
+                             "eager ones")
+    elif off or e_losses != g_losses:
+        raise SystemExit("chip_smoke: replayed steps differ from eager ones "
+                         "bit for bit: %s" % off[:5])
+
+    # each mode's step: wall (median of 5 after 2 warm) and device busy
+    modes = {}
+    for tag, executor, sc, eager in (("eager", e_exe, e_scope, True),
+                                     ("replay", g_exe, scope, False)):
+        def step(executor=executor, sc=sc, eager=eager):
+            return executor.run(main, feed=feeds[0], fetch_list=[loss],
+                                scope=sc, return_numpy=False, eager=eager)
+
+        med = float(np.median(timed_steps(step)))
+        prof = profile_step(step, op_types, 2 * N_LAYER, med, eager=eager,
+                            what="one %s training step" % tag, strict=False)
+        modes[tag] = (med, None, False) if prof is None else \
+            (med, prof["busy_ms"], prof["complete"])
+    print("graphs: 26a step median wall ms (5 after 2 warm) and device "
+          "busy ms: %s (%s)" % (", ".join(
+              "%s %.3f and %s" % (t, m, "not measured" if b is None
+                                  else "%.3f%s" % (b, "" if c else
+                                                   " (an incomplete profile)"))
+              for t, (m, b, c) in modes.items()), smi), flush=True)
+    del e_scope, e_exe
+
+    # 26b: the three donation modes, bit for bit
+    results = {}
+    prev = flags.get_flag("donation")
+    try:
+        for mode in ("off", "conservative", "auto"):
+            flags.set_flag("donation", mode)
+            m_exe = fluid.Executor()
+            m_scope = graphs_scope(init)
+            losses = steps(m_exe, m_scope, False, feeds[:GRAPH_MODE_STEPS])
+            _, _, donate = graphs_plan(m_exe)
+            nbytes = sum(m_scope.get(n).numel()
+                         * m_scope.get(n).element_size()
+                         for names in donate.values() for n in names
+                         if isinstance(m_scope.get(n), torch.Tensor))
+            results[mode] = (losses, {n: m_scope.get(n) for n in persist},
+                             nbytes, m_exe.captures, m_exe.replays)
+            del m_exe, m_scope
+    finally:
+        flags.set_flag("donation", prev)
+    ref_losses, ref_state = results["off"][:2]
+    for mode, (losses, state, nbytes, caps, reps) in results.items():
+        bad = graphs_differ(ref_state, state)
+        print("graphs: 26b FLAGS_donation=%s: %d steps (%d captures, %d "
+              "replays), losses %s, state bytes written in place a step "
+              "%d; against off: %d state tensors differ bit for bit"
+              % (mode, GRAPH_MODE_STEPS, caps, reps,
+                 ", ".join("%.6f" % x for x in losses), nbytes, len(bad)),
+              flush=True)
+        if bad or losses != ref_losses:
+            raise SystemExit("chip_smoke: FLAGS_donation=%s differs from "
+                             "off: %s" % (mode, bad[:5]))
+    return scope, launches
+
+
+def graphs_decode(scope, smi):
+    """26c: phase 7's cached greedy at batch BATCH with a PROMPT_LEN
+    prefill, through one decoder three times: the eager warm-up, the
+    capture, a replay; tokens equal, teacher-forced through the full
+    forward."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import transformer_program as tp
+
+    arch = dict(n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL)
+    d_head = D_MODEL // N_HEAD
+    exe = fluid.Executor()
+    dev = exe.device
+    cached, _, c_logits, pairs = tp.build_transformer_cached_step_program(
+        BATCH, SEQ, VOCAB, **arch)
+    cached = cached.clone(for_test=True)
+    dec = fluid.ProgramDecoder(cached, token_name="tok",
+                               logits_name=c_logits.name, state_pairs=pairs,
+                               scope=scope, max_positions=SEQ)
+
+    def cache_state():
+        st = {"pos": torch.zeros(BATCH, dtype=torch.int32, device=dev)}
+        for i in range(N_LAYER):
+            for kv in "kv":
+                st["%s_cache_%d" % (kv, i)] = torch.zeros(
+                    BATCH, N_HEAD, SEQ, d_head, device=dev)
+        return st
+
+    prompt = np.random.RandomState(SEED + 264).randint(
+        0, VOCAB, (BATCH, PROMPT_LEN)).astype(np.int64)
+    gen_len = SEQ - PROMPT_LEN + 1
+    runs = []
+    for what in ("eager warm-up", "capture", "replay"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, lengths = dec.greedy(bos=0, eos=VOCAB + 1, max_len=gen_len,
+                                   init_state=cache_state(), prompt=prompt)
+        runs.append((what, toks, (time.perf_counter() - t0) * 1e3))
+    equal = all(np.array_equal(runs[0][1], r[1]) for r in runs[1:])
+    fwd_main, _, _, fwd_logits = tp.build_transformer_program(
+        BATCH, SEQ, VOCAB, **arch)
+    fwd = fluid.Program.from_desc(fwd_main).clone(for_test=True)
+    seq = np.concatenate([prompt, runs[2][1][:, :-1]], axis=1)
+    logits = exe.run(fwd, feed={
+        "tokens": seq, "positions": np.tile(np.arange(SEQ, dtype=np.int64),
+                                            (BATCH, 1)),
+        "targets": np.zeros((BATCH, SEQ, 1), np.int64)},
+        fetch_list=[fwd_logits], scope=scope,
+        return_numpy=False)[0][:, PROMPT_LEN - 1:]
+    chosen = torch.from_numpy(runs[2][1].astype(np.int64)).to(dev)
+    gap = (logits.max(-1).values
+           - logits.gather(-1, chosen[:, :, None])[..., 0]).max().item()
+    print("graphs: 26c cached greedy, batch %d, prompt %d, %d tokens: %s "
+          "(%d capture, %d replays); tokens equal across the three %s; "
+          "teacher-forced gap %.3g (atol %g); per-token ms eager %.3f, "
+          "replay %.3f (%s)"
+          % (BATCH, PROMPT_LEN, gen_len, ", ".join(
+              "%s %.1f ms" % (w, ms) for w, _, ms in runs), dec.captures,
+             dec.replays, equal, gap, ARGMAX_ATOL, runs[0][2] / gen_len,
+             runs[2][2] / gen_len, smi), flush=True)
+    # on the card the capture's call replays too; the CPU runs it plain
+    if not equal or gap > ARGMAX_ATOL or dec.captures != 1 \
+            or dec.replays != (2 if dev.type == "cuda" else 1):
+        raise SystemExit("chip_smoke: the captured decode loop disagrees "
+                         "with the eager one")
+
+
+def graphs_serve(smi):
+    """26d: the served transformer export: warmup captures each bucket;
+    replies equal the eager engine's; request p50 in both modes."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import Scope, io
+    from paddle_tpu_torch.models import transformer_program as tp
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    logits = tp.logits_name(N_LAYER)
+    feeds = tp.transformer_feeds(BATCH, SEQ, VOCAB, seed=SEED + 265)
+    with tempfile.TemporaryDirectory() as tmp:
+        prog = tp.build_transformer_inference_program(
+            BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD,
+            d_model=D_MODEL)
+        scope = Scope()
+        io.params_from_numpy(scope, tp.init_transformer_params(
+            prog, seed=SEED), "cpu")
+        io.save_inference_model(tmp, ["tokens", "positions"], [logits],
+                                scope, prog,
+                                bucket_hints={"batch_buckets": BUCKETS})
+        engine = InferenceEngine.from_saved_model(tmp)
+        plain = InferenceEngine.from_saved_model(tmp)
+        engine.warmup()
+        stats = engine.last_warmup_stats
+        desc = getattr(engine.program, "desc", engine.program)
+        n_seg = sum(1 for cap, _ in fluid.executor._segment_block(
+            desc.block(0).ops) if cap)
+        rows = [{n: v[i:i + 1] for n, v in feeds.items()}
+                for i in range(BATCH)]
+        times, outs = {}, {}
+        for tag, eng in (("replay", engine), ("eager", plain)):
+            with eager_runs() if tag == "eager" else \
+                    contextlib.nullcontext():
+                got = [eng.run(feeds)[0]]
+                ms = []
+                for r in rows[:GRAPH_REQUESTS]:
+                    t0 = time.perf_counter()
+                    got.append(eng.run(r)[0])
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            outs[tag], times[tag] = got, float(np.median(ms))
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(outs["replay"], outs["eager"]))
+        print("graphs: 26d the served export: warmup of %d buckets in "
+              "%.2f s, %s captures (%s counted in executor_jit_traces_total,"
+              " %d capturable segment(s) a bucket); %d replies against the "
+              "eager engine's max_abs_err %.3g; one-row request p50 ms: "
+              "replay %.3f, eager %.3f (%s)"
+              % (stats["buckets"], stats["seconds"], stats["captures"],
+                 stats["jit_compiles"], n_seg, len(outs["replay"]), err,
+                 times["replay"], times["eager"], smi), flush=True)
+        # executor_jit_traces_total counts the card's captures only
+        on_card = engine.place.device().type == "cuda"
+        if stats["captures"] != n_seg * len(BUCKETS) or err != 0 \
+                or stats["jit_compiles"] != stats["captures"] * on_card:
+            raise SystemExit("chip_smoke: 26d the served export's "
+                             "captures or replies are off")
+
+
+def graphs_ctr(smi):
+    """26e: the CTR model's SGD step at CTR_BIG_FEATURES: the donated row
+    update alone against the copying one, and GRAPH_MODE_STEPS steps
+    under FLAGS_donation=auto against off from one state: untouched rows
+    keep their bits, the losses equal."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.ragged import SelectedRows
+    from paddle_tpu_torch.ops.registry import get_op_info
+    from paddle_tpu_torch.utils import flags
+
+    main, startup, loss, _, _ = build_ctr(CTR_BIG_FEATURES, "SGD")
+    persist = [n for n, v in main.desc.block(0).vars.items()
+               if v.persistable]
+    exe = fluid.Executor()
+    dev = exe.device
+    init_scope = fluid.Scope()
+    exe.run(startup, scope=init_scope)
+    init = {n: init_scope.get(n).clone() for n in persist
+            if init_scope.get(n) is not None}
+    del init_scope
+    batch = next(ctr_reader(CTR_BIG_FEATURES, seed=SEED + 266))
+    feed = ctr_feed(batch, dev)
+    touched = torch.zeros(CTR_BIG_FEATURES, dtype=torch.bool, device=dev)
+    touched[feed["ids"].reshape(-1).long()] = True
+
+    # the update op alone on the second-order table, copy and in place
+    name = CTR_TABLES[0]
+    table = init[name].clone()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ids = feed["ids"].reshape(-1)
+    values = torch.randn(ids.shape[0], table.shape[1], device=dev,
+                         generator=gen) * 1e-3
+    ins = {"Param": [table], "LearningRate": [torch.full((1,), CTR_LR,
+                                                         device=dev)],
+           "Grad": [SelectedRows(ids, values, CTR_BIG_FEATURES)]}
+    kernel = get_op_info("sgd").kernel
+
+    class Donating:
+        in_place = frozenset({"ParamOut"})
+
+    with torch.no_grad():
+        copy_ms = device_ms(lambda: kernel(None, ins, {}), launches=5,
+                            replays=3)
+        donated_ms = device_ms(lambda: kernel(Donating, ins, {}),
+                               launches=5, replays=3)
+    unique = int(torch.unique(ids).numel())
+    shape = tuple(table.shape)
+    bound = ctr_update_bytes("SGD", {name: shape}, ids.numel(),
+                             unique) / HBM_BYTES_PER_S * 1e3
+    del table, ins, values
+
+    results = {}
+    prev = flags.get_flag("donation")
+    try:
+        for mode in ("off", "auto"):
+            flags.set_flag("donation", mode)
+            m_exe = fluid.Executor()
+            m_scope = graphs_scope(init)
+            losses = [float(m_exe.run(main, feed=feed, fetch_list=[loss],
+                                      scope=m_scope)[0][0])
+                      for _ in range(GRAPH_MODE_STEPS)]
+            kept = all(torch.equal(m_scope.get(t)[~touched],
+                                   init[t][~touched]) for t in CTR_TABLES)
+            # the update ops the captured step writes in place
+            in_place = sum(len(rec["in_place"]) for rec in list(
+                m_exe._cache.values())[-1][2]._records.values())
+            results[mode] = (losses, kept, m_exe.captures, m_exe.replays,
+                             in_place)
+            del m_exe, m_scope
+    finally:
+        flags.set_flag("donation", prev)
+    print("graphs: 26e sgd on the %s table, %d ids (%d distinct): "
+          "donated (in place) %.4f device-ms, copying %.4f, bound by bytes "
+          "%.6f; %d steps under auto: losses %s, untouched rows of both "
+          "tables bit for bit %s (%d captures, %d replays, %d update ops "
+          "writing in place); under off: losses %s (%d ops in place) (%s)"
+          % (list(shape), ids.numel(), unique, donated_ms,
+             copy_ms, bound, GRAPH_MODE_STEPS,
+             ", ".join("%.6f" % x for x in results["auto"][0]),
+             results["auto"][1], results["auto"][2], results["auto"][3],
+             results["auto"][4],
+             ", ".join("%.6f" % x for x in results["off"][0]),
+             results["off"][4], smi), flush=True)
+    if results["auto"][0] != results["off"][0] or not results["auto"][1] \
+            or not results["off"][1] or not results["auto"][4] \
+            or results["off"][4]:
+        raise SystemExit("chip_smoke: 26e the donated CTR step differs from "
+                         "off or touches rows it must not")
+
+
+def phase_graphs():
+    """Phase 26: the executor's captured segments, donation and the
+    captured decode loop (26a-26e); returns the launch counts of 26a's
+    replayed transformer steps."""
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    graphs_dropout(smi)
+    t_a = time.perf_counter()
+    scope, launches = graphs_transformer(smi)
+    t_b = time.perf_counter()
+    graphs_decode(scope, smi)
+    del scope
+    t_c = time.perf_counter()
+    graphs_serve(smi)
+    t_d = time.perf_counter()
+    graphs_ctr(smi)
+    print("graphs: dropout %.1f s, 26a-b %.1f s, 26c %.1f s, 26d %.1f s, "
+          "26e %.1f s; phase 26 took %.1f s"
+          % (t_a - t0, t_b - t_a, t_c - t_b, t_d - t_c,
+             time.perf_counter() - t_d, time.perf_counter() - t0),
+          flush=True)
     return launches
 
 
@@ -13074,6 +13851,7 @@ def params_scope(arrays, device):
 
 
 def main():
+    global _CPU_REF
     import torch
 
     if not torch.cuda.is_available():
@@ -13082,13 +13860,29 @@ def main():
     t_start = time.perf_counter()
     seconds = {}
 
-    def run(phase):
+    def run(phase, *args):
         t0 = time.perf_counter()
-        out = phase()
+        out = phase(*args)
+        # the phase's executors, their captured graphs and pools go
+        gc.collect()
+        torch.cuda.empty_cache()
         seconds[phase.__name__] = time.perf_counter() - t0
         return out
 
     run(phase_device)
+    # the full-width CPU references run beside the card's phases
+    _CPU_REF = CpuReference()
+    try:
+        return _main_phases(run, seconds, t_start)
+    finally:
+        _CPU_REF.close()
+        _CPU_REF = None
+
+
+def _main_phases(run, seconds, t_start):
+    """main()'s phases after the first, its checks and its result lines."""
+    import torch
+
     run(phase_build)
     measured = run(phase_kernels)
     launches = run(phase_slice)
@@ -13110,10 +13904,24 @@ def main():
     ssd_launches = run(phase_ssd)
     analysis_launches = run(phase_analysis)
     perf_launches = run(phase_perf)
-    mesh_launches = run(phase_mesh)
-    spmd_launches = run(phase_spmd)
+    # 25a, the tuner's selftest: its planning processes run beside phases
+    # 22-23; its measured legs, whose fit the load of other work upsets,
+    # run while this process waits
+    selftest = _start_cli_processes(TUNE_SELFTEST)
+    try:
+        mesh_launches = run(phase_mesh)
+        spmd_launches = run(phase_spmd)
+    except BaseException:
+        _kill_cli_processes(selftest)
+        raise
+    (tune_green,) = _finish_cli_processes(selftest)
     elastic_launches = run(phase_elastic)
-    tune_launches = run(phase_tune)
+    tune_launches = run(phase_tune, tune_green)
+    graphs_launches = run(phase_graphs)
+    t0 = time.perf_counter()
+    _CPU_REF.settle()
+    print("chip_smoke: the CPU references' checks %.1f s after the last "
+          "phase" % (time.perf_counter() - t0), flush=True)
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels._build import SOURCES
 
@@ -13145,7 +13953,7 @@ def main():
              ps_transformer_launches[f32], cli_launches[f32],
              analysis_launches[f32], perf_launches[f32],
              mesh_launches[f32], spmd_launches[f32],
-             elastic_launches[f32])
+             elastic_launches[f32], graphs_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
                          "a main path (served, trained, decoded, trained "
@@ -13155,7 +13963,8 @@ def main():
                          "optimized, profiled and served under load, "
                          "trained over the mesh, trained by the "
                          "plan-driven SpmdTrainer, saved and resumed "
-                         "sharded: %s)" % (paths,))
+                         "sharded, trained by graph replay: %s)"
+                         % (paths,))
     kernels = []
     for route in fa.ROUTES:
         name = route_entry(route)
@@ -13166,7 +13975,8 @@ def main():
             v2_launches, stack_launches, obs_amp_launches,
             obs_serve_launches, ps_ctr_launches, ps_transformer_launches,
             cli_launches, ssd_launches, analysis_launches, perf_launches,
-            mesh_launches, spmd_launches, elastic_launches, tune_launches))
+            mesh_launches, spmd_launches, elastic_launches, tune_launches,
+            graphs_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

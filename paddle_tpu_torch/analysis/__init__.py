@@ -13,6 +13,12 @@ layers (each diagnostic code means what it means there):
     device ops, unseeded random ops, AMP dtype mixes, grad orphans
     (L0xx codes).
 
+the donation layer:
+
+  * `alias`     may-alias and last-use donation safety: which buffers
+    each segment of the executor can donate, and why the rest are
+    refused (A0xx codes); the executor's FLAGS_donation plan.
+
 and the sharding layer:
 
   * `shard`     static SPMD analysis: spec propagation against a mesh
@@ -30,8 +36,8 @@ executor's FLAGS_verify_program gate, `fluid.io.load_inference_model`
 (a structural check on load), the serving engine's warmup (the full
 check), the rewrite passes (around each pass) and the
 DistributeTranspiler; the sharding analyzer at the mesh's
-(`FLAGS_verify_sharding`, `lint_cli --mesh`).  The JAX package's `alias`
-pass waits with A2's buffer donation.
+(`FLAGS_verify_sharding`, `lint_cli --mesh`), the donation analysis at
+the executor's planning of a program and `lint_cli --donation`.
 """
 
 from .diagnostics import (Diagnostic, ProgramVerificationError, Report,
@@ -42,12 +48,15 @@ from .verifier import verify_program
 from .shard import (analyze_sharding, check_moe, check_pipeline,
                     check_ring, mesh_axis_sizes, ShardingPlan)
 from .costmodel import CommCostReport
+from .alias import (DonationPlan, analyze_donation, donation_mode,
+                    state_donation)
 
 __all__ = ["Diagnostic", "Severity", "Report", "ProgramVerificationError",
            "Liveness", "verify_program", "analyze_dataflow",
            "lint_program", "check_program", "analyze_sharding",
            "check_pipeline", "check_moe", "check_ring", "mesh_axis_sizes",
-           "ShardingPlan", "CommCostReport"]
+           "ShardingPlan", "CommCostReport", "DonationPlan",
+           "analyze_donation", "donation_mode", "state_donation"]
 
 
 def check_program(program, level="full", fetches=None, bucket_hints=None,

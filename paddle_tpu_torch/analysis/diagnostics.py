@@ -14,7 +14,10 @@ Code families:
   V0xx  structural verification (verifier.py)
   D0xx / H0xx  dataflow: dead code and write/alias hazards (dataflow.py)
   L0xx  lints (lints.py)
-The JAX package's alias pass (A0xx) waits with ROADMAP A2.
+  A0xx  alias and donation safety (alias.py): A001 a forked or absent
+        in-place slot, A002 a read after donation, A003 a fetch of a
+        donatable buffer, A004 an in-place update outside a captured
+        segment, A005 donation on an unsafe backend
 
 Suppressions are strings, matched most-specific-first:
   "H002"              suppress the code everywhere

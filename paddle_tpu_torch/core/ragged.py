@@ -68,8 +68,12 @@ class RaggedTensor:
         if nvalid is None:
             nvalid = (self.row_splits[-1][-1] if self.row_splits
                       else values.shape[0])
+        # a host count is filled in on the device, no host data copied
+        # (a CUDA graph capture allows no such copy)
         self.nvalid = torch.as_tensor(nvalid, dtype=torch.int32,
-                                      device=dev)
+                                      device=dev) \
+            if isinstance(nvalid, torch.Tensor) else \
+            torch.full((), int(nvalid), dtype=torch.int32, device=dev)
         self.max_seqlen = None if max_seqlen is None else int(max_seqlen)
 
     # -- structure ------------------------------------------------------------

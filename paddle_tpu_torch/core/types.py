@@ -111,10 +111,11 @@ def np_dtype(dtype):
 
 
 def tensor_from_numpy(arr, device):
-    """A numpy array as a tensor of its execution dtype on `device`.
-    bfloat16 arrays (ml_dtypes, as the JAX package hands them out) cross
-    by their bits; a read-only array is copied, since the tensor may
-    share its memory."""
+    """A numpy array as a tensor of its execution dtype on `device`,
+    owning its memory: the executor writes a donated scope tensor in
+    place, and the caller's array must keep its values.  bfloat16
+    arrays (ml_dtypes, as the JAX package hands them out) cross by
+    their bits."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         bits = np.array(arr).view(np.uint16)
@@ -123,7 +124,7 @@ def tensor_from_numpy(arr, device):
         arr.astype(exec_dtype(arr.dtype), copy=False))
     if not arr.flags.writeable:
         arr = arr.copy()
-    return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(arr).to(device, copy=True)
 
 
 def guard_int64_narrowing(arr, name="feed"):

@@ -1,30 +1,67 @@
-"""Executor: runs block 0 of a Program op by op, eagerly.
+"""Executor: runs block 0 of a Program, its maximal runs of capturable
+ops as captured CUDA graphs.
 
-Counterpart of paddle_tpu/fluid/executor.py without its jit
-segmentation, buffer donation and compile cache.  Each op's
-kernel comes from the registry and runs on the tensors of the
-executor's place; PyTorch dispatches the work to the card as it goes.
-A grad op `<type>_grad` runs the explicit grad kernel registered for
-`<type>`, or else the generic vjp kernel (ops/registry.py).  Persistable
-outputs (parameters updated by the optimizer ops, everything a startup
-program makes) are written back to the scope after the run.
+Counterpart of paddle_tpu/fluid/executor.py, whose `_CompiledProgram`
+splits block 0 into maximal runs of jittable ops and jits each with
+its updated buffers donated.  Here block 0 splits into maximal runs of
+capturable ops (`OpInfo.capturable`, the JAX mark but where a kernel
+reads the device from the host) and the host ops between them; each
+run (a segment) is captured into a `torch.cuda.CUDAGraph` per input
+signature and replayed (`_CompiledProgram`, fluid/graphs.py).  A
+signature's first run warms it up eagerly, its second captures it,
+later runs copy the feeds into the graph's static inputs and replay.
+The signature is the inputs' shapes, dtypes and structure (a ragged
+feed's `max_seqlen`) and the address of every state tensor the graph
+reads in place from the scope, so a tensor swapped into the scope
+(`io.params_from_numpy`, `io.load_persistables`, `jit.state_to_scope`,
+a supervisor's restore) forces a new, counted capture.  The graphs of a
+program share one memory pool; at most `_CACHE_MAX` programs and, per
+program, signatures are kept, and an eviction is counted
+(`executor_program_cache_evictions_total`) and logged.  The executor's
+random stream is registered with each graph, so a replay draws afresh.
+A capture that fails raises `graphs.CaptureError` naming the segment,
+its first op type and the op that failed; nothing falls back to an
+eager run by itself.  On the CPU nothing is captured: the same
+segments run the same ops against the same static buffers, donation
+and plan (the graph's plain version; `captures` and `replays` count it
+there too, `executor_jit_traces_total` and `executor_graph_replays_total`
+count the card's only).
 
-While torch.profiler records, each op runs in a range named by its
-type, so a profile attributes device time to op types.  While
-`fluid.profiler` or the obs trace is on, each top-level op also runs in
-`profiler.record_event` (a row of the per-op table, a span on the
-trace); while both are off the run asks once and opens nothing.  While
-the obs trace is on, a run is an `executor/run` span (cat "executor")
-around its ops' spans, as on the JAX side.
+Donation (FLAGS_donation, analysis/alias.py): a segment's outputs that
+it also reads (parameters, optimizer state) are written into the scope
+tensor's own storage, so the graph's output is that storage and the
+scope keeps its tensor; an update op whose in-place slot is donated
+writes there itself (ExecContext.in_place, ops/optimizer_ops.py).
+"auto" also gives up the reads the analysis proves dead after their
+segment; "off" donates nothing: the state a segment updates is copied
+into its static inputs and its new value out of the graph, the
+numerics baseline.  Eager runs never donate.
 
-Under `FLAGS_check_nan_inf` every top-level op's float outputs are
-scanned after it runs (reference: executor.cc:29, CheckTensorNANOrInf
-executor.cc:66-77): one read back to the host per output, and the
-first op with a NaN or Inf raises `NonfiniteError` naming the op type,
-its index in block 0, the output slot and var, and the count.  Ops of a
-sub-block run inside their op's kernel and are not scanned, as on the
-JAX side.  An exception from a run reaches `obs.flight.on_crash` with
-the feeds described (shapes and dtypes) before it propagates.
+`run(..., eager=True)` runs every op eagerly from Python, as the port
+ran before and the JAX executor's eager mode does: each op in an
+`op_registry.span` range while torch.profiler records (profiles by op
+type), in `profiler.record_event` while `fluid.profiler` or the obs
+trace is on (a row of the per-op table, a span on the trace).  A
+captured segment has neither; `fluid.profiler` records a row per
+replayed segment.  Host segments always run so.  An eager run drops
+the program's captured graphs first (counted as evictions): a graph
+holds its step's memory, and an eager step beside it would need as
+much again.
+
+Under `FLAGS_check_nan_inf` a run is eager (the JAX jitted path ignores
+the flag; the port's callers rely on it), and every top-level op's
+float outputs are scanned after it runs (reference: executor.cc:29,
+CheckTensorNANOrInf executor.cc:66-77): one read back to the host per
+output, and the first op with a NaN or Inf raises `NonfiniteError`
+naming the op type, its index in block 0, the output slot and var, and
+the count.  Ops of a sub-block run inside their op's kernel and are not
+scanned, as on the JAX side.  An exception from a run reaches
+`obs.flight.on_crash` with the feeds described (shapes and dtypes)
+before it propagates.
+
+Ops with DTensor inputs (`parallel.ParallelTrainer`) run through
+`_run_on_mesh`, eagerly: a segment whose inputs include a DTensor is
+not captured (`executor_eager_segments_total{reason="mesh"}`).
 
 A control-flow kernel runs a sub-block through `ExecContext.run_block`
 (the JAX side lowers the same call into its scan body): the sub-block's
@@ -46,7 +83,9 @@ version, fetch names, spec, AMP flags), the JAX compile cache's key, so
 the pipeline runs once for a program and not on every step
 (`pipeline_runs` counts its runs).  A program's version is the identity
 of its op lists and its count of vars: an appended or removed op or
-var makes another version.
+var makes another version.  The plan is cached by (program, version,
+feeds, fetches, the AMP and batch-norm flags the kernels read, the
+donation mode).
 
 A program without grad ops that writes no persistable runs under
 `torch.inference_mode()` (the served forward); any other runs under
@@ -58,7 +97,12 @@ Telemetry, as on the JAX side (paddle_tpu/fluid/executor.py:921,
 (`obs.telemetry.on_feed_seconds`), each feed the run places on the
 device counts its bytes as h2d and each fetch pulled to the host its
 bytes as d2h (`on_transfer`); a feed already on the device moves
-nothing and counts nothing.
+nothing and counts nothing.  A capture counts in
+`executor_jit_traces_total`, marks a `jit_build` instant with the
+segment's label (`jit_segment[i:a..b xN]`, the JAX label) and publishes
+its seconds and pool bytes (`obs.health.publish_compile_stats`); a
+replay counts in `executor_graph_replays_total` and adds the flash
+kernel's launches its capture recorded (fluid/graphs.py).
 
 Places: `CUDAPlace(device_id)` is the default; `CPUPlace()` must be
 asked for.  A CUDAPlace without a CUDA device raises RuntimeError when
@@ -66,6 +110,8 @@ the executor is made — the port never carries on on the CPU by itself.
 """
 
 import contextlib
+import logging
+import threading
 import time
 from collections import OrderedDict
 
@@ -87,6 +133,8 @@ from ..ops import registry as op_registry
 from ..resilience import faults as faults_mod
 from ..utils import flags
 from . import profiler as profiler_mod
+
+_log = logging.getLogger("paddle_tpu_torch.executor")
 
 EMPTY = "@EMPTY@"
 # the scope entry holding a scope's random stream (a torch.Generator)
@@ -206,6 +254,10 @@ class ExecContext:
         self.place = place
         self.device = device
         self._rng = rng
+        # the output slots the running op may write into its aliased
+        # input's storage: the executor's donation (an update op whose
+        # in-place slot names a donated state tensor), else none
+        self.in_place = frozenset()
 
     def next_rng(self):
         """The torch.Generator on the executor's device that random ops
@@ -400,12 +452,16 @@ def _count_fetch(t):
 def fetch_to_host(t):
     """A fetch on the host: a numpy array, or a RaggedTensor or
     SelectedRows of CPU tensors; bf16 values widen to f32 (the fetch
-    contract)."""
+    contract).  The host copy shares no memory with `t`: a donated
+    state tensor is written in place by the next run, and a fetched
+    array must keep its values, as the JAX package's does."""
     if isinstance(t, (RaggedTensor, SelectedRows)):
-        return host_copy(t)
+        return pytree.tree_map(lambda v: v.clone(), host_copy(t))
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.detach().cpu().numpy()
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 
 
 def _desc_version(desc):
@@ -413,6 +469,481 @@ def _desc_version(desc):
     identity; holding them keeps their ids from being reused) and its
     count of vars."""
     return tuple((tuple(b.ops), len(b.vars)) for b in desc.blocks)
+
+
+def _op_capturable(op_desc):
+    """Whether an op (a grad op: its forward's) can run inside a CUDA
+    graph capture (`OpInfo.capturable`)."""
+    t = op_desc.type
+    if op_registry.has_op(t):
+        return op_registry.get_op_info(t).capturable
+    if op_registry.is_grad_op_type(t):
+        fwd = op_registry.forward_type_of_grad(t)
+        if op_registry.has_op(fwd):
+            return op_registry.get_op_info(fwd).capturable
+    raise KeyError("operator %r is not registered" % t)
+
+
+def _segment_block(op_descs):
+    """Block 0's ops as maximal runs [(capturable, [op_desc])], as the
+    JAX executor's `_segment_block` splits them by `jittable`."""
+    segments = []
+    for od in op_descs:
+        c = _op_capturable(od)
+        if segments and segments[-1][0] == c:
+            segments[-1][1].append(od)
+        else:
+            segments.append((c, [od]))
+    return segments
+
+
+def _leaf_key(t, by_address):
+    """A tensor's part of a signature: shape, dtype and device, and
+    where a graph reads it in place, its address and strides."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    if by_address:
+        return (tuple(t.shape), t.dtype, t.device, t.data_ptr(),
+                t.stride())
+    return (tuple(t.shape), t.dtype, t.device)
+
+
+def _value_key(v, by_address):
+    """A value's part of a signature; a RaggedTensor, SelectedRows or
+    TensorArray by its structure (lod level, `max_seqlen`, length) and
+    its tensors."""
+    if isinstance(v, torch.Tensor) or v is None:
+        return _leaf_key(v, by_address)
+    leaves, spec = pytree.tree_flatten(v)
+    return (str(spec),) + tuple(_leaf_key(t, by_address) for t in leaves)
+
+
+def _copy_into(static, v):
+    """Copy `v`'s tensors into the static buffers `static`."""
+    for dst, src in zip(pytree.tree_leaves(static), pytree.tree_leaves(v)):
+        if isinstance(dst, torch.Tensor) and dst is not src:
+            dst.copy_(src)
+
+
+def _clone(v):
+    """A copy of a value's tensors (a graph's own output buffers)."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    return pytree.tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, v)
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _fits(target, new):
+    """Whether `new` can be written into `target`'s storage: two plain
+    tensors alike in shape, dtype and device, `target` writable here."""
+    dtensor = op_registry.dtensor_type()
+    return (type(target) is torch.Tensor and type(new) is torch.Tensor
+            and (dtensor is None or not isinstance(target, dtensor))
+            and target.shape == new.shape and target.dtype == new.dtype
+            and target.device == new.device
+            and (not target.is_inference()
+                 or torch.is_inference_mode_enabled()))
+
+
+class _CompiledProgram:
+    """A program as the executor runs it: block 0 split into maximal
+    runs of capturable ops (segments) and host ops between them, each
+    segment's reads, writes and outputs, and its donation.  The
+    counterpart of the JAX executor's `_CompiledProgram`; its captured
+    segments are CUDA graphs, one per (segment, signature), in one
+    memory pool per program.  A signature is the segment's inputs'
+    shapes, dtypes and structure (a ragged feed's `max_seqlen`), and the
+    address of every state tensor the graph reads in place from the
+    scope: a tensor swapped into the scope forces a new capture."""
+
+    def __init__(self, executor, desc, feed_names, fetch_names):
+        self.executor = executor
+        self.desc = desc
+        self.block = desc.block(0)
+        self.feed_names = list(feed_names)
+        self.fetch_names = list(fetch_names)
+        self.segments = _segment_block(self.block.ops)
+        self._plan = self._analyze()
+        self._donation = self._donation_setup()
+        for i, seg in enumerate(self._plan):
+            seg["mutated"], seg["donate"], seg["widened"] = \
+                self._donate_sets(i, seg)
+        persist = any(seg["persist_writes"] for seg in self._plan)
+        self.trains = persist or any(
+            op_registry.is_grad_op_type(od.type) for od in self.block.ops)
+        # (segment, signature) -> captured record, least recent first
+        self._records = OrderedDict()
+        # (segment, signature) pairs warmed up once, eagerly -> the
+        # donated names another value of the warmup viewed
+        self._warm = OrderedDict()
+        self.pool = None
+
+    # -- planning -----------------------------------------------------------
+    def _analyze(self):
+        """Each segment's reads (first read before any write, in order),
+        writes, outputs (writes read later, fetched or persistable) and
+        persistable writes, as the JAX executor's `_analyze`."""
+        bd = self.block
+        later_reads = [set(self.fetch_names)]
+        for _, ops in reversed(self.segments):
+            reads = set()
+            for od in ops:
+                reads.update(od.input_names())
+            later_reads.append(later_reads[-1] | reads)
+        later_reads = list(reversed(later_reads))
+        plan, base = [], 0
+        for i, (capture, ops) in enumerate(self.segments):
+            reads, writes, seen = [], [], set()
+            for od in ops:
+                for n in od.input_names():
+                    if n != EMPTY and n not in seen and n not in reads:
+                        reads.append(n)
+                for n in od.output_names():
+                    if n != EMPTY:
+                        seen.add(n)
+                        if n not in writes:
+                            writes.append(n)
+            persist_writes = [n for n in writes if n in bd.vars
+                              and bd.vars[n].persistable]
+            outputs = [n for n in writes
+                       if n in later_reads[i + 1] or n in persist_writes]
+            types = [od.type for od in ops]
+            span = types[0] if len(types) == 1 else "%s..%s" % (
+                types[0], types[-1])
+            plan.append({"capture": capture, "ops": ops, "start": base,
+                         "reads": reads, "writes": writes,
+                         "outputs": outputs, "persist_writes": persist_writes,
+                         "label": "jit_segment[%d:%s x%d]" % (i, span,
+                                                              len(types))})
+            base += len(ops)
+        return plan
+
+    def _donation_setup(self):
+        """FLAGS_donation resolved as the JAX executor resolves it:
+        {"mode", "widened": [names per segment] or None}.  Only "auto"
+        runs the donation-safety analysis (analysis/alias.py); a failure
+        of the analysis degrades to "conservative", since the plan must
+        never be the reason a step fails.  The port has no executable
+        reload that could drop the aliasing, so the backend is safe."""
+        from .. import analysis
+
+        mode = analysis.donation_mode()
+        if mode != "auto":
+            return {"mode": mode, "widened": None}
+        try:
+            plan = analysis.analyze_donation(
+                self.desc, fetches=self.fetch_names, feeds=self.feed_names,
+                backend_safe=True)
+            if plan.effective_mode != "auto":
+                return {"mode": plan.effective_mode, "widened": None}
+            return {"mode": "auto",
+                    "widened": [tuple(s["widened"]) for s in plan.segments]}
+        except Exception:
+            _log.debug("donation analysis failed; falling back to "
+                       "conservative donation", exc_info=True)
+            return {"mode": "conservative", "widened": None}
+
+    def _donate_sets(self, i, seg):
+        """(mutated, donated, widened) of segment i: the outputs it also
+        reads; what it donates under the mode (the JAX executor's
+        `mutated`: conservative's set, plus under "auto" the plan's
+        widened reads); and those widened reads alone."""
+        if not seg["capture"]:
+            return (), (), ()
+        mutated = tuple(n for n in seg["outputs"] if n in seg["reads"])
+        dn = self._donation
+        if dn["mode"] == "off":
+            return mutated, (), ()
+        widened = ()
+        if dn["mode"] == "auto" and dn["widened"] \
+                and i < len(dn["widened"]):
+            widened = tuple(n for n in dn["widened"][i]
+                            if n not in mutated and n in seg["reads"])
+        return mutated, mutated + widened, widened
+
+    def labels(self):
+        return [seg["label"] for seg in self._plan]
+
+    # -- running ------------------------------------------------------------
+    def run(self, ctx, scope, eager):
+        """Run block 0 against ctx.env (the feeds), writing persistables
+        back to the scope after each segment; returns the names whose
+        values are a graph's own output buffers (a later replay
+        overwrites them)."""
+        check = flags.get_flag("check_nan_inf")
+        reason = "eager" if eager else "check_nan_inf" if check else None
+        if reason is not None and self._records:
+            # an eager run and the program's graphs would each hold a
+            # step's memory at once: the graphs go (captured again when
+            # the program runs captured twice more)
+            for key in list(self._records):
+                self.drop_graph(key)
+            if self.executor.device.type == "cuda":
+                torch.cuda.empty_cache()
+        graph_owned = set()
+        for i, seg in enumerate(self._plan):
+            if seg["capture"] and reason is None:
+                ins = {n: _lookup(ctx, n) for n in seg["reads"]}
+                dtensor = op_registry.dtensor_type()
+                if dtensor is not None and any(
+                        isinstance(v, dtensor)
+                        for v in pytree.tree_leaves(ins)):
+                    obs_tele.on_eager_segment("mesh")
+                else:
+                    self._run_captured(i, seg, ctx, ins, scope, graph_owned)
+                    continue
+            elif seg["capture"]:
+                obs_tele.on_eager_segment(reason)
+            self._run_eager(seg, ctx, check)
+            for n in seg["persist_writes"]:
+                if n in ctx.env:
+                    scope.set(n, ctx.env[n])
+        return graph_owned
+
+    def _run_eager(self, seg, ctx, check):
+        """Op by op from Python: a `record_event` row per op while the
+        profiler or the trace is on, an `op_registry.span` range per op
+        while torch.profiler records, the FLAGS_check_nan_inf scan.
+        Nothing is donated."""
+        timed = profiler_mod.active()
+        for k, op_desc in enumerate(seg["ops"]):
+            with op_registry.span(op_desc.type):
+                if timed:
+                    with profiler_mod.record_event(op_desc.type):
+                        outs = apply_op(ctx, op_desc)
+                else:
+                    outs = apply_op(ctx, op_desc)
+            if check:
+                try:
+                    _check_outputs_finite(op_desc, outs)
+                except NonfiniteError as err:
+                    err.op_index = seg["start"] + k
+                    raise
+
+    def _signature(self, seg, ins, env):
+        """(signature, the names read in place from the scope)."""
+        off = self._donation["mode"] == "off"
+        in_place = set()
+        key = []
+        for n in seg["reads"]:
+            v = ins[n]
+            by_address = n not in env and not (off and n in seg["mutated"])
+            if by_address:
+                in_place.add(n)
+            key.append(_value_key(v, by_address))
+        return tuple(key), in_place
+
+    def _runner(self, seg, ctx, donate_state, in_place_ops):
+        """The segment as a function of its input env: its ops, then
+        each donated state tensor's new value written into the scope
+        tensor's own storage (what a CUDA graph capture records).
+        `in_place_ops` {op index: slots} lets an update op write into
+        its input (ExecContext.in_place)."""
+        from . import graphs
+
+        ops, outputs = seg["ops"], seg["outputs"]
+        executor = self.executor
+
+        def run(env_in, keep_env=False):
+            env = dict(env_in)
+            sub = ExecContext(self.desc, 0, env, scope=ctx.scope,
+                              place=executor.place, device=executor.device,
+                              rng=ctx._rng)
+            for k, od in enumerate(ops):
+                sub.in_place = in_place_ops.get(k, frozenset())
+                try:
+                    apply_op(sub, od)
+                except graphs.CaptureError as exc:
+                    raise graphs.CaptureError(
+                        "op %d (%r): %s" % (seg["start"] + k, od.type,
+                                            exc)) from exc
+            sub.in_place = frozenset()
+            targets = {_storage(env_in[n]): n for n in donate_state}
+            outs = {n: env[n] for n in outputs if n in env}
+            if targets:
+                # an output that views a donated tensor keeps its value
+                for n, v in outs.items():
+                    if type(v) is torch.Tensor and n not in donate_state \
+                            and _storage(v) in targets:
+                        outs[n] = v.clone()
+                for n in donate_state:
+                    tgt, new = env_in[n], env.get(n)
+                    if new is tgt or not _fits(tgt, new):
+                        continue
+                    if _storage(new) == _storage(tgt):
+                        new = new.clone()
+                    tgt.copy_(new)
+                    if n in outs:
+                        outs[n] = tgt
+            return (outs, env) if keep_env else outs
+
+        return run
+
+    def _in_place_ops(self, seg, donate_state, aliased):
+        """{op index: output slots} of the update ops that may write a
+        donated state tensor in place: the op is the tensor's first
+        writer in the segment, its declared in-place slot names the same
+        var as the aliased input, and no other value of the warmup
+        shared the tensor's storage (`aliased`)."""
+        from ..analysis.dataflow import _in_place_pairs
+
+        plan, written = {}, set()
+        for k, od in enumerate(seg["ops"]):
+            slots = set()
+            for out_slot, in_slot in _in_place_pairs(od):
+                outs = od.outputs.get(out_slot) or ()
+                ins = od.inputs.get(in_slot) or () if in_slot else ()
+                if len(outs) == 1 and len(ins) == 1 and outs[0] == ins[0] \
+                        and outs[0] in donate_state \
+                        and outs[0] not in aliased \
+                        and outs[0] not in written:
+                    slots.add(out_slot)
+            if slots:
+                plan[k] = frozenset(slots)
+            written.update(od.output_names())
+        return plan
+
+    def drop_graph(self, key):
+        """Drop the captured record of `key` ((segment, signature)),
+        counted and logged as an eviction: its next run warms up again
+        (the executor's LRU bound, or the graph pools' budget,
+        fluid/graphs.py)."""
+        from . import graphs
+
+        if self._records.pop(key, None) is None:
+            return
+        if not self._records:
+            # a pool whose graphs are all gone is released: the next
+            # capture takes a new one
+            self.pool = None
+        graphs.release(self, key)
+        obs_tele.on_program_cache_evict()
+        _log.debug("evicted captured signature of %s",
+                    self._plan[key[0]]["label"])
+
+    def _run_captured(self, i, seg, ctx, ins, scope, graph_owned):
+        from . import graphs
+
+        executor = self.executor
+        env = ctx.env
+        sig, by_address = self._signature(seg, ins, env)
+        # the random stream a graph draws from is the one registered at
+        # its capture (the record keeps it alive, so its id is not reused)
+        key = (i, id(ctx._rng), sig)
+        donate_state = tuple(n for n in seg["donate"] if n in by_address
+                             and type(ins[n]) is torch.Tensor)
+        rec = self._records.get(key)
+        if rec is not None:
+            self._records.move_to_end(key)
+            graphs.touch(self, key)
+            outs = self._replay(rec, seg, ins)
+        elif key not in self._warm:
+            # first run of this signature: the warmup, eagerly, with the
+            # donation a replay makes; it finds which donated tensors
+            # another value views, which must not be written early
+            while len(self._warm) >= 4 * executor._CACHE_MAX:
+                self._warm.popitem(last=False)
+            run = self._runner(seg, ctx, donate_state, {})
+            outs, seg_env = run(ins, keep_env=True)
+            targets = {_storage(ins[n]): n for n in donate_state}
+            self._warm[key] = {
+                targets[_storage(v)] for n, v in seg_env.items()
+                if type(v) is torch.Tensor and v is not ins.get(n)
+                and _storage(v) in targets}
+        else:
+            rec = self._capture(i, seg, ctx, ins, by_address, donate_state,
+                                self._warm.pop(key))
+            self._records[key] = rec
+            while len(self._records) > executor._CACHE_MAX:
+                self.drop_graph(next(iter(self._records)))
+            if rec["graph"] is not None:
+                graphs.hold(self, key, executor.device,
+                            rec["stats"]["pool_bytes"])
+            # on the card the capture ran nothing; on the CPU it ran once
+            outs = dict(rec["out"]) if rec["graph"] is None else \
+                self._replay(rec, seg, ins)
+        # a graph's outputs (on the CPU, its plain version's, which may
+        # view the static buffers) are overwritten by the next replay
+        if rec is not None:
+            graph_owned.update(n for n, v in outs.items()
+                               if not (n in donate_state and v is ins[n]))
+        env.update(outs)
+        for n in seg["persist_writes"]:
+            v = outs.get(n)
+            if v is None or v is scope.get(n):
+                continue
+            if n in graph_owned:
+                # a replay would overwrite the graph's own buffer
+                v = env[n] = _clone(v)
+                graph_owned.discard(n)
+            scope.set(n, v)
+        for n in seg["widened"]:
+            # provably dead after this segment: given up
+            env.pop(n, None)
+
+    def _capture(self, i, seg, ctx, ins, by_address, donate_state, aliased):
+        """Capture segment i for this signature: static buffers for the
+        inputs that are copied in (feeds, earlier segments' values, and
+        under FLAGS_donation=off the state a segment updates), the scope
+        tensors read in place, the executor's random stream registered
+        with the graph, and the flash kernel's launches recorded."""
+        from . import graphs
+
+        executor = self.executor
+        label = seg["label"]
+        env_in = {n: (v if n in by_address else _clone(v))
+                  for n, v in ins.items()}
+        in_place_ops = self._in_place_ops(seg, donate_state, aliased)
+        run = self._runner(seg, ctx, donate_state, in_place_ops)
+        device = executor.device
+        if device.type == "cuda" and self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        gens = (ctx._rng,) if ctx._rng is not None \
+            and ctx._rng.device.type == "cuda" else ()
+        obs_trace.instant("jit_build", cat="compile", segment=label)
+        try:
+            graph, out, stats = graphs.graph_capture(
+                lambda: run(env_in), device, pool=self.pool,
+                generators=gens, label=label)
+        except graphs.CaptureError as exc:
+            raise graphs.CaptureError(
+                "%s (first op %r): %s" % (label, seg["ops"][0].type,
+                                          exc)) from exc
+        executor.captures += 1
+        if graph is not None:
+            graphs.count_capture(label, stats)
+        return {"graph": graph, "env_in": env_in, "out": out, "run": run,
+                "rng": ctx._rng, "by_address": by_address, "stats": stats,
+                "in_place": in_place_ops}
+
+    def _replay(self, rec, seg, ins):
+        from . import graphs
+
+        executor = self.executor
+        env_in = rec["env_in"]
+        for n, v in ins.items():
+            if n not in rec["by_address"]:
+                _copy_into(env_in[n], v)
+        executor.replays += 1
+        profiled = profiler_mod.is_enabled()
+        t0 = time.perf_counter()
+        if rec["graph"] is None:
+            outs = rec["run"]({n: (ins[n] if n in rec["by_address"]
+                                   else env_in[n]) for n in ins})
+        else:
+            rec["graph"].replay()
+            graphs.add_launches(rec["stats"]["launches"])
+            obs_tele.on_graph_replay()
+            outs = rec["out"]
+        if profiled:
+            if executor.device.type == "cuda":
+                torch.cuda.synchronize(executor.device)
+            profiler_mod.record(seg["label"], time.perf_counter() - t0)
+        return dict(outs)
 
 
 class Executor:
@@ -423,9 +954,13 @@ class Executor:
     run in a scope seeds it from its `random_seed` (0 for a bare
     ProgramDesc), and later runs in that scope go on drawing from it.
     `seed` gives the executor a stream of its own instead, seeded with
-    it and shared by every scope it runs in."""
+    it and shared by every scope it runs in.
 
-    # rewritten programs kept (the JAX executor's cache bound)
+    `captures` and `replays` count the segment captures and replays
+    this executor made (on the CPU, the plain version's)."""
+
+    # compiled programs kept, and captured signatures per program (the
+    # JAX executor's cache bound)
     _CACHE_MAX = 64
 
     def __init__(self, place=None, seed=None):
@@ -439,6 +974,12 @@ class Executor:
         # the rewrite pipeline's runs, and the last run's PassManager
         self.pipeline_runs = 0
         self.last_pipeline = None
+        # (id(desc), feeds, fetches, flags) -> (desc, version, compiled)
+        self._cache = OrderedDict()
+        # captures and the serving batcher's thread share the executor
+        self._lock = threading.RLock()
+        self.captures = 0
+        self.replays = 0
 
     def _stream(self, scope, seed):
         """The random stream of a run in `scope`: the executor's own, or
@@ -452,7 +993,7 @@ class Executor:
         return gen
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+            return_numpy=True, eager=False):
         """Run block 0 of `program` (a Program, its ProgramDesc, or None
         for the default main program) with `feed` {name: array or
         tensor, a RaggedTensor for a var with a lod level, or a
@@ -460,7 +1001,13 @@ class Executor:
         names), as numpy arrays (a ragged or SelectedRows value on the
         host) or, with return_numpy=False, as they are on the place's
         device.  A SelectedRows grad lives in the run's values between
-        the grad op that makes it and the update op that reads it."""
+        the grad op that makes it and the update op that reads it.
+
+        By default the maximal runs of capturable ops run as captured
+        CUDA graphs (see the module docstring).  `eager=True` runs every
+        op eagerly from Python, donating nothing: the per-op profiler
+        rows and op-type ranges and the old numerics; so does a run
+        under FLAGS_check_nan_inf."""
         if program is None:
             program = default_main_program()
         source = program
@@ -481,17 +1028,17 @@ class Executor:
         try:
             with obs_trace.span("executor/run", cat="executor",
                                 feeds=len(feed or {}),
-                                fetches=len(fetch_list)):
+                                fetches=len(fetch_list)), self._lock:
                 program = self._program_to_run(source, program,
                                                fetch_list)
                 return self._run(program, seed, feed, fetch_list, scope,
-                                 return_numpy)
+                                 return_numpy, eager)
         except Exception as exc:
             # a crashing run leaves a post-mortem bundle (a no-op unless
             # obs.flight.install() was called)
             obs_flight.on_crash(exc, origin="executor/run",
                                 feeds=obs_flight.describe_feeds(feed),
-                                fetches=list(fetch_list), eager=True)
+                                fetches=list(fetch_list), eager=bool(eager))
             raise
 
     def _program_to_run(self, source, desc, fetch_names):
@@ -541,42 +1088,65 @@ class Executor:
         if len(self._verified) > 4 * self._CACHE_MAX:
             self._verified.clear()  # rare: unbounded program churn
 
-    def _run(self, program, seed, feed, fetch_list, scope, return_numpy):
-        block = program.block(0)
-        persist = [n for op in block.ops for n in op.output_names()
-                   if n in block.vars and block.vars[n].persistable]
-        trains = bool(persist) or any(
-            op_registry.is_grad_op_type(op.type) for op in block.ops)
-        with torch.no_grad() if trains else torch.inference_mode():
+    def _compiled(self, desc, feed_names, fetch_names):
+        """The cached _CompiledProgram of `desc` for these feeds and
+        fetches under the flags its kernels read, planned anew when the
+        program changed; the least recently used of more than
+        _CACHE_MAX is evicted (counted and logged, as on the JAX
+        side), its gauges retired."""
+        key = (id(desc), tuple(sorted(feed_names)), tuple(fetch_names),
+               flags.get_flag("amp_bf16"), flags.get_flag("amp_bf16_act"),
+               flags.get_flag("bn_shifted_stats"), flags.get_flag("donation"))
+        version = _desc_version(desc)
+        hit = self._cache.get(key)
+        if hit is not None and hit[0] is desc and hit[1] == version:
+            self._cache.move_to_end(key)
+            return hit[2]
+        compiled = _CompiledProgram(self, desc, sorted(feed_names),
+                                    fetch_names)
+        self._cache[key] = (desc, version, compiled)
+        self._cache.move_to_end(key)
+        while len(self._cache) > self._CACHE_MAX:
+            ekey, (_d, _v, evicted) = self._cache.popitem(last=False)
+            obs_tele.on_program_cache_evict()
+            self._retire_segment_gauges(evicted)
+            _log.debug("evicted program cache entry: program=%s feeds=%s "
+                       "fetches=%s", ekey[0], ekey[1], ekey[2])
+        return compiled
+
+    def _retire_segment_gauges(self, evicted):
+        """Drop the evicted program's per-segment gauges, but for labels
+        a still-cached program shares."""
+        from ..obs import health as obs_health
+
+        labels = set(evicted.labels())
+        for _d, _v, other in self._cache.values():
+            labels.difference_update(other.labels())
+        if labels:
+            obs_health.retire_compile_stats(labels)
+
+    def _run(self, program, seed, feed, fetch_list, scope, return_numpy,
+             eager):
+        compiled = self._compiled(program, list(feed or ()), fetch_list)
+        with torch.no_grad() if compiled.trains else \
+                torch.inference_mode():
             t_feed = time.perf_counter()
-            env = {name: prepare_feed(block, name, val, self.device)
+            env = {name: prepare_feed(program.block(0), name, val,
+                                      self.device)
                    for name, val in (feed or {}).items()}
             if feed:
                 obs_tele.on_feed_seconds(time.perf_counter() - t_feed)
             ctx = ExecContext(program, 0, env, scope=scope,
                               place=self.place, device=self.device,
                               rng=self._stream(scope, seed))
-            timed = profiler_mod.active()
-            check = flags.get_flag("check_nan_inf")
-            for index, op_desc in enumerate(block.ops):
-                with op_registry.span(op_desc.type):
-                    if timed:
-                        with profiler_mod.record_event(op_desc.type):
-                            outs = apply_op(ctx, op_desc)
-                    else:
-                        outs = apply_op(ctx, op_desc)
-                if check:
-                    try:
-                        _check_outputs_finite(op_desc, outs)
-                    except NonfiniteError as err:
-                        err.op_index = index
-                        raise
-            for name in persist:
-                if name in env:
-                    scope.set(name, env[name])
+            graph_owned = compiled.run(ctx, scope, eager)
             # a fetch the run did not write (a parameter, optimizer
             # state) resolves from the scope
             outs = [_lookup(ctx, n) for n in fetch_list]
+            if not return_numpy:
+                # a graph's own buffer is overwritten by its next replay
+                outs = [_clone(o) if n in graph_owned else o
+                        for n, o in zip(fetch_list, outs)]
         if return_numpy:
             return [fetch_to_host(_count_fetch(o)) for o in outs]
         return outs

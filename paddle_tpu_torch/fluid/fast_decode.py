@@ -5,10 +5,17 @@ decode step as an ordinary inference Program (token in, logits out,
 recurrent state threaded through named feed/fetch pairs), and
 `ProgramDecoder` runs the generation loop over it (models/decode.py)
 with the trained weights taken from the scope onto the card.  The JAX
-package compiles the whole loop into one executable per configuration;
-here the loop runs in Python and each step runs the program op by op
-(`jit.FunctionalProgram`), with every tensor kept on the device and one
-copy of the result to the host at the end.
+package compiles the whole loop into one executable per configuration
+(`_jitted(key, ...)`); here the loop runs in Python, each step the
+program op by op (`jit.FunctionalProgram`), with every tensor kept on
+the device and one copy of the result to the host at the end.  Each
+call is captured, whole `max_len` loop and all, into one CUDA graph per
+the JAX package's key and the state's and prompt's shapes
+(`fluid.graphs.GraphCall`): the first call with a key runs eagerly, the
+second captures, later calls replay.  Sampling's generator is
+registered with its graph, so a replay draws afresh from `seed`.  On
+the CPU the same calls run the loop on the same static buffers.
+`captures` and `replays` count them.
 
 Usage:
     decoder = ProgramDecoder(step_prog, token_name="tok",
@@ -25,6 +32,7 @@ import torch
 
 from .. import jit
 from ..core.types import tensor_from_numpy
+from . import graphs
 from ..models.decode import (beam_search_decode_dense, eos_lengths,
                              greedy_decode, prefill, sample_decode)
 from .executor import CUDAPlace, prepare_feed
@@ -69,6 +77,43 @@ class ProgramDecoder:
                 "scope has no values for %s — run the startup program "
                 "(and training) in this scope before building the "
                 "decoder" % missing)
+        self._graphs = graphs.GraphCall(self.device)
+        # sampling's generators, one per captured key
+        self._generators = {}
+
+    @property
+    def captures(self):
+        return self._graphs.captures
+
+    @property
+    def replays(self):
+        return self._graphs.replays
+
+    def _call(self, key, fn, state, prompt=None, bos=None, generators=()):
+        """fn(state, prompt, bos) through the key's graph: the JAX
+        package's key, extended by the state's and the prompt's shapes
+        and dtypes, which its jit re-specializes on.  A scalar `bos`
+        is part of the key; per-row tokens are an input like the
+        prompt."""
+        inputs = dict(state)
+        if prompt is not None:
+            inputs["@prompt"] = prompt
+        if bos is not None and np.ndim(bos) == 0 \
+                and not isinstance(bos, torch.Tensor):
+            key, bos = key + (("bos", int(bos)),), int(bos)
+        elif bos is not None:
+            inputs["@bos"] = self._feed(self.token_name, bos) \
+                if not isinstance(bos, torch.Tensor) else bos.to(self.device)
+        key = key + tuple((n, tuple(t.shape), t.dtype)
+                          for n, t in sorted(inputs.items()))
+        label = "decode[%s]" % key[0]
+
+        def run(ins):
+            st = {n: t for n, t in ins.items() if not n.startswith("@")}
+            return fn(st, ins.get("@prompt"), ins.get("@bos", bos))
+
+        return self._graphs(key, run, inputs, generators=generators,
+                            label=label)
 
     def _step(self, state, tok):
         feeds = {self.token_name: tok}
@@ -140,7 +185,9 @@ class ProgramDecoder:
 
     @staticmethod
     def _host(*tensors):
-        return tuple(t.cpu().numpy() for t in tensors)
+        """Host copies: a replay's outputs are its graph's own buffers,
+        which the next call with the same key overwrites."""
+        return tuple(t.to("cpu", copy=True).numpy() for t in tensors)
 
     def greedy(self, bos, eos, max_len, batch_size=None, init_state=None,
                prompt=None):
@@ -155,15 +202,21 @@ class ProgramDecoder:
             state, batch_size = self._prep(init_state, batch_size)
             prompt = self._norm_prompt(prompt, max_len)
             if prompt is None:
-                return self._host(*greedy_decode(
-                    self._step, state, bos=bos, eos=eos, max_len=max_len,
-                    batch_size=batch_size, device=self.device))
-            return self._host(*self._prefilled_run(
-                state, prompt,
-                lambda st, first: greedy_decode(
-                    self._step, st, bos=first, eos=eos,
-                    max_len=max_len - 1, batch_size=batch_size),
-                eos, max_len))
+                return self._host(*self._call(
+                    ("greedy", eos, max_len, batch_size),
+                    lambda st, _p, b: greedy_decode(
+                        self._step, st, bos=b, eos=eos, max_len=max_len,
+                        batch_size=batch_size, device=self.device),
+                    state, bos=bos))
+            return self._host(*self._call(
+                ("greedy-prefill", eos, max_len, batch_size),
+                lambda st, p, _b: self._prefilled_run(
+                    st, p,
+                    lambda s2, first: greedy_decode(
+                        self._step, s2, bos=first, eos=eos,
+                        max_len=max_len - 1, batch_size=batch_size),
+                    eos, max_len),
+                state, prompt))
 
     def sample(self, bos, eos, max_len, batch_size=None, init_state=None,
                prompt=None, seed=0, temperature=1.0, top_k=0):
@@ -173,7 +226,13 @@ class ProgramDecoder:
         with torch.inference_mode():
             state, batch_size = self._prep(init_state, batch_size)
             prompt = self._norm_prompt(prompt, max_len)
-            gen = torch.Generator(device=self.device).manual_seed(seed)
+            key = ("sample", eos, max_len, batch_size, temperature, top_k,
+                   None if prompt is None else prompt.shape[1])
+            gen = self._generators.get(key)
+            if gen is None:
+                gen = self._generators[key] = torch.Generator(
+                    device=self.device)
+            gen.manual_seed(seed)
 
             def run(st, first, n):
                 return sample_decode(
@@ -183,10 +242,14 @@ class ProgramDecoder:
                     device=self.device)
 
             if prompt is None:
-                return self._host(*run(state, bos, max_len))
-            return self._host(*self._prefilled_run(
-                state, prompt, lambda st, first: run(st, first, max_len - 1),
-                eos, max_len))
+                return self._host(*self._call(
+                    key, lambda st, _p, b: run(st, b, max_len), state,
+                    bos=bos, generators=(gen,)))
+            return self._host(*self._call(
+                key, lambda st, p, _b: self._prefilled_run(
+                    st, p, lambda s2, first: run(s2, first, max_len - 1),
+                    eos, max_len),
+                state, prompt, generators=(gen,)))
 
     def beam(self, beam_size, bos, eos, max_len, batch_size=None,
              init_state=None, length_penalty=0.0):
@@ -195,7 +258,11 @@ class ProgramDecoder:
         with torch.inference_mode():
             state, batch_size = self._prep(init_state, batch_size)
             self._check_extent(max_len)
-            return self._host(*beam_search_decode_dense(
-                self._step, state, bos=bos, eos=eos, beam_size=beam_size,
-                max_len=max_len, batch_size=batch_size,
-                length_penalty=length_penalty, device=self.device))
+            return self._host(*self._call(
+                ("beam", beam_size, eos, max_len, batch_size,
+                 length_penalty),
+                lambda st, _p, b: beam_search_decode_dense(
+                    self._step, st, bos=b, eos=eos, beam_size=beam_size,
+                    max_len=max_len, batch_size=batch_size,
+                    length_penalty=length_penalty, device=self.device),
+                state, bos=bos))

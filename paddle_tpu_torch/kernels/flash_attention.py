@@ -62,7 +62,7 @@ def _scaled_q(q, sm_scale):
     """q * sm_scale in q's dtype (the scale rounded to it first), as the
     JAX kernel multiplies a bf16 or f32 block by a weakly typed
     python float."""
-    return q * torch.tensor(sm_scale, dtype=q.dtype, device=q.device)
+    return q * torch.full((), sm_scale, dtype=q.dtype, device=q.device)
 
 
 def _halve(block, t):

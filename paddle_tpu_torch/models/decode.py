@@ -6,13 +6,15 @@ body on tensors that stay on the step's device: every loop runs all
 `max_len` steps, as the scan does (no early exit on `done`, which would
 read the device from the host each step), and the tokens, `done`
 flags, scores and parent pointers stay on the device until the caller
-copies the result once.
+copies the result once.  So a whole loop makes no synchronizing call
+and can be captured into one CUDA graph (fluid/fast_decode.py does).
 
 `step_fn(state, tokens [B]) -> (logits [B, V], new_state)`, where state
 is a dict of tensors whose leading dim is the batch.  `bos` may be a
 scalar or a per-row [B] tensor (prefill's continuation tokens).
 """
 
+import numpy as np
 import torch
 
 from ..ops.tensor_ops import stable_top_k as _top_k
@@ -33,11 +35,23 @@ def _device(bos, state, device):
     return torch.device("cpu")
 
 
+def _tokens(bos, device):
+    """`bos` as an int32 tensor on `device`; a scalar is filled in on
+    the device, no host data copied (a CUDA graph capture allows no
+    such copy)."""
+    if isinstance(bos, torch.Tensor):
+        return bos.to(device=device, dtype=torch.int32)
+    if np.ndim(bos) == 0:
+        return torch.full((), int(bos), dtype=torch.int32, device=device)
+    return torch.as_tensor(np.asarray(bos), dtype=torch.int32,
+                           device=device)
+
+
 def _start(bos, eos, batch_size, device):
     """(tokens [B] int32, done [B]): per-row seeds that are already eos
     are done from the start; a SCALAR bos may deliberately equal eos (the
     GPT-2 endoftext convention) and must still generate."""
-    bos = torch.as_tensor(bos, dtype=torch.int32, device=device)
+    bos = _tokens(bos, device)
     tok = bos.expand(batch_size).clone()
     done = (tok == eos) if bos.dim() else \
         torch.zeros(batch_size, dtype=torch.bool, device=device)
@@ -125,8 +139,7 @@ def beam_search_decode_dense(step_fn, init_state, bos, eos, beam_size,
     B, K = batch_size, beam_size
     device = _device(bos, init_state, device)
     state = {n: t.repeat_interleave(K, dim=0) for n, t in init_state.items()}
-    tok = torch.as_tensor(bos, dtype=torch.int32, device=device) \
-        .expand(B).repeat_interleave(K)
+    tok = _tokens(bos, device).expand(B).repeat_interleave(K)
     # only beam 0 alive at t=0, so the first top-k doesn't pick K copies
     scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=device)
     scores[:, 0] = 0.0

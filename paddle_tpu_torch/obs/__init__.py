@@ -43,8 +43,8 @@ values.
                   and straggler verdict (`FleetAggregator`).
 
 They are copies, not imports: the port imports nothing of the JAX
-package.  The JAX package's `mem` waits with the compiled segments
-(ROADMAP A2).
+package.  The JAX package's `mem` waits with ROADMAP A2's second part
+(the executor's captured segments are its first).
 
 Everything is off by default and cheap when off: a span with tracing
 disabled is one check, the health and flight hooks start with one

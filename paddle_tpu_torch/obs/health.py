@@ -27,9 +27,13 @@ loop install a monitor by itself (watching the cost plus every
 parameter gradient).  Everything here only watches — results are never
 changed.
 
-The JAX module's `publish_compile_stats` and `retire_compile_stats`
-read compiled XLA executables; the port compiles nothing yet, so they
-wait with its compiled segments (ROADMAP A2).  `force_attribution` and
+`publish_compile_stats` and `retire_compile_stats` keep the JAX
+module's names for what a capture costs: the JAX module publishes each
+compiled segment's XLA memory and cost analyses (`xla_*` gauges), the
+port publishes each captured segment's capture seconds and the bytes
+its graph pool grew by (`graph_capture_seconds{segment}`,
+`graph_pool_bytes{segment}`), and retires them when the executor's
+cache evicts the program.  `force_attribution` and
 `attribution_forced` keep the JAX package's switch, which no port code
 reads yet.
 
@@ -46,7 +50,8 @@ from . import telemetry as telemetry_mod
 
 __all__ = ["NumericsMonitor", "locate_nonfinite", "scan_outputs",
            "enable", "disable", "enabled", "force_attribution",
-           "attribution_forced"]
+           "attribution_forced", "publish_compile_stats",
+           "retire_compile_stats"]
 
 _enabled = False
 
@@ -360,3 +365,38 @@ def scan_outputs(named_values):
         fam.labels(tensor=name).inc(bad)
         total += bad
     return total
+
+
+_COMPILE_GAUGES = (
+    ("graph_capture_seconds", "seconds",
+     "seconds one CUDA graph capture took, per captured segment"),
+    ("graph_pool_bytes", "pool_bytes",
+     "bytes the graph memory pool grew by at the capture, per captured "
+     "segment"),
+)
+
+
+def publish_compile_stats(segment, stats):
+    """Publish one capture's `stats` ({"seconds", "pool_bytes"}, from
+    fluid.graphs.graph_capture) as per-segment-label gauges; returns the
+    published values."""
+    reg = registry_mod.get_registry()
+    published = {}
+    for gauge, key, help_text in _COMPILE_GAUGES:
+        v = (stats or {}).get(key)
+        if v is None:
+            continue
+        reg.gauge(gauge, help_text, labelnames=("segment",)) \
+           .labels(segment=segment).set(float(v))
+        published[gauge] = float(v)
+    return published or None
+
+
+def retire_compile_stats(segments):
+    """Drop the per-segment gauge children of retired segment labels
+    (the executor's program-cache eviction)."""
+    reg = registry_mod.get_registry()
+    for gauge, _key, help_text in _COMPILE_GAUGES:
+        fam = reg.gauge(gauge, help_text, labelnames=("segment",))
+        for segment in segments:
+            fam.remove(segment=segment)

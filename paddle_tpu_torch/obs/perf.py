@@ -11,8 +11,9 @@ Three layers on top of the obs substrate (spans, registry):
     (and any loop that wraps its steps in `telemetry.step`), records a
     structured per-step record into a bounded ring (wall time,
     h2d-input time, transfer bytes, and the JAX record's retrace and
-    compile-cache counts, which read 0 in the port until its executor
-    compiles segments, ROADMAP A2), and every `sample_every`-th step
+    compile-cache counts: `retraces` counts the executor's CUDA graph
+    captures in the step, the cache's counts read 0 until ROADMAP A2's
+    persistent cache), and every `sample_every`-th step
     additionally records the card's kernels to split the step into
     device / input / host time.  Records export as JSONL or a Chrome trace-event file.
   * the bottleneck classifier — folds a time split plus the
@@ -299,8 +300,8 @@ class StepProfiler:
         retraces, and the mean time split over sampled steps.  Steps
         that retraced are excluded from the split mean, as in the JAX
         package, where step 0's segment spans include the XLA compile;
-        the port's records never retrace (no compiled segments until
-        ROADMAP A2), so every sampled step counts."""
+        here a step that captured CUDA graphs (on the card, a
+        signature's second run) is left out the same way."""
         recs = self.records()
         if not recs:
             return {"steps": 0}
@@ -529,8 +530,9 @@ def attribution_floors(peak_tflops, hbm_gbps, registry=None,
     """Roofline floors from the cost-attribution gauges
     (`xla_flops`/`xla_bytes_accessed{segment=}`), summed across
     segments, with the dominant segment named.  None when attribution
-    never ran — always in the port until compiled segments publish
-    these gauges (ROADMAP A2); a caller that sets them itself gets the
+    never ran — always in the port, whose captures publish their
+    seconds and pool bytes instead (`obs.health.publish_compile_stats`)
+    and no XLA analysis; a caller that sets them itself gets the
     JAX package's sums.  Only segments matching `segment_prefix`
     are summed (per-segment labels): a whole-step gauge covering the
     same work would double-count; pass a different prefix (or "") to
@@ -575,8 +577,8 @@ def leg_perf_blob(program, step_s, bf16_act=False, peak_tflops=None,
     """The "perf" blob of one measured leg: the measured step against
     its roofline, a time split, and the bottleneck verdict.  Takes
     whole-step `xla_flops`/`xla_bytes` over the IR estimate when a
-    caller gives them (nothing in the port publishes them until
-    ROADMAP A2); the IR roofline still names the dominant op types.
+    caller gives them (nothing in the port publishes them); the IR
+    roofline still names the dominant op types.
     Never raises — a program the analyzer can't cost returns a
     floor-less verdict."""
     try:

@@ -13,10 +13,18 @@ run's feed preparation, `executor_feed_seconds_total`) and
 each feed the executor or the DataFeeder places on the device, h2d, and
 of each fetch pulled to the host, d2h; a feed already on the device
 moves nothing and counts nothing).  On `CPUPlace` they count as the JAX
-package counts them on its CPU backend.  Jit traces
-(`executor_jit_traces_total`) and the persistent compile cache
-(`compile_cache_*`) have no counterpart until the executor compiles
-segments (ROADMAP A2): `obs.perf`'s records read them as 0.
+package counts them on its CPU backend.  The executor's captured
+segments (fluid/executor.py) count as the JAX package's jitted ones do:
+`on_jit_trace` counts a CUDA graph capture in
+`executor_jit_traces_total` (and marks a `jit_trace` instant), and
+`on_program_cache_evict` an entry the executor's caches dropped
+(`executor_program_cache_evictions_total`); the port adds
+`on_graph_replay` (`executor_graph_replays_total`) and
+`on_eager_segment` (`executor_eager_segments_total{reason}`: a segment
+of capturable ops run eagerly, by `eager=True`, `FLAGS_check_nan_inf`
+or DTensor inputs).  On the CPU nothing is captured or replayed.  The
+persistent compile cache (`compile_cache_*`) waits with ROADMAP A2's
+second part: `obs.perf`'s records read its counts as 0.
 
 Everything funnels into the default registry (`obs.registry`).  All
 helpers are cheap enough to call unconditionally: a counter inc is one
@@ -28,7 +36,9 @@ import time
 from . import registry as registry_mod
 from . import trace as trace_mod
 
-__all__ = ["on_executor_run", "on_feed_seconds", "on_transfer", "step",
+__all__ = ["on_executor_run", "on_jit_trace", "on_program_cache_evict",
+           "on_graph_replay", "on_eager_segment", "on_feed_seconds",
+           "on_transfer", "step",
            "set_gauge", "install_step_observer", "step_observer",
            "snapshot", "snapshot_delta", "snapshot_and_delta"]
 
@@ -46,6 +56,40 @@ def on_executor_run():
     """One Executor.run() dispatch (any program)."""
     _reg().counter("executor_runs_total",
                    "Executor.run() invocations").inc()
+
+
+def on_jit_trace(label):
+    """A segment (or a decode loop) was captured into a CUDA graph: the
+    port's counterpart of a jitted segment's trace and compile.
+    Counted, and marked on the trace timeline."""
+    _reg().counter("executor_jit_traces_total",
+                   "CUDA graph captures of executor segments and "
+                   "decode loops").inc()
+    trace_mod.instant("jit_trace", cat="compile", label=label)
+
+
+def on_program_cache_evict():
+    """An executor cache (compiled programs, or one program's captured
+    signatures) dropped its least recently used entry: the next run of
+    it plans or captures again."""
+    _reg().counter("executor_program_cache_evictions_total",
+                   "entries evicted from the executor's program and "
+                   "capture caches").inc()
+
+
+def on_graph_replay():
+    """One replay of a captured graph."""
+    _reg().counter("executor_graph_replays_total",
+                   "replays of captured CUDA graphs").inc()
+
+
+def on_eager_segment(reason):
+    """A segment of capturable ops ran eagerly op by op: `reason` is
+    "eager" (the caller's eager=True), "check_nan_inf" or "mesh"
+    (DTensor inputs, parallel.ParallelTrainer)."""
+    _reg().counter("executor_eager_segments_total",
+                   "capturable segments run eagerly, by reason",
+                   labelnames=("reason",)).labels(reason=reason).inc()
 
 
 def on_feed_seconds(seconds):

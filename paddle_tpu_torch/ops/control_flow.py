@@ -160,7 +160,9 @@ def _select(active, new, old):
 
 
 @register_op("while", nondiff_inputs=("Condition",),
-             infer_desc=keep_declared)
+             infer_desc=keep_declared, capturable=False,
+             not_capturable="without max_steps, reads the condition on the "
+                            "host before each iteration")
 def while_op(ctx, ins, attrs):
     """reference: while_op.cc.  attrs: sub_block; x_names, the names of
     ins["X"] (the block's reads from outside and the carries' initial
@@ -206,7 +208,9 @@ def while_op(ctx, ins, attrs):
 # -- conditionals --------------------------------------------------------------
 
 @register_op("conditional_block", nondiff_inputs=("Cond",),
-             infer_desc=keep_declared)
+             infer_desc=keep_declared, capturable=False,
+             not_capturable="reads its condition on the host to choose "
+                            "whether the sub-block runs")
 def conditional_block(ctx, ins, attrs):
     """reference: conditional_block_op.cc.  Runs the sub-block iff the
     condition holds (a scalar, or with `is_scalar_condition` False any

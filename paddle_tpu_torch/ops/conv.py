@@ -50,6 +50,7 @@ grads are the generic vjp, as on the JAX side.
 """
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -143,6 +144,16 @@ def conv2d_transpose(ctx, ins, attrs):
     return {"Output": [amp_result(out, x.dtype)]}
 
 
+@functools.lru_cache(maxsize=256)
+def _pool_counts(hw, ksize, strides, paddings, dtype, device, inference):
+    """`_np_pool_counts` as a tensor on `device`, made once per shape and
+    reused: a read-only constant, so a captured segment (which may copy
+    no host data to the device) reads the one its warmup made.  One is
+    kept per inference mode: a grad cannot save an inference tensor."""
+    return torch.as_tensor(_np_pool_counts(hw, ksize, strides, paddings),
+                           dtype=dtype, device=device)
+
+
 def _np_pool_counts(hw, ksize, strides, paddings):
     """counts[i, j]: the elements of window (i, j) that lie inside the
     input; the count factorizes per axis, rows[i] * cols[j]."""
@@ -186,10 +197,10 @@ def _pool2d_impl(x, attrs):
         xp, pads = _pad(xs, paddings, ksize, 0.0)
         summed = F.avg_pool2d(xp, ksize, strides, pads, divisor_override=1)
         if attrs.get("exclusive", True) and (paddings[0] or paddings[1]):
-            counts = _np_pool_counts(tuple(xs.shape[2:]), ksize, strides,
-                                     paddings)
-            out = summed / torch.as_tensor(counts, dtype=summed.dtype,
-                                           device=summed.device)
+            out = summed / _pool_counts(
+                tuple(xs.shape[2:]), tuple(ksize), tuple(strides),
+                tuple(paddings), summed.dtype, summed.device,
+                torch.is_inference_mode_enabled())
         else:
             out = summed / (ksize[0] * ksize[1])
     out = _from_nchw(out, attrs)

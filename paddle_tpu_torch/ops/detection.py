@@ -23,7 +23,8 @@ device.  `_iou_np` serves the NMS and the mAP.
 import numpy as np
 import torch
 
-from .registry import keep_declared, register_op, values_of
+from .registry import (device_constant, keep_declared, register_op,
+                       values_of)
 
 
 def _expand_ratios(aspect_ratios, flip):
@@ -340,8 +341,8 @@ def multibox_loss(ctx, ins, attrs):
     if gt_box_t is not gt_boxes:
         splits = gt_box_t.last_splits()
     else:
-        splits = torch.tensor([0, gt_boxes.shape[0]], dtype=torch.int32,
-                              device=dev)
+        splits = device_constant((0, gt_boxes.shape[0]), torch.int32,
+                                 dev)
     g = gt_boxes.shape[0]
     img_of_gt = torch.searchsorted(
         splits[1:].contiguous(),

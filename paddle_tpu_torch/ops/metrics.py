@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..core.ragged import RaggedTensor
-from .registry import dense, keep_declared, register_op
+from .registry import dense, device_constant, keep_declared, register_op
 
 
 @register_op("accuracy", stop_gradient_op=True,
@@ -75,9 +75,9 @@ def auc(ctx, ins, attrs):
     label = _flat(ins["Label"][0], "auc", torch.int32).reshape(-1)
     score = preds[:, 1] if preds.dim() == 2 and preds.shape[1] >= 2 \
         else preds.reshape(-1)
-    ths = torch.as_tensor(auc_thresholds(int(attrs.get("num_thresholds",
-                                                        200))),
-                          device=score.device)
+    ths = device_constant(
+        tuple(auc_thresholds(int(attrs.get("num_thresholds", 200)))
+              .tolist()), torch.float32, score.device)
     pred_pos = score[None, :] > ths[:, None]          # [T, N]
     pos = (label == 1)[None, :]
     tp = (pred_pos & pos).sum(1).to(torch.float32)

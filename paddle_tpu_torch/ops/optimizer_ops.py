@@ -14,13 +14,21 @@ outputs, which name the same variables as Param and the state inputs
 A SelectedRows grad (`lookup_table(is_sparse=True)`) takes the JAX
 side's semantics exactly.  `sgd` and `adagrad` update by rows
 (`core.ragged.add_rows_`: the rows of a repeated id summed in a fixed
-order, then one `index_add` at the grad's ids), so rows outside the
+order, then one `index_add_` at the grad's ids), so rows outside the
 batch keep their bits and the update repeats bit for bit on the card.
-The out-of-place scatter copies the table first: the JAX executor donates the buffer instead,
-and the port's executor has no such donation yet (ROADMAP A2).  Every
-other op densifies the grad first (`SelectedRows.to_dense`), so under
-Adam a row outside the batch still moves once its moments are nonzero;
-a "lazy" sparse Adam is not the JAX side's function.
+Every other op densifies the grad first (`SelectedRows.to_dense`), so
+under Adam a row outside the batch still moves once its moments are
+nonzero; a "lazy" sparse Adam is not the JAX side's function.
+
+Donation: where the executor donates a state tensor (fluid/executor.py,
+FLAGS_donation), it names the update op's in-place output slots in
+`ctx.in_place`, and `sgd`, `momentum`, `adam` and `adagrad` write those
+outputs into their inputs' storage: the last elementwise op of each
+takes `out=` (the same kernel, so the same bits), and a by-rows update
+adds into the table itself instead of a copy of it, as the JAX
+executor's donated scatter does.  Without donation (an eager run,
+FLAGS_donation=off, or a result of another dtype than the state's, as
+a bf16 state updated in f32) every output is a new tensor.
 """
 
 import numpy as np
@@ -47,10 +55,27 @@ def _dense_grad(ins):
     return g.to_dense() if isinstance(g, SelectedRows) else g
 
 
-def _scatter_add(x, rows, values):
-    """A copy of x with `values` added at the SelectedRows ids `rows`
-    (`core.ragged.add_rows_`)."""
-    return add_rows_(x.clone(), rows, values)
+def _scatter_add(x, rows, values, in_place=False):
+    """x with `values` added at the SelectedRows ids `rows`
+    (`core.ragged.add_rows_`): into x itself when the executor donated
+    it, else into a copy."""
+    return add_rows_(x if in_place else x.clone(), rows, values)
+
+
+def _donated(ctx, slot):
+    """Whether the executor donated output `slot` (ctx.in_place; a
+    shape-inference context donates nothing)."""
+    return slot in getattr(ctx, "in_place", ())
+
+
+def _into(ctx, slot, dst, fn, a, b):
+    """fn(a, b), written into `dst` when the executor donated `slot`
+    and the result has dst's shape and dtype: the same kernel with
+    `out=dst`, so the same bits as the new tensor."""
+    if _donated(ctx, slot) and dst.dtype == torch.result_type(a, b) \
+            and dst.shape == torch.broadcast_shapes(a.shape, b.shape):
+        return fn(a, b, out=dst)
+    return fn(a, b)
 
 
 @register_op("sgd", stop_gradient_op=True, in_place_outputs=("ParamOut",))
@@ -59,8 +84,10 @@ def sgd(ctx, ins, attrs):
     (reference sgd_op.cc, the SelectedRows path)."""
     p, g = ins["Param"][0], ins["Grad"][0]
     if isinstance(g, SelectedRows):
-        return {"ParamOut": [_scatter_add(p, g.rows, -_lr(ins) * g.values)]}
-    return {"ParamOut": [p - _lr(ins) * g]}
+        return {"ParamOut": [_scatter_add(p, g.rows, -_lr(ins) * g.values,
+                                          _donated(ctx, "ParamOut"))]}
+    return {"ParamOut": [_into(ctx, "ParamOut", p, torch.sub, p,
+                               _lr(ins) * g)]}
 
 
 @register_op("momentum", stop_gradient_op=True,
@@ -72,11 +99,12 @@ def momentum(ctx, ins, attrs):
     g = _dense_grad(ins)
     lr = _lr(ins)
     mu = attrs["mu"]
-    v_out = mu * v + g
+    v_out = _into(ctx, "VelocityOut", v, torch.add, mu * v, g)
     if attrs.get("use_nesterov", False):
-        p_out = p - (g + mu * v_out) * lr
+        p_out = _into(ctx, "ParamOut", p, torch.sub, p,
+                      (g + mu * v_out) * lr)
     else:
-        p_out = p - lr * v_out
+        p_out = _into(ctx, "ParamOut", p, torch.sub, p, lr * v_out)
     return {"ParamOut": [p_out], "VelocityOut": [v_out]}
 
 
@@ -93,10 +121,13 @@ def adam(ctx, ins, attrs):
     b1 = attrs.get("beta1", 0.9)
     b2 = attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
-    m1_out = b1 * m1 + (1 - b1) * g
-    m2_out = b2 * m2 + (1 - b2) * torch.square(g)
+    m1_out = _into(ctx, "Moment1Out", m1, torch.add, b1 * m1,
+                   (1 - b1) * g)
+    m2_out = _into(ctx, "Moment2Out", m2, torch.add, b2 * m2,
+                   (1 - b2) * torch.square(g))
     lr_t = _lr(ins) * torch.sqrt(1 - b2p) / (1 - b1p)
-    p_out = p - lr_t * m1_out / (torch.sqrt(m2_out) + eps)
+    p_out = _into(ctx, "ParamOut", p, torch.sub, p,
+                  lr_t * m1_out / (torch.sqrt(m2_out) + eps))
     return {"ParamOut": [p_out], "Moment1Out": [m1_out],
             "Moment2Out": [m2_out]}
 
@@ -132,10 +163,12 @@ def adagrad(ctx, ins, attrs):
     mom = ins["Moment"][0]
     eps = attrs.get("epsilon", 1e-6)
     if isinstance(g, SelectedRows):
-        mom_out = _scatter_add(mom, g.rows, torch.square(g.values))
+        mom_out = _scatter_add(mom, g.rows, torch.square(g.values),
+                               _donated(ctx, "MomentOut"))
         index, _ = row_index(g.rows, p.shape[0])
         p_out = _scatter_add(
-            p, g.rows, -lr * g.values / (torch.sqrt(mom_out[index]) + eps))
+            p, g.rows, -lr * g.values / (torch.sqrt(mom_out[index]) + eps),
+            _donated(ctx, "ParamOut"))
         return {"ParamOut": [p_out], "MomentOut": [mom_out]}
     mom_out = mom + torch.square(g)
     p_out = p - lr * g / (torch.sqrt(mom_out) + eps)

@@ -44,6 +44,7 @@ deterministic mode stays off.
 """
 
 import contextlib
+import functools
 import sys
 
 import torch
@@ -53,10 +54,11 @@ from ..core.tensor_array import TensorArray
 from ..core.types import GRAD_SUFFIX, VarType
 
 __all__ = ["OpInfo", "register_op", "register_grad_kernel", "get_op_info",
-           "has_op", "registered_ops", "is_grad_op_type",
+           "has_op", "capture_exceptions", "registered_ops",
+           "is_grad_op_type",
            "forward_type_of_grad", "run_generic_grad", "span",
            "infer_meta", "dense", "values_of", "like", "keep_declared",
-           "deterministic_cudnn", "dtensor_type"]
+           "deterministic_cudnn", "dtensor_type", "device_constant"]
 
 
 # values with a structure around one float tensor: the generic grad
@@ -101,6 +103,22 @@ def deterministic_cudnn():
                    deterministic=True, allow_tf32=b.allow_tf32)
 
 
+@functools.lru_cache(maxsize=1024)
+def _constant(values, dtype, device, inference):
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_constant(values, dtype, device):
+    """`values` (a number or a nested tuple of numbers) as a tensor on
+    `device`, made once and kept: a kernel's constant that a CUDA graph
+    capture could not copy from the host, which reads the one the
+    signature's warm-up made.  Read-only: a kernel returns a copy of it.
+    One per inference mode, since a grad cannot save an inference
+    tensor."""
+    return _constant(values, dtype, torch.device(device),
+                     torch.is_inference_mode_enabled())
+
+
 def keep_declared(block, op_desc):
     """An `infer_desc` rule that leaves the output VarDescs as their
     layer declared them: the JAX side's `infer_shape` hooks that return
@@ -126,13 +144,24 @@ class OpInfo:
     package's fact about the type, kept with the same value: False for
     a host op there (it reads values on the host, or has an effect:
     `print`, `save`, `dist_send`, the beam and rank-table bookkeeping),
-    True for a device op.  It says nothing about how the port runs the
-    op (the port runs every op eagerly); the program analysis reads it:
-    dead-code elimination keeps a host op, CSE merges only device ops,
-    and lint L002 reports a host op between device ops."""
+    True for a device op.  The program analysis reads it: dead-code
+    elimination keeps a host op, CSE merges only device ops, lint L002
+    reports a host op between device ops, and the donation analysis
+    (analysis/alias.py) segments by it as the JAX executor does.
+
+    `capturable` is the port's own fact: whether the torch kernel (and
+    its grad kernel) can run inside a CUDA graph capture, i.e. makes no
+    read of the device from the host (`.item()`, `bool(t)`, `.cpu()`,
+    an output whose shape depends on values) and no copy of host data
+    to the device.  It defaults to `jittable`; a jittable op whose
+    kernel reads the device from the host registers `capturable=False`
+    and names why in `not_capturable` (`capture_exceptions()` lists
+    them).  The executor captures maximal runs of capturable ops
+    (fluid/executor.py) and runs the others eagerly between them."""
 
     __slots__ = ("type", "kernel", "grad_kernel", "infer_shape",
-                 "infer_desc", "jittable", "uses_rng", "nondiff_inputs",
+                 "infer_desc", "jittable", "capturable", "not_capturable",
+                 "uses_rng", "nondiff_inputs",
                  "stop_gradient_op", "in_place_outputs", "sparse_grad_slots",
                  "deterministic")
 
@@ -140,7 +169,7 @@ class OpInfo:
                  infer_desc=None, jittable=True, uses_rng=False,
                  nondiff_inputs=(), stop_gradient_op=False,
                  in_place_outputs=(), sparse_grad_slots=None,
-                 deterministic=False):
+                 deterministic=False, capturable=None, not_capturable=None):
         self.type = type
         self.kernel = kernel
         self.grad_kernel = grad_kernel        # None => generic vjp kernel
@@ -149,6 +178,11 @@ class OpInfo:
         # fn(block, op_desc) setting the output VarDescs; None => meta run
         self.infer_desc = infer_desc
         self.jittable = jittable
+        self.capturable = jittable if capturable is None else capturable
+        if jittable and not self.capturable and not not_capturable:
+            raise ValueError("op %r: a jittable op that cannot be captured "
+                             "names why (not_capturable=...)" % type)
+        self.not_capturable = not_capturable
         self.uses_rng = uses_rng
         self.nondiff_inputs = tuple(nondiff_inputs)  # slots never differentiated
         self.stop_gradient_op = stop_gradient_op     # no grads flow at all
@@ -198,6 +232,13 @@ def get_op_info(type):
 
 def has_op(type):
     return type in _OP_REGISTRY
+
+
+def capture_exceptions():
+    """{op type: reason} of every registered op whose two marks differ:
+    jittable on the JAX side, not capturable here."""
+    return {t: i.not_capturable for t, i in sorted(_OP_REGISTRY.items())
+            if i.jittable != i.capturable}
 
 
 def registered_ops():

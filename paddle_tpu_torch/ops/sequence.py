@@ -31,7 +31,7 @@ import torch
 
 from ..core.ragged import RaggedTensor
 from .amp_util import amp_result, mxu_operands
-from .registry import register_op, values_of
+from .registry import device_constant, register_op, values_of
 
 __all__ = ["ragged_to_padded", "padded_to_ragged"]
 
@@ -462,8 +462,8 @@ def sequence_reshape(ctx, ins, attrs):
     them."""
     x = ins["X"][0]
     new_dim = int(attrs["new_dim"])
-    factor = torch.tensor(x.values.shape[1] / new_dim, dtype=torch.float32,
-                          device=x.values.device)
+    factor = torch.full((), x.values.shape[1] / new_dim,
+                        dtype=torch.float32, device=x.values.device)
     rs = [(r.to(torch.float32) * factor).to(torch.int32)
           for r in x.row_splits]
     nvalid = (x.nvalid.to(torch.float32) * factor).to(torch.int32)
@@ -523,8 +523,9 @@ def lod_reset(ctx, ins, attrs):
     if ins.get("TargetLoD"):
         target = ins["TargetLoD"][0].reshape(-1).to(torch.int32)
     else:
-        target = torch.tensor([int(v) for v in attrs["target_lod"]],
-                              dtype=torch.int32, device=xv.device)
+        target = device_constant(
+            tuple(int(v) for v in attrs["target_lod"]), torch.int32,
+            xv.device).clone()
     return {"Out": [RaggedTensor(xv, [target])]}
 
 
@@ -635,7 +636,9 @@ def seq_outer_expand(ctx, ins, attrs):
     return {"Out": [values_of(x)[seg.long()]]}
 
 
-@register_op("seq_renest", nondiff_inputs=("OuterRef",))
+@register_op("seq_renest", nondiff_inputs=("OuterRef",), capturable=False,
+             not_capturable="checks the outer splits against its input's "
+                            "rows on the host (one read of the last offset)")
 def seq_renest(ctx, ins, attrs):
     """The outer splits of OuterRef put back over a flattened result:
     dense [n_inner, D] rows become a lod-1 sequence over the samples; a

@@ -23,14 +23,16 @@ order of the card's writes.  `recompute_barrier` waits with
 `RecomputeOptimizer` (ROADMAP A5).
 """
 
+import functools
+
 import numpy as np
 import torch
 
 from ..core.ragged import RaggedTensor, SelectedRows, add_rows_, row_index
 from ..core.types import exec_dtype, np_dtype, torch_dtype
 from .activation import jnp_clip
-from .registry import (dense, like, register_grad_kernel, register_op,
-                       values_of)
+from .registry import (dense, device_constant, like, register_grad_kernel,
+                       register_op, values_of)
 
 
 @register_op("fill_constant", stop_gradient_op=True)
@@ -207,10 +209,16 @@ def increment(ctx, ins, attrs):
     `x + step` raises a TypeError on one: ROADMAP C)."""
     xr = ins["X"][0]
     x = xr.values if isinstance(xr, RaggedTensor) else dense(xr, "increment")
-    # rounded through the dtype on the host: a device tensor made from a
-    # host scalar would cost a copy, and a sync, per decode step
-    step = torch.tensor(attrs.get("step", 1.0), dtype=x.dtype).item()
-    return {"Out": [like(xr, x + step)]}
+    return {"Out": [like(xr, x + _step_in(attrs.get("step", 1.0),
+                                          x.dtype))]}
+
+
+@functools.lru_cache(maxsize=None)
+def _step_in(step, dtype):
+    """`step` rounded through `dtype` on the host, once per pair: a
+    device tensor made from a host scalar would cost a copy, and a sync,
+    per decode step, and a captured segment may make neither."""
+    return torch.tensor(step, dtype=dtype).item()
 
 
 @register_op("sign")
@@ -368,5 +376,5 @@ def is_empty(ctx, ins, attrs):
 def shape_op(ctx, ins, attrs):
     """Input's shape as an int32 vector."""
     x = values_of(ins["Input"][0])
-    return {"Out": [torch.tensor(list(x.shape), dtype=torch.int32,
-                                 device=x.device)]}
+    return {"Out": [device_constant(tuple(x.shape), torch.int32,
+                                    x.device).clone()]}

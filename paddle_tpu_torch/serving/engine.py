@@ -3,15 +3,17 @@
 Counterpart of paddle_tpu/serving/engine.py.  Every batch pads up to a
 configured batch bucket and the fetches are sliced back to the true
 batch, so the set of shapes the card sees is small and known in
-advance, and `warmup()` runs each of them once at start-up.  A ragged
+advance, and `warmup()` runs each of them twice at start-up.  A ragged
 (LoD) feed, given as a list of per-sequence arrays or as a
 RaggedTensor, pads to the batch bucket with one-row zero sequences and
 its flat rows to a multiple of `token_bucket`, as DataFeeder pads them;
 a ragged fetch comes back as a host RaggedTensor of the true batch's
 sequences.  On the JAX side a bucket's first run is an XLA compile;
-here it is the first run of that shape (allocator growth, kernel build
-and library load), and the `serving_compile_cache_*` counters count a
-bucket's first run as its miss.  With `check_numerics` the fetched
+here the executor warms a bucket's segments up on its first run
+(allocator growth, kernel build and library load) and captures them
+into CUDA graphs on its second, and a served request replays them; the
+`serving_compile_cache_*` counters count a bucket's first run as its
+miss.  With `check_numerics` the fetched
 outputs are scanned for NaN/Inf on the host (`obs.health.scan_outputs`);
 a failing run reaches `obs.flight.on_crash` before it propagates.  Each
 `run` passes the `serving/run` fault point (resilience/faults.py).
@@ -300,10 +302,15 @@ class InferenceEngine:
         return np.zeros((batch,) + sample, meta["dtype"])
 
     def warmup(self):
-        """Check the program, then run every batch bucket once with
-        synthetic zero feeds, so no in-bucket request is a bucket's
-        first run.  Returns the number of buckets warmed;
-        `last_warmup_stats` records buckets and seconds, and
+        """Check the program, then run every batch bucket twice with
+        synthetic zero feeds: the first run warms the executor's
+        segments up, the second captures them, so every in-bucket
+        request replays.  Returns the number of buckets warmed;
+        `last_warmup_stats` records buckets, seconds, the captures
+        (`captures`, this executor's, the CPU's plain ones included)
+        and `jit_compiles` (the CUDA graph captures counted in
+        `executor_jit_traces_total`, as the JAX engine counts its jit
+        compiles), and
         `last_check` the program check's report and seconds.  A program
         with a ragged feed warms only with `warmup_ragged`.
 
@@ -331,15 +338,27 @@ class InferenceEngine:
             return 0
         # warmup is start-up cost, not traffic: keep it out of the
         # request-path histograms and hit/miss counters
+        from ..obs import telemetry as obs_tele
+
         saved_metrics, self.metrics = self.metrics, None
+        captures = self._exe.captures
+        snap_before = obs_tele.snapshot()
         t0 = time.perf_counter()
         try:
             for bucket in self.config.batch_buckets:
-                self.run({n: self._synthetic_feed(m, bucket)
-                          for n, m in self._feed_meta.items()})
+                feeds = {n: self._synthetic_feed(m, bucket)
+                         for n, m in self._feed_meta.items()}
+                # the executor warms a signature up on its first run and
+                # captures it on the second, so the bucket's first
+                # request replays
+                for _ in range(2):
+                    self.run(feeds)
         finally:
             self.metrics = saved_metrics
+        delta = obs_tele.snapshot_delta(snap_before)
         self.last_warmup_stats = {
             "buckets": len(self.config.batch_buckets),
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0,
+            "jit_compiles": delta.get("executor_jit_traces_total", 0),
+            "captures": self._exe.captures - captures}
         return len(self.config.batch_buckets)

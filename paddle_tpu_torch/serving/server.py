@@ -23,7 +23,7 @@ Every request gets a trace context (`obs.context`): it continues the
 caller's W3C `traceparent` when one is sent, and every reply echoes it
 with an `x-request-id`.  The JAX server's `memory` section of /healthz
 reads its compiled executables' memory capture (`obs/mem.py`), which
-the port does not have yet (ROADMAP A2).
+waits with ROADMAP A2's second part.
 """
 
 import json

@@ -120,9 +120,9 @@ def make_overlapped_dp_step(program, feed_names, fetch_names, mesh,
     tensor.  Every rank runs the same call.  Callers gate on
     `overlap_supported` first.
 
-    donate_state is accepted and does nothing (buffer donation waits
-    with ROADMAP A2): the step makes new state tensors and never writes
-    the old ones.
+    donate_state is accepted and does nothing (donation on the mesh
+    path waits with ROADMAP A2's second part): the step makes new state
+    tensors and never writes the old ones.
 
     skip_reduce=True elides the bucketed ring entirely — the optimizer
     applies LOCAL gradients, so the result is numerically WRONG across

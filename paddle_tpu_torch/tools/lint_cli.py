@@ -13,6 +13,11 @@
     # (tests/fixtures/golden), optionally after a rewrite pipeline:
     python -m paddle_tpu_torch.tools.lint_cli --golden --passes default
 
+    # additionally run the A0xx donation-safety analysis
+    # (analysis/alias.py): which buffers each captured segment can
+    # donate, and why the rest are refused:
+    python -m paddle_tpu_torch.tools.lint_cli path/to/model_dir --donation
+
     # the certification run, its executor leg on the card (--use_gpu=0:
     # on the CPU):
     python -m paddle_tpu_torch.tools.lint_cli --selftest
@@ -28,8 +33,10 @@ package's.
 (analysis/shard.py) against a mesh description and merges its S0xx
 findings into the report; the text output adds the comm totals and the
 per-device peak-memory estimate, `--json` a `sharding` section.
-`--donation` needs the donation-safety analysis (ROADMAP A2): it raises
-SystemExit naming its item.
+`--donation` runs the donation-safety analysis (analysis/alias.py) and
+merges its A0xx findings; the text output adds a line with the plan's
+mode, donated and refused buffers and fingerprint, `--json` a
+`donation` section.
 
 `--selftest` builds a REAL training program, asserts it verifies with
 zero error-severity diagnostics, then seeds seven deliberate
@@ -45,8 +52,13 @@ golden fixture over the four dryrun mesh shapes (dp/mp, dp/mp/sp,
 pp/dp, dp/ep) asserting zero errors, seeds one corruption per S0xx code
 (unmatched rule, non-divisible batch, conflicting layouts, schedule
 mismatch, memory budget) asserting each exact code, and finds the comm
-bytes in the registry.  The JAX selftest's donation leg waits on A2;
-the port's prints a line saying so.
+bytes in the registry.  The donation leg does the same for the A0xx
+family: an Adam toy, lenet5 and the golden fixtures plan clean, then
+one seeded corruption per code (a forked Adam slot A001, a plan
+replayed over a program with a late reader A002, a fetched donatable
+intermediate A003, an in-place update in a host segment A004, an
+unsafe backend A005), each asserting its exact code, and the three
+modes' ladder.
 """
 
 import argparse
@@ -90,8 +102,10 @@ def parse_args(argv=None):
                         "pass can never emit a program the linter would "
                         "reject")
     p.add_argument("--donation", action="store_true",
-                   help="the donation-safety analysis: waits with "
-                        "buffer donation (ROADMAP A2)")
+                   help="also run the A0xx donation-safety analysis "
+                        "(analysis/alias.py): which buffers each "
+                        "captured segment can donate, and why the "
+                        "rest are refused")
     p.add_argument("--suppress", default=None,
                    help="comma-separated suppressions, e.g. "
                         "H002,L003@dropout,D002@var:tmp_0")
@@ -111,16 +125,6 @@ def parse_args(argv=None):
 
 def _split(csv):
     return [s for s in (csv or "").split(",") if s]
-
-
-def _refuse_waiting(args):
-    """The option whose analysis has no port yet raises SystemExit
-    naming its ROADMAP item."""
-    if args.donation:
-        raise SystemExit(
-            "lint_cli: --donation needs the donation-safety analysis "
-            "(analysis/alias.py) and buffer donation, which the port "
-            "does not have yet (ROADMAP A2)")
 
 
 def _shard_analyze(desc, args, report, fetches=None):
@@ -146,12 +150,31 @@ def _shard_analyze(desc, args, report, fetches=None):
     return plan
 
 
-def _report_exit(name, report, args, plan=None):
+def _donation_analyze(desc, args, report, fetches=None):
+    """Run the donation-safety analysis under --donation, merging A0xx
+    findings into `report`; returns the DonationPlan (None without
+    --donation)."""
+    if not args.donation:
+        return None
+    from .. import analysis
+
+    before = len(report.diagnostics)
+    plan = analysis.analyze_donation(desc, fetches=fetches or (),
+                                     report=report, publish=False)
+    # as in _shard_analyze: count only the findings this analysis added
+    analysis.Report(report.diagnostics[before:]).publish(
+        origin="lint_cli_donation")
+    return plan
+
+
+def _report_exit(name, report, args, plan=None, donation=None):
     if args.json:
         doc = report.to_dict()
         doc["target"] = name
         if plan is not None:
             doc["sharding"] = plan.to_dict()
+        if donation is not None:
+            doc["donation"] = donation.to_dict()
         print(json.dumps(doc, indent=1, sort_keys=True))
     else:
         shown = report.sorted()
@@ -165,6 +188,16 @@ def _report_exit(name, report, args, plan=None):
                   % (name, dict(plan.mesh_axes),
                      {k: int(v) for k, v in comm.items()} or "none",
                      (plan.peak_hbm_bytes or 0) / 2**30))
+        if donation is not None:
+            donate = sum(len(donation.donate(i))
+                         for i in range(len(donation.segments)))
+            refused = sum(1 for e in donation.entries
+                          if e["status"] == "reclaimable") \
+                + sum(len(s["declined"]) for s in donation.segments)
+            print("[lint] %s: donation mode=%s(effective %s) "
+                  "donates %d buffer(s)/step, %d refused, plan %s"
+                  % (name, donation.mode, donation.effective_mode,
+                     donate, refused, donation.fingerprint()))
         print("[lint] %s: %d error(s), %d warning(s), %d info, "
               "%d suppressed"
               % (name, len(report.errors), len(report.warnings),
@@ -189,7 +222,9 @@ def lint_model_dir(args):
         bucket_hints=meta.get("bucket_hints"),
         suppress=_split(args.suppress), origin="lint_cli")
     plan = _shard_analyze(desc, args, report, fetches=fetches)
-    return _report_exit(args.model_dir, report, args, plan=plan)
+    dplan = _donation_analyze(desc, args, report, fetches=fetches)
+    return _report_exit(args.model_dir, report, args, plan=plan,
+                        donation=dplan)
 
 
 def lint_golden(args):
@@ -199,7 +234,7 @@ def lint_golden(args):
     description."""
     from .. import analysis
 
-    results = []  # (name, report, sharding plan)
+    results = []  # (name, report, sharding plan, donation plan)
     for name, desc in _golden_descs(args.golden):
         if args.passes:
             # lint the POST-PASS program: the optimized IR is what
@@ -215,7 +250,8 @@ def lint_golden(args):
             desc, level=args.level, suppress=_split(args.suppress),
             origin="lint_golden")
         plan = _shard_analyze(desc, args, report)
-        results.append((name, report, plan))
+        dplan = _donation_analyze(desc, args, report)
+        results.append((name, report, plan, dplan))
     if not results:
         print("[lint] no golden ProgramDesc fixtures found")
         return 1
@@ -224,19 +260,22 @@ def lint_golden(args):
         # json.dumps per fixture
         docs = []
         rc = 0
-        for name, report, plan in results:
+        for name, report, plan, dplan in results:
             d = report.to_dict()
             d["target"] = name
             if plan is not None:
                 d["sharding"] = plan.to_dict()
+            if dplan is not None:
+                d["donation"] = dplan.to_dict()
             docs.append(d)
             if report.errors or (args.strict and report.warnings):
                 rc = 1
         print(json.dumps(docs, indent=1, sort_keys=True))
         return rc
     rc = 0
-    for name, report, plan in results:
-        rc |= _report_exit(name, report, args, plan=plan)
+    for name, report, plan, dplan in results:
+        rc |= _report_exit(name, report, args, plan=plan,
+                           donation=dplan)
     return rc
 
 
@@ -447,6 +486,162 @@ def _shard_corruptions():
     ]
 
 
+def _build_two_segment():
+    """fc -> print -> mean: the host print op splits block 0 into two
+    captured segments, so the fc output crosses a segment boundary and
+    the tail segment can (provably) donate it.  Returns (main, startup,
+    intermediate name, loss name)."""
+    from .. import fluid
+    from ..core.desc import OpDesc
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[16], dtype="float32")
+        h = fluid.layers.fc(input=x, size=8)
+        loss = fluid.layers.mean(x=h)
+    bd = main.desc.block(0)
+    i = next(i for i, od in enumerate(bd.ops) if od.type == "mean")
+    bd.ops.insert(i, OpDesc("print", {"X": [h.name]},
+                            {"Out": [h.name]},
+                            {"message": "seg-split", "summarize": 1}))
+    return main, startup, h.name, loss.name
+
+
+def _build_adam_toy():
+    """fc -> mean -> Adam in a fresh Program pair (the JAX package's
+    mem_cli toy)."""
+    from .. import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[64], dtype="float32")
+        h = fluid.layers.fc(input=x, size=32)
+        cost = fluid.layers.mean(x=h)
+        fluid.optimizer.AdamOptimizer(learning_rate=0.01).minimize(cost)
+    return main, startup, cost
+
+
+def _fork_adam_slot(program):
+    """Break one Adam update's Moment1Out alias on purpose (the H003
+    fork class); returns the stranded moment's name."""
+    from ..core.desc import VarDesc
+
+    bd = program.desc.block(0)
+    for od in bd.ops:
+        if od.type == "adam":
+            m1 = od.input("Moment1")[0]
+            fork = m1 + "__fork"
+            src = bd.vars[m1]
+            bd.vars[fork] = VarDesc(fork, src.type, src.dtype,
+                                    src.shape, persistable=True)
+            od.outputs["Moment1Out"] = [fork]
+            return m1
+    raise AssertionError("no adam op to fork")
+
+
+def _donation_corruptions():
+    """[(label, expected A-code, run(analysis) -> Report)]: one seeded
+    donation-safety corruption per stable A0xx code."""
+    from ..core.desc import OpDesc
+
+    def a001_forked_slot(analysis):
+        main, _startup, cost = _build_adam_toy()
+        _fork_adam_slot(main)
+        return analysis.analyze_donation(
+            main, fetches=[cost.name], publish=False).report
+
+    def a002_late_reader(analysis):
+        # plan first, then the program grows a reader of the donated
+        # intermediate: replaying the stale plan must be an ERROR
+        main, _startup, hname, lname = _build_two_segment()
+        plan = analysis.analyze_donation(main, fetches=[lname],
+                                         feeds=["x"], publish=False)
+        assert any(hname in s["widened"] for s in plan.segments), \
+            "two-segment seed did not widen %r: %r" \
+            % (hname, [s["widened"] for s in plan.segments])
+        main.desc.block(0).ops.append(
+            OpDesc("scale", {"X": [hname]}, {"Out": ["__late__"]},
+                   {"scale": 2.0}))
+        return plan.verify(main, fetches=[lname, "__late__"])
+
+    def a003_fetched_candidate(analysis):
+        main, _startup, hname, lname = _build_two_segment()
+        return analysis.analyze_donation(
+            main, fetches=[hname, lname], feeds=["x"],
+            publish=False).report
+
+    def a004_non_captured_update(analysis):
+        # dist_send declares ParamOut in place but is a host op: the
+        # declared reuse strands in its eager segment
+        main, _startup, cost = _build_adam_toy()
+        bd = main.desc.block(0)
+        pname = next(n for n, vd in bd.vars.items() if vd.is_parameter)
+        bd.ops.append(OpDesc("dist_send",
+                             {"Param": [pname], "Grad": [pname]},
+                             {"ParamOut": [pname]},
+                             {"param_name": pname, "blocks": []}))
+        return analysis.analyze_donation(
+            main, fetches=[cost.name], publish=False).report
+
+    def a005_unsafe_backend(analysis):
+        main, _startup, cost = _build_adam_toy()
+        return analysis.analyze_donation(
+            main, fetches=[cost.name], mode="auto",
+            backend_safe=False, publish=False).report
+
+    return [
+        ("forked in-place slot", "A001", a001_forked_slot),
+        ("read-after-donation hazard", "A002", a002_late_reader),
+        ("fetch aliases donatable buffer", "A003",
+         a003_fetched_candidate),
+        ("in-place update stranded in a host segment", "A004",
+         a004_non_captured_update),
+        ("donation-unsafe backend", "A005", a005_unsafe_backend),
+    ]
+
+
+def _selftest_donation(args):
+    """The donation-safety analyzer leg of --selftest."""
+    from .. import analysis
+
+    # 1. clean targets plan with zero A-code findings: the adam toy
+    #    (donates its conservative set), lenet5, every golden fixture
+    main, _startup, cost = _build_adam_toy()
+    plan = analysis.analyze_donation(main, fetches=[cost.name],
+                                     publish=False)
+    assert plan.report.ok() and not plan.report.codes(), \
+        "clean adam toy reported:\n%s" % plan.report.format()
+    assert any(plan.donate(i) for i in range(len(plan.segments))), \
+        "clean adam toy donates nothing"
+    lenet_main, lenet_loss = _build_lenet5_train()
+    targets = [("lenet5", lenet_main, [lenet_loss])]
+    targets += [(name, desc, None) for name, desc in _golden_descs()]
+    for name, prog, fetches in targets:
+        p = analysis.analyze_donation(prog, fetches=fetches,
+                                      publish=False)
+        assert p.report.ok(), "%s donation plan has errors:\n%s" \
+            % (name, p.report.format())
+
+    # 2. every seeded corruption reports its exact A-code
+    for label, code, run in _donation_corruptions():
+        report = run(analysis)
+        assert report.has(code), \
+            "%s: expected %s, got codes %s\n%s" \
+            % (label, code, report.codes(), report.format())
+
+    # 3. the mode ladder is ordered: off donates nothing,
+    #    conservative a subset of auto, and the fingerprints differ
+    plans = {m: analysis.analyze_donation(main, fetches=[cost.name],
+                                          mode=m, publish=False)
+             for m in ("off", "conservative", "auto")}
+    for i in range(len(plans["auto"].segments)):
+        assert plans["off"].donate(i) == ()
+        assert set(plans["conservative"].donate(i)) <= \
+            set(plans["auto"].donate(i))
+    assert plans["off"].fingerprint() != plans["auto"].fingerprint()
+    return len(_donation_corruptions())
+
+
 def _selftest_sharding(args):
     """The sharding analyzer leg of --selftest."""
     from .. import analysis
@@ -575,23 +770,26 @@ def selftest(args):
     #    comm cost model in the registry
     n_shard = _selftest_sharding(args)
 
+    # 7. the donation-safety analyzer: clean programs plan green,
+    #    seeded A0xx corruptions each caught
+    n_donation = _selftest_donation(args)
+
     print("[lint] selftest green: clean program verified (0 errors), "
           "%d seeded corruptions each reported their code, "
           "suppression filters, executor FLAGS_verify_program gate "
           "on %s rejects before any op runs with op identity, finding "
           "counters in the registry; sharding: lenet5 + golden "
           "fixtures clean on %d dryrun mesh shapes, %d seeded S-code "
-          "corruptions each caught, comm bytes published"
+          "corruptions each caught, comm bytes published; donation: "
+          "clean targets plan green, %d seeded A-code corruptions "
+          "each caught"
           % (len(_corruptions(main, loss_name, param_name)), place,
-             len(DRYRUN_MESHES), n_shard), flush=True)
-    print("[lint] the donation leg waits with buffer donation (ROADMAP "
-          "A2)", flush=True)
+             len(DRYRUN_MESHES), n_shard, n_donation), flush=True)
     return 0
 
 
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_waiting(args)
     if args.selftest:
         return selftest(args)
     if args.golden is not None:

@@ -445,8 +445,10 @@ def _selftest_measure_fit(args, plan, bad, workdir, use_gpu):
     from ..tune.rank import Calibration
 
     history = os.path.join(workdir, "ptune_history.jsonl")
+    # 2 untimed steps: on the card the executor captures a step on its
+    # second run, so the timed steps replay
     results = tune_measure.measure_plan(
-        plan, topk=2, history=history, iters=3, warmup=1,
+        plan, topk=2, history=history, iters=3, warmup=2,
         extra_env=_leg_env(use_gpu), timeout=600)
     assert len(results) == 2, results
     for r in results:

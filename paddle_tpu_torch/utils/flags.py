@@ -8,7 +8,9 @@ the AMP policy (`amp_bf16`, `amp_bf16_act`), the batch-norm statistics
 form (`bn_shifted_stats`), the optimizer's update fusion
 (`fuse_optimizer`, `fuse_optimizer_max_numel`: fluid/fusion.py), and
 the executor's program verification and rewrite pipeline
-(`verify_program`, `compile_passes`: fluid/executor.py), and the C
+(`verify_program`, `compile_passes`: fluid/executor.py), the buffer
+donation of its captured segments (`donation`: fluid/executor.py,
+analysis/alias.py), and the C
 inference API's place (`use_gpu`: capi_impl.py; the C signature has
 none, so `FLAGS_use_gpu=0` in a C program's environment asks for the
 CPU), and the sharding verification of the parallel trainer
@@ -107,6 +109,16 @@ DEFINE_flag("compile_passes", "",
             "'default+fuse:cap=8'.  Every pass is verified before and "
             "after it runs.  Empty (the default) runs programs exactly "
             "as built")
+DEFINE_flag("donation", "auto",
+            "buffer donation of the executor's captured segments "
+            "(analysis/alias.py): 'conservative' writes the new value "
+            "of every state tensor a segment reads and updates (the "
+            "outputs-intersect-reads set: parameters, optimizer state) "
+            "into the scope tensor's own storage; 'auto' (default) "
+            "also gives up every buffer the A0xx analysis proves dead "
+            "after its segment; 'off' donates nothing (the numerics "
+            "baseline: donation preserves values, so the three modes "
+            "match bit for bit).  Eager runs never donate")
 DEFINE_flag("verify_sharding", False,
             "run the static SPMD analyzer (analysis/shard.py) at the "
             "parallel trust boundaries before a step runs: "

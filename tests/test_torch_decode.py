@@ -12,6 +12,9 @@
   default size, and over tests/test_fast_decode.py's RNN step: tokens
   equal JAX's token for token; step logits along JAX's trajectory at
   atol 1e-5 (f32, 2 layers, sums in other orders); the validation errors.
+- Each decode call through its key's captured loop (the first call
+  warm, the second captured, the third replayed; the CPU runs the plain
+  loop on the static buffers): tokens equal the first call's and JAX's.
 - Sampling: the port draws from a torch.Generator and cannot reproduce
   JAX's PRNG stream, so it is held to the limits (temperature -> 0 and
   top_k=1 are greedy, a seed repeats) and to the distribution: one
@@ -231,6 +234,44 @@ def test_cached_beam_matches_jax(trained, beam_size, length_penalty):
         toks, _ = pd.greedy(bos=3, eos=5, max_len=8, batch_size=B,
                             init_state=_init_state())
         np.testing.assert_array_equal(ps[:, 0], toks)
+
+
+def test_decode_calls_under_the_plan_give_the_same_tokens(trained, rnn):
+    """Each decode call runs through its key's graph: the first call
+    warms up eagerly, the second captures, the third replays (on the CPU
+    the plain loop on the static buffers).  Greedy, prompted greedy and
+    beam give the first call's tokens (and scores) and JAX's each time;
+    sampling repeats a seed and changes with another."""
+    jd, pd = _decoders(trained, B)
+    prompt = np.random.RandomState(8).randint(0, V, (B, 5)).astype(np.int64)
+    for kw in (dict(bos=3, max_len=10),
+               dict(bos=0, max_len=T - 4, prompt=prompt)):
+        want = jd.greedy(eos=V + 1, batch_size=B, init_state=_init_state(),
+                         **kw)
+        for _ in range(3):
+            got = pd.greedy(eos=V + 1, batch_size=B,
+                            init_state=_init_state(), **kw)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+    assert (pd.captures, pd.replays) == (2, 2)
+    jd3, pd3 = _decoders(trained, B * 3)
+    kw = dict(beam_size=3, bos=3, eos=5, max_len=8, batch_size=B)
+    js, jsc = jd3.beam(init_state=_init_state(), **kw)
+    for _ in range(3):
+        ps, psc = pd3.beam(init_state=_init_state(), **kw)
+        np.testing.assert_array_equal(ps, js)
+        np.testing.assert_allclose(psc, jsc, atol=1e-5)
+    assert (pd3.captures, pd3.replays) == (1, 1)
+    dec = _rnn_decoder(rnn)
+    init = {"h_in": np.zeros((6, RH), np.float32)}
+    kw = dict(bos=1, eos=0, max_len=10, init_state=init, temperature=1.5)
+    draws = [dec.sample(seed=3, **kw) for _ in range(3)]
+    for toks, lengths in draws[1:]:
+        np.testing.assert_array_equal(toks, draws[0][0])
+        np.testing.assert_array_equal(lengths, draws[0][1])
+    other, _ = dec.sample(seed=4, **kw)
+    assert not np.array_equal(other, draws[0][0])
+    assert (dec.captures, dec.replays) == (1, 2)
 
 
 def test_cached_step_logits_along_jax_trajectory(decoders):

@@ -15,8 +15,10 @@ the CPU.
   golden fixtures the exit code and every `[lint]` line (the sharding
   summary's comm bytes and memory estimate, the finding counts) equal
   the JAX CLI's, and `--selftest --mesh` exits 0 through its sharding
-  leg; `--donation` still raises SystemExit naming ROADMAP A2, and the
-  selftest says its donation leg waits with A2.
+  leg; `--donation` (ported with the donation analysis of ROADMAP A2)
+  runs too: over the golden fixtures its exit code and `[lint]` lines,
+  the plan's line included, equal the JAX CLI's, and the selftest runs
+  its donation leg.
 """
 
 import collections
@@ -134,7 +136,8 @@ def test_selftest_on_the_cpu(capsys):
     assert "selftest green" in out and "7 seeded corruptions" in out
     assert "4 dryrun mesh shapes" in out
     assert "5 seeded S-code corruptions" in out
-    assert "ROADMAP A2" in out and "ROADMAP A9" not in out
+    assert "5 seeded A-code corruptions each caught" in out
+    assert "ROADMAP" not in out
 
 
 def _lint_lines(out):
@@ -149,12 +152,8 @@ def _lint_lines(out):
     (["--selftest", "--mesh", "dp=4,mp=2"], "A9"),
 ])
 def test_waiting_options_name_their_item(argv, item, capsys):
-    """The options of ROADMAP A9 (the sharding analyzer, this slice)
-    run as the JAX CLI's do; the one of A2 still raises naming it."""
-    if item == "A2":
-        with pytest.raises(SystemExit, match="ROADMAP " + item):
-            tlint.main(argv)
-        return
+    """The options that waited with ROADMAP A9 (the sharding analyzer)
+    and A2 (the donation analysis) run as the JAX CLI's do."""
     if argv[0] == "--selftest":
         assert tlint.main(argv + ["--use_gpu=0"]) == 0
         out = capsys.readouterr().out
@@ -168,3 +167,5 @@ def test_waiting_options_name_their_item(argv, item, capsys):
     assert _lint_lines(got_out) == _lint_lines(want_out)
     if "--mesh" in argv:
         assert "mesh={'dp': 4, 'mp': 2}" in got_out
+    if "--donation" in argv:
+        assert "donation mode=auto(effective auto)" in got_out

@@ -427,8 +427,7 @@ def test_scan_outputs_and_the_switch():
     with t_health.force_attribution():
         assert t_health.attribution_forced()
     assert not t_health.attribution_forced()
-    assert set(t_health.__all__) == set(j_health.__all__) - {
-        "publish_compile_stats", "retire_compile_stats"}
+    assert set(t_health.__all__) == set(j_health.__all__)
 
 
 # -- context, tail, flight ----------------------------------------------------

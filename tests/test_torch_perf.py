@@ -371,7 +371,7 @@ def test_step_profiler_records_ring_and_split():
         assert r["trainer"] == "t1" and r["examples"] == 2
     for r in sampled:
         assert 0 < r["device_s"] <= r["wall_s"]
-    # the port never retraces, so every sampled step joins the mean
+    # nothing is captured on the CPU, so every sampled step joins the mean
     s = profiler.summary()
     assert s["steps"] == 5 and s["sampled_steps"] == 3
     assert s["split_ms"]["device"] > 0

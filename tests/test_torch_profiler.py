@@ -2,10 +2,12 @@
 
 - The per-op table of 2 steps of an MLP with SGD under `profiler()`:
   the same event names and call counts as the JAX package's eager run
-  (`eager=True`, its per-op interpreter; the port's executor is always
-  per op), and the same `profiler_event_calls_total` counters.
+  (`eager=True` in both packages: their per-op interpreters; a captured
+  segment records no op), and the same `profiler_event_calls_total`
+  counters.
 - `record_event` puts an `op` span on the obs trace while tracing is
-  on, without the table; while both are off the executor opens none.
+  on in an eager run, without the table; while both are off the
+  executor opens none.
 - `profiler(trace_dir=...)` writes a Chrome trace, `trace.json`, whose
   events name the executor's ops; the printed table is sorted by the
   key asked for.
@@ -62,7 +64,8 @@ def _port_run(steps=2, **kw):
     exe.run(startup, scope=scope)
     with t_profiler.profiler(**kw):
         for _ in range(steps):
-            exe.run(main, feed=FEED, fetch_list=[cost], scope=scope)
+            exe.run(main, feed=FEED, fetch_list=[cost], scope=scope,
+                    eager=True)
     return main
 
 
@@ -105,7 +108,7 @@ def test_record_event_spans_while_tracing_only():
     assert not t_profiler.active()
     t_trace.enable()
     assert t_profiler.active()
-    exe.run(main, feed=FEED, fetch_list=[cost], scope=scope)
+    exe.run(main, feed=FEED, fetch_list=[cost], scope=scope, eager=True)
     spans = [e["name"] for e in t_trace.events() if e.get("cat") == "op"]
     assert spans == [op.type for op in main.desc.block(0).ops]
     assert t_profiler.get_profile_records() == {}

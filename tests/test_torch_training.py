@@ -160,7 +160,8 @@ def test_port_startup_and_training_on_its_own():
     exe.run(startup, scope=scope)
     persist = {n for n, v in main.block(0).vars.items() if v.persistable}
     assert {n for n in persist if scope.get(n) is not None} == persist
-    w = scope.get("fc_0.w_0")
+    # a copy: the steps donate the parameter and write it in place
+    w = scope.get("fc_0.w_0").clone()
     limit = np.sqrt(6.0 / (D + 3 * D))
     assert tuple(w.shape) == (D, 3 * D) and w.dtype == torch.float32
     assert float(w.abs().max()) <= limit

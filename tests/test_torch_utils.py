@@ -77,7 +77,8 @@ def fresh_port_obs():
 # -- obs_dump ---------------------------------------------------------------------
 
 def _traces(tmp_path):
-    """A port trace and a JAX trace of a tiny executor run each."""
+    """A port trace and a JAX trace of a tiny eager executor run each
+    (an eager run puts each op on the trace)."""
     paths = []
     for fluid, trace, tag in ((tfluid, t_trace, "t"), (jfluid, j_trace,
                                                        "j")):
@@ -92,7 +93,7 @@ def _traces(tmp_path):
         try:
             with trace.span("test/outer", cat="test"):
                 exe.run(main, feed={"x": np.ones((3, 4), np.float32)},
-                        fetch_list=[y], scope=scope)
+                        fetch_list=[y], scope=scope, eager=True)
             trace.instant("test/mark", cat="test", k=1)
         finally:
             trace.disable()
