@@ -505,6 +505,34 @@ no result line:
      finite losses, `gpu:` platform classes, the fit's error not risen,
      and no flash launch counted in any leg's process (25a's and
      25b's, each counting its own).
+  26. graphs: the executor's captured segments against eager runs, the
+     three donation modes, the captured decode loop, the served
+     export's warmup captures, the donated CTR row update.
+  27. memory: the persistent plan cache and memory observability.  (a)
+     The restart: this script re-entered as two child processes, cold
+     then warm, on one fresh FLAGS_compile_cache_dir, each running 3
+     Adam steps of the full-width transformer (seed 0) under
+     FLAGS_verify_program and FLAGS_compile_passes=default: the warm one
+     has a plan hit for every program it runs, no miss, 0 pipeline
+     runs, the cold one's captures and launches, and its losses and
+     final state equal the cold one's bit for bit; each prints its
+     first step's host ms (verify, passes, plan, donation, capture),
+     the saved seconds and its flash launches.  (b) The same program in
+     this process: 3 steps, the drift of its captured pool against the
+     static timeline within MEM_PINNED_FACTOR for the whole program
+     (and the first segment's printed), the device watermarks, the
+     calibration blob read back by tune.fit.load_hbm_calibration, the
+     donation audit under auto (nothing reclaimable, the JAX clean
+     program's verdict), FLAGS_mem_budget_gb=1e-6 refusing the program
+     before any capture with a flight bundle naming the timeline's top
+     buffer.  (c) In 26d, /healthz's memory section lists each bucket's
+     pool bytes after the warmup.  (d) pcache_cli --selftest and
+     mem_cli --selftest as processes on the card (20e's chaos_cli
+     --selftest runs its warm-cache leg).  (e) Last, a real CUDA out of
+     memory: a program asking for RESTART_OOM_BYTES in one allocation,
+     caught by obs.mem.is_oom with its flight bundle's oom note blaming
+     that buffer; the card then runs one more step.  Under main() (a)
+     and (d) run beside phases 19-20.
 Under main() the full-width references on the CPU plain path (phases 5,
 7, 14c, 15c and 16b) run in a process of their own, which sees no card,
 beside the card's phases; each one's check runs once every phase has
@@ -1219,9 +1247,177 @@ def _post(url, payload):
     return status, body, (time.perf_counter() - t0) * 1e3
 
 
+class _EventRow:
+    """One row of a profile's key_averages(), as `profile_events` sums it:
+    the fields this script reads, in microseconds."""
+
+    __slots__ = ("key", "device_type", "user_annotation", "count",
+                 "cpu_time_total", "device_time_total",
+                 "self_device_time_total")
+
+    def __init__(self, key, device_type, user_annotation):
+        self.key, self.device_type = key, device_type
+        self.user_annotation = user_annotation
+        self.count = 0
+        self.cpu_time_total = self.device_time_total = 0.0
+        self.self_device_time_total = 0.0
+
+
+# the names torch.profiler's own parse leaves out
+_PROFILER_FILTERED = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new",
+    "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr",
+    "aten::_version"))
+_PROFILE_ROWS_CHECKED = False
+
+
+def profile_events(prof):
+    """The rows of `prof.key_averages()` (a stopped torch.profiler
+    session with CUDA activity), summed in one walk over its raw events.
+    key_averages() builds an object and a parent tree for each of a
+    step's events, about 70 host-us an event: 15-20 s for a profiled
+    eager LSTM step.  The rows keep its grouping (name, device type, user
+    annotation) and its sums: a device event's time is its own; a CPU
+    event's device time is that of the kernels linked to it and to the
+    events nested in it on its thread, nesting as torch decides it (a
+    child starts before its parent ends and ends no later; a parent's
+    only child of its own name is merged into it, its kernels taking the
+    parent's); async events count but add no time.  The first call in a
+    process also builds key_averages() and fails unless the two agree."""
+    global _PROFILE_ROWS_CHECKED
+    import itertools
+
+    import torch
+    try:
+        from torch.autograd.profiler_util import _rewrite_name
+    except ImportError:  # the names as kineto gives them
+        def _rewrite_name(name, with_wildcard=False):
+            return name
+
+    cpu = torch.autograd.DeviceType.CPU
+    rows, kernels, spans, names = {}, collections.Counter(), [], {}
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if name in _PROFILER_FILTERED \
+                or getattr(ev, "is_hidden_event", bool)():
+            continue
+        if name not in names:
+            names[name] = _rewrite_name(name, with_wildcard=True)
+        dt = ev.device_type()
+        note = bool(getattr(ev, "is_user_annotation", bool)())
+        key = (names[name], dt, note)
+        row = rows.get(key)
+        if row is None:
+            row = rows[key] = _EventRow(*key)
+        is_async = ev.is_async() or \
+            ev.start_thread_id() != ev.end_thread_id()
+        start, end = ev.start_ns(), ev.end_ns()
+        linked = ev.linked_correlation_id()
+        if dt == cpu:
+            if is_async:
+                row.count += 1
+            else:
+                # kernels attach to an op (no linked id), not to the
+                # runtime call that launched them
+                spans.append((ev.start_thread_id(), start, -end, row,
+                              ev.correlation_id() if linked == 0 else None))
+        else:
+            row.count += 1
+            if not is_async:
+                row.device_time_total += (end - start) / 1e3
+                row.self_device_time_total += (end - start) / 1e3
+            if linked > 0:
+                kernels[linked] += (end - start) / 1e3
+    spans.sort(key=lambda f: f[:3])
+    n = len(spans)
+    parent, children = [-1] * n, [0] * n
+    own = [kernels.get(f[4], 0.0) if f[4] is not None else 0.0
+           for f in spans]
+    for _thread, group in itertools.groupby(range(n),
+                                            key=lambda i: spans[i][0]):
+        stack = []
+        for i in group:
+            start, end = spans[i][1], -spans[i][2]
+            while stack and (start >= -spans[stack[-1]][2]
+                             or end > -spans[stack[-1]][2]):
+                stack.pop()
+            if stack:
+                parent[i] = stack[-1]
+                children[stack[-1]] += 1
+            stack.append(i)
+    # torch's _remove_dup_nodes, in the same (pre-)order
+    merged = [-1] * n
+
+    def alive(i):
+        while i >= 0 and merged[i] >= 0:
+            i = merged[i]
+        return i
+
+    for i in range(n):
+        p = alive(parent[i])
+        parent[i] = p
+        if p >= 0 and children[p] == 1 \
+                and spans[p][3].key == spans[i][3].key:
+            merged[i] = p
+            own[p] = own[i]
+            children[p] = children[i]
+    total = own
+    for i in range(n - 1, -1, -1):
+        if merged[i] >= 0:
+            continue
+        p = alive(parent[i])
+        if p >= 0:
+            total[p] += total[i]
+    for i, (_t, start, neg_end, row, _c) in enumerate(spans):
+        if merged[i] < 0:
+            row.count += 1
+            row.cpu_time_total += (-neg_end - start) / 1e3
+            row.device_time_total += total[i]
+    out = [r for r in rows.values() if r.count]
+    if not _PROFILE_ROWS_CHECKED:
+        _PROFILE_ROWS_CHECKED = True
+        check_profile_rows(out, prof.key_averages())
+    return out
+
+
+def check_profile_rows(rows, averages):
+    """Fail unless `profile_events`' rows equal key_averages()'s: the same
+    keys, counts and times (to 1e-3 us and 1e-6 of the time)."""
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    mine = {(r.key, r.device_type, r.user_annotation): r for r in rows}
+    worst, bad = 0.0, []
+    for e in averages:
+        r = mine.pop((e.key, e.device_type,
+                      bool(getattr(e, "is_user_annotation", False))), None)
+        if r is None or r.count != e.count:
+            bad.append("%s (count %s against %d)"
+                       % (e.key, r and r.count, e.count))
+            continue
+        pairs = [(r.cpu_time_total, e.cpu_time_total),
+                 (r.device_time_total, e.device_time_total)]
+        if e.device_type != cpu:  # a CPU row's self time is not summed
+            pairs.append((r.self_device_time_total,
+                          e.self_device_time_total))
+        for a, b in pairs:
+            d = abs(a - b)
+            worst = max(worst, d)
+            if d > 1e-3 + 1e-6 * abs(b):
+                bad.append("%s (%.6g us against %.6g)" % (e.key, a, b))
+    bad += ["%s (not in key_averages)" % k[0] for k in mine]
+    print("profile: %d rows summed from the raw events against "
+          "key_averages(): largest difference %.3g us, %d differ"
+          % (len(rows), worst, len(bad)), flush=True)
+    if bad:
+        raise SystemExit("chip_smoke: the profile's rows differ from "
+                         "key_averages() in %s" % sorted(set(bad))[:10])
+
+
 def device_kernels(events, labels):
-    """(name, device us, launches) of each kernel in a profile's
-    key_averages(), leaving out the device side of the profiler ranges
+    """(name, device us, launches) of each kernel in a profile's rows
+    (`profile_events`), leaving out the device side of the profiler ranges
     named in `labels` (the executor's per-op ranges)."""
     import torch
 
@@ -1243,14 +1439,13 @@ def profile_forward(forward, labels, runs=3, attempts=2):
     for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
+                                 ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(runs):
                 forward()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = device_kernels(prof.key_averages(), labels)
+        kernels = device_kernels(profile_events(prof), labels)
         flash = sum(k[2] for k in kernels if "flash_fwd_kernel" in k[0])
         uneven = [k for k in kernels if k[2] % runs]
         if flash == 6 * runs and not uneven:
@@ -1485,14 +1680,13 @@ def profile_step(step, op_types, flash_launches, step_ms, attempts=2,
     for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof, \
+                                 ProfilerActivity.CUDA]) as prof, \
                 eager_runs() if eager else contextlib.nullcontext():
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        events = prof.key_averages()
+        events = profile_events(prof)
         kernels = device_kernels(events, op_types | {"recompute"})
         flash = sum(k[2] for k in kernels if "flash_fwd_kernel" in k[0])
         if flash == flash_launches and kernels:
@@ -1639,15 +1833,21 @@ def _portable(value):
 
 class CpuReference:
     """A spawned process that sees no card and runs the reference jobs one
-    at a time; `settle` takes their results in order and runs each job's
-    check here."""
+    at a time; a thread here takes each result off the pipe as it comes
+    (a reference's state is hundreds of MB, so its transfer runs beside
+    the card's phases, not after them); `settle` takes the results in
+    order and runs each job's check here."""
 
     def __init__(self):
         import multiprocessing as mp
+        import queue
 
         ctx = mp.get_context("spawn")
         self._jobs, self._results = ctx.Queue(), ctx.Queue()
         self._pending = []
+        # (seconds since the start, result) as each comes off the pipe
+        self._got = queue.Queue()
+        self._t0 = time.perf_counter()
         # the child inherits the environment at its start; this process's
         # CUDA has read it already
         hidden = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -1662,6 +1862,15 @@ class CpuReference:
                 del os.environ["CUDA_VISIBLE_DEVICES"]
             else:
                 os.environ["CUDA_VISIBLE_DEVICES"] = hidden
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self):
+        while True:
+            try:
+                out = self._results.get()
+            except (EOFError, OSError, ValueError):
+                return
+            self._got.put((time.perf_counter() - self._t0, out))
 
     def submit(self, tag, fn, args, check, flag_values=None):
         """Queue `fn(Executor(CPUPlace()), *args)`; `check(its result)`
@@ -1678,12 +1887,14 @@ class CpuReference:
         """Each job's result in turn, and its check."""
         import queue
 
+        arrived = []
         while self._pending:
             tag, check = self._pending.pop(0)
             deadline = time.monotonic() + CPU_REF_TIMEOUT_S
             while True:
                 try:
-                    ok, value = self._results.get(timeout=5)
+                    at, (ok, value) = self._got.get(timeout=5)
+                    arrived.append("%s %.1f" % (tag, at))
                     break
                 except queue.Empty:
                     if not self._proc.is_alive():
@@ -1698,6 +1909,10 @@ class CpuReference:
                 raise SystemExit("chip_smoke: the CPU reference of %s "
                                  "failed:\n%s" % (tag, value))
             check(value)
+        if arrived:
+            print("chip_smoke: the CPU references' results came in at %s s "
+                  "after the reference process started"
+                  % ", ".join(arrived), flush=True)
 
     def close(self):
         """Stop the process, whatever it is doing; a job it never read
@@ -3576,11 +3791,16 @@ def ctr_serve(trained, main, predict):
                 th.join(timeout=600)
             if any(r is None for r in replies):
                 raise SystemExit("chip_smoke: an HTTP request got no reply")
+            warm = engine.last_warmup_stats or {}
             print("ctr: %d requests of %s rows answered in %d batch(es); "
-                  "latencies %s ms"
+                  "latencies %s ms; the warmup's captures by bucket %s, "
+                  "graph pool bytes they added %s, %d graph(s) dropped"
                   % (len(requests), list(CTR_SERVE),
                      server.metrics.batch_occupancy.count,
-                     ", ".join("%.1f" % r[2] for r in replies)), flush=True)
+                     ", ".join("%.1f" % r[2] for r in replies),
+                     warm.get("bucket_captures"),
+                     warm.get("bucket_pool_bytes"),
+                     warm.get("evictions", 0)), flush=True)
         finally:
             server.shutdown()
         ref = InferenceEngine.from_saved_model(
@@ -6119,7 +6339,7 @@ def kernel_sum_ms(fn, runs=10):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    return sum(k[1] for k in device_kernels(prof.key_averages(), set())) \
+    return sum(k[1] for k in device_kernels(profile_events(prof), set())) \
         / 1e3 / runs
 
 
@@ -8673,7 +8893,7 @@ def ps_profile(step, main):
         step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+    events = profile_events(prof)
     host = collections.Counter()
     dev = collections.Counter()
     for e in events:
@@ -11498,7 +11718,10 @@ def phase_analysis():
         _kill_cli_processes(chaos)
         raise
     t3 = time.perf_counter()
-    _finish_cli_processes(chaos)
+    (green,) = _finish_cli_processes(chaos)
+    if "warm-cache restart resumed" not in green:
+        raise SystemExit("chip_smoke: 20e chaos_cli --selftest ran no "
+                         "warm-cache leg: %s" % green)
     print("analysis: 20a-b %.1f s, 20a and 20c (ResNet-50) %.1f s, 20d %.1f "
           "s, 20e's end %.1f s later; phase 20 took %.1f s"
           % (t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3,
@@ -13724,6 +13947,27 @@ def graphs_serve(smi):
                 or stats["jit_compiles"] != stats["captures"] * on_card:
             raise SystemExit("chip_smoke: 26d the served export's "
                              "captures or replies are off")
+        # 27c: /healthz's memory section after the warmup
+        from paddle_tpu_torch.serving import InferenceServer, ServerConfig
+
+        health = InferenceServer(engine, ServerConfig(
+            port=0, warmup=False)).health_signals()
+        section = health.get("memory") or {}
+        buckets = section.get("bucket_pool_bytes") or {}
+        print("memory: 27c /healthz memory section after the warmup: pool "
+              "bytes by bucket %s (captures by bucket %s, %d graph(s) "
+              "dropped), device %s (%s)"
+              % (json.dumps(buckets, sort_keys=True),
+                 stats["bucket_captures"], stats["evictions"],
+                 json.dumps(section.get("device"), sort_keys=True), smi),
+              flush=True)
+        # the section lists this engine's buckets, and each of the
+        # transformer's buckets grew the pool
+        if set(buckets) != {str(b) for b in BUCKETS} \
+                or min(buckets.values()) <= 0 \
+                or not section.get("device"):
+            raise SystemExit("chip_smoke: 27c /healthz does not list pool "
+                             "bytes for each of its buckets: %s" % section)
 
 
 def graphs_ctr(smi):
@@ -13841,6 +14085,392 @@ def phase_graphs():
     return launches
 
 
+# -- phase 27: the persistent plan cache and memory observability -------------
+
+RESTART_ENV = "CHIP_SMOKE_RESTART"   # 27a's child: the cache directory
+RESTART_STEPS = 3      # 27a, 27b: warm-up, capture, replay
+RESTART_TIMEOUT_S = 240
+# 27b: the static-against-actual factor tests/test_obs_mem.py pins
+MEM_PINNED_FACTOR = 4.0
+# 27e: one allocation beyond any card's memory (128 GiB of f32)
+RESTART_OOM_BYTES = 1 << 37
+
+
+def memory_program():
+    """Phase 5's full-width transformer with Adam (27a, 27b)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import transformer_program as tp
+
+    main, startup, loss, _ = tp.build_transformer_program(
+        BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL)
+    fluid.Adam(ADAM_LR).minimize(loss, main, startup)
+    return main, startup, loss
+
+
+def memory_feeds(device, n=RESTART_STEPS):
+    import torch
+    from paddle_tpu_torch.models import transformer_program as tp
+
+    return [{k: torch.from_numpy(v.astype(np.int32)).to(device)
+             for k, v in tp.transformer_feeds(
+                 BATCH, SEQ, VOCAB, seed=SEED + 271 + i,
+                 targets=True).items()} for i in range(n)]
+
+
+def restart_child(cache_dir):
+    """27a's cold or warm process: RESTART_STEPS Adam steps of the
+    full-width transformer on FLAGS_compile_cache_dir=`cache_dir` under
+    FLAGS_verify_program and FLAGS_compile_passes=default; prints one
+    JSON line: losses (exact), a digest of each state tensor, the plan
+    cache's counts, pipeline runs, captures, each program's host seconds
+    and the flash launches."""
+    import hashlib
+
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.obs import telemetry as tele
+    from paddle_tpu_torch.utils import flags
+
+    flags.set_flag("compile_cache_dir", cache_dir)
+    flags.set_flag("verify_program", True)
+    flags.set_flag("compile_passes", "default")
+    main, startup, loss = memory_program()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    snap = tele.snapshot()
+    reset_launches()
+    exe.run(startup, scope=scope)
+    losses, walls = [], []
+    for feed in memory_feeds(exe.device):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0].reshape(-1)[0]).hex())
+    delta = tele.snapshot_delta(snap)
+    digests = {}
+    for n, v in sorted(main.block(0).vars.items()):
+        t = scope.get(n) if v.persistable else None
+        if isinstance(t, torch.Tensor):
+            digests[n] = hashlib.sha256(
+                t.detach().cpu().numpy().tobytes()).hexdigest()
+    programs = [{"fetches": c.fetch_names, "acquired": c.acquired,
+                 "seconds": {k: round(s, 6) for k, s in c.seconds.items()}}
+                for _d, _v, c in exe._cache.values()]
+    print(json.dumps({
+        "losses": losses, "digests": digests, "walls_ms": walls,
+        "programs": programs, "pipeline_runs": exe.pipeline_runs,
+        "captures": exe.captures, "replays": exe.replays,
+        "hits": delta.get("compile_cache_hits_total", 0),
+        "misses": delta.get("compile_cache_misses_total", 0),
+        "saved_s": delta.get("compile_cache_saved_compile_seconds_total",
+                             0.0),
+        "launches": read_launches()}), flush=True)
+    return 0
+
+
+class RestartChildren:
+    """27a's two child processes, cold then warm on one fresh cache
+    directory, in a thread of this process (they run beside other
+    phases); `finish` waits for them and returns their records."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_pcache_")
+        self.out, self.error, self.proc = [], None, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.t0 = None
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        self.thread.start()
+        return self
+
+    def _run(self):
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        env[RESTART_ENV] = self.dir
+        try:
+            for tag in ("cold", "warm"):
+                t0 = time.perf_counter()
+                self.proc = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__)], cwd=root,
+                    env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+                out, err = self.proc.communicate(timeout=RESTART_TIMEOUT_S)
+                if self.proc.returncode != 0:
+                    raise RuntimeError("the %s process exited %d: %s"
+                                       % (tag, self.proc.returncode,
+                                          err[-3000:]))
+                rec = json.loads(out.strip().splitlines()[-1])
+                rec["seconds"] = time.perf_counter() - t0
+                self.out.append(rec)
+        except Exception as exc:  # reported by finish()
+            self.error = exc
+
+    def kill(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+        self.thread.join(timeout=60)
+
+    def finish(self):
+        """Wait for both processes; their (cold, warm) records."""
+        self.thread.join(timeout=2 * RESTART_TIMEOUT_S + 30)
+        if self.thread.is_alive():
+            self.kill()
+            raise SystemExit("chip_smoke: 27a's restart did not end")
+        if self.error is not None:
+            raise SystemExit("chip_smoke: 27a %s" % self.error)
+        print("memory: 27a's processes ended %.1f s after their start"
+              % (time.perf_counter() - self.t0), flush=True)
+        return self.out
+
+
+def memory_clis():
+    """27d: `pcache_cli --selftest` and `mem_cli --selftest` on the card,
+    through their `main` in this process (as 18a runs serve_cli's): each
+    prints its green line and must return 0.  obs.mem's store is emptied
+    first, so mem_cli's drift join holds its own lenet5 rows only."""
+    from paddle_tpu_torch.obs import mem as obs_mem
+    from paddle_tpu_torch.tools import mem_cli, pcache_cli
+
+    for name, cli in (("pcache_cli", pcache_cli), ("mem_cli", mem_cli)):
+        if cli is mem_cli:
+            obs_mem.reset()
+        t0 = time.perf_counter()
+        rc = cli.main(["--selftest"])
+        print("cli: 27d %s --selftest returned %s in %.1f s"
+              % (name, rc, time.perf_counter() - t0), flush=True)
+        if rc != 0:
+            raise SystemExit("chip_smoke: 27d %s --selftest returned %s"
+                             % (name, rc))
+
+
+def _first_step_ms(rec):
+    """The main program's host seconds as ms (verify, passes, plan,
+    donation, load, capture) and the first step's wall ms."""
+    main = [p for p in rec["programs"] if p["fetches"]]
+    secs = main[-1]["seconds"] if main else {}
+    return ", ".join("%s %.1f" % (k, secs[k] * 1e3) for k in
+                     ("verify", "passes", "plan", "donation", "load",
+                      "capture") if k in secs) \
+        + "; first step %.1f ms wall" % rec["walls_ms"][0]
+
+
+def memory_restart(restart_out, smi):
+    """27a: the cold and warm processes' records, checked."""
+    cold, warm = restart_out
+    f32 = route_entry("f32")
+    for tag, rec in (("cold", cold), ("warm", warm)):
+        print("memory: 27a %s process (%.1f s): %d plan hit(s), %d "
+              "miss(es), %d pipeline run(s), %d capture(s), %d replay(s); "
+              "host ms: %s; saved %.4f s; f32 flash launches %d; losses %s"
+              % (tag, rec["seconds"], rec["hits"], rec["misses"],
+                 rec["pipeline_runs"], rec["captures"], rec["replays"],
+                 _first_step_ms(rec), rec["saved_s"],
+                 rec["launches"].get(f32, 0),
+                 ", ".join("%.6f" % float.fromhex(x)
+                           for x in rec["losses"])), flush=True)
+    differ = sorted(n for n in cold["digests"]
+                    if warm["digests"].get(n) != cold["digests"][n])
+    print("memory: 27a warm against cold: losses %s bit for bit, %d of %d "
+          "state tensors differ (%s)"
+          % ("equal" if warm["losses"] == cold["losses"] else "differ",
+             len(differ), len(cold["digests"]), smi), flush=True)
+    if cold["misses"] < 2 or cold["hits"] or not cold["pipeline_runs"] \
+            or any(p["acquired"] != "miss" for p in cold["programs"]):
+        raise SystemExit("chip_smoke: 27a the cold process did not plan "
+                         "every program anew: %s" % cold["programs"])
+    if warm["misses"] or warm["hits"] != len(warm["programs"]) \
+            or warm["pipeline_runs"] \
+            or any(p["acquired"] != "hit" for p in warm["programs"]):
+        raise SystemExit("chip_smoke: 27a the warm process missed a plan: "
+                         "%d hits, %d misses, %d pipeline runs"
+                         % (warm["hits"], warm["misses"],
+                            warm["pipeline_runs"]))
+    if warm["captures"] != cold["captures"] or not cold["captures"] \
+            or warm["losses"] != cold["losses"] or differ \
+            or set(warm["digests"]) != set(cold["digests"]) \
+            or not warm["launches"].get(f32) \
+            or warm["launches"] != cold["launches"]:
+        raise SystemExit("chip_smoke: 27a the warm process differs from "
+                         "the cold one: captures %d and %d, %d state "
+                         "tensors" % (warm["captures"], cold["captures"],
+                                      len(differ)))
+
+
+def memory_oom(exe, main, loss, scope, feed, smi):
+    """27e: a program whose one allocation is beyond the card's memory:
+    the run raises the card's out of memory, obs.mem.is_oom knows it,
+    the flight bundle's oom note blames that buffer; then `exe` runs one
+    more step of `main`."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.obs import flight as obs_flight
+    from paddle_tpu_torch.obs import mem as obs_mem
+
+    big, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(big, startup):
+        out = fluid.layers.fill_constant(shape=[RESTART_OOM_BYTES // 4],
+                                         dtype="float32", value=1.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        recorder = obs_flight.install(out_dir=tmp, capacity=8)
+        try:
+            try:
+                fluid.Executor().run(big, fetch_list=[out])
+                raise SystemExit("chip_smoke: 27e %d bytes were allocated"
+                                 % RESTART_OOM_BYTES)
+            except SystemExit:
+                raise
+            except Exception as exc:
+                caught = exc
+        finally:
+            obs_flight.uninstall()
+        with open(recorder.last_bundle_path) as f:
+            notes = [n["oom"] for n in json.load(f)["notes"]
+                     if n.get("oom")]
+    torch.cuda.empty_cache()
+    after = float(exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0].reshape(-1)[0])
+    top = notes[0]["top_buffers"][0] if notes and \
+        notes[0].get("top_buffers") else {}
+    print("memory: 27e %s: %s; is_oom %s; the bundle's oom note blames %s "
+          "(%.1f GiB, op %s %s), device %s; a step after it: loss %.6f (%s)"
+          % (type(caught).__name__, str(caught).splitlines()[0][:120],
+             obs_mem.is_oom(caught), top.get("name"),
+             top.get("bytes", 0) / 2 ** 30, top.get("def_op"),
+             top.get("def_op_type"),
+             json.dumps(notes[0].get("device") if notes else None),
+             after, smi), flush=True)
+    if not obs_mem.is_oom(caught) \
+            or not isinstance(caught, torch.cuda.OutOfMemoryError) \
+            or top.get("name") != out.name or not np.isfinite(after):
+        raise SystemExit("chip_smoke: 27e the out of memory was not caught "
+                         "and blamed: %r" % (caught,))
+
+
+def phase_memory(restart_out=None):
+    """Phase 27: the persistent plan cache's restart (27a) and memory
+    observability in this process (27b, 27d's CLIs, 27e; 27c runs in
+    26d); returns the launch counts of 27b's steps.  Under main() 27a's
+    processes ran beside phases 19-20 (`restart_out` their records); run
+    alone, the phase runs them first."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.obs import flight as obs_flight
+    from paddle_tpu_torch.obs import health as obs_health
+    from paddle_tpu_torch.obs import mem as obs_mem
+    from paddle_tpu_torch.tune.fit import load_hbm_calibration
+    from paddle_tpu_torch.utils import flags
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    if restart_out is None:
+        restart_out = RestartChildren().start().finish()
+    memory_restart(restart_out, smi)
+    t_a = time.perf_counter()
+
+    # 27b: the same program in this process, its memory observed
+    main, startup, loss = memory_program()
+    obs_mem.reset()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = memory_feeds(exe.device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    # attribution registers the static side of the drift join at plan
+    # time
+    with obs_health.force_attribution():
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)[0].reshape(-1)[0])
+                  for f in feeds]
+    launches = read_launches()
+    rep = obs_mem.drift_report()
+    program = [r for r in rep["segments"] if r["scope"] == "program"]
+    first = [r for r in rep["segments"] if r["scope"] == "segment"
+             and r["first"]]
+    tl = obs_mem.program_timeline(main, fetches=[loss], top_n=5)
+    marks = obs_mem.device_watermarks()
+    print("memory: 27b %d steps (losses %s, %d captures): the whole "
+          "program's static activation peak %.3f GB at op %d (%s), pool "
+          "%.3f GB, ratio %s; first segment %s; params+state %.3f GB; "
+          "device %s (%s)"
+          % (len(losses), ", ".join("%.6f" % x for x in losses),
+             exe.captures, tl["peak_bytes"] / 1e9, tl["peak_op"],
+             tl["peak_op_type"],
+             program[0]["pool_bytes"] / 1e9 if program else 0.0,
+             program[0]["ratio"] if program else None,
+             ", ".join("%s static %.3f GB pool %.3f GB ratio %s"
+                       % (r["segment"], r["static_peak_bytes"] / 1e9,
+                          r["pool_bytes"] / 1e9, r["ratio"])
+                       for r in first) or "none",
+             tl["params_bytes"] / 1e9, json.dumps(marks, sort_keys=True),
+             smi), flush=True)
+    if len(program) != 1 or not (1.0 / MEM_PINNED_FACTOR
+                                 <= program[0]["ratio"]
+                                 <= MEM_PINNED_FACTOR) or not marks:
+        raise SystemExit("chip_smoke: 27b the program's pool against its "
+                         "static peak lies outside %gx (or no watermark): "
+                         "%s" % (MEM_PINNED_FACTOR, program))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mem_cal.json")
+        blob = obs_mem.calibration_blob(rep, model="transformer")
+        obs_mem.save_calibration(blob, path)
+        ratio = load_hbm_calibration(path)
+    audit = obs_mem.audit_donation(main, fetches=[loss], mode="auto")
+    print("memory: 27b calibration hbm_ratio %s over %d %s row(s), read "
+          "back %s; donation audit under auto: effective %s, %d buffers "
+          "donated (%.3f MB), %d reclaimable (%d bytes)"
+          % (blob["hbm_ratio"], blob["n"], blob["basis"], ratio,
+             audit["effective_mode"], len(audit["donated"]),
+             audit["donated_bytes"] / 1e6, len(audit["reclaimable"]),
+             audit["reclaimable_bytes"]), flush=True)
+    if ratio != rep["median_ratio"] or audit["effective_mode"] != "auto" \
+            or audit["reclaimable"] or not audit["donated"]:
+        raise SystemExit("chip_smoke: 27b the calibration or the audit is "
+                         "off")
+
+    # 27b: a budget the program cannot fit refuses it before a capture
+    b_exe = fluid.Executor()
+    with tempfile.TemporaryDirectory() as tmp:
+        recorder = obs_flight.install(out_dir=tmp, capacity=8)
+        flags.set_flag("mem_budget_gb", 1e-6)
+        refused = None
+        try:
+            b_exe.run(main, feed=feeds[0], fetch_list=[loss], scope=scope)
+        except obs_mem.MemoryBudgetError as exc:
+            refused = exc
+        finally:
+            flags.set_flag("mem_budget_gb", 0.0)
+            obs_flight.uninstall()
+        notes = []
+        if recorder.last_bundle_path:
+            with open(recorder.last_bundle_path) as f:
+                notes = [n["oom"] for n in json.load(f)["notes"]
+                         if n.get("oom")]
+    blamed = notes[0]["top_buffers"][0]["name"] if notes else None
+    print("memory: 27b FLAGS_mem_budget_gb=1e-6: %s; %d captures, %d "
+          "replays; the bundle blames %s, the timeline's top buffer %s"
+          % (str(refused).split(";")[0] if refused else "not refused",
+             b_exe.captures, b_exe.replays, blamed,
+             tl["top_buffers"][0]["name"]), flush=True)
+    if refused is None or b_exe.captures or b_exe.replays \
+            or blamed != tl["top_buffers"][0]["name"]:
+        raise SystemExit("chip_smoke: 27b the budget did not refuse the "
+                         "program before its capture")
+    del b_exe
+    t_b = time.perf_counter()
+    memory_clis()
+    t_d = time.perf_counter()
+
+    # 27e, last: a real out of memory, then one more step
+    memory_oom(exe, main, loss, scope, feeds[0], smi)
+    print("memory: 27a's check %.1f s, 27b %.1f s, 27d %.1f s, 27e %.1f s; "
+          "phase 27 took %.1f s in this process"
+          % (t_a - t0, t_b - t_a, t_d - t_b, time.perf_counter() - t_d,
+             time.perf_counter() - t0), flush=True)
+    return launches
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -13901,8 +14531,16 @@ def _main_phases(run, seconds, t_start):
     obs_amp_launches, obs_serve_launches = run(phase_obs)
     ps_ctr_launches, ps_transformer_launches = run(phase_pserver)
     cli_launches = run(phase_cli)
-    ssd_launches = run(phase_ssd)
-    analysis_launches = run(phase_analysis)
+    # 27a's restart, one process at a time, runs beside phases 19-20
+    # and ends before phase 21's timed loops
+    restart = RestartChildren().start()
+    try:
+        ssd_launches = run(phase_ssd)
+        analysis_launches = run(phase_analysis)
+    except BaseException:
+        restart.kill()
+        raise
+    restart_out = restart.finish()
     perf_launches = run(phase_perf)
     # 25a, the tuner's selftest: its planning processes run beside phases
     # 22-23; its measured legs, whose fit the load of other work upsets,
@@ -13918,6 +14556,7 @@ def _main_phases(run, seconds, t_start):
     elastic_launches = run(phase_elastic)
     tune_launches = run(phase_tune, tune_green)
     graphs_launches = run(phase_graphs)
+    memory_launches = run(phase_memory, restart_out)
     t0 = time.perf_counter()
     _CPU_REF.settle()
     print("chip_smoke: the CPU references' checks %.1f s after the last "
@@ -13953,7 +14592,8 @@ def _main_phases(run, seconds, t_start):
              ps_transformer_launches[f32], cli_launches[f32],
              analysis_launches[f32], perf_launches[f32],
              mesh_launches[f32], spmd_launches[f32],
-             elastic_launches[f32], graphs_launches[f32])
+             elastic_launches[f32], graphs_launches[f32],
+             memory_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
                          "a main path (served, trained, decoded, trained "
@@ -13963,7 +14603,8 @@ def _main_phases(run, seconds, t_start):
                          "optimized, profiled and served under load, "
                          "trained over the mesh, trained by the "
                          "plan-driven SpmdTrainer, saved and resumed "
-                         "sharded, trained by graph replay: %s)"
+                         "sharded, trained by graph replay, trained "
+                         "with its memory observed: %s)"
                          % (paths,))
     kernels = []
     for route in fa.ROUTES:
@@ -13976,7 +14617,7 @@ def _main_phases(run, seconds, t_start):
             obs_serve_launches, ps_ctr_launches, ps_transformer_launches,
             cli_launches, ssd_launches, analysis_launches, perf_launches,
             mesh_launches, spmd_launches, elastic_launches, tune_launches,
-            graphs_launches))
+            graphs_launches, memory_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)
@@ -14000,7 +14641,10 @@ def _main_phases(run, seconds, t_start):
 
 
 if __name__ == "__main__":
-    # phase 17d's launcher re-enters this script as a trainer process
+    # phase 17d's launcher re-enters this script as a trainer process,
+    # and phase 27a as the restart's cold and warm processes
     if os.environ.get("TRAINING_ROLE") == "TRAINER":
         sys.exit(ps_trainer())
+    if os.environ.get(RESTART_ENV):
+        sys.exit(restart_child(os.environ[RESTART_ENV]))
     sys.exit(main())

@@ -42,10 +42,11 @@ Diagnostic codes, as on the JAX side:
   A004  in-place update stranded outside a captured segment: eager
         execution never donates, so the declared reuse cannot happen.
   A005  donation requested where `backend_safe` is false: `auto`
-        degrades to `conservative`.  The JAX package asks its persistent
-        cache whether reloaded executables keep the aliasing; the port
-        reloads no executable yet (ROADMAP A2), so its executor passes
-        True and A005 is reached only by passing False.
+        degrades to `conservative`.  The executor passes the persistent
+        cache's verdict, `pcache.donation_aliasing_safe()`, as the JAX
+        executor does; a port entry holds a plan, which is captured anew
+        with its donation, so the verdict is True and A005 is reached
+        only by passing False.
 
 The executor consumes the `DonationPlan` when it plans a program,
 behind `FLAGS_donation=auto|conservative|off` (default `auto`);
@@ -82,7 +83,7 @@ def state_donation(default=True):
     False under FLAGS_donation=off, `default` otherwise.  A mesh step
     donates its whole state as one argument, so the plan's only say is
     the off switch (the port's mesh path does not donate yet: ROADMAP
-    A2's second part)."""
+    A2's third part)."""
     return False if donation_mode() == "off" else bool(default)
 
 

@@ -1,8 +1,7 @@
-"""paddle_tpu_torch.compile — the program rewrite pipeline and program
-fingerprints.
+"""paddle_tpu_torch.compile — the program rewrite pipeline, program
+fingerprints and the persistent plan cache.
 
-Counterpart of paddle_tpu/compile without its persistent executable
-cache (`pcache`, which waits with ROADMAP A2):
+Counterpart of paddle_tpu/compile:
 
   * `fingerprint`  canonical, content-addressed fingerprints of
     programs (the same digest as the JAX package's for the same
@@ -14,12 +13,19 @@ cache (`pcache`, which waits with ROADMAP A2):
     `auto_remat`), run by a `PassManager` that verifies the IR around
     every pass.  The executor runs the pipeline under
     FLAGS_compile_passes.
+  * `pcache`  the persistent on-disk cache of the executor's program
+    plans (FLAGS_compile_cache_dir): the pass-rewritten clone, its
+    segment plan, its donation plan and the verifier's verdict, which a
+    restarted process reloads; a captured CUDA graph cannot be saved,
+    so each capture stores a stub.
 """
 
 from . import fingerprint
 from . import passes
 from . import opt_passes
+from . import pcache
 from .passes import PassManager, optimize_program
+from .pcache import PersistentCache
 
-__all__ = ["fingerprint", "passes", "opt_passes", "PassManager",
-           "optimize_program"]
+__all__ = ["fingerprint", "pcache", "passes", "opt_passes",
+           "PassManager", "optimize_program", "PersistentCache"]

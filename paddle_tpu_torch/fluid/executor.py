@@ -85,7 +85,32 @@ the pipeline runs once for a program and not on every step
 of its op lists and its count of vars: an appended or removed op or
 var makes another version.  The plan is cached by (program, version,
 feeds, fetches, the AMP and batch-norm flags the kernels read, the
-donation mode).
+donation mode).  Under FLAGS_mem_budget_gb a program's static peak is
+checked before its plan is made (`obs.mem.preflight`, which raises
+MemoryBudgetError before any eager run or capture).
+
+The persistent plan cache (FLAGS_compile_cache_dir, compile/pcache.py),
+as the JAX executor's `_pcache_base` and `_aot_acquire`: a program is
+keyed by its content (`fingerprint.program_fingerprint` over the IR,
+feeds, fetches, the flags that change what runs and the pipeline id,
+with the stack and the entry format), not by its identity, so a
+restarted process finds it.  A hit takes the rewritten clone, its
+segments, its plan and its donation sets from the entry and runs no
+verifier (a clean verdict is in the entry), no pass pipeline
+(`pipeline_runs` does not move) and no donation analysis; a miss plans
+and stores them.  A CUDA graph cannot be saved: the restarted process
+captures again, and each capture stores a stub entry (its seconds and
+pool bytes).  An entry that fails to parse or the structural check is
+quarantined and the run plans as on a miss.  `use_program_cache=False`
+plans and runs a program without entering either cache.
+
+Memory (obs/mem.py): under attribution (`obs.health.force_attribution`
+or FLAGS_xla_cost_attribution) each captured segment's static
+activation peak and its program's are registered at plan time; each
+capture's pool growth joins them (on the card; on the CPU a capture
+holds no pool).  A run
+that raises an OOM-class error leaves a flight bundle whose "oom" note
+blames the timeline's top buffers of the program that ran.
 
 A program without grad ops that writes no persistable runs under
 `torch.inference_mode()` (the served forward); any other runs under
@@ -100,9 +125,10 @@ bytes as d2h (`on_transfer`); a feed already on the device moves
 nothing and counts nothing.  A capture counts in
 `executor_jit_traces_total`, marks a `jit_build` instant with the
 segment's label (`jit_segment[i:a..b xN]`, the JAX label) and publishes
-its seconds and pool bytes (`obs.health.publish_compile_stats`); a
-replay counts in `executor_graph_replays_total` and adds the flash
-kernel's launches its capture recorded (fluid/graphs.py).
+its seconds and pool bytes (`obs.health.publish_compile_stats`, which
+hands the pool bytes to obs.mem); a replay counts in
+`executor_graph_replays_total` and adds the flash kernel's launches its
+capture recorded (fluid/graphs.py).
 
 Places: `CUDAPlace(device_id)` is the default; `CPUPlace()` must be
 asked for.  A CUDAPlace without a CUDA device raises RuntimeError when
@@ -111,6 +137,7 @@ the executor is made — the port never carries on on the CPU by itself.
 
 import contextlib
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -549,6 +576,103 @@ def _fits(target, new):
                  or torch.is_inference_mode_enabled()))
 
 
+# the format of the port's persistent-cache plan entries: in the key,
+# so an entry an older port wrote is a miss
+PCACHE_FORMAT = 1
+
+# the flags the program key folds in (the JAX executor's _pcache_base)
+_PCACHE_FLAGS = ("amp_bf16", "amp_bf16_act", "bn_shifted_stats",
+                 "donation")
+
+_SEG_KEYS = ("reads", "writes", "outputs", "persist_writes")
+
+# the modules whose output a plan entry stores (the segment plan and
+# _analyze here, the pass pipeline, the verifier's verdict, the donation
+# analysis), relative to the package: their source is in the key, so an
+# entry a fixed planner would not make is a miss
+_PLANNER_SOURCES = ("fluid/executor.py", "compile", "analysis")
+_planner_digest = None
+
+
+def planner_digest():
+    """A digest of the planning code's source (`_PLANNER_SOURCES`) and
+    of the registry's capturable marks, computed once per process: the
+    persistent cache's program key folds it in (`_pcache_base`)."""
+    global _planner_digest
+    if _planner_digest is None:
+        import hashlib
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        files = []
+        for rel in _PLANNER_SOURCES:
+            path = os.path.join(root, rel)
+            if os.path.isdir(path):
+                files += sorted(os.path.join(path, f)
+                                for f in os.listdir(path)
+                                if f.endswith(".py"))
+            else:
+                files.append(path)
+        h = hashlib.sha256()
+        for path in files:
+            h.update(os.path.relpath(path, root).encode())
+            with open(path, "rb") as f:
+                h.update(f.read())
+        for t in op_registry.registered_ops():
+            h.update(("%s=%d" % (t, op_registry.get_op_info(t)
+                                 .capturable)).encode())
+        _planner_digest = h.hexdigest()
+    return _planner_digest
+
+
+def _check_entry(entry, feed_names, fetch_names):
+    """The desc a persistent-cache entry holds, parsed, once the entry
+    passes the structural check: its format, feeds and fetches, and a
+    plan whose segments cover block 0's ops in order with the op types
+    they name.  Raises ValueError otherwise."""
+    if entry.get("format") != PCACHE_FORMAT:
+        raise ValueError("entry format %r" % entry.get("format"))
+    if list(entry["feeds"]) != list(feed_names) \
+            or list(entry["fetches"]) != list(fetch_names):
+        raise ValueError("entry feeds or fetches differ")
+    desc = ProgramDesc.parse_from_string(entry["desc"])
+    ops = desc.block(0).ops
+    start = 0
+    for rec in entry["plan"]:
+        n = int(rec["n"])
+        if rec["start"] != start or [od.type for od in
+                                     ops[start:start + n]] != rec["types"]:
+            raise ValueError("segment %r names other ops than the desc"
+                             % rec.get("label"))
+        if bool(rec["capture"]) != all(_op_capturable(od) for od in
+                                       ops[start:start + n]):
+            raise ValueError("segment %r is planned for another registry"
+                             % rec.get("label"))
+        for k in _SEG_KEYS:
+            if not isinstance(rec[k], list):
+                raise ValueError("segment %r has no %s" % (rec["label"], k))
+        start += n
+    if start != len(ops):
+        raise ValueError("the plan covers %d of %d ops" % (start, len(ops)))
+    dn = entry["donation"]
+    if dn["mode"] not in ("auto", "conservative", "off"):
+        raise ValueError("donation mode %r" % dn["mode"])
+    return desc
+
+
+def _plan_from_entry(block, entry):
+    """The executor's segment plan rebuilt from a checked entry."""
+    plan = []
+    for rec in entry["plan"]:
+        start, n = int(rec["start"]), int(rec["n"])
+        seg = {"capture": bool(rec["capture"]),
+               "ops": block.ops[start:start + n], "start": start,
+               "label": rec["label"]}
+        for k in _SEG_KEYS:
+            seg[k] = list(rec[k])
+        plan.append(seg)
+    return plan
+
+
 class _CompiledProgram:
     """A program as the executor runs it: block 0 split into maximal
     runs of capturable ops (segments) and host ops between them, each
@@ -560,15 +684,38 @@ class _CompiledProgram:
     address of every state tensor the graph reads in place from the
     scope: a tensor swapped into the scope forces a new capture."""
 
-    def __init__(self, executor, desc, feed_names, fetch_names):
+    def __init__(self, executor, desc, feed_names, fetch_names, entry=None):
         self.executor = executor
         self.desc = desc
         self.block = desc.block(0)
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
-        self.segments = _segment_block(self.block.ops)
-        self._plan = self._analyze()
-        self._donation = self._donation_setup()
+        # host seconds of planning and capturing: what a persistent
+        # cache hit refunds ("verify", "passes", "plan", "donation") and
+        # what it cannot ("capture")
+        self.seconds = {}
+        # the program's persistent-cache key (compile/pcache.py) and how
+        # the plan was acquired: "hit", "miss" or None (the cache off)
+        self.pcache_key = None
+        self.acquired = None
+        if entry is None:
+            t0 = time.perf_counter()
+            self.segments = _segment_block(self.block.ops)
+            self._plan = self._analyze()
+            t1 = time.perf_counter()
+            self._donation = self._donation_setup()
+            self.seconds = {"plan": t1 - t0,
+                            "donation": time.perf_counter() - t1}
+        else:
+            # a reloaded plan, its op types checked (`_check_entry`)
+            self._plan = _plan_from_entry(self.block, entry)
+            self.segments = [(seg["capture"], seg["ops"])
+                             for seg in self._plan]
+            widened = entry["donation"]["widened"]
+            self._donation = {
+                "mode": entry["donation"]["mode"],
+                "widened": None if widened is None
+                else [tuple(w) for w in widened]}
         for i, seg in enumerate(self._plan):
             seg["mutated"], seg["donate"], seg["widened"] = \
                 self._donate_sets(i, seg)
@@ -581,6 +728,59 @@ class _CompiledProgram:
         # donated names another value of the warmup viewed
         self._warm = OrderedDict()
         self.pool = None
+        # the bytes this program's live graphs' pool grew by
+        self.pool_bytes = 0
+        # obs.mem's label for the whole program's row, when registered
+        self.mem_label = None
+        self._register_static()
+
+    def to_entry(self):
+        """The plan and donation plan as a persistent-cache entry
+        holds them (JSON): each segment by its op range and op types."""
+        plan = []
+        for seg in self._plan:
+            plan.append({
+                "capture": bool(seg["capture"]), "start": seg["start"],
+                "n": len(seg["ops"]),
+                "types": [od.type for od in seg["ops"]],
+                "reads": list(seg["reads"]), "writes": list(seg["writes"]),
+                "outputs": list(seg["outputs"]),
+                "persist_writes": list(seg["persist_writes"]),
+                "label": seg["label"]})
+        widened = self._donation["widened"]
+        return {"plan": plan,
+                "donation": {"mode": self._donation["mode"],
+                             "widened": None if widened is None
+                             else [list(w) for w in widened]}}
+
+    def _register_static(self):
+        """obs.mem's static side, at plan time under attribution (as the
+        JAX executor registers it at a segment's first build under the
+        same gate): each captured segment's activation peak and the whole
+        program's.  A liveness walk over a program's ops costs tenths of
+        a host second for ResNet-50, so it is not paid by every plan."""
+        from ..obs import health as obs_health
+        from ..obs import mem as obs_mem
+
+        if not obs_health.attribution_wanted():
+            return
+        captured = [seg for seg in self._plan if seg["capture"]]
+        if not captured:
+            return
+        t0 = time.perf_counter()
+        try:
+            for seg in captured:
+                obs_mem.register_segment_static(
+                    seg["label"], seg["ops"], seg["outputs"], self.block)
+            label = self._program_label()
+            final = {n for n, vd in self.block.vars.items()
+                     if vd.persistable} | set(self.fetch_names)
+            obs_mem.register_segment_static(label, self.block.ops, final,
+                                            self.block)
+            self.mem_label = label
+        except Exception:
+            _log.debug("static memory registration failed", exc_info=True)
+        self.seconds["mem"] = time.perf_counter() - t0
 
     # -- planning -----------------------------------------------------------
     def _analyze(self):
@@ -627,9 +827,11 @@ class _CompiledProgram:
         {"mode", "widened": [names per segment] or None}.  Only "auto"
         runs the donation-safety analysis (analysis/alias.py); a failure
         of the analysis degrades to "conservative", since the plan must
-        never be the reason a step fails.  The port has no executable
-        reload that could drop the aliasing, so the backend is safe."""
+        never be the reason a step fails.  The backend's verdict is the
+        persistent cache's (`pcache.donation_aliasing_safe`): a reloaded
+        plan is captured anew with its donation, so it is safe."""
         from .. import analysis
+        from ..compile import pcache as pcache_mod
 
         mode = analysis.donation_mode()
         if mode != "auto":
@@ -637,7 +839,7 @@ class _CompiledProgram:
         try:
             plan = analysis.analyze_donation(
                 self.desc, fetches=self.fetch_names, feeds=self.feed_names,
-                backend_safe=True)
+                backend_safe=pcache_mod.donation_aliasing_safe())
             if plan.effective_mode != "auto":
                 return {"mode": plan.effective_mode, "widened": None}
             return {"mode": "auto",
@@ -667,6 +869,20 @@ class _CompiledProgram:
 
     def labels(self):
         return [seg["label"] for seg in self._plan]
+
+    def _program_label(self):
+        """obs.mem's label for the whole program's row."""
+        from ..obs import mem as obs_mem
+
+        ops = self.block.ops
+        return "%s%s..%s x%d]" % (obs_mem.PROGRAM_PREFIX, ops[0].type,
+                                  ops[-1].type, len(ops))
+
+    def mem_labels(self):
+        """The labels obs.mem may hold for this program: its captured
+        segments' and its own row's."""
+        labels = [seg["label"] for seg in self._plan if seg["capture"]]
+        return labels + [self._program_label()] if labels else []
 
     # -- running ------------------------------------------------------------
     def run(self, ctx, scope, eager):
@@ -820,6 +1036,7 @@ class _CompiledProgram:
             # a pool whose graphs are all gone is released: the next
             # capture takes a new one
             self.pool = None
+            self.pool_bytes = 0
         graphs.release(self, key)
         obs_tele.on_program_cache_evict()
         _log.debug("evicted captured signature of %s",
@@ -893,6 +1110,8 @@ class _CompiledProgram:
         with the graph, and the flash kernel's launches recorded."""
         from . import graphs
 
+        from ..obs import health as obs_health
+
         executor = self.executor
         label = seg["label"]
         env_in = {n: (v if n in by_address else _clone(v))
@@ -900,7 +1119,8 @@ class _CompiledProgram:
         in_place_ops = self._in_place_ops(seg, donate_state, aliased)
         run = self._runner(seg, ctx, donate_state, in_place_ops)
         device = executor.device
-        if device.type == "cuda" and self.pool is None:
+        first = self.pool is None
+        if device.type == "cuda" and first:
             self.pool = torch.cuda.graph_pool_handle()
         gens = (ctx._rng,) if ctx._rng is not None \
             and ctx._rng.device.type == "cuda" else ()
@@ -914,11 +1134,54 @@ class _CompiledProgram:
                 "%s (first op %r): %s" % (label, seg["ops"][0].type,
                                           exc)) from exc
         executor.captures += 1
+        self.seconds["capture"] = self.seconds.get("capture", 0.0) \
+            + stats["seconds"]
         if graph is not None:
-            graphs.count_capture(label, stats)
+            graphs.count_capture(label, dict(stats, first_in_pool=first))
+            self.pool_bytes += int(stats["pool_bytes"])
+            executor.captured_pool_bytes += int(stats["pool_bytes"])
+            if self.mem_label is not None:
+                from ..obs import mem as obs_mem
+
+                obs_mem.on_compile_captured(
+                    self.mem_label, {"graph_pool_bytes": self.pool_bytes})
+        elif obs_health.attribution_wanted():
+            # the plain version on the CPU: its seconds; no pool
+            obs_health.publish_compile_stats(
+                label, {"seconds": stats["seconds"]})
+        self._store_stub(i, seg, ins, stats)
         return {"graph": graph, "env_in": env_in, "out": out, "run": run,
                 "rng": ctx._rng, "by_address": by_address, "stats": stats,
                 "in_place": in_place_ops}
+
+    def _store_stub(self, i, seg, ins, stats):
+        """A capture's stub entry in the persistent cache, keyed as the
+        JAX executor keys a segment's executable (the program key, the
+        segment, its outputs and mutated set, the inputs' shapes and
+        dtypes): it records the capture's seconds and pool bytes, and a
+        load of it is a miss.  The cache is never why a step fails."""
+        if self.pcache_key is None:
+            return
+        from ..compile import fingerprint as fp_mod
+        from ..compile import pcache as pcache_mod
+
+        try:
+            cache = pcache_mod.get_cache()
+            if cache is None:
+                return
+            sig = repr(tuple((n, _value_key(ins[n], False))
+                             for n in seg["reads"]))
+            key = fp_mod.combine(self.pcache_key, "seg%d" % i,
+                                 ",".join(seg["outputs"]),
+                                 ",".join(seg["mutated"]), sig)
+            cache.put(key, None, compile_seconds=stats["seconds"],
+                      meta={"segment": seg["label"],
+                            "ops": len(seg["ops"]),
+                            "pool_bytes": int(stats["pool_bytes"])})
+        except Exception as exc:
+            _log.warning("persistent cache stub for %s not stored (%r)",
+                         seg["label"], exc)
+            pcache_mod._errors("stub").inc()
 
     def _replay(self, rec, seg, ins):
         from . import graphs
@@ -980,6 +1243,9 @@ class Executor:
         self._lock = threading.RLock()
         self.captures = 0
         self.replays = 0
+        # the graph pool bytes this executor's captures added, summed
+        # (a dropped graph does not take its bytes off)
+        self.captured_pool_bytes = 0
 
     def _stream(self, scope, seed):
         """The random stream of a run in `scope`: the executor's own, or
@@ -992,8 +1258,9 @@ class Executor:
             scope.set(RNG_STATE_NAME, gen)
         return gen
 
-    def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True, eager=False):
+    def run(self, program=None, feed=None, fetch_list=None,
+            feed_var_name="feed", fetch_var_name="fetch", scope=None,
+            return_numpy=True, use_program_cache=True, eager=False):
         """Run block 0 of `program` (a Program, its ProgramDesc, or None
         for the default main program) with `feed` {name: array or
         tensor, a RaggedTensor for a var with a lod level, or a
@@ -1007,7 +1274,15 @@ class Executor:
         CUDA graphs (see the module docstring).  `eager=True` runs every
         op eagerly from Python, donating nothing: the per-op profiler
         rows and op-type ranges and the old numerics; so does a run
-        under FLAGS_check_nan_inf."""
+        under FLAGS_check_nan_inf.
+
+        `feed_var_name` and `fetch_var_name` are the JAX signature's and
+        change nothing.  `use_program_cache=False` plans and runs the
+        program without entering the executor's caches or the
+        persistent one (compile/pcache.py).  Under
+        FLAGS_compile_cache_dir a program planned once, in this process
+        or an earlier one, is reloaded from disk: no verifier, pass
+        pipeline or donation analysis runs (see `_acquire`)."""
         if program is None:
             program = default_main_program()
         source = program
@@ -1029,48 +1304,204 @@ class Executor:
             with obs_trace.span("executor/run", cat="executor",
                                 feeds=len(feed or {}),
                                 fetches=len(fetch_list)), self._lock:
-                program = self._program_to_run(source, program,
-                                               fetch_list)
-                return self._run(program, seed, feed, fetch_list, scope,
+                compiled = self._prepare(source, program,
+                                         list(feed or ()), fetch_list,
+                                         use_program_cache)
+                return self._run(compiled, seed, feed, fetch_list, scope,
                                  return_numpy, eager)
         except Exception as exc:
             # a crashing run leaves a post-mortem bundle (a no-op unless
-            # obs.flight.install() was called)
+            # obs.flight.install() was called); an OOM-class failure (a
+            # CUDA out of memory, the FLAGS_mem_budget_gb pre-flight)
+            # also carries the static timeline's top blamed buffers and
+            # the last mem_* gauges (obs/mem.py; {} for anything else)
+            from ..obs import mem as obs_mem
+
             obs_flight.on_crash(exc, origin="executor/run",
                                 feeds=obs_flight.describe_feeds(feed),
-                                fetches=list(fetch_list), eager=bool(eager))
+                                fetches=list(fetch_list), eager=bool(eager),
+                                **obs_mem.oom_context(exc, program,
+                                                      fetch_list))
             raise
 
-    def _program_to_run(self, source, desc, fetch_names):
+    def _prepare(self, source, desc, feed_names, fetch_names,
+                 use_program_cache):
+        """The _CompiledProgram a run of `desc` executes: planned anew
+        without the caches (`use_program_cache=False`), acquired through
+        the persistent cache under FLAGS_compile_cache_dir, else from
+        the executor's own caches."""
+        if not use_program_cache:
+            program = self._program_to_run(source, desc, fetch_names,
+                                           cached=False)
+            return self._new_compiled(program, sorted(feed_names),
+                                      fetch_names)
+        from ..compile import pcache as pcache_mod
+
+        if pcache_mod.enabled():
+            return self._acquire(source, desc, feed_names, fetch_names)
+        program = self._program_to_run(source, desc, fetch_names)
+        return self._compiled(program, feed_names, fetch_names)
+
+    def _new_compiled(self, desc, feed_names, fetch_names, entry=None):
+        """A new _CompiledProgram of `desc`, after the FLAGS_mem_budget_gb
+        pre-flight (obs/mem.py), which refuses a program whose static
+        peak exceeds the budget before its first eager run or
+        capture."""
+        budget = flags.get_flag("mem_budget_gb")
+        if budget:
+            from ..obs import mem as obs_mem
+
+            obs_mem.preflight(desc, fetch_names, budget)
+        return _CompiledProgram(self, desc, feed_names, fetch_names,
+                                entry=entry)
+
+    def _pcache_base(self, desc, feed_names, fetch_names):
+        """The persistent cache's program key (the JAX executor's
+        `_pcache_base`): the canonical IR with the feed and fetch
+        names, the flags that change what runs, the rewrite pipeline's
+        id, the stack (`environment_fingerprint`), the port's entry
+        format, the planning code (`planner_digest`) and the place's
+        device type."""
+        from ..compile import fingerprint as fp_mod
+        from ..compile import passes as passes_mod
+
+        prog_fp = fp_mod.program_fingerprint(
+            desc, feeds=feed_names, fetches=fetch_names,
+            flag_items=[(k, flags.get_flag(k)) for k in _PCACHE_FLAGS],
+            pipeline_id=passes_mod.pipeline_id(
+                flags.get_flag("compile_passes")))
+        return fp_mod.combine(prog_fp, fp_mod.environment_fingerprint(),
+                              "port-plan-v%d" % PCACHE_FORMAT,
+                              planner_digest(), self.device.type)
+
+    def _acquire(self, source, desc, feed_names, fetch_names):
+        """The JAX executor's `_aot_acquire` for a program: the
+        _CompiledProgram of `desc` from this executor's cache, else its
+        plan loaded from the persistent cache (a hit runs no verifier,
+        no pass pipeline and no donation analysis), else planned and
+        stored (a miss).  An entry that fails to parse or whose desc
+        fails the structural check (`_check_entry`, run inside the
+        cache's load) is quarantined and counted as an error and a miss
+        (`compile_cache_errors_total{kind="acquire"}`), and the run plans
+        as on a miss: the cache is never why a step fails."""
+        from ..compile import pcache as pcache_mod
+
+        feeds = sorted(feed_names)
+        key = self._cache_key(desc, feeds, fetch_names) + (
+            "pcache", flags.get_flag("compile_passes"),
+            flags.get_flag("verify_program"),
+            flags.get_flag("compile_cache_dir"))
+        version = _desc_version(desc)
+        hit = self._cache_hit(key, desc, version)
+        if hit is not None:
+            return hit
+        cache = pcache_mod.get_cache()
+        base = self._pcache_base(desc, feeds, fetch_names)
+        verify = flags.get_flag("verify_program")
+        t0 = time.perf_counter()
+        checked = {}
+
+        def check(loaded):
+            checked["desc"] = _check_entry(loaded, feeds, fetch_names)
+
+        # a hit is counted only for an entry that passes the check
+        entry = cache.get(base, check=check)
+        if entry is not None:
+            run_desc = checked["desc"]
+            load_s = time.perf_counter() - t0
+            seconds = {}
+            if verify and not entry.get("verified"):
+                t1 = time.perf_counter()
+                self._verify_program(source, version, fetch_names)
+                seconds["verify"] = time.perf_counter() - t1
+            compiled = self._new_compiled(run_desc, feeds, fetch_names,
+                                          entry=entry)
+            compiled.acquired = "hit"
+            compiled.seconds.update(seconds, load=load_s)
+            obs_trace.instant("pcache_hit", cat="compile",
+                              program=base[:12])
+            if seconds:
+                entry["verified"] = True
+                self._store_plan(cache, base, entry, compiled)
+        else:
+            seconds = {}
+            run_desc = self._program_to_run(source, desc, fetch_names,
+                                            seconds=seconds)
+            compiled = self._new_compiled(run_desc, feeds, fetch_names)
+            compiled.acquired = "miss"
+            compiled.seconds.update(seconds)
+            entry = dict(compiled.to_entry(), format=PCACHE_FORMAT,
+                         feeds=feeds, fetches=list(fetch_names),
+                         verified=bool(verify))
+            try:
+                entry["desc"] = run_desc.serialize_to_string()
+            except Exception as exc:
+                _log.warning("program %s does not serialize (%r); not "
+                             "stored", base[:12], exc)
+                pcache_mod._errors("serialize").inc()
+            else:
+                self._store_plan(cache, base, entry, compiled)
+        compiled.pcache_key = base
+        self._cache_insert(key, desc, version, compiled)
+        return compiled
+
+    @staticmethod
+    def _store_plan(cache, base, entry, compiled):
+        secs = {k: v for k, v in compiled.seconds.items()
+                if k in ("verify", "passes", "plan", "donation")}
+        try:
+            cache.put(base, entry, compile_seconds=sum(secs.values()),
+                      meta={"ops": len(compiled.block.ops),
+                            "segments": len(compiled.labels()),
+                            "seconds": {k: round(v, 6)
+                                        for k, v in secs.items()}})
+        except Exception as exc:
+            from ..compile import pcache as pcache_mod
+
+            _log.warning("persistent cache entry %s not stored (%r)",
+                         base[:12], exc)
+            pcache_mod._errors("store").inc()
+
+    def _program_to_run(self, source, desc, fetch_names, cached=True,
+                        seconds=None):
         """The ProgramDesc a run of `desc` executes: `desc` itself, or
-        under FLAGS_compile_passes its rewritten clone; verified first
-        under FLAGS_verify_program.  `source` is what the caller passed
-        (a Program carries its random_seed, which lint L003 reads)."""
+        under FLAGS_compile_passes its rewritten clone (kept for later
+        runs unless `cached` is False); verified first under
+        FLAGS_verify_program.  `source` is what the caller passed (a
+        Program carries its random_seed, which lint L003 reads).
+        `seconds` (a dict) takes the verifier's and the pipeline's host
+        seconds."""
         verify = flags.get_flag("verify_program")
         spec = flags.get_flag("compile_passes")
+        seconds = {} if seconds is None else seconds
         if not verify and not spec:
             return desc
         version = _desc_version(desc)
         if verify:
+            t0 = time.perf_counter()
             self._verify_program(source, version, fetch_names)
+            seconds["verify"] = time.perf_counter() - t0
         if not spec:
             return desc
         key = (id(desc), tuple(fetch_names), spec,
                flags.get_flag("amp_bf16"), flags.get_flag("amp_bf16_act"))
-        hit = self._optimized.get(key)
+        hit = self._optimized.get(key) if cached else None
         if hit is not None and hit[0] is desc and hit[1] == version:
             self._optimized.move_to_end(key)
             return hit[2]
         from ..compile import passes as passes_mod
 
+        t0 = time.perf_counter()
         optimized, pm = passes_mod.optimize_program(
             desc, spec, fetches=list(fetch_names))
+        seconds["passes"] = time.perf_counter() - t0
         self.pipeline_runs += 1
         self.last_pipeline = pm
-        self._optimized[key] = (desc, version, optimized.desc)
-        self._optimized.move_to_end(key)
-        if len(self._optimized) > self._CACHE_MAX:
-            self._optimized.popitem(last=False)
+        if cached:
+            self._optimized[key] = (desc, version, optimized.desc)
+            self._optimized.move_to_end(key)
+            if len(self._optimized) > self._CACHE_MAX:
+                self._optimized.popitem(last=False)
         return optimized.desc
 
     def _verify_program(self, source, version, fetch_names):
@@ -1088,22 +1519,23 @@ class Executor:
         if len(self._verified) > 4 * self._CACHE_MAX:
             self._verified.clear()  # rare: unbounded program churn
 
-    def _compiled(self, desc, feed_names, fetch_names):
-        """The cached _CompiledProgram of `desc` for these feeds and
-        fetches under the flags its kernels read, planned anew when the
-        program changed; the least recently used of more than
-        _CACHE_MAX is evicted (counted and logged, as on the JAX
-        side), its gauges retired."""
-        key = (id(desc), tuple(sorted(feed_names)), tuple(fetch_names),
-               flags.get_flag("amp_bf16"), flags.get_flag("amp_bf16_act"),
-               flags.get_flag("bn_shifted_stats"), flags.get_flag("donation"))
-        version = _desc_version(desc)
+    @staticmethod
+    def _cache_key(desc, feed_names, fetch_names):
+        return (id(desc), tuple(sorted(feed_names)), tuple(fetch_names),
+                flags.get_flag("amp_bf16"), flags.get_flag("amp_bf16_act"),
+                flags.get_flag("bn_shifted_stats"), flags.get_flag("donation"))
+
+    def _cache_hit(self, key, desc, version):
         hit = self._cache.get(key)
         if hit is not None and hit[0] is desc and hit[1] == version:
             self._cache.move_to_end(key)
             return hit[2]
-        compiled = _CompiledProgram(self, desc, sorted(feed_names),
-                                    fetch_names)
+        return None
+
+    def _cache_insert(self, key, desc, version, compiled):
+        """Keep `compiled`; the least recently used of more than
+        _CACHE_MAX is evicted (counted and logged, as on the JAX side),
+        its gauges retired."""
         self._cache[key] = (desc, version, compiled)
         self._cache.move_to_end(key)
         while len(self._cache) > self._CACHE_MAX:
@@ -1112,22 +1544,41 @@ class Executor:
             self._retire_segment_gauges(evicted)
             _log.debug("evicted program cache entry: program=%s feeds=%s "
                        "fetches=%s", ekey[0], ekey[1], ekey[2])
+
+    def _compiled(self, desc, feed_names, fetch_names):
+        """The cached _CompiledProgram of `desc` for these feeds and
+        fetches under the flags its kernels read, planned anew when the
+        program changed."""
+        key = self._cache_key(desc, feed_names, fetch_names)
+        version = _desc_version(desc)
+        hit = self._cache_hit(key, desc, version)
+        if hit is not None:
+            return hit
+        compiled = self._new_compiled(desc, sorted(feed_names), fetch_names)
+        self._cache_insert(key, desc, version, compiled)
         return compiled
 
     def _retire_segment_gauges(self, evicted):
-        """Drop the evicted program's per-segment gauges, but for labels
-        a still-cached program shares."""
+        """Drop the evicted program's per-segment gauges (obs.health's
+        and obs.mem's), but for labels a still-cached program shares:
+        labels do not depend on shapes, so a structurally identical
+        program that stays would never publish them again."""
         from ..obs import health as obs_health
+        from ..obs import mem as obs_mem
 
         labels = set(evicted.labels())
+        mem_labels = set(evicted.mem_labels())
         for _d, _v, other in self._cache.values():
             labels.difference_update(other.labels())
+            mem_labels.difference_update(other.mem_labels())
         if labels:
             obs_health.retire_compile_stats(labels)
+        if mem_labels:
+            obs_mem.retire_segments(mem_labels)
 
-    def _run(self, program, seed, feed, fetch_list, scope, return_numpy,
+    def _run(self, compiled, seed, feed, fetch_list, scope, return_numpy,
              eager):
-        compiled = self._compiled(program, list(feed or ()), fetch_list)
+        program = compiled.desc
         with torch.no_grad() if compiled.trains else \
                 torch.inference_mode():
             t_feed = time.perf_counter()
@@ -1139,7 +1590,20 @@ class Executor:
             ctx = ExecContext(program, 0, env, scope=scope,
                               place=self.place, device=self.device,
                               rng=self._stream(scope, seed))
-            graph_owned = compiled.run(ctx, scope, eager)
+            try:
+                graph_owned = compiled.run(ctx, scope, eager)
+            except Exception as exc:
+                # a device OOM is blamed on the program that ran: under
+                # FLAGS_compile_passes the rewritten clone (run()'s
+                # flight hook reads this through obs.mem.oom_context)
+                from ..obs import mem as obs_mem
+
+                if obs_mem.is_oom(exc) and not hasattr(exc, "_mem_program"):
+                    try:
+                        exc._mem_program = program
+                    except Exception:
+                        pass
+                raise
             # a fetch the run did not write (a parameter, optimizer
             # state) resolves from the scope
             outs = [_lookup(ctx, n) for n in fetch_list]

@@ -40,11 +40,15 @@ values.
                   trainer stamps into the flight recorder, and the
                   per-host metric snapshots pushed into the master's
                   lease store (`FleetReporter`) with their merged view
-                  and straggler verdict (`FleetAggregator`).
+                  and straggler verdict (`FleetAggregator`);
+  * `mem`       — memory observability: the static liveness timeline
+                  against the captured graphs' pool bytes (the drift
+                  report and its calibration blob), the donation audit,
+                  the FLAGS_mem_budget_gb pre-flight and the OOM
+                  post-mortem.
 
 They are copies, not imports: the port imports nothing of the JAX
-package.  The JAX package's `mem` waits with ROADMAP A2's second part
-(the executor's captured segments are its first).
+package.
 
 Everything is off by default and cheap when off: a span with tracing
 disabled is one check, the health and flight hooks start with one
@@ -52,7 +56,7 @@ flag or None check.
 """
 
 from . import registry, telemetry, trace  # noqa: F401
-from . import context, fleet, flight, health, perf, tail  # noqa: F401
+from . import context, fleet, flight, health, mem, perf, tail  # noqa: F401
 
-__all__ = ["context", "fleet", "flight", "health", "perf", "registry",
-           "tail", "telemetry", "trace"]
+__all__ = ["context", "fleet", "flight", "health", "mem", "perf",
+           "registry", "tail", "telemetry", "trace"]

@@ -32,10 +32,16 @@ module's names for what a capture costs: the JAX module publishes each
 compiled segment's XLA memory and cost analyses (`xla_*` gauges), the
 port publishes each captured segment's capture seconds and the bytes
 its graph pool grew by (`graph_capture_seconds{segment}`,
-`graph_pool_bytes{segment}`), and retires them when the executor's
-cache evicts the program.  `force_attribution` and
-`attribution_forced` keep the JAX package's switch, which no port code
-reads yet.
+`graph_pool_bytes{segment}`), forwards the pool bytes to `obs.mem`
+(the actual side of its drift join), and retires them when the
+executor's cache evicts the program.  On the card every capture
+publishes.  `force_attribution` and `attribution_forced` keep the JAX
+package's switch: in its body the executor also registers each captured
+segment's static peak at plan time (the static side of obs.mem's drift
+join) and publishes the CPU's plain captures (their seconds; nothing
+holds a pool there).  FLAGS_xla_cost_attribution, the JAX flag, means
+the same and is read only by `attribution_wanted`.  Neither causes an
+extra warm-up or capture.
 
 Import-cheap by design: fluid is imported lazily inside methods, so
 `paddle_tpu_torch.obs` stays free of framework import cycles.
@@ -376,10 +382,22 @@ _COMPILE_GAUGES = (
 )
 
 
+def attribution_wanted():
+    """Whether captures publish their stats on the CPU too and the
+    executor registers static peaks: FLAGS_xla_cost_attribution or a
+    `force_attribution` body."""
+    from ..utils import flags
+
+    return bool(flags.get_flag("xla_cost_attribution")
+                or attribution_forced())
+
+
 def publish_compile_stats(segment, stats):
     """Publish one capture's `stats` ({"seconds", "pool_bytes"}, from
-    fluid.graphs.graph_capture) as per-segment-label gauges; returns the
-    published values."""
+    fluid.graphs.graph_capture) as per-segment-label gauges and forward
+    the pool bytes to `obs.mem` (its drift join's actual side;
+    `stats["first_in_pool"]` says whether the capture was the first
+    into its pool); returns the published values."""
     reg = registry_mod.get_registry()
     published = {}
     for gauge, key, help_text in _COMPILE_GAUGES:
@@ -389,6 +407,11 @@ def publish_compile_stats(segment, stats):
         reg.gauge(gauge, help_text, labelnames=("segment",)) \
            .labels(segment=segment).set(float(v))
         published[gauge] = float(v)
+    if "graph_pool_bytes" in published:
+        from . import mem as mem_mod
+
+        mem_mod.on_compile_captured(segment, published,
+                                    first=stats.get("first_in_pool"))
     return published or None
 
 

@@ -12,8 +12,9 @@ Three layers on top of the obs substrate (spans, registry):
     structured per-step record into a bounded ring (wall time,
     h2d-input time, transfer bytes, and the JAX record's retrace and
     compile-cache counts: `retraces` counts the executor's CUDA graph
-    captures in the step, the cache's counts read 0 until ROADMAP A2's
-    persistent cache), and every `sample_every`-th step
+    captures in the step, `pcache_hits` and `pcache_misses` the
+    persistent plan cache's loads, compile/pcache.py), and every
+    `sample_every`-th step
     additionally records the card's kernels to split the step into
     device / input / host time.  Records export as JSONL or a Chrome trace-event file.
   * the bottleneck classifier — folds a time split plus the
@@ -671,12 +672,13 @@ def normalize_record(record, leg=None, ts=None):
     mem = record.get("memory")
     if mem:
         # the memory story, kept to the joinable numbers (the JAX
-        # package's keys): static peak, the compiled footprint, the
-        # device watermark, and the estimate ratio — `gate
-        # --mem-tolerance` regresses on these like it does on step_ms
+        # package's keys, and the port's graph pool bytes): static
+        # peak, the compiled or captured footprint, the device
+        # watermark, and the estimate ratio — `gate --mem-tolerance`
+        # regresses on these like it does on step_ms
         norm["memory"] = {
             k: mem[k] for k in
-            ("static_peak_bytes", "xla_total_bytes",
+            ("static_peak_bytes", "xla_total_bytes", "pool_bytes",
              "device_peak_bytes", "estimate_ratio")
             if mem.get(k) is not None}
     cfg = record.get("config")
@@ -861,12 +863,13 @@ def prune_stale_history(path, apply=False):
 
 
 # peak-memory keys the gate may compare, best first (the JAX package's
-# keys): the compiled whole-step footprint, the static estimate, the
-# device watermark.  The gate only ever compares a candidate against
+# keys, with the port's captured footprint beside the compiled one):
+# the compiled whole-step footprint, the graph pool bytes of the step's
+# captures, the static estimate, the device watermark.  The gate only ever compares a candidate against
 # baseline values of the SAME key — the keys legitimately differ by the
 # static-vs-actual factor, so a static estimate never gates against a
 # compiled-footprint baseline.
-_MEM_KEYS = ("xla_total_bytes", "static_peak_bytes",
+_MEM_KEYS = ("xla_total_bytes", "pool_bytes", "static_peak_bytes",
              "device_peak_bytes")
 
 

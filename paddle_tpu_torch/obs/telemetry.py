@@ -23,8 +23,8 @@ segments (fluid/executor.py) count as the JAX package's jitted ones do:
 `on_eager_segment` (`executor_eager_segments_total{reason}`: a segment
 of capturable ops run eagerly, by `eager=True`, `FLAGS_check_nan_inf`
 or DTensor inputs).  On the CPU nothing is captured or replayed.  The
-persistent compile cache (`compile_cache_*`) waits with ROADMAP A2's
-second part: `obs.perf`'s records read its counts as 0.
+persistent plan cache (compile/pcache.py) counts in `compile_cache_*`,
+which `obs.perf`'s records read as `pcache_hits` and `pcache_misses`.
 
 Everything funnels into the default registry (`obs.registry`).  All
 helpers are cheap enough to call unconditionally: a counter inc is one

@@ -91,7 +91,7 @@ def make_parallel_step(program, feed_names, fetch_names, mesh,
     spec_overrides maps a state name to the spec it takes, bypassing
     param_spec and the zero1 rewrite.  donate_state is accepted and does
     nothing: the step makes new state tensors and drops the old ones
-    (donation on the mesh path waits with ROADMAP A2's second part).
+    (donation on the mesh path waits with ROADMAP A2's third part).
 
     With FLAGS_verify_sharding on, the static SPMD analyzer runs over
     the program and mesh first (unless the caller already did:

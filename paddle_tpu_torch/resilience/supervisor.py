@@ -50,8 +50,10 @@ holds for programs whose per-step ops draw nothing from the random
 stream (dropout-free); see docs/RESILIENCE.md.  The mesh-parallel
 adapters (`run_parallel`, `for_parallel`) supervise a
 `parallel.ParallelTrainer`, whose snapshots hold the full values of its
-sharded state; the JAX supervisor's report of the persistent executable
-cache on restore waits with the cache (ROADMAP A2).
+sharded state.  On restore the supervisor reports the persistent plan
+cache (compile/pcache.py) as the JAX supervisor reports its executable
+cache: `compile_cache_entries` and `compile_cache_bytes` gauges and a
+`supervisor_pcache` instant.
 """
 
 import json
@@ -299,8 +301,18 @@ class TrainingSupervisor:
         trace_mod.instant("supervisor_restore", cat="supervisor",
                           step=self._step, epoch=self._epoch,
                           batch=self._batch)
-        # the JAX supervisor reports its persistent executable cache's
-        # entries here; that cache waits with ROADMAP A2
+        # resume is the moment the persistent plan cache pays off (a
+        # restarted process plans nothing before its first step): say
+        # what the cache holds, so /metrics on a resumed run shows
+        # whether the warm start was real
+        from ..compile import pcache
+
+        if pcache.enabled():
+            stats = pcache.publish_stats()
+            if stats is not None:
+                trace_mod.instant("supervisor_pcache", cat="supervisor",
+                                  entries=stats["entries"],
+                                  bytes=stats["bytes"])
         return self._step
 
     # -- the supervised loop ------------------------------------------------

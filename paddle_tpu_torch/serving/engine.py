@@ -19,6 +19,7 @@ a failing run reaches `obs.flight.on_crash` before it propagates.  Each
 `run` passes the `serving/run` fault point (resilience/faults.py).
 """
 
+import itertools
 import threading
 import time
 
@@ -41,6 +42,9 @@ __all__ = ["EngineConfig", "InferenceEngine", "DEFAULT_BATCH_BUCKETS",
            "slice_ragged"]
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+# InferenceEngine.mem_label's numbers
+_ENGINE_IDS = itertools.count()
 
 
 class EngineConfig:
@@ -108,6 +112,8 @@ class InferenceEngine:
         self.scope = scope
         self.metrics = metrics
         self._exe = executor_mod.Executor(self.place)
+        # this engine's rows in obs.mem's per-bucket pool bytes
+        self.mem_label = "engine%d" % next(_ENGINE_IDS)
         self._lock = threading.Lock()
         self._seen_buckets = set()
         self.last_warmup_stats = None
@@ -310,9 +316,17 @@ class InferenceEngine:
         (`captures`, this executor's, the CPU's plain ones included)
         and `jit_compiles` (the CUDA graph captures counted in
         `executor_jit_traces_total`, as the JAX engine counts its jit
-        compiles), and
+        compiles) and the persistent plan cache's hits and misses
+        (`pcache_hits`, `pcache_misses`), each bucket's captures
+        (`bucket_captures`) and the graph pool bytes they added
+        (`bucket_pool_bytes`, {} on the CPU), the captured graphs
+        dropped meanwhile (`evictions`), and
         `last_check` the program check's report and seconds.  A program
-        with a ragged feed warms only with `warmup_ragged`.
+        with a ragged feed warms only with `warmup_ragged`.  On the card
+        each bucket's pool bytes are recorded under this engine's
+        `mem_label` (`obs.mem.record_bucket_bytes`, its server's /healthz
+        "memory" section); on the CPU nothing holds a pool and nothing
+        is recorded.
 
         The check comes first and runs even without buckets: the engine
         serves a program it did not build, so `check_program(level=
@@ -338,21 +352,30 @@ class InferenceEngine:
             return 0
         # warmup is start-up cost, not traffic: keep it out of the
         # request-path histograms and hit/miss counters
+        from ..obs import mem as obs_mem
         from ..obs import telemetry as obs_tele
 
+        exe = self._exe
         saved_metrics, self.metrics = self.metrics, None
-        captures = self._exe.captures
+        captures = exe.captures
         snap_before = obs_tele.snapshot()
         t0 = time.perf_counter()
+        bucket_captures, bucket_bytes = {}, {}
         try:
             for bucket in self.config.batch_buckets:
                 feeds = {n: self._synthetic_feed(m, bucket)
                          for n, m in self._feed_meta.items()}
+                n0, b0 = exe.captures, exe.captured_pool_bytes
                 # the executor warms a signature up on its first run and
                 # captures it on the second, so the bucket's first
                 # request replays
                 for _ in range(2):
                     self.run(feeds)
+                bucket_captures[bucket] = exe.captures - n0
+                if exe.device.type == "cuda":
+                    bucket_bytes[bucket] = obs_mem.record_bucket_bytes(
+                        bucket, exe.captured_pool_bytes - b0,
+                        engine=self.mem_label)
         finally:
             self.metrics = saved_metrics
         delta = obs_tele.snapshot_delta(snap_before)
@@ -360,5 +383,12 @@ class InferenceEngine:
             "buckets": len(self.config.batch_buckets),
             "seconds": time.perf_counter() - t0,
             "jit_compiles": delta.get("executor_jit_traces_total", 0),
-            "captures": self._exe.captures - captures}
+            "captures": self._exe.captures - captures,
+            "pcache_hits": delta.get("compile_cache_hits_total", 0),
+            "pcache_misses": delta.get("compile_cache_misses_total", 0),
+            "bucket_captures": bucket_captures,
+            "bucket_pool_bytes": bucket_bytes,
+            # graphs dropped meanwhile (the pools' budget, the LRU)
+            "evictions": delta.get("executor_program_cache_evictions_total",
+                                   0)}
         return len(self.config.batch_buckets)

@@ -21,9 +21,11 @@ what was already queued, then closes the listener.
 
 Every request gets a trace context (`obs.context`): it continues the
 caller's W3C `traceparent` when one is sent, and every reply echoes it
-with an `x-request-id`.  The JAX server's `memory` section of /healthz
-reads its compiled executables' memory capture (`obs/mem.py`), which
-waits with ROADMAP A2's second part.
+with an `x-request-id`.  /healthz's `memory` section (`obs/mem.py`)
+lists the graph pool bytes each batch bucket's warmup captures added
+and the card's allocator watermarks; it is absent where nothing was
+captured (the CPU, or no warmup), as the JAX server leaves it out where
+nothing was compiled.
 """
 
 import json
@@ -278,6 +280,14 @@ class InferenceServer:
             body["slo"] = {"model": self.config.model_name,
                            "objective_ms": self.config.slo_ms,
                            "target": self.config.slo_target}
+        # this engine's per-bucket warmup pool bytes and the device
+        # watermarks (obs.mem; absent when nothing was captured)
+        from ..obs import mem as obs_mem
+
+        mem_section = obs_mem.health_memory_section(
+            engine=getattr(self.engine, "mem_label", ""))
+        if mem_section is not None:
+            body["memory"] = mem_section
         return body
 
     # -- request handling ---------------------------------------------------

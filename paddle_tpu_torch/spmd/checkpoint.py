@@ -683,11 +683,10 @@ def measure_densify_restore(root, from_dp=8, to_dp=4, n_vars=4,
     elastic shrink's restore path).  Verifies the round-trip bit-exactly
     on every rank and returns a pmem-style blob (`kind:
     paddle_tpu.densify_restore_measurement`) with the reassembly
-    throughput.  The JAX blob's `device_peak_bytes` comes from
-    `obs.mem`'s device watermarks, which the port does not have yet
-    (ROADMAP A2): the blob leaves it out, as the JAX function does
-    where the backend reports no allocator stats.  `elastic_cli
-    densify-bench` prints it.
+    throughput and, on the card, `device_peak_bytes` from `obs.mem`'s
+    device watermarks (the CPU reports none, and the blob leaves it
+    out, as the JAX function does where the backend reports no
+    allocator stats).  `elastic_cli densify-bench` prints it.
     """
     from torch.distributed.tensor import Shard
 
@@ -740,7 +739,7 @@ def measure_densify_restore(root, from_dp=8, to_dp=4, n_vars=4,
     if not all(_all_ok(good)):
         raise AssertionError("densify restore corrupted a var")
     bytes_total = sum(a.nbytes for a in originals.values())
-    return {
+    blob = {
         "kind": "paddle_tpu.densify_restore_measurement", "version": 1,
         "from_mesh": {"dp": int(from_dp)},
         "to_mesh": {"dp": int(to_dp)},
@@ -751,3 +750,10 @@ def measure_densify_restore(root, from_dp=8, to_dp=4, n_vars=4,
         if seconds > 0 else None,
         "verified": True,
     }
+    from ..obs import mem as mem_mod
+
+    marks = mem_mod.device_watermarks()
+    if marks:
+        blob["device_peak_bytes"] = max(
+            s.get("peak_bytes_in_use", 0) for s in marks.values())
+    return blob

@@ -121,7 +121,7 @@ def make_overlapped_dp_step(program, feed_names, fetch_names, mesh,
     `overlap_supported` first.
 
     donate_state is accepted and does nothing (donation on the mesh
-    path waits with ROADMAP A2's second part): the step makes new state
+    path waits with ROADMAP A2's third part): the step makes new state
     tensors and never writes the old ones.
 
     skip_reduce=True elides the bucketed ring entirely — the optimizer

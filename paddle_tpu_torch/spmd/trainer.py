@@ -21,9 +21,11 @@ partition-plan artifact (`plan.build_partition_plan`):
     mesh step, kept so records join across the packages).
 
 The JAX trainer's first step acquires its compiled step from the
-persistent compile cache.  The port compiles nothing and has no such
-cache yet (ROADMAP A2): the first step records `_aot_state = "no-cache"`,
-what the JAX trainer records when `pcache.get_cache()` returns None.
+persistent compile cache.  The port's mesh step runs eagerly and the
+port's cache holds executor plans, so a mesh step has no entry until
+the mesh path is captured (ROADMAP A2's third part): the first step
+records `_aot_state = "no-cache"`, what the JAX trainer records when
+`pcache.get_cache()` returns None.
 `save_checkpoint` and `restore_checkpoint` write and read the sharded
 per-rank snapshots of `checkpoint.py`, and `attach_supervisor` puts a
 resilience supervisor over them; `elastic_generation` (set by
@@ -156,8 +158,9 @@ class SpmdTrainer(ParallelTrainer):
     def step(self, feeds):
         if self._aot_state == "pending":
             # the JAX trainer's first step acquires its compiled step
-            # from the persistent compile cache; with none (the port's
-            # case until ROADMAP A2) it records this
+            # from the persistent compile cache; the port's eager mesh
+            # step has no entry (ROADMAP A2's third part), so it
+            # records what the JAX trainer records without a cache
             self._aot_state = "no-cache"
         return super().step(feeds)
 

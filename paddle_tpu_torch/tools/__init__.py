@@ -9,9 +9,10 @@ with the sharding analyzer under `--mesh`), the partition-plan CLI
 (`shard_cli`), the collective-observability CLI (`comm_cli`: the
 per-bucket report, the cross-host merged trace), the fleet aggregation
 CLI (`fleet_cli`), the elastic training CLI (`elastic_cli`: a
-worker, the densify bench, the chaos drill) and the autotuner
-(`tune_cli`: plan, measure, fit, report).  The JAX package's other
-CLIs wait with ROADMAP A2 (`pcache_cli`, `mem_cli`).
+worker, the densify bench, the chaos drill), the autotuner
+(`tune_cli`: plan, measure, fit, report), the persistent plan cache
+CLI (`pcache_cli`: stats, gc, prewarm) and the memory CLI (`mem_cli`:
+the static timeline, the drift join, the donation audit).
 
 The CLIs run on the card, as the reference's `paddle` CLIs do with
 `--use_gpu=1`; `--use_gpu=0` runs them on the CPU."""

@@ -20,11 +20,16 @@ checkpoint and resume.  It asserts that
     rebuild the exact trajectory),
   * the per-step loss trajectory matches step for step, and
   * `faults_injected_total{point,kind}` and `supervisor_restarts_total`
-    show that the faults fired and that recovery ran.
+    show that the faults fired and that recovery ran, and
+  * a run preempted by a real SIGTERM with the persistent plan cache on
+    (FLAGS_compile_cache_dir), then restarted (fresh programs, executor
+    and scope: everything a process restart clears), resumes and
+    finishes with every program it plans served from the cache.
 
-The JAX selftest also resumes a preempted run from its persistent
-executable cache with no fresh compile; that leg waits with the cache
-(ROADMAP A2), and the port's selftest prints a line saying so.
+The JAX selftest's warm-cache leg asserts zero fresh XLA compiles.  A
+CUDA graph cannot be reloaded, so the port's restart still captures its
+segments: its assertion reads plan hits (`compile_cache_hits_total`
+above zero, no miss) instead of zero captures.
 """
 
 import argparse
@@ -186,6 +191,73 @@ def _supervised_run(args, chaos, ckpt_dir):
     return summary, losses, _final_params(sgd), fired
 
 
+def _warm_cache_resume_leg(args, workdir):
+    """A supervised run preempted by a real SIGTERM with the persistent
+    plan cache on, then restarted: the restart must resume, finish, and
+    take every plan it needs from the cache (hits, no miss).  Returns
+    (summary, the restart's plan hits, its captures)."""
+    from paddle_tpu_torch.compile import pcache
+    from paddle_tpu_torch.obs import telemetry as obs_tele
+    from paddle_tpu_torch.reader import host_prefetch
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.resilience.supervisor import (Preempted,
+                                                        TrainingSupervisor)
+    from paddle_tpu_torch.utils import flags
+
+    ckpt_dir = os.path.join(workdir, "warm")
+    flags.set_flag("compile_cache_dir", os.path.join(workdir, "pcache"))
+    pcache.reset()
+    batches = _make_batches(args)
+
+    def reader():
+        for b in batches:
+            yield b
+
+    def supervise(sgd, **kw):
+        return TrainingSupervisor(
+            ckpt_dir, program=sgd._main_program,
+            steps_per_checkpoint=args.ckpt_every,
+            max_restarts=args.max_restarts,
+            place=cli_place(args.use_gpu), **kw).run(
+            sgd.step_runner(feeding={"img": 0, "label": 1}),
+            host_prefetch(reader, depth=2), num_epochs=args.epochs)
+
+    try:
+        # the cold run, ended by a real SIGTERM mid-epoch
+        # (on_preempt="raise": the process exits on the urgent
+        # checkpoint and is rescheduled)
+        _fresh_workspace()
+        faults.enable(seed=args.seed)
+        faults.inject("supervisor/step", "preempt",
+                      after=max(2, args.steps // 2), times=1)
+        try:
+            supervise(_build_mnist_mlp(args.use_gpu), on_preempt="raise")
+        except Preempted:
+            pass
+        else:
+            raise SystemExit("chaos selftest: the preemption fault never "
+                             "fired")
+        finally:
+            faults.disable()
+        # the restart: only the checkpoints and the cache survive
+        _fresh_workspace()
+        pcache.reset()
+        sgd = _build_mnist_mlp(args.use_gpu)
+        snap = obs_tele.snapshot()
+        summary = supervise(sgd)
+        delta = obs_tele.snapshot_delta(snap)
+        hits = delta.get("compile_cache_hits_total", 0)
+        misses = delta.get("compile_cache_misses_total", 0)
+        if not hits or misses:
+            raise SystemExit("chaos selftest: the restart planned %d "
+                             "program(s) anew and loaded %d from the "
+                             "persistent cache" % (misses, hits))
+        return summary, hits, delta.get("executor_jit_traces_total", 0)
+    finally:
+        flags.set_flag("compile_cache_dir", "")
+        pcache.reset()
+
+
 def selftest(args):
     import numpy as np
 
@@ -239,16 +311,25 @@ def selftest(args):
             raise SystemExit("chaos selftest: final params diverged: %s "
                              "vs %s" % (a, b))
 
+    # the warm-cache resume: a preempted run restarted from disk takes
+    # its plans from the persistent cache
+    warm_sum, warm_hits, warm_captures = _warm_cache_resume_leg(args,
+                                                                workdir)
+    if warm_sum["steps"] != clean_sum["steps"]:
+        raise SystemExit("chaos selftest: the warm restart ran %s, the "
+                         "clean run %s" % (warm_sum, clean_sum))
+
     print("[chaos] selftest green: %d faults fired %s, %d supervisor "
           "restart(s), final params and %d-step loss trajectory "
-          "IDENTICAL to the fault-free run (ckpts under %s)"
+          "IDENTICAL to the fault-free run; post-SIGTERM warm-cache "
+          "restart resumed with %d plan hit(s), no plan made anew, and "
+          "%d capture(s) of its own (ckpts under %s)"
           % (injected,
              sorted("%s:%s=%d" % (p, k, n)
                     for (p, k), n in fired.items()),
-             chaos_sum["restarts"], len(clean_loss), workdir),
+             chaos_sum["restarts"], len(clean_loss), warm_hits,
+             warm_captures, workdir),
           flush=True)
-    print("[chaos] the warm-cache resume leg waits with the persistent "
-          "executable cache (ROADMAP A2)", flush=True)
     return 0
 
 

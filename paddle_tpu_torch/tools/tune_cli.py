@@ -143,8 +143,8 @@ def parse_args(argv=None):
     p.add_argument("--iters", type=int, default=2)
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--cache-dir", default=None,
-                   help="measure: the persistent executable cache "
-                        "(waits with ROADMAP A2)")
+                   help="measure: FLAGS_compile_cache_dir for the "
+                        "legs (the persistent plan cache)")
     p.add_argument("--timeout", type=float, default=900,
                    help="measure: per-candidate wall-clock bound")
     p.add_argument("--use_gpu", type=use_gpu_arg, default=True,
@@ -449,6 +449,7 @@ def _selftest_measure_fit(args, plan, bad, workdir, use_gpu):
     # second run, so the timed steps replay
     results = tune_measure.measure_plan(
         plan, topk=2, history=history, iters=3, warmup=2,
+        cache_dir=os.path.join(workdir, "pcache"),
         extra_env=_leg_env(use_gpu), timeout=600)
     assert len(results) == 2, results
     for r in results:

@@ -37,6 +37,7 @@ stale/fallback platform are never trained on.
 import json
 import math
 
+from ..obs.mem import MEM_CALIBRATION_KIND
 from .rank import Calibration
 
 __all__ = ["join_history", "join_comm_history", "fit_calibration",
@@ -45,10 +46,6 @@ __all__ = ["join_history", "join_comm_history", "fit_calibration",
 
 LEG_PREFIX = "ptune:"
 
-# the kind stamp of a `pmem drift --calibration-out` blob (the JAX
-# package's obs/mem.py MEM_CALIBRATION_KIND; the port's obs/mem comes
-# with ROADMAP A2)
-MEM_CALIBRATION_KIND = "paddle_tpu.mem_calibration"
 
 
 def load_hbm_calibration(path):

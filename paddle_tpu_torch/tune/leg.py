@@ -88,7 +88,9 @@ def run_leg(env=None, log=None):
     from .. import fluid
     from .. import kernels
     from ..fluid.analysis import program_costs
+    from ..obs import mem as obs_mem
     from ..obs import perf as obs_perf
+    from ..obs import telemetry as obs_tele
     from ..utils import flags
     from . import models as tune_models
     from .measure import repo_root
@@ -118,6 +120,7 @@ def run_leg(env=None, log=None):
     place = fluid.CUDAPlace(0) if use_gpu else fluid.CPUPlace()
     device = place.device()  # raises here without a CUDA device
     kernels.reset_launches()
+    snap_start = obs_tele.snapshot()
     build_batch = batch // micro
     seconds = {}
     t = time.perf_counter()
@@ -201,6 +204,24 @@ def run_leg(env=None, log=None):
         "seconds": {k: round(v, 3) for k, v in seconds.items()},
         "kernel_launches": launches,
     }
+    # the leg's memory: the static peak, the pool bytes the train
+    # program's captures added and the card's watermark (obs/perf's
+    # memory gate reads it)
+    compiled = [c for _d, _v, c in exe._cache.values()
+                if c.fetch_names == [loss_name]]
+    record["memory"] = obs_mem.bench_memory_blob(
+        main, fetches=[loss_name],
+        pool_stats={"pool_bytes": sum(c.pool_bytes for c in compiled)})
+    if flags.get_flag("compile_cache_dir"):
+        # this leg's persistent plan cache efficacy
+        cc = obs_tele.snapshot_delta(snap_start)
+        record["compile_cache"] = {
+            "hits": cc.get("compile_cache_hits_total", 0),
+            "misses": cc.get("compile_cache_misses_total", 0),
+            "compile_seconds_saved": round(
+                cc.get("compile_cache_saved_compile_seconds_total",
+                       0.0), 3),
+        }
     record["platform_class"] = obs_perf.platform_class(record)
     dest = env.get("BENCH_HISTORY", "")
     if dest != "0":

@@ -22,9 +22,10 @@ environment, one failed leg is recorded and not fatal, and each
 record's config blob is checked against its candidate.
 
 Only `RankedPlan.ranked` entries can be measured: rejections never
-carry a `bench_env`, and `measure_plan` walks the ranked list.  The JAX
-measurement's persistent executable cache (`cache_dir`) waits with
-ROADMAP A2.
+carry a `bench_env`, and `measure_plan` walks the ranked list.
+`cache_dir` runs the legs with `FLAGS_compile_cache_dir` set (the
+persistent plan cache, compile/pcache.py), so a candidate measured
+again reloads its plans.
 """
 
 import json
@@ -36,10 +37,6 @@ __all__ = ["measure_plan", "measurement_env", "leg_launches",
            "MeasureError", "LEG_MODULE", "repo_root"]
 
 LEG_MODULE = "paddle_tpu_torch.tune.leg"
-
-_PCACHE_WAITS = ("the persistent executable cache (cache_dir) waits "
-                 "with the port's compile/pcache.py (ROADMAP A2)")
-
 
 class MeasureError(RuntimeError):
     pass
@@ -79,8 +76,8 @@ def measurement_env(env_over, context, model, history=None, iters=2,
     Relative history paths are absolutized against the CALLER's cwd —
     the leg subprocess runs from the repo root, and `ptune fit`
     later resolves the same path from the caller's cwd again.
-    `cache_dir` (the persistent-executable-cache path) waits with
-    ROADMAP A2 and raises naming it."""
+    `cache_dir` sets FLAGS_compile_cache_dir for the leg (the
+    persistent plan cache)."""
     env = dict(env_over)
     env.setdefault("BENCH_MODEL", model)
     env["BENCH_ITERS"] = str(iters)
@@ -95,7 +92,7 @@ def measurement_env(env_over, context, model, history=None, iters=2,
     if history:
         env["BENCH_HISTORY"] = os.path.abspath(history)
     if cache_dir:
-        raise MeasureError(_PCACHE_WAITS)
+        env["FLAGS_compile_cache_dir"] = os.path.abspath(cache_dir)
     env.update(extra_env or {})
     return env
 
@@ -132,8 +129,8 @@ def measure_plan(plan, topk=3, history=None, iters=2, warmup=1,
     plan: a `RankedPlan` or a loaded plan-JSON dict.
     history: perf-history path the records append to (the leg's
         default — `perf_history.jsonl` at the repo root — when None).
-    cache_dir: the persistent-executable-cache path; it waits with
-        ROADMAP A2 and raises MeasureError naming it.
+    cache_dir: FLAGS_compile_cache_dir for the legs (the persistent
+        plan cache); None leaves the caller's setting to the legs.
     extra_env: overrides applied last (the selftest pins BENCH_USE_GPU
         and tiny iters here).
 
@@ -141,8 +138,6 @@ def measure_plan(plan, topk=3, history=None, iters=2, warmup=1,
     MeasureError only for setup problems — one failed leg does not
     forfeit the rest.
     """
-    if cache_dir:
-        raise MeasureError(_PCACHE_WAITS)
     entries, model, context = _entries(plan, model)
     if model is None:
         raise MeasureError("plan names no model and none was given")
@@ -158,7 +153,8 @@ def measure_plan(plan, topk=3, history=None, iters=2, warmup=1,
                and k != "FLAGS_compile_passes"}
         env.update(measurement_env(
             env_over, context, model, history=history, iters=iters,
-            warmup=warmup, image_size=image_size, extra_env=extra_env))
+            warmup=warmup, image_size=image_size, cache_dir=cache_dir,
+            extra_env=extra_env))
         # the child imports this checkout's package
         env["PYTHONPATH"] = os.pathsep.join(
             [root] + [p for p in env.get("PYTHONPATH", "").split(

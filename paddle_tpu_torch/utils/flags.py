@@ -13,8 +13,11 @@ donation of its captured segments (`donation`: fluid/executor.py,
 analysis/alias.py), and the C
 inference API's place (`use_gpu`: capi_impl.py; the C signature has
 none, so `FLAGS_use_gpu=0` in a C program's environment asks for the
-CPU), and the sharding verification of the parallel trainer
-(`verify_sharding`: parallel/).
+CPU), the sharding verification of the parallel trainer
+(`verify_sharding`: parallel/), the persistent plan cache
+(`compile_cache_dir`, `compile_cache_max_bytes`: compile/pcache.py),
+and memory observability (`mem_budget_gb`, `xla_cost_attribution`:
+obs/mem.py, obs/health.py).
 Kernels read a flag when they run, so a flag set around `Executor.run`
 (`fluid.amp.bf16_guard()`) governs that run; the optimizer reads the
 fusion flags when it builds the updates.
@@ -130,5 +133,41 @@ DEFINE_flag("use_gpu", True,
             "the C inference API (capi_impl.CEngine) runs on CUDAPlace(0); "
             "0 runs it on the CPU.  Read from FLAGS_use_gpu when the "
             "package is imported, as the other flags are")
+
+DEFINE_flag("xla_cost_attribution", False,
+            "register each captured segment's and program's static "
+            "liveness peak at plan time (obs.mem's mem_static_peak_bytes, "
+            "the static side of its drift join) and publish the CPU's "
+            "plain captures' seconds too (on the card every capture "
+            "publishes its seconds and graph-pool bytes).  The same as "
+            "obs.health.force_attribution(), read only through "
+            "obs.health.attribution_wanted().  It never causes an extra "
+            "warm-up or capture")
+DEFINE_flag("mem_budget_gb", 0.0,
+            "OOM pre-flight (obs/mem.py): before a program's first eager "
+            "run or capture, check its static peak estimate (params + "
+            "optimizer state + liveness activation peak, the S005 "
+            "accounting) against this many GiB and raise "
+            "MemoryBudgetError naming the top blamed buffers instead of "
+            "letting the device raise an opaque CUDA out of memory; the "
+            "failure routes through the flight recorder like a real "
+            "OOM.  0 (default) disables")
+DEFINE_flag("compile_cache_dir", "",
+            "root directory of the persistent plan cache "
+            "(paddle_tpu_torch.compile.pcache).  When set, the executor "
+            "stores what a process can reload of each program it plans, "
+            "keyed by a canonical Program fingerprint: the pass-rewritten "
+            "clone, its segment plan, its donation plan and the "
+            "verifier's clean verdict; a later process (serving warmup, "
+            "supervisor auto-resume) reloads it and runs no verifier, "
+            "pass pipeline or donation analysis.  A CUDA graph cannot be "
+            "saved: each capture stores a stub entry (its seconds and "
+            "pool bytes), and a restarted process captures again.  "
+            "Empty (the default) disables the cache entirely")
+DEFINE_flag("compile_cache_max_bytes", 2 << 30,
+            "LRU size cap for the persistent plan cache; the oldest-used "
+            "entries are evicted after each store until the cache fits "
+            "(compile_cache_evictions_total counts them).  0 disables "
+            "eviction")
 
 parse_flags_from_env()

@@ -1,15 +1,15 @@
 """The port's donation-safety analysis (`analysis/alias.py`, the A0xx
 codes) and its executor wiring behind FLAGS_donation, against the JAX
 package's on the same programs (tests/test_alias_donation.py, case by
-case; its persistent-cache case waits with ROADMAP A2's second part).
+case, its persistent-cache case among them).
 
 Each program is built by both packages' own layers in fresh Program
 pairs, so the var names agree.  The plans (each segment's conservative,
 widened and declined sets, every in-place entry's status and code, the
 effective mode and the fingerprint) and the report's codes equal the JAX
-package's; the JAX package's memory audit (`obs.mem.audit_donation`,
-whose port waits with `obs/mem.py`) is held against the same audit
-computed here from the port's plan.  Donation preserves values: the
+package's; the JAX package's memory audit (`obs.mem.audit_donation`) is
+held against the port's `obs.mem.audit_donation`, which prices the
+port's plan.  Donation preserves values: the
 three modes train to the same bits on the CPU, where the port's
 executor runs its segments' plain version with the same donation.
 """
@@ -22,7 +22,6 @@ import paddle_tpu.fluid as jfluid
 from paddle_tpu import analysis as janalysis
 from paddle_tpu.compile import pcache as jpcache
 from paddle_tpu.core.desc import OpDesc as JOpDesc
-from paddle_tpu.fluid import analysis as jfluid_analysis
 from paddle_tpu.obs import mem as jmem
 from paddle_tpu.tools.lint_cli import _build_two_segment as j_two_segment
 from paddle_tpu.tools.mem_cli import _build_adam_toy as j_adam_toy
@@ -31,6 +30,7 @@ from paddle_tpu.utils import flags as jflags
 import paddle_tpu_torch.fluid as tfluid
 from paddle_tpu_torch import analysis as tanalysis
 from paddle_tpu_torch.core.desc import OpDesc
+from paddle_tpu_torch.obs import mem as tmem
 from paddle_tpu_torch.tools.lint_cli import (_build_adam_toy,
                                              _build_two_segment,
                                              _fork_adam_slot)
@@ -105,31 +105,10 @@ def _same_plan(got, want):
 
 
 def _audit(program, fetches=(), mode=None):
-    """The JAX package's `obs.mem.audit_donation` computed from the
-    port's plan: each donated and reclaimable in-place buffer with its
-    full size from its VarDesc, the bytes summed."""
-    plan = tanalysis.analyze_donation(program, fetches=fetches, mode=mode)
-    bd = program.desc.block(0)
-
-    def nbytes(name):
-        vd = bd.vars.get(name)
-        if vd is None or vd.shape is None:
-            return 0
-        return jfluid_analysis._numel(vd.shape) * \
-            jfluid_analysis._elem_bytes(str(vd.dtype), True, False)
-
-    donated, reclaimable = [], []
-    for e in plan.entries:
-        if e["status"] == "donated":
-            donated.append({"name": e["name"], "bytes": nbytes(e["name"])})
-        elif e["status"] == "reclaimable":
-            reclaimable.append({"name": e["name"],
-                                "bytes": nbytes(e["name"]),
-                                "code": e["code"], "reason": e["reason"]})
-    return {"effective_mode": plan.effective_mode, "donated": donated,
-            "donated_bytes": sum(d["bytes"] for d in donated),
-            "reclaimable": reclaimable,
-            "reclaimable_bytes": sum(r["bytes"] for r in reclaimable)}
+    """The port's `obs.mem.audit_donation`, which prices the port's
+    plan: each donated and reclaimable in-place buffer with its full
+    size from its VarDesc, the bytes summed."""
+    return tmem.audit_donation(program, fetches=fetches, mode=mode)
 
 
 def _same_audit(got, want):
@@ -383,3 +362,70 @@ def test_audit_clean_toy_zero_reclaimable_under_auto():
     assert off["reclaimable_bytes"] > 0
     for r in off["reclaimable"]:
         assert r["reason"]
+
+
+# -- compile-cache key separation -------------------------------------------
+
+def _build_two_segment_infer():
+    """fc -> print -> mean with no optimizer (tests/test_alias_donation.py
+    `_build_two_segment_infer`): zero in-place ops, two captured
+    segments around a host one."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[16], dtype="float32")
+        h = tfluid.layers.fc(input=x, size=8)
+        loss = tfluid.layers.mean(x=h)
+    bd = main.desc.block(0)
+    i = next(i for i, od in enumerate(bd.ops) if od.type == "mean")
+    bd.ops.insert(i, OpDesc("print", {"X": [h.name]}, {"Out": [h.name]},
+                            {"message": "seg", "summarize": 1}))
+    return main, startup, loss.name
+
+
+def test_pcache_keys_separate_modes(tmp_path):
+    """FLAGS_donation folds into the persistent-cache keys: each mode
+    fills its own entries cold and reloads its own warm, adding 0
+    entries (a capture's stub, rewritten warm, keeps its key), never
+    another mode's; the three modes' program keys differ."""
+    from paddle_tpu_torch.compile import pcache as tpcache
+    from paddle_tpu_torch.obs import telemetry as tele
+
+    flags.set_flag("compile_cache_dir", str(tmp_path))
+    tpcache.reset()
+    x = np.zeros((4, 16), np.float32)
+    keys = {}
+    try:
+        def run_once(mode):
+            flags.set_flag("donation", mode)
+            main, startup, lname = _build_two_segment_infer()
+            scope = tfluid.Scope()
+            exe = tfluid.Executor(tfluid.CPUPlace())
+            exe.run(startup, scope=scope)
+            outs = [exe.run(main, feed={"x": x}, fetch_list=[lname],
+                            scope=scope)[0] for _ in range(3)]
+            cp = _compiled(exe)
+            keys.setdefault(mode, set()).add(cp.pcache_key)
+            return outs, exe
+
+        entries = {}
+        for mode in ("off", "conservative", "auto"):
+            before = tpcache.get_cache().stats()["entries"]
+            _outs, exe = run_once(mode)
+            entries[mode] = tpcache.get_cache().stats()["entries"]
+            assert entries[mode] > before, \
+                "mode %r reused another mode's entries" % mode
+            assert exe.captures == 2
+        for mode in ("off", "conservative", "auto"):
+            tpcache.reset()
+            before = tpcache.get_cache().stats()["entries"]
+            hits0 = tele.snapshot().get("compile_cache_hits_total", 0)
+            _outs, exe = run_once(mode)
+            assert tpcache.get_cache().stats()["entries"] == before
+            assert tele.snapshot().get("compile_cache_hits_total", 0) \
+                > hits0
+            assert exe.pipeline_runs == 0
+        assert all(len(k) == 1 for k in keys.values()), keys
+        assert len({k for ks in keys.values() for k in ks}) == 3
+    finally:
+        flags.set_flag("compile_cache_dir", "")
+        tpcache.reset()

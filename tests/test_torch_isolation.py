@@ -96,7 +96,11 @@ def test_every_port_module_is_scanned():
                 ("tune", "__init__.py"), ("tune", "models.py"),
                 ("tune", "space.py"), ("tune", "rank.py"),
                 ("tune", "measure.py"), ("tune", "fit.py"),
-                ("tune", "leg.py"), ("tools", "tune_cli.py")):
+                ("tune", "leg.py"), ("tools", "tune_cli.py"),
+                # A2's second part: the persistent plan cache and memory
+                # observability, with their CLIs
+                ("compile", "pcache.py"), ("obs", "mem.py"),
+                ("tools", "pcache_cli.py"), ("tools", "mem_cli.py")):
         assert os.path.join("paddle_tpu_torch", *new) in rel
     v2 = sorted(os.path.basename(p) for p in rel
                 if os.path.dirname(p) == os.path.join("paddle_tpu_torch",
@@ -166,6 +170,8 @@ def test_cli_stack_import_leaves_jax_unloaded():
     code = ("import sys, paddle_tpu_torch.tools.serve_cli, "
             "paddle_tpu_torch.tools.trainer_cli, "
             "paddle_tpu_torch.tools.obs_dump, "
+            "paddle_tpu_torch.tools.pcache_cli, "
+            "paddle_tpu_torch.tools.mem_cli, "
             "paddle_tpu_torch.trainer_config_helpers, "
             "paddle_tpu_torch.dataset.uci_housing_provider, "
             "paddle_tpu_torch.utils.merge_model, "
@@ -189,7 +195,9 @@ def test_clis_refuse_the_cpu_unless_asked(tmp_path):
     from paddle_tpu_torch.tools import (lint_cli, load_cli, perf_cli,
                                         serve_cli, trainer_cli)
 
-    for cli in (perf_cli, load_cli, lint_cli):
+    from paddle_tpu_torch.tools import mem_cli, pcache_cli
+
+    for cli in (perf_cli, load_cli, lint_cli, pcache_cli, mem_cli):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--selftest"])
         assert cli.parse_args(["--use_gpu=0"]).use_gpu is False

@@ -691,4 +691,150 @@ def test_perf_cli_selftest_on_the_cpu(capsys):
     assert perf_cli.main(["--selftest", "--use_gpu=0"]) == 0
     out = capsys.readouterr().out
     assert "[pperf] selftest green" in out
-    assert "waits with the persistent executable cache (ROADMAP A2)" in out
+    # the warm-cache leg: the restart's plans all came from the cache
+    assert "warm cache blob {'hits': 2, 'misses': 0}" in out
+
+
+# -- attribution on the captured path (tests/test_perf.py:428-542) ------------
+#
+# The JAX attribution routes a segment's first build through one AOT
+# artifact, so the flag costs no second XLA compile.  In the port
+# `health.force_attribution` (and FLAGS_xla_cost_attribution, which
+# means the same) mean "publish this capture's stats" (and register the
+# static peaks): they must cause no extra warm-up or capture and change
+# no value.
+
+def _attr_runs(monkeypatch, feeds, attr, via_flag=False):
+    """(apply_op calls, captures, fetched costs) of runs of the tiny
+    program with attribution on (force_attribution, or the flag when
+    `via_flag`) or off."""
+    from paddle_tpu_torch.fluid import executor as executor_mod
+    from paddle_tpu_torch.obs import health as thealth
+    from paddle_tpu_torch.utils import flags
+
+    tframework.reset_unique_name()
+    main, startup, cost = _tiny_train_program(tfluid)
+    scope = tfluid.Scope()
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    torch.manual_seed(0)
+    exe.run(startup, scope=scope)
+    calls = []
+    real_apply = executor_mod.apply_op
+    monkeypatch.setattr(executor_mod, "apply_op",
+                        lambda ctx, od: (calls.append(od.type),
+                                         real_apply(ctx, od))[1])
+    flags.set_flag("xla_cost_attribution", attr and via_flag)
+    try:
+        with thealth.force_attribution() if attr and not via_flag \
+                else _nullcontext():
+            outs = [exe.run(main, feed=f, fetch_list=[cost],
+                            scope=scope)[0] for f in feeds]
+    finally:
+        flags.set_flag("xla_cost_attribution", False)
+        monkeypatch.setattr(executor_mod, "apply_op", real_apply)
+    return calls, exe.captures, outs
+
+
+def _nullcontext():
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
+def test_attribution_jit_path_lowers_each_segment_once(monkeypatch):
+    """apply_op calls under attribution equal those without, and so do
+    the captures: attribution adds no warm-up and no capture.  The capture's
+    stats are published (on the CPU its seconds)."""
+    tregistry.reset_registry()
+    feed = [{"x": np.ones((2, 4), np.float32)}] * 3
+    plain = _attr_runs(monkeypatch, feed, False)
+    traces0 = ttele.snapshot().get("executor_jit_traces_total", 0)
+    got = _attr_runs(monkeypatch, feed, True)
+    assert got[0] == plain[0] and got[1] == plain[1] == 1
+    # the card's captures count in executor_jit_traces_total; the CPU's
+    # plain version counts nothing there
+    assert ttele.snapshot().get("executor_jit_traces_total", 0) == traces0
+    snap = ttele.snapshot()
+    assert any(k.startswith("graph_capture_seconds{") for k in snap), \
+        [k for k in snap if k.startswith("graph_")]
+    assert any(k.startswith("mem_static_peak_bytes{") for k in snap)
+
+
+def test_attribution_artifacts_survive_flag_drop(monkeypatch):
+    """Signatures captured under force_attribution (serving warmup) keep
+    replaying after it drops: the first run without it captures nothing
+    new, and a new batch size warms up and captures as it would without
+    attribution."""
+    from paddle_tpu_torch.obs import health as thealth
+
+    tframework.reset_unique_name()
+    main, startup, cost = _tiny_train_program(tfluid)
+    scope = tfluid.Scope()
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    feed2 = {"x": np.ones((2, 4), np.float32)}
+    with thealth.force_attribution():
+        for _ in range(2):
+            exe.run(main, feed=feed2, fetch_list=[cost], scope=scope)
+    assert exe.captures == 1
+    replays = exe.replays
+    out1 = exe.run(main, feed=feed2, fetch_list=[cost], scope=scope)
+    assert exe.captures == 1 and exe.replays == replays + 1
+    feed5 = {"x": np.ones((5, 4), np.float32)}
+    exe.run(main, feed=feed5, fetch_list=[cost], scope=scope)
+    assert exe.captures == 1  # the warm-up
+    exe.run(main, feed=feed5, fetch_list=[cost], scope=scope)
+    assert exe.captures == 2
+    assert np.isfinite(out1[0]).all()
+
+
+def test_attribution_flag_flip_does_not_stall_warm_signatures(
+        monkeypatch):
+    """Turning attribution on in a live process does not capture a
+    signature that already replays: the flipped run makes the calls of
+    an unflipped one and no capture."""
+    feed = [{"x": np.ones((2, 4), np.float32)}] * 3
+    warm = _attr_runs(monkeypatch, feed, False)
+    flipped_calls = []
+    from paddle_tpu_torch.fluid import executor as executor_mod
+    from paddle_tpu_torch.obs import health as thealth
+
+    tframework.reset_unique_name()
+    main, startup, cost = _tiny_train_program(tfluid)
+    scope = tfluid.Scope()
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    for f in feed:
+        exe.run(main, feed=f, fetch_list=[cost], scope=scope)
+    assert exe.captures == warm[1] == 1
+    real_apply = executor_mod.apply_op
+    monkeypatch.setattr(executor_mod, "apply_op",
+                        lambda ctx, od: (flipped_calls.append(od.type),
+                                         real_apply(ctx, od))[1])
+    with thealth.force_attribution():
+        exe.run(main, feed=feed[0], fetch_list=[cost], scope=scope)
+    assert exe.captures == 1
+    # one replay's calls: the last run of the unflipped sequence
+    assert flipped_calls == warm[0][-len(flipped_calls):]
+    assert len(flipped_calls) == len(warm[0]) // 3
+
+
+def test_attribution_numerics_match_plain_path(monkeypatch):
+    """The attribution runs give the plain runs' bits (same program,
+    same seed, same feeds), under force_attribution and under the flag,
+    which attribution_wanted() reads as the same switch."""
+    from paddle_tpu_torch.obs import health as thealth
+    from paddle_tpu_torch.utils import flags
+
+    feed = [{"x": np.full((2, 4), i + 1.0, np.float32)} for i in range(3)]
+    plain = np.concatenate(_attr_runs(monkeypatch, feed, False)[2])
+    assert not thealth.attribution_wanted()
+    flags.set_flag("xla_cost_attribution", True)
+    try:
+        assert thealth.attribution_wanted()
+    finally:
+        flags.set_flag("xla_cost_attribution", False)
+    for via_flag in (False, True):
+        got = np.concatenate(_attr_runs(monkeypatch, feed, True,
+                                        via_flag=via_flag)[2])
+        np.testing.assert_array_equal(plain, got)

@@ -734,3 +734,25 @@ def test_reset_unique_name_gives_the_jax_names(reset):
     tfluid.framework.unique_name("fc", prog)
     tfluid.framework.reset_unique_name(prog)
     assert tfluid.framework.unique_name("fc", prog) == "fc_0"
+
+
+def test_executor_run_has_the_jax_signature():
+    """`Executor.run` takes the JAX executor's parameters, in its order
+    (`feed_var_name`, `fetch_var_name` and `use_program_cache` among
+    them), and the port's `eager` in the JAX place."""
+    import inspect
+
+    from paddle_tpu.fluid import executor as jexec
+    from paddle_tpu_torch.fluid import executor as texec
+
+    def params(cls):
+        return list(inspect.signature(cls.run).parameters)
+
+    assert params(texec.Executor) == params(jexec.Executor)
+    assert {"feed_var_name", "fetch_var_name", "use_program_cache"} \
+        <= set(params(texec.Executor))
+    jdefaults = {n: p.default for n, p in inspect.signature(
+        jexec.Executor.run).parameters.items()}
+    tdefaults = {n: p.default for n, p in inspect.signature(
+        texec.Executor.run).parameters.items()}
+    assert tdefaults == jdefaults

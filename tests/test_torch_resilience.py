@@ -389,6 +389,53 @@ def test_preempt_writes_urgent_checkpoint_with_meta(tmp_path, fresh):
     assert out["steps"] == 12
 
 
+def test_restore_reports_the_persistent_plan_cache(tmp_path, fresh):
+    """On restore the supervisor publishes what the plan cache holds
+    (`compile_cache_entries`, `compile_cache_bytes`), as the JAX
+    supervisor reports its executable cache, and the resumed run takes
+    its plans from the cache."""
+    from paddle_tpu_torch.compile import pcache
+    from paddle_tpu_torch.tools.chaos_cli import _fresh_workspace
+    from paddle_tpu_torch.utils import flags
+
+    flags.set_flag("compile_cache_dir", str(tmp_path / "pcache"))
+    pcache.reset()
+    try:
+        _fresh_workspace()
+        sgd = _build_sgd()
+        faults.enable(seed=0)
+        faults.inject("supervisor/step", "preempt", after=2, times=1)
+        with pytest.raises(Preempted):
+            TrainingSupervisor(str(tmp_path / "ck"),
+                               program=sgd._main_program,
+                               steps_per_checkpoint=10 ** 6,
+                               on_preempt="raise", place=CPU).run(
+                sgd.step_runner(feeding={"x": 0, "y": 1}),
+                _reader_fn(_batches()), num_epochs=2)
+        faults.disable()
+        stats = pcache.get_cache().stats()
+        assert stats["entries"] > 0
+        # a restart: the same programs built anew, names and all
+        pcache.reset()
+        _fresh_workspace()
+        sgd = _build_sgd()
+        hits0 = obs_tele.snapshot().get("compile_cache_hits_total", 0)
+        out = TrainingSupervisor(str(tmp_path / "ck"),
+                                 program=sgd._main_program,
+                                 steps_per_checkpoint=10 ** 6,
+                                 place=CPU).run(
+            sgd.step_runner(feeding={"x": 0, "y": 1}),
+            _reader_fn(_batches()), num_epochs=2)
+        assert out["steps"] == 12
+        snap = obs_tele.snapshot()
+        assert snap["compile_cache_entries"] >= stats["entries"]
+        assert snap["compile_cache_bytes"] > 0
+        assert snap.get("compile_cache_hits_total", 0) > hits0
+    finally:
+        flags.set_flag("compile_cache_dir", "")
+        pcache.reset()
+
+
 def test_nonfinite_backs_off_loss_scale(tmp_path, fresh):
     from paddle_tpu_torch.fluid.amp import LossScaler
 
@@ -644,7 +691,9 @@ def test_chaos_cli_selftest_as_a_subprocess():
         capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "selftest green" in proc.stdout
-    assert "waits with the persistent executable cache" in proc.stdout
+    # the warm-cache leg: the restart took its plans from the cache
+    assert "warm-cache restart resumed with" in proc.stdout
+    assert "no plan made anew" in proc.stdout
 
 
 def test_chaos_cli_custom_faults(tmp_path, fresh):

@@ -364,8 +364,9 @@ def test_metrics_families_labels_and_healthz_match_jax(jax_export,
     assert tfam["slo_burn_rate"] == ["model"]
     assert tfam["numerics_nonfinite_total"] == ["tensor"]
     # the JAX server's /healthz keys, but its jit-trace count (the port
-    # compiles nothing) and the memory section (ROADMAP A2), and the
-    # platform of the engine's place
+    # compiles nothing) and the memory section (the port's lists graph
+    # pools, and the CPU captures none), and the platform of the
+    # engine's place
     assert set(thealth) == (set(jhealth) - {"jit_traces_total", "memory"}
                             ) | {"platform"}
     assert thealth["platform"] == "cpu"

@@ -25,9 +25,9 @@ the CPU.
   uninterrupted run bit for bit; a dp 4 snapshot restored onto dp 2
   goes through the densify path to the same values;
   `measure_densify_restore`'s blob from 4 shards to 2 has the JAX
-  blob's fields and values (its `device_peak_bytes` waits with
-  ROADMAP A2 in the port, and the JAX package's CPU backend reports
-  none); `spmd.bench.run_leg` at dp 4 gives tests/test_spmd.py's record
+  blob's fields and values (its `device_peak_bytes` comes from the
+  card's watermarks, and on the CPU neither package reports one);
+  `spmd.bench.run_leg` at dp 4 gives tests/test_spmd.py's record
   schema, and its history line is one the port's
   `tune.fit.join_comm_history` joins as the JAX package's does.
 - In a second spawn of 4 gloo ranks, `attach_supervisor(...).run()`

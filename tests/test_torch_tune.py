@@ -467,9 +467,12 @@ def test_config_mismatch_and_pcache_refused():
         dict(expected, per_device_batch=8), got, {})
     assert tmeasure._config_matches(expected, None, {}) == \
         "record carries no config blob"
-    with pytest.raises(tmeasure.MeasureError, match="A2"):
-        tmeasure.measure_plan({"model": "lenet5", "ranked": []},
-                              cache_dir="pcache")
+    # the persistent plan cache is no longer refused: the legs run with
+    # FLAGS_compile_cache_dir set
+    assert tmeasure.measure_plan({"model": "lenet5", "ranked": []},
+                                 cache_dir="pcache") == []
+    env = tmeasure.measurement_env({}, {}, "lenet5", cache_dir="pcache")
+    assert env["FLAGS_compile_cache_dir"] == os.path.abspath("pcache")
 
 
 def test_leg_record_equals_bench_config_blob(tmp_path):
@@ -502,6 +505,41 @@ def test_leg_record_equals_bench_config_blob(tmp_path):
     assert line["leg"] == "ptune:x" and line["config"] == rec["config"]
     with pytest.raises(SystemExit, match="divisible"):
         tleg.run_leg(env=dict(env, BENCH_BATCH="7"))
+
+
+def test_leg_record_carries_memory_and_cache_blobs(tmp_path):
+    """A leg's record carries obs.mem's bench blob (the static peak the
+    memory gate reads; on the CPU no pool) and, with the persistent plan
+    cache on, its hits and misses: a second leg on the same cache loads
+    every plan."""
+    from paddle_tpu_torch.compile import pcache
+    from paddle_tpu_torch.obs import mem as tmem
+    from paddle_tpu_torch.utils import flags
+
+    env = {"BENCH_MODEL": "lenet5", "BENCH_BATCH": "8", "BENCH_ITERS": "1",
+           "BENCH_WARMUP": "1", "BENCH_AMP": "0", "BENCH_USE_GPU": "0",
+           "BENCH_HISTORY": "0"}
+    flags.set_flag("compile_cache_dir", str(tmp_path / "pcache"))
+    try:
+        cold = tleg.run_leg(env=env)
+        pcache.reset()
+        warm = tleg.run_leg(env=env)
+    finally:
+        flags.set_flag("compile_cache_dir", "")
+        pcache.reset()
+    main, _loss = tmodels.builder("lenet5")(8)
+    assert cold["memory"]["static_peak_bytes"] == \
+        tmem.program_timeline(main, fetches=[_loss], bf16_act=False)[
+            "total_peak_bytes"] > 0
+    assert "pool_bytes" not in cold["memory"]  # the CPU holds no pool
+    assert cold["compile_cache"]["misses"] == 2
+    assert warm["compile_cache"] == {"hits": 2, "misses": 0,
+                                     "compile_seconds_saved":
+                                     warm["compile_cache"][
+                                         "compile_seconds_saved"]}
+    norm = tperf.normalize_record(cold)
+    assert norm["memory"]["static_peak_bytes"] == \
+        cold["memory"]["static_peak_bytes"]
 
 
 def test_leg_and_cli_raise_without_cuda(tmp_path):
