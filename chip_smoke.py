@@ -12448,6 +12448,8 @@ def phase_perf():
 # phase 22: the mesh (the tolerances are tests/test_parallel_trainer.py's)
 MESH_LOSS_RTOL, MESH_PARAM_RTOL, MESH_PARAM_ATOL = 2e-5, 2e-4, 1e-5
 MESH_STEPS, MESH_WARM, MESH_TIMED = 3, 2, 5
+# 22b, 23b: the captured step's warm-up, capture and 5 replays
+MESH_CAPTURED_STEPS = 7
 MESH_LOGITS_ATOL = 1e-4       # flash against dense, the functional model
 MESH_SCHEDULE_ATOL = 1e-5     # GPipe and MoE against their plain versions
 MESH_MOE_TOKENS, MESH_MOE_EXPERTS, MESH_MOE_CF = 256, 8, 8.0
@@ -12506,8 +12508,13 @@ def _worst(got, ref, rtol, atol):
 def mesh_trainer(mesh, device, smi, batch=BATCH, seq=SEQ, vocab=VOCAB,
                  n_layer=N_LAYER, n_head=N_HEAD, d_model=D_MODEL):
     """22b: phase 5's program through ParallelTrainer (ZeRO-1) on the
-    mesh, 3 steps against the plain Executor's from the same state; both
-    steps' medians.  Returns the launch counts of the trainer's steps."""
+    mesh, captured and donated: MESH_CAPTURED_STEPS steps (the warm-up,
+    the capture, then replays) against the uncaptured mesh step's from
+    the same state, bit for bit, every donated shard at its address; its
+    first MESH_STEPS steps against the plain Executor's; the captured,
+    uncaptured and executor steps' medians (2 warm, 5 timed); the
+    capture's seconds and pool bytes; a dropout program captured against
+    uncaptured.  Returns the launch counts of the captured steps."""
     import torch
     from paddle_tpu_torch.fluid import Executor, MomentumOptimizer
     from paddle_tpu_torch.models import transformer_program as tp
@@ -12523,37 +12530,74 @@ def mesh_trainer(mesh, device, smi, batch=BATCH, seq=SEQ, vocab=VOCAB,
     init_s = time.perf_counter() - t0
     init = {n: trainer.fetch_state(n) for n in sorted(trainer.state)}
     feeds = [tp.transformer_feeds(batch, seq, vocab, seed=SEED + i,
-                                  targets=True) for i in range(MESH_STEPS)]
+                                  targets=True)
+             for i in range(MESH_CAPTURED_STEPS)]
+    ptrs = {n: v.to_local().data_ptr() for n, v in trainer.state.items()}
     reset_launches()
     t0 = time.perf_counter()
-    losses = [float(trainer.step(f)[0].reshape(-1)[0]) for f in feeds]
+    losses, after3 = [], None
+    for i, f in enumerate(feeds):
+        losses.append(float(trainer.step(f)[0].reshape(-1)[0]))
+        if i + 1 == MESH_STEPS:
+            after3 = {n: trainer.fetch_state(n) for n in init}
     steps_s = time.perf_counter() - t0
     launches = read_launches()
     after = {n: trainer.fetch_state(n) for n in init}
-    MESH_RECORD.update(init=init, losses=losses, after=after)
+    moved = sorted(n for n, v in trainer.state.items()
+                   if v.to_local().data_ptr() != ptrs[n])
+    core = trainer.captured
+
+    plain = ParallelTrainer(main, startup, names, [loss], mesh,
+                            zero_stage=1, capture=False).init()
+    plain.load_state_from(params_scope(init, plain.place.device()))
+    plain_losses = [float(plain.step(f)[0].reshape(-1)[0]) for f in feeds]
+    plain_after = {n: plain.fetch_state(n) for n in init}
+    same = losses == plain_losses and all(
+        np.array_equal(after[n], plain_after[n]) for n in init)
+    MESH_RECORD.update(init=init, losses=losses[:MESH_STEPS], after=after3)
+
     exe = Executor(trainer.place)
-    ref_losses, ref_after, _ = run_from_state(exe, main, loss, init, feeds)
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
-    name, worst = _worst(after, ref_after, MESH_PARAM_RTOL, MESH_PARAM_ATOL)
-    print("mesh: ParallelTrainer (zero_stage 1) init %.2f s, %d steps %.2f "
-          "s, losses %s; the executor's %s; loss rel err %.3g (rtol %g); "
-          "state %d tensors, worst %s at %.3g of atol %g + rtol %g; "
-          "launches %s"
-          % (init_s, MESH_STEPS, steps_s,
-             ", ".join("%.6f" % x for x in losses),
+    ref_losses, ref_after, _ = run_from_state(exe, main, loss, init,
+                                              feeds[:MESH_STEPS])
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses[:MESH_STEPS], ref_losses))
+    name, worst = _worst(after3, ref_after, MESH_PARAM_RTOL,
+                         MESH_PARAM_ATOL)
+    f32 = route_entry("f32")
+    print("mesh: ParallelTrainer (zero_stage 1, captured, donated %s) init "
+          "%.2f s, %d steps %.2f s (%d capture, %d replays; capture %.3f "
+          "s, pool %d bytes), losses %s; the uncaptured step's equal bit "
+          "for bit (losses and %d state tensors): %s; donated shards that "
+          "moved: %s; the executor's first %d %s; loss rel err %.3g (rtol "
+          "%g); state worst %s at %.3g of atol %g + rtol %g; f32 flash "
+          "launches %d (replays counted); launches %s"
+          % (core.donate, init_s, len(feeds), steps_s, core.captures,
+             core.replays, core.capture_seconds, core.pool_bytes,
+             ", ".join("%.6f" % x for x in losses), len(after), same,
+             moved or "none", MESH_STEPS,
              ", ".join("%.6f" % x for x in ref_losses), loss_err,
-             MESH_LOSS_RTOL, len(after), name, worst, MESH_PARAM_ATOL,
-             MESH_PARAM_RTOL, json.dumps(launches)), flush=True)
+             MESH_LOSS_RTOL, name, worst, MESH_PARAM_ATOL, MESH_PARAM_RTOL,
+             launches.get(f32, 0), json.dumps(launches)), flush=True)
     if not all(np.isfinite(losses)) or loss_err > MESH_LOSS_RTOL \
             or worst > 1.0:
         raise SystemExit("chip_smoke: ParallelTrainer's steps differ from "
                          "the executor's")
-    if device == "cuda" and launches["flash_attention_fwd"] != \
-            2 * n_layer * MESH_STEPS:
+    if not same or moved or not core.donate:
+        raise SystemExit("chip_smoke: the captured mesh step differs from "
+                         "the uncaptured one, or a donated shard moved: %s"
+                         % moved)
+    # the warm-up, the capture (on the card it replays the graph it
+    # captured), then replays
+    if core.captures != 1 or core.replays != len(feeds) - (
+            1 if device == "cuda" else 2):
+        raise SystemExit("chip_smoke: %d captures and %d replays in %d "
+                         "captured mesh steps" % (core.captures,
+                                                  core.replays, len(feeds)))
+    if device == "cuda" and launches[f32] != 2 * n_layer * len(feeds):
         raise SystemExit("chip_smoke: %d flash launches in %d trainer "
                          "steps, designed %d per step"
-                         % (launches["flash_attention_fwd"], MESH_STEPS,
-                            2 * n_layer))
+                         % (launches[f32], len(feeds), 2 * n_layer))
+    mesh_dropout(mesh)
     if device != "cuda":
         return launches
     dev_feed = {n: torch.from_numpy(v.astype(np.int32)).to(device)
@@ -12561,18 +12605,61 @@ def mesh_trainer(mesh, device, smi, batch=BATCH, seq=SEQ, vocab=VOCAB,
     scope = params_scope(init, exe.device)
     trainer_ms = timed_steps(lambda: trainer.step(dev_feed),
                              runs=MESH_TIMED, warm=MESH_WARM)
+    plain_ms = timed_steps(lambda: plain.step(dev_feed),
+                           runs=MESH_TIMED, warm=MESH_WARM)
     exe_ms = timed_steps(lambda: exe.run(main, feed=dev_feed,
                                          fetch_list=[loss], scope=scope,
                                          return_numpy=False),
                          runs=MESH_TIMED, warm=MESH_WARM)
-    tm, em = float(np.median(trainer_ms)), float(np.median(exe_ms))
+    tm, pm, em = (float(np.median(t)) for t in (trainer_ms, plain_ms,
+                                                exe_ms))
+    MESH_RECORD.update(plain_ms=pm, exe_ms=em)
     print("mesh: step ms (median of %d after %d warm, %s): ParallelTrainer "
-          "%.3f (min %.3f, max %.3f), executor %.3f (min %.3f, max %.3f), "
-          "ratio %.3f"
+          "captured %.3f (min %.3f, max %.3f), uncaptured %.3f (min %.3f, "
+          "max %.3f), the executor's captured step %.3f (min %.3f, max "
+          "%.3f); captured / uncaptured %.3f, captured / executor %.3f"
           % (MESH_TIMED, MESH_WARM, smi, tm, min(trainer_ms),
-             max(trainer_ms), em, min(exe_ms), max(exe_ms), tm / em),
-          flush=True)
+             max(trainer_ms), pm, min(plain_ms), max(plain_ms), em,
+             min(exe_ms), max(exe_ms), tm / pm, tm / em), flush=True)
     return launches
+
+
+def mesh_dropout(mesh, rows=64, width=256, prob=0.5):
+    """22b's dropout check: fc, dropout and SGD through ParallelTrainer,
+    captured and uncaptured from one state, MESH_CAPTURED_STEPS steps
+    each: the losses equal bit for bit (one generator, reseeded from
+    (seed, step) before each call, draws the captured masks)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.parallel import ParallelTrainer
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[rows, width],
+                              dtype="float32", append_batch_size=False)
+        h = fluid.layers.fc(input=x, size=width)
+        d = fluid.layers.dropout(h, dropout_prob=prob)
+        cost = fluid.layers.mean(x=fluid.layers.square(d))
+        fluid.optimizer.SGD(learning_rate=0.01).minimize(cost)
+    rs = np.random.RandomState(SEED + 22)
+    feed = {"x": rs.randn(rows, width).astype(np.float32)}
+    out, init = {}, None
+    for capture in (True, False):
+        tr = ParallelTrainer(main, startup, ["x"], [cost.name], mesh,
+                             seed=SEED + 22, capture=capture).init()
+        if init is None:
+            init = {n: tr.fetch_state(n) for n in sorted(tr.state)}
+        tr.load_state_from(params_scope(init, tr.place.device()))
+        out[capture] = [float(tr.step(feed)[0].reshape(-1)[0])
+                        for _ in range(MESH_CAPTURED_STEPS)]
+    print("mesh: dropout %g over [%d, %d], %d steps: captured losses %s, "
+          "uncaptured %s, equal bit for bit: %s"
+          % (prob, rows, width, MESH_CAPTURED_STEPS,
+             ", ".join("%.6f" % x for x in out[True]),
+             ", ".join("%.6f" % x for x in out[False]),
+             out[True] == out[False]), flush=True)
+    if out[True] != out[False] or len(set(out[True])) < 2:
+        raise SystemExit("chip_smoke: the captured dropout program differs "
+                         "from the uncaptured one")
 
 
 def mesh_functional(device, batch=BATCH, seq=SEQ, vocab=VOCAB,
@@ -12788,12 +12875,16 @@ def spmd_analysis(mesh, main, loss, hbm_gb):
 
 
 def spmd_trainer(mesh, device, smi, main, startup, loss, feeds):
-    """23b: SpmdTrainer under FLAGS_verify_sharding with 4 MiB buckets:
-    its plan against the one built over a static mesh, the mode and the
-    fallback reason at dp 1, its 3 steps against a ParallelTrainer's
-    (ZeRO-1, as 22b) from the same state, bit for bit, and against 22b's
-    own run when there is one; both steps' medians.  Returns (the launch
-    counts of SpmdTrainer's 3 steps, the trainer)."""
+    """23b: SpmdTrainer under FLAGS_verify_sharding with 4 MiB buckets,
+    captured, on a fresh FLAGS_compile_cache_dir: its plan against the
+    one built over a static mesh, the mode and the fallback reason at dp
+    1, its steps against a ParallelTrainer's (ZeRO-1, as 22b) from the
+    same state, bit for bit, and against 22b's uncaptured run when there
+    is one; its cache state "compiled", then "hit" in a second trainer
+    on the same directory; the donated shards' addresses; both steps'
+    medians (2 warm, 5 timed) beside 22b's uncaptured and executor
+    steps.  Returns (the launch counts of SpmdTrainer's steps, the
+    trainer)."""
     import torch
     from paddle_tpu_torch.parallel import ParallelTrainer
     from paddle_tpu_torch.parallel.mesh import MeshConfig
@@ -12803,7 +12894,9 @@ def spmd_trainer(mesh, device, smi, main, startup, loss, feeds):
     names = ["tokens", "positions", "targets"]
     static = build_partition_plan(main, MeshConfig(axes=("dp",), dp=1),
                                   names, [loss], zero_stage=1)
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_spmd_cache_")
     flags.set_flag("verify_sharding", True)
+    flags.set_flag("compile_cache_dir", cache_dir)
     try:
         t0 = time.perf_counter()
         spmd = SpmdTrainer(main, startup, names, [loss], mesh,
@@ -12811,42 +12904,65 @@ def spmd_trainer(mesh, device, smi, main, startup, loss, feeds):
         init_s = time.perf_counter() - t0
         ref = ParallelTrainer(main, startup, names, [loss], mesh,
                               zero_stage=1).init()
+        init = MESH_RECORD.get("init") or {
+            n: ref.fetch_state(n) for n in sorted(ref.state)}
+        for tr in (spmd, ref):
+            tr.load_state_from(params_scope(init, tr.place.device()))
+        ref_losses = [float(ref.step(f)[0].reshape(-1)[0]) for f in feeds]
+        ref_after = {n: ref.fetch_state(n) for n in init}
+        ptrs = {n: v.to_local().data_ptr() for n, v in spmd.state.items()}
+        reset_launches()
+        losses = [float(spmd.step(f)[0].reshape(-1)[0]) for f in feeds]
+        launches = read_launches()
+        moved = sorted(n for n, v in spmd.state.items()
+                       if v.to_local().data_ptr() != ptrs[n])
+        after = {n: spmd.fetch_state(n) for n in init}
+        first_state = spmd._aot_state
+        again = SpmdTrainer(main, startup, names, [loss], mesh,
+                            bucket_bytes=SPMD_BUCKET, zero_stage=1).init()
+        again.load_state_from(params_scope(init, again.place.device()))
+        again_losses = [float(again.step(f)[0].reshape(-1)[0])
+                        for f in feeds]
+        second_state = again._aot_state
     finally:
         flags.set_flag("verify_sharding", False)
-    init = MESH_RECORD.get("init") or {
-        n: ref.fetch_state(n) for n in sorted(ref.state)}
-    for tr in (spmd, ref):
-        tr.load_state_from(params_scope(init, tr.place.device()))
-    ref_losses = [float(ref.step(f)[0].reshape(-1)[0]) for f in feeds]
-    ref_after = {n: ref.fetch_state(n) for n in init}
-    reset_launches()
-    losses = [float(spmd.step(f)[0].reshape(-1)[0]) for f in feeds]
-    launches = read_launches()
-    after = {n: spmd.fetch_state(n) for n in init}
-    same = losses == ref_losses and all(
+        flags.set_flag("compile_cache_dir", "")
+    same = losses == ref_losses == again_losses and all(
         np.array_equal(after[n], ref_after[n]) for n in init)
     same_22b = None
     if MESH_RECORD:
         same_22b = losses == MESH_RECORD["losses"] and all(
             np.array_equal(after[n], MESH_RECORD["after"][n])
             for n in init)
-    print("spmd: SpmdTrainer (FLAGS_verify_sharding, bucket %d B, zero 1) "
-          "init %.2f s, plan %s (static %s), step_mode %s, fallback %r, "
-          "_aot_state %s; losses %s; equal to ParallelTrainer bit for bit: "
-          "%s; to 22b's run: %s; launches %s"
+    core = spmd.captured
+    print("spmd: SpmdTrainer (FLAGS_verify_sharding, bucket %d B, zero 1, "
+          "captured) init %.2f s, plan %s (static %s), step_mode %s, "
+          "fallback %r; _aot_state %s, a second trainer on the cache "
+          "directory %s; %d steps (%d capture, %d replays; capture %.3f s, "
+          "pool %d bytes), losses %s; equal to ParallelTrainer bit for "
+          "bit: %s; to 22b's uncaptured run: %s; donated shards that "
+          "moved: %s; launches %s"
           % (SPMD_BUCKET, init_s, spmd.plan.fingerprint()[:16],
              static.fingerprint()[:16], spmd.step_mode,
-             spmd.overlap_fallback_reason, spmd._aot_state,
-             ", ".join("%.6f" % x for x in losses), same, same_22b,
-             json.dumps(launches)), flush=True)
+             spmd.overlap_fallback_reason, first_state, second_state,
+             len(feeds), core.captures, core.replays, core.capture_seconds,
+             core.pool_bytes, ", ".join("%.6f" % x for x in losses), same,
+             same_22b, moved or "none", json.dumps(launches)), flush=True)
     if spmd.plan.fingerprint() != static.fingerprint() \
             or spmd.step_mode != "gspmd" \
             or spmd.overlap_fallback_reason != SPMD_FALLBACK:
         raise SystemExit("chip_smoke: SpmdTrainer's plan or mode is not "
                          "the static plan's at dp 1")
-    if not all(np.isfinite(losses)) or not same or same_22b is False:
+    if not all(np.isfinite(losses)) or not same or same_22b is False \
+            or moved:
         raise SystemExit("chip_smoke: SpmdTrainer's steps differ from "
-                         "ParallelTrainer's")
+                         "ParallelTrainer's, or a donated shard moved")
+    if first_state != "compiled" or second_state != "hit" \
+            or core.captures != 1:
+        raise SystemExit("chip_smoke: SpmdTrainer's cache states %s and %s "
+                         "(%d captures)" % (first_state, second_state,
+                                            core.captures))
+    del again
     if device == "cuda" and launches[route_entry("f32")] != \
             2 * N_LAYER * len(feeds):
         raise SystemExit("chip_smoke: %d f32 flash launches in %d "
@@ -12869,9 +12985,13 @@ def spmd_trainer(mesh, device, smi, main, startup, loss, feeds):
     sm, rm = float(np.median(spmd_ms)), float(np.median(ref_ms))
     print("spmd: step ms (median of %d after %d warm, %s): SpmdTrainer "
           "%.3f (min %.3f, max %.3f), ParallelTrainer %.3f (min %.3f, max "
-          "%.3f), ratio %.3f"
+          "%.3f), ratio %.3f; 22b's uncaptured step %s, its executor step "
+          "%s"
           % (MESH_TIMED, MESH_WARM, smi, sm, min(spmd_ms), max(spmd_ms),
-             rm, min(ref_ms), max(ref_ms), sm / rm), flush=True)
+             rm, min(ref_ms), max(ref_ms), sm / rm,
+             "%.3f" % MESH_RECORD["plain_ms"] if "plain_ms" in MESH_RECORD
+             else "not run", "%.3f" % MESH_RECORD["exe_ms"]
+             if "exe_ms" in MESH_RECORD else "not run"), flush=True)
     return launches, spmd
 
 
@@ -12995,9 +13115,9 @@ def phase_spmd():
         launches, trainer = spmd_trainer(mesh, "cuda", smi, main, startup,
                                          loss, feeds)
         print("spmd: the dp=1 static peak-memory estimate %d bytes beside "
-              "torch.cuda.max_memory_allocated() over one step %d bytes "
-              "(not gated: the port's executor keeps every intermediate "
-              "until the run ends, ROADMAP A5)"
+              "torch.cuda.max_memory_allocated() over one replayed step %d "
+              "bytes (not gated: the step's graph pool holds its values "
+              "apart from the allocations a replay makes)"
               % (card_plan.peak_hbm_bytes, trainer.peak_bytes), flush=True)
         t3 = time.perf_counter()
         spmd_buckets(mesh, "cuda", main, feeds,
@@ -14471,6 +14591,149 @@ def phase_memory(restart_out=None):
     return launches
 
 
+# phase 28: the recompute stack.  Phase 5's transformer with Momentum,
+# plain, recomputed from a checkpoint every RECOMPUTE_EVERY recomputable
+# forward ops (fluid.recompute.auto_checkpoints: 20 over the 6 layers),
+# and rewritten by memory_optimize, each RECOMPUTE_STEPS steps from one
+# state (the warm-up, the capture, a replay)
+RECOMPUTE_EVERY = 4
+RECOMPUTE_STEPS = 3
+
+
+def recompute_programs():
+    """Phase 28's programs: [(tag, main, loss, checkpoints)]."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import MomentumOptimizer
+    from paddle_tpu_torch.models import transformer_program as tp
+
+    def build():
+        return tp.build_transformer_program(
+            BATCH, SEQ, VOCAB, n_layer=N_LAYER, n_head=N_HEAD,
+            d_model=D_MODEL)
+
+    main, startup, loss, _ = build()
+    MomentumOptimizer(LR, MOMENTUM).minimize(loss, main, startup)
+    rmain, rstartup, rloss, _ = build()
+    picks = fluid.recompute.auto_checkpoints(fluid.Program.from_desc(rmain),
+                                             every=RECOMPUTE_EVERY)
+    fluid.RecomputeOptimizer(MomentumOptimizer(LR, MOMENTUM),
+                             picks).minimize(rloss, rmain, rstartup)
+    mmain, mstartup, mloss, _ = build()
+    MomentumOptimizer(LR, MOMENTUM).minimize(mloss, mmain, mstartup)
+    _, renames = fluid.memory_optimize(fluid.Program.from_desc(mmain),
+                                       skip_opt_set=[mloss])
+    return [("plain", main, startup, loss, None),
+            ("recomputed", rmain, rstartup, rloss, len(picks)),
+            ("memory_optimize", mmain, mstartup, mloss, len(renames))]
+
+
+def recompute_run(main, loss, init, feeds):
+    """RECOMPUTE_STEPS steps of `main` from `init` on a fresh executor
+    under attribution, then 2 warm and 5 timed replays: losses, the
+    state after the steps, the program's pool, static activation peak
+    and their ratio (27b's drift), capture seconds, the step median,
+    captures and launches."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.obs import health as obs_health
+    from paddle_tpu_torch.obs import mem as obs_mem
+
+    obs_mem.reset()
+    exe = fluid.Executor()
+    scope = params_scope(init, exe.device)
+    reset_launches()
+    with obs_health.force_attribution():
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)[0].reshape(-1)[0])
+                  for f in feeds]
+    launches = read_launches()
+    state = {n: scope.get(n).cpu().numpy() for n in init}
+    compiled = list(exe._cache.values())[-1][2]
+    rows = [r for r in obs_mem.drift_report()["segments"]
+            if r["segment"] == compiled.mem_label]
+    ms = timed_steps(lambda: exe.run(main, feed=feeds[0], fetch_list=[loss],
+                                     scope=scope, return_numpy=False),
+                     runs=5, warm=2)
+    rec = {"losses": losses, "state": state,
+           "pool": rows[0]["pool_bytes"] if rows else None,
+           "static": rows[0]["static_peak_bytes"] if rows else None,
+           "ratio": rows[0]["ratio"] if rows else None,
+           "capture_s": compiled.seconds.get("capture", 0.0),
+           "ms": float(np.median(ms)), "captures": exe.captures,
+           "ops": len(compiled.block.ops), "launches": launches}
+    del exe, scope, compiled
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_recompute():
+    """Phase 28: the recomputed transformer (RecomputeOptimizer over
+    auto_checkpoints) and the memory_optimize'd one against the plain
+    program, RECOMPUTE_STEPS captured steps each from one state: losses
+    and state bit for bit, each program's pool, static activation peak,
+    ratio, step median and capture seconds; the recomputed pool below
+    the plain one.  Returns the launch counts of the three programs'
+    steps."""
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    programs = recompute_programs()
+    _tag, main, startup, _loss, _ = programs[0]
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).cpu().numpy()
+            for n, v in sorted(main.block(0).vars.items())
+            if v.persistable and isinstance(scope.get(n), torch.Tensor)}
+    feeds = memory_feeds(exe.device, n=RECOMPUTE_STEPS)
+    del exe, scope
+    recs = {}
+    totals = collections.Counter()
+    for tag, main, _startup, loss, extra in programs:
+        rec = recs[tag] = recompute_run(main, loss, init, feeds)
+        totals.update(rec["launches"])
+        print("recompute: 28 %s (%s ops%s): losses %s; pool %s bytes, "
+              "static activation peak %s bytes, ratio %s; step %.3f ms "
+              "(median of 5 after 2 warm); capture %.3f s, %d capture(s); "
+              "f32 flash launches %d (%s)"
+              % (tag, rec["ops"], "" if extra is None else
+                 ", %d %s" % (extra, "checkpoints" if tag == "recomputed"
+                              else "renames"),
+                 ", ".join("%.6f" % x for x in rec["losses"]), rec["pool"],
+                 rec["static"], rec["ratio"], rec["ms"], rec["capture_s"],
+                 rec["captures"], rec["launches"].get(route_entry("f32"), 0),
+                 smi), flush=True)
+    plain = recs["plain"]
+    rows = []
+    for tag in ("recomputed", "memory_optimize"):
+        rec = recs[tag]
+        same = rec["losses"] == plain["losses"] and all(
+            np.array_equal(rec["state"][n], plain["state"][n])
+            for n in init)
+        rows.append((tag, same))
+    r = recs["recomputed"]
+    print("recompute: 28 equal to the plain program bit for bit (losses "
+          "and %d state tensors): %s; the recomputed pool against the "
+          "plain one %.4f, its step %.4f; the plain program's ratio with "
+          "release at the last reader %s (27b prints the Adam "
+          "program's); phase 28 took %.1f s"
+          % (len(init), ", ".join("%s %s" % row for row in rows),
+             r["pool"] / plain["pool"] if plain["pool"] else float("nan"),
+             r["ms"] / plain["ms"], plain["ratio"],
+             time.perf_counter() - t0), flush=True)
+    if not all(same for _, same in rows):
+        raise SystemExit("chip_smoke: 28 a rewritten program's steps "
+                         "differ from the plain program's")
+    if not plain["pool"] or not r["pool"] or r["pool"] >= plain["pool"]:
+        raise SystemExit("chip_smoke: 28 the recomputed program's pool %s "
+                         "is not below the plain one's %s"
+                         % (r["pool"], plain["pool"]))
+    return dict(totals)
+
+
 def params_scope(arrays, device):
     """A fresh Scope holding `arrays` ({name: ndarray}) on `device`."""
     from paddle_tpu_torch.fluid import Scope, io
@@ -14557,6 +14820,7 @@ def _main_phases(run, seconds, t_start):
     tune_launches = run(phase_tune, tune_green)
     graphs_launches = run(phase_graphs)
     memory_launches = run(phase_memory, restart_out)
+    recompute_launches = run(phase_recompute)
     t0 = time.perf_counter()
     _CPU_REF.settle()
     print("chip_smoke: the CPU references' checks %.1f s after the last "
@@ -14593,7 +14857,7 @@ def _main_phases(run, seconds, t_start):
              analysis_launches[f32], perf_launches[f32],
              mesh_launches[f32], spmd_launches[f32],
              elastic_launches[f32], graphs_launches[f32],
-             memory_launches[f32])
+             memory_launches[f32], recompute_launches[f32])
     if min(paths) < 1:
         raise SystemExit("chip_smoke: the f32 route was never launched on "
                          "a main path (served, trained, decoded, trained "
@@ -14604,7 +14868,8 @@ def _main_phases(run, seconds, t_start):
                          "trained over the mesh, trained by the "
                          "plan-driven SpmdTrainer, saved and resumed "
                          "sharded, trained by graph replay, trained "
-                         "with its memory observed: %s)"
+                         "with its memory observed, trained recomputed: "
+                         "%s)"
                          % (paths,))
     kernels = []
     for route in fa.ROUTES:
@@ -14617,7 +14882,7 @@ def _main_phases(run, seconds, t_start):
             obs_serve_launches, ps_ctr_launches, ps_transformer_launches,
             cli_launches, ssd_launches, analysis_launches, perf_launches,
             mesh_launches, spmd_launches, elastic_launches, tune_launches,
-            graphs_launches, memory_launches))
+            graphs_launches, memory_launches, recompute_launches))
         if total < 1:
             raise SystemExit("chip_smoke: %s was never launched on a main "
                              "path" % name)

@@ -82,8 +82,9 @@ def state_donation(default=True):
     (`make_parallel_step`, `make_overlapped_dp_step`, `SpmdTrainer`):
     False under FLAGS_donation=off, `default` otherwise.  A mesh step
     donates its whole state as one argument, so the plan's only say is
-    the off switch (the port's mesh path does not donate yet: ROADMAP
-    A2's third part)."""
+    the off switch: with it on, the port's captured mesh step writes
+    each state tensor's new value into the old one's storage
+    (parallel/captured.py)."""
     return False if donation_mode() == "off" else bool(default)
 
 

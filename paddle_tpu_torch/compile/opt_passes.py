@@ -23,11 +23,17 @@ verified around it and folding its knobs into the pipeline id:
               (fluid/fusion.py): the chain's intermediates leave the IR.
               `fuse:cap=N` bounds a group's size (0 = unbounded).
               Declines without a fetch set, as dce does.
-  auto_remat  activation checkpointing; registered with its knobs so
-              that `available_passes()` and the pipeline ids equal the
-              JAX package's, and raises NotImplementedError when run:
-              it rewrites through fluid/recompute.py, which waits with
-              ROADMAP A5.
+  auto_remat  activation checkpointing: when the liveness activation-peak
+              estimate (`activation_peak_bytes`, the shard analyzer's
+              S005 accounting) exceeds the memory budget, checkpoints
+              are picked every `stride` forward ops
+              (fluid/recompute.auto_checkpoints) and the backward
+              region is rewritten to recompute the forward segments
+              between them (fluid/recompute.recompute_program), as the
+              JAX pass does.  `auto_remat:stride=N:budget_gb=G`; G <= 0
+              rewrites whatever the estimate.  The executor releases
+              each value after its last reader, so on the card the
+              rewrite lowers a captured step's pool.
 """
 
 from ..ops import registry as op_registry
@@ -180,7 +186,7 @@ class ElemwiseFusion(RewritePass):
 
 class AutoRemat(RewritePass):
     """Activation checkpointing when the peak estimate exceeds the
-    memory budget; waits with fluid/recompute.py (ROADMAP A5)."""
+    memory budget (fluid/recompute.py does the rewrite)."""
 
     name = "auto_remat"
     options = {"stride": (int, 8),
@@ -192,9 +198,38 @@ class AutoRemat(RewritePass):
                              % self.stride)
 
     def run(self, desc, ctx):
-        raise NotImplementedError(
-            "the auto_remat pass rewrites through fluid/recompute.py, "
-            "which the port does not have yet (ROADMAP A5)")
+        from ..fluid import recompute
+        from ..fluid.recompute import _RCP
+
+        bd = desc.block(0)
+        if not any(op_registry.is_grad_op_type(od.type)
+                   for od in bd.ops):
+            ctx.note = "no backward region to rematerialize into"
+            return None
+        if any(_RCP in n for n in bd.vars):
+            ctx.note = "program already rematerialized"
+            return None
+        peak_before = activation_peak_bytes(desc, ctx.fetches)
+        budget = self.budget_gb * (1 << 30)
+        if self.budget_gb > 0 and peak_before <= budget:
+            ctx.note = ("activation peak %.3f GiB within the %.1f GiB "
+                        "budget" % (peak_before / 2**30, self.budget_gb))
+            return None
+        picks = recompute.auto_checkpoints(ctx.program,
+                                           every=self.stride)
+        if not picks:
+            ctx.note = "no checkpointable forward op"
+            return None
+        cloned = recompute.recompute_program(ctx.program, picks)
+        if not cloned:
+            ctx.note = "nothing to rematerialize between checkpoints"
+            return None
+        peak_after = activation_peak_bytes(desc, ctx.fetches)
+        return {"cloned_forward_ops": cloned,
+                "checkpoints": len(picks),
+                "stride": self.stride,
+                "activation_peak_bytes": {"before": peak_before,
+                                          "after": peak_after}}
 
 
 register_pass(LayoutOptimize())

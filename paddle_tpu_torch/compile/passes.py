@@ -47,8 +47,9 @@ the spec: "default+layout+fuse"):
   fuse        single-use elementwise, activation and bias chains into
               `fused_elemwise_chain` ops (fluid/fusion.py);
               `fuse:cap=N` bounds a group's size.
-  auto_remat  registered so that the pass list equals the JAX one; it
-              waits with fluid/recompute.py (ROADMAP A5).
+  auto_remat  activation checkpointing over the backward region
+              (fluid/recompute.py) when the activation-peak estimate
+              exceeds the budget; `auto_remat:stride=N:budget_gb=G`.
 
 Spec grammar: pass tokens separated by ',' or '+' ("default" expands to
 the cleanup pipeline), each optionally carrying ':'-joined `key=value`

@@ -9,7 +9,9 @@ weight-decay regularizers, saving and loading variables, training
 checkpoints, pruning and inference export and load, generation over a
 step program (`ProgramDecoder`), the ragged value and the sparse grad
 value (`RaggedTensor`, `SelectedRows`), the per-op profiler
-(`profiler`) and the NHWC relayout (`data_transform.convert_layout`)."""
+(`profiler`), the NHWC relayout (`data_transform.convert_layout`), and
+the memory passes: activation recomputation (`recompute_program`,
+`RecomputeOptimizer`) and slot reuse (`memory_optimize`)."""
 
 from . import (amp, backward, clip, framework, fusion, initializer, io,
                layers, lr_schedules, nets, optimizer, param_attr,
@@ -25,6 +27,10 @@ from .layer_helper import LayerHelper
 from . import checkpoint, data_feeder, evaluator, profiler
 from . import data_transform
 from .data_transform import convert_layout
+from . import memory_optimization_transpiler
+from .memory_optimization_transpiler import memory_optimize
+from . import recompute
+from .recompute import RecomputeOptimizer, recompute_program
 from .data_feeder import DataFeeder
 from .optimizer import (SGD, Adam, AdamOptimizer, Momentum,
                         MomentumOptimizer, Optimizer, SGDOptimizer)
@@ -39,7 +45,8 @@ __all__ = ["Adam", "AdamOptimizer", "Block", "CPUPlace", "CUDAPlace",
            "ExecContext", "Executor", "LayerHelper", "Momentum",
            "MomentumOptimizer",
            "Operator", "Optimizer", "ParamAttr", "Parameter", "Place",
-           "Program", "ProgramDecoder", "RaggedTensor", "SGD",
+           "Program", "ProgramDecoder", "RaggedTensor",
+           "RecomputeOptimizer", "SGD",
            "SGDOptimizer", "Scope", "SelectedRows", "TPUPlace", "Variable",
            "amp",
            "append_backward", "backward", "calc_gradient", "checkpoint",
@@ -47,7 +54,9 @@ __all__ = ["Adam", "AdamOptimizer", "Block", "CPUPlace", "CUDAPlace",
            "default_main_program",
            "default_startup_program", "evaluator", "fetch_var",
            "framework", "fusion", "global_scope", "initializer", "io",
-           "layers", "lr_schedules", "nets", "optimizer", "param_attr",
-           "profiler", "program_guard", "regularizer", "scope_guard",
+           "layers", "lr_schedules", "memory_optimization_transpiler",
+           "memory_optimize", "nets", "optimizer", "param_attr",
+           "profiler", "program_guard", "recompute", "recompute_program",
+           "regularizer", "scope_guard",
            "switch_main_program", "switch_startup_program",
            "unique_name"]

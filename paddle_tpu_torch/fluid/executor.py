@@ -59,9 +59,23 @@ scanned, as on the JAX side.  An exception from a run reaches
 `obs.flight.on_crash` with the feeds described (shapes and dtypes)
 before it propagates.
 
-Ops with DTensor inputs (`parallel.ParallelTrainer`) run through
-`_run_on_mesh`, eagerly: a segment whose inputs include a DTensor is
-not captured (`executor_eager_segments_total{reason="mesh"}`).
+Ops with DTensor inputs (`parallel.ParallelTrainer`'s step, a run fed
+DTensors) run through `_run_on_mesh`, and their segments are captured
+like any other: the signature adds each DTensor's mesh and placements
+(a state DTensor's local tensor by its address), a donated state
+DTensor's new value is laid out as the old one and written into its
+local tensor's storage, and the waits of DTensor's asynchronous
+collectives are issued inside the capture.  NCCL's communicators exist
+by then: the warm-up ran the same collectives.
+
+Release at the last reader: each value of a run leaves the run's
+values (and a segment's own, eager, at its capture or on the CPU) after
+the last op that reads it, by the `analysis.dataflow.Liveness` of block
+0, so a captured graph's pool follows the values' lifetimes as XLA's
+buffer assignment does for the JAX package.  A fetch, a persistable, a
+name another block or a string attr references, a donated target and a
+graph's own output stay.  A release drops a reference and changes no
+value: the outputs and the state are bit for bit as without it.
 
 A control-flow kernel runs a sub-block through `ExecContext.run_block`
 (the JAX side lowers the same call into its scan body): the sub-block's
@@ -378,14 +392,24 @@ def _run_on_mesh(ctx, op_type, kernel, ins, attrs, mesh):
     op's global result; an op type whose kernel cannot run so runs, once
     it has failed and from then on, on the full values, its outputs
     distributed back as replicated.  This is the one place where the
-    executor meets the mesh."""
+    executor meets the mesh.  The failure is learned in a signature's
+    eager warm-up: inside a capture a failure raises CaptureError."""
     from ..parallel.sharding import replicating
+    from . import graphs
 
     if op_type not in _FULL_VALUE_OPS:
         try:
             with replicating():
                 return kernel(ctx, ins, attrs)
-        except Exception:
+        except graphs.CaptureError:
+            raise
+        except Exception as exc:
+            if graphs.capturing():
+                # a capture cannot take the failed attempt back
+                raise graphs.CaptureError(
+                    "%r failed on DTensors inside a capture (%s: %s); "
+                    "its warm-up ran it on DTensors"
+                    % (op_type, type(exc).__name__, exc)) from exc
             # DTensor's dispatch raises what its checks raise (no
             # sharding rule, an assertion, a host read of a sharded
             # value); a kernel's own error raises again from the run on
@@ -524,11 +548,45 @@ def _segment_block(op_descs):
     return segments
 
 
+def _is_dtensor(t):
+    dtensor = op_registry.dtensor_type()
+    return dtensor is not None and isinstance(t, dtensor)
+
+
+def _settled(t):
+    """`t`, or for the result of an asynchronous collective the plain
+    tensor behind it, its wait issued (inside a capture, captured)."""
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+
+    return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
+
+
+def _local(t):
+    """A DTensor's local tensor, settled; anything else as it is."""
+    return _settled(t._local_tensor) if _is_dtensor(t) else t
+
+
+def _settle_value(v):
+    """A DTensor whose local tensor is an asynchronous collective's
+    result, rebuilt on the settled local tensor; anything else as it
+    is."""
+    if not _is_dtensor(v) or _local(v) is v._local_tensor:
+        return v
+    return type(v).from_local(_local(v), v.device_mesh, v.placements,
+                              run_check=False, shape=v.shape,
+                              stride=v.stride())
+
+
 def _leaf_key(t, by_address):
     """A tensor's part of a signature: shape, dtype and device, and
-    where a graph reads it in place, its address and strides."""
+    where a graph reads it in place, its address and strides; a
+    DTensor's mesh and placements beside its local tensor's."""
     if not isinstance(t, torch.Tensor):
         return t
+    if _is_dtensor(t):
+        return (t.device_mesh, tuple(t.placements), tuple(t.shape),
+                _leaf_key(t._local_tensor, by_address))
     if by_address:
         return (tuple(t.shape), t.dtype, t.device, t.data_ptr(),
                 t.stride())
@@ -546,9 +604,13 @@ def _value_key(v, by_address):
 
 
 def _copy_into(static, v):
-    """Copy `v`'s tensors into the static buffers `static`."""
+    """Copy `v`'s tensors into the static buffers `static` (a DTensor's
+    local tensor into the static DTensor's: their signatures hold equal
+    placements)."""
     for dst, src in zip(pytree.tree_leaves(static), pytree.tree_leaves(v)):
         if isinstance(dst, torch.Tensor) and dst is not src:
+            if _is_dtensor(dst):
+                dst, src = dst._local_tensor, _local(src)
             dst.copy_(src)
 
 
@@ -561,7 +623,32 @@ def _clone(v):
 
 
 def _storage(t):
-    return t.untyped_storage().data_ptr()
+    return _local(t).untyped_storage().data_ptr()
+
+
+def _donatable(t):
+    """Whether a state value can be donated: a plain tensor, or a
+    DTensor (through its local tensor)."""
+    return type(t) is torch.Tensor or (
+        _is_dtensor(t) and type(_local(t)) is torch.Tensor)
+
+
+def _donate_into(tgt, new):
+    """Write `new` into donated `tgt`'s storage; whether it was written.
+    A DTensor's new value is laid out as the old one first (inside a
+    capture its collectives are captured)."""
+    if _is_dtensor(tgt):
+        if not _is_dtensor(new) or new.device_mesh != tgt.device_mesh:
+            return False
+        if tuple(new.placements) != tuple(tgt.placements):
+            new = new.redistribute(tgt.device_mesh, tgt.placements)
+        tgt, new = _local(tgt), _local(new)
+    if not _fits(tgt, new):
+        return False
+    if _storage(new) == _storage(tgt):
+        new = new.clone()
+    tgt.copy_(new)
+    return True
 
 
 def _fits(target, new):
@@ -682,10 +769,19 @@ class _CompiledProgram:
     memory pool per program.  A signature is the segment's inputs'
     shapes, dtypes and structure (a ragged feed's `max_seqlen`), and the
     address of every state tensor the graph reads in place from the
-    scope: a tensor swapped into the scope forces a new capture."""
+    scope: a tensor swapped into the scope forces a new capture.
 
-    def __init__(self, executor, desc, feed_names, fetch_names, entry=None):
+    `donation="off"` donates nothing whatever FLAGS_donation says (a
+    mesh step made with `donate_state=False`).  `seams` {op index in
+    block 0: fn(values)} runs fn on the run's values just before that op,
+    in a capture too: the bucketed dp step's gradient reduction
+    (spmd/overlap.py)."""
+
+    def __init__(self, executor, desc, feed_names, fetch_names, entry=None,
+                 donation=None, seams=None):
         self.executor = executor
+        self._donation_override = donation
+        self.seams = dict(seams or {})
         self.desc = desc
         self.block = desc.block(0)
         self.feed_names = list(feed_names)
@@ -719,6 +815,7 @@ class _CompiledProgram:
         for i, seg in enumerate(self._plan):
             seg["mutated"], seg["donate"], seg["widened"] = \
                 self._donate_sets(i, seg)
+        self._release_plan()
         persist = any(seg["persist_writes"] for seg in self._plan)
         self.trains = persist or any(
             op_registry.is_grad_op_type(od.type) for od in self.block.ops)
@@ -822,6 +919,33 @@ class _CompiledProgram:
             base += len(ops)
         return plan
 
+    def _release_plan(self):
+        """Each segment's releases, seg["release"] = {op index in the
+        segment: the names dead after it}, by the Liveness of block 0:
+        a name leaves after the last op that reads it (or after the op
+        that writes it, when nothing reads it).  The kept names never
+        leave: the fetches, the persistables, and the names another
+        block or a string attr references (a sub-block reads the outer
+        names by name)."""
+        from ..analysis.dataflow import (Liveness, _attr_name_refs,
+                                         _block_sub_reads)
+
+        bd = self.block
+        keep = set(self.fetch_names)
+        keep.update(n for n, vd in bd.vars.items() if vd.persistable)
+        keep |= _block_sub_reads(self.desc, 0)
+        for od in bd.ops:
+            keep |= _attr_name_refs(od)
+        lv = Liveness(bd.ops).analyze()
+        for seg in self._plan:
+            release = {}
+            for k in range(len(seg["ops"])):
+                g = seg["start"] + k
+                dead = (lv.live_in[g] | lv.defs[g]) - lv.live_out[g] - keep
+                if dead:
+                    release[k] = tuple(sorted(dead))
+            seg["release"] = release
+
     def _donation_setup(self):
         """FLAGS_donation resolved as the JAX executor resolves it:
         {"mode", "widened": [names per segment] or None}.  Only "auto"
@@ -833,7 +957,7 @@ class _CompiledProgram:
         from .. import analysis
         from ..compile import pcache as pcache_mod
 
-        mode = analysis.donation_mode()
+        mode = self._donation_override or analysis.donation_mode()
         if mode != "auto":
             return {"mode": mode, "widened": None}
         try:
@@ -904,15 +1028,15 @@ class _CompiledProgram:
         for i, seg in enumerate(self._plan):
             if seg["capture"] and reason is None:
                 ins = {n: _lookup(ctx, n) for n in seg["reads"]}
-                dtensor = op_registry.dtensor_type()
-                if dtensor is not None and any(
-                        isinstance(v, dtensor)
-                        for v in pytree.tree_leaves(ins)):
-                    obs_tele.on_eager_segment("mesh")
-                else:
-                    self._run_captured(i, seg, ctx, ins, scope, graph_owned)
-                    continue
-            elif seg["capture"]:
+                self._run_captured(i, seg, ctx, ins, scope, graph_owned)
+                # the values whose last reader ran; a graph's own
+                # outputs stay (its pool holds them)
+                for names in seg["release"].values():
+                    for n in names:
+                        if n not in graph_owned:
+                            ctx.env.pop(n, None)
+                continue
+            if seg["capture"]:
                 obs_tele.on_eager_segment(reason)
             self._run_eager(seg, ctx, check)
             for n in seg["persist_writes"]:
@@ -924,9 +1048,14 @@ class _CompiledProgram:
         """Op by op from Python: a `record_event` row per op while the
         profiler or the trace is on, an `op_registry.span` range per op
         while torch.profiler records, the FLAGS_check_nan_inf scan.
-        Nothing is donated."""
+        Nothing is donated.  Each value leaves the run's values after
+        its last reader."""
         timed = profiler_mod.active()
+        release = seg["release"]
         for k, op_desc in enumerate(seg["ops"]):
+            seam = self.seams.get(seg["start"] + k)
+            if seam is not None:
+                seam(ctx.env)
             with op_registry.span(op_desc.type):
                 if timed:
                     with profiler_mod.record_event(op_desc.type):
@@ -939,6 +1068,8 @@ class _CompiledProgram:
                 except NonfiniteError as err:
                     err.op_index = seg["start"] + k
                     raise
+            for n in release.get(k, ()):
+                ctx.env.pop(n, None)
 
     def _signature(self, seg, ins, env):
         """(signature, the names read in place from the scope)."""
@@ -954,48 +1085,64 @@ class _CompiledProgram:
         return tuple(key), in_place
 
     def _runner(self, seg, ctx, donate_state, in_place_ops):
-        """The segment as a function of its input env: its ops, then
-        each donated state tensor's new value written into the scope
-        tensor's own storage (what a CUDA graph capture records).
-        `in_place_ops` {op index: slots} lets an update op write into
-        its input (ExecContext.in_place)."""
+        """The segment as a function of its input env: its ops, each
+        value released after its last reader in the segment (but the
+        segment's outputs and the donated targets), then each donated
+        state tensor's new value written into the scope tensor's own
+        storage (what a CUDA graph capture records).  `in_place_ops`
+        {op index: slots} lets an update op write into its input
+        (ExecContext.in_place).  `run(env_in, aliased)` adds to the set
+        `aliased` the donated names another value of the run viewed (the
+        warm-up's finding)."""
         from . import graphs
 
         ops, outputs = seg["ops"], seg["outputs"]
+        release = seg["release"]
+        hold = set(outputs) | set(donate_state)
+        seams = self.seams
         executor = self.executor
 
-        def run(env_in, keep_env=False):
+        def run(env_in, aliased=None):
             env = dict(env_in)
             sub = ExecContext(self.desc, 0, env, scope=ctx.scope,
                               place=executor.place, device=executor.device,
                               rng=ctx._rng)
+            targets = {_storage(env_in[n]): n for n in donate_state}
             for k, od in enumerate(ops):
                 sub.in_place = in_place_ops.get(k, frozenset())
+                seam = seams.get(seg["start"] + k)
                 try:
-                    apply_op(sub, od)
+                    if seam is not None:
+                        seam(env)
+                    outs_k = apply_op(sub, od)
                 except graphs.CaptureError as exc:
                     raise graphs.CaptureError(
                         "op %d (%r): %s" % (seg["start"] + k, od.type,
                                             exc)) from exc
+                if aliased is not None and targets:
+                    for slot, names in od.outputs.items():
+                        for name, v in zip(names, outs_k.get(slot) or ()):
+                            if _donatable(v) and v is not env_in.get(name) \
+                                    and _storage(v) in targets:
+                                aliased.add(targets[_storage(v)])
+                for n in release.get(k, ()):
+                    if n not in hold:
+                        env.pop(n, None)
             sub.in_place = frozenset()
-            targets = {_storage(env_in[n]): n for n in donate_state}
-            outs = {n: env[n] for n in outputs if n in env}
+            outs = {n: _settle_value(env[n]) for n in outputs if n in env}
             if targets:
                 # an output that views a donated tensor keeps its value
                 for n, v in outs.items():
-                    if type(v) is torch.Tensor and n not in donate_state \
+                    if n not in donate_state and _donatable(v) \
                             and _storage(v) in targets:
-                        outs[n] = v.clone()
+                        outs[n] = _clone(v)
                 for n in donate_state:
                     tgt, new = env_in[n], env.get(n)
-                    if new is tgt or not _fits(tgt, new):
+                    if new is None or new is tgt:
                         continue
-                    if _storage(new) == _storage(tgt):
-                        new = new.clone()
-                    tgt.copy_(new)
-                    if n in outs:
+                    if _donate_into(tgt, new) and n in outs:
                         outs[n] = tgt
-            return (outs, env) if keep_env else outs
+            return outs
 
         return run
 
@@ -1052,7 +1199,7 @@ class _CompiledProgram:
         # its capture (the record keeps it alive, so its id is not reused)
         key = (i, id(ctx._rng), sig)
         donate_state = tuple(n for n in seg["donate"] if n in by_address
-                             and type(ins[n]) is torch.Tensor)
+                             and _donatable(ins[n]))
         rec = self._records.get(key)
         if rec is not None:
             self._records.move_to_end(key)
@@ -1065,15 +1212,16 @@ class _CompiledProgram:
             while len(self._warm) >= 4 * executor._CACHE_MAX:
                 self._warm.popitem(last=False)
             run = self._runner(seg, ctx, donate_state, {})
-            outs, seg_env = run(ins, keep_env=True)
-            targets = {_storage(ins[n]): n for n in donate_state}
-            self._warm[key] = {
-                targets[_storage(v)] for n, v in seg_env.items()
-                if type(v) is torch.Tensor and v is not ins.get(n)
-                and _storage(v) in targets}
+            aliased = set()
+            outs = run(ins, aliased=aliased)
+            self._warm[key] = aliased
         else:
+            # a capture that fails stays due: the next run of this
+            # signature captures (and raises) again, never warming up
+            # eagerly in its place
             rec = self._capture(i, seg, ctx, ins, by_address, donate_state,
-                                self._warm.pop(key))
+                                self._warm[key])
+            self._warm.pop(key, None)
             self._records[key] = rec
             while len(self._records) > executor._CACHE_MAX:
                 self.drop_graph(next(iter(self._records)))
@@ -1116,7 +1264,10 @@ class _CompiledProgram:
         label = seg["label"]
         env_in = {n: (v if n in by_address else _clone(v))
                   for n, v in ins.items()}
-        in_place_ops = self._in_place_ops(seg, donate_state, aliased)
+        # a DTensor's update op writes a new value, donated afterwards
+        in_place_ops = self._in_place_ops(
+            seg, [n for n in donate_state if type(ins[n]) is torch.Tensor],
+            aliased)
         run = self._runner(seg, ctx, donate_state, in_place_ops)
         device = executor.device
         first = self.pool is None
@@ -1342,7 +1493,8 @@ class Executor:
         program = self._program_to_run(source, desc, fetch_names)
         return self._compiled(program, feed_names, fetch_names)
 
-    def _new_compiled(self, desc, feed_names, fetch_names, entry=None):
+    def _new_compiled(self, desc, feed_names, fetch_names, entry=None,
+                      **kw):
         """A new _CompiledProgram of `desc`, after the FLAGS_mem_budget_gb
         pre-flight (obs/mem.py), which refuses a program whose static
         peak exceeds the budget before its first eager run or
@@ -1353,7 +1505,7 @@ class Executor:
 
             obs_mem.preflight(desc, fetch_names, budget)
         return _CompiledProgram(self, desc, feed_names, fetch_names,
-                                entry=entry)
+                                entry=entry, **kw)
 
     def _pcache_base(self, desc, feed_names, fetch_names):
         """The persistent cache's program key (the JAX executor's

@@ -22,7 +22,10 @@ repeats) and no copy of host data to the device (`torch.tensor`/
 `torch.as_tensor` of host data).  On the card a tensor on the CPU is
 exempt; on the CPU every tensor is on the capture's device, so the
 guard is conservative there and a kernel that reads a CPU tensor it
-made itself must not run under it.  A breach raises `CaptureError`.
+made itself must not run under it.  The one exception on the CPU is
+torch.distributed's own code, whose DTensor bookkeeping reads host
+tensors it makes itself (on the card they lie on the host).  A breach
+raises `CaptureError`.
 
 A graph holds its memory pool's blocks for as long as it lives.  The
 graphs on a card may hold `POOL_SHARE` of its memory together
@@ -49,7 +52,7 @@ from collections import OrderedDict
 
 import torch
 
-__all__ = ["CaptureError", "capture_guard", "launch_snapshot",
+__all__ = ["CaptureError", "capture_guard", "capturing", "launch_snapshot",
            "launch_delta", "add_launches", "graph_capture", "GraphCall",
            "count_capture", "hold", "touch", "release", "POOL_SHARE"]
 
@@ -82,8 +85,29 @@ def _guarded_device():
     return getattr(_local, "device", None)
 
 
+def capturing():
+    """Whether this thread runs inside a capture (or, on the CPU, the
+    capture's plain version): inside `capture_guard`."""
+    return _guarded_device() is not None
+
+
+def _torch_internal_caller():
+    """Whether the guarded call comes from torch.distributed's own code
+    (DTensor's bookkeeping: shard sizes and offsets worked out on host
+    tensors it makes itself)."""
+    f = sys._getframe(1)
+    while f is not None and f.f_globals.get("__name__") == __name__:
+        f = f.f_back
+    return f is not None and str(f.f_globals.get("__name__", "")) \
+        .startswith("torch.distributed")
+
+
 def _breach(what):
     dev = _guarded_device()
+    if dev.type == "cpu" and _torch_internal_caller():
+        # on the card those tensors lie on the host, which the guard
+        # exempts; on the CPU it cannot tell them from the device's
+        return
     raise CaptureError("%s inside a CUDA graph capture on %s" % (what, dev))
 
 

@@ -2,7 +2,8 @@
 `fill_zeros_like`, `fill`, `assign`, `assign_value`, `cast`, `scale`,
 `split`, `concat`, `reshape`, `transpose`, `expand`, `sum`,
 `increment`, `sign`, `clip`, `clip_by_norm`, `top_k`, `gather`,
-`scatter`, `pad`, `crop`, `multiplex`, `is_empty` and `shape`.
+`scatter`, `pad`, `crop`, `multiplex`, `is_empty`, `shape` and
+`recompute_barrier`.
 
 Counterpart of paddle_tpu/ops/tensor_ops.py (reference:
 fill_constant_op.cc, fill_constant_batch_size_like_op.cc,
@@ -19,8 +20,9 @@ index as the JAX side's `jnp.take` and `.at[].set` do, and both repeat
 bit for bit on the card: `gather`'s grad sums the rows of a repeated
 index in a fixed order (`core.ragged.add_rows_`), and `scatter` lets
 the last of a repeated index win by a max over positions, not by the
-order of the card's writes.  `recompute_barrier` waits with
-`RecomputeOptimizer` (ROADMAP A5).
+order of the card's writes.  `recompute_barrier`, which
+`fluid/recompute.py` puts before each recomputed segment, is an identity
+here (its docstring says why).
 """
 
 import functools
@@ -102,6 +104,18 @@ def cast(ctx, ins, attrs):
     """X in `out_dtype` (or `dtype`), as it executes (int64 as int32)."""
     dtype = attrs["out_dtype"] if "out_dtype" in attrs else attrs["dtype"]
     return {"Out": [ins["X"][0].to(torch_dtype(dtype))]}
+
+
+@register_op("recompute_barrier", stop_gradient_op=True)
+def recompute_barrier(ctx, ins, attrs):
+    """Out is X itself, no copy; the Trigger operand (an incoming
+    backward gradient) is read and dropped.  The JAX op puts X and
+    Trigger behind `lax.optimization_barrier`, so that XLA neither merges
+    a recomputed clone (fluid/recompute.py) into the original forward
+    nor hoists it next to it.  In the port the program's order is the
+    order it runs in and nothing merges duplicate ops, so the clone runs
+    where the rewrite put it and the barrier has nothing to do."""
+    return {"Out": list(ins["X"])}
 
 
 @register_op("scale")

@@ -15,6 +15,15 @@ those of the whole batch.  After a step the state is laid out by its
 specs again (the JAX step's `out_shardings`), and the fetches come back
 as full tensors, as the JAX fetches come back replicated.
 
+The JAX step is one `jax.jit` with its state donated.  Here the step is
+captured (`capture=True`, the default; parallel/captured.py): the
+block's runs of capturable ops are CUDA graphs per signature, replayed
+from the third call, and with `donate_state` (FLAGS_donation not "off")
+each state DTensor's new value is written into its old local tensor's
+storage, so the state keeps its addresses.  `capture=False` runs the
+step op by op from Python: the reference the captured step is held to,
+bit for bit.
+
 The mesh's ranks run on CUDA over NCCL unless it was made for the CPU
 (`make_mesh(..., device="cpu")`, gloo).  With `FLAGS_verify_sharding`
 on, the static SPMD analyzer (`analysis/shard.py`) checks the program
@@ -34,8 +43,9 @@ from ..obs import flight as obs_flight
 from ..obs import health as obs_health
 from ..obs import telemetry as obs_tele
 from ..utils import flags as _flags
+from .captured import ProgramStep
 from .mesh import mesh_scope
-from .sharding import (NamedSharding, batch_spec, distribute,
+from .sharding import (NamedSharding, _dtensor, batch_spec, distribute,
                        is_optimizer_state, optimizer_state_names,
                        param_spec, replicating, to_full, zero1_spec)
 
@@ -75,7 +85,7 @@ def place_of(mesh):
 def make_parallel_step(program, feed_names, fetch_names, mesh,
                        state_template, dp_axis="dp", mp_axis="mp",
                        donate_state=None, fp=None, zero_stage=0,
-                       feed_specs=None, spec_overrides=None):
+                       feed_specs=None, spec_overrides=None, capture=True):
     """A Program block as a step over the mesh.
 
     Returns (step, state_shardings) where
@@ -89,9 +99,14 @@ def make_parallel_step(program, feed_names, fetch_names, mesh,
     `state_shardings`.
 
     spec_overrides maps a state name to the spec it takes, bypassing
-    param_spec and the zero1 rewrite.  donate_state is accepted and does
-    nothing: the step makes new state tensors and drops the old ones
-    (donation on the mesh path waits with ROADMAP A2's third part).
+    param_spec and the zero1 rewrite.  With capture (the default) the
+    step runs the block's runs of capturable ops as CUDA graphs
+    (parallel/captured.py; `step.captured` is its `ProgramStep`); with
+    donate_state (None: `analysis.alias.state_donation()`, False under
+    FLAGS_donation=off) the new state is written into the old state's
+    storage and the step returns the same DTensors; without it the step
+    returns new state tensors.  capture=False runs the block op by op
+    (it makes new state tensors whatever donate_state says).
 
     With FLAGS_verify_sharding on, the static SPMD analyzer runs over
     the program and mesh first (unless the caller already did:
@@ -126,7 +141,7 @@ def make_parallel_step(program, feed_names, fetch_names, mesh,
     block = fp.desc.block(fp.block_idx)
     device = fp.device
 
-    def step(state, feeds, rng):
+    def distribute_feeds(feeds):
         dist_feeds = {}
         for n in sorted(feeds):
             v = prepare_feed(block, n, feeds[n], device)
@@ -134,14 +149,42 @@ def make_parallel_step(program, feed_names, fetch_names, mesh,
                 v = distribute(v, mesh, feed_specs.get(
                     n, batch_spec(tuple(v.shape), mesh, dp_axis)))
             dist_feeds[n] = v
+        return dist_feeds
+
+    def laid_out(new_state):
+        return {n: (distribute(v, mesh, placements[n])
+                    if n in placements and not (
+                        isinstance(v, _dtensor())
+                        and tuple(v.placements) == tuple(placements[n]))
+                    else v)
+                for n, v in new_state.items()}
+
+    if not capture:
+        def step(state, feeds, rng):
+            dist_feeds = distribute_feeds(feeds)
+            with replicating():
+                fetches, new_state = fp(state, dist_feeds, rng)
+                new_state = laid_out(new_state)
+                fetches = [to_full(f) for f in fetches]
+            return fetches, new_state
+
+        return step, state_shardings
+
+    core = ProgramStep(fp, "parallel_step", donate=donate_state)
+
+    def step(state, feeds, rng):
+        dist_feeds = distribute_feeds(feeds)
         with replicating():
-            fetches, new_state = fp(state, dist_feeds, rng)
-            new_state = {n: (distribute(v, mesh, placements[n])
-                             if n in placements else v)
-                         for n, v in new_state.items()}
-            fetches = [to_full(f) for f in fetches]
+            fetches, new_state, owned = core.run(state, dist_feeds, rng)
+            new_state = laid_out(new_state)
+            # a graph's own buffer, or a state tensor a later step
+            # writes in place, is copied out
+            fetches = [to_full(f).clone() if n in owned or n in state
+                       else to_full(f)
+                       for n, f in zip(fp.fetch_names, fetches)]
         return fetches, new_state
 
+    step.captured = core
     return step, state_shardings
 
 
@@ -158,11 +201,16 @@ class ParallelTrainer:
 
     Every rank of the mesh runs the same calls with the same feeds (the
     global batch; each rank keeps its shard of it).
+
+    `capture` (default True) runs the step captured and donated
+    (`make_parallel_step`); `captured` is then its `ProgramStep`
+    (`captures`, `replays`, `pool_bytes`, `capture_seconds`), None for
+    `capture=False`.
     """
 
     def __init__(self, main_program, startup_program, feed_names,
                  fetch_names, mesh, dp_axis="dp", mp_axis="mp", seed=0,
-                 zero_stage=0, feed_specs=None):
+                 zero_stage=0, feed_specs=None, capture=True):
         self.main_program = main_program
         self.startup_program = startup_program
         self.feed_names = list(feed_names)
@@ -173,6 +221,7 @@ class ParallelTrainer:
         self.zero_stage = zero_stage
         self.feed_specs = feed_specs
         self.seed = int(seed)
+        self.capture = bool(capture)
         self.place = place_of(mesh)
         self._step_count = 0
         self._step_fn = None
@@ -234,7 +283,13 @@ class ParallelTrainer:
         return make_parallel_step(
             self.main_program, self.feed_names, fetch_all, self.mesh,
             state, dp_axis=self.dp_axis, mp_axis=self.mp_axis, fp=fp,
-            zero_stage=self.zero_stage, feed_specs=self.feed_specs)
+            zero_stage=self.zero_stage, feed_specs=self.feed_specs,
+            capture=self.capture)
+
+    @property
+    def captured(self):
+        """The step's `ProgramStep` (parallel/captured.py), or None."""
+        return getattr(self._step_fn, "captured", None)
 
     def step(self, feeds):
         """One training step on the global batch `feeds`; returns the

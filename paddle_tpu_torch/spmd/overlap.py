@@ -28,16 +28,25 @@ mesh, replicated parameters (no zero1), and no train-mode batch_norm
 statistics).  `overlap_supported` is the gate, its reasons the JAX
 module's word for word; `SpmdTrainer` falls back to the mesh path when
 it says no.
+
+The step is captured as the mesh step is (parallel/captured.py): the
+block runs on each rank's local tensors through the executor's captured
+segments, the bucketed reduction as a seam before the first optimizer
+op (inside the capture), and with donation each rank's replicated state
+is updated in its own storage.  `capture=False` runs the block op by op
+inside `shard_map_norep`: the reference the captured step is held to,
+bit for bit.
 """
 
 import torch
 
-from ..fluid.executor import ExecContext, apply_op, prepare_feed
+from ..fluid.executor import ExecContext, _local, apply_op, prepare_feed
 from ..jit import FunctionalProgram
 from ..obs import trace as obs_trace
 from ..ops.registry import span
 from ..parallel import collectives as C
 from ..parallel import sharding as psharding
+from ..parallel.captured import ProgramStep
 from ..parallel.mesh import mesh_shape
 from ..parallel.ring import bucketed_allreduce
 from ..parallel.trainer import place_of
@@ -108,7 +117,7 @@ def make_overlapped_dp_step(program, feed_names, fetch_names, mesh,
                             state_template, dp_axis="dp",
                             bucket_bytes=DEFAULT_BUCKET_BYTES,
                             donate_state=None, feed_specs=None,
-                            skip_reduce=False):
+                            skip_reduce=False, capture=True):
     """The program as the explicit bucketed dp step.
 
     Returns (step, state_shardings) with the `make_parallel_step`
@@ -120,9 +129,11 @@ def make_overlapped_dp_step(program, feed_names, fetch_names, mesh,
     tensor.  Every rank runs the same call.  Callers gate on
     `overlap_supported` first.
 
-    donate_state is accepted and does nothing (donation on the mesh
-    path waits with ROADMAP A2's third part): the step makes new state
-    tensors and never writes the old ones.
+    With capture (the default) the step is captured (`step.captured` is
+    its `ProgramStep`), and with donate_state (None:
+    `analysis.alias.state_donation()`) each rank's state is updated in
+    its own storage and the step returns the same DTensors; without it,
+    or with capture=False, the step returns new state tensors.
 
     skip_reduce=True elides the bucketed ring entirely — the optimizer
     applies LOCAL gradients, so the result is numerically WRONG across
@@ -143,6 +154,17 @@ def make_overlapped_dp_step(program, feed_names, fetch_names, mesh,
     names = sorted(state_template)
     n_fetch = len(fp.fetch_names)
 
+    def reduce_seam(env):
+        grads = {g: env[g] for g in grad_order if g in env}
+        obs_trace.instant("comm/reduce_seam", cat="comm",
+                          n_grads=len(grads),
+                          bucket_bytes=int(bucket_bytes),
+                          skip_reduce=bool(skip_reduce))
+        if not skip_reduce:
+            env.update(bucketed_allreduce(
+                grads, bucket_bytes, axis_name=dp_axis, mean=True,
+                order=[g for g in reduce_order if g in grads]))
+
     def local_step(state, feeds, rng):
         env = dict(state)
         env.update(feeds)
@@ -150,16 +172,7 @@ def make_overlapped_dp_step(program, feed_names, fetch_names, mesh,
                           device=fp.device, rng=rng)
         for i, od in enumerate(ops):
             if i == split:
-                grads = {g: env[g] for g in grad_order if g in env}
-                obs_trace.instant("comm/reduce_seam", cat="comm",
-                                  n_grads=len(grads),
-                                  bucket_bytes=int(bucket_bytes),
-                                  skip_reduce=bool(skip_reduce))
-                if not skip_reduce:
-                    env.update(bucketed_allreduce(
-                        grads, bucket_bytes, axis_name=dp_axis,
-                        mean=True, order=[g for g in reduce_order
-                                          if g in grads]))
+                reduce_seam(env)
             with span(od.type):
                 apply_op(ctx, od)
         new_state = dict(state)
@@ -180,20 +193,57 @@ def make_overlapped_dp_step(program, feed_names, fetch_names, mesh,
                        for n in names}
     out_specs = tuple(psharding.P() for _ in range(n_fetch + len(names)))
 
-    def step(state, feeds, rng):
-        local = {n: prepare_feed(block, n, feeds[n], fp.device)
-                 for n in sorted(feeds)}
-        in_feed_specs = {
-            n: feed_specs.get(n, psharding.batch_spec(
-                tuple(getattr(v, "shape", ())), mesh, dp_axis))
-            for n, v in local.items()}
-        sharded = psharding.shard_map_norep(
-            local_step, mesh,
-            in_specs=(state_specs, in_feed_specs, psharding.P()),
-            out_specs=out_specs)
-        with torch.no_grad():
-            outs = sharded({n: state[n] for n in names}, local, rng)
-        fetches = [psharding.to_full(f) for f in outs[:n_fetch]]
-        return fetches, dict(zip(names, outs[n_fetch:]))
+    def feed_spec(n, v):
+        return feed_specs.get(n, psharding.batch_spec(
+            tuple(getattr(v, "shape", ())), mesh, dp_axis))
 
+    if not capture:
+        def step(state, feeds, rng):
+            local = {n: prepare_feed(block, n, feeds[n], fp.device)
+                     for n in sorted(feeds)}
+            sharded = psharding.shard_map_norep(
+                local_step, mesh,
+                in_specs=(state_specs,
+                          {n: feed_spec(n, v) for n, v in local.items()},
+                          psharding.P()),
+                out_specs=out_specs)
+            with torch.no_grad():
+                outs = sharded({n: state[n] for n in names}, local, rng)
+            fetches = [psharding.to_full(f) for f in outs[:n_fetch]]
+            return fetches, dict(zip(names, outs[n_fetch:]))
+
+        return step, state_shardings
+
+    core = ProgramStep(fp, "overlap_dp_step", donate=donate_state,
+                       seams={split: reduce_seam})
+    replicate = psharding.placements(mesh, psharding.P())
+
+    def step(state, feeds, rng):
+        local = {}
+        for n in sorted(feeds):
+            v = prepare_feed(block, n, feeds[n], fp.device)
+            if isinstance(v, torch.Tensor):
+                v = psharding._lift(v, mesh).redistribute(
+                    mesh, psharding.placements(mesh, feed_spec(n, v))) \
+                    .to_local()
+            local[n] = v
+        local_state = {n: _local(psharding._lift(state[n], mesh))
+                       for n in names}
+        with torch.no_grad(), C.axis_env(mesh):
+            fetches, new_local, owned = core.run(local_state, local, rng)
+            out = []
+            for n, v in zip(fp.fetch_names, fetches):
+                if n in owned or n in local_state:
+                    v = v.clone()
+                # scalar losses/metrics: local-batch mean -> global mean
+                out.append(C.pmean(v, dp_axis) if v.numel() == 1 else v)
+        new_state = {}
+        for n in names:
+            v = new_local[n]
+            new_state[n] = state[n] if v is local_state[n] else \
+                psharding._dtensor().from_local(v, mesh, replicate,
+                                                run_check=False)
+        return out, new_state
+
+    step.captured = core
     return step, state_shardings

@@ -16,8 +16,8 @@ a content `fingerprint()`, the JAX plan's for the same program, mesh and
 rules: a plan crosses between the packages as its JSON.  `SpmdTrainer`
 lays its state out by the plan and stamps the fingerprint into the
 flight recorder's host context; the JAX trainer also keys its
-persistent compile cache on it, which the port's mesh step gets with
-its capture (ROADMAP A2's third part).
+persistent compile cache on it, and so does the port's `SpmdTrainer`
+for the entry of its captured step.
 """
 
 import hashlib

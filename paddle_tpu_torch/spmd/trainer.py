@@ -21,22 +21,40 @@ partition-plan artifact (`plan.build_partition_plan`):
     mesh step, kept so records join across the packages).
 
 The JAX trainer's first step acquires its compiled step from the
-persistent compile cache.  The port's mesh step runs eagerly and the
-port's cache holds executor plans, so a mesh step has no entry until
-the mesh path is captured (ROADMAP A2's third part): the first step
-records `_aot_state = "no-cache"`, what the JAX trainer records when
-`pcache.get_cache()` returns None.
+persistent compile cache (`_try_aot`).  The port's step is captured
+(parallel/captured.py), and a CUDA graph cannot be saved, so its cache
+entry records the capture instead: keyed as the JAX trainer keys its
+step (`_pcache_key`: the program with its feeds, fetches, flags and
+mesh, the stack, the step mode, ZeRO stage and bucket size, the plan's
+fingerprint and the feeds' shapes and dtypes), it holds the capture's
+seconds and pool bytes and the meta `origin="spmd_step"`, the mode,
+whether the state is donated, the mesh and the plan's fingerprint.
+`_aot_state` reads as the JAX trainer's: "pending" before the first
+step, "tried" from the first step's lookup until its capture, then
+"compiled" once a miss's capture stored its entry, "hit" when the first
+step found an entry that passes its check (the step still captures),
+"error" when the cache failed (the step runs captured all the same),
+"no-cache" without a cache directory (or an uncaptured step), and "off"
+with `use_pcache=False`.
 `save_checkpoint` and `restore_checkpoint` write and read the sharded
 per-rank snapshots of `checkpoint.py`, and `attach_supervisor` puts a
 resilience supervisor over them; `elastic_generation` (set by
 `resilience.elastic`) stamps each snapshot and guards each restore.
 """
 
+import logging
+
 from ..parallel.trainer import ParallelTrainer, make_parallel_step
 from .overlap import make_overlapped_dp_step, overlap_supported
 from .plan import build_partition_plan, load_rules
 
 __all__ = ["SpmdTrainer", "attach_supervisor"]
+
+_log = logging.getLogger("paddle_tpu_torch.spmd")
+
+# the flags the step's cache key folds in (the JAX trainer's)
+_TRACE_FLAGS = ("amp_bf16", "amp_bf16_act", "bn_shifted_stats",
+                "donation")
 
 
 def _rank():
@@ -67,9 +85,9 @@ class SpmdTrainer(ParallelTrainer):
     bucket_bytes: > 0 requests the explicit bucketed dp step with
         ring-allreduce buckets of that size; 0 (default) keeps the mesh
         step.  `step_mode` records which step runs.
-    use_pcache: kept for the JAX signature; the port has no compile
-        cache (`_aot_state` reads "no-cache" after the first step when
-        it is on, "off" when it is off).
+    use_pcache: whether the first step looks its captured step up in
+        the persistent cache (FLAGS_compile_cache_dir) and a miss's
+        capture stores its entry; `_aot_state` says what happened.
     """
 
     def __init__(self, main_program, startup_program, feed_names,
@@ -144,7 +162,7 @@ class SpmdTrainer(ParallelTrainer):
                     self.mesh, state, dp_axis=self.dp_axis,
                     bucket_bytes=self.bucket_bytes,
                     donate_state=donate_state,
-                    feed_specs=self.feed_specs)
+                    feed_specs=self.feed_specs, capture=self.capture)
             self.overlap_fallback_reason = reason
         self.step_mode = "gspmd"
         overrides = {n: self.plan.spec_of(n) for n in state
@@ -153,15 +171,85 @@ class SpmdTrainer(ParallelTrainer):
             self.main_program, self.feed_names, fetch_all, self.mesh,
             state, dp_axis=self.dp_axis, mp_axis=self.mp_axis, fp=fp,
             zero_stage=self.zero_stage, feed_specs=self.feed_specs,
-            donate_state=donate_state, spec_overrides=overrides)
+            donate_state=donate_state, spec_overrides=overrides,
+            capture=self.capture)
+
+    # -- the persistent cache -------------------------------------------------
+    def _pcache_key(self, feeds):
+        """The JAX trainer's `_pcache_key`, through the port's
+        fingerprint module."""
+        from ..compile import fingerprint as fp_mod
+        from ..utils import flags
+
+        return fp_mod.combine(
+            fp_mod.program_fingerprint(
+                self.main_program, feeds=self.feed_names,
+                fetches=self._fetch_all,
+                flag_items=[(k, flags.get_flag(k)) for k in _TRACE_FLAGS],
+                mesh=self._mesh_axes()),
+            fp_mod.environment_fingerprint(),
+            "spmd:%s:z%d:b%d" % (self.step_mode, self.zero_stage,
+                                 self.bucket_bytes),
+            self.plan.fingerprint(),
+            fp_mod.values_signature(feeds))
+
+    def _entry_meta(self):
+        return {"origin": "spmd_step", "mode": self.step_mode,
+                "donated": bool(self.captured.donate),
+                "mesh": self._mesh_axes(),
+                "plan": self.plan.fingerprint()}
+
+    def _try_aot(self, feeds):
+        """The first step's lookup (the JAX `_try_aot`): a hit is an
+        entry whose meta equals this step's; on a miss the step's first
+        capture stores the entry.  A cache failure records "error" and
+        never fails the step."""
+        from ..compile import pcache as pcache_mod
+
+        core = self.captured
+        if core is None:
+            self._aot_state = "no-cache"
+            return
+        meta = self._entry_meta()
+
+        def check(entry):
+            if {k: entry.get(k) for k in meta} != meta:
+                raise ValueError("the entry records another step: %r"
+                                 % ({k: entry.get(k) for k in meta},))
+
+        try:
+            cache = pcache_mod.get_cache()
+            if cache is None:
+                self._aot_state = "no-cache"
+                return
+            key = self._pcache_key(feeds)
+            entry = cache.get(key, check=check)
+        except Exception as exc:
+            _log.warning("spmd step cache lookup failed (%r)", exc)
+            self._aot_state = "error"
+            return
+        if entry is not None:
+            self._aot_state = "hit"
+            return
+
+        def store(seconds, pool_bytes):
+            core.on_capture = None
+            try:
+                cache.put(key, dict(meta, capture_seconds=seconds,
+                                    pool_bytes=int(pool_bytes)),
+                          compile_seconds=seconds, meta=meta)
+            except Exception as exc:
+                _log.warning("spmd step cache entry not stored (%r)", exc)
+                self._aot_state = "error"
+                return
+            self._aot_state = "compiled"
+
+        core.on_capture = store
 
     def step(self, feeds):
         if self._aot_state == "pending":
-            # the JAX trainer's first step acquires its compiled step
-            # from the persistent compile cache; the port's eager mesh
-            # step has no entry (ROADMAP A2's third part), so it
-            # records what the JAX trainer records without a cache
-            self._aot_state = "no-cache"
+            self._aot_state = "tried"
+            self._try_aot(feeds)
         return super().step(feeds)
 
     # -- sharded checkpoints --------------------------------------------------

@@ -30,9 +30,9 @@ before anything runs:
      (tune/fit.py, fitted from perf-history measurements) corrects each
      term; identity until something has been measured.
 
-A candidate whose pipeline holds `auto_remat` reaches the port's pass,
-which raises NotImplementedError naming ROADMAP A5; `rank` lets it
-through rather than drop the candidate or price it unoptimized.
+A candidate is priced over its pass-optimized program, so an
+`auto_remat` candidate pays its recomputed forward in the compute term
+and carries the rewrite's lower activation peak into its memory term.
 
 The output `RankedPlan` is deterministic — same model, same space,
 same arguments => byte-identical `to_dict()` JSON across fresh

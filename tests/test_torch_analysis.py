@@ -641,12 +641,15 @@ def test_program_costs_rows_equal_jax():
 
 _JAX_TYPES = sorted(jreg._OP_REGISTRY)
 # the type the port does not register: recompute_barrier (ROADMAP A5)
-_WAITING = {"recompute_barrier"}
+# none since the recompute slice registered recompute_barrier
+_WAITING = set()
 
 
 def test_the_port_registers_all_but_two_jax_types():
+    """Named for an earlier count: the port now registers every JAX
+    type."""
     assert set(_JAX_TYPES) - set(treg.registered_ops()) == _WAITING
-    assert len(treg.registered_ops()) == 212
+    assert len(treg.registered_ops()) == 213
     assert set(treg.registered_ops()) <= set(_JAX_TYPES)
 
 

@@ -11,8 +11,8 @@ at the JAX package's figures.  The optimized programs run in the port
 against the unoptimized ones: f32 fetches bit for bit, or within 1e-5
 of the largest value where `layout` converted the program (NHWC
 convolutions sum in another order).  The cases are
-those of tests/test_compile_passes.py and tests/test_opt_passes.py
-(`auto_remat` runs raise in the port: ROADMAP A5).
+those of tests/test_compile_passes.py and tests/test_opt_passes.py;
+`auto_remat` against the JAX pass on a training program.
 
 `fused_elemwise_chain`: its forward and generic grad against the JAX
 kernel's on the same inputs (atol 1e-5 relative to the largest value,
@@ -542,17 +542,40 @@ def test_fuse_contracts():
 
 
 def test_auto_remat_waits_with_recompute():
+    """Named for what the pass once did (it raised, waiting with
+    fluid/recompute.py): the port's `auto_remat` now rewrites through
+    its own recompute.py.  The rewritten desc, the record and the
+    explain diff (the activation peak before and after) equal the JAX
+    pass's; the peak falls; 3 Momentum steps of the rewritten program
+    in the port equal the plain program's bit for bit."""
     assert tpasses.available_passes() == jpasses.available_passes()
-    pm = tpasses.PassManager("auto_remat:stride=2:budget_gb=0")
-    main, _, fetch, _ = b_conv_classifier(tfluid)
-    with pytest.raises(NotImplementedError, match="A5"):
-        pm.run(main, fetches=[fetch])
-    # the activation-peak estimate, its accept gate, is ported
+    spec = "auto_remat:stride=2:budget_gb=0"
+    *_, jopt, jpm = _optimize("jax", "conv_classifier", spec)
+    main, startup, fetch, feed, opt, pm = _optimize(
+        "torch", "conv_classifier", spec)
+    assert opt.desc.to_dict() == jopt.desc.to_dict()
+    assert [_record(r) for r in pm.records] == \
+        [_record(r) for r in jpm.records]
+    assert [_diff(r) for r in pm.records] == \
+        [_diff(r) for r in jpm.records]
+    peaks = pm.records[0]["diff"]["activation_peak_bytes"]
+    assert peaks["after"] < peaks["before"]
+    types = [od.type for od in opt.desc.block(0).ops]
+    assert "recompute_barrier" in types
+    # the activation-peak estimate, its accept gate, equals the JAX one
     jm, _, jfetch, _ = b_conv_classifier(jfluid)
-    from paddle_tpu.compile import opt_passes as jopt
+    from paddle_tpu.compile import opt_passes as jopt_mod
 
     assert topt.activation_peak_bytes(main.desc, [fetch]) == \
-        jopt.activation_peak_bytes(jm.desc, [jfetch])
+        jopt_mod.activation_peak_bytes(jm.desc, [jfetch])
+    runs = []
+    for desc in (main.desc, opt.desc):
+        exe = texec.Executor(CPU)
+        scope = tfluid.Scope()
+        exe.run(startup, scope=scope)
+        runs.append([exe.run(desc, feed=feed, fetch_list=[fetch],
+                             scope=scope)[0] for _ in range(3)])
+    assert all(_same_bits(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.parametrize("spec", [

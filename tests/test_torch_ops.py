@@ -253,7 +253,9 @@ def test_registry_holds_the_slice_op_set():
         # the program analysis slice: the `fuse` rewrite pass's op
         "fused_elemwise_chain",
         # the mesh slice: get_places counts the mesh's ranks
-        "get_places"}
+        "get_places",
+        # the recompute slice: the barrier before a recomputed segment
+        "recompute_barrier"}
     # the `fuse` rewrite pass's op, registered since the program
     # analysis slice
     assert treg.get_op_info("fused_elemwise_chain").kernel is not None

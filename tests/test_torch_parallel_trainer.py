@@ -18,6 +18,15 @@ params at rtol 2e-4 and atol 1e-5.
 - `get_places` at 4 ranks counts the mesh; in one process its output
   has the JAX op's shape and dtype.
 - `ParallelDo` equals inline execution, as on the JAX side.
+- The step captured (the default) against the uncaptured one at dp 2 x
+  mp 2 with ZeRO-1, from the JAX run's state: bit for bit, under
+  FLAGS_donation=off too; the captured step's state keeps its storage
+  (donated), the others' moves; one capture, replays after it; and the
+  JAX trainer's result within the tolerances.
+- At world size 1 in this process: the captured step against the
+  uncaptured one and the JAX trainer; a new feed shape captures anew;
+  `donate_state=False`; a dropout program's losses captured and
+  uncaptured; a capture that fails raises naming the step and the op.
 - At world size 1 in this process: the MLP through ParallelTrainer
   equals the plain Executor, and `TrainingSupervisor.for_parallel`
   snapshots and restores the trainer's state, the resumed run's params
@@ -92,6 +101,9 @@ def ranks(jax_runs, tmp_path_factory):
         cases.build_conv_bn, cases.conv_bn_feeds, ["img", "label"], {},
         jax_runs["conv_bn"][0], 2))
     todo["places"] = (cases.place_count, ({"mp": 2},))
+    todo["capture_pair"] = (cases.capture_pair, (
+        cases.build_mlp, cases.mlp_feeds, ["x", "label"], {"mp": 2},
+        jax_runs["zero1_dp2_mp2"][0], STEPS, 1))
     return run_cases(todo, 4, tmp_path_factory.mktemp("ranks"))
 
 
@@ -358,3 +370,211 @@ def test_verify_sharding_waits_with_the_analyzer(world_one):
     finally:
         flags.set_flag("verify_sharding", False)
         jflags.set_flag("verify_sharding", False)
+
+
+def _same_state(a, b):
+    return a.keys() == b.keys() and all(np.array_equal(a[n], b[n])
+                                        for n in a)
+
+
+def test_captured_step_at_4_ranks_equals_uncaptured(ranks, jax_runs):
+    got = _result(ranks, "capture_pair")
+    cap, unc, off = got["captured"], got["uncaptured"], got["off"]
+    assert cap[0] == unc[0] == off[0]
+    assert _same_state(cap[1], unc[1]) and _same_state(cap[1], off[1])
+    # donated: every shard where it was; copied: the updated state moves
+    assert cap[2] == [] and unc[2] and off[2] == unc[2]
+    # the warm-up, the capture (on the CPU its plain version), replays
+    assert cap[3] == off[3] == (1, STEPS - 2) and unc[3] is None
+    _, jlosses, jstate = jax_runs["zero1_dp2_mp2"]
+    _assert_parity(cap[0], cap[1], jlosses, jstate)
+
+
+def _fit_a_line(fl=tfluid):
+    main, startup = fl.Program(), fl.Program()
+    with fl.program_guard(main, startup):
+        x = fl.layers.data(name="x", shape=[13], dtype="float32")
+        y = fl.layers.data(name="y", shape=[1], dtype="float32")
+        h = fl.layers.fc(input=x, size=16, act="relu")
+        pred = fl.layers.fc(input=h, size=1)
+        avg = fl.layers.mean(fl.layers.square_error_cost(input=pred,
+                                                         label=y))
+        fl.optimizer.MomentumOptimizer(learning_rate=0.05,
+                                       momentum=0.9).minimize(avg)
+    return main, startup, avg
+
+
+def _line_feed(i, rows=8):
+    rs = np.random.RandomState(300 + i)
+    x = rs.randn(rows, 13).astype(np.float32)
+    return {"x": x, "y": x[:, :1] * 2.0 - 1.0}
+
+
+def _line_trainer(mesh, init=None, **kw):
+    main, startup, avg = _fit_a_line()
+    tr = ParallelTrainer(main, startup, ["x", "y"], [avg.name], mesh,
+                         **kw).init()
+    if init is not None:
+        scope = tfluid.Scope()
+        tfluid.io.params_from_numpy(scope, init, "cpu")
+        tr.load_state_from(scope)
+    return tr
+
+
+def test_world_one_captured_step_equals_uncaptured_and_jax(world_one):
+    """At world 1: the captured step's losses and state are the
+    uncaptured step's bit for bit and the JAX trainer's within the
+    tolerances; the state keeps its storage; a new feed shape (16 rows
+    after 8) warms up and captures anew, counted; the replays of the
+    first shape go on."""
+    mesh = make_mesh(device="cpu")
+    jmain, jstartup, javg = _fit_a_line(jfluid)
+    jtr = JTrainer(jmain, jstartup, ["x", "y"], [javg.name],
+                   jmake_mesh(n_devices=1)).init()
+    init = {n: np.array(v) for n, v in jtr.state.items()}
+    feeds = [_line_feed(i) for i in range(4)] + \
+        [_line_feed(i, rows=16) for i in range(4, 7)] + [_line_feed(7)]
+    jlosses = [float(np.asarray(jtr.step(f)[0]).reshape(-1)[0])
+               for f in feeds]
+    runs = {}
+    for capture in (True, False):
+        tr = _line_trainer(mesh, init, capture=capture)
+        ptrs = {n: v.to_local().data_ptr() for n, v in tr.state.items()}
+        losses = [float(tr.step(f)[0].reshape(-1)[0]) for f in feeds]
+        moved = [n for n, v in tr.state.items()
+                 if v.to_local().data_ptr() != ptrs[n]]
+        runs[capture] = (losses, {n: tr.fetch_state(n) for n in tr.state},
+                         moved, tr.captured)
+    (closs, cstate, cmoved, core), (uloss, ustate, umoved, _) = \
+        runs[True], runs[False]
+    assert closs == uloss and _same_state(cstate, ustate)
+    assert cmoved == [] and umoved
+    # 8 rows: warm-up, capture, replay, replay; 16 rows: warm-up,
+    # capture, replay; 8 rows again: a replay
+    assert (core.captures, core.replays) == (2, 4)
+    _assert_parity(closs, cstate, jlosses,
+                   {n: np.asarray(v) for n, v in jtr.state.items()})
+
+
+def test_donate_state_false_keeps_copies(world_one):
+    from paddle_tpu_torch.jit import FunctionalProgram, state_from_scope
+    from paddle_tpu_torch.parallel import make_parallel_step
+
+    mesh = make_mesh(device="cpu")
+    tr = _line_trainer(mesh)
+    fp = FunctionalProgram(tr.main_program, ["x", "y"], tr.fetch_names,
+                           place=tfluid.CPUPlace())
+    step, _ = make_parallel_step(tr.main_program, ["x", "y"],
+                                 tr.fetch_names, mesh,
+                                 state_from_scope(fp, _scope_of(tr)),
+                                 fp=fp, donate_state=False)
+    assert not step.captured.donate
+    state = tr.state
+    for i in range(3):
+        _, new = step(state, _line_feed(i), None)
+        assert all(new[n] is not state[n] for n in
+                   fp.state_out_names)
+        state = new
+
+
+def _scope_of(tr):
+    scope = tfluid.Scope()
+    tr.dump_state_to(scope)
+    return scope
+
+
+def test_dropout_draws_alike_captured_and_uncaptured(world_one):
+    mesh = make_mesh(device="cpu")
+
+    def build():
+        main, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.program_guard(main, startup):
+            x = tfluid.layers.data(name="x", shape=[16, 32],
+                                   dtype="float32", append_batch_size=False)
+            h = tfluid.layers.fc(input=x, size=32)
+            d = tfluid.layers.dropout(h, dropout_prob=0.5)
+            cost = tfluid.layers.mean(x=tfluid.layers.square(d))
+            tfluid.optimizer.SGD(learning_rate=0.1).minimize(cost)
+        return main, startup, cost
+
+    feed = {"x": np.random.RandomState(5).randn(16, 32).astype(np.float32)}
+    out, init = {}, None
+    for capture in (True, False):
+        main, startup, cost = build()
+        tr = ParallelTrainer(main, startup, ["x"], [cost.name], mesh,
+                             seed=7, capture=capture).init()
+        if init is None:
+            init = {n: tr.fetch_state(n) for n in tr.state}
+        scope = tfluid.Scope()
+        tfluid.io.params_from_numpy(scope, init, "cpu")
+        tr.load_state_from(scope)
+        out[capture] = [float(tr.step(feed)[0].reshape(-1)[0])
+                        for _ in range(5)]
+    assert out[True] == out[False] and len(set(out[True])) == 5
+
+
+def test_a_failed_capture_names_the_step_and_the_op(world_one,
+                                                    monkeypatch):
+    """A kernel that reads the device from the host inside the capture
+    (here `mean`'s, made to) fails the capture with CaptureError naming
+    the step, the segment and the op; the step does not go on
+    uncaptured."""
+    from paddle_tpu_torch.fluid import graphs
+    from paddle_tpu_torch.ops import registry as op_registry
+
+    mesh = make_mesh(device="cpu")
+    tr = _line_trainer(mesh)
+    info = op_registry.get_op_info("mean")
+    kernel = info.kernel
+
+    def reads_the_host(ctx, ins, attrs):
+        out = kernel(ctx, ins, attrs)
+        if graphs.capturing():
+            float(out["Out"][0].to_local().sum())
+        return out
+
+    monkeypatch.setattr(info, "kernel", reads_the_host)
+    tr.step(_line_feed(0))
+    with pytest.raises(graphs.CaptureError,
+                       match=r"parallel_step: .*'mean'") as err:
+        tr.step(_line_feed(1))
+    assert "read of the device from the host" in str(err.value)
+    with pytest.raises(graphs.CaptureError):
+        tr.step(_line_feed(2))
+
+
+def test_executor_captures_segments_fed_dtensors(world_one):
+    """Executor.run fed DTensors (the mesh path through the executor):
+    its segments warm up, capture and replay like any other, and no
+    segment counts as eager for the mesh; the losses are those of the
+    same runs fed plain tensors.  The first run's updates make the
+    scope's plain state DTensors, so the second run is a new signature:
+    its warm-up, then the capture and the replays."""
+    from paddle_tpu_torch.obs import registry as tregistry
+    from paddle_tpu_torch.parallel.sharding import P, distribute
+
+    mesh = make_mesh(device="cpu")
+    fam = tregistry.get_registry().counter(
+        "executor_eager_segments_total", labelnames=("reason",))
+    before = fam.labels(reason="mesh").value
+    runs = {}
+    for fed in ("dtensor", "plain"):
+        main, startup, avg = _fit_a_line()
+        exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+        torch.manual_seed(3)
+        exe.run(startup, scope=scope)
+        losses = []
+        for i in range(5):
+            feed = {n: torch.from_numpy(v)
+                    for n, v in _line_feed(i).items()}
+            if fed == "dtensor":
+                feed = {n: distribute(v, mesh, P()) for n, v in feed.items()}
+            out, = exe.run(main, feed=feed, fetch_list=[avg], scope=scope,
+                           return_numpy=False)
+            losses.append(float(out.full_tensor() if hasattr(
+                out, "full_tensor") else out))
+        runs[fed] = (losses, exe.captures, exe.replays)
+    assert runs["dtensor"][1:] == (1, 2)
+    assert fam.labels(reason="mesh").value == before
+    np.testing.assert_allclose(runs["dtensor"][0], runs["plain"][0],
+                               rtol=0, atol=1e-6)

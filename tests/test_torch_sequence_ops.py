@@ -79,10 +79,11 @@ def test_the_port_registers_the_fifteen_new_op_types():
     (ops/nn.py, conv2d_transpose, 6 losses, 3 metrics), and A10's last
     op groups 32 (the rest of ops/conv.py, ops/v2_extra.py,
     ops/detection.py, feed, fetch, save and load), the program
-    analysis slice fused_elemwise_chain, and the mesh slice get_places."""
+    analysis slice fused_elemwise_chain, the mesh slice get_places, and
+    the recompute slice recompute_barrier."""
     ops = set(registered_ops())
     assert set(NEW_OPS) <= ops
-    assert len(ops) == 212
+    assert len(ops) == 213
 
 
 # -- sequence_softmax, sequence_conv, row_conv ---------------------------------

@@ -10,7 +10,10 @@ the JAX package's, on the CPU.
 - `overlap_supported`'s reasons, word for word, and `_split_point`.
 - `SpmdTrainer` at world size 1 in this process: the mesh step
   ("gspmd"), the fallback reason of a dp axis of 1, `_aot_state`
-  "no-cache", the flight host context, losses and state against the
+  "no-cache" without a cache directory, and with one "compiled" (the
+  first trainer's capture stores its entry), "hit" (a second trainer),
+  "error" (a cache that cannot be made; the step runs captured all the
+  same) and "off", the entry's meta; the flight host context, losses and state against the
   JAX single-device trainer from one initial state; the checkpoint
   names, which work now (their cases are in
   tests/test_torch_spmd_checkpoint.py), with the JAX package's
@@ -22,7 +25,10 @@ the JAX package's, on the CPU.
   zero: f32 sums of 4 shards' gradients in another order); every rank
   holds the same state after it, while the `skip_reduce` twin (local
   gradients, no ring) leaves each rank a different state and the
-  trainer's own state untouched.
+  trainer's own state untouched.  The captured step (the default)
+  equals the uncaptured one bit for bit there, keeps every rank's state
+  in its storage when donated, and returns new state tensors with
+  donate_state=False.
 """
 
 import json
@@ -105,7 +111,9 @@ def world_one():
 def ranks(jax_side, tmp_path_factory):
     """The rank-side case of this file, in one spawn of 4 ranks."""
     todo = {"overlap": (cases.overlapped_dp,
-                        (jax_side["init"], STEPS, BUCKET))}
+                        (jax_side["init"], STEPS, BUCKET)),
+            "overlap_capture": (cases.overlap_capture,
+                                (jax_side["init"], STEPS, BUCKET))}
     return run_cases(todo, 4, tmp_path_factory.mktemp("ranks"))
 
 
@@ -300,6 +308,8 @@ def test_world_one_trainer_matches_jax_single_device(world_one,
 
 
 def test_aot_state_and_checkpoint_names(world_one, tmp_path):
+    """Without FLAGS_compile_cache_dir the first step records
+    "no-cache", as the JAX trainer does when `get_cache()` is None."""
     main, startup, avg = pcases.build_mlp(tfluid)
     tr = spmd.SpmdTrainer(main, startup, FEEDS, [avg.name],
                           world_one.mesh).init()
@@ -310,17 +320,94 @@ def test_aot_state_and_checkpoint_names(world_one, tmp_path):
     # has nothing to restore, the JAX trainer's IOError
     with pytest.raises(IOError, match="no complete sharded checkpoint"):
         tr.restore_checkpoint(str(tmp_path))
-    assert tr.elastic_generation is None
-    snap = tr.save_checkpoint(str(tmp_path), 1)
-    assert spmd.latest_sharded_checkpoint(str(tmp_path)) == snap
-    sup = spmd.attach_supervisor(tr, str(tmp_path))
-    assert sup._latest_snapshot() == snap and sup.place == tr.place
-    from paddle_tpu.spmd import __all__ as jall
-
-    assert sorted(spmd.__all__) == sorted(jall)
 
 
-# -- the overlapped dp step at dp 4 ----------------------------------------
+def _cached_trainer(world_one, **kw):
+    main, startup, avg = pcases.build_mlp(tfluid)
+    return spmd.SpmdTrainer(main, startup, FEEDS, [avg.name],
+                            world_one.mesh, **kw).init()
+
+
+def test_aot_states_compiled_hit_error_off(world_one, tmp_path):
+    """On a cache directory: the first trainer looks up ("tried"), its
+    capture at the second step stores the entry ("compiled"); a second
+    trainer hits at its first step and still captures, with the same
+    losses; a directory that cannot be made records "error" and the
+    steps run captured; use_pcache=False records "off"."""
+    from paddle_tpu_torch.compile import pcache
+    from paddle_tpu_torch.utils import flags
+
+    flags.set_flag("compile_cache_dir", str(tmp_path / "cache"))
+    try:
+        pcache.reset()
+        first = _cached_trainer(world_one)
+        states, losses = [], []
+        for i in range(3):
+            losses.append(float(first.step(pcases.mlp_feeds(i))[0]
+                                .reshape(-1)[0]))
+            states.append(first._aot_state)
+        assert states == ["tried", "compiled", "compiled"]
+        assert first.captured.captures == 1
+        cache = pcache.get_cache()
+        entry = cache.get(first._pcache_key(pcases.mlp_feeds(0)))
+        assert entry["origin"] == "spmd_step" and entry["mode"] == "gspmd"
+        assert entry["donated"] is True
+        assert entry["mesh"] == {"dp": 1, "mp": 1}
+        assert entry["plan"] == first.plan.fingerprint()
+        assert entry["capture_seconds"] > 0
+        pcache.reset()
+        second = _cached_trainer(world_one)
+        again = [float(second.step(pcases.mlp_feeds(i))[0].reshape(-1)[0])
+                 for i in range(3)]
+        assert second._aot_state == "hit" and again == losses
+        assert second.captured.captures == 1
+        off = _cached_trainer(world_one, use_pcache=False)
+        off.step(pcases.mlp_feeds(0))
+        assert off._aot_state == "off"
+        flags.set_flag("compile_cache_dir", "")
+        broken = _cached_trainer(world_one)
+        # a cache root that is a file: the lookup's I/O fails
+        (tmp_path / "file").write_text("")
+        flags.set_flag("compile_cache_dir", str(tmp_path / "file"))
+        pcache.reset()
+        out = [float(broken.step(pcases.mlp_feeds(i))[0].reshape(-1)[0])
+               for i in range(3)]
+        assert broken._aot_state == "error" and out == losses
+        assert (broken.captured.captures, broken.captured.replays) == (1, 1)
+    finally:
+        flags.set_flag("compile_cache_dir", "")
+        pcache.reset()
+
+
+def test_a_cache_entry_of_another_step_is_no_hit(world_one, tmp_path):
+    """An entry under the key whose meta names another step (here, a
+    plan fingerprint edited in place) fails the check: quarantined, a
+    miss, and the trainer's capture stores its own."""
+    import json as json_mod
+
+    from paddle_tpu_torch.compile import pcache
+    from paddle_tpu_torch.utils import flags
+
+    flags.set_flag("compile_cache_dir", str(tmp_path / "cache"))
+    try:
+        pcache.reset()
+        first = _cached_trainer(world_one)
+        for i in range(2):
+            first.step(pcases.mlp_feeds(i))
+        key = first._pcache_key(pcases.mlp_feeds(0))
+        cache = pcache.get_cache()
+        entry = cache.get(key)
+        cache.put(key, dict(entry, plan="0" * 64))
+        second = _cached_trainer(world_one)
+        for i in range(2):
+            second.step(pcases.mlp_feeds(i))
+        assert second._aot_state == "compiled"
+        assert json_mod.dumps(cache.get(key)["plan"]) == \
+            json_mod.dumps(first.plan.fingerprint())
+    finally:
+        flags.set_flag("compile_cache_dir", "")
+        pcache.reset()
+
 
 def test_overlapped_dp_matches_jax_and_single_rank(ranks, jax_side,
                                                    world_one):
@@ -340,3 +427,14 @@ def test_overlapped_dp_matches_jax_and_single_rank(ranks, jax_side,
     assert len(set(digests)) == 1
     assert len(set(twin_digests)) == 4
     assert unchanged
+
+
+def test_overlapped_dp_captured_equals_uncaptured(ranks):
+    got = _result(ranks, "overlap_capture")
+    cap, unc, nod = got["captured"], got["uncaptured"], got["nodonate"]
+    assert cap[0] == unc[0] == nod[0] == "overlap-dp"
+    assert cap[1] == unc[1] == nod[1]
+    assert cap[2] == unc[2] == nod[2] and len(set(cap[2])) == 1
+    # donated: each rank's state in its own storage; else new tensors
+    assert cap[3] and not unc[3] and not nod[3]
+    assert cap[4] == nod[4] == (1, STEPS - 2) and unc[4] is None

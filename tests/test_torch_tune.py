@@ -15,7 +15,9 @@ ResNet-50 with `image_size=32`.
   the JAX terms give at the port's bandwidth.
 - fit: the same records give exactly equal coefficients and errors;
   calibration files, pmem and pcomm blobs read across the packages.
-- auto_remat: a candidate whose pipeline holds it raises naming A5.
+- auto_remat: a candidate whose pipeline holds it is priced over its
+  rewritten program, lower in activation peak and higher in compute,
+  as the JAX tuner prices it.
 - the CLI's plan is byte-identical across two fresh processes;
   `measure_plan` on the CPU measures the top-2 lenet5 candidates into a
   history that `join_history` pairs; the leg and the CLI raise without
@@ -232,12 +234,37 @@ def test_rank_defaults_to_the_cards_peaks():
 
 
 def test_auto_remat_candidate_raises_naming_a5():
+    """Named for what the candidate once did (it raised naming A5): the
+    port's `auto_remat` now rewrites through fluid/recompute.py, so the
+    candidate is priced over its rewritten program, as the JAX test
+    `tests/test_tune.py::test_rank_prices_auto_remat_with_reduced_
+    activation_peak` holds the JAX tuner: a lower activation peak and
+    peak memory than the unoptimized candidate, a higher compute term;
+    and every term and the breakdown equal the JAX plan's."""
     space = tspace.SearchSpace(
         8, meshes=["dp=8,mp=1"], batches=[32], micro_batches=[1],
         pipelines=["none", "default+auto_remat:stride=2:budget_gb=0"])
-    with pytest.raises(NotImplementedError, match="A5"):
-        trank.rank(tmodels.builder("lenet5"), space.points(), 8,
-                   model="lenet5", hbm_gb=16, **PEAKS)
+    jspace_ = jspace.SearchSpace(
+        8, meshes=["dp=8,mp=1"], batches=[32], micro_batches=[1],
+        pipelines=["none", "default+auto_remat:stride=2:budget_gb=0"])
+    plan = trank.rank(tmodels.builder("lenet5"), space.points(), 8,
+                      model="lenet5", hbm_gb=16, **PEAKS)
+    jplan = jrank.rank(jmodels.builder("lenet5"), jspace_.points(), 8,
+                       model="lenet5", hbm_gb=16, **PEAKS)
+    assert len(plan.ranked) == 2 and not plan.rejected
+    by_pipe = {e.candidate.pipeline_label: e for e in plan.ranked}
+    remat = by_pipe["dce,fold,cse,dve,auto_remat:budget_gb=0.0:stride=2"]
+    raw = by_pipe["none"]
+    assert remat.hbm_breakdown["activation_peak_bytes"] \
+        < raw.hbm_breakdown["activation_peak_bytes"]
+    assert remat.peak_hbm_bytes < raw.peak_hbm_bytes
+    assert remat.terms["compute_s"] > raw.terms["compute_s"]
+    jby = {e.candidate.pipeline_label: e for e in jplan.ranked}
+    for label, e in by_pipe.items():
+        j = jby[label]
+        assert e.hbm_breakdown == j.hbm_breakdown
+        assert _close(e.terms["compute_s"], j.terms["compute_s"])
+        assert _close(e.peak_hbm_bytes, j.peak_hbm_bytes)
 
 
 # ---------------------------------------------------------------------------

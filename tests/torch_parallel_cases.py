@@ -110,6 +110,45 @@ def train(rank, build, feeds_fn, feed_names, mesh_kw, init, steps,
     return losses, state, placements
 
 
+def _local_ptr(v):
+    return (v.to_local() if hasattr(v, "to_local") else v).data_ptr()
+
+
+def capture_pair(rank, build, feeds_fn, feed_names, mesh_kw, init, steps,
+                 zero_stage=0):
+    """ParallelTrainer from `init` on the mesh of `mesh_kw`: captured,
+    uncaptured, and captured under FLAGS_donation=off.  {tag: (losses,
+    final state, the state names whose local storage moved, (captures,
+    replays) or None)}."""
+    from paddle_tpu_torch.utils import flags
+
+    out = {}
+    for tag in ("captured", "uncaptured", "off"):
+        prev = flags.get_flag("donation")
+        if tag == "off":
+            flags.set_flag("donation", "off")
+        try:
+            main, startup, loss = build()
+            tr = ParallelTrainer(main, startup, feed_names, [loss.name],
+                                 _mesh(mesh_kw), zero_stage=zero_stage,
+                                 capture=tag != "uncaptured").init()
+            scope = fluid.Scope()
+            tio.params_from_numpy(scope, init, "cpu")
+            tr.load_state_from(scope)
+            ptrs = {n: _local_ptr(v) for n, v in tr.state.items()}
+            losses = [float(tr.step(feeds_fn(i))[0].reshape(-1)[0])
+                      for i in range(steps)]
+            moved = sorted(n for n, v in tr.state.items()
+                           if _local_ptr(v) != ptrs[n])
+            state = {n: tr.fetch_state(n) for n in sorted(tr.state)}
+            core = tr.captured
+            out[tag] = (losses, state, moved, core and (core.captures,
+                                                        core.replays))
+        finally:
+            flags.set_flag("donation", prev)
+    return out
+
+
 def build_transformer(sp_axis, sp_mode, B=4, T=16, V=64):
     """tests/test_flash_attention_op.py's `_train_transformer` program:
     (main, startup, loss name)."""

@@ -65,13 +65,41 @@ def overlapped_dp(rank, init, steps, bucket_bytes):
               for i in range(steps)]
     state = {n: tr.fetch_state(n) for n in sorted(tr.state)}
     before = _local_digest(tr.state)
+    # the twin donates nothing (as obs.comm.overlap_report builds it):
+    # a donating step writes its new state into the state it is given
     twin, _ = spmd_overlap.make_overlapped_dp_step(
         tr.main_program, tr.feed_names, tr._fetch_all, tr.mesh,
-        tr._state_template, bucket_bytes=bucket_bytes, skip_reduce=True)
+        tr._state_template, bucket_bytes=bucket_bytes, skip_reduce=True,
+        donate_state=False)
     _fetches, twin_state = twin(tr.state, mlp_feeds(steps), None)
     unchanged = _local_digest(tr.state) == before
     return (tr.step_mode, losses, state, _gathered(before),
             _gathered(_local_digest(twin_state)), unchanged)
+
+
+def overlap_capture(rank, init, steps, bucket_bytes):
+    """The overlapped dp step at dp 4 from `init`, captured (donated),
+    uncaptured, and captured with donate_state=False through
+    make_overlapped_dp_step: {tag: (losses, every rank's digest of its
+    final state, whether the state kept its local storage, (captures,
+    replays) or None)}."""
+    out = {}
+    for tag in ("captured", "uncaptured", "nodonate"):
+        tr = trainer({}, init, bucket_bytes, capture=tag != "uncaptured")
+        if tag == "nodonate":
+            tr._step_fn, _ = spmd_overlap.make_overlapped_dp_step(
+                tr.main_program, tr.feed_names, tr._fetch_all, tr.mesh,
+                tr._state_template, bucket_bytes=bucket_bytes,
+                donate_state=False)
+        ptrs = {n: v.to_local().data_ptr() for n, v in tr.state.items()}
+        losses = [float(tr.step(mlp_feeds(i))[0].reshape(-1)[0])
+                  for i in range(steps)]
+        kept = all(v.to_local().data_ptr() == ptrs[n]
+                   for n, v in tr.state.items())
+        core = getattr(tr._step_fn, "captured", None)
+        out[tag] = (tr.step_mode, losses, _gathered(_local_digest(tr.state)),
+                    kept, core and (core.captures, core.replays))
+    return out
 
 
 def comm_observed(rank, init, bucket_bytes, ici_gbps):
